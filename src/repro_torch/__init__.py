@@ -1,0 +1,17 @@
+"""PyTorch + CUDA port of the tensorized-LSH system (reference: ``repro``).
+
+The CP serving path: ``build_service`` -> CP hashing (kernel K3,
+``kernels/csrc/cp_gram.cu``) -> per-table sorted keys -> fused query
+(kernel K1, ``kernels/csrc/fused_query.cu``). Entry points default to
+``device="cuda"``; ``device="cpu"`` runs every kernel's plain PyTorch
+version. This package imports torch and numpy, never JAX or ``repro``.
+
+Importing it turns TF32 off for float32 matmuls and convolutions: TF32
+rounds inputs to a 10-bit mantissa, which flips hash codes next to bucket
+edges and moves re-rank scores away from the reference's float32.
+"""
+
+import torch
+
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False

@@ -1,0 +1,112 @@
+"""The tolerances the port holds its kernels and its plain versions to.
+
+Two fp32 implementations of one sum round differently when they add in
+another order (a CUDA kernel, a cuBLAS or CPU matmul, XLA). These bounds are
+the standard rounding-error bound of a sum of n products, gamma_n * S with
+gamma_n = n * 2^-24 and S the same sum over absolute values, doubled
+because both sides round:
+
+  * K3 raw values: n = d + N + Rx*Rp (the d-long dots, the N-fold product,
+    the Rx*Rp-term sum), S = |scale| * sum_{r,q} prod_n sum_d |x| |p|.
+  * Codes: a code may differ only where the value lies within that bound of
+    a bucket edge (E2LSH) or of 0 (SRP); keys may differ only in the tables
+    holding such a code.
+  * Re-rank scores: the bound of qq + yy - 2 qy (or of qy, qq, yy for
+    cosine) carried through the square root / the division.
+
+Used by the CPU tests (port against the reference), by the card tests and
+by ``chip_smoke.py`` (kernel against plain version).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core.segments import _gram_sum
+from repro_torch.core.tensor_formats import CPTensor
+from repro_torch.kernels.epilogues import div_w
+from repro_torch.kernels.ref import cp_inner_ref
+
+U = 2.0 ** -24
+
+
+def raw_bound(x_factors: torch.Tensor, p_factors: torch.Tensor,
+              scale: float) -> torch.Tensor:
+    """(B, L, K) absolute bound on the difference of two fp32 evaluations
+    of K3's raw values; x (B, N, d, Rx), p (N, L, K, d, Rp) stacked."""
+    b, n, d, rx = x_factors.shape
+    _, l, k, _, rp = p_factors.shape
+    s = abs(scale) * cp_inner_ref(x_factors.abs(),
+                                  p_factors.abs().reshape(n, l * k, d, rp))
+    return 2.0 * (d + n + rx * rp) * U * s.reshape(b, l, k)
+
+
+def boundary_codes(v: torch.Tensor, bound: torch.Tensor, kind: str,
+                   offsets: torch.Tensor | None = None,
+                   w: float = 1.0) -> torch.Tensor:
+    """(B, L, K) bool: codes that another rounding of ``v`` within
+    ``bound`` could flip (E2LSH: next to a bucket edge; SRP: next to 0)."""
+    if kind.endswith("srp"):
+        return v.abs() <= bound
+    t = div_w(v + offsets.reshape(v.shape[1:])[None], w)
+    frac = t - torch.floor(t)
+    # the division rounds once more: half an ulp of t, in value units
+    slack = bound + w * U * t.abs()
+    return (frac * w <= slack) | ((1.0 - frac) * w <= slack)
+
+
+def key_mismatches(keys_a: torch.Tensor, keys_b: torch.Tensor,
+                   boundary: torch.Tensor) -> tuple[int, int]:
+    """-> (key cells that differ outside boundary tables, key cells whose
+    table holds a boundary code)."""
+    near = boundary.any(dim=-1)
+    differ = keys_a != keys_b
+    return int((differ & ~near).sum()), int(near.sum())
+
+
+def rerank_bound(metric: str, queries: CPTensor, corpus: CPTensor,
+                 ids: torch.Tensor, scores: torch.Tensor) -> torch.Tensor:
+    """(B, topk) bound on the difference of two fp32 evaluations of the
+    re-rank score of each result (0 where ``ids`` is -1)."""
+    valid = ids >= 0
+    safe = torch.where(valid, ids, 0).long()
+    qs, cs = abs(queries.scale), abs(corpus.scale)
+    sub = [f[safe] for f in corpus.factors]               # (B, k, d, R)
+    qa = [f.abs() for f in queries.factors]
+    ya = [f.abs() for f in sub]
+    s_qq = (qs * qs) * _gram_sum(qa, qa, "zdr,zdq->zrq")[:, None]
+    s_yy = (cs * cs) * _gram_sum(ya, ya, "zkdr,zkdq->zkrq")
+    s_qy = (qs * cs) * _gram_sum(qa, ya, "zdr,zkdq->zkrq")
+    d = max(queries.dims)
+    r = max(queries.rank, corpus.rank)
+    gamma = 2.0 * (d + len(queries.factors) + r * r + 4) * U
+    s = torch.where(valid, scores, 0.0).abs()
+    if metric == "euclidean":
+        dd2 = gamma * (s_qq + s_yy + 2.0 * s_qy)
+        tol = dd2 / torch.maximum(s, torch.sqrt(dd2))
+    else:
+        qq = (qs * qs) * _gram_sum(queries.factors, queries.factors,
+                                   "zdr,zdq->zrq")[:, None]
+        yy = (cs * cs) * _gram_sum(sub, sub, "zkdr,zkdq->zkrq")
+        nqy = torch.sqrt(torch.clamp(qq * yy, min=1e-30))
+        tol = gamma * (s_qy / nqy + s * (s_qq / torch.clamp(qq, min=1e-30)
+                                         + s_yy / torch.clamp(yy, min=1e-30)))
+    return torch.where(valid, tol, 0.0)
+
+
+def topk_mismatches(ids_a, scores_a, ids_b, scores_b, tol) -> int:
+    """Result slots whose ids differ and are not explained by a near tie:
+    a slot may differ only where the scores at that rank agree within
+    ``tol`` and the reference's score there lies within 2*tol of a
+    neighbouring rank's (or the slot is the last one)."""
+    differ = ids_a != ids_b
+    close = (scores_a - scores_b).abs() <= tol
+    s = scores_b
+    k = s.shape[1]
+    prev = torch.cat([torch.full_like(s[:, :1], float("nan")), s[:, :-1]], 1)
+    nxt = torch.cat([s[:, 1:], torch.full_like(s[:, :1], float("nan"))], 1)
+    tie = ((s - prev).abs() <= 2 * tol) | ((nxt - s).abs() <= 2 * tol)
+    last = torch.zeros_like(differ)
+    last[:, k - 1] = True
+    ok = close & (tie | last)
+    return int((differ & ~ok).sum())

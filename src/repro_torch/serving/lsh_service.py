@@ -1,0 +1,221 @@
+"""Batched LSH similarity-search service (reference:
+``repro.serving.lsh_service``), device index only.
+
+A corpus of CP tensors is hashed once at build time with a CP family
+(K3 on the card), and query batches run K3 (``raw``) then K1 (probe,
+dedup, exact re-rank, top-k) without leaving the card until the final
+(B, topk) results.
+
+In the reference, ``build_service(device: bool)`` chooses between the device
+index and the host-dict index. Here ``device`` is the torch device the
+service runs on ("cuda" by default; "cpu" runs the kernels' plain
+versions). The host index is queued, as are multi-probe (``probes`` > 1),
+the sampling query modes, ``shards``, ``bucket_cap`` and the mutation
+endpoints: they raise ``NotImplementedError`` naming the ROADMAP.md item
+that brings them. That is a stated limit of this slice, not a fallback.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Any, Sequence
+
+import numpy as np
+import torch
+
+from repro_torch.core.index import QUERY_MODES, DeviceLSHIndex
+from repro_torch.core.lsh import LSHFamily, make_family
+from repro_torch.core.tensor_formats import CPTensor
+from repro_torch.device import resolve_device
+
+
+def _queued(what: str, item: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what} is not ported yet: ROADMAP.md §1 item {item}")
+
+
+@dataclasses.dataclass
+class ServiceStats:
+    queries: int = 0
+    batches: int = 0
+    total_ms: float = 0.0
+    total_candidates: int = 0
+    topk_queries: int = 0
+    build_s: float = 0.0
+    hash_s: float = 0.0        # part of build_s spent hashing (K3)
+    sort_s: float = 0.0        # part of build_s spent sorting the tables
+
+    @property
+    def mean_latency_ms(self):
+        return self.total_ms / max(self.queries, 1)
+
+    @property
+    def mean_candidates(self):
+        return self.total_candidates / max(self.queries, 1)
+
+    @property
+    def qps(self):
+        return self.queries / max(self.total_ms / 1e3, 1e-9)
+
+    def reset(self):
+        """Zero the query counters (e.g. after warm-up); keeps the build
+        times."""
+        self.queries = self.batches = self.topk_queries = 0
+        self.total_ms = 0.0
+        self.total_candidates = 0
+
+
+class LSHService:
+    """build() once, then serve query batches."""
+
+    def __init__(self, family: LSHFamily, metric: str = "euclidean",
+                 bucket_cap: int | None = None, shards: int | None = None,
+                 probes: int = 1, query_mode: str = "topk"):
+        if int(probes) < 1:
+            raise ValueError(f"probes must be >= 1, got {probes}")
+        if query_mode not in QUERY_MODES:
+            raise ValueError(f"unknown query_mode {query_mode!r}; expected "
+                             f"one of {QUERY_MODES}")
+        if int(probes) > 1:
+            raise _queued("multi-probe (probes > 1)", "1")
+        if query_mode != "topk":
+            raise _queued(f"query_mode={query_mode!r}", "3")
+        if shards is not None:
+            raise _queued("the sharded index (shards=S)", "10")
+        if bucket_cap is not None:
+            raise _queued("an explicit bucket_cap", "2")
+        self.probes = int(probes)
+        self.query_mode = query_mode
+        self.index = DeviceLSHIndex(family, metric=metric)
+        self.stats = ServiceStats()
+
+    @property
+    def device(self) -> torch.device:
+        return self.index.device
+
+    def build(self, corpus: CPTensor,
+              batch_size: int = 65536) -> "LSHService":
+        t0 = time.perf_counter()
+        self.index.build(corpus, batch_size=batch_size)
+        self.stats.build_s = time.perf_counter() - t0
+        self.stats.hash_s = self.index.hash_s
+        self.stats.sort_s = self.index.sort_s
+        return self
+
+    # -- queries ------------------------------------------------------------
+
+    def query_arrays(self, queries: CPTensor, topk: int = 10, *,
+                     probes: int | None = None, mode: str | None = None,
+                     seed: int | None = None):
+        """Batched raw results: (ids (B, topk), scores (B, topk), n_cand (B,))
+        numpy arrays; ids -1-filled where a row has fewer than topk
+        candidates. Requests are validated with the reference's contract;
+        the queued modes raise ``NotImplementedError``."""
+        probes = self.probes if probes is None else int(probes)
+        if probes < 1:
+            raise ValueError(f"probes must be >= 1, got {probes}")
+        if int(topk) < 1:
+            raise ValueError(f"topk must be >= 1, got {topk}")
+        mode = self.query_mode if mode is None else mode
+        if mode not in QUERY_MODES:
+            raise ValueError(f"unknown query mode {mode!r}; expected one "
+                             f"of {QUERY_MODES}")
+        if mode in ("uniform", "weighted"):
+            if seed is None:
+                raise ValueError(
+                    f"mode={mode!r} needs an explicit per-request seed "
+                    "(sampling draws are seeded, never implicit)")
+            raise _queued(f"mode={mode!r}", "3")
+        if seed is not None:
+            raise ValueError("seed applies to the sampling modes only; "
+                             "mode='topk' is deterministic")
+        if probes > 1:
+            raise _queued("multi-probe (probes > 1)", "1")
+        n = queries.factors[0].shape[0]
+        t0 = time.perf_counter()
+        ids, scores, n_cand = self.index.query_batch(queries, topk=int(topk))
+        # one device-to-host copy of the three results, split on the host
+        host = torch.cat([ids, scores.view(torch.int32), n_cand[:, None]],
+                         dim=1).cpu().numpy()
+        k = ids.shape[1]
+        ids, scores, n_cand = (np.ascontiguousarray(host[:, :k]),
+                               host[:, k:2 * k].view(np.float32).copy(),
+                               host[:, 2 * k].copy())
+        dt = (time.perf_counter() - t0) * 1e3
+        self.stats.queries += n
+        self.stats.topk_queries += n
+        self.stats.batches += 1
+        self.stats.total_ms += dt
+        self.stats.total_candidates += int(n_cand.sum())
+        return ids, scores, n_cand
+
+    def query_batch(self, queries: CPTensor, topk: int = 10, *,
+                    probes: int | None = None, mode: str | None = None,
+                    seed: int | None = None) -> list[dict[str, Any]]:
+        """Per-query result dicts (ids/scores trimmed of -1 fill)."""
+        ids, scores, n_cand = self.query_arrays(queries, topk=topk,
+                                                probes=probes, mode=mode,
+                                                seed=seed)
+        out = []
+        for row_ids, row_scores, nc in zip(ids, scores, n_cand):
+            mask = row_ids >= 0
+            out.append({"ids": row_ids[mask], "scores": row_scores[mask],
+                        "candidates": int(nc)})
+        return out
+
+    # -- mutations (queued) ---------------------------------------------------
+
+    def insert(self, batch, batch_size: int = 2048):
+        raise _queued("insert (delta segments)", "2")
+
+    def delete(self, ids):
+        raise _queued("delete (tombstones)", "2")
+
+    def prepare_compact(self):
+        raise _queued("prepare_compact", "2")
+
+    def apply_swap(self, pending):
+        raise _queued("apply_swap", "2")
+
+    def compact(self):
+        raise _queued("compact", "2")
+
+    def rebalance(self):
+        raise _queued("rebalance (the sharded index)", "10")
+
+
+def build_service(key: torch.Generator, kind: str, dims: Sequence[int],
+                  corpus: CPTensor, *, metric: str | None = None,
+                  num_codes: int = 8, num_tables: int = 8, rank: int = 4,
+                  bucket_width: float = 4.0, device="cuda",
+                  bucket_cap: int | None = None, shards: int | None = None,
+                  probes: int = 1, query_mode: str = "topk",
+                  family: LSHFamily | None = None) -> LSHService:
+    """Sample a CP family from ``key`` (a ``torch.Generator``), build the
+    index over ``corpus`` on ``device`` and return the service.
+
+    ``family`` serves a family made elsewhere instead of sampling one (e.g.
+    parameters carried over from the reference with
+    ``repro_torch.convert.family_from_numpy``); ``key`` is then unused and
+    ``kind``, ``num_codes`` and ``num_tables`` must match it. The corpus is
+    moved to ``device``. The reference's ``hash_backend`` / ``probe_backend``
+    knobs do not exist here: the tensors' device picks kernel or plain path.
+    """
+    dev = resolve_device(device)
+    metric = metric or ("cosine" if kind.endswith("srp") else "euclidean")
+    if family is None:
+        family = make_family(key, kind, dims, num_codes=num_codes,
+                             num_tables=num_tables, rank=rank,
+                             bucket_width=bucket_width, device=dev)
+    elif (family.kind, family.num_codes, family.num_tables) != (
+            kind, num_codes, num_tables):
+        raise ValueError(
+            f"family is ({family.kind}, K={family.num_codes}, "
+            f"L={family.num_tables}); build_service was asked for ({kind}, "
+            f"K={num_codes}, L={num_tables})")
+    elif family.device != dev:
+        raise ValueError(f"family on {family.device}, device={dev}")
+    return LSHService(family, metric=metric, bucket_cap=bucket_cap,
+                      shards=shards, probes=probes,
+                      query_mode=query_mode).build(corpus.to(dev))

@@ -8,6 +8,8 @@ def pytest_configure(config):
         "markers",
         "slow: statistically heavy tier-1 tests (bigger corpora / many "
         "sampling draws); run by default, deselect with -m 'not slow'")
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA card (the port's CUDA kernels)")
 
 
 @pytest.fixture(autouse=True, scope="module")

@@ -1,0 +1,107 @@
+"""The port's CUDA kernels against their plain versions, on the card.
+
+Marked ``cuda``: they need an NVIDIA card and ``nvcc`` (the kernels build
+at first use for sm_90a) and skip elsewhere, deciding inside a fixture.
+Run them on the card with
+
+    PYTHONPATH=src python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py
+
+K3 (``cp_gram``): raw values within ``parity.raw_bound``; codes, keys and
+packed words equal except where a value lies within that bound of a bucket
+edge (E2LSH) or of 0 (SRP). K1 (``fused_query``): on the same raw values
+and segment arrays, candidate counts equal bit for bit, scores within
+``parity.rerank_bound``, ids equal except at near ties.
+"""
+
+import pytest
+import torch
+
+from repro_torch.core.projections import sample_cp_projection
+from repro_torch.core.tensor_formats import cp_random_data
+from repro_torch.kernels import parity
+from repro_torch.kernels.cp_gram import cp_gram, cp_gram_plain
+from repro_torch.kernels.fused_query import fused_query, fused_query_plain
+from repro_torch.kernels.ops import _stack_cp_batch, _stack_cp_proj, stack_cp
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def gen():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the port's kernels run on the card "
+                    "only (no interpret mode)")
+    return torch.Generator(device="cuda").manual_seed(0)
+
+
+@pytest.mark.parametrize("dims,b,l,k,rx,rp", [
+    ((12, 12, 12), 3000, 10, 10, 4, 3),   # the serving shape, a ragged batch
+    ((5, 7, 3), 37, 3, 5, 2, 3),          # unequal modes, odd sizes
+    ((4, 4, 4, 4), 129, 2, 40, 1, 2),     # 4 modes, two packed words
+])
+def test_cp_gram_matches_plain(gen, dims, b, l, k, rx, rp):
+    x = _stack_cp_batch(cp_random_data(gen, dims, rx, batch=b))
+    proj = sample_cp_projection(gen, l * k, dims, rp)
+    p = _stack_cp_proj(proj, l)
+    w = 2.0
+    offs = torch.rand((l, k), generator=gen, device="cuda") * w
+    mults = torch.randint(0, 1 << 32, (k,), generator=gen, device="cuda",
+                          dtype=torch.int64) | 1
+    scale = proj.scale
+    raw = cp_gram(x, p, epilogue="raw", scale=scale)
+    raw_p = cp_gram_plain(x, p, epilogue="raw", scale=scale)
+    torch.cuda.synchronize()
+    bound = parity.raw_bound(x, p, scale)
+    assert bool(((raw - raw_p).abs() <= bound).all())
+    for kind, epi in (("cp-e2lsh", "e2lsh"), ("cp-srp", "srp")):
+        near = parity.boundary_codes(raw_p, bound, kind, offs, w)
+        codes = cp_gram(x, p, offs, mults, epilogue=epi, w=w, scale=scale)
+        codes_p = cp_gram_plain(x, p, offs, mults, epilogue=epi, w=w,
+                                scale=scale)
+        assert bool(((codes == codes_p) | near).all())
+        keys = cp_gram(x, p, offs, mults, epilogue=epi + "-keys", w=w,
+                       scale=scale)
+        keys_p = cp_gram_plain(x, p, offs, mults, epilogue=epi + "-keys",
+                               w=w, scale=scale)
+        assert parity.key_mismatches(keys, keys_p, near)[0] == 0
+    words = cp_gram(x, p, epilogue="srp-packed", scale=scale)
+    words_p = cp_gram_plain(x, p, epilogue="srp-packed", scale=scale)
+    near = parity.boundary_codes(raw_p, bound, "cp-srp").any(-1)
+    assert bool(((words == words_p).all(-1) | near).all())
+
+
+@pytest.mark.parametrize("kind,metric,n,k,l,w", [
+    ("cp-e2lsh", "euclidean", 20000, 8, 6, 2.0),
+    ("cp-srp", "cosine", 5000, 10, 4, 1.0),
+    ("cp-e2lsh", "cosine", 3001, 4, 3, 4.0),
+])
+def test_fused_query_matches_plain(gen, kind, metric, n, k, l, w):
+    from repro_torch.serving.lsh_service import build_service
+    dims = (6, 6, 6)
+    corpus = cp_random_data(gen, dims, 3, batch=n)
+    svc = build_service(gen, kind, dims, corpus, metric=metric, num_codes=k,
+                        num_tables=l, rank=2, bucket_width=w)
+    qid = torch.randint(0, n, (300,), generator=gen, device="cuda")
+    q = corpus.index(qid)
+    q = type(q)(tuple(f + 0.05 * torch.randn(f.shape, generator=gen,
+                                             device="cuda")
+                      for f in q.factors), 1.0)
+    fam, idx = svc.index.family, svc.index
+    seg = idx.store.seg_arrays(0)
+    qs = stack_cp(q)
+    values = fam.raw_stacked(qs[1], q.scale)
+    offs, mults = fam.offsets, idx._mults_t
+    kw = dict(kind=kind, w=fam.bucket_width, num_tables=l, num_codes=k,
+              metric=metric, topk=10, cap=idx.cap)
+    ids, sc, nc = fused_query(values, offs, mults, qs, seg, **kw)
+    ids_p, sc_p, nc_p = fused_query_plain(values, offs, mults, qs, seg, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(nc, nc_p)
+    tol = parity.rerank_bound(metric, q, seg.corpus, ids_p, sc_p)
+    same = (ids == ids_p) & (ids_p >= 0)
+    assert bool(((sc - sc_p).abs()[same] <= tol[same]).all())
+    assert parity.topk_mismatches(ids, sc, ids_p, sc_p, tol) == 0
+    # an item queried as itself lands in its own bucket of every table
+    self_ids, _, _ = svc.index.query_batch(corpus.index(qid[:64]), topk=1)
+    assert torch.equal(self_ids[:, 0].long(), qid[:64])
+
