@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's CP serving path on one NVIDIA H100.
+"""Drive the PyTorch port's CP and TT serving paths on one NVIDIA H100.
 
     python3 chip_smoke.py [--log2-corpus 20] [--batches 256] [--batch 1024]
 
@@ -8,23 +8,27 @@ Phases (any failure exits non-zero):
   1. device: the card's name, count and power limit;
   2. build: the CUDA kernels from ``src/repro_torch/kernels/csrc`` (nvcc,
      sm_90a), with ptxas' register and shared-memory lines;
-  3. K3 (``cp_gram``) against its plain version on the card, at the serving
-     shape and at a small ragged shape, for raw / e2lsh-keys / srp-keys /
-     srp-packed;
-  4. the main path: ``build_service`` over n = 2^20 CP tensors
-     ((12, 12, 12), rank 4, cp-e2lsh K=10 L=10 rank 3 w=2), then 256
-     batches of 1024 planted-neighbour queries, with every kernel counter
-     zeroed just before and read just after: build time, query batch
-     latency (mean, median, p99 on the host clock), recall@1 (planted),
-     recall@10 against brute force, peak memory, and self-queries that must
-     return themselves;
-  5. K1 (``fused_query``) against its plain version on the same raw values
-     and segment arrays: the serving index at B = 1024 and a small cp-srp /
-     cosine index;
-  6. the kernels' times (CUDA events) beside their bounds and the plain
-     versions' times;
-  7. a torch.profiler window over 64 query batches: device time by kernel
-     and the device's busy share.
+  3. for each cell, the CP one ([main]: n = 2^20 CP tensors ((12, 12, 12),
+     rank 4), cp-e2lsh K=10 L=10 rank 3 w=2) and the TT one ([tt-main]:
+     n = 2^20 TT tensors ((16, 16, 16, 16), TT rank 4), tt-e2lsh K=10 L=10
+     rank 4 w=48):
+       - ``build_service`` over the corpus, then 256 batches of 1024
+         planted-neighbour queries, with every kernel counter zeroed just
+         before and read just after: build time, query batch latency (mean,
+         median, p99 on the host clock), recall@1 (planted), recall@10
+         against brute force, peak memory, and self-queries that must
+         return themselves;
+       - the hash kernel (K3 ``cp_gram`` / K4 ``tt_inner``) against its
+         plain version over the whole corpus and at a small ragged shape,
+         for raw / e2lsh-keys / srp-keys / srp-packed, and its raw values
+         and key differences against a float64 evaluation;
+       - K1 (``fused_query``, the format's re-rank) against its plain
+         version on the same raw values and segment arrays, its scores
+         against a float64 evaluation, and an SRP / cosine index (CP 4099
+         items, TT 2^16) through both kernels;
+       - the kernels' times (CUDA events) beside their bounds and the plain
+         versions' times, and a torch.profiler window over 64 query
+         batches: device time by kernel and the device's busy share.
 
 The last two lines are one JSON object of kernel records and the device
 record. Needs a CUDA card; imports nothing of JAX or of the ``repro``
@@ -47,15 +51,46 @@ sys.path.insert(0, str(ROOT / "src"))
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA data sheet
 FP32_FLOPS = 67e12             # fp32 outside the tensor cores
-DIMS = (12, 12, 12)
-RHAT = 4
-KIND, NUM_CODES, NUM_TABLES, RANK, WIDTH = "cp-e2lsh", 10, 10, 3, 2.0
 NOISE = 0.02
 TOPK = 10
-# recall@1 of the planted neighbours measured 0.9924 over 4096 queries with
-# these seeds on an H100; a drop below this limit over the 262,144 queries of
-# the default run is a fault of the path, not noise
+# recall@1 of the planted neighbours measured 0.9894 (CP) and 0.9969 (TT)
+# over 262,144 queries with these seeds on an H100; a drop below this limit
+# is a fault of the path, not noise
 RECALL1_MIN = 0.95
+# the rigorous rounding bounds of ``kernels.parity`` are worst cases, loose
+# where a sum's signed terms cancel (the TT chain: its bound's median is a
+# third of the median raw value at the TT cell). Two tighter checks make a
+# kernel that is off by far less than that fail:
+#  * against a float64 evaluation of the same inputs, the kernel's error
+#    may be at most ACCURACY_FACTOR times the plain fp32 version's (its
+#    RMS, and its maximum), floored at one unit in the last place of the
+#    median reference value: the kernel is as accurate as an independent
+#    fp32 evaluation;
+#  * at most KEY_DIFFER_MAX of the key cells may differ from the plain
+#    version's at all. A key differs only where one of its K codes lies
+#    within the two evaluations' difference of a bucket edge (E2LSH) or of
+#    0 (SRP), about 2*K*err/w of them: ~1e-6 at fp32's noise floor (33 of
+#    20,971,520 on the TT cell), ~1e-3 for a kernel a relative 1e-4 off.
+ACCURACY_FACTOR = 4.0
+KEY_DIFFER_MAX = 1e-5
+U = 2.0 ** -24
+
+CELLS = {
+    # the examples/ann_search.py scenario at n = 2^20, K = 10
+    "cp": dict(tag="main", kind="cp-e2lsh", dims=(12, 12, 12), rhat=4,
+               codes=10, tables=10, rank=3, width=2.0, seed=0,
+               srp=dict(dims=(4, 4, 4), rhat=3, n=4099, codes=12, tables=4,
+                        rank=2, every=17)),
+    # the same scenario in TT format at the widths of
+    # benchmarks/table1_e2lsh.py (d = 16, N = 4, R = R^ = 4); w about the
+    # corpus' median norm. The corpus stays at 2^20 (--log2-corpus cuts the
+    # CP cell only).
+    "tt": dict(tag="tt-main", kind="tt-e2lsh", dims=(16, 16, 16, 16),
+               rhat=4, codes=10, tables=10, rank=4, width=48.0, seed=2,
+               srp=dict(dims=(16, 16, 16, 16), rhat=4, n=1 << 16, codes=12,
+                        tables=8, rank=4, every=67)),
+}
+TT_LOG2_CORPUS = 20
 
 
 def fail(msg: str) -> None:
@@ -108,95 +143,214 @@ def phase_build():
             print("[build]   " + line.strip())
 
 
-def k3_compare(x, p, offs, mults, scale, w, label):
-    """K3 vs plain on one input set -> (max abs raw error, boundary codes)."""
+def hash_fns(layout: str) -> dict:
+    """The hash kernel of a format's layout (K3 'cp', K4 'tt'), its plain
+    version, rounding bound, float64-capable oracle, and the samplers and
+    stackers of its small ragged case."""
+    from repro_torch.core import projections, tensor_formats
+    from repro_torch.kernels import ops, parity, ref
+    from repro_torch.kernels.cp_gram import cp_gram_plain
+    from repro_torch.kernels.tt_inner import tt_inner_plain
+    kernel = ops.HASH_KERNELS[layout][0]
+    if layout == "cp":
+        return dict(name="K3", kernel=kernel, plain=cp_gram_plain,
+                    bound=parity.raw_bound, ref=ref.cp_inner_ref,
+                    data=tensor_formats.cp_random_data,
+                    proj=projections.sample_cp_projection,
+                    stack_x=ops._stack_cp_batch, stack_p=ops._stack_cp_proj,
+                    small_ranks=(2, 3))
+    return dict(name="K4", kernel=kernel, plain=tt_inner_plain,
+                bound=parity.tt_raw_bound, ref=ref.tt_inner_ref,
+                data=tensor_formats.tt_random_data,
+                proj=projections.sample_tt_projection,
+                stack_x=ops._stack_tt_batch, stack_p=ops._stack_tt_proj,
+                small_ranks=(3, 2))
+
+
+class Accuracy:
+    """Errors of the kernel and of the plain version against float64
+    values, gathered over chunks."""
+
+    def __init__(self):
+        self.max_k = self.max_p = self.ss_k = self.ss_p = 0.0
+        self.n, self.ref_abs = 0, []
+
+    def add(self, got_k, got_p, exact) -> None:
+        e_k = (got_k.double() - exact).abs()
+        e_p = (got_p.double() - exact).abs()
+        self.max_k = max(self.max_k, float(e_k.max()))
+        self.max_p = max(self.max_p, float(e_p.max()))
+        self.ss_k += float((e_k * e_k).sum())
+        self.ss_p += float((e_p * e_p).sum())
+        self.n += exact.numel()
+        self.ref_abs.append(float(exact.abs().median()))
+
+    def check(self, label: str) -> str:
+        import statistics
+        floor = U * statistics.median(self.ref_abs)
+        rms_k, rms_p = (math.sqrt(s / max(self.n, 1))
+                        for s in (self.ss_k, self.ss_p))
+        for what, k, p in (("RMS", rms_k, rms_p), ("max", self.max_k,
+                                                    self.max_p)):
+            if k > ACCURACY_FACTOR * max(p, floor):
+                fail(f"{label}: the kernel's {what} error against float64 "
+                     f"{k:.3g} exceeds {ACCURACY_FACTOR} x the plain fp32 "
+                     f"version's {p:.3g}")
+        return (f"against float64 over {self.n} values: kernel RMS "
+                f"{rms_k:.3g} / max {self.max_k:.3g}, plain RMS {rms_p:.3g} "
+                f"/ max {self.max_p:.3g}")
+
+
+def exact_raw(f: dict, x, p, scale: float):
+    """(B, L, K) raw values in float64 from the same stacked inputs."""
+    n, l, k = p.shape[:3]
+    v = f["ref"](x.double(), p.double().reshape(n, l * k, *p.shape[3:]))
+    return (scale * v).reshape(x.shape[0], l, k)
+
+
+def hash_compare(layout, x, p, offs, mults, scale, w, label, acc=None):
+    """K3 / K4 vs plain on one input set -> (max abs raw error, boundary
+    codes, key cells that differ at all, key cells compared); ``acc``
+    gathers both raw errors against float64."""
     import torch
     from repro_torch.kernels import parity
-    from repro_torch.kernels.cp_gram import cp_gram, cp_gram_plain
-    raw_k = cp_gram(x, p, epilogue="raw", scale=scale)
-    raw_p = cp_gram_plain(x, p, epilogue="raw", scale=scale)
-    bound = parity.raw_bound(x, p, scale)
+    f = hash_fns(layout)
+    kernel, plain, name = f["kernel"], f["plain"], f["name"]
+    raw_k = kernel(x, p, epilogue="raw", scale=scale)
+    raw_p = plain(x, p, epilogue="raw", scale=scale)
+    bound = f["bound"](x, p, scale)
     err = (raw_k - raw_p).abs()
     if not bool((err <= bound).all()):
-        fail(f"K3 raw {label}: {int((err > bound).sum())} values outside the "
-             f"rounding bound (max err {float(err.max()):.3g})")
-    n_boundary = 0
-    for kind, epi in (("cp-e2lsh", "e2lsh-keys"), ("cp-srp", "srp-keys")):
-        keys_k = cp_gram(x, p, offs, mults, epilogue=epi, w=w, scale=scale)
-        keys_p = cp_gram_plain(x, p, offs, mults, epilogue=epi, w=w,
-                               scale=scale)
+        fail(f"{name} raw {label}: {int((err > bound).sum())} values outside "
+             f"the rounding bound (max err {float(err.max()):.3g})")
+    if acc is not None:
+        acc.add(raw_k, raw_p, exact_raw(f, x, p, scale))
+    n_boundary = n_differ = n_keys = 0
+    for kind, epi in ((f"{layout}-e2lsh", "e2lsh-keys"),
+                      (f"{layout}-srp", "srp-keys")):
+        keys_k = kernel(x, p, offs, mults, epilogue=epi, w=w, scale=scale)
+        keys_p = plain(x, p, offs, mults, epilogue=epi, w=w, scale=scale)
         near = parity.boundary_codes(raw_p, bound, kind, offs, w)
         bad, n_near = parity.key_mismatches(keys_k, keys_p, near)
         if bad:
-            fail(f"K3 {epi} {label}: {bad} keys differ away from bucket edges")
+            fail(f"{name} {epi} {label}: {bad} keys differ away from bucket "
+                 "edges")
         n_boundary += int(near.sum())
+        n_differ += int((keys_k != keys_p).sum())
+        n_keys += keys_k.numel()
     if p.shape[2] % 32 == 0 or label == "small":
-        words_k = cp_gram(x, p, epilogue="srp-packed", scale=scale)
-        words_p = cp_gram_plain(x, p, epilogue="srp-packed", scale=scale)
-        near = parity.boundary_codes(raw_p, bound, "cp-srp").any(-1)
+        words_k = kernel(x, p, epilogue="srp-packed", scale=scale)
+        words_p = plain(x, p, epilogue="srp-packed", scale=scale)
+        near = parity.boundary_codes(raw_p, bound, f"{layout}-srp").any(-1)
         if not bool(((words_k == words_p).all(-1) | near).all()):
-            fail(f"K3 srp-packed {label}: words differ away from 0")
+            fail(f"{name} srp-packed {label}: words differ away from 0")
     torch.cuda.synchronize()
-    return float(err.max()), n_boundary
+    return float(err.max()), n_boundary, n_differ, n_keys
 
 
-def phase_k3(fam, corpus, mults):
+def phase_hash(svc, cell) -> float:
+    """K3 / K4 against its plain version over the cell's whole corpus (the
+    segment's stacked corpus, 16,384 items at a time to bound the plain and
+    float64 chains' memory) and at a small ragged shape."""
     import torch
-    from repro_torch.core.tensor_formats import cp_random_data
-    from repro_torch.core.projections import sample_cp_projection
-    from repro_torch.kernels.ops import _stack_cp_batch, _stack_cp_proj
+    idx = svc.index
+    fam, corpus = idx.family, idx.effective_corpus()
+    layout = corpus.layout
+    f = hash_fns(layout)
+    stacked = idx.store.base.stacked
     p = fam.stacked_projection
-    offs = fam.offsets.reshape(NUM_TABLES, NUM_CODES)
+    offs = fam.offsets.reshape(cell["tables"], cell["codes"])
     scale = corpus.scale * fam.projection.scale
-    n = corpus.factors[0].shape[0]
-    max_err, n_boundary = 0.0, 0
-    for s in range(0, n, 65536):
-        x = _stack_cp_batch(corpus.index(slice(s, s + 65536)))
-        e, nb = k3_compare(x, p, offs, mults, scale, WIDTH, "serving")
+    n = stacked.shape[0]
+    x0 = stacked[:16384]
+    bound0 = f["bound"](x0, p, scale)
+    raw0 = f["plain"](x0, p, epilogue="raw", scale=scale)
+    print(f"[{f['name']}] on the first {x0.shape[0]} items: the rounding "
+          f"bound's median {float(bound0.median()):.4g} against a median "
+          f"|raw value| of {float(raw0.abs().median()):.4g}")
+    acc = Accuracy()
+    max_err, n_boundary, n_differ, n_keys = 0.0, 0, 0, 0
+    for s in range(0, n, 16384):
+        e, nb, nd, nk = hash_compare(layout, stacked[s:s + 16384], p, offs,
+                                     idx._mults_t, scale, cell["width"],
+                                     "serving", acc)
         max_err, n_boundary = max(max_err, e), n_boundary + nb
-    # a small ragged shape: odd batch, unequal mode dims, K not a power of 2
+        n_differ, n_keys = n_differ + nd, n_keys + nk
+    accuracy = acc.check(f"{f['name']} raw")
+    if n_differ > KEY_DIFFER_MAX * n_keys:
+        fail(f"{f['name']}: {n_differ} of {n_keys} key cells differ from the "
+             f"plain version's, more than {KEY_DIFFER_MAX} of them")
+    # a small ragged shape: odd batch, unequal mode dims and ranks, K not a
+    # power of 2
     gen = torch.Generator(device="cuda").manual_seed(7)
-    xs = cp_random_data(gen, (5, 7, 3), 2, batch=37)
-    ps = sample_cp_projection(gen, 3 * 5, (5, 7, 3), 3)
+    rx, rp = f["small_ranks"]
+    xs = f["data"](gen, (5, 7, 3), rx, batch=37)
+    ps = f["proj"](gen, 3 * 5, (5, 7, 3), rp)
     offs_s = torch.rand(15, generator=gen, device="cuda").reshape(3, 5) * 6.0
     mults_s = torch.randint(0, 1 << 32, (5,), generator=gen, device="cuda",
                             dtype=torch.int64) | 1
-    e, nb = k3_compare(_stack_cp_batch(xs), _stack_cp_proj(ps, 3),
-                       offs_s, mults_s, ps.scale, 6.0, "small")
-    print(f"[K3] raw within the rounding bound at ({n} x L*K={NUM_TABLES * NUM_CODES}) "
-          f"and (37 x 15); max |kernel - plain| = {max(max_err, e):.3g}; "
-          f"{n_boundary + nb} boundary codes, keys equal outside their "
-          "tables")
-    return max_err
+    e, nb, _, _ = hash_compare(layout, f["stack_x"](xs), f["stack_p"](ps, 3),
+                               offs_s, mults_s, ps.scale, 6.0, "small")
+    print(f"[{f['name']}] raw within the rounding bound at ({n} x L*K="
+          f"{cell['tables'] * cell['codes']}) and (37 x 15); max |kernel - "
+          f"plain| = {max(max_err, e):.3g}; {accuracy}; {n_boundary + nb} "
+          f"boundary codes, keys equal outside their tables; over the corpus "
+          f"{n_differ} of {n_keys} e2lsh/srp key cells differ at all")
+    return max(max_err, e)
 
 
 def make_queries(corpus, qid, gen):
+    """Corpus members ``qid`` (CP or TT) with NOISE Gaussian noise on every
+    factor or core entry."""
     import torch
-    from repro_torch.core.tensor_formats import CPTensor
     q = corpus.index(qid)
-    return CPTensor(tuple(f + NOISE * torch.randn(f.shape, generator=gen,
-                                                  device=f.device)
-                          for f in q.factors), 1.0)
+    return type(q)(tuple(f + NOISE * torch.randn(f.shape, generator=gen,
+                                                 device=f.device)
+                         for f in q.leaves), 1.0)
 
 
-def phase_main(corpus, qids, queries):
+COUNTED = ("cp_gram", "tt_inner", "fused_query")
+
+
+def counters():
+    """{name: the wrapper or plain function whose count it is}."""
+    from repro_torch.kernels.cp_gram import cp_gram, cp_gram_plain
+    from repro_torch.kernels.fused_query import fused_query, fused_query_plain
+    from repro_torch.kernels.tt_inner import tt_inner, tt_inner_plain
+    return {"cp_gram": cp_gram, "cp_gram_plain": cp_gram_plain,
+            "tt_inner": tt_inner, "tt_inner_plain": tt_inner_plain,
+            "fused_query": fused_query,
+            "fused_query_plain": fused_query_plain}
+
+
+def read_counts() -> dict:
+    return {name: getattr(fn, "launches" if name in COUNTED else "calls")
+            for name, fn in counters().items()}
+
+
+def zero_counts() -> None:
+    for name, fn in counters().items():
+        setattr(fn, "launches" if name in COUNTED else "calls", 0)
+
+
+def phase_main(cell, corpus, qids, queries):
+    """``build_service`` over the cell's corpus and its query batches, with
+    every counter zeroed just before and read just after."""
     import numpy as np
     import torch
     from repro_torch.core.index import brute_force_batch
-    from repro_torch.kernels.cp_gram import cp_gram, cp_gram_plain
-    from repro_torch.kernels.fused_query import fused_query, fused_query_plain
     from repro_torch.serving.lsh_service import build_service
 
+    tag, hash_kernel = cell["tag"], cell["hash_kernel"]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    counters = (cp_gram, cp_gram_plain, fused_query, fused_query_plain)
-    for fn in counters:
-        setattr(fn, "launches" if hasattr(fn, "launches") else "calls", 0)
-    svc = build_service(torch.Generator(device="cuda").manual_seed(1), KIND,
-                        DIMS, corpus, num_codes=NUM_CODES,
-                        num_tables=NUM_TABLES, rank=RANK, bucket_width=WIDTH,
+    zero_counts()
+    svc = build_service(torch.Generator(device="cuda").manual_seed(1),
+                        cell["kind"], cell["dims"], corpus,
+                        num_codes=cell["codes"], num_tables=cell["tables"],
+                        rank=cell["rank"], bucket_width=cell["width"],
                         device="cuda")
-    build_launches = cp_gram.launches
+    build_launches = read_counts()[hash_kernel]
     svc.query_arrays(queries[0], topk=TOPK)           # warm-up
     svc.stats.reset()
     results, lat_ms = [], []
@@ -209,30 +363,30 @@ def phase_main(corpus, qids, queries):
     self_q = corpus.index(qids[0][:256])
     self_ids, self_scores, _ = svc.query_arrays(self_q, topk=TOPK)
     torch.cuda.synchronize()
-    counts = {"cp_gram": cp_gram.launches, "cp_gram_plain": cp_gram_plain.calls,
-              "fused_query": fused_query.launches,
-              "fused_query_plain": fused_query_plain.calls}
+    counts = read_counts()
     peak = torch.cuda.max_memory_allocated()
     st = svc.stats
-    print(f"[main] build_service over n={corpus.factors[0].shape[0]} CP "
-          f"tensors {DIMS} rank {RHAT}: {st.build_s:.3f} s (hash {st.hash_s:.3f} s, "
+    n = corpus.leaves[0].shape[0]
+    print(f"[{tag}] build_service over n={n} {type(corpus).__name__} "
+          f"{cell['dims']} rank {cell['rhat']}, {cell['kind']} "
+          f"K={cell['codes']} L={cell['tables']} rank {cell['rank']} "
+          f"w={cell['width']}: {st.build_s:.3f} s (hash {st.hash_s:.3f} s, "
           f"sort {st.sort_s:.3f} s), cap {svc.index.cap} -> window L*cap = "
-          f"{NUM_TABLES * svc.index.cap}")
+          f"{cell['tables'] * svc.index.cap}")
     lat = np.sort(np.asarray(lat_ms))
-    print(f"[main] {st.batches} batches of {queries[0].factors[0].shape[0]} "
+    print(f"[{tag}] {st.batches} batches of {queries[0].leaves[0].shape[0]} "
           f"in {st.total_ms / 1e3:.3f} s: {st.total_ms / st.batches:.3f} "
           f"ms/batch mean, median {np.median(lat):.3f} ms, p99 "
           f"{lat[int(math.ceil(0.99 * len(lat))) - 1]:.3f} ms, max "
           f"{lat[-1]:.3f} ms; {st.qps:.0f} QPS, mean candidates "
           f"{st.mean_candidates:.1f}")
-    print(f"[main] launches on the main path: {counts} (build: cp_gram "
-          f"{build_launches})")
-    if counts["cp_gram"] == 0 or counts["fused_query"] == 0:
-        fail(f"a kernel of the main path never launched: {counts}")
-    if counts["cp_gram_plain"] or counts["fused_query_plain"]:
-        fail(f"the main path called a plain version: {counts}")
+    print(f"[{tag}] launches on the main path: {counts} (build: "
+          f"{hash_kernel} {build_launches})")
+    if counts[hash_kernel] == 0 or counts["fused_query"] == 0:
+        fail(f"a kernel of the {tag} path never launched: {counts}")
+    if any(counts[f"{k}_plain"] for k in COUNTED):
+        fail(f"the {tag} path called a plain version: {counts}")
 
-    n = corpus.factors[0].shape[0]
     hits1 = 0
     for (ids, scores, nc), qid in zip(results, qids):
         qid = qid.cpu().numpy()
@@ -251,33 +405,52 @@ def phase_main(corpus, qids, queries):
     recall1 = hits1 / n_q
     self_ok = (self_ids[:, 0] == qids[0][:256].cpu().numpy()).mean()
     q256 = queries[0].index(slice(0, 256))
-    truth, _ = brute_force_batch("euclidean", q256, svc.index.effective_corpus(),
-                                 TOPK)
+    truth, _ = brute_force_batch(svc.index.metric, q256,
+                                 svc.index.effective_corpus(), TOPK)
     ids0 = results[0][0][:256]
     recall10 = sum(len(set(t) & set(r[r >= 0].tolist()))
                    for t, r in zip(truth.tolist(), ids0)) / (256 * TOPK)
-    print(f"[main] recall@1 (planted) {recall1:.4f} over {n_q} queries; "
+    print(f"[{tag}] recall@1 (planted) {recall1:.4f} over {n_q} queries; "
           f"recall@10 vs brute force {recall10:.4f} over 256; self-queries "
           f"first {self_ok:.4f} (max self distance "
           f"{float(self_scores[:, 0].max()):.3g}); peak device memory "
           f"{peak / 2**30:.2f} GiB")
+    norms = svc.index.effective_corpus().self_inners().clamp(min=0).sqrt()
+    print(f"[{tag}] corpus norms: min {float(norms.min()):.4g}, median "
+          f"{float(norms.median()):.4g}, max {float(norms.max()):.4g}")
     if self_ok < 1.0:
         fail("a self-query did not return itself first")
     if recall1 < RECALL1_MIN:
         fail(f"recall@1 {recall1} below {RECALL1_MIN}")
-    return svc, counts, results
+    return svc, counts
+
+
+def exact_scores(metric, queries, corpus, ids):
+    """(B, topk) re-rank scores of ``ids`` in float64 (0 where -1)."""
+    import torch
+    valid = ids >= 0
+    q = type(queries)(tuple(t.double() for t in queries.leaves),
+                      queries.scale).index((slice(None), None))
+    sub = corpus.index(torch.where(valid, ids, 0).long())
+    y = type(sub)(tuple(t.double() for t in sub.leaves), sub.scale)
+    qq, yy, qy = q.self_inners(), y.self_inners(), q.pair_inners(y)
+    if metric == "euclidean":
+        s = torch.sqrt(torch.clamp(qq + yy - 2.0 * qy, min=0.0))
+    else:
+        s = qy / (torch.sqrt(qq) * torch.sqrt(yy))
+    return torch.where(valid, s, 0.0)
 
 
 def k1_compare(svc, queries, label):
-    """K1 vs plain on the same raw values and segment arrays."""
+    """K1 vs plain on the same raw values and segment arrays, and both
+    against float64 scores."""
     import torch
     from repro_torch.kernels import parity
     from repro_torch.kernels.fused_query import fused_query, fused_query_plain
-    from repro_torch.kernels.ops import stack_cp
     idx = svc.index
     fam = idx.family
     seg = idx.store.seg_arrays(0)
-    qs = stack_cp(queries)
+    qs = queries.stack()
     values = fam.raw_stacked(qs[1], queries.scale)
     offs, mults = fam.offsets, idx._mults_t
     kw = dict(kind=fam.kind, w=fam.bucket_width, num_tables=fam.num_tables,
@@ -286,109 +459,179 @@ def k1_compare(svc, queries, label):
     ik, sk, nk = fused_query(values, offs, mults, qs, seg, **kw)
     ip, sp, np_ = fused_query_plain(values, offs, mults, qs, seg, **kw)
     torch.cuda.synchronize()
+    name = "K1-TT" if seg.corpus.layout == "tt" else "K1"
     if not torch.equal(nk, np_):
-        fail(f"K1 {label}: candidate counts differ in "
+        fail(f"{name} {label}: candidate counts differ in "
              f"{int((nk != np_).sum())} rows")
     tol = parity.rerank_bound(idx.metric, queries, seg.corpus, ip, sp)
     valid = ip >= 0
-    err = torch.where(valid & (ik == ip), (sk - sp).abs(), 0.0)
+    same = valid & (ik == ip)
+    err = torch.where(same, (sk - sp).abs(), 0.0)
     if bool((err > tol).any()):
-        fail(f"K1 {label}: scores outside the rounding bound "
+        fail(f"{name} {label}: scores outside the rounding bound "
              f"(max err {float(err.max()):.3g})")
     bad = parity.topk_mismatches(ik, sk, ip, sp, tol)
     if bad:
-        fail(f"K1 {label}: {bad} result ids differ without a near tie")
+        fail(f"{name} {label}: {bad} result ids differ without a near tie")
+    acc = Accuracy()
+    acc.add(sk[same], sp[same],
+            exact_scores(idx.metric, queries, seg.corpus, ip)[same])
+    accuracy = acc.check(f"{name} {label} scores")
     n_tie = int((ik != ip).sum())
-    print(f"[K1] {label}: n_cand equal, scores within the rounding bound "
-          f"(max |kernel - plain| {float(err.max()):.3g}), ids equal except "
-          f"{n_tie} near-tie slots")
+    print(f"[{name}] {label}: n_cand equal ({int(nk.sum())} candidates), "
+          f"scores within the rounding bound (its median "
+          f"{float(tol[valid].median()):.3g}, max {float(tol.max()):.3g}, "
+          f"against a median |score| of {float(sp[valid].abs().median()):.3g}"
+          f"; max |kernel - plain| {float(err.max()):.3g}; {accuracy}), ids "
+          f"equal except {n_tie} near-tie slots")
     return float(err.max()), (values, offs, mults, qs, seg, kw)
 
 
-def phase_k1(svc, queries):
+def phase_srp(cell) -> None:
+    """An SRP / cosine index of the cell's format: its build keys (K3 / K4
+    on the card) against the plain version's, and K1 against its plain
+    version."""
     import torch
-    from repro_torch.core.tensor_formats import cp_random_data
+    from repro_torch.kernels import parity
     from repro_torch.serving.lsh_service import build_service
-    err, args = k1_compare(svc, queries[0], "serving index, B=1024")
-    gen = torch.Generator(device="cuda").manual_seed(11)
-    small = cp_random_data(gen, (4, 4, 4), 3, batch=4099)
-    svc_s = build_service(gen, "cp-srp", (4, 4, 4), small, num_codes=12,
-                          num_tables=4, rank=2, device="cuda")
-    q = make_queries(small, torch.arange(0, 4099, 17, device="cuda"), gen)
-    k1_compare(svc_s, q, "small cp-srp / cosine index, B=242")
-    return err, args
-
-
-def phase_times(svc, corpus, queries, k1_args):
-    import torch
-    from repro_torch.kernels import epilogues as epi
-    from repro_torch.kernels.cp_gram import cp_gram, cp_gram_plain
-    from repro_torch.kernels.fused_query import fused_query, fused_query_plain
-    from repro_torch.kernels.ops import _stack_cp_batch, stack_cp
-    fam = svc.index.family
-    n = corpus.factors[0].shape[0]
-    chunk = 65536
-    xs = [_stack_cp_batch(corpus.index(slice(s, s + chunk)))
-          for s in range(0, n, chunk)]
+    c = cell["srp"]
+    layout = cell["kind"][:2]
+    f = hash_fns(layout)
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    corpus = f["data"](gen, c["dims"], c["rhat"], batch=c["n"])
+    svc = build_service(gen, f"{layout}-srp", c["dims"], corpus,
+                        metric="cosine", num_codes=c["codes"],
+                        num_tables=c["tables"], rank=c["rank"],
+                        device="cuda")
+    idx = svc.index
+    base, fam = idx.store.base, idx.family
     p = fam.stacked_projection
-    offs = fam.offsets.reshape(NUM_TABLES, NUM_CODES)
-    mults = svc.index._mults_t
     scale = corpus.scale * fam.projection.scale
-    kw = dict(epilogue="e2lsh-keys", w=WIDTH, scale=scale)
-    k3_ms = cuda_ms([lambda x=x: cp_gram(x, p, offs, mults, **kw) for x in xs],
-                    3 * len(xs))
-    k3_plain = cuda_ms([lambda x=x: cp_gram_plain(x, p, offs, mults, **kw)
-                        for x in xs[:4]], 4)
-    _, nmod, d, rx = xs[0].shape
-    rp = p.shape[-1]
-    t = NUM_TABLES * NUM_CODES
+    bad = n_near = 0
+    for s in range(0, c["n"], 16384):
+        x = base.stacked[s:s + 16384]
+        raw = f["plain"](x, p, scale=scale)
+        near = parity.boundary_codes(raw, f["bound"](x, p, scale),
+                                     f"{layout}-srp")
+        keys = f["plain"](x, p, None, idx._mults_t, epilogue="srp-keys",
+                          scale=scale)
+        b, nn = parity.key_mismatches(base.keys[s:s + 16384], keys, near)
+        bad, n_near = bad + b, n_near + nn
+    if bad:
+        fail(f"{layout}-srp index: {bad} build keys differ from the plain "
+             "version's away from 0")
+    print(f"[{layout}-srp] n={c['n']}, K={c['codes']} L={c['tables']}, cap "
+          f"{idx.cap}: build keys equal to the plain version's outside "
+          f"{n_near} boundary tables")
+    q = make_queries(corpus, torch.arange(0, c["n"], c["every"],
+                                          device="cuda"), gen)
+    k1_compare(svc, q, f"{layout}-srp / cosine index, "
+                       f"B={q.leaves[0].shape[0]}")
+
+
+def tt_chain_flops(xranks, pranks, dims) -> int:
+    """fp32 operations of one TT chain <X, T> at true ranks: per mode, with
+    cores X (a, d, c) and T (b, d, e), S T_i (a*b*e FMA) then X_i^T (S T_i)
+    (c*a*e FMA) for each of the d slices."""
+    return sum(2 * d * (a * b * e + c * a * e)
+               for d, a, c, b, e in zip(dims, xranks, xranks[1:], pranks,
+                                        pranks[1:]))
+
+
+def inner_flops(x, y) -> int:
+    """fp32 operations of one in-format <X, Y> at true ranks: CP, per (r, q)
+    term the N d-long dots and the N-fold product; TT, the chain."""
+    if x.layout == "cp":
+        return x.rank * y.rank * (2 * sum(x.dims) + len(x.dims))
+    return tt_chain_flops(x.ranks, y.ranks, x.dims)
+
+
+def k1_work(k1_args, q_row, c_row, cand_flops, query_flops):
+    """(bytes, operations, window slots, candidates) that K1 must move and
+    do for this batch's data: per (query, table) a search over the m uint32
+    keys of the table and one over the cap keys after the bucket's start,
+    the perm and live entries of the window slots, one corpus row (at its
+    true ranks) and effective id per candidate, the inputs and outputs
+    once."""
+    from repro_torch.kernels import epilogues as epi
+    from repro_torch.kernels.fused_query import _discretize_keys
+    values, offs, mults, _, seg, kw = k1_args
+    b = values.shape[0]
+    l, k, cap = kw["num_tables"], kw["num_codes"], kw["cap"]
+    m = seg.sorted_keys.shape[1]
+    keys = _discretize_keys(values, offs, mults,
+                            e2=kw["kind"].endswith("e2lsh"), w=kw["w"],
+                            num_tables=l, num_codes=k)
+    ids, hit = epi.probe_windows(seg.sorted_keys, seg.perm, keys, cap,
+                                 seg.live)
+    _, valid = epi.dedup_windows(ids, hit, m)
+    slots, n_cand = int(hit.sum()), int(valid.sum())
+    search = b * l * (math.ceil(math.log2(m + 1))
+                      + math.ceil(math.log2(cap + 1))) * 4
+    nbytes = (values.numel() * 4 + l * k * 4 + k * 4 + b * q_row + search
+              + slots * 5 + n_cand * (c_row + 4) + b * TOPK * 8 + b * 4)
+    return nbytes, n_cand * cand_flops + b * query_flops, slots, n_cand
+
+
+def phase_times(svc, cell, queries, k1_args):
+    """The hash kernel per 65,536-item e2lsh-keys launch and K1 per query
+    batch, on the card (CUDA events), beside their bounds and plain
+    versions."""
+    from repro_torch.kernels.fused_query import fused_query, fused_query_plain
+    idx = svc.index
+    fam, corpus = idx.family, idx.effective_corpus()
+    f = hash_fns(corpus.layout)
+    stacked = idx.store.base.stacked
+    chunk = 65536
+    xs = [stacked[s:s + chunk] for s in range(0, stacked.shape[0], chunk)]
+    p = fam.stacked_projection
+    l, k = cell["tables"], cell["codes"]
+    offs = fam.offsets.reshape(l, k)
+    mults = idx._mults_t
+    scale = corpus.scale * fam.projection.scale
+    kw = dict(epilogue="e2lsh-keys", w=cell["width"], scale=scale)
+    h_ms = cuda_ms([lambda x=x: f["kernel"](x, p, offs, mults, **kw)
+                    for x in xs], 3 * len(xs))
+    h_plain = cuda_ms([lambda x=x: f["plain"](x, p, offs, mults, **kw)
+                       for x in xs[:2]], 2)
+    t = l * k
+    proj = fam.projection.input_format(fam.projection.leaves, 1.0)
+    b_x = xs[0].shape[0]
+    # each item's and each projection's row at its true ranks, read once;
     # uint32 multipliers and keys count 4 bytes each
-    k3_bytes = (chunk * nmod * d * rx * 4 + p.numel() * 4 + t * 4
-                + NUM_CODES * 4 + chunk * NUM_TABLES * 4)
-    k3_flops = chunk * t * rx * rp * (2 * nmod * d + nmod)
-    k3_bound, k3_by = bound_ms(k3_bytes, k3_flops)
-    print(f"[time] K3 e2lsh-keys, {chunk} items x {t} hashes: {k3_ms:.4f} ms "
-          f"(plain {k3_plain:.4f} ms); bound {k3_bound:.4f} ms by {k3_by} "
-          f"({k3_bytes / 1e6:.1f} MB, {k3_flops / 1e9:.2f} GFLOP)")
+    h_bytes = (b_x * corpus.row_floats * 4 + t * proj.row_floats * 4
+               + t * 4 + k * 4 + b_x * l * 4)
+    pair = inner_flops(corpus, proj)
+    h_flops = b_x * t * pair
+    h_bound, h_by = bound_ms(h_bytes, h_flops)
+    print(f"[time] {f['name']} e2lsh-keys, {b_x} items x {t} hashes: "
+          f"{h_ms:.4f} ms (plain {h_plain:.4f} ms); bound {h_bound:.4f} ms "
+          f"by {h_by} ({h_bytes / 1e6:.1f} MB, {h_flops / 1e9:.2f} GFLOP, "
+          f"{pair} FLOP per (item, hash))")
 
     values, offs1, mults1, qs1, seg, kw1 = k1_args
-    qss = [stack_cp(q) for q in queries]
+    qss = [q.stack() for q in queries]
     vals = [fam.raw_stacked(q[1], q[0].scale) for q in qss]
     k1_ms = cuda_ms([lambda v=v, q=q: fused_query(v, offs1, mults1, q, seg,
                                                    **kw1)
-                     for v, q in zip(vals, qss)], 5 * len(queries))
+                     for v, q in zip(vals, qss)], 3 * len(queries))
     k1_plain = cuda_ms([lambda: fused_query_plain(values, offs1, mults1,
                                                   qs1, seg, **kw1)], 2)
-    # the bytes and operations this batch's data need
-    from repro_torch.kernels.fused_query import _discretize_keys
-    b = values.shape[0]
-    keys = _discretize_keys(values, offs1, mults1, e2=True, w=WIDTH,
-                            num_tables=NUM_TABLES, num_codes=NUM_CODES)
-    ids, hit = epi.probe_windows(seg.sorted_keys, seg.perm, keys, kw1["cap"],
-                                 seg.live)
-    _, valid = epi.dedup_windows(ids, hit, n)
-    slots, n_cand = int(hit.sum()), int(valid.sum())
-    _, nmod, d, rc = seg.stacked.shape
-    rq = queries[0].rank
-    # per (query, table): a search over the m uint32 keys of the table, and
-    # one over the cap keys after the bucket's start
-    cap = kw1["cap"]
-    search = b * NUM_TABLES * (math.ceil(math.log2(n + 1))
-                               + math.ceil(math.log2(cap + 1))) * 4
-    k1_bytes = (values.numel() * 4 + t * 4 + NUM_CODES * 4
-                + b * nmod * d * rq * 4 + search + slots * 5
-                + n_cand * (nmod * d * rc * 4 + 4) + b * TOPK * 8 + b * 4)
-    k1_flops = (n_cand * (rq * rc + rc * rc) * (2 * nmod * d + nmod)
-                + b * rq * rq * (2 * nmod * d + nmod))
+    q0 = qs1[0]
+    k1_bytes, k1_flops, slots, n_cand = k1_work(
+        k1_args, q0.row_floats * 4, corpus.row_floats * 4,
+        inner_flops(q0, corpus) + inner_flops(corpus, corpus),
+        inner_flops(q0, q0))
     k1_bound, k1_by = bound_ms(k1_bytes, k1_flops)
-    print(f"[time] K1, B={b}, {slots} window slots, {n_cand} candidates: "
-          f"{k1_ms:.4f} ms (plain {k1_plain:.4f} ms); bound {k1_bound:.5f} ms "
-          f"by {k1_by} ({k1_bytes / 1e6:.2f} MB, {k1_flops / 1e9:.3f} GFLOP)")
-    return (k3_ms, k3_plain, k3_bound, k3_by), (k1_ms, k1_plain, k1_bound,
-                                                k1_by)
+    name = "K1-TT" if corpus.layout == "tt" else "K1"
+    print(f"[time] {name}, B={values.shape[0]}, {slots} window slots, "
+          f"{n_cand} candidates: {k1_ms:.4f} ms (plain {k1_plain:.4f} ms); "
+          f"bound {k1_bound:.5f} ms by {k1_by} ({k1_bytes / 1e6:.2f} MB, "
+          f"{k1_flops / 1e9:.3f} GFLOP)")
+    return (h_ms, h_plain, h_bound, h_by), (k1_ms, k1_plain, k1_bound, k1_by)
 
 
-def phase_profile(svc, queries):
+def phase_profile(svc, queries, tag):
     """Where a query batch's time goes: torch.profiler over the main path's
     batches, device time by kernel and the device's busy share."""
     import torch
@@ -408,16 +651,62 @@ def phase_profile(svc, queries):
                    if str(e.device_type).endswith("CUDA")
                    and e.self_device_time_total > 0), reverse=True)
     busy_ms = sum(r[0] for r in rows)
-    print(f"[profile] {len(queries)} query batches under the profiler: wall "
+    print(f"[{tag}] {len(queries)} query batches under the profiler: wall "
           f"{wall_ms:.3f} ms, device busy {busy_ms:.3f} ms "
           f"({busy_ms / wall_ms:.1%}); idle {1 - busy_ms / wall_ms:.1%}")
     for ms, count, key in rows[:8]:
-        print(f"[profile]   {ms:9.3f} ms x{count:<4d} {key[:80]}")
+        print(f"[{tag}]   {ms:9.3f} ms x{count:<4d} {key[:80]}")
+
+
+def record(name, source, replaces, counts, key, err, times):
+    """One entry of the kernels line."""
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": counts[key],
+            "plain_calls": counts[f"{key}_plain"], "max_abs_err": err,
+            "ms": times[0], "plain_ms": times[1], "bound_ms": times[2],
+            "bound_by": times[3], "library_ms": None}
+
+
+HASH_RECORDS = {
+    "cp": ("cp_gram", "src/repro_torch/kernels/csrc/cp_gram.cu",
+           "src/repro/kernels/cp_gram.py:100"),
+    "tt": ("tt_inner", "src/repro_torch/kernels/csrc/tt_inner.cu",
+           "src/repro/kernels/tt_inner.py:110"),
+}
+K1_SOURCE = ("src/repro_torch/kernels/csrc/fused_query.cu",
+             "src/repro/kernels/fused_query.py:235")
+
+
+def run_cell(layout: str, log2_corpus: int, args) -> list:
+    """One cell's path and its kernels -> their kernel records."""
+    import torch
+    cell = dict(CELLS[layout], hash_kernel=HASH_RECORDS[layout][0])
+    n = 1 << log2_corpus
+    gen = torch.Generator(device="cuda").manual_seed(cell["seed"])
+    corpus = hash_fns(layout)["data"](gen, cell["dims"], cell["rhat"],
+                                      batch=n)
+    perm = torch.randperm(n, generator=gen, device="cuda")
+    qids = [perm[i * args.batch:(i + 1) * args.batch]
+            for i in range(args.batches)]
+    queries = [make_queries(corpus, q, gen) for q in qids]
+    svc, counts = phase_main(cell, corpus, qids, queries)
+    del corpus                      # the index holds the stacked corpus
+    h_err = phase_hash(svc, cell)
+    k1_err, k1_args = k1_compare(svc, queries[0],
+                                 f"{layout.upper()} index, B={args.batch}")
+    phase_srp(cell)
+    h_t, k1_t = phase_times(svc, cell, queries, k1_args)
+    phase_profile(svc, queries, "tt-profile" if layout == "tt" else "profile")
+    key, source, replaces = HASH_RECORDS[layout]
+    return [record(key, source, replaces, counts, key, h_err, h_t),
+            record("fused_query" + ("[tt]" if layout == "tt" else ""),
+                   *K1_SOURCE, counts, "fused_query", k1_err, k1_t)]
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--log2-corpus", type=int, default=20)
+    ap.add_argument("--log2-corpus", type=int, default=20,
+                    help="CP corpus size (the TT cell stays at 2^20)")
     ap.add_argument("--batches", type=int, default=256)
     ap.add_argument("--batch", type=int, default=1024)
     args = ap.parse_args(argv)
@@ -428,42 +717,13 @@ def main(argv=None) -> int:
               "needs an NVIDIA card", file=sys.stderr)
         return 2
     import repro_torch  # noqa: F401  (sets the float32 matmul flags)
-    from repro_torch.core.tensor_formats import cp_random_data
 
     t_start = time.perf_counter()
     name, count, smi = phase_device()
     phase_build()
-
-    n = 1 << args.log2_corpus
-    gen = torch.Generator(device="cuda").manual_seed(0)
-    corpus = cp_random_data(gen, DIMS, RHAT, batch=n)
-    perm = torch.randperm(n, generator=gen, device="cuda")
-    qids = [perm[i * args.batch:(i + 1) * args.batch]
-            for i in range(args.batches)]
-    queries = [make_queries(corpus, q, gen) for q in qids]
-
-    svc, counts, _ = phase_main(corpus, qids, queries)
-    k3_err = phase_k3(svc.index.family, corpus,
-                      svc.index._mults_t)
-    k1_err, k1_args = phase_k1(svc, queries)
-    k3_t, k1_t = phase_times(svc, svc.index.effective_corpus(), queries,
-                             k1_args)
-    phase_profile(svc, queries)
-    kernels = [
-        {"name": "cp_gram", "route": "cuda",
-         "source": "src/repro_torch/kernels/csrc/cp_gram.cu",
-         "replaces": "src/repro/kernels/cp_gram.py:100",
-         "launches": counts["cp_gram"], "plain_calls": counts["cp_gram_plain"],
-         "max_abs_err": k3_err, "ms": k3_t[0], "plain_ms": k3_t[1],
-         "bound_ms": k3_t[2], "bound_by": k3_t[3], "library_ms": None},
-        {"name": "fused_query", "route": "cuda",
-         "source": "src/repro_torch/kernels/csrc/fused_query.cu",
-         "replaces": "src/repro/kernels/fused_query.py:235",
-         "launches": counts["fused_query"],
-         "plain_calls": counts["fused_query_plain"],
-         "max_abs_err": k1_err, "ms": k1_t[0], "plain_ms": k1_t[1],
-         "bound_ms": k1_t[2], "bound_by": k1_t[3], "library_ms": None},
-    ]
+    kernels = run_cell("cp", args.log2_corpus, args)
+    torch.cuda.empty_cache()
+    kernels += run_cell("tt", TT_LOG2_CORPUS, args)
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))

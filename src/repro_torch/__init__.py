@@ -1,8 +1,9 @@
 """PyTorch + CUDA port of the tensorized-LSH system (reference: ``repro``).
 
-The CP serving path: ``build_service`` -> CP hashing (kernel K3,
-``kernels/csrc/cp_gram.cu``) -> per-table sorted keys -> fused query
-(kernel K1, ``kernels/csrc/fused_query.cu``). Entry points default to
+The CP and TT serving paths: ``build_service`` -> CP hashing (kernel K3,
+``kernels/csrc/cp_gram.cu``) or TT hashing (kernel K4,
+``kernels/csrc/tt_inner.cu``) -> per-table sorted keys -> fused query with
+the in-format re-rank (kernel K1, ``kernels/csrc/fused_query.cu``). Entry points default to
 ``device="cuda"``; ``device="cpu"`` runs every kernel's plain PyTorch
 version. This package imports torch and numpy, never JAX or ``repro``.
 

@@ -15,11 +15,10 @@ import numpy as np
 import torch
 
 from repro_torch.core.lsh import ALL_KINDS, E2LSH_KINDS, LSHFamily
-from repro_torch.core.projections import CPProjection
+from repro_torch.core.projections import CPProjection, TTProjection
 from repro_torch.core.segments import TableSegment
-from repro_torch.core.tensor_formats import CPTensor
+from repro_torch.core.tensor_formats import CPTensor, TTTensor
 from repro_torch.device import resolve_device
-from repro_torch.kernels.ops import stack_cp
 
 
 def _f32(a, dev) -> torch.Tensor:
@@ -39,17 +38,28 @@ def cp_tensor_from_numpy(factors: Sequence[np.ndarray], scale: float,
     return CPTensor(tuple(_f32(f, dev) for f in factors), float(scale))
 
 
+def tt_tensor_from_numpy(cores: Sequence[np.ndarray], scale: float,
+                         device="cuda") -> TTTensor:
+    """TT cores ((r, d_n, r') or batched (B, r, d_n, r') per mode) ->
+    TTTensor."""
+    dev = resolve_device(device)
+    return TTTensor(tuple(_f32(c, dev) for c in cores), float(scale))
+
+
 def family_from_numpy(kind: str, factors: Sequence[np.ndarray], scale: float,
                       offsets: np.ndarray | None, num_codes: int,
                       num_tables: int, bucket_width: float,
                       device="cuda") -> LSHFamily:
-    """A reference CP family's projection factors ((L*K, d_n, R) per mode),
-    scale and offsets -> ``LSHFamily``."""
+    """A reference family's projection leaves, scale and offsets ->
+    ``LSHFamily``: CP factors (L*K, d_n, R) per mode for the cp-* kinds,
+    TT cores (L*K, r, d_n, r') per mode for the tt-* kinds."""
     if kind not in ALL_KINDS:
         raise NotImplementedError(
-            f"kind {kind!r}: the port carries the CP kinds {ALL_KINDS}")
+            f"kind {kind!r}: the port carries the kinds {ALL_KINDS}")
     dev = resolve_device(device)
-    proj = CPProjection(tuple(_f32(f, dev) for f in factors), float(scale))
+    leaves = tuple(_f32(f, dev) for f in factors)
+    proj = (CPProjection(leaves, float(scale)) if kind.startswith("cp-")
+            else TTProjection(leaves, float(scale)))
     offs = _f32(offsets, dev) if kind in E2LSH_KINDS else None
     return LSHFamily(projection=proj, offsets=offs, kind=kind,
                      num_codes=int(num_codes), num_tables=int(num_tables),
@@ -60,12 +70,14 @@ def segment_from_numpy(corpus_factors: Sequence[np.ndarray],
                        sorted_keys: np.ndarray, perm: np.ndarray,
                        keys: np.ndarray, cap: int, device="cuda",
                        corpus_scale: float = 1.0) -> TableSegment:
-    """A reference ``TableSegment``'s arrays (corpus factors (m, d_n, R) per
-    mode, sorted_keys (L, m) uint32, perm (L, m) int32, keys (m, L) uint32)
-    -> port ``TableSegment``."""
+    """A reference ``TableSegment``'s arrays (corpus CP factors (m, d_n, R)
+    or TT cores (m, r, d_n, r') per mode, sorted_keys (L, m) uint32, perm
+    (L, m) int32, keys (m, L) uint32) -> port ``TableSegment``; 4-D leaves
+    are TT cores."""
     dev = resolve_device(device)
-    corpus, stacked = stack_cp(
-        cp_tensor_from_numpy(corpus_factors, corpus_scale, dev))
+    make = (tt_tensor_from_numpy if np.ndim(corpus_factors[0]) == 4
+            else cp_tensor_from_numpy)
+    corpus, stacked = make(corpus_factors, corpus_scale, dev).stack()
     return TableSegment(
         keys=_u32(keys, dev), sorted_keys=_u32(sorted_keys, dev),
         perm=torch.from_numpy(np.array(perm, np.int32)).to(dev),

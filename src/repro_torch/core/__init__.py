@@ -4,5 +4,8 @@ index, in PyTorch (reference: ``repro.core``)."""
 from repro_torch.core.index import (DeviceLSHIndex, brute_force_batch,
                                     recall_at_k)
 from repro_torch.core.lsh import LSHFamily, make_family, make_mults
-from repro_torch.core.tensor_formats import (CPTensor, cp_rademacher,
-                                             cp_random_data, cp_to_dense)
+from repro_torch.core.tensor_formats import (CPTensor, TTTensor,
+                                             cp_rademacher, cp_random_data,
+                                             cp_to_dense, tt_gaussian,
+                                             tt_rademacher, tt_random_data,
+                                             tt_to_dense)

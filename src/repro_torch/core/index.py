@@ -1,8 +1,9 @@
 """The device-resident (K, L) LSH index (reference: ``repro.core.index``).
 
-``DeviceLSHIndex.build`` hashes the corpus in batches through K3
-(``segments.bucket_keys``), sorts each table once and keeps one immutable
-base segment; ``query_batch`` runs K3 (``raw``) and K1 per query batch.
+``DeviceLSHIndex.build`` hashes a CP or TT corpus in batches through K3
+(CP) or K4 (TT) (``segments.bucket_keys``), sorts each table once and keeps
+one immutable base segment that holds the corpus stacked in the kernels'
+layout; ``query_batch`` runs K3 / K4 (``raw``) and K1 per query batch.
 Everything lives on the index's ``device`` ("cuda" unless the caller asks
 for the CPU, where the kernels' plain versions run).
 
@@ -22,7 +23,6 @@ import torch
 from repro_torch.core import segments
 from repro_torch.core.lsh import LSHFamily, make_mults
 from repro_torch.core.segments import StoreView, bucket_keys, build_segment
-from repro_torch.core.tensor_formats import CPTensor
 from repro_torch.kernels.ops import mults_tensor
 
 QUERY_MODES = ("topk", "uniform", "weighted")
@@ -40,7 +40,8 @@ def _sync(device: torch.device) -> None:
 
 @dataclasses.dataclass
 class DeviceLSHIndex:
-    """Device-resident (K, L) index over a batched CP corpus; ``query_batch``
+    """Device-resident (K, L) index over a batched CP or TT corpus (the
+    family's format); ``query_batch``
     returns (ids (B, topk) int32 with -1 fill, scores (B, topk) float32 with
     +inf / -inf fill, n_candidates (B,) int32) on the family's device."""
 
@@ -50,7 +51,7 @@ class DeviceLSHIndex:
     bucket_cap: int | None = None
 
     store: StoreView | None = None
-    hash_s: float = 0.0        # build time in the K3 hash, synchronized
+    hash_s: float = 0.0        # build time in the K3 / K4 hash, synchronized
     sort_s: float = 0.0        # build time in the table sort, synchronized
 
     def __post_init__(self):
@@ -82,18 +83,18 @@ class DeviceLSHIndex:
     def perm(self) -> torch.Tensor:
         return self.store.base.perm
 
-    def effective_corpus(self) -> CPTensor:
+    def effective_corpus(self):
         """The live corpus the returned ids index into."""
         return self.store.base.corpus
 
-    def build(self, corpus: CPTensor,
-              batch_size: int = 65536) -> "DeviceLSHIndex":
+    def build(self, corpus, batch_size: int = 65536) -> "DeviceLSHIndex":
         """Hash ``corpus`` in batches of ``batch_size`` and sort the tables.
-        Keys do not depend on the batch size; 65536 items per K3 launch keep
-        the card busy (the reference hashes 2048 at a time)."""
+        Keys do not depend on the batch size; 65536 items per hash launch
+        keep the card busy (the reference hashes 2048 at a time)."""
         if corpus.device != self.device:
             raise ValueError(f"corpus on {corpus.device}, family on "
                              f"{self.device}")
+        self.family.check_inputs(corpus)
         _sync(self.device)
         t0 = time.perf_counter()
         keys = bucket_keys(self.family, self._mults_t, corpus, batch_size)
@@ -105,10 +106,10 @@ class DeviceLSHIndex:
         self.store = StoreView.base_only(seg)
         return self
 
-    def query_batch(self, queries: CPTensor, topk: int = 10, *,
+    def query_batch(self, queries, topk: int = 10, *,
                     probes: int = 1, mode: str = "topk", rng=None):
         """-> (ids (B, topk), scores (B, topk), n_candidates (B,)) tensors:
-        K3 projects the batch, K1 probes, re-ranks and selects."""
+        K3 / K4 projects the batch, K1 probes, re-ranks and selects."""
         if mode not in QUERY_MODES:
             raise ValueError(
                 f"unknown query mode {mode!r}; expected one of {QUERY_MODES}")
@@ -128,21 +129,21 @@ class DeviceLSHIndex:
 # ---------------------------------------------------------------------------
 
 
-def _score_matrix(metric: str, queries: CPTensor, corpus: CPTensor,
-                  chunk: int = 16384) -> torch.Tensor:
+def _score_matrix(metric: str, queries, corpus,
+                  chunk: int | None = None) -> torch.Tensor:
     """(B, n) exact in-format scores, the corpus taken ``chunk`` items at a
-    time (the (B, chunk, R, R) Grams bound the memory)."""
-    qs, cs = queries.scale, corpus.scale
-    qq = (qs * qs) * segments._gram_sum(queries.factors, queries.factors,
-                                        "zdr,zdq->zrq")
-    n = corpus.factors[0].shape[0]
+    time (by default 2^21 floats of item rows, so that the (B, chunk) Grams
+    or TT chain steps bound the memory)."""
+    if chunk is None:
+        chunk = max(1, (1 << 21) // corpus.row_floats)
+    qq = queries.self_inners()
+    qb = queries.index((slice(None), None))
+    n = corpus.leaves[0].shape[0]
     out = []
     for s in range(0, n, chunk):
         part = corpus.index(slice(s, min(s + chunk, n)))
-        yy = (cs * cs) * segments._gram_sum(part.factors, part.factors,
-                                            "mdr,mdq->mrq")
-        qy = (qs * cs) * segments._gram_sum(queries.factors, part.factors,
-                                            "zdr,mdq->zmrq")
+        yy = part.self_inners()
+        qy = qb.pair_inners(part.index((None,)))
         if metric == "euclidean":
             d2 = qq[:, None] + yy[None] - 2.0 * qy
             out.append(torch.sqrt(torch.clamp(d2, min=0.0)))
@@ -153,8 +154,7 @@ def _score_matrix(metric: str, queries: CPTensor, corpus: CPTensor,
     return torch.cat(out, dim=1)
 
 
-def brute_force_batch(metric: str, queries: CPTensor, corpus: CPTensor,
-                      topk: int = 10):
+def brute_force_batch(metric: str, queries, corpus, topk: int = 10):
     """Exact top-k over the whole corpus -> (ids (B, topk) int64 numpy,
     scores (B, topk) numpy); score ties resolve to the lower id."""
     _check_metric(metric)
@@ -165,7 +165,7 @@ def brute_force_batch(metric: str, queries: CPTensor, corpus: CPTensor,
             torch.gather(scores, 1, order).cpu().numpy())
 
 
-def recall_at_k(index, queries: CPTensor, topk: int = 10,
+def recall_at_k(index, queries, topk: int = 10,
                 probes: int = 1) -> dict[str, float]:
     """Mean recall@k of ``index.query_batch`` against brute force."""
     truth, _ = brute_force_batch(index.metric, queries,

@@ -1,14 +1,17 @@
-"""The paper's CP LSH families (Definitions 10 and 12) in PyTorch.
+"""The paper's tensorized LSH families (Definitions 10-13) in PyTorch.
 
-  CP-E2LSH (Def. 10):  g(X) = floor((<P, X> + b) / w),  P ~ CP_Rad(R)
-  CP-SRP   (Def. 12):  h(X) = sign(<P, X>),             P ~ CP_Rad(R)
+  CP-E2LSH (Def. 10):  g(X)  = floor((<P, X> + b) / w),  P ~ CP_Rad(R)
+  TT-E2LSH (Def. 11):  g~(X) = floor((<T, X> + b) / w),  T ~ TT_Rad(R)
+  CP-SRP   (Def. 12):  h(X)  = sign(<P, X>),             P ~ CP_Rad(R)
+  TT-SRP   (Def. 13):  h~(X) = sign(<T, X>),             T ~ TT_Rad(R)
 
-A family carries K x L hash functions (K codes per table, L tables).
-Hashing is batch-native: ``hash_batch`` maps a (B, ...) CP batch to (B, L, K)
+A family carries K x L hash functions (K codes per table, L tables) and
+hashes inputs of its own format (CP inputs under a CP family, TT under TT).
+Hashing is batch-native: ``hash_batch`` maps a (B, ...) batch to (B, L, K)
 int32 codes and ``hash_keys`` to (B, L) bucket keys, both through
-``repro_torch.kernels.ops.fused_hash``: the K3 kernel when the inputs lie on
-the card, its plain version when they lie on the CPU. There is no backend
-knob; the tensors' device decides.
+``repro_torch.kernels.ops.fused_hash``: the K3 (CP) or K4 (TT) kernel when
+the inputs lie on the card, its plain version when they lie on the CPU.
+There is no backend knob; the tensors' device decides.
 
 Bucket keys are uint32 values held in int64 tensors in [0, 2^32): the radix
 combine sum_k codes[k] * mults[k] wraps mod 2^32 exactly as the reference's
@@ -25,15 +28,14 @@ import numpy as np
 import torch
 
 from repro_torch.core import projections as proj_lib
-from repro_torch.core.projections import CPProjection
-from repro_torch.core.tensor_formats import CPTensor
+from repro_torch.core.projections import CPProjection, TTProjection
 from repro_torch.device import resolve_device
 from repro_torch.kernels.epilogues import U32_MASK, div_w, mul_u32
 
-E2LSH_KINDS = ("cp-e2lsh",)
-SRP_KINDS = ("cp-srp",)
+E2LSH_KINDS = ("cp-e2lsh", "tt-e2lsh")
+SRP_KINDS = ("cp-srp", "tt-srp")
 ALL_KINDS = E2LSH_KINDS + SRP_KINDS
-_QUEUED_KINDS = ("tt-e2lsh", "e2lsh", "tt-srp", "srp")
+_QUEUED_KINDS = ("e2lsh", "srp")
 
 
 def e2lsh_discretize(values: torch.Tensor, b: torch.Tensor,
@@ -65,10 +67,11 @@ def make_mults(seed: int, num_codes: int) -> np.ndarray:
 
 @dataclasses.dataclass(frozen=True)
 class LSHFamily:
-    """A (K, L)-amplified CP LSH family. ``projection`` holds K*L stacked
-    projection tensors; ``offsets`` (E2LSH only) the b ~ U[0, w) per hash."""
+    """A (K, L)-amplified CP or TT LSH family. ``projection`` holds K*L
+    stacked projection tensors; ``offsets`` (E2LSH only) the b ~ U[0, w)
+    per hash."""
 
-    projection: CPProjection
+    projection: CPProjection | TTProjection
     offsets: torch.Tensor | None          # (L*K,) or None for SRP
     kind: str
     num_codes: int                        # K
@@ -77,7 +80,12 @@ class LSHFamily:
 
     @property
     def device(self) -> torch.device:
-        return self.projection.factors[0].device
+        return self.projection.leaves[0].device
+
+    @property
+    def input_format(self) -> type:
+        """CPTensor or TTTensor: the inputs this family hashes."""
+        return self.projection.input_format
 
     def _discretize(self, values: torch.Tensor) -> torch.Tensor:
         """(B, L*K) raw values -> (B, L, K) int32 codes."""
@@ -89,26 +97,27 @@ class LSHFamily:
 
     @functools.cached_property
     def stacked_projection(self) -> torch.Tensor:
-        """(N, L, K, d, Rp) float32: the projections in K3's layout, stacked
-        once per family."""
-        from repro_torch.kernels.ops import _stack_cp_proj
-        return _stack_cp_proj(self.projection, self.num_tables).contiguous()
+        """The projections in the hash kernel's layout, stacked once per
+        family: (N, L, K, d, Rp) for K3, (N, L, K, Rp, d, Rp) for K4."""
+        return self.projection.stacked(self.num_tables)
 
-    def check_inputs(self, xs: CPTensor) -> None:
-        """Raise unless ``xs`` is a CP batch with the family's mode dims."""
-        if not isinstance(xs, CPTensor):
+    def check_inputs(self, xs) -> None:
+        """Raise unless ``xs`` is a batch of the family's format and mode
+        dims."""
+        if not isinstance(xs, self.input_format):
             raise NotImplementedError(
-                f"the hash covers CP inputs; {type(xs).__name__} is queued in "
-                "ROADMAP.md (TT corpora, kernel K4)")
+                f"a {self.kind} family hashes {self.input_format.__name__} "
+                f"inputs; {type(xs).__name__} under it is queued in "
+                "ROADMAP.md (cross-format pairs, dense corpora)")
         if xs.dims != self.projection.dims:
             raise ValueError(f"inputs of dims {xs.dims} under a family of "
                              f"dims {self.projection.dims}")
 
-    def stack(self, xs: CPTensor) -> torch.Tensor:
-        """(B, N, d, R) float32: a CP batch in K3's layout."""
-        from repro_torch.kernels.ops import _stack_cp_batch
+    def stack(self, xs) -> torch.Tensor:
+        """A batch in the hash kernel's layout: (B, N, d, R) float32 for CP,
+        (B, N, R, d, R) for TT."""
         self.check_inputs(xs)
-        return _stack_cp_batch(xs)
+        return xs.stack()[1]
 
     def _fused(self, xf: torch.Tensor, scale: float, epilogue: str,
                mults=None) -> torch.Tensor:
@@ -116,18 +125,19 @@ class LSHFamily:
         return ops.fused_hash(xf, self.stacked_projection,
                               scale=scale * self.projection.scale,
                               epilogue=epilogue, kind=self.kind,
+                              layout=self.input_format.layout,
                               offsets=self.offsets, w=self.bucket_width,
                               mults=mults)
 
     def raw_stacked(self, xf: torch.Tensor, scale: float) -> torch.Tensor:
         """(B, L*K) raw <P_k, X> values of a stacked batch (``stack``) of
-        scale ``scale``, through the fused hash path (the K3 kernel's
+        scale ``scale``, through the fused hash path (the K3 or K4 kernel's
         ``raw`` epilogue on the card): the same arithmetic as the build
         keys, so an item queried as itself lands in its own buckets."""
         return self._fused(xf, scale, "raw").reshape(
             -1, self.num_tables * self.num_codes)
 
-    def hash_batch_aux(self, xs: CPTensor) -> tuple[torch.Tensor, torch.Tensor]:
+    def hash_batch_aux(self, xs) -> tuple[torch.Tensor, torch.Tensor]:
         """(codes (B, L, K) int32, aux (B, L, K) float32): ``aux`` is the
         floor residual (v + b)/w - floor((v + b)/w) for E2LSH and the raw
         value v for SRP, evaluated on the plain projection path as in the
@@ -141,11 +151,11 @@ class LSHFamily:
             aux = values.reshape(codes.shape)
         return codes, aux
 
-    def hash_batch(self, xs: CPTensor) -> torch.Tensor:
+    def hash_batch(self, xs) -> torch.Tensor:
         """(B, L, K) int32 codes: projection -> discretize, one fused call."""
         return self._fused(self.stack(xs), xs.scale, "codes")
 
-    def hash_keys(self, xs: CPTensor, mults) -> torch.Tensor:
+    def hash_keys(self, xs, mults) -> torch.Tensor:
         """(B, L) bucket keys (uint32 values in int64): projection ->
         discretize -> radix combine, one fused call; equal to
         ``_combine_codes(self.hash_batch(xs), mults)``."""
@@ -155,18 +165,21 @@ class LSHFamily:
 def make_family(gen: torch.Generator, kind: str, dims: Sequence[int],
                 num_codes: int = 8, num_tables: int = 1, rank: int = 4,
                 bucket_width: float = 4.0, device="cuda") -> LSHFamily:
-    """Sample a CP family ('cp-e2lsh' | 'cp-srp') on the generator's device
-    and place it on ``device``. The TT and dense kinds are queued."""
+    """Sample a CP or TT family ('cp-e2lsh' | 'cp-srp' | 'tt-e2lsh' |
+    'tt-srp') on the generator's device and place it on ``device``. The
+    dense kinds are queued."""
     if kind in _QUEUED_KINDS:
         raise NotImplementedError(
-            f"kind {kind!r} is queued in ROADMAP.md (TT and dense corpora, "
-            "kernel K4); this slice ports the CP kinds")
+            f"kind {kind!r} is queued in ROADMAP.md (dense corpora); the "
+            "port serves the CP and TT kinds")
     if kind not in ALL_KINDS:
         raise ValueError(f"kind must be one of {ALL_KINDS}, got {kind!r}")
     dev = resolve_device(device)
     total = num_codes * num_tables
-    p = proj_lib.sample_cp_projection(gen, total, dims, rank)
-    p = CPProjection(tuple(f.to(dev) for f in p.factors), p.scale)
+    sample = (proj_lib.sample_cp_projection if kind.startswith("cp-")
+              else proj_lib.sample_tt_projection)
+    p = sample(gen, total, dims, rank)
+    p = type(p)(tuple(t.to(dev) for t in p.leaves), p.scale)
     offsets = None
     if kind in E2LSH_KINDS:
         offsets = (torch.rand(total, generator=gen, device=gen.device)

@@ -6,9 +6,10 @@ the matching permutation of local item ids, and the corpus the ids point
 into:
 
   ``TableSegment``  keys (m, L) in corpus order, sorted_keys (L, m), perm
-                    (L, m) int32, the corpus (a batched CPTensor), the cap,
-                    and ``stacked``: the corpus in the kernels' (m, N, d, R)
-                    layout, whose views the corpus factors are.
+                    (L, m) int32, the corpus (a batched CP or TT tensor),
+                    the cap, and ``stacked``: the corpus in the kernels'
+                    layout ((m, N, d, R) CP, (m, N, R, d, R) TT), whose
+                    views the corpus factors or cores are.
 
 Bucket keys are uint32 values held in int64. ``StoreView`` is the snapshot a
 query reads; in this slice it holds the base segment only, with every slot
@@ -25,7 +26,7 @@ from typing import NamedTuple
 
 import torch
 
-from repro_torch.core.tensor_formats import CPTensor
+from repro_torch.core.tensor_formats import CPTensor, TTTensor
 
 
 class SegmentArrays(NamedTuple):
@@ -33,22 +34,21 @@ class SegmentArrays(NamedTuple):
     sorted_keys, perm, live, eff, win) tuple, plus the stacked corpus the
     CUDA kernel reads)."""
 
-    corpus: CPTensor
+    corpus: CPTensor | TTTensor
     sorted_keys: torch.Tensor   # (L, m) uint32 values in int64
     perm: torch.Tensor          # (L, m) int32
     live: torch.Tensor          # (m + 1,) bool, entry m False
     eff: torch.Tensor           # (m,) int32 effective ids
     win: tuple | None           # live-window lookups (queued: bucket_cap)
-    stacked: torch.Tensor       # (m, N, d, R) float32
+    stacked: torch.Tensor       # (m, N, d, R) CP / (m, N, R, d, R) TT
 
 
-def bucket_keys(family, mults, corpus: CPTensor,
-                batch_size: int) -> torch.Tensor:
-    """(n, L) bucket keys of a CP corpus, hashed in batches through
-    ``family.hash_keys`` (K3 on the card)."""
+def bucket_keys(family, mults, corpus, batch_size: int) -> torch.Tensor:
+    """(n, L) bucket keys of a CP or TT corpus, hashed in batches through
+    ``family.hash_keys`` (K3 / K4 on the card)."""
     from repro_torch.kernels.ops import mults_tensor
 
-    n = corpus.factors[0].shape[0]
+    n = corpus.leaves[0].shape[0]
     mults = mults_tensor(mults, family.device)
     keys = [family.hash_keys(corpus.index(slice(s, min(s + batch_size, n))),
                              mults)
@@ -59,7 +59,7 @@ def bucket_keys(family, mults, corpus: CPTensor,
     return torch.cat(keys, dim=0)
 
 
-def query_keys(family, mults, queries: CPTensor,
+def query_keys(family, mults, queries,
                probes: int = 1) -> torch.Tensor:
     """Hash a query batch -> (L, B) bucket keys. Multi-probe (T > 1) is
     queued (ROADMAP.md)."""
@@ -111,20 +111,22 @@ class TableSegment:
     keys: torch.Tensor          # (m, L) corpus order
     sorted_keys: torch.Tensor   # (L, m) ascending per table
     perm: torch.Tensor          # (L, m) int32 local ids in sorted-key order
-    corpus: CPTensor            # batched, leaves (m, d_n, R)
+    corpus: CPTensor | TTTensor  # batched, leaves (m, ...)
     cap: int                    # probe width: the largest bucket at build
-    stacked: torch.Tensor       # (m, N, d, R) kernel layout of the corpus
+    stacked: torch.Tensor       # the kernel layout of the corpus
 
     @property
     def slots(self) -> int:
         return self.keys.shape[0]
 
 
-def build_segment(keys: torch.Tensor, corpus: CPTensor, *,
+def build_segment(keys: torch.Tensor, corpus, *,
                   bucket_cap: int | None = None,
                   warn_layout: str | None = None) -> TableSegment:
-    """(m, L) corpus-order keys + corpus -> sorted TableSegment with the
-    exact default cap (the largest bucket)."""
+    """(m, L) corpus-order keys + CP or TT corpus -> sorted TableSegment
+    with the exact default cap (the largest bucket). The corpus is stacked
+    after the sort, so the sort's temporaries are freed before the stacked
+    copy is made."""
     if bucket_cap is not None:
         raise NotImplementedError(
             "an explicit bucket_cap (live-window probe) is queued in "
@@ -134,9 +136,7 @@ def build_segment(keys: torch.Tensor, corpus: CPTensor, *,
     cap = int(max_run) if m else 0
     if warn_layout is not None:
         _warn_coarse(warn_layout, cap, keys.shape[1], m)
-    from repro_torch.kernels.ops import stack_cp
-
-    corpus, stacked = stack_cp(corpus)
+    corpus, stacked = corpus.stack()
     return TableSegment(keys=keys, sorted_keys=sorted_keys, perm=perm,
                         corpus=corpus, cap=cap, stacked=stacked)
 
@@ -182,29 +182,20 @@ class StoreView:
 # ---------------------------------------------------------------------------
 
 
-def _gram_sum(xf, yf, eq: str) -> torch.Tensor:
-    """sum_{r,q} prod_n einsum(eq, x_n, y_n): the CP inner product of
-    paired factor stacks, before scales (Grams in mode order, one sum)."""
-    h = None
-    for a, c in zip(xf, yf):
-        g = torch.einsum(eq, a, c)
-        h = g if h is None else h * g
-    return h.sum(dim=(-2, -1))
-
-
-def hoisted_scores(metric: str, queries: CPTensor, corpus: CPTensor,
-                   safe: torch.Tensor) -> torch.Tensor:
+def hoisted_scores(metric: str, queries, corpus, safe: torch.Tensor,
+                   chunk: int = 64) -> torch.Tensor:
     """Exact re-rank scores of gathered candidates (``safe`` is the (B, W)
     clamped candidate matrix): <Y, Y> per corpus item once, <Q, Q> per query,
-    <Q, Y> per (query, candidate), combined in the reference's expression
-    and order: sqrt(max(qq + yy - 2 qy, 0)) or qy / (nq * ny)."""
-    qs, cs = queries.scale, corpus.scale
-    yy = (cs * cs) * _gram_sum(corpus.factors, corpus.factors,
-                               "mdr,mdq->mrq")            # (m,)
-    qq = (qs * qs) * _gram_sum(queries.factors, queries.factors,
-                               "zdr,zdq->zrq")            # (B,)
-    sub = [f[safe] for f in corpus.factors]               # (B, W, d, R)
-    qy = (qs * cs) * _gram_sum(queries.factors, sub, "zdr,zwdq->zwrq")
+    <Q, Y> per (query, candidate), in format (CP Grams or the TT chain,
+    ``chunk`` queries at a time so that the gathered (chunk, W) rows bound
+    the memory), combined in the reference's expression and order:
+    sqrt(max(qq + yy - 2 qy, 0)) or qy / (nq * ny)."""
+    yy = corpus.self_inners()                             # (m,)
+    qq = queries.self_inners()                            # (B,)
+    qy = torch.cat([
+        queries.index(slice(s, s + chunk)).index((slice(None), None))
+        .pair_inners(corpus.index(safe[s:s + chunk]))
+        for s in range(0, max(safe.shape[0], 1), chunk)], dim=0)  # (B, W)
     if metric == "euclidean":
         d2 = qq[:, None] + yy[safe] - 2.0 * qy
         return torch.sqrt(torch.clamp(d2, min=0.0))
@@ -213,12 +204,12 @@ def hoisted_scores(metric: str, queries: CPTensor, corpus: CPTensor,
     return qy / (nq[:, None] * ny[safe])
 
 
-def segmented_query(family, segs, mults, queries: CPTensor, *, metric: str,
+def segmented_query(family, segs, mults, queries, *, metric: str,
                     topk: int, caps, probes: int = 1):
     """From a query batch to ((B, topk) ids, (B, topk) scores, (B,)
-    candidate counts): the batch is stacked once, K3 (``raw`` epilogue)
-    projects it and K1 probes the segment with it. One segment and T = 1 in
-    this slice."""
+    candidate counts): the batch is stacked once, K3 or K4 (``raw``
+    epilogue) projects it and K1 probes the segment with it. One segment
+    and T = 1 in this slice."""
     if probes != 1:
         raise NotImplementedError(
             "multi-probe queries (probes > 1) are queued in ROADMAP.md")
@@ -227,10 +218,10 @@ def segmented_query(family, segs, mults, queries: CPTensor, *, metric: str,
             "queries over several segments (delta segments) are queued in "
             "ROADMAP.md")
     from repro_torch.kernels.fused_query import fused_query
-    from repro_torch.kernels.ops import mults_tensor, stack_cp
+    from repro_torch.kernels.ops import mults_tensor
 
     family.check_inputs(queries)
-    queries = stack_cp(queries)
+    queries = queries.stack()
     values = family.raw_stacked(queries[1], queries[0].scale)
     return fused_query(values, family.offsets,
                        mults_tensor(mults, values.device), queries, segs[0],

@@ -1,12 +1,25 @@
-"""CP tensor format (paper §3.3, Definitions 4 and 6) in PyTorch.
+"""CP and TT tensor formats (paper §3.3, Definitions 4-7) in PyTorch.
 
 A tensor X in R^{d_1 x ... x d_N} in CP format is
 
     X = scale * sum_r  a_r^(1) o a_r^(2) o ... o a_r^(N)          (Def. 4)
 
-with factor matrices A^(n) in R^{d_n x R}. A *batch* of CP tensors keeps a
-leading batch axis on every factor: (B, d_n, R) per mode, the layout of the
-reference package's batched pytrees.
+with factor matrices A^(n) in R^{d_n x R}; in TT format it is
+
+    X[i_1, ..., i_N] = scale * G_1[:, i_1, :] G_2[:, i_2, :] ... G_N[:, i_N, :]
+                                                                  (Def. 5)
+
+with cores G_n in R^{r_{n-1} x d_n x r_n}, r_0 = r_N = 1. A *batch* keeps a
+leading batch axis on every factor or core: (B, d_n, R) or (B, r_{n-1}, d_n,
+r_n) per mode, the layout of the reference package's batched pytrees.
+
+Each format class is the one place that knows its format: ``layout`` (the
+name the kernels' wrappers key on), ``row_floats`` (one item's floats at its
+true ranks), ``stack`` (the kernels' layout, ``repro_torch.kernels.ops``),
+``pair_inners`` / ``self_inners`` (the in-format inner products of
+``repro_torch.core.contractions``), ``inner_length`` (the longest fp32 sum
+of one inner product, for the rounding bounds) and ``abs``. Callers use these
+and do not test the type.
 
 Sampling takes an explicit ``torch.Generator`` where the reference takes a
 ``jax.random`` key; the two give different numbers from one seed, so tests
@@ -20,6 +33,8 @@ import math
 from typing import Sequence
 
 import torch
+
+from repro_torch.core import contractions
 
 
 @dataclasses.dataclass(frozen=True)
@@ -48,6 +63,111 @@ class CPTensor:
 
     def to(self, device) -> "CPTensor":
         return CPTensor(tuple(f.to(device) for f in self.factors), self.scale)
+
+    @property
+    def leaves(self) -> tuple[torch.Tensor, ...]:
+        return self.factors
+
+    layout = "cp"
+
+    @property
+    def row_floats(self) -> int:
+        """Floats of one item: sum_n d_n * R."""
+        return sum(f.shape[-2] * f.shape[-1] for f in self.factors)
+
+    def abs(self) -> "CPTensor":
+        return CPTensor(tuple(f.abs() for f in self.factors), abs(self.scale))
+
+    def pair_inners(self, other: "CPTensor") -> torch.Tensor:
+        """<X, Y> over leading batch axes that broadcast, scales applied."""
+        return contractions.inner_cp_cp(self, other)
+
+    def self_inners(self) -> torch.Tensor:
+        return self.pair_inners(self)
+
+    def inner_length(self, rank: int) -> int:
+        """The longest fp32 sum in one inner product with a CP tensor of
+        rank ``rank``: d + N + R*R (the d-long dots, the N-fold product, the
+        R*R-term sum)."""
+        return (max(self.dims) + len(self.factors)
+                + max(self.rank, rank) ** 2)
+
+    def stack(self) -> tuple["CPTensor", torch.Tensor]:
+        """-> (this batch with factors that view ``stacked``, stacked (B, N,
+        d, R) float32): the kernels' layout (``ops.stack_cp``)."""
+        from repro_torch.kernels.ops import stack_cp
+        return stack_cp(self)
+
+
+@dataclasses.dataclass(frozen=True)
+class TTTensor:
+    """Rank-R tensor-train tensor (paper Definition 5); cores are
+    (r_{n-1}, d_n, r_n) per mode with r_0 = r_N = 1, or (B, r_{n-1}, d_n,
+    r_n) for a batch."""
+
+    cores: tuple[torch.Tensor, ...]
+    scale: float = 1.0
+
+    @property
+    def ranks(self) -> tuple[int, ...]:
+        """(r_0, r_1, ..., r_N)."""
+        return (tuple(c.shape[-3] for c in self.cores)
+                + (self.cores[-1].shape[-1],))
+
+    @property
+    def rank(self) -> int:
+        return max(self.ranks)
+
+    @property
+    def dims(self) -> tuple[int, ...]:
+        return tuple(c.shape[-2] for c in self.cores)
+
+    @property
+    def device(self) -> torch.device:
+        return self.cores[0].device
+
+    @property
+    def leaves(self) -> tuple[torch.Tensor, ...]:
+        return self.cores
+
+    def index(self, idx) -> "TTTensor":
+        """Select along the leading batch axis of every core."""
+        return TTTensor(tuple(c[idx] for c in self.cores), self.scale)
+
+    def to(self, device) -> "TTTensor":
+        return TTTensor(tuple(c.to(device) for c in self.cores), self.scale)
+
+    layout = "tt"
+
+    @property
+    def row_floats(self) -> int:
+        """Floats of one item at its true ranks: sum_n r_{n-1} d_n r_n."""
+        return sum(c.shape[-3] * c.shape[-2] * c.shape[-1]
+                   for c in self.cores)
+
+    def abs(self) -> "TTTensor":
+        return TTTensor(tuple(c.abs() for c in self.cores), abs(self.scale))
+
+    def pair_inners(self, other: "TTTensor") -> torch.Tensor:
+        """<X, Y> over leading batch axes that broadcast, scales applied."""
+        return contractions.inner_tt_tt(self, other)
+
+    def self_inners(self) -> torch.Tensor:
+        return self.pair_inners(self)
+
+    def inner_length(self, rank: int) -> int:
+        """The longest fp32 sum in one inner product with a TT tensor of
+        rank ``rank``: N * (R + d*R) + 2 with R the larger rank (a chain
+        step's two contractions, in either order; ``kernels.parity``)."""
+        r = max(self.rank, rank)
+        return len(self.cores) * (r + max(self.dims) * r) + 2
+
+    def stack(self) -> tuple["TTTensor", torch.Tensor]:
+        """-> (this batch with cores that view ``stacked`` at their true
+        ranks, stacked (B, N, R, d, R) float32): the kernels' layout
+        (``ops.stack_tt``)."""
+        from repro_torch.kernels.ops import stack_tt
+        return stack_tt(self)
 
 
 def _shape(batch: int | None, *shape: int) -> tuple[int, ...]:
@@ -78,6 +198,48 @@ def cp_random_data(gen: torch.Generator, dims: Sequence[int], rank: int,
     return CPTensor(factors, scale=1.0)
 
 
+def _tt_core_shapes(dims: Sequence[int],
+                    rank: int) -> list[tuple[int, int, int]]:
+    """(r_{n-1}, d_n, r_n) per mode: boundary ranks 1, interior ``rank``."""
+    n = len(dims)
+    return [(1 if i == 0 else rank, d, 1 if i == n - 1 else rank)
+            for i, d in enumerate(dims)]
+
+
+def tt_rademacher(gen: torch.Generator, dims: Sequence[int], rank: int,
+                  batch: int | None = None) -> TTTensor:
+    """TT-Rademacher tensor, T ~ TT_Rad(R) (paper Definition 7):
+    T = (1/sqrt(R^(N-1))) <<G_1, ..., G_N>>, core entries iid +-1 w.p. 1/2.
+    Made on the generator's device."""
+    cores = tuple(
+        2.0 * torch.randint(0, 2, _shape(batch, *s), generator=gen,
+                            device=gen.device).float() - 1.0
+        for s in _tt_core_shapes(dims, rank))
+    return TTTensor(cores, scale=1.0 / math.sqrt(rank ** (len(dims) - 1)))
+
+
+def tt_gaussian(gen: torch.Generator, dims: Sequence[int], rank: int,
+                batch: int | None = None) -> TTTensor:
+    """TT-Gaussian tensor, T ~ TT_N(R) (paper Definition 7): N(0, 1) core
+    entries, scale 1/sqrt(R^(N-1)). Made on the generator's device."""
+    cores = tuple(torch.randn(_shape(batch, *s), generator=gen,
+                              device=gen.device)
+                  for s in _tt_core_shapes(dims, rank))
+    return TTTensor(cores, scale=1.0 / math.sqrt(rank ** (len(dims) - 1)))
+
+
+def tt_random_data(gen: torch.Generator, dims: Sequence[int], rank: int,
+                   batch: int | None = None) -> TTTensor:
+    """Random *data* tensors in rank-R^ TT format: N(0, 1) core entries
+    over (r_{n-1} d_n)^(1/4), scale 1 (the reference's ``tt_random_data``);
+    ``batch`` makes B of them at once. Made on the generator's device."""
+    cores = tuple(
+        torch.randn(_shape(batch, *s), generator=gen, device=gen.device)
+        / math.sqrt(s[0] * s[1]) ** 0.5
+        for s in _tt_core_shapes(dims, rank))
+    return TTTensor(cores, scale=1.0)
+
+
 def cp_to_dense(x: CPTensor) -> torch.Tensor:
     """Materialize one CP tensor: X = scale * sum_r (x)_n a_r^(n). Test
     oracle only: O(d^N) memory."""
@@ -85,3 +247,12 @@ def cp_to_dense(x: CPTensor) -> torch.Tensor:
     for f in x.factors[1:]:
         acc = acc[..., None, :] * f                       # (..., d_k, R)
     return x.scale * acc.sum(dim=-1)
+
+
+def tt_to_dense(x: TTTensor) -> torch.Tensor:
+    """Materialize one TT tensor by sequential core contraction. Test
+    oracle only: O(d^N) memory."""
+    acc = x.cores[0].reshape(x.cores[0].shape[1], x.cores[0].shape[2])
+    for core in x.cores[1:]:
+        acc = torch.tensordot(acc, core, dims=([-1], [0]))  # (..., d_k, r_k)
+    return x.scale * acc.reshape(acc.shape[:-1])

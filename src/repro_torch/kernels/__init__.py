@@ -1,8 +1,9 @@
 """The port's kernels and their plain PyTorch versions.
 
   cp_gram.py      K3: fused CP x CP hashing (csrc/cp_gram.cu)
-  fused_query.py  K1: discretize -> probe -> dedup -> re-rank -> top-k
-                  (csrc/fused_query.cu)
+  tt_inner.py     K4: fused TT x TT hashing, the chain (csrc/tt_inner.cu)
+  fused_query.py  K1: discretize -> probe -> dedup -> CP or TT re-rank ->
+                  top-k (csrc/fused_query.cu)
   epilogues.py    hash epilogues and probe helpers as plain PyTorch
   ops.py          format stacking and ``fused_hash``
   ref.py          plain oracles

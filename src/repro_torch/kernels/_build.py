@@ -35,10 +35,12 @@ SIGNATURES = {
     # x, p, offsets, mults, out, B, N, D, RX, L, K, RP, epilogue, w, scale,
     # block_b, block_l, stream
     "cp_gram_launch": [_P] * 5 + [_I] * 8 + [_F, _F, _I, _I, _P],
+    # the same arguments, in the TT layouts
+    "tt_inner_launch": [_P] * 5 + [_I] * 8 + [_F, _F, _I, _I, _P],
     # values, offsets, mults, q, c, sorted_keys, perm, live, eff, ids,
-    # scores, ncand, B, L, K, N, D, RQ, RC, m, cap, topk, e2, euclid, w,
+    # scores, ncand, B, L, K, N, D, RQ, RC, m, cap, topk, e2, euclid, tt, w,
     # s_qq, s_qy, s_yy, P, threads, stream
-    "fused_query_launch": [_P] * 12 + [_I] * 12 + [_F] * 4 + [_I, _I, _P],
+    "fused_query_launch": [_P] * 12 + [_I] * 13 + [_F] * 4 + [_I, _I, _P],
 }
 
 _LIB = None

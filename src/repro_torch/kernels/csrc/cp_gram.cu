@@ -7,10 +7,9 @@
 //
 //     v[z, l, k] = scale * sum_{r,q} prod_n (X_{z,n}^T P_{(l,k),n})[r, q]
 //
-// and applies the epilogue in registers, so only the epilogue's output is
-// stored: raw values, E2LSH codes floor((v + b) / w), SRP bits v > 0, the
-// uint32 radix keys sum_k code_k * mults[k] (natural uint32 wraparound,
-// exactly repro.core.lsh._combine_codes), or SRP bits packed little-endian.
+// and applies the epilogue in registers (csrc/epilogue.cuh, shared with K4),
+// so only the epilogue's output is stored: raw values, E2LSH codes, SRP
+// bits, uint32 radix keys or packed SRP bits.
 //
 // What bounds it on the H100: arithmetic. Per (item, hash) it does
 // N*d*Rx*Rp fused multiply-adds (432 at the serving shape N=3, d=12, Rx=4,
@@ -35,18 +34,16 @@
 // a 10-bit mantissa and flips codes next to bucket edges; it is left to a
 // later change that keeps fp32 accuracy (e.g. 3xTF32).
 //
-// Rounding: scale * v and v + b use __fmul_rn / __fadd_rn so that the
-// compiler cannot contract them into one FMA, and the division by w is
-// __fdiv_rn (IEEE, never a multiply by 1/w), as in the reference.
+// Rounding: scale * v uses __fmul_rn and the epilogue __fadd_rn /
+// __fdiv_rn, so that the compiler cannot contract them into one FMA and
+// E2LSH divides by w (IEEE, never a multiply by 1/w), as in the reference.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-namespace {
+#include "epilogue.cuh"
 
-enum Epilogue : int {
-  kRaw = 0, kE2lsh = 1, kSrp = 2, kE2lshKeys = 3, kSrpKeys = 4, kSrpPacked = 5
-};
+namespace {
 
 constexpr int RMAX = 8;  // largest rank (Rx, Rp) the register tiles hold
 
@@ -94,8 +91,8 @@ __global__ void cp_gram_kernel(const float* __restrict__ x,      // (B, N, D, RX
   const int l = l0 + li;
   const float* pl = ps + (size_t)li * per_table;
 
-  uint32_t key = 0u, word = 0u;
-  const int words = (K + 31) / 32;
+  const EpilogueArgs ea{offsets, mults, out, L, K, epilogue, w};
+  EpilogueTail tail;
   for (int k = 0; k < K; ++k) {
     const float* pk = pl + (size_t)k * N * PK;
     float acc[RT][RT];
@@ -132,33 +129,9 @@ __global__ void cp_gram_kernel(const float* __restrict__ x,      // (B, N, D, RX
 #pragma unroll
       for (int q = 0; q < RT; ++q)
         if (r < RX && q < RP) v += acc[r][q];
-    v = __fmul_rn(scale, v);
-    const size_t cell = ((size_t)z * L + l) * K + k;
-    if (epilogue == kRaw) {
-      static_cast<float*>(out)[cell] = v;
-      continue;
-    }
-    int code;
-    if (epilogue == kE2lsh || epilogue == kE2lshKeys) {
-      code = (int)floorf(__fdiv_rn(__fadd_rn(v, offsets[l * K + k]), w));
-    } else {
-      code = v > 0.f ? 1 : 0;
-    }
-    if (epilogue == kE2lsh || epilogue == kSrp) {
-      static_cast<int*>(out)[cell] = code;
-    } else if (epilogue == kSrpPacked) {
-      word |= (uint32_t)code << (k & 31);
-      if ((k & 31) == 31 || k == K - 1) {
-        static_cast<long long*>(out)[((size_t)z * L + l) * words + (k >> 5)] =
-            (long long)word;
-        word = 0u;
-      }
-    } else {
-      key += (uint32_t)code * (uint32_t)mults[k];
-    }
+    tail.push(ea, z, l, k, __fmul_rn(scale, v));
   }
-  if (epilogue == kE2lshKeys || epilogue == kSrpKeys)
-    static_cast<long long*>(out)[(size_t)z * L + l] = (long long)key;
+  tail.finish(ea, z, l);
 }
 
 template <int RT>

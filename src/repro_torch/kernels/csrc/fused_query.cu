@@ -5,7 +5,9 @@
 // (the pl.pallas_call in fused_query) on its single-probe (T = 1),
 // dense-window, one-segment branch, with the probe helpers of
 // repro/kernels/epilogues.py and the re-rank of
-// repro/core/segments.py::hoisted_scores. One block serves one query:
+// repro/core/segments.py::hoisted_scores, for CP and TT corpora (the
+// template argument TR, the TT rank bound or 0 for CP, picks the format).
+// One block serves one query:
 //
 //   1. discretize the query's L*K raw values (floor((v + b) / w) or v > 0)
 //      and radix-combine them into L uint32 bucket keys;
@@ -17,8 +19,8 @@
 //      (live == 0) replaced by the miss sentinel;
 //   4. bitonic sort + duplicate mask (the reference's dedup_windows);
 //   5. exact re-rank in format: qy and yy from the candidate's CP factor
-//      rows, qq once per query, combined in the reference's order
-//      sqrt(max((qq + yy) - 2 qy, 0)) or qy / (nq * ny);
+//      rows or TT core row, qq once per query, combined in the reference's
+//      order sqrt(max((qq + yy) - 2 qy, 0)) or qy / (nq * ny);
 //   6. the 64-bit selection key (order_key_bits(score) << 32) | eff;
 //   7. a second bitonic sort selects the top-k;
 //   8. ids, scores and the candidate count are written.
@@ -28,7 +30,10 @@
 // touch, the perm/live entries of its windows and one 576-byte CP row (at
 // the serving shape) per distinct candidate. At ~120 candidates per query
 // that is ~73 MB for a batch of 1024, ~22 us at 3.35 TB/s. The arithmetic
-// per candidate (~1.2k FMA) is far below the fp32 rate.
+// per candidate (~1.2k FMA) is far below the fp32 rate. A TT candidate is a
+// 4 KiB padded row at the TT cell (dims (16, 16, 16, 16), R = 4) and two
+// chains of ~10k FMA in all, so there the bytes still bound it at the cell's
+// candidate counts.
 //
 // What the design does about it, and what it does not yet: every
 // intermediate (keys, windows, candidates, scores) stays in shared memory;
@@ -37,12 +42,17 @@
 // per-warp shared buffer in one coalesced pass (a few memory transactions
 // in flight at once, instead of one dependent L2 round trip per factor
 // entry), then each lane takes (r, q) Gram pairs of <Q, Y> and <Y, Y>, and
-// a shuffle reduction sums them. The binary searches are dependent loads
+// a shuffle reduction sums them. A TT row (N, R, d, R) is copied the same
+// way; the lanes then own the entries of the <Q, Y> and <Y, Y> chain states
+// (R*R each, 32 entries at R = 4) and step both chains mode by mode,
+// S'[c][e] = sum_{i,a} Gq[a][i][c] sum_b S[a][b] Gy[b][i][e], with the
+// states in a per-warp shared buffer. The binary searches are dependent loads
 // and latency-bound; hiding that (several queries per block, prefetching)
 // is work for a later change. Shared memory is sized for the worst window
 // L*cap (rounded up to a power of two for the bitonic sort): 12 bytes a
-// slot, so the largest window one block takes is 16384 slots; the wrapper
-// raises above it.
+// slot, so the largest window one block takes is 16384 slots with CP rows
+// of the serving shape and 8192 with 4 KiB TT rows; the wrapper raises
+// above it.
 //
 // Rounding: the score combine uses __fadd_rn / __fsub_rn / __fmul_rn /
 // __fdiv_rn so no FMA contraction changes the reference's expression, and
@@ -73,6 +83,65 @@ __device__ float pair_term(const float* a, int RA, const float* b, int RB,
     prod = (n == 0) ? dot : prod * dot;
   }
   return prod;
+}
+
+// One warp steps up to two TT transfer-matrix chains at once, <A1, B1> and
+// <A2, B2> (ra2 = 0 for one chain), over rows in the padded (N, R, D, R)
+// layout, ranks at most TR: lanes own entries (c, e) of the ra x rb states,
+// kept in st (2 * (ra1*rb1 + ra2*rb2) floats of shared memory: the states
+// and their next values). Per mode a lane reads its chain's state into
+// registers once, then per slice i issues its TR loads of B and TR of A
+// together and does TR*TR + TR FMA:
+//   S'[c][e] = sum_i sum_x A[x][i][c] sum_y S[x][y] B[y][i][e].
+// Starts from e_00 and returns S[0][0] of each chain to every lane.
+template <int TR>
+__device__ void tt_chains(const float* a1, int ra1, const float* b1, int rb1,
+                          const float* a2, int ra2, const float* b2, int rb2,
+                          int N, int D, float* st, int lane, float* v1,
+                          float* v2) {
+  const int n1 = ra1 * rb1, tot = n1 + ra2 * rb2;
+  float* nxt = st + tot;
+  for (int p = lane; p < tot; p += 32) st[p] = (p == 0 || p == n1) ? 1.f : 0.f;
+  __syncwarp();
+  for (int n = 0; n < N; ++n) {
+    for (int p = lane; p < tot; p += 32) {
+      const bool one = p < n1;
+      const int ra = one ? ra1 : ra2, rb = one ? rb1 : rb2;
+      const int q = one ? p : p - n1;
+      const int c = q / rb, e = q - c * rb;
+      const float* s = one ? st : st + n1;
+      const float* an = (one ? a1 : a2) + (size_t)n * ra * D * ra + c;
+      const float* bn = (one ? b1 : b2) + (size_t)n * rb * D * rb + e;
+      float sr[TR][TR];
+#pragma unroll
+      for (int x = 0; x < TR; ++x)
+#pragma unroll
+        for (int y = 0; y < TR; ++y)
+          sr[x][y] = (x < ra && y < rb) ? s[x * rb + y] : 0.f;
+      float acc = 0.f;
+      for (int i = 0; i < D; ++i) {
+        float bv[TR], av[TR];
+#pragma unroll
+        for (int y = 0; y < TR; ++y) bv[y] = y < rb ? bn[(y * D + i) * rb] : 0.f;
+#pragma unroll
+        for (int x = 0; x < TR; ++x) av[x] = x < ra ? an[(x * D + i) * ra] : 0.f;
+#pragma unroll
+        for (int x = 0; x < TR; ++x) {
+          float u = 0.f;
+#pragma unroll
+          for (int y = 0; y < TR; ++y) u += sr[x][y] * bv[y];
+          acc += av[x] * u;
+        }
+      }
+      nxt[p] = acc;
+    }
+    __syncwarp();
+    for (int p = lane; p < tot; p += 32) st[p] = nxt[p];
+    __syncwarp();
+  }
+  *v1 = st[0];
+  *v2 = tot > n1 ? st[n1] : 0.f;
+  __syncwarp();
 }
 
 __device__ __forceinline__ float warp_sum(float v) {
@@ -106,12 +175,14 @@ __device__ __forceinline__ int pow2_ceil(int x) {
   return p;
 }
 
+// TR = 0: CP rows; TR = 4 or 8: TT rows of ranks at most TR.
+template <int TR>
 __global__ void fused_query_kernel(
     const float* __restrict__ values,          // (B, L*K)
     const float* __restrict__ offsets,         // (L*K,)
     const long long* __restrict__ mults,       // (K,)
-    const float* __restrict__ q,               // (B, N, D, RQ)
-    const float* __restrict__ c,               // (m, N, D, RC)
+    const float* __restrict__ q,               // (B, N, D, RQ) or TT (B, N, RQ, D, RQ)
+    const float* __restrict__ c,               // (m, N, D, RC) or TT (m, N, RC, D, RC)
     const long long* __restrict__ sorted_keys, // (L, m)
     const int* __restrict__ perm,              // (L, m)
     const unsigned char* __restrict__ live,    // (m + 1,)
@@ -120,15 +191,18 @@ __global__ void fused_query_kernel(
     int* __restrict__ out_ncand, int L, int K, int N, int D, int RQ, int RC,
     int m, int cap, int topk, int e2, int euclid, float w, float s_qq,
     float s_qy, float s_yy, int P) {
+  constexpr bool tt = TR > 0;
   extern __shared__ unsigned long long smem64[];
   unsigned long long* ckey = smem64;                  // [P]
   uint32_t* win = reinterpret_cast<uint32_t*>(ckey + P);  // [P]
-  float* qf = reinterpret_cast<float*>(win + P);      // [N*D*RQ]
-  const int FQ = N * D * RQ;
-  const int FC = N * D * RC;
+  float* qf = reinterpret_cast<float*>(win + P);      // [FQ]
+  const int FQ = tt ? N * RQ * D * RQ : N * D * RQ;  // floats of a query row
+  const int FC = tt ? N * RC * D * RC : N * D * RC;  // floats of a corpus row
+  const int SW = tt ? 2 * max(RQ * RC + RC * RC, RQ * RQ) : 0;
   const int nwarps = blockDim.x >> 5;
-  float* ybuf = qf + FQ;                              // [nwarps][N*D*RC]
-  int* starts = reinterpret_cast<int*>(ybuf + nwarps * FC);  // [L]
+  float* ybuf = qf + FQ;                              // [nwarps][FC]
+  float* sbuf = ybuf + nwarps * FC;                   // [nwarps][SW]
+  int* starts = reinterpret_cast<int*>(sbuf + nwarps * SW);  // [L]
   int* lens = starts + L;                             // [L]
   int* woff = lens + L;                               // [L + 1]
   __shared__ float qq_s;
@@ -172,9 +246,15 @@ __global__ void fused_query_kernel(
   __syncthreads();
   if (warp == 0) {  // qq once per query, the window offsets
     float t = 0.f;
-    for (int p = lane; p < RQ * RQ; p += 32)
-      t += pair_term(qf, RQ, qf, RQ, N, D, p / RQ, p % RQ);
-    t = warp_sum(t);
+    if constexpr (tt) {
+      float unused;
+      tt_chains<TR>(qf, RQ, qf, RQ, nullptr, 0, nullptr, 0, N, D, sbuf, lane,
+                    &t, &unused);
+    } else {
+      for (int p = lane; p < RQ * RQ; p += 32)
+        t += pair_term(qf, RQ, qf, RQ, N, D, p / RQ, p % RQ);
+      t = warp_sum(t);
+    }
     if (lane == 0) {
       qq_s = scale_mul(s_qq, t);
       woff[0] = 0;
@@ -215,22 +295,28 @@ __global__ void fused_query_kernel(
   const float qq = qq_s;
   const int PC = pow2_ceil(n_cand);
   float* yb = ybuf + warp * FC;
+  float* sb = sbuf + warp * SW;
   for (int j = warp; j < n_cand; j += nwarps) {
     const uint32_t id = (uint32_t)ckey[j];
     const float* y = c + (size_t)id * FC;
     for (int i = lane; i < FC; i += 32) yb[i] = y[i];
     __syncwarp();
     float tqy = 0.f, tyy = 0.f;
-    for (int p = lane; p < RQ * RC + RC * RC; p += 32) {
-      if (p < RQ * RC) {
-        tqy += pair_term(qf, RQ, yb, RC, N, D, p / RC, p % RC);
-      } else {
-        const int p2 = p - RQ * RC;
-        tyy += pair_term(yb, RC, yb, RC, N, D, p2 / RC, p2 % RC);
+    if constexpr (tt) {
+      tt_chains<TR>(qf, RQ, yb, RC, yb, RC, yb, RC, N, D, sb, lane, &tqy,
+                    &tyy);
+    } else {
+      for (int p = lane; p < RQ * RC + RC * RC; p += 32) {
+        if (p < RQ * RC) {
+          tqy += pair_term(qf, RQ, yb, RC, N, D, p / RC, p % RC);
+        } else {
+          const int p2 = p - RQ * RC;
+          tyy += pair_term(yb, RC, yb, RC, N, D, p2 / RC, p2 % RC);
+        }
       }
+      tqy = warp_sum(tqy);
+      tyy = warp_sum(tyy);
     }
-    tqy = warp_sum(tqy);
-    tyy = warp_sum(tyy);
     if (lane == 0) {
       const float qy = scale_mul(s_qy, tqy);
       const float yy = scale_mul(s_yy, tyy);
@@ -277,28 +363,64 @@ __global__ void fused_query_kernel(
 }  // namespace
 
 extern "C" size_t fused_query_smem_bytes(int L, int N, int D, int RQ, int RC,
-                                         int P, int threads) {
-  return (size_t)P * 12 + (size_t)N * D * RQ * 4 +
-         (size_t)(threads / 32) * N * D * RC * 4 + (size_t)(3 * L + 1) * 4;
+                                         int P, int threads, int tt) {
+  const size_t fq = tt ? (size_t)N * RQ * D * RQ : (size_t)N * D * RQ;
+  const size_t fc = tt ? (size_t)N * RC * D * RC : (size_t)N * D * RC;
+  const size_t sw = tt ? 2 * (size_t)max(RQ * RC + RC * RC, RQ * RQ) : 0;
+  return (size_t)P * 12 + fq * 4 + (size_t)(threads / 32) * (fc + sw) * 4 +
+         (size_t)(3 * L + 1) * 4;
 }
+
+namespace {
+
+template <int TR>
+int launch(const float* values, const float* offsets, const long long* mults,
+           const float* q, const float* c, const long long* sorted_keys,
+           const int* perm, const unsigned char* live, const int* eff,
+           int* out_ids, float* out_scores, int* out_ncand, int B, int L,
+           int K, int N, int D, int RQ, int RC, int m, int cap, int topk,
+           int e2, int euclid, float w, float s_qq, float s_qy, float s_yy,
+           int P, int threads, cudaStream_t stream) {
+  const size_t smem =
+      fused_query_smem_bytes(L, N, D, RQ, RC, P, threads, TR > 0);
+  if (smem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(
+        fused_query_kernel<TR>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  fused_query_kernel<TR><<<B, threads, smem, stream>>>(
+      values, offsets, mults, q, c, sorted_keys, perm, live, eff, out_ids,
+      out_scores, out_ncand, L, K, N, D, RQ, RC, m, cap, topk, e2, euclid, w,
+      s_qq, s_qy, s_yy, P);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
 
 extern "C" int fused_query_launch(
     const float* values, const float* offsets, const long long* mults,
     const float* q, const float* c, const long long* sorted_keys,
     const int* perm, const unsigned char* live, const int* eff, int* out_ids,
     float* out_scores, int* out_ncand, int B, int L, int K, int N, int D,
-    int RQ, int RC, int m, int cap, int topk, int e2, int euclid, float w,
-    float s_qq, float s_qy, float s_yy, int P, int threads, void* stream) {
-  const size_t smem = fused_query_smem_bytes(L, N, D, RQ, RC, P, threads);
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        fused_query_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  fused_query_kernel<<<B, threads, smem, static_cast<cudaStream_t>(stream)>>>(
-      values, offsets, mults, q, c, sorted_keys, perm, live, eff, out_ids,
-      out_scores, out_ncand, L, K, N, D, RQ, RC, m, cap, topk, e2, euclid, w,
-      s_qq, s_qy, s_yy, P);
-  return (int)cudaGetLastError();
+    int RQ, int RC, int m, int cap, int topk, int e2, int euclid, int tt,
+    float w, float s_qq, float s_qy, float s_yy, int P, int threads,
+    void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (!tt)
+    return launch<0>(values, offsets, mults, q, c, sorted_keys, perm, live,
+                     eff, out_ids, out_scores, out_ncand, B, L, K, N, D, RQ,
+                     RC, m, cap, topk, e2, euclid, w, s_qq, s_qy, s_yy, P,
+                     threads, st);
+  if (RQ <= 4 && RC <= 4)
+    return launch<4>(values, offsets, mults, q, c, sorted_keys, perm, live,
+                     eff, out_ids, out_scores, out_ncand, B, L, K, N, D, RQ,
+                     RC, m, cap, topk, e2, euclid, w, s_qq, s_qy, s_yy, P,
+                     threads, st);
+  if (RQ <= 8 && RC <= 8)
+    return launch<8>(values, offsets, mults, q, c, sorted_keys, perm, live,
+                     eff, out_ids, out_scores, out_ncand, B, L, K, N, D, RQ,
+                     RC, m, cap, topk, e2, euclid, w, s_qq, s_qy, s_yy, P,
+                     threads, st);
+  return (int)cudaErrorInvalidValue;
 }

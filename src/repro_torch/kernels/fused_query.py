@@ -12,9 +12,11 @@ raises. The plain version composes ``kernels.epilogues``' probe helpers and
 ``core.segments.hoisted_scores`` exactly as the reference's
 ``_fused_query_kernel`` does. Both take the raw projections as an input, so
 the two can be held against each other on the same values
-(``LSHFamily.raw_stacked`` makes them with K3 on the main path), and both
-take the query batch as ``ops.stack_cp`` gives it: the plain version reads
-its per-mode views, the kernel the stacked tensor they view.
+(``LSHFamily.raw_stacked`` makes them with K3 or K4 on the main path), and
+both take the query batch as its format's ``stack`` gives it: the plain
+version reads its per-mode views, the kernel the stacked tensor they view. The corpus and
+the queries are CP (stacked (B, N, d, R)) or TT (stacked (B, N, R, d, R));
+the re-rank is the format's inner product.
 
 This slice covers the single-probe (T = 1), dense-window, one-segment
 branch. The multi-probe expansion, the live-window (``bucket_cap``) branch,
@@ -34,6 +36,7 @@ from repro_torch.kernels import epilogues as _epi
 
 MAX_SMEM = 232_448         # bytes of shared memory one H100 block may use
 THREADS = 256              # threads per query block (8 warps)
+MAX_TT_RANK = 8            # largest TT rank K1's chain registers hold
 
 
 def _pow2_ceil(x: int) -> int:
@@ -41,22 +44,29 @@ def _pow2_ceil(x: int) -> int:
 
 
 def smem_bytes(num_tables: int, n_modes: int, d: int, rq: int, rc: int,
-               window: int) -> int:
+               window: int, tt: bool = False) -> int:
     """Shared memory of one K1 block (mirrors ``fused_query_smem_bytes`` in
     the CUDA source) for a window capacity ``window`` (a power of two): 8 + 4
-    bytes a slot, the query's factors, one candidate row per warp, three
-    per-table integer arrays, and 8 bytes of static scalars."""
-    return (window * 12 + n_modes * d * rq * 4
-            + (THREADS // 32) * n_modes * d * rc * 4
+    bytes a slot, the query's row, one candidate row per warp (CP factors
+    (N, d, R) or TT cores (N, R, d, R)) and, for TT, each warp's two chain
+    states and their next values, three per-table integer arrays, and 8
+    bytes of static scalars."""
+    if tt:
+        fq, fc = n_modes * rq * d * rq, n_modes * rc * d * rc
+        sw = 2 * max(rq * rc + rc * rc, rq * rq)
+    else:
+        fq, fc, sw = n_modes * d * rq, n_modes * d * rc, 0
+    return (window * 12 + fq * 4 + (THREADS // 32) * (fc + sw) * 4
             + (3 * num_tables + 1) * 4 + 8)
 
 
 def window_capacity(num_tables: int, cap: int, n_modes: int, d: int,
-                    rq: int, rc: int) -> int:
+                    rq: int, rc: int, tt: bool = False) -> int:
     """The power-of-two window K1 sizes its shared memory for; raises
     ``ValueError`` when L*cap exceeds the largest window one block holds."""
     window = _pow2_ceil(num_tables * cap)
-    size = functools.partial(smem_bytes, num_tables, n_modes, d, rq, rc)
+    size = functools.partial(smem_bytes, num_tables, n_modes, d, rq, rc,
+                             tt=tt)
     if size(window) > MAX_SMEM:
         largest = 1
         while size(2 * largest) <= MAX_SMEM:
@@ -89,8 +99,8 @@ def fused_query_plain(values, offsets, mults, queries, seg, *, kind, w,
 
     values (B, L*K) float32 raw projections; offsets (L*K,) float32 (E2LSH;
     unused and may be None for SRP); mults (K,) uint32 values in int64;
-    queries the (batched CPTensor, stacked (B, N, d, R)) pair of
-    ``ops.stack_cp``; ``seg`` the segment arrays
+    queries the (batched CP or TT tensor, stacked tensor) pair of the
+    format's ``stack``; ``seg`` the segment arrays
     (``core.segments.SegmentArrays``).
     """
     fused_query_plain.calls += 1
@@ -130,13 +140,18 @@ def fused_query(values, offsets, mults, queries, seg, *, kind, w, num_tables,
     b = values.shape[0]
     m = seg.sorted_keys.shape[1]
     c = seg.stacked
-    _, n, d, rc = c.shape
     q = queries[1]
-    if q.shape[1:3] != (n, d) or not q.is_contiguous():
+    tt = seg.corpus.layout == "tt"        # (m, N, R, d, R); CP (m, N, d, R)
+    n, d, rc = c.shape[1], c.shape[-2], c.shape[-1]
+    if (q.dim() != c.dim() or (q.shape[1], q.shape[-2]) != (n, d)
+            or not q.is_contiguous()):
         raise ValueError(f"stacked queries {tuple(q.shape)} do not match the "
                          f"stacked corpus {tuple(c.shape)}")
     rq = q.shape[-1]
-    window = window_capacity(num_tables, cap, n, d, rq, rc)
+    if tt and max(rq, rc) > MAX_TT_RANK:
+        raise ValueError(f"K1 holds TT ranks up to {MAX_TT_RANK} in "
+                         f"registers; got Rq={rq}, Rc={rc}")
+    window = window_capacity(num_tables, cap, n, d, rq, rc, tt=tt)
     vals = values.contiguous().float()
     offs = offsets.float().contiguous() if e2 else None
     mu = mults.to(dev, torch.int64).contiguous()
@@ -159,7 +174,7 @@ def fused_query(values, offsets, mults, queries, seg, *, kind, w, num_tables,
         q.data_ptr(), c.data_ptr(), sorted_keys.data_ptr(), perm.data_ptr(),
         live.data_ptr(), eff.data_ptr(), ids.data_ptr(),
         scores.data_ptr(), ncand.data_ptr(), b, num_tables, num_codes, n, d,
-        rq, rc, m, cap, topk, int(e2), int(metric == "euclidean"),
+        rq, rc, m, cap, topk, int(e2), int(metric == "euclidean"), int(tt),
         float(w) if e2 else 1.0, qs * qs, qs * cs, cs * cs, window, THREADS,
         torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "fused_query_launch")

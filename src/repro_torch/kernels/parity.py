@@ -8,6 +8,15 @@ because both sides round:
 
   * K3 raw values: n = d + N + Rx*Rp (the d-long dots, the N-fold product,
     the Rx*Rp-term sum), S = |scale| * sum_{r,q} prod_n sum_d |x| |p|.
+  * K4 raw values (``tt_raw_bound``): each mode's step
+    S'[c, e] = sum_{a, i, b} Gx[a, i, c] S[a, b] Gp[b, i, e] is two
+    contractions, one of length Rx (over a) and one of length d*Rp (over
+    (b, i)) in the reference's order, Rp and d*Rx in the kernel's (S Gp
+    first). A computed dot of length n differs from the exact one by at
+    most gamma_n times the same dot over absolute values, and the N steps
+    compose, so the computed chain is within gamma_n of the exact one with
+    n = N * max(Rx + d*Rp, Rp + d*Rx) + 2 (the scale multiply and one
+    spare), and S is the same chain on |cores| times |scale|.
   * Codes: a code may differ only where the value lies within that bound of
     a bucket edge (E2LSH) or of 0 (SRP); keys may differ only in the tables
     holding such a code.
@@ -22,10 +31,8 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.core.segments import _gram_sum
-from repro_torch.core.tensor_formats import CPTensor
 from repro_torch.kernels.epilogues import div_w
-from repro_torch.kernels.ref import cp_inner_ref
+from repro_torch.kernels.ref import cp_inner_ref, tt_inner_ref
 
 U = 2.0 ** -24
 
@@ -39,6 +46,19 @@ def raw_bound(x_factors: torch.Tensor, p_factors: torch.Tensor,
     s = abs(scale) * cp_inner_ref(x_factors.abs(),
                                   p_factors.abs().reshape(n, l * k, d, rp))
     return 2.0 * (d + n + rx * rp) * U * s.reshape(b, l, k)
+
+
+def tt_raw_bound(x_cores: torch.Tensor, p_cores: torch.Tensor,
+                 scale: float) -> torch.Tensor:
+    """(B, L, K) absolute bound on the difference of two fp32 evaluations
+    of K4's raw values; x (B, N, Rx, d, Rx), p (N, L, K, Rp, d, Rp)
+    stacked."""
+    b, n, rx, d, _ = x_cores.shape
+    _, l, k, rp, _, _ = p_cores.shape
+    s = abs(scale) * tt_inner_ref(x_cores.abs(),
+                                  p_cores.abs().reshape(n, l * k, rp, d, rp))
+    length = n * max(rx + d * rp, rp + d * rx) + 2
+    return 2.0 * length * U * s.reshape(b, l, k)
 
 
 def boundary_codes(v: torch.Tensor, bound: torch.Tensor, kind: str,
@@ -64,30 +84,25 @@ def key_mismatches(keys_a: torch.Tensor, keys_b: torch.Tensor,
     return int((differ & ~near).sum()), int(near.sum())
 
 
-def rerank_bound(metric: str, queries: CPTensor, corpus: CPTensor,
-                 ids: torch.Tensor, scores: torch.Tensor) -> torch.Tensor:
+def rerank_bound(metric: str, queries, corpus, ids: torch.Tensor,
+                 scores: torch.Tensor) -> torch.Tensor:
     """(B, topk) bound on the difference of two fp32 evaluations of the
-    re-rank score of each result (0 where ``ids`` is -1)."""
+    re-rank score of each result (0 where ``ids`` is -1). The inner
+    products carry the raw bounds' lengths (the format's ``inner_length``,
+    CP: d + N + R*R; TT: N * (R + d*R) + 2 with R the larger rank, either
+    contraction order), and the score expression 4 more roundings."""
     valid = ids >= 0
-    safe = torch.where(valid, ids, 0).long()
-    qs, cs = abs(queries.scale), abs(corpus.scale)
-    sub = [f[safe] for f in corpus.factors]               # (B, k, d, R)
-    qa = [f.abs() for f in queries.factors]
-    ya = [f.abs() for f in sub]
-    s_qq = (qs * qs) * _gram_sum(qa, qa, "zdr,zdq->zrq")[:, None]
-    s_yy = (cs * cs) * _gram_sum(ya, ya, "zkdr,zkdq->zkrq")
-    s_qy = (qs * cs) * _gram_sum(qa, ya, "zdr,zkdq->zkrq")
-    d = max(queries.dims)
-    r = max(queries.rank, corpus.rank)
-    gamma = 2.0 * (d + len(queries.factors) + r * r + 4) * U
+    sub = corpus.index(torch.where(valid, ids, 0).long())  # (B, k) rows
+    qb = queries.index((slice(None), None))
+    qa, ya = qb.abs(), sub.abs()
+    s_qq, s_yy, s_qy = qa.self_inners(), ya.self_inners(), qa.pair_inners(ya)
+    qq, yy = qb.self_inners(), sub.self_inners()
+    gamma = 2.0 * (queries.inner_length(corpus.rank) + 4) * U
     s = torch.where(valid, scores, 0.0).abs()
     if metric == "euclidean":
         dd2 = gamma * (s_qq + s_yy + 2.0 * s_qy)
         tol = dd2 / torch.maximum(s, torch.sqrt(dd2))
     else:
-        qq = (qs * qs) * _gram_sum(queries.factors, queries.factors,
-                                   "zdr,zdq->zrq")[:, None]
-        yy = (cs * cs) * _gram_sum(sub, sub, "zkdr,zkdq->zkrq")
         nqy = torch.sqrt(torch.clamp(qq * yy, min=1e-30))
         tol = gamma * (s_qy / nqy + s * (s_qq / torch.clamp(qq, min=1e-30)
                                          + s_yy / torch.clamp(yy, min=1e-30)))

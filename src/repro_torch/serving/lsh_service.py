@@ -1,10 +1,10 @@
 """Batched LSH similarity-search service (reference:
 ``repro.serving.lsh_service``), device index only.
 
-A corpus of CP tensors is hashed once at build time with a CP family
-(K3 on the card), and query batches run K3 (``raw``) then K1 (probe,
-dedup, exact re-rank, top-k) without leaving the card until the final
-(B, topk) results.
+A corpus of CP or TT tensors is hashed once at build time with a family of
+its format (K3 or K4 on the card), and query batches run K3 / K4 (``raw``)
+then K1 (probe, dedup, exact in-format re-rank, top-k) without leaving the
+card until the final (B, topk) results.
 
 In the reference, ``build_service(device: bool)`` chooses between the device
 index and the host-dict index. Here ``device`` is the torch device the
@@ -26,7 +26,6 @@ import torch
 
 from repro_torch.core.index import QUERY_MODES, DeviceLSHIndex
 from repro_torch.core.lsh import LSHFamily, make_family
-from repro_torch.core.tensor_formats import CPTensor
 from repro_torch.device import resolve_device
 
 
@@ -43,7 +42,7 @@ class ServiceStats:
     total_candidates: int = 0
     topk_queries: int = 0
     build_s: float = 0.0
-    hash_s: float = 0.0        # part of build_s spent hashing (K3)
+    hash_s: float = 0.0        # part of build_s spent hashing (K3 / K4)
     sort_s: float = 0.0        # part of build_s spent sorting the tables
 
     @property
@@ -94,8 +93,7 @@ class LSHService:
     def device(self) -> torch.device:
         return self.index.device
 
-    def build(self, corpus: CPTensor,
-              batch_size: int = 65536) -> "LSHService":
+    def build(self, corpus, batch_size: int = 65536) -> "LSHService":
         t0 = time.perf_counter()
         self.index.build(corpus, batch_size=batch_size)
         self.stats.build_s = time.perf_counter() - t0
@@ -105,7 +103,7 @@ class LSHService:
 
     # -- queries ------------------------------------------------------------
 
-    def query_arrays(self, queries: CPTensor, topk: int = 10, *,
+    def query_arrays(self, queries, topk: int = 10, *,
                      probes: int | None = None, mode: str | None = None,
                      seed: int | None = None):
         """Batched raw results: (ids (B, topk), scores (B, topk), n_cand (B,))
@@ -132,7 +130,7 @@ class LSHService:
                              "mode='topk' is deterministic")
         if probes > 1:
             raise _queued("multi-probe (probes > 1)", "1")
-        n = queries.factors[0].shape[0]
+        n = queries.leaves[0].shape[0]
         t0 = time.perf_counter()
         ids, scores, n_cand = self.index.query_batch(queries, topk=int(topk))
         # one device-to-host copy of the three results, split on the host
@@ -150,7 +148,7 @@ class LSHService:
         self.stats.total_candidates += int(n_cand.sum())
         return ids, scores, n_cand
 
-    def query_batch(self, queries: CPTensor, topk: int = 10, *,
+    def query_batch(self, queries, topk: int = 10, *,
                     probes: int | None = None, mode: str | None = None,
                     seed: int | None = None) -> list[dict[str, Any]]:
         """Per-query result dicts (ids/scores trimmed of -1 fill)."""
@@ -186,14 +184,16 @@ class LSHService:
 
 
 def build_service(key: torch.Generator, kind: str, dims: Sequence[int],
-                  corpus: CPTensor, *, metric: str | None = None,
+                  corpus, *, metric: str | None = None,
                   num_codes: int = 8, num_tables: int = 8, rank: int = 4,
                   bucket_width: float = 4.0, device="cuda",
                   bucket_cap: int | None = None, shards: int | None = None,
                   probes: int = 1, query_mode: str = "topk",
                   family: LSHFamily | None = None) -> LSHService:
-    """Sample a CP family from ``key`` (a ``torch.Generator``), build the
-    index over ``corpus`` on ``device`` and return the service.
+    """Sample a CP or TT family (``kind``) from ``key`` (a
+    ``torch.Generator``), build the index over ``corpus`` (a batched
+    ``CPTensor`` or ``TTTensor`` of the kind's format) on ``device`` and
+    return the service.
 
     ``family`` serves a family made elsewhere instead of sampling one (e.g.
     parameters carried over from the reference with

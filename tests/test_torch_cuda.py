@@ -6,22 +6,29 @@ Run them on the card with
 
     PYTHONPATH=src python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py
 
-K3 (``cp_gram``): raw values within ``parity.raw_bound``; codes, keys and
-packed words equal except where a value lies within that bound of a bucket
-edge (E2LSH) or of 0 (SRP). K1 (``fused_query``): on the same raw values
-and segment arrays, candidate counts equal bit for bit, scores within
-``parity.rerank_bound``, ids equal except at near ties.
+K3 (``cp_gram``) and K4 (``tt_inner``): raw values within
+``parity.raw_bound`` / ``parity.tt_raw_bound``; codes, keys and packed
+words equal except where a value lies within that bound of a bucket edge
+(E2LSH) or of 0 (SRP). K1 (``fused_query``, CP and TT re-rank): on the same
+raw values and segment arrays, candidate counts equal bit for bit, scores
+within ``parity.rerank_bound``, ids equal except at near ties.
 """
 
 import pytest
 import torch
 
-from repro_torch.core.projections import sample_cp_projection
-from repro_torch.core.tensor_formats import cp_random_data
+from repro_torch.core.projections import (sample_cp_projection,
+                                          sample_tt_projection)
+from repro_torch.core.tensor_formats import (TTTensor, cp_random_data,
+                                             tt_random_data)
 from repro_torch.kernels import parity
 from repro_torch.kernels.cp_gram import cp_gram, cp_gram_plain
+from repro_torch.kernels.epilogues import EPILOGUES
 from repro_torch.kernels.fused_query import fused_query, fused_query_plain
-from repro_torch.kernels.ops import _stack_cp_batch, _stack_cp_proj, stack_cp
+from repro_torch.kernels.ops import (_stack_cp_batch, _stack_cp_proj,
+                                     _stack_tt_batch, _stack_tt_proj,
+                                     stack_cp)
+from repro_torch.kernels.tt_inner import tt_inner, tt_inner_plain
 
 pytestmark = pytest.mark.cuda
 
@@ -105,3 +112,74 @@ def test_fused_query_matches_plain(gen, kind, metric, n, k, l, w):
     self_ids, _, _ = svc.index.query_batch(corpus.index(qid[:64]), topk=1)
     assert torch.equal(self_ids[:, 0].long(), qid[:64])
 
+
+
+@pytest.mark.parametrize("dims,b,l,k,rx,rp", [
+    ((16, 16, 16, 16), 3000, 10, 10, 4, 4),  # the TT cell, a ragged batch
+    ((5, 7, 3), 37, 3, 5, 3, 2),             # unequal modes and ranks
+    ((6, 6), 65, 2, 7, 4, 3),                # N = 2: both cores boundary
+    ((4, 4, 4, 4), 129, 2, 40, 2, 2),        # two packed words
+    ((3, 3, 3), 50, 2, 3, 6, 8),             # ranks above 4: RT = 8
+])
+def test_tt_inner_matches_plain(gen, dims, b, l, k, rx, rp):
+    x = _stack_tt_batch(tt_random_data(gen, dims, rx, batch=b))
+    proj = sample_tt_projection(gen, l * k, dims, rp)
+    p = _stack_tt_proj(proj, l)
+    w = 2.0
+    offs = torch.rand((l, k), generator=gen, device="cuda") * w
+    mults = torch.randint(0, 1 << 32, (k,), generator=gen, device="cuda",
+                          dtype=torch.int64) | 1
+    scale = proj.scale
+    raw_p = tt_inner_plain(x, p, epilogue="raw", scale=scale)
+    bound = parity.tt_raw_bound(x, p, scale)
+    for epi in EPILOGUES:
+        got = tt_inner(x, p, offs, mults, epilogue=epi, w=w, scale=scale)
+        want = tt_inner_plain(x, p, offs, mults, epilogue=epi, w=w,
+                              scale=scale)
+        torch.cuda.synchronize()
+        kind = "tt-srp" if epi.startswith("srp") else "tt-e2lsh"
+        near = parity.boundary_codes(raw_p, bound, kind, offs, w)
+        if epi == "raw":
+            assert bool(((got - want).abs() <= bound).all())
+        elif epi in ("e2lsh", "srp"):
+            assert bool(((got == want) | near).all())
+        elif epi.endswith("keys"):
+            assert parity.key_mismatches(got, want, near)[0] == 0
+        else:
+            assert bool(((got == want).all(-1) | near.any(-1)).all())
+
+
+@pytest.mark.parametrize("kind,metric,n,k,l,w,rhat", [
+    ("tt-e2lsh", "euclidean", 20000, 8, 6, 8.0, 3),
+    ("tt-srp", "cosine", 5000, 10, 4, 1.0, 3),
+    ("tt-srp", "euclidean", 5000, 10, 4, 1.0, 6),   # ranks above 4: TR = 8
+])
+def test_fused_query_tt_matches_plain(gen, kind, metric, n, k, l, w, rhat):
+    from repro_torch.serving.lsh_service import build_service
+    dims = (8, 8, 8)
+    corpus = tt_random_data(gen, dims, rhat, batch=n)
+    svc = build_service(gen, kind, dims, corpus, metric=metric, num_codes=k,
+                        num_tables=l, rank=2, bucket_width=w)
+    qid = torch.randint(0, n, (300,), generator=gen, device="cuda")
+    q = corpus.index(qid)
+    q = TTTensor(tuple(c + 0.05 * torch.randn(c.shape, generator=gen,
+                                              device="cuda")
+                       for c in q.cores), 1.0)
+    fam, idx = svc.index.family, svc.index
+    seg = idx.store.seg_arrays(0)
+    qs = q.stack()
+    values = fam.raw_stacked(qs[1], q.scale)
+    offs, mults = fam.offsets, idx._mults_t
+    kw = dict(kind=kind, w=fam.bucket_width, num_tables=l, num_codes=k,
+              metric=metric, topk=10, cap=idx.cap)
+    ids, sc, nc = fused_query(values, offs, mults, qs, seg, **kw)
+    ids_p, sc_p, nc_p = fused_query_plain(values, offs, mults, qs, seg, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(nc, nc_p)
+    assert int(nc.sum()) > 300
+    tol = parity.rerank_bound(metric, q, seg.corpus, ids_p, sc_p)
+    same = (ids == ids_p) & (ids_p >= 0)
+    assert bool(((sc - sc_p).abs()[same] <= tol[same]).all())
+    assert parity.topk_mismatches(ids, sc, ids_p, sc_p, tol) == 0
+    self_ids, _, _ = svc.index.query_batch(corpus.index(qid[:64]), topk=1)
+    assert torch.equal(self_ids[:, 0].long(), qid[:64])

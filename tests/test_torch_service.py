@@ -150,5 +150,5 @@ def test_sampled_family_serves_on_cpu():
     ids, scores, n_cand = svc.query_arrays(tb.torch_cp(corpus), topk=1)
     np.testing.assert_array_equal(ids[:, 0], np.arange(40))
     assert (n_cand >= 1).all()
-    with pytest.raises(NotImplementedError):
-        make_family(gen, "tt-srp", tb.DIMS, device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        make_family(gen, "srp", tb.DIMS, device="cpu")   # dense: queued

@@ -15,12 +15,15 @@ import numpy as np
 
 import grids
 from repro.core import CPTensor as JaxCP
+from repro.core import TTTensor as JaxTT
 from repro_torch import convert
 
 DIMS = grids.DIMS          # (4, 4, 4)
 RHAT = 3                   # data rank of the CP corpora
+TT_RHAT = 2                # data TT rank of the TT corpora
 NUM_TABLES = 4
 KINDS = ("cp-e2lsh", "cp-srp")
+TT_KINDS = ("tt-e2lsh", "tt-srp")
 
 
 def grid_params(kind):
@@ -44,6 +47,33 @@ def cp_fixture(n, n_queries, seed=0, clusters=6, spread=0.35, noise=0.05,
     return corpus, queries
 
 
+def tt_fixture(n, n_queries, seed=0, clusters=6, spread=0.35, noise=0.05,
+               dims=DIMS, rank=TT_RHAT):
+    """Clustered TT corpus + queries perturbed off its first rows: per-mode
+    core lists of numpy float32 (n, r, d, r') / (n_queries, r, d, r'),
+    boundary ranks 1, entries N(0, 1) / (r d)^(1/4) as ``tt_random_data``
+    makes them."""
+    rng = np.random.default_rng(seed)
+    shapes = [(1 if i == 0 else rank, d, 1 if i == len(dims) - 1 else rank)
+              for i, d in enumerate(dims)]
+    centers = [rng.normal(size=(clusters,) + s) / (s[0] * s[1]) ** 0.25
+               for s in shapes]
+    corpus = [(c[np.arange(n) % clusters]
+               + spread * rng.normal(size=(n,) + s) / (s[0] * s[1]) ** 0.25)
+              .astype(np.float32) for c, s in zip(centers, shapes)]
+    queries = [(g[:n_queries] + noise * rng.normal(size=g[:n_queries].shape))
+               .astype(np.float32) for g in corpus]
+    return corpus, queries
+
+
+def jax_tt(cores, scale=1.0):
+    return JaxTT(tuple(jnp.asarray(c) for c in cores), scale)
+
+
+def torch_tt(cores, scale=1.0):
+    return convert.tt_tensor_from_numpy(cores, scale, "cpu")
+
+
 def jax_cp(factors, scale=1.0):
     return JaxCP(tuple(jnp.asarray(f) for f in factors), scale)
 
@@ -59,10 +89,11 @@ def jax_family(kind, seed=42, backend="pallas"):
 
 
 def bridge_family(fam):
-    """Reference LSHFamily -> port LSHFamily on the CPU."""
+    """Reference LSHFamily (CP or TT) -> port LSHFamily on the CPU."""
     p = fam.projection
+    leaves = p.factors if fam.kind.startswith("cp-") else p.cores
     return convert.family_from_numpy(
-        fam.kind, [np.asarray(f) for f in p.factors], p.scale,
+        fam.kind, [np.asarray(f) for f in leaves], p.scale,
         None if fam.offsets is None else np.asarray(fam.offsets),
         fam.num_codes, fam.num_tables, fam.bucket_width, "cpu")
 
@@ -71,18 +102,28 @@ def jax_key(seed):
     return jax.random.PRNGKey(seed)
 
 
-def near_tables(tfam, factors):
-    """(n, L) bool: the tables in which some code of these items lies
-    within the raw rounding bound of a bucket edge (E2LSH) or of 0 (SRP),
-    where two fp32 evaluations may disagree (``parity.raw_bound``)."""
+def near_codes(tfam, leaves):
+    """(n, L, K) bool: the codes of these items (CP factors or TT cores)
+    that lie within the raw rounding bound of a bucket edge (E2LSH) or of 0
+    (SRP), where two fp32 evaluations may disagree (``parity.raw_bound`` /
+    ``parity.tt_raw_bound``)."""
     from repro_torch.kernels import parity
     from repro_torch.kernels.cp_gram import cp_gram_plain
-    from repro_torch.kernels.ops import _stack_cp_batch, _stack_cp_proj
-    x = _stack_cp_batch(torch_cp(factors))
-    p = _stack_cp_proj(tfam.projection, tfam.num_tables)
+    from repro_torch.kernels.tt_inner import tt_inner_plain
+    tt = tfam.kind.startswith("tt-")
+    xs = torch_tt(leaves) if tt else torch_cp(leaves)
+    x = tfam.stack(xs)
+    p = tfam.stacked_projection
     scale = tfam.projection.scale
-    v = cp_gram_plain(x, p, epilogue="raw", scale=scale)
+    plain, bound = ((tt_inner_plain, parity.tt_raw_bound) if tt
+                    else (cp_gram_plain, parity.raw_bound))
+    v = plain(x, p, epilogue="raw", scale=scale)
     offs = (tfam.offsets.reshape(tfam.num_tables, tfam.num_codes)
             if tfam.offsets is not None else None)
-    return parity.boundary_codes(v, parity.raw_bound(x, p, scale), tfam.kind,
-                                 offs, tfam.bucket_width).any(-1).numpy()
+    return parity.boundary_codes(v, bound(x, p, scale), tfam.kind, offs,
+                                 tfam.bucket_width).numpy()
+
+
+def near_tables(tfam, leaves):
+    """(n, L) bool: the tables holding a ``near_codes`` code."""
+    return near_codes(tfam, leaves).any(-1)
