@@ -28,10 +28,27 @@ Phases (any failure exits non-zero):
          items, TT 2^16) through both kernels;
        - the kernels' times (CUDA events) beside their bounds and the plain
          versions' times, and a torch.profiler window over 64 query
-         batches: device time by kernel and the device's busy share.
+         batches: device time by kernel and the device's busy share;
+  4. on the CP cell's corpus and queries, the mutable, multi-probe path:
+       - [mp]: L = 2 tables, probes T = 8, the exact cap (K1's dense
+         multi-probe branch): recall@1, recall@10, candidates and batch
+         latency beside [main]'s L = 10, T = 1, and K1 against its plain
+         version;
+       - [mut]: bucket_cap 64, L = 10, T = 4 (K1's live-window branch over
+         a base and eight deltas): deletes, then the capped index against
+         a fresh capped build; eight inserts of 1024 items; more deletes;
+         256 query batches over the 9 segments with 1/8 of each batch
+         planted on inserted items; K1 against its plain version; no
+         deleted item returned; ``compact()`` and the compacted index
+         against a fresh build bit for bit; an insert past max_deltas
+         that auto-compacts;
+     and on the TT cell's format at 2^16 ([tt-mut]): T = 4, bucket_cap, two
+     deltas and a delete, K1-TT against its plain version.
 
-The last two lines are one JSON object of kernel records and the device
-record. Needs a CUDA card; imports nothing of JAX or of the ``repro``
+Every path's kernel counters are zeroed just before it runs and read just
+after: each kernel and each K1 branch it needs must have launched, and no
+plain version may have run. The last two lines are one JSON object of
+kernel records and the device record. Needs a CUDA card; imports nothing of JAX or of the ``repro``
 package.
 """
 
@@ -323,22 +340,101 @@ def counters():
             "fused_query_plain": fused_query_plain}
 
 
+BRANCHES = ("multiprobe", "live_window", "segments")
+
+
 def read_counts() -> dict:
-    return {name: getattr(fn, "launches" if name in COUNTED else "calls")
-            for name, fn in counters().items()}
+    """Launches and plain calls, and K1's launches by branch
+    (``fused_query:multiprobe``, ``:live_window``, ``:segments``)."""
+    from repro_torch.kernels.fused_query import fused_query
+    counts = {name: getattr(fn, "launches" if name in COUNTED else "calls")
+              for name, fn in counters().items()}
+    counts.update({f"fused_query:{b}": fused_query.branches[b]
+                   for b in BRANCHES})
+    return counts
 
 
 def zero_counts() -> None:
+    from repro_torch.kernels.fused_query import fused_query
     for name, fn in counters().items():
         setattr(fn, "launches" if name in COUNTED else "calls", 0)
+    fused_query.branches.clear()
+
+
+def check_counts(counts, tag, need) -> None:
+    """Fail unless every counter in ``need`` moved and no plain version
+    ran."""
+    missing = [k for k in need if counts[k] == 0]
+    if missing:
+        fail(f"the {tag} path never launched {missing}: {counts}")
+    if any(counts[f"{k}_plain"] for k in COUNTED):
+        fail(f"the {tag} path called a plain version: {counts}")
+
+
+def serve(svc, queries):
+    """A warm-up batch, then every batch through ``query_arrays`` ->
+    (results, host-clock latencies in ms)."""
+    svc.query_arrays(queries[0], topk=TOPK)
+    svc.stats.reset()
+    results, lat_ms = [], []
+    for q in queries:
+        t0 = time.perf_counter()
+        results.append(svc.query_arrays(q, topk=TOPK))
+        lat_ms.append((time.perf_counter() - t0) * 1e3)
+    return results, lat_ms
+
+
+def latency_line(tag, svc, lat_ms, what="") -> dict:
+    import numpy as np
+    st = svc.stats
+    lat = np.sort(np.asarray(lat_ms))
+    out = dict(mean=st.total_ms / st.batches, median=float(np.median(lat)),
+               p99=float(lat[int(math.ceil(0.99 * len(lat))) - 1]),
+               qps=st.qps, cand=st.mean_candidates)
+    print(f"[{tag}] {st.batches} batches of {st.queries // st.batches}"
+          f"{what} in {st.total_ms / 1e3:.3f} s: {out['mean']:.3f} ms/batch "
+          f"mean, median {out['median']:.3f} ms, p99 {out['p99']:.3f} ms, "
+          f"max {lat[-1]:.3f} ms; {st.qps:.0f} QPS, mean candidates "
+          f"{st.mean_candidates:.1f}")
+    return out
+
+
+def check_results(results, targets, n) -> tuple[int, int]:
+    """Shapes, id ranges, finite ascending scores -> (recall@1 hits, rows
+    with a target); ``targets`` per batch the planted target's current
+    effective id, -1 where it was deleted."""
+    import numpy as np
+    hits1 = rows = 0
+    for (ids, scores, nc), tgt in zip(results, targets):
+        if ids.shape != (len(tgt), TOPK) or nc.shape != (len(tgt),):
+            fail(f"result shapes {ids.shape} {nc.shape}")
+        valid = ids >= 0
+        if ((ids >= n) | (ids < -1)).any() or not (
+                (valid.sum(1) == (nc.clip(max=TOPK)))).all():
+            fail("ids out of range or valid count != min(n_cand, topk)")
+        if not np.isfinite(scores[valid]).all():
+            fail("non-finite score on a valid id")
+        if (valid[:, 1:] & (scores[:, 1:] < scores[:, :-1])).any():
+            fail("scores not ascending")
+        alive = tgt >= 0
+        hits1 += int((ids[alive, 0] == tgt[alive]).sum())
+        rows += int(alive.sum())
+    return hits1, rows
+
+
+def recall10(svc, query, ids, corpus) -> float:
+    """recall@10 of 256 queries' ids against brute force over ``corpus``."""
+    from repro_torch.core.index import brute_force_batch
+    q256 = query.index(slice(0, 256))
+    truth, _ = brute_force_batch(svc.index.metric, q256, corpus, TOPK)
+    return sum(len(set(t) & set(r[r >= 0].tolist()))
+               for t, r in zip(truth.tolist(), ids[:256])) / (256 * TOPK)
 
 
 def phase_main(cell, corpus, qids, queries):
     """``build_service`` over the cell's corpus and its query batches, with
     every counter zeroed just before and read just after."""
-    import numpy as np
     import torch
-    from repro_torch.core.index import brute_force_batch
     from repro_torch.serving.lsh_service import build_service
 
     tag, hash_kernel = cell["tag"], cell["hash_kernel"]
@@ -351,13 +447,8 @@ def phase_main(cell, corpus, qids, queries):
                         rank=cell["rank"], bucket_width=cell["width"],
                         device="cuda")
     build_launches = read_counts()[hash_kernel]
-    svc.query_arrays(queries[0], topk=TOPK)           # warm-up
-    svc.stats.reset()
-    results, lat_ms = [], []
-    for q in queries:
-        t0 = time.perf_counter()
-        results.append(svc.query_arrays(q, topk=TOPK))
-        lat_ms.append((time.perf_counter() - t0) * 1e3)
+    results, lat_ms = serve(svc, queries)
+    summary = latency_line(tag, svc, lat_ms)
     # self-queries: an item queried as itself is in its own bucket of every
     # table, so it must come back first at a distance at the f32 noise floor
     self_q = corpus.index(qids[0][:256])
@@ -373,45 +464,17 @@ def phase_main(cell, corpus, qids, queries):
           f"w={cell['width']}: {st.build_s:.3f} s (hash {st.hash_s:.3f} s, "
           f"sort {st.sort_s:.3f} s), cap {svc.index.cap} -> window L*cap = "
           f"{cell['tables'] * svc.index.cap}")
-    lat = np.sort(np.asarray(lat_ms))
-    print(f"[{tag}] {st.batches} batches of {queries[0].leaves[0].shape[0]} "
-          f"in {st.total_ms / 1e3:.3f} s: {st.total_ms / st.batches:.3f} "
-          f"ms/batch mean, median {np.median(lat):.3f} ms, p99 "
-          f"{lat[int(math.ceil(0.99 * len(lat))) - 1]:.3f} ms, max "
-          f"{lat[-1]:.3f} ms; {st.qps:.0f} QPS, mean candidates "
-          f"{st.mean_candidates:.1f}")
     print(f"[{tag}] launches on the main path: {counts} (build: "
           f"{hash_kernel} {build_launches})")
-    if counts[hash_kernel] == 0 or counts["fused_query"] == 0:
-        fail(f"a kernel of the {tag} path never launched: {counts}")
-    if any(counts[f"{k}_plain"] for k in COUNTED):
-        fail(f"the {tag} path called a plain version: {counts}")
-
-    hits1 = 0
-    for (ids, scores, nc), qid in zip(results, qids):
-        qid = qid.cpu().numpy()
-        if ids.shape != (len(qid), TOPK) or nc.shape != (len(qid),):
-            fail(f"result shapes {ids.shape} {nc.shape}")
-        valid = ids >= 0
-        if ((ids >= n) | (ids < -1)).any() or not (
-                (valid.sum(1) == (nc.clip(max=TOPK)))).all():
-            fail("ids out of range or valid count != min(n_cand, topk)")
-        if not np.isfinite(scores[valid]).all():
-            fail("non-finite score on a valid id")
-        if (valid[:, 1:] & (scores[:, 1:] < scores[:, :-1])).any():
-            fail("scores not ascending")
-        hits1 += int((ids[:, 0] == qid).sum())
-    n_q = sum(len(q) for q in qids)
+    check_counts(counts, tag, (hash_kernel, "fused_query"))
+    hits1, n_q = check_results(results, [q.cpu().numpy() for q in qids], n)
     recall1 = hits1 / n_q
     self_ok = (self_ids[:, 0] == qids[0][:256].cpu().numpy()).mean()
-    q256 = queries[0].index(slice(0, 256))
-    truth, _ = brute_force_batch(svc.index.metric, q256,
-                                 svc.index.effective_corpus(), TOPK)
-    ids0 = results[0][0][:256]
-    recall10 = sum(len(set(t) & set(r[r >= 0].tolist()))
-                   for t, r in zip(truth.tolist(), ids0)) / (256 * TOPK)
+    r10 = recall10(svc, queries[0], results[0][0],
+                   svc.index.effective_corpus())
+    summary.update(recall1=recall1, recall10=r10)
     print(f"[{tag}] recall@1 (planted) {recall1:.4f} over {n_q} queries; "
-          f"recall@10 vs brute force {recall10:.4f} over 256; self-queries "
+          f"recall@10 vs brute force {r10:.4f} over 256; self-queries "
           f"first {self_ok:.4f} (max self distance "
           f"{float(self_scores[:, 0].max()):.3g}); peak device memory "
           f"{peak / 2**30:.2f} GiB")
@@ -422,7 +485,7 @@ def phase_main(cell, corpus, qids, queries):
         fail("a self-query did not return itself first")
     if recall1 < RECALL1_MIN:
         fail(f"recall@1 {recall1} below {RECALL1_MIN}")
-    return svc, counts
+    return svc, counts, summary
 
 
 def exact_scores(metric, queries, corpus, ids):
@@ -441,29 +504,34 @@ def exact_scores(metric, queries, corpus, ids):
     return torch.where(valid, s, 0.0)
 
 
-def k1_compare(svc, queries, label):
-    """K1 vs plain on the same raw values and segment arrays, and both
-    against float64 scores."""
+def k1_compare(svc, queries, label, probes=1, corpus=None):
+    """K1 vs plain on the same raw values and the arrays of every segment
+    of the service's store, and both against float64 scores (``corpus``:
+    the effective corpus, when the caller has it already)."""
     import torch
     from repro_torch.kernels import parity
     from repro_torch.kernels.fused_query import fused_query, fused_query_plain
     idx = svc.index
     fam = idx.family
-    seg = idx.store.seg_arrays(0)
+    view = idx.store.view
+    segs = view.all_arrays
+    if corpus is None:
+        corpus = idx.effective_corpus()
     qs = queries.stack()
     values = fam.raw_stacked(qs[1], queries.scale)
     offs, mults = fam.offsets, idx._mults_t
     kw = dict(kind=fam.kind, w=fam.bucket_width, num_tables=fam.num_tables,
               num_codes=fam.num_codes, metric=idx.metric, topk=TOPK,
-              cap=idx.cap)
-    ik, sk, nk = fused_query(values, offs, mults, qs, seg, **kw)
-    ip, sp, np_ = fused_query_plain(values, offs, mults, qs, seg, **kw)
+              caps=view.all_caps, probes=probes)
+    ik, sk, nk = fused_query(values, offs, mults, qs, segs,
+                             table=view.k1_table, **kw)
+    ip, sp, np_ = fused_query_plain(values, offs, mults, qs, segs, **kw)
     torch.cuda.synchronize()
-    name = "K1-TT" if seg.corpus.layout == "tt" else "K1"
+    name = "K1-TT" if corpus.layout == "tt" else "K1"
     if not torch.equal(nk, np_):
         fail(f"{name} {label}: candidate counts differ in "
              f"{int((nk != np_).sum())} rows")
-    tol = parity.rerank_bound(idx.metric, queries, seg.corpus, ip, sp)
+    tol = parity.rerank_bound(idx.metric, queries, corpus, ip, sp)
     valid = ip >= 0
     same = valid & (ik == ip)
     err = torch.where(same, (sk - sp).abs(), 0.0)
@@ -475,16 +543,17 @@ def k1_compare(svc, queries, label):
         fail(f"{name} {label}: {bad} result ids differ without a near tie")
     acc = Accuracy()
     acc.add(sk[same], sp[same],
-            exact_scores(idx.metric, queries, seg.corpus, ip)[same])
+            exact_scores(idx.metric, queries, corpus, ip)[same])
     accuracy = acc.check(f"{name} {label} scores")
     n_tie = int((ik != ip).sum())
-    print(f"[{name}] {label}: n_cand equal ({int(nk.sum())} candidates), "
-          f"scores within the rounding bound (its median "
-          f"{float(tol[valid].median()):.3g}, max {float(tol.max()):.3g}, "
-          f"against a median |score| of {float(sp[valid].abs().median()):.3g}"
-          f"; max |kernel - plain| {float(err.max()):.3g}; {accuracy}), ids "
-          f"equal except {n_tie} near-tie slots")
-    return float(err.max()), (values, offs, mults, qs, seg, kw)
+    print(f"[{name}] {label}: n_cand equal ({int(nk.sum())} candidates over "
+          f"{len(segs)} segment(s), T={probes}), scores within the rounding "
+          f"bound (its median {float(tol[valid].median()):.3g}, max "
+          f"{float(tol.max()):.3g}, against a median |score| of "
+          f"{float(sp[valid].abs().median()):.3g}; max |kernel - plain| "
+          f"{float(err.max()):.3g}; {accuracy}), ids equal except {n_tie} "
+          "near-tie slots")
+    return float(err.max()), (values, offs, mults, qs, view, kw)
 
 
 def phase_srp(cell) -> None:
@@ -548,29 +617,50 @@ def inner_flops(x, y) -> int:
 
 def k1_work(k1_args, q_row, c_row, cand_flops, query_flops):
     """(bytes, operations, window slots, candidates) that K1 must move and
-    do for this batch's data: per (query, table) a search over the m uint32
-    keys of the table and one over the cap keys after the bucket's start,
-    the perm and live entries of the window slots, one corpus row (at its
-    true ranks) and effective id per candidate, the inputs and outputs
-    once."""
+    do for this batch's data: the inputs and outputs once; with T > 1 the
+    expansion's pair table once and, per (query, table), its singles, pair
+    sums and T - 1 argmin rounds over the C candidates; per segment and per
+    (query, table, probe) the steps of its binary searches over uint32
+    keys (side='left' over the m keys, then over the cap keys after the
+    start for a dense window or over the table for a live one), the two
+    live_rank reads of a live window, and per window slot perm and live
+    (dense) or live_pos and perm (live); one corpus row (at its true
+    ranks) and effective id per candidate."""
+    from repro_torch.core import probing
     from repro_torch.kernels import epilogues as epi
-    from repro_torch.kernels.fused_query import _discretize_keys
-    values, offs, mults, _, seg, kw = k1_args
+    from repro_torch.kernels.fused_query import probe_keys_from_values
+    values, offs, mults, _, view, kw = k1_args
     b = values.shape[0]
-    l, k, cap = kw["num_tables"], kw["num_codes"], kw["cap"]
-    m = seg.sorted_keys.shape[1]
-    keys = _discretize_keys(values, offs, mults,
-                            e2=kw["kind"].endswith("e2lsh"), w=kw["w"],
-                            num_tables=l, num_codes=k)
-    ids, hit = epi.probe_windows(seg.sorted_keys, seg.perm, keys, cap,
-                                 seg.live)
-    _, valid = epi.dedup_windows(ids, hit, m)
-    slots, n_cand = int(hit.sum()), int(valid.sum())
-    search = b * l * (math.ceil(math.log2(m + 1))
-                      + math.ceil(math.log2(cap + 1))) * 4
-    nbytes = (values.numel() * 4 + l * k * 4 + k * 4 + b * q_row + search
-              + slots * 5 + n_cand * (c_row + 4) + b * TOPK * 8 + b * 4)
-    return nbytes, n_cand * cand_flops + b * query_flops, slots, n_cand
+    l, k, t = kw["num_tables"], kw["num_codes"], kw["probes"]
+    e2 = kw["kind"].endswith("e2lsh")
+    keys = probe_keys_from_values(values, offs, mults, e2=e2, w=kw["w"],
+                                  num_tables=l, num_codes=k, probes=t)
+    nbytes = (values.numel() * 4 + l * k * 4 + k * 4 + b * q_row
+              + b * TOPK * 8 + b * 4)
+    flops = b * query_flops
+    if t > 1:
+        c = probing.expansion_size(kw["kind"], k)
+        singles = 2 * k if e2 else k
+        nbytes += (c - singles) * 8
+        flops += b * l * ((3 * k if e2 else 0) + (c - singles)
+                          + (t - 1) * c)
+    slots = n_cand = 0
+    for seg, cap in zip(view.all_arrays, kw["caps"]):
+        m = seg.sorted_keys.shape[1]
+        ids, hit = epi.probe_windows(seg.sorted_keys, seg.perm, keys, cap,
+                                     seg.live, seg.win)
+        _, valid = epi.dedup_windows(ids, hit, m)
+        s, nc = int(hit.sum()), int(valid.sum())
+        depth = math.ceil(math.log2(m + 1))
+        if seg.win is None:
+            steps = depth + math.ceil(math.log2(cap + 1))
+            nbytes += b * l * t * steps * 4 + s * 5
+        else:
+            nbytes += b * l * t * (2 * depth * 4 + 8) + s * 8
+        nbytes += nc * (c_row + 4)
+        flops += nc * cand_flops
+        slots, n_cand = slots + s, n_cand + nc
+    return nbytes, flops, slots, n_cand
 
 
 def phase_times(svc, cell, queries, k1_args):
@@ -609,26 +699,40 @@ def phase_times(svc, cell, queries, k1_args):
           f"by {h_by} ({h_bytes / 1e6:.1f} MB, {h_flops / 1e9:.2f} GFLOP, "
           f"{pair} FLOP per (item, hash))")
 
-    values, offs1, mults1, qs1, seg, kw1 = k1_args
+    k1_t = k1_times(svc, queries, k1_args,
+                    "K1-TT" if corpus.layout == "tt" else "K1")
+    return (h_ms, h_plain, h_bound, h_by), k1_t
+
+
+def k1_times(svc, queries, k1_args, name, corpus=None):
+    """K1 per query batch on the card (CUDA events, cycling the batches)
+    beside its bound and its plain version's time on one batch."""
+    from repro_torch.kernels.fused_query import fused_query, fused_query_plain
+    idx = svc.index
+    fam = idx.family
+    if corpus is None:
+        corpus = idx.effective_corpus()
+    values, offs, mults, qs, view, kw = k1_args
+    segs, table = view.all_arrays, view.k1_table
     qss = [q.stack() for q in queries]
     vals = [fam.raw_stacked(q[1], q[0].scale) for q in qss]
-    k1_ms = cuda_ms([lambda v=v, q=q: fused_query(v, offs1, mults1, q, seg,
-                                                   **kw1)
+    k1_ms = cuda_ms([lambda v=v, q=q: fused_query(v, offs, mults, q, segs,
+                                                   table=table, **kw)
                      for v, q in zip(vals, qss)], 3 * len(queries))
-    k1_plain = cuda_ms([lambda: fused_query_plain(values, offs1, mults1,
-                                                  qs1, seg, **kw1)], 2)
-    q0 = qs1[0]
+    k1_plain = cuda_ms([lambda: fused_query_plain(values, offs, mults, qs,
+                                                  segs, **kw)], 2)
+    q0 = qs[0]
     k1_bytes, k1_flops, slots, n_cand = k1_work(
         k1_args, q0.row_floats * 4, corpus.row_floats * 4,
         inner_flops(q0, corpus) + inner_flops(corpus, corpus),
         inner_flops(q0, q0))
     k1_bound, k1_by = bound_ms(k1_bytes, k1_flops)
-    name = "K1-TT" if corpus.layout == "tt" else "K1"
-    print(f"[time] {name}, B={values.shape[0]}, {slots} window slots, "
-          f"{n_cand} candidates: {k1_ms:.4f} ms (plain {k1_plain:.4f} ms); "
-          f"bound {k1_bound:.5f} ms by {k1_by} ({k1_bytes / 1e6:.2f} MB, "
+    print(f"[time] {name}, B={values.shape[0]}, T={kw['probes']}, "
+          f"{len(segs)} segment(s), {slots} window slots, {n_cand} "
+          f"candidates: {k1_ms:.4f} ms (plain {k1_plain:.4f} ms); bound "
+          f"{k1_bound:.5f} ms by {k1_by} ({k1_bytes / 1e6:.2f} MB, "
           f"{k1_flops / 1e9:.3f} GFLOP)")
-    return (h_ms, h_plain, h_bound, h_by), (k1_ms, k1_plain, k1_bound, k1_by)
+    return k1_ms, k1_plain, k1_bound, k1_by
 
 
 def phase_profile(svc, queries, tag):
@@ -658,11 +762,326 @@ def phase_profile(svc, queries, tag):
         print(f"[{tag}]   {ms:9.3f} ms x{count:<4d} {key[:80]}")
 
 
+# [mp]: the reference's multi-probe headline pair (L = 2, T = 8) on the CP
+# cell; [mut]: the reference's mutation / SLO benchmarks' cap (64), T = 4
+MP = dict(tables=2, probes=8)
+MUT = dict(cap=64, probes=4, max_deltas=8, inserts=8, insert_batch=1024,
+           deletes=16384, deletes_later=1024, planted_inserted=8)
+TT_MUT = dict(log2_corpus=16, cap=64, probes=4, inserts=2, deletes=2048)
+
+
+def cat_tensors(parts):
+    """Batched CP or TT tensors of one scale -> one batch."""
+    import torch
+    return type(parts[0])(tuple(torch.cat(ls) for ls in
+                                zip(*(p.leaves for p in parts))),
+                          parts[0].scale)
+
+
+def same_answers(a, b, label) -> None:
+    """Two services' (ids, scores, n_cand) bit for bit."""
+    import numpy as np
+    for x, y, what in zip(a, b, ("ids", "scores", "n_cand")):
+        if not np.array_equal(np.asarray(x).view(np.int32),
+                              np.asarray(y).view(np.int32)):
+            fail(f"{label}: {what} differ in "
+                 f"{int((np.asarray(x) != np.asarray(y)).sum())} cells")
+
+
+def phase_mp(cell, corpus, qids, queries, main):
+    """[mp]: build_service with L = 2 tables and probes T = 8 over the CP
+    cell's corpus and queries (K1's dense multi-probe branch), counters
+    zeroed just before and read just after; then K1 against its plain
+    version and its time."""
+    import torch
+    from repro_torch.serving.lsh_service import build_service
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    svc = build_service(torch.Generator(device="cuda").manual_seed(1),
+                        cell["kind"], cell["dims"], corpus,
+                        num_codes=cell["codes"], num_tables=MP["tables"],
+                        rank=cell["rank"], bucket_width=cell["width"],
+                        probes=MP["probes"], device="cuda")
+    results, lat_ms = serve(svc, queries)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    n = corpus.leaves[0].shape[0]
+    cap = svc.index.cap
+    print(f"[mp] build_service, {cell['kind']} K={cell['codes']} "
+          f"L={MP['tables']} T={MP['probes']}, exact cap {cap} -> window "
+          f"L*T*cap = {MP['tables'] * MP['probes'] * cap}; build "
+          f"{svc.stats.build_s:.3f} s")
+    summary = latency_line("mp", svc, lat_ms)
+    print(f"[mp] launches on the main path: {counts}")
+    check_counts(counts, "mp", ("cp_gram", "fused_query",
+                                "fused_query:multiprobe"))
+    hits1, n_q = check_results(results, [q.cpu().numpy() for q in qids], n)
+    corpus_eff = svc.index.effective_corpus()
+    r10 = recall10(svc, queries[0], results[0][0], corpus_eff)
+    print(f"[mp] L={MP['tables']} T={MP['probes']}: recall@1 (planted) "
+          f"{hits1 / n_q:.4f}, recall@10 {r10:.4f}, {summary['cand']:.1f} "
+          f"candidates, {summary['mean']:.3f} ms/batch; [main] L="
+          f"{cell['tables']} T=1: recall@1 {main['recall1']:.4f}, recall@10 "
+          f"{main['recall10']:.4f}, {main['cand']:.1f} candidates, "
+          f"{main['mean']:.3f} ms/batch; peak device memory "
+          f"{peak / 2**30:.2f} GiB")
+    k1_err, k1_args = k1_compare(svc, queries[0],
+                                 f"mp, T={MP['probes']}, B={len(qids[0])}",
+                                 probes=MP["probes"], corpus=corpus_eff)
+    k1_t = k1_times(svc, queries, k1_args, f"K1 T={MP['probes']}",
+                    corpus_eff)
+    return record("fused_query[T>1]", *K1_SOURCE, counts,
+                  "fused_query:multiprobe", k1_err, k1_t)
+
+
+def mut_queries(corpus, inserted, qids, gen):
+    """[mut]'s batches: 7/8 planted on the [main] targets (base items),
+    1/8 on inserted items -> (query batches, per batch the targets'
+    sequence ids)."""
+    import numpy as np
+    import torch
+    n = corpus.leaves[0].shape[0]
+    n_ins = inserted.leaves[0].shape[0]
+    queries, targets = [], []
+    for q in qids:
+        b = len(q)
+        k = b // MUT["planted_inserted"]
+        ins = torch.randint(0, n_ins, (k,), generator=gen, device="cuda")
+        src = cat_tensors([corpus.index(q[:b - k]), inserted.index(ins)])
+        queries.append(make_queries(src, torch.arange(b, device="cuda"),
+                                    gen))
+        targets.append(np.concatenate([q[:b - k].cpu().numpy(),
+                                       n + ins.cpu().numpy()]))
+    return queries, targets
+
+
+def phase_mut(cell, corpus, qids, args):
+    """[mut]: the capped, mutable, multi-probe path at full width (K1's
+    live-window branch over a base and eight deltas), counters zeroed just
+    before and read just after each of its two runs (mutations + queries;
+    compaction + queries + auto-compaction), with its gates."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import parity
+    from repro_torch.serving.lsh_service import build_service
+    n = corpus.leaves[0].shape[0]
+    b = len(qids[0])
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    rng = np.random.default_rng(17)
+    data = hash_fns("cp")["data"]
+    batches = [data(gen, cell["dims"], cell["rhat"],
+                    batch=MUT["insert_batch"]) for _ in range(MUT["inserts"])]
+    inserted = cat_tensors(batches)
+    n_ins = inserted.leaves[0].shape[0]
+    queries, targets = mut_queries(corpus, inserted, qids, gen)
+    kw = dict(num_codes=cell["codes"], num_tables=cell["tables"],
+              rank=cell["rank"], bucket_width=cell["width"],
+              bucket_cap=MUT["cap"], probes=MUT["probes"], device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    svc = build_service(torch.Generator(device="cuda").manual_seed(1),
+                        cell["kind"], cell["dims"], corpus,
+                        max_deltas=MUT["max_deltas"], **kw)
+    fam = svc.index.family
+    live_seq = np.arange(n)         # the script's own map: eff id -> seq id
+    # deletes on the base (the ten live-window tables rebuilt once)
+    n_del = min(MUT["deletes"], n // 16)
+    del1 = np.sort(rng.choice(n, n_del, replace=False))
+    t0 = time.perf_counter()
+    svc.delete(del1)
+    torch.cuda.synchronize()
+    del1_ms = (time.perf_counter() - t0) * 1e3
+    deleted = [live_seq[del1]]
+    live_seq = np.delete(live_seq, del1)
+    # after deletes only, the capped index answers as a fresh capped build
+    fresh = build_service(None, cell["kind"], cell["dims"],
+                          svc.index.effective_corpus(), family=fam, **kw)
+    for q in queries[:8]:
+        same_answers(svc.query_arrays(q, topk=TOPK),
+                     fresh.query_arrays(q, topk=TOPK),
+                     "mut: capped index after deletes vs a fresh capped "
+                     "build")
+    del fresh
+    ins_ms, parts = [], []
+    for batch in batches:
+        t0 = time.perf_counter()
+        svc.insert(batch)
+        ins_ms.append((time.perf_counter() - t0) * 1e3)
+        parts.append(svc.index.insert_s)
+    live_seq = np.concatenate([live_seq, n + np.arange(n_ins)])
+    if len(svc.index.store.deltas) != MUT["inserts"]:
+        fail(f"mut: {len(svc.index.store.deltas)} deltas after "
+             f"{MUT['inserts']} inserts")
+    # deletes spanning the base and the deltas, planted targets included
+    n_live = len(live_seq)
+    later = MUT["deletes_later"]
+    del2 = np.sort(np.concatenate([
+        rng.choice(n_live - n_ins, later - later // 4, replace=False),
+        n_live - n_ins + rng.choice(n_ins, later // 4, replace=False)]))
+    t0 = time.perf_counter()
+    svc.delete(del2)
+    torch.cuda.synchronize()
+    del2_ms = (time.perf_counter() - t0) * 1e3
+    deleted.append(live_seq[del2])
+    live_seq = np.delete(live_seq, del2)
+    deleted = np.concatenate(deleted)
+    results, lat_ms = serve(svc, queries)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    n_segs = len(svc.index.store.view.segments)
+    parts = np.mean(np.asarray(parts), axis=0) * 1e3
+    print(f"[mut] build_service, bucket_cap {MUT['cap']}, L={cell['tables']}"
+          f" T={MUT['probes']}, max_deltas {MUT['max_deltas']}: build "
+          f"{svc.stats.build_s:.3f} s; delete {n_del} ids {del1_ms:.3f} ms "
+          f"(base only: its {cell['tables']} live-window tables over {n} "
+          f"slots rebuilt); {MUT['inserts']} inserts of "
+          f"{MUT['insert_batch']}: {np.mean(ins_ms):.3f} ms per batch mean "
+          f"(hash {parts[0]:.3f}, sort {parts[1]:.3f}, lookups "
+          f"{parts[2]:.3f} ms); delete {later} ids over base and deltas "
+          f"{del2_ms:.3f} ms; {n_segs} segments, {svc.index.size} live")
+    summary = latency_line("mut", svc, lat_ms, f" over {n_segs} segments")
+    print(f"[mut] launches on the main path: {counts}")
+    check_counts(counts, "mut", ("cp_gram", "fused_query",
+                                 "fused_query:multiprobe",
+                                 "fused_query:live_window",
+                                 "fused_query:segments"))
+    store = svc.index.store
+    if not np.array_equal(np.flatnonzero(store._live_seq), live_seq):
+        fail("mut: the store's effective ids disagree with the script's "
+             "own bookkeeping")
+    eff_of_seq = np.full(n + n_ins, -1)
+    eff_of_seq[live_seq] = np.arange(len(live_seq))
+    tgts = [eff_of_seq[t] for t in targets]
+    hits1, rows = check_results(results, tgts, len(live_seq))
+    for ids, _, _ in results:
+        if np.isin(live_seq[ids[ids >= 0]], deleted).any():
+            fail("mut: a deleted item was returned")
+    # the returned ids name the script's own items: scores against them
+    own = cat_tensors([corpus, inserted]).index(
+        torch.from_numpy(live_seq).cuda())
+    ids0 = torch.from_numpy(results[0][0]).cuda()
+    sc0 = torch.from_numpy(results[0][1]).cuda()
+    tol = parity.rerank_bound(svc.index.metric, queries[0], own, ids0, sc0)
+    exact = exact_scores(svc.index.metric, queries[0], own, ids0)
+    if bool(((sc0.double() - exact).abs() > tol)[ids0 >= 0].any()):
+        fail("mut: returned scores are not the returned items' distances")
+    del own
+    recall1 = hits1 / rows
+    print(f"[mut] recall@1 (planted, surviving targets) {recall1:.4f} over "
+          f"{rows} queries ({sum(len(t) for t in tgts) - rows} targets "
+          f"deleted); no deleted item among {sum(int((r[0] >= 0).sum()) for r in results)}"
+          f" returned ids; scores are the script's own items' distances; "
+          f"peak device memory {peak / 2**30:.2f} GiB")
+    if recall1 < RECALL1_MIN:
+        fail(f"mut: recall@1 {recall1} below {RECALL1_MIN}")
+    corpus_eff = svc.index.effective_corpus()
+    k1_err, k1_args = k1_compare(svc, queries[0],
+                                 f"mut, {n_segs} segments, cap {MUT['cap']},"
+                                 f" T={MUT['probes']}, B={b}",
+                                 probes=MUT["probes"], corpus=corpus_eff)
+    k1_t = k1_times(svc, queries, k1_args,
+                    f"K1 live window, {n_segs} segments", corpus_eff)
+    del corpus_eff, k1_args
+
+    # the second run: compaction, queries, an insert that auto-compacts
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.perf_counter()
+    svc.compact()
+    compact_s = time.perf_counter() - t0
+    results, lat_ms = serve(svc, queries)
+    after = latency_line("mut", svc, lat_ms, " after compact()")
+    fresh = build_service(None, cell["kind"], cell["dims"],
+                          svc.index.effective_corpus(), family=fam, **kw)
+    for q in queries[:8]:
+        same_answers(svc.query_arrays(q, topk=TOPK),
+                     fresh.query_arrays(q, topk=TOPK),
+                     "mut: compacted index vs a fresh build")
+    del fresh
+    for _ in range(MUT["max_deltas"]):
+        svc.insert(data(gen, cell["dims"], cell["rhat"], batch=b))
+    if len(svc.index.store.deltas) != MUT["max_deltas"]:
+        fail("mut: the index compacted before max_deltas")
+    svc.insert(data(gen, cell["dims"], cell["rhat"], batch=b))
+    torch.cuda.synchronize()
+    counts2 = read_counts()
+    if svc.stats.auto_compactions != 1 or svc.index.store.deltas:
+        fail(f"mut: an insert past max_deltas did not auto-compact "
+             f"({svc.stats.auto_compactions} auto-compactions, "
+             f"{len(svc.index.store.deltas)} deltas)")
+    check_counts(counts2, "mut (compaction)", ("cp_gram", "fused_query",
+                                               "fused_query:multiprobe",
+                                               "fused_query:live_window"))
+    hits1c, rows_c = check_results(results, tgts, len(live_seq))
+    print(f"[mut] compact() {compact_s:.3f} s (prepare {svc.stats.compact_ms:.3f}"
+          f" ms); the compacted index equals a fresh build bit for bit")
+    corpus_eff = svc.index.effective_corpus()
+    _, k1_args = k1_compare(svc, queries[0], f"mut after compact(), cap "
+                            f"{MUT['cap']}, T={MUT['probes']}, B={b}",
+                            probes=MUT["probes"], corpus=corpus_eff)
+    k1_times(svc, queries, k1_args, "K1 live window, compacted", corpus_eff)
+    del corpus_eff, k1_args
+    print(f"[mut] after compact(): recall@1 {hits1c / rows_c:.4f}; an insert"
+          f" on {MUT['max_deltas']} deltas auto-compacted in "
+          f"{svc.stats.auto_compact_ms:.3f} ms (insert_ms excludes it: "
+          f"{svc.stats.insert_ms / svc.stats.insert_batches:.3f} ms per "
+          f"insert); launches: {counts2}")
+    del summary, after
+    return record("fused_query[live window, segments]", *K1_SOURCE, counts,
+                  "fused_query:segments", k1_err, k1_t)
+
+
+def phase_tt_mut(cell) -> None:
+    """[tt-mut]: K1-TT's new branches at the [tt-srp] scale (2^16 TT
+    items): bucket_cap, T = 4, two deltas and a delete, counters checked,
+    K1-TT against its plain version."""
+    import numpy as np
+    import torch
+    from repro_torch.serving.lsh_service import build_service
+    n = 1 << TT_MUT["log2_corpus"]
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    data = hash_fns("tt")["data"]
+    corpus = data(gen, cell["dims"], cell["rhat"], batch=n)
+    zero_counts()
+    svc = build_service(torch.Generator(device="cuda").manual_seed(1),
+                        cell["kind"], cell["dims"], corpus,
+                        num_codes=cell["codes"], num_tables=cell["tables"],
+                        rank=cell["rank"], bucket_width=cell["width"],
+                        bucket_cap=TT_MUT["cap"], probes=TT_MUT["probes"],
+                        device="cuda")
+    for _ in range(TT_MUT["inserts"]):
+        svc.insert(data(gen, cell["dims"], cell["rhat"], batch=1024))
+    rng = np.random.default_rng(29)
+    svc.delete(rng.choice(svc.index.size, TT_MUT["deletes"], replace=False))
+    q = make_queries(corpus, torch.randint(0, n, (1024,), generator=gen,
+                                           device="cuda"), gen)
+    ids, _, n_cand = svc.query_arrays(q, topk=TOPK)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    print(f"[tt-mut] n={n} TT items + {TT_MUT['inserts']} deltas of 1024, "
+          f"{TT_MUT['deletes']} deleted, bucket_cap {TT_MUT['cap']}, "
+          f"T={TT_MUT['probes']}: {float(n_cand.mean()):.1f} candidates per "
+          f"query, {(ids[:, 0] >= 0).mean():.4f} rows answered; launches "
+          f"{counts}")
+    check_counts(counts, "tt-mut", ("tt_inner", "fused_query",
+                                    "fused_query:multiprobe",
+                                    "fused_query:live_window",
+                                    "fused_query:segments"))
+    k1_compare(svc, q, f"tt-mut, 3 segments, cap {TT_MUT['cap']}, "
+                       f"T={TT_MUT['probes']}", probes=TT_MUT["probes"])
+
+
 def record(name, source, replaces, counts, key, err, times):
-    """One entry of the kernels line."""
+    """One entry of the kernels line (``key`` a counter of read_counts;
+    the plain calls are its kernel's)."""
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": counts[key],
-            "plain_calls": counts[f"{key}_plain"], "max_abs_err": err,
+            "plain_calls": counts[f"{key.split(':')[0]}_plain"],
+            "max_abs_err": err,
             "ms": times[0], "plain_ms": times[1], "bound_ms": times[2],
             "bound_by": times[3], "library_ms": None}
 
@@ -689,8 +1108,9 @@ def run_cell(layout: str, log2_corpus: int, args) -> list:
     qids = [perm[i * args.batch:(i + 1) * args.batch]
             for i in range(args.batches)]
     queries = [make_queries(corpus, q, gen) for q in qids]
-    svc, counts = phase_main(cell, corpus, qids, queries)
-    del corpus                      # the index holds the stacked corpus
+    svc, counts, main = phase_main(cell, corpus, qids, queries)
+    if layout == "tt":
+        del corpus                  # the index holds the stacked corpus
     h_err = phase_hash(svc, cell)
     k1_err, k1_args = k1_compare(svc, queries[0],
                                  f"{layout.upper()} index, B={args.batch}")
@@ -698,9 +1118,18 @@ def run_cell(layout: str, log2_corpus: int, args) -> list:
     h_t, k1_t = phase_times(svc, cell, queries, k1_args)
     phase_profile(svc, queries, "tt-profile" if layout == "tt" else "profile")
     key, source, replaces = HASH_RECORDS[layout]
-    return [record(key, source, replaces, counts, key, h_err, h_t),
-            record("fused_query" + ("[tt]" if layout == "tt" else ""),
-                   *K1_SOURCE, counts, "fused_query", k1_err, k1_t)]
+    records = [record(key, source, replaces, counts, key, h_err, h_t),
+               record("fused_query" + ("[tt]" if layout == "tt" else ""),
+                      *K1_SOURCE, counts, "fused_query", k1_err, k1_t)]
+    del svc, k1_args
+    torch.cuda.empty_cache()
+    if layout == "tt":
+        phase_tt_mut(cell)
+        return records
+    records.append(phase_mp(cell, corpus, qids, queries, main))
+    torch.cuda.empty_cache()
+    records.append(phase_mut(cell, corpus, qids, args))
+    return records
 
 
 def main(argv=None) -> int:

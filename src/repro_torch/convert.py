@@ -16,7 +16,7 @@ import torch
 
 from repro_torch.core.lsh import ALL_KINDS, E2LSH_KINDS, LSHFamily
 from repro_torch.core.projections import CPProjection, TTProjection
-from repro_torch.core.segments import TableSegment
+from repro_torch.core.segments import SegmentStore, TableSegment
 from repro_torch.core.tensor_formats import CPTensor, TTTensor
 from repro_torch.device import resolve_device
 
@@ -82,3 +82,15 @@ def segment_from_numpy(corpus_factors: Sequence[np.ndarray],
         keys=_u32(keys, dev), sorted_keys=_u32(sorted_keys, dev),
         perm=torch.from_numpy(np.array(perm, np.int32)).to(dev),
         corpus=corpus, cap=int(cap), stacked=stacked)
+
+
+def store_from_numpy(segments: Sequence[dict], state: dict,
+                     device="cuda") -> SegmentStore:
+    """A reference ``SegmentStore`` carried across: one dict of
+    ``segment_from_numpy``'s arguments per segment (base first, then the
+    deltas in insert order), all numpy, and the reference's
+    ``host_state()`` -> a port store, through ``SegmentStore.restore``, so
+    its lookups and effective ids are derived as every mutation derives
+    them."""
+    segs = [segment_from_numpy(device=device, **seg) for seg in segments]
+    return SegmentStore.restore(segs, state)

@@ -1,5 +1,5 @@
-"""Sorted segments and the query planner (reference: ``repro.core.segments``),
-single-device and immutable.
+"""Sorted segments, the mutable segment store and the query planner
+(reference: ``repro.core.segments``), single-device.
 
 A segment is, per hash table, the bucket keys of its items sorted ascending,
 the matching permutation of local item ids, and the corpus the ids point
@@ -11,19 +11,27 @@ into:
                     layout ((m, N, d, R) CP, (m, N, R, d, R) TT), whose
                     views the corpus factors or cores are.
 
-Bucket keys are uint32 values held in int64. ``StoreView`` is the snapshot a
-query reads; in this slice it holds the base segment only, with every slot
-live and effective ids equal to slot ids, but it carries the (m+1,) ``live``
-and (m,) ``eff`` lookups the reference's mutable store derives, so deltas
-and tombstones can come later without a change to the query kernel.
+Bucket keys are uint32 values held in int64. ``SegmentStore`` is one base
+segment plus bounded delta segments (streaming inserts) and a host
+tombstone mask (streaming deletes). Queries return *effective* ids, the
+rank of an item among the live items in sequence (arrival) order, via a
+host ``slot_pos`` map per segment. After every mutation the store derives,
+per segment, the device lookups a query reads (``live`` (m+1,) bool with
+entry m False, ``eff`` (m,) int32 and, for an explicit ``bucket_cap``, the
+live-window lookups ``live_rank`` (L, m+1) / ``live_pos`` (L, m)) and
+publishes them in one immutable ``StoreView``: once per mutation, never
+once per query batch. The host bookkeeping stays numpy, as in the
+reference.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import warnings
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from repro_torch.core.tensor_formats import CPTensor, TTTensor
@@ -39,7 +47,7 @@ class SegmentArrays(NamedTuple):
     perm: torch.Tensor          # (L, m) int32
     live: torch.Tensor          # (m + 1,) bool, entry m False
     eff: torch.Tensor           # (m,) int32 effective ids
-    win: tuple | None           # live-window lookups (queued: bucket_cap)
+    win: tuple | None           # (live_rank (L, m+1), live_pos (L, m)) int32
     stacked: torch.Tensor       # (m, N, d, R) CP / (m, N, R, d, R) TT
 
 
@@ -61,14 +69,17 @@ def bucket_keys(family, mults, corpus, batch_size: int) -> torch.Tensor:
 
 def query_keys(family, mults, queries,
                probes: int = 1) -> torch.Tensor:
-    """Hash a query batch -> (L, B) bucket keys. Multi-probe (T > 1) is
-    queued (ROADMAP.md)."""
-    if probes != 1:
-        raise NotImplementedError(
-            "multi-probe query keys (probes > 1) are queued in ROADMAP.md")
+    """Hash a query batch -> (L, B) bucket keys, or with ``probes`` = T > 1
+    the (L, T, B) ranked multi-probe keys of ``core.probing`` (slot 0 the
+    base key)."""
+    from repro_torch.core import probing
     from repro_torch.kernels.ops import mults_tensor
 
-    return family.hash_keys(queries, mults_tensor(mults, family.device)).T
+    if probes == 1:
+        return family.hash_keys(queries,
+                                mults_tensor(mults, family.device)).T
+    keys = probing.probe_keys(family, mults, queries, probes=probes)
+    return keys.permute(1, 2, 0)                          # (B,L,T) -> (L,T,B)
 
 
 def _max_run_length(sorted_keys: torch.Tensor) -> torch.Tensor:
@@ -119,48 +130,85 @@ class TableSegment:
     def slots(self) -> int:
         return self.keys.shape[0]
 
+    @property
+    def items(self) -> int:     # every slot holds a real item
+        return self.keys.shape[0]
+
 
 def build_segment(keys: torch.Tensor, corpus, *,
                   bucket_cap: int | None = None,
                   warn_layout: str | None = None) -> TableSegment:
-    """(m, L) corpus-order keys + CP or TT corpus -> sorted TableSegment
-    with the exact default cap (the largest bucket). The corpus is stacked
-    after the sort, so the sort's temporaries are freed before the stacked
-    copy is made."""
-    if bucket_cap is not None:
-        raise NotImplementedError(
-            "an explicit bucket_cap (live-window probe) is queued in "
-            "ROADMAP.md; this slice serves the exact default cap")
+    """(m, L) corpus-order keys + CP or TT corpus -> sorted TableSegment.
+    The cap is the largest bucket (exact candidate sets, with the
+    coarse-family warning for base builds, ``warn_layout`` set) or
+    min(``bucket_cap``, m). The corpus is stacked after the sort, so the
+    sort's temporaries are freed before the stacked copy is made."""
     m = keys.shape[0]
     perm, sorted_keys, max_run = _sort_tables(keys.T.contiguous())
-    cap = int(max_run) if m else 0
-    if warn_layout is not None:
-        _warn_coarse(warn_layout, cap, keys.shape[1], m)
+    if bucket_cap is None:
+        cap = int(max_run) if m else 0
+        if warn_layout is not None:
+            _warn_coarse(warn_layout, cap, keys.shape[1], m)
+    else:
+        cap = min(int(bucket_cap), m)
     corpus, stacked = corpus.stack()
     return TableSegment(keys=keys, sorted_keys=sorted_keys, perm=perm,
                         corpus=corpus, cap=cap, stacked=stacked)
 
 
+# ---------------------------------------------------------------------------
+# Live-window lookups (explicit bucket_cap stores)
+# ---------------------------------------------------------------------------
+
+
+def _live_window_table(perm_l: torch.Tensor, live: torch.Tensor):
+    """One table of ``_live_window_tables``: (rank (m+1,), pos (m,))
+    int32."""
+    live_sorted = live[perm_l.long()]                     # (m,) bool
+    rank = torch.cat([torch.zeros(1, dtype=torch.int32, device=live.device),
+                      torch.cumsum(live_sorted, 0, dtype=torch.int32)])
+    pos = torch.argsort((~live_sorted).to(torch.uint8), stable=True)
+    return rank, pos.to(torch.int32)
+
+
+def _live_window_tables(perm: torch.Tensor, live: torch.Tensor):
+    """(L, m) perm + (m+1,) live -> (live_rank (L, m+1), live_pos (L, m)).
+
+    ``live_rank[p]`` counts the live slots among sorted positions [0, p) of
+    the table; ``live_pos`` lists the live positions in ascending order,
+    then the dead ones, also ascending. Built one table at a time, as in
+    the reference."""
+    outs = [_live_window_table(perm[t], live) for t in range(perm.shape[0])]
+    return (torch.stack([o[0] for o in outs]),
+            torch.stack([o[1] for o in outs]))
+
+
+# ---------------------------------------------------------------------------
+# Mutable store: base + deltas + tombstones
+# ---------------------------------------------------------------------------
+
+
 @dataclasses.dataclass(frozen=True)
 class StoreView:
-    """The snapshot a query reads. Base segment only in this slice: every
-    slot live, effective id = slot id."""
+    """One immutable snapshot of a store's queryable state: a query reads
+    ``store.view`` once and serves the whole batch from it. ``generation``
+    increments with every publish; ``core.index`` uses it to refuse a
+    shadow store whose source mutated while it was built. ``k1_table`` is
+    K1's device table of the segments (``kernels.fused_query
+    .segment_table``), built once per view."""
 
-    segments: tuple
-    luts: tuple                 # per segment (live (m+1,), eff (m,))
-    wins: tuple
-
-    @classmethod
-    def base_only(cls, seg: TableSegment) -> "StoreView":
-        m, dev = seg.slots, seg.keys.device
-        live = torch.ones(m + 1, dtype=torch.bool, device=dev)
-        live[m] = False
-        eff = torch.arange(m, dtype=torch.int32, device=dev)
-        return cls(segments=(seg,), luts=((live, eff),), wins=(None,))
+    segments: tuple          # base + deltas, slot-offset order
+    luts: tuple              # per segment (live (m+1,), eff (m,))
+    wins: tuple              # per segment live-window lookups (or None)
+    generation: int = 0
 
     @property
     def base(self) -> TableSegment:
         return self.segments[0]
+
+    @property
+    def n_deltas(self) -> int:
+        return len(self.segments) - 1
 
     def seg_arrays(self, i: int) -> SegmentArrays:
         seg = self.segments[i]
@@ -173,8 +221,243 @@ class StoreView:
         return tuple(self.seg_arrays(i) for i in range(len(self.segments)))
 
     @property
+    def delta_arrays(self) -> tuple:
+        return tuple(self.seg_arrays(i)
+                     for i in range(1, len(self.segments)))
+
+    @property
     def all_caps(self) -> tuple[int, ...]:
         return tuple(seg.cap for seg in self.segments)
+
+    @property
+    def delta_caps(self) -> tuple[int, ...]:
+        return tuple(seg.cap for seg in self.segments[1:])
+
+    @functools.cached_property
+    def k1_table(self):
+        from repro_torch.kernels.fused_query import segment_table
+        return segment_table(self.all_arrays, self.all_caps)
+
+
+def _cat_corpus(corpora):
+    """Batched CP or TT tensors of one format, rank and scale -> one."""
+    first = corpora[0]
+    if len(corpora) == 1:
+        return first
+    if any(c.scale != first.scale for c in corpora):
+        raise ValueError("segments of one store hold corpora of different "
+                         "scales; they cannot be folded into one")
+    return type(first)(tuple(torch.cat(ls) for ls in
+                             zip(*(c.leaves for c in corpora))), first.scale)
+
+
+class SegmentStore:
+    """LSM-style mutable view over immutable segments (reference:
+    ``repro.core.segments.SegmentStore``, single-device).
+
+    One base ``TableSegment``, a list of delta segments, a host tombstone
+    mask over every slot, and per segment a host ``slot_pos`` map from slot
+    to sequence position. Every mutation ends by re-deriving the per-segment
+    device lookups and publishing a fresh ``StoreView`` (one attribute
+    write): ``live`` (m+1,) bool, ``eff`` (m,) int32 (the slot's effective
+    id) and, with ``live_window``, the (live_rank, live_pos) tables.
+    """
+
+    def __init__(self, base: TableSegment, *, live_window: bool = False):
+        self.base = base
+        self.deltas: list[TableSegment] = []
+        self.live_window = bool(live_window)
+        self._generation = 0
+        self.slot_pos = [np.arange(base.slots, dtype=np.int64)]
+        self.live_host = np.ones(base.slots, bool)
+        self.seq_len = int(base.items)
+        self._refresh()
+
+    @property
+    def device(self) -> torch.device:
+        return self.base.keys.device
+
+    # -- derived state ------------------------------------------------------
+
+    def _segments(self) -> list:
+        return [self.base] + self.deltas
+
+    def _seg_luts(self, live: np.ndarray, eff: np.ndarray):
+        dev = self.device
+        return (torch.from_numpy(np.append(live, False)).to(dev),
+                torch.from_numpy(eff.astype(np.int32)).to(dev))
+
+    def _seg_win(self, seg: TableSegment, live_lut: torch.Tensor):
+        if not self.live_window:
+            return None
+        return _live_window_tables(seg.perm, live_lut)
+
+    def _refresh(self, touched: set[int] | None = None) -> None:
+        """Rebuild the sequence-order views and the segment lookups.
+
+        ``touched`` is the set of segment indices whose live mask changed
+        (None = all). Segments before the first touched one keep both
+        lookups; later ones rebuild ``eff`` (ranks shift) but keep their
+        live-window tables unless their own mask changed."""
+        live_seq = np.zeros(self.seq_len, bool)
+        pos_to_slot = np.full(self.seq_len, -1, np.int64)
+        off = 0
+        for pos, seg in zip(self.slot_pos, self._segments()):
+            valid = pos >= 0
+            live_seq[pos[valid]] = self.live_host[off:off + seg.slots][valid]
+            pos_to_slot[pos[valid]] = off + np.flatnonzero(valid)
+            off += seg.slots
+        self._live_seq = live_seq
+        self._pos_to_slot = pos_to_slot
+        self.n_live = int(live_seq.sum())
+        self.n_dead = self.seq_len - self.n_live
+        eff_seq = (np.cumsum(live_seq) - 1).astype(np.int64)
+        first = 0 if touched is None else min(touched, default=0)
+        luts, wins, off = [], [], 0
+        for i, (pos, seg) in enumerate(zip(self.slot_pos,
+                                           self._segments())):
+            if touched is not None and i < first:
+                luts.append(self._luts[i])
+                wins.append(self._wins[i])
+                off += seg.slots
+                continue
+            live = self.live_host[off:off + seg.slots]
+            eff = (eff_seq[np.clip(pos, 0, None)] if self.seq_len
+                   else np.zeros(seg.slots, np.int64))
+            eff = np.where(pos >= 0, eff, 0)
+            lut = self._seg_luts(live, eff)
+            luts.append(lut)
+            if touched is None or i in touched:
+                wins.append(self._seg_win(seg, lut[0]))
+            else:
+                wins.append(self._wins[i])
+            off += seg.slots
+        self._luts, self._wins = luts, wins
+        self._publish()
+
+    def _publish(self) -> None:
+        """Assemble and install a fresh immutable view (one attribute
+        write); on the card its K1 table is built here, not per query."""
+        self._generation += 1
+        view = StoreView(segments=tuple(self._segments()),
+                         luts=tuple(self._luts), wins=tuple(self._wins),
+                         generation=self._generation)
+        if self.device.type == "cuda":
+            _ = view.k1_table       # uploaded now, not by the next query
+        self.view = view
+
+    @property
+    def generation(self) -> int:
+        """Monotone mutation clock: bumps whenever a new view publishes."""
+        return self.view.generation
+
+    def seg_arrays(self, i: int) -> SegmentArrays:
+        return self.view.seg_arrays(i)
+
+    @property
+    def mutated(self) -> bool:
+        return bool(self.deltas) or self.n_dead > 0
+
+    # -- durability hooks ----------------------------------------------------
+
+    def host_state(self) -> dict:
+        """The host bookkeeping a snapshot persists beside the segment
+        arrays; everything else is re-derived by ``restore``."""
+        return {
+            "slot_pos": [np.asarray(p, np.int64) for p in self.slot_pos],
+            "live_host": np.asarray(self.live_host, bool),
+            "seq_len": int(self.seq_len),
+            "live_window": bool(self.live_window),
+        }
+
+    @classmethod
+    def restore(cls, segs, state: dict) -> "SegmentStore":
+        """Rebuild a store from its segments + ``host_state()``, through
+        ``_refresh`` (the path every mutation ends with)."""
+        if len(segs) != len(state["slot_pos"]):
+            raise ValueError(
+                f"{len(segs)} segments but {len(state['slot_pos'])} "
+                "slot_pos maps in the snapshot state")
+        store = cls.__new__(cls)
+        store.base = segs[0]
+        store.deltas = list(segs[1:])
+        store.live_window = bool(state["live_window"])
+        store._generation = 0
+        store.slot_pos = [np.asarray(p, np.int64) for p in state["slot_pos"]]
+        store.live_host = np.asarray(state["live_host"], bool).copy()
+        store.seq_len = int(state["seq_len"])
+        store._refresh()
+        return store
+
+    # -- mutations ----------------------------------------------------------
+
+    def append_delta(self, seg: TableSegment) -> None:
+        """O(batch) append: the new items take the next sequence positions
+        and effective ids (after every live item), so earlier segments'
+        lookups are untouched and only the new segment's are built."""
+        n_new = seg.slots
+        seq0, slots0 = self.seq_len, self.live_host.size
+        self.deltas.append(seg)
+        self.slot_pos.append(np.arange(seq0, seq0 + n_new, dtype=np.int64))
+        live = np.ones(n_new, bool)
+        self.live_host = np.concatenate([self.live_host, live])
+        self._live_seq = np.concatenate([self._live_seq, live])
+        self._pos_to_slot = np.concatenate(
+            [self._pos_to_slot, np.arange(slots0, slots0 + n_new)])
+        eff = np.arange(self.n_live, self.n_live + n_new)
+        self.seq_len += n_new
+        self.n_live += n_new
+        lut = self._seg_luts(live, eff)
+        self._luts.append(lut)
+        self._wins.append(self._seg_win(seg, lut[0]))
+        self._publish()
+
+    def delete_effective(self, ids) -> int:
+        """Tombstone items by their current *effective* ids (the numbering
+        queries return). Returns the number of newly dead items."""
+        ids = np.unique(np.asarray(ids, np.int64))
+        if ids.size == 0:
+            return 0
+        if ids[0] < 0 or ids[-1] >= self.n_live:
+            raise IndexError(
+                f"delete ids must be in [0, {self.n_live}), got "
+                f"[{ids[0]}, {ids[-1]}]")
+        seq_ids = np.flatnonzero(self._live_seq)[ids]
+        slots = self._pos_to_slot[seq_ids]
+        self.live_host[slots] = False
+        bounds = np.cumsum([seg.slots for seg in self._segments()])
+        touched = set(np.searchsorted(bounds, slots, side="right").tolist())
+        self._refresh(touched)
+        return int(ids.size)
+
+    # -- effective (live) views --------------------------------------------
+
+    def _live_slots_seq_order(self) -> np.ndarray:
+        """Flat slot indices of the live items, in sequence order."""
+        live_slots = np.flatnonzero(self.live_host)
+        pos = np.concatenate(self.slot_pos)[live_slots]
+        return live_slots[np.argsort(pos, kind="stable")]
+
+    def effective_arrays(self):
+        """-> ((n_live, L) keys, corpus) of the live items in sequence (=
+        effective id) order, one gather each: the compaction input. Keys
+        come from storage, never from re-hashing."""
+        segs = self._segments()
+        idx = torch.from_numpy(self._live_slots_seq_order()).to(self.device)
+        keys = torch.cat([seg.keys for seg in segs])[idx]
+        return keys, _cat_corpus([seg.corpus for seg in segs]).index(idx)
+
+    def effective_corpus(self):
+        """The live corpus in effective-id order: the base's own for a
+        pristine store, a slice when the live slots are a prefix in
+        sequence order, one gather otherwise."""
+        if not self.mutated:
+            return self.base.corpus
+        corpus = _cat_corpus([seg.corpus for seg in self._segments()])
+        idx = self._live_slots_seq_order()
+        if np.array_equal(idx, np.arange(idx.size)):
+            return corpus.index(slice(0, idx.size))
+        return corpus.index(torch.from_numpy(idx).to(self.device))
 
 
 # ---------------------------------------------------------------------------
@@ -205,18 +488,14 @@ def hoisted_scores(metric: str, queries, corpus, safe: torch.Tensor,
 
 
 def segmented_query(family, segs, mults, queries, *, metric: str,
-                    topk: int, caps, probes: int = 1):
-    """From a query batch to ((B, topk) ids, (B, topk) scores, (B,)
-    candidate counts): the batch is stacked once, K3 or K4 (``raw``
-    epilogue) projects it and K1 probes the segment with it. One segment
-    and T = 1 in this slice."""
-    if probes != 1:
-        raise NotImplementedError(
-            "multi-probe queries (probes > 1) are queued in ROADMAP.md")
-    if len(segs) != 1:
-        raise NotImplementedError(
-            "queries over several segments (delta segments) are queued in "
-            "ROADMAP.md")
+                    topk: int, caps, probes: int = 1, table=None):
+    """From a query batch to ((B, topk) effective ids, (B, topk) scores,
+    (B,) candidate counts) over every segment (``segs`` in slot-offset
+    order, ``caps`` their probe widths): the batch is stacked once, K3 or
+    K4 (``raw`` epilogue) projects it, and one K1 launch expands each
+    table's key to ``probes`` ranked keys, probes every segment and selects.
+    ``table`` is the view's ``k1_table`` (built once per view on the
+    card)."""
     from repro_torch.kernels.fused_query import fused_query
     from repro_torch.kernels.ops import mults_tensor
 
@@ -224,8 +503,8 @@ def segmented_query(family, segs, mults, queries, *, metric: str,
     queries = queries.stack()
     values = family.raw_stacked(queries[1], queries[0].scale)
     return fused_query(values, family.offsets,
-                       mults_tensor(mults, values.device), queries, segs[0],
+                       mults_tensor(mults, values.device), queries, segs,
                        kind=family.kind, w=family.bucket_width,
                        num_tables=family.num_tables,
                        num_codes=family.num_codes, metric=metric, topk=topk,
-                       cap=caps[0])
+                       caps=caps, probes=probes, table=table)

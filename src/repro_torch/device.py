@@ -12,11 +12,14 @@ import torch
 
 
 def resolve_device(device) -> torch.device:
-    """``device`` as a ``torch.device``; raises if it names CUDA and no card
-    is present."""
+    """``device`` as a ``torch.device`` ("cuda" with the current card's
+    index, so that it compares equal to a tensor's device); raises if it
+    names CUDA and no card is present."""
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             f"device={str(device)!r} but torch.cuda.is_available() is False; "
             "pass device='cpu' to run the plain PyTorch path on the CPU")
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
     return dev

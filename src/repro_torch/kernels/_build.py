@@ -30,6 +30,7 @@ CFLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_D = ctypes.c_double
 # C signatures of the entry points (restype int = cudaError_t).
 SIGNATURES = {
     # x, p, offsets, mults, out, B, N, D, RX, L, K, RP, epilogue, w, scale,
@@ -37,10 +38,11 @@ SIGNATURES = {
     "cp_gram_launch": [_P] * 5 + [_I] * 8 + [_F, _F, _I, _I, _P],
     # the same arguments, in the TT layouts
     "tt_inner_launch": [_P] * 5 + [_I] * 8 + [_F, _F, _I, _I, _P],
-    # values, offsets, mults, q, c, sorted_keys, perm, live, eff, ids,
-    # scores, ncand, B, L, K, N, D, RQ, RC, m, cap, topk, e2, euclid, tt, w,
-    # s_qq, s_qy, s_yy, P, threads, stream
-    "fused_query_launch": [_P] * 12 + [_I] * 13 + [_F] * 4 + [_I, _I, _P],
+    # values, offsets, mults, pairs, q, segment table, S, ids, scores,
+    # ncand, B, L, K, T, C, N, D, RQ, RC, topk, e2, euclid, tt, w, qs, P,
+    # threads, stream
+    "fused_query_launch": [_P] * 6 + [_I] + [_P] * 3 + [_I] * 13
+                          + [_F, _D, _I, _I, _P],
 }
 
 _LIB = None

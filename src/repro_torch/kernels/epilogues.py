@@ -106,29 +106,45 @@ def apply_epilogue(v: torch.Tensor, offs: torch.Tensor | None,
 def probe_windows(sorted_keys, perm, keys, cap, live, win=None):
     """Raw probe windows, pre-dedup -> (ids (B, W) local ids, hit (B, W)).
 
-    ``keys`` is the (L, B) single-probe key tensor; W = L*cap, query-major,
-    table-major, window-minor. Dense window: gather the first ``cap`` sorted
-    positions after the side='left' binary search and keep the slots still
-    inside the bucket (same key) whose item is live (``live`` is the (m+1,)
-    lookup, entry m False). The (L, T, B) multi-probe keys and the
-    live-window ``win`` branch are queued (ROADMAP.md).
+    ``keys`` is (L, B) single-probe or (L, T, B) multi-probe; the probe axis
+    folds into the window axis W = L[*T]*cap, query-major, table-major,
+    probe-major, window-minor. The same local id recurs once per probed
+    bucket that holds it; ``dedup_windows`` masks the recurrences.
+
+    Dense window (``win`` None): gather the first ``cap`` sorted positions
+    after the side='left' binary search and keep the slots still inside the
+    bucket (same key) whose item is live (``live`` is the (m+1,) lookup,
+    entry m False). Live window (``win`` = (live_rank (L, m+1), live_pos
+    (L, m))): the bucket's live members hold the live ranks
+    [live_rank[start], live_rank[end]) with ``end`` from the side='right'
+    search over the whole table, and slot j gathers perm[live_pos[rank0 +
+    j]] while rank0 + j is below that bound: live and in-bucket by
+    construction, so no key or liveness re-check.
     """
-    if win is not None or keys.dim() != 2:
-        raise NotImplementedError(
-            "probe_windows ports the dense-window, single-probe branch; the "
-            "live-window lookup (bucket_cap) and multi-probe keys are queued "
-            "in ROADMAP.md")
     nt, m = sorted_keys.shape
-    b = keys.shape[1]
-    starts = torch.searchsorted(sorted_keys, keys.contiguous(), side="left")
-    pos = starts[..., None] + torch.arange(cap, device=keys.device)
-    in_range = pos < m                                    # (L, B, cap)
-    posc = torch.clamp(pos, max=max(m - 1, 0)).reshape(nt, -1)
-    key_at = torch.gather(sorted_keys, 1, posc).reshape(nt, b, cap)
-    ids = torch.gather(perm, 1, posc).reshape(nt, b, cap)
-    hit = in_range & (key_at == keys[..., None]) & live[ids.long()]
-    ids = ids.permute(1, 0, 2).reshape(b, -1)
-    hit = hit.permute(1, 0, 2).reshape(b, -1)
+    lead = keys.shape[1:]                                 # ([T,] B)
+    flat = keys.reshape(nt, -1).contiguous()
+    top = max(m - 1, 0)
+    starts = torch.searchsorted(sorted_keys, flat, side="left")
+    if win is None:
+        pos = starts[..., None] + torch.arange(cap, device=keys.device)
+        posc = torch.clamp(pos, max=top).reshape(nt, -1)
+        key_at = torch.gather(sorted_keys, 1, posc).reshape(pos.shape)
+        ids = torch.gather(perm, 1, posc).reshape(pos.shape)
+        hit = (pos < m) & (key_at == flat[..., None]) & live[ids.long()]
+    else:
+        live_rank, live_pos = win
+        ends = torch.searchsorted(sorted_keys, flat, side="right")
+        rank0 = torch.gather(live_rank, 1, starts)
+        rank_end = torch.gather(live_rank, 1, ends)
+        j = rank0[..., None] + torch.arange(cap, device=keys.device)
+        hit = j < rank_end[..., None]
+        jc = torch.clamp(j, max=top).reshape(nt, -1)
+        pos = torch.gather(live_pos, 1, jc).long()
+        ids = torch.gather(perm, 1, pos).reshape(j.shape)
+    b = lead[-1]
+    ids = ids.reshape(nt, *lead, cap).movedim(-2, 0).reshape(b, -1)
+    hit = hit.reshape(nt, *lead, cap).movedim(-2, 0).reshape(b, -1)
     return ids, hit
 
 

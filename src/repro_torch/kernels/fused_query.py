@@ -1,42 +1,53 @@
 """K1: one launch from a query batch's raw projections to (id, score) pairs
-(reference: ``repro.kernels.fused_query.fused_query``).
+over every segment of a store (reference:
+``repro.kernels.fused_query.fused_query``).
 
 Stages, per query: discretize (E2LSH floor / SRP sign) -> uint32 radix
-combine -> per-table binary search over the sorted bucket keys -> cap-wide
-masked window gather -> sort-dedup -> exact in-format re-rank -> packed
-(order key, effective id) top-k.
+combine -> multi-probe expansion to T ranked keys per table -> per segment:
+per-(table, probe) binary search over the sorted bucket keys, the dense
+cap-wide window (bucket members, tombstones masked) or the live window
+(the first ``cap`` live members, through ``live_rank`` / ``live_pos``),
+sort-dedup, exact in-format re-rank, packed (order key, effective id) keys
+-> top-k over all segments.
 
 ``fused_query`` launches the CUDA kernel ``csrc/fused_query.cu`` on CUDA
 tensors and runs ``fused_query_plain`` on CPU tensors; any other device
-raises. The plain version composes ``kernels.epilogues``' probe helpers and
-``core.segments.hoisted_scores`` exactly as the reference's
-``_fused_query_kernel`` does. Both take the raw projections as an input, so
-the two can be held against each other on the same values
-(``LSHFamily.raw_stacked`` makes them with K3 or K4 on the main path), and
-both take the query batch as its format's ``stack`` gives it: the plain
-version reads its per-mode views, the kernel the stacked tensor they view. The corpus and
-the queries are CP (stacked (B, N, d, R)) or TT (stacked (B, N, R, d, R));
-the re-rank is the format's inner product.
+raises. The plain version composes ``core.probing``'s expansion,
+``kernels.epilogues``' probe helpers and ``core.segments.hoisted_scores``
+exactly as the reference's ``_fused_query_kernel`` does: every segment's
+packed candidates are concatenated and one ``packed_select`` picks the
+top-k. The kernel instead keeps a running top-k across segments; the packed
+key is a strict total order on valid slots (effective ids are unique in a
+store), so both pick the same keys in the same order. Both take the raw
+projections as an input, so the two can be held against each other on the
+same values (``LSHFamily.raw_stacked`` makes them with K3 or K4 on the main
+path), and both take the query batch as its format's ``stack`` gives it.
 
-This slice covers the single-probe (T = 1), dense-window, one-segment
-branch. The multi-probe expansion, the live-window (``bucket_cap``) branch,
-several segments and the sharded entry are queued (ROADMAP.md).
-``fused_query.launches`` counts kernel launches, ``fused_query_plain.calls``
-calls of the plain version.
+The sharded entry (``fused_query_sharded``) is queued (ROADMAP.md).
+``fused_query.launches`` counts kernel launches and
+``fused_query.branches`` the launches that ran each branch ("multiprobe":
+T > 1, "live_window": a segment with live-window lookups, "segments":
+more than one segment); ``fused_query_plain.calls`` counts calls of the
+plain version.
 """
 
 from __future__ import annotations
 
+import collections
+import dataclasses
 import functools
+import struct
 
 import torch
 
+from repro_torch.core import probing
 from repro_torch.core import segments as _seg
 from repro_torch.kernels import epilogues as _epi
 
 MAX_SMEM = 232_448         # bytes of shared memory one H100 block may use
 THREADS = 256              # threads per query block (8 warps)
 MAX_TT_RANK = 8            # largest TT rank K1's chain registers hold
+TABLE_COLS = 12            # int64 words per segment in the K1 table
 
 
 def _pow2_ceil(x: int) -> int:
@@ -44,142 +55,242 @@ def _pow2_ceil(x: int) -> int:
 
 
 def smem_bytes(num_tables: int, n_modes: int, d: int, rq: int, rc: int,
-               window: int, tt: bool = False) -> int:
+               window: int, tt: bool = False, probes: int = 1,
+               topk: int = 10, expansion: int = 0) -> int:
     """Shared memory of one K1 block (mirrors ``fused_query_smem_bytes`` in
-    the CUDA source) for a window capacity ``window`` (a power of two): 8 + 4
-    bytes a slot, the query's row, one candidate row per warp (CP factors
-    (N, d, R) or TT cores (N, R, d, R)) and, for TT, each warp's two chain
-    states and their next values, three per-table integer arrays, and 8
-    bytes of static scalars."""
+    the CUDA source) for a window capacity ``window`` (a power of two): the
+    running top-k and its merge buffer (16 bytes a rank), 8 + 4 bytes a
+    window slot (the expansion's per-warp scores and deltas, ``expansion``
+    candidates of 8 bytes, reuse that region), the query's row, one
+    candidate row per warp (CP factors (N, d, R) or TT cores (N, R, d, R))
+    and, for TT, each warp's two chain states and their next values, four
+    per-(table, probe) integer arrays, and 16 bytes of static scalars."""
     if tt:
         fq, fc = n_modes * rq * d * rq, n_modes * rc * d * rc
         sw = 2 * max(rq * rc + rc * rc, rq * rq)
     else:
         fq, fc, sw = n_modes * d * rq, n_modes * d * rc, 0
-    return (window * 12 + fq * 4 + (THREADS // 32) * (fc + sw) * 4
-            + (3 * num_tables + 1) * 4 + 8)
+    nwarps = THREADS // 32
+    region = max(window * 12, nwarps * expansion * 8)
+    region = -(-region // 8) * 8
+    lt = num_tables * probes
+    return (16 * topk + region + (fq + nwarps * (fc + sw)) * 4
+            + (4 * lt + 1) * 4 + 16)
 
 
 def window_capacity(num_tables: int, cap: int, n_modes: int, d: int,
-                    rq: int, rc: int, tt: bool = False) -> int:
-    """The power-of-two window K1 sizes its shared memory for; raises
-    ``ValueError`` when L*cap exceeds the largest window one block holds."""
-    window = _pow2_ceil(num_tables * cap)
+                    rq: int, rc: int, tt: bool = False, probes: int = 1,
+                    topk: int = 10, expansion: int = 0) -> int:
+    """The power-of-two window K1 sizes its shared memory for (the largest
+    one segment needs: L*T*cap); raises ``ValueError`` when that exceeds
+    the largest window one block holds."""
+    window = _pow2_ceil(num_tables * probes * cap)
     size = functools.partial(smem_bytes, num_tables, n_modes, d, rq, rc,
-                             tt=tt)
+                             tt=tt, probes=probes, topk=topk,
+                             expansion=expansion)
     if size(window) > MAX_SMEM:
         largest = 1
         while size(2 * largest) <= MAX_SMEM:
             largest *= 2
         raise ValueError(
             f"K1 holds a probe window of at most {largest} slots in one "
-            f"block's {MAX_SMEM} B of shared memory; L*cap = {num_tables}"
-            f"*{cap} = {num_tables * cap} exceeds it. Raise num_codes or "
-            "shrink bucket_width so buckets are smaller.")
+            f"block's {MAX_SMEM} B of shared memory; one segment's L*T*cap "
+            f"= {num_tables}*{probes}*{cap} = {num_tables * probes * cap} "
+            "exceeds it. Raise num_codes, shrink bucket_width, lower probes "
+            "or pass a smaller bucket_cap.")
     return window
 
 
-def _discretize_keys(values, offsets, mults, *, e2, w, num_tables,
-                     num_codes):
-    """(B, L*K) raw values -> (L, B) uint32 bucket keys (int64)."""
-    if e2:
-        codes = torch.floor(_epi.div_w(values + offsets, w)).to(torch.int32)
-    else:
-        codes = (values > 0).to(torch.int32)
-    codes = codes.reshape(values.shape[0], num_tables, num_codes)
+def probe_keys_from_values(values, offsets, mults, *, e2, w, num_tables,
+                           num_codes, probes):
+    """(B, L*K) raw values -> (L, T, B) ranked bucket keys (uint32 values
+    in int64): discretize, combine, and the multi-probe expansion, as the
+    reference's kernel runs them on its raw values."""
+    codes, aux = probing.discretize_aux(values, offsets, e2=e2, w=w,
+                                        num_tables=num_tables,
+                                        num_codes=num_codes)
     u = codes.to(torch.int64) & _epi.U32_MASK
-    base = _epi.mul_u32(u, mults.to(torch.int64)).sum(-1) & _epi.U32_MASK
-    return base.T
+    mults = mults.to(torch.int64)
+    base = _epi.mul_u32(u, mults).sum(-1) & _epi.U32_MASK    # (B, L)
+    keys = probing.expand_keys(base, aux, mults, e2=e2, probes=probes)
+    return keys.permute(1, 2, 0)
 
 
-def fused_query_plain(values, offsets, mults, queries, seg, *, kind, w,
-                      num_tables, num_codes, metric, topk, cap):
-    """Plain PyTorch version of K1 -> (ids (B, topk) int32, scores
-    (B, topk) float32, n_cand (B,) int32).
+def fused_query_plain(values, offsets, mults, queries, segs, *, kind, w,
+                      num_tables, num_codes, metric, topk, caps, probes=1):
+    """Plain PyTorch version of K1 -> (ids (B, topk) int32 effective ids,
+    scores (B, topk) float32, n_cand (B,) int32).
 
     values (B, L*K) float32 raw projections; offsets (L*K,) float32 (E2LSH;
     unused and may be None for SRP); mults (K,) uint32 values in int64;
     queries the (batched CP or TT tensor, stacked tensor) pair of the
-    format's ``stack``; ``seg`` the segment arrays
-    (``core.segments.SegmentArrays``).
+    format's ``stack``; ``segs`` the segment arrays
+    (``core.segments.SegmentArrays``) in slot-offset order and ``caps``
+    their probe widths; ``probes`` = T.
     """
     fused_query_plain.calls += 1
-    keys = _discretize_keys(values, offsets, mults, e2=kind.endswith("e2lsh"),
-                            w=w, num_tables=num_tables, num_codes=num_codes)
-    m = seg.sorted_keys.shape[1]
-    ids, hit = _epi.probe_windows(seg.sorted_keys, seg.perm, keys, cap,
-                                  seg.live, seg.win)
-    cand, valid = _epi.dedup_windows(ids, hit, m)
-    safe = torch.where(valid, cand, 0).long()
-    scores = _seg.hoisted_scores(metric, queries[0], seg.corpus, safe)
-    hi, lo = _epi.pack_candidates(metric, seg.eff[safe], scores, valid)
-    out_ids, out_scores = _epi.packed_select(metric, topk, hi, lo)
-    return out_ids, out_scores, valid.sum(dim=1, dtype=torch.int32)
+    keys = probe_keys_from_values(values, offsets, mults,
+                                  e2=kind.endswith("e2lsh"), w=w,
+                                  num_tables=num_tables, num_codes=num_codes,
+                                  probes=probes)
+    his, los = [], []
+    n_cand = torch.zeros(values.shape[0], dtype=torch.int32,
+                         device=values.device)
+    for seg, cap in zip(segs, caps):
+        m = seg.sorted_keys.shape[1]
+        ids, hit = _epi.probe_windows(seg.sorted_keys, seg.perm, keys, cap,
+                                      seg.live, seg.win)
+        cand, valid = _epi.dedup_windows(ids, hit, m)
+        safe = torch.where(valid, cand, 0).long()
+        scores = _seg.hoisted_scores(metric, queries[0], seg.corpus, safe)
+        hi, lo = _epi.pack_candidates(metric, seg.eff[safe], scores, valid)
+        his.append(hi)
+        los.append(lo)
+        n_cand += valid.sum(dim=1, dtype=torch.int32)
+    out_ids, out_scores = _epi.packed_select(
+        metric, topk, torch.cat(his, dim=1), torch.cat(los, dim=1))
+    return out_ids, out_scores, n_cand
 
 
 fused_query_plain.calls = 0
 
 
-def fused_query(values, offsets, mults, queries, seg, *, kind, w, num_tables,
-                num_codes, metric, topk, cap):
-    """K1 on the tensors' device (arguments as ``fused_query_plain``)."""
+@dataclasses.dataclass(frozen=True)
+class SegmentTable:
+    """K1's view of a store's segments on the card: ``desc`` (S, 12) int64,
+    one row per segment (pointers to sorted_keys, perm, live, eff, the
+    stacked corpus, live_rank and live_pos (0 without a live window), then
+    m, cap, the stacked corpus rank and the corpus scale's float64 bits).
+    ``segs`` keeps the tensors the pointers name alive."""
+
+    desc: torch.Tensor
+    segs: tuple
+    caps: tuple
+    layout: str
+    n_modes: int
+    d: int
+    rc: int
+
+
+def segment_table(segs, caps) -> SegmentTable | None:
+    """Check the segments' arrays once and upload their K1 table (None for
+    segments on the CPU, where the plain version reads the arrays)."""
+    first = segs[0].stacked
+    dev = first.device
+    if dev.type != "cuda":
+        return None
+    layout = segs[0].corpus.layout
+    n_modes, d = first.shape[1], first.shape[-2]
+    rows = []
+    for seg, cap in zip(segs, caps):
+        c = seg.stacked
+        arrays = (seg.sorted_keys, seg.perm, seg.live, seg.eff, c)
+        if seg.corpus.layout != layout or (c.shape[1], c.shape[-2]) != (
+                n_modes, d):
+            raise ValueError("a store's segments hold corpora of one layout "
+                             "and mode shape")
+        if tuple(a.dtype for a in arrays) != (
+                torch.int64, torch.int32, torch.bool, torch.int32,
+                torch.float32) or not all(a.is_contiguous() and a.device == dev
+                                          for a in arrays):
+            raise ValueError("K1 reads contiguous int64 sorted keys, int32 "
+                             "perm, bool live, int32 eff and a float32 "
+                             "stacked corpus on one card")
+        rank_ptr = pos_ptr = 0
+        if seg.win is not None:
+            live_rank, live_pos = seg.win
+            if (live_rank.dtype, live_pos.dtype) != (torch.int32,
+                                                     torch.int32) or not (
+                    live_rank.is_contiguous() and live_pos.is_contiguous()):
+                raise ValueError("K1 reads contiguous int32 live-window "
+                                 "lookups")
+            rank_ptr, pos_ptr = live_rank.data_ptr(), live_pos.data_ptr()
+        scale_bits = struct.unpack("<q", struct.pack(
+            "<d", float(seg.corpus.scale)))[0]
+        rows.append([a.data_ptr() for a in arrays[:4]]
+                    + [c.data_ptr(), rank_ptr, pos_ptr,
+                       seg.sorted_keys.shape[1], int(cap), c.shape[-1],
+                       scale_bits, 0])
+    desc = torch.tensor(rows, dtype=torch.int64).to(dev)
+    return SegmentTable(desc=desc, segs=tuple(segs), caps=tuple(caps),
+                        layout=layout, n_modes=n_modes, d=d,
+                        rc=max(seg.stacked.shape[-1] for seg in segs))
+
+
+@functools.lru_cache(maxsize=None)
+def _pairs(e2: bool, num_codes: int, device) -> torch.Tensor:
+    """The expansion's static (a, b) pair indices, (P, 2) int32 on
+    ``device``, uploaded once per (kind, K)."""
+    pa, pb = probing.pair_indices(e2, num_codes)
+    return torch.stack([torch.from_numpy(pa), torch.from_numpy(pb)],
+                       dim=1).to(torch.int32).contiguous().to(device)
+
+
+def fused_query(values, offsets, mults, queries, segs, *, kind, w, num_tables,
+                num_codes, metric, topk, caps, probes=1, table=None):
+    """K1 on the tensors' device (arguments as ``fused_query_plain``;
+    ``table`` the segments' ``segment_table``, built here if not given)."""
     dev = values.device
+    probes = int(probes)
     if dev.type == "cpu":
-        return fused_query_plain(values, offsets, mults, queries, seg,
+        return fused_query_plain(values, offsets, mults, queries, segs,
                                  kind=kind, w=w, num_tables=num_tables,
                                  num_codes=num_codes, metric=metric,
-                                 topk=topk, cap=cap)
+                                 topk=topk, caps=caps, probes=probes)
     if dev.type != "cuda":
         raise ValueError(f"fused_query runs on cuda or cpu tensors, got {dev}")
-    if seg.win is not None:
-        raise NotImplementedError(
-            "K1's live-window branch (bucket_cap) is queued in ROADMAP.md")
     from repro_torch.kernels import _build
 
+    if probes < 1:
+        raise ValueError(f"probes must be >= 1, got {probes}")
+    if table is None:
+        table = segment_table(segs, caps)
+    if tuple(caps) != table.caps or len(segs) != len(table.segs):
+        raise ValueError("the K1 table was built for other segments")
     e2 = kind.endswith("e2lsh")
     b = values.shape[0]
-    m = seg.sorted_keys.shape[1]
-    c = seg.stacked
     q = queries[1]
-    tt = seg.corpus.layout == "tt"        # (m, N, R, d, R); CP (m, N, d, R)
-    n, d, rc = c.shape[1], c.shape[-2], c.shape[-1]
-    if (q.dim() != c.dim() or (q.shape[1], q.shape[-2]) != (n, d)
-            or not q.is_contiguous()):
+    tt = table.layout == "tt"
+    n, d, rc = table.n_modes, table.d, table.rc
+    if (q.dim() != table.segs[0].stacked.dim()
+            or (q.shape[1], q.shape[-2]) != (n, d) or not q.is_contiguous()
+            or q.dtype != torch.float32):
         raise ValueError(f"stacked queries {tuple(q.shape)} do not match the "
-                         f"stacked corpus {tuple(c.shape)}")
+                         f"stacked corpus {tuple(table.segs[0].stacked.shape)}")
     rq = q.shape[-1]
     if tt and max(rq, rc) > MAX_TT_RANK:
         raise ValueError(f"K1 holds TT ranks up to {MAX_TT_RANK} in "
                          f"registers; got Rq={rq}, Rc={rc}")
-    window = window_capacity(num_tables, cap, n, d, rq, rc, tt=tt)
+    expansion = (probing.expansion_size(kind, num_codes) if probes > 1
+                 else 0)
+    window = window_capacity(num_tables, max(caps), n, d, rq, rc, tt=tt,
+                             probes=probes, topk=topk, expansion=expansion)
     vals = values.contiguous().float()
     offs = offsets.float().contiguous() if e2 else None
     mu = mults.to(dev, torch.int64).contiguous()
-    live = seg.live.contiguous()
-    sorted_keys, perm = seg.sorted_keys.contiguous(), seg.perm.contiguous()
-    eff = seg.eff.contiguous()
-    if (q.dtype, c.dtype, sorted_keys.dtype, perm.dtype, live.dtype,
-            eff.dtype) != (torch.float32, torch.float32, torch.int64,
-                           torch.int32, torch.bool, torch.int32):
-        raise ValueError("K1 reads float32 stacked queries and corpus, int64 "
-                         "sorted keys, int32 perm, bool live, int32 eff")
+    pairs = _pairs(e2, num_codes, dev) if probes > 1 else None
     ids = torch.empty((b, topk), dtype=torch.int32, device=dev)
     scores = torch.empty((b, topk), dtype=torch.float32, device=dev)
     ncand = torch.empty((b,), dtype=torch.int32, device=dev)
     if b == 0:
         return ids, scores, ncand
-    qs, cs = float(queries[0].scale), float(seg.corpus.scale)
     err = _build.lib().fused_query_launch(
         vals.data_ptr(), offs.data_ptr() if e2 else None, mu.data_ptr(),
-        q.data_ptr(), c.data_ptr(), sorted_keys.data_ptr(), perm.data_ptr(),
-        live.data_ptr(), eff.data_ptr(), ids.data_ptr(),
-        scores.data_ptr(), ncand.data_ptr(), b, num_tables, num_codes, n, d,
-        rq, rc, m, cap, topk, int(e2), int(metric == "euclidean"), int(tt),
-        float(w) if e2 else 1.0, qs * qs, qs * cs, cs * cs, window, THREADS,
+        pairs.data_ptr() if pairs is not None else None, q.data_ptr(),
+        table.desc.data_ptr(), len(segs), ids.data_ptr(), scores.data_ptr(),
+        ncand.data_ptr(), b, num_tables, num_codes, probes, expansion, n, d,
+        rq, rc, topk, int(e2), int(metric == "euclidean"), int(tt),
+        float(w) if e2 else 1.0, float(queries[0].scale), window, THREADS,
         torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "fused_query_launch")
     fused_query.launches += 1
+    fused_query.branches.update(
+        [name for name, on in (("multiprobe", probes > 1),
+                               ("live_window", any(s.win is not None
+                                                   for s in segs)),
+                               ("segments", len(segs) > 1)) if on])
     return ids, scores, ncand
 
 
 fused_query.launches = 0
+fused_query.branches = collections.Counter()

@@ -1,18 +1,21 @@
-"""Batched LSH similarity-search service (reference:
-``repro.serving.lsh_service``), device index only.
+"""Batched LSH similarity-search service with streaming mutations
+(reference: ``repro.serving.lsh_service``), device index only.
 
 A corpus of CP or TT tensors is hashed once at build time with a family of
 its format (K3 or K4 on the card), and query batches run K3 / K4 (``raw``)
-then K1 (probe, dedup, exact in-format re-rank, top-k) without leaving the
-card until the final (B, topk) results.
+then K1 (multi-probe expansion, probe of every segment, dedup, exact
+in-format re-rank, top-k) without leaving the card until the final
+(B, topk) results. ``insert`` / ``delete`` / ``prepare_compact`` /
+``apply_swap`` / ``compact`` mutate the store, with the reference's
+counters in ``ServiceStats``.
 
 In the reference, ``build_service(device: bool)`` chooses between the device
 index and the host-dict index. Here ``device`` is the torch device the
 service runs on ("cuda" by default; "cpu" runs the kernels' plain
-versions). The host index is queued, as are multi-probe (``probes`` > 1),
-the sampling query modes, ``shards``, ``bucket_cap`` and the mutation
-endpoints: they raise ``NotImplementedError`` naming the ROADMAP.md item
-that brings them. That is a stated limit of this slice, not a fallback.
+versions). The host index, the sampling query modes, ``shards`` and
+``rebalance`` are queued: they raise ``NotImplementedError`` naming the
+ROADMAP.md item that brings them. That is a stated limit of the port, not a
+fallback.
 """
 
 from __future__ import annotations
@@ -44,6 +47,16 @@ class ServiceStats:
     build_s: float = 0.0
     hash_s: float = 0.0        # part of build_s spent hashing (K3 / K4)
     sort_s: float = 0.0        # part of build_s spent sorting the tables
+    # mutation counters
+    inserted: int = 0          # items appended via insert()
+    insert_batches: int = 0
+    insert_ms: float = 0.0     # insert wall time, auto-compaction excluded
+    deleted: int = 0           # items tombstoned via delete()
+    delete_batches: int = 0
+    compactions: int = 0       # explicit compact()/apply_swap publications
+    compact_ms: float = 0.0    # explicit compact build wall time only
+    auto_compactions: int = 0  # max_deltas-triggered folds inside insert()
+    auto_compact_ms: float = 0.0
 
     @property
     def mean_latency_ms(self):
@@ -57,36 +70,47 @@ class ServiceStats:
     def qps(self):
         return self.queries / max(self.total_ms / 1e3, 1e-9)
 
+    @property
+    def insert_items_per_s(self):
+        return self.inserted / max(self.insert_ms / 1e3, 1e-9)
+
     def reset(self):
         """Zero the query counters (e.g. after warm-up); keeps the build
-        times."""
+        times and the mutation counters."""
         self.queries = self.batches = self.topk_queries = 0
         self.total_ms = 0.0
         self.total_candidates = 0
 
+    def reset_mutations(self):
+        """Zero the mutation counters (every build does, so the stats
+        describe the live index only)."""
+        self.inserted = self.insert_batches = 0
+        self.deleted = self.delete_batches = 0
+        self.compactions = self.auto_compactions = 0
+        self.insert_ms = self.compact_ms = self.auto_compact_ms = 0.0
+
 
 class LSHService:
-    """build() once, then serve query batches."""
+    """build() once, then serve query batches and streaming mutations."""
 
     def __init__(self, family: LSHFamily, metric: str = "euclidean",
                  bucket_cap: int | None = None, shards: int | None = None,
-                 probes: int = 1, query_mode: str = "topk"):
+                 max_deltas: int = 8, probes: int = 1,
+                 query_mode: str = "topk"):
         if int(probes) < 1:
             raise ValueError(f"probes must be >= 1, got {probes}")
         if query_mode not in QUERY_MODES:
             raise ValueError(f"unknown query_mode {query_mode!r}; expected "
                              f"one of {QUERY_MODES}")
-        if int(probes) > 1:
-            raise _queued("multi-probe (probes > 1)", "1")
         if query_mode != "topk":
             raise _queued(f"query_mode={query_mode!r}", "3")
         if shards is not None:
             raise _queued("the sharded index (shards=S)", "10")
-        if bucket_cap is not None:
-            raise _queued("an explicit bucket_cap", "2")
         self.probes = int(probes)
         self.query_mode = query_mode
-        self.index = DeviceLSHIndex(family, metric=metric)
+        self.index = DeviceLSHIndex(family, metric=metric,
+                                    bucket_cap=bucket_cap,
+                                    max_deltas=max_deltas)
         self.stats = ServiceStats()
 
     @property
@@ -99,6 +123,7 @@ class LSHService:
         self.stats.build_s = time.perf_counter() - t0
         self.stats.hash_s = self.index.hash_s
         self.stats.sort_s = self.index.sort_s
+        self.stats.reset_mutations()
         return self
 
     # -- queries ------------------------------------------------------------
@@ -128,11 +153,10 @@ class LSHService:
         if seed is not None:
             raise ValueError("seed applies to the sampling modes only; "
                              "mode='topk' is deterministic")
-        if probes > 1:
-            raise _queued("multi-probe (probes > 1)", "1")
         n = queries.leaves[0].shape[0]
         t0 = time.perf_counter()
-        ids, scores, n_cand = self.index.query_batch(queries, topk=int(topk))
+        ids, scores, n_cand = self.index.query_batch(queries, topk=int(topk),
+                                                     probes=probes)
         # one device-to-host copy of the three results, split on the host
         host = torch.cat([ids, scores.view(torch.int32), n_cand[:, None]],
                          dim=1).cpu().numpy()
@@ -162,22 +186,63 @@ class LSHService:
                         "candidates": int(nc)})
         return out
 
-    # -- mutations (queued) ---------------------------------------------------
+    # -- mutations ----------------------------------------------------------
 
-    def insert(self, batch, batch_size: int = 2048):
-        raise _queued("insert (delta segments)", "2")
+    def _sync_mutation_stats(self) -> None:
+        """Mirror the index's counters, splitting max_deltas-triggered
+        folds from explicit publications."""
+        index = self.index
+        self.stats.auto_compactions = index.auto_compactions
+        self.stats.auto_compact_ms = index.auto_compact_s * 1e3
+        self.stats.compactions = index.compactions - index.auto_compactions
 
-    def delete(self, ids):
-        raise _queued("delete (tombstones)", "2")
+    def insert(self, batch, batch_size: int = 2048) -> "LSHService":
+        """Append a batch of items (one delta segment, served immediately).
+        A max_deltas auto-compaction triggered here is timed into
+        ``auto_compact_ms``, never ``insert_ms``."""
+        index = self.index
+        n = batch.leaves[0].shape[0]
+        auto_s0 = index.auto_compact_s
+        t0 = time.perf_counter()
+        index.insert(batch.to(self.device), batch_size=batch_size)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        dt_ms = (time.perf_counter() - t0) * 1e3
+        self.stats.insert_ms += dt_ms - (index.auto_compact_s - auto_s0) * 1e3
+        self.stats.inserted += n
+        self.stats.insert_batches += 1
+        self._sync_mutation_stats()
+        return self
+
+    def delete(self, ids) -> int:
+        """Tombstone items by their current effective ids; returns count."""
+        n = self.index.delete(ids)
+        self.stats.deleted += n
+        self.stats.delete_batches += 1
+        return n
 
     def prepare_compact(self):
-        raise _queued("prepare_compact", "2")
+        """Build the compacted replacement store off the query path and
+        return the pending swap (None when there is nothing to fold); the
+        build wall time lands in ``compact_ms``."""
+        t0 = time.perf_counter()
+        pending = self.index.prepare_compact()
+        self.stats.compact_ms += (time.perf_counter() - t0) * 1e3
+        return pending
 
-    def apply_swap(self, pending):
-        raise _queued("apply_swap", "2")
+    def apply_swap(self, pending) -> "LSHService":
+        """Publish a prepared store: one attribute write, no device work.
+        Raises RuntimeError if the index mutated since the prepare."""
+        self.index.apply_swap(pending)
+        self._sync_mutation_stats()
+        return self
 
-    def compact(self):
-        raise _queued("compact", "2")
+    def compact(self) -> "LSHService":
+        """Fold deltas + tombstones back into the base (prepare + flip)."""
+        return self.apply_swap(self.prepare_compact())
+
+    def prepare_rebalance(self):
+        raise _queued("prepare_rebalance (the sharded index)", "10")
 
     def rebalance(self):
         raise _queued("rebalance (the sharded index)", "10")
@@ -188,7 +253,8 @@ def build_service(key: torch.Generator, kind: str, dims: Sequence[int],
                   num_codes: int = 8, num_tables: int = 8, rank: int = 4,
                   bucket_width: float = 4.0, device="cuda",
                   bucket_cap: int | None = None, shards: int | None = None,
-                  probes: int = 1, query_mode: str = "topk",
+                  max_deltas: int = 8, probes: int = 1,
+                  query_mode: str = "topk",
                   family: LSHFamily | None = None) -> LSHService:
     """Sample a CP or TT family (``kind``) from ``key`` (a
     ``torch.Generator``), build the index over ``corpus`` (a batched
@@ -202,6 +268,8 @@ def build_service(key: torch.Generator, kind: str, dims: Sequence[int],
     moved to ``device``. The reference's ``hash_backend`` / ``probe_backend``
     knobs do not exist here: the tensors' device picks kernel or plain path.
     """
+    if device is False:
+        raise _queued("the host-dict index (device=False)", "7")
     dev = resolve_device(device)
     metric = metric or ("cosine" if kind.endswith("srp") else "euclidean")
     if family is None:
@@ -217,5 +285,5 @@ def build_service(key: torch.Generator, kind: str, dims: Sequence[int],
     elif family.device != dev:
         raise ValueError(f"family on {family.device}, device={dev}")
     return LSHService(family, metric=metric, bucket_cap=bucket_cap,
-                      shards=shards, probes=probes,
+                      shards=shards, max_deltas=max_deltas, probes=probes,
                       query_mode=query_mode).build(corpus.to(dev))

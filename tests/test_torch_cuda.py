@@ -11,7 +11,10 @@ K3 (``cp_gram``) and K4 (``tt_inner``): raw values within
 words equal except where a value lies within that bound of a bucket edge
 (E2LSH) or of 0 (SRP). K1 (``fused_query``, CP and TT re-rank): on the same
 raw values and segment arrays, candidate counts equal bit for bit, scores
-within ``parity.rerank_bound``, ids equal except at near ties.
+within ``parity.rerank_bound``, ids equal except at near ties; so also on
+its multi-probe (T = 8, dense window), live-window (``bucket_cap``, after
+deletes) and multi-segment (a base and eight deltas) branches, and a
+segment whose window exceeds one block raises ``ValueError``.
 """
 
 import pytest
@@ -99,9 +102,10 @@ def test_fused_query_matches_plain(gen, kind, metric, n, k, l, w):
     values = fam.raw_stacked(qs[1], q.scale)
     offs, mults = fam.offsets, idx._mults_t
     kw = dict(kind=kind, w=fam.bucket_width, num_tables=l, num_codes=k,
-              metric=metric, topk=10, cap=idx.cap)
-    ids, sc, nc = fused_query(values, offs, mults, qs, seg, **kw)
-    ids_p, sc_p, nc_p = fused_query_plain(values, offs, mults, qs, seg, **kw)
+              metric=metric, topk=10, caps=(idx.cap,))
+    ids, sc, nc = fused_query(values, offs, mults, qs, (seg,), **kw)
+    ids_p, sc_p, nc_p = fused_query_plain(values, offs, mults, qs, (seg,),
+                                          **kw)
     torch.cuda.synchronize()
     assert torch.equal(nc, nc_p)
     tol = parity.rerank_bound(metric, q, seg.corpus, ids_p, sc_p)
@@ -171,9 +175,10 @@ def test_fused_query_tt_matches_plain(gen, kind, metric, n, k, l, w, rhat):
     values = fam.raw_stacked(qs[1], q.scale)
     offs, mults = fam.offsets, idx._mults_t
     kw = dict(kind=kind, w=fam.bucket_width, num_tables=l, num_codes=k,
-              metric=metric, topk=10, cap=idx.cap)
-    ids, sc, nc = fused_query(values, offs, mults, qs, seg, **kw)
-    ids_p, sc_p, nc_p = fused_query_plain(values, offs, mults, qs, seg, **kw)
+              metric=metric, topk=10, caps=(idx.cap,))
+    ids, sc, nc = fused_query(values, offs, mults, qs, (seg,), **kw)
+    ids_p, sc_p, nc_p = fused_query_plain(values, offs, mults, qs, (seg,),
+                                          **kw)
     torch.cuda.synchronize()
     assert torch.equal(nc, nc_p)
     assert int(nc.sum()) > 300
@@ -183,3 +188,115 @@ def test_fused_query_tt_matches_plain(gen, kind, metric, n, k, l, w, rhat):
     assert parity.topk_mismatches(ids, sc, ids_p, sc_p, tol) == 0
     self_ids, _, _ = svc.index.query_batch(corpus.index(qid[:64]), topk=1)
     assert torch.equal(self_ids[:, 0].long(), qid[:64])
+
+
+def _k1_vs_plain(svc, q, probes):
+    """K1 against its plain version over every segment of the service's
+    store, on the same raw values -> the kernel's candidate counts."""
+    idx = svc.index
+    fam, view = idx.family, idx.store.view
+    qs = q.stack()
+    values = fam.raw_stacked(qs[1], q.scale)
+    kw = dict(kind=fam.kind, w=fam.bucket_width, num_tables=fam.num_tables,
+              num_codes=fam.num_codes, metric=idx.metric, topk=10,
+              caps=view.all_caps, probes=probes)
+    ids, sc, nc = fused_query(values, fam.offsets, idx._mults_t, qs,
+                              view.all_arrays, table=view.k1_table, **kw)
+    ids_p, sc_p, nc_p = fused_query_plain(values, fam.offsets, idx._mults_t,
+                                          qs, view.all_arrays, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(nc, nc_p)
+    tol = parity.rerank_bound(idx.metric, q, idx.effective_corpus(), ids_p,
+                              sc_p)
+    same = (ids == ids_p) & (ids_p >= 0)
+    assert bool(((sc - sc_p).abs()[same] <= tol[same]).all())
+    assert parity.topk_mismatches(ids, sc, ids_p, sc_p, tol) == 0
+    assert bool((ids < idx.size).all())
+    return nc
+
+
+def _planted(gen, corpus, n, b):
+    qid = torch.randint(0, n, (b,), generator=gen, device="cuda")
+    q = corpus.index(qid)
+    return type(q)(tuple(f + 0.05 * torch.randn(f.shape, generator=gen,
+                                                device="cuda")
+                         for f in q.leaves), 1.0)
+
+
+@pytest.mark.parametrize("kind,metric,probes", [
+    ("cp-e2lsh", "euclidean", 8), ("cp-srp", "cosine", 8),
+    ("cp-e2lsh", "cosine", 3)])
+def test_fused_query_multiprobe_matches_plain(gen, kind, metric, probes):
+    from repro_torch.serving.lsh_service import build_service
+    dims, n = (6, 6, 6), 20000
+    corpus = cp_random_data(gen, dims, 3, batch=n)
+    svc = build_service(gen, kind, dims, corpus, metric=metric, num_codes=8,
+                        num_tables=2, rank=2, bucket_width=2.0,
+                        probes=probes)
+    q = _planted(gen, corpus, n, 300)
+    nc = _k1_vs_plain(svc, q, probes)
+    nc1 = _k1_vs_plain(svc, q, 1)
+    assert bool((nc >= nc1).all()) and int(nc.sum()) > int(nc1.sum())
+    assert fused_query.branches["multiprobe"] > 0
+
+
+@pytest.mark.parametrize("layout", ["cp", "tt"])
+def test_fused_query_live_window_matches_plain(gen, layout):
+    from repro_torch.serving.lsh_service import build_service
+    n = 20000
+    if layout == "cp":
+        dims, kind, w = (6, 6, 6), "cp-e2lsh", 2.0
+        corpus = cp_random_data(gen, dims, 3, batch=n)
+    else:
+        dims, kind, w = (8, 8, 8), "tt-e2lsh", 8.0
+        corpus = tt_random_data(gen, dims, 3, batch=n)
+    svc = build_service(gen, kind, dims, corpus, num_codes=6, num_tables=4,
+                        rank=2, bucket_width=w, bucket_cap=16)
+    assert svc.index.store.view.wins[0] is not None
+    svc.delete(torch.randperm(n, generator=gen, device="cuda")[:n // 3])
+    q = _planted(gen, corpus, n, 300)
+    for probes in (1, 4):
+        nc = _k1_vs_plain(svc, q, probes)
+        assert int(nc.sum()) > 0
+    assert fused_query.branches["live_window"] > 0
+
+
+@pytest.mark.parametrize("layout", ["cp", "tt"])
+def test_fused_query_nine_segments_match_plain(gen, layout):
+    """A base and eight deltas (max_deltas = 8: none compacts), deletes in
+    the base and in the deltas, T = 4, live windows."""
+    from repro_torch.serving.lsh_service import build_service
+    n = 16384
+    data = cp_random_data if layout == "cp" else tt_random_data
+    dims = (6, 6, 6) if layout == "cp" else (8, 8, 8)
+    kind = f"{layout}-e2lsh"
+    w = 2.0 if layout == "cp" else 8.0
+    corpus = data(gen, dims, 3, batch=n)
+    svc = build_service(gen, kind, dims, corpus, num_codes=8, num_tables=4,
+                        rank=2, bucket_width=w, bucket_cap=32, max_deltas=8,
+                        probes=4)
+    inserted = [data(gen, dims, 3, batch=512) for _ in range(8)]
+    for batch in inserted:
+        svc.insert(batch)
+    assert len(svc.index.store.deltas) == 8
+    svc.delete(torch.arange(0, n + 8 * 512, 7, device="cuda"))
+    q = _planted(gen, inserted[3], 512, 128)
+    nc = _k1_vs_plain(svc, q, 4)
+    assert int(nc.sum()) > 0 and fused_query.branches["segments"] > 0
+    ids, _, _ = svc.query_arrays(q, topk=1)
+    assert (ids[:, 0] >= 0).mean() > 0.5
+
+
+def test_fused_query_window_limit_raises(gen):
+    """One segment's L*T*cap beyond one block's window: a ValueError that
+    names the limit, before anything launches."""
+    from repro_torch.serving.lsh_service import build_service
+    dims, n = (6, 6, 6), 4096
+    corpus = cp_random_data(gen, dims, 3, batch=n)
+    svc = build_service(gen, "cp-srp", dims, corpus, num_codes=2,
+                        num_tables=8, rank=2, bucket_cap=2048)
+    q = _planted(gen, corpus, n, 16)
+    launches = fused_query.launches
+    with pytest.raises(ValueError, match="at most 16384 slots"):
+        svc.query_arrays(q, probes=2)
+    assert fused_query.launches == launches

@@ -50,7 +50,7 @@ def case(request):
     seg = convert.segment_from_numpy(
         corpus, np.asarray(arrays[1]), np.asarray(arrays[2]),
         np.asarray(view.base.keys), view.all_caps[0], "cpu")
-    tview = tseg.StoreView.base_only(seg)
+    tview = tseg.SegmentStore(seg).view
     return dict(kind=kind, metric=metric, fam=fam, idx=idx, view=view,
                 corpus=corpus, queries=queries, tview=tview,
                 tfam=tb.bridge_family(fam))
@@ -84,15 +84,17 @@ def _ref_keys(case):
 
 def test_query_keys_match_reference(case):
     """The port's T = 1 query keys equal the reference's except in tables
-    holding a boundary code; T > 1 is queued."""
+    holding a boundary code; with T > 1, slot 0 of the (L, T, B) keys is the
+    T = 1 key."""
     ref = _ref_keys(case).astype(np.int64)                 # (L, B)
     tq = tb.torch_cp(case["queries"])
     got = tseg.query_keys(case["tfam"], case["idx"]._mults, tq).numpy()
     near = tb.near_tables(case["tfam"], case["queries"]).T
     assert ((got == ref) | near).all()
     assert (got == ref).mean() > 0.5
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tseg.query_keys(case["tfam"], case["idx"]._mults, tq, probes=2)
+    wide = tseg.query_keys(case["tfam"], case["idx"]._mults, tq, probes=2)
+    assert wide.shape == (got.shape[0], 2, got.shape[1])
+    np.testing.assert_array_equal(wide[:, 0].numpy(), got)
 
 
 def test_probe_windows_and_dedup_bitwise(case):
@@ -171,10 +173,10 @@ def test_fused_query_plain_vs_reference_kernel(case):
     seg = case["tview"].seg_arrays(0)
     ids, sc, nc = fused_query_plain(
         values, offsets, torch.from_numpy(mults.astype(np.int64)),
-        (tq, tq_stacked), seg,
+        (tq, tq_stacked), (seg,),
         kind=case["kind"], w=tfam.bucket_width, num_tables=tfam.num_tables,
         num_codes=tfam.num_codes, metric=case["metric"], topk=TOPK,
-        cap=view.all_caps[0])
+        caps=view.all_caps)
     np.testing.assert_array_equal(nc.numpy(), ref_nc)
     tol = parity.rerank_bound(case["metric"], tq, seg.corpus,
                               torch.from_numpy(ref_ids),

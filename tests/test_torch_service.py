@@ -12,7 +12,7 @@ mode), with the reference's sampled family carried over.
 * recall@k against brute force within 0.05 of the reference's (one id of
   the 20 per query set may move across a near tie or a boundary code).
 * The service's request contract: validation errors as in the reference,
-  and ``NotImplementedError`` for what this slice does not serve.
+  and ``NotImplementedError`` for what the port does not serve yet.
 """
 
 import jax  # noqa: F401  (both frameworks in one process, JAX on the CPU)
@@ -132,10 +132,11 @@ def test_request_validation_and_queued_features(services):
         svc.query_arrays(q, seed=3)                  # seed on topk
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         svc.query_arrays(q, mode="weighted", seed=1)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        svc.query_arrays(q, probes=2)
-    for call in (lambda: svc.insert(q), lambda: svc.delete([0]),
-                 svc.compact, svc.rebalance):
+    ids, _, _ = svc.query_arrays(q, probes=2)        # multi-probe: served
+    assert ids.shape == (B, 10)
+    for call in (svc.rebalance, svc.prepare_rebalance,
+                 lambda: build_service(None, services["kind"], tb.DIMS, q,
+                                       device=False)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             call()
 

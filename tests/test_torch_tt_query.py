@@ -56,7 +56,7 @@ def case(request):
         np.asarray(view.base.keys), view.all_caps[0], "cpu")
     return dict(kind=kind, metric=metric, fam=fam, idx=idx, view=view,
                 corpus=corpus, queries=queries,
-                tview=tseg.StoreView.base_only(seg),
+                tview=tseg.SegmentStore(seg).view,
                 tfam=tb.bridge_family(fam))
 
 
@@ -143,9 +143,9 @@ def test_fused_query_plain_tt_vs_reference_kernel(case):
     seg = case["tview"].seg_arrays(0)
     ids, sc, nc = fused_query_plain(
         values, offsets, torch.from_numpy(mults.astype(np.int64)),
-        (tq, tq_stacked), seg, kind=case["kind"], w=tfam.bucket_width,
+        (tq, tq_stacked), (seg,), kind=case["kind"], w=tfam.bucket_width,
         num_tables=tfam.num_tables, num_codes=tfam.num_codes,
-        metric=case["metric"], topk=TOPK, cap=view.all_caps[0])
+        metric=case["metric"], topk=TOPK, caps=view.all_caps)
     np.testing.assert_array_equal(nc.numpy(), ref_nc)
     tol = parity.rerank_bound(case["metric"], tq, seg.corpus,
                               torch.from_numpy(ref_ids),

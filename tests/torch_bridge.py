@@ -127,3 +127,21 @@ def near_codes(tfam, leaves):
 def near_tables(tfam, leaves):
     """(n, L) bool: the tables holding a ``near_codes`` code."""
     return near_codes(tfam, leaves).any(-1)
+
+
+def leaves_of(x):
+    """A reference CP or TT tensor's factors or cores as numpy arrays."""
+    return [np.asarray(a) for a in
+            (x.factors if hasattr(x, "factors") else x.cores)]
+
+
+def carry_store(store, device="cpu"):
+    """A reference ``SegmentStore`` -> the port's, through
+    ``convert.store_from_numpy`` (each segment's arrays as numpy, plus the
+    reference's ``host_state()``)."""
+    segs = [dict(corpus_factors=leaves_of(seg.corpus),
+                 sorted_keys=np.asarray(seg.sorted_keys),
+                 perm=np.asarray(seg.perm), keys=np.asarray(seg.keys),
+                 cap=seg.cap, corpus_scale=seg.corpus.scale)
+            for seg in [store.base] + list(store.deltas)]
+    return convert.store_from_numpy(segs, store.host_state(), device)
