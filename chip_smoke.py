@@ -43,11 +43,26 @@ Phases (any failure exits non-zero):
          against a fresh build bit for bit; an insert past max_deltas
          that auto-compacts;
      and on the TT cell's format at 2^16 ([tt-mut]): T = 4, bucket_cap, two
-     deltas and a delete, K1-TT against its plain version.
+     deltas and a delete, K1-TT against its plain version;
+  5. the sharded path on the same card (K1s, ``fused_query_sharded``: K1's
+     kernel over every (shard, segment) pair):
+       - [shard]: [main]'s corpus, family and queries over 4 shards (exact
+         cap, T = 1), timed like [main]; every batch's ids, scores and
+         candidate counts must equal [main]'s bit for bit; K1s against its
+         plain version, its time and a profile;
+       - [shard-mut]: [mut]'s script over 4 shards (routed slabs, 36
+         (shard, segment) pairs), occupancy within one item of even after
+         the routed inserts, no deleted item returned, recall@1, shard-local
+         ``compact()``, then ``rebalance()`` equal to a fresh sharded build
+         bit for bit; an exact-cap mutated sharded index answers as a fresh
+         single-device one (ids and candidate counts);
+       - [tt-shard]: a tt-srp / cosine index at 2^16 over 3 shards (the last
+         padded): answers equal the single-device index's, K1s-TT against
+         its plain version.
 
 Every path's kernel counters are zeroed just before it runs and read just
-after: each kernel and each K1 branch it needs must have launched, and no
-plain version may have run. The last two lines are one JSON object of
+after: each kernel and each K1 / K1s branch it needs must have launched,
+and no plain version may have run. The last two lines are one JSON object of
 kernel records and the device record. Needs a CUDA card; imports nothing of JAX or of the ``repro``
 package.
 """
@@ -326,39 +341,44 @@ def make_queries(corpus, qid, gen):
                          for f in q.leaves), 1.0)
 
 
-COUNTED = ("cp_gram", "tt_inner", "fused_query")
+COUNTED = ("cp_gram", "tt_inner", "fused_query", "fused_query_sharded")
 
 
 def counters():
     """{name: the wrapper or plain function whose count it is}."""
+    from repro_torch.kernels import fused_query as fq
     from repro_torch.kernels.cp_gram import cp_gram, cp_gram_plain
-    from repro_torch.kernels.fused_query import fused_query, fused_query_plain
     from repro_torch.kernels.tt_inner import tt_inner, tt_inner_plain
     return {"cp_gram": cp_gram, "cp_gram_plain": cp_gram_plain,
             "tt_inner": tt_inner, "tt_inner_plain": tt_inner_plain,
-            "fused_query": fused_query,
-            "fused_query_plain": fused_query_plain}
+            "fused_query": fq.fused_query,
+            "fused_query_plain": fq.fused_query_plain,
+            "fused_query_sharded": fq.fused_query_sharded,
+            "fused_query_sharded_plain": fq.fused_query_sharded_plain}
 
 
 BRANCHES = ("multiprobe", "live_window", "segments")
+K1_WRAPPERS = ("fused_query", "fused_query_sharded")
 
 
 def read_counts() -> dict:
-    """Launches and plain calls, and K1's launches by branch
-    (``fused_query:multiprobe``, ``:live_window``, ``:segments``)."""
-    from repro_torch.kernels.fused_query import fused_query
+    """Launches and plain calls, and K1's and K1s's launches by branch
+    (``fused_query:multiprobe``, ``fused_query_sharded:live_window``,
+    ...)."""
+    fns = counters()
     counts = {name: getattr(fn, "launches" if name in COUNTED else "calls")
-              for name, fn in counters().items()}
-    counts.update({f"fused_query:{b}": fused_query.branches[b]
-                   for b in BRANCHES})
+              for name, fn in fns.items()}
+    counts.update({f"{k}:{b}": fns[k].branches[b]
+                   for k in K1_WRAPPERS for b in BRANCHES})
     return counts
 
 
 def zero_counts() -> None:
-    from repro_torch.kernels.fused_query import fused_query
-    for name, fn in counters().items():
+    fns = counters()
+    for name, fn in fns.items():
         setattr(fn, "launches" if name in COUNTED else "calls", 0)
-    fused_query.branches.clear()
+    for k in K1_WRAPPERS:
+        fns[k].branches.clear()
 
 
 def check_counts(counts, tag, need) -> None:
@@ -485,7 +505,7 @@ def phase_main(cell, corpus, qids, queries):
         fail("a self-query did not return itself first")
     if recall1 < RECALL1_MIN:
         fail(f"recall@1 {recall1} below {RECALL1_MIN}")
-    return svc, counts, summary
+    return svc, counts, summary, results
 
 
 def exact_scores(metric, queries, corpus, ids):
@@ -504,17 +524,33 @@ def exact_scores(metric, queries, corpus, ids):
     return torch.where(valid, s, 0.0)
 
 
+def k1_entry(view):
+    """K1 over a store view's segments, or K1s over its (shard, segment)
+    pairs for a sharded store, and its plain version: two functions of
+    (values, offsets, mults, stacked queries, **kw), and the name."""
+    from repro_torch.kernels import fused_query as fq
+    if view.sharded:
+        segs = (view.seg_arrays(0), view.delta_arrays)
+        kw = dict(cap=view.base.cap, delta_caps=view.delta_caps)
+        kernel, plain, name = (fq.fused_query_sharded,
+                               fq.fused_query_sharded_plain, "K1s")
+    else:
+        segs, kw = (view.all_arrays,), dict(caps=view.all_caps)
+        kernel, plain, name = fq.fused_query, fq.fused_query_plain, "K1"
+    return (lambda *a, **k: kernel(*a, *segs, table=view.k1_table, **kw, **k),
+            lambda *a, **k: plain(*a, *segs, **kw, **k), name)
+
+
 def k1_compare(svc, queries, label, probes=1, corpus=None):
-    """K1 vs plain on the same raw values and the arrays of every segment
-    of the service's store, and both against float64 scores (``corpus``:
-    the effective corpus, when the caller has it already)."""
+    """K1 (K1s on a sharded store) vs plain on the same raw values and the
+    arrays of every segment of the service's store, and both against
+    float64 scores (``corpus``: the effective corpus, when the caller has
+    it already)."""
     import torch
     from repro_torch.kernels import parity
-    from repro_torch.kernels.fused_query import fused_query, fused_query_plain
     idx = svc.index
     fam = idx.family
     view = idx.store.view
-    segs = view.all_arrays
     if corpus is None:
         corpus = idx.effective_corpus()
     qs = queries.stack()
@@ -522,12 +558,12 @@ def k1_compare(svc, queries, label, probes=1, corpus=None):
     offs, mults = fam.offsets, idx._mults_t
     kw = dict(kind=fam.kind, w=fam.bucket_width, num_tables=fam.num_tables,
               num_codes=fam.num_codes, metric=idx.metric, topk=TOPK,
-              caps=view.all_caps, probes=probes)
-    ik, sk, nk = fused_query(values, offs, mults, qs, segs,
-                             table=view.k1_table, **kw)
-    ip, sp, np_ = fused_query_plain(values, offs, mults, qs, segs, **kw)
+              probes=probes)
+    kernel, plain, name = k1_entry(view)
+    ik, sk, nk = kernel(values, offs, mults, qs, **kw)
+    ip, sp, np_ = plain(values, offs, mults, qs, **kw)
     torch.cuda.synchronize()
-    name = "K1-TT" if corpus.layout == "tt" else "K1"
+    name += "-TT" if corpus.layout == "tt" else ""
     if not torch.equal(nk, np_):
         fail(f"{name} {label}: candidate counts differ in "
              f"{int((nk != np_).sum())} rows")
@@ -547,8 +583,8 @@ def k1_compare(svc, queries, label, probes=1, corpus=None):
     accuracy = acc.check(f"{name} {label} scores")
     n_tie = int((ik != ip).sum())
     print(f"[{name}] {label}: n_cand equal ({int(nk.sum())} candidates over "
-          f"{len(segs)} segment(s), T={probes}), scores within the rounding "
-          f"bound (its median {float(tol[valid].median()):.3g}, max "
+          f"{len(view.k1_segments[0])} segment(s), T={probes}), scores within "
+          f"the rounding bound (its median {float(tol[valid].median()):.3g}, max "
           f"{float(tol.max()):.3g}, against a median |score| of "
           f"{float(sp[valid].abs().median()):.3g}; max |kernel - plain| "
           f"{float(err.max()):.3g}; {accuracy}), ids equal except {n_tie} "
@@ -616,10 +652,11 @@ def inner_flops(x, y) -> int:
 
 
 def k1_work(k1_args, q_row, c_row, cand_flops, query_flops):
-    """(bytes, operations, window slots, candidates) that K1 must move and
-    do for this batch's data: the inputs and outputs once; with T > 1 the
-    expansion's pair table once and, per (query, table), its singles, pair
-    sums and T - 1 argmin rounds over the C candidates; per segment and per
+    """(bytes, operations, window slots, candidates) that K1 (K1s) must move
+    and do for this batch's data: the inputs and outputs once; with T > 1
+    the expansion's pair table once and, per (query, table), its singles,
+    pair sums and T - 1 argmin rounds over the C candidates; per segment
+    (per (shard, segment) pair, K1s's table rows) and per
     (query, table, probe) the steps of its binary searches over uint32
     keys (side='left' over the m keys, then over the cap keys after the
     start for a dense window or over the table for a live one), the two
@@ -645,7 +682,7 @@ def k1_work(k1_args, q_row, c_row, cand_flops, query_flops):
         flops += b * l * ((3 * k if e2 else 0) + (c - singles)
                           + (t - 1) * c)
     slots = n_cand = 0
-    for seg, cap in zip(view.all_arrays, kw["caps"]):
+    for seg, cap in zip(*view.k1_segments):
         m = seg.sorted_keys.shape[1]
         ids, hit = epi.probe_windows(seg.sorted_keys, seg.perm, keys, cap,
                                      seg.live, seg.win)
@@ -667,7 +704,6 @@ def phase_times(svc, cell, queries, k1_args):
     """The hash kernel per 65,536-item e2lsh-keys launch and K1 per query
     batch, on the card (CUDA events), beside their bounds and plain
     versions."""
-    from repro_torch.kernels.fused_query import fused_query, fused_query_plain
     idx = svc.index
     fam, corpus = idx.family, idx.effective_corpus()
     f = hash_fns(corpus.layout)
@@ -705,22 +741,20 @@ def phase_times(svc, cell, queries, k1_args):
 
 
 def k1_times(svc, queries, k1_args, name, corpus=None):
-    """K1 per query batch on the card (CUDA events, cycling the batches)
-    beside its bound and its plain version's time on one batch."""
-    from repro_torch.kernels.fused_query import fused_query, fused_query_plain
+    """K1 (K1s) per query batch on the card (CUDA events, cycling the
+    batches) beside its bound and its plain version's time on one batch."""
     idx = svc.index
     fam = idx.family
     if corpus is None:
         corpus = idx.effective_corpus()
     values, offs, mults, qs, view, kw = k1_args
-    segs, table = view.all_arrays, view.k1_table
+    kernel, plain, _ = k1_entry(view)
+    segs = view.k1_segments[0]
     qss = [q.stack() for q in queries]
     vals = [fam.raw_stacked(q[1], q[0].scale) for q in qss]
-    k1_ms = cuda_ms([lambda v=v, q=q: fused_query(v, offs, mults, q, segs,
-                                                   table=table, **kw)
+    k1_ms = cuda_ms([lambda v=v, q=q: kernel(v, offs, mults, q, **kw)
                      for v, q in zip(vals, qss)], 3 * len(queries))
-    k1_plain = cuda_ms([lambda: fused_query_plain(values, offs, mults, qs,
-                                                  segs, **kw)], 2)
+    k1_plain = cuda_ms([lambda: plain(values, offs, mults, qs, **kw)], 2)
     q0 = qs[0]
     k1_bytes, k1_flops, slots, n_cand = k1_work(
         k1_args, q0.row_floats * 4, corpus.row_floats * 4,
@@ -857,6 +891,84 @@ def mut_queries(corpus, inserted, qids, gen):
     return queries, targets
 
 
+def mut_script(tag, svc, batches, n, rng, after_deletes=None,
+               after_inserts=None):
+    """[mut]'s mutations on a 2^20-item service: 16,384 base deletes, the
+    insert batches (one delta or slab each), then 1,024 deletes across the
+    base and the deltas (a quarter of them on inserted items) -> (the live
+    items' sequence ids in effective-id order, the deleted ones, a timing
+    note). ``after_deletes`` / ``after_inserts`` run the caller's gates
+    between the steps."""
+    import numpy as np
+    import torch
+    live_seq = np.arange(n)         # the script's own map: eff id -> seq id
+    n_ins = sum(b.leaves[0].shape[0] for b in batches)
+    # deletes on the base (the live-window tables rebuilt once)
+    n_del = min(MUT["deletes"], n // 16)
+    del1 = np.sort(rng.choice(n, n_del, replace=False))
+    t0 = time.perf_counter()
+    svc.delete(del1)
+    torch.cuda.synchronize()
+    del1_ms = (time.perf_counter() - t0) * 1e3
+    deleted = [live_seq[del1]]
+    live_seq = np.delete(live_seq, del1)
+    if after_deletes is not None:
+        after_deletes()
+    ins_ms, parts = [], []
+    for batch in batches:
+        t0 = time.perf_counter()
+        svc.insert(batch)
+        ins_ms.append((time.perf_counter() - t0) * 1e3)
+        parts.append(svc.index.insert_s)
+    live_seq = np.concatenate([live_seq, n + np.arange(n_ins)])
+    if len(svc.index.store.deltas) != len(batches):
+        fail(f"{tag}: {len(svc.index.store.deltas)} deltas after "
+             f"{len(batches)} inserts")
+    if after_inserts is not None:
+        after_inserts()
+    # deletes spanning the base and the deltas, planted targets included
+    n_live = len(live_seq)
+    later = MUT["deletes_later"]
+    del2 = np.sort(np.concatenate([
+        rng.choice(n_live - n_ins, later - later // 4, replace=False),
+        n_live - n_ins + rng.choice(n_ins, later // 4, replace=False)]))
+    t0 = time.perf_counter()
+    svc.delete(del2)
+    torch.cuda.synchronize()
+    del2_ms = (time.perf_counter() - t0) * 1e3
+    deleted.append(live_seq[del2])
+    live_seq = np.delete(live_seq, del2)
+    parts = np.mean(np.asarray(parts), axis=0) * 1e3
+    note = (f"delete {n_del} base ids {del1_ms:.3f} ms; {len(batches)} "
+            f"inserts of {batches[0].leaves[0].shape[0]}: "
+            f"{np.mean(ins_ms):.3f} ms per batch mean (hash {parts[0]:.3f}, "
+            f"sort {parts[1]:.3f}, lookups {parts[2]:.3f} ms); delete "
+            f"{later} ids over base and deltas {del2_ms:.3f} ms")
+    return live_seq, np.concatenate(deleted), note
+
+
+def check_mut_results(tag, svc, results, targets, live_seq, deleted, n,
+                      check_store=True):
+    """No deleted item among the returned ids, and (``check_store``, before
+    a compaction renumbers the sequence) the script's bookkeeping of
+    effective ids agrees with the store's -> (recall@1 hits, rows whose
+    target survives, the targets' effective ids per batch)."""
+    import numpy as np
+    store = svc.index.store
+    if check_store and not np.array_equal(np.flatnonzero(store._live_seq),
+                                          live_seq):
+        fail(f"{tag}: the store's effective ids disagree with the script's "
+             "own bookkeeping")
+    eff_of_seq = np.full(n, -1)
+    eff_of_seq[live_seq] = np.arange(len(live_seq))
+    tgts = [eff_of_seq[t] for t in targets]
+    hits1, rows = check_results(results, tgts, len(live_seq))
+    for ids, _, _ in results:
+        if np.isin(live_seq[ids[ids >= 0]], deleted).any():
+            fail(f"{tag}: a deleted item was returned")
+    return hits1, rows, tgts
+
+
 def phase_mut(cell, corpus, qids, args):
     """[mut]: the capped, mutable, multi-probe path at full width (K1's
     live-window branch over a base and eight deltas), counters zeroed just
@@ -886,80 +998,37 @@ def phase_mut(cell, corpus, qids, args):
                         cell["kind"], cell["dims"], corpus,
                         max_deltas=MUT["max_deltas"], **kw)
     fam = svc.index.family
-    live_seq = np.arange(n)         # the script's own map: eff id -> seq id
-    # deletes on the base (the ten live-window tables rebuilt once)
-    n_del = min(MUT["deletes"], n // 16)
-    del1 = np.sort(rng.choice(n, n_del, replace=False))
-    t0 = time.perf_counter()
-    svc.delete(del1)
-    torch.cuda.synchronize()
-    del1_ms = (time.perf_counter() - t0) * 1e3
-    deleted = [live_seq[del1]]
-    live_seq = np.delete(live_seq, del1)
-    # after deletes only, the capped index answers as a fresh capped build
-    fresh = build_service(None, cell["kind"], cell["dims"],
-                          svc.index.effective_corpus(), family=fam, **kw)
-    for q in queries[:8]:
-        same_answers(svc.query_arrays(q, topk=TOPK),
-                     fresh.query_arrays(q, topk=TOPK),
-                     "mut: capped index after deletes vs a fresh capped "
-                     "build")
-    del fresh
-    ins_ms, parts = [], []
-    for batch in batches:
-        t0 = time.perf_counter()
-        svc.insert(batch)
-        ins_ms.append((time.perf_counter() - t0) * 1e3)
-        parts.append(svc.index.insert_s)
-    live_seq = np.concatenate([live_seq, n + np.arange(n_ins)])
-    if len(svc.index.store.deltas) != MUT["inserts"]:
-        fail(f"mut: {len(svc.index.store.deltas)} deltas after "
-             f"{MUT['inserts']} inserts")
-    # deletes spanning the base and the deltas, planted targets included
-    n_live = len(live_seq)
-    later = MUT["deletes_later"]
-    del2 = np.sort(np.concatenate([
-        rng.choice(n_live - n_ins, later - later // 4, replace=False),
-        n_live - n_ins + rng.choice(n_ins, later // 4, replace=False)]))
-    t0 = time.perf_counter()
-    svc.delete(del2)
-    torch.cuda.synchronize()
-    del2_ms = (time.perf_counter() - t0) * 1e3
-    deleted.append(live_seq[del2])
-    live_seq = np.delete(live_seq, del2)
-    deleted = np.concatenate(deleted)
+
+    def fresh_after_deletes():
+        # after deletes only, the capped index answers as a fresh capped
+        # build
+        fresh = build_service(None, cell["kind"], cell["dims"],
+                              svc.index.effective_corpus(), family=fam, **kw)
+        for q in queries[:8]:
+            same_answers(svc.query_arrays(q, topk=TOPK),
+                         fresh.query_arrays(q, topk=TOPK),
+                         "mut: capped index after deletes vs a fresh capped "
+                         "build")
+
+    live_seq, deleted, note = mut_script("mut", svc, batches, n, rng,
+                                         after_deletes=fresh_after_deletes)
     results, lat_ms = serve(svc, queries)
     torch.cuda.synchronize()
     counts = read_counts()
     peak = torch.cuda.max_memory_allocated()
     n_segs = len(svc.index.store.view.segments)
-    parts = np.mean(np.asarray(parts), axis=0) * 1e3
     print(f"[mut] build_service, bucket_cap {MUT['cap']}, L={cell['tables']}"
           f" T={MUT['probes']}, max_deltas {MUT['max_deltas']}: build "
-          f"{svc.stats.build_s:.3f} s; delete {n_del} ids {del1_ms:.3f} ms "
-          f"(base only: its {cell['tables']} live-window tables over {n} "
-          f"slots rebuilt); {MUT['inserts']} inserts of "
-          f"{MUT['insert_batch']}: {np.mean(ins_ms):.3f} ms per batch mean "
-          f"(hash {parts[0]:.3f}, sort {parts[1]:.3f}, lookups "
-          f"{parts[2]:.3f} ms); delete {later} ids over base and deltas "
-          f"{del2_ms:.3f} ms; {n_segs} segments, {svc.index.size} live")
+          f"{svc.stats.build_s:.3f} s; {note}; {n_segs} segments, "
+          f"{svc.index.size} live")
     summary = latency_line("mut", svc, lat_ms, f" over {n_segs} segments")
     print(f"[mut] launches on the main path: {counts}")
     check_counts(counts, "mut", ("cp_gram", "fused_query",
                                  "fused_query:multiprobe",
                                  "fused_query:live_window",
                                  "fused_query:segments"))
-    store = svc.index.store
-    if not np.array_equal(np.flatnonzero(store._live_seq), live_seq):
-        fail("mut: the store's effective ids disagree with the script's "
-             "own bookkeeping")
-    eff_of_seq = np.full(n + n_ins, -1)
-    eff_of_seq[live_seq] = np.arange(len(live_seq))
-    tgts = [eff_of_seq[t] for t in targets]
-    hits1, rows = check_results(results, tgts, len(live_seq))
-    for ids, _, _ in results:
-        if np.isin(live_seq[ids[ids >= 0]], deleted).any():
-            fail("mut: a deleted item was returned")
+    hits1, rows, tgts = check_mut_results("mut", svc, results, targets,
+                                          live_seq, deleted, n + n_ins)
     # the returned ids name the script's own items: scores against them
     own = cat_tensors([corpus, inserted]).index(
         torch.from_numpy(live_seq).cuda())
@@ -1075,6 +1144,246 @@ def phase_tt_mut(cell) -> None:
                        f"T={TT_MUT['probes']}", probes=TT_MUT["probes"])
 
 
+# [shard] / [shard-mut]: the CP cell and [mut]'s script over S = 4 shards on
+# the one card; [tt-shard]: the TT cell's tt-srp index at 2^16 over S = 3
+# (2^16 = 3 * 21,846 - 2: the last shard padded)
+SHARD = dict(shards=4, tt_shards=3)
+
+
+def phase_shard(cell, corpus, qids, queries, main_results):
+    """[shard]: [main]'s corpus, family and queries through
+    ``build_service(..., shards=4)`` (exact cap, T = 1), counters zeroed
+    just before and read just after; every batch's ids, scores and
+    candidate counts must equal [main]'s bit for bit (shard-count
+    invariance); then K1s against its plain version, its time and a
+    profile."""
+    import torch
+    from repro_torch.serving.lsh_service import build_service
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    svc = build_service(torch.Generator(device="cuda").manual_seed(1),
+                        cell["kind"], cell["dims"], corpus,
+                        num_codes=cell["codes"], num_tables=cell["tables"],
+                        rank=cell["rank"], bucket_width=cell["width"],
+                        shards=SHARD["shards"], device="cuda")
+    results, lat_ms = serve(svc, queries)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    idx = svc.index
+    n = corpus.leaves[0].shape[0]
+    print(f"[shard] build_service, shards={SHARD['shards']} of "
+          f"{idx.shard_size} items, exact per-shard cap {idx.cap} -> window "
+          f"L*cap = {cell['tables'] * idx.cap}; build {svc.stats.build_s:.3f}"
+          f" s (hash {svc.stats.hash_s:.3f}, sort {svc.stats.sort_s:.3f}); "
+          f"occupancy {svc.stats.shard_occupancy}; peak device memory "
+          f"{peak / 2**30:.2f} GiB")
+    summary = latency_line("shard", svc, lat_ms)
+    print(f"[shard] launches on the main path: {counts}")
+    check_counts(counts, "shard", (cell["hash_kernel"], "fused_query_sharded",
+                                   "fused_query_sharded:segments"))
+    if counts["fused_query"]:
+        fail("shard: the single-device K1 wrapper ran on the sharded path")
+    for i, (got, want) in enumerate(zip(results, main_results)):
+        same_answers(got, want, f"shard: batch {i} against [main]")
+    hits1, n_q = check_results(results, [q.cpu().numpy() for q in qids], n)
+    print(f"[shard] all {len(results)} batches equal [main]'s bit for bit "
+          f"(ids, scores, candidate counts); recall@1 {hits1 / n_q:.4f}")
+    k1_err, k1_args = k1_compare(svc, queries[0],
+                                 f"shard, S={SHARD['shards']}, "
+                                 f"B={len(qids[0])}")
+    k1_t = k1_times(svc, queries, k1_args, f"K1s S={SHARD['shards']}")
+    phase_profile(svc, queries, "shard-profile")
+    del summary
+    return record("fused_query_sharded", *K1S_SOURCE, counts,
+                  "fused_query_sharded", k1_err, k1_t)
+
+
+def phase_shard_mut(cell, corpus, qids, args):
+    """[shard-mut]: [mut]'s script (bucket_cap 64, T = 4, max_deltas 8) over
+    S = 4 shards: routed slabs, K1s's live-window branch over 4 x 9
+    (shard, segment) pairs, shard-local ``compact()`` and ``rebalance()``,
+    with counters zeroed just before and read just after each run; gates:
+    occupancy within one item of even after the routed inserts, no deleted
+    id returned, recall@1, the rebalanced index equal to a fresh sharded
+    build bit for bit, and an exact-cap mutated sharded index equal to a
+    fresh single-device one (ids and candidate counts)."""
+    import numpy as np
+    import torch
+    from repro_torch.serving.lsh_service import build_service
+    n = corpus.leaves[0].shape[0]
+    b = len(qids[0])
+    s = SHARD["shards"]
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    data = hash_fns("cp")["data"]
+    batches = [data(gen, cell["dims"], cell["rhat"],
+                    batch=MUT["insert_batch"]) for _ in range(MUT["inserts"])]
+    inserted = cat_tensors(batches)
+    n_ins = inserted.leaves[0].shape[0]
+    queries, targets = mut_queries(corpus, inserted, qids, gen)
+    base_kw = dict(num_codes=cell["codes"], num_tables=cell["tables"],
+                   rank=cell["rank"], bucket_width=cell["width"],
+                   max_deltas=MUT["max_deltas"], device="cuda")
+    kw = dict(base_kw, bucket_cap=MUT["cap"], probes=MUT["probes"])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    svc = build_service(torch.Generator(device="cuda").manual_seed(1),
+                        cell["kind"], cell["dims"], corpus, shards=s, **kw)
+    fam = svc.index.family
+    occ = {}
+
+    def uneven():
+        occ["deleted"] = svc.stats.shard_occupancy
+
+    def even():
+        o = occ["inserted"] = svc.stats.shard_occupancy
+        if max(o) - min(o) > 1:
+            fail(f"shard-mut: occupancy {o} not within one item of even "
+                 "after the routed inserts")
+
+    live_seq, deleted, note = mut_script(
+        "shard-mut", svc, batches, n, np.random.default_rng(17),
+        after_deletes=uneven, after_inserts=even)
+    results, lat_ms = serve(svc, queries)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    view = svc.index.store.view
+    pairs = len(view.k1_segments[0])
+    slabs = [d.shard_size for d in view.segments[1:]]
+    print(f"[shard-mut] build_service, shards={s}, bucket_cap {MUT['cap']}, "
+          f"L={cell['tables']} T={MUT['probes']}: build "
+          f"{svc.stats.build_s:.3f} s; {note}; slab widths {slabs}; "
+          f"occupancy after the base deletes {occ['deleted']}, after "
+          f"the routed inserts {occ['inserted']}, now "
+          f"{svc.stats.shard_occupancy} (skew "
+          f"{svc.stats.occupancy_skew:.6f}); {pairs} (shard, segment) pairs")
+    summary = latency_line("shard-mut", svc, lat_ms,
+                           f" over {pairs} (shard, segment) pairs")
+    print(f"[shard-mut] launches on the main path: {counts}")
+    check_counts(counts, "shard-mut", (
+        "cp_gram", "fused_query_sharded", "fused_query_sharded:multiprobe",
+        "fused_query_sharded:live_window", "fused_query_sharded:segments"))
+    hits1, rows, tgts = check_mut_results("shard-mut", svc, results, targets,
+                                          live_seq, deleted, n + n_ins)
+    recall1 = hits1 / rows
+    print(f"[shard-mut] recall@1 (planted, surviving targets) {recall1:.4f} "
+          f"over {rows} queries; no deleted item returned; peak device "
+          f"memory {peak / 2**30:.2f} GiB")
+    if recall1 < RECALL1_MIN:
+        fail(f"shard-mut: recall@1 {recall1} below {RECALL1_MIN}")
+    corpus_eff = svc.index.effective_corpus()
+    k1_err, k1_args = k1_compare(svc, queries[0],
+                                 f"shard-mut, {pairs} pairs, cap "
+                                 f"{MUT['cap']}, T={MUT['probes']}, B={b}",
+                                 probes=MUT["probes"], corpus=corpus_eff)
+    k1_t = k1_times(svc, queries, k1_args,
+                    f"K1s live window, {pairs} pairs", corpus_eff)
+    del corpus_eff, k1_args
+
+    # the second run: shard-local compaction, queries, rebalance
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.perf_counter()
+    svc.compact()
+    compact_s = time.perf_counter() - t0
+    counts_after = svc.index.store.base.counts
+    results, lat_ms = serve(svc, queries)
+    latency_line("shard-mut", svc, lat_ms, " after compact()")
+    hits1c, rows_c, _ = check_mut_results("shard-mut (compacted)", svc,
+                                          results, targets, live_seq,
+                                          deleted, n + n_ins,
+                                          check_store=False)
+    t0 = time.perf_counter()
+    svc.rebalance()
+    rebalance_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    counts2 = read_counts()
+    check_counts(counts2, "shard-mut (compaction)", (
+        "fused_query_sharded", "fused_query_sharded:live_window"))
+    fresh = build_service(None, cell["kind"], cell["dims"],
+                          svc.index.effective_corpus(), family=fam, shards=s,
+                          **kw)
+    for q in queries[:8]:
+        same_answers(svc.query_arrays(q, topk=TOPK),
+                     fresh.query_arrays(q, topk=TOPK),
+                     "shard-mut: rebalanced index vs a fresh sharded build")
+    del fresh
+    print(f"[shard-mut] compact() {compact_s:.3f} s (shard-local: per-shard "
+          f"counts {counts_after}), recall@1 {hits1c / rows_c:.4f}; "
+          f"rebalance() {rebalance_s:.3f} s (prepare "
+          f"{svc.stats.rebalance_ms:.3f} ms) -> counts "
+          f"{svc.index.store.base.counts}, {svc.stats.rebalances} rebalance; "
+          f"the rebalanced index equals a fresh sharded build bit for bit; "
+          f"launches: {counts2}")
+    del svc
+
+    # exact cap: a mutated sharded index answers as a fresh single-device
+    # index over its effective corpus
+    ex = build_service(torch.Generator(device="cuda").manual_seed(1),
+                       cell["kind"], cell["dims"], corpus, shards=s,
+                       **base_kw)
+    mut_script("shard-mut (exact cap)", ex, batches, n,
+               np.random.default_rng(17))
+    single = build_service(None, cell["kind"], cell["dims"],
+                           ex.index.effective_corpus(), family=fam,
+                           **base_kw)
+    for q in queries[:8]:
+        got = ex.query_arrays(q, topk=TOPK)
+        want = single.query_arrays(q, topk=TOPK)
+        for x, y, what in ((got[0], want[0], "ids"),
+                           (got[2], want[2], "n_cand")):
+            if not np.array_equal(x, y):
+                fail(f"shard-mut: the exact-cap mutated sharded index's "
+                     f"{what} differ from a fresh single-device index's in "
+                     f"{int((x != y).sum())} cells")
+    print(f"[shard-mut] exact cap (per-shard {ex.index.cap}): the mutated "
+          f"sharded index ({len(ex.index.store.deltas)} slabs) answers as a "
+          "fresh single-device index over its effective corpus (ids and "
+          "candidate counts bit for bit, 8 batches)")
+    del summary
+    return record("fused_query_sharded[live window, slabs]", *K1S_SOURCE,
+                  counts, "fused_query_sharded:segments", k1_err, k1_t)
+
+
+def phase_tt_shard(cell) -> None:
+    """[tt-shard]: the TT cell's tt-srp / cosine index at 2^16 over S = 3
+    shards (the last padded), untimed: counters checked, answers equal the
+    single-device index's bit for bit, K1s-TT against its plain version."""
+    import torch
+    from repro_torch.serving.lsh_service import build_service
+    c = cell["srp"]
+    gen = torch.Generator(device="cuda").manual_seed(31)
+    corpus = hash_fns("tt")["data"](gen, c["dims"], c["rhat"], batch=c["n"])
+    kw = dict(metric="cosine", num_codes=c["codes"], num_tables=c["tables"],
+              rank=c["rank"], device="cuda")
+    zero_counts()
+    svc = build_service(gen, "tt-srp", c["dims"], corpus,
+                        shards=SHARD["tt_shards"], **kw)
+    q = make_queries(corpus, torch.arange(0, c["n"], c["every"],
+                                          device="cuda"), gen)
+    got = svc.query_arrays(q, topk=TOPK)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    base = svc.index.store.base
+    print(f"[tt-shard] n={c['n']} TT items over {SHARD['tt_shards']} shards "
+          f"(counts {base.counts}, n_s {base.shard_size}), tt-srp K="
+          f"{c['codes']} L={c['tables']}, per-shard cap {base.cap}: "
+          f"{float(got[2].mean()):.1f} candidates per query; launches "
+          f"{counts}")
+    check_counts(counts, "tt-shard", ("tt_inner", "fused_query_sharded"))
+    single = build_service(None, "tt-srp", c["dims"], corpus,
+                           family=svc.index.family, **kw)
+    same_answers(got, single.query_arrays(q, topk=TOPK),
+                 "tt-shard: sharded vs single-device answers")
+    del single
+    print("[tt-shard] answers equal the single-device index's bit for bit")
+    k1_compare(svc, q, f"tt-shard, S={SHARD['tt_shards']}, "
+                       f"B={q.leaves[0].shape[0]}")
+
+
 def record(name, source, replaces, counts, key, err, times):
     """One entry of the kernels line (``key`` a counter of read_counts;
     the plain calls are its kernel's)."""
@@ -1094,6 +1403,8 @@ HASH_RECORDS = {
 }
 K1_SOURCE = ("src/repro_torch/kernels/csrc/fused_query.cu",
              "src/repro/kernels/fused_query.py:235")
+K1S_SOURCE = ("src/repro_torch/kernels/csrc/fused_query.cu",
+              "src/repro/kernels/fused_query.py:250")
 
 
 def run_cell(layout: str, log2_corpus: int, args) -> list:
@@ -1108,7 +1419,7 @@ def run_cell(layout: str, log2_corpus: int, args) -> list:
     qids = [perm[i * args.batch:(i + 1) * args.batch]
             for i in range(args.batches)]
     queries = [make_queries(corpus, q, gen) for q in qids]
-    svc, counts, main = phase_main(cell, corpus, qids, queries)
+    svc, counts, main, main_results = phase_main(cell, corpus, qids, queries)
     if layout == "tt":
         del corpus                  # the index holds the stacked corpus
     h_err = phase_hash(svc, cell)
@@ -1125,10 +1436,16 @@ def run_cell(layout: str, log2_corpus: int, args) -> list:
     torch.cuda.empty_cache()
     if layout == "tt":
         phase_tt_mut(cell)
+        phase_tt_shard(cell)
         return records
+    records.append(phase_shard(cell, corpus, qids, queries, main_results))
+    del main_results
+    torch.cuda.empty_cache()
     records.append(phase_mp(cell, corpus, qids, queries, main))
     torch.cuda.empty_cache()
     records.append(phase_mut(cell, corpus, qids, args))
+    torch.cuda.empty_cache()
+    records.append(phase_shard_mut(cell, corpus, qids, args))
     return records
 
 

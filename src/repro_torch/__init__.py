@@ -3,9 +3,11 @@
 The CP and TT serving paths: ``build_service`` -> CP hashing (kernel K3,
 ``kernels/csrc/cp_gram.cu``) or TT hashing (kernel K4,
 ``kernels/csrc/tt_inner.cu``) -> per-table sorted keys -> fused query with
-the in-format re-rank (kernel K1, ``kernels/csrc/fused_query.cu``). Entry points default to
-``device="cuda"``; ``device="cpu"`` runs every kernel's plain PyTorch
-version. This package imports torch and numpy, never JAX or ``repro``.
+the in-format re-rank (kernel K1, ``kernels/csrc/fused_query.cu``), with
+streaming mutations, and with ``shards=S`` the sharded index on the same
+card (K1s: K1's kernel over every (shard, segment) pair). Entry points
+default to ``device="cuda"``; ``device="cpu"`` runs every kernel's plain
+PyTorch version. This package imports torch and numpy, never JAX or ``repro``.
 
 Importing it turns TF32 off for float32 matmuls and convolutions: TF32
 rounds inputs to a 10-bit mantissa, which flips hash codes next to bucket

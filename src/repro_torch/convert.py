@@ -16,9 +16,11 @@ import torch
 
 from repro_torch.core.lsh import ALL_KINDS, E2LSH_KINDS, LSHFamily
 from repro_torch.core.projections import CPProjection, TTProjection
-from repro_torch.core.segments import SegmentStore, TableSegment
+from repro_torch.core.segments import (SegmentStore, ShardedSegment,
+                                       TableSegment)
 from repro_torch.core.tensor_formats import CPTensor, TTTensor
 from repro_torch.device import resolve_device
+from repro_torch.kernels.ops import unstack_like
 
 
 def _f32(a, dev) -> torch.Tensor:
@@ -66,31 +68,52 @@ def family_from_numpy(kind: str, factors: Sequence[np.ndarray], scale: float,
                      bucket_width=float(bucket_width))
 
 
+def _stacked_corpus(leaves, scale: float, dev, lead: int):
+    """Per-mode CP factors or TT cores with ``lead`` leading item dims ->
+    (corpus, stacked) keeping those dims; leaves with 4 dims past them are
+    TT cores."""
+    shape = np.shape(leaves[0])[:lead]
+    flat = [np.reshape(a, (-1,) + np.shape(a)[lead:]) for a in leaves]
+    make = (tt_tensor_from_numpy if np.ndim(flat[0]) == 4
+            else cp_tensor_from_numpy)
+    corpus, stacked = make(flat, scale, dev).stack()
+    stacked = stacked.unflatten(0, shape)
+    return unstack_like(corpus, stacked), stacked
+
+
 def segment_from_numpy(corpus_factors: Sequence[np.ndarray],
                        sorted_keys: np.ndarray, perm: np.ndarray,
                        keys: np.ndarray, cap: int, device="cuda",
-                       corpus_scale: float = 1.0) -> TableSegment:
+                       corpus_scale: float = 1.0,
+                       counts: Sequence[int] | None = None
+                       ) -> TableSegment | ShardedSegment:
     """A reference ``TableSegment``'s arrays (corpus CP factors (m, d_n, R)
     or TT cores (m, r, d_n, r') per mode, sorted_keys (L, m) uint32, perm
     (L, m) int32, keys (m, L) uint32) -> port ``TableSegment``; 4-D leaves
-    are TT cores."""
+    are TT cores. With ``counts`` (real items per shard), a reference
+    ``ShardedSegment``'s arrays (a leading shard dim S on every one: keys
+    (S, n_s, L), sorted_keys / perm (S, L, n_s), corpus leaves
+    (S, n_s, ...)) -> port ``ShardedSegment``."""
     dev = resolve_device(device)
-    make = (tt_tensor_from_numpy if np.ndim(corpus_factors[0]) == 4
-            else cp_tensor_from_numpy)
-    corpus, stacked = make(corpus_factors, corpus_scale, dev).stack()
-    return TableSegment(
-        keys=_u32(keys, dev), sorted_keys=_u32(sorted_keys, dev),
-        perm=torch.from_numpy(np.array(perm, np.int32)).to(dev),
-        corpus=corpus, cap=int(cap), stacked=stacked)
+    lead = 1 if counts is None else 2
+    corpus, stacked = _stacked_corpus(corpus_factors, corpus_scale, dev,
+                                      lead)
+    arrays = dict(keys=_u32(keys, dev), sorted_keys=_u32(sorted_keys, dev),
+                  perm=torch.from_numpy(np.array(perm, np.int32)).to(dev),
+                  corpus=corpus, cap=int(cap), stacked=stacked)
+    if counts is None:
+        return TableSegment(**arrays)
+    return ShardedSegment(counts=tuple(int(c) for c in counts), **arrays)
 
 
 def store_from_numpy(segments: Sequence[dict], state: dict,
                      device="cuda") -> SegmentStore:
     """A reference ``SegmentStore`` carried across: one dict of
     ``segment_from_numpy``'s arguments per segment (base first, then the
-    deltas in insert order), all numpy, and the reference's
-    ``host_state()`` -> a port store, through ``SegmentStore.restore``, so
-    its lookups and effective ids are derived as every mutation derives
-    them."""
+    deltas in insert order; ``counts`` for the sharded base and slabs),
+    all numpy, and the reference's ``host_state()`` (whose ``slot_pos``
+    carries a shard-locally compacted base's ``base_pos``) -> a port store,
+    through ``SegmentStore.restore``, so its lookups and effective ids are
+    derived as every mutation derives them."""
     segs = [segment_from_numpy(device=device, **seg) for seg in segments]
     return SegmentStore.restore(segs, state)

@@ -1,8 +1,8 @@
 """Formats, contractions, projections, LSH families, segments and the
 index, in PyTorch (reference: ``repro.core``)."""
 
-from repro_torch.core.index import (DeviceLSHIndex, brute_force_batch,
-                                    recall_at_k)
+from repro_torch.core.index import (DeviceLSHIndex, ShardedLSHIndex,
+                                    brute_force_batch, recall_at_k)
 from repro_torch.core.lsh import LSHFamily, make_family, make_mults
 from repro_torch.core.tensor_formats import (CPTensor, TTTensor,
                                              cp_rademacher, cp_random_data,

@@ -1,5 +1,5 @@
-"""The device-resident (K, L) LSH index with streaming mutations
-(reference: ``repro.core.index``, single device).
+"""The device-resident (K, L) LSH indexes with streaming mutations
+(reference: ``repro.core.index``), on one device.
 
 ``DeviceLSHIndex.build`` hashes a CP or TT corpus in batches through K3
 (CP) or K4 (TT) (``segments.bucket_keys``), sorts each table once and keeps
@@ -12,20 +12,33 @@ outstanding deltas compact automatically. ``query_batch`` runs K3 / K4
 (``raw``) and one K1 launch over every segment, with ``probes`` = T ranked
 keys per table. An explicit ``bucket_cap`` truncates buckets and keeps the
 live-window lookups, so deletes never starve a truncated window.
-Everything lives on the index's ``device`` ("cuda" unless the caller asks
-for the CPU, where the kernels' plain versions run).
 
-The sampling query modes, the sharded index and the host index are queued
-(ROADMAP.md). The reference's ``swap_chunk_rows`` and ``probe_backend``
-have no counterpart: the shadow store is gathered in one pass (the chunked,
-throttled build waits for the scheduler's second stream) and the tensors'
-device picks kernel or plain path.
+``ShardedLSHIndex`` keeps the same store over a ``ShardedSegment`` base:
+S contiguous shards, each with its own sorted tables. ``insert`` routes a
+batch least-loaded first (``segments.route_balanced``) into one sharded
+delta slab, ``compact`` folds each shard's base slice, slabs and
+tombstones shard-locally (no re-hash, no cross-shard move), and
+``rebalance`` (``prepare_rebalance`` + ``apply_swap``) is the one
+cross-shard move: it re-partitions the live corpus into the contiguous
+layout of a fresh build. ``query_batch`` runs one K1s launch over every
+(shard, segment) pair. All shards live on the index's one device, as in the
+reference's single-program (vmapped) path; placing them over several cards
+is queued (ROADMAP.md).
+
+``_SegmentedIndex`` holds what the two share. Everything lives on the
+index's ``device`` ("cuda" unless the caller asks for the CPU, where the
+kernels' plain versions run). The sampling query modes and the host index
+are queued (ROADMAP.md). The reference's ``swap_chunk_rows`` and
+``probe_backend`` have no counterpart: the shadow store is gathered in one
+pass (the chunked, throttled build waits for the scheduler's second stream)
+and the tensors' device picks kernel or plain path.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import time
+from typing import Any
 
 import numpy as np
 import torch
@@ -34,13 +47,23 @@ from repro_torch.core import segments
 from repro_torch.core.lsh import LSHFamily, make_mults
 from repro_torch.core.probing import QUERY_MODES
 from repro_torch.core.segments import (SegmentStore, bucket_keys,
-                                       build_segment)
-from repro_torch.kernels.ops import mults_tensor
+                                       build_segment, build_sharded_segment)
+from repro_torch.kernels.ops import mults_tensor, unstack_like
 
 
 def _check_metric(metric: str) -> None:
     if metric not in ("euclidean", "cosine"):
         raise ValueError(metric)
+
+
+def _check_mode(mode: str) -> None:
+    if mode not in QUERY_MODES:
+        raise ValueError(
+            f"unknown query mode {mode!r}; expected one of {QUERY_MODES}")
+    if mode != "topk":
+        raise NotImplementedError(
+            f"mode={mode!r} (sampling from the probed union) is queued in "
+            "ROADMAP.md")
 
 
 def _sync(device: torch.device) -> None:
@@ -53,34 +76,23 @@ class PendingSwap:
     """A fully built shadow store awaiting publication (the second buffer
     of the double-buffered swap). ``source`` / ``generation`` pin the store
     state it was derived from, so a swap never silently drops mutations
-    that landed while it was built."""
+    that landed while it was built. ``corpus_cache`` is what a sharded
+    index's build-time corpus becomes at the flip."""
 
     store: SegmentStore
+    kind: str                 # "compact" | "rebalance"
     source: SegmentStore
     generation: int
+    corpus_cache: Any = None
 
 
-@dataclasses.dataclass
-class DeviceLSHIndex:
-    """Device-resident (K, L) index over a batched CP or TT corpus (the
-    family's format); ``query_batch`` returns (ids (B, topk) int32
-    effective ids with -1 fill, scores (B, topk) float32 with +inf / -inf
-    fill, n_candidates (B,) int32) on the family's device."""
-
-    family: LSHFamily
-    metric: str = "euclidean"  # or "cosine"
-    seed: int = 0
-    bucket_cap: int | None = None  # None -> exact (largest build-time bucket)
-    max_deltas: int = 8            # outstanding deltas before auto-compact
-
-    store: SegmentStore | None = None
-    compactions: int = 0
-    auto_compactions: int = 0
-    auto_compact_s: float = 0.0
-    hash_s: float = 0.0        # build time in the K3 / K4 hash, synchronized
-    sort_s: float = 0.0        # build time in the table sort, synchronized
-    # the last insert's (hash, sort, lookups) seconds, synchronized
-    insert_s: tuple = (0.0, 0.0, 0.0)
+class _SegmentedIndex:
+    """The store-backed mutation and introspection API that
+    ``DeviceLSHIndex`` and ``ShardedLSHIndex`` share. Subclasses are
+    dataclasses with the fields ``family``, ``metric``, ``seed``,
+    ``bucket_cap``, ``max_deltas``, ``store`` and the counters, and
+    implement ``_new_store``, ``_delta``, ``_build_compact_store`` and
+    ``_query``."""
 
     def __post_init__(self):
         _check_metric(self.metric)
@@ -120,13 +132,7 @@ class DeviceLSHIndex:
                              f"{self.device}")
         self.family.check_inputs(batch)
 
-    def _new_store(self, keys, corpus, warn: bool = True) -> SegmentStore:
-        return SegmentStore(
-            build_segment(keys, corpus, bucket_cap=self.bucket_cap,
-                          warn_layout=type(self).__name__ if warn else None),
-            live_window=self.bucket_cap is not None)
-
-    def build(self, corpus, batch_size: int = 65536) -> "DeviceLSHIndex":
+    def build(self, corpus, batch_size: int = 65536):
         """Hash ``corpus`` in batches of ``batch_size`` and sort the tables.
         Keys do not depend on the batch size; 65536 items per hash launch
         keep the card busy (the reference hashes 2048 at a time)."""
@@ -144,9 +150,10 @@ class DeviceLSHIndex:
 
     # -- mutations ----------------------------------------------------------
 
-    def insert(self, batch, batch_size: int = 1024) -> "DeviceLSHIndex":
-        """Append a batch of items as one sorted delta segment, served by
-        the next query. New items take the next effective ids. More than
+    def insert(self, batch, batch_size: int = 1024):
+        """Append a batch of items as one sorted delta segment (a routed
+        slab on the sharded index), served by the next query. New items
+        take the next effective ids in batch order. More than
         ``max_deltas`` outstanding deltas compact automatically."""
         if batch.leaves[0].shape[0] == 0:
             return self
@@ -156,10 +163,10 @@ class DeviceLSHIndex:
         keys = bucket_keys(self.family, self._mults_t, batch, batch_size)
         _sync(self.device)
         t1 = time.perf_counter()
-        seg = build_segment(keys, batch, bucket_cap=self.bucket_cap)
+        seg, positions = self._delta(keys, batch)
         _sync(self.device)
         t2 = time.perf_counter()
-        self.store.append_delta(seg)
+        self.store.append_delta(seg, positions)
         _sync(self.device)
         self.insert_s = (t1 - t0, t2 - t1, time.perf_counter() - t2)
         self._maybe_auto_compact()
@@ -192,10 +199,6 @@ class DeviceLSHIndex:
 
     # -- double-buffered swap -----------------------------------------------
 
-    def _build_compact_store(self, store: SegmentStore) -> SegmentStore:
-        keys, corpus = store.effective_arrays()
-        return self._new_store(keys, corpus, warn=False)
-
     def prepare_compact(self) -> PendingSwap | None:
         """Build the compacted replacement store off the query path: the
         stored keys of every live item (no re-hash), sorted anew, with its
@@ -208,10 +211,10 @@ class DeviceLSHIndex:
             raise ValueError("cannot compact an index with no live items")
         shadow = self._build_compact_store(store)
         _sync(self.device)
-        return PendingSwap(store=shadow, source=store,
+        return PendingSwap(store=shadow, kind="compact", source=store,
                            generation=store.generation)
 
-    def apply_swap(self, pending: PendingSwap | None) -> "DeviceLSHIndex":
+    def apply_swap(self, pending: PendingSwap | None):
         """Publish a prepared shadow store: one attribute write, no device
         work. Raises RuntimeError if the live store mutated after
         ``pending`` was prepared."""
@@ -224,35 +227,247 @@ class DeviceLSHIndex:
                 "store mutated since this swap was prepared; the shadow "
                 "store is stale: call prepare again (serialize mutations "
                 "with the prepare/apply pair)")
+        self._pre_publish(pending)
         self.store = pending.store      # the flip
-        self.compactions += 1
+        if pending.kind == "compact":
+            self.compactions += 1
+        else:
+            self.rebalances += 1
         return self
 
-    def compact(self) -> "DeviceLSHIndex":
+    def _pre_publish(self, pending: PendingSwap) -> None:
+        """Subclass hook: index-side state that changes with the flip."""
+
+    def compact(self):
         """Merge base + deltas minus tombstones into one fresh base segment
-        (``prepare_compact`` then ``apply_swap``). Afterwards effective and
-        physical ids coincide."""
+        (``prepare_compact`` then ``apply_swap``; shard-local on the
+        sharded index). Effective ids, and so results, do not change."""
         return self.apply_swap(self.prepare_compact())
 
     # -- query --------------------------------------------------------------
 
     def query_batch(self, queries, topk: int = 10, *,
                     probes: int = 1, mode: str = "topk", rng=None):
-        """-> (ids (B, topk), scores (B, topk), n_candidates (B,)) tensors:
-        K3 / K4 projects the batch, one K1 launch probes T = ``probes``
-        ranked buckets per table of every segment, re-ranks and selects."""
-        if mode not in QUERY_MODES:
-            raise ValueError(
-                f"unknown query mode {mode!r}; expected one of {QUERY_MODES}")
-        if mode != "topk":
-            raise NotImplementedError(
-                f"mode={mode!r} (sampling from the probed union) is queued in "
-                "ROADMAP.md")
-        view = self.store.view
+        """-> (ids (B, topk) int32 effective ids with -1 fill, scores
+        (B, topk) float32 with +inf / -inf fill, n_candidates (B,) int32)
+        tensors on the index's device: K3 / K4 projects the batch and one
+        K1 (K1s) launch probes T = ``probes`` ranked buckets per table of
+        every segment (every (shard, segment) pair), re-ranks and
+        selects."""
+        _check_mode(mode)
+        return self._query(self.store.view, queries, topk, int(probes))
+
+
+@dataclasses.dataclass
+class DeviceLSHIndex(_SegmentedIndex):
+    """Device-resident (K, L) index over a batched CP or TT corpus (the
+    family's format): one segment store, queried by one K1 launch."""
+
+    family: LSHFamily
+    metric: str = "euclidean"  # or "cosine"
+    seed: int = 0
+    bucket_cap: int | None = None  # None -> exact (largest build-time bucket)
+    max_deltas: int = 8            # outstanding deltas before auto-compact
+
+    store: SegmentStore | None = None
+    compactions: int = 0
+    auto_compactions: int = 0
+    auto_compact_s: float = 0.0
+    hash_s: float = 0.0        # build time in the K3 / K4 hash, synchronized
+    sort_s: float = 0.0        # build time in the table sort, synchronized
+    # the last insert's (hash, sort, lookups) seconds, synchronized
+    insert_s: tuple = (0.0, 0.0, 0.0)
+
+    def _new_store(self, keys, corpus, warn: bool = True) -> SegmentStore:
+        return SegmentStore(
+            build_segment(keys, corpus, bucket_cap=self.bucket_cap,
+                          warn_layout=type(self).__name__ if warn else None),
+            live_window=self.bucket_cap is not None)
+
+    def _delta(self, keys, batch):
+        return build_segment(keys, batch, bucket_cap=self.bucket_cap), None
+
+    def _build_compact_store(self, store: SegmentStore) -> SegmentStore:
+        keys, corpus = store.effective_arrays()
+        return self._new_store(keys, corpus, warn=False)
+
+    def _query(self, view, queries, topk, probes):
         return segments.segmented_query(
             self.family, view.all_arrays, self._mults_t, queries,
             metric=self.metric, topk=topk, caps=view.all_caps,
-            probes=int(probes), table=view.k1_table)
+            probes=probes, table=view.k1_table)
+
+
+@dataclasses.dataclass
+class ShardedLSHIndex(_SegmentedIndex):
+    """Corpus-sharded (K, L) index on one device: a ``ShardedSegment`` base
+    of ``shards`` contiguous slices, routed delta slabs, shard-local
+    compaction and ``rebalance`` (see the module docstring). With the
+    default exact cap its answers equal ``DeviceLSHIndex``'s for any shard
+    count and any routing: K1 scores a candidate from its row and the
+    query alone, whatever segment holds it.
+
+    An explicit ``bucket_cap`` truncates each *shard's* slice of a bucket,
+    so the union of candidates can exceed the single-device truncation (up
+    to S*L*cap)."""
+
+    family: LSHFamily
+    metric: str = "euclidean"  # or "cosine"
+    seed: int = 0
+    shards: int = 1
+    bucket_cap: int | None = None  # None -> exact (largest per-shard bucket)
+    max_deltas: int = 8
+    keep_corpus: bool = True   # False drops the build-time corpus reference
+                               # (``effective_corpus()`` regathers it)
+
+    _corpus: Any = None        # the build-time corpus (keep_corpus=True)
+    store: SegmentStore | None = None
+    compactions: int = 0
+    rebalances: int = 0
+    auto_compactions: int = 0
+    auto_compact_s: float = 0.0
+    hash_s: float = 0.0
+    sort_s: float = 0.0
+    insert_s: tuple = (0.0, 0.0, 0.0)
+
+    def __post_init__(self):
+        if int(self.shards) < 1:
+            raise ValueError(f"shards must be >= 1, got {self.shards}")
+        super().__post_init__()
+
+    @property
+    def corpus(self):
+        """The effective (live) corpus the returned ids index into: the
+        build-time corpus while pristine (None under ``keep_corpus=False``),
+        gathered from the segments once mutated. A shard-local compaction
+        drops the build-time copy (shards no longer hold contiguous
+        slices; the next read regathers and keeps it); a rebalance installs
+        the gathered one."""
+        if self.store is None:
+            return self._corpus
+        if self.store.mutated:
+            return self.store.effective_corpus()
+        if self._corpus is None and self.keep_corpus:
+            self._corpus = self.store.effective_corpus()
+        return self._corpus
+
+    @property
+    def corpus_sharded(self):
+        """The base's (S, n_s, ...) zero-padded corpus."""
+        return self.store.base.corpus if self.store else None
+
+    @property
+    def shard_size(self) -> int:
+        return self.store.base.shard_size
+
+    def occupancy(self) -> np.ndarray:
+        """(S,) live items per shard (base + delta slabs)."""
+        return self.store.shard_live_counts
+
+    def build(self, corpus, batch_size: int = 65536) -> "ShardedLSHIndex":
+        super().build(corpus, batch_size)
+        self._corpus = corpus if self.keep_corpus else None
+        return self
+
+    def _reset_mutation_state(self) -> None:
+        super()._reset_mutation_state()
+        self.rebalances = 0
+
+    def _new_store(self, keys, corpus) -> SegmentStore:
+        seg = build_sharded_segment(keys, corpus, int(self.shards),
+                                    bucket_cap=self.bucket_cap,
+                                    warn_layout=type(self).__name__)
+        return SegmentStore(seg, live_window=self.bucket_cap is not None)
+
+    def _delta(self, keys, batch):
+        """One routed slab: least-loaded shards first, contiguous runs of
+        the batch, sorted per shard."""
+        alloc, offsets = segments.route_balanced(
+            keys.shape[0], self.store.shard_live_counts)
+        return segments.build_sharded_delta(
+            keys, batch, alloc, offsets, seq0=self.store.seq_len,
+            bucket_cap=self.bucket_cap)
+
+    def _build_compact_store(self, store: SegmentStore) -> SegmentStore:
+        """The shard-local fold: each shard keeps its own live items (base
+        slice + slabs, slot order = sequence order), stored keys only, one
+        gather and sort per shard (``segments._slab_gather_sort``). Shards
+        keep the item mix routing gave them; effective ids, and so
+        results, do not change. The live store is untouched."""
+        s = store.base.shards
+        segs = store._segments()
+        offs = np.cumsum([0] + [g.slots for g in segs[:-1]])
+        live2d = np.concatenate(
+            [store.live_host[off:off + g.slots].reshape(s, g.shard_size)
+             for off, g in zip(offs, segs)], axis=1)
+        pos2d = np.concatenate(
+            [p.reshape(s, g.shard_size)
+             for p, g in zip(store.slot_pos, segs)], axis=1)
+        counts = live2d.sum(axis=1).astype(np.int64)
+        new_ns = max(int(counts.max()), 1)
+        w = live2d.shape[1]
+        idx = np.full((s, new_ns), w, np.int64)
+        new_pos = np.full((s, new_ns), -1, np.int64)
+        eff_seq = np.cumsum(store._live_seq) - 1
+        for sh in range(s):
+            sel = np.flatnonzero(live2d[sh])    # slot order = seq order
+            idx[sh, :sel.size] = sel
+            new_pos[sh, :sel.size] = eff_seq[pos2d[sh, sel]]
+        dev = self.device
+        keys_n, sorted_keys, perm, stacked, max_runs = \
+            segments._slab_gather_sort(
+                [g.keys for g in segs], [g.stacked for g in segs],
+                torch.from_numpy(idx).to(dev),
+                torch.from_numpy(counts).to(dev), shard_size=new_ns)
+        if self.bucket_cap is None:
+            cap = max(int(max_runs.max()), 1)
+            segments._warn_coarse(type(self).__name__, cap,
+                                  self.family.num_tables, int(counts.max()),
+                                  shards=s)
+        else:
+            cap = min(int(self.bucket_cap), new_ns)
+        seg = segments.ShardedSegment(
+            keys=keys_n, sorted_keys=sorted_keys, perm=perm,
+            corpus=unstack_like(store.base.corpus, stacked),
+            cap=cap, counts=tuple(int(c) for c in counts), stacked=stacked)
+        return SegmentStore(seg, base_pos=new_pos.reshape(-1),
+                            live_window=self.bucket_cap is not None)
+
+    def _pre_publish(self, pending: PendingSwap) -> None:
+        # a shard-local compaction leaves no contiguous build-time corpus
+        # (corpus_cache None); a rebalance installs the gathered one
+        self._corpus = pending.corpus_cache
+
+    def prepare_rebalance(self) -> PendingSwap:
+        """Build the re-partitioned replacement store off the query path:
+        the live corpus and its stored keys gathered in sequence order,
+        split into S contiguous shards and sorted per shard (the layout of
+        a fresh build over ``effective_corpus()``); synchronizes the card
+        before it returns."""
+        store = self.store
+        if store.n_live == 0:
+            raise ValueError("cannot rebalance an index with no live items")
+        keys, corpus = store.effective_arrays()
+        shadow = self._new_store(keys, corpus)
+        _sync(self.device)
+        return PendingSwap(store=shadow, kind="rebalance", source=store,
+                           generation=store.generation,
+                           corpus_cache=corpus if self.keep_corpus else None)
+
+    def rebalance(self) -> "ShardedLSHIndex":
+        """Re-partition the live corpus into S contiguous, evenly sized
+        shards (``prepare_rebalance`` then ``apply_swap``): the only
+        cross-shard move, for when routing skew or compaction history
+        leaves occupancy uneven. Afterwards the index answers exactly as a
+        fresh build over the effective corpus."""
+        return self.apply_swap(self.prepare_rebalance())
+
+    def _query(self, view, queries, topk, probes):
+        return segments.sharded_query(
+            self.family, view.seg_arrays(0), view.delta_arrays,
+            self._mults_t, queries, metric=self.metric, topk=topk,
+            cap=view.base.cap, delta_caps=view.delta_caps, probes=probes,
+            table=view.k1_table)
 
 
 # ---------------------------------------------------------------------------

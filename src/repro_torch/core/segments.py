@@ -1,27 +1,38 @@
-"""Sorted segments, the mutable segment store and the query planner
-(reference: ``repro.core.segments``), single-device.
+"""Sorted segments, the mutable segment store and the query planners
+(reference: ``repro.core.segments``), on one device.
 
 A segment is, per hash table, the bucket keys of its items sorted ascending,
 the matching permutation of local item ids, and the corpus the ids point
 into:
 
-  ``TableSegment``  keys (m, L) in corpus order, sorted_keys (L, m), perm
-                    (L, m) int32, the corpus (a batched CP or TT tensor),
-                    the cap, and ``stacked``: the corpus in the kernels'
-                    layout ((m, N, d, R) CP, (m, N, R, d, R) TT), whose
-                    views the corpus factors or cores are.
+  ``TableSegment``    keys (m, L) in corpus order, sorted_keys (L, m), perm
+                      (L, m) int32, the corpus (a batched CP or TT tensor),
+                      the cap, and ``stacked``: the corpus in the kernels'
+                      layout ((m, N, d, R) CP, (m, N, R, d, R) TT), whose
+                      views the corpus factors or cores are.
+  ``ShardedSegment``  the same arrays with a leading shard dim S: keys
+                      (S, n_s, L), sorted_keys / perm (S, L, n_s), the
+                      corpus and ``stacked`` (S, n_s, ...) zero-padded, and
+                      the real item count of each shard. Pad slots carry
+                      ``_PAD_KEY`` and the perm sentinel n_s. The sharded
+                      base and the routed delta slabs share this layout.
 
 Bucket keys are uint32 values held in int64. ``SegmentStore`` is one base
 segment plus bounded delta segments (streaming inserts) and a host
-tombstone mask (streaming deletes). Queries return *effective* ids, the
-rank of an item among the live items in sequence (arrival) order, via a
-host ``slot_pos`` map per segment. After every mutation the store derives,
-per segment, the device lookups a query reads (``live`` (m+1,) bool with
-entry m False, ``eff`` (m,) int32 and, for an explicit ``bucket_cap``, the
-live-window lookups ``live_rank`` (L, m+1) / ``live_pos`` (L, m)) and
-publishes them in one immutable ``StoreView``: once per mutation, never
-once per query batch. The host bookkeeping stays numpy, as in the
-reference.
+tombstone mask (streaming deletes; shard pads are born dead). Queries
+return *effective* ids, the rank of an item among the live items in
+sequence (arrival) order, via a host ``slot_pos`` map per segment. After
+every mutation the store derives, per segment, the device lookups a query
+reads (``live`` (m+1,) bool with entry m False, ``eff`` (m,) int32 and, for
+an explicit ``bucket_cap``, the live-window lookups ``live_rank`` (L, m+1)
+/ ``live_pos`` (L, m); sharded: (S, n_s+1), (S, n_s), (S, L, n_s+1),
+(S, L, n_s)) and publishes them in one immutable ``StoreView``: once per
+mutation, never once per query batch. The host bookkeeping stays numpy, as
+in the reference.
+
+Everything runs on one device. The reference's vmapped sharded program is
+the layout this port serves; placing shards over several cards is queued
+(ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -35,6 +46,9 @@ import numpy as np
 import torch
 
 from repro_torch.core.tensor_formats import CPTensor, TTTensor
+from repro_torch.kernels.ops import unstack_like
+
+_PAD_KEY = 0xFFFFFFFF      # bucket key of shard-padding slots
 
 
 class SegmentArrays(NamedTuple):
@@ -49,6 +63,14 @@ class SegmentArrays(NamedTuple):
     eff: torch.Tensor           # (m,) int32 effective ids
     win: tuple | None           # (live_rank (L, m+1), live_pos (L, m)) int32
     stacked: torch.Tensor       # (m, N, d, R) CP / (m, N, R, d, R) TT
+
+    def shard(self, s: int) -> "SegmentArrays":
+        """Shard ``s`` of a sharded segment's arrays (each with a leading
+        shard dim): contiguous views, no copy."""
+        win = None if self.win is None else (self.win[0][s], self.win[1][s])
+        return SegmentArrays(self.corpus.index(s), self.sorted_keys[s],
+                             self.perm[s], self.live[s], self.eff[s], win,
+                             self.stacked[s])
 
 
 def bucket_keys(family, mults, corpus, batch_size: int) -> torch.Tensor:
@@ -82,37 +104,73 @@ def query_keys(family, mults, queries,
     return keys.permute(1, 2, 0)                          # (B,L,T) -> (L,T,B)
 
 
+def _run_lengths(sorted_keys: torch.Tensor,
+                 valid: torch.Tensor) -> torch.Tensor:
+    """Per position, the length of the run of equal values that ends there
+    along the last axis, counting only ``valid`` positions (runs break at
+    invalid slots, which read 0)."""
+    n = sorted_keys.shape[-1]
+    idx = torch.arange(n, device=sorted_keys.device)
+    new_run = torch.cat([torch.ones_like(valid[..., :1]),
+                         (sorted_keys[..., 1:] != sorted_keys[..., :-1])
+                         | ~valid[..., :-1]], dim=-1)
+    run_start = torch.cummax(torch.where(new_run, idx, 0), dim=-1).values
+    return torch.where(valid, idx - run_start + 1, 0)
+
+
+def _max_run_length_masked(sorted_keys: torch.Tensor,
+                           valid: torch.Tensor) -> torch.Tensor:
+    """Longest run of equal values along the last axis, counting only
+    ``valid`` positions. Pad slots sort to the tail of their key run
+    (stable sort, pads carry the largest local ids), so masking them gives
+    the largest *stored* bucket."""
+    if sorted_keys.shape[-1] == 0:
+        return torch.tensor(0)
+    return _run_lengths(sorted_keys, valid).max()
+
+
 def _max_run_length(sorted_keys: torch.Tensor) -> torch.Tensor:
     """Longest run of equal values along the last axis of sorted keys."""
-    flat = sorted_keys.reshape(-1, sorted_keys.shape[-1])
-    n = flat.shape[1]
-    if n == 0:
-        return torch.tensor(0)
-    idx = torch.arange(n, device=flat.device)
-    new_run = torch.cat([torch.ones_like(flat[:, :1], dtype=torch.bool),
-                         flat[:, 1:] != flat[:, :-1]], dim=1)
-    run_start = torch.cummax(torch.where(new_run, idx, 0), dim=1).values
-    return (idx - run_start + 1).max()
+    return _max_run_length_masked(
+        sorted_keys, torch.ones_like(sorted_keys, dtype=torch.bool))
+
+
+def _shard_max_runs(sorted_keys: torch.Tensor,
+                    valid: torch.Tensor) -> torch.Tensor:
+    """(S, L, n_s) sorted keys and slot validity -> (S,) each shard's
+    longest stored run."""
+    return _run_lengths(sorted_keys, valid).flatten(1).amax(1)
 
 
 def _sort_tables(keys_t: torch.Tensor):
-    """(L, m) keys -> (perm int32, sorted_keys, max_run): a stable sort per
-    table (the keys are non-negative, so the signed sort is the unsigned
-    order)."""
+    """(..., L, m) keys -> (perm int32, sorted_keys, max_run): a stable sort
+    along the last axis (the keys are non-negative, so the signed sort is
+    the unsigned order)."""
     sorted_keys, perm = torch.sort(keys_t, dim=-1, stable=True)
     return perm.to(torch.int32), sorted_keys, _max_run_length(sorted_keys)
 
 
-def _warn_coarse(layout: str, cap: int, num_tables: int, n: int) -> None:
-    """The exact default cap would gather more candidates than the corpus
+def _warn_coarse(layout: str, cap: int, num_tables: int, n: int,
+                 shards: int = 1) -> None:
+    """The exact default cap would gather more candidates than the store
+    (for a sharded base, one shard: ``n`` is then the per-shard item count)
     holds: the family is too coarse for this data."""
     if not n or cap * num_tables <= n:
         return
-    warnings.warn(
-        f"{layout}: largest bucket has {cap} of {n} items, so the exact "
-        f"default cap gathers up to L*cap={cap * num_tables} candidates per "
-        "query (more than the corpus). The family is too coarse for this "
-        "data; raise num_codes or shrink bucket_width.")
+    fix = ("The family is too coarse for this data; raise num_codes / "
+           "shrink bucket_width, or pass an explicit bucket_cap to bound "
+           "{} work at some recall cost.")
+    if shards > 1:
+        warnings.warn(
+            f"{layout}: largest per-shard bucket has {cap} of {n} items, so "
+            f"the exact default cap gathers up to S*L*cap="
+            f"{shards * num_tables * cap} candidates per query (more than a "
+            "shard holds). " + fix.format("per-shard"))
+    else:
+        warnings.warn(
+            f"{layout}: largest bucket has {cap} of {n} items, so the exact "
+            f"default cap gathers up to L*cap={cap * num_tables} candidates "
+            "per query (more than the corpus). " + fix.format("per-query"))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -156,6 +214,209 @@ def build_segment(keys: torch.Tensor, corpus, *,
                         corpus=corpus, cap=cap, stacked=stacked)
 
 
+@dataclasses.dataclass(frozen=True)
+class ShardedSegment:
+    """Sharded arrays with a leading shard dim: the sharded *base* and the
+    routed delta *slabs* share this layout.
+
+    Shard ``s`` holds ``counts[s]`` real items in slots [0, counts[s]) of
+    its slab; the other slots are padding (key ``_PAD_KEY``, perm entry the
+    ``shard_size`` sentinel, a zero corpus row), so a probe that lands on
+    one, even through a ``_PAD_KEY`` collision, is masked as a miss by the
+    liveness lookup. A fresh contiguous build fills every shard but the
+    last; slabs and shard-locally compacted bases carry any counts.
+    """
+
+    keys: torch.Tensor          # (S, n_s, L) corpus order, pads _PAD_KEY
+    sorted_keys: torch.Tensor   # (S, L, n_s) ascending per (shard, table)
+    perm: torch.Tensor          # (S, L, n_s) int32, pad slots -> n_s
+    corpus: CPTensor | TTTensor  # leaves (S, n_s, ...), views of stacked
+    cap: int                    # probe width: the largest per-shard bucket
+    counts: tuple[int, ...]     # real items per shard
+    stacked: torch.Tensor       # (S, n_s, N, d, R) / (S, n_s, N, R, d, R)
+
+    @property
+    def items(self) -> int:     # real (unpadded) item count
+        return sum(self.counts)
+
+    @property
+    def shards(self) -> int:
+        return self.keys.shape[0]
+
+    @property
+    def shard_size(self) -> int:
+        return self.keys.shape[1]
+
+    @property
+    def slots(self) -> int:
+        return self.keys.shape[0] * self.keys.shape[1]
+
+    @property
+    def flat_corpus(self):
+        """The corpus with its (S, n_s) slots flattened, in slot order."""
+        c = self.corpus
+        return type(c)(tuple(a.flatten(0, 1) for a in c.leaves), c.scale)
+
+
+def build_sharded_segment(keys: torch.Tensor, corpus, shards: int, *,
+                          bucket_cap: int | None = None,
+                          warn_layout: str | None = None) -> ShardedSegment:
+    """(n, L) corpus-order keys + CP or TT corpus -> S-sharded segment.
+
+    The corpus is split into S contiguous slices of n_s = ceil(n / S); the
+    last is padded (pad keys ``_PAD_KEY``, pad perm entries the n_s
+    sentinel, zero rows). The exact cap is the longest run of one sort over
+    every (shard, table), pad keys included, as in the reference."""
+    n, num_tables = keys.shape
+    n_s = max(-(-n // shards), 1)
+    pad = shards * n_s - n
+    keys_sh = torch.cat([keys, keys.new_full((pad, num_tables), _PAD_KEY)])
+    keys_sh = keys_sh.reshape(shards, n_s, num_tables)
+    perm, sorted_keys, max_run = _sort_tables(
+        keys_sh.transpose(1, 2).contiguous())
+    # pad slots get the n_s sentinel: the liveness lookup masks them
+    offsets = torch.arange(shards, device=keys.device)[:, None, None] * n_s
+    perm = torch.where(offsets + perm >= n, n_s, perm)
+    _, stacked = corpus.stack()
+    stacked = torch.cat([stacked, stacked.new_zeros((pad,)
+                                                    + stacked.shape[1:])])
+    stacked = stacked.unflatten(0, (shards, n_s))
+    if bucket_cap is None:
+        cap = int(max_run) if n else 0
+        if warn_layout is not None:
+            _warn_coarse(warn_layout, cap, num_tables, n_s, shards)
+    else:
+        cap = min(int(bucket_cap), n_s)
+    counts = tuple(int(np.clip(n - s * n_s, 0, n_s)) for s in range(shards))
+    return ShardedSegment(keys=keys_sh, sorted_keys=sorted_keys, perm=perm,
+                          corpus=unstack_like(corpus, stacked), cap=cap,
+                          counts=counts, stacked=stacked)
+
+
+# ---------------------------------------------------------------------------
+# Routed delta slabs + the shard-local fold
+# ---------------------------------------------------------------------------
+
+
+def route_balanced(batch_n: int, loads) -> tuple[np.ndarray, np.ndarray]:
+    """Deterministic balance policy: fill the least-loaded shard first.
+
+    -> (alloc (S,), offsets (S,)) int64 in shard-id order: shard ``s`` takes
+    the contiguous batch slab [offsets[s], offsets[s] + alloc[s]).
+    Water-fill over ascending (load, shard id): the lowest shards are
+    raised toward a common level, leftovers go one item each to the
+    least-loaded shards, so steady ingest keeps shard occupancy within one
+    item of even without moving stored rows."""
+    loads = np.asarray(loads, np.int64)
+    s = loads.size
+    order = np.lexsort((np.arange(s), loads))
+    lv = loads[order]
+    alloc_sorted = np.zeros(s, np.int64)
+    b = int(batch_n)
+    if b > 0:
+        for k in range(1, s + 1):
+            room = int((lv[k] - lv[:k]).sum()) if k < s else b
+            if room >= b:
+                level, extra = divmod(int(lv[:k].sum()) + b, k)
+                tgt = np.full(k, level, np.int64)
+                tgt[:extra] += 1
+                alloc_sorted[:k] = tgt - lv[:k]
+                break
+    alloc = np.zeros(s, np.int64)
+    alloc[order] = alloc_sorted
+    offsets = np.zeros(s, np.int64)
+    offsets[order] = np.concatenate(([0], np.cumsum(alloc_sorted)[:-1]))
+    return alloc, offsets
+
+
+def _sort_slabs(keys_sh: torch.Tensor, counts: torch.Tensor,
+                shard_size: int):
+    """(S, n_s, L) slab keys with ``counts`` (S,) real rows per shard ->
+    (sorted_keys, perm with the pad sentinel, (S,) longest stored runs)."""
+    perm, sorted_keys, _ = _sort_tables(keys_sh.transpose(1, 2).contiguous())
+    pad = perm >= counts[:, None, None]
+    perm = torch.where(pad, shard_size, perm)
+    return sorted_keys, perm, _shard_max_runs(sorted_keys, ~pad)
+
+
+def build_sharded_delta(keys, corpus, alloc, offsets, *, seq0: int,
+                        bucket_cap: int | None = None
+                        ) -> tuple[ShardedSegment, np.ndarray]:
+    """(B, L) batch keys + batch corpus + a ``route_balanced`` plan ->
+    (slab ShardedSegment, positions): the batch scattered into per-shard
+    slabs (the reference's ``_slab_scatter_sort``), each sorted locally.
+
+    ``positions`` is the (S * slab,) int64 slot -> sequence-position map
+    (``seq0`` + batch row, -1 for pad slots) that
+    ``SegmentStore.append_delta`` takes. The slab width is the largest
+    per-shard allocation rounded up to 8, or to 64 from 256 slots on, as in
+    the reference (whose program shapes are static: quantized widths keep
+    steady ingest on one compiled program)."""
+    b, _ = keys.shape
+    s = alloc.size
+    raw = max(int(alloc.max()), 1)
+    q = 64 if raw >= 256 else 8
+    slab = -(-raw // q) * q
+    idx = np.full((s, slab), b, np.int64)
+    pos = np.full((s, slab), -1, np.int64)
+    for sh in range(s):
+        c, o = int(alloc[sh]), int(offsets[sh])
+        idx[sh, :c] = o + np.arange(c)
+        pos[sh, :c] = seq0 + o + np.arange(c)
+    # scatter: slot (shard, j) takes batch row idx[shard, j], row b a pad
+    idx = torch.from_numpy(idx.reshape(-1)).to(keys.device)
+    keys_sh = torch.cat([keys, keys.new_full((1, keys.shape[1]), _PAD_KEY)])
+    keys_sh = keys_sh[idx].unflatten(0, (s, slab))
+    _, stacked = corpus.stack()
+    stacked = torch.cat([stacked,
+                         stacked.new_zeros((1,) + stacked.shape[1:])])
+    stacked_sh = stacked[idx].unflatten(0, (s, slab))
+    sorted_keys, perm, max_runs = _sort_slabs(
+        keys_sh, torch.from_numpy(alloc).to(keys.device), slab)
+    cap = (min(int(bucket_cap), slab) if bucket_cap is not None
+           else max(int(max_runs.max()), 1))
+    seg = ShardedSegment(keys=keys_sh, sorted_keys=sorted_keys, perm=perm,
+                         corpus=unstack_like(corpus, stacked_sh), cap=cap,
+                         counts=tuple(int(a) for a in alloc),
+                         stacked=stacked_sh)
+    return seg, pos.reshape(-1)
+
+
+def _slab_gather_sort(keys, stacked, idx, counts, *, shard_size):
+    """The shard-local compaction fold: each shard gathers its survivors
+    from its base slice and delta slabs and sorts them anew.
+
+    ``keys`` / ``stacked`` are the segments' (S, w_g, L) keys and
+    (S, w_g, ...) stacked corpora in slot-offset order; ``idx``
+    (S, shard_size) indexes each shard's concatenated slot axis
+    (W = sum w_g marks a pad), ``counts`` (S,) the survivors per shard.
+    -> (keys (S, shard_size, L), sorted_keys, perm, stacked, (S,) longest
+    stored runs). One pass: the keys are gathered from their concatenation
+    (a few bytes an item), the corpus rows straight from each segment. The
+    values equal the reference's fold and its chunked form
+    (``_slab_gather_keys``, ``_sort_shard_table``,
+    ``gather_rows_chunked``)."""
+    keys_cat = torch.cat(list(keys), dim=1)
+    s, w, num_tables = keys_cat.shape
+    valid = idx < w
+    keys_n = torch.gather(
+        keys_cat, 1, torch.where(valid, idx, 0)[:, :, None]
+        .expand(-1, -1, num_tables))
+    keys_n = torch.where(valid[:, :, None], keys_n, _PAD_KEY)
+    out = stacked[0].new_zeros((s * shard_size,) + stacked[0].shape[2:])
+    off = 0
+    for g in stacked:
+        wg = g.shape[1]
+        sh, col = torch.nonzero((idx >= off) & (idx < off + wg),
+                                as_tuple=True)
+        out[sh * shard_size + col] = g.flatten(0, 1)[sh * wg + idx[sh, col]
+                                                     - off]
+        off += wg
+    sorted_keys, perm, max_runs = _sort_slabs(keys_n, counts, shard_size)
+    return (keys_n, sorted_keys, perm, out.unflatten(0, (s, shard_size)),
+            max_runs)
+
+
 # ---------------------------------------------------------------------------
 # Live-window lookups (explicit bucket_cap stores)
 # ---------------------------------------------------------------------------
@@ -183,6 +444,22 @@ def _live_window_tables(perm: torch.Tensor, live: torch.Tensor):
             torch.stack([o[1] for o in outs]))
 
 
+def _live_window_tables_sharded(perm: torch.Tensor, live: torch.Tensor):
+    """Sharded ``_live_window_tables``: perm (S, L, n_s) + live (S, n_s+1)
+    -> (live_rank (S, L, n_s+1), live_pos (S, L, n_s)) int32, every
+    (shard, table) in one pass. Shards and tables are independent integer
+    scans and stable sorts, so the values are the per-table build's."""
+    s, nt, n = perm.shape
+    live_sorted = torch.gather(live[:, None, :].expand(s, nt, n + 1), 2,
+                               perm.long())
+    rank = torch.cat([torch.zeros((s, nt, 1), dtype=torch.int32,
+                                  device=live.device),
+                      torch.cumsum(live_sorted, -1, dtype=torch.int32)],
+                     dim=-1)
+    pos = torch.argsort((~live_sorted).to(torch.uint8), dim=-1, stable=True)
+    return rank, pos.to(torch.int32)
+
+
 # ---------------------------------------------------------------------------
 # Mutable store: base + deltas + tombstones
 # ---------------------------------------------------------------------------
@@ -195,7 +472,9 @@ class StoreView:
     increments with every publish; ``core.index`` uses it to refuse a
     shadow store whose source mutated while it was built. ``k1_table`` is
     K1's device table of the segments (``kernels.fused_query
-    .segment_table``), built once per view."""
+    .segment_table``) in ``k1_segments`` order, built once per view: the
+    segments for a single-device store, every (shard, segment) pair,
+    shard-major, for a sharded one."""
 
     segments: tuple          # base + deltas, slot-offset order
     luts: tuple              # per segment (live (m+1,), eff (m,))
@@ -203,8 +482,12 @@ class StoreView:
     generation: int = 0
 
     @property
-    def base(self) -> TableSegment:
+    def base(self) -> TableSegment | ShardedSegment:
         return self.segments[0]
+
+    @property
+    def sharded(self) -> bool:
+        return isinstance(self.base, ShardedSegment)
 
     @property
     def n_deltas(self) -> int:
@@ -234,9 +517,26 @@ class StoreView:
         return tuple(seg.cap for seg in self.segments[1:])
 
     @functools.cached_property
+    def k1_segments(self) -> tuple[tuple, tuple]:
+        """(segment arrays, caps) in the order K1 walks them."""
+        if not self.sharded:
+            return self.all_arrays, self.all_caps
+        from repro_torch.kernels.fused_query import shard_segments
+        return shard_segments(self.seg_arrays(0), self.delta_arrays,
+                              self.base.cap, self.delta_caps)
+
+    @functools.cached_property
     def k1_table(self):
         from repro_torch.kernels.fused_query import segment_table
-        return segment_table(self.all_arrays, self.all_caps)
+        return segment_table(*self.k1_segments)
+
+
+def _flat(seg):
+    """A segment's (corpus-order keys, corpus) with any shard dim
+    flattened into its slot order."""
+    if isinstance(seg, ShardedSegment):
+        return seg.keys.flatten(0, 1), seg.flat_corpus
+    return seg.keys, seg.corpus
 
 
 def _cat_corpus(corpora):
@@ -253,23 +553,37 @@ def _cat_corpus(corpora):
 
 class SegmentStore:
     """LSM-style mutable view over immutable segments (reference:
-    ``repro.core.segments.SegmentStore``, single-device).
+    ``repro.core.segments.SegmentStore``, on one device).
 
-    One base ``TableSegment``, a list of delta segments, a host tombstone
-    mask over every slot, and per segment a host ``slot_pos`` map from slot
-    to sequence position. Every mutation ends by re-deriving the per-segment
-    device lookups and publishing a fresh ``StoreView`` (one attribute
-    write): ``live`` (m+1,) bool, ``eff`` (m,) int32 (the slot's effective
-    id) and, with ``live_window``, the (live_rank, live_pos) tables.
+    One base segment (``TableSegment``, or ``ShardedSegment`` for the
+    sharded store), a list of delta segments (``TableSegment``s, or routed
+    ``ShardedSegment`` slabs), a host tombstone mask over every slot (shard
+    pads are born dead), and per segment a host ``slot_pos`` map from slot
+    to sequence position (-1 for pads): routed slabs interleave shards, so
+    slot order is not arrival order. ``base_pos`` overrides the base's map
+    (a shard-local compaction leaves shards holding non-contiguous sequence
+    ranges). Every mutation ends by re-deriving the per-segment device
+    lookups and publishing a fresh ``StoreView`` (one attribute write):
+    ``live`` (m+1,) bool, ``eff`` (m,) int32 (the slot's effective id) and,
+    with ``live_window``, the (live_rank, live_pos) tables; sharded
+    segments get them per shard.
     """
 
-    def __init__(self, base: TableSegment, *, live_window: bool = False):
+    def __init__(self, base, *, base_pos: np.ndarray | None = None,
+                 live_window: bool = False):
         self.base = base
-        self.deltas: list[TableSegment] = []
+        self.deltas: list = []
         self.live_window = bool(live_window)
         self._generation = 0
-        self.slot_pos = [np.arange(base.slots, dtype=np.int64)]
-        self.live_host = np.ones(base.slots, bool)
+        if base_pos is None:
+            real = np.ones(base.slots, bool)
+            if isinstance(base, ShardedSegment):
+                n_s = base.shard_size
+                real = (np.arange(n_s)[None, :]
+                        < np.asarray(base.counts)[:, None]).reshape(-1)
+            base_pos = np.where(real, np.cumsum(real) - 1, -1)
+        self.slot_pos = [np.asarray(base_pos, np.int64)]
+        self.live_host = self.slot_pos[0] >= 0
         self.seq_len = int(base.items)
         self._refresh()
 
@@ -282,14 +596,22 @@ class SegmentStore:
     def _segments(self) -> list:
         return [self.base] + self.deltas
 
-    def _seg_luts(self, live: np.ndarray, eff: np.ndarray):
+    def _seg_luts(self, seg, live: np.ndarray, eff: np.ndarray):
         dev = self.device
+        if isinstance(seg, ShardedSegment):
+            s, n_s = seg.shards, seg.shard_size
+            return (torch.from_numpy(np.pad(live.reshape(s, n_s),
+                                            ((0, 0), (0, 1)))).to(dev),
+                    torch.from_numpy(eff.reshape(s, n_s)
+                                     .astype(np.int32)).to(dev))
         return (torch.from_numpy(np.append(live, False)).to(dev),
                 torch.from_numpy(eff.astype(np.int32)).to(dev))
 
-    def _seg_win(self, seg: TableSegment, live_lut: torch.Tensor):
+    def _seg_win(self, seg, live_lut: torch.Tensor):
         if not self.live_window:
             return None
+        if isinstance(seg, ShardedSegment):
+            return _live_window_tables_sharded(seg.perm, live_lut)
         return _live_window_tables(seg.perm, live_lut)
 
     def _refresh(self, touched: set[int] | None = None) -> None:
@@ -325,7 +647,7 @@ class SegmentStore:
             eff = (eff_seq[np.clip(pos, 0, None)] if self.seq_len
                    else np.zeros(seg.slots, np.int64))
             eff = np.where(pos >= 0, eff, 0)
-            lut = self._seg_luts(live, eff)
+            lut = self._seg_luts(seg, live, eff)
             luts.append(lut)
             if touched is None or i in touched:
                 wins.append(self._seg_win(seg, lut[0]))
@@ -357,6 +679,19 @@ class SegmentStore:
     @property
     def mutated(self) -> bool:
         return bool(self.deltas) or self.n_dead > 0
+
+    @property
+    def shard_live_counts(self) -> np.ndarray | None:
+        """(S,) live items per shard over the base and every slab: the
+        occupancy the routing balances (None for a single-device store)."""
+        counts, off = None, 0
+        for seg in self._segments():
+            live = self.live_host[off:off + seg.slots]
+            if isinstance(seg, ShardedSegment):
+                c = live.reshape(seg.shards, seg.shard_size).sum(axis=1)
+                counts = c.astype(np.int64) if counts is None else counts + c
+            off += seg.slots
+        return counts
 
     # -- durability hooks ----------------------------------------------------
 
@@ -391,23 +726,32 @@ class SegmentStore:
 
     # -- mutations ----------------------------------------------------------
 
-    def append_delta(self, seg: TableSegment) -> None:
+    def append_delta(self, seg, positions: np.ndarray | None = None) -> None:
         """O(batch) append: the new items take the next sequence positions
         and effective ids (after every live item), so earlier segments'
-        lookups are untouched and only the new segment's are built."""
-        n_new = seg.slots
+        lookups are untouched and only the new segment's are built.
+        ``positions`` maps the segment's slots to sequence positions (-1
+        for pads; ``build_sharded_delta`` makes it), by default the next
+        ones in slot order."""
         seq0, slots0 = self.seq_len, self.live_host.size
+        if positions is None:
+            positions = np.arange(seq0, seq0 + seg.slots)
+        positions = np.asarray(positions, np.int64)
+        valid = positions >= 0
+        n_new = int(valid.sum())
+        start = self.n_live
         self.deltas.append(seg)
-        self.slot_pos.append(np.arange(seq0, seq0 + n_new, dtype=np.int64))
-        live = np.ones(n_new, bool)
-        self.live_host = np.concatenate([self.live_host, live])
-        self._live_seq = np.concatenate([self._live_seq, live])
-        self._pos_to_slot = np.concatenate(
-            [self._pos_to_slot, np.arange(slots0, slots0 + n_new)])
-        eff = np.arange(self.n_live, self.n_live + n_new)
+        self.slot_pos.append(positions)
+        self.live_host = np.concatenate([self.live_host, valid])
+        self._live_seq = np.concatenate([self._live_seq,
+                                         np.ones(n_new, bool)])
+        p2s = np.full(n_new, -1, np.int64)
+        p2s[positions[valid] - seq0] = slots0 + np.flatnonzero(valid)
+        self._pos_to_slot = np.concatenate([self._pos_to_slot, p2s])
+        eff = np.where(valid, start + (positions - seq0), 0)
         self.seq_len += n_new
         self.n_live += n_new
-        lut = self._seg_luts(live, eff)
+        lut = self._seg_luts(seg, valid, eff)
         self._luts.append(lut)
         self._wins.append(self._seg_win(seg, lut[0]))
         self._publish()
@@ -440,20 +784,21 @@ class SegmentStore:
 
     def effective_arrays(self):
         """-> ((n_live, L) keys, corpus) of the live items in sequence (=
-        effective id) order, one gather each: the compaction input. Keys
-        come from storage, never from re-hashing."""
-        segs = self._segments()
+        effective id) order, one gather each: the input of a compaction or
+        a rebalance. Keys come from storage, never from re-hashing."""
+        flats = [_flat(seg) for seg in self._segments()]
         idx = torch.from_numpy(self._live_slots_seq_order()).to(self.device)
-        keys = torch.cat([seg.keys for seg in segs])[idx]
-        return keys, _cat_corpus([seg.corpus for seg in segs]).index(idx)
+        keys = torch.cat([k for k, _ in flats])[idx]
+        return keys, _cat_corpus([c for _, c in flats]).index(idx)
 
     def effective_corpus(self):
         """The live corpus in effective-id order: the base's own for a
-        pristine store, a slice when the live slots are a prefix in
-        sequence order, one gather otherwise."""
-        if not self.mutated:
+        pristine single-device store, a slice when the live slots are a
+        prefix in sequence order (a pristine sharded base), one gather
+        otherwise."""
+        if not self.mutated and isinstance(self.base, TableSegment):
             return self.base.corpus
-        corpus = _cat_corpus([seg.corpus for seg in self._segments()])
+        corpus = _cat_corpus([_flat(seg)[1] for seg in self._segments()])
         idx = self._live_slots_seq_order()
         if np.array_equal(idx, np.arange(idx.size)):
             return corpus.index(slice(0, idx.size))
@@ -508,3 +853,30 @@ def segmented_query(family, segs, mults, queries, *, metric: str,
                        num_tables=family.num_tables,
                        num_codes=family.num_codes, metric=metric, topk=topk,
                        caps=caps, probes=probes, table=table)
+
+
+def sharded_query(family, base, deltas, mults, queries, *, metric: str,
+                  topk: int, cap: int, delta_caps, probes: int = 1,
+                  table=None):
+    """The sharded planner (reference: ``sharded_query_vmap``, which vmaps
+    the per-shard probe over the shard dim on one device; nothing is
+    vmapped here): from a query batch to ((B, topk) effective ids, scores,
+    (B,) candidate counts) over every (shard, segment) pair. The batch is
+    stacked once, K3 or K4 (``raw`` epilogue) projects it once, and one K1s
+    launch (``kernels.fused_query.fused_query_sharded``) probes every
+    shard's base slice and delta slabs with one running top-k, which takes
+    the place of the reference's S-way merge. ``base`` / ``deltas`` are
+    the sharded segments' arrays (leading shard dim), ``table`` the view's
+    ``k1_table``."""
+    from repro_torch.kernels.fused_query import fused_query_sharded
+    from repro_torch.kernels.ops import mults_tensor
+
+    family.check_inputs(queries)
+    queries = queries.stack()
+    values = family.raw_stacked(queries[1], queries[0].scale)
+    return fused_query_sharded(
+        values, family.offsets, mults_tensor(mults, values.device), queries,
+        base, deltas, kind=family.kind, w=family.bucket_width,
+        num_tables=family.num_tables, num_codes=family.num_codes,
+        metric=metric, topk=topk, cap=cap, delta_caps=delta_caps,
+        probes=probes, table=table)

@@ -3,7 +3,8 @@
   cp_gram.py      K3: fused CP x CP hashing (csrc/cp_gram.cu)
   tt_inner.py     K4: fused TT x TT hashing, the chain (csrc/tt_inner.cu)
   fused_query.py  K1: discretize -> probe -> dedup -> CP or TT re-rank ->
-                  top-k (csrc/fused_query.cu)
+                  top-k (csrc/fused_query.cu); K1s: the same kernel over
+                  every (shard, segment) pair of a sharded store
   epilogues.py    hash epilogues and probe helpers as plain PyTorch
   ops.py          format stacking and ``fused_hash``
   ref.py          plain oracles

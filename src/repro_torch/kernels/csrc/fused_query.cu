@@ -7,7 +7,15 @@
 // (dense and live windows) and the re-rank of
 // repro/core/segments.py::hoisted_scores, for CP and TT corpora (the
 // template argument TR, the TT rank bound or 0 for CP, picks the format).
-// One block serves one query:
+// It also serves K1s, repro/kernels/fused_query.py::fused_query_sharded (the
+// same pl.pallas_call over every (shard, segment) pair of a sharded store):
+// the wrapper's segment table then holds one row per pair, shard-major,
+// each a shard's slice of a base or delta slab with its own m (the shard's
+// slot count) and cap. Pad slots of a shard carry the perm entry m and
+// live[m] is 0, so a probe that lands on one, even through a pad-key
+// collision, is a miss like a tombstone; effective ids are unique across
+// shards, so the running top-k over the rows is the reference's S-way
+// merge. One block serves one query:
 //
 //   1. keys, one warp per table: discretize the table's K raw values
 //      (floor((v + b) / w) or v > 0) and radix-combine them into the base

@@ -23,12 +23,22 @@ projections as an input, so the two can be held against each other on the
 same values (``LSHFamily.raw_stacked`` makes them with K3 or K4 on the main
 path), and both take the query batch as its format's ``stack`` gives it.
 
-The sharded entry (``fused_query_sharded``) is queued (ROADMAP.md).
-``fused_query.launches`` counts kernel launches and
-``fused_query.branches`` the launches that ran each branch ("multiprobe":
-T > 1, "live_window": a segment with live-window lookups, "segments":
-more than one segment); ``fused_query_plain.calls`` counts calls of the
-plain version.
+K1s, the sharded entry (``fused_query_sharded``, reference
+``fused_query_sharded``), is the same CUDA kernel launched once over every
+(shard, segment) pair of a sharded store, shard-major (``shard_segments``):
+each shard's base slice and delta slabs are rows of the segment table with
+their own ``m`` and cap, pad slots (perm entry ``m``, ``live[m]`` False)
+are misses like tombstones, and the running top-k over all rows takes the
+place of the reference's S-way merge (effective ids are unique across
+shards). Its plain version, ``fused_query_sharded_plain``, is
+``fused_query_plain``'s body over the same list.
+
+``fused_query.launches`` / ``fused_query_sharded.launches`` count kernel
+launches and ``.branches`` the launches that ran each branch
+("multiprobe": T > 1, "live_window": a segment with live-window lookups,
+"segments": more than one segment);
+``fused_query_plain.calls`` / ``fused_query_sharded_plain.calls`` count
+calls of the plain versions.
 """
 
 from __future__ import annotations
@@ -116,19 +126,9 @@ def probe_keys_from_values(values, offsets, mults, *, e2, w, num_tables,
     return keys.permute(1, 2, 0)
 
 
-def fused_query_plain(values, offsets, mults, queries, segs, *, kind, w,
-                      num_tables, num_codes, metric, topk, caps, probes=1):
-    """Plain PyTorch version of K1 -> (ids (B, topk) int32 effective ids,
-    scores (B, topk) float32, n_cand (B,) int32).
-
-    values (B, L*K) float32 raw projections; offsets (L*K,) float32 (E2LSH;
-    unused and may be None for SRP); mults (K,) uint32 values in int64;
-    queries the (batched CP or TT tensor, stacked tensor) pair of the
-    format's ``stack``; ``segs`` the segment arrays
-    (``core.segments.SegmentArrays``) in slot-offset order and ``caps``
-    their probe widths; ``probes`` = T.
-    """
-    fused_query_plain.calls += 1
+def _plain(values, offsets, mults, queries, segs, *, kind, w, num_tables,
+           num_codes, metric, topk, caps, probes):
+    """The body of K1's and K1s's plain versions."""
     keys = probe_keys_from_values(values, offsets, mults,
                                   e2=kind.endswith("e2lsh"), w=w,
                                   num_tables=num_tables, num_codes=num_codes,
@@ -152,16 +152,67 @@ def fused_query_plain(values, offsets, mults, queries, segs, *, kind, w,
     return out_ids, out_scores, n_cand
 
 
+def fused_query_plain(values, offsets, mults, queries, segs, *, kind, w,
+                      num_tables, num_codes, metric, topk, caps, probes=1):
+    """Plain PyTorch version of K1 -> (ids (B, topk) int32 effective ids,
+    scores (B, topk) float32, n_cand (B,) int32).
+
+    values (B, L*K) float32 raw projections; offsets (L*K,) float32 (E2LSH;
+    unused and may be None for SRP); mults (K,) uint32 values in int64;
+    queries the (batched CP or TT tensor, stacked tensor) pair of the
+    format's ``stack``; ``segs`` the segment arrays
+    (``core.segments.SegmentArrays``) in slot-offset order and ``caps``
+    their probe widths; ``probes`` = T.
+    """
+    fused_query_plain.calls += 1
+    return _plain(values, offsets, mults, queries, segs, kind=kind, w=w,
+                  num_tables=num_tables, num_codes=num_codes, metric=metric,
+                  topk=topk, caps=caps, probes=probes)
+
+
 fused_query_plain.calls = 0
+
+
+def shard_segments(base, deltas, cap, delta_caps) -> tuple[tuple, tuple]:
+    """A sharded store's (shard, segment) pairs in K1s's order, shard-major
+    (shard 0's base slice and delta slabs, then shard 1's, ...: the
+    reference's ``fused_query_sharded`` list) -> (per-shard segment arrays,
+    their caps). ``base`` / ``deltas`` hold a leading shard dim."""
+    segs, caps = [], []
+    for s in range(base.sorted_keys.shape[0]):
+        segs.append(base.shard(s))
+        caps.append(cap)
+        for d, dcap in zip(deltas, delta_caps):
+            segs.append(d.shard(s))
+            caps.append(dcap)
+    return tuple(segs), tuple(caps)
+
+
+def fused_query_sharded_plain(values, offsets, mults, queries, base, deltas,
+                              *, kind, w, num_tables, num_codes, metric,
+                              topk, cap, delta_caps, probes=1):
+    """Plain PyTorch version of K1s: ``fused_query_plain``'s body over
+    ``shard_segments(base, deltas, cap, delta_caps)``, one flat packed
+    selection over every (shard, segment) pair (other arguments as
+    ``fused_query_plain``)."""
+    fused_query_sharded_plain.calls += 1
+    segs, caps = shard_segments(base, deltas, cap, delta_caps)
+    return _plain(values, offsets, mults, queries, segs, kind=kind, w=w,
+                  num_tables=num_tables, num_codes=num_codes, metric=metric,
+                  topk=topk, caps=caps, probes=probes)
+
+
+fused_query_sharded_plain.calls = 0
 
 
 @dataclasses.dataclass(frozen=True)
 class SegmentTable:
-    """K1's view of a store's segments on the card: ``desc`` (S, 12) int64,
-    one row per segment (pointers to sorted_keys, perm, live, eff, the
-    stacked corpus, live_rank and live_pos (0 without a live window), then
-    m, cap, the stacked corpus rank and the corpus scale's float64 bits).
-    ``segs`` keeps the tensors the pointers name alive."""
+    """K1's view of a store's segments on the card: ``desc`` (G, 12) int64,
+    one row per segment, or per (shard, segment) pair for K1s: pointers to
+    sorted_keys, perm, live, eff, the stacked corpus, live_rank and
+    live_pos (0 without a live window), then m, cap, the stacked corpus
+    rank and the corpus scale's float64 bits. ``segs`` keeps the tensors
+    the pointers name alive."""
 
     desc: torch.Tensor
     segs: tuple
@@ -226,27 +277,21 @@ def _pairs(e2: bool, num_codes: int, device) -> torch.Tensor:
                        dim=1).to(torch.int32).contiguous().to(device)
 
 
-def fused_query(values, offsets, mults, queries, segs, *, kind, w, num_tables,
-                num_codes, metric, topk, caps, probes=1, table=None):
-    """K1 on the tensors' device (arguments as ``fused_query_plain``;
-    ``table`` the segments' ``segment_table``, built here if not given)."""
-    dev = values.device
-    probes = int(probes)
-    if dev.type == "cpu":
-        return fused_query_plain(values, offsets, mults, queries, segs,
-                                 kind=kind, w=w, num_tables=num_tables,
-                                 num_codes=num_codes, metric=metric,
-                                 topk=topk, caps=caps, probes=probes)
+def _check_device(dev: torch.device, name: str) -> None:
     if dev.type != "cuda":
-        raise ValueError(f"fused_query runs on cuda or cpu tensors, got {dev}")
+        raise ValueError(f"{name} runs on cuda or cpu tensors, got {dev}")
+
+
+def _launch(values, offsets, mults, queries, table, *, kind, w, num_tables,
+            num_codes, metric, topk, probes):
+    """One launch of ``csrc/fused_query.cu`` over the rows of ``table`` ->
+    (ids, scores, n_cand, the branches it ran or None when B = 0 launched
+    nothing)."""
     from repro_torch.kernels import _build
 
+    dev = values.device
     if probes < 1:
         raise ValueError(f"probes must be >= 1, got {probes}")
-    if table is None:
-        table = segment_table(segs, caps)
-    if tuple(caps) != table.caps or len(segs) != len(table.segs):
-        raise ValueError("the K1 table was built for other segments")
     e2 = kind.endswith("e2lsh")
     b = values.shape[0]
     q = queries[1]
@@ -263,8 +308,9 @@ def fused_query(values, offsets, mults, queries, segs, *, kind, w, num_tables,
                          f"registers; got Rq={rq}, Rc={rc}")
     expansion = (probing.expansion_size(kind, num_codes) if probes > 1
                  else 0)
-    window = window_capacity(num_tables, max(caps), n, d, rq, rc, tt=tt,
-                             probes=probes, topk=topk, expansion=expansion)
+    window = window_capacity(num_tables, max(table.caps), n, d, rq, rc,
+                             tt=tt, probes=probes, topk=topk,
+                             expansion=expansion)
     vals = values.contiguous().float()
     offs = offsets.float().contiguous() if e2 else None
     mu = mults.to(dev, torch.int64).contiguous()
@@ -273,24 +319,87 @@ def fused_query(values, offsets, mults, queries, segs, *, kind, w, num_tables,
     scores = torch.empty((b, topk), dtype=torch.float32, device=dev)
     ncand = torch.empty((b,), dtype=torch.int32, device=dev)
     if b == 0:
-        return ids, scores, ncand
+        return ids, scores, ncand, None
     err = _build.lib().fused_query_launch(
         vals.data_ptr(), offs.data_ptr() if e2 else None, mu.data_ptr(),
         pairs.data_ptr() if pairs is not None else None, q.data_ptr(),
-        table.desc.data_ptr(), len(segs), ids.data_ptr(), scores.data_ptr(),
-        ncand.data_ptr(), b, num_tables, num_codes, probes, expansion, n, d,
-        rq, rc, topk, int(e2), int(metric == "euclidean"), int(tt),
-        float(w) if e2 else 1.0, float(queries[0].scale), window, THREADS,
+        table.desc.data_ptr(), len(table.segs), ids.data_ptr(),
+        scores.data_ptr(), ncand.data_ptr(), b, num_tables, num_codes,
+        probes, expansion, n, d, rq, rc, topk, int(e2),
+        int(metric == "euclidean"), int(tt), float(w) if e2 else 1.0,
+        float(queries[0].scale), window, THREADS,
         torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "fused_query_launch")
-    fused_query.launches += 1
-    fused_query.branches.update(
-        [name for name, on in (("multiprobe", probes > 1),
-                               ("live_window", any(s.win is not None
-                                                   for s in segs)),
-                               ("segments", len(segs) > 1)) if on])
+    branches = [name for name, on in (
+        ("multiprobe", probes > 1),
+        ("live_window", any(s.win is not None for s in table.segs)),
+        ("segments", len(table.segs) > 1)) if on]
+    return ids, scores, ncand, branches
+
+
+def fused_query(values, offsets, mults, queries, segs, *, kind, w, num_tables,
+                num_codes, metric, topk, caps, probes=1, table=None):
+    """K1 on the tensors' device (arguments as ``fused_query_plain``;
+    ``table`` the segments' ``segment_table``, built here if not given)."""
+    dev = values.device
+    probes = int(probes)
+    if dev.type == "cpu":
+        return fused_query_plain(values, offsets, mults, queries, segs,
+                                 kind=kind, w=w, num_tables=num_tables,
+                                 num_codes=num_codes, metric=metric,
+                                 topk=topk, caps=caps, probes=probes)
+    _check_device(dev, "fused_query")
+    if table is None:
+        table = segment_table(segs, caps)
+    if tuple(caps) != table.caps or len(segs) != len(table.segs):
+        raise ValueError("the K1 table was built for other segments")
+    ids, scores, ncand, branches = _launch(
+        values, offsets, mults, queries, table, kind=kind, w=w,
+        num_tables=num_tables, num_codes=num_codes, metric=metric,
+        topk=topk, probes=probes)
+    if branches is not None:
+        fused_query.launches += 1
+        fused_query.branches.update(branches)
     return ids, scores, ncand
 
 
 fused_query.launches = 0
 fused_query.branches = collections.Counter()
+
+
+def fused_query_sharded(values, offsets, mults, queries, base, deltas, *,
+                        kind, w, num_tables, num_codes, metric, topk, cap,
+                        delta_caps, probes=1, table=None):
+    """K1s on the tensors' device: one launch of K1's kernel over every
+    (shard, segment) pair (``shard_segments``' order) -> (ids (B, topk)
+    int32 effective ids, scores (B, topk) float32, n_cand (B,) int32).
+    ``base`` / ``deltas`` are the sharded segments' arrays (leading shard
+    dim), ``cap`` / ``delta_caps`` their probe widths, ``table`` the
+    pairs' ``segment_table`` (the store view's ``k1_table``), built here if
+    not given; other arguments as ``fused_query_plain``."""
+    dev = values.device
+    probes = int(probes)
+    kw = dict(kind=kind, w=w, num_tables=num_tables, num_codes=num_codes,
+              metric=metric, topk=topk)
+    if dev.type == "cpu":
+        return fused_query_sharded_plain(values, offsets, mults, queries,
+                                         base, deltas, cap=cap,
+                                         delta_caps=delta_caps,
+                                         probes=probes, **kw)
+    _check_device(dev, "fused_query_sharded")
+    if table is None:
+        table = segment_table(*shard_segments(base, deltas, cap,
+                                              delta_caps))
+    caps = ((int(cap),) + tuple(delta_caps)) * base.sorted_keys.shape[0]
+    if caps != table.caps:
+        raise ValueError("the K1s table was built for other segments")
+    ids, scores, ncand, branches = _launch(values, offsets, mults, queries,
+                                           table, probes=probes, **kw)
+    if branches is not None:
+        fused_query_sharded.launches += 1
+        fused_query_sharded.branches.update(branches)
+    return ids, scores, ncand
+
+
+fused_query_sharded.launches = 0
+fused_query_sharded.branches = collections.Counter()

@@ -63,8 +63,7 @@ def stack_cp(x: CPTensor) -> tuple[CPTensor, torch.Tensor]:
     (B, N, d, R) float32), so the plain path and the kernels read the same
     memory and a batch is stacked once."""
     stacked = _stack_cp_batch(x).contiguous()
-    views = tuple(stacked[:, i, :dn] for i, dn in enumerate(x.dims))
-    return CPTensor(views, x.scale), stacked
+    return unstack_like(x, stacked), stacked
 
 
 def _stack_tt_cores(cores, rank: int, axis: int) -> torch.Tensor:
@@ -102,9 +101,20 @@ def stack_tt(x: TTTensor) -> tuple[TTTensor, torch.Tensor]:
     plain path reads the views at their true ranks, the kernels the padded
     tensor."""
     stacked = _stack_tt_batch(x)
-    views = tuple(stacked[:, i, :c.shape[1], :c.shape[2], :c.shape[3]]
-                  for i, c in enumerate(x.cores))
-    return TTTensor(views, x.scale), stacked
+    return unstack_like(x, stacked), stacked
+
+
+def unstack_like(x, stacked: torch.Tensor):
+    """A stacked tensor with any leading dims ((..., N, d, R) CP,
+    (..., N, R, d, R) TT) -> a tensor of ``x``'s format, mode dims, ranks
+    and scale whose leaves are views of ``stacked``: ``x``'s rows gathered,
+    padded or split into shards keep one copy."""
+    if x.layout == "cp":
+        return CPTensor(tuple(stacked[..., i, :dn, :]
+                              for i, dn in enumerate(x.dims)), x.scale)
+    return TTTensor(tuple(stacked[..., i, :c.shape[-3], :c.shape[-2],
+                                  :c.shape[-1]]
+                          for i, c in enumerate(x.cores)), x.scale)
 
 
 def mults_tensor(mults, device) -> torch.Tensor:

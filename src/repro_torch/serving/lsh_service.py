@@ -9,13 +9,20 @@ in-format re-rank, top-k) without leaving the card until the final
 ``apply_swap`` / ``compact`` mutate the store, with the reference's
 counters in ``ServiceStats``.
 
+``LSHService(..., shards=S)`` serves through ``ShardedLSHIndex`` on the
+same one device: S per-shard sorted tables, ``insert`` routed to the
+least-loaded shards as one delta slab, ``compact()`` shard-local, and
+``prepare_rebalance`` / ``rebalance`` re-partitioning the live corpus when
+occupancy skews (``ServiceStats.shard_occupancy`` / ``occupancy_skew`` /
+``rebalances`` track it). A query runs one K1s launch over every (shard,
+segment) pair.
+
 In the reference, ``build_service(device: bool)`` chooses between the device
 index and the host-dict index. Here ``device`` is the torch device the
 service runs on ("cuda" by default; "cpu" runs the kernels' plain
-versions). The host index, the sampling query modes, ``shards`` and
-``rebalance`` are queued: they raise ``NotImplementedError`` naming the
-ROADMAP.md item that brings them. That is a stated limit of the port, not a
-fallback.
+versions). The host index and the sampling query modes are queued: they
+raise ``NotImplementedError`` naming the ROADMAP.md item that brings them.
+That is a stated limit of the port, not a fallback.
 """
 
 from __future__ import annotations
@@ -27,7 +34,8 @@ from typing import Any, Sequence
 import numpy as np
 import torch
 
-from repro_torch.core.index import QUERY_MODES, DeviceLSHIndex
+from repro_torch.core.index import (QUERY_MODES, DeviceLSHIndex,
+                                    ShardedLSHIndex)
 from repro_torch.core.lsh import LSHFamily, make_family
 from repro_torch.device import resolve_device
 
@@ -57,6 +65,18 @@ class ServiceStats:
     compact_ms: float = 0.0    # explicit compact build wall time only
     auto_compactions: int = 0  # max_deltas-triggered folds inside insert()
     auto_compact_ms: float = 0.0
+    rebalances: int = 0        # explicit cross-shard re-partitions
+    rebalance_ms: float = 0.0
+    shard_occupancy: tuple[int, ...] = ()  # live items per shard (sharded
+                                           # index only; updated per mutation)
+
+    @property
+    def occupancy_skew(self) -> float:
+        """max/mean live items per shard (1.0 = perfectly balanced)."""
+        occ = self.shard_occupancy
+        if not occ or not sum(occ):
+            return 1.0
+        return max(occ) * len(occ) / sum(occ)
 
     @property
     def mean_latency_ms(self):
@@ -86,8 +106,10 @@ class ServiceStats:
         describe the live index only)."""
         self.inserted = self.insert_batches = 0
         self.deleted = self.delete_batches = 0
-        self.compactions = self.auto_compactions = 0
+        self.compactions = self.auto_compactions = self.rebalances = 0
         self.insert_ms = self.compact_ms = self.auto_compact_ms = 0.0
+        self.rebalance_ms = 0.0
+        self.shard_occupancy = ()
 
 
 class LSHService:
@@ -104,13 +126,16 @@ class LSHService:
                              f"one of {QUERY_MODES}")
         if query_mode != "topk":
             raise _queued(f"query_mode={query_mode!r}", "3")
-        if shards is not None:
-            raise _queued("the sharded index (shards=S)", "10")
         self.probes = int(probes)
         self.query_mode = query_mode
-        self.index = DeviceLSHIndex(family, metric=metric,
-                                    bucket_cap=bucket_cap,
-                                    max_deltas=max_deltas)
+        if shards is not None:
+            self.index = ShardedLSHIndex(family, metric=metric,
+                                         shards=shards, bucket_cap=bucket_cap,
+                                         max_deltas=max_deltas)
+        else:
+            self.index = DeviceLSHIndex(family, metric=metric,
+                                        bucket_cap=bucket_cap,
+                                        max_deltas=max_deltas)
         self.stats = ServiceStats()
 
     @property
@@ -124,6 +149,7 @@ class LSHService:
         self.stats.hash_s = self.index.hash_s
         self.stats.sort_s = self.index.sort_s
         self.stats.reset_mutations()
+        self._track_shards()
         return self
 
     # -- queries ------------------------------------------------------------
@@ -188,6 +214,11 @@ class LSHService:
 
     # -- mutations ----------------------------------------------------------
 
+    def _track_shards(self) -> None:
+        if isinstance(self.index, ShardedLSHIndex):
+            self.stats.shard_occupancy = tuple(
+                int(c) for c in self.index.occupancy())
+
     def _sync_mutation_stats(self) -> None:
         """Mirror the index's counters, splitting max_deltas-triggered
         folds from explicit publications."""
@@ -195,11 +226,13 @@ class LSHService:
         self.stats.auto_compactions = index.auto_compactions
         self.stats.auto_compact_ms = index.auto_compact_s * 1e3
         self.stats.compactions = index.compactions - index.auto_compactions
+        self.stats.rebalances = getattr(index, "rebalances", 0)
 
     def insert(self, batch, batch_size: int = 2048) -> "LSHService":
-        """Append a batch of items (one delta segment, served immediately).
-        A max_deltas auto-compaction triggered here is timed into
-        ``auto_compact_ms``, never ``insert_ms``."""
+        """Append a batch of items (one delta segment, a routed slab on the
+        sharded index, served immediately). A max_deltas auto-compaction
+        triggered here is timed into ``auto_compact_ms``, never
+        ``insert_ms``."""
         index = self.index
         n = batch.leaves[0].shape[0]
         auto_s0 = index.auto_compact_s
@@ -212,6 +245,7 @@ class LSHService:
         self.stats.inserted += n
         self.stats.insert_batches += 1
         self._sync_mutation_stats()
+        self._track_shards()
         return self
 
     def delete(self, ids) -> int:
@@ -219,6 +253,7 @@ class LSHService:
         n = self.index.delete(ids)
         self.stats.deleted += n
         self.stats.delete_batches += 1
+        self._track_shards()
         return n
 
     def prepare_compact(self):
@@ -235,17 +270,30 @@ class LSHService:
         Raises RuntimeError if the index mutated since the prepare."""
         self.index.apply_swap(pending)
         self._sync_mutation_stats()
+        self._track_shards()
         return self
 
     def compact(self) -> "LSHService":
-        """Fold deltas + tombstones back into the base (prepare + flip)."""
+        """Fold deltas + tombstones back into the base (prepare + flip;
+        shard-local on the sharded index: shards keep their item mix)."""
         return self.apply_swap(self.prepare_compact())
 
     def prepare_rebalance(self):
-        raise _queued("prepare_rebalance (the sharded index)", "10")
+        """Build the re-partitioned replacement store off the query path
+        (sharded index only); publish it with ``apply_swap``. The build
+        wall time lands in ``rebalance_ms``."""
+        if not isinstance(self.index, ShardedLSHIndex):
+            raise TypeError("rebalance applies to the sharded index only "
+                            "(pass shards=S)")
+        t0 = time.perf_counter()
+        pending = self.index.prepare_rebalance()
+        self.stats.rebalance_ms += (time.perf_counter() - t0) * 1e3
+        return pending
 
-    def rebalance(self):
-        raise _queued("rebalance (the sharded index)", "10")
+    def rebalance(self) -> "LSHService":
+        """Re-partition the live corpus into contiguous, evenly sized
+        shards (the explicit cross-shard move; sharded index only)."""
+        return self.apply_swap(self.prepare_rebalance())
 
 
 def build_service(key: torch.Generator, kind: str, dims: Sequence[int],
@@ -265,10 +313,15 @@ def build_service(key: torch.Generator, kind: str, dims: Sequence[int],
     parameters carried over from the reference with
     ``repro_torch.convert.family_from_numpy``); ``key`` is then unused and
     ``kind``, ``num_codes`` and ``num_tables`` must match it. The corpus is
-    moved to ``device``. The reference's ``hash_backend`` / ``probe_backend``
+    moved to ``device``. ``shards`` = S serves the sharded index (S shards
+    on ``device``). The reference's ``hash_backend`` / ``probe_backend``
     knobs do not exist here: the tensors' device picks kernel or plain path.
     """
     if device is False:
+        if shards is not None:
+            raise ValueError(
+                "shards requires the device index; the host-dict path has "
+                "no sharded layout")
         raise _queued("the host-dict index (device=False)", "7")
     dev = resolve_device(device)
     metric = metric or ("cosine" if kind.endswith("srp") else "euclidean")

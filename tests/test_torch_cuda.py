@@ -14,7 +14,11 @@ raw values and segment arrays, candidate counts equal bit for bit, scores
 within ``parity.rerank_bound``, ids equal except at near ties; so also on
 its multi-probe (T = 8, dense window), live-window (``bucket_cap``, after
 deletes) and multi-segment (a base and eight deltas) branches, and a
-segment whose window exceeds one block raises ``ValueError``.
+segment whose window exceeds one block raises ``ValueError``. K1s
+(``fused_query_sharded``, K1's kernel over every (shard, segment) pair):
+against its plain version on S = 3 stores with a padded last shard, two
+routed slabs, deletes and live windows at T in {1, 4}, CP and TT; and with
+the exact cap its answers equal the single-device index's bit for bit.
 """
 
 import pytest
@@ -27,7 +31,9 @@ from repro_torch.core.tensor_formats import (TTTensor, cp_random_data,
 from repro_torch.kernels import parity
 from repro_torch.kernels.cp_gram import cp_gram, cp_gram_plain
 from repro_torch.kernels.epilogues import EPILOGUES
-from repro_torch.kernels.fused_query import fused_query, fused_query_plain
+from repro_torch.kernels.fused_query import (fused_query, fused_query_plain,
+                                             fused_query_sharded,
+                                             fused_query_sharded_plain)
 from repro_torch.kernels.ops import (_stack_cp_batch, _stack_cp_proj,
                                      _stack_tt_batch, _stack_tt_proj,
                                      stack_cp)
@@ -300,3 +306,90 @@ def test_fused_query_window_limit_raises(gen):
     with pytest.raises(ValueError, match="at most 16384 slots"):
         svc.query_arrays(q, probes=2)
     assert fused_query.launches == launches
+
+
+def _k1s_vs_plain(svc, q, probes):
+    """K1s against its plain version over every (shard, segment) pair of
+    the service's sharded store, on the same raw values -> the kernel's
+    candidate counts."""
+    idx = svc.index
+    fam, view = idx.family, idx.store.view
+    qs = q.stack()
+    values = fam.raw_stacked(qs[1], q.scale)
+    args = (values, fam.offsets, idx._mults_t, qs, view.seg_arrays(0),
+            view.delta_arrays)
+    kw = dict(kind=fam.kind, w=fam.bucket_width, num_tables=fam.num_tables,
+              num_codes=fam.num_codes, metric=idx.metric, topk=10,
+              cap=view.base.cap, delta_caps=view.delta_caps, probes=probes)
+    launches = fused_query_sharded.launches
+    ids, sc, nc = fused_query_sharded(*args, table=view.k1_table, **kw)
+    ids_p, sc_p, nc_p = fused_query_sharded_plain(*args, **kw)
+    torch.cuda.synchronize()
+    assert fused_query_sharded.launches == launches + 1
+    assert torch.equal(nc, nc_p)
+    tol = parity.rerank_bound(idx.metric, q, idx.effective_corpus(), ids_p,
+                              sc_p)
+    same = (ids == ids_p) & (ids_p >= 0)
+    assert bool(((sc - sc_p).abs()[same] <= tol[same]).all())
+    assert parity.topk_mismatches(ids, sc, ids_p, sc_p, tol) == 0
+    assert bool((ids < idx.size).all())
+    return nc
+
+
+@pytest.mark.parametrize("layout", ["cp", "tt"])
+def test_fused_query_sharded_matches_plain(gen, layout):
+    """S = 3 over 20,000 items (the last shard padded), two routed slabs,
+    deletes in the base and the slabs, live windows, T = 1 and 4."""
+    from repro_torch.serving.lsh_service import build_service
+    n = 20000
+    data = cp_random_data if layout == "cp" else tt_random_data
+    dims = (6, 6, 6) if layout == "cp" else (8, 8, 8)
+    w = 2.0 if layout == "cp" else 8.0
+    corpus = data(gen, dims, 3, batch=n)
+    svc = build_service(gen, f"{layout}-e2lsh", dims, corpus, num_codes=6,
+                        num_tables=4, rank=2, bucket_width=w, bucket_cap=16,
+                        shards=3, probes=4)
+    base = svc.index.store.base
+    assert base.counts == (6667, 6667, 6666) and base.shard_size == 6667
+    inserted = [data(gen, dims, 3, batch=700) for _ in range(2)]
+    for batch in inserted:
+        svc.insert(batch)
+    svc.delete(torch.arange(0, svc.index.size, 5, device="cuda"))
+    occ = svc.stats.shard_occupancy
+    assert len(svc.index.store.deltas) == 2 and sum(occ) == svc.index.size
+    q = _planted(gen, inserted[1], 700, 200)
+    for probes in (1, 4):
+        nc = _k1s_vs_plain(svc, q, probes)
+        assert int(nc.sum()) > 0
+    for branch in ("multiprobe", "live_window", "segments"):
+        assert fused_query_sharded.branches[branch] > 0
+
+
+@pytest.mark.parametrize("layout", ["cp", "tt"])
+def test_fused_query_sharded_equals_single_device(gen, layout):
+    """Exact cap: the sharded index (a padded last shard, a routed slab, a
+    delete) answers like the single-device index over the same items, ids,
+    scores and candidate counts bit for bit: K1 scores a candidate from its
+    row and the query alone, whatever (shard, segment) holds it."""
+    from repro_torch.serving.lsh_service import build_service
+    n = 12001
+    data = cp_random_data if layout == "cp" else tt_random_data
+    dims = (6, 6, 6) if layout == "cp" else (8, 8, 8)
+    kind = f"{layout}-e2lsh"
+    w = 2.0 if layout == "cp" else 8.0
+    corpus = data(gen, dims, 3, batch=n)
+    kw = dict(num_codes=8, num_tables=4, rank=2, bucket_width=w)
+    single = build_service(gen, kind, dims, corpus, **kw)
+    sharded = build_service(None, kind, dims, corpus, shards=3,
+                            family=single.index.family, **kw)
+    batch = data(gen, dims, 3, batch=300)
+    for svc in (single, sharded):
+        svc.insert(batch)
+        svc.delete(torch.arange(7, n, 11, device="cuda"))
+    q = _planted(gen, corpus, n, 256)
+    for probes in (1, 3):
+        got = sharded.query_arrays(q, probes=probes)
+        want = single.query_arrays(q, probes=probes)
+        for g, w_ in zip(got, want):
+            assert (g.view("int32") == w_.view("int32")).all()
+    _k1s_vs_plain(sharded, q, 3)

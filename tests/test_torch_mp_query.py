@@ -192,8 +192,10 @@ def test_service_mutation_endpoints_and_stats(services):
     assert tst.auto_compactions == 1 and tst.compactions == 2
     assert tst.insert_ms > 0 and tst.auto_compact_ms > 0
     assert tst.compact_ms > 0 and tst.insert_items_per_s > 0
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        s["tsvc"].rebalance()
+    with pytest.raises(TypeError, match="sharded index only"):
+        s["tsvc"].rebalance()           # the reference's refusal
+    with pytest.raises(TypeError, match="sharded index only"):
+        s["jsvc"].rebalance()
     # every query still answers from the live corpus
     ids, _, n_cand = s["tsvc"].query_arrays(s["twrap"](s["queries"]),
                                             topk=TOPK)

@@ -11,8 +11,9 @@ mode), with the reference's sampled family carried over.
   at near ties.
 * recall@k against brute force within 0.05 of the reference's (one id of
   the 20 per query set may move across a near tie or a boundary code).
-* The service's request contract: validation errors as in the reference,
-  and ``NotImplementedError`` for what the port does not serve yet.
+* The service's request contract: validation errors as in the reference
+  (``rebalance`` without shards raises its ``TypeError``), and
+  ``NotImplementedError`` for what the port does not serve yet.
 """
 
 import jax  # noqa: F401  (both frameworks in one process, JAX on the CPU)
@@ -134,11 +135,11 @@ def test_request_validation_and_queued_features(services):
         svc.query_arrays(q, mode="weighted", seed=1)
     ids, _, _ = svc.query_arrays(q, probes=2)        # multi-probe: served
     assert ids.shape == (B, 10)
-    for call in (svc.rebalance, svc.prepare_rebalance,
-                 lambda: build_service(None, services["kind"], tb.DIMS, q,
-                                       device=False)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            call()
+    for call in (svc.rebalance, svc.prepare_rebalance):
+        with pytest.raises(TypeError, match="sharded index only"):
+            call()                                   # as the reference's
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        build_service(None, services["kind"], tb.DIMS, q, device=False)
 
 
 def test_sampled_family_serves_on_cpu():

@@ -136,12 +136,17 @@ def leaves_of(x):
 
 
 def carry_store(store, device="cpu"):
-    """A reference ``SegmentStore`` -> the port's, through
-    ``convert.store_from_numpy`` (each segment's arrays as numpy, plus the
-    reference's ``host_state()``)."""
-    segs = [dict(corpus_factors=leaves_of(seg.corpus),
-                 sorted_keys=np.asarray(seg.sorted_keys),
-                 perm=np.asarray(seg.perm), keys=np.asarray(seg.keys),
-                 cap=seg.cap, corpus_scale=seg.corpus.scale)
-            for seg in [store.base] + list(store.deltas)]
+    """A reference ``SegmentStore`` (single-device or sharded) -> the
+    port's, through ``convert.store_from_numpy`` (each segment's arrays as
+    numpy, with ``counts`` for sharded segments, plus the reference's
+    ``host_state()``)."""
+    segs = []
+    for seg in [store.base] + list(store.deltas):
+        arrays = dict(corpus_factors=leaves_of(seg.corpus),
+                      sorted_keys=np.asarray(seg.sorted_keys),
+                      perm=np.asarray(seg.perm), keys=np.asarray(seg.keys),
+                      cap=seg.cap, corpus_scale=seg.corpus.scale)
+        if hasattr(seg, "counts"):
+            arrays["counts"] = seg.counts
+        segs.append(arrays)
     return convert.store_from_numpy(segs, store.host_state(), device)
