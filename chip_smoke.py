@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's CP and TT serving paths on one NVIDIA H100.
+"""Drive the PyTorch port's serving paths and its kernel-level path on one
+NVIDIA H100.
 
     python3 chip_smoke.py [--log2-corpus 20] [--batches 256] [--batch 1024]
 
@@ -58,7 +59,23 @@ Phases (any failure exits non-zero):
          single-device one (ids and candidate counts);
        - [tt-shard]: a tt-srp / cosine index at 2^16 over 3 shards (the last
          padded): answers equal the single-device index's, K1s-TT against
-         its plain version.
+         its plain version;
+  6. [ann-k8]: examples/ann_search.py's own K = 8 (L = 10, exact cap about
+     2616) over the CP cell's corpus and queries: a window past one block's
+     shared memory, so K1's spill branch (and never its shared one) on every
+     batch; recall@1, K1 against its plain version on 4 batches, its time;
+  7. [kernels], the card twin of benchmarks/kernels.py: K3 at B=64 N=4 d=64
+     R=32 L=8 K=8 and K4 at B=32 N=4 d=32 R=16 L=4 K=8 (raw values against
+     the plain version and float64, fused keys bitwise against the tails
+     composed on the kernel's raw values), the standalone K6 (``srp_pack``)
+     and K7 (``e2lsh_quant``) bitwise against their plain versions at
+     benchmark and ragged shapes, ``hash_packed_batch`` against
+     ``pack_bits(hash_batch)``, ``cp_inner_products`` /
+     ``tt_inner_products``; K6 and K7 timed over 2^20 rows;
+  8. [limits]: K3 at benchmarks/collision.py's K = 2000 in one table and K4
+     at K = 1024 (both tiled over hashes), and a TT rank-16 index (2^14
+     items of dims (8, 8, 8, 8)) through K4's warp kernel and K1-TT, each
+     against its plain version and timed.
 
 Every path's kernel counters are zeroed just before it runs and read just
 after: each kernel and each K1 / K1s branch it needs must have launched,
@@ -341,23 +358,29 @@ def make_queries(corpus, qid, gen):
                          for f in q.leaves), 1.0)
 
 
-COUNTED = ("cp_gram", "tt_inner", "fused_query", "fused_query_sharded")
+COUNTED = ("cp_gram", "tt_inner", "fused_query", "fused_query_sharded",
+           "srp_pack", "e2lsh_quant")
 
 
 def counters():
     """{name: the wrapper or plain function whose count it is}."""
     from repro_torch.kernels import fused_query as fq
     from repro_torch.kernels.cp_gram import cp_gram, cp_gram_plain
+    from repro_torch.kernels.e2lsh_quant import e2lsh_quant, e2lsh_quant_plain
+    from repro_torch.kernels.srp_pack import srp_pack, srp_pack_plain
     from repro_torch.kernels.tt_inner import tt_inner, tt_inner_plain
     return {"cp_gram": cp_gram, "cp_gram_plain": cp_gram_plain,
             "tt_inner": tt_inner, "tt_inner_plain": tt_inner_plain,
             "fused_query": fq.fused_query,
             "fused_query_plain": fq.fused_query_plain,
             "fused_query_sharded": fq.fused_query_sharded,
-            "fused_query_sharded_plain": fq.fused_query_sharded_plain}
+            "fused_query_sharded_plain": fq.fused_query_sharded_plain,
+            "srp_pack": srp_pack, "srp_pack_plain": srp_pack_plain,
+            "e2lsh_quant": e2lsh_quant,
+            "e2lsh_quant_plain": e2lsh_quant_plain}
 
 
-BRANCHES = ("multiprobe", "live_window", "segments")
+BRANCHES = ("multiprobe", "live_window", "segments", "shared", "spill")
 K1_WRAPPERS = ("fused_query", "fused_query_sharded")
 
 
@@ -486,7 +509,10 @@ def phase_main(cell, corpus, qids, queries):
           f"{cell['tables'] * svc.index.cap}")
     print(f"[{tag}] launches on the main path: {counts} (build: "
           f"{hash_kernel} {build_launches})")
-    check_counts(counts, tag, (hash_kernel, "fused_query"))
+    check_counts(counts, tag, (hash_kernel, "fused_query",
+                               "fused_query:shared"))
+    if counts["fused_query:spill"]:
+        fail(f"{tag}: the spill branch ran on a window that fits")
     hits1, n_q = check_results(results, [q.cpu().numpy() for q in qids], n)
     recall1 = hits1 / n_q
     self_ok = (self_ids[:, 0] == qids[0][:256].cpu().numpy()).mean()
@@ -1384,6 +1410,374 @@ def phase_tt_shard(cell) -> None:
                        f"B={q.leaves[0].shape[0]}")
 
 
+# [kernels]: the card twin of benchmarks/kernels.py (its K3 and K4 shapes,
+# K6 at (256, 256) and the ragged shapes of tests/test_kernels.py, K7 at two
+# widths), and the standalone kernels at serving scale: K6 over (2^20, 128)
+# values and K7 over (2^20, 100), the L*K of [main]
+KERNELS = dict(
+    k3=dict(b=64, n=4, d=64, r=32, l=8, k=8, w=4.0),
+    k4=dict(b=32, n=4, d=32, r=16, l=4, k=8),
+    k6=[(256, 256), (1, 1), (3, 31), (5, 33), (7, 40), (8, 70), (13, 64),
+        (20, 5), (9, 96)],
+    k7=[(256, 100, 4.0), (33, 129, 6.0), (7, 1, 6.0)],
+    serve_rows=1 << 20, k6_cols=128, k7_cols=100)
+
+
+def bench_hash(layout, x, p, offs, mults, w, raw_k, keys_k, label):
+    """benchmarks/kernels.py's checks on the card: the raw values against
+    the plain version (rounding bound) and float64 (the accuracy-factor
+    rule), and the fused keys bitwise against the tails composed on the
+    kernel's own raw values -> max |kernel - plain|."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.e2lsh_quant import e2lsh_quant_plain
+    f = hash_fns(layout)
+    b, l, k = raw_k.shape
+    raw_p = f["plain"](x, p, epilogue="raw")
+    bound = f["bound"](x, p, 1.0)
+    err = (raw_k - raw_p).abs()
+    if not bool((err <= bound).all()):
+        fail(f"{f['name']} {label}: {int((err > bound).sum())} raw values "
+             "outside the rounding bound")
+    acc = Accuracy()
+    acc.add(raw_k, raw_p, exact_raw(f, x, p, 1.0))
+    accuracy = acc.check(f"{f['name']} {label} raw")
+    if offs is not None:
+        codes = e2lsh_quant_plain(raw_k.reshape(b, l * k), offs.reshape(-1),
+                                  w).reshape(b, l, k)
+        epi = "e2lsh-keys"
+    else:
+        codes, epi = (raw_k > 0).to(torch.int32), "srp-keys"
+    want = ref.combine_ref(codes, mults)
+    if not torch.equal(keys_k, want):
+        fail(f"{f['name']} {label}: {int((keys_k != want).sum())} {epi} "
+             "differ from the tails composed on the kernel's raw values")
+    print(f"[kernels] {f['name']} {label}: raw within the rounding bound, "
+          f"max |kernel - plain| {float(err.max()):.3g} (relative to max "
+          f"|raw| {float(err.max() / raw_p.abs().max()):.3g}); {accuracy}; "
+          f"{epi} equal to the composed tails on all {keys_k.numel()} cells")
+    return float(err.max())
+
+
+def phase_kernels() -> list:
+    """[kernels]: the kernel-level path (the standalone API and the hash
+    kernels at benchmarks/kernels.py's shapes), counters zeroed just before
+    and read just after; then every output against its plain version, and
+    the times of K6, K7 and the two hash shapes -> their kernel records."""
+    import torch
+    from repro_torch.core import projections, tensor_formats
+    from repro_torch.core.lsh import make_family, make_mults, pack_bits
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.cp_gram import cp_gram
+    from repro_torch.kernels.e2lsh_quant import e2lsh_quant_plain
+    from repro_torch.kernels.srp_pack import srp_pack_plain
+    from repro_torch.kernels.tt_inner import tt_inner
+    gen = torch.Generator(device="cuda").manual_seed(23)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+
+    c3, c4 = KERNELS["k3"], KERNELS["k4"]
+    x3 = randn(c3["b"], c3["n"], c3["d"], c3["r"])
+    p3 = randn(c3["n"], c3["l"], c3["k"], c3["d"], c3["r"])
+    offs3 = torch.rand((c3["l"], c3["k"]), generator=gen,
+                       device="cuda") * c3["w"]
+    mults3 = ops.mults_tensor(make_mults(0, c3["k"]), "cuda")
+    x4 = randn(c4["b"], c4["n"], c4["r"], c4["d"], c4["r"])
+    p4 = randn(c4["n"], c4["l"], c4["k"], c4["r"], c4["d"], c4["r"])
+    mults4 = ops.mults_tensor(make_mults(0, c4["k"]), "cuda")
+    k6_in = [randn(b, k) for b, k in KERNELS["k6"]]
+    for v in k6_in:
+        v[:, ::5] = 0.0
+    k7_in = []
+    for b, k, w in KERNELS["k7"]:
+        offs = torch.rand(k, generator=gen, device="cuda") * w
+        m = torch.randint(-1000, 1000, (b, k), generator=gen, device="cuda")
+        edge = torch.nextafter(m.float() * w, torch.tensor(
+            -float("inf"), device="cuda")) - offs
+        k7_in += [(10.0 * randn(b, k), offs, w), (edge, offs, w)]
+    fam = make_family(gen, "cp-srp", (8, 8, 8), num_codes=40, num_tables=3,
+                      rank=2, device="cuda")
+    xs = tensor_formats.cp_random_data(gen, (8, 8, 8), 3, batch=1000)
+    x1 = tensor_formats.cp_random_data(gen, (10, 10, 10), 3)
+    pc1 = projections.sample_cp_projection(gen, 12, (10, 10, 10), 4)
+    t1 = tensor_formats.tt_random_data(gen, (9, 9, 9), 3)
+    pt1 = projections.sample_tt_projection(gen, 10, (9, 9, 9), 2)
+    torch.cuda.synchronize()
+
+    zero_counts()
+    raw3 = cp_gram(x3, p3, epilogue="raw")
+    keys3 = cp_gram(x3, p3, offs3, mults3, epilogue="e2lsh-keys", w=c3["w"])
+    raw4 = tt_inner(x4, p4, epilogue="raw")
+    keys4 = tt_inner(x4, p4, None, mults4, epilogue="srp-keys")
+    words = [ops.srp_pack(v) for v in k6_in]
+    codes = [ops.e2lsh_quantize(v, o, w) for v, o, w in k7_in]
+    packed, hashed = fam.hash_packed_batch(xs), fam.hash_batch(xs)
+    ip_cp, ip_tt = ops.cp_inner_products(x1, pc1), ops.tt_inner_products(
+        t1, pt1)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    print(f"[kernels] launches on the kernel-level path: {counts}")
+    check_counts(counts, "kernels", ("cp_gram", "tt_inner", "srp_pack",
+                                     "e2lsh_quant"))
+
+    err3 = bench_hash("cp", x3, p3, offs3, mults3, c3["w"], raw3, keys3,
+                      "B=64 N=4 d=64 R=32 L=8 K=8")
+    err4 = bench_hash("tt", x4, p4, None, mults4, 0.0, raw4, keys4,
+                      "B=32 N=4 d=32 R=16 L=4 K=8")
+    for (b, k), v, got in zip(KERNELS["k6"], k6_in, words):
+        if not torch.equal(got, srp_pack_plain(v)):
+            fail(f"K6 ({b}, {k}): words differ from the plain version's")
+    for (v, o, w), got in zip(k7_in, codes):
+        if not torch.equal(got, e2lsh_quant_plain(v, o, w)):
+            fail(f"K7 {tuple(v.shape)} w={w}: codes differ from the plain "
+                 "version's")
+    if not torch.equal(packed, pack_bits(hashed)):
+        fail("hash_packed_batch differs from pack_bits(hash_batch)")
+    for name, got, p, x in (("cp_inner_products", ip_cp, pc1, x1),
+                            ("tt_inner_products", ip_tt, pt1, t1)):
+        want = projections.project_batch(p, x.index((None,)))[0]
+        if not torch.allclose(got, want, rtol=2e-4, atol=2e-4):
+            fail(f"{name} differs from the plain projection")
+    print(f"[kernels] K6 at {KERNELS['k6']} and K7 at "
+          f"{[(b, k, w) for b, k, w in KERNELS['k7']]} (random values and "
+          "values one ulp below a bucket edge) equal their plain versions "
+          "bit for bit; hash_packed_batch (cp-srp K=40, 2 words) equals "
+          "pack_bits(hash_batch); cp/tt_inner_products within 2e-4 of the "
+          "plain projection")
+    print("[kernels] benchmarks/kernels.py's fused-hash block sweep tunes the "
+          "TPU grid's (block_b, block_t) tiles; the CUDA kernels choose their "
+          "blocks from the shape (cp_gram.block_items, tt_inner.block_shape), "
+          "so the sweep has no counterpart here")
+
+    # times: the two standalone kernels at serving scale, the hash kernels
+    # at the benchmark's shapes
+    rows = KERNELS["serve_rows"]
+    v6 = [randn(rows, KERNELS["k6_cols"]) for _ in range(2)]
+    k7c = KERNELS["k7_cols"]
+    v7 = [randn(rows, k7c) for _ in range(2)]
+    o7 = torch.rand(k7c, generator=gen, device="cuda") * 2.0
+    t6 = (cuda_ms([lambda v=v: ops.srp_pack(v) for v in v6], 20),
+          cuda_ms([lambda: srp_pack_plain(v6[0])], 3),
+          *bound_ms(rows * KERNELS["k6_cols"] * 4
+                    + rows * -(-KERNELS["k6_cols"] // 32) * 8,
+                    rows * KERNELS["k6_cols"]))
+    t7 = (cuda_ms([lambda v=v: ops.e2lsh_quantize(v, o7, 2.0) for v in v7],
+                  20),
+          cuda_ms([lambda: e2lsh_quant_plain(v7[0], o7, 2.0)], 3),
+          *bound_ms(rows * k7c * 8 + k7c * 4, rows * k7c * 3))
+    del v6, v7
+    n3 = c3["b"] * c3["l"] * c3["k"]
+    t3 = (cuda_ms([lambda: cp_gram(x3, p3, offs3, mults3,
+                                   epilogue="e2lsh-keys", w=c3["w"])], 20),
+          cuda_ms([lambda: hash_fns("cp")["plain"](
+              x3, p3, offs3, mults3, epilogue="e2lsh-keys", w=c3["w"])], 3),
+          *bound_ms(4 * (x3.numel() + p3.numel() + c3["l"] * c3["k"]
+                         + c3["k"] + c3["b"] * c3["l"]),
+                    n3 * c3["r"] ** 2 * (2 * c3["n"] * c3["d"] + c3["n"])))
+    n4 = c4["b"] * c4["l"] * c4["k"]
+    ranks = (1,) + (c4["r"],) * (c4["n"] - 1) + (1,)
+    t4 = (cuda_ms([lambda: tt_inner(x4, p4, None, mults4,
+                                    epilogue="srp-keys")], 20),
+          cuda_ms([lambda: hash_fns("tt")["plain"](
+              x4, p4, None, mults4, epilogue="srp-keys")], 3),
+          *bound_ms(4 * (x4.numel() + p4.numel() + c4["k"]
+                         + c4["b"] * c4["l"]),
+                    n4 * tt_chain_flops(ranks, ranks, (c4["d"],) * c4["n"])))
+    for name, t, what in (
+            ("K6", t6, f"({rows}, {KERNELS['k6_cols']}) values"),
+            ("K7", t7, f"({rows}, {k7c}) values"),
+            ("K3 e2lsh-keys", t3, "B=64 N=4 d=64 R=32 L=8 K=8 (warp kernel)"),
+            ("K4 srp-keys", t4, "B=32 N=4 d=32 R=16 L=4 K=8 (warp kernel)")):
+        print(f"[time] {name}, {what}: {t[0]:.4f} ms (plain {t[1]:.4f} ms); "
+              f"bound {t[2]:.4f} ms by {t[3]}")
+    return [record("srp_pack", *K6_SOURCE, counts, "srp_pack", 0.0, t6),
+            record("e2lsh_quant", *K7_SOURCE, counts, "e2lsh_quant", 0.0, t7),
+            record("cp_gram[R=32]", *HASH_RECORDS["cp"][1:], counts,
+                   "cp_gram", err3, t3),
+            record("tt_inner[R=16]", *HASH_RECORDS["tt"][1:], counts,
+                   "tt_inner", err4, t4)]
+
+
+# [ann-k8]: examples/ann_search.py's own K = 8 over [main]'s corpus and
+# queries; its exact cap (about 2616) makes a 26,160-slot window, past one
+# block's shared memory: K1's spill branch
+ANN_K8 = dict(codes=8, k1_batches=4)
+
+
+def phase_ann_k8(cell, corpus, qids, queries):
+    """[ann-k8]: build_service at the example's K = 8 (L = 10, exact cap)
+    over the CP cell's corpus and queries, counters zeroed just before and
+    read just after: the spill branch must have run and the shared one not;
+    recall@1; K1 against its plain version on the first batches; its
+    time."""
+    import torch
+    from repro_torch.kernels.fused_query import window_plan
+    from repro_torch.serving.lsh_service import build_service
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    svc = build_service(torch.Generator(device="cuda").manual_seed(1),
+                        cell["kind"], cell["dims"], corpus,
+                        num_codes=ANN_K8["codes"], num_tables=cell["tables"],
+                        rank=cell["rank"], bucket_width=cell["width"],
+                        device="cuda")
+    results, lat_ms = serve(svc, queries)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    idx = svc.index
+    n = corpus.leaves[0].shape[0]
+    stacked = idx.store.base.stacked
+    plan = window_plan(cell["tables"], idx.cap, stacked.shape[1],
+                       stacked.shape[2], stacked.shape[3], stacked.shape[3])
+    print(f"[ann-k8] build_service, {cell['kind']} K={ANN_K8['codes']} "
+          f"L={cell['tables']}: exact cap {idx.cap} -> L*cap = "
+          f"{cell['tables'] * idx.cap} slots, a {plan[0]}-slot window on the "
+          f"{plan[1]} branch; build {svc.stats.build_s:.3f} s; peak device "
+          f"memory {peak / 2**30:.2f} GiB")
+    latency_line("ann-k8", svc, lat_ms)
+    print(f"[ann-k8] launches on the main path: {counts}")
+    check_counts(counts, "ann-k8", ("cp_gram", "fused_query",
+                                    "fused_query:spill"))
+    if counts["fused_query:shared"]:
+        fail("ann-k8: the shared-window branch ran on the spill path")
+    hits1, n_q = check_results(results, [q.cpu().numpy() for q in qids], n)
+    print(f"[ann-k8] recall@1 (planted) {hits1 / n_q:.4f} over {n_q} queries")
+    if hits1 / n_q < RECALL1_MIN:
+        fail(f"ann-k8: recall@1 {hits1 / n_q} below {RECALL1_MIN}")
+    errs = []
+    for i in range(ANN_K8["k1_batches"]):
+        e, k1_args = k1_compare(svc, queries[i], f"ann-k8 batch {i}, "
+                                                 f"B={len(qids[i])}")
+        errs.append(e)
+    k1_t = k1_times(svc, queries, k1_args, "K1 spill")
+    return record("fused_query[spill]", *K1_SOURCE, counts,
+                  "fused_query:spill", max(errs), k1_t)
+
+
+# [limits]: the shapes F2 lifted. K3 at benchmarks/collision.py's (dims
+# (8, 8, 8), rank 2, K = 2000 in one table), K4 at K = 1024, and a TT index
+# at TT rank 16 through K4 (its warp kernel) and K1-TT (TR = 16)
+LIMITS = dict(dims=(8, 8, 8), rank=2, items=4096, k3=2000, k4=1024, w=4.0,
+              tt=dict(dims=(8, 8, 8, 8), rhat=16, n=1 << 14, codes=12,
+                      tables=8, rank=4, every=64))
+
+
+def phase_limits() -> list:
+    """[limits]: K3 at K = 2000, K4 at K = 1024 and a TT rank-16 index,
+    counters zeroed just before and read just after; each against its
+    plain version (``hash_compare``, ``k1_compare``) and timed -> their
+    kernel records."""
+    import torch
+    from repro_torch.core import projections, tensor_formats
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.cp_gram import cp_gram
+    from repro_torch.kernels.tt_inner import tt_inner
+    from repro_torch.serving.lsh_service import build_service
+    gen = torch.Generator(device="cuda").manual_seed(29)
+    dims, c = LIMITS["dims"], LIMITS["tt"]
+    xs3 = tensor_formats.cp_random_data(gen, dims, LIMITS["rank"],
+                                        batch=LIMITS["items"])
+    pr3 = projections.sample_cp_projection(gen, LIMITS["k3"], dims,
+                                           LIMITS["rank"])
+    x3, p3 = ops._stack_cp_batch(xs3), ops._stack_cp_proj(pr3, 1)
+    xs4 = tensor_formats.tt_random_data(gen, dims, LIMITS["rank"],
+                                        batch=LIMITS["items"])
+    pr4 = projections.sample_tt_projection(gen, LIMITS["k4"], dims,
+                                           LIMITS["rank"])
+    x4, p4 = ops._stack_tt_batch(xs4), ops._stack_tt_proj(pr4, 1)
+    s3, s4 = xs3.scale * pr3.scale, xs4.scale * pr4.scale
+    corpus = tensor_formats.tt_random_data(gen, c["dims"], c["rhat"],
+                                           batch=c["n"])
+    w = LIMITS["w"]
+    offs = {k: torch.rand((1, k), generator=gen, device="cuda") * w
+            for k in (LIMITS["k3"], LIMITS["k4"])}
+    mults = {k: torch.randint(0, 1 << 32, (k,), generator=gen, device="cuda",
+                              dtype=torch.int64) | 1
+             for k in (LIMITS["k3"], LIMITS["k4"])}
+    torch.cuda.synchronize()
+
+    zero_counts()
+    cp_gram(x3, p3, offs[LIMITS["k3"]], mults[LIMITS["k3"]],
+            epilogue="e2lsh-keys", w=w, scale=s3)
+    tt_inner(x4, p4, offs[LIMITS["k4"]], mults[LIMITS["k4"]],
+             epilogue="e2lsh-keys", w=w, scale=s4)
+    svc = build_service(gen, "tt-srp", c["dims"], corpus, metric="cosine",
+                        num_codes=c["codes"], num_tables=c["tables"],
+                        rank=c["rank"], device="cuda")
+    q = make_queries(corpus, torch.arange(0, c["n"], c["every"],
+                                          device="cuda"), gen)
+    ids, _, n_cand = svc.query_arrays(q, topk=TOPK)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    print(f"[limits] launches: {counts}")
+    check_counts(counts, "limits", ("cp_gram", "tt_inner", "fused_query"))
+    errs = {}
+    for layout, x, p, sc, k in (("cp", x3, p3, s3, LIMITS["k3"]),
+                                ("tt", x4, p4, s4, LIMITS["k4"])):
+        acc = Accuracy()
+        e, nb, nd, nk = hash_compare(layout, x, p, offs[k], mults[k], sc, w,
+                                     f"K={k}", acc)
+        errs[layout] = e
+        print(f"[limits] {hash_fns(layout)['name']} at {LIMITS['items']} "
+              f"items of dims {dims}, rank {LIMITS['rank']}, K={k} in one "
+              f"table: raw within the rounding bound (max |kernel - plain| "
+              f"{e:.3g}); {acc.check(f'{layout} K={k}')}; {nb} boundary "
+              f"codes, {nd} of {nk} key cells differ")
+    idx = svc.index
+    base = idx.store.base
+    fam = idx.family
+    offs_t = torch.rand((c["tables"], c["codes"]), generator=gen,
+                        device="cuda") * 8.0
+    acc = Accuracy()
+    e, nb, nd, nk = hash_compare("tt", base.stacked, fam.stacked_projection,
+                                 offs_t, idx._mults_t,
+                                 corpus.scale * fam.projection.scale, 8.0,
+                                 "TT rank 16", acc)
+    errs["tt16"] = e
+    print(f"[limits] K4 over the TT rank-16 index's {c['n']} items (dims "
+          f"{c['dims']}, family rank {c['rank']}, K={c['codes']} "
+          f"L={c['tables']}): raw within the rounding bound (max |kernel - "
+          f"plain| {e:.3g}); {acc.check('K4 TT rank 16')}; {nd} of {nk} key "
+          f"cells differ; {float(n_cand.mean()):.1f} candidates per query, "
+          f"self-found {float((ids[:, 0] >= 0).mean()):.4f}")
+    k1_err, k1_args = k1_compare(svc, q, f"TT rank {c['rhat']}, "
+                                         f"B={q.leaves[0].shape[0]}")
+    k1_t = k1_times(svc, [q], k1_args, f"K1-TT rank {c['rhat']}")
+
+    def hash_time(layout, x, p, sc, k):
+        f = hash_fns(layout)
+        kw = dict(epilogue="e2lsh-keys", w=w, scale=sc)
+        args = (x, p, offs[k], mults[k])
+        items = x.shape[0]
+        xr = LIMITS["rank"]
+        if layout == "cp":
+            pair = xr * xr * (2 * sum(dims) + len(dims))
+            row = len(dims) * dims[0] * xr
+        else:
+            ranks = (1,) + (xr,) * (len(dims) - 1) + (1,)
+            pair = tt_chain_flops(ranks, ranks, dims)
+            row = sum(a * d * b for a, d, b in zip(ranks, dims, ranks[1:]))
+        return (cuda_ms([lambda: f["kernel"](*args, **kw)], 10),
+                cuda_ms([lambda: f["plain"](*args, **kw)], 2),
+                *bound_ms(4 * (items * row + k * row + 2 * k + items),
+                          items * k * pair))
+
+    t3 = hash_time("cp", x3, p3, s3, LIMITS["k3"])
+    t4 = hash_time("tt", x4, p4, s4, LIMITS["k4"])
+    for name, t in (("K3 e2lsh-keys, K=2000 (tiled)", t3),
+                    ("K4 e2lsh-keys, K=1024 (tiled)", t4)):
+        print(f"[time] {name}, {LIMITS['items']} items: {t[0]:.4f} ms "
+              f"(plain {t[1]:.4f} ms); bound {t[2]:.4f} ms by {t[3]}")
+    return [record("cp_gram[K=2000]", *HASH_RECORDS["cp"][1:], counts,
+                   "cp_gram", errs["cp"], t3),
+            record("tt_inner[K=1024]", *HASH_RECORDS["tt"][1:], counts,
+                   "tt_inner", errs["tt"], t4),
+            record("fused_query[tt, R=16]", *K1_SOURCE, counts,
+                   "fused_query", k1_err, k1_t)]
+
+
 def record(name, source, replaces, counts, key, err, times):
     """One entry of the kernels line (``key`` a counter of read_counts;
     the plain calls are its kernel's)."""
@@ -1405,6 +1799,10 @@ K1_SOURCE = ("src/repro_torch/kernels/csrc/fused_query.cu",
              "src/repro/kernels/fused_query.py:235")
 K1S_SOURCE = ("src/repro_torch/kernels/csrc/fused_query.cu",
               "src/repro/kernels/fused_query.py:250")
+K6_SOURCE = ("src/repro_torch/kernels/csrc/srp_pack.cu",
+             "src/repro/kernels/srp_pack.py:42")
+K7_SOURCE = ("src/repro_torch/kernels/csrc/e2lsh_quant.cu",
+             "src/repro/kernels/e2lsh_quant.py:30")
 
 
 def run_cell(layout: str, log2_corpus: int, args) -> list:
@@ -1446,6 +1844,8 @@ def run_cell(layout: str, log2_corpus: int, args) -> list:
     records.append(phase_mut(cell, corpus, qids, args))
     torch.cuda.empty_cache()
     records.append(phase_shard_mut(cell, corpus, qids, args))
+    torch.cuda.empty_cache()
+    records.append(phase_ann_k8(cell, corpus, qids, queries))
     return records
 
 
@@ -1470,6 +1870,10 @@ def main(argv=None) -> int:
     kernels = run_cell("cp", args.log2_corpus, args)
     torch.cuda.empty_cache()
     kernels += run_cell("tt", TT_LOG2_CORPUS, args)
+    torch.cuda.empty_cache()
+    kernels += phase_kernels()
+    torch.cuda.empty_cache()
+    kernels += phase_limits()
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))

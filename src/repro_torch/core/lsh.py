@@ -8,7 +8,8 @@
 A family carries K x L hash functions (K codes per table, L tables) and
 hashes inputs of its own format (CP inputs under a CP family, TT under TT).
 Hashing is batch-native: ``hash_batch`` maps a (B, ...) batch to (B, L, K)
-int32 codes and ``hash_keys`` to (B, L) bucket keys, both through
+int32 codes, ``hash_keys`` to (B, L) bucket keys and, for the SRP kinds,
+``hash_packed_batch`` to (B, L, ceil(K/32)) packed signatures, all through
 ``repro_torch.kernels.ops.fused_hash``: the K3 (CP) or K4 (TT) kernel when
 the inputs lie on the card, its plain version when they lie on the CPU.
 There is no backend knob; the tensors' device decides.
@@ -30,7 +31,9 @@ import torch
 from repro_torch.core import projections as proj_lib
 from repro_torch.core.projections import CPProjection, TTProjection
 from repro_torch.device import resolve_device
-from repro_torch.kernels.epilogues import U32_MASK, div_w, mul_u32
+# pack_bits: {0, 1} codes along the last axis -> uint32 words (the
+# reference's ``lsh.pack_bits``)
+from repro_torch.kernels.epilogues import U32_MASK, div_w, mul_u32, pack_bits
 
 E2LSH_KINDS = ("cp-e2lsh", "tt-e2lsh")
 SRP_KINDS = ("cp-srp", "tt-srp")
@@ -48,6 +51,13 @@ def e2lsh_discretize(values: torch.Tensor, b: torch.Tensor,
 def srp_discretize(values: torch.Tensor) -> torch.Tensor:
     """sign(v) in {0, 1} (paper Eq. 3.1): 1 iff v > 0."""
     return (values > 0).to(torch.int32)
+
+
+def unpack_bits(words: torch.Tensor, k: int) -> torch.Tensor:
+    """Inverse of ``pack_bits``, truncated back to K bits -> int32."""
+    shifts = torch.arange(32, dtype=torch.int64, device=words.device)
+    bits = (words.to(torch.int64)[..., None] >> shifts) & 1
+    return bits.reshape(*words.shape[:-1], -1)[..., :k].to(torch.int32)
 
 
 def _combine_codes(codes: torch.Tensor, mults: torch.Tensor) -> torch.Tensor:
@@ -160,6 +170,15 @@ class LSHFamily:
         discretize -> radix combine, one fused call; equal to
         ``_combine_codes(self.hash_batch(xs), mults)``."""
         return self._fused(self.stack(xs), xs.scale, "keys", mults=mults)
+
+    def hash_packed_batch(self, xs) -> torch.Tensor:
+        """SRP only: (B, L, ceil(K/32)) packed signatures (uint32 values in
+        int64), sign and bit-pack in one fused call (the K3 / K4
+        ``srp-packed`` epilogue); equal to ``pack_bits(self.hash_batch(xs))``
+        on the same device."""
+        if self.kind not in SRP_KINDS:
+            raise ValueError("hash_packed is defined for SRP kinds only")
+        return self._fused(self.stack(xs), xs.scale, "packed")
 
 
 def make_family(gen: torch.Generator, kind: str, dims: Sequence[int],

@@ -34,15 +34,19 @@ _D = ctypes.c_double
 # C signatures of the entry points (restype int = cudaError_t).
 SIGNATURES = {
     # x, p, offsets, mults, out, B, N, D, RX, L, K, RP, epilogue, w, scale,
-    # block_b, block_l, stream
-    "cp_gram_launch": [_P] * 5 + [_I] * 8 + [_F, _F, _I, _I, _P],
+    # block_b, block_l, block_k, stream
+    "cp_gram_launch": [_P] * 5 + [_I] * 8 + [_F, _F, _I, _I, _I, _P],
     # the same arguments, in the TT layouts
-    "tt_inner_launch": [_P] * 5 + [_I] * 8 + [_F, _F, _I, _I, _P],
+    "tt_inner_launch": [_P] * 5 + [_I] * 8 + [_F, _F, _I, _I, _I, _P],
     # values, offsets, mults, pairs, q, segment table, S, ids, scores,
     # ncand, B, L, K, T, C, N, D, RQ, RC, topk, e2, euclid, tt, w, qs, P,
-    # threads, stream
+    # spill scratch, threads, stream
     "fused_query_launch": [_P] * 6 + [_I] + [_P] * 3 + [_I] * 13
-                          + [_F, _D, _I, _I, _P],
+                          + [_F, _D, _I, _P, _I, _P],
+    # values, out, B, K, stream
+    "srp_pack_launch": [_P, _P, ctypes.c_longlong, _I, _P],
+    # values, offsets, out, B, K, w, stream
+    "e2lsh_quant_launch": [_P, _P, _P, ctypes.c_longlong, _I, _F, _P],
 }
 
 _LIB = None

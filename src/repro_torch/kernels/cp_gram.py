@@ -11,6 +11,13 @@ launches the CUDA kernel ``csrc/cp_gram.cu`` on CUDA tensors and runs the
 plain version ``cp_gram_plain`` on CPU tensors; any other device raises.
 ``cp_gram.launches`` counts kernel launches, ``cp_gram_plain.calls`` calls
 of the plain version.
+
+Ranks up to ``MAX_THREAD_RANK`` run one thread per (item, table) over
+register tiles, with a table's hashes tiled over blocks where its factors
+do not fit ``SMEM_BUDGET`` beside the items (``block_items``); ranks up to
+``MAX_RANK``, and shapes of which not even one item and one hash fit the
+budget, run the warp kernel (one warp per (item, table), nothing staged).
+Above ``MAX_RANK`` the wrapper raises.
 """
 
 from __future__ import annotations
@@ -21,7 +28,8 @@ from repro_torch.kernels.epilogues import EPILOGUES, apply_epilogue, out_struct
 
 _EPILOGUE_CODE = {name: i for i, name in enumerate(EPILOGUES)}
 SMEM_BUDGET = 96 * 1024   # bytes of shared memory a K3 block may take
-MAX_RANK = 8              # largest Rx, Rp the kernel's register tiles hold
+MAX_THREAD_RANK = 8       # largest Rx, Rp the per-thread register tiles hold
+MAX_RANK = 32             # largest Rx, Rp of the warp kernel
 
 
 def cp_gram_plain(x_factors: torch.Tensor, p_factors: torch.Tensor,
@@ -47,22 +55,39 @@ cp_gram_plain.calls = 0
 
 
 def block_items(n_modes: int, d: int, rx: int, num_tables: int, k: int,
-                rp: int, b: int) -> tuple[int, int]:
-    """(items, tables) per K3 block: up to 64 items (never more than the
-    batch needs) and as many tables as fit 1024 threads and
-    ``SMEM_BUDGET`` bytes of staged factors."""
+                rp: int, b: int) -> tuple[int, int, int] | None:
+    """(items, tables, hashes) per block of K3's thread kernel: up to 64
+    items (never more than the batch needs) and as many whole tables as fit
+    1024 threads and ``SMEM_BUDGET`` bytes of staged factors; where one
+    table does not fit beside the items, one table's hashes in chunks of
+    as many as fit (a multiple of 32 where that is at least 32, so packed
+    words stay whole), with fewer items where 32 hashes, or one, do not.
+    None where not even one item and one hash fit: the warp kernel then
+    serves the shape."""
     per_item = n_modes * d * rx * 4
-    per_table = k * n_modes * d * rp * 4
+    per_hash = n_modes * d * rp * 4
+
+    def fits(bb, lb, kb):
+        return bb * per_item + lb * kb * per_hash <= SMEM_BUDGET
+
     bb = min(64, -(-b // 32) * 32)
     lb = max(1, min(num_tables, 1024 // bb))
-    while lb > 1 and bb * per_item + lb * per_table > SMEM_BUDGET:
+    while lb > 1 and not fits(bb, lb, k):
         lb -= 1
-    if bb * per_item + lb * per_table > SMEM_BUDGET:
-        raise ValueError(
-            f"K3 stages {per_item} B per item and {per_table} B per table; "
-            f"{bb} items and one table exceed its {SMEM_BUDGET} B "
-            "shared-memory budget")
-    return bb, lb
+    if fits(bb, lb, k):
+        return bb, lb, k
+    for least in (min(k, 32), 1):
+        items = bb
+        while items > 1 and not fits(items, 1, least):
+            items //= 2
+        if fits(items, 1, least):
+            break
+    else:
+        return None
+    kb = min(k, (SMEM_BUDGET - items * per_item) // per_hash)
+    if kb >= 32:
+        kb -= kb % 32
+    return items, 1, kb
 
 
 def cp_gram(x_factors: torch.Tensor, p_factors: torch.Tensor,
@@ -94,20 +119,24 @@ def cp_gram(x_factors: torch.Tensor, p_factors: torch.Tensor,
             if offsets is not None else None)
     mu = (mults.reshape(k).to(dev, torch.int64).contiguous()
           if mults is not None else None)
+    if max(rx, rp) > MAX_RANK:
+        raise ValueError(f"K3 takes ranks up to {MAX_RANK}; got Rx={rx}, "
+                         f"Rp={rp}")
+    blocks = (block_items(n, d, rx, l, k, rp, b)
+              if max(rx, rp) <= MAX_THREAD_RANK else None)
+    bb, lb, kb = blocks or (0, 0, k)    # block_b 0: the warp kernel
     shape, dtype = out_struct(b, l, k, epilogue)
-    out = torch.empty(shape, dtype=dtype, device=dev)
+    # a table tiled over hashes adds its chunks' keys and words into zeros
+    out = (torch.zeros if kb < k else torch.empty)(shape, dtype=dtype,
+                                                   device=dev)
     if b == 0:
         return out
-    if max(rx, rp) > MAX_RANK:
-        raise ValueError(f"K3 holds ranks up to {MAX_RANK} in registers; got "
-                         f"Rx={rx}, Rp={rp}")
-    bb, lb = block_items(n, d, rx, l, k, rp, b)
     err = _build.lib().cp_gram_launch(
         x.data_ptr(), p.data_ptr(),
         offs.data_ptr() if offs is not None else None,
         mu.data_ptr() if mu is not None else None,
         out.data_ptr(), b, n, d, rx, l, k, rp, _EPILOGUE_CODE[epilogue],
-        float(w), float(scale), bb, lb,
+        float(w), float(scale), bb, lb, kb,
         torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "cp_gram_launch")
     cp_gram.launches += 1

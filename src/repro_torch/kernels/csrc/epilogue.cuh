@@ -8,6 +8,14 @@
 // packed little-endian into uint32 words. Keys and words are stored as
 // int64 holding the uint32 value.
 //
+// A kernel that splits a table's K hashes over blocks (K3 and K4 tile K
+// when one table does not fit a block) passes the chunk's end and
+// chunked = 1: each block then adds its partial key into the low uint32
+// word of the zero-initialised int64 output (atomicAdd wraps mod 2^32, and
+// sum_k code_k * mults[k] mod 2^32 is the same whatever the grouping) and
+// ORs its bits into the packed words, so the chunks combine exactly. With
+// chunked = 0 every output is a plain store.
+//
 // Rounding: v + b uses __fadd_rn, so that the compiler cannot contract it
 // with the caller's scale multiply into one FMA, and the division by w is
 // __fdiv_rn (IEEE, never a multiply by 1/w), as in the reference; otherwise
@@ -29,7 +37,14 @@ struct EpilogueArgs {
   void* out;
   int L, K, epilogue;
   float w;
+  int kend = 0;             // end of this block's hashes (chunked only)
+  int chunked = 0;          // 1: partial keys / words combine atomically
 };
+
+// The low uint32 word of an int64 output cell (little-endian).
+__device__ __forceinline__ unsigned int* low_word(void* out, size_t cell) {
+  return reinterpret_cast<unsigned int*>(static_cast<long long*>(out) + cell);
+}
 
 struct EpilogueTail {
   uint32_t key = 0u, word = 0u;
@@ -53,10 +68,13 @@ struct EpilogueTail {
       static_cast<int*>(e.out)[cell] = code;
     } else if (e.epilogue == kSrpPacked) {
       word |= (uint32_t)code << (k & 31);
-      if ((k & 31) == 31 || k == e.K - 1) {
+      if ((k & 31) == 31 || k == e.K - 1 || (e.chunked && k == e.kend - 1)) {
         const int words = (e.K + 31) / 32;
-        static_cast<long long*>(e.out)[((size_t)z * e.L + l) * words +
-                                       (k >> 5)] = (long long)word;
+        const size_t wc = ((size_t)z * e.L + l) * words + (k >> 5);
+        if (e.chunked)
+          atomicOr(low_word(e.out, wc), word);
+        else
+          static_cast<long long*>(e.out)[wc] = (long long)word;
         word = 0u;
       }
     } else {
@@ -67,8 +85,12 @@ struct EpilogueTail {
   // After the table's last code: stores the radix key (*-keys modes).
   __device__ __forceinline__ void finish(const EpilogueArgs& e, long long z,
                                          int l) const {
-    if (e.epilogue == kE2lshKeys || e.epilogue == kSrpKeys)
-      static_cast<long long*>(e.out)[(size_t)z * e.L + l] = (long long)key;
+    if (e.epilogue != kE2lshKeys && e.epilogue != kSrpKeys) return;
+    const size_t cell = (size_t)z * e.L + l;
+    if (e.chunked)
+      atomicAdd(low_word(e.out, cell), key);
+    else
+      static_cast<long long*>(e.out)[cell] = (long long)key;
   }
 };
 

@@ -67,12 +67,26 @@
 // entries of the two chain states (TT), and a shuffle reduction sums them.
 // The binary searches are dependent loads and latency-bound; hiding that
 // (several queries per block, prefetching) is work for a later change.
-// Shared memory is sized for the largest single segment's window L*T*cap
-// (rounded up to a power of two for the bitonic sort), not for the sum
-// over segments, since segments run one after another: 12 bytes a slot,
-// so the largest window one block takes is 16384 slots with CP rows of the
-// serving shape and 8192 with 4 KiB TT rows; the wrapper raises above it.
-// The expansion's per-warp scores and deltas reuse the window region.
+// The window is sized for the largest single segment's L*T*cap (rounded
+// up to a power of two for the bitonic sort), not for the sum over
+// segments, since segments run one after another: 12 bytes a slot. Two
+// branches of the one kernel hold it. The shared branch keeps it in shared
+// memory, up to 16384 slots with CP rows of the serving shape and 8192
+// with 4 KiB TT rows; the expansion's per-warp scores and deltas reuse that
+// region. Past that, the spill branch runs the same stages over a window
+// of W slots per query in global memory (scratch the wrapper allocates,
+// B x W x 12 bytes): the gather, the bitonic sort and the duplicate mask
+// over global memory between the same block barriers (a barrier orders
+// the block's global accesses as it does its shared ones), the same
+// re-rank and the same packed top-k, so its answers equal the shared
+// branch's bit for bit. The window sort then reads L2 instead of shared
+// memory; only the data-sized part of the window (the next power of two
+// above the slots the query filled) is sorted in either branch.
+//
+// TT rows of ranks above 8 (TR = 16) are read in place from the corpus
+// instead of being copied into a per-warp buffer (a 16 x 8 x 16 core per
+// mode would not fit eight warps' buffers), and the chain state is read
+// from shared memory instead of a register tile.
 //
 // Rounding: the score combine uses __fadd_rn / __fsub_rn / __fmul_rn /
 // __fdiv_rn so no FMA contraction changes the reference's expression, and
@@ -133,25 +147,43 @@ __device__ void tt_chains(const float* a1, int ra1, const float* b1, int rb1,
       const float* s = one ? st : st + n1;
       const float* an = (one ? a1 : a2) + (size_t)n * ra * D * ra + c;
       const float* bn = (one ? b1 : b2) + (size_t)n * rb * D * rb + e;
-      float sr[TR][TR];
-#pragma unroll
-      for (int x = 0; x < TR; ++x)
-#pragma unroll
-        for (int y = 0; y < TR; ++y)
-          sr[x][y] = (x < ra && y < rb) ? s[x * rb + y] : 0.f;
       float acc = 0.f;
-      for (int i = 0; i < D; ++i) {
-        float bv[TR], av[TR];
+      if constexpr (TR <= 8) {
+        float sr[TR][TR];
 #pragma unroll
-        for (int y = 0; y < TR; ++y) bv[y] = y < rb ? bn[(y * D + i) * rb] : 0.f;
+        for (int x = 0; x < TR; ++x)
 #pragma unroll
-        for (int x = 0; x < TR; ++x) av[x] = x < ra ? an[(x * D + i) * ra] : 0.f;
+          for (int y = 0; y < TR; ++y)
+            sr[x][y] = (x < ra && y < rb) ? s[x * rb + y] : 0.f;
+        for (int i = 0; i < D; ++i) {
+          float bv[TR], av[TR];
 #pragma unroll
-        for (int x = 0; x < TR; ++x) {
-          float u = 0.f;
+          for (int y = 0; y < TR; ++y)
+            bv[y] = y < rb ? bn[(y * D + i) * rb] : 0.f;
 #pragma unroll
-          for (int y = 0; y < TR; ++y) u += sr[x][y] * bv[y];
-          acc += av[x] * u;
+          for (int x = 0; x < TR; ++x)
+            av[x] = x < ra ? an[(x * D + i) * ra] : 0.f;
+#pragma unroll
+          for (int x = 0; x < TR; ++x) {
+            float u = 0.f;
+#pragma unroll
+            for (int y = 0; y < TR; ++y) u += sr[x][y] * bv[y];
+            acc += av[x] * u;
+          }
+        }
+      } else {  // a TR x TR state does not fit a lane's registers
+        for (int i = 0; i < D; ++i) {
+          float bv[TR];
+#pragma unroll
+          for (int y = 0; y < TR; ++y)
+            bv[y] = y < rb ? bn[(y * D + i) * rb] : 0.f;
+          for (int x = 0; x < ra; ++x) {
+            const float* sx = s + x * rb;
+            float u = 0.f;
+#pragma unroll
+            for (int y = 0; y < TR; ++y) u += (y < rb ? sx[y] : 0.f) * bv[y];
+            acc += an[(x * D + i) * ra] * u;
+          }
         }
       }
       nxt[p] = acc;
@@ -231,8 +263,12 @@ __device__ __forceinline__ bool lex_less(float s, int c, float bs, int bc) {
   return s < bs || (s == bs && c < bc);
 }
 
-// TR = 0: CP rows; TR = 4 or 8: TT rows of ranks at most TR.
-template <int TR>
+// TR = 0: CP rows; TR = 4, 8 or 16: TT rows of ranks at most TR. SPILL:
+// false for the shared branch (spill unused), true for the spill branch,
+// whose scratch holds 12 * P bytes per query (P int64 selection keys, then
+// P uint32 window slots). A template argument, so that the shared branch
+// addresses its window as shared memory exactly as before.
+template <int TR, bool SPILL>
 __global__ void fused_query_kernel(
     const float* __restrict__ values,          // (B, L*K)
     const float* __restrict__ offsets,         // (L*K,)
@@ -243,21 +279,27 @@ __global__ void fused_query_kernel(
     int S, int* __restrict__ out_ids, float* __restrict__ out_scores,
     int* __restrict__ out_ncand, int L, int K, int T, int C, int N, int D,
     int RQ, int RCMAX, int topk, int e2, int euclid, float w, double qs,
-    int P) {
+    int P, unsigned long long* spill) {
   constexpr bool tt = TR > 0;
+  constexpr bool stage_rows = TR <= 8;  // rows of ranks > 8 are read in place
   constexpr unsigned kFull = 0xffffffffu;
   extern __shared__ unsigned long long smem64[];
   const int nwarps = blockDim.x >> 5;
   const int LT = L * T;
   unsigned long long* top = smem64;                   // [2 * topk]
-  unsigned long long* ckey = top + 2 * topk;          // [P]
+  unsigned long long* xreg = top + 2 * topk;          // the shared region
+  unsigned long long* ckey = xreg;                    // [P]
+  if constexpr (SPILL)
+    ckey = spill + (size_t)blockIdx.x * P + (size_t)blockIdx.x * (P / 2);
   uint32_t* win = reinterpret_cast<uint32_t*>(ckey + P);  // [P]
-  size_t region = max((size_t)P * 12, (size_t)nwarps * C * 8);
+  size_t region = SPILL ? (size_t)nwarps * C * 8
+                        : max((size_t)P * 12, (size_t)nwarps * C * 8);
   region = (region + 7) & ~(size_t)7;
   float* qf = reinterpret_cast<float*>(
-      reinterpret_cast<char*>(ckey) + region);        // [FQ]
+      reinterpret_cast<char*>(xreg) + region);        // [FQ]
   const int FQ = tt ? N * RQ * D * RQ : N * D * RQ;   // floats of a query row
-  const int FCMAX = tt ? N * RCMAX * D * RCMAX : N * D * RCMAX;
+  const int FCMAX = !stage_rows ? 0
+                    : tt ? N * RCMAX * D * RCMAX : N * D * RCMAX;
   const int SW = tt ? 2 * max(RQ * RCMAX + RCMAX * RCMAX, RQ * RQ) : 0;
   float* ybuf = qf + FQ;                              // [nwarps][FCMAX]
   float* sbuf = ybuf + nwarps * FCMAX;                // [nwarps][SW]
@@ -278,9 +320,10 @@ __global__ void fused_query_kernel(
   if (tid == 0) total_s = 0;
 
   // 1. keys and the multi-probe expansion, one warp per table; the warp's
-  // candidate scores and deltas live in the (not yet used) window region
+  // candidate scores and deltas live in the shared region (the shared
+  // branch's window, not yet used)
   const int NS = e2 ? 2 * K : K;
-  float* sc = reinterpret_cast<float*>(ckey) + (size_t)warp * 2 * C;
+  float* sc = reinterpret_cast<float*>(xreg) + (size_t)warp * 2 * C;
   uint32_t* dl = reinterpret_cast<uint32_t*>(sc + C);
   for (int l = warp; l < L; l += nwarps) {
     const float* v = values + (size_t)b * L * K + (size_t)l * K;
@@ -455,33 +498,37 @@ __global__ void fused_query_kernel(
     for (int j = warp; j < n_cand; j += nwarps) {
       const uint32_t id = (uint32_t)ckey[j];
       const float* y = g.c + (size_t)id * FC;
-      // the row through the read-only path, 8 loads in flight per lane
-      // before their stores (a 4 KiB TT row is 32 loads a lane)
-      for (int i0 = lane; i0 < FC; i0 += 256) {
-        float r[8];
+      const float* yr = y;
+      if constexpr (stage_rows) {
+        // the row through the read-only path, 8 loads in flight per lane
+        // before their stores (a 4 KiB TT row is 32 loads a lane)
+        for (int i0 = lane; i0 < FC; i0 += 256) {
+          float r[8];
 #pragma unroll
-        for (int u = 0; u < 8; ++u) {
-          const int i = i0 + 32 * u;
-          r[u] = i < FC ? __ldg(y + i) : 0.f;
-        }
+          for (int u = 0; u < 8; ++u) {
+            const int i = i0 + 32 * u;
+            r[u] = i < FC ? __ldg(y + i) : 0.f;
+          }
 #pragma unroll
-        for (int u = 0; u < 8; ++u) {
-          const int i = i0 + 32 * u;
-          if (i < FC) yb[i] = r[u];
+          for (int u = 0; u < 8; ++u) {
+            const int i = i0 + 32 * u;
+            if (i < FC) yb[i] = r[u];
+          }
         }
+        __syncwarp();
+        yr = yb;
       }
-      __syncwarp();
       float tqy = 0.f, tyy = 0.f;
       if constexpr (tt) {
-        tt_chains<TR>(qf, RQ, yb, RC, yb, RC, yb, RC, N, D, sb, lane, &tqy,
+        tt_chains<TR>(qf, RQ, yr, RC, yr, RC, yr, RC, N, D, sb, lane, &tqy,
                       &tyy);
       } else {
         for (int p = lane; p < RQ * RC + RC * RC; p += 32) {
           if (p < RQ * RC) {
-            tqy += pair_term(qf, RQ, yb, RC, N, D, p / RC, p % RC);
+            tqy += pair_term(qf, RQ, yr, RC, N, D, p / RC, p % RC);
           } else {
             const int p2 = p - RQ * RC;
-            tyy += pair_term(yb, RC, yb, RC, N, D, p2 / RC, p2 % RC);
+            tyy += pair_term(yr, RC, yr, RC, N, D, p2 / RC, p2 % RC);
           }
         }
         tqy = warp_sum(tqy);
@@ -554,12 +601,15 @@ __global__ void fused_query_kernel(
 
 extern "C" size_t fused_query_smem_bytes(int LT, int N, int D, int RQ,
                                          int RC, int P, int threads, int tt,
-                                         int topk, int C) {
+                                         int topk, int C, int spill) {
+  const bool stage_rows = !tt || (RQ <= 8 && RC <= 8);
   const size_t fq = tt ? (size_t)N * RQ * D * RQ : (size_t)N * D * RQ;
-  const size_t fc = tt ? (size_t)N * RC * D * RC : (size_t)N * D * RC;
+  const size_t fc = !stage_rows ? 0
+                    : tt ? (size_t)N * RC * D * RC : (size_t)N * D * RC;
   const size_t sw = tt ? 2 * (size_t)max(RQ * RC + RC * RC, RQ * RQ) : 0;
   const size_t nwarps = threads / 32;
-  size_t region = max((size_t)P * 12, nwarps * C * 8);
+  size_t region = nwarps * C * 8;
+  if (!spill) region = max((size_t)P * 12, region);
   region = (region + 7) & ~(size_t)7;
   return (size_t)16 * topk + region + (fq + nwarps * (fc + sw)) * 4 +
          (size_t)(4 * LT + 1) * 4;
@@ -572,19 +622,20 @@ int launch(const float* values, const float* offsets, const long long* mults,
            const int* pairs, const float* q, const long long* segtab, int S,
            int* out_ids, float* out_scores, int* out_ncand, int B, int L,
            int K, int T, int C, int N, int D, int RQ, int RC, int topk,
-           int e2, int euclid, float w, double qs, int P, int threads,
-           cudaStream_t stream) {
+           int e2, int euclid, float w, double qs, int P,
+           unsigned long long* spill, int threads, cudaStream_t stream) {
   const size_t smem = fused_query_smem_bytes(L * T, N, D, RQ, RC, P, threads,
-                                             TR > 0, topk, C);
+                                             TR > 0, topk, C, spill != nullptr);
+  const auto kernel = spill ? fused_query_kernel<TR, true>
+                            : fused_query_kernel<TR, false>;
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
-        fused_query_kernel<TR>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  fused_query_kernel<TR><<<B, threads, smem, stream>>>(
+  kernel<<<B, threads, smem, stream>>>(
       values, offsets, mults, pairs, q, segtab, S, out_ids, out_scores,
-      out_ncand, L, K, T, C, N, D, RQ, RC, topk, e2, euclid, w, qs, P);
+      out_ncand, L, K, T, C, N, D, RQ, RC, topk, e2, euclid, w, qs, P, spill);
   return (int)cudaGetLastError();
 }
 
@@ -595,22 +646,26 @@ extern "C" int fused_query_launch(
     const int* pairs, const float* q, const long long* segtab, int S,
     int* out_ids, float* out_scores, int* out_ncand, int B, int L, int K,
     int T, int C, int N, int D, int RQ, int RC, int topk, int e2, int euclid,
-    int tt, float w, double qs, int P, int threads, void* stream) {
+    int tt, float w, double qs, int P, void* spill, int threads,
+    void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   int (*fn)(const float*, const float*, const long long*, const int*,
             const float*, const long long*, int, int*, float*, int*, int,
             int, int, int, int, int, int, int, int, int, int, int, float,
-            double, int, int, cudaStream_t);
+            double, int, unsigned long long*, int, cudaStream_t);
   if (!tt) {
     fn = launch<0>;
   } else if (RQ <= 4 && RC <= 4) {
     fn = launch<4>;
   } else if (RQ <= 8 && RC <= 8) {
     fn = launch<8>;
+  } else if (RQ <= 16 && RC <= 16) {
+    fn = launch<16>;
   } else {
     return (int)cudaErrorInvalidValue;
   }
+  if (spill != nullptr && (P & 1)) return (int)cudaErrorInvalidValue;
   return fn(values, offsets, mults, pairs, q, segtab, S, out_ids, out_scores,
             out_ncand, B, L, K, T, C, N, D, RQ, RC, topk, e2, euclid, w, qs,
-            P, threads, st);
+            P, static_cast<unsigned long long*>(spill), threads, st);
 }

@@ -39,6 +39,20 @@
 // from L2 ceil(L/lb) times; wgmma (3xTF32), TMA and several pairs per
 // thread are later changes.
 //
+// Shapes past one block. A table of more than MAX_THREADS hashes (K up to
+// benchmarks/collision.py's 2000) is tiled over hashes: a third grid
+// dimension takes block_k hashes at a time (one table, block_l = 1), and
+// the epilogue combines the chunks' partial keys and packed words exactly
+// (epilogue.cuh). Ranks above 8 (up to 16, benchmarks/kernels.py's R = 16),
+// and cores too large to stage, take a second kernel, tt_inner_warp_kernel: a 16 x 16 state would take
+// 256 of a thread's 255 registers, so one warp steps one (item, hash)
+// chain at a time, over the hashes of its (item, table): the state S and
+// the product T = S Gp_i sit in the warp's shared memory, each lane owns
+// entries (c, e) of S' and accumulates
+//   T[a][e] = sum_b S[a][b] Gp[b][i][e],  S'[c][e] += sum_a Gx[a][i][c] T[a][e]
+// per slice i (Rx*Rp*(Rp + Rx) FMA, the chain's own count), reading the
+// cores through the read-only cache; lane 0 runs the epilogue.
+//
 // Rounding: inside the chain FMA contraction is allowed (raw values are held
 // to a rounding bound, repro_torch/kernels/parity.py::tt_raw_bound); scale *
 // v uses __fmul_rn, and the epilogue __fadd_rn / __fdiv_rn.
@@ -51,7 +65,9 @@
 namespace {
 
 constexpr int RMAX = 8;       // largest rank (Rx, Rp) the register tiles hold
+constexpr int RWARP = 16;     // largest rank of the warp kernel
 constexpr int MAX_THREADS = 512;
+constexpr int WARP_BLOCK = 8;  // warps of a warp-kernel block
 
 template <int RT>
 __global__ void __launch_bounds__(MAX_THREADS)
@@ -61,13 +77,15 @@ tt_inner_kernel(const float* __restrict__ x,        // (B, N, RX, D, RX)
                 const long long* __restrict__ mults,  // (K,)
                 void* __restrict__ out, int B, int N, int D, int RX, int L,
                 int K, int RP, int epilogue, float w, float scale, int bb,
-                int lb) {
+                int lb, int kb) {
   extern __shared__ float smem[];
   const int FX = RX * D * RX;          // floats of one item's mode core
   const int FP = RP * D * RP;          // floats of one hash's mode core
   const int l0 = blockIdx.y * lb;
   const int nl = min(lb, L - l0);
-  const int H = nl * K;                // hashes of this block
+  const int k0 = blockIdx.z * kb;      // this block's hashes [k0, k0 + kn)
+  const int kn = min(kb, K - k0);      // of each of its tables
+  const int H = nl * kn;               // hashes of this block
   const long long z0 = (long long)blockIdx.x * bb;
   const long long left = (long long)B - z0;
   const int nitems = left < bb ? (int)left : bb;
@@ -89,7 +107,8 @@ tt_inner_kernel(const float* __restrict__ x,        // (B, N, RX, D, RX)
       const int f = i - zz * FX;
       xs[f * bb + zz] = x[((z0 + zz) * N + n) * FX + f];
     }
-    const float* pn = p + ((size_t)n * L + l0) * K * FP;
+    // the block's hashes are contiguous: whole tables, or one table's chunk
+    const float* pn = p + (((size_t)n * L + l0) * K + k0) * FP;
     for (int i = tid; i < H * FP; i += blockDim.x) ps[i] = pn[i];
     __syncthreads();
     if (!active) continue;
@@ -179,28 +198,96 @@ tt_inner_kernel(const float* __restrict__ x,        // (B, N, RX, D, RX)
   float* vs = smem;  // [bb][H]
   if (active) vs[zi * H + h] = __fmul_rn(scale, v);
   __syncthreads();
-  const EpilogueArgs ea{offsets, mults, out, L, K, epilogue, w};
+  const EpilogueArgs ea{offsets, mults, out, L, K, epilogue, w, k0 + kn,
+                        (int)(gridDim.z > 1)};
   for (int t = tid; t < bb * nl; t += blockDim.x) {
     const int zz = t % bb;
     const int lt = t / bb;
     if (zz >= nitems) continue;
     EpilogueTail tail;
-    for (int k = 0; k < K; ++k)
-      tail.push(ea, z0 + zz, l0 + lt, k, vs[zz * H + lt * K + k]);
+    for (int k = 0; k < kn; ++k)
+      tail.push(ea, z0 + zz, l0 + lt, k0 + k, vs[zz * H + lt * kn + k]);
     tail.finish(ea, z0 + zz, l0 + lt);
   }
+}
+
+// Ranks above RMAX: one warp per (item, table) steps its hashes' chains one
+// after another, the state in the warp's shared memory (see the header).
+template <int RW>
+__global__ void __launch_bounds__(WARP_BLOCK * 32)
+tt_inner_warp_kernel(const float* __restrict__ x,        // (B, N, RX, D, RX)
+                     const float* __restrict__ p,        // (N, L, K, RP, D, RP)
+                     const float* __restrict__ offsets,  // (L, K)
+                     const long long* __restrict__ mults,  // (K,)
+                     void* __restrict__ out, int B, int N, int D, int RX,
+                     int L, int K, int RP, int epilogue, float w,
+                     float scale) {
+  constexpr int PER = RW * RW / 32;    // state entries a lane owns
+  __shared__ float st[WARP_BLOCK][2][RW * RW];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const long long pair = (long long)blockIdx.x * WARP_BLOCK + warp;
+  if (pair >= (long long)B * L) return;  // whole warps leave together
+  const long long z = pair / L;
+  const int l = (int)(pair - z * L);
+  float* S = st[warp][0];              // [RX][RP]
+  float* T = st[warp][1];              // [RX][RP], S Gp_i
+  const int NE = RX * RP;
+  const int FX = RX * D * RX, FP = RP * D * RP;
+  const EpilogueArgs ea{offsets, mults, out, L, K, epilogue, w};
+  EpilogueTail tail;
+  for (int k = 0; k < K; ++k) {
+    for (int q = lane; q < NE; q += 32) S[q] = q == 0 ? 1.f : 0.f;
+    __syncwarp();
+    for (int n = 0; n < N; ++n) {
+      const float* gx = x + ((size_t)z * N + n) * FX;               // [a][i][c]
+      const float* gp = p + (((size_t)n * L + l) * K + k) * FP;     // [b][i][e]
+      float acc[PER];
+#pragma unroll
+      for (int j = 0; j < PER; ++j) acc[j] = 0.f;
+      for (int i = 0; i < D; ++i) {
+        for (int q = lane; q < NE; q += 32) {
+          const int a = q / RP, e = q - a * RP;
+          float t = 0.f;
+          for (int b = 0; b < RP; ++b)
+            t += S[a * RP + b] * __ldg(gp + (b * D + i) * RP + e);
+          T[q] = t;
+        }
+        __syncwarp();
+#pragma unroll
+        for (int j = 0; j < PER; ++j) {
+          const int q = lane + 32 * j;
+          if (q < NE) {
+            const int c = q / RP, e = q - c * RP;
+            float u = 0.f;
+            for (int a = 0; a < RX; ++a)
+              u += __ldg(gx + (a * D + i) * RX + c) * T[a * RP + e];
+            acc[j] += u;
+          }
+        }
+        __syncwarp();
+      }
+#pragma unroll
+      for (int j = 0; j < PER; ++j)
+        if (lane + 32 * j < NE) S[lane + 32 * j] = acc[j];
+      __syncwarp();
+    }
+    const float v = S[0];
+    __syncwarp();  // every lane has read S before the next chain resets it
+    if (lane == 0) tail.push(ea, z, l, k, __fmul_rn(scale, v));
+  }
+  if (lane == 0) tail.finish(ea, z, l);
 }
 
 template <int RT>
 int launch(const float* x, const float* p, const float* offsets,
            const long long* mults, void* out, int B, int N, int D, int RX,
            int L, int K, int RP, int epilogue, float w, float scale, int bb,
-           int lb, cudaStream_t stream) {
-  const int threads = bb * lb * K;
+           int lb, int kb, cudaStream_t stream) {
+  const int threads = bb * lb * kb;
   if (threads > MAX_THREADS) return (int)cudaErrorInvalidConfiguration;
   const size_t stage =
-      (size_t)RX * D * RX * bb + (size_t)lb * K * RP * D * RP;
-  const size_t vals = (size_t)bb * lb * K;
+      (size_t)RX * D * RX * bb + (size_t)lb * kb * RP * D * RP;
+  const size_t vals = (size_t)bb * lb * kb;
   const size_t smem = (stage > vals ? stage : vals) * sizeof(float);
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
@@ -208,26 +295,40 @@ int launch(const float* x, const float* p, const float* offsets,
         (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  dim3 grid((unsigned)((B + bb - 1) / bb), (unsigned)((L + lb - 1) / lb));
+  dim3 grid((unsigned)((B + bb - 1) / bb), (unsigned)((L + lb - 1) / lb),
+            (unsigned)((K + kb - 1) / kb));
   tt_inner_kernel<RT><<<grid, threads, smem, stream>>>(
       x, p, offsets, mults, out, B, N, D, RX, L, K, RP, epilogue, w, scale,
-      bb, lb);
+      bb, lb, kb);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
+// block_k < K tiles the table's hashes over blocks (only with block_l = 1);
+// the wrapper then hands in a zeroed output for the *-keys and srp-packed
+// epilogues. Ranks above RMAX (up to RWARP), or block_b = 0 (cores that do
+// not fit the staging budget), run the warp kernel.
 extern "C" int tt_inner_launch(const float* x, const float* p,
                                const float* offsets, const long long* mults,
                                void* out, int B, int N, int D, int RX, int L,
                                int K, int RP, int epilogue, float w,
                                float scale, int block_b, int block_l,
-                               void* stream) {
-  if (RX > RMAX || RP > RMAX) return (int)cudaErrorInvalidValue;
+                               int block_k, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (RX > RWARP || RP > RWARP) return (int)cudaErrorInvalidValue;
+  if (RX > RMAX || RP > RMAX || block_b == 0) {
+    const long long pairs = (long long)B * L;
+    tt_inner_warp_kernel<RWARP>
+        <<<(unsigned)((pairs + WARP_BLOCK - 1) / WARP_BLOCK), WARP_BLOCK * 32,
+           0, st>>>(x, p, offsets, mults, out, B, N, D, RX, L, K, RP,
+                    epilogue, w, scale);
+    return (int)cudaGetLastError();
+  }
+  if (block_k < K && block_l != 1) return (int)cudaErrorInvalidValue;
   if (RX <= 4 && RP <= 4)
     return launch<4>(x, p, offsets, mults, out, B, N, D, RX, L, K, RP,
-                     epilogue, w, scale, block_b, block_l, st);
+                     epilogue, w, scale, block_b, block_l, block_k, st);
   return launch<RMAX>(x, p, offsets, mults, out, B, N, D, RX, L, K, RP,
-                      epilogue, w, scale, block_b, block_l, st);
+                      epilogue, w, scale, block_b, block_l, block_k, st);
 }

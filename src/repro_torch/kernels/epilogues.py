@@ -50,6 +50,17 @@ def div_w(x: torch.Tensor, w: float) -> torch.Tensor:
     return x / torch.full_like(x, w)
 
 
+def pack_bits(bits: torch.Tensor) -> torch.Tensor:
+    """{0, 1} (or bool) along the last axis -> uint32 words in int64, bit j
+    of word w = bits[..., 32w + j] (little-endian; the tail word padded
+    with zeros)."""
+    k = bits.shape[-1]
+    b64 = torch.nn.functional.pad(bits.to(torch.int64), (0, -k % 32))
+    words = b64.reshape(*bits.shape[:-1], -(-k // 32), 32)
+    shifts = torch.arange(32, dtype=torch.int64, device=bits.device)
+    return (words << shifts).sum(-1)
+
+
 def as_int32_bits(u: torch.Tensor) -> torch.Tensor:
     """int64 uint32 values -> int32 tensor with the same bit patterns."""
     return (u - ((u >> 31) << 32)).to(torch.int32)
@@ -89,13 +100,7 @@ def apply_epilogue(v: torch.Tensor, offs: torch.Tensor | None,
     if epilogue.endswith("keys"):
         u = codes.to(torch.int64) & U32_MASK
         return mul_u32(u, mults.reshape(-1).to(torch.int64)).sum(-1) & U32_MASK
-    # srp-packed: bit k of word k // 32 (the tail word padded with zeros)
-    bb, lb, k = codes.shape
-    pad = -k % 32
-    bits = torch.nn.functional.pad(codes.to(torch.int64), (0, pad))
-    words = bits.reshape(bb, lb, -1, 32)
-    shifts = torch.arange(32, dtype=torch.int64, device=v.device)
-    return (words << shifts).sum(-1)
+    return pack_bits(codes)     # srp-packed
 
 
 # ---------------------------------------------------------------------------

@@ -33,10 +33,16 @@ place of the reference's S-way merge (effective ids are unique across
 shards). Its plain version, ``fused_query_sharded_plain``, is
 ``fused_query_plain``'s body over the same list.
 
+The probe window lives in shared memory while one block holds it (the
+"shared" branch) and in per-query global scratch past that (the "spill"
+branch, ``window_plan``): the same stages over the same window, so both
+answer alike bit for bit.
+
 ``fused_query.launches`` / ``fused_query_sharded.launches`` count kernel
 launches and ``.branches`` the launches that ran each branch
 ("multiprobe": T > 1, "live_window": a segment with live-window lookups,
-"segments": more than one segment);
+"segments": more than one segment, "shared" / "spill": where the window
+lives);
 ``fused_query_plain.calls`` / ``fused_query_sharded_plain.calls`` count
 calls of the plain versions.
 """
@@ -56,7 +62,7 @@ from repro_torch.kernels import epilogues as _epi
 
 MAX_SMEM = 232_448         # bytes of shared memory one H100 block may use
 THREADS = 256              # threads per query block (8 warps)
-MAX_TT_RANK = 8            # largest TT rank K1's chain registers hold
+MAX_TT_RANK = 16           # largest TT rank K1's chains take
 TABLE_COLS = 12            # int64 words per segment in the K1 table
 
 
@@ -66,49 +72,57 @@ def _pow2_ceil(x: int) -> int:
 
 def smem_bytes(num_tables: int, n_modes: int, d: int, rq: int, rc: int,
                window: int, tt: bool = False, probes: int = 1,
-               topk: int = 10, expansion: int = 0) -> int:
+               topk: int = 10, expansion: int = 0,
+               spill: bool = False) -> int:
     """Shared memory of one K1 block (mirrors ``fused_query_smem_bytes`` in
     the CUDA source) for a window capacity ``window`` (a power of two): the
     running top-k and its merge buffer (16 bytes a rank), 8 + 4 bytes a
-    window slot (the expansion's per-warp scores and deltas, ``expansion``
-    candidates of 8 bytes, reuse that region), the query's row, one
-    candidate row per warp (CP factors (N, d, R) or TT cores (N, R, d, R))
-    and, for TT, each warp's two chain states and their next values, four
-    per-(table, probe) integer arrays, and 16 bytes of static scalars."""
+    window slot unless the window spills to global memory (the expansion's
+    per-warp scores and deltas, ``expansion`` candidates of 8 bytes, reuse
+    that region), the query's row, one candidate row per warp (CP factors
+    (N, d, R) or TT cores (N, R, d, R) of ranks up to 8; rows of higher
+    ranks are read in place) and, for TT, each warp's two chain states and
+    their next values, four per-(table, probe) integer arrays, and 16 bytes
+    of static scalars."""
     if tt:
         fq, fc = n_modes * rq * d * rq, n_modes * rc * d * rc
         sw = 2 * max(rq * rc + rc * rc, rq * rq)
+        if max(rq, rc) > 8:
+            fc = 0
     else:
         fq, fc, sw = n_modes * d * rq, n_modes * d * rc, 0
     nwarps = THREADS // 32
-    region = max(window * 12, nwarps * expansion * 8)
+    region = nwarps * expansion * 8
+    if not spill:
+        region = max(window * 12, region)
     region = -(-region // 8) * 8
     lt = num_tables * probes
     return (16 * topk + region + (fq + nwarps * (fc + sw)) * 4
             + (4 * lt + 1) * 4 + 16)
 
 
-def window_capacity(num_tables: int, cap: int, n_modes: int, d: int,
-                    rq: int, rc: int, tt: bool = False, probes: int = 1,
-                    topk: int = 10, expansion: int = 0) -> int:
-    """The power-of-two window K1 sizes its shared memory for (the largest
-    one segment needs: L*T*cap); raises ``ValueError`` when that exceeds
-    the largest window one block holds."""
+def window_plan(num_tables: int, cap: int, n_modes: int, d: int, rq: int,
+                rc: int, tt: bool = False, probes: int = 1, topk: int = 10,
+                expansion: int = 0) -> tuple[int, str]:
+    """-> (window, branch): the power-of-two window K1 sizes for the largest
+    one segment needs (L*T*cap), and where it lives: "shared" while one
+    block's shared memory holds it, else "spill" (per-query global
+    scratch of window * 12 bytes). Raises ``ValueError`` when even the
+    spill branch's shared part (the query row, the candidate rows, the
+    expansion) exceeds a block."""
     window = _pow2_ceil(num_tables * probes * cap)
     size = functools.partial(smem_bytes, num_tables, n_modes, d, rq, rc,
-                             tt=tt, probes=probes, topk=topk,
+                             window, tt=tt, probes=probes, topk=topk,
                              expansion=expansion)
-    if size(window) > MAX_SMEM:
-        largest = 1
-        while size(2 * largest) <= MAX_SMEM:
-            largest *= 2
-        raise ValueError(
-            f"K1 holds a probe window of at most {largest} slots in one "
-            f"block's {MAX_SMEM} B of shared memory; one segment's L*T*cap "
-            f"= {num_tables}*{probes}*{cap} = {num_tables * probes * cap} "
-            "exceeds it. Raise num_codes, shrink bucket_width, lower probes "
-            "or pass a smaller bucket_cap.")
-    return window
+    if size() <= MAX_SMEM:
+        return window, "shared"
+    if size(spill=True) <= MAX_SMEM:
+        return window, "spill"
+    raise ValueError(
+        f"K1 needs {size(spill=True)} B of shared memory for one query's "
+        f"rows and expansion (N={n_modes}, d={d}, ranks {rq}, {rc}, "
+        f"{expansion} expansion candidates) beside a spilled window; one "
+        f"block holds {MAX_SMEM} B")
 
 
 def probe_keys_from_values(values, offsets, mults, *, e2, w, num_tables,
@@ -304,13 +318,13 @@ def _launch(values, offsets, mults, queries, table, *, kind, w, num_tables,
                          f"stacked corpus {tuple(table.segs[0].stacked.shape)}")
     rq = q.shape[-1]
     if tt and max(rq, rc) > MAX_TT_RANK:
-        raise ValueError(f"K1 holds TT ranks up to {MAX_TT_RANK} in "
-                         f"registers; got Rq={rq}, Rc={rc}")
+        raise ValueError(f"K1 takes TT ranks up to {MAX_TT_RANK}; got "
+                         f"Rq={rq}, Rc={rc}")
     expansion = (probing.expansion_size(kind, num_codes) if probes > 1
                  else 0)
-    window = window_capacity(num_tables, max(table.caps), n, d, rq, rc,
-                             tt=tt, probes=probes, topk=topk,
-                             expansion=expansion)
+    window, where = window_plan(num_tables, max(table.caps), n, d, rq, rc,
+                                tt=tt, probes=probes, topk=topk,
+                                expansion=expansion)
     vals = values.contiguous().float()
     offs = offsets.float().contiguous() if e2 else None
     mu = mults.to(dev, torch.int64).contiguous()
@@ -320,6 +334,10 @@ def _launch(values, offsets, mults, queries, table, *, kind, w, num_tables,
     ncand = torch.empty((b,), dtype=torch.int32, device=dev)
     if b == 0:
         return ids, scores, ncand, None
+    # the spill branch's window: per query `window` int64 selection keys,
+    # then `window` uint32 slots
+    spill = (torch.empty((b, window * 3 // 2), dtype=torch.int64,
+                         device=dev) if where == "spill" else None)
     err = _build.lib().fused_query_launch(
         vals.data_ptr(), offs.data_ptr() if e2 else None, mu.data_ptr(),
         pairs.data_ptr() if pairs is not None else None, q.data_ptr(),
@@ -327,13 +345,14 @@ def _launch(values, offsets, mults, queries, table, *, kind, w, num_tables,
         scores.data_ptr(), ncand.data_ptr(), b, num_tables, num_codes,
         probes, expansion, n, d, rq, rc, topk, int(e2),
         int(metric == "euclidean"), int(tt), float(w) if e2 else 1.0,
-        float(queries[0].scale), window, THREADS,
+        float(queries[0].scale), window,
+        spill.data_ptr() if spill is not None else None, THREADS,
         torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "fused_query_launch")
     branches = [name for name, on in (
         ("multiprobe", probes > 1),
         ("live_window", any(s.win is not None for s in table.segs)),
-        ("segments", len(table.segs) > 1)) if on]
+        ("segments", len(table.segs) > 1)) if on] + [where]
     return ids, scores, ncand, branches
 
 

@@ -20,6 +20,15 @@ kernels mask the ragged edge of the batch themselves.
 tensors' device. A family stacks its projections once; a corpus or a query
 batch is stacked once (its format's ``stack``, which calls ``stack_cp`` or
 ``stack_tt``) and read by the hash kernel and K1.
+
+The standalone kernel-level API, as the reference's tests and
+``benchmarks/kernels.py`` call it: ``cp_inner_products`` /
+``tt_inner_products`` (one input's K raw values through K3 / K4, scales
+applied) and the discretization tails ``srp_pack`` (K6) and
+``e2lsh_quantize`` (K7). The reference's ``block_b`` / ``interpret`` knobs
+tile and emulate the TPU and have no counterpart: the CUDA kernels mask
+ragged shapes themselves, and the tensors' device picks the kernel or its
+plain version.
 """
 
 from __future__ import annotations
@@ -30,6 +39,10 @@ import torch
 from repro_torch.core.projections import CPProjection, TTProjection
 from repro_torch.core.tensor_formats import CPTensor, TTTensor
 from repro_torch.kernels.cp_gram import cp_gram
+# the standalone tails as the reference's ``ops`` names them: srp_pack (K6)
+# and e2lsh_quantize (K7)
+from repro_torch.kernels.e2lsh_quant import e2lsh_quant as e2lsh_quantize
+from repro_torch.kernels.srp_pack import srp_pack
 from repro_torch.kernels.tt_inner import tt_inner
 
 
@@ -170,3 +183,37 @@ def fused_hash(xf: torch.Tensor, pf: torch.Tensor, *, scale: float,
         mults_t = mults_tensor(mults, pf.device).reshape(num_codes)
     return kernel(xf, pf, offs, mults_t, epilogue=kernel_epilogue,
                   w=float(w) if e2 else 1.0, scale=float(scale))
+
+
+# ---------------------------------------------------------------------------
+# The standalone kernel-level API (reference: ops.cp_inner_products,
+# tt_inner_products; srp_pack and e2lsh_quantize are imported above)
+# ---------------------------------------------------------------------------
+
+
+def _check_equal_dims(dims) -> None:
+    if len(set(dims)) != 1:
+        raise ValueError(
+            f"kernel path needs equal mode dims, got {dims}; use the "
+            "repro_torch.core.projections path for ragged modes")
+
+
+def cp_inner_products(x: CPTensor, p: CPProjection) -> torch.Tensor:
+    """(K,) raw <P_k, X> values (scales applied) of one CP input through
+    K3, the batch-of-1 case of the batch-native kernel."""
+    _check_equal_dims(x.dims)
+    _check_equal_dims(p.dims)
+    xf = _stack_cp_batch(CPTensor(tuple(f[None] for f in x.factors),
+                                  x.scale))
+    out = cp_gram(xf, _stack_cp_proj(p, 1), epilogue="raw")
+    return (x.scale * p.scale) * out[0, 0]
+
+
+def tt_inner_products(x: TTTensor, p: TTProjection) -> torch.Tensor:
+    """(K,) raw <T_k, X> values (scales applied) of one TT input through
+    K4, the batch-of-1 case of the batch-native kernel."""
+    _check_equal_dims(x.dims)
+    _check_equal_dims(p.dims)
+    xf = _stack_tt_batch(TTTensor(tuple(c[None] for c in x.cores), x.scale))
+    out = tt_inner(xf, _stack_tt_proj(p, 1), epilogue="raw")
+    return (x.scale * p.scale) * out[0, 0]

@@ -5,6 +5,8 @@
   tt_inner_ref : x_cores (B, N, Rx, d, Rx), p_cores (N, K, Rp, d, Rp)
                  -> (B, K)  (boundary ranks zero-padded; chain from e_00)
   combine_ref  : codes (B, L, K) int, mults (K,) uint32 -> (B, L) uint32
+  srp_pack_ref : values (B, K) -> uint32 (B, ceil(K/32))
+  e2lsh_quant_ref : values (B, K), offsets (K,), w -> int32 (B, K)
 
 uint32 values are int64 tensors in [0, 2^32).
 """
@@ -14,7 +16,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core.contractions import tt_chain
-from repro_torch.kernels.epilogues import U32_MASK, mul_u32
+from repro_torch.kernels.epilogues import U32_MASK, div_w, mul_u32, pack_bits
 
 
 def cp_inner_ref(x_factors: torch.Tensor,
@@ -40,3 +42,14 @@ def combine_ref(codes: torch.Tensor, mults: torch.Tensor) -> torch.Tensor:
     """(..., L, K) int codes -> (..., L) uint32 radix bucket keys."""
     u = codes.to(torch.int64) & U32_MASK
     return mul_u32(u, mults.to(torch.int64)).sum(-1) & U32_MASK
+
+
+def srp_pack_ref(values: torch.Tensor) -> torch.Tensor:
+    """Sign bits (v > 0) packed little-endian into uint32 words."""
+    return pack_bits(values > 0)
+
+
+def e2lsh_quant_ref(values: torch.Tensor, offsets: torch.Tensor,
+                    w: float) -> torch.Tensor:
+    """floor((v + b) / w) -> int32 (paper Eq. 4.1), a true division."""
+    return torch.floor(div_w(values + offsets, w)).to(torch.int32)

@@ -13,6 +13,13 @@ launches the CUDA kernel ``csrc/tt_inner.cu`` on CUDA tensors and runs the
 plain version ``tt_inner_plain`` on CPU tensors; any other device raises.
 ``tt_inner.launches`` counts kernel launches, ``tt_inner_plain.calls``
 calls of the plain version.
+
+Ranks up to ``MAX_THREAD_RANK`` run one thread per (item, hash) with the
+chain state in registers, a table of more than ``MAX_THREADS`` hashes tiled
+over blocks (``block_shape``); ranks up to ``MAX_RANK``, and shapes whose
+cores do not fit the staging budget, run one warp per (item, table), the
+state in shared memory and nothing staged. Above ``MAX_RANK`` the wrapper
+raises.
 """
 
 from __future__ import annotations
@@ -23,7 +30,8 @@ from repro_torch.kernels.epilogues import EPILOGUES, apply_epilogue, out_struct
 
 _EPILOGUE_CODE = {name: i for i, name in enumerate(EPILOGUES)}
 SMEM_BUDGET = 96 * 1024   # bytes of shared memory a K4 block may take
-MAX_RANK = 8              # largest Rx, Rp the kernel's register tiles hold
+MAX_THREAD_RANK = 8       # largest Rx, Rp the per-thread register tiles hold
+MAX_RANK = 16             # largest Rx, Rp of the warp kernel
 MAX_THREADS = 512         # threads of a K4 block (MAX_THREADS in the source)
 
 
@@ -57,31 +65,33 @@ tt_inner_plain.calls = 0
 
 
 def block_shape(d: int, rx: int, rp: int, num_tables: int, k: int,
-                b: int) -> tuple[int, int]:
-    """(items, tables) per K4 block: one thread per (item, hash), up to 32
-    items (never more than the batch holds) and as many whole tables as
-    fit ``MAX_THREADS`` threads and ``SMEM_BUDGET`` bytes of one mode's
-    staged cores."""
-    if k > MAX_THREADS:
-        raise ValueError(f"K4 runs a table's K={k} hashes in one block of at "
-                         f"most {MAX_THREADS} threads")
-    bb = max(1, min(32 if 32 * k <= MAX_THREADS else MAX_THREADS // k, b))
+                b: int) -> tuple[int, int, int] | None:
+    """(items, tables, hashes) per block of K4's thread kernel: one thread
+    per (item, hash), up to 32 items (never more than the batch holds) and
+    as many whole tables as fit ``MAX_THREADS`` threads and ``SMEM_BUDGET``
+    bytes of one mode's staged cores; a table of more than ``MAX_THREADS``
+    hashes runs one item and the table's hashes in chunks of as many as
+    fit (a multiple of 32, so packed words stay whole). None where not
+    even one item and one table (or 32 hashes of it) fit: the warp kernel
+    then serves the shape."""
+    kb = min(k, MAX_THREADS)
+    bb = max(1, min(32 if 32 * kb <= MAX_THREADS else MAX_THREADS // kb, b))
 
-    def smem(bb, lb):
-        stage = rx * d * rx * bb + lb * k * rp * d * rp
-        return 4 * max(stage, bb * lb * k)
+    def smem(bb, lb, kb):
+        stage = rx * d * rx * bb + lb * kb * rp * d * rp
+        return 4 * max(stage, bb * lb * kb)
 
-    lb = max(1, min(num_tables, MAX_THREADS // (bb * k)))
-    while lb > 1 and smem(bb, lb) > SMEM_BUDGET:
+    lb = max(1, min(num_tables, MAX_THREADS // (bb * kb)))
+    while lb > 1 and smem(bb, lb, kb) > SMEM_BUDGET:
         lb -= 1
-    while bb > 1 and smem(bb, lb) > SMEM_BUDGET:
+    while bb > 1 and smem(bb, lb, kb) > SMEM_BUDGET:
         bb //= 2
-    if smem(bb, lb) > SMEM_BUDGET:
-        raise ValueError(
-            f"K4 stages {4 * rx * d * rx} B per item and {4 * rp * d * rp} B "
-            f"per hash and mode; one item and one table of K={k} exceed its "
-            f"{SMEM_BUDGET} B shared-memory budget")
-    return bb, lb
+    while kb > 32 and smem(bb, lb, kb) > SMEM_BUDGET:
+        kb = (kb - 1) // 32 * 32   # lb is 1 here: the loops above end at 1
+                                   # or fitting
+    if smem(bb, lb, kb) > SMEM_BUDGET:
+        return None
+    return bb, lb, kb
 
 
 def tt_inner(x_cores: torch.Tensor, p_cores: torch.Tensor,
@@ -114,20 +124,24 @@ def tt_inner(x_cores: torch.Tensor, p_cores: torch.Tensor,
             if offsets is not None else None)
     mu = (mults.reshape(k).to(dev, torch.int64).contiguous()
           if mults is not None else None)
+    if max(rx, rp) > MAX_RANK:
+        raise ValueError(f"K4 takes ranks up to {MAX_RANK}; got Rx={rx}, "
+                         f"Rp={rp}")
+    blocks = (block_shape(d, rx, rp, l, k, max(b, 1))
+              if max(rx, rp) <= MAX_THREAD_RANK else None)
+    bb, lb, kb = blocks or (0, 0, k)    # block_b 0: the warp kernel
     shape, dtype = out_struct(b, l, k, epilogue)
-    out = torch.empty(shape, dtype=dtype, device=dev)
+    # a table tiled over hashes adds its chunks' keys and words into zeros
+    out = (torch.zeros if kb < k else torch.empty)(shape, dtype=dtype,
+                                                   device=dev)
     if b == 0:
         return out
-    if max(rx, rp) > MAX_RANK:
-        raise ValueError(f"K4 holds ranks up to {MAX_RANK} in registers; got "
-                         f"Rx={rx}, Rp={rp}")
-    bb, lb = block_shape(d, rx, rp, l, k, b)
     err = _build.lib().tt_inner_launch(
         x.data_ptr(), p.data_ptr(),
         offs.data_ptr() if offs is not None else None,
         mu.data_ptr() if mu is not None else None,
         out.data_ptr(), b, n, d, rx, l, k, rp, _EPILOGUE_CODE[epilogue],
-        float(w), float(scale), bb, lb,
+        float(w), float(scale), bb, lb, kb,
         torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "tt_inner_launch")
     tt_inner.launches += 1

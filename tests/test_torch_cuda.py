@@ -6,15 +6,20 @@ Run them on the card with
 
     PYTHONPATH=src python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py
 
-K3 (``cp_gram``) and K4 (``tt_inner``): raw values within
+K3 (``cp_gram``) and K4 (``tt_inner``), also at the ranks of
+benchmarks/kernels.py (32 and 16: the warp kernels) and at K = 2000 / 1024
+hashes in one table (tiled over blocks): raw values within
 ``parity.raw_bound`` / ``parity.tt_raw_bound``; codes, keys and packed
 words equal except where a value lies within that bound of a bucket edge
 (E2LSH) or of 0 (SRP). K1 (``fused_query``, CP and TT re-rank): on the same
 raw values and segment arrays, candidate counts equal bit for bit, scores
 within ``parity.rerank_bound``, ids equal except at near ties; so also on
 its multi-probe (T = 8, dense window), live-window (``bucket_cap``, after
-deletes) and multi-segment (a base and eight deltas) branches, and a
-segment whose window exceeds one block raises ``ValueError``. K1s
+deletes) and multi-segment (a base and eight deltas) branches, at TT
+rank 16, and with a window past one block's shared memory (the spill
+branch, which also equals the shared branch bit for bit where both run,
+for K1 and K1s, CP and TT). K6 (``srp_pack``) and K7 (``e2lsh_quant``)
+equal their plain versions bit for bit, ragged shapes included. K1s
 (``fused_query_sharded``, K1's kernel over every (shard, segment) pair):
 against its plain version on S = 3 stores with a padded last shard, two
 routed slabs, deletes and live windows at T in {1, 4}, CP and TT; and with
@@ -29,11 +34,15 @@ from repro_torch.core.projections import (sample_cp_projection,
 from repro_torch.core.tensor_formats import (TTTensor, cp_random_data,
                                              tt_random_data)
 from repro_torch.kernels import parity
+from repro_torch.kernels import fused_query as fq_mod
+from repro_torch.kernels import ops
 from repro_torch.kernels.cp_gram import cp_gram, cp_gram_plain
+from repro_torch.kernels.e2lsh_quant import e2lsh_quant, e2lsh_quant_plain
 from repro_torch.kernels.epilogues import EPILOGUES
 from repro_torch.kernels.fused_query import (fused_query, fused_query_plain,
                                              fused_query_sharded,
                                              fused_query_sharded_plain)
+from repro_torch.kernels.srp_pack import srp_pack, srp_pack_plain
 from repro_torch.kernels.ops import (_stack_cp_batch, _stack_cp_proj,
                                      _stack_tt_batch, _stack_tt_proj,
                                      stack_cp)
@@ -54,6 +63,9 @@ def gen():
     ((12, 12, 12), 3000, 10, 10, 4, 3),   # the serving shape, a ragged batch
     ((5, 7, 3), 37, 3, 5, 2, 3),          # unequal modes, odd sizes
     ((4, 4, 4, 4), 129, 2, 40, 1, 2),     # 4 modes, two packed words
+    ((64, 64, 64, 64), 64, 8, 8, 32, 32),  # benchmarks/kernels.py: rank 32
+    ((6, 6, 6), 70, 2, 40, 12, 3),        # ranks above 8, two words
+    ((8, 8, 8), 300, 1, 2000, 2, 2),      # collision.py: K tiled over blocks
 ])
 def test_cp_gram_matches_plain(gen, dims, b, l, k, rx, rp):
     x = _stack_cp_batch(cp_random_data(gen, dims, rx, batch=b))
@@ -130,6 +142,9 @@ def test_fused_query_matches_plain(gen, kind, metric, n, k, l, w):
     ((6, 6), 65, 2, 7, 4, 3),                # N = 2: both cores boundary
     ((4, 4, 4, 4), 129, 2, 40, 2, 2),        # two packed words
     ((3, 3, 3), 50, 2, 3, 6, 8),             # ranks above 4: RT = 8
+    ((32, 32, 32, 32), 32, 4, 8, 16, 16),    # benchmarks/kernels.py: rank 16
+    ((6, 6, 6), 40, 2, 5, 12, 3),            # ranks above 8, the warp kernel
+    ((8, 8, 8), 300, 1, 1024, 2, 2),         # K > 512 tiled over blocks
 ])
 def test_tt_inner_matches_plain(gen, dims, b, l, k, rx, rp):
     x = _stack_tt_batch(tt_random_data(gen, dims, rx, batch=b))
@@ -163,6 +178,7 @@ def test_tt_inner_matches_plain(gen, dims, b, l, k, rx, rp):
     ("tt-e2lsh", "euclidean", 20000, 8, 6, 8.0, 3),
     ("tt-srp", "cosine", 5000, 10, 4, 1.0, 3),
     ("tt-srp", "euclidean", 5000, 10, 4, 1.0, 6),   # ranks above 4: TR = 8
+    ("tt-srp", "euclidean", 5000, 10, 4, 1.0, 16),  # ranks above 8: TR = 16
 ])
 def test_fused_query_tt_matches_plain(gen, kind, metric, n, k, l, w, rhat):
     from repro_torch.serving.lsh_service import build_service
@@ -294,18 +310,108 @@ def test_fused_query_nine_segments_match_plain(gen, layout):
 
 
 def test_fused_query_window_limit_raises(gen):
-    """One segment's L*T*cap beyond one block's window: a ValueError that
-    names the limit, before anything launches."""
+    """One segment's L*T*cap beyond one block's shared memory (8 * 2 * 2048
+    = 32768 slots): K1 no longer raises but runs its spill branch, and the
+    service answers as the plain version does."""
     from repro_torch.serving.lsh_service import build_service
     dims, n = (6, 6, 6), 4096
     corpus = cp_random_data(gen, dims, 3, batch=n)
     svc = build_service(gen, "cp-srp", dims, corpus, num_codes=2,
                         num_tables=8, rank=2, bucket_cap=2048)
     q = _planted(gen, corpus, n, 16)
-    launches = fused_query.launches
-    with pytest.raises(ValueError, match="at most 16384 slots"):
-        svc.query_arrays(q, probes=2)
-    assert fused_query.launches == launches
+    spills = fused_query.branches["spill"]
+    nc = _k1_vs_plain(svc, q, 2)
+    assert fused_query.branches["spill"] == spills + 1
+    assert int(nc.max()) > 1000
+    ids, _, n_cand = svc.query_arrays(q, probes=2)
+    assert (n_cand == nc.cpu().numpy()).all() and (ids[:, 0] >= 0).all()
+
+
+def _spilled(monkeypatch, fn):
+    """``fn()`` with K1's window plan sending every window to the spill
+    branch -> (its result, the spill launches it added)."""
+    spills = fused_query.branches["spill"] + fused_query_sharded.branches[
+        "spill"]
+    plan = fq_mod.window_plan
+    with monkeypatch.context() as m:
+        m.setattr(fq_mod, "window_plan",
+                  lambda *a, **k: (plan(*a, **k)[0], "spill"))
+        out = fn()
+        torch.cuda.synchronize()
+    return out, (fused_query.branches["spill"]
+                 + fused_query_sharded.branches["spill"] - spills)
+
+
+@pytest.mark.parametrize("layout,shards", [("cp", 1), ("tt", 1), ("cp", 3),
+                                           ("tt", 3)])
+def test_fused_query_spill_equals_shared(gen, monkeypatch, layout, shards):
+    """Where both branches can run, the spill branch's ids, scores and
+    candidate counts equal the shared branch's bit for bit: K1 and K1s, CP
+    and TT, a base and two deltas, deletes, live windows, T = 1 and 4."""
+    from repro_torch.serving.lsh_service import build_service
+    n = 12000
+    data = cp_random_data if layout == "cp" else tt_random_data
+    dims = (6, 6, 6) if layout == "cp" else (8, 8, 8)
+    w = 2.0 if layout == "cp" else 8.0
+    corpus = data(gen, dims, 3, batch=n)
+    svc = build_service(gen, f"{layout}-e2lsh", dims, corpus, num_codes=6,
+                        num_tables=4, rank=2, bucket_width=w, bucket_cap=24,
+                        shards=shards if shards > 1 else None)
+    for _ in range(2):
+        svc.insert(data(gen, dims, 3, batch=500))
+    svc.delete(torch.arange(0, svc.index.size, 9, device="cuda"))
+    q = _planted(gen, corpus, n, 200)
+    shared = fused_query.branches["shared"] + fused_query_sharded.branches[
+        "shared"]
+    for probes in (1, 4):
+        want = svc.query_arrays(q, probes=probes)
+        got, spills = _spilled(monkeypatch,
+                               lambda: svc.query_arrays(q, probes=probes))
+        assert spills == 1
+        for g, w_ in zip(got, want):
+            assert (g.view("int32") == w_.view("int32")).all()
+    assert fused_query.branches["shared"] + fused_query_sharded.branches[
+        "shared"] == shared + 2
+    check = _k1s_vs_plain if shards > 1 else _k1_vs_plain
+    _, spills = _spilled(monkeypatch, lambda: check(svc, q, 4))
+    assert spills == 1
+
+
+def test_srp_pack_matches_plain(gen):
+    """K6 bit for bit against its plain version: benchmarks/kernels.py's
+    (256, 256), the ragged shapes of tests/test_kernels.py, a serving-scale
+    batch, exact and negative zeros."""
+    shapes = [(256, 256), (1, 1), (3, 31), (5, 33), (7, 40), (8, 70),
+              (13, 64), (20, 5), (9, 96), (1 << 16, 128)]
+    for b, k in shapes:
+        v = torch.randn((b, k), generator=gen, device="cuda")
+        v[:, ::5] = 0.0
+        v[:, 1::7] = -0.0
+        launches = srp_pack.launches
+        got = ops.srp_pack(v)
+        want = srp_pack_plain(v)
+        torch.cuda.synchronize()
+        assert srp_pack.launches == launches + 1
+        assert got.shape == (b, -(-k // 32)) and torch.equal(got, want)
+
+
+@pytest.mark.parametrize("w", [4.0, 6.0])
+def test_e2lsh_quant_matches_plain(gen, w):
+    """K7 bit for bit against its plain version (both divide by w): random
+    values, ragged K, and values one ulp below a bucket edge."""
+    for b, k in ((256, 100), (7, 1), (33, 129), (1 << 16, 100)):
+        v = 10.0 * torch.randn((b, k), generator=gen, device="cuda")
+        offs = torch.rand(k, generator=gen, device="cuda") * w
+        m = torch.randint(-1000, 1000, (b, k), generator=gen, device="cuda")
+        edge = torch.nextafter(m.float() * w, torch.tensor(
+            -float("inf"), device="cuda")) - offs
+        for vals in (v, edge):
+            launches = e2lsh_quant.launches
+            got = ops.e2lsh_quantize(vals, offs, w)
+            want = e2lsh_quant_plain(vals, offs, w)
+            torch.cuda.synchronize()
+            assert e2lsh_quant.launches == launches + 1
+            assert got.dtype == torch.int32 and torch.equal(got, want)
 
 
 def _k1s_vs_plain(svc, q, probes):

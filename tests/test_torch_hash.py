@@ -158,14 +158,21 @@ def test_hash_batch_aux_matches_reference(case):
 
 
 def test_k3_block_choice_fits_its_budget():
-    """K3's (items, tables) per block: 1024 threads at most and the staged
-    factors within its shared-memory budget; a shape that cannot fit one
-    table raises, naming the budget."""
+    """K3's (items, tables, hashes) per block: 1024 threads at most and the
+    staged factors within its shared-memory budget; a table that does not
+    fit beside the items is tiled over its hashes (chunks of a multiple of
+    32 where 32 fit, fewer items where they do not), and a shape of which
+    one item and one hash exceed the budget goes to the warp kernel
+    (None)."""
     from repro_torch.kernels.cp_gram import SMEM_BUDGET, block_items
-    assert block_items(3, 12, 4, 10, 10, 3, 1 << 20) == (64, 10)
-    assert block_items(3, 12, 4, 10, 10, 3, 5) == (32, 10)
-    bb, lb = block_items(3, 12, 4, 40, 32, 3, 4096)
-    assert bb * lb <= 1024
+    assert block_items(3, 12, 4, 10, 10, 3, 1 << 20) == (64, 10, 10)
+    assert block_items(3, 12, 4, 10, 10, 3, 5) == (32, 10, 10)
+    bb, lb, kb = block_items(3, 12, 4, 40, 32, 3, 4096)
+    assert bb * lb <= 1024 and kb == 32
     assert bb * 3 * 12 * 4 * 4 + lb * 32 * 3 * 12 * 3 * 4 <= SMEM_BUDGET
-    with pytest.raises(ValueError, match="shared-memory budget"):
-        block_items(3, 64, 8, 2, 64, 8, 4096)
+    # benchmarks/collision.py: dims (8, 8, 8), rank 2, K = 2000 in one table
+    assert block_items(3, 8, 2, 1, 2000, 2, 4096) == (64, 1, 448)
+    bb, lb, kb = block_items(3, 64, 8, 2, 64, 8, 4096)
+    assert (bb, lb, kb) == (8, 1, 8)
+    assert bb * 3 * 64 * 8 * 4 + kb * 3 * 64 * 8 * 4 <= SMEM_BUDGET
+    assert block_items(4, 512, 8, 1, 8, 8, 64) is None

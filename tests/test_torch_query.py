@@ -30,7 +30,7 @@ from repro_torch import convert
 from repro_torch.core import segments as tseg
 from repro_torch.kernels import epilogues as tepi
 from repro_torch.kernels import parity
-from repro_torch.kernels.fused_query import fused_query_plain, window_capacity
+from repro_torch.kernels.fused_query import fused_query_plain, window_plan
 from repro_torch.kernels.ops import stack_cp
 
 N, B, TOPK = 61, 9, 5
@@ -192,9 +192,14 @@ def test_fused_query_plain_vs_reference_kernel(case):
 
 
 def test_k1_window_limit_is_stated():
-    """K1 sizes shared memory for the power-of-two window above L*cap and
-    refuses, naming its limit, a window one block cannot hold."""
-    assert window_capacity(10, 1600, 3, 12, 4, 4) == 16384
-    assert window_capacity(4, 3, 3, 4, 3, 3) == 16
-    with pytest.raises(ValueError, match="at most 16384 slots"):
-        window_capacity(10, 2000, 3, 12, 4, 4)
+    """K1 sizes the power-of-two window above L*cap; it stays in shared
+    memory up to 16384 slots at the serving shape and spills to global
+    memory past that (the example's K = 8 over 2^20 items: cap 2616);
+    rows that no block holds even beside a spilled window raise, naming
+    the limit."""
+    assert window_plan(10, 1600, 3, 12, 4, 4) == (16384, "shared")
+    assert window_plan(4, 3, 3, 4, 3, 3) == (16, "shared")
+    assert window_plan(10, 2000, 3, 12, 4, 4) == (32768, "spill")
+    assert window_plan(10, 2616, 3, 12, 4, 3) == (32768, "spill")
+    with pytest.raises(ValueError, match="232448 B"):
+        window_plan(10, 4, 4, 64, 32, 32)

@@ -193,16 +193,19 @@ def test_make_family_tt_kinds(kind):
 
 
 def test_k4_block_shape_fits_its_budget():
-    """K4's (items, tables) per block: at most 512 threads, one per (item,
-    hash), whole tables, and one mode's staged cores within its
-    shared-memory budget; a shape that cannot fit one table raises."""
+    """K4's (items, tables, hashes) per block: at most 512 threads, one per
+    (item, hash), whole tables, and one mode's staged cores within its
+    shared-memory budget; a table of more than 512 hashes runs in chunks
+    of 512 (one item, one table), and a shape that cannot fit one table
+    goes to the warp kernel (None)."""
     from repro_torch.kernels.tt_inner import MAX_THREADS, SMEM_BUDGET
-    assert block_shape(16, 4, 4, 10, 10, 1 << 20) == (32, 1)
-    assert block_shape(4, 2, 2, 4, 3, 29) == (29, 4)
-    bb, lb = block_shape(4, 2, 2, 2, 40, 129)
-    assert bb * lb * 40 <= MAX_THREADS
-    bb, lb = block_shape(32, 8, 8, 4, 6, 4096)       # 8 KiB per core
-    assert bb * lb * 6 <= MAX_THREADS
+    assert block_shape(16, 4, 4, 10, 10, 1 << 20) == (32, 1, 10)
+    assert block_shape(4, 2, 2, 4, 3, 29) == (29, 4, 3)
+    bb, lb, kb = block_shape(4, 2, 2, 2, 40, 129)
+    assert bb * lb * 40 <= MAX_THREADS and kb == 40
+    bb, lb, kb = block_shape(32, 8, 8, 4, 6, 4096)       # 8 KiB per core
+    assert bb * lb * 6 <= MAX_THREADS and kb == 6
     assert 4 * (8 * 32 * 8 * bb + lb * 6 * 8 * 32 * 8) <= SMEM_BUDGET
-    with pytest.raises(ValueError, match="shared-memory budget"):
-        block_shape(256, 8, 8, 2, 16, 4096)
+    assert block_shape(8, 2, 2, 1, 1024, 4096) == (1, 1, 512)
+    assert block_shape(8, 2, 2, 1, 2000, 4096) == (1, 1, 512)
+    assert block_shape(256, 8, 8, 2, 16, 4096) is None

@@ -33,7 +33,7 @@ from repro_torch.core import recall_at_k as torch_recall
 from repro_torch.core import segments as tseg
 from repro_torch.kernels import epilogues as tepi
 from repro_torch.kernels import parity
-from repro_torch.kernels.fused_query import fused_query_plain, window_capacity
+from repro_torch.kernels.fused_query import fused_query_plain, window_plan
 from repro_torch.kernels.ops import stack_tt
 from repro_torch.serving.lsh_service import build_service
 
@@ -235,7 +235,7 @@ def test_sampled_tt_family_serves_on_cpu():
 
 def test_k1_tt_window_limit_is_stated():
     """With 4 KiB TT rows (the TT cell: dims (16,) * 4, R = 4) one K1 block
-    holds a window of at most 8192 slots, so L * cap <= 8192 at L = 10."""
-    assert window_capacity(10, 819, 4, 16, 4, 4, tt=True) == 8192
-    with pytest.raises(ValueError, match="at most 8192 slots"):
-        window_capacity(10, 820, 4, 16, 4, 4, tt=True)
+    holds a window of at most 8192 slots in shared memory, so L * cap <=
+    8192 at L = 10 stays there and a larger window spills."""
+    assert window_plan(10, 819, 4, 16, 4, 4, tt=True) == (8192, "shared")
+    assert window_plan(10, 820, 4, 16, 4, 4, tt=True) == (16384, "spill")
