@@ -6,13 +6,16 @@
 OTHER_TREE is another commit's ``git archive``, unpacked under the
 git-ignored ``build/``. Each run is a process of its own that imports its
 tree's ``chip_smoke`` and drives the CP cell [main] and the TT cell
-[tt-main] through ``phase_main``; CP serves its 256 batches three more
-times. Runs alternate (other, this, this, other, ...). Each run prints one
-``AB {...}`` line: the batch means on the host clock, and K1's and the hash
-kernel's times (CUDA events, ``phase_times``). At the end the first 32
-batches' ids, scores and candidate counts of every run are compared bit
-for bit, and the medians of each tree's batch means are printed. Needs a
-CUDA card.
+[tt-main] through ``phase_main``, and [ann-k8] ([main]'s corpus and
+queries at the example's K = 8) through ``build_service`` and ``serve``;
+[main] serves its 256 batches three more times. Runs alternate (other,
+this, this, other, ...). Each run prints one ``AB {...}`` line: the batch
+means on the host clock, and K1's time on each of the three paths and the
+hash kernel's on [main] and [tt-main] (CUDA events, ``phase_times`` /
+``k1_times``). At the end the first 32 batches' ids, scores and candidate
+counts of every path and run are compared bit for bit, and the medians of
+each tree's batch means and the range of its kernel times are printed.
+Needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -29,14 +32,22 @@ KEEP = 32          # batches whose results are compared across runs
 
 
 def one(tree: str, out: str) -> None:
-    """One run of ``tree``: both cells, results saved to ``out`` (.npz)."""
+    """One run of ``tree``: the three paths, results saved to ``out``
+    (.npz)."""
     sys.path.insert(0, str(Path(tree) / "src"))
     sys.path.insert(0, tree)
     import numpy as np
     import torch
     import chip_smoke as cs
     import repro_torch  # noqa: F401  (sets the float32 matmul flags)
+    from repro_torch.serving.lsh_service import build_service
     res, arrays = {"tree": tree}, {}
+
+    def keep(path, results):
+        for i, name in enumerate(("ids", "scores", "ncand")):
+            arrays[f"{path}_{name}"] = np.stack(
+                [r[i] for r in results[:KEEP]])
+
     for layout, batches in (("cp", 256), ("tt", 64)):
         cell = dict(cs.CELLS[layout], hash_kernel=cs.HASH_RECORDS[layout][0])
         gen = torch.Generator(device="cuda").manual_seed(cell["seed"])
@@ -53,12 +64,26 @@ def one(tree: str, out: str) -> None:
                 cs.serve(svc, queries)
                 means.append(svc.stats.total_ms / svc.stats.batches)
         _, k1_args = cs.k1_compare(svc, queries[0], "ab")
-        h_t, k1_t = cs.phase_times(svc, cell, queries, k1_args)
-        for i, name in enumerate(("ids", "scores", "ncand")):
-            arrays[f"{layout}_{name}"] = np.stack(
-                [r[i] for r in results[:KEEP]])
-        res[layout] = dict(means=means, k1_ms=k1_t[0], hash_ms=h_t[0])
-        del svc, corpus, queries, results, k1_args
+        times = cs.phase_times(svc, cell, queries, k1_args)
+        keep(layout, results)
+        res[layout] = dict(means=means, k1_ms=times[1][0],
+                           hash_ms=times[0][0])
+        del svc, results, k1_args
+        torch.cuda.empty_cache()
+        if layout == "cp":  # [ann-k8]: the example's K = 8
+            svc = build_service(torch.Generator(device="cuda").manual_seed(1),
+                                cell["kind"], cell["dims"], corpus,
+                                num_codes=8, num_tables=cell["tables"],
+                                rank=cell["rank"],
+                                bucket_width=cell["width"], device="cuda")
+            results, _ = cs.serve(svc, queries)
+            _, k1_args = cs.k1_compare(svc, queries[0], "ab ann-k8")
+            k1_t = cs.k1_times(svc, queries, k1_args, "K1 ann-k8")
+            keep("annk8", results)
+            res["annk8"] = dict(means=[svc.stats.total_ms / svc.stats.batches],
+                                k1_ms=k1_t[0], hash_ms=None)
+            del svc, results, k1_args
+        del corpus, queries
         torch.cuda.empty_cache()
     np.savez(out, **arrays)
     print("AB " + json.dumps(res))
@@ -101,15 +126,17 @@ def main(argv=None) -> int:
               f"{same}")
     for tree in (args.other, str(HERE)):
         mine = [r[1] for r in runs if r[0] == tree]
-        for layout in ("cp", "tt"):
-            means = [m for r in mine for m in r[layout]["means"]]
-            k1 = [r[layout]["k1_ms"] for r in mine]
-            hk = [r[layout]["hash_ms"] for r in mine]
-            print(f"[ab] {tree} {layout}: batch mean ms median "
+        for path in ("cp", "annk8", "tt"):
+            means = [m for r in mine for m in r[path]["means"]]
+            k1 = [r[path]["k1_ms"] for r in mine]
+            hk = [r[path]["hash_ms"] for r in mine
+                  if r[path]["hash_ms"] is not None]
+            print(f"[ab] {tree} {path}: batch mean ms median "
                   f"{statistics.median(means):.4f} (min {min(means):.4f}, "
                   f"max {max(means):.4f}, {len(means)} serves); K1 ms "
-                  f"{min(k1):.4f}-{max(k1):.4f}; hash kernel ms "
-                  f"{min(hk):.4f}-{max(hk):.4f}")
+                  f"{min(k1):.4f}-{max(k1):.4f}" + (
+                      f"; hash kernel ms {min(hk):.4f}-{max(hk):.4f}"
+                      if hk else ""))
     return 0
 
 

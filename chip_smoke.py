@@ -28,8 +28,12 @@ Phases (any failure exits non-zero):
          against a float64 evaluation, and an SRP / cosine index (CP 4099
          items, TT 2^16) through both kernels;
        - the kernels' times (CUDA events) beside their bounds and the plain
-         versions' times, and a torch.profiler window over 64 query
-         batches: device time by kernel and the device's busy share;
+         versions' times: the hash kernel per 65,536-item build launch and
+         per 1024-item query batch, K1 per query batch with its registers,
+         blocks per SM, shared bytes per block, shared window and the
+         queries that used the global scratch; and a torch.profiler window
+         over 64 query batches: device time by kernel and the device's busy
+         share;
   4. on the CP cell's corpus and queries, the mutable, multi-probe path:
        - [mp]: L = 2 tables, probes T = 8, the exact cap (K1's dense
          multi-probe branch): recall@1, recall@10, candidates and batch
@@ -61,9 +65,10 @@ Phases (any failure exits non-zero):
          padded): answers equal the single-device index's, K1s-TT against
          its plain version;
   6. [ann-k8]: examples/ann_search.py's own K = 8 (L = 10, exact cap about
-     2616) over the CP cell's corpus and queries: a window past one block's
-     shared memory, so K1's spill branch (and never its shared one) on every
-     batch; recall@1, K1 against its plain version on 4 batches, its time;
+     2950) over the CP cell's corpus and queries: L*cap past K1's shared
+     window, so the launches carry the global scratch, which the queries
+     whose window overflows the shared hash set use (counted); recall@1, K1
+     against its plain version on 4 batches, its time;
   7. [kernels], the card twin of benchmarks/kernels.py: K3 at B=64 N=4 d=64
      R=32 L=8 K=8 and K4 at B=32 N=4 d=32 R=16 L=4 K=8 (raw values against
      the plain version and float64, fused keys bitwise against the tails
@@ -79,9 +84,10 @@ Phases (any failure exits non-zero):
 
 Every path's kernel counters are zeroed just before it runs and read just
 after: each kernel and each K1 / K1s branch it needs must have launched,
-and no plain version may have run. The last two lines are one JSON object of
-kernel records and the device record. Needs a CUDA card; imports nothing of JAX or of the ``repro``
-package.
+and no plain version may have run; K1's and K1s's queries that used the
+global scratch are counted too ("fused_query:scratch"). The last two lines
+are one JSON object of kernel records and the device record. Needs a CUDA
+card; imports nothing of JAX or of the ``repro`` package.
 """
 
 from __future__ import annotations
@@ -380,14 +386,17 @@ def counters():
             "e2lsh_quant_plain": e2lsh_quant_plain}
 
 
-BRANCHES = ("multiprobe", "live_window", "segments", "shared", "spill")
+BRANCHES = ("multiprobe", "live_window", "segments", "scratch")
 K1_WRAPPERS = ("fused_query", "fused_query_sharded")
 
 
 def read_counts() -> dict:
-    """Launches and plain calls, and K1's and K1s's launches by branch
+    """Launches and plain calls, K1's and K1s's launches by branch
     (``fused_query:multiprobe``, ``fused_query_sharded:live_window``,
-    ...)."""
+    ...) and their queries that used the global scratch
+    (``fused_query:scratch``)."""
+    from repro_torch.kernels.fused_query import sync_branches
+    sync_branches()
     fns = counters()
     counts = {name: getattr(fn, "launches" if name in COUNTED else "calls")
               for name, fn in fns.items()}
@@ -397,6 +406,8 @@ def read_counts() -> dict:
 
 
 def zero_counts() -> None:
+    from repro_torch.kernels.fused_query import sync_branches
+    sync_branches()
     fns = counters()
     for name, fn in fns.items():
         setattr(fn, "launches" if name in COUNTED else "calls", 0)
@@ -509,16 +520,17 @@ def phase_main(cell, corpus, qids, queries):
           f"{cell['tables'] * svc.index.cap}")
     print(f"[{tag}] launches on the main path: {counts} (build: "
           f"{hash_kernel} {build_launches})")
-    check_counts(counts, tag, (hash_kernel, "fused_query",
-                               "fused_query:shared"))
-    if counts["fused_query:spill"]:
-        fail(f"{tag}: the spill branch ran on a window that fits")
+    check_counts(counts, tag, (hash_kernel, "fused_query"))
+    print(f"[{tag}] queries that used K1's global scratch: "
+          f"{counts['fused_query:scratch']} of "
+          f"{(len(queries) + 1) * len(qids[0]) + 256}")
     hits1, n_q = check_results(results, [q.cpu().numpy() for q in qids], n)
     recall1 = hits1 / n_q
     self_ok = (self_ids[:, 0] == qids[0][:256].cpu().numpy()).mean()
     r10 = recall10(svc, queries[0], results[0][0],
                    svc.index.effective_corpus())
-    summary.update(recall1=recall1, recall10=r10)
+    summary.update(recall1=recall1, recall10=r10,
+                   build_launches=build_launches)
     print(f"[{tag}] recall@1 (planted) {recall1:.4f} over {n_q} queries; "
           f"recall@10 vs brute force {r10:.4f} over 256; self-queries "
           f"first {self_ok:.4f} (max self distance "
@@ -761,14 +773,34 @@ def phase_times(svc, cell, queries, k1_args):
           f"by {h_by} ({h_bytes / 1e6:.1f} MB, {h_flops / 1e9:.2f} GFLOP, "
           f"{pair} FLOP per (item, hash))")
 
+    # the query side: one raw launch per batch of stacked queries
+    qss = [q.stack()[1] for q in queries]
+    q0 = queries[0]
+    raw = dict(epilogue="raw", scale=q0.scale * fam.projection.scale)
+    q_ms = cuda_ms([lambda x=x: f["kernel"](x, p, **raw) for x in qss],
+                   3 * len(qss))
+    q_plain = cuda_ms([lambda: f["plain"](qss[0], p, **raw)], 2)
+    b_q = qss[0].shape[0]
+    q_bytes = (b_q * q0.row_floats * 4 + t * proj.row_floats * 4
+               + b_q * t * 4)
+    q_flops = b_q * t * inner_flops(q0, proj)
+    q_bound, q_by = bound_ms(q_bytes, q_flops)
+    print(f"[time] {f['name']} raw, {b_q} query items x {t} hashes (one per "
+          f"batch): {q_ms:.4f} ms (plain {q_plain:.4f} ms); bound "
+          f"{q_bound:.4f} ms by {q_by} ({q_bytes / 1e6:.2f} MB, "
+          f"{q_flops / 1e9:.3f} GFLOP)")
+
     k1_t = k1_times(svc, queries, k1_args,
                     "K1-TT" if corpus.layout == "tt" else "K1")
-    return (h_ms, h_plain, h_bound, h_by), k1_t
+    return ((h_ms, h_plain, h_bound, h_by), k1_t,
+            (q_ms, q_plain, q_bound, q_by))
 
 
 def k1_times(svc, queries, k1_args, name, corpus=None):
     """K1 (K1s) per query batch on the card (CUDA events, cycling the
     batches) beside its bound and its plain version's time on one batch."""
+    from repro_torch.core import probing
+    from repro_torch.kernels import fused_query as fq
     idx = svc.index
     fam = idx.family
     if corpus is None:
@@ -778,8 +810,20 @@ def k1_times(svc, queries, k1_args, name, corpus=None):
     segs = view.k1_segments[0]
     qss = [q.stack() for q in queries]
     vals = [fam.raw_stacked(q[1], q[0].scale) for q in qss]
+    before = read_counts()
     k1_ms = cuda_ms([lambda v=v, q=q: kernel(v, offs, mults, q, **kw)
                      for v, q in zip(vals, qss)], 3 * len(queries))
+    after = read_counts()
+    # cuda_ms launched every batch 4 times (a warm-up pass, then 3)
+    scratch = sum(after[f"{k}:scratch"] - before[f"{k}:scratch"]
+                  for k in K1_WRAPPERS) / (4 * len(queries))
+    rq = qs[1].shape[-1]
+    window, may_scratch, smem = fq.launch_plan(
+        view.k1_table, rq, num_tables=kw["num_tables"],
+        probes=kw["probes"], topk=kw["topk"],
+        expansion=(probing.expansion_size(kw["kind"], kw["num_codes"])
+                   if kw["probes"] > 1 else 0))
+    occ = fq.occupancy(view.k1_table, rq, smem)
     k1_plain = cuda_ms([lambda: plain(values, offs, mults, qs, **kw)], 2)
     q0 = qs[0]
     k1_bytes, k1_flops, slots, n_cand = k1_work(
@@ -791,7 +835,15 @@ def k1_times(svc, queries, k1_args, name, corpus=None):
           f"{len(segs)} segment(s), {slots} window slots, {n_cand} "
           f"candidates: {k1_ms:.4f} ms (plain {k1_plain:.4f} ms); bound "
           f"{k1_bound:.5f} ms by {k1_by} ({k1_bytes / 1e6:.2f} MB, "
-          f"{k1_flops / 1e9:.3f} GFLOP)")
+          f"{k1_flops / 1e9:.3f} GFLOP); {occ['registers']} registers a "
+          f"thread, {occ['blocks_per_sm']} blocks per SM (target "
+          f"{occ['target_blocks']}), {occ['local_bytes']} local bytes, "
+          f"{smem} shared bytes per block, a {window}-slot shared window"
+          f"{' with the global scratch' if may_scratch else ''}: "
+          f"{scratch:.1f} queries per batch used the scratch")
+    if occ["blocks_per_sm"] < occ["target_blocks"]:
+        fail(f"{name}: {occ['blocks_per_sm']} blocks per SM, below the "
+             f"target {occ['target_blocks']} K1's window was sized for")
     return k1_ms, k1_plain, k1_bound, k1_by
 
 
@@ -1600,17 +1652,16 @@ def phase_kernels() -> list:
 
 
 # [ann-k8]: examples/ann_search.py's own K = 8 over [main]'s corpus and
-# queries; its exact cap (about 2616) makes a 26,160-slot window, past one
-# block's shared memory: K1's spill branch
+# queries; its exact cap (about 2950) makes L*cap = 29,500 slots, past K1's
+# shared window: the launches carry the global scratch
 ANN_K8 = dict(codes=8, k1_batches=4)
 
 
 def phase_ann_k8(cell, corpus, qids, queries):
     """[ann-k8]: build_service at the example's K = 8 (L = 10, exact cap)
     over the CP cell's corpus and queries, counters zeroed just before and
-    read just after: the spill branch must have run and the shared one not;
-    recall@1; K1 against its plain version on the first batches; its
-    time."""
+    read just after; the queries that used K1's global scratch; recall@1;
+    K1 against its plain version on the first batches; its time."""
     import torch
     from repro_torch.kernels.fused_query import window_plan
     from repro_torch.serving.lsh_service import build_service
@@ -1633,15 +1684,15 @@ def phase_ann_k8(cell, corpus, qids, queries):
                        stacked.shape[2], stacked.shape[3], stacked.shape[3])
     print(f"[ann-k8] build_service, {cell['kind']} K={ANN_K8['codes']} "
           f"L={cell['tables']}: exact cap {idx.cap} -> L*cap = "
-          f"{cell['tables'] * idx.cap} slots, a {plan[0]}-slot window on the "
-          f"{plan[1]} branch; build {svc.stats.build_s:.3f} s; peak device "
-          f"memory {peak / 2**30:.2f} GiB")
+          f"{cell['tables'] * idx.cap} slots, a {plan[0]}-slot shared window"
+          f"{' and the global scratch' if plan[1] else ''}; build "
+          f"{svc.stats.build_s:.3f} s; peak device memory "
+          f"{peak / 2**30:.2f} GiB")
     latency_line("ann-k8", svc, lat_ms)
-    print(f"[ann-k8] launches on the main path: {counts}")
-    check_counts(counts, "ann-k8", ("cp_gram", "fused_query",
-                                    "fused_query:spill"))
-    if counts["fused_query:shared"]:
-        fail("ann-k8: the shared-window branch ran on the spill path")
+    print(f"[ann-k8] launches on the main path: {counts}; queries that used "
+          f"the global scratch: {counts['fused_query:scratch']} of "
+          f"{(len(queries) + 1) * len(qids[0])}")
+    check_counts(counts, "ann-k8", ("cp_gram", "fused_query"))
     hits1, n_q = check_results(results, [q.cpu().numpy() for q in qids], n)
     print(f"[ann-k8] recall@1 (planted) {hits1 / n_q:.4f} over {n_q} queries")
     if hits1 / n_q < RECALL1_MIN:
@@ -1651,9 +1702,9 @@ def phase_ann_k8(cell, corpus, qids, queries):
         e, k1_args = k1_compare(svc, queries[i], f"ann-k8 batch {i}, "
                                                  f"B={len(qids[i])}")
         errs.append(e)
-    k1_t = k1_times(svc, queries, k1_args, "K1 spill")
-    return record("fused_query[spill]", *K1_SOURCE, counts,
-                  "fused_query:spill", max(errs), k1_t)
+    k1_t = k1_times(svc, queries, k1_args, "K1 ann-k8")
+    return record("fused_query[ann-k8]", *K1_SOURCE, counts, "fused_query",
+                  max(errs), k1_t)
 
 
 # [limits]: the shapes F2 lifted. K3 at benchmarks/collision.py's (dims
@@ -1824,10 +1875,14 @@ def run_cell(layout: str, log2_corpus: int, args) -> list:
     k1_err, k1_args = k1_compare(svc, queries[0],
                                  f"{layout.upper()} index, B={args.batch}")
     phase_srp(cell)
-    h_t, k1_t = phase_times(svc, cell, queries, k1_args)
+    h_t, k1_t, hq_t = phase_times(svc, cell, queries, k1_args)
     phase_profile(svc, queries, "tt-profile" if layout == "tt" else "profile")
     key, source, replaces = HASH_RECORDS[layout]
-    records = [record(key, source, replaces, counts, key, h_err, h_t),
+    builds = main["build_launches"]
+    records = [dict(record(key + "[build]", source, replaces, counts, key,
+                           h_err, h_t), launches=builds),
+               dict(record(key + "[query]", source, replaces, counts, key,
+                           h_err, hq_t), launches=counts[key] - builds),
                record("fused_query" + ("[tt]" if layout == "tt" else ""),
                       *K1_SOURCE, counts, "fused_query", k1_err, k1_t)]
     del svc, k1_args

@@ -14,8 +14,8 @@
 // slot count) and cap. Pad slots of a shard carry the perm entry m and
 // live[m] is 0, so a probe that lands on one, even through a pad-key
 // collision, is a miss like a tombstone; effective ids are unique across
-// shards, so the running top-k over the rows is the reference's S-way
-// merge. One block serves one query:
+// shards, so the top-k over the rows is the reference's S-way merge. One
+// block serves one query (12 warps for CP, 8 for TT: Shape below):
 //
 //   1. keys, one warp per table: discretize the table's K raw values
 //      (floor((v + b) / w) or v > 0) and radix-combine them into the base
@@ -26,98 +26,144 @@
 //      candidate after the last one in (score, index) order: a stable
 //      ascending top-(T-1), ties to the lower index. Slot 0 is the base key
 //      and slots past the C candidates repeat it;
-//   2. per segment (the segment table's rows, in slot-offset order), per
-//      (table, probe): a side='left' binary search for the bucket start,
-//      then for the dense window a second search bounded by start + cap
-//      (the bucket is contiguous in sorted order, so [start, end) is the
-//      reference's masked cap-wide window), or for the live window a
-//      side='right' search over the whole table and the live ranks
-//      rank0 = live_rank[start], min(cap, live_rank[end] - rank0) slots;
-//   3. window gather into shared memory: perm ids of the dense window with
-//      tombstoned slots (live == 0) replaced by the miss sentinel, or
-//      perm[live_pos[rank0 + j]] (live by construction, no re-check);
-//   4. bitonic sort + duplicate mask (dedup_windows: across the T probes of
-//      a table too); local ids are per segment, so dedup is per segment and
-//      the candidate count is the sum over segments;
-//   5. exact re-rank in format: qy and yy from the candidate's CP factor
-//      rows or TT core row, qq once per query, combined in the reference's
-//      order sqrt(max((qq + yy) - 2 qy, 0)) or qy / (nq * ny);
-//   6. the 64-bit selection key (order_key_bits(score) << 32) | eff,
-//      bitonic-sorted, and merged into the running top-k: the key is a
-//      strict total order on valid slots (effective ids are unique in a
-//      store), so the running top-k over the segments equals the
-//      reference's one packed_select over their concatenation;
-//   7. ids, scores and the candidate count are written.
+//   2. per segment (the segment table's rows, in slot-offset order), one
+//      warp per (table, probe): a 33-ary search (each step one key load a
+//      lane, a ballot, a shuffle) for the bucket start (side='left'), then
+//      for the dense window a second one bounded by start + cap (the bucket
+//      is contiguous in sorted order, so [start, end) is the reference's
+//      masked cap-wide window), or for the live window a side='right' one
+//      over the rest of the table and the live ranks rank0 =
+//      live_rank[start], min(cap, live_rank[end] - rank0) slots;
+//   3. dedup into a hash set of ids: a thread per window slot reads its id
+//      (perm of the dense window, tombstoned slots skipped; perm[live_pos[
+//      rank0 + j]] of the live one) and inserts it by atomicCAS with linear
+//      probing into a set of 2 * pow2(W) slots, W the slots the query
+//      filled in this segment (across the T probes of a table too); each
+//      successful insert, a distinct live id, goes onto the candidate list,
+//      so its length equals the reference's dedup_windows count; local ids
+//      are per segment, so dedup is per segment and the candidate count is
+//      the sum over segments;
+//   4. exact re-rank in format, warp w taking list entries w, w + warps,
+//      ...: qy and yy from the candidate's CP factor rows or TT core row,
+//      qq once per query, combined in the reference's order
+//      sqrt(max((qq + yy) - 2 qy, 0)) or qy / (nq * ny), and the 64-bit
+//      selection key (order_key_bits(score) << 32) | eff entered into the
+//      warp's running top-k (an ascending list in shared memory, entered
+//      only below its last key);
+//   5. the warps' lists merged by rank (a key's rank is its index in its
+//      list plus, by binary search, the keys of the other lists below it):
+//      the key is a strict total order on valid slots (effective ids are
+//      unique in a store), so the top-k over the warps and segments equals
+//      the reference's one packed_select over their concatenation; then
+//      ids, scores and the candidate count are written.
 //
-// What bounds it on the H100: bytes, and the data decide how many. A query
-// reads its L*K values, its own factors, the keys its binary searches
-// touch (2*L*T searches per segment), the perm / live / live_rank /
-// live_pos entries of its windows and one corpus row per distinct
-// candidate. The expansion's arithmetic (C = 2K^2 candidates a table for
-// E2LSH, T - 1 argmin rounds over them) and the re-rank's (~1.2k FMA per
-// CP candidate, ~20k per TT candidate at rank 4) are far below the fp32
-// rate.
+// What bounds it on the H100: issue slots and latency, not bytes. A query
+// reads its L*K values, its own factors, the keys its searches touch, the
+// perm / live / live_rank / live_pos entries of its windows and one corpus
+// row per distinct candidate (576 B for the CP cell, 4 KiB padded for the
+// TT cell): 69 MB a batch of 1024 on [main], 0.02 ms at HBM's rate. The
+// re-rank is the work: per candidate and warp a few hundred instructions
+// (CP: each lane one Gram term, 36 FMA and 72 shared loads; TT: each lane
+// one entry of a chain state, 16 FMA and 8 shared loads per slice), one
+// candidate after another. Measured per stage before this design (clock64
+// per block): the re-rank 63% of a block on [main] and 87% on [tt-main]
+// (a row's load 1.5k-6.2k cycles, then its score 4.0k-21.7k), the 20-step
+// binary searches 18% (35% over [shard]'s 4 segments), the window's two
+// bitonic sorts and the serial merge 12%; the worst-case window (12 bytes
+// a slot of pow2(L*T*cap)) left room for 1-2 blocks per SM, 1 for TT. And
+// a block's time follows its query's candidates, which are skewed (the
+// largest of a batch of 1024 has ~10x the mean), so the last blocks of a
+// launch set its end.
 //
-// What the design does about it, and what it does not yet: every
-// intermediate (keys, windows, candidates, scores, the running top-k)
-// stays in shared memory; HBM sees only the inputs above and the
-// (B, topk) outputs. A warp scores one candidate at a time: its lanes copy
-// the candidate's row into a per-warp shared buffer in one coalesced pass,
-// then each lane takes (r, q) Gram pairs of <Q, Y> and <Y, Y> (CP) or owns
-// entries of the two chain states (TT), and a shuffle reduction sums them.
-// The binary searches are dependent loads and latency-bound; hiding that
-// (several queries per block, prefetching) is work for a later change.
-// The window is sized for the largest single segment's L*T*cap (rounded
-// up to a power of two for the bitonic sort), not for the sum over
-// segments, since segments run one after another: 12 bytes a slot. Two
-// branches of the one kernel hold it. The shared branch keeps it in shared
-// memory, up to 16384 slots with CP rows of the serving shape and 8192
-// with 4 KiB TT rows; the expansion's per-warp scores and deltas reuse that
-// region. Past that, the spill branch runs the same stages over a window
-// of W slots per query in global memory (scratch the wrapper allocates,
-// B x W x 12 bytes): the gather, the bitonic sort and the duplicate mask
-// over global memory between the same block barriers (a barrier orders
-// the block's global accesses as it does its shared ones), the same
-// re-rank and the same packed top-k, so its answers equal the shared
-// branch's bit for bit. The window sort then reads L2 instead of shared
-// memory; only the data-sized part of the window (the next power of two
-// above the slots the query filled) is sorted in either branch.
+// What the design does about it. Occupancy: the shared window has a fixed
+// capacity (wcap slots, 12 bytes each: 8 for the hash set, 4 for the list)
+// that the wrapper chooses so that the instantiation's blocks per SM fit
+// (Shape, also its __launch_bounds__), not the worst case; a query whose
+// pow2(W) exceeds it in a segment uses its own row of a global scratch
+// instead (the same code through a generic pointer; the wrapper allocates
+// it once per store view, its sets empty, and each segment empties the set
+// it used), and the launch counts such queries. Latency: a warp's search
+// takes 4 dependent loads instead of 20; each warp stages the next
+// candidate's row into the other half of a double buffer with cp.async
+// (16-byte copies where the rows allow) and loads its effective id before
+// it scores the current one, so a row's round trip overlaps the previous
+// candidate's arithmetic. Issue slots: the hash set and the warps' lists
+// replace the two sorts and the serial merge; the TT chain steps one
+// pointer per row of A and B instead of computing each slice's index
+// (71 -> about 40 instructions a slice). Heavy queries: a CP block has 12
+// warps, each scoring two candidates at once (two independent FMA chains a
+// lane), so a query's candidates spread over 24 chains instead of 8.
 //
 // TT rows of ranks above 8 (TR = 16) are read in place from the corpus
-// instead of being copied into a per-warp buffer (a 16 x 8 x 16 core per
-// mode would not fit eight warps' buffers), and the chain state is read
-// from shared memory instead of a register tile.
+// instead of being staged (a 16 x 8 x 16 core per mode would not fit eight
+// warps' buffers), and the chain state is read from shared memory instead
+// of a register tile.
 //
 // Rounding: the score combine uses __fadd_rn / __fsub_rn / __fmul_rn /
 // __fdiv_rn so no FMA contraction changes the reference's expression, and
 // the E2LSH divide is IEEE (__fdiv_rn), never a multiply by 1/w; the
-// expansion's squares and sums are __fmul_rn / __fadd_rn as in JAX.
+// expansion's squares and sums are __fmul_rn / __fadd_rn as in JAX. Each
+// lane scores the same Gram terms or chain entries with the same FMAs in
+// the same order as before this design, so the scores, and with them every
+// output, are unchanged bit for bit.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr uint32_t kPadKey = 0xFFFFFFFFu;
+constexpr uint32_t kEmpty = 0xFFFFFFFFu;   // an empty hash slot, a pad key
 constexpr unsigned long long kPadSlot = 0xFFFFFFFFFFFFFFFFull;
+constexpr unsigned kFull = 0xffffffffu;
+// Threads of one query's block, the blocks per SM each instantiation is
+// built for (its __launch_bounds__; the wrapper sizes the shared window so
+// that they fit) and the candidates a warp scores at once: CP 12 warps, 2
+// blocks (at most 85 registers, so none spill), two candidates; TT 8 warps
+// (two 4 KiB row buffers each), rank <= 4 3 blocks, rank <= 16 2, rank <= 8
+// 1 (its register tile), one candidate.
+template <int TR>
+struct Shape {
+  static constexpr int per_warp = TR == 0 ? 2 : 1;
+  static constexpr int threads = TR == 0 ? 384 : 256;
+  static constexpr int min_blocks = TR == 0 ? 2 : TR == 4 ? 3 : TR == 16 ? 2
+                                                                          : 1;
+};
 
 __device__ __forceinline__ float scale_mul(float s, float v) {
   return __fmul_rn(s, v);
 }
 
-// prod_n sum_d a[n][d][r] * b[n][d][q]: one (r, q) term of the CP inner
-// product of factors stacked (N, D, R*) row-major.
-__device__ float pair_term(const float* a, int RA, const float* b, int RB,
-                           int N, int D, int r, int q) {
-  float prod = 0.f;
+// prod_n sum_d a[k][n][d][r] * b[k][n][d][q] added to t[k], for G pairs of
+// CP factors stacked (N, D, R*) row-major at once: the (r, q) terms of G
+// inner products, each with the same FMAs in the same order as alone, their
+// chains interleaved.
+template <int G>
+__device__ __forceinline__ void pair_terms(const float* const* a, int RA,
+                                           const float* const* b, int RB,
+                                           int N, int D, int r, int q,
+                                           float* t) {
+  float prod[G];
+#pragma unroll
+  for (int k = 0; k < G; ++k) prod[k] = 0.f;
   for (int n = 0; n < N; ++n) {
-    float dot = 0.f;
-    const float* an = a + (size_t)n * D * RA + r;
-    const float* bn = b + (size_t)n * D * RB + q;
-    for (int d = 0; d < D; ++d) dot += an[d * RA] * bn[d * RB];
-    prod = (n == 0) ? dot : prod * dot;
+    float dot[G];
+    const float* an[G];
+    const float* bn[G];
+#pragma unroll
+    for (int k = 0; k < G; ++k) {
+      dot[k] = 0.f;
+      an[k] = a[k] + (size_t)n * D * RA + r;
+      bn[k] = b[k] + (size_t)n * D * RB + q;
+    }
+#pragma unroll 4
+    for (int d = 0; d < D; ++d)
+#pragma unroll
+      for (int k = 0; k < G; ++k) dot[k] += an[k][d * RA] * bn[k][d * RB];
+#pragma unroll
+    for (int k = 0; k < G; ++k) prod[k] = (n == 0) ? dot[k] : prod[k] * dot[k];
   }
-  return prod;
+#pragma unroll
+  for (int k = 0; k < G; ++k) t[k] += prod[k];
 }
 
 // One warp steps up to two TT transfer-matrix chains at once, <A1, B1> and
@@ -155,14 +201,26 @@ __device__ void tt_chains(const float* a1, int ra1, const float* b1, int rb1,
 #pragma unroll
           for (int y = 0; y < TR; ++y)
             sr[x][y] = (x < ra && y < rb) ? s[x * rb + y] : 0.f;
+        // one pointer a row of B and of A, stepped by a slice: a load and
+        // an add each, no index arithmetic
+        const float* bp[TR];
+        const float* ap[TR];
+#pragma unroll
+        for (int y = 0; y < TR; ++y) bp[y] = bn + y * D * rb;
+#pragma unroll
+        for (int x = 0; x < TR; ++x) ap[x] = an + x * D * ra;
         for (int i = 0; i < D; ++i) {
           float bv[TR], av[TR];
 #pragma unroll
-          for (int y = 0; y < TR; ++y)
-            bv[y] = y < rb ? bn[(y * D + i) * rb] : 0.f;
+          for (int y = 0; y < TR; ++y) {
+            bv[y] = y < rb ? *bp[y] : 0.f;
+            bp[y] += rb;
+          }
 #pragma unroll
-          for (int x = 0; x < TR; ++x)
-            av[x] = x < ra ? an[(x * D + i) * ra] : 0.f;
+          for (int x = 0; x < TR; ++x) {
+            av[x] = x < ra ? *ap[x] : 0.f;
+            ap[x] += ra;
+          }
 #pragma unroll
           for (int x = 0; x < TR; ++x) {
             float u = 0.f;
@@ -197,29 +255,22 @@ __device__ void tt_chains(const float* a1, int ra1, const float* b1, int rb1,
   __syncwarp();
 }
 
+// tt_chains compiled on its own (not inlined): for rows read in place
+// (TR = 16) it keeps the scheduling it has alone, which the re-rank loop's
+// staging state around an inlined copy costs about 3%.
+template <int TR>
+__device__ __noinline__ void tt_chains_far(const float* a1, int ra1,
+                                           const float* b1, int rb1,
+                                           const float* a2, int ra2,
+                                           const float* b2, int rb2, int N,
+                                           int D, float* st, int lane,
+                                           float* v1, float* v2) {
+  tt_chains<TR>(a1, ra1, b1, rb1, a2, ra2, b2, rb2, N, D, st, lane, v1, v2);
+}
+
 __device__ __forceinline__ float warp_sum(float v) {
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
   return v;
-}
-
-template <typename T>
-__device__ void bitonic_sort(T* a, int n) {  // n a power of two, ascending
-  for (int k = 2; k <= n; k <<= 1) {
-    for (int j = k >> 1; j > 0; j >>= 1) {
-      for (int i = threadIdx.x; i < n; i += blockDim.x) {
-        const int ixj = i ^ j;
-        if (ixj > i) {
-          const T x = a[i], y = a[ixj];
-          const bool up = (i & k) == 0;
-          if ((x > y) == up) {
-            a[i] = y;
-            a[ixj] = x;
-          }
-        }
-      }
-      __syncthreads();
-    }
-  }
 }
 
 __device__ __forceinline__ int pow2_ceil(int x) {
@@ -228,6 +279,111 @@ __device__ __forceinline__ int pow2_ceil(int x) {
   return p;
 }
 
+// The first position p in [lo, hi) with sk[p] > key (upper) or sk[p] >= key
+// (not upper), or hi, over the uint32 keys of an ascending int64 array: one
+// warp probes 32 positions splitting [lo, hi) into 33 parts, a ballot
+// counts those before the bound, and the part that holds it is kept; four
+// dependent loads for 2^20 keys instead of a binary search's 20.
+__device__ __forceinline__ int warp_bound(const long long* sk, int lo, int hi,
+                                          uint32_t key, bool upper,
+                                          int lane) {
+  while (hi - lo > 32) {
+    const long long n = hi - lo;
+    const int p = lo + (int)(((long long)(lane + 1) * n) / 33);
+    const uint32_t v = (uint32_t)__ldg(sk + p);
+    const int c = __popc(__ballot_sync(kFull, upper ? v <= key : v < key));
+    const int plo = __shfl_sync(kFull, p, c > 0 ? c - 1 : 0);
+    const int phi = __shfl_sync(kFull, p, c < 32 ? c : 31);
+    if (c > 0) lo = plo + 1;
+    if (c < 32) hi = phi;
+  }
+  const int p = lo + lane;
+  bool before = false;
+  if (p < hi) {
+    const uint32_t v = (uint32_t)__ldg(sk + p);
+    before = upper ? v <= key : v < key;
+  }
+  return lo + __popc(__ballot_sync(kFull, before));
+}
+
+// Inserts id into the open-addressing set ht of 2^(32 - shift) slots ->
+// whether it was new.
+__device__ __forceinline__ bool set_insert(uint32_t* ht, int shift,
+                                           uint32_t id) {
+  const uint32_t mask = 0xFFFFFFFFu >> shift;
+  uint32_t h = (id * 2654435761u) >> shift;
+  while (true) {
+    const uint32_t prev = atomicCAS(ht + h, kEmpty, id);
+    if (prev == kEmpty) return true;
+    if (prev == id) return false;
+    h = (h + 1) & mask;
+  }
+}
+
+// Enters key (the same in every lane) into the warp's ascending list
+// wl[0, topk) -> the list's new last key.
+__device__ unsigned long long topk_insert(unsigned long long* wl, int topk,
+                                          unsigned long long key, int lane) {
+  int pos = 0;
+  for (int c = 0; c < topk; c += 32) {
+    const int i = c + lane;
+    pos += __popc(__ballot_sync(kFull, i < topk && wl[i] < key));
+  }
+  // shift the tail right by one, the last chunk first, reads before writes
+  for (int c = (topk - 1) & ~31; c >= 0; c -= 32) {
+    const int i = c + lane;
+    const unsigned long long prev = i < topk && i > pos ? wl[i - 1] : 0ull;
+    __syncwarp();
+    if (i < topk && i >= pos) wl[i] = i == pos ? key : prev;
+    __syncwarp();
+  }
+  return wl[topk - 1];
+}
+
+// The number of keys of the ascending list a[0, n) below x (or at most x:
+// the pads, equal keys, of lists merged earlier rank first).
+__device__ __forceinline__ int count_below(const unsigned long long* a, int n,
+                                           unsigned long long x, bool eq) {
+  int lo = 0, hi = n;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (a[mid] < x || (eq && a[mid] == x)) lo = mid + 1; else hi = mid;
+  }
+  return lo;
+}
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
+               "l"(src));
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d),
+               "l"(src));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// One warp copies a candidate's FC-float row into its shared buffer,
+// asynchronously: 16-byte copies where the row and the corpus allow them.
+__device__ __forceinline__ void stage_row(float* dst, const float* src,
+                                          int FC, bool vec, int lane) {
+  if (vec) {
+    for (int i = lane; i < (FC >> 2); i += 32)
+      cp_async16(dst + 4 * i, src + 4 * i);
+  } else {
+    for (int i = lane; i < FC; i += 32) cp_async4(dst + i, src + i);
+  }
+}
 
 // One row of the (S, 12) int64 segment table (fused_query.py's
 // segment_table).
@@ -263,13 +419,36 @@ __device__ __forceinline__ bool lex_less(float s, int c, float bs, int bc) {
   return s < bs || (s == bs && c < bc);
 }
 
-// TR = 0: CP rows; TR = 4, 8 or 16: TT rows of ranks at most TR. SPILL:
-// false for the shared branch (spill unused), true for the spill branch,
-// whose scratch holds 12 * P bytes per query (P int64 selection keys, then
-// P uint32 window slots). A template argument, so that the shared branch
-// addresses its window as shared memory exactly as before.
-template <int TR, bool SPILL>
-__global__ void fused_query_kernel(
+// A window slot's id: the (table, probe) that holds slot i (woff[lo] <= i <
+// woff[lo + 1]), then perm of the dense window (kEmpty where the slot is
+// tombstoned or a shard's pad) or perm[live_pos[.]] of the live one (live
+// by construction).
+__device__ __forceinline__ uint32_t slot_id(const Seg& g, bool has_win,
+                                            int T, int LT, const int* woff,
+                                            const int* starts, int i) {
+  int lo = 0, hi = LT;
+  while (hi - lo > 1) {
+    const int mid = (lo + hi) >> 1;
+    if (woff[mid] <= i) lo = mid; else hi = mid;
+  }
+  const size_t row = (size_t)(lo / T) * (size_t)g.m;
+  const int off = starts[lo] + (i - woff[lo]);
+  if (has_win)
+    return (uint32_t)__ldg(g.perm + row + __ldg(g.live_pos + row + off));
+  const int cand = __ldg(g.perm + row + off);
+  return g.live[cand] ? (uint32_t)cand : kEmpty;
+}
+
+// TR = 0: CP rows; TR = 4, 8 or 16: TT rows of ranks at most TR. wcap: the
+// shared window's capacity in slots (a power of two; its hash set holds
+// 2 * wcap ids, its candidate list wcap); scratch: per query 3 * scap
+// uint32 slots of global memory (a hash set of 2 * scap, all empty, and a
+// list of scap; scap = pow2(L*T*cap) of the largest cap) for the segments
+// whose window exceeds the shared one (nullptr when none can);
+// scratch_queries counts the queries that used it.
+template <int TR>
+__global__ void __launch_bounds__(Shape<TR>::threads, Shape<TR>::min_blocks)
+fused_query_kernel(
     const float* __restrict__ values,          // (B, L*K)
     const float* __restrict__ offsets,         // (L*K,)
     const long long* __restrict__ mults,       // (K,)
@@ -279,30 +458,27 @@ __global__ void fused_query_kernel(
     int S, int* __restrict__ out_ids, float* __restrict__ out_scores,
     int* __restrict__ out_ncand, int L, int K, int T, int C, int N, int D,
     int RQ, int RCMAX, int topk, int e2, int euclid, float w, double qs,
-    int P, unsigned long long* spill) {
+    int wcap, uint32_t* __restrict__ scratch, int scap,
+    unsigned long long* __restrict__ scratch_queries) {
   constexpr bool tt = TR > 0;
   constexpr bool stage_rows = TR <= 8;  // rows of ranks > 8 are read in place
-  constexpr unsigned kFull = 0xffffffffu;
-  extern __shared__ unsigned long long smem64[];
-  const int nwarps = blockDim.x >> 5;
+  constexpr int kThreads = Shape<TR>::threads;
+  constexpr int nwarps = kThreads / 32;
+  constexpr int G = Shape<TR>::per_warp;  // candidates a warp scores at once
+  extern __shared__ __align__(16) unsigned char smem[];
   const int LT = L * T;
-  unsigned long long* top = smem64;                   // [2 * topk]
-  unsigned long long* xreg = top + 2 * topk;          // the shared region
-  unsigned long long* ckey = xreg;                    // [P]
-  if constexpr (SPILL)
-    ckey = spill + (size_t)blockIdx.x * P + (size_t)blockIdx.x * (P / 2);
-  uint32_t* win = reinterpret_cast<uint32_t*>(ckey + P);  // [P]
-  size_t region = SPILL ? (size_t)nwarps * C * 8
-                        : max((size_t)P * 12, (size_t)nwarps * C * 8);
-  region = (region + 7) & ~(size_t)7;
-  float* qf = reinterpret_cast<float*>(
-      reinterpret_cast<char*>(xreg) + region);        // [FQ]
   const int FQ = tt ? N * RQ * D * RQ : N * D * RQ;   // floats of a query row
   const int FCMAX = !stage_rows ? 0
-                    : tt ? N * RCMAX * D * RCMAX : N * D * RCMAX;
+                    : ((tt ? N * RCMAX * D * RCMAX : N * D * RCMAX) + 3) & ~3;
   const int SW = tt ? 2 * max(RQ * RCMAX + RCMAX * RCMAX, RQ * RQ) : 0;
-  float* ybuf = qf + FQ;                              // [nwarps][FCMAX]
-  float* sbuf = ybuf + nwarps * FCMAX;                // [nwarps][SW]
+  const int RW = (max(3 * wcap, nwarps * 2 * C) + 3) & ~3;
+  float* ybuf = reinterpret_cast<float*>(smem);  // [nwarps][2][G][FCMAX]
+  unsigned long long* wl_all = reinterpret_cast<unsigned long long*>(
+      ybuf + nwarps * 2 * G * FCMAX);                 // [nwarps][topk]
+  unsigned long long* topv = wl_all + nwarps * topk;  // [topk]
+  uint32_t* region = reinterpret_cast<uint32_t*>(topv + topk);  // [RW]
+  float* qf = reinterpret_cast<float*>(region + RW);  // [FQ]
+  float* sbuf = qf + FQ;                              // [nwarps][SW]
   uint32_t* qkeys = reinterpret_cast<uint32_t*>(sbuf + nwarps * SW);  // [LT]
   int* starts = reinterpret_cast<int*>(qkeys + LT);   // [LT]
   int* lens = starts + LT;                            // [LT]
@@ -310,20 +486,26 @@ __global__ void fused_query_kernel(
   __shared__ float qq_s;
   __shared__ int ncand_s;
   __shared__ int total_s;
+  __shared__ int hlog_s;
+  __shared__ int scratch_s;
 
   const int b = blockIdx.x;
   const int tid = threadIdx.x;
   const int warp = tid >> 5, lane = tid & 31;
 
-  for (int i = tid; i < FQ; i += blockDim.x) qf[i] = q[(size_t)b * FQ + i];
-  for (int i = tid; i < topk; i += blockDim.x) top[i] = kPadSlot;
-  if (tid == 0) total_s = 0;
+  for (int i = tid; i < FQ; i += kThreads) qf[i] = q[(size_t)b * FQ + i];
+  for (int i = tid; i < nwarps * topk; i += kThreads) wl_all[i] = kPadSlot;
+  if (tid == 0) {
+    total_s = 0;
+    ncand_s = 0;
+    scratch_s = 0;
+  }
 
   // 1. keys and the multi-probe expansion, one warp per table; the warp's
-  // candidate scores and deltas live in the shared region (the shared
-  // branch's window, not yet used)
+  // candidate scores and deltas live in the shared region (the hash set's,
+  // not yet used)
   const int NS = e2 ? 2 * K : K;
-  float* sc = reinterpret_cast<float*>(xreg) + (size_t)warp * 2 * C;
+  float* sc = reinterpret_cast<float*>(region) + (size_t)warp * 2 * C;
   uint32_t* dl = reinterpret_cast<uint32_t*>(sc + C);
   for (int l = warp; l < L; l += nwarps) {
     const float* v = values + (size_t)b * L * K + (size_t)l * K;
@@ -403,16 +585,20 @@ __global__ void fused_query_kernel(
       tt_chains<TR>(qf, RQ, qf, RQ, nullptr, 0, nullptr, 0, N, D, sbuf, lane,
                     &t, &unused);
     } else {
+      const float* qa[1] = {qf};
       for (int p = lane; p < RQ * RQ; p += 32)
-        t += pair_term(qf, RQ, qf, RQ, N, D, p / RQ, p % RQ);
+        pair_terms<1>(qa, RQ, qa, RQ, N, D, p / RQ, p % RQ, &t);
       t = warp_sum(t);
     }
     if (lane == 0) qq_s = scale_mul((float)(qs * qs), t);
   }
+  for (int i = tid; i < 2 * wcap; i += kThreads) region[i] = kEmpty;
   __syncthreads();
   const float qq = qq_s;
-  float* yb = ybuf + warp * FCMAX;
-  float* sb = sbuf + warp * SW;
+  float* const yb = ybuf + warp * 2 * G * FCMAX;
+  float* const sb = sbuf + warp * SW;
+  unsigned long long* const wl = wl_all + warp * topk;
+  unsigned long long thr = kPadSlot;  // the last key of the warp's list
 
   for (int si = 0; si < S; ++si) {
     const Seg g = load_seg(segtab + (size_t)si * 12);
@@ -420,123 +606,145 @@ __global__ void fused_query_kernel(
     const bool has_win = g.live_rank != nullptr;
     const size_t m = (size_t)g.m;
 
-    // 2. bucket bounds, one thread per (table, probe)
-    for (int i = tid; i < LT; i += blockDim.x) {
+    // 2. bucket bounds, one warp per (table, probe)
+    for (int i = warp; i < LT; i += nwarps) {
       const int l = i / T;
       const uint32_t key = qkeys[i];
       const long long* sk = g.sorted_keys + (size_t)l * m;
-      int lo = 0, hi = g.m;
-      while (lo < hi) {  // first position with sk >= key
-        const int mid = (lo + hi) >> 1;
-        if ((uint32_t)sk[mid] < key) lo = mid + 1; else hi = mid;
-      }
-      const int start = lo;
-      hi = has_win ? g.m : min(g.m, start + g.cap);
-      while (lo < hi) {  // first position (in the window) with sk > key
-        const int mid = (lo + hi) >> 1;
-        if ((uint32_t)sk[mid] <= key) lo = mid + 1; else hi = mid;
-      }
-      if (has_win) {
-        const int* lr = g.live_rank + (size_t)l * (m + 1);
-        const int r0 = lr[start];
-        starts[i] = r0;
-        lens[i] = min(g.cap, lr[lo] - r0);
-      } else {
-        starts[i] = start;
-        lens[i] = lo - start;
+      const int start = warp_bound(sk, 0, g.m, key, false, lane);
+      const int hi = has_win ? g.m : min(g.m, start + g.cap);
+      const int end = warp_bound(sk, start, hi, key, true, lane);
+      if (lane == 0) {
+        if (has_win) {
+          const int* lr = g.live_rank + (size_t)l * (m + 1);
+          const int r0 = lr[start];
+          starts[i] = r0;
+          lens[i] = min(g.cap, lr[end] - r0);
+        } else {
+          starts[i] = start;
+          lens[i] = end - start;
+        }
       }
     }
     __syncthreads();
     if (tid == 0) {
+      ncand_s = 0;
       woff[0] = 0;
       for (int i = 0; i < LT; ++i) woff[i + 1] = woff[i] + lens[i];
-      ncand_s = 0;
+      const int pw = pow2_ceil(woff[LT]);
+      hlog_s = 32 - __clz(pw);  // log2 of the set's 2 * pw slots
+      if (pw > wcap) scratch_s = 1;
     }
     __syncthreads();
 
-    // 3. window gather: tombstoned slots and the pow2 tail carry sentinels
+    // 3. dedup: the window's live ids into the hash set, and each new one
+    // onto the candidate list, in shared memory while pow2(W) <= wcap, else
+    // in the query's row of the scratch
     const int W = woff[LT];
-    const int PW = pow2_ceil(W);
-    for (int i = tid; i < PW; i += blockDim.x) {
-      uint32_t id = kPadKey;
-      if (i < W) {
-        int lo = 0, hi = LT;  // woff[lo] <= i < woff[hi]
-        while (hi - lo > 1) {
-          const int mid = (lo + hi) >> 1;
-          if (woff[mid] <= i) lo = mid; else hi = mid;
-        }
-        const size_t row = (size_t)(lo / T) * m;
-        const int off = starts[lo] + (i - woff[lo]);
-        if (has_win) {
-          id = (uint32_t)g.perm[row + g.live_pos[row + off]];
-        } else {
-          const int cand = g.perm[row + off];
-          id = g.live[cand] ? (uint32_t)cand : (uint32_t)g.m;
-        }
+    const int hlog = hlog_s;
+    const int H = 1 << hlog;
+    uint32_t* const ht = H <= 2 * wcap
+                             ? region
+                             : scratch + (size_t)b * 3 * (size_t)scap;
+    uint32_t* const cl = ht + (H <= 2 * wcap ? 2 * wcap : 2 * scap);
+    for (int i0 = tid; i0 < W; i0 += 4 * kThreads) {
+      uint32_t ids[4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const int i = i0 + u * kThreads;
+        ids[u] = i < W ? slot_id(g, has_win, T, LT, woff, starts, i) : kEmpty;
       }
-      win[i] = id;
-    }
-    __syncthreads();
-
-    // 4. sort-dedup, distinct live ids compacted into ckey
-    bitonic_sort(win, PW);
-    for (int i = tid; i < W; i += blockDim.x) {
-      const uint32_t id = win[i];
-      if (id < (uint32_t)g.m && (i == 0 || win[i - 1] != id)) {
-        const int slot = atomicAdd(&ncand_s, 1);
-        ckey[slot] = id;
-      }
+#pragma unroll
+      for (int u = 0; u < 4; ++u)
+        if (ids[u] < (uint32_t)g.m && set_insert(ht, 32 - hlog, ids[u]))
+          cl[atomicAdd(&ncand_s, 1)] = ids[u];
     }
     __syncthreads();
     const int n_cand = ncand_s;
+    if (tid == 0) total_s += n_cand;
+    for (int i = tid; i < H; i += kThreads) ht[i] = kEmpty;  // for the next
 
-    // 5-6. exact re-rank, one warp per candidate, and the selection key
+    // 4. exact re-rank, G candidates a warp at a time (the list's j = G *
+    // warp + k, then j + G * nwarps + k, ...): the warp stages the next
+    // candidates' rows and effective ids while it scores the current ones,
+    // and enters their selection keys into its list
     const int RC = g.rc;
     const int FC = tt ? N * RC * D * RC : N * D * RC;
     const float s_qy = (float)(qs * g.cs), s_yy = (float)(g.cs * g.cs);
-    const int PC = pow2_ceil(n_cand);
-    for (int j = warp; j < n_cand; j += nwarps) {
-      const uint32_t id = (uint32_t)ckey[j];
-      const float* y = g.c + (size_t)id * FC;
-      const float* yr = y;
-      if constexpr (stage_rows) {
-        // the row through the read-only path, 8 loads in flight per lane
-        // before their stores (a 4 KiB TT row is 32 loads a lane)
-        for (int i0 = lane; i0 < FC; i0 += 256) {
-          float r[8];
+    const bool vec = (FC & 3) == 0 &&
+                     (reinterpret_cast<uintptr_t>(g.c) & 15) == 0;
+    int j = warp * G;
+    uint32_t cur[G];
+    int cur_eff[G];
 #pragma unroll
-          for (int u = 0; u < 8; ++u) {
-            const int i = i0 + 32 * u;
-            r[u] = i < FC ? __ldg(y + i) : 0.f;
-          }
-#pragma unroll
-          for (int u = 0; u < 8; ++u) {
-            const int i = i0 + 32 * u;
-            if (i < FC) yb[i] = r[u];
-          }
-        }
-        __syncwarp();
-        yr = yb;
+    for (int k = 0; k < G; ++k) {
+      cur[k] = j + k < n_cand ? cl[j + k] : kEmpty;
+      cur_eff[k] = 0;
+      if (cur[k] != kEmpty) {
+        if constexpr (stage_rows)
+          stage_row(yb + k * FCMAX, g.c + (size_t)cur[k] * FC, FC, vec, lane);
+        cur_eff[k] = __ldg(g.eff + cur[k]);
       }
-      float tqy = 0.f, tyy = 0.f;
-      if constexpr (tt) {
-        tt_chains<TR>(qf, RQ, yr, RC, yr, RC, yr, RC, N, D, sb, lane, &tqy,
-                      &tyy);
+    }
+    cp_async_commit();
+    int half = 0;
+    while (cur[0] != kEmpty) {
+      j += G * nwarps;
+      uint32_t nxt[G];
+      int nxt_eff[G];
+#pragma unroll
+      for (int k = 0; k < G; ++k) {
+        nxt[k] = j + k < n_cand ? cl[j + k] : kEmpty;
+        nxt_eff[k] = 0;
+        if (nxt[k] != kEmpty) {
+          if constexpr (stage_rows)
+            stage_row(yb + ((half ^ 1) * G + k) * FCMAX,
+                      g.c + (size_t)nxt[k] * FC, FC, vec, lane);
+          nxt_eff[k] = __ldg(g.eff + nxt[k]);
+        }
+      }
+      cp_async_commit();
+      cp_async_wait<1>();  // the current rows have landed
+      __syncwarp();
+      const float* yr[G];
+      float tqy[G], tyy[G];
+#pragma unroll
+      for (int k = 0; k < G; ++k) {
+        yr[k] = stage_rows ? yb + (half * G + k) * FCMAX
+                           : g.c + (size_t)cur[k] * FC;
+        tqy[k] = 0.f;
+        tyy[k] = 0.f;
+      }
+      if constexpr (tt) {  // G = 1
+        if constexpr (TR > 8)
+          tt_chains_far<TR>(qf, RQ, yr[0], RC, yr[0], RC, yr[0], RC, N, D,
+                            sb, lane, tqy, tyy);
+        else
+          tt_chains<TR>(qf, RQ, yr[0], RC, yr[0], RC, yr[0], RC, N, D, sb,
+                        lane, tqy, tyy);
       } else {
+        const float* qa[G];
+#pragma unroll
+        for (int k = 0; k < G; ++k) qa[k] = qf;
         for (int p = lane; p < RQ * RC + RC * RC; p += 32) {
           if (p < RQ * RC) {
-            tqy += pair_term(qf, RQ, yr, RC, N, D, p / RC, p % RC);
+            pair_terms<G>(qa, RQ, yr, RC, N, D, p / RC, p % RC, tqy);
           } else {
             const int p2 = p - RQ * RC;
-            tyy += pair_term(yr, RC, yr, RC, N, D, p2 / RC, p2 % RC);
+            pair_terms<G>(yr, RC, yr, RC, N, D, p2 / RC, p2 % RC, tyy);
           }
         }
-        tqy = warp_sum(tqy);
-        tyy = warp_sum(tyy);
+#pragma unroll
+        for (int k = 0; k < G; ++k) {
+          tqy[k] = warp_sum(tqy[k]);
+          tyy[k] = warp_sum(tyy[k]);
+        }
       }
-      if (lane == 0) {
-        const float qy = scale_mul(s_qy, tqy);
-        const float yy = scale_mul(s_yy, tyy);
+#pragma unroll
+      for (int k = 0; k < G; ++k) {
+        if (cur[k] == kEmpty) continue;
+        const float qy = scale_mul(s_qy, tqy[k]);
+        const float yy = scale_mul(s_yy, tyy[k]);
         float score;
         if (euclid) {
           const float d2 = __fsub_rn(__fadd_rn(qq, yy), __fmul_rn(2.f, qy));
@@ -548,44 +756,39 @@ __global__ void fused_query_kernel(
         }
         const uint32_t bits = __float_as_uint(euclid ? score : -score);
         const uint32_t key32 = (bits >> 31) ? ~bits : (bits | 0x80000000u);
-        ckey[j] = ((unsigned long long)key32 << 32) | (uint32_t)g.eff[id];
+        const unsigned long long key =
+            ((unsigned long long)key32 << 32) | (uint32_t)cur_eff[k];
+        if (key < thr) thr = topk_insert(wl, topk, key, lane);
       }
-      __syncwarp();
-    }
-    for (int j = n_cand + tid; j < PC; j += blockDim.x) ckey[j] = kPadSlot;
-    __syncthreads();
-    bitonic_sort(ckey, PC);
-
-    // merge the segment's best into the running top-k
-    if (tid == 0) {
-      unsigned long long* out = top + topk;
-      const int nb = min(n_cand, topk);
-      int a = 0, c = 0;
-      for (int o = 0; o < topk; ++o) {
-        const unsigned long long x = a < topk ? top[a] : kPadSlot;
-        const unsigned long long y = c < nb ? ckey[c] : kPadSlot;
-        if (y < x) {
-          out[o] = y;
-          ++c;
-        } else {
-          out[o] = x;
-          ++a;
-        }
+      __syncwarp();  // the rows' half is read before it is staged again
+#pragma unroll
+      for (int k = 0; k < G; ++k) {
+        cur[k] = nxt[k];
+        cur_eff[k] = nxt_eff[k];
       }
-      for (int o = 0; o < topk; ++o) top[o] = out[o];
-      total_s += n_cand;
+      half ^= 1;
     }
-    __syncthreads();
+    cp_async_wait<0>();
   }
+  __syncthreads();
 
-  // 7. ids, scores and the candidate count
+  // 5. the warps' lists merged by rank, then ids, scores and the count
+  for (int e = tid; e < nwarps * topk; e += kThreads) {
+    const int wv = e / topk;
+    const unsigned long long x = wl_all[e];
+    int r = e - wv * topk;
+    for (int v = 0; v < nwarps && r < topk; ++v)
+      if (v != wv) r += count_below(wl_all + v * topk, topk, x, v < wv);
+    if (r < topk) topv[r] = x;
+  }
+  __syncthreads();
   const float bad = __uint_as_float(euclid ? 0x7f800000u : 0xff800000u);
-  for (int i = tid; i < topk; i += blockDim.x) {
+  for (int i = tid; i < topk; i += kThreads) {
     int id = -1;
     float score = bad;
-    const unsigned long long s = top[i];
+    const unsigned long long s = topv[i];
     const uint32_t key32 = (uint32_t)(s >> 32);
-    if (key32 != kPadKey) {
+    if (key32 != kEmpty) {
       id = (int)(uint32_t)(s & 0xFFFFFFFFull);
       const uint32_t bits = (key32 >> 31) ? (key32 & 0x7FFFFFFFu) : ~key32;
       const float order = __uint_as_float(bits);
@@ -594,25 +797,107 @@ __global__ void fused_query_kernel(
     out_ids[(size_t)b * topk + i] = id;
     out_scores[(size_t)b * topk + i] = score;
   }
-  if (tid == 0) out_ncand[b] = total_s;
+  if (tid == 0) {
+    out_ncand[b] = total_s;
+    if (scratch_s) atomicAdd(scratch_queries, 1ull);
+  }
+}
+
+int tr_of(int tt, int RQ, int RC) {  // the instantiation for these ranks
+  if (!tt) return 0;
+  if (RQ <= 4 && RC <= 4) return 4;
+  if (RQ <= 8 && RC <= 8) return 8;
+  if (RQ <= 16 && RC <= 16) return 16;
+  return -1;
+}
+
+int threads_of(int tr) {
+  switch (tr) {
+    case 0: return Shape<0>::threads;
+    case 4: return Shape<4>::threads;
+    case 8: return Shape<8>::threads;
+    default: return Shape<16>::threads;
+  }
+}
+
+// Up to smem bytes of dynamic shared memory, and all of the SM's 228 KB as
+// shared memory (not L1), so that Shape<TR>::min_blocks can be resident.
+template <int TR>
+cudaError_t prepare(size_t smem) {
+  static size_t allowed = 0;
+  static bool carved = false;
+  if (!carved) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        fused_query_kernel<TR>, cudaFuncAttributePreferredSharedMemoryCarveout,
+        (int)cudaSharedmemCarveoutMaxShared);
+    if (e != cudaSuccess) return e;
+    carved = true;
+  }
+  if (smem > allowed) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        fused_query_kernel<TR>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (e != cudaSuccess) return e;
+    allowed = smem;
+  }
+  return cudaSuccess;
+}
+
+template <int TR>
+int occupancy(size_t smem, int* out) {
+  cudaFuncAttributes a;
+  cudaError_t e = cudaFuncGetAttributes(&a, fused_query_kernel<TR>);
+  if (e == cudaSuccess) e = prepare<TR>(smem);
+  int blocks = 0;
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &blocks, fused_query_kernel<TR>, Shape<TR>::threads, smem);
+  if (e != cudaSuccess) return (int)e;
+  out[0] = a.numRegs;
+  out[1] = blocks;
+  out[2] = (int)a.localSizeBytes;
+  out[3] = Shape<TR>::min_blocks;
+  return 0;
 }
 
 }  // namespace
 
+// Shared memory of one K1 block (fused_query.py's smem_bytes mirrors it):
+// two row buffers a warp for each candidate it scores at once (rows of
+// ranks above 8 are read in place), the warps' lists and the merged top-k
+// (8 bytes a rank each), the region of the hash set and the candidate list
+// (3 * wcap ids) or the expansion's per-warp scores and deltas (C of each),
+// the query's row, the TT chain states a warp, four per-(table, probe)
+// integer arrays.
 extern "C" size_t fused_query_smem_bytes(int LT, int N, int D, int RQ,
-                                         int RC, int P, int threads, int tt,
-                                         int topk, int C, int spill) {
+                                         int RC, int wcap, int tt, int topk,
+                                         int C) {
   const bool stage_rows = !tt || (RQ <= 8 && RC <= 8);
+  const size_t nw = threads_of(tr_of(tt, RQ, RC)) / 32;
+  const size_t per_warp = tt ? 1 : 2;  // Shape<TR>::per_warp
   const size_t fq = tt ? (size_t)N * RQ * D * RQ : (size_t)N * D * RQ;
-  const size_t fc = !stage_rows ? 0
-                    : tt ? (size_t)N * RC * D * RC : (size_t)N * D * RC;
+  size_t fc = !stage_rows ? 0
+              : tt ? (size_t)N * RC * D * RC : (size_t)N * D * RC;
+  fc = (fc + 3) & ~(size_t)3;
   const size_t sw = tt ? 2 * (size_t)max(RQ * RC + RC * RC, RQ * RQ) : 0;
-  const size_t nwarps = threads / 32;
-  size_t region = nwarps * C * 8;
-  if (!spill) region = max((size_t)P * 12, region);
-  region = (region + 7) & ~(size_t)7;
-  return (size_t)16 * topk + region + (fq + nwarps * (fc + sw)) * 4 +
+  size_t rw = max((size_t)3 * wcap, nw * 2 * (size_t)C);
+  rw = (rw + 3) & ~(size_t)3;
+  return (nw * 2 * per_warp * fc + fq + nw * sw + rw) * 4 +
+         (nw + 1) * topk * 8 +
          (size_t)(4 * LT + 1) * 4;
+}
+
+// Registers a thread, resident blocks per SM at smem bytes, local (spill)
+// bytes a thread and the instantiation's target blocks per SM -> out[0..3].
+extern "C" int fused_query_occupancy(int tt, int RQ, int RC, size_t smem,
+                                     int* out) {
+  switch (tr_of(tt, RQ, RC)) {
+    case 0: return occupancy<0>(smem, out);
+    case 4: return occupancy<4>(smem, out);
+    case 8: return occupancy<8>(smem, out);
+    case 16: return occupancy<16>(smem, out);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 namespace {
@@ -622,20 +907,17 @@ int launch(const float* values, const float* offsets, const long long* mults,
            const int* pairs, const float* q, const long long* segtab, int S,
            int* out_ids, float* out_scores, int* out_ncand, int B, int L,
            int K, int T, int C, int N, int D, int RQ, int RC, int topk,
-           int e2, int euclid, float w, double qs, int P,
-           unsigned long long* spill, int threads, cudaStream_t stream) {
-  const size_t smem = fused_query_smem_bytes(L * T, N, D, RQ, RC, P, threads,
-                                             TR > 0, topk, C, spill != nullptr);
-  const auto kernel = spill ? fused_query_kernel<TR, true>
-                            : fused_query_kernel<TR, false>;
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  kernel<<<B, threads, smem, stream>>>(
+           int e2, int euclid, float w, double qs, int wcap,
+           uint32_t* scratch, int scap,
+           unsigned long long* scratch_queries, cudaStream_t stream) {
+  const size_t smem = fused_query_smem_bytes(L * T, N, D, RQ, RC, wcap,
+                                             TR > 0, topk, C);
+  const cudaError_t e = prepare<TR>(smem);
+  if (e != cudaSuccess) return (int)e;
+  fused_query_kernel<TR><<<B, Shape<TR>::threads, smem, stream>>>(
       values, offsets, mults, pairs, q, segtab, S, out_ids, out_scores,
-      out_ncand, L, K, T, C, N, D, RQ, RC, topk, e2, euclid, w, qs, P, spill);
+      out_ncand, L, K, T, C, N, D, RQ, RC, topk, e2, euclid, w, qs, wcap,
+      scratch, scap, scratch_queries);
   return (int)cudaGetLastError();
 }
 
@@ -646,26 +928,26 @@ extern "C" int fused_query_launch(
     const int* pairs, const float* q, const long long* segtab, int S,
     int* out_ids, float* out_scores, int* out_ncand, int B, int L, int K,
     int T, int C, int N, int D, int RQ, int RC, int topk, int e2, int euclid,
-    int tt, float w, double qs, int P, void* spill, int threads,
-    void* stream) {
+    int tt, float w, double qs, int wcap, void* scratch, int scap,
+    void* scratch_queries, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   int (*fn)(const float*, const float*, const long long*, const int*,
             const float*, const long long*, int, int*, float*, int*, int,
             int, int, int, int, int, int, int, int, int, int, int, float,
-            double, int, unsigned long long*, int, cudaStream_t);
-  if (!tt) {
-    fn = launch<0>;
-  } else if (RQ <= 4 && RC <= 4) {
-    fn = launch<4>;
-  } else if (RQ <= 8 && RC <= 8) {
-    fn = launch<8>;
-  } else if (RQ <= 16 && RC <= 16) {
-    fn = launch<16>;
-  } else {
-    return (int)cudaErrorInvalidValue;
+            double, int, uint32_t*, int, unsigned long long*,
+            cudaStream_t);
+  switch (tr_of(tt, RQ, RC)) {
+    case 0: fn = launch<0>; break;
+    case 4: fn = launch<4>; break;
+    case 8: fn = launch<8>; break;
+    case 16: fn = launch<16>; break;
+    default: return (int)cudaErrorInvalidValue;
   }
-  if (spill != nullptr && (P & 1)) return (int)cudaErrorInvalidValue;
+  if (wcap < 1 || (wcap & (wcap - 1)) || topk < 1 ||
+      scratch_queries == nullptr)
+    return (int)cudaErrorInvalidValue;
   return fn(values, offsets, mults, pairs, q, segtab, S, out_ids, out_scores,
             out_ncand, B, L, K, T, C, N, D, RQ, RC, topk, e2, euclid, w, qs,
-            P, static_cast<unsigned long long*>(spill), threads, st);
+            wcap, static_cast<uint32_t*>(scratch), scap,
+            static_cast<unsigned long long*>(scratch_queries), st);
 }

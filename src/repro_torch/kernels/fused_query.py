@@ -33,16 +33,18 @@ place of the reference's S-way merge (effective ids are unique across
 shards). Its plain version, ``fused_query_sharded_plain``, is
 ``fused_query_plain``'s body over the same list.
 
-The probe window lives in shared memory while one block holds it (the
-"shared" branch) and in per-query global scratch past that (the "spill"
-branch, ``window_plan``): the same stages over the same window, so both
-answer alike bit for bit.
+The kernel dedups a query's window in a hash set in shared memory of a
+fixed capacity, chosen for occupancy (``window_plan``); a query whose
+window exceeds it in a segment uses its row of a global scratch table that
+the wrapper allocates once per segment table (so once per published store
+view) and the kernel leaves empty: the same code, so the answers do not
+depend on where the set lived.
 
 ``fused_query.launches`` / ``fused_query_sharded.launches`` count kernel
 launches and ``.branches`` the launches that ran each branch
 ("multiprobe": T > 1, "live_window": a segment with live-window lookups,
-"segments": more than one segment, "shared" / "spill": where the window
-lives);
+"segments": more than one segment) and, after ``sync_branches()``, the
+queries that took the scratch ("scratch", counted on the card);
 ``fused_query_plain.calls`` / ``fused_query_sharded_plain.calls`` count
 calls of the plain versions.
 """
@@ -61,29 +63,48 @@ from repro_torch.core import segments as _seg
 from repro_torch.kernels import epilogues as _epi
 
 MAX_SMEM = 232_448         # bytes of shared memory one H100 block may use
-THREADS = 256              # threads per query block (8 warps)
+SM_SMEM = 233_472          # bytes of shared memory of one H100 SM
+BLOCK_RESERVED = 1_024     # bytes the system reserves per resident block
+SMEM_GRANULE = 128         # allocation unit of a block's shared memory
 MAX_TT_RANK = 16           # largest TT rank K1's chains take
 TABLE_COLS = 12            # int64 words per segment in the K1 table
+# threads of a query's block and the target blocks per SM by instantiation
+# (TR: 0 CP, else the TT rank bound): its __launch_bounds__ (Shape in
+# csrc/fused_query.cu)
+THREADS = {0: 384, 4: 256, 8: 256, 16: 256}
+MIN_BLOCKS = {0: 2, 4: 3, 8: 1, 16: 2}
+# the shared window's capacity in slots lies in [MIN_WINDOW, MAX_WINDOW]
+# (or is pow2(L*T*cap) where that is smaller)
+MIN_WINDOW = 256
+MAX_WINDOW = 8192
 
 
 def _pow2_ceil(x: int) -> int:
     return 1 << max(int(x) - 1, 0).bit_length()
 
 
+def tt_bound(tt: bool, rq: int, rc: int) -> int:
+    """The kernel instantiation (TR) for these ranks: 0 for CP, else the
+    smallest of 4, 8, 16 that bounds both TT ranks."""
+    if not tt:
+        return 0
+    return next(b for b in (4, 8, 16) if max(rq, rc) <= b)
+
+
 def smem_bytes(num_tables: int, n_modes: int, d: int, rq: int, rc: int,
                window: int, tt: bool = False, probes: int = 1,
-               topk: int = 10, expansion: int = 0,
-               spill: bool = False) -> int:
+               topk: int = 10, expansion: int = 0) -> int:
     """Shared memory of one K1 block (mirrors ``fused_query_smem_bytes`` in
-    the CUDA source) for a window capacity ``window`` (a power of two): the
-    running top-k and its merge buffer (16 bytes a rank), 8 + 4 bytes a
-    window slot unless the window spills to global memory (the expansion's
-    per-warp scores and deltas, ``expansion`` candidates of 8 bytes, reuse
-    that region), the query's row, one candidate row per warp (CP factors
-    (N, d, R) or TT cores (N, R, d, R) of ranks up to 8; rows of higher
-    ranks are read in place) and, for TT, each warp's two chain states and
-    their next values, four per-(table, probe) integer arrays, and 16 bytes
-    of static scalars."""
+    the CUDA source) for a shared window of ``window`` slots (a power of
+    two): two row buffers a warp for each candidate it scores at once (two
+    for CP, one for TT; CP factors (N, d, R) or TT cores (N, R, d, R) of
+    ranks up to 8, rounded up to 4 floats; rows of higher ranks are read in
+    place), the warps' running top-k lists and the merged top-k (8 bytes a
+    rank each), the hash set of 2 * window ids and the candidate list of
+    window ids (the expansion's per-warp scores and deltas, ``expansion``
+    candidates of 8 bytes, reuse that region), the query's row, for TT each
+    warp's two chain states and their next values, four per-(table, probe)
+    integer arrays, and 32 bytes of static scalars."""
     if tt:
         fq, fc = n_modes * rq * d * rq, n_modes * rc * d * rc
         sw = 2 * max(rq * rc + rc * rc, rq * rq)
@@ -91,38 +112,42 @@ def smem_bytes(num_tables: int, n_modes: int, d: int, rq: int, rc: int,
             fc = 0
     else:
         fq, fc, sw = n_modes * d * rq, n_modes * d * rc, 0
-    nwarps = THREADS // 32
-    region = nwarps * expansion * 8
-    if not spill:
-        region = max(window * 12, region)
-    region = -(-region // 8) * 8
+    nwarps = THREADS[tt_bound(tt, rq, rc)] // 32
+    fc = -(-fc // 4) * 4 * (1 if tt else 2)   # CP warps score two at once
+    region = -(-max(3 * window, nwarps * 2 * expansion) // 4) * 4
     lt = num_tables * probes
-    return (16 * topk + region + (fq + nwarps * (fc + sw)) * 4
-            + (4 * lt + 1) * 4 + 16)
+    return ((nwarps * 2 * fc + fq + nwarps * sw + region) * 4
+            + (nwarps + 1) * topk * 8 + (4 * lt + 1) * 4 + 32)
 
 
 def window_plan(num_tables: int, cap: int, n_modes: int, d: int, rq: int,
                 rc: int, tt: bool = False, probes: int = 1, topk: int = 10,
-                expansion: int = 0) -> tuple[int, str]:
-    """-> (window, branch): the power-of-two window K1 sizes for the largest
-    one segment needs (L*T*cap), and where it lives: "shared" while one
-    block's shared memory holds it, else "spill" (per-query global
-    scratch of window * 12 bytes). Raises ``ValueError`` when even the
-    spill branch's shared part (the query row, the candidate rows, the
-    expansion) exceeds a block."""
-    window = _pow2_ceil(num_tables * probes * cap)
+                expansion: int = 0) -> tuple[int, bool]:
+    """-> (window, scratch): the shared window's capacity in slots and
+    whether a query can exceed it (L*T*cap above it, so the launch needs the
+    global scratch). The capacity is the largest power of two in
+    [MIN_WINDOW, MAX_WINDOW], and at most pow2(L*T*cap), with which the
+    instantiation's ``MIN_BLOCKS`` blocks fit an SM's shared memory; failing
+    that, with one block fewer. Raises ``ValueError`` when even one block
+    cannot hold the query row, the candidate rows, the lists and the
+    expansion beside the smallest window."""
+    need = _pow2_ceil(num_tables * probes * cap)
     size = functools.partial(smem_bytes, num_tables, n_modes, d, rq, rc,
-                             window, tt=tt, probes=probes, topk=topk,
+                             tt=tt, probes=probes, topk=topk,
                              expansion=expansion)
-    if size() <= MAX_SMEM:
-        return window, "shared"
-    if size(spill=True) <= MAX_SMEM:
-        return window, "spill"
+    least = min(need, MIN_WINDOW)
+    for blocks in range(MIN_BLOCKS[tt_bound(tt, rq, rc)], 0, -1):
+        budget = min(MAX_SMEM, SM_SMEM // blocks - BLOCK_RESERVED)
+        window = min(need, MAX_WINDOW)
+        while window >= least:
+            if -(-size(window) // SMEM_GRANULE) * SMEM_GRANULE <= budget:
+                return window, need > window
+            window //= 2
     raise ValueError(
-        f"K1 needs {size(spill=True)} B of shared memory for one query's "
-        f"rows and expansion (N={n_modes}, d={d}, ranks {rq}, {rc}, "
-        f"{expansion} expansion candidates) beside a spilled window; one "
-        f"block holds {MAX_SMEM} B")
+        f"K1 needs {size(least)} B of shared memory for one query's rows, "
+        f"top-k lists and expansion (N={n_modes}, d={d}, ranks {rq}, {rc}, "
+        f"topk {topk}, {expansion} expansion candidates) beside a "
+        f"{least}-slot window; one block holds {MAX_SMEM} B")
 
 
 def probe_keys_from_values(values, offsets, mults, *, e2, w, num_tables,
@@ -226,7 +251,8 @@ class SegmentTable:
     sorted_keys, perm, live, eff, the stacked corpus, live_rank and
     live_pos (0 without a live window), then m, cap, the stacked corpus
     rank and the corpus scale's float64 bits. ``segs`` keeps the tensors
-    the pointers name alive."""
+    the pointers name alive; ``scratch`` holds the launches' global
+    scratch."""
 
     desc: torch.Tensor
     segs: tuple
@@ -235,6 +261,12 @@ class SegmentTable:
     n_modes: int
     d: int
     rc: int
+    # the global scratch of the queries whose window exceeds the shared one
+    # ("slots": int32, per query a hash set, empty (-1) between launches,
+    # and a candidate list), allocated at the first launch that can need it
+    # and grown for a larger batch
+    scratch: dict = dataclasses.field(default_factory=dict, compare=False,
+                                      repr=False)
 
 
 def segment_table(segs, caps) -> SegmentTable | None:
@@ -291,16 +323,62 @@ def _pairs(e2: bool, num_codes: int, device) -> torch.Tensor:
                        dim=1).to(torch.int32).contiguous().to(device)
 
 
+# per card, the queries that took the global scratch since the last
+# ``sync_branches`` (int64; [0] K1's launches, [1] K1s's), added on the card
+_SCRATCH_QUERIES: dict = {}
+
+
+def sync_branches() -> None:
+    """Fold the card's counts of queries that took the global scratch into
+    ``fused_query.branches["scratch"]`` and
+    ``fused_query_sharded.branches["scratch"]``, and zero them (one
+    synchronizing read per card)."""
+    for counter in _SCRATCH_QUERIES.values():
+        k1, k1s = counter.tolist()
+        counter.zero_()
+        fused_query.branches["scratch"] += k1
+        fused_query_sharded.branches["scratch"] += k1s
+
+
+def launch_plan(table, rq: int, *, num_tables: int, probes: int, topk: int,
+                expansion: int) -> tuple[int, bool, int]:
+    """-> (window, scratch, shared bytes) of a launch over ``table`` with
+    stacked query rank ``rq`` (``window_plan`` and ``smem_bytes``)."""
+    tt = table.layout == "tt"
+    args = (num_tables, table.n_modes, table.d, rq, table.rc)
+    kw = dict(tt=tt, probes=probes, topk=topk, expansion=expansion)
+    window, scratch = window_plan(num_tables, max(table.caps), *args[1:],
+                                  **kw)
+    return window, scratch, smem_bytes(*args, window, **kw)
+
+
+def occupancy(table, rq: int, smem: int) -> dict:
+    """What the card makes of K1's instantiation for ``table`` at ``smem``
+    bytes of shared memory: registers a thread, resident blocks per SM,
+    local (spilled) bytes a thread and the target blocks per SM."""
+    import ctypes
+
+    from repro_torch.kernels import _build
+
+    out = (ctypes.c_int * 4)()
+    _build.check(_build.lib().fused_query_occupancy(
+        int(table.layout == "tt"), rq, table.rc, smem, ctypes.addressof(out)),
+        "fused_query_occupancy")
+    return dict(registers=out[0], blocks_per_sm=out[1], local_bytes=out[2],
+                target_blocks=out[3])
+
+
 def _check_device(dev: torch.device, name: str) -> None:
     if dev.type != "cuda":
         raise ValueError(f"{name} runs on cuda or cpu tensors, got {dev}")
 
 
 def _launch(values, offsets, mults, queries, table, *, kind, w, num_tables,
-            num_codes, metric, topk, probes):
+            num_codes, metric, topk, probes, counter):
     """One launch of ``csrc/fused_query.cu`` over the rows of ``table`` ->
     (ids, scores, n_cand, the branches it ran or None when B = 0 launched
-    nothing)."""
+    nothing); the queries that took the scratch add to entry ``counter`` of
+    the card's ``_SCRATCH_QUERIES``."""
     from repro_torch.kernels import _build
 
     dev = values.device
@@ -322,9 +400,9 @@ def _launch(values, offsets, mults, queries, table, *, kind, w, num_tables,
                          f"Rq={rq}, Rc={rc}")
     expansion = (probing.expansion_size(kind, num_codes) if probes > 1
                  else 0)
-    window, where = window_plan(num_tables, max(table.caps), n, d, rq, rc,
-                                tt=tt, probes=probes, topk=topk,
-                                expansion=expansion)
+    window, need_scratch, _ = launch_plan(table, rq, num_tables=num_tables,
+                                          probes=probes, topk=topk,
+                                          expansion=expansion)
     vals = values.contiguous().float()
     offs = offsets.float().contiguous() if e2 else None
     mu = mults.to(dev, torch.int64).contiguous()
@@ -334,10 +412,17 @@ def _launch(values, offsets, mults, queries, table, *, kind, w, num_tables,
     ncand = torch.empty((b,), dtype=torch.int32, device=dev)
     if b == 0:
         return ids, scores, ncand, None
-    # the spill branch's window: per query `window` int64 selection keys,
-    # then `window` uint32 slots
-    spill = (torch.empty((b, window * 3 // 2), dtype=torch.int64,
-                         device=dev) if where == "spill" else None)
+    # a query's row of the scratch: the hash set and the candidate list of
+    # its largest window
+    scap = _pow2_ceil(num_tables * probes * max(table.caps))
+    scratch = table.scratch.get("slots")
+    if need_scratch and (scratch is None or scratch.numel() < b * 3 * scap):
+        scratch = torch.full((b * 3 * scap,), -1, dtype=torch.int32,
+                             device=dev)
+        table.scratch["slots"] = scratch
+    if dev not in _SCRATCH_QUERIES:
+        _SCRATCH_QUERIES[dev] = torch.zeros(2, dtype=torch.int64, device=dev)
+    counted = _SCRATCH_QUERIES[dev][counter:]
     err = _build.lib().fused_query_launch(
         vals.data_ptr(), offs.data_ptr() if e2 else None, mu.data_ptr(),
         pairs.data_ptr() if pairs is not None else None, q.data_ptr(),
@@ -346,13 +431,13 @@ def _launch(values, offsets, mults, queries, table, *, kind, w, num_tables,
         probes, expansion, n, d, rq, rc, topk, int(e2),
         int(metric == "euclidean"), int(tt), float(w) if e2 else 1.0,
         float(queries[0].scale), window,
-        spill.data_ptr() if spill is not None else None, THREADS,
-        torch.cuda.current_stream(dev).cuda_stream)
+        scratch.data_ptr() if need_scratch else None, scap,
+        counted.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "fused_query_launch")
     branches = [name for name, on in (
         ("multiprobe", probes > 1),
         ("live_window", any(s.win is not None for s in table.segs)),
-        ("segments", len(table.segs) > 1)) if on] + [where]
+        ("segments", len(table.segs) > 1)) if on]
     return ids, scores, ncand, branches
 
 
@@ -375,7 +460,7 @@ def fused_query(values, offsets, mults, queries, segs, *, kind, w, num_tables,
     ids, scores, ncand, branches = _launch(
         values, offsets, mults, queries, table, kind=kind, w=w,
         num_tables=num_tables, num_codes=num_codes, metric=metric,
-        topk=topk, probes=probes)
+        topk=topk, probes=probes, counter=0)
     if branches is not None:
         fused_query.launches += 1
         fused_query.branches.update(branches)
@@ -413,7 +498,8 @@ def fused_query_sharded(values, offsets, mults, queries, base, deltas, *,
     if caps != table.caps:
         raise ValueError("the K1s table was built for other segments")
     ids, scores, ncand, branches = _launch(values, offsets, mults, queries,
-                                           table, probes=probes, **kw)
+                                           table, probes=probes, counter=1,
+                                           **kw)
     if branches is not None:
         fused_query_sharded.launches += 1
         fused_query_sharded.branches.update(branches)

@@ -16,9 +16,10 @@ raw values and segment arrays, candidate counts equal bit for bit, scores
 within ``parity.rerank_bound``, ids equal except at near ties; so also on
 its multi-probe (T = 8, dense window), live-window (``bucket_cap``, after
 deletes) and multi-segment (a base and eight deltas) branches, at TT
-rank 16, and with a window past one block's shared memory (the spill
-branch, which also equals the shared branch bit for bit where both run,
-for K1 and K1s, CP and TT). K6 (``srp_pack``) and K7 (``e2lsh_quant``)
+rank 16, and with windows past the shared hash set (the global scratch:
+one batch mixing queries that fit and queries that overflow, on integer
+data whose scores are exact, equal to the plain version bit for bit, K1
+and K1s, CP and TT; equal scores break by effective id). K6 (``srp_pack``) and K7 (``e2lsh_quant``)
 equal their plain versions bit for bit, ragged shapes included. K1s
 (``fused_query_sharded``, K1's kernel over every (shard, segment) pair):
 against its plain version on S = 3 stores with a padded last shard, two
@@ -31,8 +32,8 @@ import torch
 
 from repro_torch.core.projections import (sample_cp_projection,
                                           sample_tt_projection)
-from repro_torch.core.tensor_formats import (TTTensor, cp_random_data,
-                                             tt_random_data)
+from repro_torch.core.tensor_formats import (CPTensor, TTTensor,
+                                             cp_random_data, tt_random_data)
 from repro_torch.kernels import parity
 from repro_torch.kernels import fused_query as fq_mod
 from repro_torch.kernels import ops
@@ -309,72 +310,143 @@ def test_fused_query_nine_segments_match_plain(gen, layout):
     assert (ids[:, 0] >= 0).mean() > 0.5
 
 
+def _scratch_queries():
+    """Queries that took K1's (and K1s's) global scratch so far."""
+    fq_mod.sync_branches()
+    return (fused_query.branches["scratch"]
+            + fused_query_sharded.branches["scratch"])
+
+
 def test_fused_query_window_limit_raises(gen):
-    """One segment's L*T*cap beyond one block's shared memory (8 * 2 * 2048
-    = 32768 slots): K1 no longer raises but runs its spill branch, and the
-    service answers as the plain version does."""
+    """One segment's L*T*cap beyond the shared window (8 * 2 * 2048 = 32768
+    slots, windows of thousands): K1 does not raise but dedups those
+    queries' windows in its global scratch, and the service answers as the
+    plain version does."""
     from repro_torch.serving.lsh_service import build_service
     dims, n = (6, 6, 6), 4096
     corpus = cp_random_data(gen, dims, 3, batch=n)
     svc = build_service(gen, "cp-srp", dims, corpus, num_codes=2,
                         num_tables=8, rank=2, bucket_cap=2048)
     q = _planted(gen, corpus, n, 16)
-    spills = fused_query.branches["spill"]
+    before = _scratch_queries()
     nc = _k1_vs_plain(svc, q, 2)
-    assert fused_query.branches["spill"] == spills + 1
+    assert _scratch_queries() > before
     assert int(nc.max()) > 1000
     ids, _, n_cand = svc.query_arrays(q, probes=2)
     assert (n_cand == nc.cpu().numpy()).all() and (ids[:, 0] >= 0).all()
 
 
-def _spilled(monkeypatch, fn):
-    """``fn()`` with K1's window plan sending every window to the spill
-    branch -> (its result, the spill launches it added)."""
-    spills = fused_query.branches["spill"] + fused_query_sharded.branches[
-        "spill"]
-    plan = fq_mod.window_plan
-    with monkeypatch.context() as m:
-        m.setattr(fq_mod, "window_plan",
-                  lambda *a, **k: (plan(*a, **k)[0], "spill"))
-        out = fn()
-        torch.cuda.synchronize()
-    return out, (fused_query.branches["spill"]
-                 + fused_query_sharded.branches["spill"] - spills)
+def _integer_data(gen, layout, dims, n):
+    """n CP (rank 3) or TT (rank 2) items with entries in {-1, 0, 1}: their
+    inner products are small integers, exact in float32 in any order, so
+    K1's scores equal the plain version's bit for bit and equal distances
+    are exact ties."""
+    if layout == "cp":
+        return CPTensor(tuple(
+            torch.randint(-1, 2, (n, d, 3), generator=gen,
+                          device="cuda").float() for d in dims), 1.0)
+    shapes = [(1 if i == 0 else 2, d, 1 if i == len(dims) - 1 else 2)
+              for i, d in enumerate(dims)]
+    return TTTensor(tuple(
+        torch.randint(-1, 2, (n, *s), generator=gen, device="cuda").float()
+        for s in shapes), 1.0)
+
+
+def _repeat(x, idx):
+    """Items ``idx`` of ``x`` (a 1-D index tensor, repeats allowed)."""
+    return type(x)(tuple(f[idx] for f in x.leaves), x.scale)
+
+
+def _bitwise_vs_plain(svc, q, probes, topk=10):
+    """K1 (K1s on a sharded store) against its plain version on the same raw
+    values: ids, scores and candidate counts equal bit for bit."""
+    idx = svc.index
+    fam, view = idx.family, idx.store.view
+    qs = q.stack()
+    values = fam.raw_stacked(qs[1], q.scale)
+    kw = dict(kind=fam.kind, w=fam.bucket_width, num_tables=fam.num_tables,
+              num_codes=fam.num_codes, metric=idx.metric, topk=topk,
+              probes=probes)
+    if view.sharded:
+        args = (view.seg_arrays(0), view.delta_arrays)
+        kw.update(cap=view.base.cap, delta_caps=view.delta_caps)
+        kernel, plain = fused_query_sharded, fused_query_sharded_plain
+    else:
+        args, kw["caps"] = (view.all_arrays,), view.all_caps
+        kernel, plain = fused_query, fused_query_plain
+    got = kernel(values, fam.offsets, idx._mults_t, qs, *args,
+                 table=view.k1_table, **kw)
+    want = plain(values, fam.offsets, idx._mults_t, qs, *args, **kw)
+    torch.cuda.synchronize()
+    for g, w_ in zip(got, want):
+        assert torch.equal(g.view(torch.int32), w_.view(torch.int32))
+    return got
 
 
 @pytest.mark.parametrize("layout,shards", [("cp", 1), ("tt", 1), ("cp", 3),
                                            ("tt", 3)])
-def test_fused_query_spill_equals_shared(gen, monkeypatch, layout, shards):
-    """Where both branches can run, the spill branch's ids, scores and
-    candidate counts equal the shared branch's bit for bit: K1 and K1s, CP
-    and TT, a base and two deltas, deletes, live windows, T = 1 and 4."""
+def test_fused_query_spill_equals_shared(gen, layout, shards):
+    """One batch mixes queries whose window fits the shared hash set with
+    queries whose window overflows it into the global scratch: one item is
+    repeated (its bucket fills every table's window, past the largest
+    shared window in every shard), in the base and in two deltas, with
+    deletes. Every query's ids, scores and candidate count equal the plain
+    version's bit for bit, K1 and K1s, CP and TT, T = 1 and 4; the repeats
+    tie at distance 0, so their order is the effective ids'."""
     from repro_torch.serving.lsh_service import build_service
-    n = 12000
-    data = cp_random_data if layout == "cp" else tt_random_data
     dims = (6, 6, 6) if layout == "cp" else (8, 8, 8)
-    w = 2.0 if layout == "cp" else 8.0
-    corpus = data(gen, dims, 3, batch=n)
+    n, dup = 6000, 3 * shards * fq_mod.MAX_WINDOW // 4
+    base = _integer_data(gen, layout, dims, n)
+    rows = torch.cat([torch.arange(n, device="cuda"),
+                      torch.zeros(dup, dtype=torch.long, device="cuda")])
+    corpus = _repeat(base, rows[torch.randperm(n + dup, generator=gen,
+                                               device="cuda")])
     svc = build_service(gen, f"{layout}-e2lsh", dims, corpus, num_codes=6,
-                        num_tables=4, rank=2, bucket_width=w, bucket_cap=24,
+                        num_tables=4, rank=2, bucket_width=4.0,
                         shards=shards if shards > 1 else None)
     for _ in range(2):
-        svc.insert(data(gen, dims, 3, batch=500))
+        more = _integer_data(gen, layout, dims, 300)
+        copies = _repeat(base, torch.zeros(200, dtype=torch.long,
+                                           device="cuda"))
+        svc.insert(type(base)(tuple(torch.cat(pair) for pair in zip(
+            more.leaves, copies.leaves)), 1.0))
     svc.delete(torch.arange(0, svc.index.size, 9, device="cuda"))
-    q = _planted(gen, corpus, n, 200)
-    shared = fused_query.branches["shared"] + fused_query_sharded.branches[
-        "shared"]
+    q = _repeat(base, torch.cat([
+        torch.zeros(64, dtype=torch.long, device="cuda"),
+        torch.randint(1, n, (192,), generator=gen, device="cuda")]))
     for probes in (1, 4):
-        want = svc.query_arrays(q, probes=probes)
-        got, spills = _spilled(monkeypatch,
-                               lambda: svc.query_arrays(q, probes=probes))
-        assert spills == 1
-        for g, w_ in zip(got, want):
-            assert (g.view("int32") == w_.view("int32")).all()
-    assert fused_query.branches["shared"] + fused_query_sharded.branches[
-        "shared"] == shared + 2
-    check = _k1s_vs_plain if shards > 1 else _k1_vs_plain
-    _, spills = _spilled(monkeypatch, lambda: check(svc, q, 4))
-    assert spills == 1
+        before = _scratch_queries()
+        ids, sc, nc = _bitwise_vs_plain(svc, q, probes)
+        took = _scratch_queries() - before
+        assert 64 <= took < 256
+        assert bool((sc[:64] == 0).all()) and bool(
+            (ids[:64, 1:] > ids[:64, :-1]).all())
+
+
+@pytest.mark.parametrize("layout", ["cp", "tt"])
+def test_fused_query_ties_break_by_effective_id(gen, layout):
+    """Equal scores: 40 copies of each of a few items, spread over the
+    corpus, so that the warps' lists each hold some of a query's tied
+    candidates; the merged top-k is the k smallest effective ids among the
+    copies, as in the plain version, for k = 10 and for k = 48 (lists
+    longer than a warp)."""
+    from repro_torch.serving.lsh_service import build_service
+    dims = (6, 6, 6) if layout == "cp" else (8, 8, 8)
+    base = _integer_data(gen, layout, dims, 2000)
+    rows = torch.cat([torch.arange(2000, device="cuda"),
+                      torch.arange(5, device="cuda").repeat(40)])
+    perm = torch.randperm(len(rows), generator=gen, device="cuda")
+    corpus = _repeat(base, rows[perm])
+    svc = build_service(gen, f"{layout}-e2lsh", dims, corpus, num_codes=6,
+                        num_tables=4, rank=2, bucket_width=4.0)
+    q = _repeat(base, torch.arange(5, device="cuda"))
+    for topk in (10, 48):
+        ids, sc, _ = _bitwise_vs_plain(svc, q, 1, topk=topk)
+        for i in range(5):
+            copies = torch.nonzero(rows[perm] == i).flatten()
+            k = min(topk, len(copies))
+            assert torch.equal(ids[i, :k].long(), copies[:k])
+            assert bool((sc[i, :k] == 0).all())
 
 
 def test_srp_pack_matches_plain(gen):

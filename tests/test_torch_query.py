@@ -192,14 +192,18 @@ def test_fused_query_plain_vs_reference_kernel(case):
 
 
 def test_k1_window_limit_is_stated():
-    """K1 sizes the power-of-two window above L*cap; it stays in shared
-    memory up to 16384 slots at the serving shape and spills to global
-    memory past that (the example's K = 8 over 2^20 items: cap 2616);
-    rows that no block holds even beside a spilled window raise, naming
-    the limit."""
-    assert window_plan(10, 1600, 3, 12, 4, 4) == (16384, "shared")
-    assert window_plan(4, 3, 3, 4, 3, 3) == (16, "shared")
-    assert window_plan(10, 2000, 3, 12, 4, 4) == (32768, "spill")
-    assert window_plan(10, 2616, 3, 12, 4, 3) == (32768, "spill")
+    """K1's shared window has a capacity chosen for occupancy, not for the
+    worst case: at the CP serving shape 4096 slots (two 12-warp blocks per
+    SM), so L*cap up to 4096 never needs the global scratch, while a larger
+    one ([main]'s 7650, the example's K = 8 over 2^20 items: cap about
+    2950) keeps the same capacity and the launch carries the scratch; a
+    small L*cap gets a window of pow2(L*cap); rows that no block holds even
+    beside the smallest window raise, naming the limit."""
+    assert window_plan(10, 409, 3, 12, 3, 4) == (4096, False)
+    assert window_plan(10, 765, 3, 12, 3, 4) == (4096, True)
+    assert window_plan(10, 1600, 3, 12, 4, 4) == (4096, True)
+    assert window_plan(4, 3, 3, 4, 3, 3) == (16, False)
+    assert window_plan(10, 2000, 3, 12, 4, 4) == (4096, True)
+    assert window_plan(10, 2952, 3, 12, 4, 3) == (4096, True)
     with pytest.raises(ValueError, match="232448 B"):
         window_plan(10, 4, 4, 64, 32, 32)

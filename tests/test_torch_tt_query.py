@@ -234,8 +234,12 @@ def test_sampled_tt_family_serves_on_cpu():
 
 
 def test_k1_tt_window_limit_is_stated():
-    """With 4 KiB TT rows (the TT cell: dims (16,) * 4, R = 4) one K1 block
-    holds a window of at most 8192 slots in shared memory, so L * cap <=
-    8192 at L = 10 stays there and a larger window spills."""
-    assert window_plan(10, 819, 4, 16, 4, 4, tt=True) == (8192, "shared")
-    assert window_plan(10, 820, 4, 16, 4, 4, tt=True) == (16384, "spill")
+    """With 4 KiB TT rows (the TT cell: dims (16,) * 4, R = 4) and two row
+    buffers a warp, three K1 blocks fit an SM beside a 256-slot shared
+    window: L * cap <= 256 at L = 10 never needs the global scratch, a
+    larger one does ([tt-main]'s cap 440), and a smaller one gets a window
+    of pow2(L * cap)."""
+    assert window_plan(10, 25, 4, 16, 4, 4, tt=True) == (256, False)
+    assert window_plan(10, 26, 4, 16, 4, 4, tt=True) == (256, True)
+    assert window_plan(10, 440, 4, 16, 4, 4, tt=True) == (256, True)
+    assert window_plan(10, 12, 4, 16, 4, 4, tt=True) == (128, False)
