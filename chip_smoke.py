@@ -128,6 +128,7 @@ RECALL1_MIN = 0.95
 #    20,971,520 on the TT cell), ~1e-3 for a kernel a relative 1e-4 off.
 ACCURACY_FACTOR = 4.0
 KEY_DIFFER_MAX = 1e-5
+QUERY_HASH_BATCHES = 4     # query batches K3 / K4 are held against plain on
 U = 2.0 ** -24
 
 CELLS = {
@@ -395,8 +396,6 @@ def read_counts() -> dict:
     (``fused_query:multiprobe``, ``fused_query_sharded:live_window``,
     ...) and their queries that used the global scratch
     (``fused_query:scratch``)."""
-    from repro_torch.kernels.fused_query import sync_branches
-    sync_branches()
     fns = counters()
     counts = {name: getattr(fn, "launches" if name in COUNTED else "calls")
               for name, fn in fns.items()}
@@ -406,8 +405,6 @@ def read_counts() -> dict:
 
 
 def zero_counts() -> None:
-    from repro_torch.kernels.fused_query import sync_branches
-    sync_branches()
     fns = counters()
     for name, fn in fns.items():
         setattr(fn, "launches" if name in COUNTED else "calls", 0)
@@ -524,6 +521,9 @@ def phase_main(cell, corpus, qids, queries):
     print(f"[{tag}] queries that used K1's global scratch: "
           f"{counts['fused_query:scratch']} of "
           f"{(len(queries) + 1) * len(qids[0]) + 256}")
+    if tag == "tt-main" and counts["fused_query:scratch"] == 0:
+        fail("tt-main: no query took K1's global scratch, so the main path "
+             "no longer holds it against the plain version")
     hits1, n_q = check_results(results, [q.cpu().numpy() for q in qids], n)
     recall1 = hits1 / n_q
     self_ok = (self_ids[:, 0] == qids[0][:256].cpu().numpy()).mean()
@@ -579,12 +579,15 @@ def k1_entry(view):
             lambda *a, **k: plain(*a, *segs, **kw, **k), name)
 
 
-def k1_compare(svc, queries, label, probes=1, corpus=None):
+def k1_compare(svc, queries, label, probes=1, corpus=None,
+               need_scratch=False):
     """K1 (K1s on a sharded store) vs plain on the same raw values and the
     arrays of every segment of the service's store, and both against
     float64 scores (``corpus``: the effective corpus, when the caller has
-    it already)."""
+    it already); with ``need_scratch``, fail unless some of the compared
+    queries took K1's global scratch."""
     import torch
+    from repro_torch.kernels import fused_query as fq
     from repro_torch.kernels import parity
     idx = svc.index
     fam = idx.family
@@ -598,10 +601,17 @@ def k1_compare(svc, queries, label, probes=1, corpus=None):
               num_codes=fam.num_codes, metric=idx.metric, topk=TOPK,
               probes=probes)
     kernel, plain, name = k1_entry(view)
+    branches = (fq.fused_query_sharded if view.sharded
+                else fq.fused_query).branches
+    took = branches["scratch"]
     ik, sk, nk = kernel(values, offs, mults, qs, **kw)
     ip, sp, np_ = plain(values, offs, mults, qs, **kw)
     torch.cuda.synchronize()
+    took = branches["scratch"] - took
     name += "-TT" if corpus.layout == "tt" else ""
+    if need_scratch and took == 0:
+        fail(f"{name} {label}: no compared query took the global scratch, "
+             "so it is not held against the plain version")
     if not torch.equal(nk, np_):
         fail(f"{name} {label}: candidate counts differ in "
              f"{int((nk != np_).sum())} rows")
@@ -626,7 +636,7 @@ def k1_compare(svc, queries, label, probes=1, corpus=None):
           f"{float(tol.max()):.3g}, against a median |score| of "
           f"{float(sp[valid].abs().median()):.3g}; max |kernel - plain| "
           f"{float(err.max()):.3g}; {accuracy}), ids equal except {n_tie} "
-          "near-tie slots")
+          f"near-tie slots; {took} queries took the global scratch")
     return float(err.max()), (values, offs, mults, qs, view, kw)
 
 
@@ -739,9 +749,10 @@ def k1_work(k1_args, q_row, c_row, cand_flops, query_flops):
 
 
 def phase_times(svc, cell, queries, k1_args):
-    """The hash kernel per 65,536-item e2lsh-keys launch and K1 per query
-    batch, on the card (CUDA events), beside their bounds and plain
-    versions."""
+    """The hash kernel per 65,536-item e2lsh-keys launch, its raw launch per
+    query batch (held against its plain version on the first
+    ``QUERY_HASH_BATCHES`` batches -> the max error) and K1 per query batch,
+    on the card (CUDA events), beside their bounds and plain versions."""
     idx = svc.index
     fam, corpus = idx.family, idx.effective_corpus()
     f = hash_fns(corpus.layout)
@@ -789,11 +800,30 @@ def phase_times(svc, cell, queries, k1_args):
           f"batch): {q_ms:.4f} ms (plain {q_plain:.4f} ms); bound "
           f"{q_bound:.4f} ms by {q_by} ({q_bytes / 1e6:.2f} MB, "
           f"{q_flops / 1e9:.3f} GFLOP)")
+    # that launch against its plain version on the first batches' stacked
+    # queries: within the rounding bound, and no further from float64
+    q_err, acc = 0.0, Accuracy()
+    for q, x in zip(queries[:QUERY_HASH_BATCHES], qss):
+        s = q.scale * fam.projection.scale
+        raw_k = f["kernel"](x, p, epilogue="raw", scale=s)
+        raw_p = f["plain"](x, p, epilogue="raw", scale=s)
+        bound = f["bound"](x, p, s)
+        err = (raw_k - raw_p).abs()
+        if not bool((err <= bound).all()):
+            fail(f"{f['name']} raw, query batch: {int((err > bound).sum())} "
+                 f"values outside the rounding bound (max err "
+                 f"{float(err.max()):.3g})")
+        acc.add(raw_k, raw_p, exact_raw(f, x, p, s))
+        q_err = max(q_err, float(err.max()))
+    accuracy = acc.check(f"{f['name']} raw, query batches")
+    print(f"[{f['name']}] raw on {min(len(qss), QUERY_HASH_BATCHES)} query "
+          f"batches of {b_q}: within the rounding bound (max |kernel - "
+          f"plain| {q_err:.3g}); {accuracy}")
 
     k1_t = k1_times(svc, queries, k1_args,
                     "K1-TT" if corpus.layout == "tt" else "K1")
     return ((h_ms, h_plain, h_bound, h_by), k1_t,
-            (q_ms, q_plain, q_bound, q_by))
+            (q_ms, q_plain, q_bound, q_by), q_err)
 
 
 def k1_times(svc, queries, k1_args, name, corpus=None):
@@ -1693,6 +1723,9 @@ def phase_ann_k8(cell, corpus, qids, queries):
           f"the global scratch: {counts['fused_query:scratch']} of "
           f"{(len(queries) + 1) * len(qids[0])}")
     check_counts(counts, "ann-k8", ("cp_gram", "fused_query"))
+    if counts["fused_query:scratch"] == 0:
+        fail("ann-k8: no query took K1's global scratch, so the main path "
+             "no longer holds it against the plain version")
     hits1, n_q = check_results(results, [q.cpu().numpy() for q in qids], n)
     print(f"[ann-k8] recall@1 (planted) {hits1 / n_q:.4f} over {n_q} queries")
     if hits1 / n_q < RECALL1_MIN:
@@ -1700,7 +1733,8 @@ def phase_ann_k8(cell, corpus, qids, queries):
     errs = []
     for i in range(ANN_K8["k1_batches"]):
         e, k1_args = k1_compare(svc, queries[i], f"ann-k8 batch {i}, "
-                                                 f"B={len(qids[i])}")
+                                                 f"B={len(qids[i])}",
+                                need_scratch=True)
         errs.append(e)
     k1_t = k1_times(svc, queries, k1_args, "K1 ann-k8")
     return record("fused_query[ann-k8]", *K1_SOURCE, counts, "fused_query",
@@ -1873,16 +1907,17 @@ def run_cell(layout: str, log2_corpus: int, args) -> list:
         del corpus                  # the index holds the stacked corpus
     h_err = phase_hash(svc, cell)
     k1_err, k1_args = k1_compare(svc, queries[0],
-                                 f"{layout.upper()} index, B={args.batch}")
+                                 f"{layout.upper()} index, B={args.batch}",
+                                 need_scratch=layout == "tt")
     phase_srp(cell)
-    h_t, k1_t, hq_t = phase_times(svc, cell, queries, k1_args)
+    h_t, k1_t, hq_t, hq_err = phase_times(svc, cell, queries, k1_args)
     phase_profile(svc, queries, "tt-profile" if layout == "tt" else "profile")
     key, source, replaces = HASH_RECORDS[layout]
     builds = main["build_launches"]
     records = [dict(record(key + "[build]", source, replaces, counts, key,
                            h_err, h_t), launches=builds),
                dict(record(key + "[query]", source, replaces, counts, key,
-                           h_err, hq_t), launches=counts[key] - builds),
+                           hq_err, hq_t), launches=counts[key] - builds),
                record("fused_query" + ("[tt]" if layout == "tt" else ""),
                       *K1_SOURCE, counts, "fused_query", k1_err, k1_t)]
     del svc, k1_args

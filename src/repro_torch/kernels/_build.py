@@ -40,9 +40,11 @@ SIGNATURES = {
     "tt_inner_launch": [_P] * 5 + [_I] * 8 + [_F, _F, _I, _I, _I, _P],
     # values, offsets, mults, pairs, q, segment table, S, ids, scores,
     # ncand, B, L, K, T, C, N, D, RQ, RC, topk, e2, euclid, tt, w, qs,
-    # window, scratch, scratch window, scratch query counter, stream
+    # window, scratch, scratch window, scratch query counter, the planned
+    # threads, blocks per SM and shared bytes (checked), stream
     "fused_query_launch": [_P] * 6 + [_I] + [_P] * 3 + [_I] * 13
-                          + [_F, _D, _I, _P, _I, _P, _P],
+                          + [_F, _D, _I, _P, _I, _P, _I, _I,
+                             ctypes.c_size_t, _P],
     # tt, RQ, RC, shared bytes, out (registers, blocks per SM, local bytes,
     # target blocks per SM)
     "fused_query_occupancy": [_I, _I, _I, ctypes.c_size_t, _P],

@@ -81,8 +81,9 @@
 // (Shape, also its __launch_bounds__), not the worst case; a query whose
 // pow2(W) exceeds it in a segment uses its own row of a global scratch
 // instead (the same code through a generic pointer; the wrapper allocates
-// it once per store view, its sets empty, and each segment empties the set
-// it used), and the launch counts such queries. Latency: a warp's search
+// it once per store view with its sets empty and empties it again when a
+// launch lays its rows out at another stride, and each segment empties the
+// set it used), and the launch counts such queries. Latency: a warp's search
 // takes 4 dependent loads instead of 20; each warp stages the next
 // candidate's row into the other half of a double buffer with cp.async
 // (16-byte copies where the rows allow) and loads its effective id before
@@ -820,6 +821,15 @@ int threads_of(int tr) {
   }
 }
 
+int min_blocks_of(int tr) {
+  switch (tr) {
+    case 0: return Shape<0>::min_blocks;
+    case 4: return Shape<4>::min_blocks;
+    case 8: return Shape<8>::min_blocks;
+    default: return Shape<16>::min_blocks;
+  }
+}
+
 // Up to smem bytes of dynamic shared memory, and all of the SM's 228 KB as
 // shared memory (not L1), so that Shape<TR>::min_blocks can be resident.
 template <int TR>
@@ -862,7 +872,8 @@ int occupancy(size_t smem, int* out) {
 
 }  // namespace
 
-// Shared memory of one K1 block (fused_query.py's smem_bytes mirrors it):
+// Shared memory of one K1 block (fused_query.py's smem_bytes plans with the
+// same sum, and fused_query_launch refuses a plan that differs):
 // two row buffers a warp for each candidate it scores at once (rows of
 // ranks above 8 are read in place), the warps' lists and the merged top-k
 // (8 bytes a rank each), the region of the hash set and the candidate list
@@ -929,7 +940,8 @@ extern "C" int fused_query_launch(
     int* out_ids, float* out_scores, int* out_ncand, int B, int L, int K,
     int T, int C, int N, int D, int RQ, int RC, int topk, int e2, int euclid,
     int tt, float w, double qs, int wcap, void* scratch, int scap,
-    void* scratch_queries, void* stream) {
+    void* scratch_queries, int threads, int min_blocks, size_t smem,
+    void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   int (*fn)(const float*, const float*, const long long*, const int*,
             const float*, const long long*, int, int*, float*, int*, int,
@@ -946,6 +958,12 @@ extern "C" int fused_query_launch(
   if (wcap < 1 || (wcap & (wcap - 1)) || topk < 1 ||
       scratch_queries == nullptr)
     return (int)cudaErrorInvalidValue;
+  // the caller sized the window with its own copy of the block's shape and
+  // shared bytes: a launch planned with others is refused
+  const int tr = tr_of(tt, RQ, RC);
+  if (threads != threads_of(tr) || min_blocks != min_blocks_of(tr) ||
+      smem != fused_query_smem_bytes(L * T, N, D, RQ, RC, wcap, tt, topk, C))
+    return (int)cudaErrorInvalidConfiguration;
   return fn(values, offsets, mults, pairs, q, segtab, S, out_ids, out_scores,
             out_ncand, B, L, K, T, C, N, D, RQ, RC, topk, e2, euclid, w, qs,
             wcap, static_cast<uint32_t*>(scratch), scap,

@@ -41,10 +41,10 @@ view) and the kernel leaves empty: the same code, so the answers do not
 depend on where the set lived.
 
 ``fused_query.launches`` / ``fused_query_sharded.launches`` count kernel
-launches and ``.branches`` the launches that ran each branch
-("multiprobe": T > 1, "live_window": a segment with live-window lookups,
-"segments": more than one segment) and, after ``sync_branches()``, the
-queries that took the scratch ("scratch", counted on the card);
+launches and ``.branches`` (``BranchCounts``) the launches that ran each
+branch ("multiprobe": T > 1, "live_window": a segment with live-window
+lookups, "segments": more than one segment) and the queries that took the
+scratch ("scratch", counted on the card and read from it when asked for);
 ``fused_query_plain.calls`` / ``fused_query_sharded_plain.calls`` count
 calls of the plain versions.
 """
@@ -66,11 +66,12 @@ MAX_SMEM = 232_448         # bytes of shared memory one H100 block may use
 SM_SMEM = 233_472          # bytes of shared memory of one H100 SM
 BLOCK_RESERVED = 1_024     # bytes the system reserves per resident block
 SMEM_GRANULE = 128         # allocation unit of a block's shared memory
+STATIC_SMEM = 32           # bytes of K1's static shared scalars, at most
 MAX_TT_RANK = 16           # largest TT rank K1's chains take
 TABLE_COLS = 12            # int64 words per segment in the K1 table
 # threads of a query's block and the target blocks per SM by instantiation
 # (TR: 0 CP, else the TT rank bound): its __launch_bounds__ (Shape in
-# csrc/fused_query.cu)
+# csrc/fused_query.cu, which refuses a launch planned with other values)
 THREADS = {0: 384, 4: 256, 8: 256, 16: 256}
 MIN_BLOCKS = {0: 2, 4: 3, 8: 1, 16: 2}
 # the shared window's capacity in slots lies in [MIN_WINDOW, MAX_WINDOW]
@@ -94,17 +95,17 @@ def tt_bound(tt: bool, rq: int, rc: int) -> int:
 def smem_bytes(num_tables: int, n_modes: int, d: int, rq: int, rc: int,
                window: int, tt: bool = False, probes: int = 1,
                topk: int = 10, expansion: int = 0) -> int:
-    """Shared memory of one K1 block (mirrors ``fused_query_smem_bytes`` in
-    the CUDA source) for a shared window of ``window`` slots (a power of
-    two): two row buffers a warp for each candidate it scores at once (two
-    for CP, one for TT; CP factors (N, d, R) or TT cores (N, R, d, R) of
-    ranks up to 8, rounded up to 4 floats; rows of higher ranks are read in
-    place), the warps' running top-k lists and the merged top-k (8 bytes a
-    rank each), the hash set of 2 * window ids and the candidate list of
-    window ids (the expansion's per-warp scores and deltas, ``expansion``
-    candidates of 8 bytes, reuse that region), the query's row, for TT each
-    warp's two chain states and their next values, four per-(table, probe)
-    integer arrays, and 32 bytes of static scalars."""
+    """Shared memory of one K1 block (``fused_query_smem_bytes`` in the CUDA
+    source, which refuses a launch planned with another size) for a shared
+    window of ``window`` slots (a power of two): two row buffers a warp for
+    each candidate it scores at once (two for CP, one for TT; CP factors (N, d,
+    R) or TT cores (N, R, d, R) of ranks up to 8, rounded up to 4 floats; rows
+    of higher ranks are read in place), the warps' running top-k lists and the
+    merged top-k (8 bytes a rank each), the hash set of 2 * window ids and the
+    candidate list of window ids (the expansion's per-warp scores and deltas,
+    ``expansion`` candidates of 8 bytes, reuse that region), the query's row,
+    for TT each warp's two chain states and their next values, four per-(table,
+    probe) integer arrays, and ``STATIC_SMEM`` bytes of static scalars."""
     if tt:
         fq, fc = n_modes * rq * d * rq, n_modes * rc * d * rc
         sw = 2 * max(rq * rc + rc * rc, rq * rq)
@@ -117,7 +118,7 @@ def smem_bytes(num_tables: int, n_modes: int, d: int, rq: int, rc: int,
     region = -(-max(3 * window, nwarps * 2 * expansion) // 4) * 4
     lt = num_tables * probes
     return ((nwarps * 2 * fc + fq + nwarps * sw + region) * 4
-            + (nwarps + 1) * topk * 8 + (4 * lt + 1) * 4 + 32)
+            + (nwarps + 1) * topk * 8 + (4 * lt + 1) * 4 + STATIC_SMEM)
 
 
 def window_plan(num_tables: int, cap: int, n_modes: int, d: int, rq: int,
@@ -262,9 +263,8 @@ class SegmentTable:
     d: int
     rc: int
     # the global scratch of the queries whose window exceeds the shared one
-    # ("slots": int32, per query a hash set, empty (-1) between launches,
-    # and a candidate list), allocated at the first launch that can need it
-    # and grown for a larger batch
+    # (``scratch_rows``: "slots", int32, per query a row of 3 * "scap" slots,
+    # a hash set that is empty (-1) between launches and a candidate list)
     scratch: dict = dataclasses.field(default_factory=dict, compare=False,
                                       repr=False)
 
@@ -323,21 +323,55 @@ def _pairs(e2: bool, num_codes: int, device) -> torch.Tensor:
                        dim=1).to(torch.int32).contiguous().to(device)
 
 
-# per card, the queries that took the global scratch since the last
-# ``sync_branches`` (int64; [0] K1's launches, [1] K1s's), added on the card
-_SCRATCH_QUERIES: dict = {}
+def scratch_rows(table: SegmentTable, b: int, scap: int,
+                 dev) -> torch.Tensor:
+    """The global scratch of ``table`` laid out for a launch of ``b``
+    queries at a row stride of 3 * ``scap`` slots, with every row's hash set
+    (its first 2 * ``scap`` slots) empty. The kernel empties the slots it
+    used, so a buffer of the same stride is reused as it is; a buffer laid
+    out at another stride holds old candidate lists where the new hash sets
+    lie, and is emptied first (``scap`` follows T and the caps, which a
+    view's callers may change from one call to the next)."""
+    slots = table.scratch.get("slots")
+    if slots is None or slots.numel() < b * 3 * scap:
+        slots = torch.full((b * 3 * scap,), -1, dtype=torch.int32,
+                           device=dev)
+    elif table.scratch["scap"] != scap:
+        slots.fill_(-1)
+    table.scratch.update(slots=slots, scap=scap)
+    return slots
 
 
-def sync_branches() -> None:
-    """Fold the card's counts of queries that took the global scratch into
-    ``fused_query.branches["scratch"]`` and
-    ``fused_query_sharded.branches["scratch"]``, and zero them (one
-    synchronizing read per card)."""
-    for counter in _SCRATCH_QUERIES.values():
-        k1, k1s = counter.tolist()
-        counter.zero_()
-        fused_query.branches["scratch"] += k1
-        fused_query_sharded.branches["scratch"] += k1s
+class BranchCounts(collections.Counter):
+    """A K1 wrapper's launches by branch, and under "scratch" its queries
+    that took the global scratch: the kernel adds those on the card, and
+    reading "scratch" (or ``clear``) folds them in, one synchronizing read
+    per card."""
+
+    def __init__(self):
+        super().__init__()
+        self.on_card = {}   # device -> (1,) int64 queries not yet read
+
+    def counter(self, dev) -> torch.Tensor:
+        """The card's count of scratch queries that a launch adds to."""
+        if dev not in self.on_card:
+            self.on_card[dev] = torch.zeros(1, dtype=torch.int64, device=dev)
+        return self.on_card[dev]
+
+    def _fold(self) -> None:
+        for n in self.on_card.values():
+            super().__setitem__("scratch",
+                                super().__getitem__("scratch") + int(n))
+            n.zero_()
+
+    def __getitem__(self, key):
+        if key == "scratch":
+            self._fold()
+        return super().__getitem__(key)
+
+    def clear(self) -> None:
+        self._fold()
+        super().clear()
 
 
 def launch_plan(table, rq: int, *, num_tables: int, probes: int, topk: int,
@@ -354,15 +388,17 @@ def launch_plan(table, rq: int, *, num_tables: int, probes: int, topk: int,
 
 def occupancy(table, rq: int, smem: int) -> dict:
     """What the card makes of K1's instantiation for ``table`` at ``smem``
-    bytes of shared memory: registers a thread, resident blocks per SM,
-    local (spilled) bytes a thread and the target blocks per SM."""
+    bytes of shared memory a block (``smem_bytes``, static scalars
+    included): registers a thread, resident blocks per SM, local (spilled)
+    bytes a thread and the target blocks per SM."""
     import ctypes
 
     from repro_torch.kernels import _build
 
     out = (ctypes.c_int * 4)()
     _build.check(_build.lib().fused_query_occupancy(
-        int(table.layout == "tt"), rq, table.rc, smem, ctypes.addressof(out)),
+        int(table.layout == "tt"), rq, table.rc, smem - STATIC_SMEM,
+        ctypes.addressof(out)),
         "fused_query_occupancy")
     return dict(registers=out[0], blocks_per_sm=out[1], local_bytes=out[2],
                 target_blocks=out[3])
@@ -374,11 +410,11 @@ def _check_device(dev: torch.device, name: str) -> None:
 
 
 def _launch(values, offsets, mults, queries, table, *, kind, w, num_tables,
-            num_codes, metric, topk, probes, counter):
+            num_codes, metric, topk, probes, counts):
     """One launch of ``csrc/fused_query.cu`` over the rows of ``table`` ->
     (ids, scores, n_cand, the branches it ran or None when B = 0 launched
-    nothing); the queries that took the scratch add to entry ``counter`` of
-    the card's ``_SCRATCH_QUERIES``."""
+    nothing); the queries that took the scratch add to ``counts``' count on
+    the card."""
     from repro_torch.kernels import _build
 
     dev = values.device
@@ -400,9 +436,10 @@ def _launch(values, offsets, mults, queries, table, *, kind, w, num_tables,
                          f"Rq={rq}, Rc={rc}")
     expansion = (probing.expansion_size(kind, num_codes) if probes > 1
                  else 0)
-    window, need_scratch, _ = launch_plan(table, rq, num_tables=num_tables,
-                                          probes=probes, topk=topk,
-                                          expansion=expansion)
+    window, need_scratch, smem = launch_plan(table, rq,
+                                             num_tables=num_tables,
+                                             probes=probes, topk=topk,
+                                             expansion=expansion)
     vals = values.contiguous().float()
     offs = offsets.float().contiguous() if e2 else None
     mu = mults.to(dev, torch.int64).contiguous()
@@ -415,14 +452,8 @@ def _launch(values, offsets, mults, queries, table, *, kind, w, num_tables,
     # a query's row of the scratch: the hash set and the candidate list of
     # its largest window
     scap = _pow2_ceil(num_tables * probes * max(table.caps))
-    scratch = table.scratch.get("slots")
-    if need_scratch and (scratch is None or scratch.numel() < b * 3 * scap):
-        scratch = torch.full((b * 3 * scap,), -1, dtype=torch.int32,
-                             device=dev)
-        table.scratch["slots"] = scratch
-    if dev not in _SCRATCH_QUERIES:
-        _SCRATCH_QUERIES[dev] = torch.zeros(2, dtype=torch.int64, device=dev)
-    counted = _SCRATCH_QUERIES[dev][counter:]
+    scratch = scratch_rows(table, b, scap, dev) if need_scratch else None
+    tr = tt_bound(tt, rq, rc)
     err = _build.lib().fused_query_launch(
         vals.data_ptr(), offs.data_ptr() if e2 else None, mu.data_ptr(),
         pairs.data_ptr() if pairs is not None else None, q.data_ptr(),
@@ -432,7 +463,9 @@ def _launch(values, offsets, mults, queries, table, *, kind, w, num_tables,
         int(metric == "euclidean"), int(tt), float(w) if e2 else 1.0,
         float(queries[0].scale), window,
         scratch.data_ptr() if need_scratch else None, scap,
-        counted.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+        counts.counter(dev).data_ptr(), THREADS[tr], MIN_BLOCKS[tr],
+        smem - STATIC_SMEM,
+        torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "fused_query_launch")
     branches = [name for name, on in (
         ("multiprobe", probes > 1),
@@ -460,7 +493,7 @@ def fused_query(values, offsets, mults, queries, segs, *, kind, w, num_tables,
     ids, scores, ncand, branches = _launch(
         values, offsets, mults, queries, table, kind=kind, w=w,
         num_tables=num_tables, num_codes=num_codes, metric=metric,
-        topk=topk, probes=probes, counter=0)
+        topk=topk, probes=probes, counts=fused_query.branches)
     if branches is not None:
         fused_query.launches += 1
         fused_query.branches.update(branches)
@@ -468,7 +501,7 @@ def fused_query(values, offsets, mults, queries, segs, *, kind, w, num_tables,
 
 
 fused_query.launches = 0
-fused_query.branches = collections.Counter()
+fused_query.branches = BranchCounts()
 
 
 def fused_query_sharded(values, offsets, mults, queries, base, deltas, *,
@@ -498,7 +531,8 @@ def fused_query_sharded(values, offsets, mults, queries, base, deltas, *,
     if caps != table.caps:
         raise ValueError("the K1s table was built for other segments")
     ids, scores, ncand, branches = _launch(values, offsets, mults, queries,
-                                           table, probes=probes, counter=1,
+                                           table, probes=probes,
+                                           counts=fused_query_sharded.branches,
                                            **kw)
     if branches is not None:
         fused_query_sharded.launches += 1
@@ -507,4 +541,4 @@ def fused_query_sharded(values, offsets, mults, queries, base, deltas, *,
 
 
 fused_query_sharded.launches = 0
-fused_query_sharded.branches = collections.Counter()
+fused_query_sharded.branches = BranchCounts()

@@ -312,7 +312,6 @@ def test_fused_query_nine_segments_match_plain(gen, layout):
 
 def _scratch_queries():
     """Queries that took K1's (and K1s's) global scratch so far."""
-    fq_mod.sync_branches()
     return (fused_query.branches["scratch"]
             + fused_query_sharded.branches["scratch"])
 
@@ -392,7 +391,9 @@ def test_fused_query_spill_equals_shared(gen, layout, shards):
     shared window in every shard), in the base and in two deltas, with
     deletes. Every query's ids, scores and candidate count equal the plain
     version's bit for bit, K1 and K1s, CP and TT, T = 1 and 4; the repeats
-    tie at distance 0, so their order is the effective ids'."""
+    tie at distance 0, so their order is the effective ids'. The launches
+    share the view's scratch at row strides that change with T and at
+    smaller batches after larger ones."""
     from repro_torch.serving.lsh_service import build_service
     dims = (6, 6, 6) if layout == "cp" else (8, 8, 8)
     n, dup = 6000, 3 * shards * fq_mod.MAX_WINDOW // 4
@@ -414,11 +415,12 @@ def test_fused_query_spill_equals_shared(gen, layout, shards):
     q = _repeat(base, torch.cat([
         torch.zeros(64, dtype=torch.long, device="cuda"),
         torch.randint(1, n, (192,), generator=gen, device="cuda")]))
-    for probes in (1, 4):
+    for probes, b in ((1, 256), (4, 256), (1, 256), (4, 96), (1, 80)):
         before = _scratch_queries()
-        ids, sc, nc = _bitwise_vs_plain(svc, q, probes)
+        ids, sc, nc = _bitwise_vs_plain(
+            svc, _repeat(q, torch.arange(b, device="cuda")), probes)
         took = _scratch_queries() - before
-        assert 64 <= took < 256
+        assert 64 <= took < b
         assert bool((sc[:64] == 0).all()) and bool(
             (ids[:64, 1:] > ids[:64, :-1]).all())
 

@@ -30,6 +30,7 @@ from repro_torch import convert
 from repro_torch.core import segments as tseg
 from repro_torch.kernels import epilogues as tepi
 from repro_torch.kernels import parity
+from repro_torch.kernels import fused_query as tfq
 from repro_torch.kernels.fused_query import fused_query_plain, window_plan
 from repro_torch.kernels.ops import stack_cp
 
@@ -207,3 +208,58 @@ def test_k1_window_limit_is_stated():
     assert window_plan(10, 2952, 3, 12, 4, 3) == (4096, True)
     with pytest.raises(ValueError, match="232448 B"):
         window_plan(10, 4, 4, 64, 32, 32)
+
+
+def _table_with_scratch():
+    return tfq.SegmentTable(desc=torch.zeros((1, tfq.TABLE_COLS),
+                                             dtype=torch.int64),
+                            segs=(), caps=(8,), layout="cp", n_modes=3, d=4,
+                            rc=2)
+
+
+@pytest.mark.parametrize("plans", [
+    ((4, 64), (4, 16)),            # a smaller stride (T falls)
+    ((4, 64), (2, 64), (4, 32)),   # a smaller batch, then a smaller stride
+    ((2, 16), (1, 64), (8, 64)),   # a larger stride, then a larger batch
+    ((3, 32), (3, 32), (2, 32)),   # the same stride
+])
+def test_k1_scratch_rows_empty_at_every_stride(plans):
+    """K1's global scratch is laid out per launch at a row stride of
+    3 * scap (a hash set of 2 * scap, then a candidate list), and the kernel
+    leaves its hash sets empty and its lists full of ids. Whatever launches
+    came before, every row's hash set at the new stride is empty; a buffer
+    of the same stride and size is reused as it is."""
+    table = _table_with_scratch()
+    prev = None
+    for b, scap in plans:
+        slots = tfq.scratch_rows(table, b, scap, torch.device("cpu"))
+        assert slots.numel() >= b * 3 * scap
+        rows = slots[:b * 3 * scap].view(b, 3 * scap)
+        assert bool((rows[:, :2 * scap] == -1).all())
+        if prev is not None and prev[1] == scap and prev[0].numel() >= (
+                b * 3 * scap):
+            assert slots is prev[0] and bool((rows[:, 2 * scap:] >= 0).all())
+        # what a launch leaves: empty sets, candidate lists of ids
+        rows[:, 2 * scap:] = torch.arange(scap, dtype=torch.int32)
+        prev = (slots, scap)
+
+
+def test_k1_branch_counts_read_the_card_count():
+    """``fused_query.branches``: launches by branch on the host, and the
+    queries that took the scratch counted on the device; reading "scratch"
+    folds the device count in (and zeroes it), ``clear`` drops both."""
+    counts = tfq.BranchCounts()
+    counter = counts.counter(torch.device("cpu"))
+    assert counts.counter(torch.device("cpu")) is counter
+    counts.update(["multiprobe", "segments", "multiprobe"])
+    counter += 5
+    assert counts["scratch"] == 5 and int(counter) == 0
+    counter += 2
+    assert counts["multiprobe"] == 2 and counts["scratch"] == 7
+    counter += 3
+    counts.clear()
+    assert counts["scratch"] == 0 and counts["multiprobe"] == 0
+    assert int(counter) == 0
+    assert isinstance(tfq.fused_query.branches, tfq.BranchCounts)
+    assert isinstance(tfq.fused_query_sharded.branches, tfq.BranchCounts)
+
