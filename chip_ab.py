@@ -11,11 +11,13 @@ queries at the example's K = 8) through ``build_service`` and ``serve``;
 [main] serves its 256 batches three more times. Runs alternate (other,
 this, this, other, ...). Each run prints one ``AB {...}`` line: the batch
 means on the host clock, and K1's time on each of the three paths and the
-hash kernel's on [main] and [tt-main] (CUDA events, ``phase_times`` /
-``k1_times``). At the end the first 32 batches' ids, scores and candidate
-counts of every path and run are compared bit for bit, and the medians of
-each tree's batch means and the range of its kernel times are printed.
-Needs a CUDA card.
+hash kernel's build and query launches on [main] and [tt-main] (CUDA
+events, ``phase_times`` / ``k1_times``). At the end the first 32 batches'
+ids, scores and candidate counts of every path and run are compared bit for
+bit, and so are the hash kernel's raw values on the first query batch and
+on the first 65,536-item build chunk and its keys on that chunk; the
+medians of each tree's batch means and the range of its kernel times are
+printed. Needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -66,8 +68,24 @@ def one(tree: str, out: str) -> None:
         _, k1_args = cs.k1_compare(svc, queries[0], "ab")
         times = cs.phase_times(svc, cell, queries, k1_args)
         keep(layout, results)
+        # the hash kernel's own outputs: raw on the first query batch, raw
+        # and keys on the first build chunk
+        f, fam = cs.hash_fns(layout), svc.index.family
+        p = fam.stacked_projection
+        q0 = queries[0]
+        arrays[f"{layout}_raw_query"] = f["kernel"](
+            q0.stack()[1], p, epilogue="raw",
+            scale=q0.scale * fam.projection.scale).cpu().numpy()
+        chunk = svc.index.store.base.stacked[:65536]
+        scale = svc.index.effective_corpus().scale * fam.projection.scale
+        arrays[f"{layout}_raw_build"] = f["kernel"](
+            chunk, p, epilogue="raw", scale=scale).cpu().numpy()
+        arrays[f"{layout}_keys_build"] = f["kernel"](
+            chunk, p, fam.offsets.reshape(cell["tables"], cell["codes"]),
+            svc.index._mults_t, epilogue="e2lsh-keys", w=cell["width"],
+            scale=scale).cpu().numpy()
         res[layout] = dict(means=means, k1_ms=times[1][0],
-                           hash_ms=times[0][0])
+                           hash_ms=times[0][0], query_ms=times[2][0])
         del svc, results, k1_args
         torch.cuda.empty_cache()
         if layout == "cp":  # [ann-k8]: the example's K = 8
@@ -81,7 +99,7 @@ def one(tree: str, out: str) -> None:
             k1_t = cs.k1_times(svc, queries, k1_args, "K1 ann-k8")
             keep("annk8", results)
             res["annk8"] = dict(means=[svc.stats.total_ms / svc.stats.batches],
-                                k1_ms=k1_t[0], hash_ms=None)
+                                k1_ms=k1_t[0], hash_ms=None, query_ms=None)
             del svc, results, k1_args
         del corpus, queries
         torch.cuda.empty_cache()
@@ -131,12 +149,15 @@ def main(argv=None) -> int:
             k1 = [r[path]["k1_ms"] for r in mine]
             hk = [r[path]["hash_ms"] for r in mine
                   if r[path]["hash_ms"] is not None]
+            hq = [r[path]["query_ms"] for r in mine
+                  if r[path].get("query_ms") is not None]
             print(f"[ab] {tree} {path}: batch mean ms median "
                   f"{statistics.median(means):.4f} (min {min(means):.4f}, "
                   f"max {max(means):.4f}, {len(means)} serves); K1 ms "
                   f"{min(k1):.4f}-{max(k1):.4f}" + (
-                      f"; hash kernel ms {min(hk):.4f}-{max(hk):.4f}"
-                      if hk else ""))
+                      f"; hash kernel ms: build launch {min(hk):.4f}-"
+                      f"{max(hk):.4f}, query launch {min(hq):.4f}-"
+                      f"{max(hq):.4f}" if hk else ""))
     return 0
 
 

@@ -223,6 +223,66 @@ def hash_fns(layout: str) -> dict:
                 small_ranks=(3, 2))
 
 
+def hash_plan(layout: str, x, p, label: str) -> dict:
+    """K3's / K4's launch plan for these stacked operands (``plan`` from the
+    launch's shape and the card's SM count) and what the card makes of it;
+    prints registers, blocks per SM and grid, and fails below the plan's
+    target blocks per SM."""
+    from repro_torch.kernels import cp_gram as k3
+    from repro_torch.kernels import tt_inner as k4
+    from repro_torch.kernels.epilogues import sm_count
+    sms = sm_count(x.device)
+    if layout == "cp":
+        b, n, d, rx = x.shape
+        _, l, k, _, rp = p.shape
+        lp = k3.plan(b, l, k, rx, rp, n, d, sms)
+        occ = k3.occupancy(lp, n, d, rx, rp)
+    else:
+        b, n, rx, d, _ = x.shape
+        _, l, k, rp, _, _ = p.shape
+        lp = k4.plan(b, l, k, rx, rp, d, sms)
+        occ = k4.occupancy(lp, d, rx, rp)
+    name = hash_fns(layout)["name"]
+    kind = ("the warp kernel, one item x "
+            f"{lp.block_hashes} hashes a block" if lp.block_items == 0 else
+            f"the thread kernel, {lp.block_items} items x {lp.block_hashes} "
+            "hashes a block")
+    print(f"[plan] {name} {label}: {kind}, {lp.threads} threads, {lp.smem} "
+          f"shared bytes, grid {lp.blocks} blocks on {sms} SMs; "
+          f"{occ['registers']} registers a thread, {occ['local_bytes']} "
+          f"local bytes, {occ['blocks_per_sm']} blocks per SM (target "
+          f"{lp.target_blocks})")
+    if occ["blocks_per_sm"] < lp.target_blocks:
+        fail(f"{name} {label}: {occ['blocks_per_sm']} blocks per SM, below "
+             f"the plan's {lp.target_blocks}")
+    return dict(occ, blocks=lp.blocks, threads=lp.threads)
+
+
+def library_raw(layout: str, x, p):
+    """One ``torch.einsum`` over the same stacked operands computing K3's /
+    K4's unscaled raw values (B, L, K) in fp32 (TF32 off): the yardstick
+    of ``library_ms``, which the port never calls. Operands alternate input
+    and projection mode by mode, so a left-to-right contraction follows the
+    chain (TT) or the per-mode Grams (CP)."""
+    import torch
+    n = x.shape[1]
+    letters = iter("abcdefghijmnopqrstuvwxyABCDEFGHIJMNOPSTUVWXY")
+    ops, subs = [], []
+    if layout == "cp":
+        for m in range(n):
+            i = next(letters)
+            ops += [x[:, m], p[m]]
+            subs += [f"z{i}R", f"lk{i}Q"]
+    else:
+        a = [next(letters) for _ in range(n + 1)]
+        b = [next(letters) for _ in range(n + 1)]
+        for m in range(n):
+            i = next(letters)
+            ops += [x[:, m], p[m]]
+            subs += [f"z{a[m]}{i}{a[m + 1]}", f"lk{b[m]}{i}{b[m + 1]}"]
+    return torch.einsum(",".join(subs) + "->zlk", *ops)
+
+
 class Accuracy:
     """Errors of the kernel and of the plain version against float64
     values, gathered over chunks."""
@@ -751,8 +811,10 @@ def k1_work(k1_args, q_row, c_row, cand_flops, query_flops):
 def phase_times(svc, cell, queries, k1_args):
     """The hash kernel per 65,536-item e2lsh-keys launch, its raw launch per
     query batch (held against its plain version on the first
-    ``QUERY_HASH_BATCHES`` batches -> the max error) and K1 per query batch,
-    on the card (CUDA events), beside their bounds and plain versions."""
+    ``QUERY_HASH_BATCHES`` batches -> the max error; beside one fp32
+    ``torch.einsum`` over the same operands -> its time) and K1 per query
+    batch, on the card (CUDA events), beside their bounds and plain
+    versions; each hash launch's plan and occupancy (``hash_plan``)."""
     idx = svc.index
     fam, corpus = idx.family, idx.effective_corpus()
     f = hash_fns(corpus.layout)
@@ -779,6 +841,7 @@ def phase_times(svc, cell, queries, k1_args):
     pair = inner_flops(corpus, proj)
     h_flops = b_x * t * pair
     h_bound, h_by = bound_ms(h_bytes, h_flops)
+    hash_plan(corpus.layout, xs[0], p, f"build launch, {b_x} items")
     print(f"[time] {f['name']} e2lsh-keys, {b_x} items x {t} hashes: "
           f"{h_ms:.4f} ms (plain {h_plain:.4f} ms); bound {h_bound:.4f} ms "
           f"by {h_by} ({h_bytes / 1e6:.1f} MB, {h_flops / 1e9:.2f} GFLOP, "
@@ -796,10 +859,16 @@ def phase_times(svc, cell, queries, k1_args):
                + b_q * t * 4)
     q_flops = b_q * t * inner_flops(q0, proj)
     q_bound, q_by = bound_ms(q_bytes, q_flops)
+    hash_plan(corpus.layout, qss[0], p, f"query launch, {b_q} items")
+    q_lib = cuda_ms([lambda x=x: library_raw(corpus.layout, x, p)
+                     for x in qss[:4]], 12)
+    lib_err = float((raw["scale"] * library_raw(corpus.layout, qss[0], p)
+                     - f["kernel"](qss[0], p, **raw)).abs().max())
     print(f"[time] {f['name']} raw, {b_q} query items x {t} hashes (one per "
-          f"batch): {q_ms:.4f} ms (plain {q_plain:.4f} ms); bound "
-          f"{q_bound:.4f} ms by {q_by} ({q_bytes / 1e6:.2f} MB, "
-          f"{q_flops / 1e9:.3f} GFLOP)")
+          f"batch): {q_ms:.4f} ms (plain {q_plain:.4f} ms; one fp32 "
+          f"torch.einsum over the same operands {q_lib:.4f} ms, max "
+          f"|einsum - kernel| {lib_err:.3g}); bound {q_bound:.4f} ms by "
+          f"{q_by} ({q_bytes / 1e6:.2f} MB, {q_flops / 1e9:.3f} GFLOP)")
     # that launch against its plain version on the first batches' stacked
     # queries: within the rounding bound, and no further from float64
     q_err, acc = 0.0, Accuracy()
@@ -823,7 +892,7 @@ def phase_times(svc, cell, queries, k1_args):
     k1_t = k1_times(svc, queries, k1_args,
                     "K1-TT" if corpus.layout == "tt" else "K1")
     return ((h_ms, h_plain, h_bound, h_by), k1_t,
-            (q_ms, q_plain, q_bound, q_by), q_err)
+            (q_ms, q_plain, q_bound, q_by), q_err, q_lib)
 
 
 def k1_times(svc, queries, k1_args, name, corpus=None):
@@ -1628,9 +1697,11 @@ def phase_kernels() -> list:
           "pack_bits(hash_batch); cp/tt_inner_products within 2e-4 of the "
           "plain projection")
     print("[kernels] benchmarks/kernels.py's fused-hash block sweep tunes the "
-          "TPU grid's (block_b, block_t) tiles; the CUDA kernels choose their "
-          "blocks from the shape (cp_gram.block_items, tt_inner.block_shape), "
-          "so the sweep has no counterpart here")
+          "TPU grid's (block_b, block_t) tiles; the CUDA kernels plan their "
+          "blocks from the shape and the card's SM count (cp_gram.plan, "
+          "tt_inner.plan), so the sweep has no counterpart here")
+    hash_plan("cp", x3, p3, "B=64 N=4 d=64 R=32 L=8 K=8")
+    hash_plan("tt", x4, p4, "B=32 N=4 d=32 R=16 L=4 K=8")
 
     # times: the two standalone kernels at serving scale, the hash kernels
     # at the benchmark's shapes
@@ -1810,9 +1881,13 @@ def phase_limits() -> list:
               f"table: raw within the rounding bound (max |kernel - plain| "
               f"{e:.3g}); {acc.check(f'{layout} K={k}')}; {nb} boundary "
               f"codes, {nd} of {nk} key cells differ")
+    hash_plan("cp", x3, p3, f"K={LIMITS['k3']}, {LIMITS['items']} items")
+    hash_plan("tt", x4, p4, f"K={LIMITS['k4']}, {LIMITS['items']} items")
     idx = svc.index
     base = idx.store.base
     fam = idx.family
+    hash_plan("tt", base.stacked, fam.stacked_projection,
+              f"TT rank {c['rhat']} index, {c['n']} items")
     offs_t = torch.rand((c["tables"], c["codes"]), generator=gen,
                         device="cuda") * 8.0
     acc = Accuracy()
@@ -1910,14 +1985,16 @@ def run_cell(layout: str, log2_corpus: int, args) -> list:
                                  f"{layout.upper()} index, B={args.batch}",
                                  need_scratch=layout == "tt")
     phase_srp(cell)
-    h_t, k1_t, hq_t, hq_err = phase_times(svc, cell, queries, k1_args)
+    h_t, k1_t, hq_t, hq_err, hq_lib = phase_times(svc, cell, queries,
+                                                  k1_args)
     phase_profile(svc, queries, "tt-profile" if layout == "tt" else "profile")
     key, source, replaces = HASH_RECORDS[layout]
     builds = main["build_launches"]
     records = [dict(record(key + "[build]", source, replaces, counts, key,
                            h_err, h_t), launches=builds),
                dict(record(key + "[query]", source, replaces, counts, key,
-                           hq_err, hq_t), launches=counts[key] - builds),
+                           hq_err, hq_t), launches=counts[key] - builds,
+                    library_ms=hq_lib),
                record("fused_query" + ("[tt]" if layout == "tt" else ""),
                       *K1_SOURCE, counts, "fused_query", k1_err, k1_t)]
     del svc, k1_args

@@ -1,0 +1,293 @@
+#!/usr/bin/env python3
+"""Time K3's and K4's thread kernels by stage on one NVIDIA card.
+
+    python3 chip_stages.py TREE [TREE ...]
+
+For each TREE (this checkout, ``.``, or another commit's ``git archive``
+unpacked under the git-ignored ``build/``), in a process of its own, copies
+its ``src/repro_torch/kernels/csrc`` into ``build/stages/<i>/``, stamps
+``cp_gram.cu`` and ``tt_inner.cu`` with ``clock64()`` (thread 0 of every
+block writes its stage cycles into a device array), builds that copy with
+the tree's own ``_build`` and runs K3 and K4 at the serving shapes of
+[main] (CP (12, 12, 12), data rank 4, rank 3, L = K = 10) and [tt-main] (TT
+(16,)*4, ranks 4, L = K = 10): the build launch (65,536 items,
+``e2lsh-keys``) and the query launch (1,024 items, ``raw``). Prints per
+launch the time (CUDA events, the stamped build), grid, registers and
+blocks per SM of the stamped kernel, mean cycles a block and each stage's
+share. Two source forms are known: the first design's (one thread per
+(item, table) in K3, per (item, hash) in K4, a table's hashes in a block)
+and the tiled design's (register tiles of items x hashes, blocks from
+``plan``); the stamps change the timing a little, so compare shares, not
+times. Needs a CUDA card and ``nvcc``.
+"""
+
+from __future__ import annotations
+
+import json
+import shutil
+import statistics
+import subprocess
+import sys
+from pathlib import Path
+
+HERE = Path(__file__).resolve().parent
+
+STAMPS = "\nnamespace { __device__ long long g_st[1 << 17][6]; }\n"
+READ = """
+extern "C" int {name}(void* host, size_t bytes) {{
+  return (int)cudaMemcpyFromSymbol(host, g_st, bytes);
+}}
+"""
+# per block: six stage fields; "total" is always the last one written
+FIELDS = {
+    "first": ("staging", "chain / Gram", "epilogue"),
+    "tiled": ("stage issue", "stage wait", "chain / Gram", "end barrier",
+              "epilogue"),
+}
+WRITE = ("  if (threadIdx.x == 0) {{\n"
+         "    const long long blk = blockIdx.x + (long long)gridDim.x *\n"
+         "        (blockIdx.y + (long long)gridDim.y * blockIdx.z);\n"
+         "    const long long f[6] = {{{fields}}};\n"
+         "    for (int i = 0; i < 6; ++i) g_st[blk][i] = f[i];\n"
+         "  }}\n")
+
+
+def patch(src: str, pairs) -> str:
+    for old, new in pairs:
+        if old not in src:
+            raise SystemExit(f"chip_stages: cannot stamp, {old[:60]!r} not "
+                             "found")
+        src = src.replace(old, new, 1)
+    return src
+
+
+def stamp_first(cp: str, tt: str) -> tuple[str, str]:
+    """The first design: K3 stages once, then each thread walks its
+    table's hashes (Gram, then the epilogue's push); K4 stages each mode
+    between two barriers."""
+    cp = patch(cp, [
+        ("namespace {\n\nconstexpr int RMAX", STAMPS + "namespace {\n\n"
+         "constexpr int RMAX"),
+        ("  extern __shared__ float smem[];\n  const int F = N * D * RX;",
+         "  extern __shared__ float smem[];\n  const long long c0 = clock64();"
+         "\n  long long tg = 0, te = 0;\n  const int F = N * D * RX;"),
+        ("  __syncthreads();\n  const int zi = tid % bb;",
+         "  __syncthreads();\n  const long long c1 = clock64();\n"
+         "  const int zi = tid % bb;"),
+        ("    const float* pk = pl + (size_t)k * N * PK;\n",
+         "    const long long ta = clock64();\n"
+         "    const float* pk = pl + (size_t)k * N * PK;\n"),
+        ("    tail.push(ea, z, l, k0 + k, __fmul_rn(scale, v));\n  }\n"
+         "  tail.finish(ea, z, l);\n}",
+         "    const float vv = __fmul_rn(scale, v);\n"
+         "    const long long tb = clock64();\n"
+         "    tail.push(ea, z, l, k0 + k, vv);\n"
+         "    tg += tb - ta;\n    te += clock64() - tb;\n  }\n"
+         "  tail.finish(ea, z, l);\n  const long long c2 = clock64();\n"
+         + WRITE.format(fields="c1 - c0, tg, c2 - c1 - tg, 0, 0, c2 - c0")
+         + "}"),
+    ]) + READ.format(name="stages_cp_read")
+    tt = patch(tt, [
+        ("namespace {\n\nconstexpr int RMAX", STAMPS + "namespace {\n\n"
+         "constexpr int RMAX"),
+        ("  float v = 0.f;\n  for (int n = 0; n < N; ++n) {\n"
+         "    __syncthreads();",
+         "  float v = 0.f;\n  const long long c0 = clock64();\n"
+         "  long long ts = 0, tc = 0, tq;\n"
+         "  for (int n = 0; n < N; ++n) {\n    tq = clock64();\n"
+         "    __syncthreads();"),
+        ("    __syncthreads();\n    if (!active) continue;",
+         "    __syncthreads();\n    const long long tr = clock64();\n"
+         "    ts += tr - tq;\n    if (!active) continue;"),
+        ("        for (int e = 0; e < RT; ++e) s[c][e] = sn[c][e];\n    }\n"
+         "  }\n",
+         "        for (int e = 0; e < RT; ++e) s[c][e] = sn[c][e];\n    }\n"
+         "    tc += clock64() - tr;\n  }\n  const long long c1 = clock64();\n"),
+        ("    tail.finish(ea, z0 + zz, l0 + lt);\n  }\n}",
+         "    tail.finish(ea, z0 + zz, l0 + lt);\n  }\n"
+         "  const long long c2 = clock64();\n"
+         + WRITE.format(fields="ts, tc, c2 - c1, 0, 0, c2 - c0") + "}"),
+    ]) + READ.format(name="stages_tt_read")
+    return cp, tt
+
+
+def stamp_tiled(cp: str, tt: str) -> tuple[str, str]:
+    """The tiled design: K3 stages once and each thread runs its register
+    tile; K4 steps over slice chunks (stage issue, the wait for the
+    copies and the top barrier, chain, the end barrier)."""
+    cp = patch(cp, [
+        ("namespace {\n\nconstexpr int RMAX", STAMPS + "namespace {\n\n"
+         "constexpr int RMAX"),
+        ("  extern __shared__ float4 smem4[];\n  const int LK = ea.L * ea.K;\n"
+         "  const int hb = blockIdx.x % nhb;  // hash blocks of one item",
+         "  extern __shared__ float4 smem4[];\n"
+         "  const long long c0 = clock64();\n  const int LK = ea.L * ea.K;\n"
+         "  const int hb = blockIdx.x % nhb;  // hash blocks of one item"),
+        ("  cp_async_wait<0>();\n  __syncthreads();\n\n  const int lane",
+         "  cp_async_wait<0>();\n  __syncthreads();\n"
+         "  const long long c1 = clock64();\n\n  const int lane"),
+        ("  __syncthreads();  // every thread is done with the staged rows",
+         "  const long long c2 = clock64();\n"
+         "  __syncthreads();  // every thread is done with the staged rows"),
+        ("  block_epilogue(ea, vs, BH, z0, nz, h0, h0 + nh);\n}",
+         "  block_epilogue(ea, vs, BH, z0, nz, h0, h0 + nh);\n"
+         "  const long long c3 = clock64();\n"
+         + WRITE.format(fields="0, c1 - c0, c2 - c1, 0, c3 - c2, c3 - c0")
+         + "}"),
+    ]) + READ.format(name="stages_cp_read")
+    tt = patch(tt, [
+        ("namespace {\n\nconstexpr int RMAX", STAMPS + "namespace {\n\n"
+         "constexpr int RMAX"),
+        ("  // zeroed stages",
+         "  const long long c0 = clock64();\n"
+         "  long long cs = 0, cw = 0, cc = 0, cb = 0;\n  // zeroed stages"),
+        ("    const int ns = min(kSlices, D - ch * kSlices);\n"
+         "    if (step + 1 < steps) {\n"
+         "      stage(step + 1, (step + 1) & 1);\n",
+         "    const int ns = min(kSlices, D - ch * kSlices);\n"
+         "    const long long ta = clock64();\n    long long tb = ta;\n"
+         "    if (step + 1 < steps) {\n"
+         "      stage(step + 1, (step + 1) & 1);\n      tb = clock64();\n"),
+        ("    __syncthreads();\n    // row (a, ii) of item",
+         "    __syncthreads();\n    const long long tc = clock64();\n"
+         "    cs += tb - ta;\n    cw += tc - tb;\n    // row (a, ii) of item"),
+        ("    __syncthreads();  // every thread is done with this buffer\n  }",
+         "    const long long td = clock64();\n"
+         "    __syncthreads();  // every thread is done with this buffer\n"
+         "    cc += td - tc;\n    cb += clock64() - td;\n  }\n"
+         "  const long long c1 = clock64();"),
+        ("  block_epilogue(ea, vs, BH, z0, nz, h0, h0 + nh);\n}",
+         "  block_epilogue(ea, vs, BH, z0, nz, h0, h0 + nh);\n"
+         "  const long long c2 = clock64();\n"
+         + WRITE.format(fields="cs, cw, cc, cb, c2 - c1, c2 - c0") + "}"),
+    ]) + READ.format(name="stages_tt_read")
+    return cp, tt
+
+
+def one(tree: str, index: int) -> None:
+    """Stamp, build and run one tree's K3 and K4 (prints ``STAGES`` lines)."""
+    import ctypes
+    import re
+    sys.path.insert(0, str(Path(tree).resolve() / "src"))
+    import torch
+    import repro_torch  # noqa: F401  (sets the float32 matmul flags)
+    from repro_torch.core import projections, tensor_formats
+    from repro_torch.kernels import _build, ops
+    from repro_torch.kernels import cp_gram as k3
+    from repro_torch.kernels import tt_inner as k4
+    out = HERE / "build" / "stages" / str(index)
+    if out.exists():
+        shutil.rmtree(out)
+    shutil.copytree(Path(tree) / "src/repro_torch/kernels/csrc", out / "csrc")
+    cp = (out / "csrc/cp_gram.cu").read_text()
+    tt = (out / "csrc/tt_inner.cu").read_text()
+    form = "first" if "tail.push(" in cp else "tiled"
+    cp, tt = (stamp_first if form == "first" else stamp_tiled)(cp, tt)
+    (out / "csrc/cp_gram.cu").write_text(cp)
+    (out / "csrc/tt_inner.cu").write_text(tt)
+    _build.CSRC, _build.BUILD_ROOT = out / "csrc", out / "_build"
+    lib = _build.lib()
+    regs = {m.group(1): int(m.group(2)) for m in re.finditer(
+        r"Compiling entry function '\w*?(cp_gram_kernel|tt_inner_kernel)"
+        r"ILi4E[^']*'.*?Used (\d+) registers", _build.BUILD_INFO["log"],
+        re.S)}
+    for name in ("stages_cp_read", "stages_tt_read"):
+        getattr(lib, name).argtypes = [ctypes.c_void_p, ctypes.c_size_t]
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    cells = {
+        "K3": (k3.cp_gram, (12, 12, 12), 4, 3, tensor_formats.cp_random_data,
+               projections.sample_cp_projection, ops._stack_cp_batch,
+               ops._stack_cp_proj, lib.stages_cp_read, "cp_gram_kernel"),
+        "K4": (k4.tt_inner, (16,) * 4, 4, 4, tensor_formats.tt_random_data,
+               projections.sample_tt_projection, ops._stack_tt_batch,
+               ops._stack_tt_proj, lib.stages_tt_read, "tt_inner_kernel"),
+    }
+    for name, (kern, dims, rhat, rank, data, proj, sx, sp, read,
+               entry) in cells.items():
+        p = sp(proj(gen, 100, dims, rank), 10)
+        offs = torch.rand((10, 10), generator=gen, device="cuda") * 2.0
+        mults = torch.randint(0, 1 << 32, (10,), generator=gen, device="cuda",
+                              dtype=torch.int64) | 1
+        for what, b, epi in (("build", 65536, "e2lsh-keys"),
+                             ("query", 1024, "raw")):
+            x = sx(data(gen, dims, rhat, batch=b))
+            kw = dict(epilogue=epi, w=2.0)
+            args = (x, p, offs, mults) if epi != "raw" else (x, p)
+            kern(*args, **kw)
+            torch.cuda.synchronize()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(20):
+                kern(*args, **kw)
+            end.record()
+            torch.cuda.synchronize()
+            ms = start.elapsed_time(end) / 20
+            kern(*args, **kw)
+            torch.cuda.synchronize()
+            grid, occ = launch_shape(form, name, b, dims, rhat, rank, sms)
+            buf = (ctypes.c_longlong * (grid * 6))()
+            err = read(ctypes.addressof(buf), grid * 48)
+            if err:
+                raise SystemExit(f"chip_stages: reading stamps: error {err}")
+            rows = [buf[6 * i:6 * i + 6] for i in range(grid)]
+            total = statistics.mean(r[5] for r in rows)
+            shares = {f: statistics.mean(r[i] for r in rows) / total
+                      for i, f in enumerate(FIELDS[form])}
+            print("STAGES " + json.dumps(dict(
+                tree=tree, form=form, kernel=name, launch=what, items=b,
+                ms=ms, grid=grid, registers=regs.get(entry), **occ,
+                cycles_per_block=total,
+                max_cycles=max(r[5] for r in rows), shares=shares)))
+
+
+def launch_shape(form, name, b, dims, rhat, rank, sms):
+    """(grid blocks, block description) of a tree's launch at this shape."""
+    n, d = len(dims), dims[0]
+    if form == "first":
+        from repro_torch.kernels.cp_gram import block_items
+        from repro_torch.kernels.tt_inner import block_shape
+        if name == "K3":
+            bb, lb, kb = block_items(n, d, rhat, 10, 10, rank, b)
+            return (-(-b // bb) * -(-10 // lb) * -(-10 // kb),
+                    dict(block=f"{bb} items x {lb} tables", threads=bb * lb))
+        bb, lb, kb = block_shape(d, rhat, rank, 10, 10, b)
+        return (-(-b // bb) * -(-10 // lb) * -(-10 // kb),
+                dict(block=f"{bb} items x {lb * kb} hashes",
+                     threads=bb * lb * kb))
+    if name == "K3":
+        from repro_torch.kernels.cp_gram import plan
+        lp = plan(b, 10, 10, rhat, rank, n, d, sms)
+    else:
+        from repro_torch.kernels.tt_inner import plan
+        lp = plan(b, 10, 10, rhat, rank, d, sms)
+    return lp.blocks, dict(block=f"{lp.block_items} items x "
+                                 f"{lp.block_hashes} hashes",
+                           threads=lp.threads, smem=lp.smem)
+
+
+def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else argv
+    if len(argv) == 3 and argv[0] == "--one":
+        one(argv[1], int(argv[2]))
+        return 0
+    if not argv:
+        print(__doc__)
+        return 2
+    for i, tree in enumerate(argv):
+        proc = subprocess.run([sys.executable, __file__, "--one", tree,
+                               str(i)], capture_output=True, text=True,
+                              timeout=600)
+        lines = [x for x in proc.stdout.splitlines()
+                 if x.startswith("STAGES ")]
+        if proc.returncode != 0 or not lines:
+            print(f"chip_stages: {tree} failed:\n{proc.stdout[-2000:]}"
+                  f"{proc.stderr[-4000:]}")
+            return 1
+        print("\n".join(lines), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

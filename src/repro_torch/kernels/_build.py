@@ -34,10 +34,18 @@ _D = ctypes.c_double
 # C signatures of the entry points (restype int = cudaError_t).
 SIGNATURES = {
     # x, p, offsets, mults, out, B, N, D, RX, L, K, RP, epilogue, w, scale,
-    # block_b, block_l, block_k, stream
-    "cp_gram_launch": [_P] * 5 + [_I] * 8 + [_F, _F, _I, _I, _I, _P],
+    # the plan's block items, block hashes, threads, shared bytes (checked),
+    # stream
+    "cp_gram_launch": [_P] * 5 + [_I] * 8 + [_F, _F, _I, _I, _I,
+                                             ctypes.c_size_t, _P],
     # the same arguments, in the TT layouts
-    "tt_inner_launch": [_P] * 5 + [_I] * 8 + [_F, _F, _I, _I, _I, _P],
+    "tt_inner_launch": [_P] * 5 + [_I] * 8 + [_F, _F, _I, _I, _I,
+                                              ctypes.c_size_t, _P],
+    # N, D, RX, RP, block items, block hashes, out (registers, blocks per
+    # SM, local bytes)
+    "cp_gram_occupancy": [_I] * 6 + [_P],
+    # D, RX, RP, block items, block hashes, out
+    "tt_inner_occupancy": [_I] * 5 + [_P],
     # values, offsets, mults, pairs, q, segment table, S, ids, scores,
     # ncand, B, L, K, T, C, N, D, RQ, RC, topk, e2, euclid, tt, w, qs,
     # window, scratch, scratch window, scratch query counter, the planned

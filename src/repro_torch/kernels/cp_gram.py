@@ -12,24 +12,35 @@ plain version ``cp_gram_plain`` on CPU tensors; any other device raises.
 ``cp_gram.launches`` counts kernel launches, ``cp_gram_plain.calls`` calls
 of the plain version.
 
-Ranks up to ``MAX_THREAD_RANK`` run one thread per (item, table) over
-register tiles, with a table's hashes tiled over blocks where its factors
-do not fit ``SMEM_BUDGET`` beside the items (``block_items``); ranks up to
-``MAX_RANK``, and shapes of which not even one item and one hash fit the
-budget, run the warp kernel (one warp per (item, table), nothing staged).
-Above ``MAX_RANK`` the wrapper raises.
+``plan`` picks the launch: ranks up to ``MAX_THREAD_RANK`` run the thread
+kernel (a register tile of items x hashes a thread, instantiations
+``THREAD_TILES``) on blocks of items x flattened hashes sized from the
+launch's shape and the card's SM count; ranks up to ``MAX_RANK``, and
+shapes of which the thread kernel cannot stage one block, run the warp
+kernel (one warp per (item, hash)). Above ``MAX_RANK`` the wrapper raises.
+The C launch recomputes a plan's threads and shared bytes and refuses one
+that differs, so these copies of its shapes cannot drift.
 """
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
-from repro_torch.kernels.epilogues import EPILOGUES, apply_epilogue, out_struct
+from repro_torch.kernels.epilogues import (EPILOGUES, Plan, apply_epilogue,
+                                           needs_zeros, out_struct, sm_count,
+                                           thread_plan, warp_plan)
 
 _EPILOGUE_CODE = {name: i for i, name in enumerate(EPILOGUES)}
-SMEM_BUDGET = 96 * 1024   # bytes of shared memory a K3 block may take
-MAX_THREAD_RANK = 8       # largest Rx, Rp the per-thread register tiles hold
+MAX_THREAD_RANK = 8       # largest Rx, Rp of the thread kernel
 MAX_RANK = 32             # largest Rx, Rp of the warp kernel
+MAX_THREADS = 128         # threads of a thread-kernel block (kThreadMax)
+WARP_CHUNK = 2048         # floats of a warp's staged rows (kWarpChunk)
+# the thread kernel's instantiations (compile-time Rx, Rp) and their
+# register tiles (items, hashes a thread): the serving shape exactly, then
+# ranks padded to 4 and to 8
+THREAD_TILES = {(4, 3): (2, 2), (4, 4): (2, 2), (8, 8): (1, 1)}
 
 
 def cp_gram_plain(x_factors: torch.Tensor, p_factors: torch.Tensor,
@@ -54,40 +65,62 @@ def cp_gram_plain(x_factors: torch.Tensor, p_factors: torch.Tensor,
 cp_gram_plain.calls = 0
 
 
-def block_items(n_modes: int, d: int, rx: int, num_tables: int, k: int,
-                rp: int, b: int) -> tuple[int, int, int] | None:
-    """(items, tables, hashes) per block of K3's thread kernel: up to 64
-    items (never more than the batch needs) and as many whole tables as fit
-    1024 threads and ``SMEM_BUDGET`` bytes of staged factors; where one
-    table does not fit beside the items, one table's hashes in chunks of
-    as many as fit (a multiple of 32 where that is at least 32, so packed
-    words stay whole), with fewer items where 32 hashes, or one, do not.
-    None where not even one item and one hash fit: the warp kernel then
-    serves the shape."""
-    per_item = n_modes * d * rx * 4
-    per_hash = n_modes * d * rp * 4
+def instantiation(rx: int, rp: int) -> tuple[int, int] | None:
+    """The thread kernel's compile-time (Rx, Rp) for these ranks (``inst_of``
+    in the source), or None: the warp kernel."""
+    if (rx, rp) == (4, 3):
+        return 4, 3
+    if max(rx, rp) <= 4:
+        return 4, 4
+    if max(rx, rp) <= MAX_THREAD_RANK:
+        return 8, 8
+    return None
 
-    def fits(bb, lb, kb):
-        return bb * per_item + lb * kb * per_hash <= SMEM_BUDGET
 
-    bb = min(64, -(-b // 32) * 32)
-    lb = max(1, min(num_tables, 1024 // bb))
-    while lb > 1 and not fits(bb, lb, k):
-        lb -= 1
-    if fits(bb, lb, k):
-        return bb, lb, k
-    for least in (min(k, 32), 1):
-        items = bb
-        while items > 1 and not fits(items, 1, least):
-            items //= 2
-        if fits(items, 1, least):
-            break
-    else:
-        return None
-    kb = min(k, (SMEM_BUDGET - items * per_item) // per_hash)
-    if kb >= 32:
-        kb -= kb % 32
-    return items, 1, kb
+def thread_smem(n_modes: int, d: int, inst: tuple[int, int], bi: int,
+                bh: int) -> int:
+    """Shared bytes of a thread-kernel block (``thread_smem`` in the
+    source): every mode row of its items and hashes in float4 units at slot
+    strides bi + 1 and bh + 1, or the block's values if larger."""
+    qx, qp = (-(-r // 4) for r in inst)
+    return max(n_modes * d * (qx * (bi + 1) + qp * (bh + 1)) * 16,
+               bi * bh * 4)
+
+
+def warp_smem(wb: int) -> int:
+    """Shared bytes of a warp-kernel block of ``wb`` warps."""
+    return (wb * WARP_CHUNK + wb) * 4
+
+
+@functools.lru_cache(maxsize=None)
+def plan(b: int, num_tables: int, k: int, rx: int, rp: int, n_modes: int,
+         d: int, sms: int) -> Plan:
+    """K3's launch for ``b`` items (B, N, d, Rx) and ``num_tables`` x ``k``
+    hashes (Rp) on a card of ``sms`` SMs: the thread kernel's block where
+    its instantiation stages one (``epilogues.thread_plan``), else the warp
+    kernel's (``epilogues.warp_plan``)."""
+    inst = instantiation(rx, rp)
+    if inst is not None:
+        p = thread_plan(b, num_tables * k, sms, THREAD_TILES[inst],
+                        MAX_THREADS,
+                        functools.partial(thread_smem, n_modes, d, inst))
+        if p is not None:
+            return p
+    return warp_plan(b, num_tables * k, sms, warp_smem)
+
+
+def occupancy(p: Plan, n_modes: int, d: int, rx: int, rp: int) -> dict:
+    """What the card makes of the kernel a plan runs: registers a thread,
+    resident blocks per SM and local (spilled) bytes a thread."""
+    import ctypes
+
+    from repro_torch.kernels import _build
+
+    out = (ctypes.c_int * 3)()
+    _build.check(_build.lib().cp_gram_occupancy(
+        n_modes, d, rx, rp, p.block_items, p.block_hashes,
+        ctypes.addressof(out)), "cp_gram_occupancy")
+    return dict(registers=out[0], blocks_per_sm=out[1], local_bytes=out[2])
 
 
 def cp_gram(x_factors: torch.Tensor, p_factors: torch.Tensor,
@@ -122,13 +155,11 @@ def cp_gram(x_factors: torch.Tensor, p_factors: torch.Tensor,
     if max(rx, rp) > MAX_RANK:
         raise ValueError(f"K3 takes ranks up to {MAX_RANK}; got Rx={rx}, "
                          f"Rp={rp}")
-    blocks = (block_items(n, d, rx, l, k, rp, b)
-              if max(rx, rp) <= MAX_THREAD_RANK else None)
-    bb, lb, kb = blocks or (0, 0, k)    # block_b 0: the warp kernel
+    lp = plan(b, l, k, rx, rp, n, d, sm_count(dev))
     shape, dtype = out_struct(b, l, k, epilogue)
-    # a table tiled over hashes adds its chunks' keys and words into zeros
-    out = (torch.zeros if kb < k else torch.empty)(shape, dtype=dtype,
-                                                   device=dev)
+    # hash blocks that cut a table add their keys and words into zeros
+    out = (torch.zeros if needs_zeros(lp, l, k, epilogue) else torch.empty)(
+        shape, dtype=dtype, device=dev)
     if b == 0:
         return out
     err = _build.lib().cp_gram_launch(
@@ -136,8 +167,8 @@ def cp_gram(x_factors: torch.Tensor, p_factors: torch.Tensor,
         offs.data_ptr() if offs is not None else None,
         mu.data_ptr() if mu is not None else None,
         out.data_ptr(), b, n, d, rx, l, k, rp, _EPILOGUE_CODE[epilogue],
-        float(w), float(scale), bb, lb, kb,
-        torch.cuda.current_stream(dev).cuda_stream)
+        float(w), float(scale), lp.block_items, lp.block_hashes, lp.threads,
+        lp.smem, torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "cp_gram_launch")
     cp_gram.launches += 1
     return out

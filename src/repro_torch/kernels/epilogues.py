@@ -19,9 +19,18 @@ search, cap-wide masked window gather, sort-dedup, order-key packing and the
 packed top-k). ``kernels.fused_query.fused_query_plain`` is built from these
 exactly as the reference's ``_fused_query_kernel`` composes them; the CUDA
 kernel K1 runs the same stages in shared memory.
+
+Between them, the launch planning K3 and K4 share (``csrc/epilogue.cuh``):
+``thread_plan`` / ``warp_plan`` pick a block from the launch's shape and the
+card's SM count (``sm_count``), and ``needs_zeros`` says when a plan's
+hash blocks split a table, so the keys and packed words combine atomically
+into a zeroed output.
 """
 
 from __future__ import annotations
+
+import functools
+from typing import Callable, NamedTuple
 
 import torch
 
@@ -101,6 +110,103 @@ def apply_epilogue(v: torch.Tensor, offs: torch.Tensor | None,
         u = codes.to(torch.int64) & U32_MASK
         return mul_u32(u, mults.reshape(-1).to(torch.int64)).sum(-1) & U32_MASK
     return pack_bits(codes)     # srp-packed
+
+
+# ---------------------------------------------------------------------------
+# Launch plans of the hash kernels K3 and K4 (csrc/epilogue.cuh)
+# ---------------------------------------------------------------------------
+
+
+MAX_SMEM = 232_448         # bytes of shared memory one H100 block may use
+SM_SMEM = 233_472          # bytes of shared memory of one H100 SM
+BLOCK_RESERVED = 1_024     # bytes the system reserves per resident block
+SMEM_GRANULE = 128         # allocation unit of a block's shared memory
+ITEM_LANES, HASH_LANES = 8, 4   # a K3 / K4 thread kernel's warp
+# (item warps, hash warps) of a thread-kernel block, largest first, and the
+# warps of a warp-kernel block (one hash each)
+WARP_SHAPES = ((1, 8), (2, 4), (1, 4), (2, 2), (1, 2), (2, 1), (1, 1))
+WARP_BLOCKS = (8, 4, 2, 1)
+
+
+class Plan(NamedTuple):
+    """A K3 / K4 launch: ``block_items`` items (0: the warp kernel) x
+    ``block_hashes`` flattened hashes a block, its threads and dynamic
+    shared bytes, the grid's blocks and the resident blocks per SM the plan
+    was sized for."""
+    block_items: int
+    block_hashes: int
+    threads: int
+    smem: int
+    blocks: int
+    target_blocks: int
+
+
+def resident(smem: int) -> int:
+    """Blocks of ``smem`` dynamic shared bytes one SM holds, at most 2."""
+    if smem > MAX_SMEM:
+        return 0
+    per = -(-smem // SMEM_GRANULE) * SMEM_GRANULE + BLOCK_RESERVED
+    return min(2, SM_SMEM // per)
+
+
+def thread_plan(b: int, lk: int, sms: int, tile: tuple[int, int],
+                max_threads: int, smem_of: Callable[[int, int], int]
+                ) -> Plan | None:
+    """The thread kernel's block for ``b`` items x ``lk`` hashes on ``sms``
+    SMs, with a (TI, TH) register tile: of ``WARP_SHAPES`` within
+    ``max_threads`` threads, one block a SM by shared memory, and no warp
+    row or column that every block leaves idle, the first (largest) whose
+    grid puts two resident blocks on each SM; else the one with the most
+    blocks. None if no shape fits: the warp kernel serves the launch."""
+    ti, th = tile
+    plans = []
+    for wi, wh in WARP_SHAPES:
+        bi, bh = ITEM_LANES * ti * wi, HASH_LANES * th * wh
+        idle = ((wi - 1) * ITEM_LANES * ti >= b
+                or (wh - 1) * HASH_LANES * th >= lk)
+        smem = smem_of(bi, bh)
+        target = resident(smem)
+        if 32 * wi * wh > max_threads or idle or target == 0:
+            continue
+        plans.append(Plan(bi, bh, 32 * wi * wh, smem,
+                          -(-b // bi) * -(-lk // bh), target))
+    for p in plans:
+        if p.target_blocks == 2 and p.blocks >= 2 * sms:
+            return p
+    return max(plans, key=lambda p: p.blocks, default=None)
+
+
+def warp_plan(b: int, lk: int, sms: int,
+              smem_of: Callable[[int], int]) -> Plan:
+    """The warp kernel's block (one item, WB hashes, a warp each): the
+    largest WB of ``WARP_BLOCKS`` not above ``lk`` whose grid puts two
+    resident blocks on each SM; else one warp a block."""
+    for wb in WARP_BLOCKS:
+        smem = smem_of(wb)
+        p = Plan(0, wb, 32 * wb, smem, b * -(-lk // wb), resident(smem))
+        if wb == 1 or (wb <= lk and p.target_blocks == 2
+                       and p.blocks >= 2 * sms):
+            return p
+
+
+def needs_zeros(plan: Plan, num_tables: int, k: int, epilogue: str) -> bool:
+    """Whether the *-keys and srp-packed epilogues add into a zeroed output
+    under ``plan``: a hash block begins or ends inside a table
+    (epilogue.cuh)."""
+    return (epilogue.endswith(("keys", "packed"))
+            and num_tables * k > plan.block_hashes
+            and plan.block_hashes % k != 0)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def sm_count(dev: torch.device) -> int:
+    """The SM count of CUDA device ``dev`` (asked once a device)."""
+    return _sm_count(dev.index if dev.index is not None
+                     else torch.cuda.current_device())
 
 
 # ---------------------------------------------------------------------------

@@ -61,11 +61,9 @@ import torch
 from repro_torch.core import probing
 from repro_torch.core import segments as _seg
 from repro_torch.kernels import epilogues as _epi
+from repro_torch.kernels.epilogues import (BLOCK_RESERVED, MAX_SMEM,
+                                           SM_SMEM, SMEM_GRANULE)
 
-MAX_SMEM = 232_448         # bytes of shared memory one H100 block may use
-SM_SMEM = 233_472          # bytes of shared memory of one H100 SM
-BLOCK_RESERVED = 1_024     # bytes the system reserves per resident block
-SMEM_GRANULE = 128         # allocation unit of a block's shared memory
 STATIC_SMEM = 32           # bytes of K1's static shared scalars, at most
 MAX_TT_RANK = 16           # largest TT rank K1's chains take
 TABLE_COLS = 12            # int64 words per segment in the K1 table

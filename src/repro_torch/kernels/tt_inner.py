@@ -14,25 +14,36 @@ plain version ``tt_inner_plain`` on CPU tensors; any other device raises.
 ``tt_inner.launches`` counts kernel launches, ``tt_inner_plain.calls``
 calls of the plain version.
 
-Ranks up to ``MAX_THREAD_RANK`` run one thread per (item, hash) with the
-chain state in registers, a table of more than ``MAX_THREADS`` hashes tiled
-over blocks (``block_shape``); ranks up to ``MAX_RANK``, and shapes whose
-cores do not fit the staging budget, run one warp per (item, table), the
-state in shared memory and nothing staged. Above ``MAX_RANK`` the wrapper
-raises.
+``plan`` picks the launch: ranks up to ``MAX_THREAD_RANK`` run the thread
+kernel (the chain state of a register tile of items x hashes a thread,
+tiles ``THREAD_TILES`` by padded rank, cores staged ``SLICES`` slices at a
+time) on blocks of items x flattened hashes sized from the launch's shape
+and the card's SM count; ranks up to ``MAX_RANK`` run the warp kernel (one
+warp per (item, hash), the state spread over its lanes). Above
+``MAX_RANK`` the wrapper raises. The C launch recomputes a plan's threads
+and shared bytes and refuses one that differs, so these copies of its
+shapes cannot drift.
 """
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
-from repro_torch.kernels.epilogues import EPILOGUES, apply_epilogue, out_struct
+from repro_torch.kernels.epilogues import (EPILOGUES, Plan, apply_epilogue,
+                                           needs_zeros, out_struct, sm_count,
+                                           thread_plan, warp_plan)
 
 _EPILOGUE_CODE = {name: i for i, name in enumerate(EPILOGUES)}
-SMEM_BUDGET = 96 * 1024   # bytes of shared memory a K4 block may take
-MAX_THREAD_RANK = 8       # largest Rx, Rp the per-thread register tiles hold
-MAX_RANK = 16             # largest Rx, Rp of the warp kernel
-MAX_THREADS = 512         # threads of a K4 block (MAX_THREADS in the source)
+MAX_THREAD_RANK = 8       # largest Rx, Rp of the thread kernel
+MAX_RANK = 16             # largest Rx, Rp of the warp kernel (RWARP)
+SLICES = 8                # slices of a mode a thread-kernel stage holds
+WARP_SLICES = 4           # slices of a mode a warp-kernel stage holds
+# the thread kernel's padded ranks: their register tiles (items, hashes a
+# thread) and largest blocks in threads (Tile<R> in the source)
+THREAD_TILES = {4: (2, 1), 8: (1, 1)}
+MAX_THREADS = {4: 256, 8: 128}
 
 
 def tt_inner_plain(x_cores: torch.Tensor, p_cores: torch.Tensor,
@@ -64,34 +75,55 @@ def tt_inner_plain(x_cores: torch.Tensor, p_cores: torch.Tensor,
 tt_inner_plain.calls = 0
 
 
-def block_shape(d: int, rx: int, rp: int, num_tables: int, k: int,
-                b: int) -> tuple[int, int, int] | None:
-    """(items, tables, hashes) per block of K4's thread kernel: one thread
-    per (item, hash), up to 32 items (never more than the batch holds) and
-    as many whole tables as fit ``MAX_THREADS`` threads and ``SMEM_BUDGET``
-    bytes of one mode's staged cores; a table of more than ``MAX_THREADS``
-    hashes runs one item and the table's hashes in chunks of as many as
-    fit (a multiple of 32, so packed words stay whole). None where not
-    even one item and one table (or 32 hashes of it) fit: the warp kernel
-    then serves the shape."""
-    kb = min(k, MAX_THREADS)
-    bb = max(1, min(32 if 32 * kb <= MAX_THREADS else MAX_THREADS // kb, b))
+def padded_rank(rx: int, rp: int) -> int | None:
+    """The thread kernel's padded rank for these ranks (``rank_of`` in the
+    source), or None: the warp kernel."""
+    r = max(rx, rp)
+    return 4 if r <= 4 else MAX_THREAD_RANK if r <= MAX_THREAD_RANK else None
 
-    def smem(bb, lb, kb):
-        stage = rx * d * rx * bb + lb * kb * rp * d * rp
-        return 4 * max(stage, bb * lb * kb)
 
-    lb = max(1, min(num_tables, MAX_THREADS // (bb * kb)))
-    while lb > 1 and smem(bb, lb, kb) > SMEM_BUDGET:
-        lb -= 1
-    while bb > 1 and smem(bb, lb, kb) > SMEM_BUDGET:
-        bb //= 2
-    while kb > 32 and smem(bb, lb, kb) > SMEM_BUDGET:
-        kb = (kb - 1) // 32 * 32   # lb is 1 here: the loops above end at 1
-                                   # or fitting
-    if smem(bb, lb, kb) > SMEM_BUDGET:
-        return None
-    return bb, lb, kb
+def thread_smem(r: int, d: int, bi: int, bh: int) -> int:
+    """Shared bytes of a thread-kernel block (``thread_smem`` in the
+    source): 128 bytes of mbarriers, then two stages of its items' and
+    hashes' core rows (r rows x min(d, SLICES) slices of r floats each),
+    or the block's values if larger."""
+    return 128 + max(2 * r * min(d, SLICES) * (bi + bh) * r * 4, bi * bh * 4)
+
+
+def warp_smem(wb: int) -> int:
+    """Shared bytes of a warp-kernel block of ``wb`` warps: two stages of
+    the item's and the hashes' slice chunks, each warp's S and T, the
+    block's values."""
+    r = MAX_RANK
+    return (2 * (1 + wb) * WARP_SLICES * r * r + wb * 2 * r * r + wb) * 4
+
+
+@functools.lru_cache(maxsize=None)
+def plan(b: int, num_tables: int, k: int, rx: int, rp: int, d: int,
+         sms: int) -> Plan:
+    """K4's launch for ``b`` items (B, N, Rx, d, Rx) and ``num_tables`` x
+    ``k`` hashes (Rp) on a card of ``sms`` SMs: the thread kernel's block
+    up to ``MAX_THREAD_RANK`` (``epilogues.thread_plan``; its slice chunks
+    fit any d), else the warp kernel's (``epilogues.warp_plan``)."""
+    r = padded_rank(rx, rp)
+    if r is None:
+        return warp_plan(b, num_tables * k, sms, warp_smem)
+    return thread_plan(b, num_tables * k, sms, THREAD_TILES[r],
+                       MAX_THREADS[r], functools.partial(thread_smem, r, d))
+
+
+def occupancy(p: Plan, d: int, rx: int, rp: int) -> dict:
+    """What the card makes of the kernel a plan runs: registers a thread,
+    resident blocks per SM and local (spilled) bytes a thread."""
+    import ctypes
+
+    from repro_torch.kernels import _build
+
+    out = (ctypes.c_int * 3)()
+    _build.check(_build.lib().tt_inner_occupancy(
+        d, rx, rp, p.block_items, p.block_hashes, ctypes.addressof(out)),
+        "tt_inner_occupancy")
+    return dict(registers=out[0], blocks_per_sm=out[1], local_bytes=out[2])
 
 
 def tt_inner(x_cores: torch.Tensor, p_cores: torch.Tensor,
@@ -127,13 +159,11 @@ def tt_inner(x_cores: torch.Tensor, p_cores: torch.Tensor,
     if max(rx, rp) > MAX_RANK:
         raise ValueError(f"K4 takes ranks up to {MAX_RANK}; got Rx={rx}, "
                          f"Rp={rp}")
-    blocks = (block_shape(d, rx, rp, l, k, max(b, 1))
-              if max(rx, rp) <= MAX_THREAD_RANK else None)
-    bb, lb, kb = blocks or (0, 0, k)    # block_b 0: the warp kernel
+    lp = plan(b, l, k, rx, rp, d, sm_count(dev))
     shape, dtype = out_struct(b, l, k, epilogue)
-    # a table tiled over hashes adds its chunks' keys and words into zeros
-    out = (torch.zeros if kb < k else torch.empty)(shape, dtype=dtype,
-                                                   device=dev)
+    # hash blocks that cut a table add their keys and words into zeros
+    out = (torch.zeros if needs_zeros(lp, l, k, epilogue) else torch.empty)(
+        shape, dtype=dtype, device=dev)
     if b == 0:
         return out
     err = _build.lib().tt_inner_launch(
@@ -141,8 +171,8 @@ def tt_inner(x_cores: torch.Tensor, p_cores: torch.Tensor,
         offs.data_ptr() if offs is not None else None,
         mu.data_ptr() if mu is not None else None,
         out.data_ptr(), b, n, d, rx, l, k, rp, _EPILOGUE_CODE[epilogue],
-        float(w), float(scale), bb, lb, kb,
-        torch.cuda.current_stream(dev).cuda_stream)
+        float(w), float(scale), lp.block_items, lp.block_hashes, lp.threads,
+        lp.smem, torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "tt_inner_launch")
     tt_inner.launches += 1
     return out

@@ -6,9 +6,10 @@ Run them on the card with
 
     PYTHONPATH=src python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py
 
-K3 (``cp_gram``) and K4 (``tt_inner``), also at the ranks of
+K3 (``cp_gram``) and K4 (``tt_inner``) at a 1,024-item query launch of the
+serving shapes, in every thread-kernel instantiation, at the ranks of
 benchmarks/kernels.py (32 and 16: the warp kernels) and at K = 2000 / 1024
-hashes in one table (tiled over blocks): raw values within
+hashes in one table (cut over hash blocks): raw values within
 ``parity.raw_bound`` / ``parity.tt_raw_bound``; codes, keys and packed
 words equal except where a value lies within that bound of a bucket edge
 (E2LSH) or of 0 (SRP). K1 (``fused_query``, CP and TT re-rank): on the same
@@ -67,6 +68,11 @@ def gen():
     ((64, 64, 64, 64), 64, 8, 8, 32, 32),  # benchmarks/kernels.py: rank 32
     ((6, 6, 6), 70, 2, 40, 12, 3),        # ranks above 8, two words
     ((8, 8, 8), 300, 1, 2000, 2, 2),      # collision.py: K tiled over blocks
+    ((12, 12, 12), 1024, 10, 10, 4, 3),   # a query batch's launch: <4, 3>
+    ((12, 12, 12), 200, 3, 5, 4, 4),      # <4, 4>, float4 rows both sides
+    ((5, 5, 5), 50, 3, 4, 6, 8),          # ranks above 4: <8, 8>
+    ((6, 6, 6), 33, 3, 7, 12, 5),         # the warp kernel, tables cut
+    ((512,) * 4, 24, 1, 8, 8, 8),         # rows no thread block stages: warp
 ])
 def test_cp_gram_matches_plain(gen, dims, b, l, k, rx, rp):
     x = _stack_cp_batch(cp_random_data(gen, dims, rx, batch=b))
@@ -146,6 +152,11 @@ def test_fused_query_matches_plain(gen, kind, metric, n, k, l, w):
     ((32, 32, 32, 32), 32, 4, 8, 16, 16),    # benchmarks/kernels.py: rank 16
     ((6, 6, 6), 40, 2, 5, 12, 3),            # ranks above 8, the warp kernel
     ((8, 8, 8), 300, 1, 1024, 2, 2),         # K > 512 tiled over blocks
+    ((16, 16, 16, 16), 1024, 10, 10, 4, 4),  # a query batch's launch
+    ((9,), 40, 2, 5, 2, 2),                  # N = 1: mode 0 only
+    ((5, 5), 40, 2, 5, 6, 8),                # R = 8 at N = 2
+    ((6, 6), 33, 3, 7, 12, 3),               # the warp kernel, N = 2, cut
+    ((64, 64, 64), 20, 2, 8, 8, 8),          # R = 8, slice chunks of 8
 ])
 def test_tt_inner_matches_plain(gen, dims, b, l, k, rx, rp):
     x = _stack_tt_batch(tt_random_data(gen, dims, rx, batch=b))

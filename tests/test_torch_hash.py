@@ -157,22 +157,52 @@ def test_hash_batch_aux_matches_reference(case):
     assert (ok | near).all()
 
 
-def test_k3_block_choice_fits_its_budget():
-    """K3's (items, tables, hashes) per block: 1024 threads at most and the
-    staged factors within its shared-memory budget; a table that does not
-    fit beside the items is tiled over its hashes (chunks of a multiple of
-    32 where 32 fit, fewer items where they do not), and a shape of which
-    one item and one hash exceed the budget goes to the warp kernel
-    (None)."""
-    from repro_torch.kernels.cp_gram import SMEM_BUDGET, block_items
-    assert block_items(3, 12, 4, 10, 10, 3, 1 << 20) == (64, 10, 10)
-    assert block_items(3, 12, 4, 10, 10, 3, 5) == (32, 10, 10)
-    bb, lb, kb = block_items(3, 12, 4, 40, 32, 3, 4096)
-    assert bb * lb <= 1024 and kb == 32
-    assert bb * 3 * 12 * 4 * 4 + lb * 32 * 3 * 12 * 3 * 4 <= SMEM_BUDGET
-    # benchmarks/collision.py: dims (8, 8, 8), rank 2, K = 2000 in one table
-    assert block_items(3, 8, 2, 1, 2000, 2, 4096) == (64, 1, 448)
-    bb, lb, kb = block_items(3, 64, 8, 2, 64, 8, 4096)
-    assert (bb, lb, kb) == (8, 1, 8)
-    assert bb * 3 * 64 * 8 * 4 + kb * 3 * 64 * 8 * 4 <= SMEM_BUDGET
-    assert block_items(4, 512, 8, 1, 8, 8, 64) is None
+SMS = 132   # an H100's SMs: the planner takes the count, it reads no card
+
+
+@pytest.mark.parametrize("shape,kernel", [
+    ((1024, 10, 10, 4, 3, 3, 12), "thread"),   # [main]'s query batch
+    ((65536, 10, 10, 4, 3, 3, 12), "thread"),  # [main]'s build launch
+    ((5, 10, 10, 4, 3, 3, 12), "thread"),      # a batch of 5
+    ((4096, 40, 32, 4, 3, 3, 12), "thread"),
+    ((4096, 1, 2000, 2, 2, 3, 8), "thread"),   # collision.py: a table cut
+    ((4096, 2, 64, 8, 8, 3, 64), "thread"),    # ranks above 4: <8, 8>
+    ((64, 8, 8, 32, 32, 4, 64), "warp"),       # benchmarks/kernels.py R=32
+    ((64, 1, 8, 8, 8, 4, 512), "warp"),        # rows no thread block stages
+])
+def test_k3_block_choice_fits_its_budget(shape, kernel):
+    """K3's launch plan: the thread kernel's blocks are whole warps of its
+    register tile within ``MAX_THREADS`` threads, the warp kernel's at most
+    8 warps; the shared bytes are the source's sum and fit a block (one
+    more a SM would not fit where the plan targets two); the grid covers
+    every (item, hash); a 1,024-item launch at the serving shape runs at
+    least two blocks a SM; ranks above 8 and rows the thread kernel cannot
+    stage take the warp kernel, and a table of more hashes than a block
+    holds is cut over blocks (its keys combine into zeros)."""
+    from repro_torch.kernels import cp_gram as k3
+    from repro_torch.kernels import epilogues as epi
+    b, l, k, rx, rp, n, d = shape
+    p = k3.plan(b, l, k, rx, rp, n, d, SMS)
+    assert (p.block_items > 0) == (kernel == "thread")
+    if kernel == "thread":
+        inst = k3.instantiation(rx, rp)
+        ti, th = k3.THREAD_TILES[inst]
+        assert p.block_items % (8 * ti) == 0 and p.block_hashes % (4 * th) == 0
+        assert p.threads == (p.block_items // (8 * ti)) * (
+            p.block_hashes // (4 * th)) * 32 <= k3.MAX_THREADS
+        assert p.smem == k3.thread_smem(n, d, inst, p.block_items,
+                                        p.block_hashes)
+        assert p.blocks == -(-b // p.block_items) * -(-l * k // p.block_hashes)
+    else:
+        assert p.threads == 32 * p.block_hashes <= 256
+        assert p.smem == k3.warp_smem(p.block_hashes)
+        assert p.blocks == b * -(-l * k // p.block_hashes)
+    assert 1 <= p.target_blocks <= epi.resident(p.smem)
+    assert p.smem <= epi.MAX_SMEM
+    if b >= 1024 and kernel == "thread":
+        assert p.blocks >= 2 * SMS and p.target_blocks == 2
+    cut = l * k > p.block_hashes and p.block_hashes % k != 0
+    assert epi.needs_zeros(p, l, k, "e2lsh-keys") == cut
+    assert not epi.needs_zeros(p, l, k, "raw")
+    if k == 2000:
+        assert cut

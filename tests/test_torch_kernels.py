@@ -38,10 +38,12 @@ from repro_torch import convert
 from repro_torch.core import lsh as tlsh
 from repro_torch.core.projections import CPProjection, TTProjection
 from repro_torch.kernels import ops, parity, ref
-from repro_torch.kernels.cp_gram import block_items, cp_gram_plain
+from repro_torch.kernels.cp_gram import cp_gram_plain
+from repro_torch.kernels.cp_gram import plan as k3_plan
 from repro_torch.kernels.e2lsh_quant import e2lsh_quant, e2lsh_quant_plain
 from repro_torch.kernels.srp_pack import srp_pack as k6, srp_pack_plain
-from repro_torch.kernels.tt_inner import block_shape, tt_inner_plain
+from repro_torch.kernels.tt_inner import plan as k4_plan
+from repro_torch.kernels.tt_inner import tt_inner_plain
 
 
 def _np(a):
@@ -263,7 +265,8 @@ def test_k3_plain_at_collision_shape():
     rng = np.random.default_rng(2000)
     x = rng.normal(size=(6, 3, 8, 2)).astype(np.float32)
     p = rng.normal(size=(3, 1, 2000, 8, 2)).astype(np.float32)
-    assert block_items(3, 8, 2, 1, 2000, 2, 6) == (32, 1, 480)
+    lp = k3_plan(6, 1, 2000, 2, 2, 3, 8, 132)   # the table cut over blocks
+    assert 0 < lp.block_items and lp.block_hashes < 2000
     got = cp_gram_plain(torch.from_numpy(x), torch.from_numpy(p))
     want = _np(jref.cp_inner_ref(jnp.asarray(x),
                                  jnp.asarray(p.reshape(3, 2000, 8, 2))))
@@ -283,8 +286,10 @@ def test_k4_plain_at_new_shapes(shape):
     rng = np.random.default_rng(sum(shape))
     x = rng.normal(size=(b, n, rx, d, rx)).astype(np.float32)
     p = rng.normal(size=(n, l, k, rp, d, rp)).astype(np.float32)
+    lp = k4_plan(b, l, k, rx, rp, d, 132)
+    assert (lp.block_items > 0) == (rx <= 8)   # else the warp kernel
     if rx <= 8:
-        assert block_shape(d, rx, rp, l, k, b) == (1, 1, 512)
+        assert lp.block_hashes < k                 # the table cut over blocks
     got = tt_inner_plain(torch.from_numpy(x), torch.from_numpy(p))
     want = _np(jref.tt_inner_ref(jnp.asarray(x), jnp.asarray(
         p.reshape(n, l * k, rp, d, rp)))).reshape(b, l, k)

@@ -35,7 +35,7 @@ from repro_torch.kernels import epilogues as tepi
 from repro_torch.kernels import parity
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels.ops import _stack_tt_batch, _stack_tt_proj
-from repro_torch.kernels.tt_inner import block_shape, tt_inner_plain
+from repro_torch.kernels.tt_inner import tt_inner_plain
 
 N_ITEMS = 29
 
@@ -192,20 +192,52 @@ def test_make_family_tt_kinds(kind):
             tlsh.make_family(gen, kind, (4, 5, 6))
 
 
-def test_k4_block_shape_fits_its_budget():
-    """K4's (items, tables, hashes) per block: at most 512 threads, one per
-    (item, hash), whole tables, and one mode's staged cores within its
-    shared-memory budget; a table of more than 512 hashes runs in chunks
-    of 512 (one item, one table), and a shape that cannot fit one table
-    goes to the warp kernel (None)."""
-    from repro_torch.kernels.tt_inner import MAX_THREADS, SMEM_BUDGET
-    assert block_shape(16, 4, 4, 10, 10, 1 << 20) == (32, 1, 10)
-    assert block_shape(4, 2, 2, 4, 3, 29) == (29, 4, 3)
-    bb, lb, kb = block_shape(4, 2, 2, 2, 40, 129)
-    assert bb * lb * 40 <= MAX_THREADS and kb == 40
-    bb, lb, kb = block_shape(32, 8, 8, 4, 6, 4096)       # 8 KiB per core
-    assert bb * lb * 6 <= MAX_THREADS and kb == 6
-    assert 4 * (8 * 32 * 8 * bb + lb * 6 * 8 * 32 * 8) <= SMEM_BUDGET
-    assert block_shape(8, 2, 2, 1, 1024, 4096) == (1, 1, 512)
-    assert block_shape(8, 2, 2, 1, 2000, 4096) == (1, 1, 512)
-    assert block_shape(256, 8, 8, 2, 16, 4096) is None
+SMS = 132   # an H100's SMs: the planner takes the count, it reads no card
+
+
+@pytest.mark.parametrize("shape,kernel", [
+    ((1024, 10, 10, 4, 4, 16), "thread"),    # [tt-main]'s query batch
+    ((65536, 10, 10, 4, 4, 16), "thread"),   # [tt-main]'s build launch
+    ((29, 4, 3, 2, 2, 4), "thread"),
+    ((129, 2, 40, 2, 2, 4), "thread"),
+    ((4096, 4, 6, 8, 8, 32), "thread"),      # R = 8, 8 KiB a core
+    ((4096, 1, 1024, 2, 2, 8), "thread"),    # K > 512: a table cut
+    ((4096, 1, 2000, 2, 2, 8), "thread"),
+    ((32, 4, 8, 16, 16, 32), "warp"),        # benchmarks/kernels.py R=16
+    ((4096, 2, 16, 12, 3, 8), "warp"),       # ranks above 8
+])
+def test_k4_block_shape_fits_its_budget(shape, kernel):
+    """K4's launch plan: the thread kernel's blocks are whole warps of its
+    register tile within its rank's thread limit, the warp kernel's at most
+    8 warps; the shared bytes are the source's sum and fit a block; the
+    grid covers every (item, hash); a 1,024-item launch at the serving shape
+    runs at least two blocks a SM; ranks above 8 take the warp kernel, and
+    a table of more hashes than a block holds is cut over blocks (its keys
+    combine into zeros)."""
+    from repro_torch.kernels import epilogues as epi
+    from repro_torch.kernels import tt_inner as k4
+    b, l, k, rx, rp, d = shape
+    p = k4.plan(b, l, k, rx, rp, d, SMS)
+    assert (p.block_items > 0) == (kernel == "thread")
+    if kernel == "thread":
+        r = k4.padded_rank(rx, rp)
+        ti, th = k4.THREAD_TILES[r]
+        assert p.block_items % (8 * ti) == 0 and p.block_hashes % (4 * th) == 0
+        assert p.threads == (p.block_items // (8 * ti)) * (
+            p.block_hashes // (4 * th)) * 32 <= k4.MAX_THREADS[r]
+        assert p.smem == k4.thread_smem(r, d, p.block_items, p.block_hashes)
+        assert p.blocks == -(-b // p.block_items) * -(-l * k // p.block_hashes)
+    else:
+        assert p.threads == 32 * p.block_hashes <= 256
+        assert p.smem == k4.warp_smem(p.block_hashes)
+        assert p.blocks == b * -(-l * k // p.block_hashes)
+    assert 1 <= p.target_blocks <= epi.resident(p.smem)
+    assert p.smem <= epi.MAX_SMEM
+    if b >= 1024 and kernel == "thread":
+        assert p.blocks >= 2 * SMS and p.target_blocks == 2
+    if kernel == "warp" and b * l * k >= 1024:
+        assert p.blocks >= 2 * SMS
+    cut = l * k > p.block_hashes and p.block_hashes % k != 0
+    assert epi.needs_zeros(p, l, k, "srp-packed") == cut
+    if k >= 1024:
+        assert cut
