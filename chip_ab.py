@@ -17,13 +17,19 @@ ids, scores and candidate counts of every path and run are compared bit for
 bit, and so are the hash kernel's raw values on the first query batch and
 on the first 65,536-item build chunk and its keys on that chunk; the
 medians of each tree's batch means and the range of its kernel times are
-printed. Needs a CUDA card.
+printed. Before the paths, each run times the tree's K6 (``ops.srp_pack``)
+at ``K6_SHAPES`` and one ``torch.amax`` over the first shape's values (the
+read yardstick: what a pure read stream reaches on this card), prints
+K6's registers from the tree's build log, and keeps K6's words at the
+first ``K6_KEEP`` shapes, compared bit for bit across runs like the rest.
+Needs a CUDA card.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -31,6 +37,48 @@ from pathlib import Path
 
 HERE = Path(__file__).resolve().parent
 KEEP = 32          # batches whose results are compared across runs
+# K6 (srp_pack) shapes timed in each run: the [kernels] shape, the L*K of
+# [main], a wide row, a narrow one; the words of the first K6_KEEP are kept
+K6_SHAPES = ((1 << 20, 128), (1 << 20, 100), (1 << 16, 2000), (1 << 20, 8))
+K6_KEEP = 2
+L2_BYTES = 50 << 20
+
+
+def k6_section(cs, arrays: dict) -> dict:
+    """The tree's K6 at ``K6_SHAPES`` and the read yardstick (CUDA events,
+    cycling inputs that together exceed the L2 cache) -> {shape: ms}, with
+    the yardstick under "read"; K6's words at the first shapes go into
+    ``arrays``."""
+    import torch
+    from repro_torch.kernels import _build, ops
+    _build.lib()
+    log = _build.BUILD_INFO.get("log", "")
+    part = log.split("== srp_pack.cu", 1)[-1].split("== ", 1)[0]
+    print("[build] K6 (srp_pack.cu): " + "; ".join(
+        re.findall(r"Used \d+ registers[^\n]*", part)))
+    gen = torch.Generator(device="cuda").manual_seed(19)
+    times = {}
+    for j, (b, k) in enumerate(K6_SHAPES):
+        n_in = max(2, -(-3 * L2_BYTES // (b * k * 4)))
+        vs = [torch.randn((b, k), generator=gen, device="cuda")
+              for _ in range(n_in)]
+        if j < K6_KEEP:
+            arrays[f"k6_{b}x{k}"] = ops.srp_pack(vs[0]).cpu().numpy()
+        ms = cs.cuda_ms([lambda v=v: ops.srp_pack(v) for v in vs], 20)
+        bound = (b * k * 4 + b * -(-k // 32) * 8) / cs.HBM_BYTES_PER_S * 1e3
+        print(f"[time] K6 ({b}, {k}): {ms:.4f} ms; byte bound {bound:.4f} ms,"
+              f" {100 * bound / ms:.1f}%")
+        times[f"{b}x{k}"] = ms
+        if j == 0:
+            read = cs.cuda_ms([lambda v=v: torch.amax(v) for v in vs], 20)
+            rb = b * k * 4 / cs.HBM_BYTES_PER_S * 1e3
+            print(f"[time] read yardstick: torch.amax over ({b}, {k}) fp32: "
+                  f"{read:.4f} ms; its byte bound (the values read once) "
+                  f"{rb:.4f} ms, {100 * rb / read:.1f}%")
+            times["read"] = read
+        del vs
+    torch.cuda.empty_cache()
+    return times
 
 
 def one(tree: str, out: str) -> None:
@@ -44,6 +92,7 @@ def one(tree: str, out: str) -> None:
     import repro_torch  # noqa: F401  (sets the float32 matmul flags)
     from repro_torch.serving.lsh_service import build_service
     res, arrays = {"tree": tree}, {}
+    res["k6"] = k6_section(cs, arrays)
 
     def keep(path, results):
         for i, name in enumerate(("ids", "scores", "ncand")):
@@ -132,7 +181,8 @@ def main(argv=None) -> int:
         (out / f"run{i}.log").write_text(proc.stdout + proc.stderr)
         line = [x for x in proc.stdout.splitlines() if x.startswith("AB ")]
         if proc.returncode != 0 or not line:
-            print(f"run {i} ({tree}) failed: see {out / f'run{i}.log'}")
+            print(f"run {i} ({tree}) failed: see {out / f'run{i}.log'}; its "
+                  f"end:\n{(proc.stdout + proc.stderr)[-3000:]}")
             return 1
         runs.append((tree, json.loads(line[0][3:]), np.load(npz)))
         print(f"run {i}: {line[0]}")
@@ -158,6 +208,9 @@ def main(argv=None) -> int:
                       f"; hash kernel ms: build launch {min(hk):.4f}-"
                       f"{max(hk):.4f}, query launch {min(hq):.4f}-"
                       f"{max(hq):.4f}" if hk else ""))
+        for shape in mine[0]["k6"]:
+            t = [r["k6"][shape] for r in mine]
+            print(f"[ab] {tree} K6 {shape}: ms {min(t):.4f}-{max(t):.4f}")
     return 0
 
 

@@ -74,9 +74,14 @@ Phases (any failure exits non-zero):
      the plain version and float64, fused keys bitwise against the tails
      composed on the kernel's raw values), the standalone K6 (``srp_pack``)
      and K7 (``e2lsh_quant``) bitwise against their plain versions at
-     benchmark and ragged shapes, ``hash_packed_batch`` against
+     benchmark and ragged shapes (K6 also at K = 4 to 4096, past its grid
+     and on views with a storage offset), ``hash_packed_batch`` against
      ``pack_bits(hash_batch)``, ``cp_inner_products`` /
-     ``tt_inner_products``; K6 and K7 timed over 2^20 rows;
+     ``tt_inner_products``; K6 and K7 timed over 2^20 rows (K6 also at
+     (2^20, 100) and (2^16, 2000), each with its plan: path, grid,
+     registers, blocks per SM, which must reach the plan's target, and
+     bytes in flight per SM), beside the read yardstick, one ``torch.amax``
+     over K6's (2^20, 128) values;
   8. [limits]: K3 at benchmarks/collision.py's K = 2000 in one table and K4
      at K = 1024 (both tiled over hashes), and a TT rank-16 index (2^14
      items of dims (8, 8, 8, 8)) through K4's warp kernel and K1-TT, each
@@ -1564,12 +1569,19 @@ def phase_tt_shard(cell) -> None:
 # [kernels]: the card twin of benchmarks/kernels.py (its K3 and K4 shapes,
 # K6 at (256, 256) and the ragged shapes of tests/test_kernels.py, K7 at two
 # widths), and the standalone kernels at serving scale: K6 over (2^20, 128)
-# values and K7 over (2^20, 100), the L*K of [main]
+# values and K7 over (2^20, 100), the L*K of [main]. K6 also at K in {4,
+# 100, 2000, 4096} (4096: rows cut into pieces), at a B no chunk's rows
+# divide, past the grid (the grid-stride loop wraps), on views with a
+# storage offset of 1-3 floats (the scalar path; ``k6_views``: B, K,
+# offset), and timed at ``k6_timed`` too
 KERNELS = dict(
     k3=dict(b=64, n=4, d=64, r=32, l=8, k=8, w=4.0),
     k4=dict(b=32, n=4, d=32, r=16, l=4, k=8),
     k6=[(256, 256), (1, 1), (3, 31), (5, 33), (7, 40), (8, 70), (13, 64),
-        (20, 5), (9, 96)],
+        (20, 5), (9, 96), (1000, 4), (3000, 100), (257, 2000), (33, 4096),
+        (70001, 100), (1 << 17, 128)],
+    k6_views=[(256, 128, 1), (129, 100, 2), (17, 2000, 3), (100003, 32, 2)],
+    k6_timed=[(1 << 20, 100), (1 << 16, 2000)],
     k7=[(256, 100, 4.0), (33, 129, 6.0), (7, 1, 6.0)],
     serve_rows=1 << 20, k6_cols=128, k7_cols=100)
 
@@ -1638,8 +1650,14 @@ def phase_kernels() -> list:
     p4 = randn(c4["n"], c4["l"], c4["k"], c4["r"], c4["d"], c4["r"])
     mults4 = ops.mults_tensor(make_mults(0, c4["k"]), "cuda")
     k6_in = [randn(b, k) for b, k in KERNELS["k6"]]
+    k6_in += [randn(b * k + off)[off:].view(b, k)
+              for b, k, off in KERNELS["k6_views"]]
     for v in k6_in:
         v[:, ::5] = 0.0
+        v[:, 1::7] = -0.0
+        v[:, 2::11] = float("nan")
+        v[:, 3::13] = float("inf")
+        v[:, 4::17] = -float("inf")
     k7_in = []
     for b, k, w in KERNELS["k7"]:
         offs = torch.rand(k, generator=gen, device="cuda") * w
@@ -1676,9 +1694,11 @@ def phase_kernels() -> list:
                       "B=64 N=4 d=64 R=32 L=8 K=8")
     err4 = bench_hash("tt", x4, p4, None, mults4, 0.0, raw4, keys4,
                       "B=32 N=4 d=32 R=16 L=4 K=8")
-    for (b, k), v, got in zip(KERNELS["k6"], k6_in, words):
+    for v, got in zip(k6_in, words):
         if not torch.equal(got, srp_pack_plain(v)):
-            fail(f"K6 ({b}, {k}): words differ from the plain version's")
+            fail(f"K6 {tuple(v.shape)} at storage offset "
+                 f"{v.storage_offset()}: words differ from the plain "
+                 "version's")
     for (v, o, w), got in zip(k7_in, codes):
         if not torch.equal(got, e2lsh_quant_plain(v, o, w)):
             fail(f"K7 {tuple(v.shape)} w={w}: codes differ from the plain "
@@ -1690,7 +1710,8 @@ def phase_kernels() -> list:
         want = projections.project_batch(p, x.index((None,)))[0]
         if not torch.allclose(got, want, rtol=2e-4, atol=2e-4):
             fail(f"{name} differs from the plain projection")
-    print(f"[kernels] K6 at {KERNELS['k6']} and K7 at "
+    print(f"[kernels] K6 at {KERNELS['k6']} and on views (B, K, offset) "
+          f"{KERNELS['k6_views']} (zeros, -0.0, NaN, +-inf), and K7 at "
           f"{[(b, k, w) for b, k, w in KERNELS['k7']]} (random values and "
           "values one ulp below a bucket edge) equal their plain versions "
           "bit for bit; hash_packed_batch (cp-srp K=40, 2 words) equals "
@@ -1710,16 +1731,22 @@ def phase_kernels() -> list:
     k7c = KERNELS["k7_cols"]
     v7 = [randn(rows, k7c) for _ in range(2)]
     o7 = torch.rand(k7c, generator=gen, device="cuda") * 2.0
-    t6 = (cuda_ms([lambda v=v: ops.srp_pack(v) for v in v6], 20),
-          cuda_ms([lambda: srp_pack_plain(v6[0])], 3),
-          *bound_ms(rows * KERNELS["k6_cols"] * 4
-                    + rows * -(-KERNELS["k6_cols"] // 32) * 8,
-                    rows * KERNELS["k6_cols"]))
+    t6 = k6_time(v6, True)
+    read = cuda_ms([lambda v=v: torch.amax(v) for v in v6], 20)
+    read_bound = bound_ms(v6[0].numel() * 4, 0)[0]
+    print(f"[time] read yardstick: torch.amax over {tuple(v6[0].shape)} fp32 "
+          f"(one read stream, no K6 function): {read:.4f} ms; its byte bound "
+          f"(the values read once) {read_bound:.4f} ms, "
+          f"{100 * read_bound / read:.1f}%")
     t7 = (cuda_ms([lambda v=v: ops.e2lsh_quantize(v, o7, 2.0) for v in v7],
                   20),
           cuda_ms([lambda: e2lsh_quant_plain(v7[0], o7, 2.0)], 3),
           *bound_ms(rows * k7c * 8 + k7c * 4, rows * k7c * 3))
     del v6, v7
+    for b, k in KERNELS["k6_timed"]:
+        v = [randn(b, k) for _ in range(2)]
+        k6_time(v, False)
+        del v
     n3 = c3["b"] * c3["l"] * c3["k"]
     t3 = (cuda_ms([lambda: cp_gram(x3, p3, offs3, mults3,
                                    epilogue="e2lsh-keys", w=c3["w"])], 20),
@@ -1738,7 +1765,6 @@ def phase_kernels() -> list:
                          + c4["b"] * c4["l"]),
                     n4 * tt_chain_flops(ranks, ranks, (c4["d"],) * c4["n"])))
     for name, t, what in (
-            ("K6", t6, f"({rows}, {KERNELS['k6_cols']}) values"),
             ("K7", t7, f"({rows}, {k7c}) values"),
             ("K3 e2lsh-keys", t3, "B=64 N=4 d=64 R=32 L=8 K=8 (warp kernel)"),
             ("K4 srp-keys", t4, "B=32 N=4 d=32 R=16 L=4 K=8 (warp kernel)")):
@@ -1750,6 +1776,47 @@ def phase_kernels() -> list:
                    "cp_gram", err3, t3),
             record("tt_inner[R=16]", *HASH_RECORDS["tt"][1:], counts,
                    "tt_inner", err4, t4)]
+
+
+def k6_plan(v, label: str) -> None:
+    """K6's launch plan for these values (``srp_pack.plan`` from the shape,
+    the card's SM count and the alignment) and what the card makes of it;
+    prints grid, threads, registers, blocks per SM, path and bytes in flight
+    per SM, and fails below the plan's target blocks per SM."""
+    from repro_torch.kernels.epilogues import sm_count
+    from repro_torch.kernels.srp_pack import occupancy, plan
+    sms = sm_count(v.device)
+    p = plan(*v.shape, sms, v.data_ptr() % 16 == 0)
+    occ = occupancy(p)
+    pieces = (f"rows cut into {p.pieces} pieces of {p.piece} units"
+              if p.pieces > 1 else f"{p.rows} rows a warp chunk, "
+              f"{p.block_rows} a block step")
+    print(f"[plan] K6 {label}: the {p.path} path, {p.threads} threads, grid "
+          f"{p.blocks} blocks on {sms} SMs, {pieces}, {p.chunks} chunks; "
+          f"{occ['registers']} registers a thread, {occ['local_bytes']} local "
+          f"bytes, {occ['blocks_per_sm']} blocks per SM (target "
+          f"{p.target_blocks}); {p.in_flight} bytes of loads in flight per "
+          "SM at the target")
+    if occ["blocks_per_sm"] < p.target_blocks:
+        fail(f"K6 {label}: {occ['blocks_per_sm']} blocks per SM, below the "
+             f"plan's {p.target_blocks}")
+
+
+def k6_time(vs, plain: bool) -> tuple:
+    """K6 over the (B, K) values ``vs`` (CUDA events, cycling them) beside
+    its byte bound, and its plain version's time if ``plain``; prints its
+    plan and a [time] line -> (ms, plain ms or None, bound ms, bound by)."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.srp_pack import srp_pack_plain
+    b, k = vs[0].shape
+    k6_plan(vs[0], f"({b}, {k})")
+    ms = cuda_ms([lambda v=v: ops.srp_pack(v) for v in vs], 20)
+    plain_ms = cuda_ms([lambda: srp_pack_plain(vs[0])], 3) if plain else None
+    bound, by = bound_ms(b * k * 4 + b * -(-k // 32) * 8, b * k)
+    print(f"[time] K6, ({b}, {k}) values: {ms:.4f} ms"
+          + (f" (plain {plain_ms:.4f} ms)" if plain else "")
+          + f"; bound {bound:.4f} ms by {by}, {100 * bound / ms:.1f}%")
+    return ms, plain_ms, bound, by
 
 
 # [ann-k8]: examples/ann_search.py's own K = 8 over [main]'s corpus and

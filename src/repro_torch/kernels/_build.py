@@ -56,8 +56,11 @@ SIGNATURES = {
     # tt, RQ, RC, shared bytes, out (registers, blocks per SM, local bytes,
     # target blocks per SM)
     "fused_query_occupancy": [_I, _I, _I, ctypes.c_size_t, _P],
-    # values, out, B, K, stream
-    "srp_pack_launch": [_P, _P, ctypes.c_longlong, _I, _P],
+    # values, out, B, K, the plan's threads, blocks, rows a chunk, pieces a
+    # row and path (1 vector, 0 scalar; checked), stream
+    "srp_pack_launch": [_P, _P, ctypes.c_longlong] + [_I] * 6 + [_P],
+    # path (1 vector, 0 scalar), out (registers, blocks per SM, local bytes)
+    "srp_pack_occupancy": [_I, _P],
     # values, offsets, out, B, K, w, stream
     "e2lsh_quant_launch": [_P, _P, _P, ctypes.c_longlong, _I, _F, _P],
 }

@@ -462,22 +462,89 @@ def test_fused_query_ties_break_by_effective_id(gen, layout):
             assert bool((sc[i, :k] == 0).all())
 
 
-def test_srp_pack_matches_plain(gen):
-    """K6 bit for bit against its plain version: benchmarks/kernels.py's
-    (256, 256), the ragged shapes of tests/test_kernels.py, a serving-scale
-    batch, exact and negative zeros."""
-    shapes = [(256, 256), (1, 1), (3, 31), (5, 33), (7, 40), (8, 70),
-              (13, 64), (20, 5), (9, 96), (1 << 16, 128)]
-    for b, k in shapes:
-        v = torch.randn((b, k), generator=gen, device="cuda")
-        v[:, ::5] = 0.0
-        v[:, 1::7] = -0.0
+def _k6_values(gen, b, k, offset=0, dtype=torch.float32):
+    """(b, k) N(0, 1) values with exact and negative zeros, NaN and +-inf
+    sprinkled in; ``offset`` floats into a buffer (a contiguous view whose
+    address is not 16-byte aligned where offset % 4 != 0)."""
+    buf = torch.randn(b * k + offset, generator=gen, device="cuda")
+    v = buf[offset:].view(b, k)
+    v[:, ::5] = 0.0
+    v[:, 1::7] = -0.0
+    v[:, 2::11] = float("nan")
+    v[:, 3::13] = float("inf")
+    v[:, 4::17] = -float("inf")
+    return v.to(dtype)
+
+
+# (B, K, storage offset in floats, dtype): benchmarks/kernels.py's
+# (256, 256), the ragged shapes of tests/test_kernels.py, K in {4, 100,
+# 2000, 4096} (4096: rows cut into pieces), B not a multiple of a chunk's
+# rows, B past the grid (the grid-stride loop wraps), views with a storage
+# offset (the scalar path at K % 4 == 0), float16
+K6_CASES = {
+    "ragged": [(256, 256), (1, 1), (3, 31), (5, 33), (7, 40), (8, 70),
+               (13, 64), (20, 5), (9, 96)],
+    "k": [(1000, 4), (3000, 100), (257, 2000), (33, 4096), (4099, 8)],
+    "rows": [(100003, 32), (70001, 100)],
+    "wraps": [(1 << 17, 128), (1 << 16, 2000), (4000, 4096)],
+    "offset": [(256, 128, 1), (129, 100, 2), (17, 2000, 3), (5, 4096, 1),
+               (100003, 32, 2)],
+    "float16": [(300, 100, 0, torch.float16), (77, 33, 0, torch.float16)],
+}
+
+
+@pytest.mark.parametrize("case", sorted(K6_CASES))
+def test_srp_pack_matches_plain(gen, case):
+    """K6 bit for bit against its plain version (exact and negative zeros,
+    NaN and +-inf included), one launch a call, on the path its plan
+    names; ``rows`` cases end on a partial chunk, ``wraps`` cases have more
+    chunks than the grid has warps."""
+    from repro_torch.kernels.epilogues import sm_count
+    from repro_torch.kernels.srp_pack import WARPS, plan
+    for b, k, *rest in K6_CASES[case]:
+        offset = rest[0] if rest else 0
+        dtype = rest[1] if len(rest) > 1 else torch.float32
+        v = _k6_values(gen, b, k, offset, dtype)
+        # the wrapper's float32 copy of a float16 input is a fresh, aligned
+        # allocation
+        aligned = dtype != torch.float32 or v.data_ptr() % 16 == 0
+        p = plan(b, k, sm_count(v.device), aligned)
+        if case == "offset":
+            assert p.path == "scalar"
+        if case == "rows":
+            assert p.rows > 1 and b % p.rows != 0
+        if case == "wraps":
+            assert p.chunks > p.blocks * WARPS
         launches = srp_pack.launches
         got = ops.srp_pack(v)
         want = srp_pack_plain(v)
         torch.cuda.synchronize()
         assert srp_pack.launches == launches + 1
-        assert got.shape == (b, -(-k // 32)) and torch.equal(got, want)
+        assert got.shape == (b, -(-k // 32)), (b, k, offset)
+        assert torch.equal(got, want), (b, k, offset, dtype, p)
+
+
+def test_srp_pack_launch_refuses_another_plan(gen):
+    """The C launch recomputes K6's plan from the shape, the card and the
+    pointer, and refuses one that differs (a float4 path on a misaligned
+    view, another grid) with cudaErrorInvalidConfiguration."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.epilogues import sm_count
+    from repro_torch.kernels.srp_pack import plan
+    v = _k6_values(gen, 4096, 128, offset=1)
+    out = torch.empty((4096, 4), dtype=torch.int64, device="cuda")
+    p = plan(4096, 128, sm_count(v.device), False)
+    stream = torch.cuda.current_stream().cuda_stream
+    for path, blocks in ((1, p.blocks), (0, p.blocks + 1)):
+        err = _build.lib().srp_pack_launch(
+            v.data_ptr(), out.data_ptr(), 4096, 128, p.threads, blocks,
+            p.rows, p.pieces, path, stream)
+        assert err == 9          # cudaErrorInvalidConfiguration
+    assert _build.lib().srp_pack_launch(
+        v.data_ptr(), out.data_ptr(), 4096, 128, p.threads, p.blocks, p.rows,
+        p.pieces, 0, stream) == 0
+    torch.cuda.synchronize()
+    assert torch.equal(out, srp_pack_plain(v))
 
 
 @pytest.mark.parametrize("w", [4.0, 6.0])

@@ -16,7 +16,9 @@ one power-of-two width, and K7 at w = 6, where the Pallas kernel multiplies
 by 1/w and the oracle divides (R4).
 """
 
+import importlib
 import os
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -44,6 +46,9 @@ from repro_torch.kernels.e2lsh_quant import e2lsh_quant, e2lsh_quant_plain
 from repro_torch.kernels.srp_pack import srp_pack as k6, srp_pack_plain
 from repro_torch.kernels.tt_inner import plan as k4_plan
 from repro_torch.kernels.tt_inner import tt_inner_plain
+
+# the module (``repro_torch.kernels`` exports its wrapper under the name)
+k6_mod = importlib.import_module("repro_torch.kernels.srp_pack")
 
 
 def _np(a):
@@ -130,6 +135,77 @@ def test_srp_pack_zero_bits():
     got = ops.srp_pack(v)
     assert got.tolist() == [[(1 << 3) | (1 << 4), 0]]
     assert ops.srp_pack(torch.zeros(8, 32)).eq(0).all()
+
+
+# K6's launch plan (the C launch recomputes it and refuses another, on the
+# card only; these pin the Python copy against the source's constants)
+K6_SHAPES = [(1 << 20, 128), (1 << 20, 100), (1 << 16, 2000), (1 << 20, 8),
+             (5, 4096), (4000, 4096), (3000, 100), (100003, 32), (1, 1),
+             (8, 70)]
+
+
+def _k6_source_constants():
+    src = (Path(__file__).resolve().parents[1] / "src" / "repro_torch"
+           / "kernels" / "csrc" / "srp_pack.cu").read_text()
+    return {name: int(v) for name, v in
+            re.findall(r"constexpr int (k\w+) = (\d+);", src)}
+
+
+@pytest.mark.parametrize("k,aligned,path", [
+    (128, True, "vector"), (100, True, "vector"), (4, True, "vector"),
+    (4096, True, "vector"), (101, True, "scalar"), (2, True, "scalar"),
+    (33, True, "scalar"), (128, False, "scalar"), (100, False, "scalar")])
+def test_k6_plan_path(k, aligned, path):
+    """float4 units only where K % 4 == 0 and the values are 16-byte
+    aligned; K % 4 != 0 or a view with a storage offset reads floats."""
+    assert k6_mod.plan(4096, k, 132, aligned).path == path
+
+
+@pytest.mark.parametrize("sms", [132, 114, 16])
+@pytest.mark.parametrize("b,k", K6_SHAPES)
+def test_k6_plan_grid(sms, b, k):
+    """At most MIN_BLOCKS blocks a SM, as many as the chunks fill, and the
+    chunks cover every row (or every piece of a cut row) once."""
+    for aligned in (True, False):
+        p = k6_mod.plan(b, k, sms, aligned)
+        assert p.blocks == min(k6_mod.MIN_BLOCKS * sms,
+                               -(-p.chunks // k6_mod.WARPS))
+        if p.chunks >= k6_mod.MIN_BLOCKS * sms * k6_mod.WARPS:
+            assert p.blocks == 2 * sms
+        v = 4 if p.path == "vector" else 1
+        units = k // v
+        if p.pieces == 1:
+            assert p.piece == units
+            assert (p.chunks - 1) * p.rows < b <= p.chunks * p.rows
+        else:
+            assert p.rows == 1 and p.chunks == b * p.pieces
+            assert p.piece % (32 // v) == 0      # pieces end on a word
+            assert (p.pieces - 1) * p.piece < units <= p.pieces * p.piece
+
+
+@pytest.mark.parametrize("b,k", K6_SHAPES)
+def test_k6_plan_matches_source(b, k):
+    """Threads, rows a chunk and a block step, and bytes in flight as the
+    source's constants make them."""
+    c = _k6_source_constants()
+    assert (c["kThreads"], c["kMinBlocks"], c["kChunkBytes"],
+            c["kStageWords"], c["kLaneBytes"]) == (
+        k6_mod.THREADS, k6_mod.MIN_BLOCKS, k6_mod.CHUNK_BYTES,
+        k6_mod.STAGE_WORDS, k6_mod.LANE_BYTES)
+    for aligned in (True, False):
+        p = k6_mod.plan(b, k, 132, aligned)
+        v = 4 if p.path == "vector" else 1
+        assert p.threads == c["kThreads"]
+        assert p.block_rows == p.rows * c["kThreads"] // 32
+        # a chunk of whole rows holds at most kChunkBytes of values (one
+        # row at least) and at most kStageWords words
+        assert p.rows * (k // v) * 4 * v <= max(c["kChunkBytes"], 4 * k)
+        assert p.rows * -(-k // 32) <= c["kStageWords"] or p.pieces > 1
+        assert p.in_flight == (c["kMinBlocks"] * c["kThreads"]
+                               * c["kLaneBytes"]) >= 24 * 1024
+    assert k6_mod.plan(1 << 20, 128, 132, True) == k6_mod.Plan(
+        "vector", 512, 264, 16, 1, 32, 65536, 2, 65536)
+    assert k6_mod.plan(1 << 20, 100, 132, True).rows == 20
 
 
 @pytest.mark.parametrize("k", [1, 5, 12, 31, 33, 127, 129, 200])
