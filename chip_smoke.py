@@ -64,12 +64,31 @@ Phases (any failure exits non-zero):
        - [tt-shard]: a tt-srp / cosine index at 2^16 over 3 shards (the last
          padded): answers equal the single-device index's, K1s-TT against
          its plain version;
-  6. [ann-k8]: examples/ann_search.py's own K = 8 (L = 10, exact cap about
+  6. the dense path ([main]'s 2^20 CP corpus and its 256 query batches
+     densified: 1,728 floats an item), K1's and K1s's dense re-rank
+     (``fused_query_kernel<kDense>``):
+       - [dense-main]: the naive e2lsh (a Gaussian (100, 1728) matrix,
+         K = L = 10, w = 2.0, exact cap) and [dense-cp]: cp-e2lsh rank 3
+         on the dense rows (its 100 projections materialized once), each
+         timed and checked like [main] (recall@1, self-queries, recall@10,
+         build, latency, peak memory, projection storage), K1-dense
+         against its plain version and its byte bound, the dense hash per
+         query batch, and a profile of [dense-main];
+       - untimed: srp / cosine over the dense corpus at 2^16; the naive
+         e2lsh over [main]'s CP corpus at 2^16 (densified to hash, K1
+         re-ranks in CP); [dense-mut]: [mut]'s script at 2^16 (bucket_cap
+         64, T = 4, inserts, deletes, ``compact()`` equal to a fresh
+         build) and [dense-shard-mut] the same over 4 shards (K1s-dense,
+         timed, ``rebalance()`` equal to a fresh sharded build);
+         [dense-big]: 4,096 items of (16, 16, 16, 16) (65,536-float rows
+         read in place), e2lsh and cp-e2lsh at rank 4 past
+         ``MATERIALIZE_LIMIT`` (the hash's per-mode chain);
+  7. [ann-k8]: examples/ann_search.py's own K = 8 (L = 10, exact cap about
      2950) over the CP cell's corpus and queries: L*cap past K1's shared
      window, so the launches carry the global scratch, which the queries
      whose window overflows the shared hash set use (counted); recall@1, K1
      against its plain version on 4 batches, its time;
-  7. [kernels], the card twin of benchmarks/kernels.py: K3 at B=64 N=4 d=64
+  8. [kernels], the card twin of benchmarks/kernels.py: K3 at B=64 N=4 d=64
      R=32 L=8 K=8 and K4 at B=32 N=4 d=32 R=16 L=4 K=8 (raw values against
      the plain version and float64, fused keys bitwise against the tails
      composed on the kernel's raw values), the standalone K6 (``srp_pack``)
@@ -82,7 +101,7 @@ Phases (any failure exits non-zero):
      registers, blocks per SM, which must reach the plan's target, and
      bytes in flight per SM), beside the read yardstick, one ``torch.amax``
      over K6's (2^20, 128) values;
-  8. [limits]: K3 at benchmarks/collision.py's K = 2000 in one table and K4
+  9. [limits]: K3 at benchmarks/collision.py's K = 2000 in one table and K4
      at K = 1024 (both tiled over hashes), and a TT rank-16 index (2^14
      items of dims (8, 8, 8, 8)) through K4's warp kernel and K1-TT, each
      against its plain version and timed.
@@ -425,9 +444,9 @@ def make_queries(corpus, qid, gen):
     factor or core entry."""
     import torch
     q = corpus.index(qid)
-    return type(q)(tuple(f + NOISE * torch.randn(f.shape, generator=gen,
+    return q.with_leaves(f + NOISE * torch.randn(f.shape, generator=gen,
                                                  device=f.device)
-                         for f in q.leaves), 1.0)
+                         for f in q.leaves)
 
 
 COUNTED = ("cp_gram", "tt_inner", "fused_query", "fused_query_sharded",
@@ -562,7 +581,7 @@ def phase_main(cell, corpus, qids, queries):
                         num_codes=cell["codes"], num_tables=cell["tables"],
                         rank=cell["rank"], bucket_width=cell["width"],
                         device="cuda")
-    build_launches = read_counts()[hash_kernel]
+    build_launches = read_counts()[hash_kernel] if hash_kernel else 0
     results, lat_ms = serve(svc, queries)
     summary = latency_line(tag, svc, lat_ms)
     # self-queries: an item queried as itself is in its own bucket of every
@@ -582,7 +601,8 @@ def phase_main(cell, corpus, qids, queries):
           f"{cell['tables'] * svc.index.cap}")
     print(f"[{tag}] launches on the main path: {counts} (build: "
           f"{hash_kernel} {build_launches})")
-    check_counts(counts, tag, (hash_kernel, "fused_query"))
+    check_counts(counts, tag, tuple(k for k in (hash_kernel, "fused_query")
+                                    if k))
     print(f"[{tag}] queries that used K1's global scratch: "
           f"{counts['fused_query:scratch']} of "
           f"{(len(queries) + 1) * len(qids[0]) + 256}")
@@ -615,10 +635,10 @@ def exact_scores(metric, queries, corpus, ids):
     """(B, topk) re-rank scores of ``ids`` in float64 (0 where -1)."""
     import torch
     valid = ids >= 0
-    q = type(queries)(tuple(t.double() for t in queries.leaves),
-                      queries.scale).index((slice(None), None))
+    q = queries.with_leaves(t.double() for t in queries.leaves).index(
+        (slice(None), None))
     sub = corpus.index(torch.where(valid, ids, 0).long())
-    y = type(sub)(tuple(t.double() for t in sub.leaves), sub.scale)
+    y = sub.with_leaves(t.double() for t in sub.leaves)
     qq, yy, qy = q.self_inners(), y.self_inners(), q.pair_inners(y)
     if metric == "euclidean":
         s = torch.sqrt(torch.clamp(qq + yy - 2.0 * qy, min=0.0))
@@ -673,7 +693,7 @@ def k1_compare(svc, queries, label, probes=1, corpus=None,
     ip, sp, np_ = plain(values, offs, mults, qs, **kw)
     torch.cuda.synchronize()
     took = branches["scratch"] - took
-    name += "-TT" if corpus.layout == "tt" else ""
+    name += {"tt": "-TT", "dense": "-dense"}.get(corpus.layout, "")
     if need_scratch and took == 0:
         fail(f"{name} {label}: no compared query took the global scratch, "
              "so it is not held against the plain version")
@@ -758,7 +778,10 @@ def tt_chain_flops(xranks, pranks, dims) -> int:
 
 def inner_flops(x, y) -> int:
     """fp32 operations of one in-format <X, Y> at true ranks: CP, per (r, q)
-    term the N d-long dots and the N-fold product; TT, the chain."""
+    term the N d-long dots and the N-fold product; TT, the chain; dense,
+    one prod(d)-long dot."""
+    if x.layout == "dense":
+        return 2 * x.row_floats
     if x.layout == "cp":
         return x.rank * y.rank * (2 * sum(x.dims) + len(x.dims))
     return tt_chain_flops(x.ranks, y.ranks, x.dims)
@@ -921,7 +944,7 @@ def k1_times(svc, queries, k1_args, name, corpus=None):
     # cuda_ms launched every batch 4 times (a warm-up pass, then 3)
     scratch = sum(after[f"{k}:scratch"] - before[f"{k}:scratch"]
                   for k in K1_WRAPPERS) / (4 * len(queries))
-    rq = qs[1].shape[-1]
+    rq = qs[0].kernel_shape(qs[1])[2]
     window, may_scratch, smem = fq.launch_plan(
         view.k1_table, rq, num_tables=kw["num_tables"],
         probes=kw["probes"], topk=kw["topk"],
@@ -2005,6 +2028,272 @@ def phase_limits() -> list:
                    "fused_query", k1_err, k1_t)]
 
 
+# [dense-main] / [dense-cp]: [main]'s 2^20 CP corpus and its 256 query
+# batches densified (1,728 floats an item); the naive e2lsh (a Gaussian
+# (100, 1728) matrix) and the paper's CP-E2LSH (rank 3, materialized:
+# 100 * 1728 * 3 <= 2^24) on the dense rows, w = 2.0 as [main] (their
+# projections have unit variance, as cp-e2lsh's on CP data). Untimed: srp /
+# cosine over the dense corpus at 2^16, e2lsh over [main]'s CP corpus at
+# 2^16 (densified to hash, K1 re-ranks in CP), [mut]'s script on a dense
+# 2^16 corpus (single-device and over 4 shards with rebalance) and 4,096
+# items of (16, 16, 16, 16) (65,536-float rows read in place; cp-e2lsh at
+# rank 4 past MATERIALIZE_LIMIT, the per-mode chain)
+DENSE = dict(
+    main=dict(tag="dense-main", kind="e2lsh", dims=(12, 12, 12), rhat=4,
+              codes=10, tables=10, rank=3, width=2.0, hash_kernel=None),
+    cp=dict(tag="dense-cp", kind="cp-e2lsh", dims=(12, 12, 12), rhat=4,
+            codes=10, tables=10, rank=3, width=2.0, hash_kernel=None),
+    small=1 << 16, every=17, srp=dict(codes=12, tables=4),
+    mut=dict(cap=64, probes=4, inserts=2, deletes=2048, shards=4),
+    big=dict(dims=(16, 16, 16, 16), n=4096, codes=10, tables=10, rank=4,
+             width=2.0, every=16),
+)
+
+
+def densify(x, chunk: int = 16384):
+    """A batched CP tensor -> its dense rows as a ``DenseTensor``, a chunk
+    of items at a time (float32 throughout)."""
+    import torch
+    from repro_torch.core.projections import densify_batch
+    from repro_torch.core.tensor_formats import DenseTensor
+    n = x.leaves[0].shape[0]
+    out = torch.empty((n,) + tuple(x.dims), device=x.device)
+    for s in range(0, n, chunk):
+        e = min(s + chunk, n)
+        out[s:e] = densify_batch(x.index(slice(s, e))).view(
+            (e - s,) + tuple(x.dims))
+    return DenseTensor(out, tuple(x.dims))
+
+
+def dense_noisy(corpus, qid, gen):
+    """Dense corpus rows ``qid`` plus NOISE / sqrt(prod d) Gaussian noise
+    an entry (a noise of norm about NOISE, as [main]'s queries carry)."""
+    import torch
+    q = corpus.index(qid)
+    noise = torch.randn(q.data.shape, generator=gen, device=q.device)
+    return q.with_leaves([q.data + NOISE / q.row_floats ** 0.5 * noise])
+
+
+def dense_storage(svc, tag) -> None:
+    from repro_torch.core.lsh import naive_storage_size
+    fam = svc.index.family
+    naive = naive_storage_size(fam.projection.dims, fam.num_codes,
+                               fam.num_tables)
+    print(f"[{tag}] projection storage {fam.storage_size()} scalars "
+          f"({fam.kind}); the naive method's {naive}")
+
+
+def phase_dense_cell(cell, corpus, qids, queries, profile: bool):
+    """One timed dense cell: ``phase_main`` (recall@1, self-queries,
+    recall@10, latency, peak memory), K1-dense against its plain version,
+    the dense hash per query batch and K1-dense per batch (CUDA events)
+    beside its byte bound -> the K1 record."""
+    svc, counts, summary, _ = phase_main(cell, corpus, qids, queries)
+    dense_storage(svc, cell["tag"])
+    fam = svc.index.family
+    qss = [q.stack()[1] for q in queries]
+    h_ms = cuda_ms([lambda x=x: fam.raw_stacked(x, 1.0) for x in qss],
+                   2 * len(qss))
+    print(f"[{cell['tag']}] the dense hash (fp32 matrix products over "
+          f"1,024-row chunks, TF32 off) per query batch: {h_ms:.4f} ms")
+    k1_err, k1_args = k1_compare(svc, queries[0],
+                                 f"{cell['tag']}, B={len(qids[0])}")
+    k1_t = k1_times(svc, queries, k1_args, f"K1-dense {cell['tag']}")
+    if profile:
+        phase_profile(svc, queries, cell["tag"] + "-profile")
+    del svc, k1_args
+    return record(f"fused_query[{cell['tag']}]", *K1_SOURCE, counts,
+                  "fused_query", k1_err, k1_t), summary
+
+
+def phase_dense_small(corpus, cp_corpus, gen) -> None:
+    """srp / cosine over the dense corpus at 2^16, and e2lsh over [main]'s
+    CP corpus at 2^16 (K1 re-ranks in CP): counters checked, K1 against its
+    plain version."""
+    from repro_torch.serving.lsh_service import build_service
+    import torch
+    n, every = DENSE["small"], DENSE["every"]
+    c = DENSE["srp"]
+    sub = corpus.index(slice(0, n))
+    zero_counts()
+    svc = build_service(gen, "srp", sub.dims, sub, metric="cosine",
+                        num_codes=c["codes"], num_tables=c["tables"],
+                        device="cuda")
+    q = dense_noisy(sub, torch.arange(0, n, every, device="cuda"), gen)
+    ids, _, nc = svc.query_arrays(q, topk=TOPK)
+    counts = read_counts()
+    print(f"[dense-srp] n={n} dense items, srp K={c['codes']} "
+          f"L={c['tables']}, cap {svc.index.cap}: {float(nc.mean()):.1f} "
+          f"candidates per query; launches {counts}")
+    check_counts(counts, "dense-srp", ("fused_query",))
+    k1_compare(svc, q, f"dense-srp / cosine, B={q.data.shape[0]}")
+    del svc
+    cell = DENSE["main"]
+    sub = cp_corpus.index(slice(0, n))
+    zero_counts()
+    svc = build_service(gen, "e2lsh", cell["dims"], sub,
+                        num_codes=cell["codes"], num_tables=cell["tables"],
+                        bucket_width=cell["width"], device="cuda")
+    q = make_queries(sub, torch.arange(0, n, every, device="cuda"), gen)
+    ids, _, nc = svc.query_arrays(q, topk=TOPK)
+    self_ids, _, _ = svc.query_arrays(sub.index(slice(0, 256)), topk=1)
+    counts = read_counts()
+    print(f"[e2lsh-cp] n={n} CP items under the naive e2lsh (densified to "
+          f"hash), cap {svc.index.cap}: {float(nc.mean()):.1f} candidates "
+          f"per query; self-queries first "
+          f"{(self_ids[:, 0] == list(range(256))).mean():.4f}; launches "
+          f"{counts}")
+    check_counts(counts, "e2lsh-cp", ("fused_query",))
+    if (self_ids[:, 0] != list(range(256))).any():
+        fail("e2lsh-cp: a self-query did not return itself first")
+    k1_compare(svc, q, f"e2lsh over CP rows, B={q.leaves[0].shape[0]}")
+
+
+def phase_dense_mut(corpus, gen) -> list:
+    """[mut]'s script on a dense 2^16 corpus (e2lsh, bucket_cap 64, T = 4,
+    two inserts of 1,024, 2,048 deletes: K1-dense's live-window,
+    multi-probe and segments branches), ``compact()`` against a fresh build
+    bit for bit; then the same over 4 shards (K1s-dense), timed,
+    ``rebalance()`` against a fresh sharded build -> the K1s record."""
+    import numpy as np
+    import torch
+    from repro_torch.serving.lsh_service import build_service
+    cell, m = DENSE["main"], DENSE["mut"]
+    n = DENSE["small"]
+    kw = dict(num_codes=cell["codes"], num_tables=cell["tables"],
+              bucket_width=cell["width"], bucket_cap=m["cap"],
+              probes=m["probes"], device="cuda")
+    base = corpus.index(slice(0, n))
+    adds = [corpus.index(slice(n + i * 1024, n + (i + 1) * 1024))
+            for i in range(m["inserts"])]
+    rng = np.random.default_rng(37)
+    q = dense_noisy(base, torch.randint(0, n, (1024,), generator=gen,
+                                        device="cuda"), gen)
+
+    def script(svc):
+        for a in adds:
+            svc.insert(a)
+        svc.delete(rng.choice(svc.index.size, m["deletes"], replace=False))
+        return svc
+
+    out = []
+    for shards in (None, m["shards"]):
+        tag = "dense-mut" if shards is None else "dense-shard-mut"
+        k1 = "fused_query" if shards is None else "fused_query_sharded"
+        zero_counts()
+        svc = script(build_service(
+            torch.Generator(device="cuda").manual_seed(1), cell["kind"],
+            cell["dims"], base, shards=shards, **kw))
+        got = svc.query_arrays(q, topk=TOPK)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        print(f"[{tag}] n={n} dense items + {m['inserts']} deltas of 1024, "
+              f"{m['deletes']} deleted, bucket_cap {m['cap']}, "
+              f"T={m['probes']}, shards {shards or 1}: "
+              f"{float(got[2].mean()):.1f} candidates per query; launches "
+              f"{counts}")
+        check_counts(counts, tag, (k1, f"{k1}:multiprobe",
+                                   f"{k1}:live_window", f"{k1}:segments"))
+        err, k1_args = k1_compare(svc, q, f"{tag}, cap {m['cap']}, "
+                                          f"T={m['probes']}",
+                                  probes=m["probes"])
+        if shards is not None:
+            k1_t = k1_times(svc, [q], k1_args, f"K1s-dense {tag}")
+            out.append(record(f"fused_query_sharded[{tag}]", *K1S_SOURCE,
+                              counts, "fused_query_sharded", err, k1_t))
+            svc.rebalance()
+        else:
+            svc.compact()
+        fresh = build_service(None, cell["kind"], cell["dims"],
+                              svc.index.effective_corpus(),
+                              family=svc.index.family, shards=shards, **kw)
+        same_answers(svc.query_arrays(q, topk=TOPK),
+                     fresh.query_arrays(q, topk=TOPK),
+                     f"{tag}: {'rebalanced' if shards else 'compacted'} vs "
+                     "a fresh build")
+        print(f"[{tag}] {'rebalance()' if shards else 'compact()'} answers "
+              "as a fresh build, bit for bit")
+        del svc, fresh
+    return out
+
+
+def phase_dense_big(gen) -> None:
+    """4,096 items of (16, 16, 16, 16) (65,536-float rows: K1 reads the
+    query in place too): e2lsh, and cp-e2lsh at rank 4 past
+    MATERIALIZE_LIMIT (the hash's per-mode chain); counters checked, K1
+    against its plain version, self-queries."""
+    import torch
+    from repro_torch.core import projections
+    from repro_torch.core.tensor_formats import DenseTensor
+    from repro_torch.serving.lsh_service import build_service
+    c = DENSE["big"]
+    d = 1
+    for x in c["dims"]:
+        d *= x
+    data = torch.randn((c["n"],) + c["dims"], generator=gen,
+                       device="cuda") / d ** 0.5
+    corpus = DenseTensor(data, c["dims"])
+    q = dense_noisy(corpus, torch.arange(0, c["n"], c["every"],
+                                         device="cuda"), gen)
+    for kind in ("e2lsh", "cp-e2lsh"):
+        zero_counts()
+        svc = build_service(gen, kind, c["dims"], corpus,
+                            num_codes=c["codes"], num_tables=c["tables"],
+                            rank=c["rank"], bucket_width=c["width"],
+                            device="cuda")
+        p = svc.index.family.projection
+        chain = kind != "e2lsh" and p.materialized is None
+        self_ids, _, _ = svc.query_arrays(corpus.index(slice(0, 64)), topk=1)
+        counts = read_counts()
+        how = (f" (the per-mode chain, past MATERIALIZE_LIMIT "
+               f"{projections.MATERIALIZE_LIMIT})" if chain else "")
+        print(f"[dense-big] {c['n']} items of {c['dims']}, {kind}{how}, "
+              f"cap {svc.index.cap}; launches {counts}")
+        if kind != "e2lsh" and not chain:
+            fail("dense-big: cp-e2lsh at rank 4 was materialized")
+        check_counts(counts, "dense-big", ("fused_query",))
+        if (self_ids[:, 0] != list(range(64))).any():
+            fail(f"dense-big {kind}: a self-query did not return itself")
+        k1_compare(svc, q, f"dense-big {kind}, {d}-float rows")
+        del svc
+
+
+def run_dense(args) -> list:
+    """The dense cells on [main]'s corpus and queries, densified ->
+    their kernel records."""
+    import torch
+    cell = CELLS["cp"]
+    n = 1 << args.log2_corpus
+    gen = torch.Generator(device="cuda").manual_seed(cell["seed"])
+    cp = hash_fns("cp")["data"](gen, cell["dims"], cell["rhat"], batch=n)
+    perm = torch.randperm(n, generator=gen, device="cuda")
+    qids = [perm[i * args.batch:(i + 1) * args.batch]
+            for i in range(args.batches)]
+    queries = [densify(make_queries(cp, q, gen)) for q in qids]
+    t0 = time.perf_counter()
+    corpus = densify(cp)
+    torch.cuda.synchronize()
+    print(f"[dense] [main]'s corpus densified: {n} x {corpus.row_floats} "
+          f"floats ({corpus.data.numel() * 4 / 2**30:.2f} GiB) in "
+          f"{time.perf_counter() - t0:.3f} s")
+    gen = torch.Generator(device="cuda").manual_seed(41)
+    phase_dense_small(corpus, cp, gen)
+    del cp
+    records = []
+    summaries = {}
+    for key, profile in (("main", True), ("cp", False)):
+        rec, summaries[key] = phase_dense_cell(DENSE[key], corpus, qids,
+                                               queries, profile)
+        records.append(rec)
+        torch.cuda.empty_cache()
+    records += phase_dense_mut(corpus, gen)
+    del corpus, queries
+    torch.cuda.empty_cache()
+    phase_dense_big(gen)
+    torch.cuda.empty_cache()
+    return records
+
+
 def record(name, source, replaces, counts, key, err, times):
     """One entry of the kernels line (``key`` a counter of read_counts;
     the plain calls are its kernel's)."""
@@ -2102,6 +2391,8 @@ def main(argv=None) -> int:
     name, count, smi = phase_device()
     phase_build()
     kernels = run_cell("cp", args.log2_corpus, args)
+    torch.cuda.empty_cache()
+    kernels += run_dense(args)
     torch.cuda.empty_cache()
     kernels += run_cell("tt", TT_LOG2_CORPUS, args)
     torch.cuda.empty_cache()

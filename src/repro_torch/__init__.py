@@ -1,9 +1,11 @@
 """PyTorch + CUDA port of the tensorized-LSH system (reference: ``repro``).
 
-The CP and TT serving paths: ``build_service`` -> CP hashing (kernel K3,
-``kernels/csrc/cp_gram.cu``) or TT hashing (kernel K4,
-``kernels/csrc/tt_inner.cu``) -> per-table sorted keys -> fused query with
-the in-format re-rank (kernel K1, ``kernels/csrc/fused_query.cu``), with
+The CP, TT and dense serving paths: ``build_service`` -> CP hashing
+(kernel K3, ``kernels/csrc/cp_gram.cu``), TT hashing (kernel K4,
+``kernels/csrc/tt_inner.cu``) or the dense hash (fp32 matrix products, the
+naive kinds and dense corpora) -> per-table sorted keys -> fused query with
+the re-rank in the corpus' format (kernel K1,
+``kernels/csrc/fused_query.cu``; CP, TT or dense rows), with
 streaming mutations, and with ``shards=S`` the sharded index on the same
 card (K1s: K1's kernel over every (shard, segment) pair). Entry points
 default to ``device="cuda"``; ``device="cpu"`` runs every kernel's plain

@@ -4,7 +4,9 @@ Every function takes numpy arrays (the caller does the ``np.asarray`` on the
 reference's JAX arrays; this package never imports JAX) and returns port
 objects on ``device``. The reference samples with ``jax.random`` and the
 port with ``torch.Generator``; the two never give the same numbers, so
-parity is held on carried-over parameters, not on seeds.
+parity is held on carried-over parameters, not on seeds. A dense corpus
+crosses as one (n, d_1, ..., d_N) array, a naive family as its
+(L*K, prod d) matrix (the reference's ``projection.matrix``).
 """
 
 from __future__ import annotations
@@ -15,10 +17,11 @@ import numpy as np
 import torch
 
 from repro_torch.core.lsh import ALL_KINDS, E2LSH_KINDS, LSHFamily
-from repro_torch.core.projections import CPProjection, TTProjection
+from repro_torch.core.projections import (CPProjection, DenseProjection,
+                                          TTProjection)
 from repro_torch.core.segments import (SegmentStore, ShardedSegment,
                                        TableSegment)
-from repro_torch.core.tensor_formats import CPTensor, TTTensor
+from repro_torch.core.tensor_formats import CPTensor, DenseTensor, TTTensor
 from repro_torch.device import resolve_device
 from repro_torch.kernels.ops import unstack_like
 
@@ -48,20 +51,39 @@ def tt_tensor_from_numpy(cores: Sequence[np.ndarray], scale: float,
     return TTTensor(tuple(_f32(c, dev) for c in cores), float(scale))
 
 
+def dense_tensor_from_numpy(a: np.ndarray, n_modes: int | None = None,
+                            device="cuda") -> DenseTensor:
+    """A dense (n, d_1, ..., d_N) array (its last ``n_modes`` axes the
+    modes, by default all but the first) -> DenseTensor."""
+    a = np.asarray(a)
+    n = a.ndim - 1 if n_modes is None else int(n_modes)
+    return DenseTensor(_f32(a, resolve_device(device)),
+                       tuple(a.shape[a.ndim - n:]))
+
+
 def family_from_numpy(kind: str, factors: Sequence[np.ndarray], scale: float,
                       offsets: np.ndarray | None, num_codes: int,
                       num_tables: int, bucket_width: float,
-                      device="cuda") -> LSHFamily:
+                      device="cuda", dims: Sequence[int] | None = None
+                      ) -> LSHFamily:
     """A reference family's projection leaves, scale and offsets ->
     ``LSHFamily``: CP factors (L*K, d_n, R) per mode for the cp-* kinds,
-    TT cores (L*K, r, d_n, r') per mode for the tt-* kinds."""
+    TT cores (L*K, r, d_n, r') per mode for the tt-* kinds, and for the
+    naive kinds 'e2lsh' / 'srp' the one (L*K, prod d) matrix, whose mode
+    ``dims`` must be given."""
     if kind not in ALL_KINDS:
-        raise NotImplementedError(
-            f"kind {kind!r}: the port carries the kinds {ALL_KINDS}")
+        raise ValueError(f"kind must be one of {ALL_KINDS}, got {kind!r}")
     dev = resolve_device(device)
     leaves = tuple(_f32(f, dev) for f in factors)
-    proj = (CPProjection(leaves, float(scale)) if kind.startswith("cp-")
-            else TTProjection(leaves, float(scale)))
+    if kind.startswith("cp-"):
+        proj = CPProjection(leaves, float(scale))
+    elif kind.startswith("tt-"):
+        proj = TTProjection(leaves, float(scale))
+    else:
+        if dims is None:
+            raise ValueError(f"a {kind!r} family needs its mode dims")
+        (matrix,) = leaves
+        proj = DenseProjection(matrix, tuple(dims), float(scale))
     offs = _f32(offsets, dev) if kind in E2LSH_KINDS else None
     return LSHFamily(projection=proj, offsets=offs, kind=kind,
                      num_codes=int(num_codes), num_tables=int(num_tables),
@@ -69,9 +91,15 @@ def family_from_numpy(kind: str, factors: Sequence[np.ndarray], scale: float,
 
 
 def _stacked_corpus(leaves, scale: float, dev, lead: int):
-    """Per-mode CP factors or TT cores with ``lead`` leading item dims ->
-    (corpus, stacked) keeping those dims; leaves with 4 dims past them are
-    TT cores."""
+    """Per-mode CP factors or TT cores, or one dense array, with ``lead``
+    leading item dims -> (corpus, stacked) keeping those dims; leaves with
+    4 dims past them are TT cores."""
+    if isinstance(leaves, np.ndarray):
+        shape = leaves.shape[:lead]
+        corpus, stacked = dense_tensor_from_numpy(
+            leaves.reshape((-1,) + leaves.shape[lead:]), device=dev).stack()
+        stacked = stacked.unflatten(0, shape)
+        return unstack_like(corpus, stacked), stacked
     shape = np.shape(leaves[0])[:lead]
     flat = [np.reshape(a, (-1,) + np.shape(a)[lead:]) for a in leaves]
     make = (tt_tensor_from_numpy if np.ndim(flat[0]) == 4
@@ -88,9 +116,9 @@ def segment_from_numpy(corpus_factors: Sequence[np.ndarray],
                        counts: Sequence[int] | None = None
                        ) -> TableSegment | ShardedSegment:
     """A reference ``TableSegment``'s arrays (corpus CP factors (m, d_n, R)
-    or TT cores (m, r, d_n, r') per mode, sorted_keys (L, m) uint32, perm
-    (L, m) int32, keys (m, L) uint32) -> port ``TableSegment``; 4-D leaves
-    are TT cores. With ``counts`` (real items per shard), a reference
+    or TT cores (m, r, d_n, r') per mode, or a dense (m, d_1, ..., d_N)
+    numpy array, sorted_keys (L, m) uint32, perm (L, m) int32, keys (m, L)
+    uint32) -> port ``TableSegment``; 4-D leaves are TT cores. With ``counts`` (real items per shard), a reference
     ``ShardedSegment``'s arrays (a leading shard dim S on every one: keys
     (S, n_s, L), sorted_keys / perm (S, L, n_s), corpus leaves
     (S, n_s, ...)) -> port ``ShardedSegment``."""

@@ -3,9 +3,11 @@ index, in PyTorch (reference: ``repro.core``)."""
 
 from repro_torch.core.index import (DeviceLSHIndex, ShardedLSHIndex,
                                     brute_force_batch, recall_at_k)
-from repro_torch.core.lsh import LSHFamily, make_family, make_mults
-from repro_torch.core.tensor_formats import (CPTensor, TTTensor,
-                                             cp_rademacher, cp_random_data,
+from repro_torch.core.lsh import (LSHFamily, make_family, make_mults,
+                                  naive_storage_size)
+from repro_torch.core.tensor_formats import (CPTensor, DenseTensor, TTTensor,
+                                             as_batch, cp_rademacher,
+                                             cp_random_data,
                                              cp_to_dense, tt_gaussian,
                                              tt_rademacher, tt_random_data,
                                              tt_to_dense)

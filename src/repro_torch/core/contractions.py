@@ -1,5 +1,13 @@
 """Inner products, norms and distances of dense / CP / TT tensors, in format.
 
+Costs, as in the reference (paper Remarks 1-6):
+
+  <CP, CP>     O(N d R^ R)      per-mode Grams
+  <TT, TT>     O(N d R^3)       the transfer-matrix chain
+  <dense, CP>  O(R d^N)         mode-by-mode contraction, rank axis kept
+  <dense, TT>  O(R^2 d^N)       cores swept left to right
+  <dense, dense> O(d^N)         the naive method's primitive
+
 The CP x CP and TT x TT inner products are the reference's
 (``repro.core.contractions``):
 
@@ -30,6 +38,34 @@ if TYPE_CHECKING:
 
 def inner_dense_dense(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     return torch.dot(x.reshape(-1), y.reshape(-1))
+
+
+def dense_pair_inners(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """<x, y> of flat rows (..., D) whose leading axes broadcast -> (...).
+    A (A, 1, D) x (1, C, D) pair (every query against every item) is one
+    matrix product; otherwise a batched dot, neither expanding the rows."""
+    if (x.dim() == y.dim() == 3 and x.shape[1] == 1 and y.shape[0] == 1):
+        return x[:, 0] @ y[0].T
+    return torch.einsum("...d,...d->...", x, y)
+
+
+def inner_dense_cp(x: torch.Tensor, y: CPTensor) -> torch.Tensor:
+    """<X, Y> for dense X (d_1, ..., d_N), CP Y: contract one mode at a
+    time, keeping the rank axis. O(R d^N); never forms the d^N projection
+    vector of the naive method."""
+    t = torch.tensordot(y.factors[0], x, dims=([0], [0]))  # (R, d2, ..., dN)
+    for f in y.factors[1:]:
+        t = torch.einsum("ri...,ir->r...", t, f)
+    return y.scale * t.sum()
+
+
+def inner_dense_tt(x: torch.Tensor, y: TTTensor) -> torch.Tensor:
+    """<X, Y> for dense X (d_1, ..., d_N), TT Y: sweep the cores left to
+    right. O(R^2 d^N)."""
+    t = torch.tensordot(y.cores[0][0], x, dims=([0], [0]))  # (r1, d2, ...)
+    for core in y.cores[1:]:
+        t = torch.einsum("ai...,air->r...", t, core)
+    return y.scale * t.reshape(())
 
 
 def gram_sum(xfactors, yfactors) -> torch.Tensor:
@@ -71,15 +107,30 @@ def inner_tt_tt(x: TTTensor, y: TTTensor) -> torch.Tensor:
     return (x.scale * y.scale) * tt_chain(x.cores, y.cores)
 
 
+def _dense_data(x):
+    """A dense operand's array (a plain tensor or a ``DenseTensor``), or
+    None for a CP or TT one."""
+    if isinstance(x, torch.Tensor):
+        return x
+    return x.data if x.layout == "dense" else None
+
+
 def inner(x, y) -> torch.Tensor:
-    """<x, y> for two CP, two TT or two dense tensors. The mixed pairs come
-    with the cross-format and dense items of ROADMAP.md."""
-    if isinstance(x, torch.Tensor) and isinstance(y, torch.Tensor):
-        return inner_dense_dense(x, y)
-    if type(x) is not type(y):
+    """<x, y> over {dense, CP, TT} x {dense, CP, TT}, CP x TT excepted: the
+    cross-format pairs are ROADMAP.md §1 item 5. A dense operand is a
+    plain tensor or a ``DenseTensor``."""
+    dx, dy = _dense_data(x), _dense_data(y)
+    if dx is not None and dy is not None:
+        return inner_dense_dense(dx, dy)
+    if dx is not None or dy is not None:
+        dense, other = (dx, y) if dx is not None else (dy, x)
+        if other.layout == "cp":
+            return inner_dense_cp(dense, other)
+        return inner_dense_tt(dense, other)
+    if x.layout != y.layout:
         raise NotImplementedError(
             f"inner of {type(x).__name__} and {type(y).__name__} is queued "
-            "in ROADMAP.md (cross-format pairs, dense corpora)")
+            "in ROADMAP.md §1 item 5 (cross-format pairs)")
     return x.pair_inners(y)
 
 

@@ -1,8 +1,12 @@
 """The device-resident (K, L) LSH indexes with streaming mutations
 (reference: ``repro.core.index``), on one device.
 
-``DeviceLSHIndex.build`` hashes a CP or TT corpus in batches through K3
-(CP) or K4 (TT) (``segments.bucket_keys``), sorts each table once and keeps
+A corpus, an insert batch or a query batch is a batched CP or TT tensor or
+a plain (B, d_1, ..., d_N) dense tensor (wrapped once, ``as_batch``; the
+effective corpus of a dense index comes back as a ``DenseTensor``, its
+``data`` the rows). ``DeviceLSHIndex.build`` hashes the corpus in batches
+(K3 for CP under CP, K4 for TT under TT, ``ops.dense_hash`` for the naive
+kinds and dense inputs: ``segments.bucket_keys``), sorts each table once and keeps
 a ``SegmentStore``: the immutable base segment, delta segments and a
 tombstone mask. ``insert`` hashes and sorts one delta segment, ``delete``
 tombstones items by effective id, and ``compact`` (``prepare_compact`` +
@@ -48,6 +52,7 @@ from repro_torch.core.lsh import LSHFamily, make_mults
 from repro_torch.core.probing import QUERY_MODES
 from repro_torch.core.segments import (SegmentStore, bucket_keys,
                                        build_segment, build_sharded_segment)
+from repro_torch.core.tensor_formats import as_batch
 from repro_torch.kernels.ops import mults_tensor, unstack_like
 
 
@@ -136,6 +141,7 @@ class _SegmentedIndex:
         """Hash ``corpus`` in batches of ``batch_size`` and sort the tables.
         Keys do not depend on the batch size; 65536 items per hash launch
         keep the card busy (the reference hashes 2048 at a time)."""
+        corpus = as_batch(corpus, len(self.family.projection.dims))
         self._check_batch(corpus)
         _sync(self.device)
         t0 = time.perf_counter()
@@ -155,6 +161,7 @@ class _SegmentedIndex:
         slab on the sharded index), served by the next query. New items
         take the next effective ids in batch order. More than
         ``max_deltas`` outstanding deltas compact automatically."""
+        batch = as_batch(batch, len(self.family.projection.dims))
         if batch.leaves[0].shape[0] == 0:
             return self
         self._check_batch(batch)
@@ -255,6 +262,7 @@ class _SegmentedIndex:
         every segment (every (shard, segment) pair), re-ranks and
         selects."""
         _check_mode(mode)
+        queries = as_batch(queries, len(self.family.projection.dims))
         return self._query(self.store.view, queries, topk, int(probes))
 
 
@@ -365,6 +373,7 @@ class ShardedLSHIndex(_SegmentedIndex):
         return self.store.shard_live_counts
 
     def build(self, corpus, batch_size: int = 65536) -> "ShardedLSHIndex":
+        corpus = as_batch(corpus, len(self.family.projection.dims))
         super().build(corpus, batch_size)
         self._corpus = corpus if self.keep_corpus else None
         return self
@@ -502,8 +511,11 @@ def _score_matrix(metric: str, queries, corpus,
 
 def brute_force_batch(metric: str, queries, corpus, topk: int = 10):
     """Exact top-k over the whole corpus -> (ids (B, topk) int64 numpy,
-    scores (B, topk) numpy); score ties resolve to the lower id."""
+    scores (B, topk) numpy); score ties resolve to the lower id. A dense
+    corpus and queries may come as plain tensors."""
     _check_metric(metric)
+    corpus = as_batch(corpus)
+    queries = as_batch(queries, len(corpus.dims))
     scores = _score_matrix(metric, queries, corpus)
     order = torch.argsort(scores if metric == "euclidean" else -scores,
                           dim=1, stable=True)[:, :topk]
@@ -515,6 +527,7 @@ def recall_at_k(index, queries, topk: int = 10,
                 probes: int = 1) -> dict[str, float]:
     """Mean recall@k of ``index.query_batch`` against brute force over the
     effective corpus."""
+    queries = as_batch(queries, len(index.family.projection.dims))
     truth, _ = brute_force_batch(index.metric, queries,
                                  index.effective_corpus(), topk)
     ids, _, n_cand = index.query_batch(queries, topk=topk, probes=probes)

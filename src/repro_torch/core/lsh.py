@@ -1,17 +1,27 @@
-"""The paper's tensorized LSH families (Definitions 10-13) in PyTorch.
+"""The paper's tensorized LSH families (Definitions 10-13) and the naive
+baselines, in PyTorch.
 
   CP-E2LSH (Def. 10):  g(X)  = floor((<P, X> + b) / w),  P ~ CP_Rad(R)
   TT-E2LSH (Def. 11):  g~(X) = floor((<T, X> + b) / w),  T ~ TT_Rad(R)
   CP-SRP   (Def. 12):  h(X)  = sign(<P, X>),             P ~ CP_Rad(R)
   TT-SRP   (Def. 13):  h~(X) = sign(<T, X>),             T ~ TT_Rad(R)
+  E2LSH    (Def. 3):   floor((<M, vec X> + b) / w),      M Gaussian
+  SRP      (Def. 2):   sign(<M, vec X>),                 M Gaussian
 
-A family carries K x L hash functions (K codes per table, L tables) and
-hashes inputs of its own format (CP inputs under a CP family, TT under TT).
+A family carries K x L hash functions (K codes per table, L tables).
 Hashing is batch-native: ``hash_batch`` maps a (B, ...) batch to (B, L, K)
 int32 codes, ``hash_keys`` to (B, L) bucket keys and, for the SRP kinds,
-``hash_packed_batch`` to (B, L, ceil(K/32)) packed signatures, all through
-``repro_torch.kernels.ops.fused_hash``: the K3 (CP) or K4 (TT) kernel when
-the inputs lie on the card, its plain version when they lie on the CPU.
+``hash_packed_batch`` to (B, L, ceil(K/32)) packed signatures. Two routes:
+
+  * CP inputs under a CP family, TT under TT: ``ops.fused_hash``, the K3
+    (CP) or K4 (TT) kernel when the inputs lie on the card, its plain
+    version when they lie on the CPU (the reference's ``fused_hash``);
+  * a dense projection (``e2lsh``, ``srp``) on inputs of any format, and a
+    CP or TT projection on dense inputs: ``ops.dense_hash``, the fp32
+    matrix products of ``projections.project_batch`` and the torch tails
+    (the reference's XLA path; it has no kernel for these pairs).
+
+CP inputs under a TT family and TT under CP are ROADMAP.md §1 item 5.
 There is no backend knob; the tensors' device decides.
 
 Bucket keys are uint32 values held in int64 tensors in [0, 2^32): the radix
@@ -23,22 +33,23 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import math
 from typing import Sequence
 
 import numpy as np
 import torch
 
 from repro_torch.core import projections as proj_lib
-from repro_torch.core.projections import CPProjection, TTProjection
+from repro_torch.core.projections import (CPProjection, DenseProjection,
+                                          TTProjection)
 from repro_torch.device import resolve_device
 # pack_bits: {0, 1} codes along the last axis -> uint32 words (the
 # reference's ``lsh.pack_bits``)
 from repro_torch.kernels.epilogues import U32_MASK, div_w, mul_u32, pack_bits
 
-E2LSH_KINDS = ("cp-e2lsh", "tt-e2lsh")
-SRP_KINDS = ("cp-srp", "tt-srp")
+E2LSH_KINDS = ("cp-e2lsh", "tt-e2lsh", "e2lsh")
+SRP_KINDS = ("cp-srp", "tt-srp", "srp")
 ALL_KINDS = E2LSH_KINDS + SRP_KINDS
-_QUEUED_KINDS = ("e2lsh", "srp")
 
 
 def e2lsh_discretize(values: torch.Tensor, b: torch.Tensor,
@@ -77,11 +88,11 @@ def make_mults(seed: int, num_codes: int) -> np.ndarray:
 
 @dataclasses.dataclass(frozen=True)
 class LSHFamily:
-    """A (K, L)-amplified CP or TT LSH family. ``projection`` holds K*L
-    stacked projection tensors; ``offsets`` (E2LSH only) the b ~ U[0, w)
-    per hash."""
+    """A (K, L)-amplified LSH family of one of the six kinds. ``projection``
+    holds K*L stacked projection tensors (or the naive kinds' (L*K, prod d)
+    matrix); ``offsets`` (E2LSH only) the b ~ U[0, w) per hash."""
 
-    projection: CPProjection | TTProjection
+    projection: CPProjection | TTProjection | DenseProjection
     offsets: torch.Tensor | None          # (L*K,) or None for SRP
     kind: str
     num_codes: int                        # K
@@ -94,8 +105,19 @@ class LSHFamily:
 
     @property
     def input_format(self) -> type:
-        """CPTensor or TTTensor: the inputs this family hashes."""
+        """CPTensor, TTTensor or DenseTensor: the format of the family's
+        projections (``check_inputs`` says which inputs it hashes)."""
         return self.projection.input_format
+
+    def uses_kernel(self, layout: str) -> bool:
+        """Whether inputs of ``layout`` hash through K3 / K4 (CP on CP, TT
+        on TT) rather than ``ops.dense_hash``."""
+        return layout == self.projection.layout != "dense"
+
+    def storage_size(self) -> int:
+        """Stored scalars of the projection parameters (paper Tables
+        1-2)."""
+        return self.projection.storage_size()
 
     def _discretize(self, values: torch.Tensor) -> torch.Tensor:
         """(B, L*K) raw values -> (B, L, K) int32 codes."""
@@ -112,38 +134,49 @@ class LSHFamily:
         return self.projection.stacked(self.num_tables)
 
     def check_inputs(self, xs) -> None:
-        """Raise unless ``xs`` is a batch of the family's format and mode
-        dims."""
-        if not isinstance(xs, self.input_format):
+        """Raise unless ``xs`` is a batch this family hashes (its own
+        format, any format under a dense projection, or dense inputs) of
+        its mode dims."""
+        p = self.projection
+        if xs.layout not in (p.layout, "dense") and p.layout != "dense":
             raise NotImplementedError(
                 f"a {self.kind} family hashes {self.input_format.__name__} "
-                f"inputs; {type(xs).__name__} under it is queued in "
-                "ROADMAP.md (cross-format pairs, dense corpora)")
-        if xs.dims != self.projection.dims:
+                f"and dense inputs; {type(xs).__name__} under it is queued "
+                "in ROADMAP.md §1 item 5 (cross-format pairs)")
+        if tuple(xs.dims) != tuple(p.dims):
             raise ValueError(f"inputs of dims {xs.dims} under a family of "
-                             f"dims {self.projection.dims}")
+                             f"dims {p.dims}")
 
     def stack(self, xs) -> torch.Tensor:
-        """A batch in the hash kernel's layout: (B, N, d, R) float32 for CP,
-        (B, N, R, d, R) for TT."""
+        """A batch in the kernels' layout: (B, N, d, R) float32 for CP,
+        (B, N, R, d, R) for TT, (B, prod d) dense."""
         self.check_inputs(xs)
         return xs.stack()[1]
 
     def _fused(self, xf: torch.Tensor, scale: float, epilogue: str,
                mults=None) -> torch.Tensor:
         from repro_torch.kernels import ops
+        layout = ops.stacked_layout(xf)
+        if not self.uses_kernel(layout):
+            values = proj_lib.project_batch(
+                self.projection,
+                ops.unstack_as(layout, xf, self.projection.dims, scale))
+            return ops.dense_hash(values, epilogue=epilogue, kind=self.kind,
+                                  num_tables=self.num_tables,
+                                  offsets=self.offsets, w=self.bucket_width,
+                                  mults=mults)
         return ops.fused_hash(xf, self.stacked_projection,
                               scale=scale * self.projection.scale,
                               epilogue=epilogue, kind=self.kind,
-                              layout=self.input_format.layout,
-                              offsets=self.offsets, w=self.bucket_width,
-                              mults=mults)
+                              layout=layout, offsets=self.offsets,
+                              w=self.bucket_width, mults=mults)
 
     def raw_stacked(self, xf: torch.Tensor, scale: float) -> torch.Tensor:
         """(B, L*K) raw <P_k, X> values of a stacked batch (``stack``) of
-        scale ``scale``, through the fused hash path (the K3 or K4 kernel's
-        ``raw`` epilogue on the card): the same arithmetic as the build
-        keys, so an item queried as itself lands in its own buckets."""
+        scale ``scale``, through the hash path (the K3 or K4 kernel's
+        ``raw`` epilogue on the card, or ``ops.dense_hash``'s products over
+        fixed row chunks): the same arithmetic as the build keys, so an item
+        queried as itself lands in its own buckets."""
         return self._fused(xf, scale, "raw").reshape(
             -1, self.num_tables * self.num_codes)
 
@@ -151,8 +184,12 @@ class LSHFamily:
         """(codes (B, L, K) int32, aux (B, L, K) float32): ``aux`` is the
         floor residual (v + b)/w - floor((v + b)/w) for E2LSH and the raw
         value v for SRP, evaluated on the plain projection path as in the
-        reference (the tests read code-boundary margins from it)."""
-        values = proj_lib.project_batch(self.projection, xs)
+        reference (the tests read code-boundary margins from it); on the
+        dense route that path is the hash path itself."""
+        if self.uses_kernel(xs.layout):
+            values = proj_lib.project_batch(self.projection, xs)
+        else:
+            values = self.raw_stacked(self.stack(xs), xs.scale)
         codes = self._discretize(values)
         if self.kind in E2LSH_KINDS:
             t = div_w(values + self.offsets, self.bucket_width)
@@ -184,21 +221,22 @@ class LSHFamily:
 def make_family(gen: torch.Generator, kind: str, dims: Sequence[int],
                 num_codes: int = 8, num_tables: int = 1, rank: int = 4,
                 bucket_width: float = 4.0, device="cuda") -> LSHFamily:
-    """Sample a CP or TT family ('cp-e2lsh' | 'cp-srp' | 'tt-e2lsh' |
-    'tt-srp') on the generator's device and place it on ``device``. The
-    dense kinds are queued."""
-    if kind in _QUEUED_KINDS:
-        raise NotImplementedError(
-            f"kind {kind!r} is queued in ROADMAP.md (dense corpora); the "
-            "port serves the CP and TT kinds")
+    """Sample a family of any of the six kinds ('cp-e2lsh' | 'cp-srp' |
+    'tt-e2lsh' | 'tt-srp' | 'e2lsh' | 'srp') on the generator's device and
+    place it on ``device``. The naive kinds draw a Gaussian (L*K, prod d)
+    matrix (Definitions 2-3; ``rank`` unused), the tensorized ones
+    Rademacher factors or cores (Definitions 6-7)."""
     if kind not in ALL_KINDS:
         raise ValueError(f"kind must be one of {ALL_KINDS}, got {kind!r}")
     dev = resolve_device(device)
     total = num_codes * num_tables
-    sample = (proj_lib.sample_cp_projection if kind.startswith("cp-")
-              else proj_lib.sample_tt_projection)
-    p = sample(gen, total, dims, rank)
-    p = type(p)(tuple(t.to(dev) for t in p.leaves), p.scale)
+    if kind.startswith("cp-"):
+        p = proj_lib.sample_cp_projection(gen, total, dims, rank)
+    elif kind.startswith("tt-"):
+        p = proj_lib.sample_tt_projection(gen, total, dims, rank)
+    else:
+        p = proj_lib.sample_dense_projection(gen, total, dims)
+    p = p.with_leaves(t.to(dev) for t in p.leaves)
     offsets = None
     if kind in E2LSH_KINDS:
         offsets = (torch.rand(total, generator=gen, device=gen.device)
@@ -206,3 +244,9 @@ def make_family(gen: torch.Generator, kind: str, dims: Sequence[int],
     return LSHFamily(projection=p, offsets=offsets, kind=kind,
                      num_codes=num_codes, num_tables=num_tables,
                      bucket_width=float(bucket_width))
+
+
+def naive_storage_size(dims: Sequence[int], num_codes: int,
+                       num_tables: int) -> int:
+    """O(K d^N) scalars the naive method stores (paper Tables 1-2)."""
+    return num_codes * num_tables * int(math.prod(dims))

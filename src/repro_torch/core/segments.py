@@ -255,7 +255,7 @@ class ShardedSegment:
     def flat_corpus(self):
         """The corpus with its (S, n_s) slots flattened, in slot order."""
         c = self.corpus
-        return type(c)(tuple(a.flatten(0, 1) for a in c.leaves), c.scale)
+        return c.with_leaves(a.flatten(0, 1) for a in c.leaves)
 
 
 def build_sharded_segment(keys: torch.Tensor, corpus, shards: int, *,
@@ -540,15 +540,15 @@ def _flat(seg):
 
 
 def _cat_corpus(corpora):
-    """Batched CP or TT tensors of one format, rank and scale -> one."""
+    """Batched tensors of one format, rank and scale -> one."""
     first = corpora[0]
     if len(corpora) == 1:
         return first
     if any(c.scale != first.scale for c in corpora):
         raise ValueError("segments of one store hold corpora of different "
                          "scales; they cannot be folded into one")
-    return type(first)(tuple(torch.cat(ls) for ls in
-                             zip(*(c.leaves for c in corpora))), first.scale)
+    return first.with_leaves(torch.cat(ls) for ls in
+                             zip(*(c.leaves for c in corpora)))
 
 
 class SegmentStore:

@@ -1,4 +1,4 @@
-"""CP and TT tensor formats (paper §3.3, Definitions 4-7) in PyTorch.
+"""Dense, CP and TT tensor formats (paper §3.3, Definitions 4-7) in PyTorch.
 
 A tensor X in R^{d_1 x ... x d_N} in CP format is
 
@@ -11,15 +11,21 @@ with factor matrices A^(n) in R^{d_n x R}; in TT format it is
 
 with cores G_n in R^{r_{n-1} x d_n x r_n}, r_0 = r_N = 1. A *batch* keeps a
 leading batch axis on every factor or core: (B, d_n, R) or (B, r_{n-1}, d_n,
-r_n) per mode, the layout of the reference package's batched pytrees.
+r_n) per mode, the layout of the reference package's batched pytrees. A
+dense batch is a plain (B, d_1, ..., d_N) float32 tensor, as the reference
+takes it; ``as_batch`` wraps it once, at the entry points, in a
+``DenseTensor`` (scale 1), so that the segments, the index and the kernels'
+wrappers treat the three formats alike.
 
 Each format class is the one place that knows its format: ``layout`` (the
 name the kernels' wrappers key on), ``row_floats`` (one item's floats at its
 true ranks), ``stack`` (the kernels' layout, ``repro_torch.kernels.ops``),
 ``pair_inners`` / ``self_inners`` (the in-format inner products of
 ``repro_torch.core.contractions``), ``inner_length`` (the longest fp32 sum
-of one inner product, for the rounding bounds) and ``abs``. Callers use these
-and do not test the type.
+of one inner product, for the rounding bounds), ``abs``, ``with_leaves``
+(the same format over other leaves) and ``kernel_shape`` (the (N, d, R)
+that K1 reads off the stacked layout). Callers use these and do not test
+the type.
 
 Sampling takes an explicit ``torch.Generator`` where the reference takes a
 ``jax.random`` key; the two give different numbers from one seed, so tests
@@ -92,11 +98,19 @@ class CPTensor:
         return (max(self.dims) + len(self.factors)
                 + max(self.rank, rank) ** 2)
 
+    def with_leaves(self, leaves) -> "CPTensor":
+        return CPTensor(tuple(leaves), self.scale)
+
     def stack(self) -> tuple["CPTensor", torch.Tensor]:
         """-> (this batch with factors that view ``stacked``, stacked (B, N,
         d, R) float32): the kernels' layout (``ops.stack_cp``)."""
         from repro_torch.kernels.ops import stack_cp
         return stack_cp(self)
+
+    @staticmethod
+    def kernel_shape(stacked: torch.Tensor) -> tuple[int, int, int]:
+        """(N, d, R) of a stacked (..., N, d, R) batch."""
+        return stacked.shape[-3], stacked.shape[-2], stacked.shape[-1]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -162,12 +176,104 @@ class TTTensor:
         r = max(self.rank, rank)
         return len(self.cores) * (r + max(self.dims) * r) + 2
 
+    def with_leaves(self, leaves) -> "TTTensor":
+        return TTTensor(tuple(leaves), self.scale)
+
     def stack(self) -> tuple["TTTensor", torch.Tensor]:
         """-> (this batch with cores that view ``stacked`` at their true
         ranks, stacked (B, N, R, d, R) float32): the kernels' layout
         (``ops.stack_tt``)."""
         from repro_torch.kernels.ops import stack_tt
         return stack_tt(self)
+
+    @staticmethod
+    def kernel_shape(stacked: torch.Tensor) -> tuple[int, int, int]:
+        """(N, d, R) of a stacked (..., N, R, d, R) batch."""
+        return stacked.shape[-4], stacked.shape[-2], stacked.shape[-1]
+
+
+@dataclasses.dataclass(frozen=True)
+class DenseTensor:
+    """A dense tensor, or a batch of them, in R^{d_1 x ... x d_N}: ``data``
+    (..., d_1, ..., d_N) with the ``dims`` last. The reference passes such
+    arrays as they are; the port wraps them once (``as_batch``) so that
+    they answer the format methods the CP and TT classes answer. Scale 1,
+    rank 1; the kernels' layout is the flat (B, prod d) float32 row."""
+
+    data: torch.Tensor
+    dims: tuple[int, ...]
+
+    scale = 1.0
+    rank = 1
+    layout = "dense"
+
+    @property
+    def device(self) -> torch.device:
+        return self.data.device
+
+    @property
+    def leaves(self) -> tuple[torch.Tensor, ...]:
+        return (self.data,)
+
+    @property
+    def row_floats(self) -> int:
+        """Floats of one item: prod_n d_n."""
+        return math.prod(self.dims)
+
+    @property
+    def flat(self) -> torch.Tensor:
+        """``data`` with the mode dims flattened: (..., prod d)."""
+        return self.data.reshape(self.data.shape[:self.data.dim()
+                                                 - len(self.dims)] + (-1,))
+
+    def index(self, idx) -> "DenseTensor":
+        """Select along the leading batch axes."""
+        return DenseTensor(self.data[idx], self.dims)
+
+    def to(self, device) -> "DenseTensor":
+        return DenseTensor(self.data.to(device), self.dims)
+
+    def with_leaves(self, leaves) -> "DenseTensor":
+        (data,) = tuple(leaves)
+        return DenseTensor(data, self.dims)
+
+    def abs(self) -> "DenseTensor":
+        return DenseTensor(self.data.abs(), self.dims)
+
+    def pair_inners(self, other: "DenseTensor") -> torch.Tensor:
+        """<X, Y> over leading batch axes that broadcast."""
+        return contractions.dense_pair_inners(self.flat, other.flat)
+
+    def self_inners(self) -> torch.Tensor:
+        return self.pair_inners(self)
+
+    def inner_length(self, rank: int) -> int:
+        """The longest fp32 sum in one inner product: prod d."""
+        return self.row_floats
+
+    def stack(self) -> tuple["DenseTensor", torch.Tensor]:
+        """-> (this batch as a view of ``stacked``, stacked (B, prod d)
+        float32 contiguous): K1's layout. No copy when ``data`` is already
+        contiguous float32."""
+        stacked = self.flat.float().contiguous()
+        return DenseTensor(stacked.view(self.data.shape), self.dims), stacked
+
+    @staticmethod
+    def kernel_shape(stacked: torch.Tensor) -> tuple[int, int, int]:
+        """(N, d, R) = (1, prod d, 1) of a stacked (..., prod d) batch:
+        K1 reads a dense row as one mode of rank 1."""
+        return 1, stacked.shape[-1], 1
+
+
+def as_batch(x, n_modes: int | None = None):
+    """A plain (B, d_1, ..., d_N) tensor -> ``DenseTensor`` (its mode dims
+    all but the first, or the last ``n_modes``); a CP, TT or dense format
+    object is returned as it is. The port's entry points call it once on
+    what the caller passes."""
+    if not isinstance(x, torch.Tensor):
+        return x
+    n = x.dim() - 1 if n_modes is None else int(n_modes)
+    return DenseTensor(x, tuple(x.shape[x.dim() - n:]))
 
 
 def _shape(batch: int | None, *shape: int) -> tuple[int, ...]:

@@ -2,8 +2,8 @@
 
   cp_gram.py      K3: fused CP x CP hashing (csrc/cp_gram.cu)
   tt_inner.py     K4: fused TT x TT hashing, the chain (csrc/tt_inner.cu)
-  fused_query.py  K1: discretize -> probe -> dedup -> CP or TT re-rank ->
-                  top-k (csrc/fused_query.cu); K1s: the same kernel over
+  fused_query.py  K1: discretize -> probe -> dedup -> CP, TT or dense
+                  re-rank -> top-k (csrc/fused_query.cu); K1s: the same kernel over
                   every (shard, segment) pair of a sharded store
   srp_pack.py     K6: standalone SRP sign bits packed into uint32 words
                   (csrc/srp_pack.cu)

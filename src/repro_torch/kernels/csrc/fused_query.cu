@@ -5,8 +5,9 @@
 // (the pl.pallas_call in fused_query), with its multi-probe expansion
 // (_expand_probe_keys), the probe helpers of repro/kernels/epilogues.py
 // (dense and live windows) and the re-rank of
-// repro/core/segments.py::hoisted_scores, for CP and TT corpora (the
-// template argument TR, the TT rank bound or 0 for CP, picks the format).
+// repro/core/segments.py::hoisted_scores, for CP, TT and dense corpora (the
+// template argument TR picks the format: 0 CP, kDense = 1 dense rows, else
+// the TT rank bound 4, 8 or 16).
 // It also serves K1s, repro/kernels/fused_query.py::fused_query_sharded (the
 // same pl.pallas_call over every (shard, segment) pair of a sharded store):
 // the wrapper's segment table then holds one row per pair, shard-major,
@@ -15,7 +16,7 @@
 // live[m] is 0, so a probe that lands on one, even through a pad-key
 // collision, is a miss like a tombstone; effective ids are unique across
 // shards, so the top-k over the rows is the reference's S-way merge. One
-// block serves one query (12 warps for CP, 8 for TT: Shape below):
+// block serves one query (12 warps for CP, 8 for TT and dense: Shape below):
 //
 //   1. keys, one warp per table: discretize the table's K raw values
 //      (floor((v + b) / w) or v > 0) and radix-combine them into the base
@@ -44,8 +45,8 @@
 //      are per segment, so dedup is per segment and the candidate count is
 //      the sum over segments;
 //   4. exact re-rank in format, warp w taking list entries w, w + warps,
-//      ...: qy and yy from the candidate's CP factor rows or TT core row,
-//      qq once per query, combined in the reference's order
+//      ...: qy and yy from the candidate's CP factor rows, TT core row or
+//      dense row, qq once per query, combined in the reference's order
 //      sqrt(max((qq + yy) - 2 qy, 0)) or qy / (nq * ny), and the 64-bit
 //      selection key (order_key_bits(score) << 32) | eff entered into the
 //      warp's running top-k (an ascending list in shared memory, entered
@@ -100,6 +101,19 @@
 // warps' buffers), and the chain state is read from shared memory instead
 // of a register tile.
 //
+// Dense rows (TR = kDense; the naive kinds and the tensorized ones over a
+// dense corpus: the reference's hoisted_scores on dense rows, jnp.vdot) are
+// long (6,912 bytes at (12, 12, 12), 256 KiB at (16, 16, 16, 16)) and read
+// once each, so the work is bytes: about n_cand * prod(d) * 4 a batch. No
+// row is staged: the query's row is copied into shared memory once while it
+// holds at most kDenseStage floats (else it too is read in place), and each
+// warp reads two candidates' rows in place at once, lane-strided, four
+// 16-byte loads a row in flight a lane (where prod(d) % 4 == 0 and both
+// rows are 16-byte aligned; otherwise four 4-byte loads, as K6's two paths
+// do), the two sums qy and yy in one pass over a row, then a warp
+// butterfly. Rows of up to kMaxDenseRow floats (Table 1's (16, 16, 16, 16))
+// are taken; the launch refuses longer ones.
+//
 // Rounding: the score combine uses __fadd_rn / __fsub_rn / __fmul_rn /
 // __fdiv_rn so no FMA contraction changes the reference's expression, and
 // the E2LSH divide is IEEE (__fdiv_rn), never a multiply by 1/w; the
@@ -116,18 +130,23 @@ namespace {
 constexpr uint32_t kEmpty = 0xFFFFFFFFu;   // an empty hash slot, a pad key
 constexpr unsigned long long kPadSlot = 0xFFFFFFFFFFFFFFFFull;
 constexpr unsigned kFull = 0xffffffffu;
+constexpr int kDense = 1;            // TR of the dense-row instantiation
+constexpr int kDenseStage = 8192;    // the longest query row staged (floats)
+constexpr int kMaxDenseRow = 65536;  // the longest dense row K1 takes
 // Threads of one query's block, the blocks per SM each instantiation is
 // built for (its __launch_bounds__; the wrapper sizes the shared window so
 // that they fit) and the candidates a warp scores at once: CP 12 warps, 2
 // blocks (at most 85 registers, so none spill), two candidates; TT 8 warps
 // (two 4 KiB row buffers each), rank <= 4 3 blocks, rank <= 16 2, rank <= 8
-// 1 (its register tile), one candidate.
+// 1 (its register tile), one candidate; dense 8 warps, 3 blocks, two
+// candidates (rows read in place, no buffers).
 template <int TR>
 struct Shape {
-  static constexpr int per_warp = TR == 0 ? 2 : 1;
+  static constexpr int per_warp = TR <= kDense ? 2 : 1;
   static constexpr int threads = TR == 0 ? 384 : 256;
-  static constexpr int min_blocks = TR == 0 ? 2 : TR == 4 ? 3 : TR == 16 ? 2
-                                                                          : 1;
+  static constexpr int min_blocks = TR == 0 ? 2
+                                    : TR == kDense || TR == 4 ? 3
+                                    : TR == 16 ? 2 : 1;
 };
 
 __device__ __forceinline__ float scale_mul(float s, float v) {
@@ -274,6 +293,108 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
+// qy[k] = <q, y_k> and yy[k] = <y_k, y_k> over D floats for G rows y_k at
+// once, every lane of the warp returning them: lane i sums units i, i + 32,
+// ... (float4 units where vec, else floats) in order, loading four units
+// of every row before it uses any, then a butterfly. q may lie in shared
+// or global memory; the rows lie in global memory and are read through the
+// read-only path (kNc), or, for the query's own norm, may lie in shared
+// memory and are read with plain loads.
+template <bool kNc, typename T>
+__device__ __forceinline__ T load_row(const T* p) {
+  if constexpr (kNc) return __ldg(p);
+  else return *p;
+}
+
+template <int G, bool kNc = true>
+__device__ __forceinline__ void dense_dots(const float* q,
+                                           const float* const* y, int D,
+                                           bool vec, int lane, float* qy,
+                                           float* yy) {
+  float aq[G], ay[G];
+#pragma unroll
+  for (int k = 0; k < G; ++k) aq[k] = ay[k] = 0.f;
+  if (vec) {
+    const int n = D >> 2;
+    const float4* q4 = reinterpret_cast<const float4*>(q);
+    int i = lane;
+    for (; i + 96 < n; i += 128) {
+      float4 yv[G][4];
+#pragma unroll
+      for (int k = 0; k < G; ++k)
+#pragma unroll
+        for (int u = 0; u < 4; ++u)
+          yv[k][u] = load_row<kNc>(reinterpret_cast<const float4*>(y[k]) +
+                                   i + 32 * u);
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const float4 a = q4[i + 32 * u];
+#pragma unroll
+        for (int k = 0; k < G; ++k) {
+          const float4 b = yv[k][u];
+          aq[k] = fmaf(a.x, b.x, aq[k]);
+          aq[k] = fmaf(a.y, b.y, aq[k]);
+          aq[k] = fmaf(a.z, b.z, aq[k]);
+          aq[k] = fmaf(a.w, b.w, aq[k]);
+          ay[k] = fmaf(b.x, b.x, ay[k]);
+          ay[k] = fmaf(b.y, b.y, ay[k]);
+          ay[k] = fmaf(b.z, b.z, ay[k]);
+          ay[k] = fmaf(b.w, b.w, ay[k]);
+        }
+      }
+    }
+    for (; i < n; i += 32) {
+      const float4 a = q4[i];
+#pragma unroll
+      for (int k = 0; k < G; ++k) {
+        const float4 b =
+            load_row<kNc>(reinterpret_cast<const float4*>(y[k]) + i);
+        aq[k] = fmaf(a.x, b.x, aq[k]);
+        aq[k] = fmaf(a.y, b.y, aq[k]);
+        aq[k] = fmaf(a.z, b.z, aq[k]);
+        aq[k] = fmaf(a.w, b.w, aq[k]);
+        ay[k] = fmaf(b.x, b.x, ay[k]);
+        ay[k] = fmaf(b.y, b.y, ay[k]);
+        ay[k] = fmaf(b.z, b.z, ay[k]);
+        ay[k] = fmaf(b.w, b.w, ay[k]);
+      }
+    }
+  } else {
+    int i = lane;
+    for (; i + 96 < D; i += 128) {
+      float yv[G][4];
+#pragma unroll
+      for (int k = 0; k < G; ++k)
+#pragma unroll
+        for (int u = 0; u < 4; ++u)
+          yv[k][u] = load_row<kNc>(y[k] + i + 32 * u);
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const float a = q[i + 32 * u];
+#pragma unroll
+        for (int k = 0; k < G; ++k) {
+          aq[k] = fmaf(a, yv[k][u], aq[k]);
+          ay[k] = fmaf(yv[k][u], yv[k][u], ay[k]);
+        }
+      }
+    }
+    for (; i < D; i += 32) {
+      const float a = q[i];
+#pragma unroll
+      for (int k = 0; k < G; ++k) {
+        const float b = load_row<kNc>(y[k] + i);
+        aq[k] = fmaf(a, b, aq[k]);
+        ay[k] = fmaf(b, b, ay[k]);
+      }
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < G; ++k) {
+    qy[k] = warp_sum(aq[k]);
+    yy[k] = warp_sum(ay[k]);
+  }
+}
+
 __device__ __forceinline__ int pow2_ceil(int x) {
   int p = 1;
   while (p < x) p <<= 1;
@@ -393,11 +514,13 @@ struct Seg {
   const int* perm;               // (L, m)
   const unsigned char* live;     // (m + 1,)
   const int* eff;                // (m,)
-  const float* c;                // stacked corpus (m, N, D, RC) / (m, N, RC, D, RC)
+  // stacked corpus (m, N, D, RC) / (m, N, RC, D, RC) / dense rows (m, D)
+  const float* c;
   const int* live_rank;          // (L, m + 1), nullptr: dense window
   const int* live_pos;           // (L, m)
   int m, cap, rc;
   double cs;                     // the corpus scale
+  int fc;                        // floats of a stacked corpus row
 };
 
 __device__ __forceinline__ Seg load_seg(const long long* row) {
@@ -413,6 +536,7 @@ __device__ __forceinline__ Seg load_seg(const long long* row) {
   g.cap = (int)row[8];
   g.rc = (int)row[9];
   g.cs = __longlong_as_double(row[10]);
+  g.fc = (int)row[11];
   return g;
 }
 
@@ -440,7 +564,8 @@ __device__ __forceinline__ uint32_t slot_id(const Seg& g, bool has_win,
   return g.live[cand] ? (uint32_t)cand : kEmpty;
 }
 
-// TR = 0: CP rows; TR = 4, 8 or 16: TT rows of ranks at most TR. wcap: the
+// TR = 0: CP rows; TR = kDense: dense rows of D floats (N = RQ = RC = 1);
+// TR = 4, 8 or 16: TT rows of ranks at most TR. wcap: the
 // shared window's capacity in slots (a power of two; its hash set holds
 // 2 * wcap ids, its candidate list wcap); scratch: per query 3 * scap
 // uint32 slots of global memory (a hash set of 2 * scap, all empty, and a
@@ -461,14 +586,18 @@ fused_query_kernel(
     int RQ, int RCMAX, int topk, int e2, int euclid, float w, double qs,
     int wcap, uint32_t* __restrict__ scratch, int scap,
     unsigned long long* __restrict__ scratch_queries) {
-  constexpr bool tt = TR > 0;
-  constexpr bool stage_rows = TR <= 8;  // rows of ranks > 8 are read in place
+  constexpr bool dense = TR == kDense;
+  constexpr bool tt = TR > kDense;
+  // rows of ranks > 8 and dense rows are read in place
+  constexpr bool stage_rows = !dense && TR <= 8;
   constexpr int kThreads = Shape<TR>::threads;
   constexpr int nwarps = kThreads / 32;
   constexpr int G = Shape<TR>::per_warp;  // candidates a warp scores at once
   extern __shared__ __align__(16) unsigned char smem[];
   const int LT = L * T;
   const int FQ = tt ? N * RQ * D * RQ : N * D * RQ;   // floats of a query row
+  // floats of the query row staged in shared memory (all but a long dense one)
+  const int FQS = !dense || FQ <= kDenseStage ? FQ : 0;
   const int FCMAX = !stage_rows ? 0
                     : ((tt ? N * RCMAX * D * RCMAX : N * D * RCMAX) + 3) & ~3;
   const int SW = tt ? 2 * max(RQ * RCMAX + RCMAX * RCMAX, RQ * RQ) : 0;
@@ -479,7 +608,7 @@ fused_query_kernel(
   unsigned long long* topv = wl_all + nwarps * topk;  // [topk]
   uint32_t* region = reinterpret_cast<uint32_t*>(topv + topk);  // [RW]
   float* qf = reinterpret_cast<float*>(region + RW);  // [FQ]
-  float* sbuf = qf + FQ;                              // [nwarps][SW]
+  float* sbuf = qf + FQS;                             // [nwarps][SW]
   uint32_t* qkeys = reinterpret_cast<uint32_t*>(sbuf + nwarps * SW);  // [LT]
   int* starts = reinterpret_cast<int*>(qkeys + LT);   // [LT]
   int* lens = starts + LT;                            // [LT]
@@ -494,7 +623,8 @@ fused_query_kernel(
   const int tid = threadIdx.x;
   const int warp = tid >> 5, lane = tid & 31;
 
-  for (int i = tid; i < FQ; i += kThreads) qf[i] = q[(size_t)b * FQ + i];
+  for (int i = tid; i < FQS; i += kThreads) qf[i] = q[(size_t)b * FQ + i];
+  const float* const qrow = FQS ? qf : q + (size_t)b * FQ;
   for (int i = tid; i < nwarps * topk; i += kThreads) wl_all[i] = kPadSlot;
   if (tid == 0) {
     total_s = 0;
@@ -581,7 +711,13 @@ fused_query_kernel(
   __syncthreads();
   if (warp == 0) {  // qq once per query
     float t = 0.f;
-    if constexpr (tt) {
+    if constexpr (dense) {
+      const float* qa[1] = {qrow};
+      const bool qvec = (D & 3) == 0 &&
+                        (reinterpret_cast<uintptr_t>(qrow) & 15) == 0;
+      float unused;
+      dense_dots<1, false>(qrow, qa, D, qvec, lane, &unused, &t);
+    } else if constexpr (tt) {
       float unused;
       tt_chains<TR>(qf, RQ, qf, RQ, nullptr, 0, nullptr, 0, N, D, sbuf, lane,
                     &t, &unused);
@@ -670,10 +806,11 @@ fused_query_kernel(
     // candidates' rows and effective ids while it scores the current ones,
     // and enters their selection keys into its list
     const int RC = g.rc;
-    const int FC = tt ? N * RC * D * RC : N * D * RC;
+    const int FC = g.fc;
     const float s_qy = (float)(qs * g.cs), s_yy = (float)(g.cs * g.cs);
     const bool vec = (FC & 3) == 0 &&
-                     (reinterpret_cast<uintptr_t>(g.c) & 15) == 0;
+                     (reinterpret_cast<uintptr_t>(g.c) & 15) == 0 &&
+                     (!dense || (reinterpret_cast<uintptr_t>(qrow) & 15) == 0);
     int j = warp * G;
     uint32_t cur[G];
     int cur_eff[G];
@@ -711,12 +848,16 @@ fused_query_kernel(
       float tqy[G], tyy[G];
 #pragma unroll
       for (int k = 0; k < G; ++k) {
+        // an empty slot past the list's end reads the first row again (an
+        // index into cur, not a select of its values: the select spills)
         yr[k] = stage_rows ? yb + (half * G + k) * FCMAX
-                           : g.c + (size_t)cur[k] * FC;
+                           : g.c + (size_t)cur[cur[k] == kEmpty ? 0 : k] * FC;
         tqy[k] = 0.f;
         tyy[k] = 0.f;
       }
-      if constexpr (tt) {  // G = 1
+      if constexpr (dense) {
+        dense_dots<G>(qrow, yr, D, vec, lane, tqy, tyy);
+      } else if constexpr (tt) {  // G = 1
         if constexpr (TR > 8)
           tt_chains_far<TR>(qf, RQ, yr[0], RC, yr[0], RC, yr[0], RC, N, D,
                             sb, lane, tqy, tyy);
@@ -804,8 +945,11 @@ fused_query_kernel(
   }
 }
 
-int tr_of(int tt, int RQ, int RC) {  // the instantiation for these ranks
-  if (!tt) return 0;
+// The instantiation for a corpus format (0 CP, 1 TT, 2 dense) and ranks.
+int tr_of(int fmt, int RQ, int RC) {
+  if (fmt == 0) return 0;
+  if (fmt == 2) return kDense;
+  if (fmt != 1) return -1;
   if (RQ <= 4 && RC <= 4) return 4;
   if (RQ <= 8 && RC <= 8) return 8;
   if (RQ <= 16 && RC <= 16) return 16;
@@ -815,6 +959,7 @@ int tr_of(int tt, int RQ, int RC) {  // the instantiation for these ranks
 int threads_of(int tr) {
   switch (tr) {
     case 0: return Shape<0>::threads;
+    case kDense: return Shape<kDense>::threads;
     case 4: return Shape<4>::threads;
     case 8: return Shape<8>::threads;
     default: return Shape<16>::threads;
@@ -824,6 +969,7 @@ int threads_of(int tr) {
 int min_blocks_of(int tr) {
   switch (tr) {
     case 0: return Shape<0>::min_blocks;
+    case kDense: return Shape<kDense>::min_blocks;
     case 4: return Shape<4>::min_blocks;
     case 8: return Shape<8>::min_blocks;
     default: return Shape<16>::min_blocks;
@@ -878,15 +1024,18 @@ int occupancy(size_t smem, int* out) {
 // ranks above 8 are read in place), the warps' lists and the merged top-k
 // (8 bytes a rank each), the region of the hash set and the candidate list
 // (3 * wcap ids) or the expansion's per-warp scores and deltas (C of each),
-// the query's row, the TT chain states a warp, four per-(table, probe)
-// integer arrays.
+// the query's row (a dense one only up to kDenseStage floats), the TT chain
+// states a warp, four per-(table, probe) integer arrays. fmt: the corpus
+// format, 0 CP, 1 TT, 2 dense.
 extern "C" size_t fused_query_smem_bytes(int LT, int N, int D, int RQ,
-                                         int RC, int wcap, int tt, int topk,
+                                         int RC, int wcap, int fmt, int topk,
                                          int C) {
-  const bool stage_rows = !tt || (RQ <= 8 && RC <= 8);
-  const size_t nw = threads_of(tr_of(tt, RQ, RC)) / 32;
+  const bool tt = fmt == 1, dense = fmt == 2;
+  const bool stage_rows = !dense && (!tt || (RQ <= 8 && RC <= 8));
+  const size_t nw = threads_of(tr_of(fmt, RQ, RC)) / 32;
   const size_t per_warp = tt ? 1 : 2;  // Shape<TR>::per_warp
-  const size_t fq = tt ? (size_t)N * RQ * D * RQ : (size_t)N * D * RQ;
+  size_t fq = tt ? (size_t)N * RQ * D * RQ : (size_t)N * D * RQ;
+  if (dense && fq > (size_t)kDenseStage) fq = 0;
   size_t fc = !stage_rows ? 0
               : tt ? (size_t)N * RC * D * RC : (size_t)N * D * RC;
   fc = (fc + 3) & ~(size_t)3;
@@ -900,10 +1049,11 @@ extern "C" size_t fused_query_smem_bytes(int LT, int N, int D, int RQ,
 
 // Registers a thread, resident blocks per SM at smem bytes, local (spill)
 // bytes a thread and the instantiation's target blocks per SM -> out[0..3].
-extern "C" int fused_query_occupancy(int tt, int RQ, int RC, size_t smem,
+extern "C" int fused_query_occupancy(int fmt, int RQ, int RC, size_t smem,
                                      int* out) {
-  switch (tr_of(tt, RQ, RC)) {
+  switch (tr_of(fmt, RQ, RC)) {
     case 0: return occupancy<0>(smem, out);
+    case kDense: return occupancy<kDense>(smem, out);
     case 4: return occupancy<4>(smem, out);
     case 8: return occupancy<8>(smem, out);
     case 16: return occupancy<16>(smem, out);
@@ -921,8 +1071,8 @@ int launch(const float* values, const float* offsets, const long long* mults,
            int e2, int euclid, float w, double qs, int wcap,
            uint32_t* scratch, int scap,
            unsigned long long* scratch_queries, cudaStream_t stream) {
-  const size_t smem = fused_query_smem_bytes(L * T, N, D, RQ, RC, wcap,
-                                             TR > 0, topk, C);
+  const size_t smem = fused_query_smem_bytes(
+      L * T, N, D, RQ, RC, wcap, TR == 0 ? 0 : TR == kDense ? 2 : 1, topk, C);
   const cudaError_t e = prepare<TR>(smem);
   if (e != cudaSuccess) return (int)e;
   fused_query_kernel<TR><<<B, Shape<TR>::threads, smem, stream>>>(
@@ -939,7 +1089,7 @@ extern "C" int fused_query_launch(
     const int* pairs, const float* q, const long long* segtab, int S,
     int* out_ids, float* out_scores, int* out_ncand, int B, int L, int K,
     int T, int C, int N, int D, int RQ, int RC, int topk, int e2, int euclid,
-    int tt, float w, double qs, int wcap, void* scratch, int scap,
+    int fmt, float w, double qs, int wcap, void* scratch, int scap,
     void* scratch_queries, int threads, int min_blocks, size_t smem,
     void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -948,21 +1098,23 @@ extern "C" int fused_query_launch(
             int, int, int, int, int, int, int, int, int, int, int, float,
             double, int, uint32_t*, int, unsigned long long*,
             cudaStream_t);
-  switch (tr_of(tt, RQ, RC)) {
+  switch (tr_of(fmt, RQ, RC)) {
     case 0: fn = launch<0>; break;
+    case kDense: fn = launch<kDense>; break;
     case 4: fn = launch<4>; break;
     case 8: fn = launch<8>; break;
     case 16: fn = launch<16>; break;
     default: return (int)cudaErrorInvalidValue;
   }
   if (wcap < 1 || (wcap & (wcap - 1)) || topk < 1 ||
-      scratch_queries == nullptr)
+      scratch_queries == nullptr ||
+      (fmt == 2 && (N != 1 || RQ != 1 || RC != 1 || D > kMaxDenseRow)))
     return (int)cudaErrorInvalidValue;
   // the caller sized the window with its own copy of the block's shape and
   // shared bytes: a launch planned with others is refused
-  const int tr = tr_of(tt, RQ, RC);
+  const int tr = tr_of(fmt, RQ, RC);
   if (threads != threads_of(tr) || min_blocks != min_blocks_of(tr) ||
-      smem != fused_query_smem_bytes(L * T, N, D, RQ, RC, wcap, tt, topk, C))
+      smem != fused_query_smem_bytes(L * T, N, D, RQ, RC, wcap, fmt, topk, C))
     return (int)cudaErrorInvalidConfiguration;
   return fn(values, offsets, mults, pairs, q, segtab, S, out_ids, out_scores,
             out_ncand, B, L, K, T, C, N, D, RQ, RC, topk, e2, euclid, w, qs,

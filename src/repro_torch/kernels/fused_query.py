@@ -7,7 +7,8 @@ combine -> multi-probe expansion to T ranked keys per table -> per segment:
 per-(table, probe) binary search over the sorted bucket keys, the dense
 cap-wide window (bucket members, tombstones masked) or the live window
 (the first ``cap`` live members, through ``live_rank`` / ``live_pos``),
-sort-dedup, exact in-format re-rank, packed (order key, effective id) keys
+sort-dedup, exact in-format re-rank (CP Grams, the TT chain, or dense
+rows: qy and yy over prod d floats), packed (order key, effective id) keys
 -> top-k over all segments.
 
 ``fused_query`` launches the CUDA kernel ``csrc/fused_query.cu`` on CUDA
@@ -54,6 +55,7 @@ from __future__ import annotations
 import collections
 import dataclasses
 import functools
+import math
 import struct
 
 import torch
@@ -66,12 +68,18 @@ from repro_torch.kernels.epilogues import (BLOCK_RESERVED, MAX_SMEM,
 
 STATIC_SMEM = 32           # bytes of K1's static shared scalars, at most
 MAX_TT_RANK = 16           # largest TT rank K1's chains take
+MAX_DENSE_ROW = 65536      # longest dense row (floats) K1 takes (kMaxDenseRow)
+DENSE_STAGE = 8192         # longest dense query row staged (kDenseStage)
 TABLE_COLS = 12            # int64 words per segment in the K1 table
+DENSE = 1                  # TR of the dense-row instantiation (kDense)
+# the corpus format's code in the C entries (fmt)
+FORMATS = {"cp": 0, "tt": 1, "dense": 2}
 # threads of a query's block and the target blocks per SM by instantiation
-# (TR: 0 CP, else the TT rank bound): its __launch_bounds__ (Shape in
-# csrc/fused_query.cu, which refuses a launch planned with other values)
-THREADS = {0: 384, 4: 256, 8: 256, 16: 256}
-MIN_BLOCKS = {0: 2, 4: 3, 8: 1, 16: 2}
+# (TR: 0 CP, DENSE dense rows, else the TT rank bound): its
+# __launch_bounds__ (Shape in csrc/fused_query.cu, which refuses a launch
+# planned with other values)
+THREADS = {0: 384, DENSE: 256, 4: 256, 8: 256, 16: 256}
+MIN_BLOCKS = {0: 2, DENSE: 3, 4: 3, 8: 1, 16: 2}
 # the shared window's capacity in slots lies in [MIN_WINDOW, MAX_WINDOW]
 # (or is pow2(L*T*cap) where that is smaller)
 MIN_WINDOW = 256
@@ -82,9 +90,12 @@ def _pow2_ceil(x: int) -> int:
     return 1 << max(int(x) - 1, 0).bit_length()
 
 
-def tt_bound(tt: bool, rq: int, rc: int) -> int:
-    """The kernel instantiation (TR) for these ranks: 0 for CP, else the
-    smallest of 4, 8, 16 that bounds both TT ranks."""
+def tt_bound(tt: bool, rq: int, rc: int, dense: bool = False) -> int:
+    """The kernel instantiation (TR) for these ranks: 0 for CP, ``DENSE``
+    for dense rows, else the smallest of 4, 8, 16 that bounds both TT
+    ranks."""
+    if dense:
+        return DENSE
     if not tt:
         return 0
     return next(b for b in (4, 8, 16) if max(rq, rc) <= b)
@@ -92,7 +103,8 @@ def tt_bound(tt: bool, rq: int, rc: int) -> int:
 
 def smem_bytes(num_tables: int, n_modes: int, d: int, rq: int, rc: int,
                window: int, tt: bool = False, probes: int = 1,
-               topk: int = 10, expansion: int = 0) -> int:
+               topk: int = 10, expansion: int = 0,
+               dense: bool = False) -> int:
     """Shared memory of one K1 block (``fused_query_smem_bytes`` in the CUDA
     source, which refuses a launch planned with another size) for a shared
     window of ``window`` slots (a power of two): two row buffers a warp for
@@ -103,15 +115,19 @@ def smem_bytes(num_tables: int, n_modes: int, d: int, rq: int, rc: int,
     candidate list of window ids (the expansion's per-warp scores and deltas,
     ``expansion`` candidates of 8 bytes, reuse that region), the query's row,
     for TT each warp's two chain states and their next values, four per-(table,
-    probe) integer arrays, and ``STATIC_SMEM`` bytes of static scalars."""
-    if tt:
+    probe) integer arrays, and ``STATIC_SMEM`` bytes of static scalars. A
+    dense corpus (``dense``: n_modes = rq = rc = 1, d = prod d) stages no
+    candidate rows and its query row only up to ``DENSE_STAGE`` floats."""
+    if dense:
+        fq, fc, sw = (d if d <= DENSE_STAGE else 0), 0, 0
+    elif tt:
         fq, fc = n_modes * rq * d * rq, n_modes * rc * d * rc
         sw = 2 * max(rq * rc + rc * rc, rq * rq)
         if max(rq, rc) > 8:
             fc = 0
     else:
         fq, fc, sw = n_modes * d * rq, n_modes * d * rc, 0
-    nwarps = THREADS[tt_bound(tt, rq, rc)] // 32
+    nwarps = THREADS[tt_bound(tt, rq, rc, dense)] // 32
     fc = -(-fc // 4) * 4 * (1 if tt else 2)   # CP warps score two at once
     region = -(-max(3 * window, nwarps * 2 * expansion) // 4) * 4
     lt = num_tables * probes
@@ -121,7 +137,7 @@ def smem_bytes(num_tables: int, n_modes: int, d: int, rq: int, rc: int,
 
 def window_plan(num_tables: int, cap: int, n_modes: int, d: int, rq: int,
                 rc: int, tt: bool = False, probes: int = 1, topk: int = 10,
-                expansion: int = 0) -> tuple[int, bool]:
+                expansion: int = 0, dense: bool = False) -> tuple[int, bool]:
     """-> (window, scratch): the shared window's capacity in slots and
     whether a query can exceed it (L*T*cap above it, so the launch needs the
     global scratch). The capacity is the largest power of two in
@@ -133,9 +149,9 @@ def window_plan(num_tables: int, cap: int, n_modes: int, d: int, rq: int,
     need = _pow2_ceil(num_tables * probes * cap)
     size = functools.partial(smem_bytes, num_tables, n_modes, d, rq, rc,
                              tt=tt, probes=probes, topk=topk,
-                             expansion=expansion)
+                             expansion=expansion, dense=dense)
     least = min(need, MIN_WINDOW)
-    for blocks in range(MIN_BLOCKS[tt_bound(tt, rq, rc)], 0, -1):
+    for blocks in range(MIN_BLOCKS[tt_bound(tt, rq, rc, dense)], 0, -1):
         budget = min(MAX_SMEM, SM_SMEM // blocks - BLOCK_RESERVED)
         window = min(need, MAX_WINDOW)
         while window >= least:
@@ -249,7 +265,10 @@ class SegmentTable:
     one row per segment, or per (shard, segment) pair for K1s: pointers to
     sorted_keys, perm, live, eff, the stacked corpus, live_rank and
     live_pos (0 without a live window), then m, cap, the stacked corpus
-    rank and the corpus scale's float64 bits. ``segs`` keeps the tensors
+    rank (1 for dense rows), the corpus scale's float64 bits and the floats
+    of one stacked corpus row (prod d for dense rows). ``n_modes``, ``d``
+    and ``rc`` are the format's ``kernel_shape`` of the stacked corpus (a
+    dense row reads as one mode of prod d floats, rank 1). ``segs`` keeps the tensors
     the pointers name alive; ``scratch`` holds the launches' global
     scratch."""
 
@@ -275,13 +294,13 @@ def segment_table(segs, caps) -> SegmentTable | None:
     if dev.type != "cuda":
         return None
     layout = segs[0].corpus.layout
-    n_modes, d = first.shape[1], first.shape[-2]
+    shape_of = segs[0].corpus.kernel_shape
+    n_modes, d, _ = shape_of(first)
     rows = []
     for seg, cap in zip(segs, caps):
         c = seg.stacked
         arrays = (seg.sorted_keys, seg.perm, seg.live, seg.eff, c)
-        if seg.corpus.layout != layout or (c.shape[1], c.shape[-2]) != (
-                n_modes, d):
+        if seg.corpus.layout != layout or shape_of(c)[:2] != (n_modes, d):
             raise ValueError("a store's segments hold corpora of one layout "
                              "and mode shape")
         if tuple(a.dtype for a in arrays) != (
@@ -304,12 +323,12 @@ def segment_table(segs, caps) -> SegmentTable | None:
             "<d", float(seg.corpus.scale)))[0]
         rows.append([a.data_ptr() for a in arrays[:4]]
                     + [c.data_ptr(), rank_ptr, pos_ptr,
-                       seg.sorted_keys.shape[1], int(cap), c.shape[-1],
-                       scale_bits, 0])
+                       seg.sorted_keys.shape[1], int(cap), shape_of(c)[2],
+                       scale_bits, math.prod(c.shape[1:])])
     desc = torch.tensor(rows, dtype=torch.int64).to(dev)
     return SegmentTable(desc=desc, segs=tuple(segs), caps=tuple(caps),
                         layout=layout, n_modes=n_modes, d=d,
-                        rc=max(seg.stacked.shape[-1] for seg in segs))
+                        rc=max(shape_of(seg.stacked)[2] for seg in segs))
 
 
 @functools.lru_cache(maxsize=None)
@@ -376,9 +395,9 @@ def launch_plan(table, rq: int, *, num_tables: int, probes: int, topk: int,
                 expansion: int) -> tuple[int, bool, int]:
     """-> (window, scratch, shared bytes) of a launch over ``table`` with
     stacked query rank ``rq`` (``window_plan`` and ``smem_bytes``)."""
-    tt = table.layout == "tt"
     args = (num_tables, table.n_modes, table.d, rq, table.rc)
-    kw = dict(tt=tt, probes=probes, topk=topk, expansion=expansion)
+    kw = dict(tt=table.layout == "tt", dense=table.layout == "dense",
+              probes=probes, topk=topk, expansion=expansion)
     window, scratch = window_plan(num_tables, max(table.caps), *args[1:],
                                   **kw)
     return window, scratch, smem_bytes(*args, window, **kw)
@@ -395,7 +414,7 @@ def occupancy(table, rq: int, smem: int) -> dict:
 
     out = (ctypes.c_int * 4)()
     _build.check(_build.lib().fused_query_occupancy(
-        int(table.layout == "tt"), rq, table.rc, smem - STATIC_SMEM,
+        FORMATS[table.layout], rq, table.rc, smem - STATIC_SMEM,
         ctypes.addressof(out)),
         "fused_query_occupancy")
     return dict(registers=out[0], blocks_per_sm=out[1], local_bytes=out[2],
@@ -421,17 +440,21 @@ def _launch(values, offsets, mults, queries, table, *, kind, w, num_tables,
     e2 = kind.endswith("e2lsh")
     b = values.shape[0]
     q = queries[1]
-    tt = table.layout == "tt"
+    tt, dense = table.layout == "tt", table.layout == "dense"
     n, d, rc = table.n_modes, table.d, table.rc
-    if (q.dim() != table.segs[0].stacked.dim()
-            or (q.shape[1], q.shape[-2]) != (n, d) or not q.is_contiguous()
-            or q.dtype != torch.float32):
+    if (queries[0].layout != table.layout
+            or q.dim() != table.segs[0].stacked.dim()
+            or queries[0].kernel_shape(q)[:2] != (n, d)
+            or not q.is_contiguous() or q.dtype != torch.float32):
         raise ValueError(f"stacked queries {tuple(q.shape)} do not match the "
                          f"stacked corpus {tuple(table.segs[0].stacked.shape)}")
-    rq = q.shape[-1]
+    rq = queries[0].kernel_shape(q)[2]
     if tt and max(rq, rc) > MAX_TT_RANK:
         raise ValueError(f"K1 takes TT ranks up to {MAX_TT_RANK}; got "
                          f"Rq={rq}, Rc={rc}")
+    if dense and d > MAX_DENSE_ROW:
+        raise ValueError(f"K1 takes dense rows of up to {MAX_DENSE_ROW} "
+                         f"floats (MAX_DENSE_ROW); got {d}")
     expansion = (probing.expansion_size(kind, num_codes) if probes > 1
                  else 0)
     window, need_scratch, smem = launch_plan(table, rq,
@@ -451,14 +474,15 @@ def _launch(values, offsets, mults, queries, table, *, kind, w, num_tables,
     # its largest window
     scap = _pow2_ceil(num_tables * probes * max(table.caps))
     scratch = scratch_rows(table, b, scap, dev) if need_scratch else None
-    tr = tt_bound(tt, rq, rc)
+    tr = tt_bound(tt, rq, rc, dense)
     err = _build.lib().fused_query_launch(
         vals.data_ptr(), offs.data_ptr() if e2 else None, mu.data_ptr(),
         pairs.data_ptr() if pairs is not None else None, q.data_ptr(),
         table.desc.data_ptr(), len(table.segs), ids.data_ptr(),
         scores.data_ptr(), ncand.data_ptr(), b, num_tables, num_codes,
         probes, expansion, n, d, rq, rc, topk, int(e2),
-        int(metric == "euclidean"), int(tt), float(w) if e2 else 1.0,
+        int(metric == "euclidean"), FORMATS[table.layout],
+        float(w) if e2 else 1.0,
         float(queries[0].scale), window,
         scratch.data_ptr() if need_scratch else None, scap,
         counts.counter(dev).data_ptr(), THREADS[tr], MIN_BLOCKS[tr],

@@ -15,11 +15,21 @@ starts from e_00 and reads S[0, 0], the same values. The TPU's (8, 128)
 tile padding and the batch padding to the grid block are gone: the CUDA
 kernels mask the ragged edge of the batch themselves.
 
-``fused_hash`` is the one entry from a stacked batch to hash outputs that
-``LSHFamily`` calls; it runs K3 (``cp_gram``) or K4 (``tt_inner``) on the
-tensors' device. A family stacks its projections once; a corpus or a query
-batch is stacked once (its format's ``stack``, which calls ``stack_cp`` or
-``stack_tt``) and read by the hash kernel and K1.
+A dense batch is stacked as flat (B, prod d) float32 rows.
+
+``fused_hash`` is the entry from a stacked batch to hash outputs that
+``LSHFamily`` calls for CP on CP and TT on TT; it runs K3 (``cp_gram``) or
+K4 (``tt_inner``) on the tensors' device. A family stacks its projections
+once; a corpus or a query batch is stacked once (its format's ``stack``,
+which calls ``stack_cp`` or ``stack_tt``) and read by the hash kernel and
+K1. For the pairs the reference's ``fused_hash`` refuses (a dense
+projection on any input, a CP or TT projection on dense input) the family
+calls ``dense_hash`` on the values of ``projections.project_batch`` (fp32
+matrix products with TF32 off, the reference's XLA path): its discretize,
+combine and pack tails are the torch counterparts of the reference's
+``lsh._discretize``, ``_combine_codes`` and ``pack_bits``, not the plain
+version of any kernel. ``unstack_as`` reads a stacked batch back as a
+format object for it.
 
 The standalone kernel-level API, as the reference's tests and
 ``benchmarks/kernels.py`` call it: ``cp_inner_products`` /
@@ -37,8 +47,9 @@ import numpy as np
 import torch
 
 from repro_torch.core.projections import CPProjection, TTProjection
-from repro_torch.core.tensor_formats import CPTensor, TTTensor
+from repro_torch.core.tensor_formats import CPTensor, DenseTensor, TTTensor
 from repro_torch.kernels.cp_gram import cp_gram
+from repro_torch.kernels.epilogues import apply_epilogue
 # the standalone tails as the reference's ``ops`` names them: srp_pack (K6)
 # and e2lsh_quantize (K7)
 from repro_torch.kernels.e2lsh_quant import e2lsh_quant as e2lsh_quantize
@@ -119,15 +130,62 @@ def stack_tt(x: TTTensor) -> tuple[TTTensor, torch.Tensor]:
 
 def unstack_like(x, stacked: torch.Tensor):
     """A stacked tensor with any leading dims ((..., N, d, R) CP,
-    (..., N, R, d, R) TT) -> a tensor of ``x``'s format, mode dims, ranks
-    and scale whose leaves are views of ``stacked``: ``x``'s rows gathered,
-    padded or split into shards keep one copy."""
+    (..., N, R, d, R) TT, (..., prod d) dense) -> a tensor of ``x``'s
+    format, mode dims, ranks and scale whose leaves are views of
+    ``stacked``: ``x``'s rows gathered, padded or split into shards keep
+    one copy."""
+    if x.layout == "dense":
+        return DenseTensor(stacked.view(stacked.shape[:-1] + tuple(x.dims)),
+                           x.dims)
     if x.layout == "cp":
         return CPTensor(tuple(stacked[..., i, :dn, :]
                               for i, dn in enumerate(x.dims)), x.scale)
     return TTTensor(tuple(stacked[..., i, :c.shape[-3], :c.shape[-2],
                                   :c.shape[-1]]
                           for i, c in enumerate(x.cores)), x.scale)
+
+
+# the layout of a stacked batch by its rank: (B, prod d), (B, N, d, R),
+# (B, N, R, d, R)
+_STACKED_LAYOUTS = {2: "dense", 4: "cp", 5: "tt"}
+
+
+def stacked_layout(xf: torch.Tensor) -> str:
+    """'dense', 'cp' or 'tt': the format of a stacked batch."""
+    return _STACKED_LAYOUTS[xf.dim()]
+
+
+def unstack_as(layout: str, xf: torch.Tensor, dims, scale: float):
+    """A stacked batch of ``layout`` -> a format object of mode ``dims`` and
+    ``scale`` over views of it (TT cores at the padded ranks, whose zero
+    rows add exact zeros)."""
+    if layout == "dense":
+        return DenseTensor(xf.view((xf.shape[0],) + tuple(dims)), tuple(dims))
+    if layout == "cp":
+        return CPTensor(tuple(xf[:, i, :dn, :] for i, dn in enumerate(dims)),
+                        scale)
+    return TTTensor(tuple(xf[:, i, :, :dn, :] for i, dn in enumerate(dims)),
+                    scale)
+
+
+def dense_hash(values: torch.Tensor, *, epilogue: str, kind: str,
+               num_tables: int, offsets: torch.Tensor | None = None,
+               w: float = 0.0, mults=None) -> torch.Tensor:
+    """(B, L*K) raw values of the dense route -> the outputs of
+    ``fused_hash``'s ``epilogue`` ('raw' (B, L, K), 'codes', 'keys',
+    'packed'): the reference's XLA tails (floor((v + b) / w) with a true
+    division, sign, the uint32 radix combine, the bit pack) in torch."""
+    e2 = kind.endswith("e2lsh")
+    if epilogue == "packed" and e2:
+        raise ValueError("packed signatures are defined for SRP kinds only")
+    b = values.shape[0]
+    v = values.reshape(b, num_tables, -1)
+    num_codes = v.shape[2]
+    offs = offsets.reshape(num_tables, num_codes) if e2 else None
+    mults_t = (mults_tensor(mults, v.device).reshape(num_codes)
+               if epilogue == "keys" else None)
+    return apply_epilogue(v, offs, mults_t, epilogue=_EPILOGUES[epilogue](e2),
+                          w=float(w) if e2 else 1.0)
 
 
 def mults_tensor(mults, device) -> torch.Tensor:
@@ -137,6 +195,14 @@ def mults_tensor(mults, device) -> torch.Tensor:
         mults = torch.from_numpy(np.asarray(mults, np.uint32).astype(np.int64))
     return mults.to(device, torch.int64)
 
+
+# the epilogue of the hash tails for a family's output and its kind
+_EPILOGUES = {
+    "raw": lambda e2: "raw",
+    "codes": lambda e2: "e2lsh" if e2 else "srp",
+    "keys": lambda e2: "e2lsh-keys" if e2 else "srp-keys",
+    "packed": lambda e2: "srp-packed",
+}
 
 # the hash kernel of each format's ``layout`` and the rank of its stacked
 # projections
@@ -161,12 +227,7 @@ def fused_hash(xf: torch.Tensor, pf: torch.Tensor, *, scale: float,
       'packed' -> (B, L, ceil(K/32)) uint32 SRP signatures in int64
     """
     e2 = kind.endswith("e2lsh")
-    kernel_epilogue = {
-        "raw": "raw",
-        "codes": "e2lsh" if e2 else "srp",
-        "keys": "e2lsh-keys" if e2 else "srp-keys",
-        "packed": "srp-packed",
-    }[epilogue]
+    kernel_epilogue = _EPILOGUES[epilogue](e2)
     if epilogue == "packed" and e2:
         raise ValueError("packed signatures are defined for SRP kinds only")
     if xf.device != pf.device:

@@ -17,6 +17,11 @@ because both sides round:
     compose, so the computed chain is within gamma_n of the exact one with
     n = N * max(Rx + d*Rp, Rp + d*Rx) + 2 (the scale multiply and one
     spare), and S is the same chain on |cores| times |scale|.
+  * Dense raw values (``dense_bound``): one dot of D = prod d products per
+    value, the naive kinds' matrix or the materialized CP / TT stack
+    against the dense row, n = D, S = sum_j |x_j| |m_j| (times |scale|);
+    the re-rank of dense rows is the same sum, D long
+    (``DenseTensor.inner_length``).
   * Codes: a code may differ only where the value lies within that bound of
     a bucket edge (E2LSH) or of 0 (SRP); keys may differ only in the tables
     holding such a code.
@@ -59,6 +64,15 @@ def tt_raw_bound(x_cores: torch.Tensor, p_cores: torch.Tensor,
                                   p_cores.abs().reshape(n, l * k, rp, d, rp))
     length = n * max(rx + d * rp, rp + d * rx) + 2
     return 2.0 * length * U * s.reshape(b, l, k)
+
+
+def dense_bound(x: torch.Tensor, m: torch.Tensor,
+                scale: float = 1.0) -> torch.Tensor:
+    """(B, K) absolute bound on the difference of two fp32 evaluations of
+    the dense raw values scale * x @ m.T; x (B, D) rows, m (K, D):
+    2 D u |scale| sum_j |x_j| |m_j|."""
+    s = abs(scale) * (x.abs().double() @ m.abs().double().T)
+    return (2.0 * x.shape[-1] * U * s).float()
 
 
 def boundary_codes(v: torch.Tensor, bound: torch.Tensor, kind: str,

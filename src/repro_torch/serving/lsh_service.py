@@ -1,11 +1,14 @@
 """Batched LSH similarity-search service with streaming mutations
 (reference: ``repro.serving.lsh_service``), device index only.
 
-A corpus of CP or TT tensors is hashed once at build time with a family of
-its format (K3 or K4 on the card), and query batches run K3 / K4 (``raw``)
-then K1 (multi-probe expansion, probe of every segment, dedup, exact
-in-format re-rank, top-k) without leaving the card until the final
-(B, topk) results. ``insert`` / ``delete`` / ``prepare_compact`` /
+A corpus of CP or TT tensors, or a plain (n, d_1, ..., d_N) dense tensor, is
+hashed once at build time (K3 for CP under a CP family, K4 for TT under TT,
+the fp32 matrix products of ``ops.dense_hash`` for the naive kinds 'e2lsh'
+/ 'srp' over any corpus and for CP or TT families over a dense one), and
+query batches run the same hash (``raw``) then K1 (multi-probe expansion,
+probe of every segment, dedup, exact re-rank in the corpus' format, dense
+rows included, top-k) without leaving the card until the final (B, topk)
+results. ``insert`` / ``delete`` / ``prepare_compact`` /
 ``apply_swap`` / ``compact`` mutate the store, with the reference's
 counters in ``ServiceStats``.
 
@@ -37,6 +40,7 @@ import torch
 from repro_torch.core.index import (QUERY_MODES, DeviceLSHIndex,
                                     ShardedLSHIndex)
 from repro_torch.core.lsh import LSHFamily, make_family
+from repro_torch.core.tensor_formats import as_batch
 from repro_torch.device import resolve_device
 
 
@@ -179,6 +183,7 @@ class LSHService:
         if seed is not None:
             raise ValueError("seed applies to the sampling modes only; "
                              "mode='topk' is deterministic")
+        queries = as_batch(queries, len(self.index.family.projection.dims))
         n = queries.leaves[0].shape[0]
         t0 = time.perf_counter()
         ids, scores, n_cand = self.index.query_batch(queries, topk=int(topk),
@@ -234,6 +239,7 @@ class LSHService:
         triggered here is timed into ``auto_compact_ms``, never
         ``insert_ms``."""
         index = self.index
+        batch = as_batch(batch, len(index.family.projection.dims))
         n = batch.leaves[0].shape[0]
         auto_s0 = index.auto_compact_s
         t0 = time.perf_counter()
@@ -304,10 +310,12 @@ def build_service(key: torch.Generator, kind: str, dims: Sequence[int],
                   max_deltas: int = 8, probes: int = 1,
                   query_mode: str = "topk",
                   family: LSHFamily | None = None) -> LSHService:
-    """Sample a CP or TT family (``kind``) from ``key`` (a
-    ``torch.Generator``), build the index over ``corpus`` (a batched
-    ``CPTensor`` or ``TTTensor`` of the kind's format) on ``device`` and
-    return the service.
+    """Sample a family of any of the six kinds (``kind``) from ``key`` (a
+    ``torch.Generator``), build the index over ``corpus`` on ``device`` and
+    return the service. ``corpus`` is a batched ``CPTensor`` or
+    ``TTTensor`` of the kind's format, or a plain (n, d_1, ..., d_N) dense
+    tensor under any kind; the naive kinds 'e2lsh' / 'srp' also take CP and
+    TT corpora (densified to hash, re-ranked in their format).
 
     ``family`` serves a family made elsewhere instead of sampling one (e.g.
     parameters carried over from the reference with
@@ -339,4 +347,5 @@ def build_service(key: torch.Generator, kind: str, dims: Sequence[int],
         raise ValueError(f"family on {family.device}, device={dev}")
     return LSHService(family, metric=metric, bucket_cap=bucket_cap,
                       shards=shards, max_deltas=max_deltas, probes=probes,
-                      query_mode=query_mode).build(corpus.to(dev))
+                      query_mode=query_mode).build(
+                          as_batch(corpus, len(dims)).to(dev))

@@ -25,7 +25,11 @@ equal their plain versions bit for bit, ragged shapes included. K1s
 (``fused_query_sharded``, K1's kernel over every (shard, segment) pair):
 against its plain version on S = 3 stores with a padded last shard, two
 routed slabs, deletes and live windows at T in {1, 4}, CP and TT; and with
-the exact cap its answers equal the single-device index's bit for bit.
+the exact cap its answers equal the single-device index's bit for bit. K1
+and K1s on dense rows of 64, 1,728, 1,730 (the scalar path) and 65,536
+floats against their plain versions, with self-queries; the naive and
+tensorized kinds over a mutated, capped dense store at T = 4 bit for bit
+on integer rows; the C launch refusing a dense plan of another shape.
 """
 
 import pytest
@@ -33,7 +37,7 @@ import torch
 
 from repro_torch.core.projections import (sample_cp_projection,
                                           sample_tt_projection)
-from repro_torch.core.tensor_formats import (CPTensor, TTTensor,
+from repro_torch.core.tensor_formats import (CPTensor, TTTensor, as_batch,
                                              cp_random_data, tt_random_data)
 from repro_torch.kernels import parity
 from repro_torch.kernels import fused_query as fq_mod
@@ -651,3 +655,101 @@ def test_fused_query_sharded_equals_single_device(gen, layout):
         for g, w_ in zip(got, want):
             assert (g.view("int32") == w_.view("int32")).all()
     _k1s_vs_plain(sharded, q, 3)
+
+
+def _dense_service(gen, dims, n, kind="e2lsh", shards=None, **kw):
+    """A dense Gaussian corpus of n items and its service: K = L = 4, w
+    about the projections' spread (sqrt(prod d))."""
+    from repro_torch.serving.lsh_service import build_service
+    corpus = torch.randn((n,) + dims, generator=gen, device="cuda")
+    w = float(torch.tensor(dims).prod()) ** 0.5
+    svc = build_service(gen, kind, dims, corpus, num_codes=4, num_tables=4,
+                        rank=2, bucket_width=w, shards=shards, **kw)
+    return corpus, svc
+
+
+@pytest.mark.parametrize("dims,n,shards", [
+    ((4, 4, 4), 3000, None),          # 64 floats: the query row staged
+    ((12, 12, 12), 4000, None),       # [dense-main]'s rows, float4 loads
+    ((10, 173), 3000, None),          # 1,730 floats: the scalar path
+    ((16, 16, 16, 16), 1500, None),   # 65,536 floats: the query read in place
+    ((12, 12, 12), 4001, 3),          # K1s: a padded last shard
+    ((10, 173), 3001, 3),             # K1s, the scalar path
+])
+def test_fused_query_dense_matches_plain(gen, dims, n, shards):
+    """K1 (K1s on a sharded store) on dense rows against its plain version
+    on the same raw values: candidate counts equal, scores within
+    ``parity.rerank_bound`` (2 (prod d + 4) u sum |q||y| carried through
+    the score), ids equal but at near ties; and an item queried as itself
+    comes back first."""
+    from repro_torch.kernels.fused_query import DENSE, MIN_BLOCKS, occupancy
+    corpus, svc = _dense_service(gen, dims, n, shards=shards)
+    idx = svc.index
+    qid = torch.randint(0, n, (300,), generator=gen, device="cuda")
+    q = corpus[qid] + 0.05 * torch.randn((300,) + dims, generator=gen,
+                                         device="cuda")
+    fam, view = idx.family, idx.store.view
+    qd = as_batch(q).stack()
+    values = fam.raw_stacked(qd[1], 1.0)
+    kw = dict(kind=fam.kind, w=fam.bucket_width, num_tables=4, num_codes=4,
+              metric="euclidean", topk=10)
+    if view.sharded:
+        args = (view.seg_arrays(0), view.delta_arrays)
+        kw.update(cap=view.base.cap, delta_caps=view.delta_caps)
+        kernel, plain = fused_query_sharded, fused_query_sharded_plain
+    else:
+        args, kw["caps"] = (view.all_arrays,), view.all_caps
+        kernel, plain = fused_query, fused_query_plain
+    launches = kernel.launches
+    ids, sc, nc = kernel(values, fam.offsets, idx._mults_t, qd, *args,
+                         table=view.k1_table, **kw)
+    ids_p, sc_p, nc_p = plain(values, fam.offsets, idx._mults_t, qd, *args,
+                              **kw)
+    torch.cuda.synchronize()
+    assert kernel.launches == launches + 1
+    assert torch.equal(nc, nc_p) and int(nc.sum()) > 0
+    tol = parity.rerank_bound("euclidean", qd[0], idx.effective_corpus(),
+                              ids_p, sc_p)
+    same = (ids == ids_p) & (ids_p >= 0)
+    assert bool(((sc - sc_p).abs()[same] <= tol[same]).all())
+    assert parity.topk_mismatches(ids, sc, ids_p, sc_p, tol) == 0
+    self_ids, self_sc, _ = idx.query_batch(corpus[qid[:64]], topk=1)
+    assert torch.equal(self_ids[:, 0].long(), qid[:64])
+    _, _, smem = fq_mod.launch_plan(view.k1_table, 1, num_tables=4,
+                                    probes=1, topk=10, expansion=0)
+    occ = occupancy(view.k1_table, 1, smem)
+    assert occ["blocks_per_sm"] >= MIN_BLOCKS[DENSE] == occ["target_blocks"]
+
+
+@pytest.mark.parametrize("kind", ["srp", "cp-e2lsh", "tt-srp"])
+def test_fused_query_dense_kinds_after_mutations(gen, kind):
+    """The other kinds over a dense corpus, capped (live windows), T = 4,
+    after deletes and an insert (two segments): K1's dense branch against
+    its plain version bit for bit on integer-valued rows (exact sums in any
+    order)."""
+    dims, n = (6, 6, 6), 3000
+    from repro_torch.serving.lsh_service import build_service
+    corpus = torch.randint(-1, 2, (n,) + dims, generator=gen,
+                           device="cuda").float()
+    svc = build_service(gen, kind, dims, corpus, num_codes=4, num_tables=4,
+                        rank=2, bucket_width=8.0, bucket_cap=16, probes=4)
+    svc.delete(list(range(0, n, 7)))
+    svc.insert(corpus[:200])
+    q = corpus[torch.randint(0, n, (200,), generator=gen, device="cuda")]
+    _bitwise_vs_plain(svc, as_batch(q), 4)
+
+
+def test_fused_query_dense_launch_refuses_another_plan(gen, monkeypatch):
+    """The C launch recomputes the dense instantiation's threads, blocks
+    per SM and shared bytes, and refuses a plan made with others; rows past
+    ``MAX_DENSE_ROW`` floats raise by name."""
+    corpus, svc = _dense_service(gen, (12, 12, 12), 2000)
+    q = corpus[:64]
+    monkeypatch.setitem(fq_mod.MIN_BLOCKS, fq_mod.DENSE, 2)
+    with pytest.raises(RuntimeError, match="fused_query_launch"):
+        svc.index.query_batch(q)
+    monkeypatch.setitem(fq_mod.MIN_BLOCKS, fq_mod.DENSE, 3)
+    svc.index.query_batch(q)
+    monkeypatch.setattr(fq_mod, "MAX_DENSE_ROW", 1000)
+    with pytest.raises(ValueError, match="MAX_DENSE_ROW"):
+        svc.index.query_batch(q)

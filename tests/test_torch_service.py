@@ -152,5 +152,15 @@ def test_sampled_family_serves_on_cpu():
     ids, scores, n_cand = svc.query_arrays(tb.torch_cp(corpus), topk=1)
     np.testing.assert_array_equal(ids[:, 0], np.arange(40))
     assert (n_cand >= 1).all()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_family(gen, "srp", tb.DIMS, device="cpu")   # dense: queued
+    # the naive kinds build and answer (over a dense corpus and over the
+    # CP one, re-ranked in CP)
+    dense = torch.from_numpy(np.random.default_rng(7).normal(
+        size=(40,) + tb.DIMS).astype(np.float32))
+    for kind, data in (("srp", dense), ("e2lsh", tb.torch_cp(corpus))):
+        svc = build_service(gen, kind, tb.DIMS, data, num_codes=4,
+                            num_tables=3, bucket_width=2.0, device="cpu")
+        ids, _, n_cand = svc.query_arrays(data, topk=1)
+        np.testing.assert_array_equal(ids[:, 0], np.arange(40))
+        assert (n_cand >= 1).all()
+    assert make_family(gen, "srp", tb.DIMS, device="cpu").storage_size() \
+        == 8 * 64

@@ -89,13 +89,20 @@ def jax_family(kind, seed=42, backend="pallas"):
 
 
 def bridge_family(fam):
-    """Reference LSHFamily (CP or TT) -> port LSHFamily on the CPU."""
+    """Reference LSHFamily (any of the six kinds) -> port LSHFamily on the
+    CPU: CP factors, TT cores, or the naive kinds' (L*K, prod d) matrix."""
     p = fam.projection
-    leaves = p.factors if fam.kind.startswith("cp-") else p.cores
+    if fam.kind.startswith("cp-"):
+        leaves = p.factors
+    elif fam.kind.startswith("tt-"):
+        leaves = p.cores
+    else:
+        leaves = (p.matrix,)
     return convert.family_from_numpy(
         fam.kind, [np.asarray(f) for f in leaves], p.scale,
         None if fam.offsets is None else np.asarray(fam.offsets),
-        fam.num_codes, fam.num_tables, fam.bucket_width, "cpu")
+        fam.num_codes, fam.num_tables, fam.bucket_width, "cpu",
+        dims=p.dims)
 
 
 def jax_key(seed):
@@ -130,9 +137,13 @@ def near_tables(tfam, leaves):
 
 
 def leaves_of(x):
-    """A reference CP or TT tensor's factors or cores as numpy arrays."""
-    return [np.asarray(a) for a in
-            (x.factors if hasattr(x, "factors") else x.cores)]
+    """A reference CP or TT tensor's factors or cores as numpy arrays; a
+    dense array as one numpy array."""
+    if hasattr(x, "factors"):
+        return [np.asarray(a) for a in x.factors]
+    if hasattr(x, "cores"):
+        return [np.asarray(a) for a in x.cores]
+    return np.asarray(x)
 
 
 def carry_store(store, device="cpu"):
@@ -145,7 +156,8 @@ def carry_store(store, device="cpu"):
         arrays = dict(corpus_factors=leaves_of(seg.corpus),
                       sorted_keys=np.asarray(seg.sorted_keys),
                       perm=np.asarray(seg.perm), keys=np.asarray(seg.keys),
-                      cap=seg.cap, corpus_scale=seg.corpus.scale)
+                      cap=seg.cap,
+                      corpus_scale=getattr(seg.corpus, "scale", 1.0))
         if hasattr(seg, "counts"):
             arrays["counts"] = seg.counts
         segs.append(arrays)
