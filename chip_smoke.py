@@ -105,6 +105,18 @@ Phases (any failure exits non-zero):
      at K = 1024 (both tiled over hashes), and a TT rank-16 index (2^14
      items of dims (8, 8, 8, 8)) through K4's warp kernel and K1-TT, each
      against its plain version and timed.
+  10. [mixed] (run within 3, 5 and 6, on their services), queries of
+     another format than the corpus's (K1's and K1s's six cross-format
+     branches, ``fused_query_kernel<TR, QR>``): [main]'s
+     first 32 query batches converted exactly (densified; TT by diagonal
+     cores) over [main]'s service (dense x CP, TT x CP), [dense-main]'s
+     (CP x dense, TT x dense) and [cp-as-tt] ([main]'s 2^20 items
+     converted to TT, tt-e2lsh rank 4 through K4: CP x TT, dense x TT),
+     and dense x CP over [shard]'s 4 shards, every batch bit-equal to the
+     single card. Each pair: its branch launched and no plain version,
+     recall@1 (planted) and recall@10 against brute force
+     (``recall_at_k``), batch latency, K1 against its plain version and
+     float64, its time beside its bound and the plain version's.
 
 Every path's kernel counters are zeroed just before it runs and read just
 after: each kernel and each K1 / K1s branch it needs must have launched,
@@ -471,7 +483,12 @@ def counters():
             "e2lsh_quant_plain": e2lsh_quant_plain}
 
 
-BRANCHES = ("multiprobe", "live_window", "segments", "scratch")
+# K1's cross-format branches, "mixed:<query>-<corpus>"
+MIXED_BRANCHES = tuple(f"mixed:{q}-{c}" for q, c in (
+    ("dense", "cp"), ("cp", "dense"), ("dense", "tt"), ("tt", "dense"),
+    ("cp", "tt"), ("tt", "cp")))
+BRANCHES = ("multiprobe", "live_window", "segments", "scratch"
+            ) + MIXED_BRANCHES
 K1_WRAPPERS = ("fused_query", "fused_query_sharded")
 
 
@@ -632,14 +649,17 @@ def phase_main(cell, corpus, qids, queries):
 
 
 def exact_scores(metric, queries, corpus, ids):
-    """(B, topk) re-rank scores of ``ids`` in float64 (0 where -1)."""
+    """(B, topk) re-rank scores of ``ids`` in float64 (0 where -1), qy
+    across the two formats when they differ."""
     import torch
+    from repro_torch.core import contractions
     valid = ids >= 0
     q = queries.with_leaves(t.double() for t in queries.leaves).index(
         (slice(None), None))
     sub = corpus.index(torch.where(valid, ids, 0).long())
     y = sub.with_leaves(t.double() for t in sub.leaves)
-    qq, yy, qy = q.self_inners(), y.self_inners(), q.pair_inners(y)
+    qq, yy = q.self_inners(), y.self_inners()
+    qy = contractions.pair_inners(q, y)
     if metric == "euclidean":
         s = torch.sqrt(torch.clamp(qq + yy - 2.0 * qy, min=0.0))
     else:
@@ -694,6 +714,8 @@ def k1_compare(svc, queries, label, probes=1, corpus=None,
     torch.cuda.synchronize()
     took = branches["scratch"] - took
     name += {"tt": "-TT", "dense": "-dense"}.get(corpus.layout, "")
+    if queries.layout != corpus.layout:
+        name += f" ({queries.layout} queries)"
     if need_scratch and took == 0:
         fail(f"{name} {label}: no compared query took the global scratch, "
              "so it is not held against the plain version")
@@ -777,9 +799,28 @@ def tt_chain_flops(xranks, pranks, dims) -> int:
 
 
 def inner_flops(x, y) -> int:
-    """fp32 operations of one in-format <X, Y> at true ranks: CP, per (r, q)
-    term the N d-long dots and the N-fold product; TT, the chain; dense,
-    one prod(d)-long dot."""
+    """fp32 operations of one <X, Y> at true ranks, the reference's counts:
+    CP, per (r, q) term the N d-long dots and the N-fold product; TT, the
+    chain; dense, one prod(d)-long dot; across formats, the reference's
+    left-to-right sweeps over the dense operand: dense x CP sum_k 2 R
+    prod_{j>=k} d_j (the first factor against the whole row, then one
+    diagonal contraction a mode), dense x TT sum_k 2 r_{k-1} r_k
+    prod_{j>=k} d_j (each core against what is left of the row); CP x TT
+    per mode and state entry (q, e) a d * r-long and a d-long sum."""
+    if x.layout != y.layout:
+        if "dense" in (x.layout, y.layout):
+            other = y if x.layout == "dense" else x
+            dims = tuple(other.dims)
+            if other.layout == "cp":
+                return sum(2 * other.rank * math.prod(dims[k:])
+                           for k in range(len(dims)))
+            r = tuple(other.ranks)
+            return sum(2 * r[k] * r[k + 1] * math.prod(dims[k:])
+                       for k in range(len(dims)))
+        cp, tt = (x, y) if x.layout == "cp" else (y, x)
+        ranks = tt.ranks
+        return sum(2 * cp.rank * c * d * (a + 1)
+                   for d, a, c in zip(tt.dims, ranks, ranks[1:]))
     if x.layout == "dense":
         return 2 * x.row_floats
     if x.layout == "cp":
@@ -944,13 +985,13 @@ def k1_times(svc, queries, k1_args, name, corpus=None):
     # cuda_ms launched every batch 4 times (a warm-up pass, then 3)
     scratch = sum(after[f"{k}:scratch"] - before[f"{k}:scratch"]
                   for k in K1_WRAPPERS) / (4 * len(queries))
-    rq = qs[0].kernel_shape(qs[1])[2]
+    pair = fq.pair_shape(view.k1_table, qs)
     window, may_scratch, smem = fq.launch_plan(
-        view.k1_table, rq, num_tables=kw["num_tables"],
+        view.k1_table, pair.rq, num_tables=kw["num_tables"],
         probes=kw["probes"], topk=kw["topk"],
         expansion=(probing.expansion_size(kw["kind"], kw["num_codes"])
-                   if kw["probes"] > 1 else 0))
-    occ = fq.occupancy(view.k1_table, rq, smem)
+                   if kw["probes"] > 1 else 0), pair=pair)
+    occ = fq.occupancy(view.k1_table, pair.rq, smem, pair.q_layout)
     k1_plain = cuda_ms([lambda: plain(values, offs, mults, qs, **kw)], 2)
     q0 = qs[0]
     k1_bytes, k1_flops, slots, n_cand = k1_work(
@@ -1355,13 +1396,158 @@ def phase_tt_mut(cell) -> None:
 SHARD = dict(shards=4, tt_shards=3)
 
 
-def phase_shard(cell, corpus, qids, queries, main_results):
+# [mixed]: queries of another format than the corpus's, K1's six
+# cross-format branches. [main]'s planted-neighbour queries converted
+# exactly (densified; TT by diagonal cores of TT rank 4), the first
+# ``batches`` batches of 1024 a pair, over [main]'s CP corpus (dense x CP,
+# TT x CP), [dense-main]'s (CP x dense, TT x dense) and [cp-as-tt]
+# ([main]'s 2^20 items converted exactly to TT: CP x TT, dense x TT); and
+# dense x CP over [shard]'s 4 shards. recall@10 against brute force on the
+# first ``recall_queries`` queries of a pair (``recall_at_k``: its
+# cross-format scores in chunks of at most 2^24 intermediate floats).
+# [cp-as-tt] is hashed by tt-e2lsh rank 4, L = K = 10 through K4; w = 2.0 as
+# [main]: a TT-Rademacher projection, like the CP one, has E<T, X>^2 =
+# ||X||^2, so the same width gives buckets of the same scale and a cap near
+# [main]'s (printed beside it).
+MIXED = dict(batches=32, recall_queries=64)
+CP_AS_TT = dict(tag="cp-as-tt", kind="tt-e2lsh", rank=4, codes=10,
+                tables=10, width=2.0)
+
+
+def mixed_batches(queries, layout):
+    """[main]'s first query batches (CP) in ``layout``, exactly."""
+    from repro_torch.core.tensor_formats import cp_to_tt
+    qs = queries[:MIXED["batches"]]
+    if layout == "tt":
+        return [cp_to_tt(q) for q in qs]
+    if layout == "dense":
+        return [densify(q) for q in qs]
+    return list(qs)
+
+
+def phase_mixed(tag, svc, batches, qids):
+    """One cross-format pair through ``svc.query_arrays`` on the card, the
+    counters zeroed just before and read just after: the pair's K1 branch
+    must have launched and no plain version run; recall@1 (planted) at
+    least RECALL1_MIN, recall@10 against brute force (``recall_at_k``),
+    batch latency; K1 against its plain version and float64, and its time
+    beside its bound and the plain version's -> (its record, the
+    results)."""
+    import torch
+    from repro_torch.core.index import recall_at_k
+    idx = svc.index
+    qf = batches[0].layout
+    corpus = idx.effective_corpus()
+    branch = f"fused_query:mixed:{qf}-{corpus.layout}"
+    torch.cuda.synchronize()
+    zero_counts()
+    results, lat_ms = serve(svc, batches)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    latency_line(tag, svc, lat_ms)
+    print(f"[{tag}] launches: {({k: v for k, v in counts.items() if v})}")
+    check_counts(counts, tag, ("fused_query", branch))
+    hits1, n_q = check_results(
+        results, [q.cpu().numpy() for q in qids[:len(batches)]],
+        corpus.leaves[0].shape[0])
+    nr = MIXED["recall_queries"]
+    r10 = recall_at_k(idx, batches[0].index(slice(0, nr)), TOPK)["recall"]
+    print(f"[{tag}] {qf} queries over a {corpus.layout} corpus: recall@1 "
+          f"(planted) {hits1 / n_q:.4f} over {n_q} queries; recall@10 vs "
+          f"brute force {r10:.4f} over {nr}")
+    if hits1 / n_q < RECALL1_MIN:
+        fail(f"{tag}: recall@1 {hits1 / n_q} below {RECALL1_MIN}")
+    err, k1_args = k1_compare(svc, batches[0], f"{tag}, B={len(qids[0])}",
+                              corpus=corpus)
+    k1_t = k1_times(svc, batches, k1_args, f"K1 {tag}", corpus=corpus)
+    return (record(f"fused_query[{tag}]", *K1_SOURCE, counts, branch, err,
+                   k1_t), results)
+
+
+def phase_mixed_main(svc, qids, queries) -> tuple[list, list]:
+    """[mixed] on [main]'s service: dense x CP and TT x CP -> (the records,
+    the dense queries and their answers, for [shard]'s pair)."""
+    out = []
+    dense = mixed_batches(queries, "dense")
+    rec, dense_results = phase_mixed("mixed dense x cp", svc, dense, qids)
+    out.append(rec)
+    out.append(phase_mixed("mixed tt x cp", svc,
+                           mixed_batches(queries, "tt"), qids)[0])
+    return out, (dense, dense_results)
+
+
+def phase_cp_as_tt(cell, corpus, qids, queries) -> list:
+    """[cp-as-tt]: [main]'s 2^20 CP items converted exactly to TT (TT rank
+    4), a tt-e2lsh index through K4, queried with [main]'s CP queries (CP x
+    TT, hashed by the TT projection on CP inputs) and densified (dense x
+    TT) -> their records."""
+    import torch
+    from repro_torch.core.tensor_formats import cp_to_tt
+    from repro_torch.serving.lsh_service import build_service
+    c = CP_AS_TT
+    tt = cp_to_tt(corpus)
+    torch.cuda.synchronize()
+    zero_counts()
+    svc = build_service(torch.Generator(device="cuda").manual_seed(1),
+                        c["kind"], cell["dims"], tt, num_codes=c["codes"],
+                        num_tables=c["tables"], rank=c["rank"],
+                        bucket_width=c["width"], device="cuda")
+    torch.cuda.synchronize()
+    counts = read_counts()
+    del tt
+    st = svc.stats
+    stacked = svc.index.store.base.stacked
+    print(f"[{c['tag']}] build_service over [main]'s {stacked.shape[0]} CP "
+          f"items as TT (ranks {svc.index.effective_corpus().ranks}, "
+          f"{math.prod(stacked.shape[1:])} floats an item stacked, "
+          f"{stacked.numel() * 4 / 2**30:.2f} GiB), {c['kind']} "
+          f"K={c['codes']} L={c['tables']} rank {c['rank']} w={c['width']}: "
+          f"{st.build_s:.3f} s (hash {st.hash_s:.3f} s), cap "
+          f"{svc.index.cap} ([main]'s: see its line); launches "
+          f"{({k: v for k, v in counts.items() if v})}")
+    check_counts(counts, c["tag"], ("tt_inner",))
+    out = [phase_mixed(f"mixed {qf} x tt", svc, mixed_batches(queries, qf),
+                       qids)[0] for qf in ("cp", "dense")]
+    del svc
+    return out
+
+
+def phase_shard_mixed(svc, dense, dense_results):
+    """[shard]'s service with [main]'s densified queries (dense x CP over 4
+    shards): K1s's cross-format branch launched, every batch equal to the
+    single-card answers bit for bit; K1s against its plain version, its
+    time -> its record."""
+    import torch
+    torch.cuda.synchronize()
+    zero_counts()
+    results, lat_ms = serve(svc, dense)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    latency_line("shard-mixed", svc, lat_ms, " dense queries")
+    branch = "fused_query_sharded:mixed:dense-cp"
+    check_counts(counts, "shard-mixed", ("fused_query_sharded", branch))
+    for i, (got, want) in enumerate(zip(results, dense_results)):
+        same_answers(got, want, f"shard-mixed: batch {i} against [mixed "
+                                "dense x cp]")
+    print(f"[shard-mixed] all {len(results)} dense-query batches equal the "
+          "single-card answers bit for bit (ids, scores, candidate counts)")
+    err, k1_args = k1_compare(svc, dense[0], f"shard-mixed, dense x cp, "
+                                             f"S={SHARD['shards']}")
+    k1_t = k1_times(svc, dense, k1_args,
+                    f"K1s dense x cp S={SHARD['shards']}")
+    return record(f"fused_query_sharded[mixed dense x cp, "
+                  f"S={SHARD['shards']}]", *K1S_SOURCE, counts, branch, err,
+                  k1_t)
+
+
+def phase_shard(cell, corpus, qids, queries, main_results, mixed=None):
     """[shard]: [main]'s corpus, family and queries through
     ``build_service(..., shards=4)`` (exact cap, T = 1), counters zeroed
     just before and read just after; every batch's ids, scores and
     candidate counts must equal [main]'s bit for bit (shard-count
     invariance); then K1s against its plain version, its time and a
-    profile."""
+    profile; with ``mixed`` ([mixed dense x cp]'s dense queries and
+    answers) also ``phase_shard_mixed`` -> the records."""
     import torch
     from repro_torch.serving.lsh_service import build_service
     torch.cuda.synchronize()
@@ -1401,8 +1587,11 @@ def phase_shard(cell, corpus, qids, queries, main_results):
     k1_t = k1_times(svc, queries, k1_args, f"K1s S={SHARD['shards']}")
     phase_profile(svc, queries, "shard-profile")
     del summary
-    return record("fused_query_sharded", *K1S_SOURCE, counts,
-                  "fused_query_sharded", k1_err, k1_t)
+    out = [record("fused_query_sharded", *K1S_SOURCE, counts,
+                  "fused_query_sharded", k1_err, k1_t)]
+    if mixed is not None:
+        out.append(phase_shard_mixed(svc, *mixed))
+    return out
 
 
 def phase_shard_mut(cell, corpus, qids, args):
@@ -2083,11 +2272,14 @@ def dense_storage(svc, tag) -> None:
           f"({fam.kind}); the naive method's {naive}")
 
 
-def phase_dense_cell(cell, corpus, qids, queries, profile: bool):
+def phase_dense_cell(cell, corpus, qids, queries, profile: bool,
+                     cp_queries=None):
     """One timed dense cell: ``phase_main`` (recall@1, self-queries,
     recall@10, latency, peak memory), K1-dense against its plain version,
     the dense hash per query batch and K1-dense per batch (CUDA events)
-    beside its byte bound -> the K1 record."""
+    beside its byte bound; with ``cp_queries`` ([main]'s first CP batches)
+    also [mixed] CP x dense and TT x dense on its service -> (the K1
+    records, the summary)."""
     svc, counts, summary, _ = phase_main(cell, corpus, qids, queries)
     dense_storage(svc, cell["tag"])
     fam = svc.index.family
@@ -2101,9 +2293,14 @@ def phase_dense_cell(cell, corpus, qids, queries, profile: bool):
     k1_t = k1_times(svc, queries, k1_args, f"K1-dense {cell['tag']}")
     if profile:
         phase_profile(svc, queries, cell["tag"] + "-profile")
+    records = [record(f"fused_query[{cell['tag']}]", *K1_SOURCE, counts,
+                      "fused_query", k1_err, k1_t)]
+    if cp_queries is not None:
+        records += [phase_mixed(f"mixed {qf} x dense", svc,
+                                mixed_batches(cp_queries, qf), qids)[0]
+                    for qf in ("cp", "tt")]
     del svc, k1_args
-    return record(f"fused_query[{cell['tag']}]", *K1_SOURCE, counts,
-                  "fused_query", k1_err, k1_t), summary
+    return records, summary
 
 
 def phase_dense_small(corpus, cp_corpus, gen) -> None:
@@ -2269,7 +2466,9 @@ def run_dense(args) -> list:
     perm = torch.randperm(n, generator=gen, device="cuda")
     qids = [perm[i * args.batch:(i + 1) * args.batch]
             for i in range(args.batches)]
-    queries = [densify(make_queries(cp, q, gen)) for q in qids]
+    cp_queries = [make_queries(cp, q, gen) for q in qids]
+    queries = [densify(q) for q in cp_queries]
+    cp_queries = cp_queries[:MIXED["batches"]]
     t0 = time.perf_counter()
     corpus = densify(cp)
     torch.cuda.synchronize()
@@ -2282,10 +2481,12 @@ def run_dense(args) -> list:
     records = []
     summaries = {}
     for key, profile in (("main", True), ("cp", False)):
-        rec, summaries[key] = phase_dense_cell(DENSE[key], corpus, qids,
-                                               queries, profile)
-        records.append(rec)
+        recs, summaries[key] = phase_dense_cell(
+            DENSE[key], corpus, qids, queries, profile,
+            cp_queries if key == "main" else None)
+        records += recs
         torch.cuda.empty_cache()
+    del cp_queries
     records += phase_dense_mut(corpus, gen)
     del corpus, queries
     torch.cuda.empty_cache()
@@ -2344,6 +2545,8 @@ def run_cell(layout: str, log2_corpus: int, args) -> list:
     h_t, k1_t, hq_t, hq_err, hq_lib = phase_times(svc, cell, queries,
                                                   k1_args)
     phase_profile(svc, queries, "tt-profile" if layout == "tt" else "profile")
+    mixed_records, mixed = ([], None) if layout == "tt" else \
+        phase_mixed_main(svc, qids, queries)
     key, source, replaces = HASH_RECORDS[layout]
     builds = main["build_launches"]
     records = [dict(record(key + "[build]", source, replaces, counts, key,
@@ -2353,14 +2556,17 @@ def run_cell(layout: str, log2_corpus: int, args) -> list:
                     library_ms=hq_lib),
                record("fused_query" + ("[tt]" if layout == "tt" else ""),
                       *K1_SOURCE, counts, "fused_query", k1_err, k1_t)]
+    records += mixed_records
     del svc, k1_args
     torch.cuda.empty_cache()
     if layout == "tt":
         phase_tt_mut(cell)
         phase_tt_shard(cell)
         return records
-    records.append(phase_shard(cell, corpus, qids, queries, main_results))
-    del main_results
+    records += phase_shard(cell, corpus, qids, queries, main_results, mixed)
+    del main_results, mixed
+    torch.cuda.empty_cache()
+    records += phase_cp_as_tt(cell, corpus, qids, queries)
     torch.cuda.empty_cache()
     records.append(phase_mp(cell, corpus, qids, queries, main))
     torch.cuda.empty_cache()

@@ -3,6 +3,7 @@
 Costs, as in the reference (paper Remarks 1-6):
 
   <CP, CP>     O(N d R^ R)      per-mode Grams
+  <CP, TT>     O(N d max{R^,R}^3)  the chain with an (R^ x r) state
   <TT, TT>     O(N d R^3)       the transfer-matrix chain
   <dense, CP>  O(R d^N)         mode-by-mode contraction, rank axis kept
   <dense, TT>  O(R^2 d^N)       cores swept left to right
@@ -19,9 +20,15 @@ then the scale product; and the TT transfer-matrix chain
     S <- ones(1, 1);  S <- sum_i Gx[:, i, :]^T S Gy[:, i, :] per mode;
     <X, Y> = sx*sy * S                                               (TT)
 
-``gram_sum`` and ``tt_chain`` take leading axes that broadcast, so one code
-serves a single pair, a batch of pairs and a (queries x items) matrix; the
-format classes' ``pair_inners`` call them. Distance and cosine keep the
+and, across formats, each CP rank's rank-1 term through the TT chain
+(``cp_tt_chain``, the reference's ``inner_cp_tt``).
+
+``gram_sum``, ``tt_chain``, ``cp_tt_chain`` and the dense contractions
+(``dense_cp_sum``, ``dense_tt_sum``) take leading axes that broadcast, so
+one code serves a single pair, a batch of pairs and a (queries x items)
+matrix; the format classes' ``pair_inners`` call the same-format ones and
+``pair_inners`` here dispatches on the (x, y) pair of formats, x first as
+in the reference's ``inner(q, y)``. Distance and cosine keep the
 reference's expansion order: sqrt(max(<x,x> + <y,y> - 2<x,y>, 0)) and
 <x,y> / (||x|| ||y||).
 """
@@ -49,23 +56,48 @@ def dense_pair_inners(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     return torch.einsum("...d,...d->...", x, y)
 
 
+_MODES = "abcdefghijklmnopqrstuvw"
+
+
+def dense_cp_sum(x: torch.Tensor, factors) -> torch.Tensor:
+    """sum_r prod_n <x, a_r^(n)> of dense x (..., d_1, ..., d_N) and CP
+    factors (..., d_n, R) whose leading axes broadcast -> (...), before the
+    CP scale: one mode at a time, keeping the rank axis (the reference's
+    tensordot over mode 1, then ``ri...,ir->r...`` per mode), then the sum
+    over the rank. O(R d^N)."""
+    n = len(factors)
+    m = _MODES[:n]
+    t = torch.einsum(f"...{m},...{m[0]}z->...z{m[1:]}", x, factors[0])
+    for k, f in enumerate(factors[1:], start=1):
+        t = torch.einsum(f"...z{m[k:]},...{m[k]}z->...z{m[k + 1:]}", t, f)
+    return t.sum(dim=-1)
+
+
+def dense_tt_sum(x: torch.Tensor, cores) -> torch.Tensor:
+    """<x, G> of dense x (..., d_1, ..., d_N) and TT cores (..., r, d_n, r')
+    whose leading axes broadcast -> (...), before the TT scale: the cores
+    swept left to right through x (the reference's ``ai...,air->r...``).
+    O(R^2 d^N)."""
+    n = len(cores)
+    m = _MODES[:n]
+    t = torch.einsum(f"...{m},...{m[0]}z->...z{m[1:]}", x,
+                     cores[0][..., 0, :, :])
+    for k, c in enumerate(cores[1:], start=1):
+        t = torch.einsum(f"...y{m[k:]},...y{m[k]}z->...z{m[k + 1:]}", t, c)
+    return t[..., 0]
+
+
 def inner_dense_cp(x: torch.Tensor, y: CPTensor) -> torch.Tensor:
     """<X, Y> for dense X (d_1, ..., d_N), CP Y: contract one mode at a
     time, keeping the rank axis. O(R d^N); never forms the d^N projection
     vector of the naive method."""
-    t = torch.tensordot(y.factors[0], x, dims=([0], [0]))  # (R, d2, ..., dN)
-    for f in y.factors[1:]:
-        t = torch.einsum("ri...,ir->r...", t, f)
-    return y.scale * t.sum()
+    return y.scale * dense_cp_sum(x, y.factors)
 
 
 def inner_dense_tt(x: torch.Tensor, y: TTTensor) -> torch.Tensor:
     """<X, Y> for dense X (d_1, ..., d_N), TT Y: sweep the cores left to
     right. O(R^2 d^N)."""
-    t = torch.tensordot(y.cores[0][0], x, dims=([0], [0]))  # (r1, d2, ...)
-    for core in y.cores[1:]:
-        t = torch.einsum("ai...,air->r...", t, core)
-    return y.scale * t.reshape(())
+    return y.scale * dense_tt_sum(x, y.cores)
 
 
 def gram_sum(xfactors, yfactors) -> torch.Tensor:
@@ -107,6 +139,30 @@ def inner_tt_tt(x: TTTensor, y: TTTensor) -> torch.Tensor:
     return (x.scale * y.scale) * tt_chain(x.cores, y.cores)
 
 
+def cp_tt_chain(factors, cores) -> torch.Tensor:
+    """sum over the chain of CP factors (..., d, R^) and TT cores (..., r,
+    d, r') per mode whose leading axes broadcast -> (...) values, before
+    scales: for each CP rank its rank-1 term goes through the TT chain with
+    an (R^ x r) state, S'[q, b] = sum_i A[i, q] sum_a S[q, a] G[a, i, b]
+    (the reference's ``ra,aib,ir->rb``, the state and the core contracted
+    first), then the sum over the ranks."""
+    s = None
+    for a, g in zip(factors, cores):
+        if s is None:               # S = ones(R^, 1): the first core's row 0
+            t = g[..., 0, :, :].unsqueeze(-3)                   # (.., 1, d, b)
+        else:
+            t = torch.einsum("...qa,...aib->...qib", s, g)  # (.., R^, d, b)
+        s = torch.einsum("...qib,...iq->...qb", t, a)
+    return s.sum(dim=(-2, -1))
+
+
+def inner_cp_tt(x: CPTensor, y: TTTensor) -> torch.Tensor:
+    """<X, Y> for X in CP format and Y in TT format (over leading batch axes
+    that broadcast). Cost O(N d max{R^, R}^3): the paper's CP-E2LSH on TT
+    inputs and TT-E2LSH on CP inputs."""
+    return (x.scale * y.scale) * cp_tt_chain(x.factors, y.cores)
+
+
 def _dense_data(x):
     """A dense operand's array (a plain tensor or a ``DenseTensor``), or
     None for a CP or TT one."""
@@ -115,9 +171,25 @@ def _dense_data(x):
     return x.data if x.layout == "dense" else None
 
 
+def pair_inners(x, y) -> torch.Tensor:
+    """<x, y> over leading batch axes that broadcast, for any pair of
+    formats (CP, TT or ``DenseTensor``), scales applied: the same-format
+    pairs through the format's own ``pair_inners``, dense x CP through
+    ``dense_cp_sum``, dense x TT through ``dense_tt_sum`` and CP x TT
+    through ``cp_tt_chain``, in either order."""
+    if x.layout == y.layout:
+        return x.pair_inners(y)
+    if x.layout == "dense" or y.layout == "dense":
+        dense, other = (x, y) if x.layout == "dense" else (y, x)
+        if other.layout == "cp":
+            return other.scale * dense_cp_sum(dense.data, other.factors)
+        return other.scale * dense_tt_sum(dense.data, other.cores)
+    cp, tt = (x, y) if x.layout == "cp" else (y, x)
+    return inner_cp_tt(cp, tt)
+
+
 def inner(x, y) -> torch.Tensor:
-    """<x, y> over {dense, CP, TT} x {dense, CP, TT}, CP x TT excepted: the
-    cross-format pairs are ROADMAP.md §1 item 5. A dense operand is a
+    """<x, y> over {dense, CP, TT} x {dense, CP, TT}. A dense operand is a
     plain tensor or a ``DenseTensor``."""
     dx, dy = _dense_data(x), _dense_data(y)
     if dx is not None and dy is not None:
@@ -127,11 +199,7 @@ def inner(x, y) -> torch.Tensor:
         if other.layout == "cp":
             return inner_dense_cp(dense, other)
         return inner_dense_tt(dense, other)
-    if x.layout != y.layout:
-        raise NotImplementedError(
-            f"inner of {type(x).__name__} and {type(y).__name__} is queued "
-            "in ROADMAP.md §1 item 5 (cross-format pairs)")
-    return x.pair_inners(y)
+    return pair_inners(x, y)
 
 
 def norm(x) -> torch.Tensor:

@@ -47,7 +47,7 @@ from typing import Any
 import numpy as np
 import torch
 
-from repro_torch.core import segments
+from repro_torch.core import contractions, segments
 from repro_torch.core.lsh import LSHFamily, make_mults
 from repro_torch.core.probing import QUERY_MODES
 from repro_torch.core.segments import (SegmentStore, bucket_keys,
@@ -484,13 +484,33 @@ class ShardedLSHIndex(_SegmentedIndex):
 # ---------------------------------------------------------------------------
 
 
+def _cross_floats(queries, corpus) -> int:
+    """Floats of the largest intermediate of one cross-format <Q, Y> (0 for
+    a same-format pair): R * prod d / d_1 for a dense operand against CP or
+    TT rows (the contraction's first step), R^ * d * r for CP x TT."""
+    a, b = queries, corpus
+    if a.layout == b.layout:
+        return 0
+    if "dense" in (a.layout, b.layout):
+        dense, other = (a, b) if a.layout == "dense" else (b, a)
+        return other.rank * dense.row_floats // dense.dims[0]
+    return a.rank * b.rank * max(a.dims)
+
+
 def _score_matrix(metric: str, queries, corpus,
                   chunk: int | None = None) -> torch.Tensor:
-    """(B, n) exact in-format scores, the corpus taken ``chunk`` items at a
-    time (by default 2^21 floats of item rows, so that the (B, chunk) Grams
-    or TT chain steps bound the memory)."""
+    """(B, n) exact scores, qq in the queries' format, yy in the corpus's and
+    qy across the two (``contractions.pair_inners``), the corpus taken
+    ``chunk`` items at a time (by default 2^21 floats of item rows, so that
+    the (B, chunk) Grams or TT chain steps bound the memory, and for a
+    cross-format pair at most 2^24 floats of its contraction's
+    intermediate)."""
     if chunk is None:
         chunk = max(1, (1 << 21) // corpus.row_floats)
+        cross = _cross_floats(queries, corpus)
+        if cross:
+            b = max(1, queries.leaves[0].shape[0])
+            chunk = max(1, min(chunk, (1 << 24) // (b * cross)))
     qq = queries.self_inners()
     qb = queries.index((slice(None), None))
     n = corpus.leaves[0].shape[0]
@@ -498,7 +518,7 @@ def _score_matrix(metric: str, queries, corpus,
     for s in range(0, n, chunk):
         part = corpus.index(slice(s, min(s + chunk, n)))
         yy = part.self_inners()
-        qy = qb.pair_inners(part.index((None,)))
+        qy = contractions.pair_inners(qb, part.index((None,)))
         if metric == "euclidean":
             d2 = qq[:, None] + yy[None] - 2.0 * qy
             out.append(torch.sqrt(torch.clamp(d2, min=0.0)))

@@ -16,12 +16,12 @@ int32 codes, ``hash_keys`` to (B, L) bucket keys and, for the SRP kinds,
   * CP inputs under a CP family, TT under TT: ``ops.fused_hash``, the K3
     (CP) or K4 (TT) kernel when the inputs lie on the card, its plain
     version when they lie on the CPU (the reference's ``fused_hash``);
-  * a dense projection (``e2lsh``, ``srp``) on inputs of any format, and a
-    CP or TT projection on dense inputs: ``ops.dense_hash``, the fp32
-    matrix products of ``projections.project_batch`` and the torch tails
-    (the reference's XLA path; it has no kernel for these pairs).
+  * every other pair (a dense projection (``e2lsh``, ``srp``) on inputs of
+    any format, a CP or TT projection on dense inputs, CP inputs under a TT
+    family and TT under CP): ``ops.dense_hash``, the fp32 products and
+    contractions of ``projections.project_batch`` and the torch tails (the
+    reference's XLA path; it has no kernel for these pairs).
 
-CP inputs under a TT family and TT under CP are ROADMAP.md §1 item 5.
 There is no backend knob; the tensors' device decides.
 
 Bucket keys are uint32 values held in int64 tensors in [0, 2^32): the radix
@@ -134,15 +134,10 @@ class LSHFamily:
         return self.projection.stacked(self.num_tables)
 
     def check_inputs(self, xs) -> None:
-        """Raise unless ``xs`` is a batch this family hashes (its own
-        format, any format under a dense projection, or dense inputs) of
-        its mode dims."""
+        """Raise unless ``xs`` is a batch of this family's mode dims (any
+        format: CP on CP and TT on TT hash through K3 / K4, every other
+        pair through ``projections.project_batch``)."""
         p = self.projection
-        if xs.layout not in (p.layout, "dense") and p.layout != "dense":
-            raise NotImplementedError(
-                f"a {self.kind} family hashes {self.input_format.__name__} "
-                f"and dense inputs; {type(xs).__name__} under it is queued "
-                "in ROADMAP.md §1 item 5 (cross-format pairs)")
         if tuple(xs.dims) != tuple(p.dims):
             raise ValueError(f"inputs of dims {xs.dims} under a family of "
                              f"dims {p.dims}")

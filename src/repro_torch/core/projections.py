@@ -11,11 +11,15 @@ The LSH families hash the raw <P, X> (no 1/sqrt(K)), so ``normalize``
 defaults to False.
 
 ``project_batch`` gives (B, K) values for every pair the reference's
-does but CP x TT (ROADMAP.md §1 item 5):
+does:
 
   * CP on CP, TT on TT: the format's ``pair_inners``, the oracle the tests
     hold K3 / K4 against (the hash path runs those kernels,
     ``repro_torch.kernels.ops.fused_hash``);
+  * CP on TT inputs and TT on CP inputs: each CP rank's rank-1 term through
+    the TT chain (``contractions.cp_tt_chain``; the reference's
+    ``_project_cp_on_tt_batch`` / ``_project_tt_on_cp_batch``), an (R^ x r)
+    state per (row, hash);
   * CP or TT on dense inputs: the K projection tensors densified once per
     projection (``materialized``, cached) and one (B, prod d) x (prod d, K)
     matrix product, or, when the densified stack would pass
@@ -25,9 +29,10 @@ does but CP x TT (ROADMAP.md §1 item 5):
     matrix product (``_project_dense_on_any_batch``, the paper's reshape
     baseline).
 
-These dense pairs are the hash path itself (the reference computes them in
-XLA, outside any Pallas kernel): fp32 matrix products with TF32 off
-(``import repro_torch`` turns it off). Each runs over fixed chunks of rows
+These dense and cross-format pairs are the hash path itself (the reference
+computes them in XLA, outside any Pallas kernel): fp32 matrix products and
+contractions with TF32 off (``import repro_torch`` turns it off). Each runs
+over fixed chunks of rows
 (``chunk_rows``, the last zero-padded), so every row's value comes from a
 product of the same shape whatever the batch: a corpus hashed 65,536 items
 at a time and the same items queried 1,024 at a time get the same raw
@@ -43,6 +48,7 @@ from typing import Sequence
 
 import torch
 
+from repro_torch.core.contractions import cp_tt_chain
 from repro_torch.core.tensor_formats import (CPTensor, DenseTensor, TTTensor,
                                              _tt_core_shapes)
 
@@ -252,13 +258,17 @@ def _can_materialize(p) -> bool:
 # ---------------------------------------------------------------------------
 
 
-def chunk_rows(p) -> int:
+def chunk_rows(p, xs=None) -> int:
     """Rows of one fixed-shape product of ``p`` on ``xs``: ``MATMUL_ROWS``
     for a matrix product, fewer for the chain (its intermediate holds
-    K * R * prod d / d_1 floats a row). Depends on the shapes only."""
-    if isinstance(p, DenseProjection) or p.materialized is not None:
+    K * R * prod d / d_1 floats a row) and for a cross-format pair (K * R^ *
+    d * r a row). Depends on the shapes and ranks only."""
+    if xs is not None and xs.layout not in ("dense", p.layout):
+        per_row = p.num_hashes * p.rank * xs.rank * max(p.dims)
+    elif isinstance(p, DenseProjection) or p.materialized is not None:
         return MATMUL_ROWS
-    per_row = p.num_hashes * p.rank * math.prod(p.dims[1:])
+    else:
+        per_row = p.num_hashes * p.rank * math.prod(p.dims[1:])
     return max(1, min(MATMUL_ROWS, CHAIN_FLOATS // per_row))
 
 
@@ -322,6 +332,15 @@ def _project_dense_on_chunk(p: DenseProjection, xs) -> torch.Tensor:
     return p.scale * (densify_batch(xs) @ p.matrix.T)
 
 
+def _project_cross_chunk(p, xs) -> torch.Tensor:
+    """(rows, K) values of a CP projection on TT rows or a TT projection on
+    CP rows: the chain with an (R^ x r) state per (row, hash)."""
+    proj = [a[None] for a in p.leaves]                    # (1, K, ...)
+    rows = [a[:, None] for a in xs.leaves]                # (rows, 1, ...)
+    cp, tt = (proj, rows) if p.layout == "cp" else (rows, proj)
+    return (xs.scale * p.scale) * cp_tt_chain(cp, tt)
+
+
 def project_batch(p, xs) -> torch.Tensor:
     """Apply a projection family to a batch (leading axis on every leaf)
     -> (B, K) values (see the module docstring for the pairs)."""
@@ -332,8 +351,7 @@ def project_batch(p, xs) -> torch.Tensor:
         return _by_chunks(functools.partial(_project_on_dense_chunk, p), xs,
                           chunk_rows(p), p.num_hashes)
     if xs.layout != p.layout:
-        raise NotImplementedError(
-            f"{type(p).__name__} on {type(xs).__name__} is queued in "
-            "ROADMAP.md §1 item 5 (cross-format pairs)")
+        return _by_chunks(functools.partial(_project_cross_chunk, p), xs,
+                          chunk_rows(p, xs), p.num_hashes)
     return xs.index((slice(None), None)).pair_inners(
         p.input_format(p.leaves, p.scale))

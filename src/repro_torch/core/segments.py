@@ -45,6 +45,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from repro_torch.core import contractions
 from repro_torch.core.tensor_formats import CPTensor, TTTensor
 from repro_torch.kernels.ops import unstack_like
 
@@ -813,16 +814,19 @@ class SegmentStore:
 def hoisted_scores(metric: str, queries, corpus, safe: torch.Tensor,
                    chunk: int = 64) -> torch.Tensor:
     """Exact re-rank scores of gathered candidates (``safe`` is the (B, W)
-    clamped candidate matrix): <Y, Y> per corpus item once, <Q, Q> per query,
-    <Q, Y> per (query, candidate), in format (CP Grams or the TT chain,
-    ``chunk`` queries at a time so that the gathered (chunk, W) rows bound
-    the memory), combined in the reference's expression and order:
-    sqrt(max(qq + yy - 2 qy, 0)) or qy / (nq * ny)."""
+    clamped candidate matrix): <Y, Y> per corpus item once in the corpus's
+    format, <Q, Q> per query in the query's, <Q, Y> per (query, candidate)
+    across the two (``contractions.pair_inners``: CP Grams, the TT chain, a
+    dot, or a cross-format contraction), ``chunk`` queries at a time so
+    that the gathered (chunk, W) rows bound the memory, combined in the
+    reference's expression and order: sqrt(max(qq + yy - 2 qy, 0)) or
+    qy / (nq * ny)."""
     yy = corpus.self_inners()                             # (m,)
     qq = queries.self_inners()                            # (B,)
     qy = torch.cat([
-        queries.index(slice(s, s + chunk)).index((slice(None), None))
-        .pair_inners(corpus.index(safe[s:s + chunk]))
+        contractions.pair_inners(
+            queries.index(slice(s, s + chunk)).index((slice(None), None)),
+            corpus.index(safe[s:s + chunk]))
         for s in range(0, max(safe.shape[0], 1), chunk)], dim=0)  # (B, W)
     if metric == "euclidean":
         d2 = qq[:, None] + yy[safe] - 2.0 * qy

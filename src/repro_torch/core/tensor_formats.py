@@ -355,6 +355,34 @@ def cp_to_dense(x: CPTensor) -> torch.Tensor:
     return x.scale * acc.sum(dim=-1)
 
 
+def cp_to_tt(x: CPTensor) -> TTTensor:
+    """A CP tensor (or batch) of rank R -> the same tensor in TT format,
+    exactly: the first core is the first factor (1, d, R), the last the last
+    factor transposed (R, d, 1), and each interior core is diagonal in its
+    two rank axes, G[r, i, r] = A[i, r]. TT rank R; every entry is one
+    product of factor entries, so no rounding is added. A one-mode tensor
+    is the vector sum_r A[:, r], one (1, d, 1) core (its fp32 sum the only
+    rounding). Scale kept."""
+    n, r = len(x.factors), x.rank
+    if n == 1:
+        f = x.factors[0]
+        core = f.sum(-1).reshape(f.shape[:-2] + (1, f.shape[-2], 1))
+        return TTTensor((core.contiguous(),), x.scale)
+    cores = []
+    for k, f in enumerate(x.factors):
+        lead, d = f.shape[:-2], f.shape[-2]
+        if k == 0:
+            core = f.reshape(lead + (1, d, r))
+        elif k == n - 1:
+            core = f.transpose(-1, -2).reshape(lead + (r, d, 1))
+        else:
+            core = f.new_zeros(lead + (r, d, r))
+            idx = torch.arange(r, device=f.device)
+            core[..., idx, :, idx] = f.movedim(-1, 0)
+        cores.append(core.contiguous())
+    return TTTensor(tuple(cores), x.scale)
+
+
 def tt_to_dense(x: TTTensor) -> torch.Tensor:
     """Materialize one TT tensor by sequential core contraction. Test
     oracle only: O(d^N) memory."""

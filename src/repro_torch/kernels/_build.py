@@ -47,15 +47,16 @@ SIGNATURES = {
     # D, RX, RP, block items, block hashes, out
     "tt_inner_occupancy": [_I] * 5 + [_P],
     # values, offsets, mults, pairs, q, segment table, S, ids, scores,
-    # ncand, B, L, K, T, C, N, D, RQ, RC, topk, e2, euclid, tt, w, qs,
-    # window, scratch, scratch window, scratch query counter, the planned
-    # threads, blocks per SM and shared bytes (checked), stream
-    "fused_query_launch": [_P] * 6 + [_I] + [_P] * 3 + [_I] * 13
-                          + [_F, _D, _I, _P, _I, _P, _I, _I,
+    # ncand, B, L, K, T, C, N, D, RQ, RC, topk, e2, euclid, fmt, qfmt, w,
+    # qs, window, scratch, scratch window, scratch query counter, the
+    # densified queries' scratch, dims, DF, the planned threads, blocks per
+    # SM and shared bytes (checked), stream
+    "fused_query_launch": [_P] * 6 + [_I] + [_P] * 3 + [_I] * 14
+                          + [_F, _D, _I, _P, _I, _P, _P, _P, _I, _I, _I,
                              ctypes.c_size_t, _P],
-    # tt, RQ, RC, shared bytes, out (registers, blocks per SM, local bytes,
-    # target blocks per SM)
-    "fused_query_occupancy": [_I, _I, _I, ctypes.c_size_t, _P],
+    # fmt, qfmt, RQ, RC, shared bytes, out (registers, blocks per SM, local
+    # bytes, target blocks per SM)
+    "fused_query_occupancy": [_I, _I, _I, _I, ctypes.c_size_t, _P],
     # values, out, B, K, the plan's threads, blocks, rows a chunk, pieces a
     # row and path (1 vector, 0 scalar; checked), stream
     "srp_pack_launch": [_P, _P, ctypes.c_longlong] + [_I] * 6 + [_P],

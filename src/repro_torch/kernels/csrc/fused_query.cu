@@ -1,1019 +1,32 @@
-// K1: one launch from a query batch's raw projections to (id, score) top-k
-// over every segment of a store, for Hopper (sm_90a).
-//
-// Replaces the TPU kernel repro/kernels/fused_query.py::_fused_query_kernel
-// (the pl.pallas_call in fused_query), with its multi-probe expansion
-// (_expand_probe_keys), the probe helpers of repro/kernels/epilogues.py
-// (dense and live windows) and the re-rank of
-// repro/core/segments.py::hoisted_scores, for CP, TT and dense corpora (the
-// template argument TR picks the format: 0 CP, kDense = 1 dense rows, else
-// the TT rank bound 4, 8 or 16).
-// It also serves K1s, repro/kernels/fused_query.py::fused_query_sharded (the
-// same pl.pallas_call over every (shard, segment) pair of a sharded store):
-// the wrapper's segment table then holds one row per pair, shard-major,
-// each a shard's slice of a base or delta slab with its own m (the shard's
-// slot count) and cap. Pad slots of a shard carry the perm entry m and
-// live[m] is 0, so a probe that lands on one, even through a pad-key
-// collision, is a miss like a tombstone; effective ids are unique across
-// shards, so the top-k over the rows is the reference's S-way merge. One
-// block serves one query (12 warps for CP, 8 for TT and dense: Shape below):
-//
-//   1. keys, one warp per table: discretize the table's K raw values
-//      (floor((v + b) / w) or v > 0) and radix-combine them into the base
-//      key; with T > 1 also the expansion: singles ((1 - r)^2, r^2 with
-//      deltas +-mults for E2LSH; |v| with the flip's delta for SRP), the
-//      pair sums over the static distinct-coordinate pairs (__fadd_rn,
-//      uint32 wrap), and T - 1 rounds of a warp argmin that picks the next
-//      candidate after the last one in (score, index) order: a stable
-//      ascending top-(T-1), ties to the lower index. Slot 0 is the base key
-//      and slots past the C candidates repeat it;
-//   2. per segment (the segment table's rows, in slot-offset order), one
-//      warp per (table, probe): a 33-ary search (each step one key load a
-//      lane, a ballot, a shuffle) for the bucket start (side='left'), then
-//      for the dense window a second one bounded by start + cap (the bucket
-//      is contiguous in sorted order, so [start, end) is the reference's
-//      masked cap-wide window), or for the live window a side='right' one
-//      over the rest of the table and the live ranks rank0 =
-//      live_rank[start], min(cap, live_rank[end] - rank0) slots;
-//   3. dedup into a hash set of ids: a thread per window slot reads its id
-//      (perm of the dense window, tombstoned slots skipped; perm[live_pos[
-//      rank0 + j]] of the live one) and inserts it by atomicCAS with linear
-//      probing into a set of 2 * pow2(W) slots, W the slots the query
-//      filled in this segment (across the T probes of a table too); each
-//      successful insert, a distinct live id, goes onto the candidate list,
-//      so its length equals the reference's dedup_windows count; local ids
-//      are per segment, so dedup is per segment and the candidate count is
-//      the sum over segments;
-//   4. exact re-rank in format, warp w taking list entries w, w + warps,
-//      ...: qy and yy from the candidate's CP factor rows, TT core row or
-//      dense row, qq once per query, combined in the reference's order
-//      sqrt(max((qq + yy) - 2 qy, 0)) or qy / (nq * ny), and the 64-bit
-//      selection key (order_key_bits(score) << 32) | eff entered into the
-//      warp's running top-k (an ascending list in shared memory, entered
-//      only below its last key);
-//   5. the warps' lists merged by rank (a key's rank is its index in its
-//      list plus, by binary search, the keys of the other lists below it):
-//      the key is a strict total order on valid slots (effective ids are
-//      unique in a store), so the top-k over the warps and segments equals
-//      the reference's one packed_select over their concatenation; then
-//      ids, scores and the candidate count are written.
-//
-// What bounds it on the H100: issue slots and latency, not bytes. A query
-// reads its L*K values, its own factors, the keys its searches touch, the
-// perm / live / live_rank / live_pos entries of its windows and one corpus
-// row per distinct candidate (576 B for the CP cell, 4 KiB padded for the
-// TT cell): 69 MB a batch of 1024 on [main], 0.02 ms at HBM's rate. The
-// re-rank is the work: per candidate and warp a few hundred instructions
-// (CP: each lane one Gram term, 36 FMA and 72 shared loads; TT: each lane
-// one entry of a chain state, 16 FMA and 8 shared loads per slice), one
-// candidate after another. Measured per stage before this design (clock64
-// per block): the re-rank 63% of a block on [main] and 87% on [tt-main]
-// (a row's load 1.5k-6.2k cycles, then its score 4.0k-21.7k), the 20-step
-// binary searches 18% (35% over [shard]'s 4 segments), the window's two
-// bitonic sorts and the serial merge 12%; the worst-case window (12 bytes
-// a slot of pow2(L*T*cap)) left room for 1-2 blocks per SM, 1 for TT. And
-// a block's time follows its query's candidates, which are skewed (the
-// largest of a batch of 1024 has ~10x the mean), so the last blocks of a
-// launch set its end.
-//
-// What the design does about it. Occupancy: the shared window has a fixed
-// capacity (wcap slots, 12 bytes each: 8 for the hash set, 4 for the list)
-// that the wrapper chooses so that the instantiation's blocks per SM fit
-// (Shape, also its __launch_bounds__), not the worst case; a query whose
-// pow2(W) exceeds it in a segment uses its own row of a global scratch
-// instead (the same code through a generic pointer; the wrapper allocates
-// it once per store view with its sets empty and empties it again when a
-// launch lays its rows out at another stride, and each segment empties the
-// set it used), and the launch counts such queries. Latency: a warp's search
-// takes 4 dependent loads instead of 20; each warp stages the next
-// candidate's row into the other half of a double buffer with cp.async
-// (16-byte copies where the rows allow) and loads its effective id before
-// it scores the current one, so a row's round trip overlaps the previous
-// candidate's arithmetic. Issue slots: the hash set and the warps' lists
-// replace the two sorts and the serial merge; the TT chain steps one
-// pointer per row of A and B instead of computing each slice's index
-// (71 -> about 40 instructions a slice). Heavy queries: a CP block has 12
-// warps, each scoring two candidates at once (two independent FMA chains a
-// lane), so a query's candidates spread over 24 chains instead of 8.
-//
-// TT rows of ranks above 8 (TR = 16) are read in place from the corpus
-// instead of being staged (a 16 x 8 x 16 core per mode would not fit eight
-// warps' buffers), and the chain state is read from shared memory instead
-// of a register tile.
-//
-// Dense rows (TR = kDense; the naive kinds and the tensorized ones over a
-// dense corpus: the reference's hoisted_scores on dense rows, jnp.vdot) are
-// long (6,912 bytes at (12, 12, 12), 256 KiB at (16, 16, 16, 16)) and read
-// once each, so the work is bytes: about n_cand * prod(d) * 4 a batch. No
-// row is staged: the query's row is copied into shared memory once while it
-// holds at most kDenseStage floats (else it too is read in place), and each
-// warp reads two candidates' rows in place at once, lane-strided, four
-// 16-byte loads a row in flight a lane (where prod(d) % 4 == 0 and both
-// rows are 16-byte aligned; otherwise four 4-byte loads, as K6's two paths
-// do), the two sums qy and yy in one pass over a row, then a warp
-// butterfly. Rows of up to kMaxDenseRow floats (Table 1's (16, 16, 16, 16))
-// are taken; the launch refuses longer ones.
-//
-// Rounding: the score combine uses __fadd_rn / __fsub_rn / __fmul_rn /
-// __fdiv_rn so no FMA contraction changes the reference's expression, and
-// the E2LSH divide is IEEE (__fdiv_rn), never a multiply by 1/w; the
-// expansion's squares and sums are __fmul_rn / __fadd_rn as in JAX. Each
-// lane scores the same Gram terms or chain entries with the same FMAs in
-// the same order as before this design, so the scores, and with them every
-// output, are unchanged bit for bit.
+// K1's same-format instantiations and its C entry points; the kernel is
+// fused_query.cuh's fused_query_kernel<TR, QR> (its note says what it
+// replaces, what bounds it and what its design does about that), and the
+// cross-format pairs are instantiated in fused_query_mixed.cu, so that nvcc
+// builds the two sets side by side.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "fused_query.cuh"
 
 namespace {
 
-constexpr uint32_t kEmpty = 0xFFFFFFFFu;   // an empty hash slot, a pad key
-constexpr unsigned long long kPadSlot = 0xFFFFFFFFFFFFFFFFull;
-constexpr unsigned kFull = 0xffffffffu;
-constexpr int kDense = 1;            // TR of the dense-row instantiation
-constexpr int kDenseStage = 8192;    // the longest query row staged (floats)
-constexpr int kMaxDenseRow = 65536;  // the longest dense row K1 takes
-// Threads of one query's block, the blocks per SM each instantiation is
-// built for (its __launch_bounds__; the wrapper sizes the shared window so
-// that they fit) and the candidates a warp scores at once: CP 12 warps, 2
-// blocks (at most 85 registers, so none spill), two candidates; TT 8 warps
-// (two 4 KiB row buffers each), rank <= 4 3 blocks, rank <= 16 2, rank <= 8
-// 1 (its register tile), one candidate; dense 8 warps, 3 blocks, two
-// candidates (rows read in place, no buffers).
-template <int TR>
-struct Shape {
-  static constexpr int per_warp = TR <= kDense ? 2 : 1;
-  static constexpr int threads = TR == 0 ? 384 : 256;
-  static constexpr int min_blocks = TR == 0 ? 2
-                                    : TR == kDense || TR == 4 ? 3
-                                    : TR == 16 ? 2 : 1;
-};
-
-__device__ __forceinline__ float scale_mul(float s, float v) {
-  return __fmul_rn(s, v);
+// Shape<TR, QR>'s values of an instantiation, for the plan checks.
+int threads_of(int tr, int qr) {
+  if (tr != qr) return Shape<0, kDense>::threads;
+  return tr == 0 ? Shape<0, 0>::threads : Shape<4, 4>::threads;
 }
 
-// prod_n sum_d a[k][n][d][r] * b[k][n][d][q] added to t[k], for G pairs of
-// CP factors stacked (N, D, R*) row-major at once: the (r, q) terms of G
-// inner products, each with the same FMAs in the same order as alone, their
-// chains interleaved.
-template <int G>
-__device__ __forceinline__ void pair_terms(const float* const* a, int RA,
-                                           const float* const* b, int RB,
-                                           int N, int D, int r, int q,
-                                           float* t) {
-  float prod[G];
-#pragma unroll
-  for (int k = 0; k < G; ++k) prod[k] = 0.f;
-  for (int n = 0; n < N; ++n) {
-    float dot[G];
-    const float* an[G];
-    const float* bn[G];
-#pragma unroll
-    for (int k = 0; k < G; ++k) {
-      dot[k] = 0.f;
-      an[k] = a[k] + (size_t)n * D * RA + r;
-      bn[k] = b[k] + (size_t)n * D * RB + q;
-    }
-#pragma unroll 4
-    for (int d = 0; d < D; ++d)
-#pragma unroll
-      for (int k = 0; k < G; ++k) dot[k] += an[k][d * RA] * bn[k][d * RB];
-#pragma unroll
-    for (int k = 0; k < G; ++k) prod[k] = (n == 0) ? dot[k] : prod[k] * dot[k];
-  }
-#pragma unroll
-  for (int k = 0; k < G; ++k) t[k] += prod[k];
-}
-
-// One warp steps up to two TT transfer-matrix chains at once, <A1, B1> and
-// <A2, B2> (ra2 = 0 for one chain), over rows in the padded (N, R, D, R)
-// layout, ranks at most TR: lanes own entries (c, e) of the ra x rb states,
-// kept in st (2 * (ra1*rb1 + ra2*rb2) floats of shared memory: the states
-// and their next values). Per mode a lane reads its chain's state into
-// registers once, then per slice i issues its TR loads of B and TR of A
-// together and does TR*TR + TR FMA:
-//   S'[c][e] = sum_i sum_x A[x][i][c] sum_y S[x][y] B[y][i][e].
-// Starts from e_00 and returns S[0][0] of each chain to every lane.
-template <int TR>
-__device__ void tt_chains(const float* a1, int ra1, const float* b1, int rb1,
-                          const float* a2, int ra2, const float* b2, int rb2,
-                          int N, int D, float* st, int lane, float* v1,
-                          float* v2) {
-  const int n1 = ra1 * rb1, tot = n1 + ra2 * rb2;
-  float* nxt = st + tot;
-  for (int p = lane; p < tot; p += 32) st[p] = (p == 0 || p == n1) ? 1.f : 0.f;
-  __syncwarp();
-  for (int n = 0; n < N; ++n) {
-    for (int p = lane; p < tot; p += 32) {
-      const bool one = p < n1;
-      const int ra = one ? ra1 : ra2, rb = one ? rb1 : rb2;
-      const int q = one ? p : p - n1;
-      const int c = q / rb, e = q - c * rb;
-      const float* s = one ? st : st + n1;
-      const float* an = (one ? a1 : a2) + (size_t)n * ra * D * ra + c;
-      const float* bn = (one ? b1 : b2) + (size_t)n * rb * D * rb + e;
-      float acc = 0.f;
-      if constexpr (TR <= 8) {
-        float sr[TR][TR];
-#pragma unroll
-        for (int x = 0; x < TR; ++x)
-#pragma unroll
-          for (int y = 0; y < TR; ++y)
-            sr[x][y] = (x < ra && y < rb) ? s[x * rb + y] : 0.f;
-        // one pointer a row of B and of A, stepped by a slice: a load and
-        // an add each, no index arithmetic
-        const float* bp[TR];
-        const float* ap[TR];
-#pragma unroll
-        for (int y = 0; y < TR; ++y) bp[y] = bn + y * D * rb;
-#pragma unroll
-        for (int x = 0; x < TR; ++x) ap[x] = an + x * D * ra;
-        for (int i = 0; i < D; ++i) {
-          float bv[TR], av[TR];
-#pragma unroll
-          for (int y = 0; y < TR; ++y) {
-            bv[y] = y < rb ? *bp[y] : 0.f;
-            bp[y] += rb;
-          }
-#pragma unroll
-          for (int x = 0; x < TR; ++x) {
-            av[x] = x < ra ? *ap[x] : 0.f;
-            ap[x] += ra;
-          }
-#pragma unroll
-          for (int x = 0; x < TR; ++x) {
-            float u = 0.f;
-#pragma unroll
-            for (int y = 0; y < TR; ++y) u += sr[x][y] * bv[y];
-            acc += av[x] * u;
-          }
-        }
-      } else {  // a TR x TR state does not fit a lane's registers
-        for (int i = 0; i < D; ++i) {
-          float bv[TR];
-#pragma unroll
-          for (int y = 0; y < TR; ++y)
-            bv[y] = y < rb ? bn[(y * D + i) * rb] : 0.f;
-          for (int x = 0; x < ra; ++x) {
-            const float* sx = s + x * rb;
-            float u = 0.f;
-#pragma unroll
-            for (int y = 0; y < TR; ++y) u += (y < rb ? sx[y] : 0.f) * bv[y];
-            acc += an[(x * D + i) * ra] * u;
-          }
-        }
-      }
-      nxt[p] = acc;
-    }
-    __syncwarp();
-    for (int p = lane; p < tot; p += 32) st[p] = nxt[p];
-    __syncwarp();
-  }
-  *v1 = st[0];
-  *v2 = tot > n1 ? st[n1] : 0.f;
-  __syncwarp();
-}
-
-// tt_chains compiled on its own (not inlined): for rows read in place
-// (TR = 16) it keeps the scheduling it has alone, which the re-rank loop's
-// staging state around an inlined copy costs about 3%.
-template <int TR>
-__device__ __noinline__ void tt_chains_far(const float* a1, int ra1,
-                                           const float* b1, int rb1,
-                                           const float* a2, int ra2,
-                                           const float* b2, int rb2, int N,
-                                           int D, float* st, int lane,
-                                           float* v1, float* v2) {
-  tt_chains<TR>(a1, ra1, b1, rb1, a2, ra2, b2, rb2, N, D, st, lane, v1, v2);
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-// qy[k] = <q, y_k> and yy[k] = <y_k, y_k> over D floats for G rows y_k at
-// once, every lane of the warp returning them: lane i sums units i, i + 32,
-// ... (float4 units where vec, else floats) in order, loading four units
-// of every row before it uses any, then a butterfly. q may lie in shared
-// or global memory; the rows lie in global memory and are read through the
-// read-only path (kNc), or, for the query's own norm, may lie in shared
-// memory and are read with plain loads.
-template <bool kNc, typename T>
-__device__ __forceinline__ T load_row(const T* p) {
-  if constexpr (kNc) return __ldg(p);
-  else return *p;
-}
-
-template <int G, bool kNc = true>
-__device__ __forceinline__ void dense_dots(const float* q,
-                                           const float* const* y, int D,
-                                           bool vec, int lane, float* qy,
-                                           float* yy) {
-  float aq[G], ay[G];
-#pragma unroll
-  for (int k = 0; k < G; ++k) aq[k] = ay[k] = 0.f;
-  if (vec) {
-    const int n = D >> 2;
-    const float4* q4 = reinterpret_cast<const float4*>(q);
-    int i = lane;
-    for (; i + 96 < n; i += 128) {
-      float4 yv[G][4];
-#pragma unroll
-      for (int k = 0; k < G; ++k)
-#pragma unroll
-        for (int u = 0; u < 4; ++u)
-          yv[k][u] = load_row<kNc>(reinterpret_cast<const float4*>(y[k]) +
-                                   i + 32 * u);
-#pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        const float4 a = q4[i + 32 * u];
-#pragma unroll
-        for (int k = 0; k < G; ++k) {
-          const float4 b = yv[k][u];
-          aq[k] = fmaf(a.x, b.x, aq[k]);
-          aq[k] = fmaf(a.y, b.y, aq[k]);
-          aq[k] = fmaf(a.z, b.z, aq[k]);
-          aq[k] = fmaf(a.w, b.w, aq[k]);
-          ay[k] = fmaf(b.x, b.x, ay[k]);
-          ay[k] = fmaf(b.y, b.y, ay[k]);
-          ay[k] = fmaf(b.z, b.z, ay[k]);
-          ay[k] = fmaf(b.w, b.w, ay[k]);
-        }
-      }
-    }
-    for (; i < n; i += 32) {
-      const float4 a = q4[i];
-#pragma unroll
-      for (int k = 0; k < G; ++k) {
-        const float4 b =
-            load_row<kNc>(reinterpret_cast<const float4*>(y[k]) + i);
-        aq[k] = fmaf(a.x, b.x, aq[k]);
-        aq[k] = fmaf(a.y, b.y, aq[k]);
-        aq[k] = fmaf(a.z, b.z, aq[k]);
-        aq[k] = fmaf(a.w, b.w, aq[k]);
-        ay[k] = fmaf(b.x, b.x, ay[k]);
-        ay[k] = fmaf(b.y, b.y, ay[k]);
-        ay[k] = fmaf(b.z, b.z, ay[k]);
-        ay[k] = fmaf(b.w, b.w, ay[k]);
-      }
-    }
-  } else {
-    int i = lane;
-    for (; i + 96 < D; i += 128) {
-      float yv[G][4];
-#pragma unroll
-      for (int k = 0; k < G; ++k)
-#pragma unroll
-        for (int u = 0; u < 4; ++u)
-          yv[k][u] = load_row<kNc>(y[k] + i + 32 * u);
-#pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        const float a = q[i + 32 * u];
-#pragma unroll
-        for (int k = 0; k < G; ++k) {
-          aq[k] = fmaf(a, yv[k][u], aq[k]);
-          ay[k] = fmaf(yv[k][u], yv[k][u], ay[k]);
-        }
-      }
-    }
-    for (; i < D; i += 32) {
-      const float a = q[i];
-#pragma unroll
-      for (int k = 0; k < G; ++k) {
-        const float b = load_row<kNc>(y[k] + i);
-        aq[k] = fmaf(a, b, aq[k]);
-        ay[k] = fmaf(b, b, ay[k]);
-      }
-    }
-  }
-#pragma unroll
-  for (int k = 0; k < G; ++k) {
-    qy[k] = warp_sum(aq[k]);
-    yy[k] = warp_sum(ay[k]);
-  }
-}
-
-__device__ __forceinline__ int pow2_ceil(int x) {
-  int p = 1;
-  while (p < x) p <<= 1;
-  return p;
-}
-
-// The first position p in [lo, hi) with sk[p] > key (upper) or sk[p] >= key
-// (not upper), or hi, over the uint32 keys of an ascending int64 array: one
-// warp probes 32 positions splitting [lo, hi) into 33 parts, a ballot
-// counts those before the bound, and the part that holds it is kept; four
-// dependent loads for 2^20 keys instead of a binary search's 20.
-__device__ __forceinline__ int warp_bound(const long long* sk, int lo, int hi,
-                                          uint32_t key, bool upper,
-                                          int lane) {
-  while (hi - lo > 32) {
-    const long long n = hi - lo;
-    const int p = lo + (int)(((long long)(lane + 1) * n) / 33);
-    const uint32_t v = (uint32_t)__ldg(sk + p);
-    const int c = __popc(__ballot_sync(kFull, upper ? v <= key : v < key));
-    const int plo = __shfl_sync(kFull, p, c > 0 ? c - 1 : 0);
-    const int phi = __shfl_sync(kFull, p, c < 32 ? c : 31);
-    if (c > 0) lo = plo + 1;
-    if (c < 32) hi = phi;
-  }
-  const int p = lo + lane;
-  bool before = false;
-  if (p < hi) {
-    const uint32_t v = (uint32_t)__ldg(sk + p);
-    before = upper ? v <= key : v < key;
-  }
-  return lo + __popc(__ballot_sync(kFull, before));
-}
-
-// Inserts id into the open-addressing set ht of 2^(32 - shift) slots ->
-// whether it was new.
-__device__ __forceinline__ bool set_insert(uint32_t* ht, int shift,
-                                           uint32_t id) {
-  const uint32_t mask = 0xFFFFFFFFu >> shift;
-  uint32_t h = (id * 2654435761u) >> shift;
-  while (true) {
-    const uint32_t prev = atomicCAS(ht + h, kEmpty, id);
-    if (prev == kEmpty) return true;
-    if (prev == id) return false;
-    h = (h + 1) & mask;
-  }
-}
-
-// Enters key (the same in every lane) into the warp's ascending list
-// wl[0, topk) -> the list's new last key.
-__device__ unsigned long long topk_insert(unsigned long long* wl, int topk,
-                                          unsigned long long key, int lane) {
-  int pos = 0;
-  for (int c = 0; c < topk; c += 32) {
-    const int i = c + lane;
-    pos += __popc(__ballot_sync(kFull, i < topk && wl[i] < key));
-  }
-  // shift the tail right by one, the last chunk first, reads before writes
-  for (int c = (topk - 1) & ~31; c >= 0; c -= 32) {
-    const int i = c + lane;
-    const unsigned long long prev = i < topk && i > pos ? wl[i - 1] : 0ull;
-    __syncwarp();
-    if (i < topk && i >= pos) wl[i] = i == pos ? key : prev;
-    __syncwarp();
-  }
-  return wl[topk - 1];
-}
-
-// The number of keys of the ascending list a[0, n) below x (or at most x:
-// the pads, equal keys, of lists merged earlier rank first).
-__device__ __forceinline__ int count_below(const unsigned long long* a, int n,
-                                           unsigned long long x, bool eq) {
-  int lo = 0, hi = n;
-  while (lo < hi) {
-    const int mid = (lo + hi) >> 1;
-    if (a[mid] < x || (eq && a[mid] == x)) lo = mid + 1; else hi = mid;
-  }
-  return lo;
-}
-
-__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
-  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
-               "l"(src));
-}
-
-__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
-  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d),
-               "l"(src));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// One warp copies a candidate's FC-float row into its shared buffer,
-// asynchronously: 16-byte copies where the row and the corpus allow them.
-__device__ __forceinline__ void stage_row(float* dst, const float* src,
-                                          int FC, bool vec, int lane) {
-  if (vec) {
-    for (int i = lane; i < (FC >> 2); i += 32)
-      cp_async16(dst + 4 * i, src + 4 * i);
-  } else {
-    for (int i = lane; i < FC; i += 32) cp_async4(dst + i, src + i);
-  }
-}
-
-// One row of the (S, 12) int64 segment table (fused_query.py's
-// segment_table).
-struct Seg {
-  const long long* sorted_keys;  // (L, m)
-  const int* perm;               // (L, m)
-  const unsigned char* live;     // (m + 1,)
-  const int* eff;                // (m,)
-  // stacked corpus (m, N, D, RC) / (m, N, RC, D, RC) / dense rows (m, D)
-  const float* c;
-  const int* live_rank;          // (L, m + 1), nullptr: dense window
-  const int* live_pos;           // (L, m)
-  int m, cap, rc;
-  double cs;                     // the corpus scale
-  int fc;                        // floats of a stacked corpus row
-};
-
-__device__ __forceinline__ Seg load_seg(const long long* row) {
-  Seg g;
-  g.sorted_keys = reinterpret_cast<const long long*>(row[0]);
-  g.perm = reinterpret_cast<const int*>(row[1]);
-  g.live = reinterpret_cast<const unsigned char*>(row[2]);
-  g.eff = reinterpret_cast<const int*>(row[3]);
-  g.c = reinterpret_cast<const float*>(row[4]);
-  g.live_rank = reinterpret_cast<const int*>(row[5]);
-  g.live_pos = reinterpret_cast<const int*>(row[6]);
-  g.m = (int)row[7];
-  g.cap = (int)row[8];
-  g.rc = (int)row[9];
-  g.cs = __longlong_as_double(row[10]);
-  g.fc = (int)row[11];
-  return g;
-}
-
-__device__ __forceinline__ bool lex_less(float s, int c, float bs, int bc) {
-  return s < bs || (s == bs && c < bc);
-}
-
-// A window slot's id: the (table, probe) that holds slot i (woff[lo] <= i <
-// woff[lo + 1]), then perm of the dense window (kEmpty where the slot is
-// tombstoned or a shard's pad) or perm[live_pos[.]] of the live one (live
-// by construction).
-__device__ __forceinline__ uint32_t slot_id(const Seg& g, bool has_win,
-                                            int T, int LT, const int* woff,
-                                            const int* starts, int i) {
-  int lo = 0, hi = LT;
-  while (hi - lo > 1) {
-    const int mid = (lo + hi) >> 1;
-    if (woff[mid] <= i) lo = mid; else hi = mid;
-  }
-  const size_t row = (size_t)(lo / T) * (size_t)g.m;
-  const int off = starts[lo] + (i - woff[lo]);
-  if (has_win)
-    return (uint32_t)__ldg(g.perm + row + __ldg(g.live_pos + row + off));
-  const int cand = __ldg(g.perm + row + off);
-  return g.live[cand] ? (uint32_t)cand : kEmpty;
-}
-
-// TR = 0: CP rows; TR = kDense: dense rows of D floats (N = RQ = RC = 1);
-// TR = 4, 8 or 16: TT rows of ranks at most TR. wcap: the
-// shared window's capacity in slots (a power of two; its hash set holds
-// 2 * wcap ids, its candidate list wcap); scratch: per query 3 * scap
-// uint32 slots of global memory (a hash set of 2 * scap, all empty, and a
-// list of scap; scap = pow2(L*T*cap) of the largest cap) for the segments
-// whose window exceeds the shared one (nullptr when none can);
-// scratch_queries counts the queries that used it.
-template <int TR>
-__global__ void __launch_bounds__(Shape<TR>::threads, Shape<TR>::min_blocks)
-fused_query_kernel(
-    const float* __restrict__ values,          // (B, L*K)
-    const float* __restrict__ offsets,         // (L*K,)
-    const long long* __restrict__ mults,       // (K,)
-    const int* __restrict__ pairs,             // (C - singles, 2)
-    const float* __restrict__ q,               // (B, N, D, RQ) or TT (B, N, RQ, D, RQ)
-    const long long* __restrict__ segtab,      // (S, 12)
-    int S, int* __restrict__ out_ids, float* __restrict__ out_scores,
-    int* __restrict__ out_ncand, int L, int K, int T, int C, int N, int D,
-    int RQ, int RCMAX, int topk, int e2, int euclid, float w, double qs,
-    int wcap, uint32_t* __restrict__ scratch, int scap,
-    unsigned long long* __restrict__ scratch_queries) {
-  constexpr bool dense = TR == kDense;
-  constexpr bool tt = TR > kDense;
-  // rows of ranks > 8 and dense rows are read in place
-  constexpr bool stage_rows = !dense && TR <= 8;
-  constexpr int kThreads = Shape<TR>::threads;
-  constexpr int nwarps = kThreads / 32;
-  constexpr int G = Shape<TR>::per_warp;  // candidates a warp scores at once
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int LT = L * T;
-  const int FQ = tt ? N * RQ * D * RQ : N * D * RQ;   // floats of a query row
-  // floats of the query row staged in shared memory (all but a long dense one)
-  const int FQS = !dense || FQ <= kDenseStage ? FQ : 0;
-  const int FCMAX = !stage_rows ? 0
-                    : ((tt ? N * RCMAX * D * RCMAX : N * D * RCMAX) + 3) & ~3;
-  const int SW = tt ? 2 * max(RQ * RCMAX + RCMAX * RCMAX, RQ * RQ) : 0;
-  const int RW = (max(3 * wcap, nwarps * 2 * C) + 3) & ~3;
-  float* ybuf = reinterpret_cast<float*>(smem);  // [nwarps][2][G][FCMAX]
-  unsigned long long* wl_all = reinterpret_cast<unsigned long long*>(
-      ybuf + nwarps * 2 * G * FCMAX);                 // [nwarps][topk]
-  unsigned long long* topv = wl_all + nwarps * topk;  // [topk]
-  uint32_t* region = reinterpret_cast<uint32_t*>(topv + topk);  // [RW]
-  float* qf = reinterpret_cast<float*>(region + RW);  // [FQ]
-  float* sbuf = qf + FQS;                             // [nwarps][SW]
-  uint32_t* qkeys = reinterpret_cast<uint32_t*>(sbuf + nwarps * SW);  // [LT]
-  int* starts = reinterpret_cast<int*>(qkeys + LT);   // [LT]
-  int* lens = starts + LT;                            // [LT]
-  int* woff = lens + LT;                              // [LT + 1]
-  __shared__ float qq_s;
-  __shared__ int ncand_s;
-  __shared__ int total_s;
-  __shared__ int hlog_s;
-  __shared__ int scratch_s;
-
-  const int b = blockIdx.x;
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5, lane = tid & 31;
-
-  for (int i = tid; i < FQS; i += kThreads) qf[i] = q[(size_t)b * FQ + i];
-  const float* const qrow = FQS ? qf : q + (size_t)b * FQ;
-  for (int i = tid; i < nwarps * topk; i += kThreads) wl_all[i] = kPadSlot;
-  if (tid == 0) {
-    total_s = 0;
-    ncand_s = 0;
-    scratch_s = 0;
-  }
-
-  // 1. keys and the multi-probe expansion, one warp per table; the warp's
-  // candidate scores and deltas live in the shared region (the hash set's,
-  // not yet used)
-  const int NS = e2 ? 2 * K : K;
-  float* sc = reinterpret_cast<float*>(region) + (size_t)warp * 2 * C;
-  uint32_t* dl = reinterpret_cast<uint32_t*>(sc + C);
-  for (int l = warp; l < L; l += nwarps) {
-    const float* v = values + (size_t)b * L * K + (size_t)l * K;
-    uint32_t part = 0u;
-    for (int k = lane; k < K; k += 32) {
-      int code;
-      float aux;
-      if (e2) {
-        const float t = __fdiv_rn(__fadd_rn(v[k], offsets[l * K + k]), w);
-        const float f = floorf(t);
-        code = (int)f;
-        aux = __fsub_rn(t, f);
-      } else {
-        aux = v[k];
-        code = aux > 0.f ? 1 : 0;
-      }
-      const uint32_t mk = (uint32_t)mults[k];
-      part += (uint32_t)code * mk;
-      if (T > 1) {
-        if (e2) {
-          const float up = __fsub_rn(1.f, aux);
-          sc[k] = __fmul_rn(up, up);
-          dl[k] = mk;
-          sc[K + k] = __fmul_rn(aux, aux);
-          dl[K + k] = 0u - mk;
-        } else {
-          sc[k] = fabsf(aux);
-          dl[k] = aux > 0.f ? 0u - mk : mk;
-        }
-      }
-    }
-    for (int o = 16; o > 0; o >>= 1) part += __shfl_xor_sync(kFull, part, o);
-    const uint32_t base = part;
-    if (lane == 0) qkeys[l * T] = base;
-    if (T > 1) {
-      __syncwarp();
-      for (int p = lane; p < C - NS; p += 32) {
-        const int pa = pairs[2 * p], pb = pairs[2 * p + 1];
-        sc[NS + p] = __fadd_rn(sc[pa], sc[pb]);
-        dl[NS + p] = dl[pa] + dl[pb];
-      }
-      __syncwarp();
-      const int n = min(T - 1, C);
-      float ps = __uint_as_float(0xff800000u);  // -inf
-      int pc = -1;
-      for (int t = 1; t <= n; ++t) {  // the next candidate after (ps, pc)
-        float bs = __uint_as_float(0x7f800000u);  // +inf
-        int bc = 0x7fffffff;
-        for (int c = lane; c < C; c += 32) {
-          const float s = sc[c];
-          if (lex_less(ps, pc, s, c) && lex_less(s, c, bs, bc)) {
-            bs = s;
-            bc = c;
-          }
-        }
-        for (int o = 16; o > 0; o >>= 1) {
-          const float os = __shfl_xor_sync(kFull, bs, o);
-          const int oc = __shfl_xor_sync(kFull, bc, o);
-          if (lex_less(os, oc, bs, bc)) {
-            bs = os;
-            bc = oc;
-          }
-        }
-        ps = bs;
-        pc = bc;
-        if (lane == 0) qkeys[l * T + t] = base + dl[bc];
-      }
-      for (int t = n + 1 + lane; t < T; t += 32) qkeys[l * T + t] = base;
-      __syncwarp();
-    }
-  }
-  __syncthreads();
-  if (warp == 0) {  // qq once per query
-    float t = 0.f;
-    if constexpr (dense) {
-      const float* qa[1] = {qrow};
-      const bool qvec = (D & 3) == 0 &&
-                        (reinterpret_cast<uintptr_t>(qrow) & 15) == 0;
-      float unused;
-      dense_dots<1, false>(qrow, qa, D, qvec, lane, &unused, &t);
-    } else if constexpr (tt) {
-      float unused;
-      tt_chains<TR>(qf, RQ, qf, RQ, nullptr, 0, nullptr, 0, N, D, sbuf, lane,
-                    &t, &unused);
-    } else {
-      const float* qa[1] = {qf};
-      for (int p = lane; p < RQ * RQ; p += 32)
-        pair_terms<1>(qa, RQ, qa, RQ, N, D, p / RQ, p % RQ, &t);
-      t = warp_sum(t);
-    }
-    if (lane == 0) qq_s = scale_mul((float)(qs * qs), t);
-  }
-  for (int i = tid; i < 2 * wcap; i += kThreads) region[i] = kEmpty;
-  __syncthreads();
-  const float qq = qq_s;
-  float* const yb = ybuf + warp * 2 * G * FCMAX;
-  float* const sb = sbuf + warp * SW;
-  unsigned long long* const wl = wl_all + warp * topk;
-  unsigned long long thr = kPadSlot;  // the last key of the warp's list
-
-  for (int si = 0; si < S; ++si) {
-    const Seg g = load_seg(segtab + (size_t)si * 12);
-    if (g.m == 0) continue;
-    const bool has_win = g.live_rank != nullptr;
-    const size_t m = (size_t)g.m;
-
-    // 2. bucket bounds, one warp per (table, probe)
-    for (int i = warp; i < LT; i += nwarps) {
-      const int l = i / T;
-      const uint32_t key = qkeys[i];
-      const long long* sk = g.sorted_keys + (size_t)l * m;
-      const int start = warp_bound(sk, 0, g.m, key, false, lane);
-      const int hi = has_win ? g.m : min(g.m, start + g.cap);
-      const int end = warp_bound(sk, start, hi, key, true, lane);
-      if (lane == 0) {
-        if (has_win) {
-          const int* lr = g.live_rank + (size_t)l * (m + 1);
-          const int r0 = lr[start];
-          starts[i] = r0;
-          lens[i] = min(g.cap, lr[end] - r0);
-        } else {
-          starts[i] = start;
-          lens[i] = end - start;
-        }
-      }
-    }
-    __syncthreads();
-    if (tid == 0) {
-      ncand_s = 0;
-      woff[0] = 0;
-      for (int i = 0; i < LT; ++i) woff[i + 1] = woff[i] + lens[i];
-      const int pw = pow2_ceil(woff[LT]);
-      hlog_s = 32 - __clz(pw);  // log2 of the set's 2 * pw slots
-      if (pw > wcap) scratch_s = 1;
-    }
-    __syncthreads();
-
-    // 3. dedup: the window's live ids into the hash set, and each new one
-    // onto the candidate list, in shared memory while pow2(W) <= wcap, else
-    // in the query's row of the scratch
-    const int W = woff[LT];
-    const int hlog = hlog_s;
-    const int H = 1 << hlog;
-    uint32_t* const ht = H <= 2 * wcap
-                             ? region
-                             : scratch + (size_t)b * 3 * (size_t)scap;
-    uint32_t* const cl = ht + (H <= 2 * wcap ? 2 * wcap : 2 * scap);
-    for (int i0 = tid; i0 < W; i0 += 4 * kThreads) {
-      uint32_t ids[4];
-#pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        const int i = i0 + u * kThreads;
-        ids[u] = i < W ? slot_id(g, has_win, T, LT, woff, starts, i) : kEmpty;
-      }
-#pragma unroll
-      for (int u = 0; u < 4; ++u)
-        if (ids[u] < (uint32_t)g.m && set_insert(ht, 32 - hlog, ids[u]))
-          cl[atomicAdd(&ncand_s, 1)] = ids[u];
-    }
-    __syncthreads();
-    const int n_cand = ncand_s;
-    if (tid == 0) total_s += n_cand;
-    for (int i = tid; i < H; i += kThreads) ht[i] = kEmpty;  // for the next
-
-    // 4. exact re-rank, G candidates a warp at a time (the list's j = G *
-    // warp + k, then j + G * nwarps + k, ...): the warp stages the next
-    // candidates' rows and effective ids while it scores the current ones,
-    // and enters their selection keys into its list
-    const int RC = g.rc;
-    const int FC = g.fc;
-    const float s_qy = (float)(qs * g.cs), s_yy = (float)(g.cs * g.cs);
-    const bool vec = (FC & 3) == 0 &&
-                     (reinterpret_cast<uintptr_t>(g.c) & 15) == 0 &&
-                     (!dense || (reinterpret_cast<uintptr_t>(qrow) & 15) == 0);
-    int j = warp * G;
-    uint32_t cur[G];
-    int cur_eff[G];
-#pragma unroll
-    for (int k = 0; k < G; ++k) {
-      cur[k] = j + k < n_cand ? cl[j + k] : kEmpty;
-      cur_eff[k] = 0;
-      if (cur[k] != kEmpty) {
-        if constexpr (stage_rows)
-          stage_row(yb + k * FCMAX, g.c + (size_t)cur[k] * FC, FC, vec, lane);
-        cur_eff[k] = __ldg(g.eff + cur[k]);
-      }
-    }
-    cp_async_commit();
-    int half = 0;
-    while (cur[0] != kEmpty) {
-      j += G * nwarps;
-      uint32_t nxt[G];
-      int nxt_eff[G];
-#pragma unroll
-      for (int k = 0; k < G; ++k) {
-        nxt[k] = j + k < n_cand ? cl[j + k] : kEmpty;
-        nxt_eff[k] = 0;
-        if (nxt[k] != kEmpty) {
-          if constexpr (stage_rows)
-            stage_row(yb + ((half ^ 1) * G + k) * FCMAX,
-                      g.c + (size_t)nxt[k] * FC, FC, vec, lane);
-          nxt_eff[k] = __ldg(g.eff + nxt[k]);
-        }
-      }
-      cp_async_commit();
-      cp_async_wait<1>();  // the current rows have landed
-      __syncwarp();
-      const float* yr[G];
-      float tqy[G], tyy[G];
-#pragma unroll
-      for (int k = 0; k < G; ++k) {
-        // an empty slot past the list's end reads the first row again (an
-        // index into cur, not a select of its values: the select spills)
-        yr[k] = stage_rows ? yb + (half * G + k) * FCMAX
-                           : g.c + (size_t)cur[cur[k] == kEmpty ? 0 : k] * FC;
-        tqy[k] = 0.f;
-        tyy[k] = 0.f;
-      }
-      if constexpr (dense) {
-        dense_dots<G>(qrow, yr, D, vec, lane, tqy, tyy);
-      } else if constexpr (tt) {  // G = 1
-        if constexpr (TR > 8)
-          tt_chains_far<TR>(qf, RQ, yr[0], RC, yr[0], RC, yr[0], RC, N, D,
-                            sb, lane, tqy, tyy);
-        else
-          tt_chains<TR>(qf, RQ, yr[0], RC, yr[0], RC, yr[0], RC, N, D, sb,
-                        lane, tqy, tyy);
-      } else {
-        const float* qa[G];
-#pragma unroll
-        for (int k = 0; k < G; ++k) qa[k] = qf;
-        for (int p = lane; p < RQ * RC + RC * RC; p += 32) {
-          if (p < RQ * RC) {
-            pair_terms<G>(qa, RQ, yr, RC, N, D, p / RC, p % RC, tqy);
-          } else {
-            const int p2 = p - RQ * RC;
-            pair_terms<G>(yr, RC, yr, RC, N, D, p2 / RC, p2 % RC, tyy);
-          }
-        }
-#pragma unroll
-        for (int k = 0; k < G; ++k) {
-          tqy[k] = warp_sum(tqy[k]);
-          tyy[k] = warp_sum(tyy[k]);
-        }
-      }
-#pragma unroll
-      for (int k = 0; k < G; ++k) {
-        if (cur[k] == kEmpty) continue;
-        const float qy = scale_mul(s_qy, tqy[k]);
-        const float yy = scale_mul(s_yy, tyy[k]);
-        float score;
-        if (euclid) {
-          const float d2 = __fsub_rn(__fadd_rn(qq, yy), __fmul_rn(2.f, qy));
-          score = sqrtf(d2 != d2 ? d2 : fmaxf(d2, 0.f));
-        } else {
-          const float nq = sqrtf(qq != qq ? qq : fmaxf(qq, 0.f));
-          const float ny = sqrtf(yy != yy ? yy : fmaxf(yy, 0.f));
-          score = __fdiv_rn(qy, __fmul_rn(nq, ny));
-        }
-        const uint32_t bits = __float_as_uint(euclid ? score : -score);
-        const uint32_t key32 = (bits >> 31) ? ~bits : (bits | 0x80000000u);
-        const unsigned long long key =
-            ((unsigned long long)key32 << 32) | (uint32_t)cur_eff[k];
-        if (key < thr) thr = topk_insert(wl, topk, key, lane);
-      }
-      __syncwarp();  // the rows' half is read before it is staged again
-#pragma unroll
-      for (int k = 0; k < G; ++k) {
-        cur[k] = nxt[k];
-        cur_eff[k] = nxt_eff[k];
-      }
-      half ^= 1;
-    }
-    cp_async_wait<0>();
-  }
-  __syncthreads();
-
-  // 5. the warps' lists merged by rank, then ids, scores and the count
-  for (int e = tid; e < nwarps * topk; e += kThreads) {
-    const int wv = e / topk;
-    const unsigned long long x = wl_all[e];
-    int r = e - wv * topk;
-    for (int v = 0; v < nwarps && r < topk; ++v)
-      if (v != wv) r += count_below(wl_all + v * topk, topk, x, v < wv);
-    if (r < topk) topv[r] = x;
-  }
-  __syncthreads();
-  const float bad = __uint_as_float(euclid ? 0x7f800000u : 0xff800000u);
-  for (int i = tid; i < topk; i += kThreads) {
-    int id = -1;
-    float score = bad;
-    const unsigned long long s = topv[i];
-    const uint32_t key32 = (uint32_t)(s >> 32);
-    if (key32 != kEmpty) {
-      id = (int)(uint32_t)(s & 0xFFFFFFFFull);
-      const uint32_t bits = (key32 >> 31) ? (key32 & 0x7FFFFFFFu) : ~key32;
-      const float order = __uint_as_float(bits);
-      score = euclid ? order : -order;
-    }
-    out_ids[(size_t)b * topk + i] = id;
-    out_scores[(size_t)b * topk + i] = score;
-  }
-  if (tid == 0) {
-    out_ncand[b] = total_s;
-    if (scratch_s) atomicAdd(scratch_queries, 1ull);
-  }
-}
-
-// The instantiation for a corpus format (0 CP, 1 TT, 2 dense) and ranks.
-int tr_of(int fmt, int RQ, int RC) {
-  if (fmt == 0) return 0;
-  if (fmt == 2) return kDense;
-  if (fmt != 1) return -1;
-  if (RQ <= 4 && RC <= 4) return 4;
-  if (RQ <= 8 && RC <= 8) return 8;
-  if (RQ <= 16 && RC <= 16) return 16;
-  return -1;
-}
-
-int threads_of(int tr) {
+int min_blocks_of(int tr, int qr) {
+  if (tr != qr) return Shape<0, kDense>::min_blocks;
   switch (tr) {
-    case 0: return Shape<0>::threads;
-    case kDense: return Shape<kDense>::threads;
-    case 4: return Shape<4>::threads;
-    case 8: return Shape<8>::threads;
-    default: return Shape<16>::threads;
+    case 0: return Shape<0, 0>::min_blocks;
+    case kDense: return Shape<kDense, kDense>::min_blocks;
+    case 4: return Shape<4, 4>::min_blocks;
+    case 8: return Shape<8, 8>::min_blocks;
+    default: return Shape<16, 16>::min_blocks;
   }
 }
 
-int min_blocks_of(int tr) {
-  switch (tr) {
-    case 0: return Shape<0>::min_blocks;
-    case kDense: return Shape<kDense>::min_blocks;
-    case 4: return Shape<4>::min_blocks;
-    case 8: return Shape<8>::min_blocks;
-    default: return Shape<16>::min_blocks;
-  }
-}
-
-// Up to smem bytes of dynamic shared memory, and all of the SM's 228 KB as
-// shared memory (not L1), so that Shape<TR>::min_blocks can be resident.
-template <int TR>
-cudaError_t prepare(size_t smem) {
-  static size_t allowed = 0;
-  static bool carved = false;
-  if (!carved) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        fused_query_kernel<TR>, cudaFuncAttributePreferredSharedMemoryCarveout,
-        (int)cudaSharedmemCarveoutMaxShared);
-    if (e != cudaSuccess) return e;
-    carved = true;
-  }
-  if (smem > allowed) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        fused_query_kernel<TR>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (e != cudaSuccess) return e;
-    allowed = smem;
-  }
-  return cudaSuccess;
-}
-
-template <int TR>
-int occupancy(size_t smem, int* out) {
-  cudaFuncAttributes a;
-  cudaError_t e = cudaFuncGetAttributes(&a, fused_query_kernel<TR>);
-  if (e == cudaSuccess) e = prepare<TR>(smem);
-  int blocks = 0;
-  if (e == cudaSuccess)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &blocks, fused_query_kernel<TR>, Shape<TR>::threads, smem);
-  if (e != cudaSuccess) return (int)e;
-  out[0] = a.numRegs;
-  out[1] = blocks;
-  out[2] = (int)a.localSizeBytes;
-  out[3] = Shape<TR>::min_blocks;
-  return 0;
+int per_warp_of(int tr, int qr) {
+  return tr == kDense || (tr == qr && tr == 0) ? 2 : 1;
 }
 
 }  // namespace
@@ -1021,25 +34,42 @@ int occupancy(size_t smem, int* out) {
 // Shared memory of one K1 block (fused_query.py's smem_bytes plans with the
 // same sum, and fused_query_launch refuses a plan that differs):
 // two row buffers a warp for each candidate it scores at once (rows of
-// ranks above 8 are read in place), the warps' lists and the merged top-k
-// (8 bytes a rank each), the region of the hash set and the candidate list
-// (3 * wcap ids) or the expansion's per-warp scores and deltas (C of each),
-// the query's row (a dense one only up to kDenseStage floats), the TT chain
-// states a warp, four per-(table, probe) integer arrays. fmt: the corpus
-// format, 0 CP, 1 TT, 2 dense.
+// ranks above 8 and dense rows are read in place), the warps' lists and the
+// merged top-k (8 bytes a rank each), the region of the hash set and the
+// candidate list (3 * wcap ids) or the expansion's per-warp scores and
+// deltas (C of each), the query's row (a dense one, or a CP / TT query's
+// densified row over dense rows, only up to kDenseStage floats), the TT
+// chain states a warp, four per-(table, probe) integer arrays. fmt / qfmt:
+// the corpus's / the queries' format, 0 CP, 1 TT, 2 dense; DF the dense
+// operand's row of a cross-format pair (prod d).
 extern "C" size_t fused_query_smem_bytes(int LT, int N, int D, int RQ,
-                                         int RC, int wcap, int fmt, int topk,
-                                         int C) {
+                                         int RC, int wcap, int fmt, int qfmt,
+                                         int topk, int C, int DF) {
+  int tr, qr;
+  instance_of(fmt, qfmt, RQ, RC, &tr, &qr);
+  if (tr < 0 || qr < 0) return 0;
+  const bool same = fmt == qfmt;
   const bool tt = fmt == 1, dense = fmt == 2;
-  const bool stage_rows = !dense && (!tt || (RQ <= 8 && RC <= 8));
-  const size_t nw = threads_of(tr_of(fmt, RQ, RC)) / 32;
-  const size_t per_warp = tt ? 1 : 2;  // Shape<TR>::per_warp
-  size_t fq = tt ? (size_t)N * RQ * D * RQ : (size_t)N * D * RQ;
-  if (dense && fq > (size_t)kDenseStage) fq = 0;
+  const bool qtt = qfmt == 1, qdense = qfmt == 2;
+  const bool stage_rows = !dense && tr <= 8;
+  const size_t nw = threads_of(tr, qr) / 32;
+  const size_t per_warp = per_warp_of(tr, qr);
+  size_t fq;
+  if (same) {
+    fq = tt ? (size_t)N * RQ * D * RQ : (size_t)N * D * RQ;
+    if (dense && fq > (size_t)kDenseStage) fq = 0;
+  } else if (dense || qdense) {
+    fq = DF <= kDenseStage ? (size_t)DF : 0;
+  } else {
+    fq = qtt ? (size_t)N * RQ * D * RQ : (size_t)N * D * RQ;
+  }
   size_t fc = !stage_rows ? 0
               : tt ? (size_t)N * RC * D * RC : (size_t)N * D * RC;
   fc = (fc + 3) & ~(size_t)3;
-  const size_t sw = tt ? 2 * (size_t)max(RQ * RC + RC * RC, RQ * RQ) : 0;
+  const size_t sw =
+      same ? (tt ? 2 * (size_t)max(RQ * RC + RC * RC, RQ * RQ) : 0)
+      : tt ? 2 * (size_t)max(qdense ? 0 : RQ * RC, RC * RC)
+      : qtt ? 2 * (size_t)max(dense ? 0 : RQ * RC, RQ * RQ) : 0;
   size_t rw = max((size_t)3 * wcap, nw * 2 * (size_t)C);
   rw = (rw + 3) & ~(size_t)3;
   return (nw * 2 * per_warp * fc + fq + nw * sw + rw) * 4 +
@@ -1049,75 +79,60 @@ extern "C" size_t fused_query_smem_bytes(int LT, int N, int D, int RQ,
 
 // Registers a thread, resident blocks per SM at smem bytes, local (spill)
 // bytes a thread and the instantiation's target blocks per SM -> out[0..3].
-extern "C" int fused_query_occupancy(int fmt, int RQ, int RC, size_t smem,
-                                     int* out) {
-  switch (tr_of(fmt, RQ, RC)) {
-    case 0: return occupancy<0>(smem, out);
-    case kDense: return occupancy<kDense>(smem, out);
-    case 4: return occupancy<4>(smem, out);
-    case 8: return occupancy<8>(smem, out);
-    case 16: return occupancy<16>(smem, out);
-    default: return (int)cudaErrorInvalidValue;
+extern "C" int fused_query_occupancy(int fmt, int qfmt, int RQ, int RC,
+                                     size_t smem, int* out) {
+  int tr, qr;
+  instance_of(fmt, qfmt, RQ, RC, &tr, &qr);
+  if (tr < 0 || qr < 0) return (int)cudaErrorInvalidValue;
+  if (tr != qr) return fused_query_mixed_occupancy(tr, qr, smem, out);
+  switch (tr) {
+    case 0: return occupancy<0, 0>(smem, out);
+    case kDense: return occupancy<kDense, kDense>(smem, out);
+    case 4: return occupancy<4, 4>(smem, out);
+    case 8: return occupancy<8, 8>(smem, out);
+    default: return occupancy<16, 16>(smem, out);
   }
 }
-
-namespace {
-
-template <int TR>
-int launch(const float* values, const float* offsets, const long long* mults,
-           const int* pairs, const float* q, const long long* segtab, int S,
-           int* out_ids, float* out_scores, int* out_ncand, int B, int L,
-           int K, int T, int C, int N, int D, int RQ, int RC, int topk,
-           int e2, int euclid, float w, double qs, int wcap,
-           uint32_t* scratch, int scap,
-           unsigned long long* scratch_queries, cudaStream_t stream) {
-  const size_t smem = fused_query_smem_bytes(
-      L * T, N, D, RQ, RC, wcap, TR == 0 ? 0 : TR == kDense ? 2 : 1, topk, C);
-  const cudaError_t e = prepare<TR>(smem);
-  if (e != cudaSuccess) return (int)e;
-  fused_query_kernel<TR><<<B, Shape<TR>::threads, smem, stream>>>(
-      values, offsets, mults, pairs, q, segtab, S, out_ids, out_scores,
-      out_ncand, L, K, T, C, N, D, RQ, RC, topk, e2, euclid, w, qs, wcap,
-      scratch, scap, scratch_queries);
-  return (int)cudaGetLastError();
-}
-
-}  // namespace
 
 extern "C" int fused_query_launch(
     const float* values, const float* offsets, const long long* mults,
     const int* pairs, const float* q, const long long* segtab, int S,
     int* out_ids, float* out_scores, int* out_ncand, int B, int L, int K,
     int T, int C, int N, int D, int RQ, int RC, int topk, int e2, int euclid,
-    int fmt, float w, double qs, int wcap, void* scratch, int scap,
-    void* scratch_queries, int threads, int min_blocks, size_t smem,
-    void* stream) {
+    int fmt, int qfmt, float w, double qs, int wcap, void* scratch, int scap,
+    void* scratch_queries, void* qscratch, const int* dims, int DF,
+    int threads, int min_blocks, size_t smem, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  int (*fn)(const float*, const float*, const long long*, const int*,
-            const float*, const long long*, int, int*, float*, int*, int,
-            int, int, int, int, int, int, int, int, int, int, int, float,
-            double, int, uint32_t*, int, unsigned long long*,
-            cudaStream_t);
-  switch (tr_of(fmt, RQ, RC)) {
-    case 0: fn = launch<0>; break;
-    case kDense: fn = launch<kDense>; break;
-    case 4: fn = launch<4>; break;
-    case 8: fn = launch<8>; break;
-    case 16: fn = launch<16>; break;
-    default: return (int)cudaErrorInvalidValue;
-  }
-  if (wcap < 1 || (wcap & (wcap - 1)) || topk < 1 ||
+  int tr, qr;
+  instance_of(fmt, qfmt, RQ, RC, &tr, &qr);
+  const bool same = fmt == qfmt;
+  const bool dense_side = fmt == 2 || qfmt == 2;
+  if (tr < 0 || qr < 0 || wcap < 1 || (wcap & (wcap - 1)) || topk < 1 ||
       scratch_queries == nullptr ||
-      (fmt == 2 && (N != 1 || RQ != 1 || RC != 1 || D > kMaxDenseRow)))
+      (same && fmt == 2 && (N != 1 || RQ != 1 || RC != 1 ||
+                            D > kMaxDenseRow)) ||
+      (!same && dense_side &&
+       (dims == nullptr || N < 1 || N > kMaxModes || DF > kMaxDenseRow ||
+        (fmt == 2 && RC != 1) || (qfmt == 2 && RQ != 1) ||
+        (fmt == 2 && DF > kDenseStage && qscratch == nullptr))))
     return (int)cudaErrorInvalidValue;
   // the caller sized the window with its own copy of the block's shape and
   // shared bytes: a launch planned with others is refused
-  const int tr = tr_of(fmt, RQ, RC);
-  if (threads != threads_of(tr) || min_blocks != min_blocks_of(tr) ||
-      smem != fused_query_smem_bytes(L * T, N, D, RQ, RC, wcap, fmt, topk, C))
+  if (threads != threads_of(tr, qr) || min_blocks != min_blocks_of(tr, qr) ||
+      smem != fused_query_smem_bytes(L * T, N, D, RQ, RC, wcap, fmt, qfmt,
+                                     topk, C, DF))
     return (int)cudaErrorInvalidConfiguration;
-  return fn(values, offsets, mults, pairs, q, segtab, S, out_ids, out_scores,
-            out_ncand, B, L, K, T, C, N, D, RQ, RC, topk, e2, euclid, w, qs,
-            wcap, static_cast<uint32_t*>(scratch), scap,
-            static_cast<unsigned long long*>(scratch_queries), st);
+  const K1Args a{values, offsets, mults, pairs, q, segtab, S, out_ids,
+                 out_scores, out_ncand, B, L, K, T, C, N, D, RQ, RC, topk,
+                 e2, euclid, w, qs, wcap, static_cast<uint32_t*>(scratch),
+                 scap, static_cast<unsigned long long*>(scratch_queries),
+                 static_cast<float*>(qscratch), dims, DF};
+  if (!same) return fused_query_mixed_launch(tr, qr, a, smem, st);
+  switch (tr) {
+    case 0: return launch<0, 0>(a, smem, st);
+    case kDense: return launch<kDense, kDense>(a, smem, st);
+    case 4: return launch<4, 4>(a, smem, st);
+    case 8: return launch<8, 8>(a, smem, st);
+    default: return launch<16, 16>(a, smem, st);
+  }
 }

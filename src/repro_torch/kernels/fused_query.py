@@ -7,9 +7,11 @@ combine -> multi-probe expansion to T ranked keys per table -> per segment:
 per-(table, probe) binary search over the sorted bucket keys, the dense
 cap-wide window (bucket members, tombstones masked) or the live window
 (the first ``cap`` live members, through ``live_rank`` / ``live_pos``),
-sort-dedup, exact in-format re-rank (CP Grams, the TT chain, or dense
-rows: qy and yy over prod d floats), packed (order key, effective id) keys
--> top-k over all segments.
+sort-dedup, exact re-rank (CP Grams, the TT chain, or dense rows: qy and
+yy over prod d floats; a query batch of another format than the corpus's
+through the cross-format pair's contraction, qq in the query's format and
+yy in the corpus's), packed (order key, effective id) keys -> top-k over
+all segments.
 
 ``fused_query`` launches the CUDA kernel ``csrc/fused_query.cu`` on CUDA
 tensors and runs ``fused_query_plain`` on CPU tensors; any other device
@@ -44,8 +46,10 @@ depend on where the set lived.
 ``fused_query.launches`` / ``fused_query_sharded.launches`` count kernel
 launches and ``.branches`` (``BranchCounts``) the launches that ran each
 branch ("multiprobe": T > 1, "live_window": a segment with live-window
-lookups, "segments": more than one segment) and the queries that took the
-scratch ("scratch", counted on the card and read from it when asked for);
+lookups, "segments": more than one segment, "mixed:<query>-<corpus>": a
+query batch of another format than the corpus's, e.g. "mixed:dense-cp")
+and the queries that took the scratch ("scratch", counted on the card and
+read from it when asked for);
 ``fused_query_plain.calls`` / ``fused_query_sharded_plain.calls`` count
 calls of the plain versions.
 """
@@ -72,14 +76,28 @@ MAX_DENSE_ROW = 65536      # longest dense row (floats) K1 takes (kMaxDenseRow)
 DENSE_STAGE = 8192         # longest dense query row staged (kDenseStage)
 TABLE_COLS = 12            # int64 words per segment in the K1 table
 DENSE = 1                  # TR of the dense-row instantiation (kDense)
-# the corpus format's code in the C entries (fmt)
+MAX_MODES = 16             # most modes of a cross pair with a dense side
+# the corpus's and the queries' format codes in the C entries (fmt, qfmt)
 FORMATS = {"cp": 0, "tt": 1, "dense": 2}
-# threads of a query's block and the target blocks per SM by instantiation
-# (TR: 0 CP, DENSE dense rows, else the TT rank bound): its
-# __launch_bounds__ (Shape in csrc/fused_query.cu, which refuses a launch
-# planned with other values)
-THREADS = {0: 384, DENSE: 256, 4: 256, 8: 256, 16: 256}
-MIN_BLOCKS = {0: 2, DENSE: 3, 4: 3, 8: 1, 16: 2}
+# the six cross-format pairs, (query, corpus) layouts: BranchCounts names
+# their launches "mixed:<query>-<corpus>"
+MIXED_PAIRS = (("dense", "cp"), ("cp", "dense"), ("dense", "tt"),
+               ("tt", "dense"), ("cp", "tt"), ("tt", "cp"))
+# K1's instantiations fused_query_kernel<TR, QR> -> (threads of a query's
+# block, target blocks per SM (its __launch_bounds__), candidates a warp
+# scores at once): Shape<TR, QR> in csrc/fused_query.cuh, whose C launch
+# refuses a plan made with other values. TR is the corpus's code (0 CP,
+# DENSE dense rows, else the TT rank bound), QR = TR for a same-format
+# pair, else the query's own code (``instance``).
+SHAPES = {
+    (0, 0): (384, 2, 2), (DENSE, DENSE): (256, 3, 2), (4, 4): (256, 3, 1),
+    (8, 8): (256, 1, 1), (16, 16): (256, 2, 1),
+    # the cross-format pairs (csrc/fused_query_mixed.cu): 8 warps, 2 blocks
+    (DENSE, 0): (256, 2, 2), (DENSE, 16): (256, 2, 2),
+    (0, DENSE): (256, 2, 1), (4, DENSE): (256, 2, 1),
+    (16, DENSE): (256, 2, 1), (4, 0): (256, 2, 1), (16, 0): (256, 2, 1),
+    (0, 16): (256, 2, 1),
+}
 # the shared window's capacity in slots lies in [MIN_WINDOW, MAX_WINDOW]
 # (or is pow2(L*T*cap) where that is smaller)
 MIN_WINDOW = 256
@@ -90,21 +108,28 @@ def _pow2_ceil(x: int) -> int:
     return 1 << max(int(x) - 1, 0).bit_length()
 
 
-def tt_bound(tt: bool, rq: int, rc: int, dense: bool = False) -> int:
-    """The kernel instantiation (TR) for these ranks: 0 for CP, ``DENSE``
-    for dense rows, else the smallest of 4, 8, 16 that bounds both TT
-    ranks."""
-    if dense:
-        return DENSE
-    if not tt:
-        return 0
-    return next(b for b in (4, 8, 16) if max(rq, rc) <= b)
+def instance(layout: str, q_layout: str, rq: int, rc: int) -> tuple[int,
+                                                                   int]:
+    """(TR, QR): the kernel instantiation for a corpus of ``layout`` and
+    rank ``rc`` and queries of ``q_layout`` and rank ``rq``, as
+    ``instance_of`` in ``csrc/fused_query.cuh``: a same-format pair's TR is
+    0 for CP, ``DENSE`` for dense rows, else the smallest of 4, 8, 16 that
+    bounds both TT ranks, and QR = TR; a cross-format pair's codes are each
+    operand's own (0 CP, ``DENSE``, a TT corpus's rank bound 4 or 16, a TT
+    query's 16)."""
+    code = {"cp": 0, "dense": DENSE}
+    if layout == q_layout:
+        tr = code.get(layout) if layout in code else next(
+            b for b in (4, 8, 16) if max(rq, rc) <= b)
+        return tr, tr
+    return code.get(layout, 4 if rc <= 4 else 16), code.get(q_layout, 16)
 
 
 def smem_bytes(num_tables: int, n_modes: int, d: int, rq: int, rc: int,
                window: int, tt: bool = False, probes: int = 1,
                topk: int = 10, expansion: int = 0,
-               dense: bool = False) -> int:
+               dense: bool = False, q_layout: str | None = None,
+               df: int = 0) -> int:
     """Shared memory of one K1 block (``fused_query_smem_bytes`` in the CUDA
     source, which refuses a launch planned with another size) for a shared
     window of ``window`` slots (a power of two): two row buffers a warp for
@@ -117,18 +142,37 @@ def smem_bytes(num_tables: int, n_modes: int, d: int, rq: int, rc: int,
     for TT each warp's two chain states and their next values, four per-(table,
     probe) integer arrays, and ``STATIC_SMEM`` bytes of static scalars. A
     dense corpus (``dense``: n_modes = rq = rc = 1, d = prod d) stages no
-    candidate rows and its query row only up to ``DENSE_STAGE`` floats."""
-    if dense:
-        fq, fc, sw = (d if d <= DENSE_STAGE else 0), 0, 0
-    elif tt:
-        fq, fc = n_modes * rq * d * rq, n_modes * rc * d * rc
-        sw = 2 * max(rq * rc + rc * rc, rq * rq)
-        if max(rq, rc) > 8:
-            fc = 0
+    candidate rows and its query row only up to ``DENSE_STAGE`` floats.
+    Queries of another layout (``q_layout``; ``n_modes`` and ``d`` are then
+    the CP or TT operand's, ``df`` = prod d the dense operand's row): 8
+    warps, one candidate a warp (two dense rows), the query row as given or,
+    over dense rows, densified (a row with a dense side staged up to
+    ``DENSE_STAGE`` floats), and the chain states of the pair's TT
+    operand."""
+    layout = "tt" if tt else "dense" if dense else "cp"
+    ql = q_layout or layout
+    tr, qr = instance(layout, ql, rq, rc)
+    threads, _, per_warp = SHAPES[tr, qr]
+    nwarps = threads // 32
+    # a candidate row staged: CP rows, TT rows of ranks <= 8
+    fc = 0 if dense or tr > 8 else n_modes * rc * d * (rc if tt else 1)
+    fc = -(-fc // 4) * 4 * per_warp
+    # the query row: a row with a dense side (a dense query's, or a CP / TT
+    # query's densified over dense rows) staged up to DENSE_STAGE floats
+    dense_side = "dense" in (layout, ql)
+    fq = (df if dense_side and ql != layout
+          else n_modes * rq * d * (rq if ql == "tt" else 1))
+    if dense_side and fq > DENSE_STAGE:
+        fq = 0
+    # each warp's chain states: a same-format pair's two TT chains; a cross
+    # pair's CP x TT state beside its TT operand's own chain
+    if ql == layout:
+        sw = 2 * max(rq * rc + rc * rc, rq * rq) if tt else 0
+    elif "tt" in (layout, ql):
+        rt = rc if tt else rq
+        sw = 2 * max(0 if dense_side else rq * rc, rt * rt)
     else:
-        fq, fc, sw = n_modes * d * rq, n_modes * d * rc, 0
-    nwarps = THREADS[tt_bound(tt, rq, rc, dense)] // 32
-    fc = -(-fc // 4) * 4 * (1 if tt else 2)   # CP warps score two at once
+        sw = 0
     region = -(-max(3 * window, nwarps * 2 * expansion) // 4) * 4
     lt = num_tables * probes
     return ((nwarps * 2 * fc + fq + nwarps * sw + region) * 4
@@ -137,21 +181,26 @@ def smem_bytes(num_tables: int, n_modes: int, d: int, rq: int, rc: int,
 
 def window_plan(num_tables: int, cap: int, n_modes: int, d: int, rq: int,
                 rc: int, tt: bool = False, probes: int = 1, topk: int = 10,
-                expansion: int = 0, dense: bool = False) -> tuple[int, bool]:
+                expansion: int = 0, dense: bool = False,
+                q_layout: str | None = None,
+                df: int = 0) -> tuple[int, bool]:
     """-> (window, scratch): the shared window's capacity in slots and
     whether a query can exceed it (L*T*cap above it, so the launch needs the
     global scratch). The capacity is the largest power of two in
     [MIN_WINDOW, MAX_WINDOW], and at most pow2(L*T*cap), with which the
-    instantiation's ``MIN_BLOCKS`` blocks fit an SM's shared memory; failing
-    that, with one block fewer. Raises ``ValueError`` when even one block
+    instantiation's target blocks (``SHAPES``) fit an SM's shared memory;
+    failing that, with one block fewer. Raises ``ValueError`` when even one block
     cannot hold the query row, the candidate rows, the lists and the
     expansion beside the smallest window."""
     need = _pow2_ceil(num_tables * probes * cap)
     size = functools.partial(smem_bytes, num_tables, n_modes, d, rq, rc,
                              tt=tt, probes=probes, topk=topk,
-                             expansion=expansion, dense=dense)
+                             expansion=expansion, dense=dense,
+                             q_layout=q_layout, df=df)
     least = min(need, MIN_WINDOW)
-    for blocks in range(MIN_BLOCKS[tt_bound(tt, rq, rc, dense)], 0, -1):
+    layout = "tt" if tt else "dense" if dense else "cp"
+    target = SHAPES[instance(layout, q_layout or layout, rq, rc)][1]
+    for blocks in range(target, 0, -1):
         budget = min(MAX_SMEM, SM_SMEM // blocks - BLOCK_RESERVED)
         window = min(need, MAX_WINDOW)
         while window >= least:
@@ -391,34 +440,105 @@ class BranchCounts(collections.Counter):
         super().clear()
 
 
+@dataclasses.dataclass(frozen=True)
+class PairShape:
+    """A query batch's shape against a K1 table: the queries' layout, the
+    kernel's N and D (the CP or TT operand's modes and padded mode dim;
+    (1, prod d) for a dense pair), the stacked query rank, the true mode
+    dims and, for a cross-format pair with a dense side, their product
+    ``df`` (0 otherwise)."""
+
+    q_layout: str
+    n_modes: int
+    d: int
+    rq: int
+    dims: tuple
+    df: int
+
+    @property
+    def same(self) -> bool:
+        return self.df == 0
+
+
+def pair_shape(table, queries) -> PairShape:
+    """The ``PairShape`` of ``queries`` (the (format object, stacked) pair
+    of the format's ``stack``) against ``table``; raises ``ValueError``
+    when they do not fit (another mode shape, a non-contiguous or
+    non-float32 stacked batch)."""
+    x, q = queries
+    corpus = table.segs[0].corpus
+    ql = x.layout
+    n, d, rq = x.kernel_shape(q)
+    ok = (tuple(x.dims) == tuple(corpus.dims) and q.is_contiguous()
+          and q.dtype == torch.float32)
+    if ql == table.layout:
+        ok = ok and q.dim() == table.segs[0].stacked.dim() and (
+            (n, d) == (table.n_modes, table.d))
+        df = 0
+    else:
+        df = math.prod(x.dims)
+        if table.layout != "dense" and ql != "dense":
+            ok = ok and (n, d) == (table.n_modes, table.d)
+        elif table.layout != "dense":
+            n, d = table.n_modes, table.d
+    if not ok:
+        raise ValueError(
+            f"stacked queries {tuple(q.shape)} do not match the stacked "
+            f"corpus {tuple(table.segs[0].stacked.shape)}")
+    return PairShape(ql, n, d, rq, tuple(x.dims), df)
+
+
 def launch_plan(table, rq: int, *, num_tables: int, probes: int, topk: int,
-                expansion: int) -> tuple[int, bool, int]:
+                expansion: int, pair: PairShape | None = None
+                ) -> tuple[int, bool, int]:
     """-> (window, scratch, shared bytes) of a launch over ``table`` with
-    stacked query rank ``rq`` (``window_plan`` and ``smem_bytes``)."""
-    args = (num_tables, table.n_modes, table.d, rq, table.rc)
-    kw = dict(tt=table.layout == "tt", dense=table.layout == "dense",
-              probes=probes, topk=topk, expansion=expansion)
-    window, scratch = window_plan(num_tables, max(table.caps), *args[1:],
-                                  **kw)
-    return window, scratch, smem_bytes(*args, window, **kw)
+    stacked query rank ``rq`` (``window_plan`` and ``smem_bytes``); a query
+    batch of another layout gives its ``pair_shape`` as ``pair``."""
+    n, d, q_layout, df = table.n_modes, table.d, None, 0
+    if pair is not None and not pair.same:
+        n, d, q_layout, df = pair.n_modes, pair.d, pair.q_layout, pair.df
+    shape = SHAPES[instance(table.layout, q_layout or table.layout, rq,
+                            table.rc)]
+    return _plan(table.layout, num_tables, max(table.caps), n, d, rq,
+                 table.rc, probes, topk, expansion, q_layout, df, shape)
 
 
-def occupancy(table, rq: int, smem: int) -> dict:
-    """What the card makes of K1's instantiation for ``table`` at ``smem``
-    bytes of shared memory a block (``smem_bytes``, static scalars
-    included): registers a thread, resident blocks per SM, local (spilled)
-    bytes a thread and the target blocks per SM."""
+@functools.lru_cache(maxsize=1024)
+def _plan(layout, num_tables, cap, n, d, rq, rc, probes, topk, expansion,
+          q_layout, df, shape) -> tuple[int, bool, int]:
+    """``launch_plan``'s work, once per distinct launch shape (``shape``,
+    the instantiation's ``SHAPES`` entry, is part of the key, so a plan
+    follows the table)."""
+    kw = dict(tt=layout == "tt", dense=layout == "dense", probes=probes,
+              topk=topk, expansion=expansion, q_layout=q_layout, df=df)
+    window, scratch = window_plan(num_tables, cap, n, d, rq, rc, **kw)
+    return window, scratch, smem_bytes(num_tables, n, d, rq, rc, window,
+                                       **kw)
+
+
+def occupancy(table, rq: int, smem: int, q_layout: str | None = None) -> dict:
+    """What the card makes of K1's instantiation for ``table`` (and queries
+    of ``q_layout``, by default the corpus's) at ``smem`` bytes of shared
+    memory a block (``smem_bytes``, static scalars included): registers a
+    thread, resident blocks per SM, local (spilled) bytes a thread and the
+    target blocks per SM."""
     import ctypes
 
     from repro_torch.kernels import _build
 
     out = (ctypes.c_int * 4)()
     _build.check(_build.lib().fused_query_occupancy(
-        FORMATS[table.layout], rq, table.rc, smem - STATIC_SMEM,
-        ctypes.addressof(out)),
+        FORMATS[table.layout], FORMATS[q_layout or table.layout], rq,
+        table.rc, smem - STATIC_SMEM, ctypes.addressof(out)),
         "fused_query_occupancy")
     return dict(registers=out[0], blocks_per_sm=out[1], local_bytes=out[2],
                 target_blocks=out[3])
+
+
+@functools.lru_cache(maxsize=None)
+def _dims(dims: tuple, device) -> torch.Tensor:
+    """The mode dims as an int32 tensor on ``device``, uploaded once."""
+    return torch.tensor(dims, dtype=torch.int32, device=device)
 
 
 def _check_device(dev: torch.device, name: str) -> None:
@@ -440,27 +560,26 @@ def _launch(values, offsets, mults, queries, table, *, kind, w, num_tables,
     e2 = kind.endswith("e2lsh")
     b = values.shape[0]
     q = queries[1]
-    tt, dense = table.layout == "tt", table.layout == "dense"
-    n, d, rc = table.n_modes, table.d, table.rc
-    if (queries[0].layout != table.layout
-            or q.dim() != table.segs[0].stacked.dim()
-            or queries[0].kernel_shape(q)[:2] != (n, d)
-            or not q.is_contiguous() or q.dtype != torch.float32):
-        raise ValueError(f"stacked queries {tuple(q.shape)} do not match the "
-                         f"stacked corpus {tuple(table.segs[0].stacked.shape)}")
-    rq = queries[0].kernel_shape(q)[2]
-    if tt and max(rq, rc) > MAX_TT_RANK:
+    pair = pair_shape(table, queries)
+    n, d, rq, rc = pair.n_modes, pair.d, pair.rq, table.rc
+    if max([r for lay, r in ((table.layout, rc), (pair.q_layout, rq))
+            if lay == "tt"], default=0) > MAX_TT_RANK:
         raise ValueError(f"K1 takes TT ranks up to {MAX_TT_RANK}; got "
                          f"Rq={rq}, Rc={rc}")
-    if dense and d > MAX_DENSE_ROW:
+    row = d if pair.same and table.layout == "dense" else pair.df
+    if row > MAX_DENSE_ROW:
         raise ValueError(f"K1 takes dense rows of up to {MAX_DENSE_ROW} "
-                         f"floats (MAX_DENSE_ROW); got {d}")
+                         f"floats (MAX_DENSE_ROW); got {row}")
+    dense_side = not pair.same and "dense" in (table.layout, pair.q_layout)
+    if dense_side and n > MAX_MODES:
+        raise ValueError(f"K1 takes cross-format pairs with a dense side of "
+                         f"up to {MAX_MODES} modes (MAX_MODES); got {n}")
     expansion = (probing.expansion_size(kind, num_codes) if probes > 1
                  else 0)
     window, need_scratch, smem = launch_plan(table, rq,
                                              num_tables=num_tables,
                                              probes=probes, topk=topk,
-                                             expansion=expansion)
+                                             expansion=expansion, pair=pair)
     vals = values.contiguous().float()
     offs = offsets.float().contiguous() if e2 else None
     mu = mults.to(dev, torch.int64).contiguous()
@@ -474,7 +593,13 @@ def _launch(values, offsets, mults, queries, table, *, kind, w, num_tables,
     # its largest window
     scap = _pow2_ceil(num_tables * probes * max(table.caps))
     scratch = scratch_rows(table, b, scap, dev) if need_scratch else None
-    tr = tt_bound(tt, rq, rc, dense)
+    # a CP or TT query's densified row over dense rows, past the staged one
+    qscratch = (torch.empty((b, pair.df), dtype=torch.float32, device=dev)
+                if table.layout == "dense" and pair.df > DENSE_STAGE
+                else None)
+    dims = _dims(pair.dims, dev) if dense_side else None
+    threads, min_blocks, _ = SHAPES[instance(table.layout, pair.q_layout,
+                                             rq, rc)]
     err = _build.lib().fused_query_launch(
         vals.data_ptr(), offs.data_ptr() if e2 else None, mu.data_ptr(),
         pairs.data_ptr() if pairs is not None else None, q.data_ptr(),
@@ -482,17 +607,20 @@ def _launch(values, offsets, mults, queries, table, *, kind, w, num_tables,
         scores.data_ptr(), ncand.data_ptr(), b, num_tables, num_codes,
         probes, expansion, n, d, rq, rc, topk, int(e2),
         int(metric == "euclidean"), FORMATS[table.layout],
-        float(w) if e2 else 1.0,
+        FORMATS[pair.q_layout], float(w) if e2 else 1.0,
         float(queries[0].scale), window,
         scratch.data_ptr() if need_scratch else None, scap,
-        counts.counter(dev).data_ptr(), THREADS[tr], MIN_BLOCKS[tr],
-        smem - STATIC_SMEM,
+        counts.counter(dev).data_ptr(),
+        qscratch.data_ptr() if qscratch is not None else None,
+        dims.data_ptr() if dims is not None else None, pair.df, threads,
+        min_blocks, smem - STATIC_SMEM,
         torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "fused_query_launch")
     branches = [name for name, on in (
         ("multiprobe", probes > 1),
         ("live_window", any(s.win is not None for s in table.segs)),
-        ("segments", len(table.segs) > 1)) if on]
+        ("segments", len(table.segs) > 1),
+        (f"mixed:{pair.q_layout}-{table.layout}", not pair.same)) if on]
     return ids, scores, ncand, branches
 
 

@@ -22,6 +22,18 @@ because both sides round:
     against the dense row, n = D, S = sum_j |x_j| |m_j| (times |scale|);
     the re-rank of dense rows is the same sum, D long
     (``DenseTensor.inner_length``).
+  * Cross-format values (``cross_length``): a dense operand against CP or
+    TT rows is contracted mode by mode in the plain version (d-long sums
+    per mode, then the rank sum: N * d + R for CP, N * (d + R) for TT) and
+    as one prod d-long dot of the densified operand in K1 (whose entries
+    are an N-fold product and an R-term sum, or an N-step chain of R-long
+    sums), so n = prod d + N * (d + R) + R + 2 covers both; CP x TT
+    (the rank-1 terms through the TT chain, per mode an r-long and a
+    d-long contraction, in either order, then the R^-term sum) takes
+    n = N * (R + d * R) + R + 2 with R the larger rank, as the TT chain
+    does plus the rank sum. The CP projection on TT inputs and the TT one
+    on CP inputs (``cross_raw_bound``) are that CP x TT sum; S is the same
+    contraction over absolute values.
   * Codes: a code may differ only where the value lies within that bound of
     a bucket edge (E2LSH) or of 0 (SRP); keys may differ only in the tables
     holding such a code.
@@ -34,8 +46,11 @@ by ``chip_smoke.py`` (kernel against plain version).
 
 from __future__ import annotations
 
+import math
+
 import torch
 
+from repro_torch.core import contractions
 from repro_torch.kernels.epilogues import div_w
 from repro_torch.kernels.ref import cp_inner_ref, tt_inner_ref
 
@@ -75,6 +90,38 @@ def dense_bound(x: torch.Tensor, m: torch.Tensor,
     return (2.0 * x.shape[-1] * U * s).float()
 
 
+def cross_length(x, y) -> int:
+    """The longest fp32 sum of one <x, y> of two formats that differ (see
+    the module docstring): dense x CP or TT, either order, prod d + N * (d
+    + R) + R + 2; CP x TT, either order, N * (R + d * R) + R + 2 with R the
+    larger rank."""
+    n, d, r = len(x.dims), max(x.dims), max(x.rank, y.rank)
+    if "dense" in (x.layout, y.layout):
+        return math.prod(x.dims) + n * (d + r) + r + 2
+    return n * (r + d * r) + r + 2
+
+
+def pair_length(x, y) -> int:
+    """The longest fp32 sum of one <x, y> for any pair of formats: the
+    format's ``inner_length`` for a same-format pair, else
+    ``cross_length``."""
+    if x.layout == y.layout:
+        return x.inner_length(y.rank)
+    return cross_length(x, y)
+
+
+def cross_raw_bound(p, xs) -> torch.Tensor:
+    """(B, K) absolute bound on the difference of two fp32 evaluations of a
+    CP projection's raw values on TT inputs or a TT projection's on CP
+    inputs (``projections.project_batch``): 2 n u |scale| times the same
+    contraction over absolute values, n = ``cross_length``."""
+    from repro_torch.core.projections import project_batch
+    s = project_batch(p.with_leaves(a.abs() for a in p.leaves),
+                      xs.abs()).abs()
+    proj = p.input_format(p.leaves, p.scale)
+    return 2.0 * cross_length(proj, xs) * U * s
+
+
 def boundary_codes(v: torch.Tensor, bound: torch.Tensor, kind: str,
                    offsets: torch.Tensor | None = None,
                    w: float = 1.0) -> torch.Tensor:
@@ -102,16 +149,23 @@ def rerank_bound(metric: str, queries, corpus, ids: torch.Tensor,
                  scores: torch.Tensor) -> torch.Tensor:
     """(B, topk) bound on the difference of two fp32 evaluations of the
     re-rank score of each result (0 where ``ids`` is -1). The inner
-    products carry the raw bounds' lengths (the format's ``inner_length``,
-    CP: d + N + R*R; TT: N * (R + d*R) + 2 with R the larger rank, either
-    contraction order), and the score expression 4 more roundings."""
+    products carry the raw bounds' lengths (``pair_length``: the format's
+    ``inner_length`` for a same-format pair, CP: d + N + R*R; TT: N * (R +
+    d*R) + 2 with R the larger rank, either contraction order; across
+    formats ``cross_length``), qq in the queries' format, yy in the
+    corpus's and qy across the two, and the score expression 4 more
+    roundings."""
     valid = ids >= 0
     sub = corpus.index(torch.where(valid, ids, 0).long())  # (B, k) rows
     qb = queries.index((slice(None), None))
     qa, ya = qb.abs(), sub.abs()
-    s_qq, s_yy, s_qy = qa.self_inners(), ya.self_inners(), qa.pair_inners(ya)
+    s_qq, s_yy = qa.self_inners(), ya.self_inners()
+    s_qy = contractions.pair_inners(qa, ya)
     qq, yy = qb.self_inners(), sub.self_inners()
-    gamma = 2.0 * (queries.inner_length(corpus.rank) + 4) * U
+    length = max(pair_length(queries, corpus),
+                 queries.inner_length(queries.rank),
+                 corpus.inner_length(corpus.rank))
+    gamma = 2.0 * (length + 4) * U
     s = torch.where(valid, scores, 0.0).abs()
     if metric == "euclidean":
         dd2 = gamma * (s_qq + s_yy + 2.0 * s_qy)

@@ -29,7 +29,13 @@ the exact cap its answers equal the single-device index's bit for bit. K1
 and K1s on dense rows of 64, 1,728, 1,730 (the scalar path) and 65,536
 floats against their plain versions, with self-queries; the naive and
 tensorized kinds over a mutated, capped dense store at T = 4 bit for bit
-on integer rows; the C launch refusing a dense plan of another shape.
+on integer rows; the C launch refusing a dense plan of another shape. K1's
+six cross-format pairs (a query batch in another format than the corpus's:
+dense x CP, CP x dense, dense x TT, TT x dense, CP x TT, TT x CP) against
+their plain versions at T = 1 and, with a live window over two segments,
+T = 4; CP and TT queries densified past the staged row (65,536 floats, the
+global scratch) and a dense query of that length read in place; K1s with
+mixed queries at S = 3, equal to the single-device index bit for bit.
 """
 
 import pytest
@@ -682,7 +688,7 @@ def test_fused_query_dense_matches_plain(gen, dims, n, shards):
     ``parity.rerank_bound`` (2 (prod d + 4) u sum |q||y| carried through
     the score), ids equal but at near ties; and an item queried as itself
     comes back first."""
-    from repro_torch.kernels.fused_query import DENSE, MIN_BLOCKS, occupancy
+    from repro_torch.kernels.fused_query import DENSE, SHAPES, occupancy
     corpus, svc = _dense_service(gen, dims, n, shards=shards)
     idx = svc.index
     qid = torch.randint(0, n, (300,), generator=gen, device="cuda")
@@ -718,7 +724,8 @@ def test_fused_query_dense_matches_plain(gen, dims, n, shards):
     _, _, smem = fq_mod.launch_plan(view.k1_table, 1, num_tables=4,
                                     probes=1, topk=10, expansion=0)
     occ = occupancy(view.k1_table, 1, smem)
-    assert occ["blocks_per_sm"] >= MIN_BLOCKS[DENSE] == occ["target_blocks"]
+    target = SHAPES[DENSE, DENSE][1]
+    assert occ["blocks_per_sm"] >= target == occ["target_blocks"]
 
 
 @pytest.mark.parametrize("kind", ["srp", "cp-e2lsh", "tt-srp"])
@@ -745,11 +752,98 @@ def test_fused_query_dense_launch_refuses_another_plan(gen, monkeypatch):
     ``MAX_DENSE_ROW`` floats raise by name."""
     corpus, svc = _dense_service(gen, (12, 12, 12), 2000)
     q = corpus[:64]
-    monkeypatch.setitem(fq_mod.MIN_BLOCKS, fq_mod.DENSE, 2)
+    key = (fq_mod.DENSE, fq_mod.DENSE)
+    monkeypatch.setitem(fq_mod.SHAPES, key, (256, 2, 2))
     with pytest.raises(RuntimeError, match="fused_query_launch"):
         svc.index.query_batch(q)
-    monkeypatch.setitem(fq_mod.MIN_BLOCKS, fq_mod.DENSE, 3)
+    monkeypatch.setitem(fq_mod.SHAPES, key, (256, 3, 2))
     svc.index.query_batch(q)
     monkeypatch.setattr(fq_mod, "MAX_DENSE_ROW", 1000)
     with pytest.raises(ValueError, match="MAX_DENSE_ROW"):
         svc.index.query_batch(q)
+
+
+MIXED = list(fq_mod.MIXED_PAIRS)
+# the family that indexes each corpus layout in the cross-format tests: the
+# paper's TT-E2LSH on CP inputs and CP-E2LSH on TT inputs
+MIXED_KIND = {"cp": "tt-e2lsh", "tt": "cp-e2lsh", "dense": "cp-e2lsh"}
+
+
+def _as_layout(x, layout):
+    """A CP batch as ``layout``, exactly: itself, its TT copy (diagonal
+    cores) or its dense rows."""
+    from repro_torch.core.projections import densify_batch
+    from repro_torch.core.tensor_formats import DenseTensor, cp_to_tt
+    if layout == "cp":
+        return x
+    if layout == "tt":
+        return cp_to_tt(x)
+    return DenseTensor(densify_batch(x).reshape((-1,) + x.dims), x.dims)
+
+
+def _mixed_service(gen, dims, n, cf, shards=None, **kw):
+    """CP data of rank 3 held as ``cf`` and its service (K = L = 4, w = 2,
+    the kind of ``MIXED_KIND``) -> (the CP corpus, the service)."""
+    from repro_torch.serving.lsh_service import build_service
+    corpus = cp_random_data(gen, dims, 3, batch=n)
+    svc = build_service(gen, MIXED_KIND[cf], dims, _as_layout(corpus, cf),
+                        num_codes=4, num_tables=4, rank=2, bucket_width=2.0,
+                        shards=shards, **kw)
+    return corpus, svc
+
+
+@pytest.mark.parametrize("qf,cf", MIXED)
+@pytest.mark.parametrize("probes,cap", [(1, None), (4, 16)])
+def test_fused_query_mixed_matches_plain(gen, qf, cf, probes, cap):
+    """K1's cross-format branch for each (query, corpus) pair against its
+    plain version on the same raw values: the exact cap at T = 1, and a
+    live window (``bucket_cap``) after deletes and an insert (two segments)
+    at T = 4. Candidate counts equal, scores within ``parity.rerank_bound``'s
+    cross terms, ids equal but at near ties; the launch counted under its
+    pair, and the planted neighbour found."""
+    dims, n = (6, 5, 7), 3000
+    corpus, svc = _mixed_service(gen, dims, n, cf, bucket_cap=cap,
+                                 probes=probes)
+    if cap is not None:
+        svc.delete(list(range(1, n, 9)))
+        svc.insert(_as_layout(cp_random_data(gen, dims, 3, batch=200), cf))
+    q = _planted(gen, corpus, n, 256)
+    name = f"mixed:{qf}-{cf}"
+    before = fused_query.branches[name]
+    nc = _k1_vs_plain(svc, _as_layout(q, qf), probes)
+    assert fused_query.branches[name] == before + 1 and int(nc.sum()) > 0
+
+
+@pytest.mark.parametrize("qf,cf", [("cp", "dense"), ("tt", "dense"),
+                                   ("dense", "tt")])
+def test_fused_query_mixed_past_the_staged_row(gen, qf, cf):
+    """(16, 16, 16, 16): a CP or TT query's densified row (65,536 floats)
+    goes to the global scratch instead of shared memory, and a dense query
+    of that length is read in place; K1 against its plain version."""
+    dims, n = (16, 16, 16, 16), 1500
+    corpus, svc = _mixed_service(gen, dims, n, cf)
+    q = _planted(gen, corpus, n, 64)
+    _k1_vs_plain(svc, _as_layout(q, qf), 1)
+
+
+@pytest.mark.parametrize("qf,cf", [("dense", "cp"), ("tt", "cp"),
+                                   ("cp", "tt"), ("tt", "dense")])
+def test_fused_query_sharded_mixed_matches_plain(gen, qf, cf):
+    """K1s with a query batch of another format, S = 3 (a padded last
+    shard), after deletes and a routed insert, at T = 1 and 4; and its
+    answers equal the single-device index's bit for bit."""
+    from repro_torch.serving.lsh_service import build_service
+    dims, n = (6, 5, 7), 3001
+    corpus, single = _mixed_service(gen, dims, n, cf)
+    sharded = build_service(None, MIXED_KIND[cf], dims, _as_layout(corpus, cf),
+                            shards=3, family=single.index.family,
+                            num_codes=4, num_tables=4, bucket_width=2.0)
+    q = _as_layout(_planted(gen, corpus, n, 256), qf)
+    got = sharded.query_arrays(q)
+    want = single.query_arrays(q)
+    for g, w_ in zip(got, want):
+        assert (g.view("int32") == w_.view("int32")).all()
+    sharded.delete(torch.arange(5, n, 13, device="cuda"))
+    sharded.insert(_as_layout(cp_random_data(gen, dims, 3, batch=300), cf))
+    for probes in (1, 4):
+        _k1s_vs_plain(sharded, q, probes)

@@ -225,7 +225,9 @@ def test_codes_keys_and_words_against_reference(kind):
 def test_naive_kinds_hash_cp_and_tt_inputs():
     """The naive e2lsh over a CP and a TT batch: codes of the densified
     rows, the same as hashing those rows as a dense batch (the densify is
-    exact up to its own rounding, so codes agree away from edges)."""
+    exact up to its own rounding, so codes agree away from edges); and a
+    TT family hashes the CP batch (the TT projection on CP inputs) to the
+    reference's codes."""
     fam, tfam = _carried("e2lsh")
     leaves, _ = tb.cp_fixture(40, 1, seed=9)
     cp = tb.torch_cp(leaves)
@@ -235,8 +237,9 @@ def test_naive_kinds_hash_cp_and_tt_inputs():
     flat = tproj.densify_batch(cp)
     dense = tfam.hash_batch(as_batch(flat.reshape((40,) + DIMS)))
     assert (dense.numpy() == got).mean() > 0.99
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        _carried("tt-srp")[1].hash_batch(cp)         # CP under TT: item 5
+    tt_fam, tt_tfam = _carried("tt-srp")             # CP under TT
+    assert (tt_tfam.hash_batch(cp).numpy()
+            == np.asarray(tt_fam.hash_batch(tb.jax_cp(leaves)))).mean() > 0.99
 
 
 @pytest.mark.parametrize("kind", ("e2lsh", "srp", "cp-e2lsh", "tt-srp",

@@ -125,10 +125,19 @@ def test_format_interface(fmt):
 
 
 def test_cross_format_pairs_are_queued():
+    """The TT x CP pair, once queued, is served: ``inner`` of a TT and a CP
+    tensor, either way round, equals the reference's within the rounding
+    bound of the chain with an (R^ x r) state."""
+    from repro_torch.kernels import parity
     x, _ = _pair(0)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tcon.inner(tb.torch_tt(x), tb.torch_cp([np.ones((d, 2), np.float32)
-                                                for d in (3, 4, 5)]))
+    rng = np.random.default_rng(1)
+    f = [rng.normal(size=(d, 2)).astype(np.float32) for d in (3, 4, 5)]
+    tt, cp = tb.torch_tt(x, 0.5), tb.torch_cp(f, 2.0)
+    want = float(jcon.inner(tb.jax_tt(x, 0.5), tb.jax_cp(f, 2.0)))
+    s = float(tcon.inner(tt.abs(), cp.abs()))
+    tol = 2 * parity.pair_length(tt, cp) * parity.U * s
+    assert abs(float(tcon.inner(tt, cp)) - want) <= tol
+    assert abs(float(tcon.inner(cp, tt)) - want) <= tol
 
 
 def test_tt_rademacher_distribution():

@@ -184,9 +184,13 @@ def test_make_family_tt_kinds(kind):
         assert bool(((fam.offsets >= 0) & (fam.offsets < 2.0)).all())
     else:
         assert fam.offsets is None
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        fam.hash_batch(tb.torch_cp([np.ones((d, 2), np.float32)[None]
-                                    for d in (4, 5, 6)]))
+    # CP inputs hash through the TT projection on CP inputs, to the codes
+    # of their exact TT copies away from bucket edges
+    from repro_torch.core.tensor_formats import cp_random_data, cp_to_tt
+    xs = cp_random_data(gen, (4, 5, 6), 2, batch=50)
+    codes = fam.hash_batch(xs)
+    assert codes.shape == (50, 2, 3) and codes.dtype == torch.int32
+    assert (codes == fam.hash_batch(cp_to_tt(xs))).float().mean() > 0.95
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="cuda"):
             tlsh.make_family(gen, kind, (4, 5, 6))
