@@ -8,16 +8,23 @@ git-ignored ``build/``. Each run is a process of its own that imports its
 tree's ``chip_smoke`` and drives the CP cell [main] and the TT cell
 [tt-main] through ``phase_main``, and [ann-k8] ([main]'s corpus and
 queries at the example's K = 8) through ``build_service`` and ``serve``;
-[main] serves its 256 batches three more times. Runs alternate (other,
-this, this, other, ...). Each run prints one ``AB {...}`` line: the batch
-means on the host clock, and K1's time on each of the three paths and the
-hash kernel's build and query launches on [main] and [tt-main] (CUDA
-events, ``phase_times`` / ``k1_times``). At the end the first 32 batches'
-ids, scores and candidate counts of every path and run are compared bit for
-bit, and so are the hash kernel's raw values on the first query batch and
-on the first 65,536-item build chunk and its keys on that chunk; the
-medians of each tree's batch means and the range of its kernel times are
-printed. Before the paths, each run times the tree's K6 (``ops.srp_pack``)
+[main] serves its 256 batches three more times. The dense paths follow
+[main] on its corpus and queries: [mixed dense x cp] (its first 32 batches
+densified, over [main]'s service), [shard-mixed] (the same over 4 shards,
+which must equal the single card bit for bit), and the corpus densified
+under [dense-main] (e2lsh) and [dense-cp] (cp-e2lsh), 64 batches each.
+Runs alternate (other, this, this, other, ...). Each run prints one ``AB
+{...}`` line: the batch means on the host clock, and K1's time on each path
+and the hash kernel's build and query launches on [main] and [tt-main]
+(CUDA events, ``phase_times`` / ``k1_times``). At the end the first 32
+batches' ids, scores and candidate counts of every path and run are
+compared bit for bit, and so are the hash kernel's raw values on the first
+query batch and on the first 65,536-item build chunk and its keys on that
+chunk; dense queries over CP rows (``PARITY_PATHS``), whose summation order
+a tree may change, are compared bit for bit within a tree and across trees
+within ``parity.rerank_bound`` (counts equal, ids equal but at near ties);
+the medians of each tree's batch means and the range of its kernel times
+are printed. Before the paths, each run times the tree's K6 (``ops.srp_pack``)
 at ``K6_SHAPES`` and one ``torch.amax`` over the first shape's values (the
 read yardstick: what a pure read stream reaches on this card), prints
 K6's registers from the tree's build log, and keeps K6's words at the
@@ -37,6 +44,9 @@ from pathlib import Path
 
 HERE = Path(__file__).resolve().parent
 KEEP = 32          # batches whose results are compared across runs
+DENSE_BATCHES = 64  # batches served on [dense-main] and [dense-cp]
+# paths compared across trees within the re-rank's rounding bound
+PARITY_PATHS = ("mixeddensecp", "shardmixed")
 # K6 (srp_pack) shapes timed in each run: the [kernels] shape, the L*K of
 # [main], a wide row, a narrow one; the words of the first K6_KEEP are kept
 K6_SHAPES = ((1 << 20, 128), (1 << 20, 100), (1 << 16, 2000), (1 << 20, 8))
@@ -99,6 +109,25 @@ def one(tree: str, out: str) -> None:
             arrays[f"{path}_{name}"] = np.stack(
                 [r[i] for r in results[:KEEP]])
 
+    def timed(path, svc, batches, corpus=None):
+        """Serve ``batches`` (a warm-up first), keep their results, time K1
+        on them -> the path's record."""
+        results, _ = cs.serve(svc, batches)
+        keep(path, results)
+        if path in PARITY_PATHS:
+            from repro_torch.kernels import parity
+            eff = svc.index.effective_corpus()
+            arrays[f"{path}_tol"] = np.stack([parity.rerank_bound(
+                svc.index.metric, q, eff, torch.as_tensor(r[0]).cuda(),
+                torch.as_tensor(r[1]).cuda()).cpu().numpy()
+                for q, r in zip(batches[:KEEP], results[:KEEP])])
+        _, k1_args = cs.k1_compare(svc, batches[0], f"ab {path}",
+                                   corpus=corpus)
+        k1_t = cs.k1_times(svc, batches, k1_args, f"K1 {path}",
+                           corpus=corpus)
+        return results, dict(means=[svc.stats.total_ms / svc.stats.batches],
+                             k1_ms=k1_t[0], hash_ms=None, query_ms=None)
+
     for layout, batches in (("cp", 256), ("tt", 64)):
         cell = dict(cs.CELLS[layout], hash_kernel=cs.HASH_RECORDS[layout][0])
         gen = torch.Generator(device="cuda").manual_seed(cell["seed"])
@@ -114,6 +143,9 @@ def one(tree: str, out: str) -> None:
             for _ in range(3):
                 cs.serve(svc, queries)
                 means.append(svc.stats.total_ms / svc.stats.batches)
+            dense_q = [cs.densify(q) for q in queries[:KEEP]]
+            mixed, res["mixeddensecp"] = timed("mixeddensecp", svc, dense_q,
+                                              svc.index.effective_corpus())
         _, k1_args = cs.k1_compare(svc, queries[0], "ab")
         times = cs.phase_times(svc, cell, queries, k1_args)
         keep(layout, results)
@@ -137,6 +169,18 @@ def one(tree: str, out: str) -> None:
                            hash_ms=times[0][0], query_ms=times[2][0])
         del svc, results, k1_args
         torch.cuda.empty_cache()
+        if layout == "cp":  # [shard-mixed]: dense x CP over 4 shards
+            svc = build_service(torch.Generator(device="cuda").manual_seed(1),
+                                cell["kind"], cell["dims"], corpus,
+                                num_codes=cell["codes"],
+                                num_tables=cell["tables"], rank=cell["rank"],
+                                bucket_width=cell["width"],
+                                shards=cs.SHARD["shards"], device="cuda")
+            got, res["shardmixed"] = timed("shardmixed", svc, dense_q)
+            for i, (g, w) in enumerate(zip(got, mixed)):
+                cs.same_answers(g, w, f"ab shard-mixed batch {i}")
+            del svc, got, mixed, dense_q
+            torch.cuda.empty_cache()
         if layout == "cp":  # [ann-k8]: the example's K = 8
             svc = build_service(torch.Generator(device="cuda").manual_seed(1),
                                 cell["kind"], cell["dims"], corpus,
@@ -150,10 +194,57 @@ def one(tree: str, out: str) -> None:
             res["annk8"] = dict(means=[svc.stats.total_ms / svc.stats.batches],
                                 k1_ms=k1_t[0], hash_ms=None, query_ms=None)
             del svc, results, k1_args
-        del corpus, queries
+            # [dense-main] and [dense-cp]: the corpus and queries densified
+            dense = cs.densify(corpus)
+            dense_q = [cs.densify(q) for q in queries[:DENSE_BATCHES]]
+            del corpus
+            torch.cuda.empty_cache()
+            for key in ("main", "cp"):
+                c = cs.DENSE[key]
+                svc = build_service(
+                    torch.Generator(device="cuda").manual_seed(1), c["kind"],
+                    c["dims"], dense, num_codes=c["codes"],
+                    num_tables=c["tables"], rank=c["rank"],
+                    bucket_width=c["width"], device="cuda")
+                path = c["tag"].replace("-", "")
+                _, res[path] = timed(path, svc, dense_q)
+                del svc
+                torch.cuda.empty_cache()
+            del dense, dense_q
+        else:
+            del corpus
+        del queries
         torch.cuda.empty_cache()
     np.savez(out, **arrays)
     print("AB " + json.dumps(res))
+
+
+def parity_verdict(runs, path) -> str:
+    """The first run of each tree on ``path``: candidate counts equal, and
+    ids and scores within ``parity.rerank_bound`` (the larger of the two
+    trees' bounds) -> a summary line."""
+    import numpy as np
+    import torch
+    sys.path.insert(0, str(HERE / "src"))
+    from repro_torch.kernels import parity
+    a, b = runs[0][2], next(r[2] for r in runs if r[0] != runs[0][0])
+    if not np.array_equal(a[f"{path}_ncand"], b[f"{path}_ncand"]):
+        return "candidate counts DIFFER"
+    ia, ib = (torch.from_numpy(x[f"{path}_ids"]).flatten(0, 1) for x in (a, b))
+    sa, sb = (torch.from_numpy(x[f"{path}_scores"]).flatten(0, 1)
+              for x in (a, b))
+    tol = torch.from_numpy(np.maximum(a[f"{path}_tol"],
+                                      b[f"{path}_tol"])).flatten(0, 1)
+    same = (ia == ib) & (ib >= 0)
+    err = (sa - sb).abs()[same]
+    bad = parity.topk_mismatches(ia, sa, ib, sb, tol)
+    ok = bool((err <= tol[same]).all()) and bad == 0
+    return (f"{'within' if ok else 'OUTSIDE'} the rounding bound: counts "
+            f"equal, {int((ia != ib).sum())} id slots differ ({bad} without "
+            f"a near tie), max |score difference| {float(err.max()):.3g} "
+            f"(bound's median {float(tol[same].median()):.3g}), "
+            f"{int((sa.view(torch.int32) != sb.view(torch.int32)).sum())} "
+            f"of {sa.numel()} scores not bit-equal")
 
 
 def main(argv=None) -> int:
@@ -188,13 +279,27 @@ def main(argv=None) -> int:
         print(f"run {i}: {line[0]}")
     first = runs[0][2]
     for key in first.files:
+        if key.endswith("_tol"):
+            continue
+        if key.split("_")[0] in PARITY_PATHS:
+            for tree in (args.other, str(HERE)):
+                mine = [r[2] for r in runs if r[0] == tree]
+                same = all(np.array_equal(mine[0][key].view(np.int32),
+                                          r[key].view(np.int32))
+                           for r in mine)
+                print(f"[ab] {key} {first[key].shape}: bit-equal across "
+                      f"{tree}'s runs: {same}")
+            continue
         same = all(np.array_equal(first[key].view(np.int32),
                                   r[2][key].view(np.int32)) for r in runs)
         print(f"[ab] {key} {first[key].shape}: bit-equal across all runs: "
               f"{same}")
+    for path in PARITY_PATHS:
+        print(f"[ab] {path}: across trees {parity_verdict(runs, path)}")
     for tree in (args.other, str(HERE)):
         mine = [r[1] for r in runs if r[0] == tree]
-        for path in ("cp", "annk8", "tt"):
+        for path in ("cp", "annk8", "tt", "densemain", "densecp",
+                     "mixeddensecp", "shardmixed"):
             means = [m for r in mine for m in r[path]["means"]]
             k1 = [r[path]["k1_ms"] for r in mine]
             hk = [r[path]["hash_ms"] for r in mine

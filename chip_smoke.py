@@ -986,11 +986,18 @@ def k1_times(svc, queries, k1_args, name, corpus=None):
     scratch = sum(after[f"{k}:scratch"] - before[f"{k}:scratch"]
                   for k in K1_WRAPPERS) / (4 * len(queries))
     pair = fq.pair_shape(view.k1_table, qs)
+    expansion = (probing.expansion_size(kw["kind"], kw["num_codes"])
+                 if kw["probes"] > 1 else 0)
     window, may_scratch, smem = fq.launch_plan(
         view.k1_table, pair.rq, num_tables=kw["num_tables"],
-        probes=kw["probes"], topk=kw["topk"],
-        expansion=(probing.expansion_size(kw["kind"], kw["num_codes"])
-                   if kw["probes"] > 1 else 0), pair=pair)
+        probes=kw["probes"], topk=kw["topk"], expansion=expansion,
+        pair=pair)
+    rows = ""
+    if view.k1_table.layout == "dense" and pair.same:
+        ring = fq.ring_plan(kw["num_tables"], max(view.k1_table.caps),
+                            pair.d, kw["probes"], kw["topk"], expansion)
+        rows = (f"; dense rows through a {pair.d}-float ring slot a warp"
+                if ring else "; dense rows read in place")
     occ = fq.occupancy(view.k1_table, pair.rq, smem, pair.q_layout)
     k1_plain = cuda_ms([lambda: plain(values, offs, mults, qs, **kw)], 2)
     q0 = qs[0]
@@ -1007,7 +1014,7 @@ def k1_times(svc, queries, k1_args, name, corpus=None):
           f"thread, {occ['blocks_per_sm']} blocks per SM (target "
           f"{occ['target_blocks']}), {occ['local_bytes']} local bytes, "
           f"{smem} shared bytes per block, a {window}-slot shared window"
-          f"{' with the global scratch' if may_scratch else ''}: "
+          f"{' with the global scratch' if may_scratch else ''}{rows}: "
           f"{scratch:.1f} queries per batch used the scratch")
     if occ["blocks_per_sm"] < occ["target_blocks"]:
         fail(f"{name}: {occ['blocks_per_sm']} blocks per SM, below the "

@@ -19,6 +19,25 @@ share. Two source forms are known: the first design's (one thread per
 and the tiled design's (register tiles of items x hashes, blocks from
 ``plan``); the stamps change the timing a little, so compare shares, not
 times. Needs a CUDA card and ``nvcc``.
+
+    python3 chip_stages.py --k1 TREE [TREE ...]
+
+stamps K1 (``fused_query.cuh``) instead: thread 0 of each query's block
+adds its cycles to five stages (the prologue: the query row staged or
+densified, the keys and qq; the probes' ``warp_bound`` searches; the window
+and its dedup; the re-rank; the selection and the output) and the card's
+``%globaltimer`` at the query's start and end. A source with the stamp
+hooks (``K1_STAMP``, empty unless defined) gets the macros defined in the
+copy; a source without them (the first dense-query design's) is patched
+at its stage boundaries.
+It runs [main]'s corpus and its first ``K1_BATCHES`` query batches as in
+``chip_smoke.py``: [mixed dense x cp] (dense queries over [main]'s CP
+service, ``<0, kDense>``), then the corpus densified under [dense-main]
+(e2lsh) and [dense-cp] (cp-e2lsh; both ``<kDense, kDense>``). Prints per
+cell K1's time (CUDA events, the stamped build), the stage shares of the
+summed query cycles, cycles a candidate in the re-rank, and the launch's
+timeline: its span, the share of the span the resident blocks were busy,
+and the drain after the last query started.
 """
 
 from __future__ import annotations
@@ -242,6 +261,185 @@ def one(tree: str, index: int) -> None:
                 max_cycles=max(r[5] for r in rows), shares=shares)))
 
 
+# K1's stamps: per query, five stage sums (cycles of thread 0 of its block),
+# their total, and %globaltimer at the query's start and end
+K1_MACROS = r"""
+namespace { __device__ long long g_k1[1 << 17][8]; }
+#define K1_STAMP_BEGIN                                                  \
+  long long k1s_t = clock64(), k1s_f[5] = {0, 0, 0, 0, 0};             \
+  unsigned long long k1s_g0;                                           \
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(k1s_g0));
+#define K1_STAMP(i)                                                     \
+  {                                                                    \
+    const long long k1s_n = clock64();                                 \
+    k1s_f[i] += k1s_n - k1s_t;                                         \
+    k1s_t = k1s_n;                                                     \
+  }
+#define K1_STAMP_END(q)                                                 \
+  if (threadIdx.x == 0) {                                              \
+    unsigned long long k1s_g1;                                         \
+    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(k1s_g1));         \
+    long long k1s_s = 0;                                               \
+    for (int k1s_i = 0; k1s_i < 5; ++k1s_i) {                          \
+      g_k1[q][k1s_i] = k1s_f[k1s_i];                                   \
+      k1s_s += k1s_f[k1s_i];                                           \
+    }                                                                  \
+    g_k1[q][5] = k1s_s;                                                \
+    g_k1[q][6] = (long long)k1s_g0;                                    \
+    g_k1[q][7] = (long long)k1s_g1;                                    \
+  }
+"""
+K1_FIELDS = ("prologue", "probes", "window + dedup", "re-rank",
+             "select + output")
+K1_READ = """
+extern "C" int {name}(void* host, size_t bytes) {{
+  return (int)cudaMemcpyFromSymbol(host, g_k1, bytes);
+}}
+"""
+K1_BATCHES = 8
+
+
+def stamp_k1(cuh: str) -> tuple[str, str]:
+    """The K1 header stamped -> (its text, the form: "hooks" where the
+    source carries ``K1_STAMP`` hooks, "first" for one without them,
+    patched at its stage boundaries)."""
+    head = "#include <stdint.h>\n"
+    if "K1_STAMP(" in cuh:
+        return patch(cuh, [(head, head + K1_MACROS)]), "hooks"
+    return patch(cuh, [
+        (head, head + K1_MACROS),
+        ("  const int warp = tid >> 5, lane = tid & 31;\n\n"
+         "  // the query row the re-rank reads",
+         "  const int warp = tid >> 5, lane = tid & 31;\n  K1_STAMP_BEGIN\n\n"
+         "  // the query row the re-rank reads"),
+        ("  for (int i = tid; i < 2 * wcap; i += kThreads) region[i] = "
+         "kEmpty;\n  __syncthreads();\n",
+         "  for (int i = tid; i < 2 * wcap; i += kThreads) region[i] = "
+         "kEmpty;\n  __syncthreads();\n  K1_STAMP(0)\n"),
+        ("    __syncthreads();\n    if (tid == 0) {\n      ncand_s = 0;\n",
+         "    __syncthreads();\n    K1_STAMP(1)\n    if (tid == 0) {\n"
+         "      ncand_s = 0;\n"),
+        ("    __syncthreads();\n    const int n_cand = ncand_s;\n",
+         "    __syncthreads();\n    K1_STAMP(2)\n"
+         "    const int n_cand = ncand_s;\n"),
+        ("    cp_async_wait<0>();\n  }\n  __syncthreads();\n",
+         "    cp_async_wait<0>();\n    K1_STAMP(3)\n  }\n  __syncthreads();\n"
+         "  K1_STAMP(3)\n"),
+        ("    if (scratch_s) atomicAdd(scratch_queries, 1ull);\n  }\n}",
+         "    if (scratch_s) atomicAdd(scratch_queries, 1ull);\n  }\n"
+         "  K1_STAMP(4)\n  K1_STAMP_END(b)\n}"),
+    ]), "first"
+
+
+def k1_one(tree: str, index: int) -> None:
+    """Stamp, build and run one tree's K1 on the dense-query cells (prints
+    ``STAGES`` lines)."""
+    import ctypes
+    import re
+    root = Path(tree).resolve()
+    sys.path.insert(0, str(root / "src"))
+    sys.path.insert(0, str(root))
+    import torch
+    import chip_smoke as cs
+    import repro_torch  # noqa: F401  (sets the float32 matmul flags)
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import fused_query as fq
+    from repro_torch.serving.lsh_service import build_service
+    out = HERE / "build" / "stages" / f"k1-{index}"
+    if out.exists():
+        shutil.rmtree(out)
+    shutil.copytree(root / "src/repro_torch/kernels/csrc", out / "csrc")
+    cuh, form = stamp_k1((out / "csrc/fused_query.cuh").read_text())
+    (out / "csrc/fused_query.cuh").write_text(cuh)
+    readers = {"fused_query.cu": "stages_k1_read",
+               "fused_query_mixed.cu": "stages_k1m_read"}
+    for src, name in readers.items():
+        f = out / "csrc" / src
+        f.write_text(f.read_text() + K1_READ.format(name=name))
+    _build.CSRC, _build.BUILD_ROOT = out / "csrc", out / "_build"
+    lib = _build.lib()
+    log = _build.BUILD_INFO["log"]
+    regs = {}
+    for m in re.finditer(r"Compiling entry function '(\w*fused_query_kernel"
+                         r"\w*)'.*?Used (\d+) registers", log, re.S):
+        regs[m.group(1)] = int(m.group(2))
+    for name in readers.values():
+        getattr(lib, name).argtypes = [ctypes.c_void_p, ctypes.c_size_t]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    cell = cs.CELLS["cp"]
+    n = 1 << 20
+    gen = torch.Generator(device="cuda").manual_seed(cell["seed"])
+    corpus = cs.hash_fns("cp")["data"](gen, cell["dims"], cell["rhat"],
+                                       batch=n)
+    perm = torch.randperm(n, generator=gen, device="cuda")
+    qids = [perm[i * 1024:(i + 1) * 1024] for i in range(K1_BATCHES)]
+    queries = [cs.densify(cs.make_queries(corpus, q, gen)) for q in qids]
+
+    def run(tag, c, data, reader, mangled):
+        svc = build_service(torch.Generator(device="cuda").manual_seed(1),
+                            c["kind"], c["dims"], data,
+                            num_codes=c["codes"], num_tables=c["tables"],
+                            rank=c["rank"], bucket_width=c["width"],
+                            device="cuda")
+        idx, fam = svc.index, svc.index.family
+        view = idx.store.view
+        kernel, _, _ = cs.k1_entry(view)
+        kw = dict(kind=fam.kind, w=fam.bucket_width,
+                  num_tables=fam.num_tables, num_codes=fam.num_codes,
+                  metric=idx.metric, topk=cs.TOPK, probes=1)
+        qss = [q.stack() for q in queries]
+        vals = [fam.raw_stacked(q[1], q[0].scale) for q in qss]
+        args = [(v, fam.offsets, idx._mults_t, q) for v, q in zip(vals, qss)]
+        ms = cs.cuda_ms([lambda a=a: kernel(*a, **kw) for a in args],
+                        3 * len(args))
+        _, _, ncand = kernel(*args[0], **kw)
+        torch.cuda.synchronize()
+        b = vals[0].shape[0]
+        buf = (ctypes.c_longlong * (b * 8))()
+        err = getattr(lib, reader)(ctypes.addressof(buf), b * 64)
+        if err:
+            raise SystemExit(f"chip_stages: reading K1 stamps: error {err}")
+        rows = [buf[8 * i:8 * i + 8] for i in range(b)]
+        total = sum(r[5] for r in rows)
+        shares = {f: sum(r[i] for r in rows) / total
+                  for i, f in enumerate(K1_FIELDS)}
+        pair = fq.pair_shape(view.k1_table, qss[0])
+        _, _, smem = fq.launch_plan(view.k1_table, pair.rq,
+                                    num_tables=kw["num_tables"], probes=1,
+                                    topk=kw["topk"], expansion=0, pair=pair)
+        occ = fq.occupancy(view.k1_table, pair.rq, smem, pair.q_layout)
+        slots = sms * occ["blocks_per_sm"]
+        starts = sorted(r[6] for r in rows)
+        ends = sorted(r[7] for r in rows)
+        span = ends[-1] - starts[0]
+        busy = sum(r[7] - r[6] for r in rows)
+        nc = ncand.double()
+        print("STAGES " + json.dumps(dict(
+            tree=tree, form=form, kernel="K1", cell=tag, queries=b, ms=ms,
+            registers={k: v for k, v in regs.items() if mangled in k},
+            blocks_per_sm=occ["blocks_per_sm"], smem=smem,
+            candidates_mean=float(nc.mean()), candidates_max=float(nc.max()),
+            cycles_per_query=total / b,
+            max_cycles=max(r[5] for r in rows),
+            rerank_cycles_per_candidate=sum(r[3] for r in rows)
+            / max(float(nc.sum()), 1.0),
+            span_us=span / 1e3,
+            busy_share=busy / (span * min(slots, b)),
+            drain_us=(ends[-1] - starts[-1]) / 1e3,
+            shares=shares)), flush=True)
+        del svc
+
+    run("mixed dense x cp", cell, corpus, "stages_k1m_read",
+        "ILi0ELi1E")
+    dense = cs.densify(corpus)
+    del corpus
+    torch.cuda.empty_cache()
+    for key in ("main", "cp"):
+        run(cs.DENSE[key]["tag"], cs.DENSE[key], dense, "stages_k1_read",
+            "ILi1ELi1E")
+        torch.cuda.empty_cache()
+
+
 def launch_shape(form, name, b, dims, rhat, rank, sms):
     """(grid blocks, block description) of a tree's launch at this shape."""
     n, d = len(dims), dims[0]
@@ -269,16 +467,19 @@ def launch_shape(form, name, b, dims, rhat, rank, sms):
 
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
-    if len(argv) == 3 and argv[0] == "--one":
-        one(argv[1], int(argv[2]))
+    if len(argv) == 3 and argv[0] in ("--one", "--one-k1"):
+        (one if argv[0] == "--one" else k1_one)(argv[1], int(argv[2]))
         return 0
+    mode = "--one"
+    if argv and argv[0] == "--k1":
+        mode, argv = "--one-k1", argv[1:]
     if not argv:
         print(__doc__)
         return 2
     for i, tree in enumerate(argv):
-        proc = subprocess.run([sys.executable, __file__, "--one", tree,
+        proc = subprocess.run([sys.executable, __file__, mode, tree,
                                str(i)], capture_output=True, text=True,
-                              timeout=600)
+                              timeout=900)
         lines = [x for x in proc.stdout.splitlines()
                  if x.startswith("STAGES ")]
         if proc.returncode != 0 or not lines:

@@ -10,8 +10,11 @@ namespace {
 
 // Shape<TR, QR>'s values of an instantiation, for the plan checks.
 int threads_of(int tr, int qr) {
-  if (tr != qr) return Shape<0, kDense>::threads;
-  return tr == 0 ? Shape<0, 0>::threads : Shape<4, 4>::threads;
+  if (tr == 0 && qr == kDense) return Shape<0, kDense>::threads;
+  if (tr != qr) return Shape<4, kDense>::threads;
+  return tr == 0        ? Shape<0, 0>::threads
+         : tr == kDense ? Shape<kDense, kDense>::threads
+                        : Shape<4, 4>::threads;
 }
 
 int min_blocks_of(int tr, int qr) {
@@ -26,15 +29,18 @@ int min_blocks_of(int tr, int qr) {
 }
 
 int per_warp_of(int tr, int qr) {
-  return tr == kDense || (tr == qr && tr == 0) ? 2 : 1;
+  if (tr == qr) return tr == 0 ? 2 : 1;
+  return tr == kDense || (tr == 0 && qr == kDense) ? 2 : 1;
 }
 
 }  // namespace
 
 // Shared memory of one K1 block (fused_query.py's smem_bytes plans with the
-// same sum, and fused_query_launch refuses a plan that differs):
-// two row buffers a warp for each candidate it scores at once (rows of
-// ranks above 8 and dense rows are read in place), the warps' lists and the
+// same sum, and fused_query_launch refuses a plan that differs): with ring
+// (dense rows of at most kRingRow whole float4s) a ring slot a warp and its
+// mbarrier (8 bytes), two row buffers a warp for each candidate it scores
+// at once (rows of ranks above 8 and dense rows are read in place), the
+// warps' lists and the
 // merged top-k (8 bytes a rank each), the region of the hash set and the
 // candidate list (3 * wcap ids) or the expansion's per-warp scores and
 // deltas (C of each), the query's row (a dense one, or a CP / TT query's
@@ -44,7 +50,7 @@ int per_warp_of(int tr, int qr) {
 // operand's row of a cross-format pair (prod d).
 extern "C" size_t fused_query_smem_bytes(int LT, int N, int D, int RQ,
                                          int RC, int wcap, int fmt, int qfmt,
-                                         int topk, int C, int DF) {
+                                         int topk, int C, int DF, int ring) {
   int tr, qr;
   instance_of(fmt, qfmt, RQ, RC, &tr, &qr);
   if (tr < 0 || qr < 0) return 0;
@@ -72,7 +78,9 @@ extern "C" size_t fused_query_smem_bytes(int LT, int N, int D, int RQ,
       : qtt ? 2 * (size_t)max(dense ? 0 : RQ * RC, RQ * RQ) : 0;
   size_t rw = max((size_t)3 * wcap, nw * 2 * (size_t)C);
   rw = (rw + 3) & ~(size_t)3;
-  return (nw * 2 * per_warp * fc + fq + nw * sw + rw) * 4 +
+  const size_t rs = ring && same && dense ? (size_t)ring_slot(D) : 0;
+  const size_t slots = rs ? nw * (rs + 2) : 0;
+  return (slots + nw * 2 * per_warp * fc + fq + nw * sw + rw) * 4 +
          (nw + 1) * topk * 8 +
          (size_t)(4 * LT + 1) * 4;
 }
@@ -117,16 +125,21 @@ extern "C" int fused_query_launch(
         (fmt == 2 && DF > kDenseStage && qscratch == nullptr))))
     return (int)cudaErrorInvalidValue;
   // the caller sized the window with its own copy of the block's shape and
-  // shared bytes: a launch planned with others is refused
+  // shared bytes (with the dense rows' ring or without it): a launch
+  // planned with others is refused
+  const bool ring = same && fmt == 2 && ring_slot(D) &&
+                    smem == fused_query_smem_bytes(L * T, N, D, RQ, RC, wcap,
+                                                   fmt, qfmt, topk, C, DF, 1);
   if (threads != threads_of(tr, qr) || min_blocks != min_blocks_of(tr, qr) ||
-      smem != fused_query_smem_bytes(L * T, N, D, RQ, RC, wcap, fmt, qfmt,
-                                     topk, C, DF))
+      (!ring && smem != fused_query_smem_bytes(L * T, N, D, RQ, RC, wcap,
+                                               fmt, qfmt, topk, C, DF, 0)))
     return (int)cudaErrorInvalidConfiguration;
   const K1Args a{values, offsets, mults, pairs, q, segtab, S, out_ids,
                  out_scores, out_ncand, B, L, K, T, C, N, D, RQ, RC, topk,
                  e2, euclid, w, qs, wcap, static_cast<uint32_t*>(scratch),
                  scap, static_cast<unsigned long long*>(scratch_queries),
-                 static_cast<float*>(qscratch), dims, DF};
+                 static_cast<float*>(qscratch), dims, DF,
+                 ring ? ring_slot(D) : 0};
   if (!same) return fused_query_mixed_launch(tr, qr, a, smem, st);
   switch (tr) {
     case 0: return launch<0, 0>(a, smem, st);

@@ -20,7 +20,8 @@
 // live[m] is 0, so a probe that lands on one, even through a pad-key
 // collision, is a miss like a tombstone; effective ids are unique across
 // shards, so the top-k over the rows is the reference's S-way merge. One
-// block serves one query (12 warps for CP, 8 for TT and dense: Shape below):
+// block serves one query (12 warps for CP, dense rows and dense queries over
+// CP rows, 8 for TT and the other pairs: Shape below):
 //
 //   1. keys, one warp per table: discretize the table's K raw values
 //      (floor((v + b) / w) or v > 0) and radix-combine them into the base
@@ -108,15 +109,31 @@
 // Dense rows (TR = kDense; the naive kinds and the tensorized ones over a
 // dense corpus: the reference's hoisted_scores on dense rows, jnp.vdot) are
 // long (6,912 bytes at (12, 12, 12), 256 KiB at (16, 16, 16, 16)) and read
-// once each, so the work is bytes: about n_cand * prod(d) * 4 a batch. No
-// row is staged: the query's row is copied into shared memory once while it
-// holds at most kDenseStage floats (else it too is read in place), and each
-// warp reads two candidates' rows in place at once, lane-strided, four
-// 16-byte loads a row in flight a lane (where prod(d) % 4 == 0 and both
-// rows are 16-byte aligned; otherwise four 4-byte loads, as K6's two paths
-// do), the two sums qy and yy in one pass over a row, then a warp
-// butterfly. Rows of up to kMaxDenseRow floats (Table 1's (16, 16, 16, 16))
-// are taken; the launch refuses longer ones.
+// once each, so the work is bytes: about n_cand * prod(d) * 4 a batch. The
+// query's row is copied into shared memory once while it holds at most
+// kDenseStage floats (else it is read in place). Measured before this
+// design (clock64 per query, chip_stages.py --k1): a launch ends when its
+// heaviest query does (580 candidates on [dense-main], 10x the mean; its
+// block ran the whole 0.28 ms span, streaming 15 GB/s: its warps kept 4 KiB
+// each in flight, in bursts), the re-rank 60-71% of a query, the probes
+// 14-19%. So a block keeps a whole row in flight a warp: 12 warps, each
+// with a ring slot of one row in shared memory (rows of at most kRingRow
+// whole float4s, 16-byte aligned; 83 KB at [main]'s 1,728 floats) and an
+// mbarrier, take the candidate list's next entry from a shared counter (no
+// ragged last round), lane 0 copies the row with one bulk copy
+// (cp.async.bulk, the mbarrier counting its bytes), and the warp scores it
+// from shared memory, its lane 0 having sent the row a warp takes a round
+// later into L2 (cp.async.bulk.prefetch.L2); 12 warps also run the L = 10
+// probes in one round, each warp a bucket's two bounds at once, and the
+// warps' lists merge by flat ranks. Other rows (a 4-byte multiple,
+// unaligned, longer, or no room for the ring beside an expansion) are read
+// in place, one candidate a warp, lane-strided, four 16-byte loads a row in
+// flight a lane (where prod(d) % 4 == 0 and both rows are 16-byte aligned;
+// otherwise four 4-byte loads, as K6's two paths do). Either way a lane sums the same
+// units in the same order (the two sums qy and yy in one pass over a row),
+// then a warp butterfly, so the scores are the first design's bit for bit.
+// Rows of up to kMaxDenseRow floats (Table 1's (16, 16, 16, 16)) are taken;
+// the launch refuses longer ones.
 //
 // Queries of another format (QR != TR: fused_query_mixed.cu instantiates
 // them; keys, probes, windows, dedup, selection and the output stage are the
@@ -128,19 +145,26 @@
 //     vector through the cores), into the staged query row while it holds
 //     at most kDenseStage floats, else into the query's row of a global
 //     scratch; the dense branch's dense_dots then scores the rows unchanged;
-//   * dense query x CP rows (inner_dense_cp): lanes take prefixes (i_1 ..
-//     i_{N-1}) of the dense index, each the rank's product over those modes
-//     times the last mode's d-long dot with the query's entries;
+//   * dense query x CP rows (inner_dense_cp): the reference's order, mode 1
+//     first, as a register-tiled product (dense_cp_sweep), two candidates a
+//     warp and 12 warps a block (80 registers, none spilled): the query row
+//     read as (d_1, P), a lane's columns p, each query entry used for the
+//     two rows' four ranks at a time, each column then weighted by
+//     prod_{n > 1} A_n[i_n(p), r] through a column table the wrapper builds
+//     once per mode shape; yy by each row's Grams on a half-warp. The first
+//     design's prefix sweep (a lane a prefix (i_1 .. i_{N-1}), its indices
+//     decoded by division, the query read at a stride of d_N) took 26k
+//     cycles a candidate a warp; a launch ends with its heaviest query
+//     (1,119 candidates on [mixed dense x cp]) either way;
 //   * dense query x TT rows (inner_dense_tt): lanes take prefixes, each the
 //     chain's row vector through the first N - 1 cores, then the last core's
 //     d entries against the query's;
 //   * CP x TT, either way round (inner_cp_tt): one warp steps an (R^ x r)
 //     state through the modes, S'[q][e] = sum_i A[i][q] sum_x S[q][x]
 //     G[x][i][e], in the TT branch's state buffer, then sums S[q][0].
-// These are a first, plain design (one candidate a warp; 8 warps, 2 blocks
-// a SM); the bound is the same bytes as the same-format branches plus the
-// reference's operations a candidate: its left-to-right sweeps over the
-// dense operand, sum_k 2 R prod_{j>=k} d_j for dense x CP and
+// The others score one candidate a warp (8 warps, 2 blocks a SM). The
+// bound is the same bytes as the same-format branches plus the reference's
+// operations a candidate: its left-to-right sweeps over the dense operand, sum_k 2 R prod_{j>=k} d_j for dense x CP and
 // sum_k 2 r_{k-1} r_k prod_{j>=k} d_j for dense x TT, and about
 // 2 N d R^ r^2 for CP x TT.
 //
@@ -157,6 +181,14 @@
 #include <cuda_runtime.h>
 #include <stddef.h>
 #include <stdint.h>
+
+// Stage stamps, empty here: chip_stages.py defines them in its copy of the
+// sources to time each query's stages with clock64().
+#ifndef K1_STAMP
+#define K1_STAMP_BEGIN
+#define K1_STAMP(stage)
+#define K1_STAMP_END(query)
+#endif
 
 // One launch's arguments (fused_query.cu's fused_query_launch takes them
 // from Python and passes them on to the instantiation).
@@ -181,6 +213,7 @@ struct K1Args {
   float* qscratch;
   const int* dims;
   int DF;
+  int RS;  // the dense rows' ring slot (floats), 0: rows read in place
 };
 
 // The cross-format instantiations (QR != TR), in fused_query_mixed.cu:
@@ -197,6 +230,9 @@ constexpr unsigned kFull = 0xffffffffu;
 constexpr int kDense = 1;            // TR of the dense-row instantiation
 constexpr int kDenseStage = 8192;    // the longest query row staged (floats)
 constexpr int kMaxDenseRow = 65536;  // the longest dense row K1 takes
+// the longest dense row a warp's ring slot holds (twelve slots and the
+// staged query row beside a 1,024-slot window fit two blocks a SM)
+constexpr int kRingRow = 2048;
 // the most modes of a cross-format pair with a dense side
 constexpr int kMaxModes = 16;
 // Threads of one query's block, the blocks per SM each instantiation is
@@ -204,19 +240,32 @@ constexpr int kMaxModes = 16;
 // that they fit) and the candidates a warp scores at once: CP 12 warps, 2
 // blocks (at most 85 registers, so none spill), two candidates; TT 8 warps
 // (two 4 KiB row buffers each), rank <= 4 3 blocks, rank <= 16 2, rank <= 8
-// 1 (its register tile), one candidate; dense 8 warps, 3 blocks, two
-// candidates (rows read in place, no buffers). A cross-format pair (QR !=
-// TR): 8 warps, 2 blocks, two dense rows at once or one CP / TT row.
+// 1 (its register tile), one candidate; dense 12 warps, 2 blocks, one
+// candidate (a ring slot a warp for rows of at most kRingRow floats, else
+// read in place). A cross-format pair (QR != TR): 2 blocks; 8 warps, two
+// dense rows at once or one CP / TT row; dense queries over CP rows 12
+// warps (80 registers), two CP rows a warp.
 template <int TR, int QR>
 struct Shape {
   static constexpr bool same = TR == QR;
-  static constexpr int per_warp = TR == kDense || (same && TR == 0) ? 2 : 1;
-  static constexpr int threads = same && TR == 0 ? 384 : 256;
+  static constexpr int per_warp =
+      same ? (TR == 0 ? 2 : 1) : TR == kDense || (TR == 0 && QR == kDense)
+                                     ? 2 : 1;
+  static constexpr int threads =
+      (same && (TR == 0 || TR == kDense)) || (TR == 0 && QR == kDense) ? 384
+                                                                       : 256;
   static constexpr int min_blocks = !same ? 2
-                                    : TR == 0 ? 2
-                                    : TR == kDense || TR == 4 ? 3
+                                    : TR == 0 || TR == kDense ? 2
+                                    : TR == 4 ? 3
                                     : TR == 16 ? 2 : 1;
 };
+
+// Floats of a dense instantiation's ring slot for rows of D floats: D where
+// the rows are whole float4s of at most kRingRow floats, else 0 (no ring:
+// rows read in place).
+__host__ __device__ constexpr int ring_slot(int D) {
+  return (D & 3) == 0 && D <= kRingRow ? D : 0;
+}
 
 __device__ __forceinline__ float scale_mul(float s, float v) {
   return __fmul_rn(s, v);
@@ -355,6 +404,29 @@ __device__ __noinline__ void tt_chains_far(const float* a1, int ra1,
                                            int D, float* st, int lane,
                                            float* v1, float* v2) {
   tt_chains<TR>(a1, ra1, b1, rb1, a2, ra2, b2, rb2, N, D, st, lane, v1, v2);
+}
+
+// The 64-bit selection key (order_key_bits(score) << 32) | eff of a
+// candidate from its unscaled qy and yy: the scales applied, then the
+// reference's score expression, sqrt(max((qq + yy) - 2 qy, 0)) or qy /
+// (nq * ny).
+__device__ __forceinline__ unsigned long long select_key(
+    float qq, float tqy, float tyy, float s_qy, float s_yy, int euclid,
+    int eff) {
+  const float qy = scale_mul(s_qy, tqy);
+  const float yy = scale_mul(s_yy, tyy);
+  float score;
+  if (euclid) {
+    const float d2 = __fsub_rn(__fadd_rn(qq, yy), __fmul_rn(2.f, qy));
+    score = sqrtf(d2 != d2 ? d2 : fmaxf(d2, 0.f));
+  } else {
+    const float nq = sqrtf(qq != qq ? qq : fmaxf(qq, 0.f));
+    const float ny = sqrtf(yy != yy ? yy : fmaxf(yy, 0.f));
+    score = __fdiv_rn(qy, __fmul_rn(nq, ny));
+  }
+  const uint32_t bits = __float_as_uint(euclid ? score : -score);
+  const uint32_t key32 = (bits >> 31) ? ~bits : (bits | 0x80000000u);
+  return ((unsigned long long)key32 << 32) | (uint32_t)eff;
 }
 
 __device__ __forceinline__ float warp_sum(float v) {
@@ -497,6 +569,48 @@ __device__ __forceinline__ int warp_bound(const long long* sk, int lo, int hi,
   return lo + __popc(__ballot_sync(kFull, before));
 }
 
+// Both bounds of key over the ascending uint32 keys sk[0, m) at once ->
+// *first (the first p with sk[p] >= key) and *past (the first with sk[p] >
+// key): warp_bound's steps for the two interleaved, so that their loads are
+// in flight together (four dependent loads for 2^20 keys, not 4 + 2).
+__device__ __forceinline__ void warp_bounds(const long long* sk, int m,
+                                            uint32_t key, int lane,
+                                            int* first, int* past) {
+  int lo[2] = {0, 0}, hi[2] = {m, m};
+  while (hi[0] - lo[0] > 32 || hi[1] - lo[1] > 32) {
+    int p[2];
+    uint32_t v[2];
+#pragma unroll
+    for (int s = 0; s < 2; ++s) {
+      const long long n = hi[s] - lo[s];
+      p[s] = lo[s] + (int)(((long long)(lane + 1) * n) / 33);
+      v[s] = n > 32 ? (uint32_t)__ldg(sk + p[s]) : 0u;
+    }
+#pragma unroll
+    for (int s = 0; s < 2; ++s) {
+      if (hi[s] - lo[s] <= 32) continue;
+      const int c = __popc(__ballot_sync(kFull, s ? v[s] <= key : v[s] < key));
+      const int plo = __shfl_sync(kFull, p[s], c > 0 ? c - 1 : 0);
+      const int phi = __shfl_sync(kFull, p[s], c < 32 ? c : 31);
+      if (c > 0) lo[s] = plo + 1;
+      if (c < 32) hi[s] = phi;
+    }
+  }
+  int out[2];
+#pragma unroll
+  for (int s = 0; s < 2; ++s) {
+    const int q = lo[s] + lane;
+    bool before = false;
+    if (q < hi[s]) {
+      const uint32_t v = (uint32_t)__ldg(sk + q);
+      before = s ? v <= key : v < key;
+    }
+    out[s] = lo[s] + __popc(__ballot_sync(kFull, before));
+  }
+  *first = out[0];
+  *past = out[1];
+}
+
 // Inserts id into the open-addressing set ht of 2^(32 - shift) slots ->
 // whether it was new.
 __device__ __forceinline__ bool set_insert(uint32_t* ht, int shift,
@@ -562,6 +676,56 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ unsigned smem_addr(const void* ptr) {
+  return (unsigned)__cvta_generic_to_shared(ptr);
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(
+      smem_addr(bar)));
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "WAIT_%=:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@!p bra WAIT_%=;\n"
+      "}\n" ::"r"(smem_addr(bar)),
+      "r"(parity)
+      : "memory");
+}
+
+// Brings bytes (a multiple of 16, 16-byte aligned) of global memory into
+// the L2 cache ahead of their bulk copy, one instruction.
+__device__ __forceinline__ void prefetch_l2(const float* src,
+                                            unsigned bytes) {
+  asm volatile("cp.async.bulk.prefetch.L2.global [%0], %1;\n" ::"l"(src),
+               "r"(bytes)
+               : "memory");
+}
+
+// One bulk copy of bytes (a multiple of 16, both ends 16-byte aligned) from
+// global into shared memory, completing on bar, whose one arrival announces
+// the bytes; the fence orders the slot's earlier reads before the copy.
+__device__ __forceinline__ void bulk_row(float* dst, const float* src,
+                                         unsigned bytes, uint64_t* bar) {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  asm volatile(
+      "{\n"
+      ".reg .b64 st;\n"
+      "mbarrier.arrive.expect_tx.shared::cta.b64 st, [%0], %1;\n"
+      "}\n" ::"r"(smem_addr(bar)),
+      "r"(bytes)
+      : "memory");
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
 }
 
 // One warp copies a candidate's FC-float row into its shared buffer,
@@ -695,30 +859,106 @@ __device__ void densify_query(const float* x, int R, int N, int D,
   }
 }
 
-// qy = <q, Y> over a dense query row q of DF floats and a CP row a (N, D,
-// R) (inner_dense_cp, scale not applied), to every lane: lanes take the
-// prefixes (i_1 .. i_{N-1}) of the dense index; per prefix and rank the
-// product of the first N - 1 factors' entries times the last mode's dot
-// with the query's entries.
-__device__ float dense_cp_dot(const float* q, const float* a, int R, int N,
-                              int D, const int* dims, int DF, int lane) {
-  const int dl = __ldg(dims + N - 1);
-  const float* al = a + (size_t)(N - 1) * D * R;
-  int ix[kMaxModes];
-  float acc = 0.f;
-  for (int p = lane; p < DF / dl; p += 32) {
-    unravel(p, dims, N - 1, ix);
-    const float* qp = q + (size_t)p * dl;
-    for (int r = 0; r < R; ++r) {
-      float prod = 1.f;
-      for (int n = 0; n < N - 1; ++n)
-        prod *= a[((size_t)n * D + ix[n]) * R + r];
-      float u = 0.f;
-      for (int j = 0; j < dl; ++j) u = fmaf(qp[j], al[j * R + r], u);
-      acc = fmaf(prod, u, acc);
-    }
+// Four ranks of one row of a CP factor from p -> v, zeros past the nr
+// ranks left: one 16-byte load where the rows are whole float4s (V4: R %
+// 4 == 0), else one load a rank.
+template <bool V4>
+__device__ __forceinline__ void ranks4(float* v, const float* p, int nr) {
+  if constexpr (V4) {
+    const float4 x = *reinterpret_cast<const float4*>(p);
+    v[0] = x.x;
+    v[1] = x.y;
+    v[2] = x.z;
+    v[3] = x.w;
+  } else {
+#pragma unroll
+    for (int r = 0; r < 4; ++r) v[r] = r < nr ? p[r] : 0.f;
   }
-  return warp_sum(acc);
+}
+
+// dense_cp_sweep's work for four ranks [r0, r0 + 4) -> acc[k] (below).
+template <int G, bool V4>
+__device__ __forceinline__ void sweep_ranks(const float* q,
+                                            const float* const* a, int R,
+                                            int r0, int N, int P, int d1,
+                                            const int* ct, int lane,
+                                            float* acc) {
+  const int nr = R - r0;
+  for (int p = lane; p < P; p += 32) {
+    float t[G][4];
+    const float* ai[G];
+#pragma unroll
+    for (int k = 0; k < G; ++k) {
+      ai[k] = a[k] + r0;
+#pragma unroll
+      for (int r = 0; r < 4; ++r) t[k][r] = 0.f;
+    }
+    const float* qi = q + p;
+#pragma unroll 4
+    for (int i = 0; i < d1; ++i) {
+      const float x = *qi;
+      qi += P;
+#pragma unroll
+      for (int k = 0; k < G; ++k) {
+        float av[4];
+        ranks4<V4>(av, ai[k], nr);
+        ai[k] += R;
+#pragma unroll
+        for (int r = 0; r < 4; ++r) t[k][r] = fmaf(av[r], x, t[k][r]);
+      }
+    }
+    float w[G][4];
+#pragma unroll
+    for (int k = 0; k < G; ++k)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) w[k][r] = 1.f;
+    const int* cn = ct + p;
+    for (int n = 1; n < N; ++n, cn += P) {
+      const int row = __ldg(cn) * R + r0;
+#pragma unroll
+      for (int k = 0; k < G; ++k) {
+        float an[4];
+        ranks4<V4>(an, a[k] + row, nr);
+#pragma unroll
+        for (int r = 0; r < 4; ++r) w[k][r] *= an[r];
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < G; ++k)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) acc[k] = fmaf(t[k][r], w[k][r], acc[k]);
+  }
+}
+
+// qy[k] = <q, Y_k> over a dense query row q of DF floats and G CP rows
+// a[k] (N, D, R) staged in shared memory (inner_dense_cp, scale not
+// applied), to every lane, in the reference's order: mode 1 first. The row
+// reads as (d_1, P), P = DF / d_1 the columns (i_2 .. i_N); lane l takes
+// the columns p = l, l + 32, ...: per chunk of four ranks, t[k][r] =
+// sum_i A_1k[i, r] q[i, p], each query entry loaded once for the G x 4
+// first-factor columns (A_1's rows are loads every lane shares), then
+// acc[k] += sum_r t[k][r] w[k][r] with the column's weight w[k][r] =
+// prod_{n > 1} A_nk[i_n(p), r], its rows found through the column table
+// (dims + N: (N - 1) x P entries n * D + i_n, the wrapper's, read through
+// the read-only cache), so no index is decoded here.
+template <int G>
+__device__ __forceinline__ void dense_cp_sweep(const float* q,
+                                               const float* const* a, int R,
+                                               int N, const int* dims,
+                                               int DF, int lane, float* qy) {
+  const int d1 = __ldg(dims);
+  const int P = DF / d1;
+  float acc[G];
+#pragma unroll
+  for (int k = 0; k < G; ++k) acc[k] = 0.f;
+  for (int r0 = 0; r0 < R; r0 += 4) {
+    if ((R & 3) == 0)
+      sweep_ranks<G, true>(q, a, R, r0, N, P, d1, dims + N, lane, acc);
+    else
+      sweep_ranks<G, false>(q, a, R, r0, N, P, d1, dims + N, lane, acc);
+  }
+#pragma unroll
+  for (int k = 0; k < G; ++k) qy[k] = warp_sum(acc[k]);
 }
 
 // qy = <q, Y> over a dense query row q of DF floats and a TT row g (N, R, D,
@@ -810,9 +1050,12 @@ __device__ __forceinline__ float cp_self(const float* a, int R, int N, int D,
 // scratch_queries counts the queries that used it. QR: the query's format in
 // the same code (QR == TR: the corpus's layout); for a cross-format pair, N
 // and D are the CP or TT operand's (its modes and padded mode dim), dims
-// (N,) the true mode dims and DF their product (the dense operand's row),
+// the true mode dims (N,), then the dense x CP column table ((N - 1) x
+// DF / dims[0]: column_table in fused_query.py), DF their product (the
+// dense operand's row),
 // and qscratch (B, DF) floats holds the densified CP or TT queries over dense
-// rows longer than kDenseStage (nullptr otherwise).
+// rows longer than kDenseStage (nullptr otherwise). RSLOT: the dense rows'
+// ring slot in floats (the launch's plan: ring_slot(D) or 0).
 template <int TR, int QR>
 __global__ void __launch_bounds__(Shape<TR, QR>::threads,
                                   Shape<TR, QR>::min_blocks)
@@ -828,15 +1071,20 @@ fused_query_kernel(
     int RQ, int RCMAX, int topk, int e2, int euclid, float w, double qs,
     int wcap, uint32_t* __restrict__ scratch, int scap,
     unsigned long long* __restrict__ scratch_queries,
-    float* __restrict__ qscratch, const int* __restrict__ dims, int DF) {
+    float* __restrict__ qscratch, const int* __restrict__ dims, int DF,
+    int RSLOT) {
   constexpr bool same = TR == QR;
   constexpr bool dense = TR == kDense;
   constexpr bool tt = TR > kDense;
   constexpr bool qdense = QR == kDense, qtt = QR > kDense;
   // a CP or TT query over dense rows, densified in the prologue
   constexpr bool densify = !same && dense;
-  // rows of ranks > 8 and dense rows are read in place
+  // rows of ranks > 8 and dense rows are read in place, the latter through
+  // the warps' ring slots where they fit one; the dense-row instance also
+  // searches a bucket's two bounds at once and merges the warps' lists by
+  // flat ranks
   constexpr bool stage_rows = !dense && TR <= 8;
+  constexpr bool ring_rows = same && dense;
   constexpr int kThreads = Shape<TR, QR>::threads;
   constexpr int nwarps = kThreads / 32;
   // candidates a warp scores at once
@@ -858,7 +1106,12 @@ fused_query_kernel(
                  : tt ? 2 * max(qdense ? 0 : RQ * RCMAX, RCMAX * RCMAX)
                  : qtt ? 2 * max(dense ? 0 : RQ * RCMAX, RQ * RQ) : 0;
   const int RW = (max(3 * wcap, nwarps * 2 * C) + 3) & ~3;
-  float* ybuf = reinterpret_cast<float*>(smem);  // [nwarps][2][G][FCMAX]
+  // a ring slot a warp (RS floats) and its mbarrier (2 floats' room), first
+  const int RS = ring_rows ? RSLOT : 0;
+  float* const ring = reinterpret_cast<float*>(smem);  // [nwarps][RS]
+  uint64_t* const bars =
+      reinterpret_cast<uint64_t*>(ring + nwarps * RS);  // [nwarps]
+  float* ybuf = ring + (RS ? nwarps * (RS + 2) : 0);  // [nwarps][2][G][FCMAX]
   unsigned long long* wl_all = reinterpret_cast<unsigned long long*>(
       ybuf + nwarps * 2 * G * FCMAX);                 // [nwarps][topk]
   unsigned long long* topv = wl_all + nwarps * topk;  // [topk]
@@ -874,10 +1127,12 @@ fused_query_kernel(
   __shared__ int total_s;
   __shared__ int hlog_s;
   __shared__ int scratch_s;
+  __shared__ int take_s;  // the ring path's next list entry
 
   const int b = blockIdx.x;
   const int tid = threadIdx.x;
   const int warp = tid >> 5, lane = tid & 31;
+  K1_STAMP_BEGIN
 
   // the query row the re-rank reads: staged, read in place, or a CP / TT
   // query's densified row
@@ -896,6 +1151,10 @@ fused_query_kernel(
     total_s = 0;
     ncand_s = 0;
     scratch_s = 0;
+    if (RS) {
+      for (int i = 0; i < nwarps; ++i) mbar_init(bars + i);
+      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    }
   }
 
   // 1. keys and the multi-probe expansion, one warp per table; the warp's
@@ -1012,11 +1271,13 @@ fused_query_kernel(
   }
   for (int i = tid; i < 2 * wcap; i += kThreads) region[i] = kEmpty;
   __syncthreads();
+  K1_STAMP(0)
   const float qq = qq_s;
   float* const yb = ybuf + warp * 2 * G * FCMAX;
   float* const sb = sbuf + warp * SW;
   unsigned long long* const wl = wl_all + warp * topk;
   unsigned long long thr = kPadSlot;  // the last key of the warp's list
+  unsigned ring_phase = 0;            // the parity of the warp's slot
 
   for (int si = 0; si < S; ++si) {
     const Seg g = load_seg(segtab + (size_t)si * 12);
@@ -1029,9 +1290,15 @@ fused_query_kernel(
       const int l = i / T;
       const uint32_t key = qkeys[i];
       const long long* sk = g.sorted_keys + (size_t)l * m;
-      const int start = warp_bound(sk, 0, g.m, key, false, lane);
-      const int hi = has_win ? g.m : min(g.m, start + g.cap);
-      const int end = warp_bound(sk, start, hi, key, true, lane);
+      int start, end;
+      if constexpr (ring_rows) {
+        warp_bounds(sk, g.m, key, lane, &start, &end);
+        if (!has_win) end = min(end, start + g.cap);
+      } else {
+        start = warp_bound(sk, 0, g.m, key, false, lane);
+        const int hi = has_win ? g.m : min(g.m, start + g.cap);
+        end = warp_bound(sk, start, hi, key, true, lane);
+      }
       if (lane == 0) {
         if (has_win) {
           const int* lr = g.live_rank + (size_t)l * (m + 1);
@@ -1045,8 +1312,10 @@ fused_query_kernel(
       }
     }
     __syncthreads();
+    K1_STAMP(1)
     if (tid == 0) {
       ncand_s = 0;
+      take_s = 0;
       woff[0] = 0;
       for (int i = 0; i < LT; ++i) woff[i + 1] = woff[i] + lens[i];
       const int pw = pow2_ceil(woff[LT]);
@@ -1078,20 +1347,53 @@ fused_query_kernel(
           cl[atomicAdd(&ncand_s, 1)] = ids[u];
     }
     __syncthreads();
+    K1_STAMP(2)
     const int n_cand = ncand_s;
     if (tid == 0) total_s += n_cand;
     for (int i = tid; i < H; i += kThreads) ht[i] = kEmpty;  // for the next
 
-    // 4. exact re-rank, G candidates a warp at a time (the list's j = G *
-    // warp + k, then j + G * nwarps + k, ...): the warp stages the next
-    // candidates' rows and effective ids while it scores the current ones,
-    // and enters their selection keys into its list
+    // 4. exact re-rank, entering each candidate's selection key into its
+    // warp's list. Dense rows that fill a ring slot: each warp takes the
+    // list's next entry (take_s), its lane 0 copies the row into the warp's
+    // slot with one bulk copy, and the warp scores it from shared memory.
+    // Otherwise G candidates a warp at a time (the list's j = G * warp + k,
+    // then j + G * nwarps + k, ...): the warp stages the next candidates'
+    // rows and effective ids while it scores the current ones.
     const int RC = g.rc;
     const int FC = g.fc;
     const float s_qy = (float)(qs * g.cs), s_yy = (float)(g.cs * g.cs);
     const bool vec = (FC & 3) == 0 &&
                      (reinterpret_cast<uintptr_t>(g.c) & 15) == 0 &&
                      (!dense || (reinterpret_cast<uintptr_t>(qrow) & 15) == 0);
+    if (RS && FC == RS && vec) {
+      float* const slot = ring + warp * RS;
+      while (true) {
+        int j = 0;
+        if (lane == 0) j = atomicAdd(&take_s, 1);
+        j = __shfl_sync(kFull, j, 0);
+        if (j >= n_cand) break;
+        const uint32_t c = cl[j];
+        if (lane == 0) {
+          bulk_row(slot, g.c + (size_t)c * FC, (unsigned)FC * 4u,
+                   bars + warp);
+          // the row a warp takes a round later: into L2 now
+          if (j + nwarps < n_cand)
+            prefetch_l2(g.c + (size_t)cl[j + nwarps] * FC, (unsigned)FC * 4u);
+        }
+        const int eff = __ldg(g.eff + c);
+        mbar_wait(bars + warp, ring_phase);
+        ring_phase ^= 1u;
+        const float* yr[1] = {slot};
+        float tqy, tyy;
+        dense_dots<1, false>(qrow, yr, FC, true, lane, &tqy, &tyy);
+        const unsigned long long key =
+            select_key(qq, tqy, tyy, s_qy, s_yy, euclid, eff);
+        if (key < thr) thr = topk_insert(wl, topk, key, lane);
+        __syncwarp();  // every lane has read the slot before it is refilled
+      }
+      K1_STAMP(3)
+      continue;
+    }
     int j = warp * G;
     uint32_t cur[G];
     int cur_eff[G];
@@ -1138,6 +1440,17 @@ fused_query_kernel(
       }
       if constexpr (dense) {
         dense_dots<G>(qrow, yr, same ? D : DF, vec, lane, tqy, tyy);
+      } else if constexpr (!same && !tt && qdense) {  // two CP rows
+        static_assert(G == 2, "dense x CP scores two rows a warp");
+        // yy by each row's Grams, its (r, q) terms on a half-warp
+        const float* yh[1] = {lane < 16 ? yr[0] : yr[1]};
+        float t = 0.f;
+        for (int p = lane & 15; p < RC * RC; p += 16)
+          pair_terms<1>(yh, RC, yh, RC, N, D, p / RC, p % RC, &t);
+        for (int o = 8; o > 0; o >>= 1) t += __shfl_xor_sync(kFull, t, o);
+        tyy[0] = __shfl_sync(kFull, t, 0);
+        tyy[1] = __shfl_sync(kFull, t, 16);
+        dense_cp_sweep<G>(qrow, yr, RC, N, dims, DF, lane, tqy);
       } else if constexpr (!same) {  // a dense, CP or TT query, G = 1
         if constexpr (tt)
           tt_chains<TR>(yr[0], RC, yr[0], RC, nullptr, 0, nullptr, 0, N, D,
@@ -1145,10 +1458,7 @@ fused_query_kernel(
         else
           tyy[0] = cp_self(yr[0], RC, N, D, lane);
         if constexpr (qdense) {
-          if constexpr (tt)
-            tqy[0] = dense_tt_dot<TR>(qrow, yr[0], RC, N, D, dims, DF, lane);
-          else
-            tqy[0] = dense_cp_dot(qrow, yr[0], RC, N, D, dims, DF, lane);
+          tqy[0] = dense_tt_dot<TR>(qrow, yr[0], RC, N, D, dims, DF, lane);
         } else if constexpr (tt) {  // a CP query
           tqy[0] = cp_tt_chain(qf, RQ, yr[0], RC, N, D, sb, lane);
         } else {  // a TT query
@@ -1182,21 +1492,8 @@ fused_query_kernel(
 #pragma unroll
       for (int k = 0; k < G; ++k) {
         if (cur[k] == kEmpty) continue;
-        const float qy = scale_mul(s_qy, tqy[k]);
-        const float yy = scale_mul(s_yy, tyy[k]);
-        float score;
-        if (euclid) {
-          const float d2 = __fsub_rn(__fadd_rn(qq, yy), __fmul_rn(2.f, qy));
-          score = sqrtf(d2 != d2 ? d2 : fmaxf(d2, 0.f));
-        } else {
-          const float nq = sqrtf(qq != qq ? qq : fmaxf(qq, 0.f));
-          const float ny = sqrtf(yy != yy ? yy : fmaxf(yy, 0.f));
-          score = __fdiv_rn(qy, __fmul_rn(nq, ny));
-        }
-        const uint32_t bits = __float_as_uint(euclid ? score : -score);
-        const uint32_t key32 = (bits >> 31) ? ~bits : (bits | 0x80000000u);
         const unsigned long long key =
-            ((unsigned long long)key32 << 32) | (uint32_t)cur_eff[k];
+            select_key(qq, tqy[k], tyy[k], s_qy, s_yy, euclid, cur_eff[k]);
         if (key < thr) thr = topk_insert(wl, topk, key, lane);
       }
       __syncwarp();  // the rows' half is read before it is staged again
@@ -1208,16 +1505,31 @@ fused_query_kernel(
       half ^= 1;
     }
     cp_async_wait<0>();
+    K1_STAMP(3)
   }
   __syncthreads();
+  K1_STAMP(3)
 
-  // 5. the warps' lists merged by rank, then ids, scores and the count
+  // 5. the warps' lists merged by rank, then ids, scores and the count. A
+  // key's rank: the keys before it in the lists' concatenation at most it,
+  // and those after it below it (equal keys are pads, and rank in order);
+  // counted flat (every key against every other, loads every thread shares)
+  // or by binary search in the other lists.
   for (int e = tid; e < nwarps * topk; e += kThreads) {
-    const int wv = e / topk;
     const unsigned long long x = wl_all[e];
-    int r = e - wv * topk;
-    for (int v = 0; v < nwarps && r < topk; ++v)
-      if (v != wv) r += count_below(wl_all + v * topk, topk, x, v < wv);
+    int r = 0;
+    if constexpr (ring_rows) {
+#pragma unroll 8
+      for (int f = 0; f < nwarps * topk; ++f) {
+        const unsigned long long y = wl_all[f];
+        r += f < e ? y <= x : y < x;
+      }
+    } else {
+      const int wv = e / topk;
+      r = e - wv * topk;
+      for (int v = 0; v < nwarps && r < topk; ++v)
+        if (v != wv) r += count_below(wl_all + v * topk, topk, x, v < wv);
+    }
     if (r < topk) topv[r] = x;
   }
   __syncthreads();
@@ -1240,6 +1552,8 @@ fused_query_kernel(
     out_ncand[b] = total_s;
     if (scratch_s) atomicAdd(scratch_queries, 1ull);
   }
+  K1_STAMP(4)
+  K1_STAMP_END(b)
 }
 
 
@@ -1317,7 +1631,7 @@ int launch(const K1Args& a, size_t smem, cudaStream_t stream) {
       a.values, a.offsets, a.mults, a.pairs, a.q, a.segtab, a.S, a.out_ids,
       a.out_scores, a.out_ncand, a.L, a.K, a.T, a.C, a.N, a.D, a.RQ, a.RC,
       a.topk, a.e2, a.euclid, a.w, a.qs, a.wcap, a.scratch, a.scap,
-      a.scratch_queries, a.qscratch, a.dims, a.DF);
+      a.scratch_queries, a.qscratch, a.dims, a.DF, a.RS);
   return (int)cudaGetLastError();
 }
 

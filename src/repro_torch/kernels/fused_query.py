@@ -74,6 +74,7 @@ STATIC_SMEM = 32           # bytes of K1's static shared scalars, at most
 MAX_TT_RANK = 16           # largest TT rank K1's chains take
 MAX_DENSE_ROW = 65536      # longest dense row (floats) K1 takes (kMaxDenseRow)
 DENSE_STAGE = 8192         # longest dense query row staged (kDenseStage)
+RING_ROW = 2048            # longest dense row a warp's ring slot holds
 TABLE_COLS = 12            # int64 words per segment in the K1 table
 DENSE = 1                  # TR of the dense-row instantiation (kDense)
 MAX_MODES = 16             # most modes of a cross pair with a dense side
@@ -90,11 +91,12 @@ MIXED_PAIRS = (("dense", "cp"), ("cp", "dense"), ("dense", "tt"),
 # DENSE dense rows, else the TT rank bound), QR = TR for a same-format
 # pair, else the query's own code (``instance``).
 SHAPES = {
-    (0, 0): (384, 2, 2), (DENSE, DENSE): (256, 3, 2), (4, 4): (256, 3, 1),
+    (0, 0): (384, 2, 2), (DENSE, DENSE): (384, 2, 1), (4, 4): (256, 3, 1),
     (8, 8): (256, 1, 1), (16, 16): (256, 2, 1),
-    # the cross-format pairs (csrc/fused_query_mixed.cu): 8 warps, 2 blocks
+    # the cross-format pairs (csrc/fused_query_mixed.cu): 2 blocks; dense
+    # queries over CP rows 12 warps, two rows a warp, the others 8
     (DENSE, 0): (256, 2, 2), (DENSE, 16): (256, 2, 2),
-    (0, DENSE): (256, 2, 1), (4, DENSE): (256, 2, 1),
+    (0, DENSE): (384, 2, 2), (4, DENSE): (256, 2, 1),
     (16, DENSE): (256, 2, 1), (4, 0): (256, 2, 1), (16, 0): (256, 2, 1),
     (0, 16): (256, 2, 1),
 }
@@ -125,11 +127,32 @@ def instance(layout: str, q_layout: str, rq: int, rc: int) -> tuple[int,
     return code.get(layout, 4 if rc <= 4 else 16), code.get(q_layout, 16)
 
 
+def ring_slot(d: int) -> int:
+    """Floats of the dense instantiation's ring slot for rows of ``d``
+    floats (``ring_slot`` in ``csrc/fused_query.cuh``): ``d`` where the rows
+    are whole float4s of at most ``RING_ROW`` floats, else 0 (the rows are
+    read in place)."""
+    return d if d % 4 == 0 and d <= RING_ROW else 0
+
+
+def column_table(dims: tuple, d: int) -> list:
+    """The dense x CP re-rank's column table (``dense_cp_sweep``): a dense
+    row of ``dims`` read as (d_1, P), P = prod dims[1:], and for each mode
+    n >= 1 (0-based) and column p its entry's row n * ``d`` + i_n(p) in a
+    stacked CP row (N, ``d``, R) -> the (N - 1) x P entries, mode-major."""
+    p = torch.arange(math.prod(dims[1:]), dtype=torch.int64)
+    rows = []
+    for n in range(len(dims) - 1, 0, -1):
+        rows.append(n * d + p % dims[n])
+        p = p // dims[n]
+    return torch.stack(rows[::-1]).flatten().tolist() if rows else []
+
+
 def smem_bytes(num_tables: int, n_modes: int, d: int, rq: int, rc: int,
                window: int, tt: bool = False, probes: int = 1,
                topk: int = 10, expansion: int = 0,
                dense: bool = False, q_layout: str | None = None,
-               df: int = 0) -> int:
+               df: int = 0, ring: bool = False) -> int:
     """Shared memory of one K1 block (``fused_query_smem_bytes`` in the CUDA
     source, which refuses a launch planned with another size) for a shared
     window of ``window`` slots (a power of two): two row buffers a warp for
@@ -142,10 +165,13 @@ def smem_bytes(num_tables: int, n_modes: int, d: int, rq: int, rc: int,
     for TT each warp's two chain states and their next values, four per-(table,
     probe) integer arrays, and ``STATIC_SMEM`` bytes of static scalars. A
     dense corpus (``dense``: n_modes = rq = rc = 1, d = prod d) stages no
-    candidate rows and its query row only up to ``DENSE_STAGE`` floats.
+    candidate rows and its query row only up to ``DENSE_STAGE`` floats;
+    with ``ring`` (rows of at most ``RING_ROW`` whole float4s: ``ring_plan``)
+    a ring slot a warp and its 8-byte mbarrier (``ring_slot``).
     Queries of another layout (``q_layout``; ``n_modes`` and ``d`` are then
     the CP or TT operand's, ``df`` = prod d the dense operand's row): 8
-    warps, one candidate a warp (two dense rows), the query row as given or,
+    warps, one candidate a warp (two dense rows; dense queries over CP rows:
+    12 warps, two rows), the query row as given or,
     over dense rows, densified (a row with a dense side staged up to
     ``DENSE_STAGE`` floats), and the chain states of the pair's TT
     operand."""
@@ -175,15 +201,41 @@ def smem_bytes(num_tables: int, n_modes: int, d: int, rq: int, rc: int,
         sw = 0
     region = -(-max(3 * window, nwarps * 2 * expansion) // 4) * 4
     lt = num_tables * probes
-    return ((nwarps * 2 * fc + fq + nwarps * sw + region) * 4
+    rs = ring_slot(d) if ring and dense and ql == layout else 0
+    slots = nwarps * (rs + 2) if rs else 0
+    return ((slots + nwarps * 2 * fc + fq + nwarps * sw + region) * 4
             + (nwarps + 1) * topk * 8 + (4 * lt + 1) * 4 + STATIC_SMEM)
+
+
+def _budget(blocks: int) -> int:
+    """Shared bytes a block may plan with ``blocks`` resident per SM."""
+    return min(MAX_SMEM, SM_SMEM // blocks - BLOCK_RESERVED)
+
+
+def _granules(smem: int) -> int:
+    return -(-smem // SMEM_GRANULE) * SMEM_GRANULE
+
+
+def ring_plan(num_tables: int, cap: int, d: int, probes: int = 1,
+              topk: int = 10, expansion: int = 0) -> bool:
+    """Whether K1's dense instantiation reads rows of ``d`` floats through
+    its warps' ring slots: rows that fit one (``ring_slot``) and a ring
+    that fits the target blocks per SM beside the query row, the lists,
+    the expansion and the smallest window; otherwise the rows are read in
+    place. The C launch tells the two plans apart by their shared bytes."""
+    if not ring_slot(d):
+        return False
+    least = min(_pow2_ceil(num_tables * probes * cap), MIN_WINDOW)
+    smem = smem_bytes(num_tables, 1, d, 1, 1, least, probes=probes,
+                      topk=topk, expansion=expansion, dense=True, ring=True)
+    return _granules(smem) <= _budget(SHAPES[DENSE, DENSE][1])
 
 
 def window_plan(num_tables: int, cap: int, n_modes: int, d: int, rq: int,
                 rc: int, tt: bool = False, probes: int = 1, topk: int = 10,
                 expansion: int = 0, dense: bool = False,
-                q_layout: str | None = None,
-                df: int = 0) -> tuple[int, bool]:
+                q_layout: str | None = None, df: int = 0,
+                ring: bool = False) -> tuple[int, bool]:
     """-> (window, scratch): the shared window's capacity in slots and
     whether a query can exceed it (L*T*cap above it, so the launch needs the
     global scratch). The capacity is the largest power of two in
@@ -196,15 +248,15 @@ def window_plan(num_tables: int, cap: int, n_modes: int, d: int, rq: int,
     size = functools.partial(smem_bytes, num_tables, n_modes, d, rq, rc,
                              tt=tt, probes=probes, topk=topk,
                              expansion=expansion, dense=dense,
-                             q_layout=q_layout, df=df)
+                             q_layout=q_layout, df=df, ring=ring)
     least = min(need, MIN_WINDOW)
     layout = "tt" if tt else "dense" if dense else "cp"
     target = SHAPES[instance(layout, q_layout or layout, rq, rc)][1]
     for blocks in range(target, 0, -1):
-        budget = min(MAX_SMEM, SM_SMEM // blocks - BLOCK_RESERVED)
+        budget = _budget(blocks)
         window = min(need, MAX_WINDOW)
         while window >= least:
-            if -(-size(window) // SMEM_GRANULE) * SMEM_GRANULE <= budget:
+            if _granules(size(window)) <= budget:
                 return window, need > window
             window //= 2
     raise ValueError(
@@ -511,6 +563,8 @@ def _plan(layout, num_tables, cap, n, d, rq, rc, probes, topk, expansion,
     follows the table)."""
     kw = dict(tt=layout == "tt", dense=layout == "dense", probes=probes,
               topk=topk, expansion=expansion, q_layout=q_layout, df=df)
+    kw["ring"] = (layout == "dense" and q_layout is None
+                  and ring_plan(num_tables, cap, d, probes, topk, expansion))
     window, scratch = window_plan(num_tables, cap, n, d, rq, rc, **kw)
     return window, scratch, smem_bytes(num_tables, n, d, rq, rc, window,
                                        **kw)
@@ -536,9 +590,11 @@ def occupancy(table, rq: int, smem: int, q_layout: str | None = None) -> dict:
 
 
 @functools.lru_cache(maxsize=None)
-def _dims(dims: tuple, device) -> torch.Tensor:
-    """The mode dims as an int32 tensor on ``device``, uploaded once."""
-    return torch.tensor(dims, dtype=torch.int32, device=device)
+def _dims(dims: tuple, d: int, device) -> torch.Tensor:
+    """The mode dims, then their ``column_table`` for padded mode dim
+    ``d``, as one int32 tensor on ``device``, uploaded once."""
+    return torch.tensor(list(dims) + column_table(dims, d),
+                        dtype=torch.int32, device=device)
 
 
 def _check_device(dev: torch.device, name: str) -> None:
@@ -597,7 +653,7 @@ def _launch(values, offsets, mults, queries, table, *, kind, w, num_tables,
     qscratch = (torch.empty((b, pair.df), dtype=torch.float32, device=dev)
                 if table.layout == "dense" and pair.df > DENSE_STAGE
                 else None)
-    dims = _dims(pair.dims, dev) if dense_side else None
+    dims = _dims(pair.dims, d, dev) if dense_side else None
     threads, min_blocks, _ = SHAPES[instance(table.layout, pair.q_layout,
                                              rq, rc)]
     err = _build.lib().fused_query_launch(

@@ -29,7 +29,11 @@ the exact cap its answers equal the single-device index's bit for bit. K1
 and K1s on dense rows of 64, 1,728, 1,730 (the scalar path) and 65,536
 floats against their plain versions, with self-queries; the naive and
 tensorized kinds over a mutated, capped dense store at T = 4 bit for bit
-on integer rows; the C launch refusing a dense plan of another shape. K1's
+on integer rows; the C launch refusing a dense plan of another shape or
+shared size; the dense re-rank at its ring's edges (rows in the ring
+slots or read in place, one candidate or none a query) bit for bit on
+integer rows; dense queries over CP rows at the sweep's edges (rank
+chunks, one mode and ten, CP rank 1 and 32). K1's
 six cross-format pairs (a query batch in another format than the corpus's:
 dense x CP, CP x dense, dense x TT, TT x dense, CP x TT, TT x CP) against
 their plain versions at T = 1 and, with a live window over two segments,
@@ -748,19 +752,99 @@ def test_fused_query_dense_kinds_after_mutations(gen, kind):
 
 def test_fused_query_dense_launch_refuses_another_plan(gen, monkeypatch):
     """The C launch recomputes the dense instantiation's threads, blocks
-    per SM and shared bytes, and refuses a plan made with others; rows past
-    ``MAX_DENSE_ROW`` floats raise by name."""
+    per SM and shared bytes, with its rows' ring or without it, and refuses
+    a plan made with others (the first design's 8 warps and 3 blocks, a
+    ring slot of another size); a plan without the ring (rows read in
+    place) is taken and answers alike; rows past ``MAX_DENSE_ROW`` floats
+    raise by name."""
     corpus, svc = _dense_service(gen, (12, 12, 12), 2000)
     q = corpus[:64]
+    want = svc.index.query_batch(q)
     key = (fq_mod.DENSE, fq_mod.DENSE)
-    monkeypatch.setitem(fq_mod.SHAPES, key, (256, 2, 2))
+    shape = fq_mod.SHAPES[key]
+    for other in ((256, 3, 2), (256, 2, 2), (384, 3, 2)):
+        monkeypatch.setitem(fq_mod.SHAPES, key, other)
+        with pytest.raises(RuntimeError, match="fused_query_launch"):
+            svc.index.query_batch(q)
+    monkeypatch.setitem(fq_mod.SHAPES, key, shape)
+    monkeypatch.setattr(fq_mod, "ring_slot", lambda d: d + 4)
+    fq_mod._plan.cache_clear()
     with pytest.raises(RuntimeError, match="fused_query_launch"):
         svc.index.query_batch(q)
-    monkeypatch.setitem(fq_mod.SHAPES, key, (256, 3, 2))
-    svc.index.query_batch(q)
+    monkeypatch.undo()
+    monkeypatch.setattr(fq_mod, "RING_ROW", 1024)
+    fq_mod._plan.cache_clear()
+    assert not fq_mod.ring_plan(4, svc.index.cap, 1728)
+    for g, w_ in zip(svc.index.query_batch(q), want):
+        assert torch.equal(g.view(torch.int32), w_.view(torch.int32))
+    monkeypatch.undo()
+    fq_mod._plan.cache_clear()
     monkeypatch.setattr(fq_mod, "MAX_DENSE_ROW", 1000)
     with pytest.raises(ValueError, match="MAX_DENSE_ROW"):
         svc.index.query_batch(q)
+
+
+@pytest.mark.parametrize("dims,cap,tables,kind", [
+    ((12, 12, 12), None, 4, "e2lsh"),  # ring slots; counts not a multiple of 12
+    ((12, 12, 12), 1, 1, "e2lsh"),     # one candidate a query, or none
+    ((4, 4, 4), 16, 4, "srp"),         # 64-float slots, live windows
+    ((2, 1032), None, 4, "e2lsh"),     # 2,064 floats: past the ring slot
+    ((6, 173), None, 4, "e2lsh"),      # 1,038 floats: whole floats, in place
+])
+def test_fused_query_dense_ring_edges(gen, dims, cap, tables, kind):
+    """K1's dense re-rank at the ring's edges against its plain version bit
+    for bit on integer-valued rows (exact sums in any order): rows copied
+    into the warps' ring slots or read in place, candidate lists of any
+    length, of one entry and empty (queries far from every item)."""
+    from repro_torch.serving.lsh_service import build_service
+    n = 3000
+    corpus = torch.randint(-1, 2, (n,) + dims, generator=gen,
+                           device="cuda").float()
+    w = float(torch.tensor(dims).prod()) ** 0.5
+    svc = build_service(gen, kind, dims, corpus, num_codes=4,
+                        num_tables=tables, bucket_width=w, bucket_cap=cap)
+    near = corpus[torch.randint(0, n, (200,), generator=gen, device="cuda")]
+    far = torch.randint(-1, 2, (56,) + dims, generator=gen,
+                        device="cuda").float() * 1000.0
+    _, _, nc = _bitwise_vs_plain(svc, as_batch(torch.cat([near, far])), 1)
+    assert int(nc.sum()) > 0
+    if kind == "e2lsh":
+        assert int(nc.min()) == 0
+    if cap == 1:
+        assert set(nc.tolist()) == {0, 1}
+
+
+@pytest.mark.parametrize("dims,rank,cap,tables", [
+    ((12, 12, 12), 4, None, 4),  # [main]'s widths: float4 ranks
+    ((13, 3, 2), 1, None, 4),    # d_1 = 13, past the unroll of 4; rank 1
+    ((6, 5, 7), 32, None, 4),    # the largest CP rank K3 hashes: 8 chunks
+    ((40,), 3, None, 4),         # one mode: one column, no table
+    ((2,) * 10, 5, None, 4),     # ten modes; a ragged rank chunk
+    ((12, 12, 12), 4, 1, 1),     # one candidate a query, or none
+])
+def test_fused_query_dense_x_cp_sweep_edges(gen, dims, rank, cap, tables):
+    """Dense queries over CP rows (``dense_cp_sweep``, two rows a warp)
+    against K1's plain version at the sweep's edges: rank chunks, one mode,
+    ten, the column table, one candidate and none (a warp's second row
+    empty; queries far from every item);
+    candidate counts equal, scores within ``parity.rerank_bound``, ids
+    equal but at near ties."""
+    from repro_torch.core.tensor_formats import DenseTensor
+    from repro_torch.serving.lsh_service import build_service
+    n = 3000
+    corpus = cp_random_data(gen, dims, rank, batch=n)
+    svc = build_service(gen, "cp-e2lsh", dims, corpus, num_codes=4,
+                        num_tables=tables, rank=2, bucket_width=2.0,
+                        bucket_cap=cap)
+    near = _as_layout(_planted(gen, corpus, n, 200), "dense").data
+    far = 1000.0 * torch.randn((56,) + dims, generator=gen, device="cuda")
+    q = DenseTensor(torch.cat([near, far]), dims)
+    before = fused_query.branches["mixed:dense-cp"]
+    nc = _k1_vs_plain(svc, q, 1)
+    assert fused_query.branches["mixed:dense-cp"] == before + 1
+    assert int(nc.sum()) > 0
+    if cap == 1:
+        assert set(nc.tolist()) == {0, 1}
 
 
 MIXED = list(fq_mod.MIXED_PAIRS)
