@@ -2,17 +2,21 @@
 """Compare another tree of the port with this one on one NVIDIA H100.
 
     python3 chip_ab.py OTHER_TREE [--pairs 3] [--out build/ab]
+                       [--parity PATH,...]
 
 OTHER_TREE is another commit's ``git archive``, unpacked under the
 git-ignored ``build/``. Each run is a process of its own that imports its
 tree's ``chip_smoke`` and drives the CP cell [main] and the TT cell
 [tt-main] through ``phase_main``, and [ann-k8] ([main]'s corpus and
 queries at the example's K = 8) through ``build_service`` and ``serve``;
-[main] serves its 256 batches three more times. The dense paths follow
-[main] on its corpus and queries: [mixed dense x cp] (its first 32 batches
-densified, over [main]'s service), [shard-mixed] (the same over 4 shards,
-which must equal the single card bit for bit), and the corpus densified
-under [dense-main] (e2lsh) and [dense-cp] (cp-e2lsh), 64 batches each.
+[main] serves its 256 batches three more times. The cross-format and dense
+paths follow [main] on its corpus and queries (its first 32 batches in the
+query format): [mixed dense x cp] and [mixed tt x cp] over [main]'s
+service, [shard-mixed] (dense x CP over 4 shards, which must equal the
+single card bit for bit), [mixed cp x tt] and [mixed dense x tt] over
+[cp-as-tt] (the corpus converted exactly to TT), and the corpus densified
+under [dense-main] (e2lsh, with [mixed cp x dense] and [mixed tt x dense])
+and [dense-cp] (cp-e2lsh), 64 batches each.
 Runs alternate (other, this, this, other, ...). Each run prints one ``AB
 {...}`` line: the batch means on the host clock, and K1's time on each path
 and the hash kernel's build and query launches on [main] and [tt-main]
@@ -20,9 +24,10 @@ and the hash kernel's build and query launches on [main] and [tt-main]
 batches' ids, scores and candidate counts of every path and run are
 compared bit for bit, and so are the hash kernel's raw values on the first
 query batch and on the first 65,536-item build chunk and its keys on that
-chunk; dense queries over CP rows (``PARITY_PATHS``), whose summation order
-a tree may change, are compared bit for bit within a tree and across trees
-within ``parity.rerank_bound`` (counts equal, ids equal but at near ties);
+chunk; the paths named by ``--parity`` (of ``PATHS``: those whose
+summation order the trees differ in) are compared bit for bit within a tree
+and across trees within ``parity.rerank_bound`` (counts equal, ids equal
+but at near ties);
 the medians of each tree's batch means and the range of its kernel times
 are printed. Before the paths, each run times the tree's K6 (``ops.srp_pack``)
 at ``K6_SHAPES`` and one ``torch.amax`` over the first shape's values (the
@@ -45,8 +50,10 @@ from pathlib import Path
 HERE = Path(__file__).resolve().parent
 KEEP = 32          # batches whose results are compared across runs
 DENSE_BATCHES = 64  # batches served on [dense-main] and [dense-cp]
-# paths compared across trees within the re-rank's rounding bound
-PARITY_PATHS = ("mixeddensecp", "shardmixed")
+# every path's record in the summary, in the order the runs serve them
+PATHS = ("cp", "annk8", "tt", "densemain", "densecp", "mixeddensecp",
+         "shardmixed", "mixedttcp", "mixedcptt", "mixeddensett",
+         "mixedcpdense", "mixedttdense")
 # K6 (srp_pack) shapes timed in each run: the [kernels] shape, the L*K of
 # [main], a wide row, a narrow one; the words of the first K6_KEEP are kept
 K6_SHAPES = ((1 << 20, 128), (1 << 20, 100), (1 << 16, 2000), (1 << 20, 8))
@@ -91,15 +98,16 @@ def k6_section(cs, arrays: dict) -> dict:
     return times
 
 
-def one(tree: str, out: str) -> None:
-    """One run of ``tree``: the three paths, results saved to ``out``
-    (.npz)."""
+def one(tree: str, out: str, parity_paths=()) -> None:
+    """One run of ``tree``: the paths, results saved to ``out`` (.npz),
+    with ``parity.rerank_bound`` of each of ``parity_paths``' batches."""
     sys.path.insert(0, str(Path(tree) / "src"))
     sys.path.insert(0, tree)
     import numpy as np
     import torch
     import chip_smoke as cs
     import repro_torch  # noqa: F401  (sets the float32 matmul flags)
+    from repro_torch.core.tensor_formats import cp_to_tt
     from repro_torch.serving.lsh_service import build_service
     res, arrays = {"tree": tree}, {}
     res["k6"] = k6_section(cs, arrays)
@@ -114,7 +122,7 @@ def one(tree: str, out: str) -> None:
         on them -> the path's record."""
         results, _ = cs.serve(svc, batches)
         keep(path, results)
-        if path in PARITY_PATHS:
+        if path in parity_paths:
             from repro_torch.kernels import parity
             eff = svc.index.effective_corpus()
             arrays[f"{path}_tol"] = np.stack([parity.rerank_bound(
@@ -144,8 +152,12 @@ def one(tree: str, out: str) -> None:
                 cs.serve(svc, queries)
                 means.append(svc.stats.total_ms / svc.stats.batches)
             dense_q = [cs.densify(q) for q in queries[:KEEP]]
+            tt_q = [cp_to_tt(q) for q in queries[:KEEP]]
+            eff = svc.index.effective_corpus()
             mixed, res["mixeddensecp"] = timed("mixeddensecp", svc, dense_q,
-                                              svc.index.effective_corpus())
+                                              eff)
+            _, res["mixedttcp"] = timed("mixedttcp", svc, tt_q, eff)
+            del eff
         _, k1_args = cs.k1_compare(svc, queries[0], "ab")
         times = cs.phase_times(svc, cell, queries, k1_args)
         keep(layout, results)
@@ -179,7 +191,18 @@ def one(tree: str, out: str) -> None:
             got, res["shardmixed"] = timed("shardmixed", svc, dense_q)
             for i, (g, w) in enumerate(zip(got, mixed)):
                 cs.same_answers(g, w, f"ab shard-mixed batch {i}")
-            del svc, got, mixed, dense_q
+            del svc, got, mixed
+            torch.cuda.empty_cache()
+            # [cp-as-tt]: CP and dense queries over the corpus as TT
+            c = dict(cs.CP_AS_TT, dims=cell["dims"])
+            svc = build_service(torch.Generator(device="cuda").manual_seed(1),
+                                c["kind"], c["dims"], cp_to_tt(corpus),
+                                num_codes=c["codes"], num_tables=c["tables"],
+                                rank=c["rank"], bucket_width=c["width"],
+                                device="cuda")
+            _, res["mixedcptt"] = timed("mixedcptt", svc, queries[:KEEP])
+            _, res["mixeddensett"] = timed("mixeddensett", svc, dense_q)
+            del svc
             torch.cuda.empty_cache()
         if layout == "cp":  # [ann-k8]: the example's K = 8
             svc = build_service(torch.Generator(device="cuda").manual_seed(1),
@@ -197,6 +220,7 @@ def one(tree: str, out: str) -> None:
             # [dense-main] and [dense-cp]: the corpus and queries densified
             dense = cs.densify(corpus)
             dense_q = [cs.densify(q) for q in queries[:DENSE_BATCHES]]
+            cp_q = queries[:KEEP]
             del corpus
             torch.cuda.empty_cache()
             for key in ("main", "cp"):
@@ -208,9 +232,12 @@ def one(tree: str, out: str) -> None:
                     bucket_width=c["width"], device="cuda")
                 path = c["tag"].replace("-", "")
                 _, res[path] = timed(path, svc, dense_q)
+                if key == "main":  # CP and TT queries over dense rows
+                    _, res["mixedcpdense"] = timed("mixedcpdense", svc, cp_q)
+                    _, res["mixedttdense"] = timed("mixedttdense", svc, tt_q)
                 del svc
                 torch.cuda.empty_cache()
-            del dense, dense_q
+            del dense, dense_q, cp_q, tt_q
         else:
             del corpus
         del queries
@@ -252,11 +279,18 @@ def main(argv=None) -> int:
     ap.add_argument("other")
     ap.add_argument("--pairs", type=int, default=3)
     ap.add_argument("--out", default=str(HERE / "build" / "ab"))
+    ap.add_argument("--parity",
+                    type=lambda s: tuple(x for x in s.split(",") if x),
+                    default=(), metavar="PATH,...",
+                    help="paths compared across trees within "
+                         "parity.rerank_bound, of: " + ", ".join(PATHS))
     ap.add_argument("--one", nargs=2, metavar=("TREE", "NPZ"),
                     help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
+    if not set(args.parity) <= set(PATHS):
+        ap.error(f"unknown paths {sorted(set(args.parity) - set(PATHS))}")
     if args.one:
-        one(*args.one)
+        one(*args.one, args.parity)
         return 0
     import numpy as np
     out = Path(args.out)
@@ -267,7 +301,8 @@ def main(argv=None) -> int:
     for i, tree in enumerate(order):
         npz = out / f"run{i}.npz"
         proc = subprocess.run([sys.executable, __file__, args.other,
-                               "--one", tree, str(npz)],
+                               "--one", tree, str(npz), "--parity",
+                               ",".join(args.parity)],
                               capture_output=True, text=True, timeout=900)
         (out / f"run{i}.log").write_text(proc.stdout + proc.stderr)
         line = [x for x in proc.stdout.splitlines() if x.startswith("AB ")]
@@ -281,7 +316,7 @@ def main(argv=None) -> int:
     for key in first.files:
         if key.endswith("_tol"):
             continue
-        if key.split("_")[0] in PARITY_PATHS:
+        if key.split("_")[0] in args.parity:
             for tree in (args.other, str(HERE)):
                 mine = [r[2] for r in runs if r[0] == tree]
                 same = all(np.array_equal(mine[0][key].view(np.int32),
@@ -294,12 +329,11 @@ def main(argv=None) -> int:
                                   r[2][key].view(np.int32)) for r in runs)
         print(f"[ab] {key} {first[key].shape}: bit-equal across all runs: "
               f"{same}")
-    for path in PARITY_PATHS:
+    for path in args.parity:
         print(f"[ab] {path}: across trees {parity_verdict(runs, path)}")
     for tree in (args.other, str(HERE)):
         mine = [r[1] for r in runs if r[0] == tree]
-        for path in ("cp", "annk8", "tt", "densemain", "densecp",
-                     "mixeddensecp", "shardmixed"):
+        for path in PATHS:
             means = [m for r in mine for m in r[path]["means"]]
             k1 = [r[path]["k1_ms"] for r in mine]
             hk = [r[path]["hash_ms"] for r in mine

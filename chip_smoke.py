@@ -999,6 +999,9 @@ def k1_times(svc, queries, k1_args, name, corpus=None):
         rows = (f"; dense rows through a {pair.d}-float ring slot a warp"
                 if ring else "; dense rows read in place")
     occ = fq.occupancy(view.k1_table, pair.rq, smem, pair.q_layout)
+    threads, _, per_warp, _ = fq.SHAPES[fq.instance(
+        view.k1_table.layout, pair.q_layout, pair.rq, view.k1_table.rc,
+        pair.n_modes, pair.d)]
     k1_plain = cuda_ms([lambda: plain(values, offs, mults, qs, **kw)], 2)
     q0 = qs[0]
     k1_bytes, k1_flops, slots, n_cand = k1_work(
@@ -1010,7 +1013,8 @@ def k1_times(svc, queries, k1_args, name, corpus=None):
           f"{len(segs)} segment(s), {slots} window slots, {n_cand} "
           f"candidates: {k1_ms:.4f} ms (plain {k1_plain:.4f} ms); bound "
           f"{k1_bound:.5f} ms by {k1_by} ({k1_bytes / 1e6:.2f} MB, "
-          f"{k1_flops / 1e9:.3f} GFLOP); {occ['registers']} registers a "
+          f"{k1_flops / 1e9:.3f} GFLOP); {threads // 32} warps, {per_warp} "
+          f"row(s) a warp, {occ['registers']} registers a "
           f"thread, {occ['blocks_per_sm']} blocks per SM (target "
           f"{occ['target_blocks']}), {occ['local_bytes']} local bytes, "
           f"{smem} shared bytes per block, a {window}-slot shared window"
@@ -1487,7 +1491,7 @@ def phase_cp_as_tt(cell, corpus, qids, queries) -> list:
     """[cp-as-tt]: [main]'s 2^20 CP items converted exactly to TT (TT rank
     4), a tt-e2lsh index through K4, queried with [main]'s CP queries (CP x
     TT, hashed by the TT projection on CP inputs) and densified (dense x
-    TT) -> their records."""
+    TT), each pair with a profile of its batches -> their records."""
     import torch
     from repro_torch.core.tensor_formats import cp_to_tt
     from repro_torch.serving.lsh_service import build_service
@@ -1513,8 +1517,11 @@ def phase_cp_as_tt(cell, corpus, qids, queries) -> list:
           f"{svc.index.cap} ([main]'s: see its line); launches "
           f"{({k: v for k, v in counts.items() if v})}")
     check_counts(counts, c["tag"], ("tt_inner",))
-    out = [phase_mixed(f"mixed {qf} x tt", svc, mixed_batches(queries, qf),
-                       qids)[0] for qf in ("cp", "dense")]
+    out = []
+    for qf in ("cp", "dense"):
+        batches = mixed_batches(queries, qf)
+        out.append(phase_mixed(f"mixed {qf} x tt", svc, batches, qids)[0])
+        phase_profile(svc, batches, f"mixed {qf} x tt profile")
     del svc
     return out
 

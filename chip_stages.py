@@ -32,16 +32,29 @@ copy; a source without them (the first dense-query design's) is patched
 at its stage boundaries.
 It runs [main]'s corpus and its first ``K1_BATCHES`` query batches as in
 ``chip_smoke.py``: [mixed dense x cp] (dense queries over [main]'s CP
-service, ``<0, kDense>``), then the corpus densified under [dense-main]
-(e2lsh) and [dense-cp] (cp-e2lsh; both ``<kDense, kDense>``). Prints per
-cell K1's time (CUDA events, the stamped build), the stage shares of the
-summed query cycles, cycles a candidate in the re-rank, and the launch's
-timeline: its span, the share of the span the resident blocks were busy,
-and the drain after the last query started.
+service, ``<0, kDense>``), then [cp-as-tt] (the corpus converted exactly
+to TT, tt-e2lsh rank 4) under [mixed cp x tt] (the CP queries, ``<4, 0>``)
+and [mixed dense x tt] (densified, ``<4, kDense>``), then the corpus
+densified under [dense-main] (e2lsh) and [dense-cp] (cp-e2lsh; both
+``<kDense, kDense>``). Prints per cell K1's time (CUDA events, the stamped
+build), the stage shares of the summed query cycles, the re-rank's cycles
+a candidate (the block's, and a warp's: the block's times its warps), and
+the launch's timeline: its span, the share of the span the resident
+blocks were busy, and the drain after the last query started.
+
+    python3 chip_stages.py --k1 --cells "mixed cp x tt,mixed dense x tt" TREE
+
+stamps only the cells named (their tags, comma-separated), and
+
+    python3 chip_stages.py --k1 --unstamped [--cells ...] TREE [TREE ...]
+
+builds each tree's K1 as it is and prints only its time, registers and
+ptxas' spill bytes per cell (comparing variants' builds in one call).
 """
 
 from __future__ import annotations
 
+import argparse
 import json
 import shutil
 import statistics
@@ -297,6 +310,9 @@ extern "C" int {name}(void* host, size_t bytes) {{
 }}
 """
 K1_BATCHES = 8
+# the cells --k1 stamps, in order
+K1_CELLS = ("mixed dense x cp", "mixed cp x tt", "mixed dense x tt", "dense-main",
+            "dense-cp")
 
 
 def stamp_k1(cuh: str) -> tuple[str, str]:
@@ -331,9 +347,22 @@ def stamp_k1(cuh: str) -> tuple[str, str]:
     ]), "first"
 
 
-def k1_one(tree: str, index: int) -> None:
-    """Stamp, build and run one tree's K1 on the dense-query cells (prints
-    ``STAGES`` lines)."""
+def k1_warps(fq, table, pair) -> int:
+    """Warps of K1's block for a launch over ``table``, by the tree's own
+    plan (older trees pick a cross pair's instantiation without the
+    TT operand's modes and dims)."""
+    key = (table.layout, pair.q_layout, pair.rq, table.rc)
+    try:
+        key = fq.instance(*key, table.n_modes, table.d)
+    except TypeError:
+        key = fq.instance(*key)
+    return fq.SHAPES[key][0] // 32
+
+
+def k1_one(tree: str, index: int, cells=None, stamped=True) -> None:
+    """Stamp, build and run one tree's K1 on the cross-format and dense
+    cells (``cells``: the tags to run, all by default; prints ``STAGES``
+    lines)."""
     import ctypes
     import re
     root = Path(tree).resolve()
@@ -349,21 +378,25 @@ def k1_one(tree: str, index: int) -> None:
     if out.exists():
         shutil.rmtree(out)
     shutil.copytree(root / "src/repro_torch/kernels/csrc", out / "csrc")
-    cuh, form = stamp_k1((out / "csrc/fused_query.cuh").read_text())
-    (out / "csrc/fused_query.cuh").write_text(cuh)
     readers = {"fused_query.cu": "stages_k1_read",
                "fused_query_mixed.cu": "stages_k1m_read"}
-    for src, name in readers.items():
-        f = out / "csrc" / src
-        f.write_text(f.read_text() + K1_READ.format(name=name))
+    form = "unstamped"
+    if stamped:
+        cuh, form = stamp_k1((out / "csrc/fused_query.cuh").read_text())
+        (out / "csrc/fused_query.cuh").write_text(cuh)
+        for src, name in readers.items():
+            f = out / "csrc" / src
+            f.write_text(f.read_text() + K1_READ.format(name=name))
     _build.CSRC, _build.BUILD_ROOT = out / "csrc", out / "_build"
     lib = _build.lib()
     log = _build.BUILD_INFO["log"]
-    regs = {}
+    regs, spills = {}, {}
     for m in re.finditer(r"Compiling entry function '(\w*fused_query_kernel"
-                         r"\w*)'.*?Used (\d+) registers", log, re.S):
-        regs[m.group(1)] = int(m.group(2))
-    for name in readers.values():
+                         r"\w*)'.*?(\d+) bytes spill stores.*?Used (\d+) "
+                         r"registers", log, re.S):
+        regs[m.group(1)] = int(m.group(3))
+        spills[m.group(1)] = int(m.group(2))
+    for name in readers.values() if stamped else ():
         getattr(lib, name).argtypes = [ctypes.c_void_p, ctypes.c_size_t]
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     cell = cs.CELLS["cp"]
@@ -373,9 +406,12 @@ def k1_one(tree: str, index: int) -> None:
                                        batch=n)
     perm = torch.randperm(n, generator=gen, device="cuda")
     qids = [perm[i * 1024:(i + 1) * 1024] for i in range(K1_BATCHES)]
-    queries = [cs.densify(cs.make_queries(corpus, q, gen)) for q in qids]
+    cp_queries = [cs.make_queries(corpus, q, gen) for q in qids]
+    queries = [cs.densify(q) for q in cp_queries]
 
-    def run(tag, c, data, reader, mangled):
+    def run(tag, c, data, reader, mangled, batches=queries):
+        if cells is not None and tag not in cells:
+            return
         svc = build_service(torch.Generator(device="cuda").manual_seed(1),
                             c["kind"], c["dims"], data,
                             num_codes=c["codes"], num_tables=c["tables"],
@@ -387,7 +423,7 @@ def k1_one(tree: str, index: int) -> None:
         kw = dict(kind=fam.kind, w=fam.bucket_width,
                   num_tables=fam.num_tables, num_codes=fam.num_codes,
                   metric=idx.metric, topk=cs.TOPK, probes=1)
-        qss = [q.stack() for q in queries]
+        qss = [q.stack() for q in batches]
         vals = [fam.raw_stacked(q[1], q[0].scale) for q in qss]
         args = [(v, fam.offsets, idx._mults_t, q) for v, q in zip(vals, qss)]
         ms = cs.cuda_ms([lambda a=a: kernel(*a, **kw) for a in args],
@@ -395,6 +431,14 @@ def k1_one(tree: str, index: int) -> None:
         _, _, ncand = kernel(*args[0], **kw)
         torch.cuda.synchronize()
         b = vals[0].shape[0]
+        if not stamped:
+            print("STAGES " + json.dumps(dict(
+                tree=tree, form=form, kernel="K1", cell=tag, queries=b,
+                ms=ms, registers=[v for k, v in regs.items() if mangled in k],
+                spill_stores=[v for k, v in spills.items() if mangled in k],
+                candidates_mean=float(ncand.double().mean()),
+                candidates_max=float(ncand.max()))), flush=True)
+            return
         buf = (ctypes.c_longlong * (b * 8))()
         err = getattr(lib, reader)(ctypes.addressof(buf), b * 64)
         if err:
@@ -414,15 +458,18 @@ def k1_one(tree: str, index: int) -> None:
         span = ends[-1] - starts[0]
         busy = sum(r[7] - r[6] for r in rows)
         nc = ncand.double()
+        warps = k1_warps(fq, view.k1_table, pair)
+        per_cand = sum(r[3] for r in rows) / max(float(nc.sum()), 1.0)
         print("STAGES " + json.dumps(dict(
             tree=tree, form=form, kernel="K1", cell=tag, queries=b, ms=ms,
             registers={k: v for k, v in regs.items() if mangled in k},
+            spill_stores=[v for k, v in spills.items() if mangled in k],
             blocks_per_sm=occ["blocks_per_sm"], smem=smem,
             candidates_mean=float(nc.mean()), candidates_max=float(nc.max()),
             cycles_per_query=total / b,
             max_cycles=max(r[5] for r in rows),
-            rerank_cycles_per_candidate=sum(r[3] for r in rows)
-            / max(float(nc.sum()), 1.0),
+            rerank_cycles_per_candidate=per_cand, warps=warps,
+            rerank_warp_cycles_per_candidate=per_cand * warps,
             span_us=span / 1e3,
             busy_share=busy / (span * min(slots, b)),
             drain_us=(ends[-1] - starts[-1]) / 1e3,
@@ -431,12 +478,23 @@ def k1_one(tree: str, index: int) -> None:
 
     run("mixed dense x cp", cell, corpus, "stages_k1m_read",
         "ILi0ELi1E")
+    if cells is None or {"mixed cp x tt", "mixed dense x tt"} & cells:
+        from repro_torch.core.tensor_formats import cp_to_tt
+        tt = cp_to_tt(corpus)
+        c = dict(cs.CP_AS_TT, dims=cell["dims"])
+        run("mixed cp x tt", c, tt, "stages_k1m_read", "ILi4ELi0E",
+            cp_queries)
+        run("mixed dense x tt", c, tt, "stages_k1m_read", "ILi4ELi1E")
+        del tt
+        torch.cuda.empty_cache()
+    tags = {cs.DENSE[key]["tag"]: key for key in ("main", "cp")}
+    if cells is not None and not set(tags) & cells:
+        return
     dense = cs.densify(corpus)
     del corpus
     torch.cuda.empty_cache()
-    for key in ("main", "cp"):
-        run(cs.DENSE[key]["tag"], cs.DENSE[key], dense, "stages_k1_read",
-            "ILi1ELi1E")
+    for tag, key in tags.items():
+        run(tag, cs.DENSE[key], dense, "stages_k1_read", "ILi1ELi1E")
         torch.cuda.empty_cache()
 
 
@@ -465,21 +523,52 @@ def launch_shape(form, name, b, dims, rhat, rank, sms):
                            threads=lp.threads, smem=lp.smem)
 
 
+def parse(argv):
+    """The command line (the module's docstring says what each mode does;
+    ``--child INDEX`` runs one tree in this process, as ``main`` starts
+    it)."""
+    ap = argparse.ArgumentParser(
+        prog="chip_stages.py", description=__doc__,
+        formatter_class=argparse.RawDescriptionHelpFormatter)
+    ap.add_argument("trees", nargs="+", metavar="TREE")
+    ap.add_argument("--k1", action="store_true",
+                    help="stamp K1 on its cells instead of K3 / K4")
+    ap.add_argument("--cells", type=lambda s: set(s.split(",")),
+                    help="with --k1: the cells to run, their tags "
+                         f"comma-separated, of: {', '.join(K1_CELLS)}")
+    ap.add_argument("--unstamped", action="store_true",
+                    help="with --k1: build each tree's K1 as it is and "
+                         "print its time, registers and spill bytes")
+    ap.add_argument("--child", type=int, metavar="INDEX",
+                    help=argparse.SUPPRESS)
+    args = ap.parse_args(argv)
+    if not args.k1 and (args.cells or args.unstamped):
+        ap.error("--cells and --unstamped go with --k1")
+    if args.cells and not args.cells <= set(K1_CELLS):
+        ap.error(f"unknown cells {sorted(args.cells - set(K1_CELLS))}")
+    if args.child is not None and len(args.trees) != 1:
+        ap.error("--child runs one tree")
+    return args
+
+
 def main(argv=None) -> int:
-    argv = sys.argv[1:] if argv is None else argv
-    if len(argv) == 3 and argv[0] in ("--one", "--one-k1"):
-        (one if argv[0] == "--one" else k1_one)(argv[1], int(argv[2]))
+    args = parse(sys.argv[1:] if argv is None else argv)
+    if args.child is not None:
+        if args.k1:
+            k1_one(args.trees[0], args.child, args.cells,
+                   not args.unstamped)
+        else:
+            one(args.trees[0], args.child)
         return 0
-    mode = "--one"
-    if argv and argv[0] == "--k1":
-        mode, argv = "--one-k1", argv[1:]
-    if not argv:
-        print(__doc__)
-        return 2
-    for i, tree in enumerate(argv):
-        proc = subprocess.run([sys.executable, __file__, mode, tree,
-                               str(i)], capture_output=True, text=True,
-                              timeout=900)
+    flags = ["--k1"] if args.k1 else []
+    if args.cells:
+        flags += ["--cells", ",".join(sorted(args.cells))]
+    if args.unstamped:
+        flags.append("--unstamped")
+    for i, tree in enumerate(args.trees):
+        proc = subprocess.run([sys.executable, __file__, *flags, "--child",
+                               str(i), tree], capture_output=True,
+                              text=True, timeout=900)
         lines = [x for x in proc.stdout.splitlines()
                  if x.startswith("STAGES ")]
         if proc.returncode != 0 or not lines:

@@ -54,9 +54,10 @@ SIGNATURES = {
     "fused_query_launch": [_P] * 6 + [_I] + [_P] * 3 + [_I] * 14
                           + [_F, _D, _I, _P, _I, _P, _P, _P, _I, _I, _I,
                              ctypes.c_size_t, _P],
-    # fmt, qfmt, RQ, RC, shared bytes, out (registers, blocks per SM, local
+    # fmt, qfmt, RQ, RC, N, D, shared bytes, out (registers, blocks per SM, local
     # bytes, target blocks per SM)
-    "fused_query_occupancy": [_I, _I, _I, _I, ctypes.c_size_t, _P],
+    "fused_query_occupancy": [_I, _I, _I, _I, _I, _I, ctypes.c_size_t,
+                              _P],
     # values, out, B, K, the plan's threads, blocks, rows a chunk, pieces a
     # row and path (1 vector, 0 scalar; checked), stream
     "srp_pack_launch": [_P, _P, ctypes.c_longlong] + [_I] * 6 + [_P],

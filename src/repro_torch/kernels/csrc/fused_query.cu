@@ -8,29 +8,23 @@
 
 namespace {
 
-// Shape<TR, QR>'s values of an instantiation, for the plan checks.
-int threads_of(int tr, int qr) {
-  if (tr == 0 && qr == kDense) return Shape<0, kDense>::threads;
-  if (tr != qr) return Shape<4, kDense>::threads;
-  return tr == 0        ? Shape<0, 0>::threads
-         : tr == kDense ? Shape<kDense, kDense>::threads
-                        : Shape<4, 4>::threads;
-}
+// Shape<TR, QR>'s values of an instantiation, for the plan checks (all 0
+// where none is (tr, qr)).
+struct ShapeOf {
+  int threads, min_blocks, per_warp, buffers;
+  bool tt_pair;
+};
 
-int min_blocks_of(int tr, int qr) {
-  if (tr != qr) return Shape<0, kDense>::min_blocks;
-  switch (tr) {
-    case 0: return Shape<0, 0>::min_blocks;
-    case kDense: return Shape<kDense, kDense>::min_blocks;
-    case 4: return Shape<4, 4>::min_blocks;
-    case 8: return Shape<8, 8>::min_blocks;
-    default: return Shape<16, 16>::min_blocks;
-  }
-}
-
-int per_warp_of(int tr, int qr) {
-  if (tr == qr) return tr == 0 ? 2 : 1;
-  return tr == kDense || (tr == 0 && qr == kDense) ? 2 : 1;
+ShapeOf shape_of(int tr, int qr) {
+#define K1_SHAPE(TR, QR)                                                \
+  if (tr == TR && qr == QR)                                             \
+    return {Shape<TR, QR>::threads, Shape<TR, QR>::min_blocks,          \
+            Shape<TR, QR>::per_warp, Shape<TR, QR>::buffers,            \
+            Shape<TR, QR>::tt_pair};
+  K1_SAME_PAIRS(K1_SHAPE)
+  K1_MIXED_PAIRS(K1_SHAPE)
+#undef K1_SHAPE
+  return {0, 0, 0, 0, false};
 }
 
 }  // namespace
@@ -38,28 +32,29 @@ int per_warp_of(int tr, int qr) {
 // Shared memory of one K1 block (fused_query.py's smem_bytes plans with the
 // same sum, and fused_query_launch refuses a plan that differs): with ring
 // (dense rows of at most kRingRow whole float4s) a ring slot a warp and its
-// mbarrier (8 bytes), two row buffers a warp for each candidate it scores
-// at once (rows of ranks above 8 and dense rows are read in place), the
-// warps' lists and the
-// merged top-k (8 bytes a rank each), the region of the hash set and the
+// mbarrier (8 bytes), Shape::buffers row buffers a warp for each candidate
+// it scores at once (rows of ranks above 8, TT rows a cross pair's <16, QR>
+// takes and dense rows are read in place), the warps' lists and the merged
+// top-k (8 bytes a rank each), the region of the hash set and the
 // candidate list (3 * wcap ids) or the expansion's per-warp scores and
 // deltas (C of each), the query's row (a dense one, or a CP / TT query's
 // densified row over dense rows, only up to kDenseStage floats), the TT
-// chain states a warp, four per-(table, probe) integer arrays. fmt / qfmt:
+// chain states a warp (none for tt_pair, which keeps them in registers),
+// four per-(table, probe) integer arrays. fmt / qfmt:
 // the corpus's / the queries' format, 0 CP, 1 TT, 2 dense; DF the dense
 // operand's row of a cross-format pair (prod d).
 extern "C" size_t fused_query_smem_bytes(int LT, int N, int D, int RQ,
                                          int RC, int wcap, int fmt, int qfmt,
                                          int topk, int C, int DF, int ring) {
   int tr, qr;
-  instance_of(fmt, qfmt, RQ, RC, &tr, &qr);
-  if (tr < 0 || qr < 0) return 0;
+  instance_of(fmt, qfmt, RQ, RC, N, D, &tr, &qr);
+  const ShapeOf sh = shape_of(tr, qr);
+  if (sh.threads == 0) return 0;
   const bool same = fmt == qfmt;
   const bool tt = fmt == 1, dense = fmt == 2;
   const bool qtt = qfmt == 1, qdense = qfmt == 2;
   const bool stage_rows = !dense && tr <= 8;
-  const size_t nw = threads_of(tr, qr) / 32;
-  const size_t per_warp = per_warp_of(tr, qr);
+  const size_t nw = sh.threads / 32;
   size_t fq;
   if (same) {
     fq = tt ? (size_t)N * RQ * D * RQ : (size_t)N * D * RQ;
@@ -74,23 +69,26 @@ extern "C" size_t fused_query_smem_bytes(int LT, int N, int D, int RQ,
   fc = (fc + 3) & ~(size_t)3;
   const size_t sw =
       same ? (tt ? 2 * (size_t)max(RQ * RC + RC * RC, RQ * RQ) : 0)
+      : sh.tt_pair ? 0
       : tt ? 2 * (size_t)max(qdense ? 0 : RQ * RC, RC * RC)
       : qtt ? 2 * (size_t)max(dense ? 0 : RQ * RC, RQ * RQ) : 0;
   size_t rw = max((size_t)3 * wcap, nw * 2 * (size_t)C);
   rw = (rw + 3) & ~(size_t)3;
   const size_t rs = ring && same && dense ? (size_t)ring_slot(D) : 0;
   const size_t slots = rs ? nw * (rs + 2) : 0;
-  return (slots + nw * 2 * per_warp * fc + fq + nw * sw + rw) * 4 +
+  return (slots + nw * sh.buffers * sh.per_warp * fc + fq + nw * sw + rw) *
+             4 +
          (nw + 1) * topk * 8 +
          (size_t)(4 * LT + 1) * 4;
 }
 
 // Registers a thread, resident blocks per SM at smem bytes, local (spill)
-// bytes a thread and the instantiation's target blocks per SM -> out[0..3].
-extern "C" int fused_query_occupancy(int fmt, int qfmt, int RQ, int RC,
-                                     size_t smem, int* out) {
+// bytes a thread and the instantiation's target blocks per SM -> out[0..3]
+// (N, D: the CP / TT operand's, which pick a cross pair's TT instantiation).
+extern "C" int fused_query_occupancy(int fmt, int qfmt, int RQ, int RC, int N,
+                                     int D, size_t smem, int* out) {
   int tr, qr;
-  instance_of(fmt, qfmt, RQ, RC, &tr, &qr);
+  instance_of(fmt, qfmt, RQ, RC, N, D, &tr, &qr);
   if (tr < 0 || qr < 0) return (int)cudaErrorInvalidValue;
   if (tr != qr) return fused_query_mixed_occupancy(tr, qr, smem, out);
   switch (tr) {
@@ -112,7 +110,7 @@ extern "C" int fused_query_launch(
     int threads, int min_blocks, size_t smem, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   int tr, qr;
-  instance_of(fmt, qfmt, RQ, RC, &tr, &qr);
+  instance_of(fmt, qfmt, RQ, RC, N, D, &tr, &qr);
   const bool same = fmt == qfmt;
   const bool dense_side = fmt == 2 || qfmt == 2;
   if (tr < 0 || qr < 0 || wcap < 1 || (wcap & (wcap - 1)) || topk < 1 ||
@@ -130,7 +128,8 @@ extern "C" int fused_query_launch(
   const bool ring = same && fmt == 2 && ring_slot(D) &&
                     smem == fused_query_smem_bytes(L * T, N, D, RQ, RC, wcap,
                                                    fmt, qfmt, topk, C, DF, 1);
-  if (threads != threads_of(tr, qr) || min_blocks != min_blocks_of(tr, qr) ||
+  const ShapeOf sh = shape_of(tr, qr);
+  if (threads != sh.threads || min_blocks != sh.min_blocks ||
       (!ring && smem != fused_query_smem_bytes(L * T, N, D, RQ, RC, wcap,
                                                fmt, qfmt, topk, C, DF, 0)))
     return (int)cudaErrorInvalidConfiguration;

@@ -156,12 +156,35 @@
 //     decoded by division, the query read at a stride of d_N) took 26k
 //     cycles a candidate a warp; a launch ends with its heaviest query
 //     (1,119 candidates on [mixed dense x cp]) either way;
-//   * dense query x TT rows (inner_dense_tt): lanes take prefixes, each the
-//     chain's row vector through the first N - 1 cores, then the last core's
-//     d entries against the query's;
-//   * CP x TT, either way round (inner_cp_tt): one warp steps an (R^ x r)
-//     state through the modes, S'[q][e] = sum_i A[i][q] sum_x S[q][x]
-//     G[x][i][e], in the TT branch's state buffer, then sums S[q][0].
+//   * CP or dense queries over TT rows of ranks <= 4 and at most
+//     kTTPairRow floats (tt_pair, <4, 0> and <4, kDense>): 12 warps, two rows a warp staged in one buffer (the
+//     rows the warp takes next sent into L2 while these land), a row a
+//     half-warp, every chain state in registers and passed by shuffles:
+//     yy by tt_self_half (mode 1 from r_0 = 1, tt_chains' step with its
+//     terms shared out over the half, the last mode's S'[0][0] only); qy
+//     of a CP query by cp_tt_half (inner_cp_tt: per mode four d-long sums
+//     M[q][x][e] = sum_i A[i][q] G[x][i][e] a lane, then S' = S M over the
+//     four x lanes of q); of a dense query by dense_tt_sweep (inner_dense_tt
+//     mode 1 first, shaped as dense_cp_sweep: half-lanes on the query
+//     row's columns, each query entry a load both halves share, each
+//     column weighted by G_2[:, i_2, :] ... G_N[:, i_N, 0] through the
+//     column table). qq, the scales and the warp list's last key are read
+//     from shared memory at selection, so that the scoring keeps every
+//     register (80 at 12 warps, 2 blocks a SM, none spilled). The first
+//     design scored one row a warp on 8 warps, a 16-lane chain of
+//     dependent shared loads (the state, the core and the factor each
+//     slice, three __syncwarp a mode; for a dense query a prefix a lane,
+//     decoded by division, the query read at a stride of d_N): 28k cycles
+//     a candidate a warp, and a launch ended with its heaviest query (837
+//     candidates, 10x the mean);
+//   * TT rows of ranks 5-16, or longer than kTTPairRow (<16, 0>, <16,
+//     kDense>, rows read in place): dense queries, lanes
+//     take prefixes, each the chain's row vector through the first N - 1
+//     cores, then the last core's d entries against the query's; CP
+//     queries, and TT queries over CP rows (<0, 16>), one warp steps an
+//     (R^ x r) state through the modes, S'[q][e] = sum_i A[i][q] sum_x
+//     S[q][x] G[x][i][e], in the TT branch's state buffer, then sums
+//     S[q][0].
 // The others score one candidate a warp (8 warps, 2 blocks a SM). The
 // bound is the same bytes as the same-format branches plus the reference's
 // operations a candidate: its left-to-right sweeps over the dense operand, sum_k 2 R prod_{j>=k} d_j for dense x CP and
@@ -235,6 +258,11 @@ constexpr int kMaxDenseRow = 65536;  // the longest dense row K1 takes
 constexpr int kRingRow = 2048;
 // the most modes of a cross-format pair with a dense side
 constexpr int kMaxModes = 16;
+// the longest TT row (floats, N * RC * D * RC) that CP or dense queries over
+// TT rows of ranks <= 4 stage (tt_pair): 24 such rows are 96 KiB, which
+// leaves room at two blocks a SM for the window, the lists and the query
+// row; longer rows go to <16, QR>, which reads them in place
+constexpr int kTTPairRow = 1024;
 // Threads of one query's block, the blocks per SM each instantiation is
 // built for (its __launch_bounds__; the wrapper sizes the shared window so
 // that they fit) and the candidates a warp scores at once: CP 12 warps, 2
@@ -244,21 +272,36 @@ constexpr int kMaxModes = 16;
 // candidate (a ring slot a warp for rows of at most kRingRow floats, else
 // read in place). A cross-format pair (QR != TR): 2 blocks; 8 warps, two
 // dense rows at once or one CP / TT row; dense queries over CP rows 12
-// warps (80 registers), two CP rows a warp.
+// warps (80 registers), two CP rows a warp; CP or dense queries over TT rows
+// of ranks <= 4 and at most kTTPairRow floats (tt_pair) 12 warps, two TT rows a warp staged in one buffer
+// (buffers: the row buffers a warp keeps for each candidate it scores, two
+// where the next rows are staged while the current ones are scored).
 template <int TR, int QR>
 struct Shape {
   static constexpr bool same = TR == QR;
+  static constexpr bool tt_pair = !same && TR == 4;
   static constexpr int per_warp =
-      same ? (TR == 0 ? 2 : 1) : TR == kDense || (TR == 0 && QR == kDense)
-                                     ? 2 : 1;
+      same ? (TR == 0 ? 2 : 1)
+           : TR == kDense || (TR == 0 && QR == kDense) || tt_pair ? 2 : 1;
   static constexpr int threads =
-      (same && (TR == 0 || TR == kDense)) || (TR == 0 && QR == kDense) ? 384
-                                                                       : 256;
+      (same && (TR == 0 || TR == kDense)) || (TR == 0 && QR == kDense) ||
+              tt_pair
+          ? 384
+          : 256;
   static constexpr int min_blocks = !same ? 2
                                     : TR == 0 || TR == kDense ? 2
                                     : TR == 4 ? 3
                                     : TR == 16 ? 2 : 1;
+  static constexpr int buffers = tt_pair ? 1 : 2;
 };
+
+// Every instantiation (TR, QR): the same-format ones, built in
+// fused_query.cu, and the cross-format ones (QR != TR), built in
+// fused_query_mixed.cu.
+#define K1_SAME_PAIRS(X) X(0, 0) X(kDense, kDense) X(4, 4) X(8, 8) X(16, 16)
+#define K1_MIXED_PAIRS(X) \
+  X(kDense, 0) X(kDense, 16) X(0, kDense) X(4, kDense) X(16, kDense) \
+  X(4, 0) X(16, 0) X(0, 16)
 
 // Floats of a dense instantiation's ring slot for rows of D floats: D where
 // the rows are whole float4s of at most kRingRow floats, else 0 (no ring:
@@ -1029,6 +1072,223 @@ __device__ float cp_tt_chain(const float* a, int RA, const float* g, int RG,
   return v;
 }
 
+// The TT pair branches (CP or dense queries over TT rows of ranks at most 4,
+// Shape<4, QR>::tt_pair) score two staged rows a warp, a row a half-warp:
+// h = lane & 15 is the half-lane. V4: the rows' rank is 4, so a rank row
+// G[a][i][0..3] is one 16-byte load.
+
+// <Y, Y> of a TT row g (N, RC, D, RC), ranks at most 4 (scale not applied),
+// on a half-warp, to every lane of the half: half-lane h = 4 a + b owns entry
+// (a, b) of the chain state S, in a register, so the state passes by
+// shuffles and not through shared memory. Mode 1 (r_0 = 1): S[a][b] = sum_i
+// G[0][i][a] G[0][i][b]. A middle mode is tt_chains' step with its terms
+// shared out: per slice i, lane (a, b) forms V[a][b] = sum_y S[a][y]
+// G[y][i][b] once (tt_chains' lanes each formed all four V[x][e] they use),
+// then adds sum_x G[x][i][a] V[x][b], the V[x][b] shuffled from lanes (x, b):
+// the same FMAs in the same order as tt_chains. The last mode (r_N = 1)
+// forms only S'[0][0] = sum_i sum_x G[x][i][0] V[x][0], lane (a, b) taking
+// the terms x = a of the slices i = b, b + 4, ..., and a butterfly adding
+// them.
+template <bool V4>
+__device__ __forceinline__ float tt_self_half(const float* g, int RC, int N,
+                                              int D, int h) {
+  const int r = V4 ? 4 : RC;
+  const int a = h >> 2, b = h & 3;
+  const bool own = a < r && b < r;
+  const int ac = min(a, r - 1), bc = min(b, r - 1);
+  const size_t core = (size_t)r * D * r;
+  float s = 0.f;
+#pragma unroll 4
+  for (int i = 0; i < D; ++i) s = fmaf(g[i * r + ac], g[i * r + bc], s);
+  if (!own) s = 0.f;
+  if (N == 1) return __shfl_sync(kFull, s, 0, 16);
+  for (int n = 1;; ++n) {
+    const float* gn = g + n * core;
+    float srow[4];  // S[a][0..3]
+#pragma unroll
+    for (int y = 0; y < 4; ++y) srow[y] = __shfl_sync(kFull, s, 4 * a + y, 16);
+    if (n == N - 1) {
+      // S'[0][0] = sum_i sum_x G[x][i][0] V[x][0]: lane (a, b) forms
+      // V[a][0] = sum_y S[a][y] G[y][i][0] for the slices i = b, b + 4, ...
+      // and adds G[a][i][0] V[a][0]; a butterfly over the half adds them
+      float acc = 0.f;
+      for (int i0 = 0; i0 < D; i0 += 4) {
+        const int i = i0 + b;
+        if (i < D) {
+          float v = 0.f;
+#pragma unroll
+          for (int y = 0; y < 4; ++y)
+            if (y < r) v += srow[y] * gn[((size_t)y * D + i) * r];
+          acc += gn[((size_t)ac * D + i) * r] * v;
+        }
+      }
+      if (a >= r) acc = 0.f;
+#pragma unroll
+      for (int o = 8; o > 0; o >>= 1)
+        acc += __shfl_xor_sync(kFull, acc, o, 16);
+      return acc;
+    }
+    const float* pb = gn + bc;  // G[y][i][b] at y * D * r + i * r
+    const float* pa = gn + ac;  // G[x][i][a]
+    const int dr = D * r;
+    float acc = 0.f;
+#pragma unroll 2
+    for (int i = 0; i < D; ++i, pb += r, pa += r) {
+      float v = 0.f;
+#pragma unroll
+      for (int y = 0; y < 4; ++y)
+        if (y < r) v += srow[y] * pb[y * dr];
+#pragma unroll
+      for (int x = 0; x < 4; ++x) {
+        const float vx = __shfl_sync(kFull, v, 4 * x + b, 16);
+        if (x < r) acc += pa[x * dr] * vx;
+      }
+    }
+    s = own ? acc : 0.f;
+  }
+}
+
+// <A, G> of a CP row a (N, D, RA) and a TT row g (N, RC, D, RC), TT ranks at
+// most 4 (inner_cp_tt, scales not applied), on a half-warp, to every lane of
+// the half. Per chunk of four CP ranks, half-lane h = 4 q + x owns entry
+// (q, x) of the (R^ x r) state S, in a register. Per mode it forms
+//   M[q][x][e] = sum_i A[i][q] G[x][i][e],  e < 4,
+// four independent d-long sums over G's rank rows, then S'[q][e] = sum_x
+// S[q][x] M[q][x][e] by a butterfly over the four x lanes of q, keeping
+// entry e = x: no division, no state in shared memory. Mode 1 starts from
+// S = e_0, so there the x lanes split the slices of M[q][0][e] instead.
+// -> sum_q S[q][0].
+template <bool V4>
+__device__ __forceinline__ float cp_tt_half(const float* a, int RA,
+                                            const float* g, int RC, int N,
+                                            int D, int h) {
+  const int r = V4 ? 4 : RC;
+  const int ql = h >> 2, x = h & 3;
+  const size_t core = (size_t)r * D * r;
+  const float* gx = g + (size_t)min(x, r - 1) * D * r;  // G[x][0][0]
+  float total = 0.f;
+  for (int q0 = 0; q0 < RA; q0 += 4) {
+    const float* aq = a + min(q0 + ql, RA - 1);
+    float s = 0.f;
+    for (int n = 0; n < N; ++n) {
+      const float* an = aq + (size_t)n * D * RA;
+      float p[4] = {0.f, 0.f, 0.f, 0.f};
+      if (n == 0) {
+        for (int i0 = 0; i0 < D; i0 += 4) {
+          const int i = i0 + x;
+          if (i < D) {
+            float gv[4];
+            ranks4<V4>(gv, g + (size_t)i * r, r);
+            const float av = an[(size_t)i * RA];
+#pragma unroll
+            for (int k = 0; k < 4; ++k) p[k] = fmaf(av, gv[k], p[k]);
+          }
+        }
+      } else {
+        const float* gn = gx + n * core;
+#pragma unroll 2
+        for (int i = 0; i < D; ++i) {
+          float gv[4];
+          ranks4<V4>(gv, gn + (size_t)i * r, r);
+          const float av = an[(size_t)i * RA];
+#pragma unroll
+          for (int k = 0; k < 4; ++k) p[k] = fmaf(av, gv[k], p[k]);
+        }
+#pragma unroll
+        for (int k = 0; k < 4; ++k) p[k] *= s;
+      }
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        p[k] += __shfl_xor_sync(kFull, p[k], 1, 16);
+        p[k] += __shfl_xor_sync(kFull, p[k], 2, 16);
+      }
+      s = x == 0 ? p[0] : x == 1 ? p[1] : x == 2 ? p[2] : p[3];
+    }
+    if (x == 0 && q0 + ql < RA) total += s;
+  }
+  total += __shfl_xor_sync(kFull, total, 4, 16);
+  total += __shfl_xor_sync(kFull, total, 8, 16);
+  return total;
+}
+
+// dense_tt_sweep's weight of one column for one TT row g (N, r, D, r): w =
+// G_2[:, i_2, :] ... G_N[:, i_N, 0], right to left by r-long sums, the
+// slices i_n = ct[(n - 1) * P + p] - n * D from the column table.
+template <bool V4>
+__device__ __forceinline__ void tt_column_weight(const float* g, int r,
+                                                 int N, int D, size_t core,
+                                                 const int* ct, int P, int p,
+                                                 float* w) {
+#pragma unroll
+  for (int c = 0; c < 4; ++c) w[c] = c == 0 ? 1.f : 0.f;
+  if (N == 1) return;
+  const int il = __ldg(ct + (size_t)(N - 2) * P + p) - (N - 1) * D;
+  const float* gl = g + (N - 1) * core + (size_t)il * r;
+#pragma unroll
+  for (int c = 0; c < 4; ++c) w[c] = c < r ? gl[(size_t)c * D * r] : 0.f;
+  for (int n = N - 2; n >= 1; --n) {
+    const int in = __ldg(ct + (size_t)(n - 1) * P + p) - n * D;
+    const float* gn = g + n * core + (size_t)in * r;
+    float nv[4];
+#pragma unroll
+    for (int a = 0; a < 4; ++a) {
+      float ga[4];
+      ranks4<V4>(ga, gn + (size_t)min(a, r - 1) * D * r, r);
+      float u = 0.f;
+#pragma unroll
+      for (int c = 0; c < 4; ++c) u = fmaf(ga[c], w[c], u);
+      nv[a] = a < r ? u : 0.f;
+    }
+#pragma unroll
+    for (int a = 0; a < 4; ++a) w[a] = nv[a];
+  }
+}
+
+// <q, Y> over a dense query row q of DF floats and a TT row g (N, RC, D, RC)
+// of ranks at most 4 (inner_dense_tt, scale not applied), on a half-warp,
+// to every lane of the half, in the reference's order: mode 1 first. The
+// row reads as (d_1, P), P = DF / d_1 the columns (i_2 .. i_N); half-lane h
+// takes the columns p = h, h + 16, ...: t[r] = sum_i G_1[0][i][r] q[i, p]
+// (G_1's rank rows are loads the half shares, each query entry a load the
+// two halves share: the warp's two rows meet the same query), then the
+// column's weight w (tt_column_weight) and acc += sum_r t[r] w[r]; a
+// butterfly over the half ends it.
+template <bool V4>
+__device__ __forceinline__ float dense_tt_sweep(const float* q,
+                                                const float* g, int RC,
+                                                int N, int D,
+                                                const int* dims, int DF,
+                                                int h) {
+  const int r = V4 ? 4 : RC;
+  const int d1 = __ldg(dims);
+  const int P = DF / d1;
+  const int* ct = dims + N;
+  const size_t core = (size_t)r * D * r;
+  float acc = 0.f;
+  for (int c0 = 0; c0 < P; c0 += 16) {
+    const int p = c0 + h;
+    if (p < P) {
+      float t[4] = {0.f, 0.f, 0.f, 0.f};
+      const float* qi = q + p;
+#pragma unroll 4
+      for (int i = 0; i < d1; ++i, qi += P) {
+        float gv[4];
+        ranks4<V4>(gv, g + (size_t)i * r, r);
+        const float xv = *qi;
+#pragma unroll
+        for (int c = 0; c < 4; ++c) t[c] = fmaf(gv[c], xv, t[c]);
+      }
+      float w[4];
+      tt_column_weight<V4>(g, r, N, D, core, ct, P, p, w);
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc = fmaf(t[c], w[c], acc);
+    }
+  }
+#pragma unroll
+  for (int o = 8; o > 0; o >>= 1) acc += __shfl_xor_sync(kFull, acc, o, 16);
+  return acc;
+}
+
 // <A, A> of a CP row (N, D, R) by its Grams (scale not applied), to every
 // lane: lane p takes the (r, q) terms p, p + 32, ...
 __device__ __forceinline__ float cp_self(const float* a, int R, int N, int D,
@@ -1085,6 +1345,10 @@ fused_query_kernel(
   // flat ranks
   constexpr bool stage_rows = !dense && TR <= 8;
   constexpr bool ring_rows = same && dense;
+  // CP or dense queries over TT rows of ranks <= 4: two rows a warp, a row
+  // a half-warp, staged in one buffer
+  constexpr bool tt_pair = Shape<TR, QR>::tt_pair;
+  constexpr int kBufs = Shape<TR, QR>::buffers;
   constexpr int kThreads = Shape<TR, QR>::threads;
   constexpr int nwarps = kThreads / 32;
   // candidates a warp scores at once
@@ -1100,9 +1364,11 @@ fused_query_kernel(
   const int FCMAX = !stage_rows ? 0
                     : ((tt ? N * RCMAX * D * RCMAX : N * D * RCMAX) + 3) & ~3;
   // each warp's TT chain states: the same-format pair's two chains, a cross
-  // pair's CP x TT state beside the TT operand's own chain
+  // pair's CP x TT state beside the TT operand's own chain (none for a TT
+  // pair branch: its states live in registers)
   const int SW = same ? (tt ? 2 * max(RQ * RCMAX + RCMAX * RCMAX, RQ * RQ)
                             : 0)
+                 : tt_pair ? 0
                  : tt ? 2 * max(qdense ? 0 : RQ * RCMAX, RCMAX * RCMAX)
                  : qtt ? 2 * max(dense ? 0 : RQ * RCMAX, RQ * RQ) : 0;
   const int RW = (max(3 * wcap, nwarps * 2 * C) + 3) & ~3;
@@ -1111,9 +1377,10 @@ fused_query_kernel(
   float* const ring = reinterpret_cast<float*>(smem);  // [nwarps][RS]
   uint64_t* const bars =
       reinterpret_cast<uint64_t*>(ring + nwarps * RS);  // [nwarps]
-  float* ybuf = ring + (RS ? nwarps * (RS + 2) : 0);  // [nwarps][2][G][FCMAX]
+  // [nwarps][kBufs][G][FCMAX]
+  float* ybuf = ring + (RS ? nwarps * (RS + 2) : 0);
   unsigned long long* wl_all = reinterpret_cast<unsigned long long*>(
-      ybuf + nwarps * 2 * G * FCMAX);                 // [nwarps][topk]
+      ybuf + nwarps * kBufs * G * FCMAX);             // [nwarps][topk]
   unsigned long long* topv = wl_all + nwarps * topk;  // [topk]
   uint32_t* region = reinterpret_cast<uint32_t*>(topv + topk);  // [RW]
   float* qf = reinterpret_cast<float*>(region + RW);  // [FQ]
@@ -1128,6 +1395,7 @@ fused_query_kernel(
   __shared__ int hlog_s;
   __shared__ int scratch_s;
   __shared__ int take_s;  // the ring path's next list entry
+  __shared__ float scale_s[2];  // a TT pair branch's s_qy, s_yy
 
   const int b = blockIdx.x;
   const int tid = threadIdx.x;
@@ -1273,7 +1541,7 @@ fused_query_kernel(
   __syncthreads();
   K1_STAMP(0)
   const float qq = qq_s;
-  float* const yb = ybuf + warp * 2 * G * FCMAX;
+  float* const yb = ybuf + warp * kBufs * G * FCMAX;
   float* const sb = sbuf + warp * SW;
   unsigned long long* const wl = wl_all + warp * topk;
   unsigned long long thr = kPadSlot;  // the last key of the warp's list
@@ -1316,6 +1584,10 @@ fused_query_kernel(
     if (tid == 0) {
       ncand_s = 0;
       take_s = 0;
+      if constexpr (tt_pair) {
+        scale_s[0] = (float)(qs * g.cs);
+        scale_s[1] = (float)(g.cs * g.cs);
+      }
       woff[0] = 0;
       for (int i = 0; i < LT; ++i) woff[i + 1] = woff[i] + lens[i];
       const int pw = pow2_ceil(woff[LT]);
@@ -1390,6 +1662,62 @@ fused_query_kernel(
             select_key(qq, tqy, tyy, s_qy, s_yy, euclid, eff);
         if (key < thr) thr = topk_insert(wl, topk, key, lane);
         __syncwarp();  // every lane has read the slot before it is refilled
+      }
+      K1_STAMP(3)
+      continue;
+    }
+    if constexpr (tt_pair) {
+      // CP or dense queries over TT rows of ranks <= 4: the warp takes list
+      // entries j, j + 1, then j + 2 * nwarps, ..., stages both rows into
+      // its buffer (a missing second row leaves its half the buffer's old
+      // contents, and its score is dropped), sends the rows it takes next
+      // into L2 while these land, and scores a row a half-warp: yy by
+      // tt_self_half, qy by cp_tt_half or, for a dense query,
+      // dense_tt_sweep
+      static_assert(G == 2, "a TT pair branch scores two rows a warp");
+      const float* const mine = yb + (lane >> 4) * FCMAX;  // the half's row
+      const int h = lane & 15;
+      for (int j = warp * 2; j < n_cand; j += 2 * nwarps) {
+        const bool two = j + 1 < n_cand;
+        const uint32_t c0 = cl[j], c1 = two ? cl[j + 1] : c0;
+        stage_row(yb, g.c + (size_t)c0 * FC, FC, vec, lane);
+        if (two) stage_row(yb + FCMAX, g.c + (size_t)c1 * FC, FC, vec, lane);
+        cp_async_commit();
+        const int jn = j + 2 * nwarps + lane;
+        if (vec && lane < 2 && jn < n_cand)
+          prefetch_l2(g.c + (size_t)cl[jn] * FC, (unsigned)FC * 4u);
+        const int eff0 = __ldg(g.eff + c0), eff1 = __ldg(g.eff + c1);
+        cp_async_wait<0>();
+        __syncwarp();
+        const float tyy = RC == 4 ? tt_self_half<true>(mine, RC, N, D, h)
+                                  : tt_self_half<false>(mine, RC, N, D, h);
+        float t;
+        if constexpr (qdense) {
+          // the staged query row by shared loads (qf), else where it lies
+          t = RC == 4 && FQS
+                  ? dense_tt_sweep<true>(qf, mine, RC, N, D, dims, DF, h)
+              : RC == 4
+                  ? dense_tt_sweep<true>(qrow, mine, RC, N, D, dims, DF, h)
+                  : dense_tt_sweep<false>(qrow, mine, RC, N, D, dims, DF, h);
+        } else {
+          t = RC == 4 ? cp_tt_half<true>(qf, RQ, mine, RC, N, D, h)
+                      : cp_tt_half<false>(qf, RQ, mine, RC, N, D, h);
+        }
+        const float qy[2] = {__shfl_sync(kFull, t, 0),
+                             __shfl_sync(kFull, t, 16)};
+        const float yy[2] = {__shfl_sync(kFull, tyy, 0),
+                             __shfl_sync(kFull, tyy, 16)};
+        const int effs[2] = {eff0, eff1};
+        // qq, the scales and the list's last key read from shared memory
+        // here rather than held in registers through the scoring
+#pragma unroll
+        for (int k = 0; k < 2; ++k) {
+          if (k == 1 && !two) break;
+          const unsigned long long key = select_key(
+              qq_s, qy[k], yy[k], scale_s[0], scale_s[1], euclid, effs[k]);
+          if (key < wl[topk - 1]) topk_insert(wl, topk, key, lane);
+        }
+        __syncwarp();  // both rows are read before the next pair is staged
       }
       K1_STAMP(3)
       continue;
@@ -1558,18 +1886,21 @@ fused_query_kernel(
 
 
 // The instantiation codes (TR, QR) of a corpus format fmt and a query format
-// qfmt (0 CP, 1 TT, 2 dense) and their ranks: a same-format pair's TR bounds
-// both ranks (0 CP, kDense, 4 / 8 / 16 TT) and QR = TR; a cross-format pair's
-// codes are each operand's own: a TT corpus's rank bound 4 or 16, a TT
-// query's 16 (its chain and its densified row run once a block). -1 where no
-// instantiation takes the ranks.
-inline void instance_of(int fmt, int qfmt, int RQ, int RC, int* tr, int* qr) {
+// qfmt (0 CP, 1 TT, 2 dense), their ranks and the CP / TT operand's N and D:
+// a same-format pair's TR bounds both ranks (0 CP, kDense, 4 / 8 / 16 TT)
+// and QR = TR; a cross-format pair's codes are each operand's own: a TT
+// corpus's 4 for ranks <= 4 and rows of at most kTTPairRow floats, else 16,
+// a TT query's 16 (its chain and its densified row run once a block). -1
+// where no instantiation takes the ranks.
+inline void instance_of(int fmt, int qfmt, int RQ, int RC, int N, int D,
+                        int* tr, int* qr) {
   auto code = [](int f, int r, int least) {
     return f == 0 ? 0 : f == 2 ? kDense : f != 1 ? -1
            : r <= least ? least : r <= 16 ? 16 : -1;
   };
   if (fmt != qfmt) {
     *tr = code(fmt, RC, 4);
+    if (*tr == 4 && (long long)N * RC * D * RC > kTTPairRow) *tr = 16;
     *qr = code(qfmt, RQ, 16);
     return;
   }

@@ -8,10 +8,7 @@
 
 #include "fused_query.cuh"
 
-// The pairs this file holds, (TR, QR).
-#define K1_MIXED_PAIRS(X) \
-  X(kDense, 0) X(kDense, 16) X(0, kDense) X(4, kDense) X(16, kDense) \
-  X(4, 0) X(16, 0) X(0, 16)
+// The pairs this file holds, (TR, QR), are fused_query.cuh's K1_MIXED_PAIRS.
 
 int fused_query_mixed_launch(int tr, int qr, const K1Args& a, size_t smem,
                              cudaStream_t stream) {

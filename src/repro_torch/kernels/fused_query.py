@@ -78,6 +78,9 @@ RING_ROW = 2048            # longest dense row a warp's ring slot holds
 TABLE_COLS = 12            # int64 words per segment in the K1 table
 DENSE = 1                  # TR of the dense-row instantiation (kDense)
 MAX_MODES = 16             # most modes of a cross pair with a dense side
+# longest TT row (floats) CP or dense queries over TT rows of ranks <= 4
+# stage (kTTPairRow): longer rows go to TR = 16, which reads them in place
+TT_PAIR_ROW = 1024
 # the corpus's and the queries' format codes in the C entries (fmt, qfmt)
 FORMATS = {"cp": 0, "tt": 1, "dense": 2}
 # the six cross-format pairs, (query, corpus) layouts: BranchCounts names
@@ -86,19 +89,23 @@ MIXED_PAIRS = (("dense", "cp"), ("cp", "dense"), ("dense", "tt"),
                ("tt", "dense"), ("cp", "tt"), ("tt", "cp"))
 # K1's instantiations fused_query_kernel<TR, QR> -> (threads of a query's
 # block, target blocks per SM (its __launch_bounds__), candidates a warp
-# scores at once): Shape<TR, QR> in csrc/fused_query.cuh, whose C launch
-# refuses a plan made with other values. TR is the corpus's code (0 CP,
+# scores at once, row buffers a warp keeps for each of them (two where the
+# next rows are staged while the current ones are scored, one for CP or
+# dense queries over TT rows of ranks <= 4)): Shape<TR, QR> in
+# csrc/fused_query.cuh, whose C launch refuses a plan made with other
+# values. TR is the corpus's code (0 CP,
 # DENSE dense rows, else the TT rank bound), QR = TR for a same-format
 # pair, else the query's own code (``instance``).
 SHAPES = {
-    (0, 0): (384, 2, 2), (DENSE, DENSE): (384, 2, 1), (4, 4): (256, 3, 1),
-    (8, 8): (256, 1, 1), (16, 16): (256, 2, 1),
+    (0, 0): (384, 2, 2, 2), (DENSE, DENSE): (384, 2, 1, 2),
+    (4, 4): (256, 3, 1, 2), (8, 8): (256, 1, 1, 2), (16, 16): (256, 2, 1, 2),
     # the cross-format pairs (csrc/fused_query_mixed.cu): 2 blocks; dense
-    # queries over CP rows 12 warps, two rows a warp, the others 8
-    (DENSE, 0): (256, 2, 2), (DENSE, 16): (256, 2, 2),
-    (0, DENSE): (384, 2, 2), (4, DENSE): (256, 2, 1),
-    (16, DENSE): (256, 2, 1), (4, 0): (256, 2, 1), (16, 0): (256, 2, 1),
-    (0, 16): (256, 2, 1),
+    # queries over CP rows and CP or dense queries over TT rows of ranks <= 4
+    # 12 warps, two rows a warp (the latter in one buffer), the others 8
+    (DENSE, 0): (256, 2, 2, 2), (DENSE, 16): (256, 2, 2, 2),
+    (0, DENSE): (384, 2, 2, 2), (4, DENSE): (384, 2, 2, 1),
+    (16, DENSE): (256, 2, 1, 2), (4, 0): (384, 2, 2, 1),
+    (16, 0): (256, 2, 1, 2), (0, 16): (256, 2, 1, 2),
 }
 # the shared window's capacity in slots lies in [MIN_WINDOW, MAX_WINDOW]
 # (or is pow2(L*T*cap) where that is smaller)
@@ -110,21 +117,25 @@ def _pow2_ceil(x: int) -> int:
     return 1 << max(int(x) - 1, 0).bit_length()
 
 
-def instance(layout: str, q_layout: str, rq: int, rc: int) -> tuple[int,
-                                                                   int]:
+def instance(layout: str, q_layout: str, rq: int, rc: int, n_modes: int,
+             d: int) -> tuple[int, int]:
     """(TR, QR): the kernel instantiation for a corpus of ``layout`` and
-    rank ``rc`` and queries of ``q_layout`` and rank ``rq``, as
-    ``instance_of`` in ``csrc/fused_query.cuh``: a same-format pair's TR is
-    0 for CP, ``DENSE`` for dense rows, else the smallest of 4, 8, 16 that
-    bounds both TT ranks, and QR = TR; a cross-format pair's codes are each
-    operand's own (0 CP, ``DENSE``, a TT corpus's rank bound 4 or 16, a TT
-    query's 16)."""
+    rank ``rc`` and queries of ``q_layout`` and rank ``rq`` (``n_modes``,
+    ``d``: the CP or TT operand's), as ``instance_of`` in
+    ``csrc/fused_query.cuh``: a same-format pair's TR is 0 for CP,
+    ``DENSE`` for dense rows, else the smallest of 4, 8, 16 that bounds both
+    TT ranks, and QR = TR; a cross-format pair's codes are each operand's
+    own (0 CP, ``DENSE``, a TT corpus's 4 for ranks <= 4 and rows of at most
+    ``TT_PAIR_ROW`` floats, else 16, a TT query's 16)."""
     code = {"cp": 0, "dense": DENSE}
     if layout == q_layout:
         tr = code.get(layout) if layout in code else next(
             b for b in (4, 8, 16) if max(rq, rc) <= b)
         return tr, tr
-    return code.get(layout, 4 if rc <= 4 else 16), code.get(q_layout, 16)
+    tr = code.get(layout, 4 if rc <= 4 else 16)
+    if tr == 4 and n_modes * rc * d * rc > TT_PAIR_ROW:
+        tr = 16
+    return tr, code.get(q_layout, 16)
 
 
 def ring_slot(d: int) -> int:
@@ -155,10 +166,11 @@ def smem_bytes(num_tables: int, n_modes: int, d: int, rq: int, rc: int,
                df: int = 0, ring: bool = False) -> int:
     """Shared memory of one K1 block (``fused_query_smem_bytes`` in the CUDA
     source, which refuses a launch planned with another size) for a shared
-    window of ``window`` slots (a power of two): two row buffers a warp for
-    each candidate it scores at once (two for CP, one for TT; CP factors (N, d,
-    R) or TT cores (N, R, d, R) of ranks up to 8, rounded up to 4 floats; rows
-    of higher ranks are read in place), the warps' running top-k lists and the
+    window of ``window`` slots (a power of two): the instantiation's row
+    buffers a warp (``SHAPES``) for each candidate it scores at once (two
+    for CP, one for TT; CP factors (N, d, R) or TT cores (N, R, d, R) of
+    ranks up to 8, rounded up to 4 floats; rows of higher ranks, and those a
+    cross pair's TR = 16 takes, are read in place), the warps' running top-k lists and the
     merged top-k (8 bytes a rank each), the hash set of 2 * window ids and the
     candidate list of window ids (the expansion's per-warp scores and deltas,
     ``expansion`` candidates of 8 bytes, reuse that region), the query's row,
@@ -170,15 +182,16 @@ def smem_bytes(num_tables: int, n_modes: int, d: int, rq: int, rc: int,
     a ring slot a warp and its 8-byte mbarrier (``ring_slot``).
     Queries of another layout (``q_layout``; ``n_modes`` and ``d`` are then
     the CP or TT operand's, ``df`` = prod d the dense operand's row): 8
-    warps, one candidate a warp (two dense rows; dense queries over CP rows:
-    12 warps, two rows), the query row as given or,
-    over dense rows, densified (a row with a dense side staged up to
-    ``DENSE_STAGE`` floats), and the chain states of the pair's TT
-    operand."""
+    warps, one candidate a warp (two dense rows; dense queries over CP rows
+    and CP or dense queries over TT rows of ranks <= 4: 12 warps, two
+    rows), the query row as given or, over dense rows, densified (a row
+    with a dense side staged up to ``DENSE_STAGE`` floats), and the chain
+    states of the pair's TT operand (none over TT rows of ranks <= 4: those
+    states live in registers)."""
     layout = "tt" if tt else "dense" if dense else "cp"
     ql = q_layout or layout
-    tr, qr = instance(layout, ql, rq, rc)
-    threads, _, per_warp = SHAPES[tr, qr]
+    tr, qr = instance(layout, ql, rq, rc, n_modes, d)
+    threads, _, per_warp, buffers = SHAPES[tr, qr]
     nwarps = threads // 32
     # a candidate row staged: CP rows, TT rows of ranks <= 8
     fc = 0 if dense or tr > 8 else n_modes * rc * d * (rc if tt else 1)
@@ -194,6 +207,8 @@ def smem_bytes(num_tables: int, n_modes: int, d: int, rq: int, rc: int,
     # pair's CP x TT state beside its TT operand's own chain
     if ql == layout:
         sw = 2 * max(rq * rc + rc * rc, rq * rq) if tt else 0
+    elif tr == 4:
+        sw = 0       # the states live in registers
     elif "tt" in (layout, ql):
         rt = rc if tt else rq
         sw = 2 * max(0 if dense_side else rq * rc, rt * rt)
@@ -203,7 +218,7 @@ def smem_bytes(num_tables: int, n_modes: int, d: int, rq: int, rc: int,
     lt = num_tables * probes
     rs = ring_slot(d) if ring and dense and ql == layout else 0
     slots = nwarps * (rs + 2) if rs else 0
-    return ((slots + nwarps * 2 * fc + fq + nwarps * sw + region) * 4
+    return ((slots + nwarps * buffers * fc + fq + nwarps * sw + region) * 4
             + (nwarps + 1) * topk * 8 + (4 * lt + 1) * 4 + STATIC_SMEM)
 
 
@@ -251,7 +266,8 @@ def window_plan(num_tables: int, cap: int, n_modes: int, d: int, rq: int,
                              q_layout=q_layout, df=df, ring=ring)
     least = min(need, MIN_WINDOW)
     layout = "tt" if tt else "dense" if dense else "cp"
-    target = SHAPES[instance(layout, q_layout or layout, rq, rc)][1]
+    target = SHAPES[instance(layout, q_layout or layout, rq, rc, n_modes,
+                             d)][1]
     for blocks in range(target, 0, -1):
         budget = _budget(blocks)
         window = min(need, MAX_WINDOW)
@@ -550,7 +566,7 @@ def launch_plan(table, rq: int, *, num_tables: int, probes: int, topk: int,
     if pair is not None and not pair.same:
         n, d, q_layout, df = pair.n_modes, pair.d, pair.q_layout, pair.df
     shape = SHAPES[instance(table.layout, q_layout or table.layout, rq,
-                            table.rc)]
+                            table.rc, n, d)]
     return _plan(table.layout, num_tables, max(table.caps), n, d, rq,
                  table.rc, probes, topk, expansion, q_layout, df, shape)
 
@@ -583,7 +599,8 @@ def occupancy(table, rq: int, smem: int, q_layout: str | None = None) -> dict:
     out = (ctypes.c_int * 4)()
     _build.check(_build.lib().fused_query_occupancy(
         FORMATS[table.layout], FORMATS[q_layout or table.layout], rq,
-        table.rc, smem - STATIC_SMEM, ctypes.addressof(out)),
+        table.rc, table.n_modes, table.d, smem - STATIC_SMEM,
+        ctypes.addressof(out)),
         "fused_query_occupancy")
     return dict(registers=out[0], blocks_per_sm=out[1], local_bytes=out[2],
                 target_blocks=out[3])
@@ -654,8 +671,8 @@ def _launch(values, offsets, mults, queries, table, *, kind, w, num_tables,
                 if table.layout == "dense" and pair.df > DENSE_STAGE
                 else None)
     dims = _dims(pair.dims, d, dev) if dense_side else None
-    threads, min_blocks, _ = SHAPES[instance(table.layout, pair.q_layout,
-                                             rq, rc)]
+    threads, min_blocks, _, _ = SHAPES[instance(table.layout, pair.q_layout,
+                                                rq, rc, n, d)]
     err = _build.lib().fused_query_launch(
         vals.data_ptr(), offs.data_ptr() if e2 else None, mu.data_ptr(),
         pairs.data_ptr() if pairs is not None else None, q.data_ptr(),

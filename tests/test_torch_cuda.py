@@ -40,6 +40,10 @@ their plain versions at T = 1 and, with a live window over two segments,
 T = 4; CP and TT queries densified past the staged row (65,536 floats, the
 global scratch) and a dense query of that length read in place; K1s with
 mixed queries at S = 3, equal to the single-device index bit for bit.
+CP and dense queries over TT rows of ranks at most 4 (two rows a warp) at
+TT ranks 1 to 4, ragged, three and four modes, T = 1 and a live window at
+T = 4, a heavy query through the global scratch (bit for bit on integer
+data), K1s at S = 3; TT ranks 5 to 16 beside them.
 """
 
 import pytest
@@ -762,7 +766,7 @@ def test_fused_query_dense_launch_refuses_another_plan(gen, monkeypatch):
     want = svc.index.query_batch(q)
     key = (fq_mod.DENSE, fq_mod.DENSE)
     shape = fq_mod.SHAPES[key]
-    for other in ((256, 3, 2), (256, 2, 2), (384, 3, 2)):
+    for other in ((256, 3, 2, 2), (256, 2, 2, 2), (384, 3, 2, 2)):
         monkeypatch.setitem(fq_mod.SHAPES, key, other)
         with pytest.raises(RuntimeError, match="fused_query_launch"):
             svc.index.query_batch(q)
@@ -911,7 +915,8 @@ def test_fused_query_mixed_past_the_staged_row(gen, qf, cf):
 
 
 @pytest.mark.parametrize("qf,cf", [("dense", "cp"), ("tt", "cp"),
-                                   ("cp", "tt"), ("tt", "dense")])
+                                   ("cp", "tt"), ("tt", "dense"),
+                                   ("dense", "tt")])
 def test_fused_query_sharded_mixed_matches_plain(gen, qf, cf):
     """K1s with a query batch of another format, S = 3 (a padded last
     shard), after deletes and a routed insert, at T = 1 and 4; and its
@@ -931,3 +936,133 @@ def test_fused_query_sharded_mixed_matches_plain(gen, qf, cf):
     sharded.insert(_as_layout(cp_random_data(gen, dims, 3, batch=300), cf))
     for probes in (1, 4):
         _k1s_vs_plain(sharded, q, probes)
+
+
+def _ragged_tt(gen, dims, ranks, n):
+    """n TT items of TT ranks ``ranks`` (r_0 .. r_N), N(0, 1) entries over
+    sqrt(r_{n-1} d_n) (the scale of ``tt_random_data``)."""
+    return TTTensor(tuple(
+        torch.randn((n, ranks[i], d, ranks[i + 1]), generator=gen,
+                    device="cuda") / (ranks[i] * d) ** 0.5
+        for i, d in enumerate(dims)), 1.0)
+
+
+def _tt_dense_rows(x):
+    """A batch of TT items as a dense batch (exactly the chain's entries
+    in float32, row by row)."""
+    from repro_torch.core.tensor_formats import DenseTensor, tt_to_dense
+    rows = torch.stack([tt_to_dense(x.index(i))
+                        for i in range(x.cores[0].shape[0])])
+    return DenseTensor(rows, x.dims)
+
+
+# (mode dims, TT ranks, CP query rank): TT ranks 1 to 4, ragged, the
+# rows' rank 4 (16-byte rank rows) and below; four modes; d_1 = 13
+TT_PAIR_SHAPES = [((6, 5, 7), (1, 1, 1, 1), 2), ((6, 5, 7), (1, 2, 2, 1), 1),
+                  ((6, 5, 7), (1, 3, 2, 1), 3), ((6, 5, 7), (1, 4, 4, 1), 4),
+                  ((13, 4, 3), (1, 4, 3, 1), 6),
+                  ((4, 3, 5, 2), (1, 2, 4, 3, 1), 4)]
+
+
+@pytest.mark.parametrize("qf", ["cp", "dense"])
+@pytest.mark.parametrize("shape", TT_PAIR_SHAPES, ids=str)
+def test_fused_query_tt_pair_ranks(gen, shape, qf):
+    """CP and dense queries over TT rows of ranks at most 4 (two rows a
+    warp, a row a half-warp) against K1's plain version at TT ranks 1 to 4,
+    ragged, over three and four modes, CP query ranks 1 to 6 (two chunks of
+    four), the exact cap at T = 1 and a live window after deletes and an
+    insert at T = 4: candidate counts equal, scores within
+    ``parity.rerank_bound``, ids equal but at near ties; a dense query of an
+    item's own entries finds it."""
+    from repro_torch.serving.lsh_service import build_service
+    dims, ranks, rq = shape
+    n = 3000
+    corpus = _ragged_tt(gen, dims, ranks, n)
+    name = f"mixed:{qf}-tt"
+    for probes, cap in ((1, None), (4, 16)):
+        svc = build_service(gen, "cp-e2lsh", dims, corpus, num_codes=4,
+                            num_tables=4, rank=2, bucket_width=1.0,
+                            bucket_cap=cap, probes=probes)
+        if cap is not None:
+            svc.delete(list(range(1, n, 9)))
+            svc.insert(_ragged_tt(gen, dims, ranks, 200))
+        qid = torch.randint(0, n, (192,), generator=gen, device="cuda")
+        if qf == "dense":
+            q = _tt_dense_rows(corpus.index(qid))
+        else:
+            q = cp_random_data(gen, dims, rq, batch=192)
+        before = fused_query.branches[name]
+        nc = _k1_vs_plain(svc, q, probes)
+        assert fused_query.branches[name] == before + 1
+        assert int(nc.sum()) > 0
+        if qf == "dense" and cap is None:
+            ids, _, _ = svc.index.query_batch(q, topk=1)
+            assert float((ids[:, 0].long() == qid).float().mean()) > 0.9
+
+
+@pytest.mark.parametrize("qf", ["cp", "dense"])
+def test_fused_query_tt_pair_scratch_equals_plain(gen, qf):
+    """A heavy query over TT rows: one item repeated past the largest
+    shared window, so its window goes to the global scratch, in one batch
+    with queries whose windows fit; integer-valued CP data held as TT
+    (exact sums in any order), so K1 equals its plain version bit for bit,
+    the repeats tied at distance 0 in effective-id order."""
+    from repro_torch.core.tensor_formats import cp_to_tt
+    from repro_torch.serving.lsh_service import build_service
+    dims, n = (6, 6, 6), 6000
+    dup = 3 * fq_mod.MAX_WINDOW // 4
+    base = CPTensor(tuple(
+        torch.randint(-1, 2, (n, d, 2), generator=gen, device="cuda").float()
+        for d in dims), 1.0)
+    rows = torch.cat([torch.arange(n, device="cuda"),
+                      torch.zeros(dup, dtype=torch.long, device="cuda")])
+    corpus = _repeat(base, rows[torch.randperm(n + dup, generator=gen,
+                                               device="cuda")])
+    svc = build_service(gen, "cp-e2lsh", dims, cp_to_tt(corpus), num_codes=6,
+                        num_tables=4, rank=2, bucket_width=4.0)
+    q = _repeat(base, torch.cat([
+        torch.zeros(32, dtype=torch.long, device="cuda"),
+        torch.randint(1, n, (96,), generator=gen, device="cuda")]))
+    q = _as_layout(q, qf)
+    before = _scratch_queries()
+    ids, sc, nc = _bitwise_vs_plain(svc, q, 1)
+    assert 32 <= _scratch_queries() - before < 128
+    assert bool((sc[:32] == 0).all()) and bool(
+        (ids[:32, 1:] > ids[:32, :-1]).all())
+
+
+@pytest.mark.parametrize("qf", ["cp", "dense"])
+def test_fused_query_tt_ranks_past_four_match_plain(gen, qf):
+    """TT rows of ranks 5 to 16 (``<16, 0>``, ``<16, kDense>``: one row a
+    warp, read in place) against K1's plain version, beside the branches
+    over ranks at most 4."""
+    from repro_torch.serving.lsh_service import build_service
+    dims, n = (6, 5, 7), 2000
+    corpus = _ragged_tt(gen, dims, (1, 6, 5, 1), n)
+    svc = build_service(gen, "cp-e2lsh", dims, corpus, num_codes=4,
+                        num_tables=4, rank=2, bucket_width=1.0)
+    assert fq_mod.instance("tt", qf, 3, 6, 3, 7)[0] == 16
+    qid = torch.randint(0, n, (128,), generator=gen, device="cuda")
+    q = (_tt_dense_rows(corpus.index(qid)) if qf == "dense"
+         else cp_random_data(gen, dims, 3, batch=128))
+    nc = _k1_vs_plain(svc, q, 1)
+    assert int(nc.sum()) > 0
+
+
+@pytest.mark.parametrize("qf", ["cp", "dense"])
+def test_fused_query_tt_long_rows_read_in_place(gen, qf):
+    """TT rows of rank 4 longer than ``TT_PAIR_ROW`` floats (12,288 bytes
+    here; 24 staged would not fit a block) go to ``<16, 0>`` /
+    ``<16, kDense>``, which read them in place, and answer as K1's plain
+    version does."""
+    from repro_torch.serving.lsh_service import build_service
+    dims, n = (32, 32, 64), 2000
+    corpus = _ragged_tt(gen, dims, (1, 4, 4, 1), n)
+    svc = build_service(gen, "cp-e2lsh", dims, corpus, num_codes=4,
+                        num_tables=4, rank=2, bucket_width=1.0)
+    assert fq_mod.instance("tt", qf, 4, 4, 3, max(dims))[0] == 16
+    qid = torch.randint(0, n, (64,), generator=gen, device="cuda")
+    q = (_tt_dense_rows(corpus.index(qid)) if qf == "dense"
+         else cp_random_data(gen, dims, 4, batch=64))
+    nc = _k1_vs_plain(svc, q, 1)
+    assert int(nc.sum()) > 0

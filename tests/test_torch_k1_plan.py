@@ -1,4 +1,4 @@
-"""K1's launch plan and its dense x CP summation order, on the CPU.
+"""K1's launch plan and its cross-format summation orders, on the CPU.
 
 The plan (``fused_query.SHAPES``, ``smem_bytes``, ``window_plan``, the
 dense instantiation's ring slots ``ring_slot``) is the Python copy of the
@@ -14,7 +14,12 @@ sums in the reference's order, mode 1 first, through the wrapper's column
 table (``column_table``); a plain model of that order, lane by lane and
 through the warp's butterfly in fp32, is held against the reference's
 ``inner_dense_cp`` (XLA, no Pallas compilation) within the rounding bound
-``parity.cross_length`` carries.
+``parity.cross_length`` carries. So are the orders of CP and dense queries
+over TT rows of ranks <= 4 (``cp_tt_half``, ``dense_tt_sweep``: two rows a
+warp, a row a half-warp, states in registers) against ``inner_cp_tt`` /
+``inner_dense_tt``, and the rows' own chain (``tt_self_half``) against
+``inner_tt_tt``, at ragged TT ranks, one to four modes and mode dims that
+are not multiples of 4; their plan is pinned at [cp-as-tt].
 """
 
 import itertools
@@ -27,7 +32,7 @@ import pytest
 from repro.core import contractions as ref_contractions
 from repro.core.tensor_formats import CPTensor as RefCP
 from repro_torch.core import probing
-from repro_torch.core.tensor_formats import CPTensor, DenseTensor
+from repro_torch.core.tensor_formats import CPTensor, DenseTensor, TTTensor
 from repro_torch.kernels import fused_query as fq
 from repro_torch.kernels import parity
 from repro_torch.kernels.epilogues import (BLOCK_RESERVED, MAX_SMEM,
@@ -56,6 +61,9 @@ PAIRS = [
     ("dense", "tt", (16, 16, 16, 16), (16, 1)),
     ("tt", "dense", (12, 12, 12), (1, 4)),
     ("tt", "cp", (12, 12, 12), (4, 4)),
+    ("tt", "cp", (16, 16, 16, 16), (4, 4)),     # the longest staged row
+    ("tt", "cp", (32, 32, 64), (4, 4)),         # rows read in place
+    ("tt", "dense", (32, 32, 64), (1, 4)),
     ("cp", "tt", (12, 12, 12), (16, 4)),
 ]
 # (tables, cap, probes, topk): exact caps, a live window's, T > 1
@@ -89,8 +97,8 @@ def test_plan_fits_the_target_blocks(pair):
     take the room of a block, as before)."""
     layout, q_layout = pair[:2]
     n, d, rq, rc, kw = _args(*pair)
-    tr_qr = fq.instance(layout, q_layout, rq, rc)
-    threads, target, _ = fq.SHAPES[tr_qr]
+    tr_qr = fq.instance(layout, q_layout, rq, rc, n, d)
+    threads, target, _, _ = fq.SHAPES[tr_qr]
     for tables, cap, probes, topk in LAUNCHES:
         exp = probing.expansion_size("e2lsh", 10) if probes > 1 else 0
         kw["ring"] = (tr_qr == (fq.DENSE, fq.DENSE)
@@ -130,10 +138,12 @@ def test_ring_plan_at_the_cells():
 
 
 def test_plan_refuses_nothing_it_took(monkeypatch):
-    """The two redesigned instantiations plan every launch the previous
-    plans did (dense rows: 8 warps, 3 blocks, no ring; dense queries over
-    CP rows: 8 warps, one row a warp), at a window no smaller than a
-    quarter of it; the other instantiations' plans are unchanged."""
+    """The redesigned instantiations plan every launch the previous plans
+    did (dense rows: 8 warps, 3 blocks, no ring; dense queries over CP
+    rows: 8 warps, one row a warp; CP or dense queries over TT rows of
+    ranks <= 4: 8 warps, one row a warp in two buffers, whatever the
+    row's length), at a window no smaller than a quarter of it; the other
+    instantiations' plans are unchanged."""
     new = {}
     for pair, launch in itertools.product(PAIRS, LAUNCHES):
         n, d, rq, rc, kw = _args(*pair)
@@ -142,9 +152,20 @@ def test_plan_refuses_nothing_it_took(monkeypatch):
         new[pair, launch] = fq.window_plan(tables, cap, n, d, rq, rc,
                                            probes=probes, topk=topk,
                                            expansion=exp, **kw)
-    monkeypatch.setitem(fq.SHAPES, (fq.DENSE, fq.DENSE), (256, 3, 2))
-    monkeypatch.setitem(fq.SHAPES, (0, fq.DENSE), (256, 2, 1))
-    redesigned = (("dense", "dense"), ("cp", "dense"))
+    monkeypatch.setitem(fq.SHAPES, (fq.DENSE, fq.DENSE), (256, 3, 2, 2))
+    monkeypatch.setitem(fq.SHAPES, (0, fq.DENSE), (256, 2, 1, 2))
+    for qr in (0, fq.DENSE):
+        monkeypatch.setitem(fq.SHAPES, (4, qr), (256, 2, 1, 2))
+    instance = fq.instance
+
+    def old_instance(layout, q_layout, rq, rc, n_modes, d):
+        tr, qr = instance(layout, q_layout, rq, rc, n_modes, d)
+        return (4, qr) if layout != q_layout and tr == 16 and rc <= 4 else (
+            tr, qr)
+
+    monkeypatch.setattr(fq, "instance", old_instance)
+    redesigned = (("dense", "dense"), ("cp", "dense"), ("tt", "cp"),
+                  ("tt", "dense"))
     for (pair, launch), (window, _) in new.items():
         n, d, rq, rc, kw = _args(*pair)
         tables, cap, probes, topk = launch
@@ -249,3 +270,316 @@ def _dense(factors):
             t = np.multiply.outer(t, f[:, r].astype(np.float64))
         out = out + t
     return out
+
+
+# --- CP and dense queries over TT rows of ranks <= 4 (``Shape::tt_pair``) --
+
+def _tt_cores(rng, dims, ranks):
+    """Random TT cores (r_{n-1}, d_n, r_n), float32."""
+    return [rng.standard_normal((ranks[n], d, ranks[n + 1])).astype(
+        np.float32) for n, d in enumerate(dims)]
+
+
+def _stack_tt(cores, dims):
+    """One stacked TT row (N, R, D, R), R the largest rank, D the largest
+    mode dim, zeros where a core is smaller (``ops.stack_tt``'s layout)."""
+    r = max(max(c.shape[0], c.shape[2]) for c in cores)
+    out = np.zeros((len(cores), r, max(dims), r), np.float32)
+    for n, c in enumerate(cores):
+        out[n, :c.shape[0], :c.shape[1], :c.shape[2]] = c
+    return out
+
+
+def _pad4(g):
+    """A stacked TT row padded to rank 4 with zeros: the kernel guards its
+    loads past the row's rank, which reads as zeros."""
+    n, r, d, _ = g.shape
+    out = np.zeros((n, 4, d, 4), np.float32)
+    out[:, :r, :, :r] = g
+    return out
+
+
+def _butterfly(v, width):
+    """A butterfly sum over the lanes of ``v`` (width lanes), in fp32."""
+    v = v.astype(np.float32)
+    o = width // 2
+    while o:
+        v = (v + v[np.arange(width) ^ o]).astype(np.float32)
+        o //= 2
+    return v[0]
+
+
+def cp_tt_model(a, g):
+    """``cp_tt_half``'s order in fp32: a (N, D, RA) a stacked CP row, g (N,
+    r, D, r) a stacked TT row, r <= 4 -> <A, G> unscaled. Per chunk of four
+    CP ranks, lane (q, x): mode 1 the x lanes take slices i = x, x + 4, ...
+    of M[q][0][e]; a later mode M[q][x][e] = sum_i A[i][q] G[x][i][e] (an
+    FMA chain), times S[q][x]; the x lanes' butterfly gives S'[q][e], lane
+    x keeping e = x; then the q lanes' totals by a butterfly."""
+    g = _pad4(g)
+    n_modes, d, ra = a.shape
+    totals = np.zeros(16, np.float32)
+    for q0 in range(0, ra, 4):
+        for ql in range(4):
+            q = min(q0 + ql, ra - 1)
+            s = np.zeros(4, np.float32)        # lane x holds S[q][x]
+            for n in range(n_modes):
+                p = np.zeros((4, 4), np.float32)   # [lane x][e]
+                for x in range(4):
+                    if n == 0:
+                        for i in range(x, d, 4):
+                            p[x] = _fma(np.full(4, a[0, i, q]), g[0, 0, i],
+                                        p[x])
+                    else:
+                        for i in range(d):
+                            p[x] = _fma(np.full(4, a[n, i, q]), g[n, x, i],
+                                        p[x])
+                        p[x] = (p[x] * s[x]).astype(np.float32)
+                t = (p + p[[1, 0, 3, 2]]).astype(np.float32)
+                full = (t + t[[2, 3, 0, 1]]).astype(np.float32)
+                s = np.array([full[x, x] for x in range(4)], np.float32)
+            if q0 + ql < ra:
+                totals[4 * ql] = np.float32(totals[4 * ql] + s[0])
+    return _butterfly(totals, 16)
+
+
+def tt_self_model(g):
+    """``tt_self_half``'s order in fp32 for a stacked TT row g (N, r, D, r),
+    r <= 4 -> <G, G> unscaled: mode 1 S[c][e] = sum_i G[0][i][c] G[0][i][e];
+    a middle mode tt_chains' step; the last mode S'[0][0], lane (a, b)
+    adding G[a][i][0] V[a][0] over the slices i = b, b + 4, ..., then a
+    butterfly."""
+    g = _pad4(g)
+    n_modes, _, d, _ = g.shape
+    s = np.zeros((4, 4), np.float32)
+    for i in range(d):
+        s = _fma(g[0, 0, i][:, None], g[0, 0, i][None, :], s)
+    if n_modes == 1:
+        return s[0, 0]
+    for n in range(1, n_modes):
+        gn = g[n]                                  # (a, i, c)
+        if n == n_modes - 1:
+            acc = np.zeros(16, np.float32)
+            for a_ in range(4):
+                for b in range(4):
+                    for i in range(b, d, 4):
+                        v = np.float32(0)
+                        for y in range(4):
+                            v = _fma(s[a_, y], gn[y, i, 0], v)
+                        acc[4 * a_ + b] = _fma(gn[a_, i, 0], v,
+                                               acc[4 * a_ + b])
+            return _butterfly(acc, 16)
+        nxt = np.zeros((4, 4), np.float32)
+        for c in range(4):
+            for e in range(4):
+                acc = np.float32(0)
+                for i in range(d):
+                    for x in range(4):
+                        u = np.float32(0)
+                        for y in range(4):
+                            u = _fma(s[x, y], gn[y, i, e], u)
+                        acc = _fma(gn[x, i, c], u, acc)
+                nxt[c, e] = acc
+        s = nxt
+
+
+def dense_tt_model(q, g, dims):
+    """``dense_tt_sweep``'s order in fp32 for one TT row: q (DF,) the dense
+    row, g (N, r, D, r) a stacked TT row -> qy, unscaled. Half-lane h's
+    columns p = h, h + 16, ...: t[c] = the FMA chain over G_1's rank rows,
+    the weight G_2[:, i_2, :] ... G_N[:, i_N, 0] right to left (the slices
+    from ``column_table``: entry n * D + i_n), acc += t[c] w[c] in rank
+    order; then the butterfly over the half."""
+    g = _pad4(g)
+    n_modes, _, d, _ = g.shape
+    d1, p_cols = dims[0], math.prod(dims[1:])
+    qm = q.reshape(d1, p_cols)
+    table = np.array(fq.column_table(dims, d), dtype=np.int64).reshape(
+        n_modes - 1, p_cols)
+    acc = np.zeros(16, np.float32)
+    for p in range(p_cols):
+        t = np.zeros(4, np.float32)
+        for i in range(d1):
+            t = _fma(g[0, 0, i], np.full(4, qm[i, p]), t)
+        w = np.array([1, 0, 0, 0], np.float32)
+        if n_modes > 1:
+            w = g[n_modes - 1, :, table[n_modes - 2, p]
+                  - (n_modes - 1) * d, 0].copy()
+            for n in range(n_modes - 2, 0, -1):
+                i_n = table[n - 1, p] - n * d
+                nv = np.zeros(4, np.float32)
+                for a_ in range(4):
+                    u = np.float32(0)
+                    for c in range(4):
+                        u = _fma(g[n, a_, i_n, c], w[c], u)
+                    nv[a_] = u
+                w = nv
+        lane = p % 16
+        for c in range(4):
+            acc[lane] = _fma(t[c], w[c], acc[lane])
+    return _butterfly(acc, 16)
+
+
+def _ref_tt(cores):
+    from repro.core.tensor_formats import TTTensor as RefTT
+    return RefTT(tuple(jnp.asarray(c) for c in cores))
+
+
+def _tt_dense64(cores):
+    """The TT tensor's entries in float64."""
+    t = cores[0].astype(np.float64)[0]
+    for c in cores[1:]:
+        t = np.tensordot(t, c.astype(np.float64), axes=(-1, 0))
+    return t[..., 0]
+
+
+# (mode dims, TT ranks r_0 .. r_N): [cp-as-tt]'s, ragged ranks and mode
+# dims that are not multiples of 4, one mode and four
+TT_SHAPES = [((12, 12, 12), (1, 4, 4, 1)), ((6, 5, 7), (1, 3, 2, 1)),
+             ((13, 3), (1, 2, 1)), ((3, 4, 5, 6), (1, 3, 4, 2, 1)),
+             ((2, 3, 2, 3), (1, 2, 4, 3, 1)), ((9,), (1, 1))]
+
+
+@pytest.mark.parametrize("rank", [1, 2, 3, 4, 6])
+@pytest.mark.parametrize("shape", TT_SHAPES[:4], ids=str)
+def test_cp_tt_order_within_the_cross_bound(shape, rank):
+    """The kernel's CP x TT order (``cp_tt_model``) against the reference's
+    ``inner_cp_tt`` and against float64, within 2 n u S, n =
+    ``parity.cross_length`` and S the same contraction over absolute
+    values; CP ranks 1-4 and 6 (two chunks of four)."""
+    dims, ranks = shape
+    rng = np.random.default_rng(23)
+    cores = _tt_cores(rng, dims, ranks)
+    factors = [rng.standard_normal((dn, rank)).astype(np.float32)
+               for dn in dims]
+    a = np.zeros((len(dims), max(dims), rank), np.float32)
+    for n, f in enumerate(factors):
+        a[n, :f.shape[0]] = f
+    ref = float(ref_contractions.inner_cp_tt(
+        RefCP(tuple(jnp.asarray(f) for f in factors)), _ref_tt(cores)))
+    cp64 = _dense(factors)
+    exact = float((cp64 * _tt_dense64(cores)).sum())
+    s = float((np.abs(cp64) if rank == 1 else _dense(
+        [np.abs(f) for f in factors])).ravel()
+        @ _tt_dense64([np.abs(c) for c in cores]).ravel())
+    x = CPTensor(tuple(torch.from_numpy(f) for f in factors), 1.0)
+    y = TTTensor(tuple(torch.from_numpy(c) for c in cores), 1.0)
+    bound = 2 * parity.cross_length(x, y) * parity.U * s
+    got = float(cp_tt_model(a, _stack_tt(cores, dims)))
+    assert abs(got - ref) <= bound, (got, ref, bound)
+    assert abs(got - exact) <= bound / 2, (got, exact)
+
+
+@pytest.mark.parametrize("shape", TT_SHAPES, ids=str)
+def test_dense_tt_order_within_the_cross_bound(shape):
+    """The kernel's dense x TT order (``dense_tt_model``: mode 1 first, the
+    columns' weights through the column table) against the reference's
+    ``inner_dense_tt`` and against float64, within 2 n u S, n =
+    ``parity.cross_length``."""
+    dims, ranks = shape
+    rng = np.random.default_rng(24)
+    cores = _tt_cores(rng, dims, ranks)
+    q = rng.standard_normal(dims).astype(np.float32)
+    ref = float(ref_contractions.inner_dense_tt(jnp.asarray(q),
+                                                _ref_tt(cores)))
+    exact = float((q.astype(np.float64) * _tt_dense64(cores)).sum())
+    s = float((np.abs(q).astype(np.float64)
+               * _tt_dense64([np.abs(c) for c in cores])).sum())
+    x = DenseTensor(torch.from_numpy(q), dims)
+    y = TTTensor(tuple(torch.from_numpy(c) for c in cores), 1.0)
+    bound = 2 * parity.cross_length(x, y) * parity.U * s
+    got = float(dense_tt_model(q.reshape(-1), _stack_tt(cores, dims), dims))
+    assert abs(got - ref) <= bound, (got, ref, bound)
+    assert abs(got - exact) <= bound / 2, (got, exact)
+
+
+@pytest.mark.parametrize("shape", TT_SHAPES, ids=str)
+def test_tt_self_order_within_the_bound(shape):
+    """The TT rows' own inner product in the pair branches' order
+    (``tt_self_model``) against the reference's ``inner_tt_tt`` and against
+    float64, within 2 n u S, n = the TT format's ``inner_length``."""
+    dims, ranks = shape
+    rng = np.random.default_rng(25)
+    cores = _tt_cores(rng, dims, ranks)
+    ref = float(ref_contractions.inner_tt_tt(_ref_tt(cores), _ref_tt(cores)))
+    t64 = _tt_dense64(cores)
+    exact = float((t64 * t64).sum())
+    y = TTTensor(tuple(torch.from_numpy(c) for c in cores), 1.0)
+    bound = 2 * y.inner_length(y.rank) * parity.U * exact
+    got = float(tt_self_model(_stack_tt(cores, dims)))
+    assert abs(got - ref) <= bound, (got, ref, bound)
+    assert abs(got - exact) <= bound / 2, (got, exact)
+
+
+def test_tt_pair_plan_at_the_cells():
+    """CP and dense queries over TT rows of ranks <= 4: 12 warps, two rows a
+    warp in one buffer (``SHAPES``' last column), 2 blocks a SM; at [cp-as-tt]
+    (2^20 items as TT rank 4 over (12, 12, 12), L = 10, cap 473) a block
+    plans 55,296 bytes of rows and a 4,096-slot window beside them and the
+    query row (576 CP floats or 1,728 dense ones staged): 106,260 and
+    112,596 bytes, two blocks a SM. The other cross pairs keep two buffers,
+    and TT ranks 5-16 (TR = 16) stage no rows."""
+    for qr in (0, fq.DENSE):
+        assert fq.SHAPES[4, qr] == (384, 2, 2, 1)
+    for tr_qr, shape in fq.SHAPES.items():
+        if tr_qr not in ((4, 0), (4, fq.DENSE)):
+            assert shape[3] == 2
+    for ql, rq, want in (("cp", 4, 106_260), ("dense", 1, 112_596)):
+        kw = dict(tt=True, q_layout=ql, df=1728)
+        window = fq.window_plan(10, 473, 3, 12, rq, 4, **kw)
+        assert window == (4096, True)
+        smem = fq.smem_bytes(10, 3, 12, rq, 4, 4096, **kw)
+        assert smem == want and _blocks(smem) == 2, (ql, smem)
+        rows = 12 * 2 * 576 * 4
+        assert smem - fq.smem_bytes(10, 3, 12, rq, 4, 2048, **kw) == (
+            2048 * 12)
+        assert smem > rows == 55_296
+    # TT ranks 5-16 read their rows in place: no row buffers at all (a
+    # staged rank-16 row would take 36,864 bytes)
+    assert fq.instance("tt", "cp", 4, 16, 3, 12) == (16, 0)
+    assert fq.smem_bytes(10, 3, 12, 4, 16, 256, tt=True, q_layout="cp",
+                         df=1728) == 20_948
+
+
+@pytest.mark.parametrize("q_layout", ["cp", "dense"])
+def test_tt_pair_takes_rows_up_to_its_stage(q_layout):
+    """CP and dense queries over TT rows of ranks <= 4 go to the TT pair
+    branch (TR = 4, rows staged) for rows of at most ``TT_PAIR_ROW`` floats
+    (N * R * D * R, the stacked rank): 24 such rows are 96 KiB, and a block
+    beside the smallest window and a small query row keeps two blocks a
+    SM; longer rows, and ranks 5-16, go to TR = 16, which reads them in
+    place and so plans any shape the first design (one row a warp, two
+    buffers) took."""
+    qr = fq.instance("tt", q_layout, 4, 4, 3, 12)[1]
+    assert qr == (0 if q_layout == "cp" else fq.DENSE)
+    for n, d, rc, tr in ((3, 12, 4, 4), (4, 16, 4, 4), (3, 21, 4, 4),
+                         (3, 22, 4, 16), (3, 64, 4, 16), (3, 64, 1, 4),
+                         (3, 85, 2, 4), (3, 86, 2, 16), (3, 37, 3, 4),
+                         (3, 38, 3, 16), (1, 64, 4, 4), (1, 65, 4, 16),
+                         (3, 12, 5, 16)):
+        assert fq.instance("tt", q_layout, 4, rc, n, d) == (tr, qr), (n, d,
+                                                                     rc)
+        assert (tr == 4) == (rc <= 4 and n * rc * d * rc <= fq.TT_PAIR_ROW)
+    # the same-format pairs and the other cross pairs take no row rule
+    assert fq.instance("tt", "tt", 4, 4, 3, 64) == (4, 4)
+    assert fq.instance("cp", q_layout, 1, 4, 3, 64)[0] == 0
+    # the longest staged row, CP rank 4 queries: two blocks a SM at L = 10
+    window, _ = fq.window_plan(10, 2952, 4, 16, 4, 4, tt=True,
+                               q_layout=q_layout, df=16 ** 4)
+    smem = fq.smem_bytes(10, 4, 16, 4, 4, window, tt=True,
+                         q_layout=q_layout, df=16 ** 4)
+    assert _blocks(smem) == 2 and smem > 24 * 1024 * 4
+
+
+@pytest.mark.parametrize("dims", [(12, 12, 12), (6, 5, 7), (3, 4, 5, 6)])
+def test_tt_column_table_decodes_each_columns_slices(dims):
+    """The dense x TT sweep reads column p's slice of mode n as entry (n -
+    1, p) of ``column_table`` minus n * D: the mode index i_n(p) of the
+    row read as (d_1, P), the last mode fastest, for the padded D."""
+    d = max(dims)
+    p = math.prod(dims[1:])
+    table = np.array(fq.column_table(dims, d), np.int64).reshape(
+        len(dims) - 1, p)
+    idx = np.unravel_index(np.arange(p), dims[1:])
+    for n in range(1, len(dims)):
+        np.testing.assert_array_equal(table[n - 1] - n * d, idx[n - 1])

@@ -205,8 +205,9 @@ def test_service_answers_every_query_format(data, cf):
 def test_launch_shapes_cover_the_built_instantiations():
     """``fused_query.SHAPES`` holds exactly the instantiations that
     ``csrc/fused_query.cu`` (same-format) and ``csrc/fused_query_mixed.cu``
-    (``K1_MIXED_PAIRS``) build, and ``instance`` maps every (corpus, query)
-    format pair at every TT rank K1 takes onto one of them (the C launch
+    (``K1_MIXED_PAIRS`` in ``csrc/fused_query.cuh``) build, and ``instance``
+    maps every (corpus, query) format pair at every TT rank K1 takes, with
+    short and long TT rows, onto one of them (the C launch
     refuses a plan whose threads, blocks or shared bytes differ)."""
     import itertools
     import re
@@ -222,7 +223,7 @@ def test_launch_shapes_cover_the_built_instantiations():
         r"launch<(\w+), (\w+)>\(a, smem, st\)",
         (csrc / "fused_query.cu").read_text())}
     macro = re.search(r"#define K1_MIXED_PAIRS\(X\)(.*?)\n\n",
-                      (csrc / "fused_query_mixed.cu").read_text(), re.S)
+                      (csrc / "fused_query.cuh").read_text(), re.S)
     mixed = {(num(a), num(b))
              for a, b in re.findall(r"X\((\w+), (\w+)\)", macro.group(1))}
     assert all(tr == qr for tr, qr in same) and len(same) == 5
@@ -234,4 +235,5 @@ def test_launch_shapes_cover_the_built_instantiations():
                                         repeat=2):
             rq_ = rq if ql == "tt" else 1 if ql == "dense" else 4
             rc_ = rc if layout == "tt" else 1 if layout == "dense" else 4
-            assert fq.instance(layout, ql, rq_, rc_) in fq.SHAPES
+            for n, d in ((3, 12), (3, 64)):
+                assert fq.instance(layout, ql, rq_, rc_, n, d) in fq.SHAPES
