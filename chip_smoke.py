@@ -109,11 +109,15 @@ Phases (any failure exits non-zero):
      another format than the corpus's (K1's and K1s's six cross-format
      branches, ``fused_query_kernel<TR, QR>``): [main]'s
      first 32 query batches converted exactly (densified; TT by diagonal
-     cores) over [main]'s service (dense x CP, TT x CP), [dense-main]'s
-     (CP x dense, TT x dense) and [cp-as-tt] ([main]'s 2^20 items
-     converted to TT, tt-e2lsh rank 4 through K4: CP x TT, dense x TT),
-     and dense x CP over [shard]'s 4 shards, every batch bit-equal to the
-     single card. Each pair: its branch launched and no plain version,
+     cores) over [main]'s service (dense x CP, TT x CP, and [mixed tt8 x
+     cp]: the TT queries zero-padded to rank 8, recall@1 equal to TT x
+     CP's), [dense-main]'s (CP x dense, TT x dense) and [cp-as-tt]
+     ([main]'s 2^20 items converted to TT, tt-e2lsh rank 4 through K4: CP
+     x TT, dense x TT), [tt8] ([main]'s first 2^16 items as TT padded to
+     rank 8, indexed alike: CP x TT and dense x TT over TT ranks 5-16), and
+     dense x CP over [shard]'s 4 shards, every batch bit-equal to the
+     single card. Each pair: its branch and the K1 instantiation it means
+     to run (``fused_query:k1:<0, 4>``, ...) launched and no plain version,
      recall@1 (planted) and recall@10 against brute force
      (``recall_at_k``), batch latency, K1 against its plain version and
      float64, its time beside its bound and the plain version's.
@@ -492,16 +496,25 @@ BRANCHES = ("multiprobe", "live_window", "segments", "scratch"
 K1_WRAPPERS = ("fused_query", "fused_query_sharded")
 
 
+def k1_instance(tr: int, qr: int) -> str:
+    """K1's launch count of the instantiation fused_query_kernel<TR, QR>
+    among a wrapper's branches ("k1:<0, 4>")."""
+    from repro_torch.kernels import fused_query as fq
+    return "k1:" + fq.instance_name(tr, qr)
+
+
 def read_counts() -> dict:
     """Launches and plain calls, K1's and K1s's launches by branch
     (``fused_query:multiprobe``, ``fused_query_sharded:live_window``,
-    ...) and their queries that used the global scratch
-    (``fused_query:scratch``)."""
+    ...) and by instantiation (``fused_query:k1:<0, 4>``, ...) and their
+    queries that used the global scratch (``fused_query:scratch``)."""
+    from repro_torch.kernels import fused_query as fq
     fns = counters()
     counts = {name: getattr(fn, "launches" if name in COUNTED else "calls")
               for name, fn in fns.items()}
+    names = BRANCHES + tuple(k1_instance(*key) for key in fq.SHAPES)
     counts.update({f"{k}:{b}": fns[k].branches[b]
-                   for k in K1_WRAPPERS for b in BRANCHES})
+                   for k in K1_WRAPPERS for b in names})
     return counts
 
 
@@ -993,15 +1006,18 @@ def k1_times(svc, queries, k1_args, name, corpus=None):
         probes=kw["probes"], topk=kw["topk"], expansion=expansion,
         pair=pair)
     rows = ""
-    if view.k1_table.layout == "dense" and pair.same:
-        ring = fq.ring_plan(kw["num_tables"], max(view.k1_table.caps),
-                            pair.d, kw["probes"], kw["topk"], expansion)
-        rows = (f"; dense rows through a {pair.d}-float ring slot a warp"
+    if view.k1_table.layout == "dense":
+        row = pair.d if pair.same else pair.df
+        query = None if pair.same else (pair.q_layout, pair.n_modes, pair.d,
+                                        pair.rq)
+        ring = fq.ring_plan(kw["num_tables"], max(view.k1_table.caps), row,
+                            kw["probes"], kw["topk"], expansion, query)
+        rows = (f"; dense rows through a {row}-float ring slot a warp"
                 if ring else "; dense rows read in place")
     occ = fq.occupancy(view.k1_table, pair.rq, smem, pair.q_layout)
-    threads, _, per_warp, _ = fq.SHAPES[fq.instance(
-        view.k1_table.layout, pair.q_layout, pair.rq, view.k1_table.rc,
-        pair.n_modes, pair.d)]
+    inst = fq.instance(view.k1_table.layout, pair.q_layout, pair.rq,
+                       view.k1_table.rc, pair.n_modes, pair.d)
+    threads, _, per_warp, _ = fq.SHAPES[inst]
     k1_plain = cuda_ms([lambda: plain(values, offs, mults, qs, **kw)], 2)
     q0 = qs[0]
     k1_bytes, k1_flops, slots, n_cand = k1_work(
@@ -1013,7 +1029,8 @@ def k1_times(svc, queries, k1_args, name, corpus=None):
           f"{len(segs)} segment(s), {slots} window slots, {n_cand} "
           f"candidates: {k1_ms:.4f} ms (plain {k1_plain:.4f} ms); bound "
           f"{k1_bound:.5f} ms by {k1_by} ({k1_bytes / 1e6:.2f} MB, "
-          f"{k1_flops / 1e9:.3f} GFLOP); {threads // 32} warps, {per_warp} "
+          f"{k1_flops / 1e9:.3f} GFLOP); {fq.instance_name(*inst)}, "
+          f"{threads // 32} warps, {per_warp} "
           f"row(s) a warp, {occ['registers']} registers a "
           f"thread, {occ['blocks_per_sm']} blocks per SM (target "
           f"{occ['target_blocks']}), {occ['local_bytes']} local bytes, "
@@ -1436,14 +1453,14 @@ def mixed_batches(queries, layout):
     return list(qs)
 
 
-def phase_mixed(tag, svc, batches, qids):
+def phase_mixed(tag, svc, batches, qids, inst):
     """One cross-format pair through ``svc.query_arrays`` on the card, the
     counters zeroed just before and read just after: the pair's K1 branch
-    must have launched and no plain version run; recall@1 (planted) at
-    least RECALL1_MIN, recall@10 against brute force (``recall_at_k``),
-    batch latency; K1 against its plain version and float64, and its time
-    beside its bound and the plain version's -> (its record, the
-    results)."""
+    and its instantiation ``inst`` ((TR, QR)) must have launched and no
+    plain version run; recall@1 (planted) at least RECALL1_MIN, recall@10
+    against brute force (``recall_at_k``), batch latency; K1 against its
+    plain version and float64, and its time beside its bound and the plain
+    version's -> (its record, the results, recall@1)."""
     import torch
     from repro_torch.core.index import recall_at_k
     idx = svc.index
@@ -1457,7 +1474,8 @@ def phase_mixed(tag, svc, batches, qids):
     counts = read_counts()
     latency_line(tag, svc, lat_ms)
     print(f"[{tag}] launches: {({k: v for k, v in counts.items() if v})}")
-    check_counts(counts, tag, ("fused_query", branch))
+    check_counts(counts, tag, ("fused_query", branch,
+                               "fused_query:" + k1_instance(*inst)))
     hits1, n_q = check_results(
         results, [q.cpu().numpy() for q in qids[:len(batches)]],
         corpus.leaves[0].shape[0])
@@ -1472,18 +1490,44 @@ def phase_mixed(tag, svc, batches, qids):
                               corpus=corpus)
     k1_t = k1_times(svc, batches, k1_args, f"K1 {tag}", corpus=corpus)
     return (record(f"fused_query[{tag}]", *K1_SOURCE, counts, branch, err,
-                   k1_t), results)
+                   k1_t), results, hits1 / n_q)
+
+
+def pad_tt(x, rank: int):
+    """A TT batch with its interior ranks zero-padded to ``rank`` (r_0 =
+    r_N = 1 kept): the same tensor exactly."""
+    from repro_torch.core.tensor_formats import TTTensor
+    cores, last = [], len(x.cores) - 1
+    for k, c in enumerate(x.cores):
+        shape = c.shape[:-3] + (1 if k == 0 else rank, c.shape[-2],
+                                1 if k == last else rank)
+        out = c.new_zeros(shape)
+        out[..., :c.shape[-3], :, :c.shape[-1]] = c
+        cores.append(out)
+    return TTTensor(tuple(cores), x.scale)
 
 
 def phase_mixed_main(svc, qids, queries) -> tuple[list, list]:
-    """[mixed] on [main]'s service: dense x CP and TT x CP -> (the records,
-    the dense queries and their answers, for [shard]'s pair)."""
+    """[mixed] on [main]'s service: dense x CP (``<0, kDense>``), TT x CP
+    (``<0, 4>``) and [mixed tt8 x cp], the same TT queries zero-padded to
+    rank 8 (``<0, 16>``), whose recall@1 must equal TT x CP's -> (the
+    records, the dense queries and their answers, for [shard]'s pair)."""
+    from repro_torch.kernels import fused_query as fq
     out = []
     dense = mixed_batches(queries, "dense")
-    rec, dense_results = phase_mixed("mixed dense x cp", svc, dense, qids)
+    rec, dense_results, _ = phase_mixed("mixed dense x cp", svc, dense, qids,
+                                        (0, fq.DENSE))
     out.append(rec)
-    out.append(phase_mixed("mixed tt x cp", svc,
-                           mixed_batches(queries, "tt"), qids)[0])
+    tt = mixed_batches(queries, "tt")
+    rec, _, r1 = phase_mixed("mixed tt x cp", svc, tt, qids, (0, 4))
+    out.append(rec)
+    rec, _, r8 = phase_mixed("mixed tt8 x cp", svc,
+                             [pad_tt(q, 8) for q in tt], qids, (0, 16))
+    out.append(rec)
+    if r8 != r1:
+        fail(f"mixed tt8 x cp: recall@1 {r8} differs from [mixed tt x cp]'s "
+             f"{r1} on the same queries, their ranks zero-padded")
+    print(f"[mixed tt8 x cp] recall@1 {r8:.4f} equals [mixed tt x cp]'s")
     return out, (dense, dense_results)
 
 
@@ -1491,7 +1535,8 @@ def phase_cp_as_tt(cell, corpus, qids, queries) -> list:
     """[cp-as-tt]: [main]'s 2^20 CP items converted exactly to TT (TT rank
     4), a tt-e2lsh index through K4, queried with [main]'s CP queries (CP x
     TT, hashed by the TT projection on CP inputs) and densified (dense x
-    TT), each pair with a profile of its batches -> their records."""
+    TT), each pair with a profile of its batches; then [tt8] -> their
+    records."""
     import torch
     from repro_torch.core.tensor_formats import cp_to_tt
     from repro_torch.serving.lsh_service import build_service
@@ -1517,11 +1562,51 @@ def phase_cp_as_tt(cell, corpus, qids, queries) -> list:
           f"{svc.index.cap} ([main]'s: see its line); launches "
           f"{({k: v for k, v in counts.items() if v})}")
     check_counts(counts, c["tag"], ("tt_inner",))
+    from repro_torch.kernels import fused_query as fq
     out = []
-    for qf in ("cp", "dense"):
+    for qf, qr in (("cp", 0), ("dense", fq.DENSE)):
         batches = mixed_batches(queries, qf)
-        out.append(phase_mixed(f"mixed {qf} x tt", svc, batches, qids)[0])
+        out.append(phase_mixed(f"mixed {qf} x tt", svc, batches, qids,
+                               (4, qr))[0])
         phase_profile(svc, batches, f"mixed {qf} x tt profile")
+    del svc
+    torch.cuda.empty_cache()
+    return out + phase_tt8(cell, corpus)
+
+
+# [tt8]: [main]'s first 2^16 items as exact TT zero-padded to rank 8 (TT
+# ranks 5-16: K1's <16, 0> and <16, kDense>, rows read in place), indexed
+# as [cp-as-tt]; CP and dense planted-neighbour queries, a few batches
+TT8 = dict(tag="tt8", log2_corpus=16, rank=8, batches=4)
+
+
+def phase_tt8(cell, corpus) -> list:
+    """[tt8]: CP and dense queries over a TT corpus of rank 8 -> their
+    records (``phase_mixed``, its instantiation required)."""
+    import torch
+    from repro_torch.core.tensor_formats import cp_to_tt
+    from repro_torch.kernels import fused_query as fq
+    from repro_torch.serving.lsh_service import build_service
+    c, n = CP_AS_TT, 1 << TT8["log2_corpus"]
+    base = corpus.index(slice(0, n))
+    gen = torch.Generator(device="cuda").manual_seed(cell["seed"] + 8)
+    svc = build_service(torch.Generator(device="cuda").manual_seed(1),
+                        c["kind"], cell["dims"],
+                        pad_tt(cp_to_tt(base), TT8["rank"]),
+                        num_codes=c["codes"], num_tables=c["tables"],
+                        rank=c["rank"], bucket_width=c["width"],
+                        device="cuda")
+    print(f"[{TT8['tag']}] [main]'s first {n} items as TT of ranks "
+          f"{svc.index.effective_corpus().ranks}, {c['kind']} "
+          f"K={c['codes']} L={c['tables']} rank {c['rank']} w={c['width']}: "
+          f"cap {svc.index.cap}")
+    perm = torch.randperm(n, generator=gen, device="cuda")
+    qids = [perm[i * 1024:(i + 1) * 1024] for i in range(TT8["batches"])]
+    cp_q = [make_queries(base, q, gen) for q in qids]
+    out = []
+    for qf, qr in (("cp", 0), ("dense", fq.DENSE)):
+        out.append(phase_mixed(f"mixed {qf} x tt8", svc,
+                               mixed_batches(cp_q, qf), qids, (16, qr))[0])
     del svc
     return out
 
@@ -2294,6 +2379,7 @@ def phase_dense_cell(cell, corpus, qids, queries, profile: bool,
     beside its byte bound; with ``cp_queries`` ([main]'s first CP batches)
     also [mixed] CP x dense and TT x dense on its service -> (the K1
     records, the summary)."""
+    from repro_torch.kernels import fused_query as fq
     svc, counts, summary, _ = phase_main(cell, corpus, qids, queries)
     dense_storage(svc, cell["tag"])
     fam = svc.index.family
@@ -2311,8 +2397,9 @@ def phase_dense_cell(cell, corpus, qids, queries, profile: bool,
                       "fused_query", k1_err, k1_t)]
     if cp_queries is not None:
         records += [phase_mixed(f"mixed {qf} x dense", svc,
-                                mixed_batches(cp_queries, qf), qids)[0]
-                    for qf in ("cp", "tt")]
+                                mixed_batches(cp_queries, qf), qids,
+                                (fq.DENSE, qr))[0]
+                    for qf, qr in (("cp", 0), ("tt", 16))]
     del svc, k1_args
     return records, summary
 

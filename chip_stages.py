@@ -31,16 +31,18 @@ hooks (``K1_STAMP``, empty unless defined) gets the macros defined in the
 copy; a source without them (the first dense-query design's) is patched
 at its stage boundaries.
 It runs [main]'s corpus and its first ``K1_BATCHES`` query batches as in
-``chip_smoke.py``: [mixed dense x cp] (dense queries over [main]'s CP
-service, ``<0, kDense>``), then [cp-as-tt] (the corpus converted exactly
-to TT, tt-e2lsh rank 4) under [mixed cp x tt] (the CP queries, ``<4, 0>``)
-and [mixed dense x tt] (densified, ``<4, kDense>``), then the corpus
-densified under [dense-main] (e2lsh) and [dense-cp] (cp-e2lsh; both
-``<kDense, kDense>``). Prints per cell K1's time (CUDA events, the stamped
-build), the stage shares of the summed query cycles, the re-rank's cycles
-a candidate (the block's, and a warp's: the block's times its warps), and
-the launch's timeline: its span, the share of the span the resident
-blocks were busy, and the drain after the last query started.
+``chip_smoke.py``: [mixed dense x cp] and [mixed tt x cp] (dense queries
+and TT ones, the CP queries converted exactly, over [main]'s CP service),
+then [cp-as-tt] (the corpus converted exactly to TT, tt-e2lsh rank 4) under
+[mixed cp x tt] (the CP queries) and [mixed dense x tt] (densified), then
+the corpus densified under [dense-main] (e2lsh, with [mixed cp x dense] and
+[mixed tt x dense] on its service) and [dense-cp] (cp-e2lsh). Each cell
+runs the instantiation the tree's own plan picks (``instance``). Prints
+per cell K1's instantiation and time (CUDA events, the stamped build), the
+stage shares of the summed query cycles, the re-rank's cycles a candidate
+(the block's, and a warp's: the block's times its warps), and the
+launch's timeline: its span, the share of the span the resident blocks
+were busy, and the drain after the last query started.
 
     python3 chip_stages.py --k1 --cells "mixed cp x tt,mixed dense x tt" TREE
 
@@ -311,8 +313,9 @@ extern "C" int {name}(void* host, size_t bytes) {{
 """
 K1_BATCHES = 8
 # the cells --k1 stamps, in order
-K1_CELLS = ("mixed dense x cp", "mixed cp x tt", "mixed dense x tt", "dense-main",
-            "dense-cp")
+K1_CELLS = ("mixed dense x cp", "mixed tt x cp", "mixed cp x tt",
+            "mixed dense x tt", "dense-main", "mixed cp x dense",
+            "mixed tt x dense", "dense-cp")
 
 
 def stamp_k1(cuh: str) -> tuple[str, str]:
@@ -347,16 +350,15 @@ def stamp_k1(cuh: str) -> tuple[str, str]:
     ]), "first"
 
 
-def k1_warps(fq, table, pair) -> int:
-    """Warps of K1's block for a launch over ``table``, by the tree's own
-    plan (older trees pick a cross pair's instantiation without the
-    TT operand's modes and dims)."""
+def k1_instance(fq, table, pair) -> tuple[int, int]:
+    """(TR, QR) of K1's instantiation for a launch over ``table``, by the
+    tree's own plan (older trees pick a cross pair's instantiation without
+    the CP or TT operand's modes and dims)."""
     key = (table.layout, pair.q_layout, pair.rq, table.rc)
     try:
-        key = fq.instance(*key, table.n_modes, table.d)
+        return fq.instance(*key, pair.n_modes, pair.d)
     except TypeError:
-        key = fq.instance(*key)
-    return fq.SHAPES[key][0] // 32
+        return fq.instance(*key)
 
 
 def k1_one(tree: str, index: int, cells=None, stamped=True) -> None:
@@ -409,14 +411,22 @@ def k1_one(tree: str, index: int, cells=None, stamped=True) -> None:
     cp_queries = [cs.make_queries(corpus, q, gen) for q in qids]
     queries = [cs.densify(q) for q in cp_queries]
 
-    def run(tag, c, data, reader, mangled, batches=queries):
-        if cells is not None and tag not in cells:
+    def run(tag, c, data, batches=queries, more=()):
+        """Stamp ``tag`` on a ``c`` service over ``data``, then each of
+        ``more`` ((tag, query batches)) on the same service."""
+        if cells is not None and not {tag, *(m[0] for m in more)} & cells:
             return
         svc = build_service(torch.Generator(device="cuda").manual_seed(1),
                             c["kind"], c["dims"], data,
                             num_codes=c["codes"], num_tables=c["tables"],
                             rank=c["rank"], bucket_width=c["width"],
                             device="cuda")
+        for t, b in ((tag, batches), *more):
+            if cells is None or t in cells:
+                stamp(t, svc, b)
+        del svc
+
+    def stamp(tag, svc, batches):
         idx, fam = svc.index, svc.index.family
         view = idx.store.view
         kernel, _, _ = cs.k1_entry(view)
@@ -424,6 +434,10 @@ def k1_one(tree: str, index: int, cells=None, stamped=True) -> None:
                   num_tables=fam.num_tables, num_codes=fam.num_codes,
                   metric=idx.metric, topk=cs.TOPK, probes=1)
         qss = [q.stack() for q in batches]
+        pair = fq.pair_shape(view.k1_table, qss[0])
+        tr, qr = k1_instance(fq, view.k1_table, pair)
+        mangled = f"ILi{tr}ELi{qr}E"
+        reader = "stages_k1_read" if tr == qr else "stages_k1m_read"
         vals = [fam.raw_stacked(q[1], q[0].scale) for q in qss]
         args = [(v, fam.offsets, idx._mults_t, q) for v, q in zip(vals, qss)]
         ms = cs.cuda_ms([lambda a=a: kernel(*a, **kw) for a in args],
@@ -433,7 +447,8 @@ def k1_one(tree: str, index: int, cells=None, stamped=True) -> None:
         b = vals[0].shape[0]
         if not stamped:
             print("STAGES " + json.dumps(dict(
-                tree=tree, form=form, kernel="K1", cell=tag, queries=b,
+                tree=tree, form=form, kernel="K1", cell=tag,
+                instance=[tr, qr], queries=b,
                 ms=ms, registers=[v for k, v in regs.items() if mangled in k],
                 spill_stores=[v for k, v in spills.items() if mangled in k],
                 candidates_mean=float(ncand.double().mean()),
@@ -447,7 +462,6 @@ def k1_one(tree: str, index: int, cells=None, stamped=True) -> None:
         total = sum(r[5] for r in rows)
         shares = {f: sum(r[i] for r in rows) / total
                   for i, f in enumerate(K1_FIELDS)}
-        pair = fq.pair_shape(view.k1_table, qss[0])
         _, _, smem = fq.launch_plan(view.k1_table, pair.rq,
                                     num_tables=kw["num_tables"], probes=1,
                                     topk=kw["topk"], expansion=0, pair=pair)
@@ -458,10 +472,11 @@ def k1_one(tree: str, index: int, cells=None, stamped=True) -> None:
         span = ends[-1] - starts[0]
         busy = sum(r[7] - r[6] for r in rows)
         nc = ncand.double()
-        warps = k1_warps(fq, view.k1_table, pair)
+        warps = fq.SHAPES[tr, qr][0] // 32
         per_cand = sum(r[3] for r in rows) / max(float(nc.sum()), 1.0)
         print("STAGES " + json.dumps(dict(
-            tree=tree, form=form, kernel="K1", cell=tag, queries=b, ms=ms,
+            tree=tree, form=form, kernel="K1", cell=tag, instance=[tr, qr],
+            queries=b, ms=ms,
             registers={k: v for k, v in regs.items() if mangled in k},
             spill_stores=[v for k, v in spills.items() if mangled in k],
             blocks_per_sm=occ["blocks_per_sm"], smem=smem,
@@ -474,28 +489,31 @@ def k1_one(tree: str, index: int, cells=None, stamped=True) -> None:
             busy_share=busy / (span * min(slots, b)),
             drain_us=(ends[-1] - starts[-1]) / 1e3,
             shares=shares)), flush=True)
-        del svc
 
-    run("mixed dense x cp", cell, corpus, "stages_k1m_read",
-        "ILi0ELi1E")
+    from repro_torch.core.tensor_formats import cp_to_tt
+    tt_queries = [cp_to_tt(q) for q in cp_queries]
+    run("mixed dense x cp", cell, corpus,
+        more=(("mixed tt x cp", tt_queries),))
     if cells is None or {"mixed cp x tt", "mixed dense x tt"} & cells:
-        from repro_torch.core.tensor_formats import cp_to_tt
         tt = cp_to_tt(corpus)
         c = dict(cs.CP_AS_TT, dims=cell["dims"])
-        run("mixed cp x tt", c, tt, "stages_k1m_read", "ILi4ELi0E",
-            cp_queries)
-        run("mixed dense x tt", c, tt, "stages_k1m_read", "ILi4ELi1E")
+        run("mixed cp x tt", c, tt, cp_queries)
+        run("mixed dense x tt", c, tt)
         del tt
         torch.cuda.empty_cache()
-    tags = {cs.DENSE[key]["tag"]: key for key in ("main", "cp")}
-    if cells is not None and not set(tags) & cells:
+    dense_cells = {"dense-main", "mixed cp x dense", "mixed tt x dense",
+                   "dense-cp"}
+    if cells is not None and not dense_cells & cells:
         return
     dense = cs.densify(corpus)
     del corpus
     torch.cuda.empty_cache()
-    for tag, key in tags.items():
-        run(tag, cs.DENSE[key], dense, "stages_k1_read", "ILi1ELi1E")
-        torch.cuda.empty_cache()
+    run("dense-main", cs.DENSE["main"], dense,
+        more=(("mixed cp x dense", cp_queries),
+              ("mixed tt x dense", tt_queries)))
+    torch.cuda.empty_cache()
+    run("dense-cp", cs.DENSE["cp"], dense)
+    torch.cuda.empty_cache()
 
 
 def launch_shape(form, name, b, dims, rhat, rank, sms):

@@ -12,7 +12,7 @@ namespace {
 // where none is (tr, qr)).
 struct ShapeOf {
   int threads, min_blocks, per_warp, buffers;
-  bool tt_pair;
+  bool tt_pair, one_state;
 };
 
 ShapeOf shape_of(int tr, int qr) {
@@ -20,29 +20,30 @@ ShapeOf shape_of(int tr, int qr) {
   if (tr == TR && qr == QR)                                             \
     return {Shape<TR, QR>::threads, Shape<TR, QR>::min_blocks,          \
             Shape<TR, QR>::per_warp, Shape<TR, QR>::buffers,            \
-            Shape<TR, QR>::tt_pair};
+            Shape<TR, QR>::tt_pair, Shape<TR, QR>::one_state};
   K1_SAME_PAIRS(K1_SHAPE)
   K1_MIXED_PAIRS(K1_SHAPE)
 #undef K1_SHAPE
-  return {0, 0, 0, 0, false};
+  return {0, 0, 0, 0, false, false};
 }
 
 }  // namespace
 
 // Shared memory of one K1 block (fused_query.py's smem_bytes plans with the
 // same sum, and fused_query_launch refuses a plan that differs): with ring
-// (dense rows of at most kRingRow whole float4s) a ring slot a warp and its
-// mbarrier (8 bytes), Shape::buffers row buffers a warp for each candidate
-// it scores at once (rows of ranks above 8, TT rows a cross pair's <16, QR>
-// takes and dense rows are read in place), the warps' lists and the merged
-// top-k (8 bytes a rank each), the region of the hash set and the
-// candidate list (3 * wcap ids) or the expansion's per-warp scores and
-// deltas (C of each), the query's row (a dense one, or a CP / TT query's
-// densified row over dense rows, only up to kDenseStage floats), the TT
-// chain states a warp (none for tt_pair, which keeps them in registers),
-// four per-(table, probe) integer arrays. fmt / qfmt:
-// the corpus's / the queries' format, 0 CP, 1 TT, 2 dense; DF the dense
-// operand's row of a cross-format pair (prod d).
+// (dense rows of at most kRingRow whole float4s, for queries of any format)
+// a ring slot a warp and its mbarrier (8 bytes), Shape::buffers row buffers
+// a warp for each candidate it scores at once (rows of ranks above 8, TT
+// rows a cross pair's <16, QR> takes and dense rows are read in place), the
+// warps' lists and the merged top-k (8 bytes a rank each), the region of
+// the hash set and the candidate list (3 * wcap ids) or the expansion's
+// per-warp scores and deltas (C of each), the query's row (a dense one, or
+// a CP / TT query's densified row over dense rows, only up to kDenseStage
+// floats), the TT chain states a warp (none for tt_pair, which keeps them
+// in registers; one for the block where only the query's own chain needs
+// one: Shape::one_state), four per-(table, probe) integer arrays. fmt /
+// qfmt: the corpus's / the queries' format, 0 CP, 1 TT, 2 dense; DF the
+// dense operand's row of a cross-format pair (prod d).
 extern "C" size_t fused_query_smem_bytes(int LT, int N, int D, int RQ,
                                          int RC, int wcap, int fmt, int qfmt,
                                          int topk, int C, int DF, int ring) {
@@ -71,12 +72,13 @@ extern "C" size_t fused_query_smem_bytes(int LT, int N, int D, int RQ,
       same ? (tt ? 2 * (size_t)max(RQ * RC + RC * RC, RQ * RQ) : 0)
       : sh.tt_pair ? 0
       : tt ? 2 * (size_t)max(qdense ? 0 : RQ * RC, RC * RC)
-      : qtt ? 2 * (size_t)max(dense ? 0 : RQ * RC, RQ * RQ) : 0;
+      : qtt ? 2 * (size_t)max(sh.one_state ? 0 : RQ * RC, RQ * RQ) : 0;
+  const size_t nsw = sh.one_state ? 1 : nw;
   size_t rw = max((size_t)3 * wcap, nw * 2 * (size_t)C);
   rw = (rw + 3) & ~(size_t)3;
-  const size_t rs = ring && same && dense ? (size_t)ring_slot(D) : 0;
+  const size_t rs = ring && dense ? (size_t)ring_slot(same ? D : DF) : 0;
   const size_t slots = rs ? nw * (rs + 2) : 0;
-  return (slots + nw * sh.buffers * sh.per_warp * fc + fq + nw * sw + rw) *
+  return (slots + nw * sh.buffers * sh.per_warp * fc + fq + nsw * sw + rw) *
              4 +
          (nw + 1) * topk * 8 +
          (size_t)(4 * LT + 1) * 4;
@@ -125,7 +127,8 @@ extern "C" int fused_query_launch(
   // the caller sized the window with its own copy of the block's shape and
   // shared bytes (with the dense rows' ring or without it): a launch
   // planned with others is refused
-  const bool ring = same && fmt == 2 && ring_slot(D) &&
+  const int row = same ? D : DF;  // a dense corpus's row
+  const bool ring = fmt == 2 && ring_slot(row) &&
                     smem == fused_query_smem_bytes(L * T, N, D, RQ, RC, wcap,
                                                    fmt, qfmt, topk, C, DF, 1);
   const ShapeOf sh = shape_of(tr, qr);
@@ -138,7 +141,7 @@ extern "C" int fused_query_launch(
                  e2, euclid, w, qs, wcap, static_cast<uint32_t*>(scratch),
                  scap, static_cast<unsigned long long*>(scratch_queries),
                  static_cast<float*>(qscratch), dims, DF,
-                 ring ? ring_slot(D) : 0};
+                 ring ? ring_slot(row) : 0};
   if (!same) return fused_query_mixed_launch(tr, qr, a, smem, st);
   switch (tr) {
     case 0: return launch<0, 0>(a, smem, st);

@@ -20,8 +20,9 @@
 // live[m] is 0, so a probe that lands on one, even through a pad-key
 // collision, is a miss like a tombstone; effective ids are unique across
 // shards, so the top-k over the rows is the reference's S-way merge. One
-// block serves one query (12 warps for CP, dense rows and dense queries over
-// CP rows, 8 for TT and the other pairs: Shape below):
+// block serves one query (12 warps for CP, dense rows with queries of any
+// format, dense queries over CP rows and the TT and CP pair branches, 8 for
+// TT and the other pairs: Shape below):
 //
 //   1. keys, one warp per table: discretize the table's K raw values
 //      (floor((v + b) / w) or v > 0) and radix-combine them into the base
@@ -140,11 +141,18 @@
 // same code, only the prologue and stage 4 differ). qq is computed in the
 // query's format (CP Grams, the TT chain or a dot) once per block, yy in the
 // corpus's by the corpus branch's own code, qy across the two:
-//   * CP or TT query x dense rows: the block densifies its query once in the
-//     prologue (each entry sum_r prod_n A_n[i_n, r], or the TT chain's row
-//     vector through the cores), into the staged query row while it holds
-//     at most kDenseStage floats, else into the query's row of a global
-//     scratch; the dense branch's dense_dots then scores the rows unchanged;
+//   * CP or TT query x dense rows (<kDense, 0>, <kDense, 16>): the block
+//     densifies its query once in the prologue (each entry sum_r prod_n
+//     A_n[i_n, r]; for a TT query prefix by prefix, densify_tt: a prefix's
+//     row vector through the first N - 1 cores once, then its d_N entries,
+//     each with the first design's FMAs in their order), into the staged
+//     query row while it holds at most kDenseStage floats, else into the
+//     query's row of a global scratch, while the last warp forms qq beside
+//     the keys (the first design ran a whole chain per entry, 16 x 16
+//     predicated FMAs a mode, and the TT chain for qq on warp 0 after them:
+//     67% of a [mixed tt x dense] launch's cycles, chip_stages.py --k1);
+//     the rows are then scored as the dense instantiation scores them (ring
+//     slots, 12 warps), so the scores are the first design's bit for bit;
 //   * dense query x CP rows (inner_dense_cp): the reference's order, mode 1
 //     first, as a register-tiled product (dense_cp_sweep), two candidates a
 //     warp and 12 warps a block (80 registers, none spilled): the query row
@@ -177,14 +185,24 @@
 //     decoded by division, the query read at a stride of d_N): 28k cycles
 //     a candidate a warp, and a launch ended with its heaviest query (837
 //     candidates, 10x the mean);
+//   * TT queries of ranks <= 4 over CP rows of at most kCPPairRow floats
+//     (cp_pair, <0, 4>): cp_tt_half with the roles swapped (inner_cp_tt(row,
+//     query)): the staged CP row is the CP operand (its ranks in chunks of
+//     four), the query's cores, staged once in qf, the TT one; 12 warps,
+//     two rows a warp, a row a half-warp (yy by its Grams on the half), the
+//     next pair's rows staged into the warp's second buffer while these are
+//     scored; qq by the last warp beside the keys. The first design (<0,
+//     16>) stepped cp_tt_chain a row a warp on 8 warps: 16.7k cycles a
+//     candidate a warp, the re-rank 75% of the cycles, and the prologue,
+//     where warp 0 ran qq's chain through its rank-16 template, 16%;
 //   * TT rows of ranks 5-16, or longer than kTTPairRow (<16, 0>, <16,
 //     kDense>, rows read in place): dense queries, lanes
 //     take prefixes, each the chain's row vector through the first N - 1
 //     cores, then the last core's d entries against the query's; CP
-//     queries, and TT queries over CP rows (<0, 16>), one warp steps an
-//     (R^ x r) state through the modes, S'[q][e] = sum_i A[i][q] sum_x
-//     S[q][x] G[x][i][e], in the TT branch's state buffer, then sums
-//     S[q][0].
+//     queries, and TT queries of ranks 5-16 or over longer CP rows (<0,
+//     16>), one warp steps an (R^ x r) state through the modes, S'[q][e] =
+//     sum_i A[i][q] sum_x S[q][x] G[x][i][e], in the TT branch's state
+//     buffer, then sums S[q][0].
 // The others score one candidate a warp (8 warps, 2 blocks a SM). The
 // bound is the same bytes as the same-format branches plus the reference's
 // operations a candidate: its left-to-right sweeps over the dense operand, sum_k 2 R prod_{j>=k} d_j for dense x CP and
@@ -263,6 +281,12 @@ constexpr int kMaxModes = 16;
 // leaves room at two blocks a SM for the window, the lists and the query
 // row; longer rows go to <16, QR>, which reads them in place
 constexpr int kTTPairRow = 1024;
+// the longest CP row (floats, N * D * RC) that TT queries of ranks <= 4 over
+// CP rows stage (cp_pair, <0, 4>): 48 such rows (12 warps, two rows a warp,
+// two buffers) are 48 KiB, which leaves room at two blocks a SM for the
+// window, the lists and the query's cores (at most 16 * N * D floats);
+// longer rows go to <0, 16>, which stages one row a warp
+constexpr int kCPPairRow = 256;
 // Threads of one query's block, the blocks per SM each instantiation is
 // built for (its __launch_bounds__; the wrapper sizes the shared window so
 // that they fit) and the candidates a warp scores at once: CP 12 warps, 2
@@ -273,19 +297,28 @@ constexpr int kTTPairRow = 1024;
 // read in place). A cross-format pair (QR != TR): 2 blocks; 8 warps, two
 // dense rows at once or one CP / TT row; dense queries over CP rows 12
 // warps (80 registers), two CP rows a warp; CP or dense queries over TT rows
-// of ranks <= 4 and at most kTTPairRow floats (tt_pair) 12 warps, two TT rows a warp staged in one buffer
-// (buffers: the row buffers a warp keeps for each candidate it scores, two
-// where the next rows are staged while the current ones are scored).
+// of ranks <= 4 and at most kTTPairRow floats (tt_pair) 12 warps, two TT rows
+// a warp staged in one buffer; TT queries of ranks <= 4 over CP rows of at
+// most kCPPairRow floats (cp_pair, <0, 4>) 12 warps, two CP rows a warp in
+// two buffers; CP or TT queries over dense rows the dense instantiation's
+// shape (buffers: the row buffers a warp keeps for each candidate it scores,
+// two where the next rows are staged while the current ones are scored;
+// one_state: the block keeps one TT chain state, the query's own, and not
+// one a warp).
 template <int TR, int QR>
 struct Shape {
   static constexpr bool same = TR == QR;
   static constexpr bool tt_pair = !same && TR == 4;
+  static constexpr bool cp_pair = TR == 0 && QR == 4;
+  static constexpr bool one_state = !same && QR > kDense &&
+                                    (TR == kDense || cp_pair);
   static constexpr int per_warp =
-      same ? (TR == 0 ? 2 : 1)
-           : TR == kDense || (TR == 0 && QR == kDense) || tt_pair ? 2 : 1;
+      TR == kDense ? 1
+      : same ? (TR == 0 ? 2 : 1)
+      : (TR == 0 && QR == kDense) || tt_pair || cp_pair ? 2 : 1;
   static constexpr int threads =
-      (same && (TR == 0 || TR == kDense)) || (TR == 0 && QR == kDense) ||
-              tt_pair
+      (same && TR == 0) || TR == kDense || (TR == 0 && QR == kDense) ||
+              tt_pair || cp_pair
           ? 384
           : 256;
   static constexpr int min_blocks = !same ? 2
@@ -301,7 +334,7 @@ struct Shape {
 #define K1_SAME_PAIRS(X) X(0, 0) X(kDense, kDense) X(4, 4) X(8, 8) X(16, 16)
 #define K1_MIXED_PAIRS(X) \
   X(kDense, 0) X(kDense, 16) X(0, kDense) X(4, kDense) X(16, kDense) \
-  X(4, 0) X(16, 0) X(0, 16)
+  X(4, 0) X(16, 0) X(0, 4) X(0, 16)
 
 // Floats of a dense instantiation's ring slot for rows of D floats: D where
 // the rows are whole float4s of at most kRingRow floats, else 0 (no ring:
@@ -447,6 +480,25 @@ __device__ __noinline__ void tt_chains_far(const float* a1, int ra1,
                                            int D, float* st, int lane,
                                            float* v1, float* v2) {
   tt_chains<TR>(a1, ra1, b1, rb1, a2, ra2, b2, rb2, N, D, st, lane, v1, v2);
+}
+
+// <X, X> of a TT query x (N, R, D, R), its stacked rank R at most QR, by one
+// warp (tt_chains from e_00, scale not applied, st: 2 R^2 floats): through
+// tt_chains<4> (a register tile) for R <= 4, else tt_chains<QR>. Both do
+// the same FMAs on the nonzero terms in the same order, and the padded
+// terms add exact zeros (x + 0 * y) to sums that start at +0 and so are
+// never -0, which leaves them unchanged: the same value bit for bit.
+template <int QR>
+__device__ float query_chain(const float* x, int R, int N, int D, float* st,
+                             int lane) {
+  float t, unused;
+  if (QR == 4 || R <= 4)
+    tt_chains<4>(x, R, x, R, nullptr, 0, nullptr, 0, N, D, st, lane, &t,
+                 &unused);
+  else
+    tt_chains<QR>(x, R, x, R, nullptr, 0, nullptr, 0, N, D, st, lane, &t,
+                  &unused);
+  return t;
 }
 
 // The 64-bit selection key (order_key_bits(score) << 32) | eff of a
@@ -688,6 +740,30 @@ __device__ unsigned long long topk_insert(unsigned long long* wl, int topk,
   return wl[topk - 1];
 }
 
+// A pair branch's two candidates into the warp's list: t and tyy the qy
+// and yy of the half-warps' rows (lanes 0-15 the first, 16-31 the second),
+// eff0 / eff1 their effective ids (the second dropped unless two). qq, the
+// scales (s[0] s_qy, s[1] s_yy) and the list's last key are read from
+// shared memory here rather than held in registers through the scoring.
+__device__ __forceinline__ void select_pair(float t, float tyy, int eff0,
+                                            int eff1, bool two,
+                                            const float& qq, const float* s,
+                                            int euclid,
+                                            unsigned long long* wl, int topk,
+                                            int lane) {
+  const float qy[2] = {__shfl_sync(kFull, t, 0), __shfl_sync(kFull, t, 16)};
+  const float yy[2] = {__shfl_sync(kFull, tyy, 0),
+                       __shfl_sync(kFull, tyy, 16)};
+  const int effs[2] = {eff0, eff1};
+#pragma unroll
+  for (int k = 0; k < 2; ++k) {
+    if (k == 1 && !two) break;
+    const unsigned long long key =
+        select_key(qq, qy[k], yy[k], s[0], s[1], euclid, effs[k]);
+    if (key < wl[topk - 1]) topk_insert(wl, topk, key, lane);
+  }
+}
+
 // The number of keys of the ascending list a[0, n) below x (or at most x:
 // the pads, equal keys, of lists merged earlier rank first).
 __device__ __forceinline__ int count_below(const unsigned long long* a, int n,
@@ -872,33 +948,57 @@ __device__ __forceinline__ void tt_row_step(float* v, const float* g, int R,
   for (int c = 0; c < B; ++c) v[c] = nv[c];
 }
 
-// The whole block densifies one query row into out[0, DF), scale not
-// applied: a CP row (N, D, R) (QR = 0; each entry sum_r prod_n A_n[i_n, r])
-// or a TT row (N, R, D, R) (ranks at most QR; each entry the chain's row
-// vector e_0^T G_1[:, i_1, :] ... G_N[:, i_N, :] e_0).
-template <int QR, int kThreads>
-__device__ void densify_query(const float* x, int R, int N, int D,
-                              const int* dims, int DF, float* out, int tid) {
+// The whole block densifies one CP query row (N, D, R) into out[0, DF),
+// scale not applied: each entry sum_r prod_n A_n[i_n, r].
+template <int kThreads>
+__device__ void densify_cp(const float* x, int R, int N, int D,
+                           const int* dims, int DF, float* out, int tid) {
   int ix[kMaxModes];
   for (int p = tid; p < DF; p += kThreads) {
     unravel(p, dims, N, ix);
     float e = 0.f;
-    if constexpr (QR == 0) {
-      for (int r = 0; r < R; ++r) {
-        float prod = x[(size_t)ix[0] * R + r];
-        for (int n = 1; n < N; ++n)
-          prod *= x[((size_t)n * D + ix[n]) * R + r];
-        e += prod;
-      }
-    } else {
-      float v[QR];
-#pragma unroll
-      for (int c = 0; c < QR; ++c) v[c] = c == 0 ? 1.f : 0.f;
-      for (int n = 0; n < N; ++n)
-        tt_row_step<QR>(v, x + (size_t)n * R * D * R, R, D, ix[n]);
-      e = v[0];
+    for (int r = 0; r < R; ++r) {
+      float prod = x[(size_t)ix[0] * R + r];
+      for (int n = 1; n < N; ++n)
+        prod *= x[((size_t)n * D + ix[n]) * R + r];
+      e += prod;
     }
     out[p] = e;
+  }
+}
+
+// The whole block densifies one TT query row (N, R, D, R), ranks at most B,
+// into out[0, DF), scale not applied, prefix by prefix: thread t takes the
+// prefixes p = (i_1 .. i_{N-1}) = t, t + kThreads, ..., forms the chain's
+// row vector v = e_0^T G_1[:, i_1, :] ... G_{N-1}[:, i_{N-1}, :] once
+// (tt_row_step, loops bounded by the stacked rank R, the cores read from
+// global memory), then the last mode's d_N entries v^T G_N[:, j, 0],
+// each the FMAs of the chain's last step that reach its component 0, in
+// their order. Each entry takes the same FMAs in the same order as a chain
+// of its own from e_0 (the first design's), so the row is the same bit for
+// bit; a prefix's N - 1 steps are shared by its d_N entries.
+template <int B, int kThreads>
+__device__ void densify_tt(const float* x, int R, int N, int D,
+                           const int* dims, int DF, float* out, int tid) {
+  const int dl = __ldg(dims + N - 1);
+  const size_t core = (size_t)R * D * R;
+  const float* const gl = x + (N - 1) * core;
+  int ix[kMaxModes];
+  for (int p = tid; p < DF / dl; p += kThreads) {
+    unravel(p, dims, N - 1, ix);
+    float v[B];
+#pragma unroll
+    for (int c = 0; c < B; ++c) v[c] = c == 0 ? 1.f : 0.f;
+    for (int n = 0; n < N - 1; ++n)
+      tt_row_step<B>(v, x + n * core, R, D, ix[n]);
+    float* const o = out + (size_t)p * dl;
+    for (int j = 0; j < dl; ++j) {
+      float e = 0.f;
+#pragma unroll
+      for (int a = 0; a < B; ++a)
+        if (a < R) e = fmaf(v[a], __ldg(gl + ((size_t)a * D + j) * R), e);
+      o[j] = e;
+    }
   }
 }
 
@@ -1340,14 +1440,17 @@ fused_query_kernel(
   // a CP or TT query over dense rows, densified in the prologue
   constexpr bool densify = !same && dense;
   // rows of ranks > 8 and dense rows are read in place, the latter through
-  // the warps' ring slots where they fit one; the dense-row instance also
-  // searches a bucket's two bounds at once and merges the warps' lists by
-  // flat ranks
+  // the warps' ring slots where they fit one; the dense-row instances (any
+  // query format) also search a bucket's two bounds at once and merge the
+  // warps' lists by flat ranks
   constexpr bool stage_rows = !dense && TR <= 8;
-  constexpr bool ring_rows = same && dense;
+  constexpr bool ring_rows = dense;
   // CP or dense queries over TT rows of ranks <= 4: two rows a warp, a row
   // a half-warp, staged in one buffer
   constexpr bool tt_pair = Shape<TR, QR>::tt_pair;
+  // TT queries of ranks <= 4 over CP rows: two rows a warp, a row a
+  // half-warp, staged in two buffers
+  constexpr bool cp_pair = Shape<TR, QR>::cp_pair;
   constexpr int kBufs = Shape<TR, QR>::buffers;
   constexpr int kThreads = Shape<TR, QR>::threads;
   constexpr int nwarps = kThreads / 32;
@@ -1365,12 +1468,14 @@ fused_query_kernel(
                     : ((tt ? N * RCMAX * D * RCMAX : N * D * RCMAX) + 3) & ~3;
   // each warp's TT chain states: the same-format pair's two chains, a cross
   // pair's CP x TT state beside the TT operand's own chain (none for a TT
-  // pair branch: its states live in registers)
+  // pair branch: its states live in registers); one_state: only the TT
+  // query's own chain (qq), one for the block
+  constexpr bool one_state = Shape<TR, QR>::one_state;
   const int SW = same ? (tt ? 2 * max(RQ * RCMAX + RCMAX * RCMAX, RQ * RQ)
                             : 0)
                  : tt_pair ? 0
                  : tt ? 2 * max(qdense ? 0 : RQ * RCMAX, RCMAX * RCMAX)
-                 : qtt ? 2 * max(dense ? 0 : RQ * RCMAX, RQ * RQ) : 0;
+                 : qtt ? 2 * max(one_state ? 0 : RQ * RCMAX, RQ * RQ) : 0;
   const int RW = (max(3 * wcap, nwarps * 2 * C) + 3) & ~3;
   // a ring slot a warp (RS floats) and its mbarrier (2 floats' room), first
   const int RS = ring_rows ? RSLOT : 0;
@@ -1384,8 +1489,9 @@ fused_query_kernel(
   unsigned long long* topv = wl_all + nwarps * topk;  // [topk]
   uint32_t* region = reinterpret_cast<uint32_t*>(topv + topk);  // [RW]
   float* qf = reinterpret_cast<float*>(region + RW);  // [FQ]
-  float* sbuf = qf + FQS;                             // [nwarps][SW]
-  uint32_t* qkeys = reinterpret_cast<uint32_t*>(sbuf + nwarps * SW);  // [LT]
+  float* sbuf = qf + FQS;                   // [one_state ? 1 : nwarps][SW]
+  uint32_t* qkeys =
+      reinterpret_cast<uint32_t*>(sbuf + (one_state ? 1 : nwarps) * SW);
   int* starts = reinterpret_cast<int*>(qkeys + LT);   // [LT]
   int* lens = starts + LT;                            // [LT]
   int* woff = lens + LT;                              // [LT + 1]
@@ -1395,7 +1501,7 @@ fused_query_kernel(
   __shared__ int hlog_s;
   __shared__ int scratch_s;
   __shared__ int take_s;  // the ring path's next list entry
-  __shared__ float scale_s[2];  // a TT pair branch's s_qy, s_yy
+  __shared__ float scale_s[2];  // a TT or CP pair branch's s_qy, s_yy
 
   const int b = blockIdx.x;
   const int tid = threadIdx.x;
@@ -1407,8 +1513,15 @@ fused_query_kernel(
   const float* qrow;
   if constexpr (densify) {
     float* const out = FQS ? qf : qscratch + (size_t)b * DF;
-    densify_query<QR, kThreads>(q + (size_t)b * FQ, RQ, N, D, dims, DF, out,
-                                tid);
+    const float* const x = q + (size_t)b * FQ;
+    if constexpr (qtt) {
+      if (RQ <= 4)
+        densify_tt<4, kThreads>(x, RQ, N, D, dims, DF, out, tid);
+      else
+        densify_tt<QR, kThreads>(x, RQ, N, D, dims, DF, out, tid);
+    } else {
+      densify_cp<kThreads>(x, RQ, N, D, dims, DF, out, tid);
+    }
     qrow = out;
   } else {
     for (int i = tid; i < FQS; i += kThreads) qf[i] = q[(size_t)b * FQ + i];
@@ -1501,12 +1614,26 @@ fused_query_kernel(
       __syncwarp();
     }
   }
+  // qq of a CP or TT query over dense rows, or of a TT query over CP rows
+  // in the CP pair branch: once per query, in the query's format, from its
+  // row as given, by the last warp (which L < nwarps tables leave idle)
+  // beside the keys
+  constexpr bool early_qq = densify || cp_pair;
+  if constexpr (early_qq) {
+    if (warp == nwarps - 1) {
+      const float* const qown = q + (size_t)b * FQ;
+      float t;
+      if constexpr (qtt)
+        t = query_chain<QR>(qown, RQ, N, D, sbuf, lane);
+      else
+        t = cp_self(qown, RQ, N, D, lane);
+      if (lane == 0) qq_s = scale_mul((float)(qs * qs), t);
+    }
+  }
   __syncthreads();
-  if (warp == 0) {  // qq once per query, in the query's format
+  if (!early_qq && warp == 0) {  // qq once per query, in the query's format
     float t = 0.f;
     if constexpr (!same) {
-      // a densified query's own row is read where it was given
-      const float* const qown = densify ? q + (size_t)b * FQ : qf;
       float unused;
       if constexpr (qdense) {
         const float* qa[1] = {qrow};
@@ -1514,10 +1641,10 @@ fused_query_kernel(
                           (reinterpret_cast<uintptr_t>(qrow) & 15) == 0;
         dense_dots<1, false>(qrow, qa, DF, qvec, lane, &unused, &t);
       } else if constexpr (qtt) {
-        tt_chains<QR>(qown, RQ, qown, RQ, nullptr, 0, nullptr, 0, N, D,
-                      sbuf, lane, &t, &unused);
+        tt_chains<QR>(qf, RQ, qf, RQ, nullptr, 0, nullptr, 0, N, D, sbuf,
+                      lane, &t, &unused);
       } else {
-        t = cp_self(qown, RQ, N, D, lane);
+        t = cp_self(qf, RQ, N, D, lane);
       }
     } else if constexpr (dense) {
       const float* qa[1] = {qrow};
@@ -1584,7 +1711,7 @@ fused_query_kernel(
     if (tid == 0) {
       ncand_s = 0;
       take_s = 0;
-      if constexpr (tt_pair) {
+      if constexpr (tt_pair || cp_pair) {
         scale_s[0] = (float)(qs * g.cs);
         scale_s[1] = (float)(g.cs * g.cs);
       }
@@ -1703,22 +1830,61 @@ fused_query_kernel(
           t = RC == 4 ? cp_tt_half<true>(qf, RQ, mine, RC, N, D, h)
                       : cp_tt_half<false>(qf, RQ, mine, RC, N, D, h);
         }
-        const float qy[2] = {__shfl_sync(kFull, t, 0),
-                             __shfl_sync(kFull, t, 16)};
-        const float yy[2] = {__shfl_sync(kFull, tyy, 0),
-                             __shfl_sync(kFull, tyy, 16)};
-        const int effs[2] = {eff0, eff1};
-        // qq, the scales and the list's last key read from shared memory
-        // here rather than held in registers through the scoring
-#pragma unroll
-        for (int k = 0; k < 2; ++k) {
-          if (k == 1 && !two) break;
-          const unsigned long long key = select_key(
-              qq_s, qy[k], yy[k], scale_s[0], scale_s[1], euclid, effs[k]);
-          if (key < wl[topk - 1]) topk_insert(wl, topk, key, lane);
-        }
+        select_pair(t, tyy, eff0, eff1, two, qq_s, scale_s, euclid, wl,
+                    topk, lane);
         __syncwarp();  // both rows are read before the next pair is staged
       }
+      K1_STAMP(3)
+      continue;
+    }
+    if constexpr (cp_pair) {
+      // TT queries of ranks <= 4 over CP rows: the warp takes list entries
+      // j, j + 1, then j + 2 * nwarps, ..., stages the next pair's rows into
+      // its other buffer while it scores these (a missing second row leaves
+      // its half a buffer's old contents, and its score is dropped), a row a
+      // half-warp: yy by the row's Grams (its (r, q) terms on the half), qy
+      // by cp_tt_half with the roles swapped (inner_cp_tt(row, query): the
+      // staged CP row is the CP operand, the query's cores in qf the TT one)
+      static_assert(G == 2 && kBufs == 2, "a CP pair branch double-buffers "
+                                          "two rows a warp");
+      const int h = lane & 15;
+      // a rank-4 query's rank rows are 16-byte loads where qf is aligned
+      const bool qv4 = RQ == 4 && (reinterpret_cast<uintptr_t>(qf) & 15) == 0;
+      int j = warp * 2;
+      if (j < n_cand) {
+        stage_row(yb, g.c + (size_t)cl[j] * FC, FC, vec, lane);
+        if (j + 1 < n_cand)
+          stage_row(yb + FCMAX, g.c + (size_t)cl[j + 1] * FC, FC, vec, lane);
+      }
+      cp_async_commit();
+      for (int half = 0; j < n_cand; j += 2 * nwarps, half ^= 1) {
+        const int jn = j + 2 * nwarps;
+        float* const next = yb + (half ^ 1) * 2 * FCMAX;
+        if (jn < n_cand) {
+          stage_row(next, g.c + (size_t)cl[jn] * FC, FC, vec, lane);
+          if (jn + 1 < n_cand)
+            stage_row(next + FCMAX, g.c + (size_t)cl[jn + 1] * FC, FC, vec,
+                      lane);
+        }
+        cp_async_commit();
+        const bool two = j + 1 < n_cand;
+        const int eff0 = __ldg(g.eff + cl[j]);
+        const int eff1 = two ? __ldg(g.eff + cl[j + 1]) : 0;
+        cp_async_wait<1>();  // this pair's rows have landed
+        __syncwarp();
+        const float* yh[1] = {yb + (half * 2 + (lane >> 4)) * FCMAX};
+        float tyy = 0.f;
+        for (int p = h; p < RC * RC; p += 16)
+          pair_terms<1>(yh, RC, yh, RC, N, D, p / RC, p % RC, &tyy);
+        for (int o = 8; o > 0; o >>= 1)
+          tyy += __shfl_xor_sync(kFull, tyy, o);
+        const float t = qv4 ? cp_tt_half<true>(yh[0], RC, qf, RQ, N, D, h)
+                            : cp_tt_half<false>(yh[0], RC, qf, RQ, N, D, h);
+        select_pair(t, tyy, eff0, eff1, two, qq_s, scale_s, euclid, wl,
+                    topk, lane);
+        __syncwarp();  // both rows are read before the buffer is staged again
+      }
+      cp_async_wait<0>();
       K1_STAMP(3)
       continue;
     }
@@ -1889,9 +2055,10 @@ fused_query_kernel(
 // qfmt (0 CP, 1 TT, 2 dense), their ranks and the CP / TT operand's N and D:
 // a same-format pair's TR bounds both ranks (0 CP, kDense, 4 / 8 / 16 TT)
 // and QR = TR; a cross-format pair's codes are each operand's own: a TT
-// corpus's 4 for ranks <= 4 and rows of at most kTTPairRow floats, else 16,
-// a TT query's 16 (its chain and its densified row run once a block). -1
-// where no instantiation takes the ranks.
+// corpus's 4 for ranks <= 4 and rows of at most kTTPairRow floats, else 16;
+// a TT query's 4 over CP rows of at most kCPPairRow floats for ranks <= 4,
+// else 16 (over dense rows its chain and its densified row run once a
+// block). -1 where no instantiation takes the ranks.
 inline void instance_of(int fmt, int qfmt, int RQ, int RC, int N, int D,
                         int* tr, int* qr) {
   auto code = [](int f, int r, int least) {
@@ -1901,7 +2068,8 @@ inline void instance_of(int fmt, int qfmt, int RQ, int RC, int N, int D,
   if (fmt != qfmt) {
     *tr = code(fmt, RC, 4);
     if (*tr == 4 && (long long)N * RC * D * RC > kTTPairRow) *tr = 16;
-    *qr = code(qfmt, RQ, 16);
+    *qr = code(qfmt, RQ, *tr == 0 ? 4 : 16);
+    if (*qr == 4 && (long long)N * D * RC > kCPPairRow) *qr = 16;
     return;
   }
   int t = -1;

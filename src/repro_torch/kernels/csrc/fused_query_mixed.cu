@@ -3,8 +3,9 @@
 // built beside fused_query.cu's same-format ones:
 //   <kDense, 0>, <kDense, 16>   CP / TT queries over dense rows
 //   <0, kDense>, <4 | 16, kDense>  dense queries over CP / TT rows
-//   <4 | 16, 0>, <0, 16>        CP queries over TT rows, TT over CP rows
-// (a TT corpus's rank bound 4 or 16, a TT query's 16).
+//   <4 | 16, 0>, <0, 4 | 16>    CP queries over TT rows, TT over CP rows
+// (a TT corpus's rank bound 4 or 16, a TT query's 4 over short CP rows or
+// 16).
 
 #include "fused_query.cuh"
 

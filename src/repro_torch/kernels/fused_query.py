@@ -48,6 +48,7 @@ launches and ``.branches`` (``BranchCounts``) the launches that ran each
 branch ("multiprobe": T > 1, "live_window": a segment with live-window
 lookups, "segments": more than one segment, "mixed:<query>-<corpus>": a
 query batch of another format than the corpus's, e.g. "mixed:dense-cp")
+and each instantiation ("k1:<TR, QR>", ``instance_name``, e.g. "k1:<0, 4>"),
 and the queries that took the scratch ("scratch", counted on the card and
 read from it when asked for);
 ``fused_query_plain.calls`` / ``fused_query_sharded_plain.calls`` count
@@ -81,6 +82,9 @@ MAX_MODES = 16             # most modes of a cross pair with a dense side
 # longest TT row (floats) CP or dense queries over TT rows of ranks <= 4
 # stage (kTTPairRow): longer rows go to TR = 16, which reads them in place
 TT_PAIR_ROW = 1024
+# longest CP row (floats) TT queries of ranks <= 4 over CP rows stage
+# (kCPPairRow): longer rows go to QR = 16, which stages one row a warp
+CP_PAIR_ROW = 256
 # the corpus's and the queries' format codes in the C entries (fmt, qfmt)
 FORMATS = {"cp": 0, "tt": 1, "dense": 2}
 # the six cross-format pairs, (query, corpus) layouts: BranchCounts names
@@ -99,13 +103,15 @@ MIXED_PAIRS = (("dense", "cp"), ("cp", "dense"), ("dense", "tt"),
 SHAPES = {
     (0, 0): (384, 2, 2, 2), (DENSE, DENSE): (384, 2, 1, 2),
     (4, 4): (256, 3, 1, 2), (8, 8): (256, 1, 1, 2), (16, 16): (256, 2, 1, 2),
-    # the cross-format pairs (csrc/fused_query_mixed.cu): 2 blocks; dense
-    # queries over CP rows and CP or dense queries over TT rows of ranks <= 4
-    # 12 warps, two rows a warp (the latter in one buffer), the others 8
-    (DENSE, 0): (256, 2, 2, 2), (DENSE, 16): (256, 2, 2, 2),
+    # the cross-format pairs (csrc/fused_query_mixed.cu): 2 blocks; CP or TT
+    # queries over dense rows the dense instantiation's shape; dense queries
+    # over CP rows, CP or dense queries over TT rows of ranks <= 4 and TT
+    # queries of ranks <= 4 over CP rows 12 warps, two rows a warp (over TT
+    # rows in one buffer), the others 8
+    (DENSE, 0): (384, 2, 1, 2), (DENSE, 16): (384, 2, 1, 2),
     (0, DENSE): (384, 2, 2, 2), (4, DENSE): (384, 2, 2, 1),
     (16, DENSE): (256, 2, 1, 2), (4, 0): (384, 2, 2, 1),
-    (16, 0): (256, 2, 1, 2), (0, 16): (256, 2, 1, 2),
+    (16, 0): (256, 2, 1, 2), (0, 4): (384, 2, 2, 2), (0, 16): (256, 2, 1, 2),
 }
 # the shared window's capacity in slots lies in [MIN_WINDOW, MAX_WINDOW]
 # (or is pow2(L*T*cap) where that is smaller)
@@ -126,7 +132,8 @@ def instance(layout: str, q_layout: str, rq: int, rc: int, n_modes: int,
     ``DENSE`` for dense rows, else the smallest of 4, 8, 16 that bounds both
     TT ranks, and QR = TR; a cross-format pair's codes are each operand's
     own (0 CP, ``DENSE``, a TT corpus's 4 for ranks <= 4 and rows of at most
-    ``TT_PAIR_ROW`` floats, else 16, a TT query's 16)."""
+    ``TT_PAIR_ROW`` floats, else 16; a TT query's 4 over CP rows of at most
+    ``CP_PAIR_ROW`` floats for ranks <= 4, else 16)."""
     code = {"cp": 0, "dense": DENSE}
     if layout == q_layout:
         tr = code.get(layout) if layout in code else next(
@@ -135,7 +142,17 @@ def instance(layout: str, q_layout: str, rq: int, rc: int, n_modes: int,
     tr = code.get(layout, 4 if rc <= 4 else 16)
     if tr == 4 and n_modes * rc * d * rc > TT_PAIR_ROW:
         tr = 16
-    return tr, code.get(q_layout, 16)
+    qr = code.get(q_layout, 16)
+    if tr == 0 and qr == 16 and rq <= 4 and n_modes * d * rc <= CP_PAIR_ROW:
+        qr = 4
+    return tr, qr
+
+
+def instance_name(tr: int, qr: int) -> str:
+    """An instantiation's name as the CUDA source writes it, e.g.
+    ``<0, 4>`` or ``<kDense, 16>``."""
+    name = {DENSE: "kDense"}
+    return f"<{name.get(tr, tr)}, {name.get(qr, qr)}>"
 
 
 def ring_slot(d: int) -> int:
@@ -181,13 +198,14 @@ def smem_bytes(num_tables: int, n_modes: int, d: int, rq: int, rc: int,
     with ``ring`` (rows of at most ``RING_ROW`` whole float4s: ``ring_plan``)
     a ring slot a warp and its 8-byte mbarrier (``ring_slot``).
     Queries of another layout (``q_layout``; ``n_modes`` and ``d`` are then
-    the CP or TT operand's, ``df`` = prod d the dense operand's row): 8
-    warps, one candidate a warp (two dense rows; dense queries over CP rows
-    and CP or dense queries over TT rows of ranks <= 4: 12 warps, two
-    rows), the query row as given or, over dense rows, densified (a row
-    with a dense side staged up to ``DENSE_STAGE`` floats), and the chain
-    states of the pair's TT operand (none over TT rows of ranks <= 4: those
-    states live in registers)."""
+    the CP or TT operand's, ``df`` = prod d the dense operand's row): the
+    instantiation's warps and rows (``SHAPES``), the query row as given or,
+    over dense rows, densified (a row with a dense side staged up to
+    ``DENSE_STAGE`` floats; over dense rows with ``ring`` a ring slot a warp
+    for rows of ``df`` floats), and the chain states of the pair's TT
+    operand (none over TT rows of ranks <= 4: those states live in
+    registers; one for the block where only a TT query's own chain needs
+    one: over dense rows, and over CP rows of ``CP_PAIR_ROW`` floats)."""
     layout = "tt" if tt else "dense" if dense else "cp"
     ql = q_layout or layout
     tr, qr = instance(layout, ql, rq, rc, n_modes, d)
@@ -204,21 +222,24 @@ def smem_bytes(num_tables: int, n_modes: int, d: int, rq: int, rc: int,
     if dense_side and fq > DENSE_STAGE:
         fq = 0
     # each warp's chain states: a same-format pair's two TT chains; a cross
-    # pair's CP x TT state beside its TT operand's own chain
+    # pair's CP x TT state beside its TT operand's own chain; only the TT
+    # query's own chain, one for the block (Shape::one_state)
+    one_state = ql == "tt" and (layout == "dense" or (tr, qr) == (0, 4))
     if ql == layout:
         sw = 2 * max(rq * rc + rc * rc, rq * rq) if tt else 0
     elif tr == 4:
         sw = 0       # the states live in registers
     elif "tt" in (layout, ql):
         rt = rc if tt else rq
-        sw = 2 * max(0 if dense_side else rq * rc, rt * rt)
+        sw = 2 * max(0 if dense_side or one_state else rq * rc, rt * rt)
     else:
         sw = 0
     region = -(-max(3 * window, nwarps * 2 * expansion) // 4) * 4
     lt = num_tables * probes
-    rs = ring_slot(d) if ring and dense and ql == layout else 0
+    rs = ring_slot(d if ql == layout else df) if ring and dense else 0
     slots = nwarps * (rs + 2) if rs else 0
-    return ((slots + nwarps * buffers * fc + fq + nwarps * sw + region) * 4
+    return ((slots + nwarps * buffers * fc + fq
+             + (1 if one_state else nwarps) * sw + region) * 4
             + (nwarps + 1) * topk * 8 + (4 * lt + 1) * 4 + STATIC_SMEM)
 
 
@@ -232,17 +253,22 @@ def _granules(smem: int) -> int:
 
 
 def ring_plan(num_tables: int, cap: int, d: int, probes: int = 1,
-              topk: int = 10, expansion: int = 0) -> bool:
-    """Whether K1's dense instantiation reads rows of ``d`` floats through
-    its warps' ring slots: rows that fit one (``ring_slot``) and a ring
+              topk: int = 10, expansion: int = 0,
+              query: tuple | None = None) -> bool:
+    """Whether K1's dense instantiations read rows of ``d`` floats through
+    their warps' ring slots: rows that fit one (``ring_slot``) and a ring
     that fits the target blocks per SM beside the query row, the lists,
     the expansion and the smallest window; otherwise the rows are read in
-    place. The C launch tells the two plans apart by their shared bytes."""
+    place. ``query``: (layout, n_modes, d, rank) of CP or TT queries (the
+    densified row is ``d`` floats), None for dense ones. The C launch tells
+    the two plans apart by their shared bytes."""
     if not ring_slot(d):
         return False
     least = min(_pow2_ceil(num_tables * probes * cap), MIN_WINDOW)
-    smem = smem_bytes(num_tables, 1, d, 1, 1, least, probes=probes,
-                      topk=topk, expansion=expansion, dense=True, ring=True)
+    ql, n, dq, rq = query or (None, 1, d, 1)
+    smem = smem_bytes(num_tables, n, dq, rq, 1, least, probes=probes,
+                      topk=topk, expansion=expansion, dense=True,
+                      q_layout=ql, df=d if ql else 0, ring=True)
     return _granules(smem) <= _budget(SHAPES[DENSE, DENSE][1])
 
 
@@ -579,8 +605,10 @@ def _plan(layout, num_tables, cap, n, d, rq, rc, probes, topk, expansion,
     follows the table)."""
     kw = dict(tt=layout == "tt", dense=layout == "dense", probes=probes,
               topk=topk, expansion=expansion, q_layout=q_layout, df=df)
-    kw["ring"] = (layout == "dense" and q_layout is None
-                  and ring_plan(num_tables, cap, d, probes, topk, expansion))
+    query = (q_layout, n, d, rq) if q_layout else None
+    kw["ring"] = layout == "dense" and ring_plan(
+        num_tables, cap, df if q_layout else d, probes, topk, expansion,
+        query)
     window, scratch = window_plan(num_tables, cap, n, d, rq, rc, **kw)
     return window, scratch, smem_bytes(num_tables, n, d, rq, rc, window,
                                        **kw)
@@ -671,8 +699,8 @@ def _launch(values, offsets, mults, queries, table, *, kind, w, num_tables,
                 if table.layout == "dense" and pair.df > DENSE_STAGE
                 else None)
     dims = _dims(pair.dims, d, dev) if dense_side else None
-    threads, min_blocks, _, _ = SHAPES[instance(table.layout, pair.q_layout,
-                                                rq, rc, n, d)]
+    tr_qr = instance(table.layout, pair.q_layout, rq, rc, n, d)
+    threads, min_blocks, _, _ = SHAPES[tr_qr]
     err = _build.lib().fused_query_launch(
         vals.data_ptr(), offs.data_ptr() if e2 else None, mu.data_ptr(),
         pairs.data_ptr() if pairs is not None else None, q.data_ptr(),
@@ -693,7 +721,8 @@ def _launch(values, offsets, mults, queries, table, *, kind, w, num_tables,
         ("multiprobe", probes > 1),
         ("live_window", any(s.win is not None for s in table.segs)),
         ("segments", len(table.segs) > 1),
-        (f"mixed:{pair.q_layout}-{table.layout}", not pair.same)) if on]
+        (f"mixed:{pair.q_layout}-{table.layout}", not pair.same),
+        ("k1:" + instance_name(*tr_qr), True)) if on]
     return ids, scores, ncand, branches
 
 

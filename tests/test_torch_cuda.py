@@ -1066,3 +1066,195 @@ def test_fused_query_tt_long_rows_read_in_place(gen, qf):
          else cp_random_data(gen, dims, 4, batch=64))
     nc = _k1_vs_plain(svc, q, 1)
     assert int(nc.sum()) > 0
+
+
+# (mode dims, TT query ranks, CP row rank): TT query ranks 1 to 4, ragged,
+# the rank-4 query's 16-byte rank rows and below; CP row ranks 1 to 6 (two
+# chunks of four); four modes; d_1 = 13
+CP_PAIR_SHAPES = [((6, 5, 7), (1, 1, 1, 1), 1), ((6, 5, 7), (1, 2, 2, 1), 2),
+                  ((6, 5, 7), (1, 3, 2, 1), 3), ((6, 5, 7), (1, 4, 4, 1), 4),
+                  ((13, 4, 3), (1, 4, 3, 1), 6),
+                  ((4, 3, 5, 2), (1, 2, 4, 3, 1), 5)]
+
+
+@pytest.mark.parametrize("shape", CP_PAIR_SHAPES, ids=str)
+def test_fused_query_cp_pair_ranks(gen, shape):
+    """TT queries of ranks at most 4 over CP rows (``<0, 4>``: two rows a
+    warp, a row a half-warp, two buffers) against K1's plain version at
+    TT query ranks 1 to 4, ragged, over three and four modes, CP row ranks
+    1 to 6, the exact cap at T = 1 and a live window after deletes and an
+    insert at T = 4: candidate counts equal, scores within
+    ``parity.rerank_bound``, ids equal but at near ties; each launch
+    counted under ``k1:<0, 4>``; a TT query of an item's own entries finds
+    it."""
+    from repro_torch.core.tensor_formats import cp_to_tt
+    from repro_torch.serving.lsh_service import build_service
+    dims, ranks, rc = shape
+    n = 3000
+    corpus = cp_random_data(gen, dims, rc, batch=n)
+    for probes, cap in ((1, None), (4, 16)):
+        svc = build_service(gen, "tt-e2lsh", dims, corpus, num_codes=4,
+                            num_tables=4, rank=2, bucket_width=2.0,
+                            bucket_cap=cap, probes=probes)
+        if cap is not None:
+            svc.delete(list(range(1, n, 9)))
+            svc.insert(cp_random_data(gen, dims, rc, batch=200))
+        q = _ragged_tt(gen, dims, ranks, 192)
+        assert fq_mod.instance("cp", "tt", max(ranks), rc, len(dims),
+                               max(dims)) == (0, 4)
+        before = fused_query.branches["k1:<0, 4>"]
+        nc = _k1_vs_plain(svc, q, probes)
+        assert fused_query.branches["k1:<0, 4>"] == before + 1
+        assert int(nc.sum()) > 0
+        if rc <= 4 and cap is None:
+            qid = torch.randint(0, n, (64,), generator=gen, device="cuda")
+            own = cp_to_tt(corpus.index(qid))
+            if max(own.ranks) <= 4:
+                ids, _, _ = svc.index.query_batch(own, topk=1)
+                assert torch.equal(ids[:, 0].long(), qid)
+
+
+def test_fused_query_cp_pair_scratch_equals_plain(gen):
+    """A heavy TT query over CP rows: one item repeated past the largest
+    shared window, so its window goes to the global scratch, in one batch
+    with queries whose windows fit; integer-valued data (exact sums in any
+    order), so ``<0, 4>`` equals K1's plain version bit for bit, the
+    repeats tied at distance 0 in effective-id order; K1s over S = 3
+    likewise."""
+    from repro_torch.core.tensor_formats import cp_to_tt
+    from repro_torch.serving.lsh_service import build_service
+    dims, n = (6, 6, 6), 6000
+    dup = 3 * 3 * fq_mod.MAX_WINDOW // 4
+    base = CPTensor(tuple(
+        torch.randint(-1, 2, (n, d, 2), generator=gen, device="cuda").float()
+        for d in dims), 1.0)
+    rows = torch.cat([torch.arange(n, device="cuda"),
+                      torch.zeros(dup, dtype=torch.long, device="cuda")])
+    corpus = _repeat(base, rows[torch.randperm(n + dup, generator=gen,
+                                               device="cuda")])
+    q = cp_to_tt(_repeat(base, torch.cat([
+        torch.zeros(32, dtype=torch.long, device="cuda"),
+        torch.randint(1, n, (96,), generator=gen, device="cuda")])))
+    for shards in (None, 3):
+        svc = build_service(gen, "cp-e2lsh", dims, corpus, num_codes=6,
+                            num_tables=4, rank=2, bucket_width=4.0,
+                            shards=shards)
+        kernel = fused_query_sharded if shards else fused_query
+        before = (_scratch_queries(), kernel.branches["k1:<0, 4>"])
+        ids, sc, nc = _bitwise_vs_plain(svc, q, 1)
+        assert 32 <= _scratch_queries() - before[0] < 128
+        assert kernel.branches["k1:<0, 4>"] == before[1] + 1
+        assert bool((sc[:32] == 0).all()) and bool(
+            (ids[:32, 1:] > ids[:32, :-1]).all())
+
+
+def test_fused_query_sharded_cp_pair_matches_plain(gen):
+    """K1s with TT queries of rank 3 over CP rows (``<0, 4>``), S = 3 (a
+    padded last shard), after deletes and a routed insert, at T = 1 and 4:
+    against its plain version, and equal to the single-device index bit
+    for bit before the mutations."""
+    from repro_torch.serving.lsh_service import build_service
+    dims, n = (6, 5, 7), 3001
+    corpus, single = _mixed_service(gen, dims, n, "cp")
+    sharded = build_service(None, "tt-e2lsh", dims, corpus, shards=3,
+                            family=single.index.family, num_codes=4,
+                            num_tables=4, bucket_width=2.0)
+    q = _as_layout(_planted(gen, corpus, n, 256), "tt")
+    for g, w_ in zip(sharded.query_arrays(q), single.query_arrays(q)):
+        assert (g.view("int32") == w_.view("int32")).all()
+    sharded.delete(torch.arange(5, n, 13, device="cuda"))
+    sharded.insert(cp_random_data(gen, dims, 3, batch=300))
+    for probes in (1, 4):
+        before = fused_query_sharded.branches["k1:<0, 4>"]
+        _k1s_vs_plain(sharded, q, probes)
+        assert fused_query_sharded.branches["k1:<0, 4>"] == before + 1
+
+
+@pytest.mark.parametrize("ranks,rc", [((1, 5, 6, 1), 3), ((1, 8, 8, 1), 4),
+                                      ((1, 4, 4, 1), 8)])
+def test_fused_query_tt_queries_past_four_over_cp(gen, ranks, rc):
+    """TT queries of ranks 5 to 8 over CP rows, and of rank 4 over CP rows
+    past ``CP_PAIR_ROW`` floats (12 x 12 x 12 at rank 8: 288), keep
+    ``<0, 16>`` (one staged row a warp), against K1's plain version."""
+    from repro_torch.serving.lsh_service import build_service
+    dims, n = (12, 12, 12), 2000
+    corpus = cp_random_data(gen, dims, rc, batch=n)
+    svc = build_service(gen, "tt-e2lsh", dims, corpus, num_codes=4,
+                        num_tables=4, rank=2, bucket_width=2.0)
+    assert fq_mod.instance("cp", "tt", max(ranks), rc, 3, 12) == (0, 16)
+    before = fused_query.branches["k1:<0, 16>"]
+    nc = _k1_vs_plain(svc, _ragged_tt(gen, dims, ranks, 128), 1)
+    assert fused_query.branches["k1:<0, 16>"] == before + 1
+    assert int(nc.sum()) > 0
+
+
+@pytest.mark.parametrize("qf", ["cp", "tt"])
+@pytest.mark.parametrize("dims,n", [
+    ((12, 12, 12), 3000),     # [mixed * x dense]'s rows: the ring slots
+    ((4, 4, 4), 3000),        # 64-float slots
+    ((2, 1032), 3000),        # 2,064 floats: past the ring slot, in place
+    ((6, 173), 3000),         # 1,038 floats: whole floats, in place
+    ((16, 16, 16, 16), 1200),  # 65,536 floats: the query past the stage
+])
+def test_fused_query_dense_cross_ring_edges(gen, dims, n, qf):
+    """CP and TT queries over dense rows (``<kDense, 0>``, ``<kDense,
+    16>``: the dense instantiation's ring slots where the rows fit one,
+    else read in place; the query densified into the staged row or, past
+    ``DENSE_STAGE`` floats, the global scratch) against K1's plain version
+    bit for bit on integer-valued data (exact sums in any order), the
+    corpus the densified CP items and the queries some of those items, as
+    CP or TT, beside queries far from every item; each finds itself."""
+    from repro_torch.core.tensor_formats import cp_to_tt
+    from repro_torch.serving.lsh_service import build_service
+    base = CPTensor(tuple(
+        torch.randint(-1, 2, (n, d, 2), generator=gen, device="cuda").float()
+        for d in dims), 1.0)
+    rows = _as_layout(base, "dense")
+    w = float(torch.tensor(dims).prod()) ** 0.5
+    svc = build_service(gen, "e2lsh", dims, rows, num_codes=4,
+                        num_tables=4, bucket_width=w)
+    qid = torch.randint(0, n, (96,), generator=gen, device="cuda")
+    far = CPTensor(tuple(
+        torch.randint(-1, 2, (32, d, 2), generator=gen, device="cuda").float()
+        * (1000.0 if i == 0 else 1.0) for i, d in enumerate(dims)), 1.0)
+    q = _repeat(base, qid)
+    q = CPTensor(tuple(torch.cat(p) for p in zip(q.factors, far.factors)),
+                 1.0)
+    if qf == "tt":
+        q = cp_to_tt(q)
+    name = "k1:" + fq_mod.instance_name(fq_mod.DENSE, 0 if qf == "cp" else 16)
+    before = fused_query.branches[name]
+    ids, _, nc = _bitwise_vs_plain(svc, q, 1)
+    assert fused_query.branches[name] == before + 1
+    assert int(nc.sum()) > 0
+    hit = ids[:96, 0].long() == qid
+    same = (rows.data.flatten(1)[ids[:96, 0].long()]
+            == rows.data.flatten(1)[qid]).all(1)
+    assert bool((hit | same).all())
+
+
+@pytest.mark.parametrize("ranks", [(1, 6, 5, 1), (1, 16, 16, 1)])
+def test_fused_query_tt_ranks_past_four_over_dense(gen, ranks):
+    """TT queries of ranks 5 to 16 over dense rows (``<kDense, 16>``: the
+    query densified prefix by prefix through its rank-16 steps, qq by the
+    rank-16 chain) against K1's plain version bit for bit on
+    integer-valued data (exact sums in any order): the corpus the TT items'
+    dense rows, the queries some of those items as TT; each finds
+    itself."""
+    from repro_torch.serving.lsh_service import build_service
+    dims, n = (6, 5, 7), 2000
+    base = TTTensor(tuple(
+        torch.randint(-1, 2, (n, ranks[i], d, ranks[i + 1]), generator=gen,
+                      device="cuda").float() for i, d in enumerate(dims)), 1.0)
+    rows = _tt_dense_rows(base)
+    w = float(rows.data.flatten(1).norm(dim=1).mean())
+    svc = build_service(gen, "e2lsh", dims, rows, num_codes=4, num_tables=4,
+                        bucket_width=w)
+    qid = torch.randint(0, n, (64,), generator=gen, device="cuda")
+    before = fused_query.branches["k1:<kDense, 16>"]
+    ids, _, nc = _bitwise_vs_plain(svc, base.index(qid), 1)
+    assert fused_query.branches["k1:<kDense, 16>"] == before + 1
+    assert int(nc.sum()) > 0
+    same = (rows.data.flatten(1)[ids[:, 0].long()]
+            == rows.data.flatten(1)[qid]).all(1)
+    assert bool(same.all())

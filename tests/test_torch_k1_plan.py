@@ -19,7 +19,13 @@ over TT rows of ranks <= 4 (``cp_tt_half``, ``dense_tt_sweep``: two rows a
 warp, a row a half-warp, states in registers) against ``inner_cp_tt`` /
 ``inner_dense_tt``, and the rows' own chain (``tt_self_half``) against
 ``inner_tt_tt``, at ragged TT ranks, one to four modes and mode dims that
-are not multiples of 4; their plan is pinned at [cp-as-tt].
+are not multiples of 4; their plan is pinned at [cp-as-tt]. TT queries of
+ranks <= 4 over CP rows (``<0, 4>``) score with the same ``cp_tt_half``,
+the roles swapped (the CP row the CP operand), and the rows' own Grams on
+a half-warp; held against the reference's ``inner`` on (TT, CP) and
+``inner_cp_cp``, their plan pinned at [main]. A TT query over dense rows is
+densified prefix by prefix (``densify_tt``): a model of that order equals
+the per-entry chain bit for bit.
 """
 
 import itertools
@@ -65,6 +71,16 @@ PAIRS = [
     ("tt", "cp", (32, 32, 64), (4, 4)),         # rows read in place
     ("tt", "dense", (32, 32, 64), (1, 4)),
     ("cp", "tt", (12, 12, 12), (16, 4)),
+    ("cp", "tt", (12, 12, 12), (4, 4)),        # [mixed tt x cp]: <0, 4>
+    ("cp", "tt", (16, 16, 16, 16), (4, 4)),    # the longest staged CP row
+    ("cp", "tt", (2, 2, 2), (3, 32)),          # CP rank 32, short rows
+    ("cp", "tt", (6, 5, 7), (2, 6)),
+    ("cp", "tt", (12, 12, 12), (4, 8)),        # 288 floats: <0, 16>
+    ("cp", "tt", (12, 12, 12), (8, 4)),        # TT rank 8: <0, 16>
+    ("dense", "tt", (12, 12, 12), (4, 1)),     # [mixed tt x dense]: ring
+    ("dense", "cp", (2048,), (4, 1)),          # the longest ring slot
+    ("dense", "tt", (4, 513), (16, 1)),        # 2,052 floats: in place
+    ("dense", "tt", (10, 173), (2, 1)),        # whole floats: in place
 ]
 # (tables, cap, probes, topk): exact caps, a live window's, T > 1
 LAUNCHES = [(10, 367, 1, 10), (10, 765, 1, 10), (10, 64, 4, 10),
@@ -81,6 +97,21 @@ def _args(layout, q_layout, dims, ranks):
     if q_layout != layout:
         kw.update(q_layout=q_layout, df=math.prod(dims))
     return len(dims), max(dims), rq, rc, kw
+
+
+def _ring(pair, launch, n, d, rq, kw):
+    """Whether the launch plan reads a dense corpus's rows through the
+    ring slots (``ring_plan``, queries of any format), as ``launch_plan``
+    decides."""
+    layout, q_layout = pair[:2]
+    if layout != "dense":
+        return False
+    tables, cap, probes, topk = launch
+    exp = probing.expansion_size("e2lsh", 10) if probes > 1 else 0
+    if q_layout == layout:
+        return fq.ring_plan(tables, cap, d, probes, topk, exp)
+    return fq.ring_plan(tables, cap, kw["df"], probes, topk, exp,
+                        (q_layout, n, d, rq))
 
 
 def _blocks(smem):
@@ -101,8 +132,7 @@ def test_plan_fits_the_target_blocks(pair):
     threads, target, _, _ = fq.SHAPES[tr_qr]
     for tables, cap, probes, topk in LAUNCHES:
         exp = probing.expansion_size("e2lsh", 10) if probes > 1 else 0
-        kw["ring"] = (tr_qr == (fq.DENSE, fq.DENSE)
-                      and fq.ring_plan(tables, cap, d, probes, topk, exp))
+        kw["ring"] = _ring(pair, (tables, cap, probes, topk), n, d, rq, kw)
         window, _ = fq.window_plan(tables, cap, n, d, rq, rc, probes=probes,
                                    topk=topk, expansion=exp, **kw)
         smem = fq.smem_bytes(tables, n, d, rq, rc, window, probes=probes,
@@ -114,7 +144,9 @@ def test_plan_fits_the_target_blocks(pair):
             assert _blocks(smem) >= target, (pair, tables, cap, smem)
         assert window & (window - 1) == 0
         if kw["ring"]:
-            assert fq.ring_slot(d) == d and d % 4 == 0 and d <= fq.RING_ROW
+            row = kw.get("df") or d
+            assert fq.ring_slot(row) == row and row % 4 == 0
+            assert row <= fq.RING_ROW
     assert threads % 32 == 0
 
 
@@ -142,30 +174,39 @@ def test_plan_refuses_nothing_it_took(monkeypatch):
     did (dense rows: 8 warps, 3 blocks, no ring; dense queries over CP
     rows: 8 warps, one row a warp; CP or dense queries over TT rows of
     ranks <= 4: 8 warps, one row a warp in two buffers, whatever the
-    row's length), at a window no smaller than a quarter of it; the other
-    instantiations' plans are unchanged."""
-    new = {}
+    row's length; CP or TT queries over dense rows: 8 warps, two rows a
+    warp, no ring; TT queries over CP rows: ``<0, 16>``, whatever the
+    query's rank and the row's length), at a window of at least the old
+    one or 1,024 slots (512 where the rows go through the ring slots); the
+    other instantiations' plans are unchanged."""
+    new, ring = {}, {}
     for pair, launch in itertools.product(PAIRS, LAUNCHES):
         n, d, rq, rc, kw = _args(*pair)
         tables, cap, probes, topk = launch
         exp = probing.expansion_size("e2lsh", 10) if probes > 1 else 0
-        new[pair, launch] = fq.window_plan(tables, cap, n, d, rq, rc,
-                                           probes=probes, topk=topk,
-                                           expansion=exp, **kw)
+        ring[pair, launch] = _ring(pair, launch, n, d, rq, kw)
+        new[pair, launch] = fq.window_plan(
+            tables, cap, n, d, rq, rc, probes=probes, topk=topk,
+            expansion=exp, ring=ring[pair, launch], **kw)
     monkeypatch.setitem(fq.SHAPES, (fq.DENSE, fq.DENSE), (256, 3, 2, 2))
     monkeypatch.setitem(fq.SHAPES, (0, fq.DENSE), (256, 2, 1, 2))
     for qr in (0, fq.DENSE):
         monkeypatch.setitem(fq.SHAPES, (4, qr), (256, 2, 1, 2))
+    for qr in (0, 16):
+        monkeypatch.setitem(fq.SHAPES, (fq.DENSE, qr), (256, 2, 2, 2))
     instance = fq.instance
 
     def old_instance(layout, q_layout, rq, rc, n_modes, d):
         tr, qr = instance(layout, q_layout, rq, rc, n_modes, d)
+        if (tr, qr) == (0, 4):
+            return 0, 16
         return (4, qr) if layout != q_layout and tr == 16 and rc <= 4 else (
             tr, qr)
 
     monkeypatch.setattr(fq, "instance", old_instance)
     redesigned = (("dense", "dense"), ("cp", "dense"), ("tt", "cp"),
-                  ("tt", "dense"))
+                  ("tt", "dense"), ("dense", "cp"), ("dense", "tt"),
+                  ("cp", "tt"))
     for (pair, launch), (window, _) in new.items():
         n, d, rq, rc, kw = _args(*pair)
         tables, cap, probes, topk = launch
@@ -173,7 +214,10 @@ def test_plan_refuses_nothing_it_took(monkeypatch):
         old, _ = fq.window_plan(tables, cap, n, d, rq, rc, probes=probes,
                                 topk=topk, expansion=exp, **kw)
         if pair[:2] in redesigned:
-            assert window >= min(old, fq.MIN_WINDOW * 4), (pair, launch)
+            # a ring slot a warp takes the room of a larger window (twelve
+            # rows of 2,048 floats are 96 KiB)
+            least = fq.MIN_WINDOW * (2 if ring[pair, launch] else 4)
+            assert window >= min(old, least), (pair, launch)
         else:
             assert window == old, (pair, launch)
 
@@ -583,3 +627,197 @@ def test_tt_column_table_decodes_each_columns_slices(dims):
     idx = np.unravel_index(np.arange(p), dims[1:])
     for n in range(1, len(dims)):
         np.testing.assert_array_equal(table[n - 1] - n * d, idx[n - 1])
+
+
+# --- TT queries over CP rows (``<0, 4>``) and over dense rows --------------
+
+def test_tt_query_instances():
+    """TT queries of ranks 1-4 over CP rows of at most ``CP_PAIR_ROW``
+    floats (N * d * R, the stacked CP rank) choose ``<0, 4>``; ranks 5-16,
+    and longer rows, ``<0, 16>`` (one staged row a warp, the first
+    design); over dense rows every TT rank takes ``<kDense, 16>``, and CP
+    queries ``<kDense, 0>``."""
+    for rq in range(1, fq.MAX_TT_RANK + 1):
+        for n, d, rc in ((3, 12, 4), (4, 16, 4), (3, 2, 32), (1, 64, 4),
+                         (3, 12, 8), (4, 16, 5), (1, 65, 4)):
+            short = n * d * rc <= fq.CP_PAIR_ROW
+            want = (0, 4) if rq <= 4 and short else (0, 16)
+            assert fq.instance("cp", "tt", rq, rc, n, d) == want, (rq, n, d)
+        assert fq.instance("dense", "tt", rq, 1, 3, 12) == (fq.DENSE, 16)
+    assert fq.instance("dense", "cp", 4, 1, 3, 12) == (fq.DENSE, 0)
+    assert fq.SHAPES[0, 4] == (384, 2, 2, 2)
+    for qr in (0, 16):
+        assert fq.SHAPES[fq.DENSE, qr] == fq.SHAPES[fq.DENSE, fq.DENSE]
+    assert fq.instance_name(fq.DENSE, 16) == "<kDense, 16>"
+    assert fq.instance_name(0, 4) == "<0, 4>"
+
+
+def test_cp_pair_plan_at_the_cells():
+    """``<0, 4>``: 12 warps, two CP rows a warp in two buffers, 2 blocks a
+    SM. At [mixed tt x cp] ([main]'s CP rows of 144 floats, TT queries of
+    rank 4: 576 floats staged, L = 10, cap 765) a block plans 27,648 bytes
+    of rows beside a 4,096-slot window (80,468 bytes); an 8,192-slot one
+    would not fit two blocks with one buffer either. The longest staged row
+    (256 floats, (16,)*4 at rank 4, with the query's 1,024 floats), CP rank
+    32 rows and a live window at T = 4 keep two blocks a SM."""
+    kw = dict(q_layout="tt", df=1728)
+    assert fq.window_plan(10, 765, 3, 12, 4, 4, **kw) == (4096, True)
+    smem = fq.smem_bytes(10, 3, 12, 4, 4, 4096, **kw)
+    assert smem == 80_468 and _blocks(smem) == 2
+    rows = 12 * 2 * 2 * 144 * 4
+    assert rows == 27_648
+    assert _blocks(fq.smem_bytes(10, 3, 12, 4, 4, 8192, **kw) - rows // 2) < 2
+    exp = probing.expansion_size("e2lsh", 10)
+    for n, d, rq, rc, launch in ((4, 16, 4, 4, (10, 2952, 1, 10)),
+                                 (3, 2, 3, 32, (10, 765, 1, 10)),
+                                 (3, 12, 4, 4, (10, 64, 4, 10))):
+        assert fq.instance("cp", "tt", rq, rc, n, d) == (0, 4)
+        tables, cap, probes, topk = launch
+        e = exp if probes > 1 else 0
+        k = dict(q_layout="tt", df=d ** n, probes=probes, topk=topk,
+                 expansion=e)
+        window, _ = fq.window_plan(tables, cap, n, d, rq, rc, **k)
+        assert _blocks(fq.smem_bytes(tables, n, d, rq, rc, window,
+                                     **k)) == 2, (n, d, rc)
+
+
+@pytest.mark.parametrize("q_layout,rq", [("cp", 4), ("tt", 4), ("tt", 16)])
+def test_dense_ring_for_every_query_format(q_layout, rq):
+    """CP and TT queries over dense rows read them through the ring slots
+    where the dense instantiation would: at [dense-main] (1,728 floats, L
+    = 10, cap 367) beside a 1,024-slot window and the densified query row,
+    two blocks a SM (a TT query's chain state once a block, 2 R^2 floats);
+    at rows of 2,048 floats too; not past ``RING_ROW`` or at whole floats.
+    """
+    query = (q_layout, 3, 12, rq)
+    assert fq.ring_plan(10, 367, 1728, query=query)
+    kw = dict(dense=True, q_layout=q_layout, df=1728, ring=True)
+    window, _ = fq.window_plan(10, 367, 3, 12, rq, 1, **kw)
+    assert window == 1024
+    smem = fq.smem_bytes(10, 3, 12, rq, 1, window, **kw)
+    assert _blocks(smem) == 2
+    assert smem - fq.smem_bytes(10, 3, 12, rq, 1, window,
+                                **dict(kw, ring=False)) == 12 * 1730 * 4
+    assert fq.ring_plan(10, 367, 2048, query=(q_layout, 1, 2048, rq))
+    assert not fq.ring_plan(10, 367, 2052, query=(q_layout, 2, 1026, rq))
+    assert not fq.ring_plan(10, 367, 1730, query=(q_layout, 2, 865, rq))
+    plan = fq._plan("dense", 10, 367, 3, 12, rq, 1, 1, 10, 0, q_layout, 1728,
+                    fq.SHAPES[fq.instance("dense", q_layout, rq, 1, 3, 12)])
+    assert plan == (1024, True, smem)
+
+
+def gram_half_model(a):
+    """The CP pair branch's yy, <A, A> of a stacked CP row a (N, D, R) on a
+    half-warp, in fp32: half-lane h takes the (r, q) terms p = h, h + 16,
+    ... (pair_terms: per mode a d-long FMA chain, the modes' product in
+    mode order), then the half's butterfly."""
+    n_modes, d, r_all = a.shape
+    acc = np.zeros(16, np.float32)
+    for p in range(r_all * r_all):
+        r, q = divmod(p, r_all)
+        prod = np.float32(0)
+        for n in range(n_modes):
+            dot = np.float32(0)
+            for i in range(d):
+                dot = _fma(a[n, i, r], a[n, i, q], dot)
+            prod = dot if n == 0 else np.float32(prod * dot)
+        acc[p % 16] = np.float32(acc[p % 16] + prod)
+    return _butterfly(acc, 16)
+
+
+@pytest.mark.parametrize("rank", [1, 2, 3, 4, 6])
+@pytest.mark.parametrize("shape", TT_SHAPES[:4], ids=str)
+def test_cp_pair_order_within_the_cross_bound(shape, rank):
+    """The CP pair branch's qy (``cp_tt_half`` with the roles swapped: the
+    staged CP row the CP operand, the TT query's cores the TT one) against
+    the reference's ``inner`` on (TT query, CP row), which is
+    ``inner_cp_tt(row, query)``, and against float64, within 2 n u S (n =
+    ``parity.cross_length``); its yy (the row's Grams on a half-warp)
+    against ``inner_cp_cp`` within 2 n u <|A|, |A|> (n the CP format's
+    ``inner_length``). TT query ranks 1-4, ragged; CP row ranks 1-4 and 6."""
+    dims, ranks = shape
+    rng = np.random.default_rng(26)
+    cores = _tt_cores(rng, dims, ranks)
+    factors = [rng.standard_normal((dn, rank)).astype(np.float32)
+               for dn in dims]
+    a = np.zeros((len(dims), max(dims), rank), np.float32)
+    for n, f in enumerate(factors):
+        a[n, :f.shape[0]] = f
+    row = RefCP(tuple(jnp.asarray(f) for f in factors))
+    ref = float(ref_contractions.inner(_ref_tt(cores), row))
+    cp64 = _dense(factors)
+    exact = float((cp64 * _tt_dense64(cores)).sum())
+    s = float(_dense([np.abs(f) for f in factors]).ravel()
+              @ np.abs(_tt_dense64([np.abs(c) for c in cores])).ravel())
+    x = TTTensor(tuple(torch.from_numpy(c) for c in cores), 1.0)
+    y = CPTensor(tuple(torch.from_numpy(f) for f in factors), 1.0)
+    bound = 2 * parity.cross_length(x, y) * parity.U * s
+    got = float(cp_tt_model(a, _stack_tt(cores, dims)))
+    assert abs(got - ref) <= bound, (got, ref, bound)
+    assert abs(got - exact) <= bound / 2, (got, exact)
+    yy = float(gram_half_model(a))
+    yy_ref = float(ref_contractions.inner_cp_cp(row, row))
+    yy64 = float((cp64 * cp64).sum())
+    s_yy = float((_dense([np.abs(f) for f in factors]) ** 2).sum())
+    b_yy = 2 * y.inner_length(rank) * parity.U * s_yy
+    assert abs(yy - yy_ref) <= b_yy and abs(yy - yy64) <= b_yy / 2
+
+
+def densify_entry_model(g, dims):
+    """The first design's densified TT row, in fp32: each entry its own
+    chain from e_0 through every mode (``tt_row_step``: nv[c] = the FMA
+    chain over a < R of v[a] G[a][i][c]), its component 0."""
+    n_modes, r, d, _ = g.shape
+    out = np.zeros(math.prod(dims), np.float32)
+    for p, ix in enumerate(itertools.product(*map(range, dims))):
+        v = np.zeros(r, np.float32)
+        v[0] = 1
+        for n in range(n_modes):
+            nv = np.zeros(r, np.float32)
+            for a_ in range(r):
+                nv = _fma(np.full(r, v[a_]), g[n, a_, ix[n]], nv)
+            v = nv
+        out[p] = v[0]
+    return out
+
+
+def densify_prefix_model(g, dims):
+    """``densify_tt``'s order in fp32: each prefix (i_1 .. i_{N-1}) steps
+    the row vector through the first N - 1 cores once, then each of the
+    last mode's entries is the FMA chain over a < R of v[a] G_N[a][j][0]."""
+    n_modes, r, d, _ = g.shape
+    out = np.zeros(math.prod(dims), np.float32)
+    dl = dims[-1]
+    for p, ix in enumerate(itertools.product(*map(range, dims[:-1]))):
+        v = np.zeros(r, np.float32)
+        v[0] = 1
+        for n in range(n_modes - 1):
+            nv = np.zeros(r, np.float32)
+            for a_ in range(r):
+                nv = _fma(np.full(r, v[a_]), g[n, a_, ix[n]], nv)
+            v = nv
+        e = np.zeros(dl, np.float32)
+        for a_ in range(r):
+            e = _fma(np.full(dl, v[a_]), g[n_modes - 1, a_, :dl, 0], e)
+        out[p * dl:(p + 1) * dl] = e
+    return out
+
+
+@pytest.mark.parametrize("shape", TT_SHAPES, ids=str)
+def test_densify_prefix_equals_the_entry_chain(shape):
+    """A TT query densified prefix by prefix (``densify_tt``) equals the
+    first design's per-entry chain bit for bit (the same FMAs in the same
+    order for every entry), ragged ranks and mode dims, one mode and four;
+    and both lie within the chain's rounding of the float64 entries."""
+    dims, ranks = shape
+    rng = np.random.default_rng(27)
+    cores = _tt_cores(rng, dims, ranks)
+    g = _stack_tt(cores, dims)
+    prefix = densify_prefix_model(g, dims)
+    entry = densify_entry_model(g, dims)
+    np.testing.assert_array_equal(prefix.view(np.int32), entry.view(np.int32))
+    t64 = _tt_dense64(cores).ravel()
+    s = _tt_dense64([np.abs(c) for c in cores]).ravel()
+    r = g.shape[1]
+    bound = 2 * len(dims) * r * parity.U * s
+    assert bool((np.abs(prefix - t64) <= bound).all())

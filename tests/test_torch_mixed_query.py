@@ -207,7 +207,7 @@ def test_launch_shapes_cover_the_built_instantiations():
     ``csrc/fused_query.cu`` (same-format) and ``csrc/fused_query_mixed.cu``
     (``K1_MIXED_PAIRS`` in ``csrc/fused_query.cuh``) build, and ``instance``
     maps every (corpus, query) format pair at every TT rank K1 takes, with
-    short and long TT rows, onto one of them (the C launch
+    short and long TT and CP rows, onto one of them (the C launch
     refuses a plan whose threads, blocks or shared bytes differ)."""
     import itertools
     import re
@@ -227,7 +227,7 @@ def test_launch_shapes_cover_the_built_instantiations():
     mixed = {(num(a), num(b))
              for a, b in re.findall(r"X\((\w+), (\w+)\)", macro.group(1))}
     assert all(tr == qr for tr, qr in same) and len(same) == 5
-    assert all(tr != qr for tr, qr in mixed) and len(mixed) == 8
+    assert all(tr != qr for tr, qr in mixed) and len(mixed) == 9
     assert set(fq.SHAPES) == same | mixed
     layouts = ("cp", "tt", "dense")
     for layout, ql in itertools.product(layouts, layouts):
