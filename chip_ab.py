@@ -11,10 +11,14 @@ tree's ``chip_smoke`` and drives the CP cell [main] and the TT cell
 queries at the example's K = 8) through ``build_service`` and ``serve``;
 [main] serves its 256 batches three more times. The cross-format and dense
 paths follow [main] on its corpus and queries (its first 32 batches in the
-query format): [mixed dense x cp] and [mixed tt x cp] over [main]'s
-service, [shard-mixed] (dense x CP over 4 shards, which must equal the
-single card bit for bit), [mixed cp x tt] and [mixed dense x tt] over
-[cp-as-tt] (the corpus converted exactly to TT), and the corpus densified
+query format): [mixed dense x cp], [mixed tt x cp] and [mixed tt8 x cp]
+(the TT queries zero-padded to rank 8) over [main]'s service,
+[shard-mixed] (dense x CP over 4 shards, which must equal the single card
+bit for bit), [mixed cp x tt] and [mixed dense x tt] over [cp-as-tt] (the
+corpus converted exactly to TT), [mixed cp x tt8] and [mixed dense x tt8]
+over [tt8] (the first 2^16 items as TT zero-padded to rank 8, queries of
+its own items as ``chip_smoke.phase_tt8`` makes them), and the corpus
+densified
 under [dense-main] (e2lsh, with [mixed cp x dense] and [mixed tt x dense])
 and [dense-cp] (cp-e2lsh), 64 batches each.
 Runs alternate (other, this, this, other, ...). Each run prints one ``AB
@@ -52,8 +56,11 @@ KEEP = 32          # batches whose results are compared across runs
 DENSE_BATCHES = 64  # batches served on [dense-main] and [dense-cp]
 # every path's record in the summary, in the order the runs serve them
 PATHS = ("cp", "annk8", "tt", "densemain", "densecp", "mixeddensecp",
-         "shardmixed", "mixedttcp", "mixedcptt", "mixeddensett",
-         "mixedcpdense", "mixedttdense")
+         "shardmixed", "mixedttcp", "mixedtt8cp", "mixedcptt",
+         "mixeddensett", "mixedcptt8", "mixeddensett8", "mixedcpdense",
+         "mixedttdense")
+TT8_LOG2 = 16      # [tt8]'s items: the first 2^16 of [main]'s corpus
+TT8_RANK = 8
 # K6 (srp_pack) shapes timed in each run: the [kernels] shape, the L*K of
 # [main], a wide row, a narrow one; the words of the first K6_KEEP are kept
 K6_SHAPES = ((1 << 20, 128), (1 << 20, 100), (1 << 16, 2000), (1 << 20, 8))
@@ -157,6 +164,9 @@ def one(tree: str, out: str, parity_paths=()) -> None:
             mixed, res["mixeddensecp"] = timed("mixeddensecp", svc, dense_q,
                                               eff)
             _, res["mixedttcp"] = timed("mixedttcp", svc, tt_q, eff)
+            _, res["mixedtt8cp"] = timed(
+                "mixedtt8cp", svc, [cs.pad_tt(q, TT8_RANK) for q in tt_q],
+                eff)
             del eff
         _, k1_args = cs.k1_compare(svc, queries[0], "ab")
         times = cs.phase_times(svc, cell, queries, k1_args)
@@ -203,6 +213,24 @@ def one(tree: str, out: str, parity_paths=()) -> None:
             _, res["mixedcptt"] = timed("mixedcptt", svc, queries[:KEEP])
             _, res["mixeddensett"] = timed("mixeddensett", svc, dense_q)
             del svc
+            torch.cuda.empty_cache()
+            # [tt8]: CP and dense queries over TT rows of rank 8
+            m = 1 << TT8_LOG2
+            base = corpus.index(slice(0, m))
+            g8 = torch.Generator(device="cuda").manual_seed(cell["seed"] + 8)
+            p8 = torch.randperm(m, generator=g8, device="cuda")
+            cp8 = [cs.make_queries(base, p8[i * 1024:(i + 1) * 1024], g8)
+                   for i in range(KEEP)]
+            svc = build_service(torch.Generator(device="cuda").manual_seed(1),
+                                c["kind"], c["dims"],
+                                cs.pad_tt(cp_to_tt(base), TT8_RANK),
+                                num_codes=c["codes"], num_tables=c["tables"],
+                                rank=c["rank"], bucket_width=c["width"],
+                                device="cuda")
+            _, res["mixedcptt8"] = timed("mixedcptt8", svc, cp8)
+            _, res["mixeddensett8"] = timed("mixeddensett8", svc,
+                                            [cs.densify(q) for q in cp8])
+            del svc, base, cp8
             torch.cuda.empty_cache()
         if layout == "cp":  # [ann-k8]: the example's K = 8
             svc = build_service(torch.Generator(device="cuda").manual_seed(1),

@@ -114,7 +114,8 @@ Phases (any failure exits non-zero):
      CP's), [dense-main]'s (CP x dense, TT x dense) and [cp-as-tt]
      ([main]'s 2^20 items converted to TT, tt-e2lsh rank 4 through K4: CP
      x TT, dense x TT), [tt8] ([main]'s first 2^16 items as TT padded to
-     rank 8, indexed alike: CP x TT and dense x TT over TT ranks 5-16), and
+     rank 8, indexed alike: CP x TT and dense x TT over TT ranks 5-16, 32
+     batches each), and
      dense x CP over [shard]'s 4 shards, every batch bit-equal to the
      single card. Each pair: its branch and the K1 instantiation it means
      to run (``fused_query:k1:<0, 4>``, ...) launched and no plain version,
@@ -1005,18 +1006,26 @@ def k1_times(svc, queries, k1_args, name, corpus=None):
         view.k1_table, pair.rq, num_tables=kw["num_tables"],
         probes=kw["probes"], topk=kw["topk"], expansion=expansion,
         pair=pair)
+    table = view.k1_table
+    inst = fq.instance(table.layout, pair.q_layout, pair.rq, table.rc,
+                       pair.n_modes, pair.d)
+    slots = fq.slot_plan(table.layout, pair.q_layout, kw["num_tables"],
+                         max(table.caps), pair.n_modes, pair.d, pair.rq,
+                         table.rc, kw["probes"], kw["topk"], expansion,
+                         pair.df)
     rows = ""
-    if view.k1_table.layout == "dense":
+    if table.layout == "dense":
         row = pair.d if pair.same else pair.df
-        query = None if pair.same else (pair.q_layout, pair.n_modes, pair.d,
-                                        pair.rq)
-        ring = fq.ring_plan(kw["num_tables"], max(view.k1_table.caps), row,
-                            kw["probes"], kw["topk"], expansion, query)
         rows = (f"; dense rows through a {row}-float ring slot a warp"
-                if ring else "; dense rows read in place")
-    occ = fq.occupancy(view.k1_table, pair.rq, smem, pair.q_layout)
-    inst = fq.instance(view.k1_table.layout, pair.q_layout, pair.rq,
-                       view.k1_table.rc, pair.n_modes, pair.d)
+                if slots else "; dense rows read in place")
+    elif inst == (16, fq.DENSE):
+        row = pair.n_modes * table.rc * pair.d * table.rc
+        rows = (f"; TT rows through a {row}-float ring slot a warp"
+                if slots else "; TT rows read in place")
+    elif inst == (0, 16):
+        rows = ("; CP rows staged, two a warp in two buffers" if slots
+                else "; CP rows read in place")
+    occ = fq.occupancy(table, pair.rq, smem, pair.q_layout)
     threads, _, per_warp, _ = fq.SHAPES[inst]
     k1_plain = cuda_ms([lambda: plain(values, offs, mults, qs, **kw)], 2)
     q0 = qs[0]
@@ -1575,9 +1584,10 @@ def phase_cp_as_tt(cell, corpus, qids, queries) -> list:
 
 
 # [tt8]: [main]'s first 2^16 items as exact TT zero-padded to rank 8 (TT
-# ranks 5-16: K1's <16, 0> and <16, kDense>, rows read in place), indexed
-# as [cp-as-tt]; CP and dense planted-neighbour queries, a few batches
-TT8 = dict(tag="tt8", log2_corpus=16, rank=8, batches=4)
+# ranks 5-16: K1's <16, 0>, rows read in place, and <16, kDense>, rows
+# through its ring slots), indexed as [cp-as-tt]; CP and dense
+# planted-neighbour queries, as many batches as the other [mixed] pairs
+TT8 = dict(tag="tt8", log2_corpus=16, rank=8, batches=MIXED["batches"])
 
 
 def phase_tt8(cell, corpus) -> list:

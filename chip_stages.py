@@ -33,8 +33,12 @@ at its stage boundaries.
 It runs [main]'s corpus and its first ``K1_BATCHES`` query batches as in
 ``chip_smoke.py``: [mixed dense x cp] and [mixed tt x cp] (dense queries
 and TT ones, the CP queries converted exactly, over [main]'s CP service),
-then [cp-as-tt] (the corpus converted exactly to TT, tt-e2lsh rank 4) under
+and [mixed tt8 x cp] (the TT queries zero-padded to rank 8), then
+[cp-as-tt] (the corpus converted exactly to TT, tt-e2lsh rank 4) under
 [mixed cp x tt] (the CP queries) and [mixed dense x tt] (densified), then
+[tt8] ([main]'s first 2^16 items as TT zero-padded to rank 8, indexed as
+[cp-as-tt]) under [mixed cp x tt8] and [mixed dense x tt8] (CP queries of
+its own items, as ``chip_smoke.phase_tt8`` makes them, and densified), then
 the corpus densified under [dense-main] (e2lsh, with [mixed cp x dense] and
 [mixed tt x dense] on its service) and [dense-cp] (cp-e2lsh). Each cell
 runs the instantiation the tree's own plan picks (``instance``). Prints
@@ -313,8 +317,9 @@ extern "C" int {name}(void* host, size_t bytes) {{
 """
 K1_BATCHES = 8
 # the cells --k1 stamps, in order
-K1_CELLS = ("mixed dense x cp", "mixed tt x cp", "mixed cp x tt",
-            "mixed dense x tt", "dense-main", "mixed cp x dense",
+K1_CELLS = ("mixed dense x cp", "mixed tt x cp", "mixed tt8 x cp",
+            "mixed cp x tt", "mixed dense x tt", "mixed cp x tt8",
+            "mixed dense x tt8", "dense-main", "mixed cp x dense",
             "mixed tt x dense", "dense-cp")
 
 
@@ -493,13 +498,27 @@ def k1_one(tree: str, index: int, cells=None, stamped=True) -> None:
     from repro_torch.core.tensor_formats import cp_to_tt
     tt_queries = [cp_to_tt(q) for q in cp_queries]
     run("mixed dense x cp", cell, corpus,
-        more=(("mixed tt x cp", tt_queries),))
+        more=(("mixed tt x cp", tt_queries),
+              ("mixed tt8 x cp", [cs.pad_tt(q, 8) for q in tt_queries])))
+    c = dict(cs.CP_AS_TT, dims=cell["dims"])
     if cells is None or {"mixed cp x tt", "mixed dense x tt"} & cells:
         tt = cp_to_tt(corpus)
-        c = dict(cs.CP_AS_TT, dims=cell["dims"])
         run("mixed cp x tt", c, tt, cp_queries)
         run("mixed dense x tt", c, tt)
         del tt
+        torch.cuda.empty_cache()
+    if cells is None or {"mixed cp x tt8", "mixed dense x tt8"} & cells:
+        # [tt8]: chip_smoke.phase_tt8's corpus and queries
+        m = 1 << 16
+        base = corpus.index(slice(0, m))
+        g8 = torch.Generator(device="cuda").manual_seed(cell["seed"] + 8)
+        p8 = torch.randperm(m, generator=g8, device="cuda")
+        cp8 = [cs.make_queries(base, p8[i * 1024:(i + 1) * 1024], g8)
+               for i in range(K1_BATCHES)]
+        tt8 = cs.pad_tt(cp_to_tt(base), 8)
+        run("mixed cp x tt8", c, tt8, cp8,
+            more=(("mixed dense x tt8", [cs.densify(q) for q in cp8]),))
+        del tt8, base, cp8
         torch.cuda.empty_cache()
     dense_cells = {"dense-main", "mixed cp x dense", "mixed tt x dense",
                    "dense-cp"}

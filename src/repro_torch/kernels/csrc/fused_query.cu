@@ -29,19 +29,33 @@ ShapeOf shape_of(int tr, int qr) {
 
 }  // namespace
 
+// The floats of a row slot of instantiation (tr, qr) for rows of its shape
+// (its plan's "ring", see fused_query_smem_bytes), 0 where it keeps none:
+// dense rows' ring slots (ring_slot), <16, kDense>'s TT-row ring slots
+// (tt_ring_slot) and <0, 16>'s staged CP rows (whole float4s).
+static int row_slot(int tr, int qr, int N, int D, int RC, int row) {
+  if (tr == kDense) return ring_slot(row);
+  if (tr == 16 && qr == kDense) return tt_ring_slot(N * RC * D * RC);
+  if (tr == 0 && qr == 16) return (N * D * RC + 3) & ~3;
+  return 0;
+}
+
 // Shared memory of one K1 block (fused_query.py's smem_bytes plans with the
 // same sum, and fused_query_launch refuses a plan that differs): with ring
-// (dense rows of at most kRingRow whole float4s, for queries of any format)
-// a ring slot a warp and its mbarrier (8 bytes), Shape::buffers row buffers
-// a warp for each candidate it scores at once (rows of ranks above 8, TT
-// rows a cross pair's <16, QR> takes and dense rows are read in place), the
+// (dense rows of at most kRingRow whole float4s, for queries of any format,
+// and TT rows of at most kTTRingRow under <16, kDense>) a ring slot a warp
+// and its mbarrier (8 bytes), Shape::buffers row buffers a warp for each
+// candidate it scores at once (rows of ranks above 8, TT rows a cross pair's
+// <16, QR> takes and dense rows are read in place; <0, 16> stages its CP
+// rows only with ring, else reads them in place), the
 // warps' lists and the merged top-k (8 bytes a rank each), the region of
 // the hash set and the candidate list (3 * wcap ids) or the expansion's
 // per-warp scores and deltas (C of each), the query's row (a dense one, or
 // a CP / TT query's densified row over dense rows, only up to kDenseStage
-// floats), the TT chain states a warp (none for tt_pair, which keeps them
-// in registers; one for the block where only the query's own chain needs
-// one: Shape::one_state), four per-(table, probe) integer arrays. fmt /
+// floats; <0, 16>'s TT query at the wide_row stride), the TT chain states a
+// warp (none for tt_pair, which keeps them in registers, nor for <16,
+// kDense>; one for the block where only the query's own chain needs one:
+// Shape::one_state), four per-(table, probe) integer arrays. fmt /
 // qfmt: the corpus's / the queries' format, 0 CP, 1 TT, 2 dense; DF the
 // dense operand's row of a cross-format pair (prod d).
 extern "C" size_t fused_query_smem_bytes(int LT, int N, int D, int RQ,
@@ -54,7 +68,9 @@ extern "C" size_t fused_query_smem_bytes(int LT, int N, int D, int RQ,
   const bool same = fmt == qfmt;
   const bool tt = fmt == 1, dense = fmt == 2;
   const bool qtt = qfmt == 1, qdense = qfmt == 2;
-  const bool stage_rows = !dense && tr <= 8;
+  const bool wide = tr == 0 && qr == 16;
+  const bool tt_ring = tr == 16 && qr == kDense;
+  const bool stage_rows = !dense && tr <= 8 && !wide;
   const size_t nw = sh.threads / 32;
   size_t fq;
   if (same) {
@@ -63,20 +79,24 @@ extern "C" size_t fused_query_smem_bytes(int LT, int N, int D, int RQ,
   } else if (dense || qdense) {
     fq = DF <= kDenseStage ? (size_t)DF : 0;
   } else {
-    fq = qtt ? (size_t)N * RQ * D * RQ : (size_t)N * D * RQ;
+    fq = wide ? (size_t)N * RQ * wide_row(D, RQ)
+         : qtt ? (size_t)N * RQ * D * RQ : (size_t)N * D * RQ;
   }
-  size_t fc = !stage_rows ? 0
-              : tt ? (size_t)N * RC * D * RC : (size_t)N * D * RC;
+  size_t fc = stage_rows ? (tt ? (size_t)N * RC * D * RC : (size_t)N * D * RC)
+              : wide && ring ? (size_t)N * D * RC : 0;
   fc = (fc + 3) & ~(size_t)3;
   const size_t sw =
       same ? (tt ? 2 * (size_t)max(RQ * RC + RC * RC, RQ * RQ) : 0)
-      : sh.tt_pair ? 0
+      : sh.tt_pair || tt_ring ? 0
+      : wide ? (size_t)RQ * RQ + (size_t)RQ * D * RQ
       : tt ? 2 * (size_t)max(qdense ? 0 : RQ * RC, RC * RC)
       : qtt ? 2 * (size_t)max(sh.one_state ? 0 : RQ * RC, RQ * RQ) : 0;
   const size_t nsw = sh.one_state ? 1 : nw;
   size_t rw = max((size_t)3 * wcap, nw * 2 * (size_t)C);
   rw = (rw + 3) & ~(size_t)3;
-  const size_t rs = ring && dense ? (size_t)ring_slot(same ? D : DF) : 0;
+  const size_t rs = ring && (dense || tt_ring)
+                        ? (size_t)row_slot(tr, qr, N, D, RC, same ? D : DF)
+                        : 0;
   const size_t slots = rs ? nw * (rs + 2) : 0;
   return (slots + nw * sh.buffers * sh.per_warp * fc + fq + nsw * sw + rw) *
              4 +
@@ -125,10 +145,11 @@ extern "C" int fused_query_launch(
         (fmt == 2 && DF > kDenseStage && qscratch == nullptr))))
     return (int)cudaErrorInvalidValue;
   // the caller sized the window with its own copy of the block's shape and
-  // shared bytes (with the dense rows' ring or without it): a launch
-  // planned with others is refused
+  // shared bytes (with the row slots or without them): a launch planned
+  // with others is refused
   const int row = same ? D : DF;  // a dense corpus's row
-  const bool ring = fmt == 2 && ring_slot(row) &&
+  const int slot = row_slot(tr, qr, N, D, RC, row);
+  const bool ring = slot &&
                     smem == fused_query_smem_bytes(L * T, N, D, RQ, RC, wcap,
                                                    fmt, qfmt, topk, C, DF, 1);
   const ShapeOf sh = shape_of(tr, qr);
@@ -141,7 +162,7 @@ extern "C" int fused_query_launch(
                  e2, euclid, w, qs, wcap, static_cast<uint32_t*>(scratch),
                  scap, static_cast<unsigned long long*>(scratch_queries),
                  static_cast<float*>(qscratch), dims, DF,
-                 ring ? ring_slot(row) : 0};
+                 ring ? slot : 0};
   if (!same) return fused_query_mixed_launch(tr, qr, a, smem, st);
   switch (tr) {
     case 0: return launch<0, 0>(a, smem, st);

@@ -195,14 +195,32 @@
 //     16>) stepped cp_tt_chain a row a warp on 8 warps: 16.7k cycles a
 //     candidate a warp, the re-rank 75% of the cycles, and the prologue,
 //     where warp 0 ran qq's chain through its rank-16 template, 16%;
-//   * TT rows of ranks 5-16, or longer than kTTPairRow (<16, 0>, <16,
-//     kDense>, rows read in place): dense queries, lanes
-//     take prefixes, each the chain's row vector through the first N - 1
-//     cores, then the last core's d entries against the query's; CP
-//     queries, and TT queries of ranks 5-16 or over longer CP rows (<0,
-//     16>), one warp steps an (R^ x r) state through the modes, S'[q][e] =
-//     sum_i A[i][q] sum_x S[q][x] G[x][i][e], in the TT branch's state
-//     buffer, then sums S[q][0].
+//   * TT queries of ranks 5-16, or of ranks <= 4 over CP rows longer than
+//     kCPPairRow (<0, 16>, wide): the same loop (12 warps, two rows a warp
+//     in two buffers, staged where the plan found room, else read in
+//     place), qy by cp_tt_wide: a row a half-warp, lane (q, e) holding
+//     S[q][e] for one or two CP ranks, per mode the 2E independent d-long
+//     sums m[q][x] = sum_i A[i][q] G[x][i][e] over the query's cores staged
+//     at an odd row stride (wide_row), then S'[q][e] = sum_x S[q][x]
+//     m[q][x] by shuffles; qq by the whole block after the keys
+//     (block_tt_self). The first design stepped cp_tt_chain a row a warp
+//     on 8 warps, its state in shared memory: 18.8k cycles a candidate a
+//     warp at TT rank 8, and qq's chain on warp 0 was 32% of the cycles;
+//   * dense queries over TT rows of ranks 5-16, or of ranks <= 4 longer
+//     than kTTPairRow (<16, kDense>, tt_ring): 8 warps, a row a warp
+//     through a ring slot (rows of at most kTTRingRow whole float4s, where
+//     the plan fits them; else read in place), taken from the shared
+//     counter as the dense instantiation takes them; qy and yy by
+//     dense_tt_row, mode 1 first: lanes on the query row's columns (d_1 x
+//     P), each column's weight G_2[:, i_2, :] ... G_N[:, i_N, 0] at the
+//     row's rank, then the row's entries, qy the query against them and
+//     yy their squares. The first design (prefixes a lane, decoded by
+//     division, 16 x 16 predicated steps over cores read in place, yy by a
+//     16-wide chain in shared memory) took 815k cycles a candidate a warp;
+//   * CP queries over TT rows of ranks 5-16, or longer than kTTPairRow
+//     (<16, 0>, rows read in place): one warp steps an (R^ x r) state
+//     through the modes, S'[q][e] = sum_i A[i][q] sum_x S[q][x] G[x][i][e],
+//     in the warp's state buffer, then sums S[q][0]; yy by tt_chains.
 // The others score one candidate a warp (8 warps, 2 blocks a SM). The
 // bound is the same bytes as the same-format branches plus the reference's
 // operations a candidate: its left-to-right sweeps over the dense operand, sum_k 2 R prod_{j>=k} d_j for dense x CP and
@@ -254,7 +272,7 @@ struct K1Args {
   float* qscratch;
   const int* dims;
   int DF;
-  int RS;  // the dense rows' ring slot (floats), 0: rows read in place
+  int RS;  // the row slot (floats) the plan keeps (RSLOT), 0: none
 };
 
 // The cross-format instantiations (QR != TR), in fused_query_mixed.cu:
@@ -285,8 +303,13 @@ constexpr int kTTPairRow = 1024;
 // CP rows stage (cp_pair, <0, 4>): 48 such rows (12 warps, two rows a warp,
 // two buffers) are 48 KiB, which leaves room at two blocks a SM for the
 // window, the lists and the query's cores (at most 16 * N * D floats);
-// longer rows go to <0, 16>, which stages one row a warp
+// longer rows go to <0, 16>
 constexpr int kCPPairRow = 256;
+// the longest TT row (floats) dense queries over TT rows of ranks 5-16 (or
+// past kTTPairRow, <16, kDense>) copy into a warp's ring slot: a rank-8 row
+// of [tt8]'s (12, 12, 12); eight such slots beside the query row and the
+// window fit two blocks a SM; longer rows are read in place
+constexpr int kTTRingRow = 2304;
 // Threads of one query's block, the blocks per SM each instantiation is
 // built for (its __launch_bounds__; the wrapper sizes the shared window so
 // that they fit) and the candidates a warp scores at once: CP 12 warps, 2
@@ -298,9 +321,10 @@ constexpr int kCPPairRow = 256;
 // dense rows at once or one CP / TT row; dense queries over CP rows 12
 // warps (80 registers), two CP rows a warp; CP or dense queries over TT rows
 // of ranks <= 4 and at most kTTPairRow floats (tt_pair) 12 warps, two TT rows
-// a warp staged in one buffer; TT queries of ranks <= 4 over CP rows of at
-// most kCPPairRow floats (cp_pair, <0, 4>) 12 warps, two CP rows a warp in
-// two buffers; CP or TT queries over dense rows the dense instantiation's
+// a warp staged in one buffer; TT queries over CP rows (cp_pair, <0, 4> and
+// <0, 16>) 12 warps, two CP rows a warp in two buffers; dense queries over
+// TT rows of ranks 5-16 (tt_ring) 8 warps, a ring slot a warp; CP or TT
+// queries over dense rows the dense instantiation's
 // shape (buffers: the row buffers a warp keeps for each candidate it scores,
 // two where the next rows are staged while the current ones are scored;
 // one_state: the block keeps one TT chain state, the query's own, and not
@@ -309,7 +333,12 @@ template <int TR, int QR>
 struct Shape {
   static constexpr bool same = TR == QR;
   static constexpr bool tt_pair = !same && TR == 4;
-  static constexpr bool cp_pair = TR == 0 && QR == 4;
+  // TT queries over CP rows, two rows a warp: ranks <= 4 (<0, 4>) and
+  // ranks 5-16 or longer rows (<0, 16>, wide: cp_tt_wide)
+  static constexpr bool cp_pair = TR == 0 && QR > kDense;
+  // dense queries over TT rows of ranks 5-16 or longer than kTTPairRow:
+  // rows of at most kTTRingRow floats through a ring slot a warp
+  static constexpr bool tt_ring = TR == 16 && QR == kDense;
   static constexpr bool one_state = !same && QR > kDense &&
                                     (TR == kDense || cp_pair);
   static constexpr int per_warp =
@@ -341,6 +370,13 @@ struct Shape {
 // rows read in place).
 __host__ __device__ constexpr int ring_slot(int D) {
   return (D & 3) == 0 && D <= kRingRow ? D : 0;
+}
+
+// Floats of <16, kDense>'s ring slot for TT rows of FC floats (N * RC * D *
+// RC): FC where the rows are whole float4s of at most kTTRingRow floats,
+// else 0 (rows read in place).
+__host__ __device__ constexpr int tt_ring_slot(int FC) {
+  return (FC & 3) == 0 && FC <= kTTRingRow ? FC : 0;
 }
 
 __device__ __forceinline__ float scale_mul(float s, float v) {
@@ -1104,37 +1140,6 @@ __device__ __forceinline__ void dense_cp_sweep(const float* q,
   for (int k = 0; k < G; ++k) qy[k] = warp_sum(acc[k]);
 }
 
-// qy = <q, Y> over a dense query row q of DF floats and a TT row g (N, R, D,
-// R), ranks at most B (inner_dense_tt, scale not applied), to every lane:
-// lanes take the prefixes (i_1 .. i_{N-1}), each the chain's row vector
-// through the first N - 1 cores, then the last core's d entries against the
-// query's.
-template <int B>
-__device__ float dense_tt_dot(const float* q, const float* g, int R, int N,
-                              int D, const int* dims, int DF, int lane) {
-  const int dl = __ldg(dims + N - 1);
-  const float* gl = g + (size_t)(N - 1) * R * D * R;
-  int ix[kMaxModes];
-  float acc = 0.f;
-  for (int p = lane; p < DF / dl; p += 32) {
-    unravel(p, dims, N - 1, ix);
-    float v[B];
-#pragma unroll
-    for (int c = 0; c < B; ++c) v[c] = c == 0 ? 1.f : 0.f;
-    for (int n = 0; n < N - 1; ++n)
-      tt_row_step<B>(v, g + (size_t)n * R * D * R, R, D, ix[n]);
-    const float* qp = q + (size_t)p * dl;
-    for (int j = 0; j < dl; ++j) {
-      float w = 0.f;
-#pragma unroll
-      for (int a = 0; a < B; ++a)
-        if (a < R) w = fmaf(v[a], gl[((size_t)a * D + j) * R], w);
-      acc = fmaf(qp[j], w, acc);
-    }
-  }
-  return warp_sum(acc);
-}
-
 // <A, G> of a CP row a (N, D, RA) and a TT row g (N, RG, D, RG) (inner_cp_tt,
 // scales not applied), to every lane: one warp steps the (RA x RG) state,
 // lane p owning entries (q, e), kept in st (2 * RA * RG floats: the state and
@@ -1344,6 +1349,68 @@ __device__ __forceinline__ void tt_column_weight(const float* g, int r,
   }
 }
 
+// The wide branches (TT ranks up to 16: <0, 16>, <16, kDense>) are
+// templated on E, a bound of the row's or the query's stacked rank r (4, 8
+// or 16; the runtime rank picks the instantiation).
+
+// v[c] = p[c] for c < r, zeros past it: float4 loads where V4 (r % 4 == 0
+// and p 16-byte aligned), else one load a rank.
+template <int E, bool V4>
+__device__ __forceinline__ void load_ranks(float* v, const float* p, int r) {
+#pragma unroll
+  for (int c4 = 0; c4 < E; c4 += 4) {
+    if constexpr (V4) {
+      float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (c4 < r) x = *reinterpret_cast<const float4*>(p + c4);
+      v[c4] = x.x;
+      v[c4 + 1] = x.y;
+      v[c4 + 2] = x.z;
+      v[c4 + 3] = x.w;
+    } else {
+#pragma unroll
+      for (int c = c4; c < c4 + 4; ++c) v[c] = c < r ? p[c] : 0.f;
+    }
+  }
+}
+
+// The weight of column p of a dense row read as (d_1, P) against a TT row
+// g (N, r, D, r), ranks at most E: w = G_2[:, i_2, :] ... G_N[:, i_N, 0],
+// right to left by r-long FMA chains, the slices i_n = ct[(n - 1) * P + p]
+// - n * D from the column table. tt_column_weight is this at E = 4, kept
+// apart: every shared form measured slowed <4, kDense> or <16, kDense>, or
+// made <16, kDense> spill (PERF.md, section 7).
+template <int E, bool V4>
+__device__ __forceinline__ void tt_weight(const float* g, int r, int N, int D,
+                                          size_t core, const int* ct, int P,
+                                          int p, float* w) {
+#pragma unroll
+  for (int c = 0; c < E; ++c) w[c] = c == 0 ? 1.f : 0.f;
+  if (N == 1) return;
+  const size_t dr = (size_t)D * r;
+  const int il = __ldg(ct + (size_t)(N - 2) * P + p) - (N - 1) * D;
+  const float* gl = g + (N - 1) * core + (size_t)il * r;
+#pragma unroll
+  for (int c = 0; c < E; ++c) w[c] = c < r ? gl[c * dr] : 0.f;
+  for (int n = N - 2; n >= 1; --n) {
+    const int in = __ldg(ct + (size_t)(n - 1) * P + p) - n * D;
+    const float* gn = g + n * core + (size_t)in * r;
+    float nv[E];
+#pragma unroll
+    for (int a = 0; a < E; ++a) {
+      float u = 0.f;
+      if (a < r) {
+        float ga[E];
+        load_ranks<E, V4>(ga, gn + a * dr, r);
+#pragma unroll
+        for (int c = 0; c < E; ++c) u = fmaf(ga[c], w[c], u);
+      }
+      nv[a] = u;
+    }
+#pragma unroll
+    for (int a = 0; a < E; ++a) w[a] = nv[a];
+  }
+}
+
 // <q, Y> over a dense query row q of DF floats and a TT row g (N, RC, D, RC)
 // of ranks at most 4 (inner_dense_tt, scale not applied), on a half-warp,
 // to every lane of the half, in the reference's order: mode 1 first. The
@@ -1389,6 +1456,252 @@ __device__ __forceinline__ float dense_tt_sweep(const float* q,
   return acc;
 }
 
+// qy = <q, Y> and yy = <Y, Y> of a dense query row q of DF floats and a TT
+// row g (N, r, D, r), ranks at most E (inner_dense_tt, scales not applied),
+// on a whole warp, to every lane, mode 1 first: the row reads as (d_1, P),
+// P = DF / d_1 the columns (i_2 .. i_N); lane l takes the columns p = l,
+// l + 32, ..., two at a time: each column's weight w (tt_weight), then the
+// row's entries y[i, p] = sum_c G_1[0][i][c] w[c], each G_1 rank row a load
+// the lane's columns share (two at a time, one at rank 16, where two
+// columns' weights would not fit the registers), and qy += q[i, p] y, yy +=
+// y y; a butterfly ends both. The query is read at consecutive columns (no
+// stride, no division), and yy is the sum of the squared entries the sweep
+// forms anyway, instead of a chain of its own.
+template <int E, bool V4>
+__device__ __forceinline__ void dense_tt_row(const float* q, const float* g,
+                                             int r, int N, int D,
+                                             const int* dims, int DF,
+                                             int lane, float* qy, float* yy) {
+  constexpr int CG = E == 16 ? 1 : 2;  // columns a lane takes at once
+  const int d1 = __ldg(dims);
+  const int P = DF / d1;
+  const int* ct = dims + N;
+  const size_t core = (size_t)r * D * r;
+  float aq = 0.f, ay = 0.f;
+  for (int p0 = lane; p0 < P; p0 += 32 * CG) {
+    bool on[CG];
+    float w[CG][E];
+#pragma unroll
+    for (int k = 0; k < CG; ++k) {
+      on[k] = p0 + 32 * k < P;
+      tt_weight<E, V4>(g, r, N, D, core, ct, P, on[k] ? p0 + 32 * k : p0,
+                       w[k]);
+    }
+    const float* qi = q + p0;
+#pragma unroll 2
+    for (int i = 0; i < d1; ++i, qi += P) {
+      float gv[E];
+      load_ranks<E, V4>(gv, g + (size_t)i * r, r);
+#pragma unroll
+      for (int k = 0; k < CG; ++k) {
+        float y = 0.f;
+#pragma unroll
+        for (int c = 0; c < E; ++c) y = fmaf(gv[c], w[k][c], y);
+        if (on[k]) {
+          aq = fmaf(qi[32 * k], y, aq);
+          ay = fmaf(y, y, ay);
+        }
+      }
+    }
+  }
+  *qy = warp_sum(aq);
+  *yy = warp_sum(ay);
+}
+
+// dense_tt_row at the row's rank bound (4, 8 or 16), float4 rank rows
+// where the rank is a multiple of 4 and the row 16-byte aligned.
+__device__ __forceinline__ void dense_tt_rows(const float* q, const float* g,
+                                              int r, int N, int D,
+                                              const int* dims, int DF,
+                                              int lane, float* qy,
+                                              float* yy) {
+  const bool v4 = (r & 3) == 0 &&
+                  (reinterpret_cast<uintptr_t>(g) & 15) == 0;
+  if (r <= 4) {
+    if (v4) dense_tt_row<4, true>(q, g, r, N, D, dims, DF, lane, qy, yy);
+    else dense_tt_row<4, false>(q, g, r, N, D, dims, DF, lane, qy, yy);
+  } else if (r <= 8) {
+    if (v4) dense_tt_row<8, true>(q, g, r, N, D, dims, DF, lane, qy, yy);
+    else dense_tt_row<8, false>(q, g, r, N, D, dims, DF, lane, qy, yy);
+  } else {
+    if (v4) dense_tt_row<16, true>(q, g, r, N, D, dims, DF, lane, qy, yy);
+    else dense_tt_row<16, false>(q, g, r, N, D, dims, DF, lane, qy, yy);
+  }
+}
+
+// The row stride of a TT query's cores staged by <0, 16> (cp_tt_wide): the
+// cores (N, r, D, r) with each rank row G[x] (D * r floats) padded to an
+// odd stride, so that the last mode's lanes, one a rank x, read G[x][i][0]
+// from distinct banks.
+__host__ __device__ constexpr int wide_row(int D, int r) { return (D * r) | 1; }
+
+// <A, G> of a CP row a (N, D, RA) and a TT query g staged at the wide_row
+// stride (N, r, D, r), ranks at most E = 8 or 16 (inner_cp_tt, scales not
+// applied), on a half-warp, to every lane of the half. Half-lane h = E ql +
+// e owns entries (q, e) of the (R^ x r) state S for the CP ranks q = q0 +
+// ql and q0 + ql + 2 of a chunk at E = 8 (one rank at E = 16), in
+// registers. Mode 1 (r_0 = 1): S[q][e] = sum_i A[i][q] G[0][i][e]. A middle
+// mode: per x, m[q][x] = sum_i A[i][q] G[x][i][e], 16 independent d-long
+// chains at a time (the ranks x in blocks of eight; the lanes' G loads at
+// consecutive e, a load both q's and the other half share), then S'[q][e]
+// = sum_x S[q][x] m[q][x], S[q][x] shuffled from lane (ql, x): no state in
+// shared memory and no __syncwarp a mode; at most 16 sums live, so the
+// branch keeps to 80 registers. The last mode (r_N = 1): lane
+// (ql, e) takes the rank x = e, S[q][e] sum_i A[i][q] G[e][i][0], and a
+// butterfly over the half adds them -> sum_q S'[q][0].
+template <int E>
+__device__ __forceinline__ float cp_tt_wide(const float* a, int RA,
+                                            const float* g, int r, int N,
+                                            int D, int h) {
+  static_assert(E == 8 || E == 16, "ranks up to 8, or up to 16");
+  constexpr int QN = 16 / E;          // q lanes of the half
+  constexpr int K = E == 16 ? 1 : 2;  // CP ranks a lane takes at once
+  constexpr int XB = 8;               // ranks x a block of sums takes
+  const int ql = h / E, e = h - ql * E;
+  const int xs = wide_row(D, r);
+  const size_t core = (size_t)r * xs;
+  const int ec = min(e, r - 1);
+  float total = 0.f;
+  for (int q0 = 0; q0 < RA; q0 += K * QN) {
+    int qk[K];
+    bool live[K];
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      qk[k] = q0 + ql + QN * k;
+      live[k] = qk[k] < RA && e < r;
+      qk[k] = min(qk[k], RA - 1);
+    }
+    float s[K];
+    {  // mode 1, from S = e_0
+      float acc[K] = {};
+      const float* g0 = g + ec;
+      for (int i = 0; i < D; ++i) {
+        const float gv = g0[(size_t)i * r];
+#pragma unroll
+        for (int k = 0; k < K; ++k)
+          acc[k] = fmaf(a[(size_t)i * RA + qk[k]], gv, acc[k]);
+      }
+#pragma unroll
+      for (int k = 0; k < K; ++k) s[k] = e < r ? acc[k] : 0.f;
+    }
+    for (int n = 1; n < N; ++n) {
+      const float* an = a + (size_t)n * D * RA;
+      const float* gn = g + n * core;
+      if (n == N - 1) {
+        const float* gx = gn + (size_t)ec * xs;  // G[e][i][0]
+        float acc[K] = {};
+        for (int i = 0; i < D; ++i) {
+          const float gv = gx[(size_t)i * r];
+#pragma unroll
+          for (int k = 0; k < K; ++k)
+            acc[k] = fmaf(an[(size_t)i * RA + qk[k]], gv, acc[k]);
+        }
+#pragma unroll
+        for (int k = 0; k < K; ++k) s[k] = __fmul_rn(s[k], acc[k]);
+        break;
+      }
+      float ns[K] = {};
+#pragma unroll
+      for (int x0 = 0; x0 < E; x0 += XB) {
+        float m[K][XB];
+#pragma unroll
+        for (int k = 0; k < K; ++k)
+#pragma unroll
+          for (int x = 0; x < XB; ++x) m[k][x] = 0.f;
+        const float* ge = gn + (size_t)x0 * xs + ec;
+#pragma unroll 1
+        for (int i = 0; i < D; ++i) {
+          float av[K];
+#pragma unroll
+          for (int k = 0; k < K; ++k) av[k] = an[(size_t)i * RA + qk[k]];
+#pragma unroll
+          for (int x = 0; x < XB; ++x) {
+            const float gv =
+                x0 + x < r ? ge[(size_t)x * xs + (size_t)i * r] : 0.f;
+#pragma unroll
+            for (int k = 0; k < K; ++k) m[k][x] = fmaf(av[k], gv, m[k][x]);
+          }
+        }
+#pragma unroll
+        for (int x = 0; x < XB; ++x) {
+#pragma unroll
+          for (int k = 0; k < K; ++k) {
+            const float sx = __shfl_sync(kFull, s[k], ql * E + x0 + x, 16);
+            ns[k] = fmaf(sx, m[k][x], ns[k]);
+          }
+        }
+      }
+#pragma unroll
+      for (int k = 0; k < K; ++k) s[k] = e < r ? ns[k] : 0.f;
+    }
+    if (N == 1) {  // sum_q S[q][0]
+#pragma unroll
+      for (int k = 0; k < K; ++k) s[k] = e == 0 ? s[k] : 0.f;
+    }
+#pragma unroll
+    for (int k = 0; k < K; ++k)
+      if (live[k]) total += s[k];
+  }
+#pragma unroll
+  for (int o = 8; o > 0; o >>= 1) total += __shfl_xor_sync(kFull, total, o, 16);
+  return total;
+}
+
+// <G, G> of a TT query g (N, r, D, r) staged at the wide_row stride (scale
+// not applied), by the whole block: per mode T[x][i][e] = sum_y S[x][y]
+// G[y][i][e], a thread an entry, then S'[c][e] = sum_i sum_x G[x][i][c]
+// T[x][i][e], four threads an entry (the slices i = j, j + 4, ... each,
+// then a butterfly over the four), both in shared memory (st: r^2 + r D r
+// floats), from S = e_00 -> S[0][0] to every thread. Two block barriers a
+// mode instead of one warp's chain of 16-wide steps (at rank 8, 140k
+// cycles of a [mixed tt8 x cp] prologue that the other warps waited for).
+template <int kThreads>
+__device__ float block_tt_self(const float* g, int r, int N, int D,
+                               float* st, int tid) {
+  static_assert(kThreads % 32 == 0, "whole warps take part in the shuffles");
+  const int xs = wide_row(D, r), dr = D * r;
+  const size_t core = (size_t)r * xs;
+  float* const S = st;          // [r][r]
+  float* const T = st + r * r;  // [r][D][r]
+  for (int p = tid; p < r * r; p += kThreads) S[p] = p == 0 ? 1.f : 0.f;
+  __syncthreads();
+  for (int n = 0; n < N; ++n) {
+    const float* gn = g + n * core;
+    for (int p = tid; p < r * dr; p += kThreads) {
+      const int x = p / dr, ie = p - x * dr;
+      float u = 0.f;
+      for (int y = 0; y < r; ++y)
+        u = fmaf(S[x * r + y], gn[(size_t)y * xs + ie], u);
+      T[p] = u;
+    }
+    __syncthreads();
+    for (int t0 = 0; t0 < 4 * r * r; t0 += kThreads) {
+      const int t = t0 + tid, p = t >> 2, j = t & 3;
+      float acc = 0.f;
+      if (p < r * r) {
+        const int c = p / r, e = p - c * r;
+        for (int i = j; i < D; i += 4)
+          for (int x = 0; x < r; ++x)
+            acc = fmaf(gn[(size_t)x * xs + i * r + c], T[x * dr + i * r + e],
+                       acc);
+      }
+      acc += __shfl_xor_sync(kFull, acc, 1);
+      acc += __shfl_xor_sync(kFull, acc, 2);
+      if (p < r * r && j == 0) S[p] = acc;
+    }
+    __syncthreads();
+  }
+  return S[0];
+}
+
+// cp_tt_wide at the query's rank bound (8, ranks <= 4 too, or 16).
+__device__ __forceinline__ float cp_tt_wides(const float* a, int RA,
+                                             const float* g, int r, int N,
+                                             int D, int h) {
+  if (r <= 8) return cp_tt_wide<8>(a, RA, g, r, N, D, h);
+  return cp_tt_wide<16>(a, RA, g, r, N, D, h);
+}
+
 // <A, A> of a CP row (N, D, R) by its Grams (scale not applied), to every
 // lane: lane p takes the (r, q) terms p, p + 32, ...
 __device__ __forceinline__ float cp_self(const float* a, int R, int N, int D,
@@ -1414,8 +1727,10 @@ __device__ __forceinline__ float cp_self(const float* a, int R, int N, int D,
 // DF / dims[0]: column_table in fused_query.py), DF their product (the
 // dense operand's row),
 // and qscratch (B, DF) floats holds the densified CP or TT queries over dense
-// rows longer than kDenseStage (nullptr otherwise). RSLOT: the dense rows'
-// ring slot in floats (the launch's plan: ring_slot(D) or 0).
+// rows longer than kDenseStage (nullptr otherwise). RSLOT: the row slot in
+// floats the launch's plan keeps, or 0 (rows read in place): the dense
+// rows' ring slot (ring_slot), <16, kDense>'s TT rows' (tt_ring_slot),
+// <0, 16>'s staged CP row.
 template <int TR, int QR>
 __global__ void __launch_bounds__(Shape<TR, QR>::threads,
                                   Shape<TR, QR>::min_blocks)
@@ -1443,14 +1758,19 @@ fused_query_kernel(
   // the warps' ring slots where they fit one; the dense-row instances (any
   // query format) also search a bucket's two bounds at once and merge the
   // warps' lists by flat ranks
-  constexpr bool stage_rows = !dense && TR <= 8;
-  constexpr bool ring_rows = dense;
+  constexpr bool stage_rows = !dense && TR <= 8 && !(TR == 0 && QR == 16);
+  // dense queries over TT rows of ranks 5-16 take their rows through ring
+  // slots too (Shape::tt_ring), where the plan gave them one
+  constexpr bool tt_ring = Shape<TR, QR>::tt_ring;
+  constexpr bool ring_rows = dense || tt_ring;
   // CP or dense queries over TT rows of ranks <= 4: two rows a warp, a row
   // a half-warp, staged in one buffer
   constexpr bool tt_pair = Shape<TR, QR>::tt_pair;
-  // TT queries of ranks <= 4 over CP rows: two rows a warp, a row a
-  // half-warp, staged in two buffers
+  // TT queries over CP rows: two rows a warp, a row a half-warp, staged in
+  // two buffers (wide, <0, 16>: where the plan gave them room, RSLOT the
+  // staged row's floats, else read in place)
   constexpr bool cp_pair = Shape<TR, QR>::cp_pair;
+  constexpr bool wide = cp_pair && QR == 16;
   constexpr int kBufs = Shape<TR, QR>::buffers;
   constexpr int kThreads = Shape<TR, QR>::threads;
   constexpr int nwarps = kThreads / 32;
@@ -1461,10 +1781,13 @@ fused_query_kernel(
   // floats of a query row as given
   const int FQ = qtt ? N * RQ * D * RQ : !same && qdense ? DF : N * D * RQ;
   // floats of the query row staged in shared memory: all but a long dense
-  // one, or a CP / TT query's densified row up to kDenseStage floats
+  // one, or a CP / TT query's densified row up to kDenseStage floats; the
+  // wide branch's TT query at the wide_row stride
   const int FQS = densify ? (DF <= kDenseStage ? DF : 0)
-                          : !qdense || FQ <= kDenseStage ? FQ : 0;
-  const int FCMAX = !stage_rows ? 0
+                  : wide ? N * RQ * wide_row(D, RQ)
+                  : !qdense || FQ <= kDenseStage ? FQ : 0;
+  const int FCMAX = wide ? RSLOT
+                    : !stage_rows ? 0
                     : ((tt ? N * RCMAX * D * RCMAX : N * D * RCMAX) + 3) & ~3;
   // each warp's TT chain states: the same-format pair's two chains, a cross
   // pair's CP x TT state beside the TT operand's own chain (none for a TT
@@ -1473,7 +1796,8 @@ fused_query_kernel(
   constexpr bool one_state = Shape<TR, QR>::one_state;
   const int SW = same ? (tt ? 2 * max(RQ * RCMAX + RCMAX * RCMAX, RQ * RQ)
                             : 0)
-                 : tt_pair ? 0
+                 : tt_pair || tt_ring ? 0
+                 : wide ? RQ * RQ + RQ * D * RQ  // block_tt_self
                  : tt ? 2 * max(qdense ? 0 : RQ * RCMAX, RCMAX * RCMAX)
                  : qtt ? 2 * max(one_state ? 0 : RQ * RCMAX, RQ * RQ) : 0;
   const int RW = (max(3 * wcap, nwarps * 2 * C) + 3) & ~3;
@@ -1523,6 +1847,13 @@ fused_query_kernel(
       densify_cp<kThreads>(x, RQ, N, D, dims, DF, out, tid);
     }
     qrow = out;
+  } else if constexpr (wide) {
+    // the query's rank rows G[x] (D * RQ floats) at the wide_row stride
+    const int dr = D * RQ, xs = wide_row(D, RQ);
+    for (int x = warp; x < N * RQ; x += nwarps)
+      for (int i = lane; i < dr; i += 32)
+        qf[(size_t)x * xs + i] = q[(size_t)b * FQ + (size_t)x * dr + i];
+    qrow = qf;
   } else {
     for (int i = tid; i < FQS; i += kThreads) qf[i] = q[(size_t)b * FQ + i];
     qrow = FQS ? qf : q + (size_t)b * FQ;
@@ -1614,12 +1945,12 @@ fused_query_kernel(
       __syncwarp();
     }
   }
-  // qq of a CP or TT query over dense rows, or of a TT query over CP rows
-  // in the CP pair branch: once per query, in the query's format, from its
+  // qq of a CP or TT query over dense rows, or of a TT query of rank <= 4
+  // over CP rows (<0, 4>): once per query, in the query's format, from its
   // row as given, by the last warp (which L < nwarps tables leave idle)
   // beside the keys
   constexpr bool early_qq = densify || cp_pair;
-  if constexpr (early_qq) {
+  if constexpr (early_qq && !wide) {
     if (warp == nwarps - 1) {
       const float* const qown = q + (size_t)b * FQ;
       float t;
@@ -1631,6 +1962,10 @@ fused_query_kernel(
     }
   }
   __syncthreads();
+  if constexpr (wide) {  // <0, 16>: qq by the whole block after the keys
+    const float t = block_tt_self<kThreads>(qf, RQ, N, D, sbuf, tid);
+    if (tid == 0) qq_s = scale_mul((float)(qs * qs), t);
+  }
   if (!early_qq && warp == 0) {  // qq once per query, in the query's format
     float t = 0.f;
     if constexpr (!same) {
@@ -1782,9 +2117,13 @@ fused_query_kernel(
         const int eff = __ldg(g.eff + c);
         mbar_wait(bars + warp, ring_phase);
         ring_phase ^= 1u;
-        const float* yr[1] = {slot};
         float tqy, tyy;
-        dense_dots<1, false>(qrow, yr, FC, true, lane, &tqy, &tyy);
+        if constexpr (tt_ring) {
+          dense_tt_rows(qrow, slot, RC, N, D, dims, DF, lane, &tqy, &tyy);
+        } else {
+          const float* yr[1] = {slot};
+          dense_dots<1, false>(qrow, yr, FC, true, lane, &tqy, &tyy);
+        }
         const unsigned long long key =
             select_key(qq, tqy, tyy, s_qy, s_yy, euclid, eff);
         if (key < thr) thr = topk_insert(wl, topk, key, lane);
@@ -1850,8 +2189,10 @@ fused_query_kernel(
       const int h = lane & 15;
       // a rank-4 query's rank rows are 16-byte loads where qf is aligned
       const bool qv4 = RQ == 4 && (reinterpret_cast<uintptr_t>(qf) & 15) == 0;
+      // the wide branch reads its rows in place where the plan staged none
+      const bool staged = !wide || FCMAX != 0;
       int j = warp * 2;
-      if (j < n_cand) {
+      if (staged && j < n_cand) {
         stage_row(yb, g.c + (size_t)cl[j] * FC, FC, vec, lane);
         if (j + 1 < n_cand)
           stage_row(yb + FCMAX, g.c + (size_t)cl[j + 1] * FC, FC, vec, lane);
@@ -1860,7 +2201,7 @@ fused_query_kernel(
       for (int half = 0; j < n_cand; j += 2 * nwarps, half ^= 1) {
         const int jn = j + 2 * nwarps;
         float* const next = yb + (half ^ 1) * 2 * FCMAX;
-        if (jn < n_cand) {
+        if (staged && jn < n_cand) {
           stage_row(next, g.c + (size_t)cl[jn] * FC, FC, vec, lane);
           if (jn + 1 < n_cand)
             stage_row(next + FCMAX, g.c + (size_t)cl[jn + 1] * FC, FC, vec,
@@ -1872,14 +2213,20 @@ fused_query_kernel(
         const int eff1 = two ? __ldg(g.eff + cl[j + 1]) : 0;
         cp_async_wait<1>();  // this pair's rows have landed
         __syncwarp();
-        const float* yh[1] = {yb + (half * 2 + (lane >> 4)) * FCMAX};
+        const float* yh[1] = {
+            staged ? yb + (half * 2 + (lane >> 4)) * FCMAX
+                   : g.c + (size_t)cl[two ? j + (lane >> 4) : j] * FC};
         float tyy = 0.f;
         for (int p = h; p < RC * RC; p += 16)
           pair_terms<1>(yh, RC, yh, RC, N, D, p / RC, p % RC, &tyy);
         for (int o = 8; o > 0; o >>= 1)
           tyy += __shfl_xor_sync(kFull, tyy, o);
-        const float t = qv4 ? cp_tt_half<true>(yh[0], RC, qf, RQ, N, D, h)
-                            : cp_tt_half<false>(yh[0], RC, qf, RQ, N, D, h);
+        float t;
+        if constexpr (wide)
+          t = cp_tt_wides(yh[0], RC, qf, RQ, N, D, h);
+        else
+          t = qv4 ? cp_tt_half<true>(yh[0], RC, qf, RQ, N, D, h)
+                  : cp_tt_half<false>(yh[0], RC, qf, RQ, N, D, h);
         select_pair(t, tyy, eff0, eff1, two, qq_s, scale_s, euclid, wl,
                     topk, lane);
         __syncwarp();  // both rows are read before the buffer is staged again
@@ -1945,19 +2292,12 @@ fused_query_kernel(
         tyy[0] = __shfl_sync(kFull, t, 0);
         tyy[1] = __shfl_sync(kFull, t, 16);
         dense_cp_sweep<G>(qrow, yr, RC, N, dims, DF, lane, tqy);
-      } else if constexpr (!same) {  // a dense, CP or TT query, G = 1
-        if constexpr (tt)
-          tt_chains<TR>(yr[0], RC, yr[0], RC, nullptr, 0, nullptr, 0, N, D,
-                        sb, lane, tyy, tqy);
-        else
-          tyy[0] = cp_self(yr[0], RC, N, D, lane);
-        if constexpr (qdense) {
-          tqy[0] = dense_tt_dot<TR>(qrow, yr[0], RC, N, D, dims, DF, lane);
-        } else if constexpr (tt) {  // a CP query
-          tqy[0] = cp_tt_chain(qf, RQ, yr[0], RC, N, D, sb, lane);
-        } else {  // a TT query
-          tqy[0] = cp_tt_chain(yr[0], RC, qf, RQ, N, D, sb, lane);
-        }
+      } else if constexpr (tt_ring) {  // TT rows read in place, G = 1
+        dense_tt_rows(qrow, yr[0], RC, N, D, dims, DF, lane, tqy, tyy);
+      } else if constexpr (!same && tt && !qdense) {  // CP query, TT rows
+        tt_chains<TR>(yr[0], RC, yr[0], RC, nullptr, 0, nullptr, 0, N, D, sb,
+                      lane, tyy, tqy);
+        tqy[0] = cp_tt_chain(qf, RQ, yr[0], RC, N, D, sb, lane);
       } else if constexpr (tt) {  // G = 1
         if constexpr (TR > 8)
           tt_chains_far<TR>(qf, RQ, yr[0], RC, yr[0], RC, yr[0], RC, N, D,

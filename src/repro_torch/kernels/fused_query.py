@@ -83,8 +83,13 @@ MAX_MODES = 16             # most modes of a cross pair with a dense side
 # stage (kTTPairRow): longer rows go to TR = 16, which reads them in place
 TT_PAIR_ROW = 1024
 # longest CP row (floats) TT queries of ranks <= 4 over CP rows stage
-# (kCPPairRow): longer rows go to QR = 16, which stages one row a warp
+# (kCPPairRow): longer rows go to QR = 16, which stages them where its plan
+# finds room (``slot_plan``), else reads them in place
 CP_PAIR_ROW = 256
+# longest TT row (floats) dense queries over TT rows of ranks 5-16 (or past
+# TT_PAIR_ROW) take through a warp's ring slot (kTTRingRow): a rank-8 row
+# of (12, 12, 12); longer rows are read in place
+TT_RING_ROW = 2304
 # the corpus's and the queries' format codes in the C entries (fmt, qfmt)
 FORMATS = {"cp": 0, "tt": 1, "dense": 2}
 # the six cross-format pairs, (query, corpus) layouts: BranchCounts names
@@ -106,12 +111,13 @@ SHAPES = {
     # the cross-format pairs (csrc/fused_query_mixed.cu): 2 blocks; CP or TT
     # queries over dense rows the dense instantiation's shape; dense queries
     # over CP rows, CP or dense queries over TT rows of ranks <= 4 and TT
-    # queries of ranks <= 4 over CP rows 12 warps, two rows a warp (over TT
-    # rows in one buffer), the others 8
+    # queries over CP rows 12 warps, two rows a warp (over TT rows in one
+    # buffer), the others (CP or dense queries over TT rows of ranks 5-16)
+    # 8, one row a warp
     (DENSE, 0): (384, 2, 1, 2), (DENSE, 16): (384, 2, 1, 2),
     (0, DENSE): (384, 2, 2, 2), (4, DENSE): (384, 2, 2, 1),
     (16, DENSE): (256, 2, 1, 2), (4, 0): (384, 2, 2, 1),
-    (16, 0): (256, 2, 1, 2), (0, 4): (384, 2, 2, 2), (0, 16): (256, 2, 1, 2),
+    (16, 0): (256, 2, 1, 2), (0, 4): (384, 2, 2, 2), (0, 16): (384, 2, 2, 2),
 }
 # the shared window's capacity in slots lies in [MIN_WINDOW, MAX_WINDOW]
 # (or is pow2(L*T*cap) where that is smaller)
@@ -163,6 +169,19 @@ def ring_slot(d: int) -> int:
     return d if d % 4 == 0 and d <= RING_ROW else 0
 
 
+def tt_ring_slot(fc: int) -> int:
+    """Floats of ``<16, kDense>``'s ring slot for TT rows of ``fc`` floats
+    (``tt_ring_slot`` in ``csrc/fused_query.cuh``): ``fc`` where the rows
+    are whole float4s of at most ``TT_RING_ROW`` floats, else 0."""
+    return fc if fc % 4 == 0 and fc <= TT_RING_ROW else 0
+
+
+def wide_row(d: int, r: int) -> int:
+    """The stride (floats) of a TT query's rank rows as ``<0, 16>`` stages
+    them (``wide_row`` in ``csrc/fused_query.cuh``): d * r made odd."""
+    return (d * r) | 1
+
+
 def column_table(dims: tuple, d: int) -> list:
     """The dense x CP re-rank's column table (``dense_cp_sweep``): a dense
     row of ``dims`` read as (d_1, P), P = prod dims[1:], and for each mode
@@ -203,32 +222,42 @@ def smem_bytes(num_tables: int, n_modes: int, d: int, rq: int, rc: int,
     over dense rows, densified (a row with a dense side staged up to
     ``DENSE_STAGE`` floats; over dense rows with ``ring`` a ring slot a warp
     for rows of ``df`` floats), and the chain states of the pair's TT
-    operand (none over TT rows of ranks <= 4: those states live in
-    registers; one for the block where only a TT query's own chain needs
-    one: over dense rows, and over CP rows of ``CP_PAIR_ROW`` floats)."""
+    operand (none over TT rows: those states live in registers; one for the
+    block where only a TT query's own chain needs one: over dense rows, and
+    over CP rows). With ``ring`` (``slot_plan``) dense queries over TT rows
+    of ranks 5-16 (``<16, kDense>``) take them through a ring slot a warp
+    (``tt_ring_slot``), and TT queries over CP rows past ``CP_PAIR_ROW`` or
+    of ranks 5-16 (``<0, 16>``) stage them (else both read them in place);
+    ``<0, 16>`` stages the query's cores at the ``wide_row`` stride."""
     layout = "tt" if tt else "dense" if dense else "cp"
     ql = q_layout or layout
     tr, qr = instance(layout, ql, rq, rc, n_modes, d)
     threads, _, per_warp, buffers = SHAPES[tr, qr]
     nwarps = threads // 32
-    # a candidate row staged: CP rows, TT rows of ranks <= 8
-    fc = 0 if dense or tr > 8 else n_modes * rc * d * (rc if tt else 1)
+    wide, tt_ring = (tr, qr) == (0, 16), (tr, qr) == (16, DENSE)
+    # a candidate row staged: CP rows, TT rows of ranks <= 8; <0, 16>'s
+    # CP rows only with its slots
+    fc = (0 if dense or tr > 8 or (wide and not ring)
+          else n_modes * rc * d * (rc if tt else 1))
     fc = -(-fc // 4) * 4 * per_warp
     # the query row: a row with a dense side (a dense query's, or a CP / TT
     # query's densified over dense rows) staged up to DENSE_STAGE floats
     dense_side = "dense" in (layout, ql)
     fq = (df if dense_side and ql != layout
+          else n_modes * rq * wide_row(d, rq) if wide
           else n_modes * rq * d * (rq if ql == "tt" else 1))
     if dense_side and fq > DENSE_STAGE:
         fq = 0
     # each warp's chain states: a same-format pair's two TT chains; a cross
     # pair's CP x TT state beside its TT operand's own chain; only the TT
     # query's own chain, one for the block (Shape::one_state)
-    one_state = ql == "tt" and (layout == "dense" or (tr, qr) == (0, 4))
+    one_state = ql == "tt" and layout in ("dense", "cp")
     if ql == layout:
         sw = 2 * max(rq * rc + rc * rc, rq * rq) if tt else 0
-    elif tr == 4:
+    elif tr == 4 or tt_ring:
         sw = 0       # the states live in registers
+    elif wide:
+        sw = rq * rq + rq * d * rq    # qq by the block (block_tt_self)
     elif "tt" in (layout, ql):
         rt = rc if tt else rq
         sw = 2 * max(0 if dense_side or one_state else rq * rc, rt * rt)
@@ -236,7 +265,9 @@ def smem_bytes(num_tables: int, n_modes: int, d: int, rq: int, rc: int,
         sw = 0
     region = -(-max(3 * window, nwarps * 2 * expansion) // 4) * 4
     lt = num_tables * probes
-    rs = ring_slot(d if ql == layout else df) if ring and dense else 0
+    rs = (ring_slot(d if ql == layout else df) if ring and dense
+          else tt_ring_slot(n_modes * rc * d * rc) if ring and tt_ring
+          else 0)
     slots = nwarps * (rs + 2) if rs else 0
     return ((slots + nwarps * buffers * fc + fq
              + (1 if one_state else nwarps) * sw + region) * 4
@@ -270,6 +301,34 @@ def ring_plan(num_tables: int, cap: int, d: int, probes: int = 1,
                       topk=topk, expansion=expansion, dense=True,
                       q_layout=ql, df=d if ql else 0, ring=True)
     return _granules(smem) <= _budget(SHAPES[DENSE, DENSE][1])
+
+
+def slot_plan(layout: str, q_layout: str, num_tables: int, cap: int,
+              n_modes: int, d: int, rq: int, rc: int, probes: int = 1,
+              topk: int = 10, expansion: int = 0, df: int = 0) -> bool:
+    """Whether a launch keeps its instantiation's row slots (``smem_bytes``'
+    ``ring``): dense rows through the ring slots (``ring_plan``), TT rows
+    through ``<16, kDense>``'s ring slots (whole float4s of at most
+    ``TT_RING_ROW`` floats) and ``<0, 16>``'s staged CP rows, each where the
+    instantiation's target blocks fit beside the smallest window; otherwise
+    the rows are read in place. The C launch tells the two plans apart by
+    their shared bytes."""
+    if layout == "dense":
+        query = (q_layout, n_modes, d, rq) if q_layout != layout else None
+        return ring_plan(num_tables, cap, df if query else d, probes, topk,
+                         expansion, query)
+    tr_qr = instance(layout, q_layout, rq, rc, n_modes, d)
+    if tr_qr == (16, DENSE):
+        if not tt_ring_slot(n_modes * rc * d * rc):
+            return False
+    elif tr_qr != (0, 16):
+        return False
+    least = min(_pow2_ceil(num_tables * probes * cap), MIN_WINDOW)
+    smem = smem_bytes(num_tables, n_modes, d, rq, rc, least,
+                      tt=layout == "tt", probes=probes, topk=topk,
+                      expansion=expansion, q_layout=q_layout, df=df,
+                      ring=True)
+    return _granules(smem) <= _budget(SHAPES[tr_qr][1])
 
 
 def window_plan(num_tables: int, cap: int, n_modes: int, d: int, rq: int,
@@ -605,10 +664,8 @@ def _plan(layout, num_tables, cap, n, d, rq, rc, probes, topk, expansion,
     follows the table)."""
     kw = dict(tt=layout == "tt", dense=layout == "dense", probes=probes,
               topk=topk, expansion=expansion, q_layout=q_layout, df=df)
-    query = (q_layout, n, d, rq) if q_layout else None
-    kw["ring"] = layout == "dense" and ring_plan(
-        num_tables, cap, df if q_layout else d, probes, topk, expansion,
-        query)
+    kw["ring"] = slot_plan(layout, q_layout or layout, num_tables, cap, n, d,
+                           rq, rc, probes, topk, expansion, df)
     window, scratch = window_plan(num_tables, cap, n, d, rq, rc, **kw)
     return window, scratch, smem_bytes(num_tables, n, d, rq, rc, window,
                                        **kw)

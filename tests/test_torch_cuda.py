@@ -43,8 +43,14 @@ mixed queries at S = 3, equal to the single-device index bit for bit.
 CP and dense queries over TT rows of ranks at most 4 (two rows a warp) at
 TT ranks 1 to 4, ragged, three and four modes, T = 1 and a live window at
 T = 4, a heavy query through the global scratch (bit for bit on integer
-data), K1s at S = 3; TT ranks 5 to 16 beside them.
+data), K1s at S = 3; TT ranks 5 to 16 beside them: TT queries of ranks 5
+to 16 over CP rows (``<0, 16>``) at CP row ranks 1 to 6 and 32, a live
+window, the global scratch and K1s; dense queries over TT rows of ranks
+5 to 16 (``<16, kDense>``) through the ring slots or in place, rows of
+whole floats, a query row past the staged one, K1s.
 """
+
+import math
 
 import pytest
 import torch
@@ -1171,21 +1177,209 @@ def test_fused_query_sharded_cp_pair_matches_plain(gen):
 
 
 @pytest.mark.parametrize("ranks,rc", [((1, 5, 6, 1), 3), ((1, 8, 8, 1), 4),
-                                      ((1, 4, 4, 1), 8)])
+                                      ((1, 4, 4, 1), 8), ((1, 16, 16, 1), 6),
+                                      ((1, 3, 2, 1), 32)])
 def test_fused_query_tt_queries_past_four_over_cp(gen, ranks, rc):
-    """TT queries of ranks 5 to 8 over CP rows, and of rank 4 over CP rows
-    past ``CP_PAIR_ROW`` floats (12 x 12 x 12 at rank 8: 288), keep
-    ``<0, 16>`` (one staged row a warp), against K1's plain version."""
+    """TT queries of ranks 5 to 16 over CP rows, and of rank <= 4 over CP
+    rows past ``CP_PAIR_ROW`` floats (12 x 12 x 12 at rank 8: 288), take
+    ``<0, 16>`` (two rows a warp, staged where the plan finds room: CP rank
+    32's 1,152-float rows are read in place), against K1's plain
+    version."""
     from repro_torch.serving.lsh_service import build_service
     dims, n = (12, 12, 12), 2000
     corpus = cp_random_data(gen, dims, rc, batch=n)
     svc = build_service(gen, "tt-e2lsh", dims, corpus, num_codes=4,
                         num_tables=4, rank=2, bucket_width=2.0)
     assert fq_mod.instance("cp", "tt", max(ranks), rc, 3, 12) == (0, 16)
+    assert fq_mod.slot_plan("cp", "tt", 4, svc.index.cap, 3, 12, max(ranks),
+                            rc, df=1728) == (rc < 32)
     before = fused_query.branches["k1:<0, 16>"]
     nc = _k1_vs_plain(svc, _ragged_tt(gen, dims, ranks, 128), 1)
     assert fused_query.branches["k1:<0, 16>"] == before + 1
     assert int(nc.sum()) > 0
+
+
+def _pad_tt(x, rank):
+    """A TT batch with its interior ranks zero-padded to ``rank``: the same
+    tensor exactly."""
+    cores, last = [], len(x.cores) - 1
+    for k, c in enumerate(x.cores):
+        shape = c.shape[:-3] + (1 if k == 0 else rank, c.shape[-2],
+                                1 if k == last else rank)
+        out = c.new_zeros(shape)
+        out[..., :c.shape[-3], :, :c.shape[-1]] = c
+        cores.append(out)
+    return TTTensor(tuple(cores), x.scale)
+
+
+# (mode dims, TT query ranks, CP row rank): ranks 5, 8, 12, 16 and ragged,
+# CP row ranks 1 to 6 (two chunks a pass at rank 16)
+WIDE_CP_SHAPES = [((12, 12, 12), (1, 5, 5, 1), 1),
+                  ((12, 12, 12), (1, 8, 8, 1), 4),
+                  ((12, 12, 12), (1, 12, 12, 1), 3),
+                  ((12, 12, 12), (1, 16, 16, 1), 2),
+                  ((6, 5, 7), (1, 5, 7, 1), 6),
+                  ((6, 5, 7), (1, 16, 9, 1), 5)]
+
+
+@pytest.mark.parametrize("shape", WIDE_CP_SHAPES, ids=str)
+def test_fused_query_wide_cp_ranks(gen, shape):
+    """TT queries of ranks 5 to 16 over CP rows (``<0, 16>``: two rows a
+    warp, a row a half-warp, the states in registers) against K1's plain
+    version at TT query ranks 5, 8, 12, 16 and ragged, CP row ranks 1 to
+    6, the exact cap at T = 1 and a live window after deletes and an insert
+    at T = 4 (two segments); each launch counted under ``k1:<0, 16>``; a
+    TT query of an item's own entries, zero-padded to the query rank,
+    finds it."""
+    from repro_torch.core.tensor_formats import cp_to_tt
+    from repro_torch.serving.lsh_service import build_service
+    dims, ranks, rc = shape
+    n = 3000
+    corpus = cp_random_data(gen, dims, rc, batch=n)
+    for probes, cap in ((1, None), (4, 16)):
+        svc = build_service(gen, "tt-e2lsh", dims, corpus, num_codes=4,
+                            num_tables=4, rank=2, bucket_width=2.0,
+                            bucket_cap=cap, probes=probes)
+        if cap is not None:
+            svc.delete(list(range(1, n, 9)))
+            svc.insert(cp_random_data(gen, dims, rc, batch=200))
+        q = _ragged_tt(gen, dims, ranks, 192)
+        assert fq_mod.instance("cp", "tt", max(ranks), rc, len(dims),
+                               max(dims)) == (0, 16)
+        before = fused_query.branches["k1:<0, 16>"]
+        nc = _k1_vs_plain(svc, q, probes)
+        assert fused_query.branches["k1:<0, 16>"] == before + 1
+        assert int(nc.sum()) > 0
+        if cap is None and rc <= max(ranks):
+            qid = torch.randint(0, n, (64,), generator=gen, device="cuda")
+            own = _pad_tt(cp_to_tt(corpus.index(qid)), max(ranks))
+            ids, _, _ = svc.index.query_batch(own, topk=1)
+            assert float((ids[:, 0].long() == qid).float().mean()) > 0.95
+
+
+def test_fused_query_wide_cp_scratch_equals_plain(gen):
+    """A heavy rank-8 TT query over CP rows (``<0, 16>``): one item
+    repeated past the largest shared window, so its window goes to the
+    global scratch, in one batch with queries whose windows fit;
+    integer-valued data zero-padded to rank 8 (exact sums in any order), so
+    K1 equals its plain version bit for bit, the repeats tied at distance 0
+    in effective-id order; K1s over S = 3 likewise."""
+    from repro_torch.core.tensor_formats import cp_to_tt
+    from repro_torch.serving.lsh_service import build_service
+    dims, n = (6, 6, 6), 6000
+    dup = 3 * 3 * fq_mod.MAX_WINDOW // 4
+    base = CPTensor(tuple(
+        torch.randint(-1, 2, (n, d, 2), generator=gen, device="cuda").float()
+        for d in dims), 1.0)
+    rows = torch.cat([torch.arange(n, device="cuda"),
+                      torch.zeros(dup, dtype=torch.long, device="cuda")])
+    corpus = _repeat(base, rows[torch.randperm(n + dup, generator=gen,
+                                               device="cuda")])
+    q = _pad_tt(cp_to_tt(_repeat(base, torch.cat([
+        torch.zeros(32, dtype=torch.long, device="cuda"),
+        torch.randint(1, n, (96,), generator=gen, device="cuda")]))), 8)
+    for shards in (None, 3):
+        svc = build_service(gen, "cp-e2lsh", dims, corpus, num_codes=6,
+                            num_tables=4, rank=2, bucket_width=4.0,
+                            shards=shards)
+        kernel = fused_query_sharded if shards else fused_query
+        before = (_scratch_queries(), kernel.branches["k1:<0, 16>"])
+        ids, sc, nc = _bitwise_vs_plain(svc, q, 1)
+        assert 32 <= _scratch_queries() - before[0] < 128
+        assert kernel.branches["k1:<0, 16>"] == before[1] + 1
+        assert bool((sc[:32] == 0).all()) and bool(
+            (ids[:32, 1:] > ids[:32, :-1]).all())
+
+
+def test_fused_query_sharded_wide_cp_matches_plain(gen):
+    """K1s with TT queries of rank 8 over CP rows (``<0, 16>``), S = 3 (a
+    padded last shard), after deletes and a routed insert, at T = 1 and 4:
+    against its plain version, and equal to the single-device index bit
+    for bit before the mutations."""
+    from repro_torch.serving.lsh_service import build_service
+    dims, n = (6, 5, 7), 3001
+    corpus, single = _mixed_service(gen, dims, n, "cp")
+    sharded = build_service(None, "tt-e2lsh", dims, corpus, shards=3,
+                            family=single.index.family, num_codes=4,
+                            num_tables=4, bucket_width=2.0)
+    q = _ragged_tt(gen, dims, (1, 8, 8, 1), 256)
+    for g, w_ in zip(sharded.query_arrays(q), single.query_arrays(q)):
+        assert (g.view("int32") == w_.view("int32")).all()
+    sharded.delete(torch.arange(5, n, 13, device="cuda"))
+    sharded.insert(cp_random_data(gen, dims, 3, batch=300))
+    for probes in (1, 4):
+        before = fused_query_sharded.branches["k1:<0, 16>"]
+        _k1s_vs_plain(sharded, q, probes)
+        assert fused_query_sharded.branches["k1:<0, 16>"] == before + 1
+
+
+# (mode dims, TT row ranks): ranks 5, 8 (2,304-float rows, the ring slots)
+# and 16 (read in place), rank 6 rows of 756 floats (ring slots, ranks not a
+# float4 multiple), rank 5 rows of 525 floats (whole floats, read in place),
+# rank 4 rows past TT_PAIR_ROW in ring slots with a query row past
+# DENSE_STAGE (22 x 22 x 22: 10,648 floats, read in place)
+WIDE_TT_SHAPES = [((12, 12, 12), (1, 5, 5, 1)), ((12, 12, 12), (1, 8, 8, 1)),
+                  ((12, 12, 12), (1, 16, 16, 1)), ((6, 5, 7), (1, 6, 5, 1)),
+                  ((6, 5, 7), (1, 5, 5, 1)), ((22, 22, 22), (1, 4, 4, 1))]
+
+
+@pytest.mark.parametrize("shape", WIDE_TT_SHAPES, ids=str)
+def test_fused_query_dense_over_wide_tt(gen, shape):
+    """Dense queries over TT rows of ranks 5 to 16 or past ``TT_PAIR_ROW``
+    (``<16, kDense>``: a row a warp, through a ring slot where the plan
+    gives one, else read in place; yy the squared entries of the sweep)
+    against K1's plain version, the exact cap at T = 1 and a live window
+    after deletes and an insert at T = 4; each launch counted under
+    ``k1:<16, kDense>``; a dense query of an item's own entries finds
+    it."""
+    from repro_torch.serving.lsh_service import build_service
+    dims, ranks = shape
+    n = 2000
+    corpus = _ragged_tt(gen, dims, ranks, n)
+    r = max(ranks)
+    fc = len(dims) * r * max(dims) * r
+    assert fq_mod.instance("tt", "dense", 1, r, len(dims), max(dims)) == (
+        16, fq_mod.DENSE)
+    for probes, cap in ((1, None), (4, 16)):
+        svc = build_service(gen, "cp-e2lsh", dims, corpus, num_codes=4,
+                            num_tables=4, rank=2, bucket_width=1.0,
+                            bucket_cap=cap, probes=probes)
+        if cap is not None:
+            svc.delete(list(range(1, n, 9)))
+            svc.insert(_ragged_tt(gen, dims, ranks, 200))
+        if probes == 1:
+            assert fq_mod.slot_plan(
+                "tt", "dense", 4, svc.index.cap, len(dims), max(dims), 1, r,
+                df=math.prod(dims)) == (fq_mod.tt_ring_slot(fc) > 0)
+        qid = torch.randint(0, n, (128,), generator=gen, device="cuda")
+        q = _tt_dense_rows(corpus.index(qid))
+        before = fused_query.branches["k1:<16, kDense>"]
+        nc = _k1_vs_plain(svc, q, probes)
+        assert fused_query.branches["k1:<16, kDense>"] == before + 1
+        assert int(nc.sum()) > 0
+        if cap is None:
+            ids, _, _ = svc.index.query_batch(q, topk=1)
+            assert float((ids[:, 0].long() == qid).float().mean()) > 0.9
+
+
+def test_fused_query_sharded_dense_over_wide_tt(gen):
+    """K1s with dense queries over TT rows of rank 8 (``<16, kDense>``,
+    ring slots), S = 3, after deletes and a routed insert, at T = 1 and 4,
+    against its plain version."""
+    from repro_torch.serving.lsh_service import build_service
+    dims, n = (12, 12, 12), 3001
+    corpus = _ragged_tt(gen, dims, (1, 8, 8, 1), n)
+    svc = build_service(gen, "cp-e2lsh", dims, corpus, num_codes=4,
+                        num_tables=4, rank=2, bucket_width=1.0, shards=3)
+    q = _tt_dense_rows(corpus.index(torch.randint(0, n, (128,),
+                                                  generator=gen,
+                                                  device="cuda")))
+    svc.delete(torch.arange(5, n, 13, device="cuda"))
+    svc.insert(_ragged_tt(gen, dims, (1, 8, 8, 1), 300))
+    for probes in (1, 4):
+        before = fused_query_sharded.branches["k1:<16, kDense>"]
+        _k1s_vs_plain(svc, q, probes)
+        assert fused_query_sharded.branches["k1:<16, kDense>"] == before + 1
 
 
 @pytest.mark.parametrize("qf", ["cp", "tt"])

@@ -81,6 +81,13 @@ PAIRS = [
     ("dense", "cp", (2048,), (4, 1)),          # the longest ring slot
     ("dense", "tt", (4, 513), (16, 1)),        # 2,052 floats: in place
     ("dense", "tt", (10, 173), (2, 1)),        # whole floats: in place
+    ("cp", "tt", (12, 12, 12), (16, 4)),       # TT rank 16 over [main]'s rows
+    ("cp", "tt", (12, 12, 12), (8, 32)),       # CP rank 32: 1,152 floats
+    ("cp", "tt", (32, 32, 64), (8, 4)),        # rows read in place
+    ("tt", "dense", (12, 12, 12), (1, 8)),     # [tt8]: ring slots
+    ("tt", "dense", (12, 12, 12), (1, 16)),    # 9,216 floats: in place
+    ("tt", "dense", (16, 16, 16, 16), (1, 16)),  # the query read in place
+    ("tt", "dense", (6, 5, 7), (1, 5)),        # whole floats: in place
 ]
 # (tables, cap, probes, topk): exact caps, a live window's, T > 1
 LAUNCHES = [(10, 367, 1, 10), (10, 765, 1, 10), (10, 64, 4, 10),
@@ -100,18 +107,14 @@ def _args(layout, q_layout, dims, ranks):
 
 
 def _ring(pair, launch, n, d, rq, kw):
-    """Whether the launch plan reads a dense corpus's rows through the
-    ring slots (``ring_plan``, queries of any format), as ``launch_plan``
-    decides."""
+    """Whether the launch plan keeps its row slots (``slot_plan``: a dense
+    corpus's ring slots for queries of any format, ``<16, kDense>``'s TT
+    ring slots, ``<0, 16>``'s staged CP rows), as ``launch_plan`` decides."""
     layout, q_layout = pair[:2]
-    if layout != "dense":
-        return False
     tables, cap, probes, topk = launch
     exp = probing.expansion_size("e2lsh", 10) if probes > 1 else 0
-    if q_layout == layout:
-        return fq.ring_plan(tables, cap, d, probes, topk, exp)
-    return fq.ring_plan(tables, cap, kw["df"], probes, topk, exp,
-                        (q_layout, n, d, rq))
+    return fq.slot_plan(layout, q_layout, tables, cap, n, d, rq, pair[3][1],
+                        probes, topk, exp, kw.get("df", 0))
 
 
 def _blocks(smem):
@@ -143,7 +146,7 @@ def test_plan_fits_the_target_blocks(pair):
         if probes == 1 and tr_qr != (8, 8) and rc <= 8:
             assert _blocks(smem) >= target, (pair, tables, cap, smem)
         assert window & (window - 1) == 0
-        if kw["ring"]:
+        if kw["ring"] and layout == "dense":
             row = kw.get("df") or d
             assert fq.ring_slot(row) == row and row % 4 == 0
             assert row <= fq.RING_ROW
@@ -175,10 +178,13 @@ def test_plan_refuses_nothing_it_took(monkeypatch):
     rows: 8 warps, one row a warp; CP or dense queries over TT rows of
     ranks <= 4: 8 warps, one row a warp in two buffers, whatever the
     row's length; CP or TT queries over dense rows: 8 warps, two rows a
-    warp, no ring; TT queries over CP rows: ``<0, 16>``, whatever the
-    query's rank and the row's length), at a window of at least the old
-    one or 1,024 slots (512 where the rows go through the ring slots); the
-    other instantiations' plans are unchanged."""
+    warp, no ring; TT queries over CP rows: ``<0, 16>``, 8 warps, one
+    staged row a warp, whatever the query's rank and the row's length;
+    dense queries over TT rows of ranks 5-16: ``<16, kDense>``, 8 warps,
+    one row a warp read in place, each warp's chain state), at a window of
+    at least the old one or 1,024 slots (512 where a dense corpus's rows
+    go through its ring slots); the other instantiations' plans are
+    unchanged."""
     new, ring = {}, {}
     for pair, launch in itertools.product(PAIRS, LAUNCHES):
         n, d, rq, rc, kw = _args(*pair)
@@ -203,6 +209,30 @@ def test_plan_refuses_nothing_it_took(monkeypatch):
         return (4, qr) if layout != q_layout and tr == 16 and rc <= 4 else (
             tr, qr)
 
+    smem_bytes = fq.smem_bytes
+
+    def old_smem(tables, n, d, rq, rc, window, **kw):
+        """The previous ``<0, 16>`` and ``<16, kDense>`` (8 warps, one row a
+        warp, each warp's chain states; ``<0, 16>`` staged its CP rows in two
+        buffers, ``<16, kDense>`` read its TT rows in place)."""
+        layout = "tt" if kw.get("tt") else "dense" if kw.get("dense") else "cp"
+        inst = old_instance(layout, kw.get("q_layout") or layout, rq, rc, n, d)
+        if inst not in ((0, 16), (16, fq.DENSE)):
+            return smem_bytes(tables, n, d, rq, rc, window, **kw)
+        if inst == (0, 16):
+            rows, query = 16 * (-(-n * d * rc // 4) * 4), n * rq * d * rq
+            states = 2 * max(rq * rc, rq * rq)
+        else:
+            rows, states = 0, 2 * rc * rc
+            query = kw["df"] if kw["df"] <= fq.DENSE_STAGE else 0
+        region = -(-max(3 * window, 16 * kw.get("expansion", 0)) // 4) * 4
+        topk = kw.get("topk", 10)
+        return ((rows + query + 8 * states + region) * 4 + 9 * topk * 8
+                + (4 * tables * kw.get("probes", 1) + 1) * 4
+                + fq.STATIC_SMEM)
+
+    monkeypatch.setitem(fq.SHAPES, (0, 16), (256, 2, 1, 2))
+    monkeypatch.setattr(fq, "smem_bytes", old_smem)
     monkeypatch.setattr(fq, "instance", old_instance)
     redesigned = (("dense", "dense"), ("cp", "dense"), ("tt", "cp"),
                   ("tt", "dense"), ("dense", "cp"), ("dense", "tt"),
@@ -214,10 +244,11 @@ def test_plan_refuses_nothing_it_took(monkeypatch):
         old, _ = fq.window_plan(tables, cap, n, d, rq, rc, probes=probes,
                                 topk=topk, expansion=exp, **kw)
         if pair[:2] in redesigned:
-            # a ring slot a warp takes the room of a larger window (twelve
-            # rows of 2,048 floats are 96 KiB)
-            least = fq.MIN_WINDOW * (2 if ring[pair, launch] else 4)
-            assert window >= min(old, least), (pair, launch)
+            # a dense ring slot a warp takes the room of a larger window
+            # (twelve rows of 2,048 floats are 96 KiB)
+            dense_ring = ring[pair, launch] and pair[0] == "dense"
+            least = fq.MIN_WINDOW * (2 if dense_ring else 4)
+            assert window >= min(old, least), (pair, launch, window, old)
         else:
             assert window == old, (pair, launch)
 
@@ -821,3 +852,259 @@ def test_densify_prefix_equals_the_entry_chain(shape):
     r = g.shape[1]
     bound = 2 * len(dims) * r * parity.U * s
     assert bool((np.abs(prefix - t64) <= bound).all())
+
+
+# --- TT ranks 5-16: TT queries over CP rows (``<0, 16>``) and dense queries
+# over TT rows (``<16, kDense>``) ---------------------------------------------
+
+# (mode dims, TT ranks): ranks 5, 8, 12 and 16 and a ragged (1, 5, 7, 1), at
+# (12, 12, 12) and a ragged shape
+WIDE_RANKS = [(1, 5, 5, 1), (1, 8, 8, 1), (1, 12, 12, 1), (1, 16, 16, 1),
+              (1, 5, 7, 1)]
+WIDE_SHAPES = [(dims, ranks) for dims in ((12, 12, 12), (6, 5, 7))
+               for ranks in WIDE_RANKS]
+
+
+def _rank_bound(r):
+    """The rank bound E of the wide branches' lanes: 4, 8 or 16."""
+    return 4 if r <= 4 else 8 if r <= 8 else 16
+
+
+def cp_tt_wide_model(a, g):
+    """``cp_tt_wide``'s order in fp32: a (N, D, RA) a stacked CP row, g (N,
+    r, D, r) a stacked TT row, r <= 16 (E = 8 or 16) -> <A, G> unscaled.
+    Half-lane h = E
+    ql + e holds S[q][e] for q = q0 + ql + k 16 / E (k < K: 2, 1 at E =
+    16); mode 1 the
+    d-long chain of A[i][q] G[0][i][e]; a middle mode m[k][x] the d-long
+    chains of A[i][q] G[x][i][e], then S'[q][e] the r-long chain of S[q][x]
+    m[k][x]; the last mode S[q][e] times the chain of A[i][q] G[e][i][0];
+    the lane's live terms in chunk order, then the half's butterfly."""
+    n_modes, d, ra = a.shape
+    r = g.shape[1]
+    e_bound = 8 if r <= 8 else 16
+    qn, kq = 16 // e_bound, 1 if e_bound == 16 else 2
+    ql, e = np.divmod(np.arange(16), e_bound)
+    ec = np.minimum(e, r - 1)
+    totals = np.zeros(16, np.float32)
+    for q0 in range(0, ra, kq * qn):
+        qk = [q0 + ql + qn * k for k in range(kq)]
+        live = [(q < ra) & (e < r) for q in qk]
+        qk = [np.minimum(q, ra - 1) for q in qk]
+        s = []
+        for k in range(kq):
+            acc = np.zeros(16, np.float32)
+            for i in range(d):
+                acc = _fma(a[0, i, qk[k]], g[0, 0, i, ec], acc)
+            s.append(np.where(e < r, acc, 0).astype(np.float32))
+        for n in range(1, n_modes):
+            if n == n_modes - 1:
+                for k in range(kq):
+                    acc = np.zeros(16, np.float32)
+                    for i in range(d):
+                        acc = _fma(a[n, i, qk[k]], g[n, ec, i, 0], acc)
+                    s[k] = (s[k] * acc).astype(np.float32)
+                break
+            m = np.zeros((kq, e_bound, 16), np.float32)
+            for i in range(d):
+                for x in range(e_bound):
+                    gv = g[n, x, i, ec] if x < r else np.zeros(16, np.float32)
+                    for k in range(kq):
+                        m[k, x] = _fma(a[n, i, qk[k]], gv, m[k, x])
+            for k in range(kq):
+                ns = np.zeros(16, np.float32)
+                for x in range(e_bound):
+                    ns = _fma(s[k][ql * e_bound + x], m[k, x], ns)
+                s[k] = np.where(e < r, ns, 0).astype(np.float32)
+        if n_modes == 1:
+            s = [np.where(e == 0, v, 0).astype(np.float32) for v in s]
+        for k in range(kq):
+            totals = np.where(live[k], totals + s[k], totals).astype(
+                np.float32)
+    return _butterfly(totals, 16)
+
+
+def dense_tt_row_model(q, g, dims):
+    """``dense_tt_row``'s order in fp32 for one TT row: q (DF,) the dense
+    row, g (N, r, D, r) a stacked TT row -> (qy, yy) unscaled. Lane l's
+    columns p = l, l + 32, ..., two at a time (one at E = 16): each
+    column's weight w =
+    G_2[:, i_2, :] ... G_N[:, i_N, 0] right to left by r-long FMA chains;
+    per slice i of mode 1 the entries y = the chain of G_1[0][i][c] w[c],
+    then qy += q[i, p] y and yy += y y; a butterfly over the warp."""
+    n_modes, r, d, _ = g.shape
+    d1, p_cols = dims[0], math.prod(dims[1:])
+    qm = q.reshape(d1, p_cols)
+    e_bound = _rank_bound(r)
+    gp = np.zeros((n_modes, e_bound, d, e_bound), np.float32)
+    gp[:, :r, :, :r] = g
+    w = np.zeros((p_cols, e_bound), np.float32)
+    w[:, 0] = 1
+    if n_modes > 1:
+        table = np.array(fq.column_table(dims, d), dtype=np.int64).reshape(
+            n_modes - 1, p_cols)
+        w = gp[n_modes - 1, :, table[-1] - (n_modes - 1) * d, 0].copy()
+        for n in range(n_modes - 2, 0, -1):
+            rows = gp[n][:, table[n - 1] - n * d, :]   # (a, p, c)
+            nv = np.zeros((p_cols, e_bound), np.float32)
+            for a_ in range(r):
+                u = np.zeros(p_cols, np.float32)
+                for c in range(e_bound):
+                    u = _fma(rows[a_, :, c], w[:, c], u)
+                nv[:, a_] = u
+            w = nv
+    lanes = np.arange(32)
+    aq = np.zeros(32, np.float32)
+    ay = np.zeros(32, np.float32)
+    cg = 1 if e_bound == 16 else 2
+    for p0 in range(0, p_cols, 32 * cg):
+        on = [lanes + p0 + 32 * k < p_cols for k in range(cg)]
+        cols = [np.minimum(lanes + p0 + 32 * k, p_cols - 1)
+                for k in range(cg)]
+        for i in range(d1):
+            for k in range(cg):
+                y = np.zeros(32, np.float32)
+                for c in range(e_bound):
+                    y = _fma(np.full(32, gp[0, 0, i, c]), w[cols[k], c], y)
+                aq = np.where(on[k], _fma(qm[i, cols[k]], y, aq), aq)
+                ay = np.where(on[k], _fma(y, y, ay), ay)
+    return _butterfly(aq, 32), _butterfly(ay, 32)
+
+
+@pytest.mark.parametrize("shape,rank", [
+    (shape, rank) for shape in WIDE_SHAPES
+    for rank in ((1, 2, 3, 4, 6) if shape[0] == (12, 12, 12) else (1, 6))],
+    ids=str)
+def test_cp_tt_wide_order_within_the_cross_bound(shape, rank):
+    """``<0, 16>``'s qy (``cp_tt_wide_model``: a row a half-warp, each
+    lane's CP x TT state entries in registers, passed by shuffles) against
+    the reference's ``inner`` on (TT query, CP row), which is
+    ``inner_cp_tt(row, query)``, and against float64, within 2 n u S (n =
+    ``parity.cross_length``); TT query ranks 5, 8, 12, 16 and ragged, CP
+    row ranks 1-4 and 6 at (12, 12, 12), 1 and 6 (two chunks of four) at
+    ragged mode dims."""
+    dims, ranks = shape
+    rng = np.random.default_rng(28)
+    cores = _tt_cores(rng, dims, ranks)
+    factors = [rng.standard_normal((dn, rank)).astype(np.float32)
+               for dn in dims]
+    a = np.zeros((len(dims), max(dims), rank), np.float32)
+    for n, f in enumerate(factors):
+        a[n, :f.shape[0]] = f
+    ref = float(ref_contractions.inner(
+        _ref_tt(cores), RefCP(tuple(jnp.asarray(f) for f in factors))))
+    cp64 = _dense(factors)
+    exact = float((cp64 * _tt_dense64(cores)).sum())
+    s = float(_dense([np.abs(f) for f in factors]).ravel()
+              @ _tt_dense64([np.abs(c) for c in cores]).ravel())
+    x = TTTensor(tuple(torch.from_numpy(c) for c in cores), 1.0)
+    y = CPTensor(tuple(torch.from_numpy(f) for f in factors), 1.0)
+    bound = 2 * parity.cross_length(x, y) * parity.U * s
+    got = float(cp_tt_wide_model(a, _stack_tt(cores, dims)))
+    assert abs(got - ref) <= bound, (got, ref, bound)
+    assert abs(got - exact) <= bound / 2, (got, exact)
+
+
+@pytest.mark.parametrize("shape", TT_SHAPES[:4], ids=str)
+def test_cp_tt_wide_takes_low_ranks(shape):
+    """TT queries of ranks <= 4 over CP rows past ``CP_PAIR_ROW`` go to
+    ``<0, 16>`` too: its order at rank bound 8 (lanes e >= r idle) holds
+    against ``inner_cp_tt`` at CP ranks 3 and 9 (three chunks)."""
+    dims, ranks = shape
+    rng = np.random.default_rng(29)
+    cores = _tt_cores(rng, dims, ranks)
+    for rank in (3, 9):
+        factors = [rng.standard_normal((dn, rank)).astype(np.float32)
+                   for dn in dims]
+        a = np.zeros((len(dims), max(dims), rank), np.float32)
+        for n, f in enumerate(factors):
+            a[n, :f.shape[0]] = f
+        ref = float(ref_contractions.inner_cp_tt(
+            RefCP(tuple(jnp.asarray(f) for f in factors)), _ref_tt(cores)))
+        s = float(_dense([np.abs(f) for f in factors]).ravel()
+                  @ _tt_dense64([np.abs(c) for c in cores]).ravel())
+        x = CPTensor(tuple(torch.from_numpy(f) for f in factors), 1.0)
+        y = TTTensor(tuple(torch.from_numpy(c) for c in cores), 1.0)
+        bound = 2 * parity.cross_length(x, y) * parity.U * s
+        got = float(cp_tt_wide_model(a, _stack_tt(cores, dims)))
+        assert abs(got - ref) <= bound, (rank, got, ref, bound)
+
+
+@pytest.mark.parametrize("shape", WIDE_SHAPES + [((13, 3), (1, 9, 1)),
+                                                 ((3, 4, 5, 6),
+                                                  (1, 6, 9, 5, 1)),
+                                                 ((9,), (1, 1))], ids=str)
+def test_dense_tt_row_order_within_the_bounds(shape):
+    """``<16, kDense>``'s qy and yy (``dense_tt_row_model``: mode 1 first,
+    a row a warp, each column's weight at rank r, yy the squared entries)
+    against the reference's ``inner_dense_tt`` within 2 n u S (n =
+    ``parity.cross_length``) and ``inner_tt_tt`` within the re-rank's
+    yy bound (2 n u <|Y|, |Y|>, n the pair's ``cross_length``, which
+    ``parity.rerank_bound`` carries), and both against float64."""
+    dims, ranks = shape
+    rng = np.random.default_rng(30)
+    cores = _tt_cores(rng, dims, ranks)
+    q = rng.standard_normal(dims).astype(np.float32)
+    ref_qy = float(ref_contractions.inner_dense_tt(jnp.asarray(q),
+                                                   _ref_tt(cores)))
+    ref_yy = float(ref_contractions.inner_tt_tt(_ref_tt(cores),
+                                                _ref_tt(cores)))
+    t64 = _tt_dense64(cores)
+    abs64 = _tt_dense64([np.abs(c) for c in cores])
+    x = DenseTensor(torch.from_numpy(q), dims)
+    y = TTTensor(tuple(torch.from_numpy(c) for c in cores), 1.0)
+    n = parity.cross_length(x, y)
+    b_qy = 2 * n * parity.U * float((np.abs(q) * abs64).sum())
+    b_yy = 2 * n * parity.U * float((abs64 * abs64).sum())
+    qy, yy = dense_tt_row_model(q.reshape(-1), _stack_tt(cores, dims), dims)
+    assert abs(float(qy) - ref_qy) <= b_qy, (qy, ref_qy, b_qy)
+    assert abs(float(qy) - float((q * t64).sum())) <= b_qy / 2
+    assert abs(float(yy) - ref_yy) <= b_yy, (yy, ref_yy, b_yy)
+    assert abs(float(yy) - float((t64 * t64).sum())) <= b_yy / 2
+
+
+def test_wide_plans_at_the_cells():
+    """``<0, 16>``: 12 warps, two CP rows a warp in two buffers, 2 blocks a
+    SM. At [mixed tt8 x cp] ([main]'s 144-float CP rows, TT queries of rank
+    8 staged at the ``wide_row`` stride, L = 10, cap 765) a block plans
+    27,648 bytes of rows and qq's block-wide chain (r^2 + r d r floats)
+    beside a 4,096-slot window: 90,676 bytes; at rank 16 a 2,048-slot
+    window (103,828). ``<16, kDense>`` at [tt8] (TT rows of
+    rank 8, 2,304 floats, cap 36): 8 warps, a ring slot a warp (73,792
+    bytes) beside a 512-slot window, 2 blocks; rank-16 rows (9,216 floats)
+    and rows of whole floats are read in place; every one 2 blocks a SM."""
+    assert fq.SHAPES[0, 16] == (384, 2, 2, 2)
+    assert fq.SHAPES[16, fq.DENSE] == (256, 2, 1, 2)
+    kw = dict(q_layout="tt", df=1728)
+    for rq, window, want in ((8, 4096, 90_676), (16, 2048, 103_828)):
+        assert fq.instance("cp", "tt", rq, 4, 3, 12) == (0, 16)
+        assert fq.slot_plan("cp", "tt", 10, 765, 3, 12, rq, 4, df=1728)
+        assert fq.window_plan(10, 765, 3, 12, rq, 4, ring=True, **kw) == (
+            window, True)
+        smem = fq.smem_bytes(10, 3, 12, rq, 4, window, ring=True, **kw)
+        assert smem == want and _blocks(smem) == 2, (rq, smem)
+        assert smem - fq.smem_bytes(10, 3, 12, rq, 4, window, **kw) == (
+            12 * 2 * 2 * 144 * 4)
+    kw = dict(tt=True, q_layout="dense", df=1728)
+    assert fq.instance("tt", "dense", 1, 8, 3, 12) == (16, fq.DENSE)
+    assert fq.tt_ring_slot(3 * 8 * 12 * 8) == 2304
+    assert fq.slot_plan("tt", "dense", 10, 36, 3, 12, 1, 8, df=1728)
+    assert fq.window_plan(10, 36, 3, 12, 1, 8, ring=True, **kw) == (512,
+                                                                    False)
+    smem = fq.smem_bytes(10, 3, 12, 1, 8, 512, ring=True, **kw)
+    assert _blocks(smem) == 2
+    assert smem - fq.smem_bytes(10, 3, 12, 1, 8, 512, **kw) == 8 * 2306 * 4
+    # edges: rank-16 TT rows, ragged rows, long CP rows; all two blocks
+    for layout, ql, dims, rq, rc, slots in (
+            ("tt", "dense", (12, 12, 12), 1, 16, False),
+            ("tt", "dense", (6, 5, 7), 1, 5, False),
+            ("tt", "dense", (22, 22, 22), 1, 4, True),
+            ("cp", "tt", (32, 32, 64), 8, 4, False),
+            ("cp", "tt", (12, 12, 12), 16, 8, True),
+            ("cp", "tt", (12, 12, 12), 5, 4, True)):
+        n, d, df = len(dims), max(dims), math.prod(dims)
+        got = fq.slot_plan(layout, ql, 10, 765, n, d, rq, rc, df=df)
+        assert got == slots, (layout, dims, rq, rc)
+        k = dict(tt=layout == "tt", q_layout=ql, df=df, ring=got)
+        window, _ = fq.window_plan(10, 765, n, d, rq, rc, **k)
+        assert _blocks(fq.smem_bytes(10, n, d, rq, rc, window, **k)) == 2
