@@ -17,7 +17,9 @@ query format): [mixed dense x cp], [mixed tt x cp] and [mixed tt8 x cp]
 bit for bit), [mixed cp x tt] and [mixed dense x tt] over [cp-as-tt] (the
 corpus converted exactly to TT), [mixed cp x tt8] and [mixed dense x tt8]
 over [tt8] (the first 2^16 items as TT zero-padded to rank 8, queries of
-its own items as ``chip_smoke.phase_tt8`` makes them), and the corpus
+its own items as ``chip_smoke.phase_tt8`` makes them), [tt8 x tt8] and
+[tt16 x tt8] on the same service (those CP queries as TT padded to rank 8
+and to 16: ``tt8tt8``, ``tt16tt8``), and the corpus
 densified
 under [dense-main] (e2lsh, with [mixed cp x dense] and [mixed tt x dense])
 and [dense-cp] (cp-e2lsh), 64 batches each.
@@ -57,8 +59,8 @@ DENSE_BATCHES = 64  # batches served on [dense-main] and [dense-cp]
 # every path's record in the summary, in the order the runs serve them
 PATHS = ("cp", "annk8", "tt", "densemain", "densecp", "mixeddensecp",
          "shardmixed", "mixedttcp", "mixedtt8cp", "mixedcptt",
-         "mixeddensett", "mixedcptt8", "mixeddensett8", "mixedcpdense",
-         "mixedttdense")
+         "mixeddensett", "mixedcptt8", "mixeddensett8", "tt8tt8", "tt16tt8",
+         "mixedcpdense", "mixedttdense")
 TT8_LOG2 = 16      # [tt8]'s items: the first 2^16 of [main]'s corpus
 TT8_RANK = 8
 # K6 (srp_pack) shapes timed in each run: the [kernels] shape, the L*K of
@@ -230,6 +232,10 @@ def one(tree: str, out: str, parity_paths=()) -> None:
             _, res["mixedcptt8"] = timed("mixedcptt8", svc, cp8)
             _, res["mixeddensett8"] = timed("mixeddensett8", svc,
                                             [cs.densify(q) for q in cp8])
+            for rank in (8, 16):  # TT queries padded to rank 8 and to 16
+                path = f"tt{rank}tt8"
+                _, res[path] = timed(path, svc, [
+                    cs.pad_tt(cp_to_tt(q), rank) for q in cp8])
             del svc, base, cp8
             torch.cuda.empty_cache()
         if layout == "cp":  # [ann-k8]: the example's K = 8

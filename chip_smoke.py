@@ -114,8 +114,10 @@ Phases (any failure exits non-zero):
      CP's), [dense-main]'s (CP x dense, TT x dense) and [cp-as-tt]
      ([main]'s 2^20 items converted to TT, tt-e2lsh rank 4 through K4: CP
      x TT, dense x TT), [tt8] ([main]'s first 2^16 items as TT padded to
-     rank 8, indexed alike: CP x TT and dense x TT over TT ranks 5-16, 32
-     batches each), and
+     rank 8, indexed alike: CP x TT and dense x TT over TT ranks 5-16, then
+     the same-format TT x TT at ranks 5-16, [tt8 x tt8] (the CP queries as
+     TT padded to rank 8, ``<8, 8>``) and [tt16 x tt8] (padded to 16,
+     ``<16, 16>``), 32 batches each), and
      dense x CP over [shard]'s 4 shards, every batch bit-equal to the
      single card. Each pair: its branch and the K1 instantiation it means
      to run (``fused_query:k1:<0, 4>``, ...) launched and no plain version,
@@ -1018,7 +1020,7 @@ def k1_times(svc, queries, k1_args, name, corpus=None):
         row = pair.d if pair.same else pair.df
         rows = (f"; dense rows through a {row}-float ring slot a warp"
                 if slots else "; dense rows read in place")
-    elif inst == (16, fq.DENSE):
+    elif inst in fq.TT_RING:
         row = pair.n_modes * table.rc * pair.d * table.rc
         rows = (f"; TT rows through a {row}-float ring slot a warp"
                 if slots else "; TT rows read in place")
@@ -1463,7 +1465,8 @@ def mixed_batches(queries, layout):
 
 
 def phase_mixed(tag, svc, batches, qids, inst):
-    """One cross-format pair through ``svc.query_arrays`` on the card, the
+    """One cross-format pair (or, for [tt8]'s TT queries, the same-format
+    pair at other ranks) through ``svc.query_arrays`` on the card, the
     counters zeroed just before and read just after: the pair's K1 branch
     and its instantiation ``inst`` ((TR, QR)) must have launched and no
     plain version run; recall@1 (planted) at least RECALL1_MIN, recall@10
@@ -1475,7 +1478,9 @@ def phase_mixed(tag, svc, batches, qids, inst):
     idx = svc.index
     qf = batches[0].layout
     corpus = idx.effective_corpus()
-    branch = f"fused_query:mixed:{qf}-{corpus.layout}"
+    instance = "fused_query:" + k1_instance(*inst)
+    branch = (instance if qf == corpus.layout
+              else f"fused_query:mixed:{qf}-{corpus.layout}")
     torch.cuda.synchronize()
     zero_counts()
     results, lat_ms = serve(svc, batches)
@@ -1483,8 +1488,7 @@ def phase_mixed(tag, svc, batches, qids, inst):
     counts = read_counts()
     latency_line(tag, svc, lat_ms)
     print(f"[{tag}] launches: {({k: v for k, v in counts.items() if v})}")
-    check_counts(counts, tag, ("fused_query", branch,
-                               "fused_query:" + k1_instance(*inst)))
+    check_counts(counts, tag, ("fused_query", branch, instance))
     hits1, n_q = check_results(
         results, [q.cpu().numpy() for q in qids[:len(batches)]],
         corpus.leaves[0].shape[0])
@@ -1584,15 +1588,21 @@ def phase_cp_as_tt(cell, corpus, qids, queries) -> list:
 
 
 # [tt8]: [main]'s first 2^16 items as exact TT zero-padded to rank 8 (TT
-# ranks 5-16: K1's <16, 0>, rows read in place, and <16, kDense>, rows
-# through its ring slots), indexed as [cp-as-tt]; CP and dense
-# planted-neighbour queries, as many batches as the other [mixed] pairs
-TT8 = dict(tag="tt8", log2_corpus=16, rank=8, batches=MIXED["batches"])
+# ranks 5-16: K1's <16, 0>, <16, kDense>, <8, 8> and <16, 16>, rows
+# through their ring slots where the plan fits them), indexed as
+# [cp-as-tt]; CP and dense planted-neighbour queries, and the CP queries as
+# TT padded to rank 8 and to 16, as many batches as the other [mixed] pairs
+TT8 = dict(tag="tt8", log2_corpus=16, rank=8, batches=MIXED["batches"],
+           tt_ranks=(8, 16))
 
 
 def phase_tt8(cell, corpus) -> list:
-    """[tt8]: CP and dense queries over a TT corpus of rank 8 -> their
-    records (``phase_mixed``, its instantiation required)."""
+    """[tt8]: CP, dense and TT queries over a TT corpus of rank 8 -> their
+    records (``phase_mixed``, its instantiation required): [mixed cp x
+    tt8] (``<16, 0>``), [mixed dense x tt8] (``<16, kDense>``), then [tt8
+    x tt8] and [tt16 x tt8], the CP queries as TT zero-padded to rank 8
+    (``<8, 8>``) and to 16 (``<16, 16>``, the query's rank 16 over rows of
+    rank 8); their recall@1 printed side by side."""
     import torch
     from repro_torch.core.tensor_formats import cp_to_tt
     from repro_torch.kernels import fused_query as fq
@@ -1613,10 +1623,20 @@ def phase_tt8(cell, corpus) -> list:
     perm = torch.randperm(n, generator=gen, device="cuda")
     qids = [perm[i * 1024:(i + 1) * 1024] for i in range(TT8["batches"])]
     cp_q = [make_queries(base, q, gen) for q in qids]
-    out = []
+    out, recall = [], {}
     for qf, qr in (("cp", 0), ("dense", fq.DENSE)):
-        out.append(phase_mixed(f"mixed {qf} x tt8", svc,
-                               mixed_batches(cp_q, qf), qids, (16, qr))[0])
+        tag = f"mixed {qf} x tt8"
+        rec, _, recall[tag] = phase_mixed(tag, svc, mixed_batches(cp_q, qf),
+                                          qids, (16, qr))
+        out.append(rec)
+    for rank in TT8["tt_ranks"]:
+        tag = f"tt{rank} x tt8"
+        tt_q = [pad_tt(cp_to_tt(q), rank) for q in cp_q]
+        rec, _, recall[tag] = phase_mixed(tag, svc, tt_q, qids,
+                                          (rank, rank))
+        out.append(rec)
+    print(f"[{TT8['tag']}] recall@1 (planted) of the same queries in each "
+          "format: " + ", ".join(f"[{k}] {v:.4f}" for k, v in recall.items()))
     del svc
     return out
 

@@ -38,7 +38,10 @@ and [mixed tt8 x cp] (the TT queries zero-padded to rank 8), then
 [mixed cp x tt] (the CP queries) and [mixed dense x tt] (densified), then
 [tt8] ([main]'s first 2^16 items as TT zero-padded to rank 8, indexed as
 [cp-as-tt]) under [mixed cp x tt8] and [mixed dense x tt8] (CP queries of
-its own items, as ``chip_smoke.phase_tt8`` makes them, and densified), then
+its own items, as ``chip_smoke.phase_tt8`` makes them, and densified) and
+[tt8 x tt8] / [tt16 x tt8] (those queries as TT padded to rank 8 / 16),
+[limits tt16] (``chip_smoke.phase_limits``' TT rank-16 index and its 256
+queries), then
 the corpus densified under [dense-main] (e2lsh, with [mixed cp x dense] and
 [mixed tt x dense] on its service) and [dense-cp] (cp-e2lsh). Each cell
 runs the instantiation the tree's own plan picks (``instance``). Prints
@@ -46,7 +49,11 @@ per cell K1's instantiation and time (CUDA events, the stamped build), the
 stage shares of the summed query cycles, the re-rank's cycles a candidate
 (the block's, and a warp's: the block's times its warps), and the
 launch's timeline: its span, the share of the span the resident blocks
-were busy, and the drain after the last query started.
+were busy, and the drain after the last query started. Where the source
+marks the re-rank's yy and qy (``K1_PART``; the first ``<16, 0>`` design,
+``tt_chains`` then ``cp_tt_chain``, is marked in the copy), warp 0's
+cycles in each are printed too (``rerank_parts``:
+each part's share of the re-rank and its cycles a candidate a warp).
 
     python3 chip_stages.py --k1 --cells "mixed cp x tt,mixed dense x tt" TREE
 
@@ -281,11 +288,14 @@ def one(tree: str, index: int) -> None:
 
 
 # K1's stamps: per query, five stage sums (cycles of thread 0 of its block),
-# their total, and %globaltimer at the query's start and end
+# their total, %globaltimer at the query's start and end, and two parts of
+# the re-rank where the source marks them (K1_PART_BEGIN, K1_PART(0) after
+# yy, K1_PART(1) after qy: warp 0's cycles in each)
 K1_MACROS = r"""
-namespace { __device__ long long g_k1[1 << 17][8]; }
+namespace { __device__ long long g_k1[1 << 17][10]; }
 #define K1_STAMP_BEGIN                                                  \
   long long k1s_t = clock64(), k1s_f[5] = {0, 0, 0, 0, 0};             \
+  long long k1s_p[2] = {0, 0}, k1s_pt = 0;                             \
   unsigned long long k1s_g0;                                           \
   asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(k1s_g0));
 #define K1_STAMP(i)                                                     \
@@ -293,6 +303,13 @@ namespace { __device__ long long g_k1[1 << 17][8]; }
     const long long k1s_n = clock64();                                 \
     k1s_f[i] += k1s_n - k1s_t;                                         \
     k1s_t = k1s_n;                                                     \
+  }
+#define K1_PART_BEGIN k1s_pt = clock64();
+#define K1_PART(i)                                                      \
+  {                                                                    \
+    const long long k1s_n = clock64();                                 \
+    k1s_p[i] += k1s_n - k1s_pt;                                        \
+    k1s_pt = k1s_n;                                                    \
   }
 #define K1_STAMP_END(q)                                                 \
   if (threadIdx.x == 0) {                                              \
@@ -306,8 +323,21 @@ namespace { __device__ long long g_k1[1 << 17][8]; }
     g_k1[q][5] = k1s_s;                                                \
     g_k1[q][6] = (long long)k1s_g0;                                    \
     g_k1[q][7] = (long long)k1s_g1;                                    \
+    g_k1[q][8] = k1s_p[0];                                             \
+    g_k1[q][9] = k1s_p[1];                                             \
   }
 """
+# the first <16, 0> re-rank design (yy by tt_chains, then qy by cp_tt_chain),
+# marked in two parts in a source that has the stage hooks but no parts
+K1_PARTS_16_0 = (
+    "        tt_chains<TR>(yr[0], RC, yr[0], RC, nullptr, 0, nullptr, 0, N, "
+    "D, sb,\n                      lane, tyy, tqy);\n"
+    "        tqy[0] = cp_tt_chain(qf, RQ, yr[0], RC, N, D, sb, lane);\n",
+    "        K1_PART_BEGIN\n"
+    "        tt_chains<TR>(yr[0], RC, yr[0], RC, nullptr, 0, nullptr, 0, N, "
+    "D, sb,\n                      lane, tyy, tqy);\n        K1_PART(0)\n"
+    "        tqy[0] = cp_tt_chain(qf, RQ, yr[0], RC, N, D, sb, lane);\n"
+    "        K1_PART(1)\n")
 K1_FIELDS = ("prologue", "probes", "window + dedup", "re-rank",
              "select + output")
 K1_READ = """
@@ -319,8 +349,10 @@ K1_BATCHES = 8
 # the cells --k1 stamps, in order
 K1_CELLS = ("mixed dense x cp", "mixed tt x cp", "mixed tt8 x cp",
             "mixed cp x tt", "mixed dense x tt", "mixed cp x tt8",
-            "mixed dense x tt8", "dense-main", "mixed cp x dense",
-            "mixed tt x dense", "dense-cp")
+            "mixed dense x tt8", "tt8 x tt8", "tt16 x tt8", "limits tt16",
+            "dense-main", "mixed cp x dense", "mixed tt x dense", "dense-cp")
+TT8_CELLS = {"mixed cp x tt8", "mixed dense x tt8", "tt8 x tt8",
+             "tt16 x tt8"}
 
 
 def stamp_k1(cuh: str) -> tuple[str, str]:
@@ -329,7 +361,10 @@ def stamp_k1(cuh: str) -> tuple[str, str]:
     patched at its stage boundaries)."""
     head = "#include <stdint.h>\n"
     if "K1_STAMP(" in cuh:
-        return patch(cuh, [(head, head + K1_MACROS)]), "hooks"
+        pairs = [(head, head + K1_MACROS)]
+        if "K1_PART(" not in cuh and K1_PARTS_16_0[0] in cuh:
+            pairs.append(K1_PARTS_16_0)
+        return patch(cuh, pairs), "hooks"
     return patch(cuh, [
         (head, head + K1_MACROS),
         ("  const int warp = tid >> 5, lane = tid & 31;\n\n"
@@ -425,6 +460,7 @@ def k1_one(tree: str, index: int, cells=None, stamped=True) -> None:
                             c["kind"], c["dims"], data,
                             num_codes=c["codes"], num_tables=c["tables"],
                             rank=c["rank"], bucket_width=c["width"],
+                            metric=c.get("metric", "euclidean"),
                             device="cuda")
         for t, b in ((tag, batches), *more):
             if cells is None or t in cells:
@@ -459,11 +495,11 @@ def k1_one(tree: str, index: int, cells=None, stamped=True) -> None:
                 candidates_mean=float(ncand.double().mean()),
                 candidates_max=float(ncand.max()))), flush=True)
             return
-        buf = (ctypes.c_longlong * (b * 8))()
-        err = getattr(lib, reader)(ctypes.addressof(buf), b * 64)
+        buf = (ctypes.c_longlong * (b * 10))()
+        err = getattr(lib, reader)(ctypes.addressof(buf), b * 80)
         if err:
             raise SystemExit(f"chip_stages: reading K1 stamps: error {err}")
-        rows = [buf[8 * i:8 * i + 8] for i in range(b)]
+        rows = [buf[10 * i:10 * i + 10] for i in range(b)]
         total = sum(r[5] for r in rows)
         shares = {f: sum(r[i] for r in rows) / total
                   for i, f in enumerate(K1_FIELDS)}
@@ -479,6 +515,17 @@ def k1_one(tree: str, index: int, cells=None, stamped=True) -> None:
         nc = ncand.double()
         warps = fq.SHAPES[tr, qr][0] // 32
         per_cand = sum(r[3] for r in rows) / max(float(nc.sum()), 1.0)
+        # the re-rank's marked parts (yy, qy), where the source has them:
+        # warp 0's cycles a candidate it scored, times the warps
+        parts = {}
+        if any(r[8] or r[9] for r in rows):
+            rerank = sum(r[3] for r in rows)
+            for i, name in ((8, "yy"), (9, "qy")):
+                part = sum(r[i] for r in rows)
+                parts[name] = dict(
+                    share_of_rerank=part / rerank,
+                    warp_cycles_per_candidate=part / max(
+                        float(nc.sum()), 1.0) * warps)
         print("STAGES " + json.dumps(dict(
             tree=tree, form=form, kernel="K1", cell=tag, instance=[tr, qr],
             queries=b, ms=ms,
@@ -493,7 +540,7 @@ def k1_one(tree: str, index: int, cells=None, stamped=True) -> None:
             span_us=span / 1e3,
             busy_share=busy / (span * min(slots, b)),
             drain_us=(ends[-1] - starts[-1]) / 1e3,
-            shares=shares)), flush=True)
+            shares=shares, rerank_parts=parts)), flush=True)
 
     from repro_torch.core.tensor_formats import cp_to_tt
     tt_queries = [cp_to_tt(q) for q in cp_queries]
@@ -507,8 +554,9 @@ def k1_one(tree: str, index: int, cells=None, stamped=True) -> None:
         run("mixed dense x tt", c, tt)
         del tt
         torch.cuda.empty_cache()
-    if cells is None or {"mixed cp x tt8", "mixed dense x tt8"} & cells:
-        # [tt8]: chip_smoke.phase_tt8's corpus and queries
+    if cells is None or TT8_CELLS & cells:
+        # [tt8]: chip_smoke.phase_tt8's corpus and queries: CP, densified,
+        # and as TT padded to rank 8 (<8, 8>) and to rank 16 (<16, 16>)
         m = 1 << 16
         base = corpus.index(slice(0, m))
         g8 = torch.Generator(device="cuda").manual_seed(cell["seed"] + 8)
@@ -517,8 +565,26 @@ def k1_one(tree: str, index: int, cells=None, stamped=True) -> None:
                for i in range(K1_BATCHES)]
         tt8 = cs.pad_tt(cp_to_tt(base), 8)
         run("mixed cp x tt8", c, tt8, cp8,
-            more=(("mixed dense x tt8", [cs.densify(q) for q in cp8]),))
+            more=(("mixed dense x tt8", [cs.densify(q) for q in cp8]),
+                  ("tt8 x tt8", [cs.pad_tt(cp_to_tt(q), 8) for q in cp8]),
+                  ("tt16 x tt8",
+                   [cs.pad_tt(cp_to_tt(q), 16) for q in cp8])))
         del tt8, base, cp8
+        torch.cuda.empty_cache()
+    if cells is None or "limits tt16" in cells:
+        # chip_smoke.phase_limits' TT rank-16 index (<16, 16>, rows read in
+        # place) and its 256 queries
+        from repro_torch.core.tensor_formats import tt_random_data
+        lt = cs.LIMITS["tt"]
+        g16 = torch.Generator(device="cuda").manual_seed(29)
+        tt16 = tt_random_data(g16, lt["dims"], lt["rhat"], batch=lt["n"])
+        q16 = cs.make_queries(tt16, torch.arange(0, lt["n"], lt["every"],
+                                                 device="cuda"), g16)
+        run("limits tt16", dict(kind="tt-srp", dims=lt["dims"],
+                                codes=lt["codes"], tables=lt["tables"],
+                                rank=lt["rank"], width=1.0, metric="cosine"),
+            tt16, [q16])
+        del tt16, q16
         torch.cuda.empty_cache()
     dense_cells = {"dense-main", "mixed cp x dense", "mixed tt x dense",
                    "dense-cp"}

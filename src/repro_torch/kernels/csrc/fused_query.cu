@@ -12,7 +12,7 @@ namespace {
 // where none is (tr, qr)).
 struct ShapeOf {
   int threads, min_blocks, per_warp, buffers;
-  bool tt_pair, one_state;
+  bool tt_pair, one_state, tt_ring;
 };
 
 ShapeOf shape_of(int tr, int qr) {
@@ -20,22 +20,23 @@ ShapeOf shape_of(int tr, int qr) {
   if (tr == TR && qr == QR)                                             \
     return {Shape<TR, QR>::threads, Shape<TR, QR>::min_blocks,          \
             Shape<TR, QR>::per_warp, Shape<TR, QR>::buffers,            \
-            Shape<TR, QR>::tt_pair, Shape<TR, QR>::one_state};
+            Shape<TR, QR>::tt_pair, Shape<TR, QR>::one_state,           \
+            Shape<TR, QR>::tt_ring};
   K1_SAME_PAIRS(K1_SHAPE)
   K1_MIXED_PAIRS(K1_SHAPE)
 #undef K1_SHAPE
-  return {0, 0, 0, 0, false, false};
+  return {0, 0, 0, 0, false, false, false};
 }
 
 }  // namespace
 
 // The floats of a row slot of instantiation (tr, qr) for rows of its shape
 // (its plan's "ring", see fused_query_smem_bytes), 0 where it keeps none:
-// dense rows' ring slots (ring_slot), <16, kDense>'s TT-row ring slots
-// (tt_ring_slot) and <0, 16>'s staged CP rows (whole float4s).
+// dense rows' ring slots (ring_slot), TT rows' ring slots (tt_ring_slot) and
+// <0, 16>'s staged CP rows (whole float4s).
 static int row_slot(int tr, int qr, int N, int D, int RC, int row) {
   if (tr == kDense) return ring_slot(row);
-  if (tr == 16 && qr == kDense) return tt_ring_slot(N * RC * D * RC);
+  if (shape_of(tr, qr).tt_ring) return tt_ring_slot(N * RC * D * RC);
   if (tr == 0 && qr == 16) return (N * D * RC + 3) & ~3;
   return 0;
 }
@@ -43,19 +44,23 @@ static int row_slot(int tr, int qr, int N, int D, int RC, int row) {
 // Shared memory of one K1 block (fused_query.py's smem_bytes plans with the
 // same sum, and fused_query_launch refuses a plan that differs): with ring
 // (dense rows of at most kRingRow whole float4s, for queries of any format,
-// and TT rows of at most kTTRingRow under <16, kDense>) a ring slot a warp
+// and TT rows of at most kTTRingRow under Shape::tt_ring) a ring slot a warp
 // and its mbarrier (8 bytes), Shape::buffers row buffers a warp for each
-// candidate it scores at once (rows of ranks above 8, TT rows a cross pair's
-// <16, QR> takes and dense rows are read in place; <0, 16> stages its CP
-// rows only with ring, else reads them in place), the
+// candidate it scores at once (CP rows and TT rows of ranks <= 4; TT rows
+// of ranks 5-16, TT rows a cross pair's <16, QR> takes and dense rows go
+// through the ring or are read in place; <0, 16> stages its CP rows only
+// with ring, else reads them in place), the
 // warps' lists and the merged top-k (8 bytes a rank each), the region of
 // the hash set and the candidate list (3 * wcap ids) or the expansion's
 // per-warp scores and deltas (C of each), the query's row (a dense one, or
 // a CP / TT query's densified row over dense rows, only up to kDenseStage
-// floats; <0, 16>'s TT query at the wide_row stride), the TT chain states a
-// warp (none for tt_pair, which keeps them in registers, nor for <16,
-// kDense>; one for the block where only the query's own chain needs one:
-// Shape::one_state), four per-(table, probe) integer arrays. fmt /
+// floats; <0, 16>'s TT query at the wide_row stride), the TT chain scratch
+// a warp (<4, 4>'s states; tt_chain's tiles, 2 tt_tile^2 floats a chain,
+// and its two slice buffers, 2 tt_tile^2 more: two chains for <8, 8> and
+// <16, 16>, one for <16, 0>; none for tt_pair,
+// which keeps its states in registers, nor for <16, kDense>; one for the
+// block where only the query's own chain needs one: Shape::one_state), four
+// per-(table, probe) integer arrays. fmt /
 // qfmt: the corpus's / the queries' format, 0 CP, 1 TT, 2 dense; DF the
 // dense operand's row of a cross-format pair (prod d).
 extern "C" size_t fused_query_smem_bytes(int LT, int N, int D, int RQ,
@@ -69,8 +74,8 @@ extern "C" size_t fused_query_smem_bytes(int LT, int N, int D, int RQ,
   const bool tt = fmt == 1, dense = fmt == 2;
   const bool qtt = qfmt == 1, qdense = qfmt == 2;
   const bool wide = tr == 0 && qr == 16;
-  const bool tt_ring = tr == 16 && qr == kDense;
-  const bool stage_rows = !dense && tr <= 8 && !wide;
+  const bool tt_ring = sh.tt_ring;
+  const bool stage_rows = !dense && tr <= 4 && !wide;
   const size_t nw = sh.threads / 32;
   size_t fq;
   if (same) {
@@ -86,10 +91,11 @@ extern "C" size_t fused_query_smem_bytes(int LT, int N, int D, int RQ,
               : wide && ring ? (size_t)N * D * RC : 0;
   fc = (fc + 3) & ~(size_t)3;
   const size_t sw =
-      same ? (tt ? 2 * (size_t)max(RQ * RC + RC * RC, RQ * RQ) : 0)
-      : sh.tt_pair || tt_ring ? 0
+      same ? (tr == 4 ? 2 * (size_t)max(RQ * RC + RC * RC, RQ * RQ)
+              : tt ? 6 * (size_t)tr * tr : 0)
+      : sh.tt_pair || (tt_ring && qdense) ? 0
       : wide ? (size_t)RQ * RQ + (size_t)RQ * D * RQ
-      : tt ? 2 * (size_t)max(qdense ? 0 : RQ * RC, RC * RC)
+      : tt ? 4 * (size_t)tt_tile(RC) * tt_tile(RC)
       : qtt ? 2 * (size_t)max(sh.one_state ? 0 : RQ * RC, RQ * RQ) : 0;
   const size_t nsw = sh.one_state ? 1 : nw;
   size_t rw = max((size_t)3 * wcap, nw * 2 * (size_t)C);

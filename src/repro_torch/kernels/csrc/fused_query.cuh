@@ -102,10 +102,25 @@
 // warps, each scoring two candidates at once (two independent FMA chains a
 // lane), so a query's candidates spread over 24 chains instead of 8.
 //
-// TT rows of ranks above 8 (TR = 16) are read in place from the corpus
-// instead of being staged (a 16 x 8 x 16 core per mode would not fit eight
-// warps' buffers), and the chain state is read from shared memory instead
-// of a register tile.
+// TT rows of ranks 5-16 (TR = 8 or 16, TT queries of the same rank bound):
+// 8 warps, 2 blocks a SM, a row a warp through a ring slot (rows of at most
+// kTTRingRow whole float4s, where the plan fits them beside the query's
+// cores and the chain tiles), taken from the shared counter as the dense
+// rows are, or else read in place a slice G[:, i, :] at a time, the next
+// slice copied into the warp's shared buffers while the current one is
+// used; qy and yy by tt_pair_chains, the two chains <Q, Y> and <Y, Y> at
+// once on the two half-warps (tt_chain: per mode and slice T_i[x][e] =
+// sum_y S[x][y] B[y][i][e] formed once into a shared tile, then added into
+// the state held in registers, r^3 d + r^3 d FMA a mode; the tiles' columns
+// bounded by the row's rank, so a rank-16 query over rank-8 rows forms no
+// columns past 8), qq by the same chain on warp 0. The first design stepped
+// tt_chains a row a warp: each of the r lanes (c, e) that use T_i[x][e]
+// formed it again (r^4 d FMA a mode), at TR = 16 with its state in shared
+// memory and the cores read in place, at TR = 8 with a register tile that
+// kept one block a SM: 112k cycles a candidate a warp at rank 8, 1,822k at
+// rank 16 over rank-8 rows (chip_stages.py --k1), and qq's rank-16 chain on
+// warp 0 40% of that launch. Each entry still takes tt_chains' FMAs in their
+// order, so the scores are the first design's bit for bit.
 //
 // Dense rows (TR = kDense; the naive kinds and the tensorized ones over a
 // dense corpus: the reference's hoisted_scores on dense rows, jnp.vdot) are
@@ -218,9 +233,15 @@
 //     division, 16 x 16 predicated steps over cores read in place, yy by a
 //     16-wide chain in shared memory) took 815k cycles a candidate a warp;
 //   * CP queries over TT rows of ranks 5-16, or longer than kTTPairRow
-//     (<16, 0>, rows read in place): one warp steps an (R^ x r) state
-//     through the modes, S'[q][e] = sum_i A[i][q] sum_x S[q][x] G[x][i][e],
-//     in the warp's state buffer, then sums S[q][0]; yy by tt_chains.
+//     (<16, 0>): the TT rows' ring slots and shape (a row a warp, 8 warps);
+//     yy by the row's own tt_chain on the warp, qy by cp_tt_rows: lane (q,
+//     e) holds S[q][e] in a register, takes its row S[q][0, r) by shuffles
+//     once a mode, then per slice u = sum_x S[q][x] G[x][i][e] (the G loads
+//     its chunk's q lanes share) and S'[q][e] += A[i][q] u, the first
+//     design's order, so bit-equal to it. The first design (a row a warp
+//     read in place, the state in shared memory, yy by tt_chains) took 416k
+//     cycles a candidate a warp, 87% of them yy;
+//   * dense queries over TT rows (<16, kDense>) take the same ring slots.
 // The others score one candidate a warp (8 warps, 2 blocks a SM). The
 // bound is the same bytes as the same-format branches plus the reference's
 // operations a candidate: its left-to-right sweeps over the dense operand, sum_k 2 R prod_{j>=k} d_j for dense x CP and
@@ -247,6 +268,8 @@
 #define K1_STAMP_BEGIN
 #define K1_STAMP(stage)
 #define K1_STAMP_END(query)
+#define K1_PART_BEGIN
+#define K1_PART(part)
 #endif
 
 // One launch's arguments (fused_query.cu's fused_query_launch takes them
@@ -313,18 +336,19 @@ constexpr int kTTRingRow = 2304;
 // Threads of one query's block, the blocks per SM each instantiation is
 // built for (its __launch_bounds__; the wrapper sizes the shared window so
 // that they fit) and the candidates a warp scores at once: CP 12 warps, 2
-// blocks (at most 85 registers, so none spill), two candidates; TT 8 warps
-// (two 4 KiB row buffers each), rank <= 4 3 blocks, rank <= 16 2, rank <= 8
-// 1 (its register tile), one candidate; dense 12 warps, 2 blocks, one
-// candidate (a ring slot a warp for rows of at most kRingRow floats, else
-// read in place). A cross-format pair (QR != TR): 2 blocks; 8 warps, two
-// dense rows at once or one CP / TT row; dense queries over CP rows 12
-// warps (80 registers), two CP rows a warp; CP or dense queries over TT rows
-// of ranks <= 4 and at most kTTPairRow floats (tt_pair) 12 warps, two TT rows
-// a warp staged in one buffer; TT queries over CP rows (cp_pair, <0, 4> and
-// <0, 16>) 12 warps, two CP rows a warp in two buffers; dense queries over
-// TT rows of ranks 5-16 (tt_ring) 8 warps, a ring slot a warp; CP or TT
-// queries over dense rows the dense instantiation's
+// blocks (at most 85 registers, so none spill), two candidates; TT 8 warps,
+// one candidate, rank <= 4 3 blocks (two 4 KiB row buffers a warp), ranks
+// 5-16 2 (tt_ring: a ring slot a warp, or rows read in place); dense 12
+// warps, 2 blocks, one candidate (a ring slot a warp for rows of at most
+// kRingRow floats, else read in place). A cross-format pair (QR != TR): 2
+// blocks; 8 warps, two dense rows at once or one CP / TT row; dense queries
+// over CP rows 12 warps (80 registers), two CP rows a warp; CP or dense
+// queries over TT rows of ranks <= 4 and at most kTTPairRow floats
+// (tt_pair) 12 warps, two TT rows a warp staged in one buffer; TT queries
+// over CP rows (cp_pair, <0, 4> and <0, 16>) 12 warps, two CP rows a warp
+// in two buffers; CP or dense queries over TT rows of ranks 5-16 (tt_ring)
+// 8 warps, a ring slot a warp; CP or TT queries over dense rows the dense
+// instantiation's
 // shape (buffers: the row buffers a warp keeps for each candidate it scores,
 // two where the next rows are staged while the current ones are scored;
 // one_state: the block keeps one TT chain state, the query's own, and not
@@ -336,9 +360,11 @@ struct Shape {
   // TT queries over CP rows, two rows a warp: ranks <= 4 (<0, 4>) and
   // ranks 5-16 or longer rows (<0, 16>, wide: cp_tt_wide)
   static constexpr bool cp_pair = TR == 0 && QR > kDense;
-  // dense queries over TT rows of ranks 5-16 or longer than kTTPairRow:
+  // TT rows of ranks 5-16 (or longer than kTTPairRow under a cross pair)
+  // with dense, CP or TT queries (<16, kDense>, <16, 0>, <8, 8>, <16, 16>):
   // rows of at most kTTRingRow floats through a ring slot a warp
-  static constexpr bool tt_ring = TR == 16 && QR == kDense;
+  static constexpr bool tt_ring =
+      (TR == 8 || TR == 16) && (same || QR == kDense || QR == 0);
   static constexpr bool one_state = !same && QR > kDense &&
                                     (TR == kDense || cp_pair);
   static constexpr int per_warp =
@@ -350,10 +376,7 @@ struct Shape {
               tt_pair || cp_pair
           ? 384
           : 256;
-  static constexpr int min_blocks = !same ? 2
-                                    : TR == 0 || TR == kDense ? 2
-                                    : TR == 4 ? 3
-                                    : TR == 16 ? 2 : 1;
+  static constexpr int min_blocks = same && TR == 4 ? 3 : 2;
   static constexpr int buffers = tt_pair ? 1 : 2;
 };
 
@@ -503,19 +526,6 @@ __device__ void tt_chains(const float* a1, int ra1, const float* b1, int rb1,
   *v1 = st[0];
   *v2 = tot > n1 ? st[n1] : 0.f;
   __syncwarp();
-}
-
-// tt_chains compiled on its own (not inlined): for rows read in place
-// (TR = 16) it keeps the scheduling it has alone, which the re-rank loop's
-// staging state around an inlined copy costs about 3%.
-template <int TR>
-__device__ __noinline__ void tt_chains_far(const float* a1, int ra1,
-                                           const float* b1, int rb1,
-                                           const float* a2, int ra2,
-                                           const float* b2, int rb2, int N,
-                                           int D, float* st, int lane,
-                                           float* v1, float* v2) {
-  tt_chains<TR>(a1, ra1, b1, rb1, a2, ra2, b2, rb2, N, D, st, lane, v1, v2);
 }
 
 // <X, X> of a TT query x (N, R, D, R), its stacked rank R at most QR, by one
@@ -1140,41 +1150,380 @@ __device__ __forceinline__ void dense_cp_sweep(const float* q,
   for (int k = 0; k < G; ++k) qy[k] = warp_sum(acc[k]);
 }
 
-// <A, G> of a CP row a (N, D, RA) and a TT row g (N, RG, D, RG) (inner_cp_tt,
-// scales not applied), to every lane: one warp steps the (RA x RG) state,
-// lane p owning entries (q, e), kept in st (2 * RA * RG floats: the state and
-// its next value), from S = ones(RA, 1):
-//   S'[q][e] = sum_i A[i][q] sum_x S[q][x] G[x][i][e],
-// then sums S[q][0].
-__device__ float cp_tt_chain(const float* a, int RA, const float* g, int RG,
-                             int N, int D, float* st, int lane) {
-  const int tot = RA * RG;
-  float* nxt = st + tot;
-  for (int p = lane; p < tot; p += 32) st[p] = p % RG == 0 ? 1.f : 0.f;
-  __syncwarp();
-  for (int n = 0; n < N; ++n) {
-    const float* an = a + (size_t)n * D * RA;
-    const float* gn = g + (size_t)n * RG * D * RG;
-    for (int p = lane; p < tot; p += 32) {
-      const int q = p / RG, e = p - q * RG;
-      const float* s = st + q * RG;
+// The rank bound of tt_chain's lane tiles for TT ranks up to r: 8 or 16.
+__host__ __device__ constexpr int tt_tile(int r) { return r <= 8 ? 8 : 16; }
+
+// W consecutive floats p[0, W) -> v, zeros past the first n (all zeros
+// where n <= 0): one W-wide load where V (the caller found the rank rows
+// whole multiples of 4 floats and 16-byte aligned, so that n is then at
+// least W or at most 0), else one load a float.
+template <int W, bool V>
+__device__ __forceinline__ void load_tile(float* v, const float* p, int n) {
+  if constexpr (V && W == 4) {
+    const float4 x = n > 0 ? *reinterpret_cast<const float4*>(p)
+                           : make_float4(0.f, 0.f, 0.f, 0.f);
+    v[0] = x.x;
+    v[1] = x.y;
+    v[2] = x.z;
+    v[3] = x.w;
+  } else if constexpr (V && W == 2) {
+    const float2 x =
+        n > 0 ? *reinterpret_cast<const float2*>(p) : make_float2(0.f, 0.f);
+    v[0] = x.x;
+    v[1] = x.y;
+  } else {
+#pragma unroll
+    for (int k = 0; k < W; ++k) v[k] = k < n ? p[k] : 0.f;
+  }
+}
+
+// v[0, W) -> p[0, W), one W-wide store (p aligned to W floats).
+template <int W>
+__device__ __forceinline__ void store_tile(float* p, const float* v) {
+  if constexpr (W == 4) {
+    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+  } else if constexpr (W == 2) {
+    *reinterpret_cast<float2*>(p) = make_float2(v[0], v[1]);
+  } else {
+    p[0] = v[0];
+  }
+}
+
+// One TT chain <A, B> (inner_tt_tt's transfer matrices, scale not applied)
+// on a group of L lanes (16: a half-warp, 32: the warp), stacked ranks ra
+// at most ER and rb at most EC (8 or 16), rows (N, r, D, r). From S = e_00,
+// per mode
+//   T_i[x][e] = sum_y S[x][y] B[y][i][e],  S'[c][e] = sum_i sum_x A[x][i][c] T_i[x][e].
+// tt_chains forms T_i[x][e] in each of the r lanes (c, e) that use it (r^4 d
+// FMA a mode); here the group forms T_i once into a shared tile (r^3 d) and
+// then adds it into the state (r^3 d). Lane l owns a tile of ER / 4 rows (c
+// of the state, x of T) by 4 EC / L columns (e); the state stays in its
+// registers through a mode and is stored transposed (S^T, EC x ER floats of
+// st) at the mode's end for the next mode's T, which lies beside it (ER x
+// EC more). Each entry takes tt_chains' FMAs in its order: y ascending
+// inside T from +0, then x inner and i outer into the state from +0; mode 1
+// (S = e_00) adds A[0][i][c] B[0][i][e], the terms tt_chains' zero rows
+// leave; the last mode forms S'[0][0] alone (per slice the T_i[x][0], then
+// one FMA chain over the slices and x in every lane). Padded ranks add exact
+// zeros to sums that start at +0, which leaves them unchanged, so the chain
+// is tt_chains' bit for bit. ra_all, rb_all: the largest ranks over the
+// warp's groups, the loops' bounds (both groups of a warp meet the same
+// __syncwarp). STAGE: B is a row in global memory (and A too where a_row:
+// A = B), read a slice B[:, i, :] at a time: the warp copies slice k + 1
+// into sl (two buffers of EC^2 floats) with cp.async while the groups use
+// slice k, every lane of the warp taking part (both groups run this code
+// over the same row), so no load in the FMA loops waits on global memory.
+// -> S[0][0] to every lane of the group.
+template <int ER, int EC, int L, bool V, bool STAGE>
+__device__ float tt_chain(const float* a, int ra, bool a_row,
+                          const float* b, int rb, int ra_all, int rb_all,
+                          int N, int D, float* st, float* sl, int lane) {
+  static_assert((ER == 8 || ER == 16) && (EC == 8 || EC == 16) &&
+                    (L == 16 || L == 32),
+                "tile shapes");
+  constexpr int RT = ER / 4, CT = 4 * EC / L, CG = L / 4;
+  const int l = lane % L;
+  const int x0 = (l / CG) * RT, e0 = (l % CG) * CT;
+  float* const St = st;            // S^T [y][x], EC x ER
+  float* const Tt = st + ER * EC;  // T_i [x][e], ER x EC
+  const int dra = D * ra, drb = D * rb;
+  const int na = ra - x0, nb = rb - e0;  // a tile row's / column's ranks
+  // where the loops read slice i of mode n, A[:, i, :] and B[:, i, :], and
+  // their rank-row strides: the rows themselves, or B's staged copy
+  const bool a_staged = STAGE && a_row;
+  const int asr = a_staged ? rb : dra, bsr = STAGE ? rb : drb;
+  const float* as = a;
+  const float* bs = b;
+  int k = 0, kn = 0, ki = 0;  // slices taken; the next one to stage
+  auto stage = [&]() {  // B's slice (kn, ki) into buffer k + 1 (mod 2)
+    if (kn >= N) return;
+    const float* const src = b + (size_t)kn * rb * drb + ki * rb;
+    float* const dst = sl + ((k + 1) & 1) * EC * EC;
+    if constexpr (V) {
+      const int q4 = rb >> 2;
+      for (int c = lane; c < rb * q4; c += 32) {
+        const int y = c / q4, e = (c - y * q4) * 4;
+        cp_async16(dst + y * rb + e, src + (size_t)y * drb + e);
+      }
+    } else {
+      for (int c = lane; c < rb * rb; c += 32) {
+        const int y = c / rb;
+        cp_async4(dst + c, src + (size_t)y * drb + (c - y * rb));
+      }
+    }
+    if (++ki == D) {
+      ki = 0;
+      ++kn;
+    }
+  };
+  auto slice = [&](int n, int i) {
+    if constexpr (STAGE) {
+      __syncwarp();  // slice k - 1 is read before slice k + 1 takes its buffer
+      stage();
+      cp_async_commit();
+      cp_async_wait<1>();
+      __syncwarp();
+      bs = sl + (k & 1) * EC * EC;
+      ++k;
+    } else {
+      bs = b + (size_t)n * rb * drb + i * rb;
+    }
+    as = a_staged ? bs : a + (size_t)n * ra * dra + i * ra;
+  };
+  if constexpr (STAGE) {  // slice (0, 0) into buffer 0
+    k = -1;
+    stage();
+    cp_async_commit();
+    k = 0;
+  }
+  float acc[RT][CT];
+#pragma unroll
+  for (int c = 0; c < RT; ++c)
+#pragma unroll
+    for (int e = 0; e < CT; ++e) acc[c][e] = 0.f;
+#pragma unroll 2
+  for (int i = 0; i < D; ++i) {  // mode 1
+    slice(0, i);
+    float av[RT], bv[CT];
+    load_tile<RT, V>(av, as + x0, na);
+    load_tile<CT, V>(bv, bs + e0, nb);
+#pragma unroll
+    for (int c = 0; c < RT; ++c)
+#pragma unroll
+      for (int e = 0; e < CT; ++e) acc[c][e] = fmaf(av[c], bv[e], acc[c][e]);
+  }
+  if (N == 1) return __shfl_sync(kFull, acc[0][0], 0, L);
+  for (int n = 1;; ++n) {
+#pragma unroll
+    for (int e = 0; e < CT; ++e) {
+      float col[RT];
+#pragma unroll
+      for (int c = 0; c < RT; ++c) col[c] = acc[c][e];
+      store_tile<RT>(St + (e0 + e) * ER + x0, col);
+    }
+    __syncwarp();
+    if (n == N - 1) {
+      float r = 0.f;
+      if constexpr (STAGE) {  // a slice at a time, as they land
+        for (int i = 0; i < D; ++i) {
+          slice(n, i);
+          if (l < ER) {
+            float t = 0.f;
+            if (l < ra)
+              for (int y = 0; y < rb; ++y)
+                t = fmaf(St[y * ER + l], bs[y * bsr], t);
+            Tt[l] = t;
+          }
+          __syncwarp();
+          for (int x = 0; x < ra; ++x) r = fmaf(as[x * asr], Tt[x], r);
+        }
+        return r;
+      }
+      // EC slices' T_i[x][0] at a time into Tt ([i - i0][x]), then the chain
+      const float* const an = a + (size_t)n * ra * dra;
+      const float* const bn = b + (size_t)n * rb * drb;
+      for (int i0 = 0; i0 < D; i0 += EC) {
+        for (int p = l; p < ER * EC; p += L) {
+          const int i = i0 + p / ER, x = p % ER;
+          float t = 0.f;
+          if (i < D && x < ra)
+            for (int y = 0; y < rb; ++y)
+              t = fmaf(St[y * ER + x], bn[y * drb + i * rb], t);
+          Tt[p] = t;
+        }
+        __syncwarp();
+        const int ie = min(D, i0 + EC);
+        for (int i = i0; i < ie; ++i) {
+          const float* const ai = an + i * ra;
+          const float* const ti = Tt + (i - i0) * ER;
+#pragma unroll
+          for (int x = 0; x < ER; ++x)
+            if (x < ra) r = fmaf(ai[x * dra], ti[x], r);
+        }
+        __syncwarp();
+      }
+      return r;
+    }
+#pragma unroll
+    for (int c = 0; c < RT; ++c)
+#pragma unroll
+      for (int e = 0; e < CT; ++e) acc[c][e] = 0.f;
+    for (int i = 0; i < D; ++i) {
+      slice(n, i);
+      float t[RT][CT];
+#pragma unroll
+      for (int x = 0; x < RT; ++x)
+#pragma unroll
+        for (int e = 0; e < CT; ++e) t[x][e] = 0.f;
+#pragma unroll 4
+      for (int y = 0; y < rb_all; ++y) {
+        float sv[RT], bv[CT];
+        load_tile<RT, true>(sv, St + y * ER + x0, RT);
+        load_tile<CT, V>(bv, bs + y * bsr + e0, y < rb ? nb : 0);
+#pragma unroll
+        for (int x = 0; x < RT; ++x)
+#pragma unroll
+          for (int e = 0; e < CT; ++e) t[x][e] = fmaf(sv[x], bv[e], t[x][e]);
+      }
+#pragma unroll
+      for (int x = 0; x < RT; ++x)
+        store_tile<CT>(Tt + (x0 + x) * EC + e0, t[x]);
+      __syncwarp();
+#pragma unroll 4
+      for (int x = 0; x < ra_all; ++x) {
+        float av[RT], tv[CT];
+        load_tile<RT, V>(av, as + x * asr + x0, x < ra ? na : 0);
+        load_tile<CT, true>(tv, Tt + x * EC + e0, CT);
+#pragma unroll
+        for (int c = 0; c < RT; ++c)
+#pragma unroll
+          for (int e = 0; e < CT; ++e)
+            acc[c][e] = fmaf(av[c], tv[e], acc[c][e]);
+      }
+      __syncwarp();
+    }
+  }
+}
+
+// tt_chain over rows read in place, compiled on its own (not inlined), so
+// that its staging does not take registers from the re-rank loop around the
+// ring slots' inlined copy.
+template <int ER, int EC, int L, bool V>
+__device__ __noinline__ float tt_chain_far(const float* a, int ra, bool a_row,
+                                           const float* b, int rb,
+                                           int ra_all, int rb_all, int N,
+                                           int D, float* st, float* sl,
+                                           int lane) {
+  return tt_chain<ER, EC, L, V, true>(a, ra, a_row, b, rb, ra_all, rb_all, N,
+                                      D, st, sl, lane);
+}
+
+// <X, X> of a TT row x (stacked rank R at most E) on the warp (tt_chain; st:
+// 2E^2 floats, 16-byte aligned; in_place: x lies in global memory, its
+// slices staged through sl, 2E^2 floats more), float4 loads where R % 4 ==
+// 0 and x is 16-byte aligned.
+template <int E>
+__device__ __forceinline__ float tt_self(const float* x, int R, int N, int D,
+                                         float* st, float* sl, int lane,
+                                         bool in_place) {
+  const bool v = (R & 3) == 0 && (reinterpret_cast<uintptr_t>(x) & 15) == 0;
+  if (in_place)
+    return v ? tt_chain_far<E, E, 32, true>(x, R, true, x, R, R, R, N, D, st,
+                                            sl, lane)
+             : tt_chain_far<E, E, 32, false>(x, R, true, x, R, R, R, N, D,
+                                             st, sl, lane);
+  return v ? tt_chain<E, E, 32, true, false>(x, R, true, x, R, R, R, N, D, st,
+                                             sl, lane)
+           : tt_chain<E, E, 32, false, false>(x, R, true, x, R, R, R, N, D,
+                                              st, sl, lane);
+}
+
+// tt_pair_chains' two chains at row rank bound EC.
+template <int E, int EC, bool V, bool STAGE>
+__device__ __forceinline__ float pair_chain(const float* q, int RQ,
+                                            const float* y, int RC, int N,
+                                            int D, float* st, int lane) {
+  const int half = lane >> 4;
+  const float* const a = half ? y : q;
+  const int ra = half ? RC : RQ, rmax = max(RQ, RC);
+  float* const sh = st + half * 2 * E * EC;
+  if constexpr (STAGE)
+    return tt_chain_far<E, EC, 16, V>(a, ra, half != 0, y, RC, rmax, RC, N,
+                                      D, sh, st + 4 * E * E, lane);
+  return tt_chain<E, EC, 16, V, false>(a, ra, half != 0, y, RC, rmax, RC, N,
+                                       D, sh, st + 4 * E * E, lane);
+}
+
+// qy = <Q, Y> and yy = <Y, Y> of a TT query q and a TT row y (stacked ranks
+// RQ, RC at most E) on one warp: the half-warps step the two chains at once
+// (tt_chain: lanes 0-15 <Q, Y>, 16-31 <Y, Y>, each with its tiles in its
+// half of st's first 4E^2 floats; the row's rank bound EC is 8 where RC <=
+// 8, so a rank-16 query over rank-8 rows forms no columns past them), the
+// row's slices staged through st's last 2E^2 floats when it lies in global
+// memory (in_place), -> both to every lane.
+template <int E>
+__device__ __forceinline__ void tt_pair_chains(const float* q, int RQ,
+                                               const float* y, int RC, int N,
+                                               int D, float* st, int lane,
+                                               bool in_place, float* qy,
+                                               float* yy) {
+  const bool v = ((RQ | RC) & 3) == 0 &&
+                 ((reinterpret_cast<uintptr_t>(q) |
+                   reinterpret_cast<uintptr_t>(y)) & 15) == 0;
+  float t;
+  if (E == 16 && RC <= 8) {
+    constexpr int EC = E == 16 ? 8 : E;
+    t = in_place ? (v ? pair_chain<E, EC, true, true>(q, RQ, y, RC, N, D, st,
+                                                      lane)
+                      : pair_chain<E, EC, false, true>(q, RQ, y, RC, N, D,
+                                                       st, lane))
+                 : (v ? pair_chain<E, EC, true, false>(q, RQ, y, RC, N, D,
+                                                       st, lane)
+                      : pair_chain<E, EC, false, false>(q, RQ, y, RC, N, D,
+                                                        st, lane));
+  } else {
+    t = in_place ? (v ? pair_chain<E, E, true, true>(q, RQ, y, RC, N, D, st,
+                                                     lane)
+                      : pair_chain<E, E, false, true>(q, RQ, y, RC, N, D, st,
+                                                      lane))
+                 : (v ? pair_chain<E, E, true, false>(q, RQ, y, RC, N, D, st,
+                                                      lane)
+                      : pair_chain<E, E, false, false>(q, RQ, y, RC, N, D, st,
+                                                       lane));
+  }
+  *qy = __shfl_sync(kFull, t, 0);
+  *yy = __shfl_sync(kFull, t, 16);
+}
+
+// <A, G> of a CP row a (N, D, RA) and a TT row g (N, RG, D, RG), RG at most
+// E = 8 or 16 (inner_cp_tt, scales not applied), on the warp, to every lane,
+// in the first design's order (a warp stepping the (RA x RG) state through
+// shared memory), its state in registers: lane l = E ql + e owns entry (q,
+// e) for the CP ranks q = ql, ql + 32 / E, ... (a chunk at a time). Per
+// mode the lane takes its row S[q][0, RG) from the lanes (ql, x) by
+// shuffles, then per slice u = sum_x S[q][x] G[x][i][e] (an FMA chain from
+// +0, the G loads the chunk's q lanes share) and acc += A[i][q] u. Mode 1
+// starts from S = ones(RA, 1), where u is G[0][i][e]. -> sum_q S[q][0], q
+// ascending, from +0.
+template <int E>
+__device__ float cp_tt_rows(const float* a, int RA, const float* g, int RG,
+                            int N, int D, int lane) {
+  constexpr int QN = 32 / E;
+  const int ql = lane / E, e = lane - ql * E;
+  const int ec = min(e, RG - 1);
+  const int dr = D * RG;
+  const size_t core = (size_t)RG * dr;
+  float total = 0.f;
+  for (int q0 = 0; q0 < RA; q0 += QN) {
+    const int q = min(q0 + ql, RA - 1);
+    float s = 0.f;
+#pragma unroll 4
+    for (int i = 0; i < D; ++i)
+      s = fmaf(a[(size_t)i * RA + q], g[(size_t)i * RG + ec], s);
+    if (e >= RG) s = 0.f;
+    for (int n = 1; n < N; ++n) {
+      float srow[E];
+#pragma unroll
+      for (int x = 0; x < E; ++x) srow[x] = __shfl_sync(kFull, s, ql * E + x);
+      const float* const an = a + (size_t)n * D * RA + q;
+      const float* const gn = g + n * core + ec;
       float acc = 0.f;
       for (int i = 0; i < D; ++i) {
         float u = 0.f;
-        for (int x = 0; x < RG; ++x)
-          u = fmaf(s[x], gn[((size_t)x * D + i) * RG + e], u);
-        acc = fmaf(an[i * RA + q], u, acc);
+#pragma unroll
+        for (int x = 0; x < E; ++x)
+          if (x < RG) u = fmaf(srow[x], gn[(size_t)x * dr + i * RG], u);
+        acc = fmaf(an[(size_t)i * RA], u, acc);
       }
-      nxt[p] = acc;
+      s = e < RG ? acc : 0.f;
     }
-    __syncwarp();
-    for (int p = lane; p < tot; p += 32) st[p] = nxt[p];
-    __syncwarp();
+#pragma unroll
+    for (int k = 0; k < QN; ++k) {
+      const float v = __shfl_sync(kFull, s, k * E);
+      if (q0 + k < RA) total += v;
+    }
   }
-  float v = 0.f;
-  for (int q = 0; q < RA; ++q) v += st[q * RG];
-  __syncwarp();
-  return v;
+  return total;
 }
 
 // The TT pair branches (CP or dense queries over TT rows of ranks at most 4,
@@ -1754,13 +2103,12 @@ fused_query_kernel(
   constexpr bool qdense = QR == kDense, qtt = QR > kDense;
   // a CP or TT query over dense rows, densified in the prologue
   constexpr bool densify = !same && dense;
-  // rows of ranks > 8 and dense rows are read in place, the latter through
-  // the warps' ring slots where they fit one; the dense-row instances (any
-  // query format) also search a bucket's two bounds at once and merge the
-  // warps' lists by flat ranks
-  constexpr bool stage_rows = !dense && TR <= 8 && !(TR == 0 && QR == 16);
-  // dense queries over TT rows of ranks 5-16 take their rows through ring
-  // slots too (Shape::tt_ring), where the plan gave them one
+  // CP rows and TT rows of ranks <= 4 are staged a warp's candidates at a
+  // time; dense rows and TT rows of ranks 5-16 go through the warps' ring
+  // slots where the plan gave them one (Shape::tt_ring), else are read in
+  // place; the ring instances (any query format) also search a bucket's two
+  // bounds at once and merge the warps' lists by flat ranks
+  constexpr bool stage_rows = !dense && TR <= 4 && !(TR == 0 && QR == 16);
   constexpr bool tt_ring = Shape<TR, QR>::tt_ring;
   constexpr bool ring_rows = dense || tt_ring;
   // CP or dense queries over TT rows of ranks <= 4: two rows a warp, a row
@@ -1789,16 +2137,20 @@ fused_query_kernel(
   const int FCMAX = wide ? RSLOT
                     : !stage_rows ? 0
                     : ((tt ? N * RCMAX * D * RCMAX : N * D * RCMAX) + 3) & ~3;
-  // each warp's TT chain states: the same-format pair's two chains, a cross
-  // pair's CP x TT state beside the TT operand's own chain (none for a TT
-  // pair branch: its states live in registers); one_state: only the TT
-  // query's own chain (qq), one for the block
+  // each warp's TT chain scratch: <4, 4>'s two chains' states; tt_chain's
+  // transposed state and T tile (2E^2 floats a chain) for the two chains of
+  // <8, 8> and <16, 16> and the row's own chain of <16, 0>, and its two
+  // slice buffers (2E^2) for rows read in place; none where the states live
+  // in registers (the TT pair branches, <16, kDense>); block_tt_self's for
+  // <0, 16>; one_state: only the TT query's own chain (qq), one for the
+  // block
   constexpr bool one_state = Shape<TR, QR>::one_state;
-  const int SW = same ? (tt ? 2 * max(RQ * RCMAX + RCMAX * RCMAX, RQ * RQ)
-                            : 0)
-                 : tt_pair || tt_ring ? 0
+  const int SW = same ? (TR == 4 ? 2 * max(RQ * RCMAX + RCMAX * RCMAX,
+                                           RQ * RQ)
+                         : tt ? 6 * TR * TR : 0)
+                 : tt_pair || (tt_ring && qdense) ? 0
                  : wide ? RQ * RQ + RQ * D * RQ  // block_tt_self
-                 : tt ? 2 * max(qdense ? 0 : RQ * RCMAX, RCMAX * RCMAX)
+                 : tt ? 4 * tt_tile(RCMAX) * tt_tile(RCMAX)
                  : qtt ? 2 * max(one_state ? 0 : RQ * RCMAX, RQ * RQ) : 0;
   const int RW = (max(3 * wcap, nwarps * 2 * C) + 3) & ~3;
   // a ring slot a warp (RS floats) and its mbarrier (2 floats' room), first
@@ -1808,14 +2160,19 @@ fused_query_kernel(
       reinterpret_cast<uint64_t*>(ring + nwarps * RS);  // [nwarps]
   // [nwarps][kBufs][G][FCMAX]
   float* ybuf = ring + (RS ? nwarps * (RS + 2) : 0);
+  // tt_chain's tiles take vector loads: their scratch comes first, 16-byte
+  // aligned (the same bytes as elsewhere, so the plan is the same)
+  constexpr bool chains_first = tt_ring && !qdense;
+  float* const chains = ybuf + nwarps * kBufs * G * FCMAX;  // [nwarps][SW]
   unsigned long long* wl_all = reinterpret_cast<unsigned long long*>(
-      ybuf + nwarps * kBufs * G * FCMAX);             // [nwarps][topk]
+      chains + (chains_first ? nwarps * SW : 0));     // [nwarps][topk]
   unsigned long long* topv = wl_all + nwarps * topk;  // [topk]
   uint32_t* region = reinterpret_cast<uint32_t*>(topv + topk);  // [RW]
   float* qf = reinterpret_cast<float*>(region + RW);  // [FQ]
-  float* sbuf = qf + FQS;                   // [one_state ? 1 : nwarps][SW]
-  uint32_t* qkeys =
-      reinterpret_cast<uint32_t*>(sbuf + (one_state ? 1 : nwarps) * SW);
+  // [one_state ? 1 : nwarps][SW]
+  float* sbuf = chains_first ? chains : qf + FQS;
+  uint32_t* qkeys = reinterpret_cast<uint32_t*>(
+      qf + FQS + (chains_first ? 0 : (one_state ? 1 : nwarps) * SW));
   int* starts = reinterpret_cast<int*>(qkeys + LT);   // [LT]
   int* lens = starts + LT;                            // [LT]
   int* woff = lens + LT;                              // [LT + 1]
@@ -1975,10 +2332,7 @@ fused_query_kernel(
         const bool qvec = (DF & 3) == 0 &&
                           (reinterpret_cast<uintptr_t>(qrow) & 15) == 0;
         dense_dots<1, false>(qrow, qa, DF, qvec, lane, &unused, &t);
-      } else if constexpr (qtt) {
-        tt_chains<QR>(qf, RQ, qf, RQ, nullptr, 0, nullptr, 0, N, D, sbuf,
-                      lane, &t, &unused);
-      } else {
+      } else {  // CP queries over TT rows (TT queries form qq early)
         t = cp_self(qf, RQ, N, D, lane);
       }
     } else if constexpr (dense) {
@@ -1987,10 +2341,12 @@ fused_query_kernel(
                         (reinterpret_cast<uintptr_t>(qrow) & 15) == 0;
       float unused;
       dense_dots<1, false>(qrow, qa, D, qvec, lane, &unused, &t);
-    } else if constexpr (tt) {
+    } else if constexpr (TR == 4) {
       float unused;
       tt_chains<TR>(qf, RQ, qf, RQ, nullptr, 0, nullptr, 0, N, D, sbuf, lane,
                     &t, &unused);
+    } else if constexpr (tt) {
+      t = tt_self<TR>(qf, RQ, N, D, sbuf, nullptr, lane, false);
     } else {
       const float* qa[1] = {qf};
       for (int p = lane; p < RQ * RQ; p += 32)
@@ -2008,6 +2364,30 @@ fused_query_kernel(
   unsigned long long* const wl = wl_all + warp * topk;
   unsigned long long thr = kPadSlot;  // the last key of the warp's list
   unsigned ring_phase = 0;            // the parity of the warp's slot
+  // qy and yy of a TT row y of ranks 5-16 (a <16, QR> cross pair's row
+  // longer than kTTPairRow too) against the block's query, on the warp: a
+  // dense query's by dense_tt_rows; a TT query's by the two chains at once
+  // (tt_pair_chains); a CP query's yy by the row's own chain (tt_self), qy
+  // by cp_tt_rows
+  auto tt_scores = [&](const float* y, int RC, bool in_place, float* tqy,
+                       float* tyy) {
+    if constexpr (!tt_ring) {
+    } else if constexpr (qdense) {
+      dense_tt_rows(qrow, y, RC, N, D, dims, DF, lane, tqy, tyy);
+    } else if constexpr (same) {
+      tt_pair_chains<TR>(qf, RQ, y, RC, N, D, sb, lane, in_place, tqy, tyy);
+    } else {
+      constexpr int E2 = 2 * 8 * 8;  // rank <= 8: the tiles, then the slices
+      K1_PART_BEGIN
+      *tyy = RC <= 8 ? tt_self<8>(y, RC, N, D, sb, sb + E2, lane, in_place)
+                     : tt_self<16>(y, RC, N, D, sb, sb + 4 * E2, lane,
+                                   in_place);
+      K1_PART(0)
+      *tqy = RC <= 8 ? cp_tt_rows<8>(qf, RQ, y, RC, N, D, lane)
+                     : cp_tt_rows<16>(qf, RQ, y, RC, N, D, lane);
+      K1_PART(1)
+    }
+  };
 
   for (int si = 0; si < S; ++si) {
     const Seg g = load_seg(segtab + (size_t)si * 12);
@@ -2119,7 +2499,7 @@ fused_query_kernel(
         ring_phase ^= 1u;
         float tqy, tyy;
         if constexpr (tt_ring) {
-          dense_tt_rows(qrow, slot, RC, N, D, dims, DF, lane, &tqy, &tyy);
+          tt_scores(slot, RC, false, &tqy, &tyy);
         } else {
           const float* yr[1] = {slot};
           dense_dots<1, false>(qrow, yr, FC, true, lane, &tqy, &tyy);
@@ -2293,18 +2673,10 @@ fused_query_kernel(
         tyy[1] = __shfl_sync(kFull, t, 16);
         dense_cp_sweep<G>(qrow, yr, RC, N, dims, DF, lane, tqy);
       } else if constexpr (tt_ring) {  // TT rows read in place, G = 1
-        dense_tt_rows(qrow, yr[0], RC, N, D, dims, DF, lane, tqy, tyy);
-      } else if constexpr (!same && tt && !qdense) {  // CP query, TT rows
-        tt_chains<TR>(yr[0], RC, yr[0], RC, nullptr, 0, nullptr, 0, N, D, sb,
-                      lane, tyy, tqy);
-        tqy[0] = cp_tt_chain(qf, RQ, yr[0], RC, N, D, sb, lane);
-      } else if constexpr (tt) {  // G = 1
-        if constexpr (TR > 8)
-          tt_chains_far<TR>(qf, RQ, yr[0], RC, yr[0], RC, yr[0], RC, N, D,
-                            sb, lane, tqy, tyy);
-        else
-          tt_chains<TR>(qf, RQ, yr[0], RC, yr[0], RC, yr[0], RC, N, D, sb,
-                        lane, tqy, tyy);
+        tt_scores(yr[0], RC, true, tqy, tyy);
+      } else if constexpr (tt) {  // <4, 4>, G = 1
+        tt_chains<TR>(qf, RQ, yr[0], RC, yr[0], RC, yr[0], RC, N, D, sb,
+                      lane, tqy, tyy);
       } else {
         const float* qa[G];
 #pragma unroll

@@ -86,9 +86,9 @@ TT_PAIR_ROW = 1024
 # (kCPPairRow): longer rows go to QR = 16, which stages them where its plan
 # finds room (``slot_plan``), else reads them in place
 CP_PAIR_ROW = 256
-# longest TT row (floats) dense queries over TT rows of ranks 5-16 (or past
-# TT_PAIR_ROW) take through a warp's ring slot (kTTRingRow): a rank-8 row
-# of (12, 12, 12); longer rows are read in place
+# longest TT row (floats) the instantiations over TT rows of ranks 5-16 (or
+# a cross pair's rows past TT_PAIR_ROW) take through a warp's ring slot
+# (kTTRingRow): a rank-8 row of (12, 12, 12); longer rows are read in place
 TT_RING_ROW = 2304
 # the corpus's and the queries' format codes in the C entries (fmt, qfmt)
 FORMATS = {"cp": 0, "tt": 1, "dense": 2}
@@ -100,25 +100,31 @@ MIXED_PAIRS = (("dense", "cp"), ("cp", "dense"), ("dense", "tt"),
 # block, target blocks per SM (its __launch_bounds__), candidates a warp
 # scores at once, row buffers a warp keeps for each of them (two where the
 # next rows are staged while the current ones are scored, one for CP or
-# dense queries over TT rows of ranks <= 4)): Shape<TR, QR> in
+# dense queries over TT rows of ranks <= 4; none are kept where the rows go
+# through ring slots or are read in place)): Shape<TR, QR> in
 # csrc/fused_query.cuh, whose C launch refuses a plan made with other
 # values. TR is the corpus's code (0 CP,
 # DENSE dense rows, else the TT rank bound), QR = TR for a same-format
-# pair, else the query's own code (``instance``).
+# pair, else the query's own code (``instance``). TT x TT at ranks 5-16
+# (<8, 8>, <16, 16>): 8 warps, 2 blocks, a row a warp through a ring slot
+# (``TT_RING``), its two chains on the two half-warps (``tt_chain``).
 SHAPES = {
     (0, 0): (384, 2, 2, 2), (DENSE, DENSE): (384, 2, 1, 2),
-    (4, 4): (256, 3, 1, 2), (8, 8): (256, 1, 1, 2), (16, 16): (256, 2, 1, 2),
+    (4, 4): (256, 3, 1, 2), (8, 8): (256, 2, 1, 2), (16, 16): (256, 2, 1, 2),
     # the cross-format pairs (csrc/fused_query_mixed.cu): 2 blocks; CP or TT
     # queries over dense rows the dense instantiation's shape; dense queries
     # over CP rows, CP or dense queries over TT rows of ranks <= 4 and TT
     # queries over CP rows 12 warps, two rows a warp (over TT rows in one
     # buffer), the others (CP or dense queries over TT rows of ranks 5-16)
-    # 8, one row a warp
+    # 8, one row a warp through a ring slot
     (DENSE, 0): (384, 2, 1, 2), (DENSE, 16): (384, 2, 1, 2),
     (0, DENSE): (384, 2, 2, 2), (4, DENSE): (384, 2, 2, 1),
     (16, DENSE): (256, 2, 1, 2), (4, 0): (384, 2, 2, 1),
     (16, 0): (256, 2, 1, 2), (0, 4): (384, 2, 2, 2), (0, 16): (384, 2, 2, 2),
 }
+# the instantiations that take TT rows of ranks 5-16 through ring slots
+# (Shape::tt_ring): dense, CP and TT queries over them
+TT_RING = ((16, DENSE), (16, 0), (8, 8), (16, 16))
 # the shared window's capacity in slots lies in [MIN_WINDOW, MAX_WINDOW]
 # (or is pow2(L*T*cap) where that is smaller)
 MIN_WINDOW = 256
@@ -176,6 +182,12 @@ def tt_ring_slot(fc: int) -> int:
     return fc if fc % 4 == 0 and fc <= TT_RING_ROW else 0
 
 
+def tt_tile(r: int) -> int:
+    """The rank bound of ``tt_chain``'s lane tiles for TT ranks up to ``r``
+    (``tt_tile`` in ``csrc/fused_query.cuh``): 8 or 16."""
+    return 8 if r <= 8 else 16
+
+
 def wide_row(d: int, r: int) -> int:
     """The stride (floats) of a TT query's rank rows as ``<0, 16>`` stages
     them (``wide_row`` in ``csrc/fused_query.cuh``): d * r made odd."""
@@ -205,12 +217,16 @@ def smem_bytes(num_tables: int, n_modes: int, d: int, rq: int, rc: int,
     window of ``window`` slots (a power of two): the instantiation's row
     buffers a warp (``SHAPES``) for each candidate it scores at once (two
     for CP, one for TT; CP factors (N, d, R) or TT cores (N, R, d, R) of
-    ranks up to 8, rounded up to 4 floats; rows of higher ranks, and those a
-    cross pair's TR = 16 takes, are read in place), the warps' running top-k lists and the
+    ranks up to 4, rounded up to 4 floats; TT rows of ranks 5-16, and those
+    a cross pair's TR = 16 takes, go through ring slots or are read in
+    place), the warps' running top-k lists and the
     merged top-k (8 bytes a rank each), the hash set of 2 * window ids and the
     candidate list of window ids (the expansion's per-warp scores and deltas,
     ``expansion`` candidates of 8 bytes, reuse that region), the query's row,
-    for TT each warp's two chain states and their next values, four per-(table,
+    for TT each warp's chain scratch (at ranks <= 4 the two chain states and
+    their next values, at ranks 5-16 ``tt_chain``'s two tiles of
+    ``tt_tile``^2 floats for each of the two chains and two slice buffers
+    as large), four per-(table,
     probe) integer arrays, and ``STATIC_SMEM`` bytes of static scalars. A
     dense corpus (``dense``: n_modes = rq = rc = 1, d = prod d) stages no
     candidate rows and its query row only up to ``DENSE_STAGE`` floats;
@@ -224,20 +240,22 @@ def smem_bytes(num_tables: int, n_modes: int, d: int, rq: int, rc: int,
     for rows of ``df`` floats), and the chain states of the pair's TT
     operand (none over TT rows: those states live in registers; one for the
     block where only a TT query's own chain needs one: over dense rows, and
-    over CP rows). With ``ring`` (``slot_plan``) dense queries over TT rows
-    of ranks 5-16 (``<16, kDense>``) take them through a ring slot a warp
-    (``tt_ring_slot``), and TT queries over CP rows past ``CP_PAIR_ROW`` or
-    of ranks 5-16 (``<0, 16>``) stage them (else both read them in place);
-    ``<0, 16>`` stages the query's cores at the ``wide_row`` stride."""
+    over CP rows; CP queries over TT rows of ranks 5-16, ``<16, 0>``: the
+    row's own chain's tiles). With ``ring`` (``slot_plan``) the
+    instantiations over TT rows of ranks 5-16 (``TT_RING``) take them
+    through a ring slot a warp (``tt_ring_slot``), and TT queries over CP
+    rows past ``CP_PAIR_ROW`` or of ranks 5-16 (``<0, 16>``) stage them
+    (else both read them in place); ``<0, 16>`` stages the query's cores at
+    the ``wide_row`` stride."""
     layout = "tt" if tt else "dense" if dense else "cp"
     ql = q_layout or layout
     tr, qr = instance(layout, ql, rq, rc, n_modes, d)
     threads, _, per_warp, buffers = SHAPES[tr, qr]
     nwarps = threads // 32
-    wide, tt_ring = (tr, qr) == (0, 16), (tr, qr) == (16, DENSE)
-    # a candidate row staged: CP rows, TT rows of ranks <= 8; <0, 16>'s
+    wide, tt_ring = (tr, qr) == (0, 16), (tr, qr) in TT_RING
+    # a candidate row staged: CP rows, TT rows of ranks <= 4; <0, 16>'s
     # CP rows only with its slots
-    fc = (0 if dense or tr > 8 or (wide and not ring)
+    fc = (0 if dense or tr > 4 or (wide and not ring)
           else n_modes * rc * d * (rc if tt else 1))
     fc = -(-fc // 4) * 4 * per_warp
     # the query row: a row with a dense side (a dense query's, or a CP / TT
@@ -248,16 +266,19 @@ def smem_bytes(num_tables: int, n_modes: int, d: int, rq: int, rc: int,
           else n_modes * rq * d * (rq if ql == "tt" else 1))
     if dense_side and fq > DENSE_STAGE:
         fq = 0
-    # each warp's chain states: a same-format pair's two TT chains; a cross
-    # pair's CP x TT state beside its TT operand's own chain; only the TT
-    # query's own chain, one for the block (Shape::one_state)
+    # each warp's chain scratch: a same-format pair's two TT chains (at
+    # ranks 5-16 tt_chain's tiles); a cross pair's TT operand's own chain;
+    # only the TT query's own chain, one for the block (Shape::one_state)
     one_state = ql == "tt" and layout in ("dense", "cp")
     if ql == layout:
-        sw = 2 * max(rq * rc + rc * rc, rq * rq) if tt else 0
-    elif tr == 4 or tt_ring:
+        sw = (0 if not tt else 2 * max(rq * rc + rc * rc, rq * rq)
+              if tr == 4 else 6 * tr * tr)
+    elif tr == 4 or (tr, qr) == (16, DENSE):
         sw = 0       # the states live in registers
     elif wide:
         sw = rq * rq + rq * d * rq    # qq by the block (block_tt_self)
+    elif (tr, qr) == (16, 0):
+        sw = 4 * tt_tile(rc) ** 2     # the row's own chain (tt_chain)
     elif "tt" in (layout, ql):
         rt = rc if tt else rq
         sw = 2 * max(0 if dense_side or one_state else rq * rc, rt * rt)
@@ -308,7 +329,7 @@ def slot_plan(layout: str, q_layout: str, num_tables: int, cap: int,
               topk: int = 10, expansion: int = 0, df: int = 0) -> bool:
     """Whether a launch keeps its instantiation's row slots (``smem_bytes``'
     ``ring``): dense rows through the ring slots (``ring_plan``), TT rows
-    through ``<16, kDense>``'s ring slots (whole float4s of at most
+    of ranks 5-16 through ring slots (``TT_RING``: whole float4s of at most
     ``TT_RING_ROW`` floats) and ``<0, 16>``'s staged CP rows, each where the
     instantiation's target blocks fit beside the smallest window; otherwise
     the rows are read in place. The C launch tells the two plans apart by
@@ -318,7 +339,7 @@ def slot_plan(layout: str, q_layout: str, num_tables: int, cap: int,
         return ring_plan(num_tables, cap, df if query else d, probes, topk,
                          expansion, query)
     tr_qr = instance(layout, q_layout, rq, rc, n_modes, d)
-    if tr_qr == (16, DENSE):
+    if tr_qr in TT_RING:
         if not tt_ring_slot(n_modes * rc * d * rc):
             return False
     elif tr_qr != (0, 16):

@@ -47,7 +47,11 @@ data), K1s at S = 3; TT ranks 5 to 16 beside them: TT queries of ranks 5
 to 16 over CP rows (``<0, 16>``) at CP row ranks 1 to 6 and 32, a live
 window, the global scratch and K1s; dense queries over TT rows of ranks
 5 to 16 (``<16, kDense>``) through the ring slots or in place, rows of
-whole floats, a query row past the staged one, K1s.
+whole floats, a query row past the staged one, K1s; CP and TT queries
+over TT rows of ranks 5 to 16 (``<16, 0>``, ``<8, 8>``, ``<16, 16>``: a
+row a warp through a ring slot or in place, ``tt_chain``) at ranks 5, 8
+and 16, ragged, four modes, a live window at T = 4, the global scratch
+bit for bit on integer data, and K1s.
 """
 
 import math
@@ -1452,3 +1456,121 @@ def test_fused_query_tt_ranks_past_four_over_dense(gen, ranks):
     same = (rows.data.flatten(1)[ids[:, 0].long()]
             == rows.data.flatten(1)[qid]).all(1)
     assert bool(same.all())
+
+
+def _pad_tt(x, rank):
+    """A TT batch with its interior ranks zero-padded to ``rank``: the same
+    tensor exactly."""
+    cores, last = [], len(x.cores) - 1
+    for k, c in enumerate(x.cores):
+        shape = c.shape[:-3] + (1 if k == 0 else rank, c.shape[-2],
+                                1 if k == last else rank)
+        out = c.new_zeros(shape)
+        out[..., :c.shape[-3], :, :c.shape[-1]] = c
+        cores.append(out)
+    return TTTensor(tuple(cores), x.scale)
+
+
+# (mode dims, the rows' TT ranks, the TT queries' ranks): ranks 5, 8 and 16,
+# rank-8 rows of (12, 12, 12) through the ring slots ([tt8]'s; the rank-16
+# queries over them read them in place), ragged ranks, four modes at rank 16
+TT_WIDE_SHAPES = [((6, 5, 7), (1, 5, 5, 1), (1, 5, 5, 1)),
+                  ((12, 12, 12), (1, 8, 8, 1), (1, 8, 8, 1)),
+                  ((12, 12, 12), (1, 8, 8, 1), (1, 16, 16, 1)),
+                  ((6, 5, 7), (1, 6, 7, 1), (1, 3, 8, 1)),
+                  ((4, 3, 5, 2), (1, 9, 16, 12, 1), (1, 16, 16, 5, 1))]
+
+
+@pytest.mark.parametrize("qf", ["cp", "tt"])
+@pytest.mark.parametrize("shape", TT_WIDE_SHAPES, ids=str)
+def test_fused_query_tt_wide_ranks(gen, shape, qf):
+    """TT rows of ranks 5 to 16 with TT queries (``<8, 8>``, ``<16, 16>``:
+    a row a warp, the two chains on the half-warps) and CP queries
+    (``<16, 0>``: yy by the row's own chain, qy by ``cp_tt_rows``), rows
+    through the ring slots or read in place, against K1's plain version,
+    the exact cap at T = 1 and a live window after deletes and an insert at
+    T = 4, each launch counted under its instantiation; an item's own TT
+    row finds it."""
+    from repro_torch.serving.lsh_service import build_service
+    dims, ranks, qranks = shape
+    n = 2000
+    corpus = _ragged_tt(gen, dims, ranks, n)
+    rc, rq = max(ranks), (max(qranks) if qf == "tt" else 3)
+    tr_qr = fq_mod.instance("tt", qf, rq, rc, len(dims), max(dims))
+    if qf == "cp":
+        assert tr_qr == (16, 0)
+    else:
+        assert tr_qr == ((8, 8) if max(rq, rc) <= 8 else (16, 16))
+    name = "k1:" + fq_mod.instance_name(*tr_qr)
+    for probes, cap in ((1, None), (4, 16)):
+        svc = build_service(gen, "cp-e2lsh", dims, corpus, num_codes=4,
+                            num_tables=4, rank=2, bucket_width=1.0,
+                            bucket_cap=cap, probes=probes)
+        if cap is not None:
+            svc.delete(list(range(1, n, 9)))
+            svc.insert(_ragged_tt(gen, dims, ranks, 200))
+        q = (_ragged_tt(gen, dims, qranks, 128) if qf == "tt"
+             else cp_random_data(gen, dims, rq, batch=128))
+        before = fused_query.branches[name]
+        nc = _k1_vs_plain(svc, q, probes)
+        assert fused_query.branches[name] == before + 1
+        assert int(nc.sum()) > 0
+        if cap is None:
+            qid = torch.randint(0, n, (64,), generator=gen, device="cuda")
+            ids, _, _ = svc.index.query_batch(corpus.index(qid), topk=1)
+            assert float((ids[:, 0].long() == qid).float().mean()) > 0.9
+
+
+@pytest.mark.parametrize("qf", ["cp", "tt"])
+def test_fused_query_tt_wide_scratch_equals_plain(gen, qf):
+    """A heavy query over TT rows of rank 8 (``<16, 0>``, ``<8, 8>``): one
+    item repeated past the largest shared window, so its window goes to the
+    global scratch, in one batch with queries whose windows fit;
+    integer-valued CP data held as TT padded to rank 8 (exact sums in any
+    order), so K1 equals its plain version bit for bit, the repeats tied at
+    distance 0 in effective-id order."""
+    from repro_torch.core.tensor_formats import cp_to_tt
+    from repro_torch.serving.lsh_service import build_service
+    dims, n = (6, 6, 6), 6000
+    dup = 3 * fq_mod.MAX_WINDOW // 4
+    base = CPTensor(tuple(
+        torch.randint(-1, 2, (n, d, 2), generator=gen, device="cuda").float()
+        for d in dims), 1.0)
+    rows = torch.cat([torch.arange(n, device="cuda"),
+                      torch.zeros(dup, dtype=torch.long, device="cuda")])
+    corpus = _repeat(base, rows[torch.randperm(n + dup, generator=gen,
+                                               device="cuda")])
+    svc = build_service(gen, "cp-e2lsh", dims, _pad_tt(cp_to_tt(corpus), 8),
+                        num_codes=6, num_tables=4, rank=2, bucket_width=4.0)
+    q = _repeat(base, torch.cat([
+        torch.zeros(32, dtype=torch.long, device="cuda"),
+        torch.randint(1, n, (96,), generator=gen, device="cuda")]))
+    q = _pad_tt(cp_to_tt(q), 8) if qf == "tt" else q
+    name = "k1:<16, 0>" if qf == "cp" else "k1:<8, 8>"
+    before, scratch = fused_query.branches[name], _scratch_queries()
+    ids, sc, nc = _bitwise_vs_plain(svc, q, 1)
+    assert fused_query.branches[name] == before + 1
+    assert 32 <= _scratch_queries() - scratch < 128
+    assert bool((sc[:32] == 0).all()) and bool(
+        (ids[:32, 1:] > ids[:32, :-1]).all())
+
+
+@pytest.mark.parametrize("qf", ["cp", "tt"])
+def test_fused_query_sharded_tt_wide(gen, qf):
+    """K1s with CP and TT queries over TT rows of rank 8 (``<16, 0>``,
+    ``<8, 8>``: ring slots), S = 3, after deletes and a routed insert, at
+    T = 1 and 4, against its plain version."""
+    from repro_torch.serving.lsh_service import build_service
+    dims, n = (12, 12, 12), 3001
+    corpus = _ragged_tt(gen, dims, (1, 8, 8, 1), n)
+    svc = build_service(gen, "cp-e2lsh", dims, corpus, num_codes=4,
+                        num_tables=4, rank=2, bucket_width=1.0, shards=3)
+    q = (_ragged_tt(gen, dims, (1, 8, 8, 1), 128) if qf == "tt"
+         else cp_random_data(gen, dims, 4, batch=128))
+    svc.delete(torch.arange(5, n, 13, device="cuda"))
+    svc.insert(_ragged_tt(gen, dims, (1, 8, 8, 1), 300))
+    name = "k1:<16, 0>" if qf == "cp" else "k1:<8, 8>"
+    for probes in (1, 4):
+        before = fused_query_sharded.branches[name]
+        _k1s_vs_plain(svc, q, probes)
+        assert fused_query_sharded.branches[name] == before + 1

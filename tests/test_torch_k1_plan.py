@@ -25,7 +25,12 @@ the roles swapped (the CP row the CP operand), and the rows' own Grams on
 a half-warp; held against the reference's ``inner`` on (TT, CP) and
 ``inner_cp_cp``, their plan pinned at [main]. A TT query over dense rows is
 densified prefix by prefix (``densify_tt``): a model of that order equals
-the per-entry chain bit for bit.
+the per-entry chain bit for bit. The TT chain of ``<8, 8>``, ``<16, 16>``
+and ``<16, 0>``'s yy (``tt_chain``: T_i once a slice, the state in
+registers) and ``<16, 0>``'s qy (``cp_tt_rows``) are modelled against the
+first design's ``tt_chains`` / ``cp_tt_chain`` bit for bit and against the
+reference's ``inner_tt_tt`` / ``inner_cp_tt`` within their bounds; their
+plans are pinned at [tt8] and [limits].
 """
 
 import itertools
@@ -88,6 +93,11 @@ PAIRS = [
     ("tt", "dense", (12, 12, 12), (1, 16)),    # 9,216 floats: in place
     ("tt", "dense", (16, 16, 16, 16), (1, 16)),  # the query read in place
     ("tt", "dense", (6, 5, 7), (1, 5)),        # whole floats: in place
+    ("tt", "tt", (12, 12, 12), (8, 8)),        # [tt8 x tt8]: ring slots
+    ("tt", "tt", (12, 12, 12), (16, 8)),       # [tt16 x tt8]: in place
+    ("tt", "tt", (6, 5, 7), (5, 7)),           # ragged: in place
+    ("tt", "cp", (12, 12, 12), (4, 8)),        # [mixed cp x tt8]: ring
+    ("tt", "cp", (4, 3, 5, 2), (5, 16)),       # rank 16, four modes
 ]
 # (tables, cap, probes, topk): exact caps, a live window's, T > 1
 LAUNCHES = [(10, 367, 1, 10), (10, 765, 1, 10), (10, 64, 4, 10),
@@ -141,9 +151,9 @@ def test_plan_fits_the_target_blocks(pair):
         smem = fq.smem_bytes(tables, n, d, rq, rc, window, probes=probes,
                              topk=topk, expansion=exp, **kw)
         assert smem <= MAX_SMEM and _blocks(smem) >= 1
-        # TT rank 8's register tile keeps one block; dense x CP at CP rank
-        # 32 stages 12 warps' two pairs of 2,688-byte rows, and keeps one
-        if probes == 1 and tr_qr != (8, 8) and rc <= 8:
+        # dense x CP at CP rank 32 stages 12 warps' two pairs of 2,688-byte
+        # rows, and keeps one
+        if probes == 1 and rc <= 8:
             assert _blocks(smem) >= target, (pair, tables, cap, smem)
         assert window & (window - 1) == 0
         if kw["ring"] and layout == "dense":
@@ -181,9 +191,12 @@ def test_plan_refuses_nothing_it_took(monkeypatch):
     warp, no ring; TT queries over CP rows: ``<0, 16>``, 8 warps, one
     staged row a warp, whatever the query's rank and the row's length;
     dense queries over TT rows of ranks 5-16: ``<16, kDense>``, 8 warps,
-    one row a warp read in place, each warp's chain state), at a window of
-    at least the old one or 1,024 slots (512 where a dense corpus's rows
-    go through its ring slots); the other instantiations' plans are
+    one row a warp read in place, each warp's chain state; CP and TT
+    queries over TT rows of ranks 5-16: ``<16, 0>``, ``<16, 16>``, rows
+    read in place, and ``<8, 8>``, 1 block a SM, rows staged in two
+    buffers, each warp's chain states and their next values), at a window
+    of at least the old one or 1,024 slots (512 where a dense corpus's
+    rows go through its ring slots); the other instantiations' plans are
     unchanged."""
     new, ring = {}, {}
     for pair, launch in itertools.product(PAIRS, LAUNCHES):
@@ -195,6 +208,7 @@ def test_plan_refuses_nothing_it_took(monkeypatch):
             tables, cap, n, d, rq, rc, probes=probes, topk=topk,
             expansion=exp, ring=ring[pair, launch], **kw)
     monkeypatch.setitem(fq.SHAPES, (fq.DENSE, fq.DENSE), (256, 3, 2, 2))
+    monkeypatch.setitem(fq.SHAPES, (8, 8), (256, 1, 1, 2))
     monkeypatch.setitem(fq.SHAPES, (0, fq.DENSE), (256, 2, 1, 2))
     for qr in (0, fq.DENSE):
         monkeypatch.setitem(fq.SHAPES, (4, qr), (256, 2, 1, 2))
@@ -217,11 +231,17 @@ def test_plan_refuses_nothing_it_took(monkeypatch):
         buffers, ``<16, kDense>`` read its TT rows in place)."""
         layout = "tt" if kw.get("tt") else "dense" if kw.get("dense") else "cp"
         inst = old_instance(layout, kw.get("q_layout") or layout, rq, rc, n, d)
-        if inst not in ((0, 16), (16, fq.DENSE)):
+        if inst not in ((0, 16), (16, fq.DENSE), (16, 0), (8, 8), (16, 16)):
             return smem_bytes(tables, n, d, rq, rc, window, **kw)
         if inst == (0, 16):
             rows, query = 16 * (-(-n * d * rc // 4) * 4), n * rq * d * rq
             states = 2 * max(rq * rc, rq * rq)
+        elif inst == (16, 0):
+            rows, query = 0, n * d * rq
+            states = 2 * max(rq * rc, rc * rc)
+        elif inst in ((8, 8), (16, 16)):
+            rows = 16 * (-(-n * rc * d * rc // 4) * 4) if inst == (8, 8) else 0
+            query, states = n * rq * d * rq, 2 * max(rq * rc + rc * rc, rq * rq)
         else:
             rows, states = 0, 2 * rc * rc
             query = kw["df"] if kw["df"] <= fq.DENSE_STAGE else 0
@@ -236,7 +256,7 @@ def test_plan_refuses_nothing_it_took(monkeypatch):
     monkeypatch.setattr(fq, "instance", old_instance)
     redesigned = (("dense", "dense"), ("cp", "dense"), ("tt", "cp"),
                   ("tt", "dense"), ("dense", "cp"), ("dense", "tt"),
-                  ("cp", "tt"))
+                  ("cp", "tt"), ("tt", "tt"))
     for (pair, launch), (window, _) in new.items():
         n, d, rq, rc, kw = _args(*pair)
         tables, cap, probes, topk = launch
@@ -609,11 +629,12 @@ def test_tt_pair_plan_at_the_cells():
         assert smem - fq.smem_bytes(10, 3, 12, rq, 4, 2048, **kw) == (
             2048 * 12)
         assert smem > rows == 55_296
-    # TT ranks 5-16 read their rows in place: no row buffers at all (a
-    # staged rank-16 row would take 36,864 bytes)
+    # TT ranks 5-16 without a ring slot read their rows in place: no row
+    # buffers at all (a staged rank-16 row would take 36,864 bytes), each
+    # warp's chain tiles and two slices of 1 KiB
     assert fq.instance("tt", "cp", 4, 16, 3, 12) == (16, 0)
     assert fq.smem_bytes(10, 3, 12, 4, 16, 256, tt=True, q_layout="cp",
-                         df=1728) == 20_948
+                         df=1728) == 37_332
 
 
 @pytest.mark.parametrize("q_layout", ["cp", "dense"])
@@ -1108,3 +1129,205 @@ def test_wide_plans_at_the_cells():
         k = dict(tt=layout == "tt", q_layout=ql, df=df, ring=got)
         window, _ = fq.window_plan(10, 765, n, d, rq, rc, **k)
         assert _blocks(fq.smem_bytes(10, n, d, rq, rc, window, **k)) == 2
+
+
+# --- TT rows of ranks 5-16: <16, 0>, <8, 8>, <16, 16> ------------------------
+
+def tt_chains_model(a, b, pad):
+    """``tt_chains``' order (the first design's) in fp32 for one chain <A, B>
+    of stacked TT rows a (N, ra, D, ra), b (N, rb, D, rb) -> S[0][0]: from
+    e_00 through every mode, entry (c, e) the FMA chain over the slices i
+    and, inside, the ranks x of A[x][i][c] u, u the FMA chain of S[x][y]
+    B[y][i][e] over y, every rank padded with zeros to ``pad`` (its
+    register tile's bound)."""
+    n_modes, ra, d, _ = a.shape
+    rb = b.shape[1]
+    ap = np.zeros((n_modes, pad, d, pad), np.float32)
+    bp = np.zeros((n_modes, pad, d, pad), np.float32)
+    ap[:, :ra, :, :ra] = a
+    bp[:, :rb, :, :rb] = b
+    s = np.zeros((pad, pad), np.float32)
+    s[0, 0] = 1
+    for n in range(n_modes):
+        acc = np.zeros((pad, pad), np.float32)
+        for i in range(d):
+            for x in range(pad):
+                u = np.zeros(pad, np.float32)
+                for y in range(pad):
+                    u = _fma(s[x, y], bp[n, y, i], u)
+                acc = _fma(ap[n, x, i][:, None], u[None, :], acc)
+        s = acc
+    return s[0, 0]
+
+
+def tt_chain_model(a, b):
+    """``tt_chain``'s order in fp32 -> S[0][0]: mode 1 the FMA chain of
+    A[0][i][c] B[0][i][e] over the slices; a middle mode per slice T[x][e]
+    the chain of S[x][y] B[y][i][e] over y < rb, then the state the chain
+    of A[x][i][c] T[x][e] over x < ra, slice after slice; the last mode
+    T_i[x][0] alike and S'[0][0] one chain over the slices and, inside,
+    x."""
+    n_modes, ra, d, _ = a.shape
+    rb = b.shape[1]
+    s = np.zeros((ra, rb), np.float32)
+    for i in range(d):
+        s = _fma(a[0, 0, i][:, None], b[0, 0, i][None, :], s)
+    if n_modes == 1:
+        return s[0, 0]
+    for n in range(1, n_modes):
+        if n == n_modes - 1:
+            r = np.float32(0)
+            for i in range(d):
+                t = np.zeros(ra, np.float32)
+                for y in range(rb):
+                    t = _fma(s[:, y], b[n, y, i, 0], t)
+                for x in range(ra):
+                    r = _fma(a[n, x, i, 0], t[x], r)
+            return r
+        acc = np.zeros((ra, rb), np.float32)
+        for i in range(d):
+            t = np.zeros((ra, rb), np.float32)
+            for y in range(rb):
+                t = _fma(s[:, y][:, None], b[n, y, i][None, :], t)
+            for x in range(ra):
+                acc = _fma(a[n, x, i][:, None], t[x][None, :], acc)
+        s = acc
+
+
+def cp_tt_chain_model(a, g, mode1_direct=False):
+    """``cp_tt_chain``'s order (the first design's) in fp32, or with
+    ``mode1_direct`` ``cp_tt_rows``' (mode 1's u taken as G[0][i][e]):
+    a (N, D, RA) a stacked CP row, g (N, RG, D, RG) a stacked TT row ->
+    <A, G>: from S = ones(RA, 1), per mode entry (q, e) the FMA chain over
+    the slices of A[i][q] u, u the chain of S[q][x] G[x][i][e] over x; then
+    S[q][0] added in q order from +0."""
+    n_modes, d, ra = a.shape
+    rg = g.shape[1]
+    s = np.zeros((ra, rg), np.float32)
+    s[:, 0] = 1
+    for n in range(n_modes):
+        acc = np.zeros((ra, rg), np.float32)
+        for i in range(d):
+            if n == 0 and mode1_direct:
+                u = np.broadcast_to(g[0, 0, i], (ra, rg))
+            else:
+                u = np.zeros((ra, rg), np.float32)
+                for x in range(rg):
+                    u = _fma(s[:, x][:, None], g[n, x, i][None, :], u)
+            acc = _fma(a[n, i][:, None], u, acc)
+        s = acc
+    v = np.float32(0)
+    for q in range(ra):
+        v = np.float32(v + s[q, 0])
+    return v
+
+
+def _bits(v):
+    return np.float32(v).view(np.int32)
+
+
+# (mode dims, the query's TT ranks, the row's): [tt8 x tt8], [tt16 x tt8],
+# ragged ranks, four modes at rank 16, one mode, a rank-4 row (past
+# ``TT_PAIR_ROW`` it goes to <16, QR>)
+TT_WIDE_PAIRS = [((12, 12, 12), (1, 8, 8, 1), (1, 8, 8, 1)),
+                 ((12, 12, 12), (1, 16, 16, 1), (1, 8, 8, 1)),
+                 ((6, 5, 7), (1, 5, 7, 1), (1, 6, 5, 1)),
+                 ((4, 3, 5, 2), (1, 16, 16, 5, 1), (1, 9, 16, 12, 1)),
+                 ((9,), (1, 1), (1, 1)),
+                 ((13, 3), (1, 6, 1), (1, 4, 1))]
+
+
+@pytest.mark.parametrize("shape", TT_WIDE_PAIRS, ids=str)
+def test_tt_chain_order_equals_tt_chains(shape):
+    """``tt_chain``'s order (T_i once per slice, mode 1 and the last mode
+    cut to the terms they need, no padded ranks) gives ``tt_chains``' value
+    bit for bit, for qy (query x row) and yy (row x row) at rank bounds 8
+    and 16, and holds against the reference's ``inner_tt_tt`` and float64
+    within 2 n u S (n the TT format's ``inner_length``, S the chain over
+    absolute values)."""
+    dims, qranks, ranks = shape
+    rng = np.random.default_rng(31)
+    qc, yc = _tt_cores(rng, dims, qranks), _tt_cores(rng, dims, ranks)
+    q, y = _stack_tt(qc, dims), _stack_tt(yc, dims)
+    pad = fq.tt_tile(max(max(qranks), max(ranks)))
+    for xc, xs in ((qc, q), (yc, y)):
+        got = tt_chain_model(xs, y)
+        assert _bits(got) == _bits(tt_chains_model(xs, y, pad))
+        ref = float(ref_contractions.inner_tt_tt(_ref_tt(xc), _ref_tt(yc)))
+        exact = float((_tt_dense64(xc) * _tt_dense64(yc)).sum())
+        s = float((_tt_dense64([np.abs(c) for c in xc])
+                   * _tt_dense64([np.abs(c) for c in yc])).sum())
+        x = TTTensor(tuple(torch.from_numpy(c) for c in xc), 1.0)
+        bound = 2 * x.inner_length(max(ranks)) * parity.U * s
+        assert abs(float(got) - ref) <= bound, (got, ref, bound)
+        assert abs(float(got) - exact) <= bound / 2, (got, exact)
+
+
+@pytest.mark.parametrize("shape,rank", [
+    (((12, 12, 12), (1, 8, 8, 1)), 4), (((6, 5, 7), (1, 6, 7, 1)), 3),
+    (((4, 3, 5, 2), (1, 9, 16, 12, 1)), 5), (((12, 12, 12), (1, 4, 4, 1)), 9)],
+    ids=str)
+def test_cp_tt_rows_order_equals_cp_tt_chain(shape, rank):
+    """``<16, 0>``'s qy (``cp_tt_rows``: mode 1 from G[0][i][e] itself, the
+    state in registers) gives the first design's ``cp_tt_chain`` value bit
+    for bit at row ranks 4, ragged, 8 and 16 and CP ranks up to 9 (chunks of
+    32 / E lanes), and holds against the reference's ``inner_cp_tt`` and
+    float64 within 2 n u S (n = ``parity.cross_length``)."""
+    dims, ranks = shape
+    rng = np.random.default_rng(32)
+    cores = _tt_cores(rng, dims, ranks)
+    factors = [rng.standard_normal((dn, rank)).astype(np.float32)
+               for dn in dims]
+    a = np.zeros((len(dims), max(dims), rank), np.float32)
+    for n, f in enumerate(factors):
+        a[n, :f.shape[0]] = f
+    g = _stack_tt(cores, dims)
+    got = cp_tt_chain_model(a, g, mode1_direct=True)
+    assert _bits(got) == _bits(cp_tt_chain_model(a, g))
+    ref = float(ref_contractions.inner_cp_tt(
+        RefCP(tuple(jnp.asarray(f) for f in factors)), _ref_tt(cores)))
+    exact = float((_dense(factors) * _tt_dense64(cores)).sum())
+    s = float(_dense([np.abs(f) for f in factors]).ravel()
+              @ _tt_dense64([np.abs(c) for c in cores]).ravel())
+    x = CPTensor(tuple(torch.from_numpy(f) for f in factors), 1.0)
+    y = TTTensor(tuple(torch.from_numpy(c) for c in cores), 1.0)
+    bound = 2 * parity.cross_length(x, y) * parity.U * s
+    assert abs(float(got) - ref) <= bound, (got, ref, bound)
+    assert abs(float(got) - exact) <= bound / 2, (got, exact)
+
+
+def test_tt_wide_plans_at_the_cells():
+    """CP and TT queries over TT rows of ranks 5-16 (``<16, 0>``, ``<8,
+    8>``, ``<16, 16>``): 8 warps, 2 blocks a SM, a row a warp through a ring
+    slot (``TT_RING``, whole float4s of at most ``TT_RING_ROW`` floats)
+    where it fits beside the query and the chain tiles, else read in place.
+    At [tt8] (rank-8 rows of 2,304 floats, L = 10, cap 36): [mixed cp x
+    tt8] 89,620 bytes and [tt8 x tt8] 102,356, each with 73,792 bytes of
+    ring slots and a 512-slot window; [tt16 x tt8] (a rank-16 query of
+    9,216 floats, two rank-16 tile pairs and two slice buffers a warp)
+    reads its rows in place, 93,076 bytes; [limits] (rank 16 over (8, 8,
+    8, 8), L = 8, a cap of 1,000) keeps two blocks a SM beside a 2,048-slot
+    window."""
+    assert set(fq.TT_RING) == {(16, fq.DENSE), (16, 0), (8, 8), (16, 16)}
+    for inst in ((16, 0), (8, 8), (16, 16)):
+        assert fq.SHAPES[inst] == (256, 2, 1, 2)
+    assert [fq.tt_tile(r) for r in (1, 4, 5, 8, 9, 16)] == [8] * 4 + [16] * 2
+    for ql, rq, rc, dims, tables, cap, inst, ring, window, want in (
+            ("cp", 4, 8, (12, 12, 12), 10, 36, (16, 0), True, 512, 89_620),
+            ("tt", 8, 8, (12, 12, 12), 10, 36, (8, 8), True, 512, 102_356),
+            ("tt", 16, 8, (12, 12, 12), 10, 36, (16, 16), False, 512,
+             93_076),
+            ("tt", 16, 16, (8, 8, 8, 8), 8, 1000, (16, 16), False, 2048,
+             107_380)):
+        n, d = len(dims), max(dims)
+        kw = dict(tt=True, q_layout=ql, df=0 if ql == "tt" else 1728)
+        assert fq.instance("tt", ql, rq, rc, n, d) == inst
+        assert fq.slot_plan("tt", ql, tables, cap, n, d, rq, rc,
+                            df=kw["df"]) == ring
+        assert fq.window_plan(tables, cap, n, d, rq, rc, ring=ring,
+                              **kw)[0] == window
+        smem = fq.smem_bytes(tables, n, d, rq, rc, window, ring=ring, **kw)
+        assert smem == want and _blocks(smem) >= 2, (ql, rq, smem)
+        if ring:
+            assert smem - fq.smem_bytes(tables, n, d, rq, rc, window,
+                                        **kw) == 8 * 2306 * 4
