@@ -124,6 +124,25 @@ Phases (any failure exits non-zero):
      recall@1 (planted) and recall@10 against brute force
      (``recall_at_k``), batch latency, K1 against its plain version and
      float64, its time beside its bound and the plain version's.
+  11. [sample] (run within 3, 5 and 6's TT cell), the sampling query modes
+     (``query_arrays(mode="uniform" | "weighted", seed=...)``: K1's and
+     K1s's sampling instantiations, ``fused_query_kernel<TR, QR, true>``
+     in ``fused_query_sample.cu``): [main]'s first 64 batches in each mode
+     (batch i at seed 7 + i), timed like [main]; every batch's candidate
+     counts equal to the top-k path's on the same batch, its draws
+     distinct; K1 against its plain version on the first batch (counts
+     equal; drawn sets equal, in "weighted" but within 2 ulps of a
+     perturbed logit; every draw a member of its query's probed union;
+     scores within the rounding bound) and the served answer equal to the
+     kernel's; a seed replayed bit for bit, another seed redrawing; a
+     chi-square of one query with at least 20 members replicated over
+     8,192 rows at topk 1 in each mode; then four batches each of [sample
+     dense x cp] (``<0, kDense>``), [shard sample] (K1s over [shard]'s 4
+     shards, every draw equal to [main]'s at the same seed bit for bit) and
+     [tt sample] (``<4, 4>`` on [tt-main]), each with its sampling
+     instantiation launched and no plain version, its time (CUDA events)
+     beside the top-k path's bound, registers, spills, blocks per SM,
+     shared window and scratch queries.
 
 Every path's kernel counters are zeroed just before it runs and read just
 after: each kernel and each K1 / K1s branch it needs must have launched,
@@ -494,16 +513,18 @@ def counters():
 MIXED_BRANCHES = tuple(f"mixed:{q}-{c}" for q, c in (
     ("dense", "cp"), ("cp", "dense"), ("dense", "tt"), ("tt", "dense"),
     ("cp", "tt"), ("tt", "cp")))
+SAMPLE_MODES = ("uniform", "weighted")
 BRANCHES = ("multiprobe", "live_window", "segments", "scratch"
-            ) + MIXED_BRANCHES
+            ) + MIXED_BRANCHES + tuple(f"sample:{m}" for m in SAMPLE_MODES)
 K1_WRAPPERS = ("fused_query", "fused_query_sharded")
 
 
-def k1_instance(tr: int, qr: int) -> str:
+def k1_instance(tr: int, qr: int, sample: bool = False) -> str:
     """K1's launch count of the instantiation fused_query_kernel<TR, QR>
-    among a wrapper's branches ("k1:<0, 4>")."""
+    (or of its sampling twin) among a wrapper's branches ("k1:<0, 4>",
+    "sample:<0, 4>")."""
     from repro_torch.kernels import fused_query as fq
-    return "k1:" + fq.instance_name(tr, qr)
+    return ("sample:" if sample else "k1:") + fq.instance_name(tr, qr)
 
 
 def read_counts() -> dict:
@@ -515,7 +536,8 @@ def read_counts() -> dict:
     fns = counters()
     counts = {name: getattr(fn, "launches" if name in COUNTED else "calls")
               for name, fn in fns.items()}
-    names = BRANCHES + tuple(k1_instance(*key) for key in fq.SHAPES)
+    names = BRANCHES + tuple(k1_instance(*key, sample=s) for key in fq.SHAPES
+                             for s in (False, True))
     counts.update({f"{k}:{b}": fns[k].branches[b]
                    for k in K1_WRAPPERS for b in names})
     return counts
@@ -980,9 +1002,11 @@ def phase_times(svc, cell, queries, k1_args):
             (q_ms, q_plain, q_bound, q_by), q_err, q_lib)
 
 
-def k1_times(svc, queries, k1_args, name, corpus=None):
+def k1_times(svc, queries, k1_args, name, corpus=None, sample=None):
     """K1 (K1s) per query batch on the card (CUDA events, cycling the
-    batches) beside its bound and its plain version's time on one batch."""
+    batches) beside its bound and its plain version's time on one batch;
+    ``sample`` = (mode, key words) times the sampling instantiation (its
+    bound is the top-k path's: the same reads and re-rank)."""
     from repro_torch.core import probing
     from repro_torch.kernels import fused_query as fq
     idx = svc.index
@@ -991,6 +1015,8 @@ def k1_times(svc, queries, k1_args, name, corpus=None):
         corpus = idx.effective_corpus()
     values, offs, mults, qs, view, kw = k1_args
     kernel, plain, _ = k1_entry(view)
+    if sample is not None:
+        kw = dict(kw, mode=sample[0], key=sample[1])
     segs = view.k1_segments[0]
     qss = [q.stack() for q in queries]
     vals = [fam.raw_stacked(q[1], q[0].scale) for q in qss]
@@ -1007,14 +1033,14 @@ def k1_times(svc, queries, k1_args, name, corpus=None):
     window, may_scratch, smem = fq.launch_plan(
         view.k1_table, pair.rq, num_tables=kw["num_tables"],
         probes=kw["probes"], topk=kw["topk"], expansion=expansion,
-        pair=pair)
+        pair=pair, sample=sample is not None)
     table = view.k1_table
     inst = fq.instance(table.layout, pair.q_layout, pair.rq, table.rc,
                        pair.n_modes, pair.d)
     slots = fq.slot_plan(table.layout, pair.q_layout, kw["num_tables"],
                          max(table.caps), pair.n_modes, pair.d, pair.rq,
                          table.rc, kw["probes"], kw["topk"], expansion,
-                         pair.df)
+                         pair.df, sample is not None)
     rows = ""
     if table.layout == "dense":
         row = pair.d if pair.same else pair.df
@@ -1027,7 +1053,12 @@ def k1_times(svc, queries, k1_args, name, corpus=None):
     elif inst == (0, 16):
         rows = ("; CP rows staged, two a warp in two buffers" if slots
                 else "; CP rows read in place")
-    occ = fq.occupancy(table, pair.rq, smem, pair.q_layout)
+    occ = fq.occupancy(table, pair.rq, smem, pair.q_layout,
+                       sample=sample is not None)
+    # a sampling window's 6-word slots may leave room for fewer blocks than
+    # the instantiation's target (window_plan then plans one block fewer)
+    planned = (fq.plan_blocks(smem, occ["target_blocks"]) if sample
+               else occ["target_blocks"])
     threads, _, per_warp, _ = fq.SHAPES[inst]
     k1_plain = cuda_ms([lambda: plain(values, offs, mults, qs, **kw)], 2)
     q0 = qs[0]
@@ -1040,33 +1071,41 @@ def k1_times(svc, queries, k1_args, name, corpus=None):
           f"{len(segs)} segment(s), {slots} window slots, {n_cand} "
           f"candidates: {k1_ms:.4f} ms (plain {k1_plain:.4f} ms); bound "
           f"{k1_bound:.5f} ms by {k1_by} ({k1_bytes / 1e6:.2f} MB, "
-          f"{k1_flops / 1e9:.3f} GFLOP); {fq.instance_name(*inst)}, "
+          f"{k1_flops / 1e9:.3f} GFLOP); {fq.instance_name(*inst)}"
+          f"{' sampling' if sample else ''}, "
           f"{threads // 32} warps, {per_warp} "
           f"row(s) a warp, {occ['registers']} registers a "
           f"thread, {occ['blocks_per_sm']} blocks per SM (target "
-          f"{occ['target_blocks']}), {occ['local_bytes']} local bytes, "
+          f"{occ['target_blocks']}, planned {planned}), "
+          f"{occ['local_bytes']} local bytes, "
           f"{smem} shared bytes per block, a {window}-slot shared window"
           f"{' with the global scratch' if may_scratch else ''}{rows}: "
           f"{scratch:.1f} queries per batch used the scratch")
-    if occ["blocks_per_sm"] < occ["target_blocks"]:
+    if occ["blocks_per_sm"] < planned:
         fail(f"{name}: {occ['blocks_per_sm']} blocks per SM, below the "
-             f"target {occ['target_blocks']} K1's window was sized for")
+             f"{planned} K1's window was sized for")
     return k1_ms, k1_plain, k1_bound, k1_by
 
 
-def phase_profile(svc, queries, tag):
+def phase_profile(svc, queries, tag, mode=None):
     """Where a query batch's time goes: torch.profiler over the main path's
-    batches, device time by kernel and the device's busy share."""
+    batches (in sampling ``mode``, batch i at ``sample_seed(i)``), device
+    time by kernel and the device's busy share."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     queries = queries[:64]
-    svc.query_arrays(queries[0], topk=TOPK)
+
+    def request(i):
+        if mode is None:
+            return dict(topk=TOPK)
+        return dict(topk=TOPK, mode=mode, seed=sample_seed(i))
+    svc.query_arrays(queries[0], **request(0))
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for q in queries:
-            svc.query_arrays(q, topk=TOPK)
+        for i, q in enumerate(queries):
+            svc.query_arrays(q, **request(i))
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     rows = sorted(((e.self_device_time_total / 1e3, e.count, e.key)
@@ -1544,6 +1583,280 @@ def phase_mixed_main(svc, qids, queries) -> tuple[list, list]:
     return out, (dense, dense_results)
 
 
+SAMPLE = dict(batches=64, passes=4, seed=7, chi_rows=8192, chi_members=20)
+K1_SAMPLE_SOURCE = ("src/repro_torch/kernels/csrc/fused_query_sample.cu",
+                    "src/repro/kernels/fused_query.py:235")
+K1S_SAMPLE_SOURCE = ("src/repro_torch/kernels/csrc/fused_query_sample.cu",
+                     "src/repro/kernels/fused_query.py:250")
+
+
+def sample_seed(i: int) -> int:
+    """The request seed of a sampling pass's batch i."""
+    return SAMPLE["seed"] + i
+
+
+def sample_key(seed: int) -> tuple:
+    """The draw's key words of a request's ``seed``, as the service makes
+    them (a CPU generator seeded with it)."""
+    import torch
+    from repro_torch.kernels import fused_query as fq
+    return fq.sample_key_words(torch.Generator().manual_seed(seed))
+
+
+def sample_serve(svc, batches, mode):
+    """A warm-up batch, then batch i through ``query_arrays(mode=mode,
+    seed=sample_seed(i))`` -> (results, host-clock latencies in ms)."""
+    svc.query_arrays(batches[0], topk=TOPK, mode=mode, seed=sample_seed(0))
+    svc.stats.reset()
+    results, lat_ms = [], []
+    for i, q in enumerate(batches):
+        t0 = time.perf_counter()
+        results.append(svc.query_arrays(q, topk=TOPK, mode=mode,
+                                        seed=sample_seed(i)))
+        lat_ms.append((time.perf_counter() - t0) * 1e3)
+    return results, lat_ms
+
+
+def check_samples(tag, results, topk_results, metric) -> None:
+    """Every sampled batch: candidate counts equal to the top-k path's on
+    the same batch; min(topk, n_cand) distinct ids, -1 after them; finite
+    scores in the top-k path's order."""
+    import numpy as np
+    fill = -1 - np.arange(TOPK)
+    for i, ((ids, sc, nc), (_, _, t_nc)) in enumerate(zip(results,
+                                                          topk_results)):
+        if not np.array_equal(nc, t_nc):
+            fail(f"{tag}: batch {i}'s candidate counts differ from the top-k "
+                 f"path's in {int((nc != t_nc).sum())} rows")
+        valid = ids >= 0
+        if not (valid.sum(1) == np.minimum(nc, TOPK)).all() or (
+                valid[:, 1:] & ~valid[:, :-1]).any():
+            fail(f"{tag}: batch {i} does not hold min(topk, n_cand) ids "
+                 "before its fill")
+        srt = np.sort(np.where(valid, ids, fill), axis=1)
+        if (srt[:, 1:] == srt[:, :-1]).any():
+            fail(f"{tag}: batch {i} drew an id twice")
+        if not np.isfinite(sc[valid]).all():
+            fail(f"{tag}: non-finite score on a drawn id")
+        step = sc[:, 1:] - sc[:, :-1]
+        if (valid[:, 1:] & ((step < 0) if metric == "euclidean"
+                            else (step > 0))).any():
+            fail(f"{tag}: drawn ids not in the top-k path's score order")
+
+
+def sample_compare(svc, q, label, mode, seed, served):
+    """K1 (K1s) in sample ``mode`` against its plain version on one batch,
+    with the key words of request ``seed`` (``served``: what the service
+    answered to that request, which must be the kernel's answer bit for
+    bit): candidate counts equal and equal to the union's size; the drawn
+    sets equal (in "weighted" but where ``parity.sample_mismatches`` allows
+    2 ulps of a perturbed logit); every drawn id a member of the query's
+    union (``fused_query.sample_union``); where the sets are equal, scores
+    within ``parity.rerank_bound`` and ids in order but at near ties ->
+    (max |kernel - plain| score, the arguments ``k1_times`` takes)."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import fused_query as fq
+    from repro_torch.kernels import parity
+    idx = svc.index
+    fam, view = idx.family, idx.store.view
+    corpus = idx.effective_corpus()
+    qs = q.stack()
+    values = fam.raw_stacked(qs[1], q.scale)
+    offs, mults = fam.offsets, idx._mults_t
+    kw = dict(kind=fam.kind, w=fam.bucket_width, num_tables=fam.num_tables,
+              num_codes=fam.num_codes, metric=idx.metric, topk=TOPK,
+              probes=1)
+    kernel, plain, name = k1_entry(view)
+    key = sample_key(seed)
+    ik, sk, nk = kernel(values, offs, mults, qs, mode=mode, key=key, **kw)
+    ip, sp, np_ = plain(values, offs, mults, qs, mode=mode, key=key, **kw)
+    segs, caps = view.k1_segments
+    union = fq.sample_union(values, offs, mults, segs, kind=fam.kind,
+                            w=fam.bucket_width, num_tables=fam.num_tables,
+                            num_codes=fam.num_codes, caps=caps, probes=1)
+    torch.cuda.synchronize()
+    label = f"{name} {label}"
+    for a, b in zip((ik, sk, nk), served):
+        if not np.array_equal(a.cpu().numpy().view(np.int32),
+                              b.view(np.int32)):
+            fail(f"{label}: the served answer is not the kernel's on the "
+                 "request's key")
+    eff, _, valid = union
+    if not (torch.equal(nk, np_)
+            and torch.equal(nk, valid.sum(1, dtype=torch.int32))):
+        fail(f"{label}: candidate counts differ from the plain version's "
+             "or from the union's size")
+    bad = parity.sample_mismatches(mode, key, ik, ip, union)
+    if bad:
+        fail(f"{label}: {bad} rows drew other members than the plain "
+             "version")
+    drawn = ik >= 0
+    member = ((ik[:, :, None] == eff[:, None, :])
+              & valid[:, None, :]).any(-1)
+    if not bool(member[drawn].all()):
+        fail(f"{label}: a drawn id is not in its query's probed union")
+    rows = torch.tensor([set(a[a >= 0].tolist()) == set(b[b >= 0].tolist())
+                         for a, b in zip(ik.cpu(), ip.cpu())],
+                        device=ik.device)
+    tol = parity.rerank_bound(idx.metric, q, corpus, ip, sp)
+    same = (ik == ip) & (ip >= 0) & rows[:, None]
+    err = torch.where(same, (sk - sp).abs(), 0.0)
+    if bool((err > tol).any()):
+        fail(f"{label}: scores outside the rounding bound (max err "
+             f"{float(err.max()):.3g})")
+    ties = parity.topk_mismatches(ik[rows], sk[rows], ip[rows], sp[rows],
+                                  tol[rows])
+    if ties:
+        fail(f"{label}: {ties} slots in another order without a near tie")
+    n_bits = int((same & (sk.view(torch.int32) == sp.view(torch.int32)))
+                 .sum())
+    print(f"[{label}]: n_cand equal to the plain version's and the union's "
+          f"({int(nk.sum())} members over {len(segs)} segment(s)); drawn "
+          f"sets equal in {int(rows.sum())} of {len(rows)} rows (the others "
+          f"within 2 ulps of a perturbed logit), every drawn id a distinct "
+          f"member; {int(drawn.sum())} drawn, {n_bits} of their scores bit "
+          f"for bit equal, max |kernel - plain| {float(err.max()):.3g} "
+          f"(bound median {float(tol[same].median()):.3g})")
+    return float(err.max()), (values, offs, mults, qs, view, kw)
+
+
+def sample_pass(tag, svc, batches, topk_results, mode, inst, source):
+    """One sampling pass: the batches through ``query_arrays(mode=...,
+    seed=...)`` with the counters zeroed just before and read just after
+    (the wrapper's sampling launches and the instantiation ``inst``'s
+    sampling twin must have run, no plain version), the latencies, the
+    answers against the top-k path's counts (``check_samples``), K1 (K1s)
+    against its plain version on the first batch (``sample_compare``) and
+    its time beside its bound -> (its record, the results)."""
+    import torch
+    view = svc.index.store.view
+    wrapper = "fused_query_sharded" if view.sharded else "fused_query"
+    torch.cuda.synchronize()
+    zero_counts()
+    results, lat_ms = sample_serve(svc, batches, mode)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    latency_line(f"{tag} {mode}", svc, lat_ms)
+    print(f"[{tag} {mode}] launches: "
+          f"{({k: v for k, v in counts.items() if v})}")
+    check_counts(counts, f"{tag} {mode}",
+                 (wrapper, f"{wrapper}:sample:{mode}",
+                  f"{wrapper}:" + k1_instance(*inst, sample=True)))
+    if counts[f"{wrapper}:" + k1_instance(*inst)]:
+        fail(f"{tag} {mode}: the top-k instantiation ran on a sampling "
+             "request")
+    check_samples(f"{tag} {mode}", results, topk_results,
+                  svc.index.metric)
+    err, k1_args = sample_compare(svc, batches[0],
+                                  f"{tag} {mode}, B={len(topk_results[0][2])}",
+                                  mode, sample_seed(0), results[0])
+    name = ("K1s" if view.sharded else "K1") + f" {tag} {mode}"
+    t = k1_times(svc, batches, k1_args, name,
+                 sample=(mode, sample_key(sample_seed(0))))
+    rec = record(f"{wrapper}[{tag} {mode}]", *source, counts,
+                 f"{wrapper}:sample:{mode}", err, t)
+    return rec, results
+
+
+def sample_chi2(svc, q, n_cand, mode) -> None:
+    """A chi-square of one query's draws: the first query of batch ``q``
+    with at least ``chi_members`` members in its union, replicated over
+    ``chi_rows`` rows (independent draws) at topk 1; expected counts
+    uniform or in proportion to the members' raw hit counts (the plain
+    ``sample_union``); the bound of tests/test_multiprobe.py, 2 df + 6
+    sqrt(2 df) + 20."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import fused_query as fq
+    idx = svc.index
+    fam, view = idx.family, idx.store.view
+    rows = SAMPLE["chi_rows"]
+    r = int(np.flatnonzero(n_cand >= SAMPLE["chi_members"])[0])
+    rep = q.index(torch.full((rows,), r, dtype=torch.long, device="cuda"))
+    x, st = rep.stack()
+    segs, caps = view.k1_segments
+    eff, mult, valid = fq.sample_union(
+        fam.raw_stacked(st[:1], x.scale), fam.offsets, idx._mults_t, segs,
+        kind=fam.kind, w=fam.bucket_width, num_tables=fam.num_tables,
+        num_codes=fam.num_codes, caps=caps, probes=1)
+    members = eff[0][valid[0]].tolist()
+    weights = mult[0][valid[0]].tolist()
+    ids, _, _ = svc.query_arrays(rep, topk=1, mode=mode,
+                                 seed=sample_seed(1000))
+    drawn = ids[:, 0]
+    counts = {m: int((drawn == m).sum()) for m in members}
+    if sum(counts.values()) != rows:
+        fail(f"[sample chi2 {mode}]: a draw is not a member of the union")
+    total = sum(weights) if mode == "weighted" else len(members)
+    expected = {m: rows * (w if mode == "weighted" else 1) / total
+                for m, w in zip(members, weights)}
+    chi2 = sum((counts[m] - e) ** 2 / e for m, e in expected.items())
+    df = len(members) - 1
+    bound = 2 * df + 6 * (2 * df) ** 0.5 + 20
+    print(f"[sample chi2 {mode}] one query (row {r}) with {len(members)} "
+          f"members (raw hit counts {min(weights)}-{max(weights)}) over "
+          f"{rows} rows at topk 1: chi2 {chi2:.2f}, df {df}, bound "
+          f"{bound:.2f}")
+    if chi2 >= bound:
+        fail(f"[sample chi2 {mode}]: chi2 {chi2} past its bound {bound}")
+
+
+def phase_sample(svc, queries, main_results) -> tuple[list, dict]:
+    """[sample] on [main]'s service: its first ``batches`` query batches in
+    each sampling mode (``sample_pass``), a request replayed bit for bit
+    and another seed's draw differing, the chi-square of one query's
+    draws; then [sample dense x cp]: [mixed dense x cp]'s first ``passes``
+    batches sampled -> (the records, each mode's [main] answers, for
+    [shard]'s pass)."""
+    from repro_torch.kernels import fused_query as fq
+    batches = queries[:SAMPLE["batches"]]
+    records, answers = [], {}
+    for mode in SAMPLE_MODES:
+        rec, results = sample_pass("sample", svc, batches,
+                                   main_results[:len(batches)], mode, (0, 0),
+                                   K1_SAMPLE_SOURCE)
+        records.append(rec)
+        answers[mode] = results
+        again = svc.query_arrays(batches[0], topk=TOPK, mode=mode,
+                                 seed=sample_seed(0))
+        other = svc.query_arrays(batches[0], topk=TOPK, mode=mode,
+                                 seed=sample_seed(999))
+        same_answers(again, results[0], f"sample {mode}: the replayed seed")
+        # rows whose union exceeds topk draw a subset, which another seed
+        # should change
+        big = results[0][2] > TOPK
+        moved = float((other[0] != results[0][0]).any(1)[big].mean())
+        if moved < 0.5:
+            fail(f"sample {mode}: another seed redrew only {moved:.3f} of "
+                 f"the {int(big.sum())} rows with more than {TOPK} members")
+        print(f"[sample {mode}] a seed replays its draw bit for bit; another "
+              f"seed redraws {moved:.3f} of the {int(big.sum())} rows with "
+              f"more than {TOPK} members")
+        sample_chi2(svc, batches[0], main_results[0][2], mode)
+    # the three modes in turns on the same batches: batch means side by side
+    means = {m: [] for m in ("topk",) + SAMPLE_MODES}
+    for _ in range(3):
+        for m in means:
+            if m == "topk":
+                serve(svc, batches)
+            else:
+                sample_serve(svc, batches, m)
+            means[m].append(svc.stats.total_ms / svc.stats.batches)
+    print("[sample ab] batch mean ms, 3 turns of " + str(len(batches))
+          + " batches each: " + "; ".join(
+              f"{m} " + " / ".join(f"{x:.3f}" for x in v)
+              for m, v in means.items()))
+    phase_profile(svc, queries, "sample-profile", mode="weighted")
+    dense = mixed_batches(queries, "dense")[:SAMPLE["passes"]]
+    dense_top = [svc.query_arrays(q, topk=TOPK) for q in dense]
+    for mode in SAMPLE_MODES:
+        rec, _ = sample_pass("sample dense x cp", svc, dense, dense_top, mode,
+                             (0, fq.DENSE), K1_SAMPLE_SOURCE)
+        records.append(rec)
+    return records, answers
+
+
 def phase_cp_as_tt(cell, corpus, qids, queries) -> list:
     """[cp-as-tt]: [main]'s 2^20 CP items converted exactly to TT (TT rank
     4), a tt-e2lsh index through K4, queried with [main]'s CP queries (CP x
@@ -1669,14 +1982,18 @@ def phase_shard_mixed(svc, dense, dense_results):
                   k1_t)
 
 
-def phase_shard(cell, corpus, qids, queries, main_results, mixed=None):
+def phase_shard(cell, corpus, qids, queries, main_results, mixed=None,
+                samples=None):
     """[shard]: [main]'s corpus, family and queries through
     ``build_service(..., shards=4)`` (exact cap, T = 1), counters zeroed
     just before and read just after; every batch's ids, scores and
     candidate counts must equal [main]'s bit for bit (shard-count
     invariance); then K1s against its plain version, its time and a
     profile; with ``mixed`` ([mixed dense x cp]'s dense queries and
-    answers) also ``phase_shard_mixed`` -> the records."""
+    answers) also ``phase_shard_mixed``; with ``samples`` ([sample]'s
+    answers by mode) [shard sample]: K1s's sampling pass over the first
+    ``passes`` batches, each equal to [main]'s draw at the same seed bit
+    for bit -> the records."""
     import torch
     from repro_torch.serving.lsh_service import build_service
     torch.cuda.synchronize()
@@ -1720,6 +2037,16 @@ def phase_shard(cell, corpus, qids, queries, main_results, mixed=None):
                   "fused_query_sharded", k1_err, k1_t)]
     if mixed is not None:
         out.append(phase_shard_mixed(svc, *mixed))
+    for mode, want in (samples or {}).items():
+        n = SAMPLE["passes"]
+        rec, got = sample_pass("shard sample", svc, queries[:n],
+                               results[:n], mode, (0, 0), K1S_SAMPLE_SOURCE)
+        for i, (g, w_) in enumerate(zip(got, want)):
+            same_answers(g, w_, f"shard sample {mode}: batch {i} against "
+                                "[main]'s draw")
+        print(f"[shard sample {mode}] all {n} batches equal [main]'s draws "
+              "at the same seeds bit for bit")
+        out.append(rec)
     return out
 
 
@@ -2678,6 +3005,15 @@ def run_cell(layout: str, log2_corpus: int, args) -> list:
     phase_profile(svc, queries, "tt-profile" if layout == "tt" else "profile")
     mixed_records, mixed = ([], None) if layout == "tt" else \
         phase_mixed_main(svc, qids, queries)
+    if layout == "tt":
+        n = SAMPLE["passes"]
+        sample_records = [sample_pass("tt sample", svc, queries[:n],
+                                      main_results[:n], mode, (4, 4),
+                                      K1_SAMPLE_SOURCE)[0]
+                          for mode in SAMPLE_MODES]
+        samples = None
+    else:
+        sample_records, samples = phase_sample(svc, queries, main_results)
     key, source, replaces = HASH_RECORDS[layout]
     builds = main["build_launches"]
     records = [dict(record(key + "[build]", source, replaces, counts, key,
@@ -2687,15 +3023,16 @@ def run_cell(layout: str, log2_corpus: int, args) -> list:
                     library_ms=hq_lib),
                record("fused_query" + ("[tt]" if layout == "tt" else ""),
                       *K1_SOURCE, counts, "fused_query", k1_err, k1_t)]
-    records += mixed_records
+    records += mixed_records + sample_records
     del svc, k1_args
     torch.cuda.empty_cache()
     if layout == "tt":
         phase_tt_mut(cell)
         phase_tt_shard(cell)
         return records
-    records += phase_shard(cell, corpus, qids, queries, main_results, mixed)
-    del main_results, mixed
+    records += phase_shard(cell, corpus, qids, queries, main_results, mixed,
+                           samples)
+    del main_results, mixed, samples
     torch.cuda.empty_cache()
     records += phase_cp_as_tt(cell, corpus, qids, queries)
     torch.cuda.empty_cache()

@@ -7,7 +7,8 @@ from repro_torch.core.lsh import (LSHFamily, make_family, make_mults,
                                   naive_storage_size)
 from repro_torch.core.tensor_formats import (CPTensor, DenseTensor, TTTensor,
                                              as_batch, cp_rademacher,
-                                             cp_random_data,
-                                             cp_to_dense, tt_gaussian,
+                                             cp_als, cp_random_data,
+                                             cp_to_dense, dense_to_tt,
+                                             khatri_rao, tt_gaussian,
                                              tt_rademacher, tt_random_data,
                                              tt_to_dense)

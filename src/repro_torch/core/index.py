@@ -31,8 +31,12 @@ is queued (ROADMAP.md).
 
 ``_SegmentedIndex`` holds what the two share. Everything lives on the
 index's ``device`` ("cuda" unless the caller asks for the CPU, where the
-kernels' plain versions run). The sampling query modes and the host index
-are queued (ROADMAP.md). The reference's ``swap_chunk_rows`` and
+kernels' plain versions run). ``query_batch(..., mode="uniform" |
+"weighted", rng=gen)`` samples ``topk`` distinct members of each query's
+probed union instead (one K1 / K1s launch in sample mode); ``rng`` is a
+``torch.Generator`` where the reference takes a PRNG key, and two uint32
+key words drawn from it per call are the draw's only state. The host index
+is queued (ROADMAP.md). The reference's ``swap_chunk_rows`` and
 ``probe_backend`` have no counterpart: the shadow store is gathered in one
 pass (the chunked, throttled build waits for the scheduler's second stream)
 and the tensors' device picks kernel or plain path.
@@ -53,6 +57,7 @@ from repro_torch.core.probing import QUERY_MODES
 from repro_torch.core.segments import (SegmentStore, bucket_keys,
                                        build_segment, build_sharded_segment)
 from repro_torch.core.tensor_formats import as_batch
+from repro_torch.kernels.fused_query import sample_key_words
 from repro_torch.kernels.ops import mults_tensor, unstack_like
 
 
@@ -61,14 +66,22 @@ def _check_metric(metric: str) -> None:
         raise ValueError(metric)
 
 
-def _check_mode(mode: str) -> None:
+def _check_mode(mode: str, rng) -> None:
+    """The reference's query-mode contract: the sampling modes need an
+    explicit generator per request (no hidden state: the same generator
+    state replays the draw), and the deterministic top-k mode refuses
+    one."""
     if mode not in QUERY_MODES:
         raise ValueError(
             f"unknown query mode {mode!r}; expected one of {QUERY_MODES}")
-    if mode != "topk":
-        raise NotImplementedError(
-            f"mode={mode!r} (sampling from the probed union) is queued in "
-            "ROADMAP.md")
+    if mode == "topk" and rng is not None:
+        raise ValueError("rng applies to the sampling modes only; "
+                         "mode='topk' is deterministic")
+    if mode != "topk" and rng is None:
+        raise ValueError(
+            f"mode={mode!r} samples from the probed bucket union and needs "
+            "an explicit torch.Generator (pass "
+            "rng=torch.Generator().manual_seed(seed))")
 
 
 def _sync(device: torch.device) -> None:
@@ -260,10 +273,16 @@ class _SegmentedIndex:
         tensors on the index's device: K3 / K4 projects the batch and one
         K1 (K1s) launch probes T = ``probes`` ranked buckets per table of
         every segment (every (shard, segment) pair), re-ranks and
-        selects."""
-        _check_mode(mode)
+        selects. ``mode`` "uniform" / "weighted" instead samples ``topk``
+        distinct members of each query's probed union (uniformly, or in
+        proportion to how many probed windows hold them), with their exact
+        scores, in the same order and fill; ``rng`` (a ``torch.Generator``)
+        is required for them and refused for "topk"."""
+        _check_mode(mode, rng)
         queries = as_batch(queries, len(self.family.projection.dims))
-        return self._query(self.store.view, queries, topk, int(probes))
+        key = None if mode == "topk" else sample_key_words(rng)
+        return self._query(self.store.view, queries, topk, int(probes),
+                           mode, key)
 
 
 @dataclasses.dataclass
@@ -299,7 +318,12 @@ class DeviceLSHIndex(_SegmentedIndex):
         keys, corpus = store.effective_arrays()
         return self._new_store(keys, corpus, warn=False)
 
-    def _query(self, view, queries, topk, probes):
+    def _query(self, view, queries, topk, probes, mode, key):
+        if mode != "topk":
+            return segments.segmented_sample(
+                self.family, view.all_arrays, self._mults_t, queries, key,
+                metric=self.metric, topk=topk, caps=view.all_caps,
+                probes=probes, mode=mode, table=view.k1_table)
         return segments.segmented_query(
             self.family, view.all_arrays, self._mults_t, queries,
             metric=self.metric, topk=topk, caps=view.all_caps,
@@ -471,12 +495,15 @@ class ShardedLSHIndex(_SegmentedIndex):
         fresh build over the effective corpus."""
         return self.apply_swap(self.prepare_rebalance())
 
-    def _query(self, view, queries, topk, probes):
-        return segments.sharded_query(
-            self.family, view.seg_arrays(0), view.delta_arrays,
-            self._mults_t, queries, metric=self.metric, topk=topk,
-            cap=view.base.cap, delta_caps=view.delta_caps, probes=probes,
-            table=view.k1_table)
+    def _query(self, view, queries, topk, probes, mode, key):
+        args = (self.family, view.seg_arrays(0), view.delta_arrays,
+                self._mults_t, queries)
+        kw = dict(metric=self.metric, topk=topk, cap=view.base.cap,
+                  delta_caps=view.delta_caps, probes=probes,
+                  table=view.k1_table)
+        if mode != "topk":
+            return segments.sharded_sample(*args, key, mode=mode, **kw)
+        return segments.sharded_query(*args, **kw)
 
 
 # ---------------------------------------------------------------------------

@@ -837,14 +837,15 @@ def hoisted_scores(metric: str, queries, corpus, safe: torch.Tensor,
 
 
 def segmented_query(family, segs, mults, queries, *, metric: str,
-                    topk: int, caps, probes: int = 1, table=None):
+                    topk: int, caps, probes: int = 1, table=None,
+                    mode: str = "topk", key=None):
     """From a query batch to ((B, topk) effective ids, (B, topk) scores,
     (B,) candidate counts) over every segment (``segs`` in slot-offset
     order, ``caps`` their probe widths): the batch is stacked once, K3 or
     K4 (``raw`` epilogue) projects it, and one K1 launch expands each
     table's key to ``probes`` ranked keys, probes every segment and selects.
     ``table`` is the view's ``k1_table`` (built once per view on the
-    card)."""
+    card); ``mode`` / ``key`` as ``segmented_sample``."""
     from repro_torch.kernels.fused_query import fused_query
     from repro_torch.kernels.ops import mults_tensor
 
@@ -856,12 +857,31 @@ def segmented_query(family, segs, mults, queries, *, metric: str,
                        kind=family.kind, w=family.bucket_width,
                        num_tables=family.num_tables,
                        num_codes=family.num_codes, metric=metric, topk=topk,
-                       caps=caps, probes=probes, table=table)
+                       caps=caps, probes=probes, table=table, mode=mode,
+                       key=key)
+
+
+def segmented_sample(family, segs, mults, queries, key, *, metric: str,
+                     topk: int, caps, probes: int = 1, mode: str,
+                     table=None):
+    """The sampling variant of ``segmented_query`` (reference:
+    ``segmented_sample``): the batch is hashed once (K3 / K4, ``raw``) and
+    one K1 launch in sample ``mode`` ("uniform" or "weighted") draws
+    ``topk`` distinct members of each query's probed union over every
+    segment, uniformly or in proportion to their raw hit counts, by Gumbel
+    top-k under the draw's two uint32 ``key`` words (each query row's noise
+    its own); -> (ids (B, topk), exact scores (B, topk), the union's size
+    (B,)) in ``segmented_query``'s order and fill."""
+    if mode not in ("uniform", "weighted"):
+        raise ValueError(f"unknown sampling mode {mode!r}")
+    return segmented_query(family, segs, mults, queries, metric=metric,
+                           topk=topk, caps=caps, probes=probes, table=table,
+                           mode=mode, key=key)
 
 
 def sharded_query(family, base, deltas, mults, queries, *, metric: str,
                   topk: int, cap: int, delta_caps, probes: int = 1,
-                  table=None):
+                  table=None, mode: str = "topk", key=None):
     """The sharded planner (reference: ``sharded_query_vmap``, which vmaps
     the per-shard probe over the shard dim on one device; nothing is
     vmapped here): from a query batch to ((B, topk) effective ids, scores,
@@ -871,7 +891,7 @@ def sharded_query(family, base, deltas, mults, queries, *, metric: str,
     shard's base slice and delta slabs with one running top-k, which takes
     the place of the reference's S-way merge. ``base`` / ``deltas`` are
     the sharded segments' arrays (leading shard dim), ``table`` the view's
-    ``k1_table``."""
+    ``k1_table``; ``mode`` / ``key`` as ``sharded_sample``."""
     from repro_torch.kernels.fused_query import fused_query_sharded
     from repro_torch.kernels.ops import mults_tensor
 
@@ -883,4 +903,19 @@ def sharded_query(family, base, deltas, mults, queries, *, metric: str,
         base, deltas, kind=family.kind, w=family.bucket_width,
         num_tables=family.num_tables, num_codes=family.num_codes,
         metric=metric, topk=topk, cap=cap, delta_caps=delta_caps,
-        probes=probes, table=table)
+        probes=probes, table=table, mode=mode, key=key)
+
+
+def sharded_sample(family, base, deltas, mults, queries, key, *,
+                   metric: str, topk: int, cap: int, delta_caps,
+                   probes: int = 1, mode: str, table=None):
+    """The sampling variant of ``sharded_query`` (reference:
+    ``sharded_sample_vmap``): one K1s launch in sample ``mode`` draws from
+    the union over every (shard, segment) pair. Effective ids are unique
+    across shards and the noise is keyed by them, so a key draws the same
+    sample as ``segmented_sample`` over the same live corpus."""
+    if mode not in ("uniform", "weighted"):
+        raise ValueError(f"unknown sampling mode {mode!r}")
+    return sharded_query(family, base, deltas, mults, queries, metric=metric,
+                         topk=topk, cap=cap, delta_caps=delta_caps,
+                         probes=probes, table=table, mode=mode, key=key)

@@ -390,3 +390,75 @@ def tt_to_dense(x: TTTensor) -> torch.Tensor:
     for core in x.cores[1:]:
         acc = torch.tensordot(acc, core, dims=([-1], [0]))  # (..., d_k, r_k)
     return x.scale * acc.reshape(acc.shape[:-1])
+
+
+def dense_to_tt(x: torch.Tensor, max_rank: int, eps: float = 0.0) -> TTTensor:
+    """TT-SVD (Oseledets 2011): one dense tensor -> TT format, on its own
+    device (the reference's ``dense_to_tt``). Each unfolding keeps
+    ``min(max_rank, len(s))`` singular values, or with ``eps`` > 0 those
+    above ``eps * s[0]`` (at least one, at most ``max_rank``); the last
+    unfolding's ``s V^T`` is the last core. Scale 1."""
+    dims = tuple(x.shape)
+    n = len(dims)
+    cores = []
+    r_prev = 1
+    c = x.reshape(r_prev * dims[0], -1)
+    for i in range(n - 1):
+        u, s, vt = torch.linalg.svd(c, full_matrices=False)
+        if eps > 0.0:
+            r = max(1, min(max_rank, int((s > eps * s[0]).sum())))
+        else:
+            r = min(max_rank, s.shape[0])
+        u, s, vt = u[:, :r], s[:r], vt[:r]
+        cores.append(u.reshape(r_prev, dims[i], r))
+        c = s[:, None] * vt
+        if i + 1 < n - 1:
+            c = c.reshape(r * dims[i + 1], -1)
+        r_prev = r
+    cores.append(c.reshape(r_prev, dims[-1], 1))
+    return TTTensor(tuple(core.contiguous() for core in cores), scale=1.0)
+
+
+def khatri_rao(mats: Sequence[torch.Tensor]) -> torch.Tensor:
+    """Column-wise Khatri-Rao product of (d_n, R) matrices -> (prod d_n, R),
+    the first matrix's rows slowest (the reference's ``khatri_rao``)."""
+    out = mats[0]
+    for m in mats[1:]:
+        out = (out[:, None, :] * m[None, :, :]).reshape(-1, m.shape[1])
+    return out
+
+
+def cp_als(x: torch.Tensor, rank: int, iters: int = 25,
+           generator: torch.Generator | None = None) -> CPTensor:
+    """Plain ALS fit of a rank-``rank`` CP model to one small dense tensor
+    (the reference's ``cp_als``, for tests and examples: the paper takes
+    its inputs as given in CP format). The initial factors are standard
+    normals from ``generator`` (by default one seeded with 0), made on the
+    generator's device and moved to ``x``'s. Each sweep updates mode n
+    from the Hadamard product of the other factors' Grams and the MTTKRP,
+    ``solve(G^T, M^T)^T``, in the reference's order. The MTTKRP pairs the
+    row-major unfolding (the other modes in order, the last fastest) with
+    the Khatri-Rao product of the other factors in that same order; the
+    reference takes them in reverse order (Kolda's, for a column-major
+    unfolding) against its row-major one, which fits no exact tensor
+    (ROADMAP.md, R5). Scale 1."""
+    if generator is None:
+        generator = torch.Generator().manual_seed(0)
+    dims = tuple(x.shape)
+    n = len(dims)
+    factors = [torch.randn((d, rank), generator=generator,
+                           device=generator.device, dtype=x.dtype).to(x.device)
+               for d in dims]
+
+    def unfold(t, mode):
+        return torch.movedim(t, mode, 0).reshape(dims[mode], -1)
+
+    for _ in range(iters):
+        for mode in range(n):
+            others = [factors[m] for m in range(n) if m != mode]
+            g = torch.ones((rank, rank), dtype=x.dtype, device=x.device)
+            for f in others:
+                g = g * (f.T @ f)
+            mttkrp = unfold(x, mode) @ khatri_rao(others)
+            factors[mode] = torch.linalg.solve(g.T, mttkrp.T).T
+    return CPTensor(tuple(f.contiguous() for f in factors), scale=1.0)

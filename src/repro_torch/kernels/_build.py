@@ -29,6 +29,7 @@ CFLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_U = ctypes.c_uint
 _F = ctypes.c_float
 _D = ctypes.c_double
 # C signatures of the entry points (restype int = cudaError_t).
@@ -49,14 +50,16 @@ SIGNATURES = {
     # values, offsets, mults, pairs, q, segment table, S, ids, scores,
     # ncand, B, L, K, T, C, N, D, RQ, RC, topk, e2, euclid, fmt, qfmt, w,
     # qs, window, scratch, scratch window, scratch query counter, the
-    # densified queries' scratch, dims, DF, the planned threads, blocks per
-    # SM and shared bytes (checked), stream
+    # densified queries' scratch, dims, DF, the query mode (0 topk, 1
+    # uniform, 2 weighted) and the draw's two key words, the planned
+    # threads, blocks per SM and shared bytes (checked), stream
     "fused_query_launch": [_P] * 6 + [_I] + [_P] * 3 + [_I] * 14
-                          + [_F, _D, _I, _P, _I, _P, _P, _P, _I, _I, _I,
-                             ctypes.c_size_t, _P],
-    # fmt, qfmt, RQ, RC, N, D, shared bytes, out (registers, blocks per SM, local
-    # bytes, target blocks per SM)
-    "fused_query_occupancy": [_I, _I, _I, _I, _I, _I, ctypes.c_size_t,
+                          + [_F, _D, _I, _P, _I, _P, _P, _P, _I, _I, _U, _U,
+                             _I, _I, ctypes.c_size_t, _P],
+    # fmt, qfmt, RQ, RC, N, D, sample (the sampling instantiation), shared
+    # bytes, out (registers, blocks per SM, local bytes, target blocks per
+    # SM)
+    "fused_query_occupancy": [_I, _I, _I, _I, _I, _I, _I, ctypes.c_size_t,
                               _P],
     # values, out, B, K, the plan's threads, blocks, rows a chunk, pieces a
     # row and path (1 vector, 0 scalar; checked), stream

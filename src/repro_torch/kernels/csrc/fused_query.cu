@@ -1,8 +1,9 @@
 // K1's same-format instantiations and its C entry points; the kernel is
 // fused_query.cuh's fused_query_kernel<TR, QR> (its note says what it
-// replaces, what bounds it and what its design does about that), and the
-// cross-format pairs are instantiated in fused_query_mixed.cu, so that nvcc
-// builds the two sets side by side.
+// replaces, what bounds it and what its design does about that), the
+// cross-format pairs are instantiated in fused_query_mixed.cu and every
+// pair's sampling twin <TR, QR, true> in fused_query_sample.cu, so that nvcc
+// builds the three sets side by side.
 
 #include "fused_query.cuh"
 
@@ -62,10 +63,13 @@ static int row_slot(int tr, int qr, int N, int D, int RC, int row) {
 // block where only the query's own chain needs one: Shape::one_state), four
 // per-(table, probe) integer arrays. fmt /
 // qfmt: the corpus's / the queries' format, 0 CP, 1 TT, 2 dense; DF the
-// dense operand's row of a cross-format pair (prod d).
+// dense operand's row of a cross-format pair (prod d). A sampling launch
+// (sample) takes 6 words a window slot (the set's ids and counts, the
+// list's ids and counts) and a score key (4 bytes) beside each list rank.
 extern "C" size_t fused_query_smem_bytes(int LT, int N, int D, int RQ,
                                          int RC, int wcap, int fmt, int qfmt,
-                                         int topk, int C, int DF, int ring) {
+                                         int topk, int C, int DF, int ring,
+                                         int sample) {
   int tr, qr;
   instance_of(fmt, qfmt, RQ, RC, N, D, &tr, &qr);
   const ShapeOf sh = shape_of(tr, qr);
@@ -98,7 +102,7 @@ extern "C" size_t fused_query_smem_bytes(int LT, int N, int D, int RQ,
       : tt ? 4 * (size_t)tt_tile(RC) * tt_tile(RC)
       : qtt ? 2 * (size_t)max(sh.one_state ? 0 : RQ * RC, RQ * RQ) : 0;
   const size_t nsw = sh.one_state ? 1 : nw;
-  size_t rw = max((size_t)3 * wcap, nw * 2 * (size_t)C);
+  size_t rw = max((size_t)(sample ? 6 : 3) * wcap, nw * 2 * (size_t)C);
   rw = (rw + 3) & ~(size_t)3;
   const size_t rs = ring && (dense || tt_ring)
                         ? (size_t)row_slot(tr, qr, N, D, RC, same ? D : DF)
@@ -106,18 +110,21 @@ extern "C" size_t fused_query_smem_bytes(int LT, int N, int D, int RQ,
   const size_t slots = rs ? nw * (rs + 2) : 0;
   return (slots + nw * sh.buffers * sh.per_warp * fc + fq + nsw * sw + rw) *
              4 +
-         (nw + 1) * topk * 8 +
+         (nw + 1) * topk * (sample ? 12 : 8) +
          (size_t)(4 * LT + 1) * 4;
 }
 
 // Registers a thread, resident blocks per SM at smem bytes, local (spill)
 // bytes a thread and the instantiation's target blocks per SM -> out[0..3]
-// (N, D: the CP / TT operand's, which pick a cross pair's TT instantiation).
+// (N, D: the CP / TT operand's, which pick a cross pair's TT instantiation;
+// sample: the pair's sampling instantiation).
 extern "C" int fused_query_occupancy(int fmt, int qfmt, int RQ, int RC, int N,
-                                     int D, size_t smem, int* out) {
+                                     int D, int sample, size_t smem,
+                                     int* out) {
   int tr, qr;
   instance_of(fmt, qfmt, RQ, RC, N, D, &tr, &qr);
   if (tr < 0 || qr < 0) return (int)cudaErrorInvalidValue;
+  if (sample) return fused_query_sample_occupancy(tr, qr, smem, out);
   if (tr != qr) return fused_query_mixed_occupancy(tr, qr, smem, out);
   switch (tr) {
     case 0: return occupancy<0, 0>(smem, out);
@@ -134,15 +141,16 @@ extern "C" int fused_query_launch(
     int* out_ids, float* out_scores, int* out_ncand, int B, int L, int K,
     int T, int C, int N, int D, int RQ, int RC, int topk, int e2, int euclid,
     int fmt, int qfmt, float w, double qs, int wcap, void* scratch, int scap,
-    void* scratch_queries, void* qscratch, const int* dims, int DF,
-    int threads, int min_blocks, size_t smem, void* stream) {
+    void* scratch_queries, void* qscratch, const int* dims, int DF, int mode,
+    unsigned key0, unsigned key1, int threads, int min_blocks, size_t smem,
+    void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   int tr, qr;
   instance_of(fmt, qfmt, RQ, RC, N, D, &tr, &qr);
   const bool same = fmt == qfmt;
   const bool dense_side = fmt == 2 || qfmt == 2;
   if (tr < 0 || qr < 0 || wcap < 1 || (wcap & (wcap - 1)) || topk < 1 ||
-      scratch_queries == nullptr ||
+      mode < 0 || mode > 2 || scratch_queries == nullptr ||
       (same && fmt == 2 && (N != 1 || RQ != 1 || RC != 1 ||
                             D > kMaxDenseRow)) ||
       (!same && dense_side &&
@@ -155,20 +163,23 @@ extern "C" int fused_query_launch(
   // with others is refused
   const int row = same ? D : DF;  // a dense corpus's row
   const int slot = row_slot(tr, qr, N, D, RC, row);
-  const bool ring = slot &&
-                    smem == fused_query_smem_bytes(L * T, N, D, RQ, RC, wcap,
-                                                   fmt, qfmt, topk, C, DF, 1);
+  const int sample = mode != 0;
+  const bool ring =
+      slot && smem == fused_query_smem_bytes(L * T, N, D, RQ, RC, wcap, fmt,
+                                             qfmt, topk, C, DF, 1, sample);
   const ShapeOf sh = shape_of(tr, qr);
   if (threads != sh.threads || min_blocks != sh.min_blocks ||
       (!ring && smem != fused_query_smem_bytes(L * T, N, D, RQ, RC, wcap,
-                                               fmt, qfmt, topk, C, DF, 0)))
+                                               fmt, qfmt, topk, C, DF, 0,
+                                               sample)))
     return (int)cudaErrorInvalidConfiguration;
   const K1Args a{values, offsets, mults, pairs, q, segtab, S, out_ids,
                  out_scores, out_ncand, B, L, K, T, C, N, D, RQ, RC, topk,
                  e2, euclid, w, qs, wcap, static_cast<uint32_t*>(scratch),
                  scap, static_cast<unsigned long long*>(scratch_queries),
                  static_cast<float*>(qscratch), dims, DF,
-                 ring ? slot : 0};
+                 ring ? slot : 0, mode, key0, key1};
+  if (sample) return fused_query_sample_launch(tr, qr, a, smem, st);
   if (!same) return fused_query_mixed_launch(tr, qr, a, smem, st);
   switch (tr) {
     case 0: return launch<0, 0>(a, smem, st);

@@ -64,6 +64,18 @@
 //      the reference's one packed_select over their concatenation; then
 //      ids, scores and the candidate count are written.
 //
+// The sampling modes ("uniform", "weighted": the reference's
+// segmented_sample / _sample_topk) are the SAMPLE instantiations, every
+// pair's twin in fused_query_sample.cu / fused_query_sample_mixed.cu: stage
+// 3 also counts each distinct id's raw hits, stage 4 enters every scored
+// candidate into its warp's list by a sampling key (a Gumbel draw keyed by
+// the launch's key words, the query row and the effective id: sample_key32)
+// with its score key beside it, and stage 5 keeps the first topk by that
+// key and writes them in the top-k path's order. Stages 1, 2 and the
+// re-rank's arithmetic are the same code, so a sample's bound is the top-k
+// path's; the top-k instantiations compile as before (every sampling line
+// is behind if constexpr).
+//
 // What bounds it on the H100: issue slots and latency, not bytes. A query
 // reads its L*K values, its own factors, the keys its searches touch, the
 // perm / live / live_rank / live_pos entries of its windows and one corpus
@@ -296,6 +308,8 @@ struct K1Args {
   const int* dims;
   int DF;
   int RS;  // the row slot (floats) the plan keeps (RSLOT), 0: none
+  int mode;                // 0 topk, 1 uniform, 2 weighted (sampling)
+  uint32_t key0, key1;     // the sampling draw's key words
 };
 
 // The cross-format instantiations (QR != TR), in fused_query_mixed.cu:
@@ -303,6 +317,15 @@ struct K1Args {
 int fused_query_mixed_launch(int tr, int qr, const K1Args& a, size_t smem,
                              cudaStream_t stream);
 int fused_query_mixed_occupancy(int tr, int qr, size_t smem, int* out);
+// Every pair's sampling instantiation (a.mode 1 or 2): the same-format ones
+// in fused_query_sample.cu, the cross-format ones in
+// fused_query_sample_mixed.cu.
+int fused_query_sample_launch(int tr, int qr, const K1Args& a, size_t smem,
+                              cudaStream_t stream);
+int fused_query_sample_occupancy(int tr, int qr, size_t smem, int* out);
+int fused_query_sample_mixed_launch(int tr, int qr, const K1Args& a,
+                                    size_t smem, cudaStream_t stream);
+int fused_query_sample_mixed_occupancy(int tr, int qr, size_t smem, int* out);
 
 namespace {
 
@@ -807,6 +830,125 @@ __device__ __forceinline__ void select_pair(float t, float tyy, int eff0,
     const unsigned long long key =
         select_key(qq, qy[k], yy[k], s[0], s[1], euclid, effs[k]);
     if (key < wl[topk - 1]) topk_insert(wl, topk, key, lane);
+  }
+}
+
+// Sampling (the kernel's SAMPLE instantiations, modes "uniform" and
+// "weighted"): a query draws topk distinct members of its probed union by
+// Gumbel top-k. The noise is a counter-based hash, murmur3's 32-bit
+// finalizer over (key words, query row, effective id), so the draw depends
+// neither on the order in which the threads fill the candidate list nor on
+// the segment or shard that holds a member; fused_query.py's noise_bits and
+// sample_key32 compute the same keys in int64 and fp32 for the plain
+// version.
+__device__ __forceinline__ uint32_t fmix32(uint32_t h) {
+  h ^= h >> 16;
+  h *= 0x85ebca6bu;
+  h ^= h >> 13;
+  h *= 0xc2b2ae35u;
+  h ^= h >> 16;
+  return h;
+}
+
+// A member's 32-bit sampling key (ascending: drawn first) from its row's
+// key (fmix32(key0 ^ fmix32(key1 ^ row))), its effective id and its raw
+// hit count: "uniform" (mode 1) ranks by the noise bits h themselves (the
+// order of the Gumbel draw g(h), with no rounding); "weighted" by the
+// perturbed logit log(cnt) + g, g = -log(-log(u)), u = ((h >> 9) + 0.5)
+// 2^-23 (exact in fp32, inside (0, 1)), descending.
+__device__ __forceinline__ uint32_t sample_key32(int mode, uint32_t rowkey,
+                                                 int eff, uint32_t cnt) {
+  const uint32_t h = fmix32(rowkey ^ (uint32_t)eff);
+  if (mode == 1) return ~h;
+  const float u =
+      __uint2float_rn(((h >> 9) << 1) | 1u) * 5.9604644775390625e-8f;
+  const float g = -logf(-logf(u));
+  const float pert = __fadd_rn(logf(__uint2float_rn(cnt)), g);
+  const uint32_t bits = __float_as_uint(-pert);
+  return (bits >> 31) ? ~bits : (bits | 0x80000000u);
+}
+
+// topk_insert of a sampling key (the same in every lane) with its score
+// key (the top-k selection key's upper word) into the warp's list wl and
+// its parallel score keys ws -> the list's new last key.
+__device__ unsigned long long topk_insert_scored(unsigned long long* wl,
+                                                 uint32_t* ws, int topk,
+                                                 unsigned long long key,
+                                                 uint32_t sk, int lane) {
+  int pos = 0;
+  for (int c = 0; c < topk; c += 32) {
+    const int i = c + lane;
+    pos += __popc(__ballot_sync(kFull, i < topk && wl[i] < key));
+  }
+  for (int c = (topk - 1) & ~31; c >= 0; c -= 32) {
+    const int i = c + lane;
+    const bool shift = i < topk && i > pos;
+    const unsigned long long prev = shift ? wl[i - 1] : 0ull;
+    const uint32_t prev_sk = shift ? ws[i - 1] : 0u;
+    __syncwarp();
+    if (i < topk && i >= pos) {
+      wl[i] = i == pos ? key : prev;
+      ws[i] = i == pos ? sk : prev_sk;
+    }
+    __syncwarp();
+  }
+  return wl[topk - 1];
+}
+
+// A scored candidate into a sampling warp's lists: sel its top-k selection
+// key ((order_key_bits(score) << 32) | eff), cnt its raw hit count; the
+// list is keyed by (sample_key32 << 32) | eff and keeps sel's upper word
+// beside it. -> the list's last key (thr if it was not entered).
+__device__ __forceinline__ unsigned long long sample_insert(
+    unsigned long long* wl, uint32_t* ws, int topk, unsigned long long sel,
+    uint32_t cnt, int mode, uint32_t rowkey, unsigned long long thr,
+    int lane) {
+  const unsigned long long eff = sel & 0xFFFFFFFFull;
+  const unsigned long long key =
+      ((unsigned long long)sample_key32(mode, rowkey, (int)eff, cnt) << 32) |
+      eff;
+  if (key < thr)
+    return topk_insert_scored(wl, ws, topk, key, (uint32_t)(sel >> 32), lane);
+  return thr;
+}
+
+// select_pair for a sampling warp: the two candidates' selection keys, each
+// entered with its raw hit count (cnt0, cnt1) by sample_insert.
+__device__ __forceinline__ void sample_pair(
+    float t, float tyy, int eff0, int eff1, uint32_t cnt0, uint32_t cnt1,
+    bool two, const float& qq, const float* s, int euclid,
+    unsigned long long* wl, uint32_t* ws, int topk, int mode,
+    uint32_t rowkey, int lane) {
+  const float qy[2] = {__shfl_sync(kFull, t, 0), __shfl_sync(kFull, t, 16)};
+  const float yy[2] = {__shfl_sync(kFull, tyy, 0),
+                       __shfl_sync(kFull, tyy, 16)};
+  const int effs[2] = {eff0, eff1};
+  const uint32_t cnts[2] = {cnt0, cnt1};
+#pragma unroll
+  for (int k = 0; k < 2; ++k) {
+    if (k == 1 && !two) break;
+    const unsigned long long sel =
+        select_key(qq, qy[k], yy[k], s[0], s[1], euclid, effs[k]);
+    sample_insert(wl, ws, topk, sel, cnts[k], mode, rowkey, wl[topk - 1],
+                  lane);
+  }
+}
+
+// Inserts id into a sampling hash set: ht holds 2^(32 - shift) slots of two
+// words, the id and its raw hit count, which starts at kEmpty (-1), so that
+// a member's count is its word plus one; every insert adds one, whether the
+// id was new or found.
+__device__ __forceinline__ void set_count(uint32_t* ht, int shift,
+                                          uint32_t id) {
+  const uint32_t mask = 0xFFFFFFFFu >> shift;
+  uint32_t h = (id * 2654435761u) >> shift;
+  while (true) {
+    const uint32_t prev = atomicCAS(ht + 2 * h, kEmpty, id);
+    if (prev == kEmpty || prev == id) {
+      atomicAdd(ht + 2 * h + 1, 1u);
+      return;
+    }
+    h = (h + 1) & mask;
   }
 }
 
@@ -2079,8 +2221,15 @@ __device__ __forceinline__ float cp_self(const float* a, int R, int N, int D,
 // rows longer than kDenseStage (nullptr otherwise). RSLOT: the row slot in
 // floats the launch's plan keeps, or 0 (rows read in place): the dense
 // rows' ring slot (ring_slot), <16, kDense>'s TT rows' (tt_ring_slot),
-// <0, 16>'s staged CP row.
-template <int TR, int QR>
+// <0, 16>'s staged CP row. SAMPLE: the sampling instantiation (mode 1
+// uniform, 2 weighted, key0 / key1 the draw's key words; see sample_key32):
+// stage 3 counts each distinct id's raw hits (set_count, 6 words a window
+// slot: the set's (id, count) slots, then the list's ids and counts, the
+// scratch's row at 6 * scap), stage 4 scores every distinct candidate as
+// the top-k path does and enters it into its warp's list by its sampling
+// key, its score key beside it, and stage 5 merges by the sampling key,
+// keeps the first topk and writes them in the top-k path's order.
+template <int TR, int QR, bool SAMPLE = false>
 __global__ void __launch_bounds__(Shape<TR, QR>::threads,
                                   Shape<TR, QR>::min_blocks)
 fused_query_kernel(
@@ -2096,7 +2245,7 @@ fused_query_kernel(
     int wcap, uint32_t* __restrict__ scratch, int scap,
     unsigned long long* __restrict__ scratch_queries,
     float* __restrict__ qscratch, const int* __restrict__ dims, int DF,
-    int RSLOT) {
+    int RSLOT, int mode, uint32_t key0, uint32_t key1) {
   constexpr bool same = TR == QR;
   constexpr bool dense = TR == kDense;
   constexpr bool tt = TR > kDense;
@@ -2152,7 +2301,11 @@ fused_query_kernel(
                  : wide ? RQ * RQ + RQ * D * RQ  // block_tt_self
                  : tt ? 4 * tt_tile(RCMAX) * tt_tile(RCMAX)
                  : qtt ? 2 * max(one_state ? 0 : RQ * RCMAX, RQ * RQ) : 0;
-  const int RW = (max(3 * wcap, nwarps * 2 * C) + 3) & ~3;
+  // uint32 words of a window slot: the hash set's two slots (kSetWords)
+  // and the list's entry, each an id (and, sampling, its count)
+  constexpr int kSetWords = SAMPLE ? 4 : 2;
+  constexpr int kSlotWords = kSetWords + (SAMPLE ? 2 : 1);
+  const int RW = (max(kSlotWords * wcap, nwarps * 2 * C) + 3) & ~3;
   // a ring slot a warp (RS floats) and its mbarrier (2 floats' room), first
   const int RS = ring_rows ? RSLOT : 0;
   float* const ring = reinterpret_cast<float*>(smem);  // [nwarps][RS]
@@ -2176,6 +2329,9 @@ fused_query_kernel(
   int* starts = reinterpret_cast<int*>(qkeys + LT);   // [LT]
   int* lens = starts + LT;                            // [LT]
   int* woff = lens + LT;                              // [LT + 1]
+  // sampling: the score keys beside the warps' lists and the merged one
+  uint32_t* const wsk_all = reinterpret_cast<uint32_t*>(woff + LT + 1);
+  uint32_t* const tsk = wsk_all + nwarps * topk;      // [topk]
   __shared__ float qq_s;
   __shared__ int ncand_s;
   __shared__ int total_s;
@@ -2187,6 +2343,9 @@ fused_query_kernel(
   const int b = blockIdx.x;
   const int tid = threadIdx.x;
   const int warp = tid >> 5, lane = tid & 31;
+  // the query row's noise key (sampling)
+  const uint32_t rowkey =
+      SAMPLE ? fmix32(key0 ^ fmix32(key1 ^ (uint32_t)b)) : 0u;
   K1_STAMP_BEGIN
 
   // the query row the re-rank reads: staged, read in place, or a CP / TT
@@ -2355,13 +2514,14 @@ fused_query_kernel(
     }
     if (lane == 0) qq_s = scale_mul((float)(qs * qs), t);
   }
-  for (int i = tid; i < 2 * wcap; i += kThreads) region[i] = kEmpty;
+  for (int i = tid; i < kSetWords * wcap; i += kThreads) region[i] = kEmpty;
   __syncthreads();
   K1_STAMP(0)
   const float qq = qq_s;
   float* const yb = ybuf + warp * kBufs * G * FCMAX;
   float* const sb = sbuf + warp * SW;
   unsigned long long* const wl = wl_all + warp * topk;
+  uint32_t* const ws = wsk_all + warp * topk;  // sampling: its score keys
   unsigned long long thr = kPadSlot;  // the last key of the warp's list
   unsigned ring_phase = 0;            // the parity of the warp's slot
   // qy and yy of a TT row y of ranks 5-16 (a <16, QR> cross pair's row
@@ -2446,8 +2606,11 @@ fused_query_kernel(
     const int H = 1 << hlog;
     uint32_t* const ht = H <= 2 * wcap
                              ? region
-                             : scratch + (size_t)b * 3 * (size_t)scap;
-    uint32_t* const cl = ht + (H <= 2 * wcap ? 2 * wcap : 2 * scap);
+                             : scratch + (size_t)b * kSlotWords * (size_t)scap;
+    uint32_t* const cl =
+        ht + (H <= 2 * wcap ? kSetWords * wcap : kSetWords * scap);
+    // sampling: the list entries' raw hit counts
+    uint32_t* const cm = cl + (H <= 2 * wcap ? wcap : scap);
     for (int i0 = tid; i0 < W; i0 += 4 * kThreads) {
       uint32_t ids[4];
 #pragma unroll
@@ -2456,15 +2619,36 @@ fused_query_kernel(
         ids[u] = i < W ? slot_id(g, has_win, T, LT, woff, starts, i) : kEmpty;
       }
 #pragma unroll
-      for (int u = 0; u < 4; ++u)
-        if (ids[u] < (uint32_t)g.m && set_insert(ht, 32 - hlog, ids[u]))
-          cl[atomicAdd(&ncand_s, 1)] = ids[u];
+      for (int u = 0; u < 4; ++u) {
+        if constexpr (SAMPLE) {
+          if (ids[u] < (uint32_t)g.m) set_count(ht, 32 - hlog, ids[u]);
+        } else {
+          if (ids[u] < (uint32_t)g.m && set_insert(ht, 32 - hlog, ids[u]))
+            cl[atomicAdd(&ncand_s, 1)] = ids[u];
+        }
+      }
     }
     __syncthreads();
+    if constexpr (SAMPLE) {
+      // the set's members onto the list with their counts, the set emptied
+      // for the next segment as it is read
+      for (int i = tid; i < H; i += kThreads) {
+        const uint32_t id = ht[2 * i];
+        if (id != kEmpty) {
+          const int p = atomicAdd(&ncand_s, 1);
+          cl[p] = id;
+          cm[p] = ht[2 * i + 1] + 1u;
+          ht[2 * i] = kEmpty;
+          ht[2 * i + 1] = kEmpty;
+        }
+      }
+      __syncthreads();
+    }
     K1_STAMP(2)
     const int n_cand = ncand_s;
     if (tid == 0) total_s += n_cand;
-    for (int i = tid; i < H; i += kThreads) ht[i] = kEmpty;  // for the next
+    if constexpr (!SAMPLE)
+      for (int i = tid; i < H; i += kThreads) ht[i] = kEmpty;  // for the next
 
     // 4. exact re-rank, entering each candidate's selection key into its
     // warp's list. Dense rows that fill a ring slot: each warp takes the
@@ -2506,7 +2690,11 @@ fused_query_kernel(
         }
         const unsigned long long key =
             select_key(qq, tqy, tyy, s_qy, s_yy, euclid, eff);
-        if (key < thr) thr = topk_insert(wl, topk, key, lane);
+        if constexpr (SAMPLE)
+          thr = sample_insert(wl, ws, topk, key, cm[j], mode, rowkey, thr,
+                              lane);
+        else if (key < thr)
+          thr = topk_insert(wl, topk, key, lane);
         __syncwarp();  // every lane has read the slot before it is refilled
       }
       K1_STAMP(3)
@@ -2549,8 +2737,13 @@ fused_query_kernel(
           t = RC == 4 ? cp_tt_half<true>(qf, RQ, mine, RC, N, D, h)
                       : cp_tt_half<false>(qf, RQ, mine, RC, N, D, h);
         }
-        select_pair(t, tyy, eff0, eff1, two, qq_s, scale_s, euclid, wl,
-                    topk, lane);
+        if constexpr (SAMPLE)
+          sample_pair(t, tyy, eff0, eff1, cm[j], two ? cm[j + 1] : 0u, two,
+                      qq_s, scale_s, euclid, wl, ws, topk, mode, rowkey,
+                      lane);
+        else
+          select_pair(t, tyy, eff0, eff1, two, qq_s, scale_s, euclid, wl,
+                      topk, lane);
         __syncwarp();  // both rows are read before the next pair is staged
       }
       K1_STAMP(3)
@@ -2607,8 +2800,13 @@ fused_query_kernel(
         else
           t = qv4 ? cp_tt_half<true>(yh[0], RC, qf, RQ, N, D, h)
                   : cp_tt_half<false>(yh[0], RC, qf, RQ, N, D, h);
-        select_pair(t, tyy, eff0, eff1, two, qq_s, scale_s, euclid, wl,
-                    topk, lane);
+        if constexpr (SAMPLE)
+          sample_pair(t, tyy, eff0, eff1, cm[j], two ? cm[j + 1] : 0u, two,
+                      qq_s, scale_s, euclid, wl, ws, topk, mode, rowkey,
+                      lane);
+        else
+          select_pair(t, tyy, eff0, eff1, two, qq_s, scale_s, euclid, wl,
+                      topk, lane);
         __syncwarp();  // both rows are read before the buffer is staged again
       }
       cp_async_wait<0>();
@@ -2700,7 +2898,11 @@ fused_query_kernel(
         if (cur[k] == kEmpty) continue;
         const unsigned long long key =
             select_key(qq, tqy[k], tyy[k], s_qy, s_yy, euclid, cur_eff[k]);
-        if (key < thr) thr = topk_insert(wl, topk, key, lane);
+        if constexpr (SAMPLE)  // cur holds list entries j - G * nwarps + k
+          thr = sample_insert(wl, ws, topk, key, cm[j - G * nwarps + k],
+                              mode, rowkey, thr, lane);
+        else if (key < thr)
+          thr = topk_insert(wl, topk, key, lane);
       }
       __syncwarp();  // the rows' half is read before it is staged again
 #pragma unroll
@@ -2736,23 +2938,53 @@ fused_query_kernel(
       for (int v = 0; v < nwarps && r < topk; ++v)
         if (v != wv) r += count_below(wl_all + v * topk, topk, x, v < wv);
     }
-    if (r < topk) topv[r] = x;
+    if (r < topk) {
+      topv[r] = x;
+      if constexpr (SAMPLE) tsk[r] = wsk_all[e];
+    }
   }
   __syncthreads();
   const float bad = __uint_as_float(euclid ? 0x7f800000u : 0xff800000u);
-  for (int i = tid; i < topk; i += kThreads) {
-    int id = -1;
-    float score = bad;
-    const unsigned long long s = topv[i];
-    const uint32_t key32 = (uint32_t)(s >> 32);
-    if (key32 != kEmpty) {
-      id = (int)(uint32_t)(s & 0xFFFFFFFFull);
+  if constexpr (SAMPLE) {
+    // the drawn members (the first topk sampling keys; pads last) in the
+    // top-k path's order: a member's place is the number of drawn members
+    // whose (score key, eff) is below its own
+    for (int i = tid; i < topk; i += kThreads) {
+      const unsigned long long s = topv[i];
+      if (s == kPadSlot) {
+        out_ids[(size_t)b * topk + i] = -1;
+        out_scores[(size_t)b * topk + i] = bad;
+        continue;
+      }
+      const unsigned long long own =
+          ((unsigned long long)tsk[i] << 32) | (s & 0xFFFFFFFFull);
+      int r = 0;
+      for (int f = 0; f < topk; ++f) {
+        const unsigned long long o = topv[f];
+        r += o != kPadSlot &&
+             (((unsigned long long)tsk[f] << 32) | (o & 0xFFFFFFFFull)) < own;
+      }
+      const uint32_t key32 = tsk[i];
       const uint32_t bits = (key32 >> 31) ? (key32 & 0x7FFFFFFFu) : ~key32;
       const float order = __uint_as_float(bits);
-      score = euclid ? order : -order;
+      out_ids[(size_t)b * topk + r] = (int)(uint32_t)(s & 0xFFFFFFFFull);
+      out_scores[(size_t)b * topk + r] = euclid ? order : -order;
     }
-    out_ids[(size_t)b * topk + i] = id;
-    out_scores[(size_t)b * topk + i] = score;
+  } else {
+    for (int i = tid; i < topk; i += kThreads) {
+      int id = -1;
+      float score = bad;
+      const unsigned long long s = topv[i];
+      const uint32_t key32 = (uint32_t)(s >> 32);
+      if (key32 != kEmpty) {
+        id = (int)(uint32_t)(s & 0xFFFFFFFFull);
+        const uint32_t bits = (key32 >> 31) ? (key32 & 0x7FFFFFFFu) : ~key32;
+        const float order = __uint_as_float(bits);
+        score = euclid ? order : -order;
+      }
+      out_ids[(size_t)b * topk + i] = id;
+      out_scores[(size_t)b * topk + i] = score;
+    }
   }
   if (tid == 0) {
     out_ncand[b] = total_s;
@@ -2795,13 +3027,13 @@ inline void instance_of(int fmt, int qfmt, int RQ, int RC, int N, int D,
 
 // Up to smem bytes of dynamic shared memory, and all of the SM's 228 KB as
 // shared memory (not L1), so that Shape<TR, QR>::min_blocks can be resident.
-template <int TR, int QR>
+template <int TR, int QR, bool SAMPLE = false>
 cudaError_t prepare(size_t smem) {
   static size_t allowed = 0;
   static bool carved = false;
   if (!carved) {
     const cudaError_t e = cudaFuncSetAttribute(
-        fused_query_kernel<TR, QR>,
+        fused_query_kernel<TR, QR, SAMPLE>,
         cudaFuncAttributePreferredSharedMemoryCarveout,
         (int)cudaSharedmemCarveoutMaxShared);
     if (e != cudaSuccess) return e;
@@ -2809,7 +3041,7 @@ cudaError_t prepare(size_t smem) {
   }
   if (smem > allowed) {
     const cudaError_t e = cudaFuncSetAttribute(
-        fused_query_kernel<TR, QR>,
+        fused_query_kernel<TR, QR, SAMPLE>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return e;
     allowed = smem;
@@ -2817,15 +3049,17 @@ cudaError_t prepare(size_t smem) {
   return cudaSuccess;
 }
 
-template <int TR, int QR>
+template <int TR, int QR, bool SAMPLE = false>
 int occupancy(size_t smem, int* out) {
   cudaFuncAttributes a;
-  cudaError_t e = cudaFuncGetAttributes(&a, fused_query_kernel<TR, QR>);
-  if (e == cudaSuccess) e = prepare<TR, QR>(smem);
+  cudaError_t e =
+      cudaFuncGetAttributes(&a, fused_query_kernel<TR, QR, SAMPLE>);
+  if (e == cudaSuccess) e = prepare<TR, QR, SAMPLE>(smem);
   int blocks = 0;
   if (e == cudaSuccess)
     e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &blocks, fused_query_kernel<TR, QR>, Shape<TR, QR>::threads, smem);
+        &blocks, fused_query_kernel<TR, QR, SAMPLE>, Shape<TR, QR>::threads,
+        smem);
   if (e != cudaSuccess) return (int)e;
   out[0] = a.numRegs;
   out[1] = blocks;
@@ -2834,15 +3068,17 @@ int occupancy(size_t smem, int* out) {
   return 0;
 }
 
-template <int TR, int QR>
+template <int TR, int QR, bool SAMPLE = false>
 int launch(const K1Args& a, size_t smem, cudaStream_t stream) {
-  const cudaError_t e = prepare<TR, QR>(smem);
+  const cudaError_t e = prepare<TR, QR, SAMPLE>(smem);
   if (e != cudaSuccess) return (int)e;
-  fused_query_kernel<TR, QR><<<a.B, Shape<TR, QR>::threads, smem, stream>>>(
-      a.values, a.offsets, a.mults, a.pairs, a.q, a.segtab, a.S, a.out_ids,
-      a.out_scores, a.out_ncand, a.L, a.K, a.T, a.C, a.N, a.D, a.RQ, a.RC,
-      a.topk, a.e2, a.euclid, a.w, a.qs, a.wcap, a.scratch, a.scap,
-      a.scratch_queries, a.qscratch, a.dims, a.DF, a.RS);
+  fused_query_kernel<TR, QR, SAMPLE>
+      <<<a.B, Shape<TR, QR>::threads, smem, stream>>>(
+          a.values, a.offsets, a.mults, a.pairs, a.q, a.segtab, a.S,
+          a.out_ids, a.out_scores, a.out_ncand, a.L, a.K, a.T, a.C, a.N, a.D,
+          a.RQ, a.RC, a.topk, a.e2, a.euclid, a.w, a.qs, a.wcap, a.scratch,
+          a.scap, a.scratch_queries, a.qscratch, a.dims, a.DF, a.RS, a.mode,
+          a.key0, a.key1);
   return (int)cudaGetLastError();
 }
 

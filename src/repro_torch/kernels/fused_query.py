@@ -36,6 +36,21 @@ place of the reference's S-way merge (effective ids are unique across
 shards). Its plain version, ``fused_query_sharded_plain``, is
 ``fused_query_plain``'s body over the same list.
 
+The sampling modes (``mode`` "uniform" / "weighted", reference
+``segmented_sample`` / ``_sample_topk``) draw ``topk`` distinct members of
+each query's probed union instead of the top-k, by Gumbel top-k: a member's
+logit is 0 or log(its raw hit count over the (table, probe) windows), its
+noise a counter-based hash of the draw's two key words (``key``, drawn from
+a ``torch.Generator`` by ``sample_key_words``), the query row and its
+effective id (``noise_bits`` / ``sample_key32``), so the draw depends on
+neither the order of the candidates nor the segment or shard holding them.
+The kernel's sampling instantiations (``csrc/fused_query_sample*.cu``)
+count each distinct id's hits beside its hash-set slot, score every
+distinct candidate as the top-k path does, keep the first ``topk`` by the
+sampling key and write them in the top-k path's order; the plain version
+(``_plain_sample``) sorts the raw windows by id and takes run lengths
+(``segment_union``), as the reference does.
+
 The kernel dedups a query's window in a hash set in shared memory of a
 fixed capacity, chosen for occupancy (``window_plan``); a query whose
 window exceeds it in a segment uses its row of a global scratch table that
@@ -48,9 +63,10 @@ launches and ``.branches`` (``BranchCounts``) the launches that ran each
 branch ("multiprobe": T > 1, "live_window": a segment with live-window
 lookups, "segments": more than one segment, "mixed:<query>-<corpus>": a
 query batch of another format than the corpus's, e.g. "mixed:dense-cp")
-and each instantiation ("k1:<TR, QR>", ``instance_name``, e.g. "k1:<0, 4>"),
-and the queries that took the scratch ("scratch", counted on the card and
-read from it when asked for);
+and each instantiation ("k1:<TR, QR>", ``instance_name``, e.g. "k1:<0, 4>";
+a sampling launch counts under "sample:<mode>" and its instantiation's
+"sample:<TR, QR>" instead), and the queries that took the scratch
+("scratch", counted on the card and read from it when asked for);
 ``fused_query_plain.calls`` / ``fused_query_sharded_plain.calls`` count
 calls of the plain versions.
 """
@@ -129,6 +145,13 @@ TT_RING = ((16, DENSE), (16, 0), (8, 8), (16, 16))
 # (or is pow2(L*T*cap) where that is smaller)
 MIN_WINDOW = 256
 MAX_WINDOW = 8192
+# the query modes and their codes in the C entry: "topk" the exact top-k,
+# "uniform" / "weighted" a Gumbel top-k sample of the probed union
+MODES = {"topk": 0, "uniform": 1, "weighted": 2}
+# uint32 words of a sampling launch's window slot: a hash-set slot of two
+# (an id and its raw hit count, two slots a window slot) and a list entry
+# of two (an id and its count); the top-k launch's slot is 3 words
+SAMPLE_WORDS = 6
 
 
 def _pow2_ceil(x: int) -> int:
@@ -211,7 +234,7 @@ def smem_bytes(num_tables: int, n_modes: int, d: int, rq: int, rc: int,
                window: int, tt: bool = False, probes: int = 1,
                topk: int = 10, expansion: int = 0,
                dense: bool = False, q_layout: str | None = None,
-               df: int = 0, ring: bool = False) -> int:
+               df: int = 0, ring: bool = False, sample: bool = False) -> int:
     """Shared memory of one K1 block (``fused_query_smem_bytes`` in the CUDA
     source, which refuses a launch planned with another size) for a shared
     window of ``window`` slots (a power of two): the instantiation's row
@@ -246,7 +269,10 @@ def smem_bytes(num_tables: int, n_modes: int, d: int, rq: int, rc: int,
     through a ring slot a warp (``tt_ring_slot``), and TT queries over CP
     rows past ``CP_PAIR_ROW`` or of ranks 5-16 (``<0, 16>``) stage them
     (else both read them in place); ``<0, 16>`` stages the query's cores at
-    the ``wide_row`` stride."""
+    the ``wide_row`` stride. A sampling launch (``sample``) keeps a count
+    beside each hash-set id and each list entry (``SAMPLE_WORDS`` words a
+    window slot instead of 3) and each list entry's score key beside its
+    selection key (4 bytes a rank more)."""
     layout = "tt" if tt else "dense" if dense else "cp"
     ql = q_layout or layout
     tr, qr = instance(layout, ql, rq, rc, n_modes, d)
@@ -284,7 +310,8 @@ def smem_bytes(num_tables: int, n_modes: int, d: int, rq: int, rc: int,
         sw = 2 * max(0 if dense_side or one_state else rq * rc, rt * rt)
     else:
         sw = 0
-    region = -(-max(3 * window, nwarps * 2 * expansion) // 4) * 4
+    words = SAMPLE_WORDS if sample else 3
+    region = -(-max(words * window, nwarps * 2 * expansion) // 4) * 4
     lt = num_tables * probes
     rs = (ring_slot(d if ql == layout else df) if ring and dense
           else tt_ring_slot(n_modes * rc * d * rc) if ring and tt_ring
@@ -292,7 +319,8 @@ def smem_bytes(num_tables: int, n_modes: int, d: int, rq: int, rc: int,
     slots = nwarps * (rs + 2) if rs else 0
     return ((slots + nwarps * buffers * fc + fq
              + (1 if one_state else nwarps) * sw + region) * 4
-            + (nwarps + 1) * topk * 8 + (4 * lt + 1) * 4 + STATIC_SMEM)
+            + (nwarps + 1) * topk * (12 if sample else 8) + (4 * lt + 1) * 4
+            + STATIC_SMEM)
 
 
 def _budget(blocks: int) -> int:
@@ -306,27 +334,30 @@ def _granules(smem: int) -> int:
 
 def ring_plan(num_tables: int, cap: int, d: int, probes: int = 1,
               topk: int = 10, expansion: int = 0,
-              query: tuple | None = None) -> bool:
+              query: tuple | None = None, sample: bool = False) -> bool:
     """Whether K1's dense instantiations read rows of ``d`` floats through
     their warps' ring slots: rows that fit one (``ring_slot``) and a ring
     that fits the target blocks per SM beside the query row, the lists,
     the expansion and the smallest window; otherwise the rows are read in
     place. ``query``: (layout, n_modes, d, rank) of CP or TT queries (the
-    densified row is ``d`` floats), None for dense ones. The C launch tells
-    the two plans apart by their shared bytes."""
+    densified row is ``d`` floats), None for dense ones; ``sample``: a
+    sampling launch's larger window slots. The C launch tells the two plans
+    apart by their shared bytes."""
     if not ring_slot(d):
         return False
     least = min(_pow2_ceil(num_tables * probes * cap), MIN_WINDOW)
     ql, n, dq, rq = query or (None, 1, d, 1)
     smem = smem_bytes(num_tables, n, dq, rq, 1, least, probes=probes,
                       topk=topk, expansion=expansion, dense=True,
-                      q_layout=ql, df=d if ql else 0, ring=True)
+                      q_layout=ql, df=d if ql else 0, ring=True,
+                      sample=sample)
     return _granules(smem) <= _budget(SHAPES[DENSE, DENSE][1])
 
 
 def slot_plan(layout: str, q_layout: str, num_tables: int, cap: int,
               n_modes: int, d: int, rq: int, rc: int, probes: int = 1,
-              topk: int = 10, expansion: int = 0, df: int = 0) -> bool:
+              topk: int = 10, expansion: int = 0, df: int = 0,
+              sample: bool = False) -> bool:
     """Whether a launch keeps its instantiation's row slots (``smem_bytes``'
     ``ring``): dense rows through the ring slots (``ring_plan``), TT rows
     of ranks 5-16 through ring slots (``TT_RING``: whole float4s of at most
@@ -337,7 +368,7 @@ def slot_plan(layout: str, q_layout: str, num_tables: int, cap: int,
     if layout == "dense":
         query = (q_layout, n_modes, d, rq) if q_layout != layout else None
         return ring_plan(num_tables, cap, df if query else d, probes, topk,
-                         expansion, query)
+                         expansion, query, sample)
     tr_qr = instance(layout, q_layout, rq, rc, n_modes, d)
     if tr_qr in TT_RING:
         if not tt_ring_slot(n_modes * rc * d * rc):
@@ -348,15 +379,24 @@ def slot_plan(layout: str, q_layout: str, num_tables: int, cap: int,
     smem = smem_bytes(num_tables, n_modes, d, rq, rc, least,
                       tt=layout == "tt", probes=probes, topk=topk,
                       expansion=expansion, q_layout=q_layout, df=df,
-                      ring=True)
+                      ring=True, sample=sample)
     return _granules(smem) <= _budget(SHAPES[tr_qr][1])
+
+
+def plan_blocks(smem: int, target: int) -> int:
+    """The blocks per SM that a plan of ``smem`` shared bytes a block was
+    sized for: the most, at most ``target``, whose budget holds it
+    (``window_plan`` falls back to one block fewer when no window fits the
+    target)."""
+    return max((b for b in range(1, target + 1)
+                if _granules(smem) <= _budget(b)), default=0)
 
 
 def window_plan(num_tables: int, cap: int, n_modes: int, d: int, rq: int,
                 rc: int, tt: bool = False, probes: int = 1, topk: int = 10,
                 expansion: int = 0, dense: bool = False,
                 q_layout: str | None = None, df: int = 0,
-                ring: bool = False) -> tuple[int, bool]:
+                ring: bool = False, sample: bool = False) -> tuple[int, bool]:
     """-> (window, scratch): the shared window's capacity in slots and
     whether a query can exceed it (L*T*cap above it, so the launch needs the
     global scratch). The capacity is the largest power of two in
@@ -369,7 +409,8 @@ def window_plan(num_tables: int, cap: int, n_modes: int, d: int, rq: int,
     size = functools.partial(smem_bytes, num_tables, n_modes, d, rq, rc,
                              tt=tt, probes=probes, topk=topk,
                              expansion=expansion, dense=dense,
-                             q_layout=q_layout, df=df, ring=ring)
+                             q_layout=q_layout, df=df, ring=ring,
+                             sample=sample)
     least = min(need, MIN_WINDOW)
     layout = "tt" if tt else "dense" if dense else "cp"
     target = SHAPES[instance(layout, q_layout or layout, rq, rc, n_modes,
@@ -403,13 +444,121 @@ def probe_keys_from_values(values, offsets, mults, *, e2, w, num_tables,
     return keys.permute(1, 2, 0)
 
 
+def fmix32(h: torch.Tensor) -> torch.Tensor:
+    """murmur3's 32-bit finalizer on uint32 values held in int64 (the
+    kernel's ``fmix32`` in uint32 arithmetic)."""
+    h = h ^ (h >> 16)
+    h = _epi.mul_u32(h, 0x85EBCA6B)
+    h = h ^ (h >> 13)
+    h = _epi.mul_u32(h, 0xC2B2AE35)
+    return h ^ (h >> 16)
+
+
+def noise_bits(key, rows: torch.Tensor, eff: torch.Tensor) -> torch.Tensor:
+    """The sampling noise's uint32 hash of (key words, query row, effective
+    id), int64 (B, W) for ``rows`` (B,) and ``eff`` (B, W): fmix32(r ^ eff)
+    with r = fmix32(key[0] ^ fmix32(key[1] ^ row)), three rounds of
+    murmur3's finalizer; a bijection of eff for a given row, so no two
+    members of a row draw the same bits."""
+    k0, k1 = (int(k) & _epi.U32_MASK for k in key)
+    r = fmix32(k0 ^ fmix32(k1 ^ rows.to(torch.int64)))
+    return fmix32(r[:, None] ^ eff.to(torch.int64))
+
+
+def sample_key32(mode: str, h: torch.Tensor,
+                 mult: torch.Tensor) -> torch.Tensor:
+    """Members' uint32 sampling keys (int64), ascending = drawn first, from
+    their ``noise_bits`` and raw hit counts: "uniform" ranks by the bits
+    themselves (~h); "weighted" perturbs log(mult) by the Gumbel draw g =
+    -log(-log(u)), u = ((h >> 9) + 0.5) 2^-23 (exact in fp32, inside (0,
+    1)), and keys the perturbed logit descending (``order_key_bits`` of a
+    similarity), all in fp32 as the kernel computes it."""
+    if mode == "uniform":
+        return (~h) & _epi.U32_MASK
+    if mode != "weighted":
+        raise ValueError(f"unknown sampling mode {mode!r}")
+    u = (((h >> 9) << 1) | 1).to(torch.float32) * 2.0 ** -24
+    g = -torch.log(-torch.log(u))
+    pert = torch.log(mult.to(torch.float32)) + g
+    return _epi.order_key_bits("cosine", pert)
+
+
+def segment_union(seg, keys, cap):
+    """One segment's probed union from its raw windows -> (cand (B, W)
+    sorted local ids, valid (B, W) the first slot of each distinct live id,
+    mult (B, W) int64 its raw hit count over the (table, probe) windows,
+    repeated base keys of the pad regime included): ``dedup_windows``' sort,
+    then run lengths, as the reference's ``_sample_topk`` takes them."""
+    m = seg.sorted_keys.shape[1]
+    ids, hit = _epi.probe_windows(seg.sorted_keys, seg.perm, keys, cap,
+                                  seg.live, seg.win)
+    cand, valid = _epi.dedup_windows(ids, hit, m)
+    run = cand.to(torch.int64).contiguous()
+    mult = (torch.searchsorted(run, run, right=True)
+            - torch.searchsorted(run, run))
+    return cand, valid, mult
+
+
+def _unions(keys, segs, caps):
+    """Every segment's ``segment_union`` -> (per segment (segment arrays,
+    safe local ids (misses at 0)), and the segments' (eff, mult, valid)
+    concatenated)."""
+    parts, effs, mults, valids = [], [], [], []
+    for seg, cap in zip(segs, caps):
+        cand, valid, mult = segment_union(seg, keys, cap)
+        safe = torch.where(valid, cand, 0).long()
+        parts.append((seg, safe))
+        effs.append(seg.eff[safe])
+        mults.append(mult)
+        valids.append(valid)
+    return parts, (torch.cat(effs, 1), torch.cat(mults, 1),
+                   torch.cat(valids, 1))
+
+
+def sample_union(values, offsets, mults, segs, *, kind, w, num_tables,
+                 num_codes, caps, probes=1):
+    """The probed union of every query over ``segs`` -> (eff (B, W) int32
+    effective ids, mult (B, W) int64 raw hit counts, valid (B, W)), the
+    segments concatenated (arguments as ``fused_query_plain``): what the
+    sampling modes draw from."""
+    keys = probe_keys_from_values(values, offsets, mults,
+                                  e2=kind.endswith("e2lsh"), w=w,
+                                  num_tables=num_tables, num_codes=num_codes,
+                                  probes=probes)
+    return _unions(keys, segs, caps)[1]
+
+
+def _plain_sample(keys, queries, segs, *, metric, topk, caps, mode, key):
+    """The sampling modes' plain body: every segment's union, its members
+    scored exactly (``hoisted_scores``) and keyed by ``sample_key32`` of
+    their effective ids, the first ``topk`` by (key, effective id) drawn,
+    then presented as ``packed_select`` presents the top-k."""
+    parts, (eff, mult, valid) = _unions(keys, segs, caps)
+    score = torch.cat([_seg.hoisted_scores(metric, queries[0], seg.corpus,
+                                           safe) for seg, safe in parts], 1)
+    rows = torch.arange(eff.shape[0], device=eff.device)
+    k32 = sample_key32(mode, noise_bits(key, rows, eff), mult)
+    hi = torch.where(valid, k32, _epi.PROBE_PAD_KEY)
+    lo = torch.where(valid, eff, _epi.PROBE_PAD_ID).to(torch.int64)
+    order = torch.argsort((hi - (1 << 31)) * (1 << 32) + lo, dim=1)
+    order = order[:, :topk]
+    hi, lo = _epi.pack_candidates(metric, eff.gather(1, order),
+                                  score.gather(1, order),
+                                  valid.gather(1, order))
+    out_ids, out_scores = _epi.packed_select(metric, topk, hi, lo)
+    return out_ids, out_scores, valid.sum(dim=1, dtype=torch.int32)
+
+
 def _plain(values, offsets, mults, queries, segs, *, kind, w, num_tables,
-           num_codes, metric, topk, caps, probes):
+           num_codes, metric, topk, caps, probes, mode="topk", key=None):
     """The body of K1's and K1s's plain versions."""
     keys = probe_keys_from_values(values, offsets, mults,
                                   e2=kind.endswith("e2lsh"), w=w,
                                   num_tables=num_tables, num_codes=num_codes,
                                   probes=probes)
+    if mode != "topk":
+        return _plain_sample(keys, queries, segs, metric=metric, topk=topk,
+                             caps=caps, mode=mode, key=key)
     his, los = [], []
     n_cand = torch.zeros(values.shape[0], dtype=torch.int32,
                          device=values.device)
@@ -429,8 +578,18 @@ def _plain(values, offsets, mults, queries, segs, *, kind, w, num_tables,
     return out_ids, out_scores, n_cand
 
 
+def sample_key_words(rng: torch.Generator) -> tuple[int, int]:
+    """The two uint32 key words of one sampling call, drawn from ``rng``
+    (on its own device): the only state the draw takes, so one generator
+    state replays it."""
+    words = torch.randint(0, 1 << 32, (2,), generator=rng,
+                          dtype=torch.int64, device=rng.device)
+    return tuple(int(x) for x in words.tolist())
+
+
 def fused_query_plain(values, offsets, mults, queries, segs, *, kind, w,
-                      num_tables, num_codes, metric, topk, caps, probes=1):
+                      num_tables, num_codes, metric, topk, caps, probes=1,
+                      mode="topk", key=None):
     """Plain PyTorch version of K1 -> (ids (B, topk) int32 effective ids,
     scores (B, topk) float32, n_cand (B,) int32).
 
@@ -439,12 +598,15 @@ def fused_query_plain(values, offsets, mults, queries, segs, *, kind, w,
     queries the (batched CP or TT tensor, stacked tensor) pair of the
     format's ``stack``; ``segs`` the segment arrays
     (``core.segments.SegmentArrays``) in slot-offset order and ``caps``
-    their probe widths; ``probes`` = T.
+    their probe widths; ``probes`` = T. ``mode`` "uniform" / "weighted"
+    draws ``topk`` distinct members of each query's probed union instead
+    (``_plain_sample``), with ``key`` the two uint32 key words of the draw
+    (``sample_key_words``); n_cand is the union's size either way.
     """
     fused_query_plain.calls += 1
     return _plain(values, offsets, mults, queries, segs, kind=kind, w=w,
                   num_tables=num_tables, num_codes=num_codes, metric=metric,
-                  topk=topk, caps=caps, probes=probes)
+                  topk=topk, caps=caps, probes=probes, mode=mode, key=key)
 
 
 fused_query_plain.calls = 0
@@ -467,7 +629,8 @@ def shard_segments(base, deltas, cap, delta_caps) -> tuple[tuple, tuple]:
 
 def fused_query_sharded_plain(values, offsets, mults, queries, base, deltas,
                               *, kind, w, num_tables, num_codes, metric,
-                              topk, cap, delta_caps, probes=1):
+                              topk, cap, delta_caps, probes=1, mode="topk",
+                              key=None):
     """Plain PyTorch version of K1s: ``fused_query_plain``'s body over
     ``shard_segments(base, deltas, cap, delta_caps)``, one flat packed
     selection over every (shard, segment) pair (other arguments as
@@ -476,7 +639,7 @@ def fused_query_sharded_plain(values, offsets, mults, queries, base, deltas,
     segs, caps = shard_segments(base, deltas, cap, delta_caps)
     return _plain(values, offsets, mults, queries, segs, kind=kind, w=w,
                   num_tables=num_tables, num_codes=num_codes, metric=metric,
-                  topk=topk, caps=caps, probes=probes)
+                  topk=topk, caps=caps, probes=probes, mode=mode, key=key)
 
 
 fused_query_sharded_plain.calls = 0
@@ -504,7 +667,9 @@ class SegmentTable:
     rc: int
     # the global scratch of the queries whose window exceeds the shared one
     # (``scratch_rows``: "slots", int32, per query a row of 3 * "scap" slots,
-    # a hash set that is empty (-1) between launches and a candidate list)
+    # a hash set that is empty (-1) between launches and a candidate list;
+    # SAMPLE_WORDS * "scap" for a sampling launch; "layout" the row's words
+    # a window slot and "scap")
     scratch: dict = dataclasses.field(default_factory=dict, compare=False,
                                       repr=False)
 
@@ -563,22 +728,24 @@ def _pairs(e2: bool, num_codes: int, device) -> torch.Tensor:
                        dim=1).to(torch.int32).contiguous().to(device)
 
 
-def scratch_rows(table: SegmentTable, b: int, scap: int,
-                 dev) -> torch.Tensor:
+def scratch_rows(table: SegmentTable, b: int, scap: int, dev,
+                 words: int = 3) -> torch.Tensor:
     """The global scratch of ``table`` laid out for a launch of ``b``
-    queries at a row stride of 3 * ``scap`` slots, with every row's hash set
-    (its first 2 * ``scap`` slots) empty. The kernel empties the slots it
-    used, so a buffer of the same stride is reused as it is; a buffer laid
-    out at another stride holds old candidate lists where the new hash sets
-    lie, and is emptied first (``scap`` follows T and the caps, which a
-    view's callers may change from one call to the next)."""
+    queries at a row stride of ``words`` * ``scap`` slots (3, or
+    ``SAMPLE_WORDS`` for a sampling launch), with every row's hash set (its
+    first 2 * ``scap`` slots, 4 * ``scap`` for a sampling launch) empty.
+    The kernel empties the slots it used, so a buffer of the same layout is
+    reused as it is; a buffer laid out otherwise holds old candidate lists
+    where the new hash sets lie, and is emptied first (``scap`` follows T
+    and the caps, which a view's callers may change from one call to the
+    next, and the mode)."""
     slots = table.scratch.get("slots")
-    if slots is None or slots.numel() < b * 3 * scap:
-        slots = torch.full((b * 3 * scap,), -1, dtype=torch.int32,
+    if slots is None or slots.numel() < b * words * scap:
+        slots = torch.full((b * words * scap,), -1, dtype=torch.int32,
                            device=dev)
-    elif table.scratch["scap"] != scap:
+    elif table.scratch["layout"] != (words, scap):
         slots.fill_(-1)
-    table.scratch.update(slots=slots, scap=scap)
+    table.scratch.update(slots=slots, layout=(words, scap))
     return slots
 
 
@@ -663,41 +830,46 @@ def pair_shape(table, queries) -> PairShape:
 
 
 def launch_plan(table, rq: int, *, num_tables: int, probes: int, topk: int,
-                expansion: int, pair: PairShape | None = None
-                ) -> tuple[int, bool, int]:
+                expansion: int, pair: PairShape | None = None,
+                sample: bool = False) -> tuple[int, bool, int]:
     """-> (window, scratch, shared bytes) of a launch over ``table`` with
     stacked query rank ``rq`` (``window_plan`` and ``smem_bytes``); a query
-    batch of another layout gives its ``pair_shape`` as ``pair``."""
+    batch of another layout gives its ``pair_shape`` as ``pair``, a
+    sampling launch ``sample``."""
     n, d, q_layout, df = table.n_modes, table.d, None, 0
     if pair is not None and not pair.same:
         n, d, q_layout, df = pair.n_modes, pair.d, pair.q_layout, pair.df
     shape = SHAPES[instance(table.layout, q_layout or table.layout, rq,
                             table.rc, n, d)]
     return _plan(table.layout, num_tables, max(table.caps), n, d, rq,
-                 table.rc, probes, topk, expansion, q_layout, df, shape)
+                 table.rc, probes, topk, expansion, q_layout, df, shape,
+                 sample)
 
 
 @functools.lru_cache(maxsize=1024)
 def _plan(layout, num_tables, cap, n, d, rq, rc, probes, topk, expansion,
-          q_layout, df, shape) -> tuple[int, bool, int]:
+          q_layout, df, shape, sample=False) -> tuple[int, bool, int]:
     """``launch_plan``'s work, once per distinct launch shape (``shape``,
     the instantiation's ``SHAPES`` entry, is part of the key, so a plan
     follows the table)."""
     kw = dict(tt=layout == "tt", dense=layout == "dense", probes=probes,
-              topk=topk, expansion=expansion, q_layout=q_layout, df=df)
+              topk=topk, expansion=expansion, q_layout=q_layout, df=df,
+              sample=sample)
     kw["ring"] = slot_plan(layout, q_layout or layout, num_tables, cap, n, d,
-                           rq, rc, probes, topk, expansion, df)
+                           rq, rc, probes, topk, expansion, df, sample)
     window, scratch = window_plan(num_tables, cap, n, d, rq, rc, **kw)
     return window, scratch, smem_bytes(num_tables, n, d, rq, rc, window,
                                        **kw)
 
 
-def occupancy(table, rq: int, smem: int, q_layout: str | None = None) -> dict:
+def occupancy(table, rq: int, smem: int, q_layout: str | None = None,
+              sample: bool = False) -> dict:
     """What the card makes of K1's instantiation for ``table`` (and queries
-    of ``q_layout``, by default the corpus's) at ``smem`` bytes of shared
-    memory a block (``smem_bytes``, static scalars included): registers a
-    thread, resident blocks per SM, local (spilled) bytes a thread and the
-    target blocks per SM."""
+    of ``q_layout``, by default the corpus's; ``sample``: its sampling
+    instantiation) at ``smem`` bytes of shared memory a block
+    (``smem_bytes``, static scalars included): registers a thread, resident
+    blocks per SM, local (spilled) bytes a thread and the target blocks per
+    SM."""
     import ctypes
 
     from repro_torch.kernels import _build
@@ -705,7 +877,7 @@ def occupancy(table, rq: int, smem: int, q_layout: str | None = None) -> dict:
     out = (ctypes.c_int * 4)()
     _build.check(_build.lib().fused_query_occupancy(
         FORMATS[table.layout], FORMATS[q_layout or table.layout], rq,
-        table.rc, table.n_modes, table.d, smem - STATIC_SMEM,
+        table.rc, table.n_modes, table.d, int(sample), smem - STATIC_SMEM,
         ctypes.addressof(out)),
         "fused_query_occupancy")
     return dict(registers=out[0], blocks_per_sm=out[1], local_bytes=out[2],
@@ -726,16 +898,23 @@ def _check_device(dev: torch.device, name: str) -> None:
 
 
 def _launch(values, offsets, mults, queries, table, *, kind, w, num_tables,
-            num_codes, metric, topk, probes, counts):
+            num_codes, metric, topk, probes, counts, mode="topk", key=None):
     """One launch of ``csrc/fused_query.cu`` over the rows of ``table`` ->
     (ids, scores, n_cand, the branches it ran or None when B = 0 launched
     nothing); the queries that took the scratch add to ``counts``' count on
-    the card."""
+    the card. A sampling ``mode`` launches the instantiation's sampling
+    twin (``csrc/fused_query_sample.cu``) with the draw's ``key`` words."""
     from repro_torch.kernels import _build
 
     dev = values.device
     if probes < 1:
         raise ValueError(f"probes must be >= 1, got {probes}")
+    if mode not in MODES:
+        raise ValueError(f"unknown query mode {mode!r}")
+    sample = mode != "topk"
+    if sample and key is None:
+        raise ValueError(f"mode={mode!r} needs the draw's key words")
+    k0, k1 = (int(k) & _epi.U32_MASK for k in key) if sample else (0, 0)
     e2 = kind.endswith("e2lsh")
     b = values.shape[0]
     q = queries[1]
@@ -758,7 +937,8 @@ def _launch(values, offsets, mults, queries, table, *, kind, w, num_tables,
     window, need_scratch, smem = launch_plan(table, rq,
                                              num_tables=num_tables,
                                              probes=probes, topk=topk,
-                                             expansion=expansion, pair=pair)
+                                             expansion=expansion, pair=pair,
+                                             sample=sample)
     vals = values.contiguous().float()
     offs = offsets.float().contiguous() if e2 else None
     mu = mults.to(dev, torch.int64).contiguous()
@@ -771,7 +951,9 @@ def _launch(values, offsets, mults, queries, table, *, kind, w, num_tables,
     # a query's row of the scratch: the hash set and the candidate list of
     # its largest window
     scap = _pow2_ceil(num_tables * probes * max(table.caps))
-    scratch = scratch_rows(table, b, scap, dev) if need_scratch else None
+    scratch = (scratch_rows(table, b, scap, dev,
+                            SAMPLE_WORDS if sample else 3)
+               if need_scratch else None)
     # a CP or TT query's densified row over dense rows, past the staged one
     qscratch = (torch.empty((b, pair.df), dtype=torch.float32, device=dev)
                 if table.layout == "dense" and pair.df > DENSE_STAGE
@@ -791,8 +973,8 @@ def _launch(values, offsets, mults, queries, table, *, kind, w, num_tables,
         scratch.data_ptr() if need_scratch else None, scap,
         counts.counter(dev).data_ptr(),
         qscratch.data_ptr() if qscratch is not None else None,
-        dims.data_ptr() if dims is not None else None, pair.df, threads,
-        min_blocks, smem - STATIC_SMEM,
+        dims.data_ptr() if dims is not None else None, pair.df,
+        MODES[mode], k0, k1, threads, min_blocks, smem - STATIC_SMEM,
         torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "fused_query_launch")
     branches = [name for name, on in (
@@ -800,12 +982,15 @@ def _launch(values, offsets, mults, queries, table, *, kind, w, num_tables,
         ("live_window", any(s.win is not None for s in table.segs)),
         ("segments", len(table.segs) > 1),
         (f"mixed:{pair.q_layout}-{table.layout}", not pair.same),
-        ("k1:" + instance_name(*tr_qr), True)) if on]
+        (f"sample:{mode}", sample),
+        (("sample:" if sample else "k1:") + instance_name(*tr_qr), True))
+        if on]
     return ids, scores, ncand, branches
 
 
 def fused_query(values, offsets, mults, queries, segs, *, kind, w, num_tables,
-                num_codes, metric, topk, caps, probes=1, table=None):
+                num_codes, metric, topk, caps, probes=1, table=None,
+                mode="topk", key=None):
     """K1 on the tensors' device (arguments as ``fused_query_plain``;
     ``table`` the segments' ``segment_table``, built here if not given)."""
     dev = values.device
@@ -814,7 +999,8 @@ def fused_query(values, offsets, mults, queries, segs, *, kind, w, num_tables,
         return fused_query_plain(values, offsets, mults, queries, segs,
                                  kind=kind, w=w, num_tables=num_tables,
                                  num_codes=num_codes, metric=metric,
-                                 topk=topk, caps=caps, probes=probes)
+                                 topk=topk, caps=caps, probes=probes,
+                                 mode=mode, key=key)
     _check_device(dev, "fused_query")
     if table is None:
         table = segment_table(segs, caps)
@@ -823,7 +1009,8 @@ def fused_query(values, offsets, mults, queries, segs, *, kind, w, num_tables,
     ids, scores, ncand, branches = _launch(
         values, offsets, mults, queries, table, kind=kind, w=w,
         num_tables=num_tables, num_codes=num_codes, metric=metric,
-        topk=topk, probes=probes, counts=fused_query.branches)
+        topk=topk, probes=probes, counts=fused_query.branches, mode=mode,
+        key=key)
     if branches is not None:
         fused_query.launches += 1
         fused_query.branches.update(branches)
@@ -836,7 +1023,8 @@ fused_query.branches = BranchCounts()
 
 def fused_query_sharded(values, offsets, mults, queries, base, deltas, *,
                         kind, w, num_tables, num_codes, metric, topk, cap,
-                        delta_caps, probes=1, table=None):
+                        delta_caps, probes=1, table=None, mode="topk",
+                        key=None):
     """K1s on the tensors' device: one launch of K1's kernel over every
     (shard, segment) pair (``shard_segments``' order) -> (ids (B, topk)
     int32 effective ids, scores (B, topk) float32, n_cand (B,) int32).
@@ -847,7 +1035,7 @@ def fused_query_sharded(values, offsets, mults, queries, base, deltas, *,
     dev = values.device
     probes = int(probes)
     kw = dict(kind=kind, w=w, num_tables=num_tables, num_codes=num_codes,
-              metric=metric, topk=topk)
+              metric=metric, topk=topk, mode=mode, key=key)
     if dev.type == "cpu":
         return fused_query_sharded_plain(values, offsets, mults, queries,
                                          base, deltas, cap=cap,

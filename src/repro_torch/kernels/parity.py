@@ -39,6 +39,11 @@ because both sides round:
     holding such a code.
   * Re-rank scores: the bound of qq + yy - 2 qy (or of qy, qq, yy for
     cosine) carried through the square root / the division.
+  * Sampled sets (``sample_mismatches``): equal in "uniform" (integer
+    keys); in "weighted" a member may be drawn on one side only where its
+    perturbed logit, log(mult) - log(-log(u)) in fp32 (each log within an
+    ulp of the exact one on either side), lies within 2 ulps of the last
+    drawn member's.
 
 Used by the CPU tests (port against the reference), by the card tests and
 by ``chip_smoke.py`` (kernel against plain version).
@@ -193,3 +198,39 @@ def topk_mismatches(ids_a, scores_a, ids_b, scores_b, tol) -> int:
     last[:, k - 1] = True
     ok = close & (tie | last)
     return int((differ & ~ok).sum())
+
+
+def sample_mismatches(mode: str, key, got_ids, want_ids, union,
+                      ulps: int = 2) -> int:
+    """Rows whose drawn sets (``got_ids`` / ``want_ids``, (B, topk) with -1
+    fill, e.g. K1's sample and its plain version's) differ beyond what the
+    weighted mode's logarithms explain. ``union`` is the rows' probed union
+    (``fused_query.sample_union``: eff, mult, valid) and ``key`` the draw's
+    key words. "uniform" ranks by integers, so its sets must be equal; in
+    "weighted" a member may be in one set only where its sampling key (as
+    the plain version computes it, ``fused_query.sample_key32``) lies within
+    ``ulps`` units of the last drawn member's key, where two fp32
+    evaluations of log(mult) - log(-log(u)) may order it differently."""
+    from repro_torch.kernels.fused_query import noise_bits, sample_key32
+    eff, mult, valid = union
+    rows = torch.arange(eff.shape[0], device=eff.device)
+    k32 = sample_key32(mode, noise_bits(key, rows, eff), mult)
+    packed = torch.where(valid, (k32 - (1 << 31)) * (1 << 32) + eff,
+                         torch.iinfo(torch.int64).max)
+    packed = torch.sort(packed, dim=1).values
+    bad = 0
+    for r in range(got_ids.shape[0]):
+        got = set(got_ids[r][got_ids[r] >= 0].tolist())
+        want = set(want_ids[r][want_ids[r] >= 0].tolist())
+        if got == want:
+            continue
+        if mode != "weighted" or len(got) != len(want):
+            bad += 1
+            continue
+        last = int(packed[r, len(want) - 1] >> 32) + (1 << 31)
+        keys = dict(zip(eff[r][valid[r]].tolist(),
+                        k32[r][valid[r]].tolist()))
+        if any(abs(keys.get(e, -(1 << 40)) - last) > ulps
+               for e in got ^ want):
+            bad += 1
+    return bad

@@ -20,12 +20,18 @@ occupancy skews (``ServiceStats.shard_occupancy`` / ``occupancy_skew`` /
 ``rebalances`` track it). A query runs one K1s launch over every (shard,
 segment) pair.
 
+``query_mode`` / a request's ``mode`` "uniform" or "weighted" samples
+``topk`` distinct members of each query's probed bucket union instead of
+the exact top-k, seeded by the request's ``seed`` alone (a
+``torch.Generator`` made from it per request: the same seed on the same
+store replays the draw); ``ServiceStats`` counts the queries of each mode.
+
 In the reference, ``build_service(device: bool)`` chooses between the device
 index and the host-dict index. Here ``device`` is the torch device the
 service runs on ("cuda" by default; "cpu" runs the kernels' plain
-versions). The host index and the sampling query modes are queued: they
-raise ``NotImplementedError`` naming the ROADMAP.md item that brings them.
-That is a stated limit of the port, not a fallback.
+versions). The host index is queued: it raises ``NotImplementedError``
+naming the ROADMAP.md item that brings it. That is a stated limit of the
+port, not a fallback.
 """
 
 from __future__ import annotations
@@ -55,7 +61,10 @@ class ServiceStats:
     batches: int = 0
     total_ms: float = 0.0
     total_candidates: int = 0
+    # per-mode query counters (topk + uniform + weighted == queries)
     topk_queries: int = 0
+    uniform_queries: int = 0
+    weighted_queries: int = 0
     build_s: float = 0.0
     hash_s: float = 0.0        # part of build_s spent hashing (K3 / K4)
     sort_s: float = 0.0        # part of build_s spent sorting the tables
@@ -101,7 +110,8 @@ class ServiceStats:
     def reset(self):
         """Zero the query counters (e.g. after warm-up); keeps the build
         times and the mutation counters."""
-        self.queries = self.batches = self.topk_queries = 0
+        self.queries = self.batches = 0
+        self.topk_queries = self.uniform_queries = self.weighted_queries = 0
         self.total_ms = 0.0
         self.total_candidates = 0
 
@@ -128,8 +138,6 @@ class LSHService:
         if query_mode not in QUERY_MODES:
             raise ValueError(f"unknown query_mode {query_mode!r}; expected "
                              f"one of {QUERY_MODES}")
-        if query_mode != "topk":
-            raise _queued(f"query_mode={query_mode!r}", "3")
         self.probes = int(probes)
         self.query_mode = query_mode
         if shards is not None:
@@ -163,8 +171,11 @@ class LSHService:
                      seed: int | None = None):
         """Batched raw results: (ids (B, topk), scores (B, topk), n_cand (B,))
         numpy arrays; ids -1-filled where a row has fewer than topk
-        candidates. Requests are validated with the reference's contract;
-        the queued modes raise ``NotImplementedError``."""
+        candidates. Requests are validated with the reference's contract.
+        The sampling modes ("uniform" / "weighted") draw ``topk`` distinct
+        members of each query's probed union and need an explicit ``seed``
+        (the draw's generator is made from it and nothing else, so a seed
+        replays the draw on the same store); "topk" refuses one."""
         probes = self.probes if probes is None else int(probes)
         if probes < 1:
             raise ValueError(f"probes must be >= 1, got {probes}")
@@ -174,20 +185,22 @@ class LSHService:
         if mode not in QUERY_MODES:
             raise ValueError(f"unknown query mode {mode!r}; expected one "
                              f"of {QUERY_MODES}")
+        rng = None
         if mode in ("uniform", "weighted"):
             if seed is None:
                 raise ValueError(
                     f"mode={mode!r} needs an explicit per-request seed "
                     "(sampling draws are seeded, never implicit)")
-            raise _queued(f"mode={mode!r}", "3")
-        if seed is not None:
+            rng = torch.Generator().manual_seed(int(seed))
+        elif seed is not None:
             raise ValueError("seed applies to the sampling modes only; "
                              "mode='topk' is deterministic")
         queries = as_batch(queries, len(self.index.family.projection.dims))
         n = queries.leaves[0].shape[0]
         t0 = time.perf_counter()
         ids, scores, n_cand = self.index.query_batch(queries, topk=int(topk),
-                                                     probes=probes)
+                                                     probes=probes, mode=mode,
+                                                     rng=rng)
         # one device-to-host copy of the three results, split on the host
         host = torch.cat([ids, scores.view(torch.int32), n_cand[:, None]],
                          dim=1).cpu().numpy()
@@ -197,7 +210,8 @@ class LSHService:
                                host[:, 2 * k].copy())
         dt = (time.perf_counter() - t0) * 1e3
         self.stats.queries += n
-        self.stats.topk_queries += n
+        setattr(self.stats, f"{mode}_queries",
+                getattr(self.stats, f"{mode}_queries") + n)
         self.stats.batches += 1
         self.stats.total_ms += dt
         self.stats.total_candidates += int(n_cand.sum())

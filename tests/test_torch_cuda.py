@@ -1574,3 +1574,220 @@ def test_fused_query_sharded_tt_wide(gen, qf):
         before = fused_query_sharded.branches[name]
         _k1s_vs_plain(svc, q, probes)
         assert fused_query_sharded.branches[name] == before + 1
+
+
+# ---------------------------------------------------------------------------
+# The sampling modes: K1's and K1s's sampling instantiations
+# (fused_query_kernel<TR, QR, true>) against their plain versions
+# ---------------------------------------------------------------------------
+
+SAMPLE_KEY = (0x9E3779B9, 12345)
+
+
+def _sample_vs_plain(svc, q, probes, mode, topk=10, bitwise=False):
+    """K1's (K1s's) sample mode against its plain version on the same raw
+    values and key: the launch counted under "sample:<mode>"; candidate
+    counts equal bit for bit and equal to the top-k path's; the drawn sets
+    equal (in "weighted" but where ``parity.sample_mismatches`` allows),
+    distinct, min(topk, n_cand) of them; where the sets are equal, scores
+    within ``parity.rerank_bound`` and ids in order but at near ties, or
+    (``bitwise``, integer data) ids, scores and counts bit for bit."""
+    idx = svc.index
+    fam, view = idx.family, idx.store.view
+    qs = q.stack()
+    values = fam.raw_stacked(qs[1], q.scale)
+    kw = dict(kind=fam.kind, w=fam.bucket_width, num_tables=fam.num_tables,
+              num_codes=fam.num_codes, metric=idx.metric, topk=topk,
+              probes=probes)
+    if view.sharded:
+        args = (view.seg_arrays(0), view.delta_arrays)
+        kw.update(cap=view.base.cap, delta_caps=view.delta_caps)
+        kernel, plain = fused_query_sharded, fused_query_sharded_plain
+    else:
+        args, kw["caps"] = (view.all_arrays,), view.all_caps
+        kernel, plain = fused_query, fused_query_plain
+    name = f"sample:{mode}"
+    before = kernel.branches[name]
+    got = kernel(values, fam.offsets, idx._mults_t, qs, *args,
+                 table=view.k1_table, mode=mode, key=SAMPLE_KEY, **kw)
+    top = kernel(values, fam.offsets, idx._mults_t, qs, *args,
+                 table=view.k1_table, **kw)
+    want = plain(values, fam.offsets, idx._mults_t, qs, *args, mode=mode,
+                 key=SAMPLE_KEY, **kw)
+    torch.cuda.synchronize()
+    assert kernel.branches[name] == before + 1
+    ids, sc, nc = got
+    ids_p, sc_p, nc_p = want
+    assert torch.equal(nc, nc_p) and torch.equal(nc, top[2])
+    valid = ids >= 0
+    assert torch.equal(valid.sum(1), nc.clamp(max=topk))
+    srt = torch.sort(torch.where(valid, ids, -1 - torch.arange(
+        topk, device="cuda")), dim=1).values
+    assert bool((srt[:, 1:] != srt[:, :-1]).all())       # distinct
+    if bitwise:
+        for g, w_ in zip(got, want):
+            assert torch.equal(g.view(torch.int32), w_.view(torch.int32))
+        return got
+    segs, caps = view.k1_segments
+    union = fq_mod.sample_union(values, fam.offsets, idx._mults_t, segs,
+                                kind=fam.kind, w=fam.bucket_width,
+                                num_tables=fam.num_tables,
+                                num_codes=fam.num_codes, caps=caps,
+                                probes=probes)
+    assert parity.sample_mismatches(mode, SAMPLE_KEY, ids, ids_p, union) == 0
+    rows = torch.tensor([set(a[a >= 0].tolist()) == set(b[b >= 0].tolist())
+                         for a, b in zip(ids, ids_p)], device="cuda")
+    if mode == "uniform":
+        assert bool(rows.all())
+    tol = parity.rerank_bound(idx.metric, q, idx.effective_corpus(), ids_p,
+                              sc_p)
+    same = (ids == ids_p) & (ids_p >= 0) & rows[:, None]
+    assert bool(((sc - sc_p).abs()[same] <= tol[same]).all())
+    assert parity.topk_mismatches(ids[rows], sc[rows], ids_p[rows],
+                                  sc_p[rows], tol[rows]) == 0
+    assert bool((ids < idx.size).all())
+    return got
+
+
+def _sample_service(gen, layout, n, **kw):
+    """A corpus of ``layout`` ("cp"; "tt4" / "tt8": TT ranks 4 / 8; "dense")
+    and its service -> (corpus, service)."""
+    from repro_torch.serving.lsh_service import build_service
+    if layout == "dense":
+        return _dense_service(gen, (12, 12, 12), n, **kw)
+    if layout == "cp":
+        dims, kind, w = (6, 6, 6), "cp-e2lsh", 2.0
+        corpus = cp_random_data(gen, dims, 3, batch=n)
+    else:
+        dims, kind, w = (8, 8, 8), "tt-e2lsh", 8.0
+        corpus = tt_random_data(gen, dims, int(layout[2:]), batch=n)
+    return corpus, build_service(gen, kind, dims, corpus, num_codes=6,
+                                 num_tables=4, rank=2, bucket_width=w, **kw)
+
+
+@pytest.mark.parametrize("mode", ["uniform", "weighted"])
+@pytest.mark.parametrize("layout,probes,cap", [
+    ("cp", 1, None), ("cp", 8, None), ("cp", 4, 16), ("tt4", 1, None),
+    ("tt8", 4, 16), ("dense", 1, None), ("dense", 8, None)])
+def test_fused_query_sample_matches_plain(gen, layout, probes, cap, mode):
+    """The sample mode of <0, 0>, <4, 4>, <8, 8> and <kDense, kDense> at
+    T = 1 and 8 (dense windows) and, with ``bucket_cap``, after deletes and
+    an insert (a live window over two segments) at T = 4."""
+    n = 6000 if layout.startswith("tt") else 20000
+    corpus, svc = _sample_service(gen, layout, n, bucket_cap=cap)
+    if cap is not None:
+        svc.delete(torch.randperm(n, generator=gen, device="cuda")[:n // 3])
+        svc.insert(corpus.index(slice(0, 300)) if layout != "dense"
+                   else corpus[:300])
+    q = (corpus[torch.randint(0, n, (256,), generator=gen, device="cuda")]
+         + 0.05 * torch.randn((256,) + corpus.shape[1:], generator=gen,
+                              device="cuda")
+         if layout == "dense" else _planted(gen, corpus, n, 256))
+    ids, _, nc = _sample_vs_plain(svc, as_batch(q, 3), probes, mode)
+    assert int(nc.sum()) > 0
+    assert (ids >= 0).sum() > 0
+
+
+@pytest.mark.parametrize("qf,cf", [("tt", "cp"), ("dense", "cp"),
+                                   ("cp", "tt"), ("tt", "dense")])
+@pytest.mark.parametrize("mode", ["uniform", "weighted"])
+def test_fused_query_sample_mixed_matches_plain(gen, qf, cf, mode):
+    """The sample mode of four cross-format instantiations, T = 4 over a
+    live window after deletes."""
+    dims, n = (6, 5, 7), 3000
+    corpus, svc = _mixed_service(gen, dims, n, cf, bucket_cap=16)
+    svc.delete(list(range(1, n, 9)))
+    q = _planted(gen, corpus, n, 256)
+    before = fused_query.branches[f"mixed:{qf}-{cf}"]
+    _sample_vs_plain(svc, _as_layout(q, qf), 4, mode)
+    # the sampling launch and the top-k one beside it
+    assert fused_query.branches[f"mixed:{qf}-{cf}"] == before + 2
+
+
+@pytest.mark.parametrize("layout,shards", [("cp", 1), ("tt", 1), ("cp", 3),
+                                           ("tt", 3)])
+def test_fused_query_sample_spill_equals_shared(gen, layout, shards):
+    """test_fused_query_spill_equals_shared's store (one item repeated past
+    the shared window, deltas, deletes) in both sampling modes: the queries
+    that take the global scratch (6 words a slot) and those that do not
+    draw as the plain version does, ids, scores and counts bit for bit (the
+    integer data scores exactly), K1 and K1s, T = 1 and 4, with top-k
+    launches between them on the same scratch."""
+    from repro_torch.serving.lsh_service import build_service
+    dims = (6, 6, 6) if layout == "cp" else (8, 8, 8)
+    n, dup = 6000, 3 * shards * fq_mod.MAX_WINDOW // 4
+    base = _integer_data(gen, layout, dims, n)
+    rows = torch.cat([torch.arange(n, device="cuda"),
+                      torch.zeros(dup, dtype=torch.long, device="cuda")])
+    corpus = _repeat(base, rows[torch.randperm(n + dup, generator=gen,
+                                               device="cuda")])
+    svc = build_service(gen, f"{layout}-e2lsh", dims, corpus, num_codes=6,
+                        num_tables=4, rank=2, bucket_width=4.0,
+                        shards=shards if shards > 1 else None)
+    more = _integer_data(gen, layout, dims, 300)
+    copies = _repeat(base, torch.zeros(200, dtype=torch.long, device="cuda"))
+    svc.insert(type(base)(tuple(torch.cat(pair) for pair in zip(
+        more.leaves, copies.leaves)), 1.0))
+    svc.delete(torch.arange(0, svc.index.size, 9, device="cuda"))
+    q = _repeat(base, torch.cat([
+        torch.zeros(64, dtype=torch.long, device="cuda"),
+        torch.randint(1, n, (192,), generator=gen, device="cuda")]))
+    for probes, mode in ((1, "uniform"), (4, "weighted"), (4, "uniform"),
+                         (1, "weighted")):
+        before = _scratch_queries()
+        ids, _, nc = _sample_vs_plain(svc, q, probes, mode, bitwise=True)
+        took = _scratch_queries() - before
+        assert 64 <= took < 2 * 256     # the sample launch and the top-k one
+        assert bool((nc[:64] > 10).all())
+        _bitwise_vs_plain(svc, q, probes)
+
+
+@pytest.mark.parametrize("layout", ["cp", "tt"])
+def test_sample_sharded_equals_single_device(gen, layout):
+    """Effective ids are unique across shards and the noise is keyed by
+    them: ``shards=3`` draws what the single index draws from the same
+    seed, ids, scores and counts bit for bit; a seed replays its draw."""
+    from repro_torch.serving.lsh_service import build_service
+    n = 12001
+    data = cp_random_data if layout == "cp" else tt_random_data
+    dims = (6, 6, 6) if layout == "cp" else (8, 8, 8)
+    kw = dict(num_codes=8, num_tables=4, rank=2,
+              bucket_width=2.0 if layout == "cp" else 8.0)
+    corpus = data(gen, dims, 3, batch=n)
+    single = build_service(gen, f"{layout}-e2lsh", dims, corpus, **kw)
+    sharded = build_service(None, f"{layout}-e2lsh", dims, corpus, shards=3,
+                            family=single.index.family, **kw)
+    for svc in (single, sharded):
+        svc.insert(corpus.index(slice(0, 300)))
+        svc.delete(torch.arange(7, n, 11, device="cuda"))
+    q = _planted(gen, corpus, n, 256)
+    for mode, probes in (("uniform", 1), ("weighted", 3)):
+        want = single.query_arrays(q, probes=probes, mode=mode, seed=5)
+        for got in (sharded.query_arrays(q, probes=probes, mode=mode,
+                                         seed=5),
+                    single.query_arrays(q, probes=probes, mode=mode,
+                                        seed=5)):
+            for g, w_ in zip(got, want):
+                assert (g.view("int32") == w_.view("int32")).all()
+    assert fused_query_sharded.branches["sample:weighted"] > 0
+
+
+def test_tt_rank_20_is_refused_by_name(gen):
+    """A TT of rank 20 (``dense_to_tt`` of an (8, 8, 8, 8) tensor at
+    max_rank 20: ranks (8, 20, 8)) gets K4's and K1's named refusals on the
+    card, not a truncation."""
+    from repro_torch.core.tensor_formats import dense_to_tt
+    from repro_torch.serving.lsh_service import build_service
+    dims = (8, 8, 8, 8)
+    tt = dense_to_tt(torch.randn(dims, generator=gen, device="cuda"), 20)
+    assert tt.ranks == (1, 8, 20, 8, 1)
+    batch = TTTensor(tuple(c[None] for c in tt.cores), 1.0)
+    kw = dict(num_codes=4, num_tables=2, rank=2, bucket_width=4.0)
+    tsvc = build_service(gen, "tt-e2lsh", dims,
+                         tt_random_data(gen, dims, 2, batch=512), **kw)
+    with pytest.raises(ValueError, match="K4 takes ranks up to 16"):
+        tsvc.query_arrays(batch)
+    csvc = build_service(gen, "cp-e2lsh", dims,
+                         cp_random_data(gen, dims, 2, batch=512), **kw)
+    with pytest.raises(ValueError, match="K1 takes TT ranks up to 16"):
+        csvc.query_arrays(batch)

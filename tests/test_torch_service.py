@@ -12,8 +12,9 @@ mode), with the reference's sampled family carried over.
 * recall@k against brute force within 0.05 of the reference's (one id of
   the 20 per query set may move across a near tie or a boundary code).
 * The service's request contract: validation errors as in the reference
-  (``rebalance`` without shards raises its ``TypeError``), and
-  ``NotImplementedError`` for what the port does not serve yet.
+  (``rebalance`` without shards raises its ``TypeError``), the sampling
+  modes served, and ``NotImplementedError`` for what the port does not
+  serve yet (the host index).
 """
 
 import jax  # noqa: F401  (both frameworks in one process, JAX on the CPU)
@@ -131,8 +132,8 @@ def test_request_validation_and_queued_features(services):
         svc.query_arrays(q, mode="uniform")          # no seed
     with pytest.raises(ValueError):
         svc.query_arrays(q, seed=3)                  # seed on topk
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        svc.query_arrays(q, mode="weighted", seed=1)
+    ids, _, _ = svc.query_arrays(q, mode="weighted", seed=1)  # sampling:
+    assert ids.shape == (B, 10)                                # served
     ids, _, _ = svc.query_arrays(q, probes=2)        # multi-probe: served
     assert ids.shape == (B, 10)
     for call in (svc.rebalance, svc.prepare_rebalance):

@@ -317,5 +317,5 @@ def test_refusals():
     idx.delete(np.arange(idx.size))
     with pytest.raises(ValueError, match="no live items"):
         idx.rebalance()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        idx.query_batch(twrap(corpus), mode="uniform")
+    with pytest.raises(ValueError, match="Generator"):
+        idx.query_batch(twrap(corpus), mode="uniform")     # no rng
