@@ -144,6 +144,28 @@ Phases (any failure exits non-zero):
      beside the top-k path's bound, registers, spills, blocks per SM,
      shared window and scratch queries.
 
+  12. [host] (run at the end of 3), the host-dict index:
+     ``build_service(device=False)`` (``HostLSHIndex``) at [main]'s
+     configuration over [main]'s first 2^18 items, 64 batches of 1024
+     planted queries through K1 (recall@1); for 256 queries at T = 1 and
+     T = 4 the dicts' ``candidates(x)`` against a device index's
+     ``candidates_batch`` over the same items and K1's n_candidates,
+     ``query(x)`` against ``query_batch`` and ``brute_force`` against
+     ``brute_force_batch``; the dict fill beside the device build; K1
+     against its plain version and timed.
+  13. [tables], the paper's Tables 1 and 2 (benchmarks/table1_e2lsh.py,
+     table2_srp.py): N in {2, 3, 4}, d = 16, K = 16, ranks 4, for the
+     naive kind, CP and TT on CP inputs and CP and TT on TT inputs:
+     projection storage against its closed form, ``hash(x)``'s time a call
+     (host clock) and ``hash_batch``'s device time an item over 1,024
+     items, ``hash(x)`` equal to its batch row, codes against the plain
+     version (boundary-aware); K3 and K4 timed at N = 4.
+  14. [collision], benchmarks/collision.py: the empirical collision rate of
+     M = 2000 codes at five distances (E2LSH) or mixes (SRP) against
+     ``theory``, all six kinds on dense pairs, the CP kinds on CP pairs (K3)
+     and the TT kinds on the pairs' TT forms (K4), failing past the
+     reference's 5 se + 0.015; each row's largest deviation and time a call.
+
 Every path's kernel counters are zeroed just before it runs and read just
 after: each kernel and each K1 / K1s branch it needs must have launched,
 and no plain version may have run; K1's and K1s's queries that used the
@@ -949,10 +971,13 @@ def phase_times(svc, cell, queries, k1_args):
     h_flops = b_x * t * pair
     h_bound, h_by = bound_ms(h_bytes, h_flops)
     hash_plan(corpus.layout, xs[0], p, f"build launch, {b_x} items")
+    h_lib = cuda_ms([lambda x=x: library_raw(corpus.layout, x, p)
+                     for x in xs], len(xs))
     print(f"[time] {f['name']} e2lsh-keys, {b_x} items x {t} hashes: "
-          f"{h_ms:.4f} ms (plain {h_plain:.4f} ms); bound {h_bound:.4f} ms "
-          f"by {h_by} ({h_bytes / 1e6:.1f} MB, {h_flops / 1e9:.2f} GFLOP, "
-          f"{pair} FLOP per (item, hash))")
+          f"{h_ms:.4f} ms (plain {h_plain:.4f} ms; one fp32 torch.einsum "
+          f"over the same operands, raw values, {h_lib:.4f} ms); bound "
+          f"{h_bound:.4f} ms by {h_by} ({h_bytes / 1e6:.1f} MB, "
+          f"{h_flops / 1e9:.2f} GFLOP, {pair} FLOP per (item, hash))")
 
     # the query side: one raw launch per batch of stacked queries
     qss = [q.stack()[1] for q in queries]
@@ -999,7 +1024,7 @@ def phase_times(svc, cell, queries, k1_args):
     k1_t = k1_times(svc, queries, k1_args,
                     "K1-TT" if corpus.layout == "tt" else "K1")
     return ((h_ms, h_plain, h_bound, h_by), k1_t,
-            (q_ms, q_plain, q_bound, q_by), q_err, q_lib)
+            (q_ms, q_plain, q_bound, q_by), q_err, q_lib, h_lib)
 
 
 def k1_times(svc, queries, k1_args, name, corpus=None, sample=None):
@@ -2432,18 +2457,25 @@ def phase_kernels() -> list:
           *bound_ms(4 * (x4.numel() + p4.numel() + c4["k"]
                          + c4["b"] * c4["l"]),
                     n4 * tt_chain_flops(ranks, ranks, (c4["d"],) * c4["n"])))
-    for name, t, what in (
-            ("K7", t7, f"({rows}, {k7c}) values"),
-            ("K3 e2lsh-keys", t3, "B=64 N=4 d=64 R=32 L=8 K=8 (warp kernel)"),
-            ("K4 srp-keys", t4, "B=32 N=4 d=32 R=16 L=4 K=8 (warp kernel)")):
+    lib3 = cuda_ms([lambda: library_raw("cp", x3, p3)], 20)
+    lib4 = cuda_ms([lambda: library_raw("tt", x4, p4)], 20)
+    for name, t, what, lib in (
+            ("K7", t7, f"({rows}, {k7c}) values", None),
+            ("K3 e2lsh-keys", t3, "B=64 N=4 d=64 R=32 L=8 K=8 (warp kernel)",
+             lib3),
+            ("K4 srp-keys", t4, "B=32 N=4 d=32 R=16 L=4 K=8 (warp kernel)",
+             lib4)):
+        what += ("" if lib is None else
+                 f"; one fp32 torch.einsum over the same operands, raw "
+                 f"values, {lib:.4f} ms")
         print(f"[time] {name}, {what}: {t[0]:.4f} ms (plain {t[1]:.4f} ms); "
               f"bound {t[2]:.4f} ms by {t[3]}")
     return [record("srp_pack", *K6_SOURCE, counts, "srp_pack", 0.0, t6),
             record("e2lsh_quant", *K7_SOURCE, counts, "e2lsh_quant", 0.0, t7),
-            record("cp_gram[R=32]", *HASH_RECORDS["cp"][1:], counts,
-                   "cp_gram", err3, t3),
-            record("tt_inner[R=16]", *HASH_RECORDS["tt"][1:], counts,
-                   "tt_inner", err4, t4)]
+            dict(record("cp_gram[R=32]", *HASH_RECORDS["cp"][1:], counts,
+                        "cp_gram", err3, t3), library_ms=lib3),
+            dict(record("tt_inner[R=16]", *HASH_RECORDS["tt"][1:], counts,
+                        "tt_inner", err4, t4), library_ms=lib4)]
 
 
 def k6_plan(v, label: str) -> None:
@@ -2661,14 +2693,18 @@ def phase_limits() -> list:
 
     t3 = hash_time("cp", x3, p3, s3, LIMITS["k3"])
     t4 = hash_time("tt", x4, p4, s4, LIMITS["k4"])
-    for name, t in (("K3 e2lsh-keys, K=2000 (tiled)", t3),
-                    ("K4 e2lsh-keys, K=1024 (tiled)", t4)):
+    lib3 = cuda_ms([lambda: library_raw("cp", x3, p3)], 10)
+    lib4 = cuda_ms([lambda: library_raw("tt", x4, p4)], 10)
+    for name, t, lib in (("K3 e2lsh-keys, K=2000 (tiled)", t3, lib3),
+                         ("K4 e2lsh-keys, K=1024 (tiled)", t4, lib4)):
         print(f"[time] {name}, {LIMITS['items']} items: {t[0]:.4f} ms "
-              f"(plain {t[1]:.4f} ms); bound {t[2]:.4f} ms by {t[3]}")
-    return [record("cp_gram[K=2000]", *HASH_RECORDS["cp"][1:], counts,
-                   "cp_gram", errs["cp"], t3),
-            record("tt_inner[K=1024]", *HASH_RECORDS["tt"][1:], counts,
-                   "tt_inner", errs["tt"], t4),
+              f"(plain {t[1]:.4f} ms; one fp32 torch.einsum over the same "
+              f"operands, raw values, {lib:.4f} ms); bound {t[2]:.4f} ms by "
+              f"{t[3]}")
+    return [dict(record("cp_gram[K=2000]", *HASH_RECORDS["cp"][1:], counts,
+                        "cp_gram", errs["cp"], t3), library_ms=lib3),
+            dict(record("tt_inner[K=1024]", *HASH_RECORDS["tt"][1:], counts,
+                        "tt_inner", errs["tt"], t4), library_ms=lib4),
             record("fused_query[tt, R=16]", *K1_SOURCE, counts,
                    "fused_query", k1_err, k1_t)]
 
@@ -2953,6 +2989,461 @@ def run_dense(args) -> list:
     return records
 
 
+# [tables]: the paper's Tables 1 and 2 (benchmarks/table1_e2lsh.py,
+# table2_srp.py): for N in {2, 3, 4}, d = 16, K = 16 in one table,
+# projection rank 4, data rank 4 (w = 4 for E2LSH), the naive kind on CP
+# input, CP and TT on CP input, CP and TT on TT input; batches of 1,024
+# items for the device time per item
+TABLES = dict(n_sweep=(2, 3, 4), d=16, codes=16, rank=4, rhat=4, w=4.0,
+              batch=1024)
+# [collision]: benchmarks/collision.py (dense x and noise of dims (8, 8, 8),
+# M = 2000 codes in one table, rank 2, w = 4), then the tensorized kinds on
+# their kernels' formats: CP pairs of rank 32 (x and the noise CP of rank
+# 16 each, y their exact sum), the dense pairs in TT form (TT-SVD, ranks
+# (8, 8), exact to fp32)
+COLLISION = dict(dims=(8, 8, 8), m=2000, rank=2, w=4.0,
+                 rs=(0.5, 1.0, 2.0, 4.0, 8.0),
+                 mixes=(0.05, 0.2, 0.5, 1.0, 2.0), cp_rank=16, tt_rank=8)
+# [host]: build_service(device=False) at [main]'s configuration over the
+# first 2^18 items of [main]'s corpus; 64 batches of 1,024 noisy queries;
+# 256 queries checked one at a time at T = 1 and T = 4
+HOST = dict(log2_corpus=18, batches=64, checks=256, probes=(1, 4), seed=37)
+
+
+def host_us(fn, warmup: int = 2, iters: int = 10) -> float:
+    """benchmarks/common.time_fn on the card: the median host-clock time of
+    one synchronized call, in microseconds, after ``warmup`` calls."""
+    import torch
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(iters):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return sorted(times)[len(times) // 2] * 1e6
+
+
+def hash_times(fam, xs, epilogue: str, reps: int = 20) -> tuple:
+    """One K3 / K4 launch of ``fam`` on the batch ``xs`` (its stacked
+    operands; ``epilogue`` one of the kernel's) -> ((kernel ms, plain ms,
+    bound ms, bound_by), library ms: one fp32 ``torch.einsum`` over the same
+    operands (``library_raw``), max |kernel - plain| raw). The bound reads
+    each item's and each projection's row at its true ranks once, the
+    offsets and multipliers once and writes the output once; it does
+    ``inner_flops`` per (item, hash)."""
+    import torch
+    layout = xs.layout
+    f = hash_fns(layout)
+    x, p = fam.stack(xs), fam.stacked_projection
+    scale = xs.scale * fam.projection.scale
+    l, k = fam.num_tables, fam.num_codes
+    offs = (fam.offsets.reshape(l, k) if fam.offsets is not None
+            else torch.zeros((l, k), device=x.device))
+    mults = torch.ones(k, dtype=torch.int64, device=x.device)
+    kw = dict(epilogue=epilogue, w=fam.bucket_width or 1.0, scale=scale)
+    args = (x, p, offs, mults)
+    items = x.shape[0]
+    proj = fam.projection.input_format(fam.projection.leaves, 1.0)
+    out = items * l * (1 if epilogue.endswith("keys") else k)
+    nbytes = 4 * (items * xs.row_floats + l * k * proj.row_floats
+                  + 2 * l * k + k + out)
+    flops = items * l * k * inner_flops(xs, proj)
+    t = (cuda_ms([lambda: f["kernel"](*args, **kw)], reps),
+         cuda_ms([lambda: f["plain"](*args, **kw)], 3),
+         *bound_ms(nbytes, flops))
+    lib = cuda_ms([lambda: library_raw(layout, x, p)], reps)
+    err = float((f["kernel"](x, p, epilogue="raw", scale=scale)
+                 - f["plain"](x, p, epilogue="raw", scale=scale))
+                .abs().max())
+    return t, lib, err
+
+
+def codes_vs_plain(fam, xs, codes) -> tuple[int, int]:
+    """The card's (B, L, K) ``codes`` of ``xs`` against the same family's
+    plain path on the CPU (K3's / K4's plain versions for CP under CP and
+    TT under TT, the same torch products for the other pairs) -> (codes
+    that differ, boundary codes); fails if a code differs away from a
+    bucket edge (E2LSH) or 0 (SRP), as ``parity.boundary_codes`` bounds
+    them (``parity.family_raw_bound``)."""
+    from repro_torch.kernels import parity
+    fam_c, xs_c = fam.to("cpu"), xs.to("cpu")
+    want = fam_c.hash_batch(xs_c)
+    raw = fam_c.raw_stacked(fam_c.stack(xs_c), xs_c.scale)
+    b, l, k = want.shape
+    bound = parity.family_raw_bound(fam_c, xs_c)
+    offs = fam_c.offsets.reshape(l, k) if fam_c.offsets is not None else None
+    near = parity.boundary_codes(raw.reshape(b, l, k),
+                                 bound.reshape(b, l, k), fam.kind, offs,
+                                 fam.bucket_width)
+    differ = codes.cpu() != want
+    if bool((differ & ~near).any()):
+        fail(f"{fam.kind} on {xs.layout} inputs: "
+             f"{int((differ & ~near).sum())} codes differ from the plain "
+             "version's away from a bucket edge")
+    return int(differ.sum()), int(near.sum())
+
+
+def table_storage(kind: str, n: int, d: int, k: int, r: int) -> int:
+    """Tables 1-2's closed forms of projection storage: K N d R for CP,
+    K (2 d R + (N - 2) d R^2) for TT, K d^N for the naive kinds."""
+    if kind.startswith("cp-"):
+        return k * n * d * r
+    if kind.startswith("tt-"):
+        return k * (2 * d * r + (n - 2) * d * r * r)
+    return k * d ** n
+
+
+def phase_tables(smi: str) -> list:
+    """[tables]: Tables 1 and 2 on the card. Counters zeroed just before
+    the rows and read just after: K3 and K4 launched, no plain version.
+    Each row: projection storage (equal to its closed form), hash(x)'s time
+    per call (``host_us``) and hash_batch's device time per item (CUDA
+    events); hash(x) equal to row 0 of hash_batch; afterwards the codes
+    against the plain version, boundary-aware -> K3's and K4's records at
+    N = 4."""
+    import torch
+    from repro_torch.core import tensor_formats
+    from repro_torch.core.lsh import make_family
+    c = TABLES
+    d, k, r, bsz = c["d"], c["codes"], c["rank"], c["batch"]
+    gen = torch.Generator(device="cuda").manual_seed(31)
+    print(f"[tables] on {smi}")
+    rows, kernel_rows = [], {}
+    torch.cuda.synchronize()
+    zero_counts()
+    for table, base in (("table1", "e2lsh"), ("table2", "srp")):
+        for n in c["n_sweep"]:
+            dims = (d,) * n
+            xs_cp = tensor_formats.cp_random_data(gen, dims, c["rhat"],
+                                                  batch=bsz)
+            xs_tt = tensor_formats.tt_random_data(gen, dims, c["rhat"],
+                                                  batch=bsz)
+            for label, kind, xs in (
+                    (f"{base}-naive", base, xs_cp),
+                    (f"cp-{base}", f"cp-{base}", xs_cp),
+                    (f"tt-{base}", f"tt-{base}", xs_cp),
+                    (f"cp-{base}-ttinput", f"cp-{base}", xs_tt),
+                    (f"tt-{base}-ttinput", f"tt-{base}", xs_tt)):
+                fam = make_family(gen, kind, dims, num_codes=k,
+                                  num_tables=1, rank=r, bucket_width=c["w"],
+                                  device="cuda")
+                x = xs.index(0)
+                one = fam.hash(x)
+                batch = fam.hash_batch(xs)
+                if not torch.equal(one, batch[0]):
+                    fail(f"[tables] {table} {label} N={n}: hash(x) differs "
+                         "from row 0 of hash_batch")
+                us = host_us(lambda: fam.hash(x))
+                item_us = cuda_ms([lambda: fam.hash_batch(xs)], 10) * 1e3 \
+                    / bsz
+                storage = fam.storage_size()
+                closed = table_storage(kind, n, d, k, r)
+                if storage != closed:
+                    fail(f"[tables] {table} {label} N={n}: storage "
+                         f"{storage} scalars, closed form {closed}")
+                rows.append(dict(table=table, label=label, n=n, fam=fam,
+                                 xs=xs, codes=batch, storage=storage,
+                                 us=us, item_us=item_us))
+                if n == max(c["n_sweep"]) and fam.uses_kernel(xs.layout) \
+                        and base == "e2lsh":
+                    kernel_rows[xs.layout] = (fam, xs)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    print(f"[tables] launches: {counts}")
+    check_counts(counts, "tables", ("cp_gram", "tt_inner"))
+    storage = {}
+    for row in rows:
+        n_diff, n_near = codes_vs_plain(row["fam"], row["xs"], row["codes"])
+        storage[row["table"], row["label"], row["n"]] = row["storage"]
+        print(f"[tables] {row['table']} {row['label']}/N{row['n']}d{d}: "
+              f"storage {row['storage']} scalars (= the closed form); "
+              f"hash(x) {row['us']:.1f} us a call (host clock, median of 10 "
+              f"after 2 warm-ups); hash_batch of {bsz}: "
+              f"{row['item_us']:.4f} us an item on the device; hash(x) = "
+              f"row 0; {n_diff} of {row['codes'].numel()} codes differ from "
+              f"the plain version's, {n_near} boundary codes")
+    for table, base in (("table1", "e2lsh"), ("table2", "srp")):
+        n = max(c["n_sweep"])
+        cp, tt, naive = (storage[table, f"{p}{base}{s}", n]
+                         for p, s in (("cp-", ""), ("tt-", ""),
+                                      ("", "-naive")))
+        if not cp < tt < naive:
+            fail(f"[tables] {table} at N={n}: storage not CP {cp} < TT {tt} "
+                 f"< naive {naive}")
+        ratio = {m: storage[table, base + "-naive", m]
+                 / storage[table, "cp-" + base, m] for m in c["n_sweep"]}
+        ratios = ", ".join(f"N={m}: {r:.1f}x" for m, r in ratio.items())
+        print(f"[tables] {table}: naive / CP storage {ratios}; at N={n} CP "
+              f"{cp} < TT {tt} < naive {naive}")
+    records = []
+    for layout, (fam, xs) in sorted(kernel_rows.items()):
+        t, lib, err = hash_times(fam, xs, "e2lsh")
+        key, source, replaces = HASH_RECORDS[layout]
+        print(f"[time] {hash_fns(layout)['name']} e2lsh codes, [tables] N="
+              f"{max(c['n_sweep'])} d={d}, {bsz} items x {k} hashes: "
+              f"{t[0]:.4f} ms (plain {t[1]:.4f} ms; one fp32 torch.einsum "
+              f"{lib:.4f} ms); bound {t[2]:.5f} ms by {t[3]}")
+        records.append(dict(record(f"{key}[tables]", source, replaces,
+                                   counts, key, err, t), library_ms=lib))
+    return records
+
+
+def cp_concat(a, b, b_scale: float):
+    """The CP tensor a + b_scale * b, exactly: a's and b's rank-1 terms side
+    by side (rank R_a + R_b, scale 1; the scales folded into the first
+    factor)."""
+    import torch
+    from repro_torch.core.tensor_formats import CPTensor
+    first = torch.cat((a.factors[0] * a.scale,
+                       b.factors[0] * (b.scale * b_scale)), -1)
+    return CPTensor((first,) + tuple(
+        torch.cat((fa, fb), -1)
+        for fa, fb in zip(a.factors[1:], b.factors[1:])), 1.0)
+
+
+def collision_pairs(x, noise, xc, nc):
+    """Per E2LSH distance r and SRP mix, the pair (x, y) in each input
+    format: dense (y = x + noise r / ||noise|| and y = x + mix noise, as
+    benchmarks/collision.py), CP of rank 2 x 16 (the same construction on
+    the CP pair (xc, nc), the noise scaled to ||xc|| for the SRP mixes) and
+    the dense pairs in TT form -> {format: {"e2lsh" | "srp": [(r or cos,
+    x, y)]}}."""
+    import torch
+    from repro_torch.core.tensor_formats import dense_to_tt
+    c = COLLISION
+    n_norm = float(noise.norm())
+    xn = float(xc.self_inners().sqrt())
+    nn = float(nc.self_inners().sqrt())
+    x32 = cp_concat(xc, nc, 0.0)
+    xc64 = xc.with_leaves(f.double() for f in xc.factors)
+
+    def cosine(y):                       # <xc, y> / (|xc| |y|) in float64
+        y64 = y.with_leaves(f.double() for f in y.factors)
+        return float(xc64.pair_inners(y64)
+                     / (xn * y64.self_inners().sqrt()))
+
+    def tt(t):
+        return dense_to_tt(t, c["tt_rank"])
+
+    dense = {"e2lsh": [(r, x, x + noise * (r / n_norm)) for r in c["rs"]],
+             "srp": []}
+    for mix in c["mixes"]:
+        y = x + mix * noise
+        dense["srp"].append((float((x * y).sum() / (x.norm() * y.norm())),
+                             x, y))
+    cp = {"e2lsh": [(r, x32, cp_concat(xc, nc, r / nn)) for r in c["rs"]],
+          "srp": []}
+    for mix in c["mixes"]:
+        y = cp_concat(xc, nc, mix * xn / nn)
+        cp["srp"].append((cosine(y), x32, y))
+    tx = tt(x)
+    tts = {h: [(v, tx, tt(y)) for v, _, y in pairs]
+           for h, pairs in dense.items()}
+    torch.cuda.synchronize()
+    return {"dense": dense, "cp": cp, "tt": tts}
+
+
+def phase_collision(smi: str) -> list:
+    """[collision]: benchmarks/collision.py on the card, every kind on the
+    dense pairs, and the CP kinds on CP pairs (K3) and the TT kinds on TT
+    pairs (K4), counters zeroed just before and read just after: K3 and K4
+    launched, no plain version. Each (kind, input format): the empirical
+    collision rate over M codes at every distance or mix against
+    ``theory``, failing at |emp - p| >= 5 sqrt(p (1 - p) / M) + 0.015 (the
+    reference's test), the largest deviation and hash(x)'s time per call
+    -> K3's and K4's records at these shapes."""
+    import torch
+    from repro_torch.core import tensor_formats, theory
+    from repro_torch.core.lsh import make_family
+    c = COLLISION
+    dims, m, w = c["dims"], c["m"], c["w"]
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    x = torch.randn(dims, generator=gen, device="cuda")
+    noise = torch.randn(dims, generator=gen, device="cuda")
+    xc = tensor_formats.cp_random_data(gen, dims, c["cp_rank"])
+    nc = tensor_formats.cp_random_data(gen, dims, c["cp_rank"])
+    pairs = collision_pairs(x, noise, xc, nc)
+    print(f"[collision] on {smi}: dims {dims}, M={m} codes in one table, "
+          f"rank {c['rank']}, w={w}")
+    torch.cuda.synchronize()
+    zero_counts()
+    results, kernel_rows = [], {}
+    for kind in ("cp-e2lsh", "tt-e2lsh", "e2lsh", "cp-srp", "tt-srp",
+                 "srp"):
+        e2 = kind.endswith("e2lsh")
+        fam = make_family(gen, kind, dims, num_codes=m, num_tables=1,
+                          rank=c["rank"], bucket_width=w, device="cuda")
+        formats = ["dense"] + ([kind[:2]] if kind[:2] in ("cp", "tt")
+                               else [])
+        for fmt in formats:
+            rows = pairs[fmt]["e2lsh" if e2 else "srp"]
+            x0 = rows[0][1]
+            cx = fam.hash(x0).reshape(-1)
+            worst = 0.0
+            for v, _, y in rows:
+                emp = float((cx == fam.hash(y).reshape(-1)).float().mean())
+                p = float(theory.e2lsh_collision_prob(v, w) if e2
+                          else theory.srp_collision_prob(v))
+                limit = 5.0 * math.sqrt(max(p * (1.0 - p), 1e-4) / m) + 0.015
+                if abs(emp - p) >= limit:
+                    fail(f"[collision] {kind} on {fmt} inputs at "
+                         f"{'r' if e2 else 'cos'}={v:.4f}: empirical "
+                         f"{emp:.4f} against p {p:.4f}, beyond {limit:.4f}")
+                worst = max(worst, abs(emp - p))
+            us = host_us(lambda: fam.hash(x0))
+            results.append((kind, fmt, worst, us))
+            if fmt != "dense":
+                kernel_rows[fmt] = (fam, tensor_formats.batch_of_one(x0))
+    torch.cuda.synchronize()
+    counts = read_counts()
+    print(f"[collision] launches: {counts}")
+    check_counts(counts, "collision", ("cp_gram", "tt_inner"))
+    for kind, fmt, worst, us in results:
+        print(f"[collision] collision/{kind} on {fmt} inputs: max |empirical "
+              f"- theory| {worst:.4f} over "
+              f"{len(c['rs']) if kind.endswith('e2lsh') else len(c['mixes'])} "
+              f"{'distances' if kind.endswith('e2lsh') else 'mixes'}; "
+              f"hash(x) {us:.1f} us a call")
+    records = []
+    for layout, (fam, xs) in sorted(kernel_rows.items()):
+        t, lib, err = hash_times(fam, xs, "srp" if fam.kind.endswith("srp")
+                                 else "e2lsh")
+        key, source, replaces = HASH_RECORDS[layout]
+        print(f"[time] {hash_fns(layout)['name']} {fam.kind} codes, "
+              f"[collision] one item of rank {xs.rank} x {m} hashes: "
+              f"{t[0]:.4f} ms (plain {t[1]:.4f} ms; one fp32 torch.einsum "
+              f"{lib:.4f} ms); bound {t[2]:.5f} ms by {t[3]}")
+        records.append(dict(record(f"{key}[collision]", source, replaces,
+                                   counts, key, err, t), library_ms=lib))
+    return records
+
+
+def same_rows(tag, got, want, tol=None) -> int:
+    """(ids, scores) of one query against a batch row: bit-equal, else ids
+    equal except at near ties and scores within ``tol`` -> 1 if bit-equal,
+    else 0; fails otherwise."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import parity
+    (gi, gs), (wi, ws) = got, want
+    if gi.shape == wi.shape and np.array_equal(gi, wi) and \
+            np.array_equal(gs, ws):
+        return 1
+    if tol is None or gi.shape != wi.shape or parity.topk_mismatches(
+            *(torch.from_numpy(np.asarray(a)[None])
+              for a in (gi, gs, wi, ws)),
+            torch.from_numpy(np.full((1, len(wi)), tol, np.float32))):
+        fail(f"[host] {tag}: {gi} {gs} against the batch row {wi} {ws}")
+    return 0
+
+
+def phase_host(cell, corpus) -> list:
+    """[host]: ``build_service(device=False)`` (``HostLSHIndex``: the
+    dict-of-buckets build, K3 hashing it, queries through K1) at [main]'s
+    configuration over the first 2^18 items of [main]'s corpus, counters
+    zeroed just before and read just after: recall@1 of 64 batches of
+    1,024 noisy queries; then for 256 queries at T = 1 and T = 4 the dicts'
+    candidates against a device index's ``candidates_batch`` over the same
+    items and K1's n_candidates, ``query`` against ``query_batch`` and
+    ``brute_force`` against ``brute_force_batch``; K1 against its plain
+    version and timed -> K1's record."""
+    import numpy as np
+    import torch
+    from repro_torch.core.index import (DeviceLSHIndex, brute_force,
+                                        brute_force_batch)
+    from repro_torch.serving.lsh_service import build_service
+    c = HOST
+    n = min(1 << c["log2_corpus"], corpus.leaves[0].shape[0])
+    sub = corpus.index(slice(0, n))
+    gen = torch.Generator(device="cuda").manual_seed(c["seed"])
+    perm = torch.randperm(n, generator=gen, device="cuda")
+    bsz = min(1024, n // c["batches"])
+    qids = [perm[i * bsz:(i + 1) * bsz] for i in range(c["batches"])]
+    queries = [make_queries(sub, q, gen) for q in qids]
+    torch.cuda.synchronize()
+    zero_counts()
+    svc = build_service(torch.Generator(device="cuda").manual_seed(1),
+                        cell["kind"], cell["dims"], sub,
+                        num_codes=cell["codes"], num_tables=cell["tables"],
+                        rank=cell["rank"], bucket_width=cell["width"],
+                        device=False)
+    build_launches = read_counts()["cp_gram"]
+    results, lat_ms = serve(svc, queries)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    host = svc.index
+    print(f"[host] build_service(device=False) over n={n} (the first "
+          f"2^{c['log2_corpus']} items of [main]'s corpus), {cell['kind']} "
+          f"K={cell['codes']} L={cell['tables']}: {type(host).__name__} on "
+          f"{host.device}; build {svc.stats.build_s:.3f} s (hash "
+          f"{host.hash_s:.3f} s, host dicts {host.dict_s:.3f} s, segment "
+          f"sort {host.sort_s:.3f} s), {sum(len(t) for t in host._tables)} "
+          f"buckets in {len(host._tables)} dicts")
+    print(f"[host] launches on the host-mode path: {counts} (build: cp_gram "
+          f"{build_launches})")
+    check_counts(counts, "host", ("cp_gram", "fused_query"))
+    summary = latency_line("host", svc, lat_ms)
+    hits1, n_q = check_results(results, [q.cpu().numpy() for q in qids], n)
+    print(f"[host] recall@1 (planted) {hits1 / n_q:.4f} over {n_q} queries")
+    if hits1 / n_q < RECALL1_MIN:
+        fail(f"host: recall@1 {hits1 / n_q} below {RECALL1_MIN}")
+    dev = DeviceLSHIndex(host.family, metric=host.metric).build(sub)
+    print(f"[host] the device index over the same items: build hash "
+          f"{dev.hash_s:.3f} s, sort {dev.sort_s:.3f} s (the host build's "
+          f"dicts {host.dict_s:.3f} s beside them)")
+    q = queries[0].index(slice(0, c["checks"]))
+    truth_ids, truth_scores = brute_force_batch(host.metric, q, sub, TOPK)
+    bf_equal = 0
+    for i in range(c["checks"]):
+        bf_equal += same_rows(
+            f"brute_force row {i}",
+            brute_force(host.metric, q.index(i), sub, TOPK),
+            (truth_ids[i], truth_scores[i]), tol=1e-5)
+    for t in c["probes"]:
+        cand, valid = dev.candidates_batch(q, probes=t)
+        ids, scores, n_cand = host.query_batch(q, topk=TOPK, probes=t)
+        ids, scores = ids.cpu().numpy(), scores.cpu().numpy()
+        n_cand = n_cand.cpu().numpy()
+        cand, valid = cand.cpu().numpy(), valid.cpu().numpy()
+        sizes, q_equal = [], 0
+        for i in range(c["checks"]):
+            x = q.index(i)
+            got = host.candidates(x, probes=t)
+            want = np.sort(cand[i][valid[i]])
+            if not np.array_equal(got, want):
+                fail(f"[host] T={t} query {i}: the dicts' {got.size} "
+                     f"candidates differ from the device index's "
+                     f"candidates_batch ({want.size})")
+            if got.size != n_cand[i]:
+                fail(f"[host] T={t} query {i}: {got.size} candidates, K1 "
+                     f"counted {n_cand[i]}")
+            qi, qs, qn = host.query(x, topk=TOPK, probes=t)
+            keep = ids[i] >= 0
+            if qn != n_cand[i]:
+                fail(f"[host] T={t} query {i}: query() counted {qn}, "
+                     f"query_batch {n_cand[i]}")
+            q_equal += same_rows(f"T={t} query {i}", (qi, qs),
+                                 (ids[i][keep], scores[i][keep]))
+            sizes.append(got.size)
+        print(f"[host] T={t}: the dicts' candidates equal the device index's "
+              f"candidates_batch and K1's n_candidates for all "
+              f"{c['checks']} queries (mean {np.mean(sizes):.1f}, max "
+              f"{max(sizes)}); query(x) equal to its query_batch row for "
+              f"{q_equal} of {c['checks']}")
+    print(f"[host] brute_force(x) equal to its brute_force_batch row bit for "
+          f"bit for {bf_equal} of {c['checks']} (the others within near "
+          f"ties)")
+    k1_err, k1_args = k1_compare(svc, queries[0], f"host, B={bsz}")
+    k1_t = k1_times(svc, queries, k1_args, "K1 host")
+    del dev
+    return [dict(record("fused_query[host]", *K1_SOURCE, counts,
+                        "fused_query", k1_err, k1_t),
+                 recall1=hits1 / n_q, batch_ms=summary["mean"])]
+
+
 def record(name, source, replaces, counts, key, err, times):
     """One entry of the kernels line (``key`` a counter of read_counts;
     the plain calls are its kernel's)."""
@@ -3000,8 +3491,8 @@ def run_cell(layout: str, log2_corpus: int, args) -> list:
                                  f"{layout.upper()} index, B={args.batch}",
                                  need_scratch=layout == "tt")
     phase_srp(cell)
-    h_t, k1_t, hq_t, hq_err, hq_lib = phase_times(svc, cell, queries,
-                                                  k1_args)
+    h_t, k1_t, hq_t, hq_err, hq_lib, h_lib = phase_times(svc, cell, queries,
+                                                         k1_args)
     phase_profile(svc, queries, "tt-profile" if layout == "tt" else "profile")
     mixed_records, mixed = ([], None) if layout == "tt" else \
         phase_mixed_main(svc, qids, queries)
@@ -3017,7 +3508,7 @@ def run_cell(layout: str, log2_corpus: int, args) -> list:
     key, source, replaces = HASH_RECORDS[layout]
     builds = main["build_launches"]
     records = [dict(record(key + "[build]", source, replaces, counts, key,
-                           h_err, h_t), launches=builds),
+                           h_err, h_t), launches=builds, library_ms=h_lib),
                dict(record(key + "[query]", source, replaces, counts, key,
                            hq_err, hq_t), launches=counts[key] - builds,
                     library_ms=hq_lib),
@@ -3043,6 +3534,8 @@ def run_cell(layout: str, log2_corpus: int, args) -> list:
     records.append(phase_shard_mut(cell, corpus, qids, args))
     torch.cuda.empty_cache()
     records.append(phase_ann_k8(cell, corpus, qids, queries))
+    torch.cuda.empty_cache()
+    records += phase_host(cell, corpus)
     return records
 
 
@@ -3073,6 +3566,10 @@ def main(argv=None) -> int:
     kernels += phase_kernels()
     torch.cuda.empty_cache()
     kernels += phase_limits()
+    torch.cuda.empty_cache()
+    kernels += phase_tables(smi)
+    torch.cuda.empty_cache()
+    kernels += phase_collision(smi)
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))

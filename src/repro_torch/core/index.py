@@ -35,11 +35,20 @@ kernels' plain versions run). ``query_batch(..., mode="uniform" |
 "weighted", rng=gen)`` samples ``topk`` distinct members of each query's
 probed union instead (one K1 / K1s launch in sample mode); ``rng`` is a
 ``torch.Generator`` where the reference takes a PRNG key, and two uint32
-key words drawn from it per call are the draw's only state. The host index
-is queued (ROADMAP.md). The reference's ``swap_chunk_rows`` and
-``probe_backend`` have no counterpart: the shadow store is gathered in one
-pass (the chunked, throttled build waits for the scheduler's second stream)
-and the tensors' device picks kernel or plain path.
+key words drawn from it per call are the draw's only state.
+``candidates_batch`` gives each query's candidate set (K1's keys, the
+windows of K1's plain version), and ``query`` / ``candidates`` the
+single-query forms of both (``_LSHIndexBase``, shared by every index).
+
+``HostLSHIndex`` keeps the reference's dict-of-buckets build as the
+bucket-membership reference: its ``candidates`` looks a query up in host
+dicts, and its queries serve through the same K1 planner over a
+single-segment store; it is rebuild-only. ``brute_force`` /
+``brute_force_batch`` are the exact references. The reference's
+``swap_chunk_rows`` and ``probe_backend`` have no counterpart: the shadow
+store is gathered in one pass (the chunked, throttled build waits for the
+scheduler's second stream) and the tensors' device picks kernel or plain
+path.
 """
 
 from __future__ import annotations
@@ -52,11 +61,11 @@ import numpy as np
 import torch
 
 from repro_torch.core import contractions, segments
-from repro_torch.core.lsh import LSHFamily, make_mults
+from repro_torch.core.lsh import LSHFamily, _combine_codes, make_mults
 from repro_torch.core.probing import QUERY_MODES
 from repro_torch.core.segments import (SegmentStore, bucket_keys,
                                        build_segment, build_sharded_segment)
-from repro_torch.core.tensor_formats import as_batch
+from repro_torch.core.tensor_formats import as_batch, batch_of_one
 from repro_torch.kernels.fused_query import sample_key_words
 from repro_torch.kernels.ops import mults_tensor, unstack_like
 
@@ -104,13 +113,12 @@ class PendingSwap:
     corpus_cache: Any = None
 
 
-class _SegmentedIndex:
-    """The store-backed mutation and introspection API that
-    ``DeviceLSHIndex`` and ``ShardedLSHIndex`` share. Subclasses are
-    dataclasses with the fields ``family``, ``metric``, ``seed``,
-    ``bucket_cap``, ``max_deltas``, ``store`` and the counters, and
-    implement ``_new_store``, ``_delta``, ``_build_compact_store`` and
-    ``_query``."""
+class _LSHIndexBase:
+    """The query API every index deployment shares (the reference's
+    mixin): subclasses provide ``query_batch`` and ``candidates_batch``
+    (the host index its own ``candidates``) and the ``family`` / ``metric``
+    fields; the single-query wrappers below are the one implementation of
+    the ``(ids, scores, n_candidates)`` numpy contract."""
 
     def __post_init__(self):
         _check_metric(self.metric)
@@ -120,6 +128,42 @@ class _SegmentedIndex:
     @property
     def device(self) -> torch.device:
         return self.family.device
+
+    def candidates(self, x, probes: int = 1) -> np.ndarray:
+        """The distinct live members of one query's probed buckets over
+        every table and segment, sorted (int64 effective ids); ``probes`` =
+        T > 1 widens each table to its T ranked buckets."""
+        cand, valid = self.candidates_batch(batch_of_one(x), probes=probes)
+        cand = cand[0][valid[0]].cpu().numpy()
+        return np.sort(cand).astype(np.int64)
+
+    def query(self, x, topk: int = 10, *, probes: int = 1,
+              mode: str = "topk", rng=None
+              ) -> tuple[np.ndarray, np.ndarray, int]:
+        """-> (ids, scores, n_candidates) of one query as numpy: the exact
+        re-rank of its candidates (distances ascending for 'euclidean',
+        similarities descending for 'cosine'), trimmed of the -1 fill.
+        ``probes`` / ``mode`` / ``rng`` follow ``query_batch``."""
+        ids, scores, n_cand = self.query_batch(batch_of_one(x), topk,
+                                               probes=probes, mode=mode,
+                                               rng=rng)
+        ids, scores = ids[0].cpu().numpy(), scores[0].cpu().numpy()
+        mask = ids >= 0
+        return (ids[mask].astype(np.int64), scores[mask],
+                int(n_cand[0].item()))
+
+    def effective_corpus(self):
+        """The corpus the returned ids index into (rebuild-only paths)."""
+        return self.corpus
+
+
+class _SegmentedIndex(_LSHIndexBase):
+    """The store-backed mutation and introspection API that
+    ``DeviceLSHIndex`` and ``ShardedLSHIndex`` share. Subclasses are
+    dataclasses with the fields ``family``, ``metric``, ``seed``,
+    ``bucket_cap``, ``max_deltas``, ``store`` and the counters, and
+    implement ``_new_store``, ``_delta``, ``_build_compact_store``,
+    ``_query`` and ``_candidates``."""
 
     @property
     def size(self) -> int:
@@ -266,6 +310,16 @@ class _SegmentedIndex:
 
     # -- query --------------------------------------------------------------
 
+    def candidates_batch(self, queries, *, probes: int = 1
+                         ) -> tuple[torch.Tensor, torch.Tensor]:
+        """-> (cand (B, W) effective ids with -1 fill, valid (B, W) bool)
+        on the index's device: every distinct live member of each query's
+        probed buckets over every segment (every (shard, segment) pair),
+        probed with the keys K1 probes, so each row's valid count equals
+        ``query_batch``'s ``n_candidates``."""
+        queries = as_batch(queries, len(self.family.projection.dims))
+        return self._candidates(self.store.view, queries, int(probes))
+
     def query_batch(self, queries, topk: int = 10, *,
                     probes: int = 1, mode: str = "topk", rng=None):
         """-> (ids (B, topk) int32 effective ids with -1 fill, scores
@@ -319,15 +373,13 @@ class DeviceLSHIndex(_SegmentedIndex):
         return self._new_store(keys, corpus, warn=False)
 
     def _query(self, view, queries, topk, probes, mode, key):
-        if mode != "topk":
-            return segments.segmented_sample(
-                self.family, view.all_arrays, self._mults_t, queries, key,
-                metric=self.metric, topk=topk, caps=view.all_caps,
-                probes=probes, mode=mode, table=view.k1_table)
-        return segments.segmented_query(
+        return _segmented_query(self, view, queries, topk, probes, mode,
+                                key)
+
+    def _candidates(self, view, queries, probes):
+        return segments.segmented_candidates(
             self.family, view.all_arrays, self._mults_t, queries,
-            metric=self.metric, topk=topk, caps=view.all_caps,
-            probes=probes, table=view.k1_table)
+            caps=view.all_caps, probes=probes)
 
 
 @dataclasses.dataclass
@@ -505,6 +557,125 @@ class ShardedLSHIndex(_SegmentedIndex):
             return segments.sharded_sample(*args, key, mode=mode, **kw)
         return segments.sharded_query(*args, **kw)
 
+    def _candidates(self, view, queries, probes):
+        return segments.sharded_candidates(
+            self.family, view.seg_arrays(0), view.delta_arrays,
+            self._mults_t, queries, cap=view.base.cap,
+            delta_caps=view.delta_caps, probes=probes)
+
+
+def _segmented_query(index, view, queries, topk, probes, mode, key):
+    """A single-segment-list store's query (the device and host indexes):
+    one K1 launch over every segment, or its sampling twin."""
+    if mode != "topk":
+        return segments.segmented_sample(
+            index.family, view.all_arrays, index._mults_t, queries, key,
+            metric=index.metric, topk=topk, caps=view.all_caps,
+            probes=probes, mode=mode, table=view.k1_table)
+    return segments.segmented_query(
+        index.family, view.all_arrays, index._mults_t, queries,
+        metric=index.metric, topk=topk, caps=view.all_caps, probes=probes,
+        table=view.k1_table)
+
+
+# ---------------------------------------------------------------------------
+# Host index (the dict-of-buckets build, kept as the membership reference)
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class HostLSHIndex(_LSHIndexBase):
+    """Dict-of-buckets build: the bucket-membership reference.
+
+    ``build`` hashes the corpus through ``segments.bucket_keys`` (K3 / K4
+    on the card), copies the keys to the host and fills one dict a table,
+    bucket key -> the span of its members' ascending ids in the table's
+    stable numpy sort of the keys (the reference appends item by item to a
+    list a bucket: the same membership). ``candidates()`` looks one query
+    up in the dicts; ``query`` / ``query_batch`` serve through the same
+    planner as the device index (K1, or its sampling twin) over a
+    single-segment store on the family's device. Rebuild-only: the
+    streaming mutations live on the device and sharded indexes."""
+
+    family: LSHFamily
+    metric: str = "euclidean"  # or "cosine"
+    seed: int = 0
+
+    corpus: Any = None
+    size: int = 0
+    store: SegmentStore | None = None
+    hash_s: float = 0.0        # build time in the hash, synchronized
+    sort_s: float = 0.0        # build time in the segment's table sort
+    dict_s: float = 0.0        # build time filling the host dicts
+    _tables: list | None = None    # per table: bucket key -> (lo, hi)
+    _members: list | None = None   # per table: ids in key order
+
+    def build(self, corpus, batch_size: int = 65536) -> "HostLSHIndex":
+        corpus = as_batch(corpus, len(self.family.projection.dims))
+        if corpus.device != self.device:
+            raise ValueError(f"items on {corpus.device}, family on "
+                             f"{self.device}")
+        self.family.check_inputs(corpus)
+        self.corpus = corpus
+        self.size = corpus.leaves[0].shape[0]
+        _sync(self.device)
+        t0 = time.perf_counter()
+        keys = bucket_keys(self.family, self._mults_t, corpus, batch_size)
+        all_keys = keys.cpu().numpy()
+        t1 = time.perf_counter()
+        self._tables, self._members = [], []
+        for col in all_keys.T:
+            order = np.argsort(col, kind="stable")
+            sk = col[order]
+            starts = np.flatnonzero(np.r_[True, sk[1:] != sk[:-1]])
+            ends = np.r_[starts[1:], sk.size]
+            self._tables.append(dict(zip(sk[starts].tolist(),
+                                         zip(starts.tolist(),
+                                             ends.tolist()))))
+            self._members.append(order)
+        t2 = time.perf_counter()
+        self.store = SegmentStore(build_segment(
+            keys, corpus, warn_layout=type(self).__name__))
+        _sync(self.device)
+        self.hash_s, self.dict_s = t1 - t0, t2 - t1
+        self.sort_s = time.perf_counter() - t2
+        return self
+
+    def candidates(self, x, probes: int = 1) -> np.ndarray:
+        """The union of one query's bucket members over the L tables, from
+        the host dicts (sorted int64 ids). T = 1 looks up the key of
+        ``family.hash(x)``; ``probes`` = T > 1 each table's T ranked keys,
+        made from the hash path's raw values as K1 makes them
+        (``segments.k1_probe_keys``), so that dict membership and K1's
+        windows are held on the same keys."""
+        t = int(probes)
+        if t == 1:
+            codes = self.family.hash(x)
+            keys = _combine_codes(codes, self._mults_t)[:, None]  # (L, 1)
+        else:
+            keys = segments.k1_probe_keys(self.family, self._mults_t,
+                                          batch_of_one(x), t)[:, :, 0]
+        parts = []
+        for table, members, row in zip(self._tables, self._members,
+                                       keys.cpu().numpy().tolist()):
+            for key in row:
+                span = table.get(key)
+                if span is not None:
+                    parts.append(members[span[0]:span[1]])
+        if not parts:
+            return np.zeros(0, np.int64)
+        return np.unique(np.concatenate(parts)).astype(np.int64)
+
+    def query_batch(self, queries, topk: int = 10, *, probes: int = 1,
+                    mode: str = "topk", rng=None):
+        """The device index's ``query_batch`` contract, over the host
+        index's single-segment store."""
+        _check_mode(mode, rng)
+        queries = as_batch(queries, len(self.family.projection.dims))
+        key = None if mode == "topk" else sample_key_words(rng)
+        return _segmented_query(self, self.store.view, queries, topk,
+                                int(probes), mode, key)
+
 
 # ---------------------------------------------------------------------------
 # References / evaluation
@@ -568,6 +739,13 @@ def brute_force_batch(metric: str, queries, corpus, topk: int = 10):
                           dim=1, stable=True)[:, :topk]
     return (order.cpu().numpy(),
             torch.gather(scores, 1, order).cpu().numpy())
+
+
+def brute_force(metric: str, x, corpus, topk: int = 10):
+    """Exact top-k of one query over the whole corpus -> (ids (topk,)
+    int64, scores (topk,)) numpy: row 0 of ``brute_force_batch``."""
+    ids, scores = brute_force_batch(metric, batch_of_one(x), corpus, topk)
+    return ids[0], scores[0]
 
 
 def recall_at_k(index, queries, topk: int = 10,

@@ -11,7 +11,9 @@ baselines, in PyTorch.
 A family carries K x L hash functions (K codes per table, L tables).
 Hashing is batch-native: ``hash_batch`` maps a (B, ...) batch to (B, L, K)
 int32 codes, ``hash_keys`` to (B, L) bucket keys and, for the SRP kinds,
-``hash_packed_batch`` to (B, L, ceil(K/32)) packed signatures. Two routes:
+``hash_packed_batch`` to (B, L, ceil(K/32)) packed signatures; ``hash`` and
+``hash_packed`` are their batch-of-one cases for a single tensor. Two
+routes:
 
   * CP inputs under a CP family, TT under TT: ``ops.fused_hash``, the K3
     (CP) or K4 (TT) kernel when the inputs lie on the card, its plain
@@ -42,6 +44,7 @@ import torch
 from repro_torch.core import projections as proj_lib
 from repro_torch.core.projections import (CPProjection, DenseProjection,
                                           TTProjection)
+from repro_torch.core.tensor_formats import batch_of_one
 from repro_torch.device import resolve_device
 # pack_bits: {0, 1} codes along the last axis -> uint32 words (the
 # reference's ``lsh.pack_bits``)
@@ -109,6 +112,13 @@ class LSHFamily:
         projections (``check_inputs`` says which inputs it hashes)."""
         return self.projection.input_format
 
+    def to(self, device) -> "LSHFamily":
+        """The same family with its parameters on ``device``."""
+        p = self.projection
+        return dataclasses.replace(
+            self, projection=p.with_leaves(t.to(device) for t in p.leaves),
+            offsets=None if self.offsets is None else self.offsets.to(device))
+
     def uses_kernel(self, layout: str) -> bool:
         """Whether inputs of ``layout`` hash through K3 / K4 (CP on CP, TT
         on TT) rather than ``ops.dense_hash``."""
@@ -175,6 +185,11 @@ class LSHFamily:
         return self._fused(xf, scale, "raw").reshape(
             -1, self.num_tables * self.num_codes)
 
+    def raw_projections(self, x) -> torch.Tensor:
+        """(L*K,) raw <P_k, X> values of one tensor, through
+        ``projections.project`` (the plain projection path)."""
+        return proj_lib.project(self.projection, x)
+
     def hash_batch_aux(self, xs) -> tuple[torch.Tensor, torch.Tensor]:
         """(codes (B, L, K) int32, aux (B, L, K) float32): ``aux`` is the
         floor residual (v + b)/w - floor((v + b)/w) for E2LSH and the raw
@@ -211,6 +226,16 @@ class LSHFamily:
         if self.kind not in SRP_KINDS:
             raise ValueError("hash_packed is defined for SRP kinds only")
         return self._fused(self.stack(xs), xs.scale, "packed")
+
+    def hash(self, x) -> torch.Tensor:
+        """(L, K) int32 codes of one tensor: ``hash_batch`` of the batch of
+        one (K3 for CP under CP, K4 for TT under TT on the card)."""
+        return self.hash_batch(batch_of_one(x))[0]
+
+    def hash_packed(self, x) -> torch.Tensor:
+        """SRP only: (L, ceil(K/32)) packed signatures of one tensor
+        (uint32 values in int64), through ``hash_packed_batch``."""
+        return self.hash_packed_batch(batch_of_one(x))[0]
 
 
 def make_family(gen: torch.Generator, kind: str, dims: Sequence[int],

@@ -50,7 +50,7 @@ import torch
 
 from repro_torch.core.contractions import cp_tt_chain
 from repro_torch.core.tensor_formats import (CPTensor, DenseTensor, TTTensor,
-                                             _tt_core_shapes)
+                                             _tt_core_shapes, batch_of_one)
 
 # Above this many elements of peak intermediate (K * prod d * R, the
 # densified stack with its rank axis) the projections are not materialized
@@ -94,6 +94,10 @@ class CPProjection:
 
     def with_leaves(self, leaves) -> "CPProjection":
         return CPProjection(tuple(leaves), self.scale)
+
+    def single(self, k: int) -> CPTensor:
+        """The k-th projection tensor P_k as a plain ``CPTensor``."""
+        return CPTensor(tuple(f[k] for f in self.factors), scale=self.scale)
 
     def stacked(self, num_tables: int) -> torch.Tensor:
         """The K3 layout (N, L, K, d, R), stacked once per family."""
@@ -145,6 +149,10 @@ class TTProjection:
 
     def with_leaves(self, leaves) -> "TTProjection":
         return TTProjection(tuple(leaves), self.scale)
+
+    def single(self, k: int) -> TTTensor:
+        """The k-th projection tensor T_k as a plain ``TTTensor``."""
+        return TTTensor(tuple(c[k] for c in self.cores), scale=self.scale)
 
     def stacked(self, num_tables: int) -> torch.Tensor:
         """The K4 layout (N, L, K, Rp, d, Rp), stacked once per family."""
@@ -355,3 +363,10 @@ def project_batch(p, xs) -> torch.Tensor:
                           chunk_rows(p, xs), p.num_hashes)
     return xs.index((slice(None), None)).pair_inners(
         p.input_format(p.leaves, p.scale))
+
+
+def project(p, x) -> torch.Tensor:
+    """Apply a projection family to one tensor -> (K,) values: the
+    batch-of-1 case of ``project_batch`` (a dense tensor may come as a
+    plain (d_1, ..., d_N) tensor)."""
+    return project_batch(p, batch_of_one(x))[0]

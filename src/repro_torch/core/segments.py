@@ -105,6 +105,29 @@ def query_keys(family, mults, queries,
     return keys.permute(1, 2, 0)                          # (B,L,T) -> (L,T,B)
 
 
+def k1_probe_keys(family, mults, queries, probes: int = 1) -> torch.Tensor:
+    """The (L, T, B) ranked bucket keys a query batch probes on the query
+    path: the batch stacked and projected through the hash path
+    (``family.raw_stacked``: K3 / K4's ``raw`` epilogue on the card), then
+    discretized, combined and expanded as K1 does in-kernel
+    (``fused_query.probe_keys_from_values``). ``query_keys`` takes its
+    multi-probe residuals from the plain projection path instead, which
+    may differ from these values by rounding at a bucket edge."""
+    from repro_torch.kernels.fused_query import probe_keys_from_values
+    from repro_torch.kernels.ops import mults_tensor
+
+    t = int(probes)
+    if t < 1:
+        raise ValueError(f"probes must be >= 1, got {probes}")
+    family.check_inputs(queries)
+    x, stacked = queries.stack()
+    values = family.raw_stacked(stacked, x.scale)
+    return probe_keys_from_values(
+        values, family.offsets, mults_tensor(mults, values.device),
+        e2=family.kind.endswith("e2lsh"), w=family.bucket_width,
+        num_tables=family.num_tables, num_codes=family.num_codes, probes=t)
+
+
 def _run_lengths(sorted_keys: torch.Tensor,
                  valid: torch.Tensor) -> torch.Tensor:
     """Per position, the length of the run of equal values that ends there
@@ -919,3 +942,46 @@ def sharded_sample(family, base, deltas, mults, queries, key, *,
     return sharded_query(family, base, deltas, mults, queries, metric=metric,
                          topk=topk, cap=cap, delta_caps=delta_caps,
                          probes=probes, table=table, mode=mode, key=key)
+
+
+def segment_candidates(seg, keys, cap) -> tuple[torch.Tensor, torch.Tensor]:
+    """One segment's probe of (L, T, B) ``keys`` -> (cand (B, L*T*cap)
+    effective ids with -1 fill, valid (B, L*T*cap) bool): every distinct
+    live member of the probed windows once (``fused_query.segment_windows``,
+    the window arithmetic of K1's plain version), mapped through the
+    segment's ``eff``."""
+    from repro_torch.kernels.fused_query import segment_windows
+    cand, valid = segment_windows(seg, keys, cap)
+    safe = torch.where(valid, cand, 0).long()
+    return torch.where(valid, seg.eff[safe], -1), valid
+
+
+def _cat_candidates(parts) -> tuple[torch.Tensor, torch.Tensor]:
+    return (torch.cat([c for c, _ in parts], dim=1),
+            torch.cat([v for _, v in parts], dim=1))
+
+
+def segmented_candidates(family, segs, mults, queries, *, caps,
+                         probes: int = 1):
+    """The candidate sets of a query batch over every segment (``segs`` in
+    slot-offset order, ``caps`` their probe widths) -> (cand (B, W)
+    effective ids with -1 fill, valid (B, W) bool), the segments
+    concatenated; tombstones never appear. The keys are K1's own
+    (``k1_probe_keys``), so each row's valid count is the ``n_candidates``
+    that ``segmented_query`` returns. Plain PyTorch on the tensors' device:
+    the reference computes these without a kernel too."""
+    keys = k1_probe_keys(family, mults, queries, probes)
+    return _cat_candidates([segment_candidates(seg, keys, cap)
+                            for seg, cap in zip(segs, caps)])
+
+
+def sharded_candidates(family, base, deltas, mults, queries, *, cap: int,
+                       delta_caps, probes: int = 1):
+    """``segmented_candidates`` over a sharded store: every (shard,
+    segment) pair in K1s's order (``fused_query.shard_segments``), ``base``
+    / ``deltas`` the sharded segments' arrays (leading shard dim)."""
+    from repro_torch.kernels.fused_query import shard_segments
+    keys = k1_probe_keys(family, mults, queries, probes)
+    segs, caps = shard_segments(base, deltas, cap, delta_caps)
+    return _cat_candidates([segment_candidates(seg, keys, c)
+                            for seg, c in zip(segs, caps)])

@@ -70,6 +70,10 @@ class CPTensor:
     def to(self, device) -> "CPTensor":
         return CPTensor(tuple(f.to(device) for f in self.factors), self.scale)
 
+    def storage_size(self) -> int:
+        """Number of stored scalars: O(N d R) (paper Remark 3)."""
+        return sum(f.numel() for f in self.factors)
+
     @property
     def leaves(self) -> tuple[torch.Tensor, ...]:
         return self.factors
@@ -150,6 +154,10 @@ class TTTensor:
 
     def to(self, device) -> "TTTensor":
         return TTTensor(tuple(c.to(device) for c in self.cores), self.scale)
+
+    def storage_size(self) -> int:
+        """Number of stored scalars: O(N d R^2) (paper Remark 5)."""
+        return sum(c.numel() for c in self.cores)
 
     layout = "tt"
 
@@ -276,6 +284,15 @@ def as_batch(x, n_modes: int | None = None):
     return DenseTensor(x, tuple(x.shape[x.dim() - n:]))
 
 
+def batch_of_one(x):
+    """One CP, TT or dense tensor (a plain (d_1, ..., d_N) tensor or a
+    ``DenseTensor``) -> a batch of one: a leading axis of size 1 on every
+    leaf, as the reference's ``tree_index(x, None)``."""
+    if isinstance(x, torch.Tensor):
+        return DenseTensor(x[None], tuple(x.shape))
+    return x.index(None)
+
+
 def _shape(batch: int | None, *shape: int) -> tuple[int, ...]:
     return shape if batch is None else (batch,) + shape
 
@@ -289,6 +306,16 @@ def cp_rademacher(gen: torch.Generator, dims: Sequence[int], rank: int,
         2.0 * torch.randint(0, 2, _shape(batch, d, rank), generator=gen,
                             device=gen.device).float() - 1.0
         for d in dims)
+    return CPTensor(factors, scale=1.0 / math.sqrt(rank))
+
+
+def cp_gaussian(gen: torch.Generator, dims: Sequence[int], rank: int,
+                batch: int | None = None) -> CPTensor:
+    """CP-Gaussian tensor, P ~ CP_N(R) (paper Definition 6): N(0, 1)
+    factor entries, scale 1/sqrt(R). Made on the generator's device."""
+    factors = tuple(torch.randn(_shape(batch, d, rank), generator=gen,
+                                device=gen.device)
+                    for d in dims)
     return CPTensor(factors, scale=1.0 / math.sqrt(rank))
 
 

@@ -483,16 +483,23 @@ def sample_key32(mode: str, h: torch.Tensor,
     return _epi.order_key_bits("cosine", pert)
 
 
+def segment_windows(seg, keys, cap):
+    """One segment's probe of (L, T, B) ``keys`` -> (cand (B, W) sorted
+    local ids, valid (B, W) the first slot of each distinct live id): the
+    raw windows of every (table, probe), ``dedup_windows``' sort and mask
+    (the reference's ``probe_tables``)."""
+    ids, hit = _epi.probe_windows(seg.sorted_keys, seg.perm, keys, cap,
+                                  seg.live, seg.win)
+    return _epi.dedup_windows(ids, hit, seg.sorted_keys.shape[1])
+
+
 def segment_union(seg, keys, cap):
     """One segment's probed union from its raw windows -> (cand (B, W)
     sorted local ids, valid (B, W) the first slot of each distinct live id,
     mult (B, W) int64 its raw hit count over the (table, probe) windows,
-    repeated base keys of the pad regime included): ``dedup_windows``' sort,
+    repeated base keys of the pad regime included): ``segment_windows``,
     then run lengths, as the reference's ``_sample_topk`` takes them."""
-    m = seg.sorted_keys.shape[1]
-    ids, hit = _epi.probe_windows(seg.sorted_keys, seg.perm, keys, cap,
-                                  seg.live, seg.win)
-    cand, valid = _epi.dedup_windows(ids, hit, m)
+    cand, valid = segment_windows(seg, keys, cap)
     run = cand.to(torch.int64).contiguous()
     mult = (torch.searchsorted(run, run, right=True)
             - torch.searchsorted(run, run))
@@ -563,10 +570,7 @@ def _plain(values, offsets, mults, queries, segs, *, kind, w, num_tables,
     n_cand = torch.zeros(values.shape[0], dtype=torch.int32,
                          device=values.device)
     for seg, cap in zip(segs, caps):
-        m = seg.sorted_keys.shape[1]
-        ids, hit = _epi.probe_windows(seg.sorted_keys, seg.perm, keys, cap,
-                                      seg.live, seg.win)
-        cand, valid = _epi.dedup_windows(ids, hit, m)
+        cand, valid = segment_windows(seg, keys, cap)
         safe = torch.where(valid, cand, 0).long()
         scores = _seg.hoisted_scores(metric, queries[0], seg.corpus, safe)
         hi, lo = _epi.pack_candidates(metric, seg.eff[safe], scores, valid)
@@ -924,11 +928,14 @@ def _launch(values, offsets, mults, queries, table, *, kind, w, num_tables,
             if lay == "tt"], default=0) > MAX_TT_RANK:
         raise ValueError(f"K1 takes TT ranks up to {MAX_TT_RANK}; got "
                          f"Rq={rq}, Rc={rc}")
-    row = d if pair.same and table.layout == "dense" else pair.df
+    # only a dense row is held to MAX_DENSE_ROW: a CP x TT pair sizes
+    # nothing by its prod d
+    dense_side = not pair.same and "dense" in (table.layout, pair.q_layout)
+    row = (pair.df if dense_side
+           else d if pair.same and table.layout == "dense" else 0)
     if row > MAX_DENSE_ROW:
         raise ValueError(f"K1 takes dense rows of up to {MAX_DENSE_ROW} "
                          f"floats (MAX_DENSE_ROW); got {row}")
-    dense_side = not pair.same and "dense" in (table.layout, pair.q_layout)
     if dense_side and n > MAX_MODES:
         raise ValueError(f"K1 takes cross-format pairs with a dense side of "
                          f"up to {MAX_MODES} modes (MAX_MODES); got {n}")

@@ -127,6 +127,30 @@ def cross_raw_bound(p, xs) -> torch.Tensor:
     return 2.0 * cross_length(proj, xs) * U * s
 
 
+def family_raw_bound(family, xs) -> torch.Tensor:
+    """(B, L*K) absolute bound on the difference of two fp32 evaluations
+    of ``family``'s raw values on the batch ``xs``, for any pair of
+    formats: ``raw_bound`` / ``tt_raw_bound`` where K3 / K4 hash it, the
+    naive kinds' dense matrix product over the densified rows (``prod d``
+    terms, after a densify of N + R roundings for CP or TT inputs), and
+    ``cross_raw_bound`` for the other pairs."""
+    from repro_torch.core.projections import densify_batch
+    p = family.projection
+    b = xs.leaves[0].shape[0]
+    if family.uses_kernel(xs.layout):
+        bound = raw_bound if xs.layout == "cp" else tt_raw_bound
+        return bound(family.stack(xs), family.stacked_projection,
+                     xs.scale * p.scale).reshape(b, -1)
+    if p.layout == "dense":
+        s = abs(p.scale) * (densify_batch(xs.abs()).double()
+                            @ p.matrix.abs().double().T)
+        length = math.prod(p.dims)
+        if xs.layout != "dense":
+            length += len(p.dims) * (max(p.dims) + xs.rank) + xs.rank + 2
+        return (2.0 * length * U * s).float()
+    return cross_raw_bound(p, xs)
+
+
 def boundary_codes(v: torch.Tensor, bound: torch.Tensor, kind: str,
                    offsets: torch.Tensor | None = None,
                    w: float = 1.0) -> torch.Tensor:

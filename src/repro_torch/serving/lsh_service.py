@@ -1,5 +1,5 @@
 """Batched LSH similarity-search service with streaming mutations
-(reference: ``repro.serving.lsh_service``), device index only.
+(reference: ``repro.serving.lsh_service``).
 
 A corpus of CP or TT tensors, or a plain (n, d_1, ..., d_N) dense tensor, is
 hashed once at build time (K3 for CP under a CP family, K4 for TT under TT,
@@ -26,12 +26,15 @@ the exact top-k, seeded by the request's ``seed`` alone (a
 ``torch.Generator`` made from it per request: the same seed on the same
 store replays the draw); ``ServiceStats`` counts the queries of each mode.
 
-In the reference, ``build_service(device: bool)`` chooses between the device
-index and the host-dict index. Here ``device`` is the torch device the
-service runs on ("cuda" by default; "cpu" runs the kernels' plain
-versions). The host index is queued: it raises ``NotImplementedError``
-naming the ROADMAP.md item that brings it. That is a stated limit of the
-port, not a fallback.
+``build_service(..., device=False)`` / ``LSHService(..., device=False)``
+serve through ``HostLSHIndex`` (the dict-of-buckets build kept as the
+membership reference), as the reference's do: queries run through the same
+K1 planner, mutations are rebuild-only and refused with the reference's
+``TypeError``, and ``shards`` / ``bucket_cap`` are refused. The family and
+the store stay on the card: a sampled family is made on "cuda", a
+carried-over one (``family=``) keeps its own device. Otherwise ``device``
+is the torch device the service runs on ("cuda" by default; "cpu" runs the
+kernels' plain versions).
 """
 
 from __future__ import annotations
@@ -44,15 +47,11 @@ import numpy as np
 import torch
 
 from repro_torch.core.index import (QUERY_MODES, DeviceLSHIndex,
-                                    ShardedLSHIndex)
+                                    HostLSHIndex, ShardedLSHIndex,
+                                    _SegmentedIndex)
 from repro_torch.core.lsh import LSHFamily, make_family
 from repro_torch.core.tensor_formats import as_batch
 from repro_torch.device import resolve_device
-
-
-def _queued(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet: ROADMAP.md §1 item {item}")
 
 
 @dataclasses.dataclass
@@ -132,7 +131,7 @@ class LSHService:
     def __init__(self, family: LSHFamily, metric: str = "euclidean",
                  bucket_cap: int | None = None, shards: int | None = None,
                  max_deltas: int = 8, probes: int = 1,
-                 query_mode: str = "topk"):
+                 query_mode: str = "topk", device: bool = True):
         if int(probes) < 1:
             raise ValueError(f"probes must be >= 1, got {probes}")
         if query_mode not in QUERY_MODES:
@@ -141,13 +140,23 @@ class LSHService:
         self.probes = int(probes)
         self.query_mode = query_mode
         if shards is not None:
+            if not device:
+                raise ValueError(
+                    "shards requires the device index (pass device=True); "
+                    "the host-dict path has no sharded layout")
             self.index = ShardedLSHIndex(family, metric=metric,
                                          shards=shards, bucket_cap=bucket_cap,
                                          max_deltas=max_deltas)
-        else:
+        elif device:
             self.index = DeviceLSHIndex(family, metric=metric,
                                         bucket_cap=bucket_cap,
                                         max_deltas=max_deltas)
+        else:
+            if bucket_cap is not None:
+                raise ValueError(
+                    "bucket_cap applies to the device index only; the host "
+                    "index always probes full buckets (pass device=True)")
+            self.index = HostLSHIndex(family, metric=metric)
         self.stats = ServiceStats()
 
     @property
@@ -233,6 +242,13 @@ class LSHService:
 
     # -- mutations ----------------------------------------------------------
 
+    def _mutable_index(self) -> _SegmentedIndex:
+        if not isinstance(self.index, _SegmentedIndex):
+            raise TypeError(
+                "the host index is rebuild-only; streaming mutations need "
+                "the device or sharded index (device=True)")
+        return self.index
+
     def _track_shards(self) -> None:
         if isinstance(self.index, ShardedLSHIndex):
             self.stats.shard_occupancy = tuple(
@@ -252,7 +268,7 @@ class LSHService:
         sharded index, served immediately). A max_deltas auto-compaction
         triggered here is timed into ``auto_compact_ms``, never
         ``insert_ms``."""
-        index = self.index
+        index = self._mutable_index()
         batch = as_batch(batch, len(index.family.projection.dims))
         n = batch.leaves[0].shape[0]
         auto_s0 = index.auto_compact_s
@@ -270,7 +286,7 @@ class LSHService:
 
     def delete(self, ids) -> int:
         """Tombstone items by their current effective ids; returns count."""
-        n = self.index.delete(ids)
+        n = self._mutable_index().delete(ids)
         self.stats.deleted += n
         self.stats.delete_batches += 1
         self._track_shards()
@@ -280,15 +296,16 @@ class LSHService:
         """Build the compacted replacement store off the query path and
         return the pending swap (None when there is nothing to fold); the
         build wall time lands in ``compact_ms``."""
+        index = self._mutable_index()
         t0 = time.perf_counter()
-        pending = self.index.prepare_compact()
+        pending = index.prepare_compact()
         self.stats.compact_ms += (time.perf_counter() - t0) * 1e3
         return pending
 
     def apply_swap(self, pending) -> "LSHService":
         """Publish a prepared store: one attribute write, no device work.
         Raises RuntimeError if the index mutated since the prepare."""
-        self.index.apply_swap(pending)
+        self._mutable_index().apply_swap(pending)
         self._sync_mutation_stats()
         self._track_shards()
         return self
@@ -302,11 +319,12 @@ class LSHService:
         """Build the re-partitioned replacement store off the query path
         (sharded index only); publish it with ``apply_swap``. The build
         wall time lands in ``rebalance_ms``."""
-        if not isinstance(self.index, ShardedLSHIndex):
+        index = self._mutable_index()
+        if not isinstance(index, ShardedLSHIndex):
             raise TypeError("rebalance applies to the sharded index only "
                             "(pass shards=S)")
         t0 = time.perf_counter()
-        pending = self.index.prepare_rebalance()
+        pending = index.prepare_rebalance()
         self.stats.rebalance_ms += (time.perf_counter() - t0) * 1e3
         return pending
 
@@ -338,13 +356,17 @@ def build_service(key: torch.Generator, kind: str, dims: Sequence[int],
     moved to ``device``. ``shards`` = S serves the sharded index (S shards
     on ``device``). The reference's ``hash_backend`` / ``probe_backend``
     knobs do not exist here: the tensors' device picks kernel or plain path.
+    ``device=False`` serves the host-dict index (``HostLSHIndex``) on the
+    family's device: "cuda" for a sampled family, its own for a carried-over
+    one.
     """
-    if device is False:
+    host = device is False
+    if host:
         if shards is not None:
             raise ValueError(
-                "shards requires the device index; the host-dict path has "
-                "no sharded layout")
-        raise _queued("the host-dict index (device=False)", "7")
+                "shards requires the device index (pass device=True); the "
+                "host-dict path has no sharded layout")
+        device = family.device if family is not None else "cuda"
     dev = resolve_device(device)
     metric = metric or ("cosine" if kind.endswith("srp") else "euclidean")
     if family is None:
@@ -361,5 +383,5 @@ def build_service(key: torch.Generator, kind: str, dims: Sequence[int],
         raise ValueError(f"family on {family.device}, device={dev}")
     return LSHService(family, metric=metric, bucket_cap=bucket_cap,
                       shards=shards, max_deltas=max_deltas, probes=probes,
-                      query_mode=query_mode).build(
+                      query_mode=query_mode, device=not host).build(
                           as_batch(corpus, len(dims)).to(dev))

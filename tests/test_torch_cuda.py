@@ -1791,3 +1791,128 @@ def test_tt_rank_20_is_refused_by_name(gen):
                          cp_random_data(gen, dims, 2, batch=512), **kw)
     with pytest.raises(ValueError, match="K1 takes TT ranks up to 16"):
         csvc.query_arrays(batch)
+
+
+@pytest.mark.parametrize("kind", ["cp-e2lsh", "cp-srp", "tt-e2lsh",
+                                  "tt-srp"])
+def test_single_item_hash_through_the_kernel(gen, kind):
+    """``hash(x)`` of one CP (TT) item is one K3 (K4) launch, its codes
+    equal to the plain version's on the CPU except within
+    ``parity.family_raw_bound`` of a bucket edge or of 0; for the SRP kinds
+    ``hash_packed(x)`` equals the packed codes."""
+    from repro_torch.core.lsh import make_family, pack_bits
+    from repro_torch.kernels.cp_gram import cp_gram as k3
+    from repro_torch.kernels.tt_inner import tt_inner as k4
+    layout, dims = kind[:2], (5, 6, 4)
+    data = cp_random_data if layout == "cp" else tt_random_data
+    fam = make_family(gen, kind, dims, num_codes=12, num_tables=3, rank=3,
+                      bucket_width=1.0)
+    xs = data(gen, dims, 3, batch=9)
+    kernel = k3 if layout == "cp" else k4
+    for i in range(xs.leaves[0].shape[0]):
+        x = xs.index(i)
+        before = kernel.launches
+        codes = fam.hash(x)
+        assert kernel.launches == before + 1 and codes.shape == (3, 12)
+        fam_c, one = fam.to("cpu"), as_batch(x.to("cpu")).index(None)
+        want = fam_c.hash(x.to("cpu"))
+        raw = fam_c.raw_projections(x.to("cpu")).reshape(1, 3, 12)
+        near = parity.boundary_codes(
+            raw, parity.family_raw_bound(fam_c, one).reshape(1, 3, 12),
+            kind, None if fam_c.offsets is None
+            else fam_c.offsets.reshape(3, 12), 1.0)[0]
+        assert bool(((codes.cpu() == want) | near).all())
+        if kind.endswith("srp"):
+            assert torch.equal(fam.hash_packed(x), pack_bits(codes))
+
+
+def _index_pair(gen, layout, shards, host=False):
+    """An index over integer-valued items on the card and its twin over the
+    same items and family on the CPU (raw values exact, so keys agree bit
+    for bit): the device or sharded one after an insert and deletes, or
+    the host index."""
+    from repro_torch.core.index import (DeviceLSHIndex, HostLSHIndex,
+                                        ShardedLSHIndex)
+    from repro_torch.core.lsh import make_family
+    dims, n = ((5, 5, 5) if layout == "cp" else (4, 5, 4)), 3001
+    fam = make_family(gen, f"{layout}-e2lsh", dims, num_codes=5,
+                      num_tables=4, rank=2, bucket_width=3.0)
+    corpus = _integer_data(gen, layout, dims, n)
+    extra = _integer_data(gen, layout, dims, 300)
+    pair = []
+    for dev in ("cuda", "cpu"):
+        f = fam.to(dev)
+        if host:
+            pair.append(HostLSHIndex(f).build(corpus.to(dev)))
+            continue
+        idx = (DeviceLSHIndex(f) if shards is None
+               else ShardedLSHIndex(f, shards=shards)).build(corpus.to(dev))
+        idx.insert(extra.to(dev))
+        idx.delete(list(range(3, n, 7)))
+        pair.append(idx)
+    q = _repeat(corpus, torch.arange(0, 200, device="cuda"))
+    return pair, q
+
+
+@pytest.mark.parametrize("layout,shards", [("cp", None), ("tt", None),
+                                           ("cp", 3), ("tt", 3)])
+def test_candidates_batch_on_card_equals_cpu(gen, layout, shards):
+    """``candidates_batch`` on the card (K3 / K4's raw values, the windows
+    on the card) equals its CPU run over the same mutated store bit for
+    bit, at T = 1 and 4; each row's count is K1's n_candidates, and the
+    single-query ``candidates`` / ``query`` equal the CPU's."""
+    (card, cpu), q = _index_pair(gen, layout, shards)
+    for probes in (1, 4):
+        cand, valid = card.candidates_batch(q, probes=probes)
+        cand_c, valid_c = cpu.candidates_batch(q.to("cpu"), probes=probes)
+        assert torch.equal(cand.cpu(), cand_c)
+        assert torch.equal(valid.cpu(), valid_c)
+        _, _, n_cand = card.query_batch(q, probes=probes)
+        assert torch.equal(valid.sum(1, dtype=torch.int32), n_cand)
+        for i in (0, 7, 199):
+            x = q.index(i)
+            got = card.candidates(x, probes=probes)
+            assert (got == cpu.candidates(x.to("cpu"), probes=probes)).all()
+            ids, scores, nc = card.query(x, probes=probes)
+            ids_c, scores_c, nc_c = cpu.query(x.to("cpu"), probes=probes)
+            assert (ids == ids_c).all() and (scores == scores_c).all()
+            assert nc == nc_c == got.size
+
+
+@pytest.mark.parametrize("layout", ["cp", "tt"])
+def test_host_index_on_card_equals_cpu(gen, layout):
+    """``HostLSHIndex`` on the card: the dicts' candidates (``hash(x)``
+    through K3 / K4 at T = 1, the hash path's raw values at T = 4) equal
+    the CPU index's and K1's counts; ``query_batch`` through K1 equals the
+    CPU's plain K1 bit for bit."""
+    (card, cpu), q = _index_pair(gen, layout, None, host=True)
+    for probes in (1, 4):
+        got = card.query_batch(q, probes=probes)
+        want = cpu.query_batch(q.to("cpu"), probes=probes)
+        for g, w_ in zip(got, want):
+            assert torch.equal(g.cpu().view(torch.int32),
+                               w_.view(torch.int32))
+        for i in (0, 11, 150):
+            x = q.index(i)
+            cand = card.candidates(x, probes=probes)
+            assert (cand == cpu.candidates(x.to("cpu"), probes=probes)).all()
+            assert cand.size == int(got[2][i])
+
+
+def test_cp_queries_over_a_64_cube_tt_corpus(gen):
+    """CP queries over TT rows of dims (64, 64, 64) (prod d 262,144, a pair
+    with no dense side) are answered: K1 launches ``<16, 0>`` and matches
+    its plain version. K1 used to hold every cross pair's prod d to
+    MAX_DENSE_ROW and refused this one."""
+    from repro_torch.core.tensor_formats import cp_to_tt
+    from repro_torch.serving.lsh_service import build_service
+    dims, n = (64, 64, 64), 2000
+    corpus = cp_random_data(gen, dims, 4, batch=n)
+    svc = build_service(gen, "tt-e2lsh", dims, cp_to_tt(corpus),
+                        num_codes=4, num_tables=4, rank=2, bucket_width=2.0)
+    q = _planted(gen, corpus, n, 64)
+    before = fused_query.branches["k1:<16, 0>"]
+    nc = _k1_vs_plain(svc, q, 1)
+    assert fused_query.branches["k1:<16, 0>"] == before + 1
+    ids, _, _ = svc.query_arrays(q, topk=10)
+    assert int(nc.sum()) > 0 and (ids[:, 0] >= 0).any()

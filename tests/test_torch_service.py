@@ -13,8 +13,8 @@ mode), with the reference's sampled family carried over.
   the 20 per query set may move across a near tie or a boundary code).
 * The service's request contract: validation errors as in the reference
   (``rebalance`` without shards raises its ``TypeError``), the sampling
-  modes served, and ``NotImplementedError`` for what the port does not
-  serve yet (the host index).
+  modes served, and the host mode (``device=False``) served on the
+  family's device, rebuild-only.
 """
 
 import jax  # noqa: F401  (both frameworks in one process, JAX on the CPU)
@@ -139,8 +139,14 @@ def test_request_validation_and_queued_features(services):
     for call in (svc.rebalance, svc.prepare_rebalance):
         with pytest.raises(TypeError, match="sharded index only"):
             call()                                   # as the reference's
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_service(None, services["kind"], tb.DIMS, q, device=False)
+    host = build_service(None, services["kind"], tb.DIMS, q, device=False,
+                         num_codes=svc.index.family.num_codes,
+                         num_tables=tb.NUM_TABLES, family=svc.index.family)
+    assert type(host.index).__name__ == "HostLSHIndex"   # served
+    ids, _, _ = host.query_arrays(q)
+    assert ids.shape == (B, 10)
+    with pytest.raises(TypeError, match="rebuild-only"):
+        host.insert(q)
 
 
 def test_sampled_family_serves_on_cpu():
