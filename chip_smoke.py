@@ -165,6 +165,24 @@ Phases (any failure exits non-zero):
      ``theory``, all six kinds on dense pairs, the CP kinds on CP pairs (K3)
      and the TT kinds on the pairs' TT forms (K4), failing past the
      reference's 5 se + 0.015; each row's largest deviation and time a call.
+  15. [sched] (run at the end of 3), the serving scheduler
+     (``serving.scheduler.ServingScheduler``, ``max_batch`` 64,
+     ``deadline_ms`` 2.0): [main]'s service ("main") and [shard]'s S = 4
+     service over the first 2^18 items ("shard", a ``max_items`` quota of
+     2^18 + 2^14) behind one scheduler, its query lane on a stream of the
+     highest priority and its ingest lane on another; single planted
+     queries (one in eight to "shard") arrive open-loop (Poisson) at 20% of
+     the closed-loop capacity measured through the scheduler, in
+     alternating quiet and compacting blocks (512-item inserts, their
+     deletes, ``compact()`` on "main", ``rebalance()`` on "shard"); per
+     tenant and phase p50 / p99 / p99.9 / max latency and goodput, the
+     compacting / quiet p99 ratio beside the reference's 1.5, the mean
+     coalesced batch, swaps, K1 / K1s / K3 launches by lane and the
+     interpreter's full collections; quiet answers bit-equal to the direct
+     batch's rows, sampling requests replayed by seed and never coalesced,
+     the quota's refusal counted, 4,096 queries racing a compaction of a
+     mutated store each bit-equal to the pre- or the post-swap direct row,
+     recall@1 of the quiet queries.
 
 Every path's kernel counters are zeroed just before it runs and read just
 after: each kernel and each K1 / K1s branch it needs must have launched,
@@ -264,12 +282,17 @@ def phase_device():
     import torch
     name = torch.cuda.get_device_name(0)
     count = torch.cuda.device_count()
+    print(f"[device] {name} x{count}; torch {torch.__version__} cuda "
+          f"{torch.version.cuda}")
+    return name, count, smi_line()
+
+
+def smi_line() -> str:
+    """The card's name and power limit as nvidia-smi gives them."""
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
-    print(f"[device] {name} x{count}; torch {torch.__version__} cuda "
-          f"{torch.version.cuda}")
-    return name, count, smi.stdout.strip().splitlines()[0]
+    return smi.stdout.strip().splitlines()[0]
 
 
 def phase_build():
@@ -569,6 +592,8 @@ def zero_counts() -> None:
     fns = counters()
     for name, fn in fns.items():
         setattr(fn, "launches" if name in COUNTED else "calls", 0)
+        if name in COUNTED:
+            fn.lanes.clear()
     for k in K1_WRAPPERS:
         fns[k].branches.clear()
 
@@ -3444,6 +3469,402 @@ def phase_host(cell, corpus) -> list:
                  recall1=hits1 / n_q, batch_ms=summary["mean"])]
 
 
+# ---------------------------------------------------------------------------
+# [sched]: the serving scheduler's two lanes on two CUDA streams
+# ---------------------------------------------------------------------------
+
+SCHED = dict(max_batch=64, deadline_ms=2.0, shard_items=1 << 18,
+             shard_extra=1 << 14, shards=4, capacity_reqs=4096,
+             utilization=0.2, blocks=3, block_s=0.8, shard_every=8,
+             insert=512, pause_frac=1.0, race=4096, race_deletes=1024,
+             samples=8, seed=53, gate=1.5)
+
+
+def lane_counts() -> dict:
+    """K3, K1 and K1s launches by lane (the launching thread's name)."""
+    fns = counters()
+    return {f"{k}@{lane}": n for k in ("cp_gram", "fused_query",
+                                       "fused_query_sharded")
+            for lane, n in fns[k].lanes.items()}
+
+
+def pct(lat, q) -> float:
+    import numpy as np
+    return float(np.percentile(lat, q)) if len(lat) else float("nan")
+
+
+class Churn:
+    """[sched]'s ingest traffic: while enabled, a cycle a tenant of a
+    512-item insert, the delete of those items and the fold (``compact()``
+    on "main", ``rebalance()`` on "shard"), each through the scheduler and
+    waited for; a pause of ``pause_frac`` times the cycle after each. A
+    cycle leaves each tenant's live corpus as it found it, so the quiet
+    blocks' answers stay those of the pristine stores."""
+
+    def __init__(self, sched, batches):
+        import threading
+        self.sched, self.batches = sched, batches
+        self.swaps = {"main": 0, "shard": 0}
+        self.errors: list = []
+        self._go, self._idle = threading.Event(), threading.Event()
+        self._idle.set()
+        self._stop = False
+        self._thread = threading.Thread(target=self._loop, daemon=True)
+        self._thread.start()
+
+    def cycle(self, k: int) -> None:
+        import numpy as np
+        for tenant, fold in (("main", self.sched.compact),
+                             ("shard", self.sched.rebalance)):
+            n0 = self.sched.service(tenant).index.size
+            batch = self.batches[k % len(self.batches)]
+            self.sched.insert(batch, tenant=tenant).result(timeout=120)
+            self.sched.delete(np.arange(n0, n0 + SCHED["insert"]),
+                              tenant=tenant).result(timeout=120)
+            fold(tenant).result(timeout=120)
+            self.swaps[tenant] += 1
+
+    def _loop(self):
+        k = 0
+        while not self._stop:
+            if not self._go.wait(timeout=0.02):
+                continue
+            if self._stop:
+                return
+            self._idle.clear()
+            t0 = time.perf_counter()
+            try:
+                self.cycle(k)
+            except Exception as exc:      # reported by the phase
+                self.errors.append(exc)
+            finally:
+                self._idle.set()
+            k += 1
+            pause = SCHED["pause_frac"] * (time.perf_counter() - t0)
+            end = time.perf_counter() + pause
+            while time.perf_counter() < end and self._go.is_set():
+                time.sleep(0.005)
+
+    def enable(self):
+        self._go.set()
+
+    def disable(self):
+        self._go.clear()
+        self._idle.wait(120)
+
+    def stop(self):
+        self._stop = True
+        self._go.set()
+        self._thread.join(timeout=120)
+
+
+def row_of(result, i):
+    """Row ``i`` of a ``query_arrays`` result, as a scheduled request's
+    (ids, scores, n_candidates)."""
+    return result[0][i], result[1][i], int(result[2][i])
+
+
+def row_equal(a, b) -> bool:
+    """Two (ids, scores, n_candidates) rows bit for bit."""
+    import numpy as np
+    return (np.array_equal(a[0], b[0]) and int(a[2]) == int(b[2])
+            and np.array_equal(np.asarray(a[1]).view(np.int32),
+                               np.asarray(b[1]).view(np.int32)))
+
+
+def open_loop(sched, items, rate, seed, duration_s):
+    """Poisson arrivals at ``rate`` for ``duration_s`` -> (tenant index
+    per request, item index per request, latency ms, results): every
+    ``shard_every``-th request goes to "shard"; latency is completion minus
+    the scheduled arrival (open loop: a response queued behind a stall
+    keeps accruing)."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    n = max(int(rate * duration_s), 16)
+    arrivals = np.cumsum(rng.exponential(1.0 / rate, size=n))
+    done = np.zeros(n)
+    tenant = (np.arange(n) % SCHED["shard_every"]
+              == SCHED["shard_every"] - 1).astype(int)
+    which = rng.integers(0, len(items[0]), size=n)
+    which = np.where(tenant == 1, which % len(items[1]), which)
+    futs = []
+    t0 = time.perf_counter()
+    for i in range(n):
+        wait = arrivals[i] - (time.perf_counter() - t0)
+        if wait > 0:
+            time.sleep(wait)
+        fut = sched.query(items[tenant[i]][which[i]], topk=TOPK,
+                          tenant=("main", "shard")[tenant[i]])
+        fut.add_done_callback(
+            lambda f, i=i: done.__setitem__(i, time.perf_counter() - t0))
+        futs.append(fut)
+    results = [f.result(timeout=120) for f in futs]
+    return tenant, which, (done - arrivals) * 1e3, results, \
+        done.max() - arrivals[0]
+
+
+def phase_sched(cell, corpus, qids, queries) -> None:
+    """[sched]: [main]'s service ("main", the full-width path) and [shard]'s
+    S = 4 service over the first 2^18 items ("shard", with a ``max_items``
+    quota of 2^18 + 2^14) behind one ``ServingScheduler`` (``max_batch``
+    64, ``deadline_ms`` 2.0): its query lane on a stream of the highest
+    priority, its ingest lane on another. Counters zeroed just before the
+    services are built and read after the scheduler closes. Single planted
+    queries (one in eight to "shard") arrive open-loop (Poisson) at 20% of
+    the closed-loop capacity measured through the scheduler, in
+    alternating quiet and compacting blocks (``Churn``); per tenant and
+    phase: p50 / p99 / p99.9 / max latency, goodput, the compacting / quiet
+    p99 ratio beside the reference's 1.5, mean coalesced batch, swaps, K1,
+    K1s and K3 launches by lane. Fails unless: quiet answers equal the
+    direct batch's rows bit for bit; sampling requests replay by seed and
+    never coalesce; the quota refuses and counts an insert past
+    ``max_items``; 4,096 scheduled queries racing a compaction of a mutated
+    store each equal the direct row on the pre- or the post-swap store bit
+    for bit; every K1 / K1s / K3 counter moved on its lane and no plain
+    version ran; recall@1 >= 0.95 over the quiet queries."""
+    import gc
+
+    import numpy as np
+    import torch
+    from repro_torch.core.tensor_formats import batch_of_one, cp_random_data
+    from repro_torch.serving.lsh_service import build_service
+    from repro_torch.serving.scheduler import (INGEST_LANE, QUERY_LANE,
+                                               QuotaExceeded,
+                                               ServingScheduler, TenantQuota)
+    c = SCHED
+    t_phase = time.perf_counter()
+    smi = smi_line()
+    gen = torch.Generator(device="cuda").manual_seed(c["seed"])
+    n_shard = min(c["shard_items"], corpus.leaves[0].shape[0])
+    sub = corpus.index(slice(0, n_shard))
+    sqid = torch.randperm(n_shard, generator=gen, device="cuda")[:1024]
+    shard_q = make_queries(sub, sqid, gen)
+    batches = [cp_random_data(gen, cell["dims"], cell["rhat"],
+                              batch=c["insert"]) for _ in range(4)]
+    kw = dict(num_codes=cell["codes"], num_tables=cell["tables"],
+              rank=cell["rank"], bucket_width=cell["width"], device="cuda")
+    torch.cuda.synchronize()
+    zero_counts()
+    main_svc = build_service(torch.Generator(device="cuda").manual_seed(1),
+                             cell["kind"], cell["dims"], corpus, **kw)
+    shard_svc = build_service(torch.Generator(device="cuda").manual_seed(1),
+                              cell["kind"], cell["dims"], sub,
+                              shards=c["shards"], **kw)
+    # the items of the traffic and the direct batches' rows for each
+    nb = 4
+    items = ([queries[b].index(i) for b in range(nb)
+              for i in range(queries[b].leaves[0].shape[0])],
+             [shard_q.index(i) for i in range(1024)])
+    direct = (
+        [np.concatenate(a) for a in zip(*[main_svc.query_arrays(
+            queries[b], topk=TOPK) for b in range(nb)])],
+        list(shard_svc.query_arrays(shard_q, topk=TOPK)))
+    targets = (torch.cat(qids[:nb]).cpu().numpy(), sqid.cpu().numpy())
+    # what a serving process does once its indexes are built: move the
+    # heap it has so far to the collector's permanent generation, so that
+    # a full collection scans only what serving allocates. Without it the
+    # full collections, which stop every thread for 107-147 ms on this
+    # heap, set the phase's p99 (PERF.md, [sched])
+    gc.collect()
+    gc.freeze()
+    pauses, started = [], {}
+
+    def on_gc(phase, info):
+        if phase == "start":
+            started["t"] = time.perf_counter()
+        elif info["generation"] == 2:
+            pauses.append((time.perf_counter() - started["t"]) * 1e3)
+
+    gc.callbacks.append(on_gc)
+    sched = ServingScheduler({"main": main_svc, "shard": shard_svc},
+                             max_batch=c["max_batch"],
+                             deadline_ms=c["deadline_ms"],
+                             quotas={"shard": TenantQuota(
+                                 max_items=n_shard + c["shard_extra"])})
+    qs, ing = sched.streams[main_svc.device]
+    default = torch.cuda.default_stream(main_svc.device).cuda_stream
+    print(f"[sched] on {smi}: tenants main (n={corpus.leaves[0].shape[0]}, "
+          f"{cell['kind']} K={cell['codes']} L={cell['tables']}) and shard "
+          f"(S={c['shards']}, n={n_shard}, max_items "
+          f"{n_shard + c['shard_extra']}); max_batch {c['max_batch']}, "
+          f"deadline {c['deadline_ms']} ms; query stream priority "
+          f"{qs.priority}, ingest {ing.priority} (streams {qs.cuda_stream:#x}"
+          f", {ing.cuda_stream:#x}, default {default:#x})")
+    if len({qs.cuda_stream, ing.cuda_stream, default}) != 3 or not (
+            qs.priority < ing.priority):
+        fail("sched: the lanes do not run on two streams of their own, the "
+             "query lane's of the higher priority")
+    churn = Churn(sched, batches)
+    try:
+        # warm both lanes, then the closed-loop capacity through the lanes
+        [f.result(timeout=120) for f in [sched.query(x, topk=TOPK, tenant="main")
+                                         for x in items[0][:256]]]
+        churn.cycle(0)
+        for _ in range(2):
+            t0 = time.perf_counter()
+            futs = [sched.query(items[0][i % len(items[0])], topk=TOPK,
+                                tenant="main")
+                    for i in range(c["capacity_reqs"])]
+            [f.result(timeout=120) for f in futs]
+            cap = c["capacity_reqs"] / (time.perf_counter() - t0)
+        rate = c["utilization"] * cap
+        print(f"[sched] closed-loop capacity {cap:.0f} req/s through the "
+              f"scheduler ({c['capacity_reqs']} single queries submitted at "
+              f"once, mean batch {sched.stats.mean_batch:.1f}); offered "
+              f"{rate:.0f} req/s ({c['utilization']:.0%})")
+        # sampling: replays by seed, never coalesces
+        b0 = sched.stats.batches
+        futs = [sched.query(items[0][i // 2], topk=TOPK, mode=mode,
+                            seed=1000 + i // 2, tenant="main")
+                for mode in ("uniform", "weighted")
+                for i in range(2 * c["samples"])]
+        got = [f.result(timeout=120) for f in futs]
+        sched.flush(timeout=120)
+        if sched.stats.batches - b0 != len(futs):
+            fail(f"sched: {len(futs)} sampling requests ran in "
+                 f"{sched.stats.batches - b0} batches: they coalesced")
+        for j in range(0, len(got), 2):
+            i, mode = (j % (2 * c["samples"])) // 2, (
+                "uniform", "weighted")[j // (2 * c["samples"])]
+            want = main_svc.query_arrays(batch_of_one(items[0][i]),
+                                         topk=TOPK, mode=mode, seed=1000 + i)
+            if not (row_equal(got[j], got[j + 1])
+                    and row_equal(got[j], row_of(want, 0))):
+                fail(f"sched: sampling request {j} ({mode}) did not replay "
+                     "the direct draw at its seed")
+        # the quota
+        big = cp_random_data(gen, cell["dims"], cell["rhat"],
+                             batch=c["shard_extra"] + 1)
+        try:
+            sched.insert(big, tenant="shard")
+            fail("sched: an insert past max_items was admitted")
+        except QuotaExceeded as exc:
+            print(f"[sched] quota: {exc}")
+        if shard_svc.stats.rejected != 1:
+            fail(f"sched: rejected {shard_svc.stats.rejected} != 1")
+        del big
+        # alternating quiet and compacting blocks
+        lat = {(t, p): [] for t in (0, 1) for p in ("quiet", "compacting")}
+        wall = {p: 0.0 for p in ("quiet", "compacting")}
+        coal = {p: [0, 0] for p in ("quiet", "compacting")}
+        swaps = {p: {"main": 0, "shard": 0} for p in ("quiet",
+                                                      "compacting")}
+        lanes = {p: {} for p in ("quiet", "compacting")}
+        quiet_checked = hits = rows = 0
+        for k in range(2 * c["blocks"]):
+            phase = ("quiet", "compacting")[k % 2]
+            if phase == "compacting":
+                churn.enable()
+            r0, bt0 = sched.stats.requests, sched.stats.batches
+            s0, l0 = dict(churn.swaps), lane_counts()
+            tenant, which, lat_ms, results, w = open_loop(
+                sched, items, rate, c["seed"] + k // 2, c["block_s"])
+            if phase == "compacting":
+                churn.disable()
+            coal[phase][0] += sched.stats.requests - r0
+            coal[phase][1] += sched.stats.batches - bt0
+            wall[phase] += w
+            for t in swaps[phase]:
+                swaps[phase][t] += churn.swaps[t] - s0[t]
+            for key, n in lane_counts().items():
+                lanes[phase][key] = lanes[phase].get(key, 0) + n - l0.get(
+                    key, 0)
+            for t in (0, 1):
+                lat[(t, phase)].append(lat_ms[tenant == t])
+            if phase != "quiet":
+                continue
+            for i, (t, j) in enumerate(zip(tenant, which)):
+                if not row_equal(results[i], row_of(direct[t], j)):
+                    fail(f"sched: quiet request {i} ({('main', 'shard')[t]} "
+                         f"item {j}) differs from the direct batch's row")
+                quiet_checked += 1
+                if t == 0:
+                    hits += int(results[i][0][0] == targets[0][j])
+                    rows += 1
+        if churn.errors:
+            fail(f"sched: the churn failed: {churn.errors[0]!r}")
+        recall1 = hits / max(rows, 1)
+        print(f"[sched] {quiet_checked} quiet answers equal the direct "
+              f"batches' rows bit for bit; recall@1 (planted, main) "
+              f"{recall1:.4f} over {rows}")
+        if recall1 < RECALL1_MIN:
+            fail(f"sched: recall@1 {recall1} below {RECALL1_MIN}")
+        p99 = {}
+        for t, name in ((0, "main"), (1, "shard")):
+            for phase in ("quiet", "compacting"):
+                x = np.concatenate(lat[(t, phase)])
+                p99[(t, phase)] = pct(x, 99)
+                print(f"[sched {name} {phase}] on {smi}: {len(x)} requests: "
+                      f"p50 {pct(x, 50):.3f} ms, p99 {pct(x, 99):.3f} ms, "
+                      f"p99.9 {pct(x, 99.9):.3f} ms, max {x.max():.3f} ms; "
+                      f"goodput {len(x) / wall[phase]:.0f} req/s")
+            print(f"[sched {name}] compacting / quiet p99 "
+                  f"{p99[(t, 'compacting')] / p99[(t, 'quiet')]:.3f} (the "
+                  f"reference's gate {c['gate']}, printed for comparison)")
+        for phase in ("quiet", "compacting"):
+            print(f"[sched {phase}] mean coalesced batch "
+                  f"{coal[phase][0] / max(coal[phase][1], 1):.2f} over "
+                  f"{coal[phase][1]} batches; swaps {swaps[phase]}; "
+                  f"launches by lane {lanes[phase]}")
+        if swaps["compacting"]["main"] < 1 or swaps["compacting"][
+                "shard"] < 1:
+            fail(f"sched: no swap ran in the compacting blocks: {swaps}")
+        # 4,096 scheduled queries racing a compaction of a mutated store
+        sched.insert(batches[0], tenant="main").result(timeout=120)
+        sched.delete(np.arange(0, 2 * c["race_deletes"], 2),
+                     tenant="main").result(timeout=120)
+        pre = [np.concatenate(a) for a in zip(*[main_svc.query_arrays(
+            queries[b], topk=TOPK) for b in range(nb)])]
+        futs, swap = [], None
+        for i in range(c["race"]):
+            futs.append(sched.query(items[0][i], topk=TOPK, tenant="main"))
+            if i == c["race"] // 8:
+                swap = sched.compact("main")
+        swap.result(timeout=120)
+        raced = [f.result(timeout=120) for f in futs]
+        post = [np.concatenate(a) for a in zip(*[main_svc.query_arrays(
+            queries[b], topk=TOPK) for b in range(nb)])]
+        n_pre = n_post = 0
+        for i, r in enumerate(raced):
+            ok = [row_equal(r, row_of(w, i)) for w in (pre, post)]
+            if not any(ok):
+                fail(f"sched: raced query {i} equals neither the pre- nor "
+                     "the post-swap direct row")
+            n_pre += ok[0]
+            n_post += ok[1]
+        print(f"[sched] race: {len(raced)} scheduled queries around a "
+              f"compaction of a mutated store (+{c['insert']} items, "
+              f"-{c['race_deletes']}): each equals the direct row on the pre-"
+              f" ({n_pre}) or the post-swap store ({n_post}) bit for bit")
+    finally:
+        churn.stop()
+        sched.close()
+        gc.callbacks.remove(on_gc)
+        gc.unfreeze()
+    print(f"[sched] the interpreter's full collections during the phase: "
+          f"{len(pauses)}, longest {max(pauses, default=0.0):.1f} ms (every "
+          "thread stops for one)")
+    torch.cuda.synchronize()
+    counts = read_counts()
+    by_lane = lane_counts()
+    print(f"[sched] launches: {counts}")
+    print(f"[sched] launches by lane: {by_lane}")
+    check_counts(counts, "sched", ("cp_gram", "fused_query",
+                                   "fused_query_sharded",
+                                   "fused_query:sample:uniform",
+                                   "fused_query:sample:weighted"))
+    need = (f"cp_gram@{QUERY_LANE}", f"cp_gram@{INGEST_LANE}",
+            f"fused_query@{QUERY_LANE}", f"fused_query_sharded@{QUERY_LANE}")
+    if any(by_lane.get(k, 0) == 0 for k in need):
+        fail(f"sched: a lane never launched its kernel: {by_lane}")
+    if any(k.endswith(INGEST_LANE) and k.startswith("fused_query")
+           for k in by_lane):
+        fail("sched: K1 ran on the ingest lane")
+    print(f"[sched] {time.perf_counter() - t_phase:.1f} s")
+    del main_svc, shard_svc
+    torch.cuda.empty_cache()
+
+
 def record(name, source, replaces, counts, key, err, times):
     """One entry of the kernels line (``key`` a counter of read_counts;
     the plain calls are its kernel's)."""
@@ -3536,6 +3957,8 @@ def run_cell(layout: str, log2_corpus: int, args) -> list:
     records.append(phase_ann_k8(cell, corpus, qids, queries))
     torch.cuda.empty_cache()
     records += phase_host(cell, corpus)
+    torch.cuda.empty_cache()
+    phase_sched(cell, corpus, qids, queries)
     return records
 
 

@@ -45,10 +45,17 @@ bucket-membership reference: its ``candidates`` looks a query up in host
 dicts, and its queries serve through the same K1 planner over a
 single-segment store; it is rebuild-only. ``brute_force`` /
 ``brute_force_batch`` are the exact references. The reference's
-``swap_chunk_rows`` and ``probe_backend`` have no counterpart: the shadow
-store is gathered in one pass (the chunked, throttled build waits for the
-scheduler's second stream) and the tensors' device picks kernel or plain
-path.
+``probe_backend`` has no counterpart: the tensors' device picks kernel or
+plain path.
+
+``swap_chunk_rows`` (default 4096, None for one pass) makes a compaction's
+shadow build chunked and throttled (``segments.gather_rows_chunked``, the
+tables sorted one at a time), bit-equal to the one-pass fold. Every
+synchronization here is of the current stream, never of the whole card:
+the serving scheduler runs mutations on its ingest lane's stream while its
+query lane's kernels run on another. A query reads the store's view
+through ``StoreView.acquire`` (the view's publication event, and its
+arrays kept alive for the query's stream).
 """
 
 from __future__ import annotations
@@ -94,8 +101,9 @@ def _check_mode(mode: str, rng) -> None:
 
 
 def _sync(device: torch.device) -> None:
+    """Wait for the current stream (this lane's own work), not the card."""
     if device.type == "cuda":
-        torch.cuda.synchronize(device)
+        torch.cuda.current_stream(device).synchronize()
 
 
 @dataclasses.dataclass(frozen=True)
@@ -266,8 +274,9 @@ class _SegmentedIndex(_LSHIndexBase):
     def prepare_compact(self) -> PendingSwap | None:
         """Build the compacted replacement store off the query path: the
         stored keys of every live item (no re-hash), sorted anew, with its
-        lookups; synchronizes the card before it returns. None when the
-        store is pristine."""
+        lookups, chunked and throttled unless ``swap_chunk_rows`` is None;
+        synchronizes its stream before it returns. None when the store is
+        pristine."""
         store = self.store
         if not store.mutated:
             return None
@@ -318,7 +327,8 @@ class _SegmentedIndex(_LSHIndexBase):
         probed with the keys K1 probes, so each row's valid count equals
         ``query_batch``'s ``n_candidates``."""
         queries = as_batch(queries, len(self.family.projection.dims))
-        return self._candidates(self.store.view, queries, int(probes))
+        return self._candidates(self.store.view.acquire(), queries,
+                                int(probes))
 
     def query_batch(self, queries, topk: int = 10, *,
                     probes: int = 1, mode: str = "topk", rng=None):
@@ -335,8 +345,8 @@ class _SegmentedIndex(_LSHIndexBase):
         _check_mode(mode, rng)
         queries = as_batch(queries, len(self.family.projection.dims))
         key = None if mode == "topk" else sample_key_words(rng)
-        return self._query(self.store.view, queries, topk, int(probes),
-                           mode, key)
+        return self._query(self.store.view.acquire(), queries, topk,
+                           int(probes), mode, key)
 
 
 @dataclasses.dataclass
@@ -349,6 +359,8 @@ class DeviceLSHIndex(_SegmentedIndex):
     seed: int = 0
     bucket_cap: int | None = None  # None -> exact (largest build-time bucket)
     max_deltas: int = 8            # outstanding deltas before auto-compact
+    swap_chunk_rows: int | None = 4096  # shadow-build copy chunk (None ->
+                                        # one pass per fold)
 
     store: SegmentStore | None = None
     compactions: int = 0
@@ -359,18 +371,28 @@ class DeviceLSHIndex(_SegmentedIndex):
     # the last insert's (hash, sort, lookups) seconds, synchronized
     insert_s: tuple = (0.0, 0.0, 0.0)
 
-    def _new_store(self, keys, corpus, warn: bool = True) -> SegmentStore:
+    def _new_store(self, keys, corpus, warn: bool = True,
+                   **kw) -> SegmentStore:
         return SegmentStore(
             build_segment(keys, corpus, bucket_cap=self.bucket_cap,
-                          warn_layout=type(self).__name__ if warn else None),
+                          warn_layout=type(self).__name__ if warn else None,
+                          **kw),
             live_window=self.bucket_cap is not None)
 
     def _delta(self, keys, batch):
         return build_segment(keys, batch, bucket_cap=self.bucket_cap), None
 
     def _build_compact_store(self, store: SegmentStore) -> SegmentStore:
-        keys, corpus = store.effective_arrays()
-        return self._new_store(keys, corpus, warn=False)
+        """The fold: one pass (``swap_chunk_rows`` None), or the corpus
+        copied in bounded chunks straight into the kernels' layout and the
+        tables sorted one at a time (the same arrays, bit for bit)."""
+        if self.swap_chunk_rows is None:
+            keys, corpus = store.effective_arrays()
+            return self._new_store(keys, corpus, warn=False)
+        keys, corpus, stacked = store.effective_arrays_chunked(
+            int(self.swap_chunk_rows))
+        return self._new_store(keys, corpus, warn=False, sort_throttled=True,
+                               stacked=stacked)
 
     def _query(self, view, queries, topk, probes, mode, key):
         return _segmented_query(self, view, queries, topk, probes, mode,
@@ -401,6 +423,8 @@ class ShardedLSHIndex(_SegmentedIndex):
     shards: int = 1
     bucket_cap: int | None = None  # None -> exact (largest per-shard bucket)
     max_deltas: int = 8
+    swap_chunk_rows: int | None = 4096  # shadow-build copy chunk (None ->
+                                        # one pass per fold)
     keep_corpus: bool = True   # False drops the build-time corpus reference
                                # (``effective_corpus()`` regathers it)
 
@@ -476,9 +500,11 @@ class ShardedLSHIndex(_SegmentedIndex):
     def _build_compact_store(self, store: SegmentStore) -> SegmentStore:
         """The shard-local fold: each shard keeps its own live items (base
         slice + slabs, slot order = sequence order), stored keys only, one
-        gather and sort per shard (``segments._slab_gather_sort``). Shards
-        keep the item mix routing gave them; effective ids, and so
-        results, do not change. The live store is untouched."""
+        gather and sort per shard (``segments._slab_gather_sort``), or with
+        ``swap_chunk_rows`` set the same values in bounded steps
+        (``segments._slab_gather_sort_chunked``). Shards keep the item mix
+        routing gave them; effective ids, and so results, do not change.
+        The live store is untouched."""
         s = store.base.shards
         segs = store._segments()
         offs = np.cumsum([0] + [g.slots for g in segs[:-1]])
@@ -499,11 +525,19 @@ class ShardedLSHIndex(_SegmentedIndex):
             idx[sh, :sel.size] = sel
             new_pos[sh, :sel.size] = eff_seq[pos2d[sh, sel]]
         dev = self.device
-        keys_n, sorted_keys, perm, stacked, max_runs = \
-            segments._slab_gather_sort(
-                [g.keys for g in segs], [g.stacked for g in segs],
-                torch.from_numpy(idx).to(dev),
-                torch.from_numpy(counts).to(dev), shard_size=new_ns)
+        counts_t = torch.from_numpy(counts).to(dev)
+        keys = [g.keys for g in segs]
+        stacked = [g.stacked for g in segs]
+        if self.swap_chunk_rows is None:
+            keys_n, sorted_keys, perm, stacked, max_runs = \
+                segments._slab_gather_sort(
+                    keys, stacked, torch.from_numpy(idx).to(dev), counts_t,
+                    shard_size=new_ns)
+        else:
+            keys_n, sorted_keys, perm, stacked, max_runs = \
+                segments._slab_gather_sort_chunked(
+                    keys, stacked, idx, counts_t, shard_size=new_ns,
+                    chunk=int(self.swap_chunk_rows))
         if self.bucket_cap is None:
             cap = max(int(max_runs.max()), 1)
             segments._warn_coarse(type(self).__name__, cap,
@@ -527,8 +561,8 @@ class ShardedLSHIndex(_SegmentedIndex):
         """Build the re-partitioned replacement store off the query path:
         the live corpus and its stored keys gathered in sequence order,
         split into S contiguous shards and sorted per shard (the layout of
-        a fresh build over ``effective_corpus()``); synchronizes the card
-        before it returns."""
+        a fresh build over ``effective_corpus()``), in one pass as in the
+        reference; synchronizes its stream before it returns."""
         store = self.store
         if store.n_live == 0:
             raise ValueError("cannot rebalance an index with no live items")
@@ -673,8 +707,8 @@ class HostLSHIndex(_LSHIndexBase):
         _check_mode(mode, rng)
         queries = as_batch(queries, len(self.family.projection.dims))
         key = None if mode == "topk" else sample_key_words(rng)
-        return _segmented_query(self, self.store.view, queries, topk,
-                                int(probes), mode, key)
+        return _segmented_query(self, self.store.view.acquire(), queries,
+                                topk, int(probes), mode, key)
 
 
 # ---------------------------------------------------------------------------

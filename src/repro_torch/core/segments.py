@@ -30,6 +30,18 @@ an explicit ``bucket_cap``, the live-window lookups ``live_rank`` (L, m+1)
 mutation, never once per query batch. The host bookkeeping stays numpy, as
 in the reference.
 
+On the card a view is published on the stream that built it (the serving
+scheduler's ingest lane) and read on another (its query lane): the view
+carries an event recorded after its last upload, and ``StoreView.acquire``
+makes the reading stream wait on it and marks the view's arrays as in use
+on that stream (``Tensor.record_stream``), so the memory of a replaced
+store is handed out again only after the queries that read it have run.
+The chunked, throttled shadow build (``gather_rows_chunked``,
+``_sort_tables_throttled``, ``_slab_gather_keys`` / ``_sort_shard_table``,
+``SegmentStore.effective_arrays_chunked``) issues a fold as bounded steps,
+synchronizing its own stream after each, so the query lane's kernels
+interleave with it; its arrays are bit-equal to the one-pass fold's.
+
 Everything runs on one device. The reference's vmapped sharded program is
 the layout this port serves; placing shards over several cards is queued
 (ROADMAP.md).
@@ -37,8 +49,11 @@ the layout this port serves; placing shards over several cards is queued
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
+import threading
+import time
 import warnings
 from typing import NamedTuple
 
@@ -219,21 +234,29 @@ class TableSegment:
 
 def build_segment(keys: torch.Tensor, corpus, *,
                   bucket_cap: int | None = None,
-                  warn_layout: str | None = None) -> TableSegment:
+                  warn_layout: str | None = None,
+                  sort_throttled: bool = False,
+                  stacked: torch.Tensor | None = None) -> TableSegment:
     """(m, L) corpus-order keys + CP or TT corpus -> sorted TableSegment.
     The cap is the largest bucket (exact candidate sets, with the
     coarse-family warning for base builds, ``warn_layout`` set) or
     min(``bucket_cap``, m). The corpus is stacked after the sort, so the
-    sort's temporaries are freed before the stacked copy is made."""
+    sort's temporaries are freed before the stacked copy is made; a
+    ``stacked`` corpus already in the kernels' layout (``corpus`` its
+    views) is kept as it is. ``sort_throttled`` sorts table by table
+    (``_sort_tables_throttled``, the same values) so that a shadow build's
+    sort stays off a concurrent query's critical path."""
     m = keys.shape[0]
-    perm, sorted_keys, max_run = _sort_tables(keys.T.contiguous())
+    sorter = _sort_tables_throttled if sort_throttled else _sort_tables
+    perm, sorted_keys, max_run = sorter(keys.T.contiguous())
     if bucket_cap is None:
         cap = int(max_run) if m else 0
         if warn_layout is not None:
             _warn_coarse(warn_layout, cap, keys.shape[1], m)
     else:
         cap = min(int(bucket_cap), m)
-    corpus, stacked = corpus.stack()
+    if stacked is None:
+        corpus, stacked = corpus.stack()
     return TableSegment(keys=keys, sorted_keys=sorted_keys, perm=perm,
                         corpus=corpus, cap=cap, stacked=stacked)
 
@@ -406,6 +429,35 @@ def build_sharded_delta(keys, corpus, alloc, offsets, *, seq0: int,
     return seg, pos.reshape(-1)
 
 
+def _slab_gather_keys(keys_cat: torch.Tensor,
+                      idx: torch.Tensor) -> torch.Tensor:
+    """The keys half of ``_slab_gather_sort``'s gather: (S, W, L) keys of
+    the concatenated slot axis and (S, shard_size) ``idx`` (W marks a pad)
+    -> (S, shard_size, L) keys, ``_PAD_KEY`` on pads. Keys are a few bytes
+    an item, so the chunked fold takes them in one step."""
+    s, w, num_tables = keys_cat.shape
+    valid = idx < w
+    keys_n = torch.gather(
+        keys_cat, 1, torch.where(valid, idx, 0)[:, :, None]
+        .expand(-1, -1, num_tables))
+    return torch.where(valid[:, :, None], keys_n, _PAD_KEY)
+
+
+def _sort_shard_table(keys_l: torch.Tensor, counts: torch.Tensor, *,
+                      shard_size: int):
+    """Sort ONE table's (S, shard_size) fold keys: the stable sort, the
+    pad sentinel and the masked longest run that ``_sort_slabs`` applies
+    to every table at once, so each output is a bit-equal slice of the
+    one-pass fold's -> (perm (S, n_s) int32, sorted_keys, (S,) longest
+    stored runs). The chunked fold issues L of these, synchronizing its
+    stream between them."""
+    sorted_keys, perm = torch.sort(keys_l, dim=-1, stable=True)
+    perm = perm.to(torch.int32)
+    pad = perm >= counts[:, None]
+    perm = torch.where(pad, shard_size, perm)
+    return perm, sorted_keys, _run_lengths(sorted_keys, ~pad).amax(-1)
+
+
 def _slab_gather_sort(keys, stacked, idx, counts, *, shard_size):
     """The shard-local compaction fold: each shard gathers its survivors
     from its base slice and delta slabs and sorts them anew.
@@ -420,13 +472,8 @@ def _slab_gather_sort(keys, stacked, idx, counts, *, shard_size):
     values equal the reference's fold and its chunked form
     (``_slab_gather_keys``, ``_sort_shard_table``,
     ``gather_rows_chunked``)."""
-    keys_cat = torch.cat(list(keys), dim=1)
-    s, w, num_tables = keys_cat.shape
-    valid = idx < w
-    keys_n = torch.gather(
-        keys_cat, 1, torch.where(valid, idx, 0)[:, :, None]
-        .expand(-1, -1, num_tables))
-    keys_n = torch.where(valid[:, :, None], keys_n, _PAD_KEY)
+    keys_n = _slab_gather_keys(torch.cat(list(keys), dim=1), idx)
+    s = keys_n.shape[0]
     out = stacked[0].new_zeros((s * shard_size,) + stacked[0].shape[2:])
     off = 0
     for g in stacked:
@@ -439,6 +486,141 @@ def _slab_gather_sort(keys, stacked, idx, counts, *, shard_size):
     sorted_keys, perm, max_runs = _sort_slabs(keys_n, counts, shard_size)
     return (keys_n, sorted_keys, perm, out.unflatten(0, (s, shard_size)),
             max_runs)
+
+
+# ---------------------------------------------------------------------------
+# The chunked, throttled shadow build
+# ---------------------------------------------------------------------------
+
+
+_COOPERATIVE = threading.local()   # this thread's (yield_s, busy)
+
+
+@contextlib.contextmanager
+def cooperative_build(yield_s: float = 0.008, busy=None):
+    """Make the throttled build loops of this thread sleep ``yield_s``
+    after each bounded step while the block is active (and, with ``busy``,
+    only while foreground work exists).
+
+    A build step ends with a sync of the building thread's own stream, so
+    the card holds at most one step of the build at a time; the sleep then
+    hands the host's core and the interpreter lock to a waiting query lane
+    before the next step is queued, so a query batch runs with most of the
+    host instead of convoying behind the whole build. ``busy`` (a nullary
+    predicate, e.g. "any query in flight") gates each sleep, so an
+    unloaded build runs at full speed. The setting is per thread: the
+    scheduler's ingest lane sets it around whole mutations, several layers
+    above the loops it gates."""
+    prev = getattr(_COOPERATIVE, "state", (0.0, None))
+    _COOPERATIVE.state = (float(yield_s), busy)
+    try:
+        yield
+    finally:
+        _COOPERATIVE.state = prev
+
+
+def _yield_slot() -> None:
+    """One cooperative yield point between bounded build steps (a no-op
+    outside ``cooperative_build``, or when its ``busy`` predicate says no
+    foreground work is waiting)."""
+    yield_s, busy = getattr(_COOPERATIVE, "state", (0.0, None))
+    if yield_s > 0.0 and (busy is None or busy()):
+        time.sleep(yield_s)
+
+
+def _step_done(device: torch.device) -> None:
+    """End one bounded build step: wait for the current stream (the
+    building lane's own, never the whole card), then yield."""
+    if device.type == "cuda":
+        torch.cuda.current_stream(device).synchronize()
+    _yield_slot()
+
+
+def _sort_tables_throttled(keys_t: torch.Tensor):
+    """``_sort_tables`` one table at a time, the stream synchronized after
+    each: the same values (tables sort independently), so the fold's sort
+    never queues one all-tables step ahead of a concurrent query."""
+    outs = []
+    for table in range(keys_t.shape[-2]):
+        outs.append(_sort_tables(keys_t[..., table:table + 1, :]))
+        _step_done(keys_t.device)
+    perm = torch.cat([o[0] for o in outs], dim=-2)
+    sorted_keys = torch.cat([o[1] for o in outs], dim=-2)
+    return perm, sorted_keys, torch.stack([o[2] for o in outs]).max()
+
+
+def _scatter_rows_chunk(buf: torch.Tensor, src: torch.Tensor,
+                        src_idx: torch.Tensor, dst_idx: torch.Tensor) -> None:
+    """One bounded step of the chunked copy: rows ``src_idx`` of ``src``
+    into rows ``dst_idx`` of ``buf``, in place (O(chunk), not O(buffer))."""
+    buf.index_copy_(0, dst_idx, src.index_select(0, src_idx))
+
+
+def gather_rows_chunked(template: torch.Tensor, srcs, src_idxs, dst_idxs,
+                        out_rows: int, *, chunk: int = 4096) -> torch.Tensor:
+    """Assemble ``out_rows`` rows into a fresh zero buffer of
+    ``template``'s row shape and dtype by bounded gather + scatter steps.
+
+    The one-pass folds (``_slab_gather_sort``, ``effective_arrays``) move
+    the whole store in one step; on the card a query queued on another
+    stream then shares the device with the whole copy. This path copies at
+    most ``chunk`` rows a step from each source and synchronizes its own
+    stream after every step, so the card holds one chunk of the build at
+    a time and query kernels interleave between chunks. Every live row is
+    written exactly once and the others stay zero, so the values equal the
+    one-pass gather's (whose pad rows are zeros).
+
+    ``srcs`` are (rows, ...) tensors with a flat leading axis;
+    ``src_idxs`` / ``dst_idxs`` the matching host (numpy) row maps into
+    them and into the output."""
+    dev = template.device
+    buf = template.new_zeros((out_rows,) + tuple(template.shape[1:]))
+    for src, s_idx, d_idx in zip(srcs, src_idxs, dst_idxs):
+        s_all = torch.from_numpy(np.asarray(s_idx, np.int64)).to(dev)
+        d_all = torch.from_numpy(np.asarray(d_idx, np.int64)).to(dev)
+        for c0 in range(0, s_all.shape[0], chunk):
+            _scatter_rows_chunk(buf, src, s_all[c0:c0 + chunk],
+                                d_all[c0:c0 + chunk])
+            _step_done(dev)
+    return buf
+
+
+def _slab_gather_sort_chunked(keys, stacked, idx: np.ndarray, counts, *,
+                              shard_size: int, chunk: int):
+    """``_slab_gather_sort`` in bounded steps, each ending with a sync of
+    the current stream: the keys gathered in one step (a few bytes an item,
+    ``_slab_gather_keys``), each table sorted on its own
+    (``_sort_shard_table``), and the corpus copied in chunks of flat
+    (shard * slot) rows (``gather_rows_chunked``). ``idx`` is the host
+    (S, shard_size) slot map; the other arguments and the outputs, bit for
+    bit, are ``_slab_gather_sort``'s."""
+    dev = counts.device
+    keys_n = _slab_gather_keys(torch.cat(list(keys), dim=1),
+                               torch.from_numpy(idx).to(dev))
+    _step_done(dev)
+    tables = []
+    for table in range(keys_n.shape[-1]):
+        tables.append(_sort_shard_table(keys_n[:, :, table], counts,
+                                        shard_size=shard_size))
+        _step_done(dev)
+    s = idx.shape[0]
+    sh_i, col_i = np.nonzero(idx < sum(g.shape[1] for g in stacked))
+    src_of = idx[sh_i, col_i]               # the pads (W) drop out above
+    srcs, src_idxs, dst_idxs = [], [], []
+    off = 0
+    for g in stacked:
+        wg = g.shape[1]
+        m = (src_of >= off) & (src_of < off + wg)
+        srcs.append(g.flatten(0, 1))
+        src_idxs.append(sh_i[m] * wg + src_of[m] - off)
+        dst_idxs.append(sh_i[m] * shard_size + col_i[m])
+        off += wg
+    out = gather_rows_chunked(srcs[0], srcs, src_idxs, dst_idxs,
+                              s * shard_size, chunk=chunk)
+    return (keys_n, torch.stack([t[1] for t in tables], dim=1),
+            torch.stack([t[0] for t in tables], dim=1),
+            out.unflatten(0, (s, shard_size)),
+            torch.stack([t[2] for t in tables]).amax(0))
 
 
 # ---------------------------------------------------------------------------
@@ -498,12 +680,61 @@ class StoreView:
     K1's device table of the segments (``kernels.fused_query
     .segment_table``) in ``k1_segments`` order, built once per view: the
     segments for a single-device store, every (shard, segment) pair,
-    shard-major, for a sharded one."""
+    shard-major, for a sharded one.
+
+    On the card ``ready`` is an event recorded on the publishing stream
+    after the view's last upload (its lookups and K1 table); a reader
+    takes the view through ``acquire``."""
 
     segments: tuple          # base + deltas, slot-offset order
     luts: tuple              # per segment (live (m+1,), eff (m,))
     wins: tuple              # per segment live-window lookups (or None)
     generation: int = 0
+    ready: object = dataclasses.field(default=None, compare=False,
+                                      repr=False)
+    # the streams (``cuda_stream`` handles) the arrays were marked on
+    pinned: set = dataclasses.field(default_factory=set, compare=False,
+                                    repr=False)
+
+    def tensors(self):
+        """Every device array the view's queries read."""
+        for seg in self.segments:
+            yield seg.keys
+            yield seg.sorted_keys
+            yield seg.perm
+            yield seg.stacked
+            yield from seg.corpus.leaves
+        for lut in self.luts:
+            yield from lut
+        for win in self.wins:
+            if win is not None:
+                yield from win
+        table = self.__dict__.get("k1_table")
+        if table is not None:
+            yield table.desc
+
+    def acquire(self) -> "StoreView":
+        """Ready the view for work on the current stream -> the view.
+
+        On the card the current stream waits on ``ready`` (the view's
+        uploads on the publishing stream), and the first time a stream
+        reads the view, each array is marked as in use on it
+        (``Tensor.record_stream``; a no-op on the array's own stream). When
+        the view's store is replaced (``apply_swap``) or the view
+        superseded, the caching allocator then hands that memory out again
+        only after the work this stream had queued by the time the arrays
+        were freed has run: a query in flight never reads a store whose
+        memory was reused. A no-op on the CPU."""
+        if self.ready is None:
+            return self
+        stream = torch.cuda.current_stream(self.base.keys.device)
+        stream.wait_event(self.ready)
+        handle = stream.cuda_stream
+        if handle not in self.pinned:
+            for t in self.tensors():
+                t.record_stream(stream)
+            self.pinned.add(handle)
+        return self
 
     @property
     def base(self) -> TableSegment | ShardedSegment:
@@ -683,13 +914,18 @@ class SegmentStore:
 
     def _publish(self) -> None:
         """Assemble and install a fresh immutable view (one attribute
-        write); on the card its K1 table is built here, not per query."""
+        write). On the card its K1 table is uploaded here, not per query,
+        and the view's ``ready`` event is recorded on the current stream
+        after that upload, before the view is installed."""
         self._generation += 1
+        cuda = self.device.type == "cuda"
         view = StoreView(segments=tuple(self._segments()),
                          luts=tuple(self._luts), wins=tuple(self._wins),
-                         generation=self._generation)
-        if self.device.type == "cuda":
+                         generation=self._generation,
+                         ready=torch.cuda.Event() if cuda else None)
+        if cuda:
             _ = view.k1_table       # uploaded now, not by the next query
+            view.ready.record(torch.cuda.current_stream(self.device))
         self.view = view
 
     @property
@@ -814,6 +1050,29 @@ class SegmentStore:
         idx = torch.from_numpy(self._live_slots_seq_order()).to(self.device)
         keys = torch.cat([k for k, _ in flats])[idx]
         return keys, _cat_corpus([c for _, c in flats]).index(idx)
+
+    def effective_arrays_chunked(self, chunk: int):
+        """``effective_arrays`` with the corpus assembled by bounded gather
+        + scatter steps (``gather_rows_chunked``) in the kernels' stacked
+        layout -> (keys, corpus, stacked): ``corpus`` views ``stacked``,
+        whose values equal the one-pass gather's stacked corpus bit for
+        bit. The keys stay one step: a few bytes an item."""
+        idx = self._live_slots_seq_order()
+        flat_keys, srcs, src_idxs, dst_idxs = [], [], [], []
+        off = 0
+        for seg in self._segments():
+            flat_keys.append(_flat(seg)[0])
+            srcs.append(seg.stacked.flatten(0, 1)
+                        if isinstance(seg, ShardedSegment) else seg.stacked)
+            dst = np.flatnonzero((idx >= off) & (idx < off + seg.slots))
+            src_idxs.append(idx[dst] - off)
+            dst_idxs.append(dst)
+            off += seg.slots
+        keys = torch.cat(flat_keys)[torch.from_numpy(idx).to(self.device)]
+        _step_done(self.device)
+        stacked = gather_rows_chunked(srcs[0], srcs, src_idxs, dst_idxs,
+                                      idx.size, chunk=chunk)
+        return keys, unstack_like(self.base.corpus, stacked), stacked
 
     def effective_corpus(self):
         """The live corpus in effective-id order: the base's own for a

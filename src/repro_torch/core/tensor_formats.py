@@ -293,6 +293,23 @@ def batch_of_one(x):
     return x.index(None)
 
 
+def stack_items(items):
+    """Single items of one format (each as ``batch_of_one`` takes it: a
+    plain (d_1, ..., d_N) tensor or a ``DenseTensor``, or a CP or TT
+    tensor) -> one batch, item i its row i. Tensors are stacked on the
+    first item's device; CP and TT items must share their scale."""
+    first = items[0]
+    if isinstance(first, torch.Tensor):
+        return DenseTensor(torch.stack([torch.as_tensor(x, device=first.device)
+                                        for x in items]), tuple(first.shape))
+    if any(x.scale != first.scale for x in items):
+        raise ValueError("stack_items: items of different scales")
+    dev = first.leaves[0].device
+    return first.with_leaves(
+        torch.stack([leaf.to(dev) for leaf in leaves])
+        for leaves in zip(*(x.leaves for x in items)))
+
+
 def _shape(batch: int | None, *shape: int) -> tuple[int, ...]:
     return shape if batch is None else (batch,) + shape
 

@@ -16,6 +16,7 @@
   ref.py          plain oracles
   parity.py       the rounding bounds kernels and plain versions are held to
   _build.py       nvcc build (sm_90a) and ctypes binding, at first use
+  counts.py       the wrappers' launch counts, by lane, under one lock
 
 A wrapper launches its CUDA kernel for CUDA tensors and runs the plain
 version for CPU tensors; nothing falls back from one to the other.

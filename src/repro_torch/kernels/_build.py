@@ -19,6 +19,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -71,6 +72,8 @@ SIGNATURES = {
 }
 
 _LIB = None
+_LIB_LOCK = threading.Lock()   # the serving scheduler's two lanes can make
+                               # the first call at once
 BUILD_INFO: dict = {}
 
 
@@ -142,17 +145,21 @@ def build() -> Path:
 
 
 def lib() -> ctypes.CDLL:
-    """The loaded kernel library (built on first call)."""
+    """The loaded kernel library (built on first call, by one thread:
+    the others wait for it)."""
     global _LIB
-    if _LIB is None:
-        handle = ctypes.CDLL(str(build()))
-        for name, argtypes in SIGNATURES.items():
-            fn = getattr(handle, name)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
-        handle.repro_cuda_error_string.argtypes = [_I]
-        handle.repro_cuda_error_string.restype = ctypes.c_char_p
-        _LIB = handle
+    if _LIB is not None:
+        return _LIB
+    with _LIB_LOCK:
+        if _LIB is None:
+            handle = ctypes.CDLL(str(build()))
+            for name, argtypes in SIGNATURES.items():
+                fn = getattr(handle, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            handle.repro_cuda_error_string.argtypes = [_I]
+            handle.repro_cuda_error_string.restype = ctypes.c_char_p
+            _LIB = handle
     return _LIB
 
 

@@ -28,6 +28,7 @@ import functools
 
 import torch
 
+from repro_torch.kernels.counts import count_launch, counted
 from repro_torch.kernels.epilogues import (EPILOGUES, Plan, apply_epilogue,
                                            needs_zeros, out_struct, sm_count,
                                            thread_plan, warp_plan)
@@ -170,8 +171,8 @@ def cp_gram(x_factors: torch.Tensor, p_factors: torch.Tensor,
         float(w), float(scale), lp.block_items, lp.block_hashes, lp.threads,
         lp.smem, torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "cp_gram_launch")
-    cp_gram.launches += 1
+    count_launch(cp_gram)
     return out
 
 
-cp_gram.launches = 0
+counted(cp_gram)

@@ -20,6 +20,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels.counts import count_launch, counted
 from repro_torch.kernels.epilogues import div_w
 
 
@@ -61,8 +62,8 @@ def e2lsh_quant(values: torch.Tensor, offsets: torch.Tensor,
         v.data_ptr(), offs.data_ptr(), out.data_ptr(), b, k, float(w),
         torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "e2lsh_quant_launch")
-    e2lsh_quant.launches += 1
+    count_launch(e2lsh_quant)
     return out
 
 
-e2lsh_quant.launches = 0
+counted(e2lsh_quant)

@@ -84,6 +84,7 @@ import torch
 from repro_torch.core import probing
 from repro_torch.core import segments as _seg
 from repro_torch.kernels import epilogues as _epi
+from repro_torch.kernels.counts import LOCK, count_launch, counted
 from repro_torch.kernels.epilogues import (BLOCK_RESERVED, MAX_SMEM,
                                            SM_SMEM, SMEM_GRANULE)
 
@@ -660,7 +661,7 @@ class SegmentTable:
     and ``rc`` are the format's ``kernel_shape`` of the stacked corpus (a
     dense row reads as one mode of prod d floats, rank 1). ``segs`` keeps the tensors
     the pointers name alive; ``scratch`` holds the launches' global
-    scratch."""
+    scratch, one buffer per stream."""
 
     desc: torch.Tensor
     segs: tuple
@@ -669,11 +670,14 @@ class SegmentTable:
     n_modes: int
     d: int
     rc: int
-    # the global scratch of the queries whose window exceeds the shared one
-    # (``scratch_rows``: "slots", int32, per query a row of 3 * "scap" slots,
-    # a hash set that is empty (-1) between launches and a candidate list;
-    # SAMPLE_WORDS * "scap" for a sampling launch; "layout" the row's words
-    # a window slot and "scap")
+    # the global scratch of the queries whose window exceeds the shared one,
+    # keyed by the launching stream's ``cuda_stream`` handle (None on the
+    # CPU): two launches over one view on two streams (the scheduler's query
+    # lane and a direct call from another thread) never share a hash set.
+    # Each is {"slots": int32, per query a row of 3 * "scap" slots, a hash
+    # set that is empty (-1) between launches and a candidate list;
+    # SAMPLE_WORDS * "scap" for a sampling launch; "layout": the row's words
+    # a window slot and "scap"} (``scratch_rows``)
     scratch: dict = dataclasses.field(default_factory=dict, compare=False,
                                       repr=False)
 
@@ -742,15 +746,26 @@ def scratch_rows(table: SegmentTable, b: int, scap: int, dev,
     reused as it is; a buffer laid out otherwise holds old candidate lists
     where the new hash sets lie, and is emptied first (``scap`` follows T
     and the caps, which a view's callers may change from one call to the
-    next, and the mode)."""
-    slots = table.scratch.get("slots")
+    next, and the mode). The buffer is the current stream's own
+    (``stream_scratch``)."""
+    mine = stream_scratch(table, dev)
+    slots = mine.get("slots")
     if slots is None or slots.numel() < b * words * scap:
         slots = torch.full((b * words * scap,), -1, dtype=torch.int32,
                            device=dev)
-    elif table.scratch["layout"] != (words, scap):
+    elif mine["layout"] != (words, scap):
         slots.fill_(-1)
-    table.scratch.update(slots=slots, layout=(words, scap))
+    mine.update(slots=slots, layout=(words, scap))
     return slots
+
+
+def stream_scratch(table: SegmentTable, dev) -> dict:
+    """The current stream's entry of ``table.scratch`` (the CPU's, key
+    None, where there are no streams), made empty on first use."""
+    dev = torch.device(dev)
+    key = (torch.cuda.current_stream(dev).cuda_stream
+           if dev.type == "cuda" else None)
+    return table.scratch.setdefault(key, {})
 
 
 class BranchCounts(collections.Counter):
@@ -764,9 +779,15 @@ class BranchCounts(collections.Counter):
         self.on_card = {}   # device -> (1,) int64 queries not yet read
 
     def counter(self, dev) -> torch.Tensor:
-        """The card's count of scratch queries that a launch adds to."""
-        if dev not in self.on_card:
-            self.on_card[dev] = torch.zeros(1, dtype=torch.int64, device=dev)
+        """The card's count of scratch queries that a launch adds to, made
+        once (under the launch counts' lock, its zeros written before any
+        stream's launch can add to it)."""
+        with LOCK:
+            if dev not in self.on_card:
+                n = torch.zeros(1, dtype=torch.int64, device=dev)
+                if n.device.type == "cuda":
+                    torch.cuda.current_stream(dev).synchronize()
+                self.on_card[dev] = n
         return self.on_card[dev]
 
     def _fold(self) -> None:
@@ -1019,12 +1040,11 @@ def fused_query(values, offsets, mults, queries, segs, *, kind, w, num_tables,
         topk=topk, probes=probes, counts=fused_query.branches, mode=mode,
         key=key)
     if branches is not None:
-        fused_query.launches += 1
-        fused_query.branches.update(branches)
+        count_launch(fused_query, branches)
     return ids, scores, ncand
 
 
-fused_query.launches = 0
+counted(fused_query)
 fused_query.branches = BranchCounts()
 
 
@@ -1060,10 +1080,9 @@ def fused_query_sharded(values, offsets, mults, queries, base, deltas, *,
                                            counts=fused_query_sharded.branches,
                                            **kw)
     if branches is not None:
-        fused_query_sharded.launches += 1
-        fused_query_sharded.branches.update(branches)
+        count_launch(fused_query_sharded, branches)
     return ids, scores, ncand
 
 
-fused_query_sharded.launches = 0
+counted(fused_query_sharded)
 fused_query_sharded.branches = BranchCounts()

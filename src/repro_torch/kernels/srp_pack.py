@@ -26,6 +26,7 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch.kernels.counts import count_launch, counted
 from repro_torch.kernels.epilogues import pack_bits, sm_count
 
 # the source's constants (csrc/srp_pack.cu: kThreads, kMinBlocks,
@@ -133,8 +134,8 @@ def srp_pack(values: torch.Tensor) -> torch.Tensor:
         p.pieces, int(p.path == "vector"),
         torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "srp_pack_launch")
-    srp_pack.launches += 1
+    count_launch(srp_pack)
     return out
 
 
-srp_pack.launches = 0
+counted(srp_pack)

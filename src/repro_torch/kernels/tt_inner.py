@@ -31,6 +31,7 @@ import functools
 
 import torch
 
+from repro_torch.kernels.counts import count_launch, counted
 from repro_torch.kernels.epilogues import (EPILOGUES, Plan, apply_epilogue,
                                            needs_zeros, out_struct, sm_count,
                                            thread_plan, warp_plan)
@@ -174,8 +175,8 @@ def tt_inner(x_cores: torch.Tensor, p_cores: torch.Tensor,
         float(w), float(scale), lp.block_items, lp.block_hashes, lp.threads,
         lp.smem, torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "tt_inner_launch")
-    tt_inner.launches += 1
+    count_launch(tt_inner)
     return out
 
 
-tt_inner.launches = 0
+counted(tt_inner)

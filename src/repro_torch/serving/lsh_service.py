@@ -79,8 +79,16 @@ class ServiceStats:
     auto_compact_ms: float = 0.0
     rebalances: int = 0        # explicit cross-shard re-partitions
     rebalance_ms: float = 0.0
+    rejected: int = 0          # requests refused by a tenant quota
+                               # (set by the serving scheduler)
     shard_occupancy: tuple[int, ...] = ()  # live items per shard (sharded
                                            # index only; updated per mutation)
+    # serving-plane counters (set by the serving scheduler)
+    errors: int = 0            # failed ingest-lane mutations
+    last_error: str = ""       # "<Type>: <message>" of the newest failure
+    retries: int = 0           # ingest retries after transient IO failures
+    timeouts: int = 0          # requests expired past the scheduler deadline
+    unavailable: int = 0       # requests shed while degraded / recovering
 
     @property
     def occupancy_skew(self) -> float:
@@ -122,7 +130,10 @@ class ServiceStats:
         self.compactions = self.auto_compactions = self.rebalances = 0
         self.insert_ms = self.compact_ms = self.auto_compact_ms = 0.0
         self.rebalance_ms = 0.0
+        self.rejected = 0
         self.shard_occupancy = ()
+        self.errors = self.retries = self.timeouts = self.unavailable = 0
+        self.last_error = ""
 
 
 class LSHService:
@@ -158,6 +169,8 @@ class LSHService:
                     "index always probes full buckets (pass device=True)")
             self.index = HostLSHIndex(family, metric=metric)
         self.stats = ServiceStats()
+        self.health = "serving"  # namespace health; the scheduler marks a
+                                 # namespace "degraded" after a failure
 
     @property
     def device(self) -> torch.device:
@@ -177,14 +190,18 @@ class LSHService:
 
     def query_arrays(self, queries, topk: int = 10, *,
                      probes: int | None = None, mode: str | None = None,
-                     seed: int | None = None):
+                     seed: int | None = None, stat_rows: int | None = None):
         """Batched raw results: (ids (B, topk), scores (B, topk), n_cand (B,))
         numpy arrays; ids -1-filled where a row has fewer than topk
         candidates. Requests are validated with the reference's contract.
         The sampling modes ("uniform" / "weighted") draw ``topk`` distinct
         members of each query's probed union and need an explicit ``seed``
         (the draw's generator is made from it and nothing else, so a seed
-        replays the draw on the same store); "topk" refuses one."""
+        replays the draw on the same store); "topk" refuses one.
+        ``stat_rows`` caps the rows the query counters count: a caller that
+        pads a batch passes its real row count, so pad rows never count.
+        The batch runs on the current stream; the one copy of the results
+        to the host waits for that stream only."""
         probes = self.probes if probes is None else int(probes)
         if probes < 1:
             raise ValueError(f"probes must be >= 1, got {probes}")
@@ -206,6 +223,8 @@ class LSHService:
                              "mode='topk' is deterministic")
         queries = as_batch(queries, len(self.index.family.projection.dims))
         n = queries.leaves[0].shape[0]
+        if stat_rows is not None:
+            n = min(n, int(stat_rows))
         t0 = time.perf_counter()
         ids, scores, n_cand = self.index.query_batch(queries, topk=int(topk),
                                                      probes=probes, mode=mode,
@@ -275,7 +294,7 @@ class LSHService:
         t0 = time.perf_counter()
         index.insert(batch.to(self.device), batch_size=batch_size)
         if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+            torch.cuda.current_stream(self.device).synchronize()
         dt_ms = (time.perf_counter() - t0) * 1e3
         self.stats.insert_ms += dt_ms - (index.auto_compact_s - auto_s0) * 1e3
         self.stats.inserted += n

@@ -51,7 +51,13 @@ whole floats, a query row past the staged one, K1s; CP and TT queries
 over TT rows of ranks 5 to 16 (``<16, 0>``, ``<8, 8>``, ``<16, 16>``: a
 row a warp through a ring slot or in place, ``tt_chain``) at ranks 5, 8
 and 16, ragged, four modes, a live window at T = 4, the global scratch
-bit for bit on integer data, and K1s.
+bit for bit on integer data, and K1s. The serving scheduler's streams:
+the query lane on its own stream of the highest priority, the ingest lane
+on another, neither the default stream, each lane's kernels counted on it;
+a view published on one stream behind a delay kernel read on another
+right after the flip (its event waited on; the control without the wait
+reads the unfinished table); K1's global scratch per stream (two threads,
+two streams, one view); the chunked fold bit-equal to the one-pass fold.
 """
 
 import math
@@ -1916,3 +1922,175 @@ def test_cp_queries_over_a_64_cube_tt_corpus(gen):
     assert fused_query.branches["k1:<16, 0>"] == before + 1
     ids, _, _ = svc.query_arrays(q, topk=10)
     assert int(nc.sum()) > 0 and (ids[:, 0] >= 0).any()
+
+
+# ---------------------------------------------------------------------------
+# The serving scheduler's two streams
+# ---------------------------------------------------------------------------
+
+
+def _sched_service(gen, n=4000, shards=None, **kw):
+    from repro_torch.serving.lsh_service import build_service
+    dims = (6, 6, 6)
+    corpus = cp_random_data(gen, dims, 3, batch=n)
+    svc = build_service(gen, "cp-e2lsh", dims, corpus, num_codes=6,
+                        num_tables=4, rank=2, bucket_width=2.0,
+                        shards=shards, **kw)
+    return svc, corpus
+
+
+def test_scheduler_lanes_run_on_their_own_streams(gen):
+    """The query lane runs on a stream of the highest priority, the ingest
+    lane on another; neither is the default stream; each lane's kernels
+    launch on its stream and count on its lane; scheduled rows equal the
+    direct batch's bit for bit."""
+    from repro_torch.serving import scheduler as sched_mod
+    svc, corpus = _sched_service(gen)
+    q = _planted(gen, corpus, corpus.leaves[0].shape[0], 24)
+    direct = svc.query_arrays(q, topk=10)
+    seen = {}
+    idx = svc.index
+    for name in ("query_batch", "insert"):
+        fn = getattr(idx, name)
+
+        def spy(*a, _fn=fn, _name=name, **kw):
+            seen.setdefault(_name, set()).add(
+                torch.cuda.current_stream().cuda_stream)
+            return _fn(*a, **kw)
+        setattr(idx, name, spy)
+    for f in (fused_query, cp_gram):
+        f.lanes.clear()
+    with sched_mod.ServingScheduler(svc, max_batch=8) as sched:
+        qs, ing = sched.streams[svc.device]
+        futs = [sched.query(q.index(i)) for i in range(24)]
+        got = [f.result(timeout=60) for f in futs]
+        sched.insert(corpus.index(slice(0, 64))).result(timeout=60)
+    default = torch.cuda.default_stream(svc.device).cuda_stream
+    assert len({qs.cuda_stream, ing.cuda_stream, default}) == 3
+    assert qs.priority < ing.priority
+    assert qs.priority == torch.cuda.Stream(priority=-(1 << 10)).priority
+    assert seen == {"query_batch": {qs.cuda_stream},
+                    "insert": {ing.cuda_stream}}
+    assert fused_query.lanes[sched_mod.QUERY_LANE] >= 3
+    assert cp_gram.lanes[sched_mod.QUERY_LANE] >= 3
+    assert cp_gram.lanes[sched_mod.INGEST_LANE] == 1
+    for i, (ids, sc, nc) in enumerate(got):
+        assert (ids == direct[0][i]).all() and nc == direct[2][i]
+        assert (sc.view("int32") == direct[1][i].view("int32")).all()
+
+
+def test_view_published_on_ingest_stream_is_read_after_its_event(gen,
+                                                                 monkeypatch):
+    """A delete publishes a view on the ingest stream whose K1 table is
+    still being written there, behind a delay kernel, when the flip
+    happens; a query launched on the query stream right after the flip
+    waits on the view's event and answers from the new view. The control,
+    with the wait taken out, reads the unfinished table (the old view's
+    rows) and answers as before the delete: the race is real."""
+    from repro_torch.core import segments as seg_mod
+    svc, corpus = _sched_service(gen)
+    idx = svc.index
+    q = corpus.index(torch.arange(16, device="cuda"))    # self-queries
+    real = fq_mod.segment_table
+    ing, qs = torch.cuda.Stream(), torch.cuda.Stream(priority=-(1 << 10))
+
+    def slow_table(segs, caps):
+        table = real(segs, caps)
+        final = table.desc.clone()
+        table.desc.copy_(old_desc)           # what a stale read sees
+        torch.cuda._sleep(200_000_000)       # the delay kernel
+        table.desc.copy_(final)
+        return table
+
+    monkeypatch.setattr(fq_mod, "segment_table", slow_table)
+    for wait in (True, False):
+        if not wait:
+            monkeypatch.setattr(seg_mod.StoreView, "acquire",
+                                lambda self: self)
+        old_view = idx.store.view
+        old_desc = old_view.k1_table.desc
+        before = idx.query_batch(q, topk=10)
+        torch.cuda.synchronize()
+        with torch.cuda.stream(ing):
+            idx.delete(list(range(0, 16, 2)))
+        with torch.cuda.stream(qs):
+            got = idx.query_batch(q, topk=10)       # right after the flip
+        torch.cuda.synchronize()
+        after = idx.query_batch(q, topk=10)         # the settled new view
+        torch.cuda.synchronize()
+        assert not torch.equal(after[0], before[0])
+        want = after if wait else before            # the control: stale
+        for g, w_ in zip(got, want):
+            assert torch.equal(g, w_)
+        del old_view
+
+
+def test_k1_scratch_is_per_stream(gen):
+    """Two threads on two streams query one view whose launches take the
+    global scratch: each answers as a single thread does, bit for bit, and
+    the view's table holds one scratch buffer per stream."""
+    import threading
+    from repro_torch.serving.lsh_service import build_service
+    dims, n = (6, 6, 6), 6000
+    base = _integer_data(gen, "cp", dims, n)
+    dup = 3 * fq_mod.MAX_WINDOW // 4
+    rows = torch.cat([torch.arange(n, device="cuda"),
+                      torch.zeros(dup, dtype=torch.long, device="cuda")])
+    svc = build_service(gen, "cp-e2lsh", dims, _repeat(base, rows),
+                        num_codes=6, num_tables=4, rank=2, bucket_width=4.0)
+    q = _repeat(base, torch.cat([
+        torch.zeros(32, dtype=torch.long, device="cuda"),
+        torch.randint(1, n, (96,), generator=gen, device="cuda")]))
+    before = _scratch_queries()
+    want = svc.query_arrays(q, topk=10)
+    assert _scratch_queries() > before
+    out, errors = {}, []
+
+    def serve(k):
+        try:
+            with torch.cuda.stream(torch.cuda.Stream()):
+                out[k] = [svc.query_arrays(q, topk=10) for _ in range(6)]
+        except Exception as exc:        # reported below
+            errors.append(exc)
+
+    threads = [threading.Thread(target=serve, args=(k,)) for k in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=120)
+    assert not errors and not any(t.is_alive() for t in threads)
+    for k in range(2):
+        for got in out[k]:
+            for g, w_ in zip(got, want):
+                assert (g.view("int32") == w_.view("int32")).all()
+    assert len(svc.index.store.view.k1_table.scratch) >= 3
+
+
+@pytest.mark.parametrize("shards", [None, 3])
+def test_chunked_fold_on_card_equals_one_pass(gen, shards):
+    """The chunked, throttled compaction on the card (chunks of 1,000 rows,
+    a stream sync after each step) gives the one-pass fold's arrays bit
+    for bit, and the same answers."""
+    # two services from one seed: the same family, corpus and store
+    svc, corpus = _sched_service(torch.Generator(device="cuda").manual_seed(
+        5), n=5000, shards=shards, bucket_cap=32)
+    other, _ = _sched_service(torch.Generator(device="cuda").manual_seed(5),
+                              n=5000, shards=shards, bucket_cap=32)
+    extra = corpus.index(slice(0, 700))
+    for s, chunk in ((svc, 1000), (other, None)):
+        s.index.swap_chunk_rows = chunk
+        s.insert(extra)
+        s.delete(torch.arange(0, 5600, 7))
+        s.apply_swap(s.prepare_compact())
+    a, b = svc.index.store.base, other.index.store.base
+    assert a.cap == b.cap
+    va, vb = svc.index.store.view, other.index.store.view
+    for x, y in zip(va.tensors(), vb.tensors()):
+        if x is va.k1_table.desc:       # K1's table: pointers, not values
+            continue
+        if x.dtype == torch.float32:
+            x, y = x.view(torch.int32), y.view(torch.int32)
+        assert torch.equal(x, y)
+    q = _planted(gen, corpus, 5000, 64)
+    for g, w_ in zip(svc.query_arrays(q), other.query_arrays(q)):
+        assert (g == w_).all()

@@ -506,4 +506,4 @@ def test_scratch_rows_relayout_between_modes():
     b[:8] = 5
     c = fq.scratch_rows(table, 4, 16, "cpu")
     assert c.data_ptr() == b.data_ptr() and bool((c == -1).all())
-    assert table.scratch["layout"] == (3, 16)
+    assert fq.stream_scratch(table, "cpu")["layout"] == (3, 16)
