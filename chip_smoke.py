@@ -183,6 +183,27 @@ Phases (any failure exits non-zero):
      the quota's refusal counted, 4,096 queries racing a compaction of a
      mutated store each bit-equal to the pre- or the post-swap direct row,
      recall@1 of the quiet queries.
+  16. [durable main] (run at the end of 3, after [sched]),
+     ``serving.durability.DurableLSHService`` at [main]'s width: its
+     snapshots and WAL under a ``tempfile.mkdtemp()`` directory (removed
+     at the end; its filesystem and whether ``O_DIRECT`` was taken are
+     printed), 12 rounds of a 256-item delete and a planted batch with a
+     ``compact()`` after 8, a crash right after the next delete's commit
+     (``FaultInjector``'s ``post_wal_append``), a fresh service's
+     ``recover()``: 16 planted batches bit-equal to the crashed instance's
+     answers, recall@1 over the surviving targets, K3 and K1 launched on
+     both services; the snapshot's time and bytes, WAL ms a record, the
+     recovery's load / restore / replay / reopen split, the batch mean
+     beside [main]'s; K1 and K3 against their plain versions and timed.
+  17. [durable ingest] (after the CP cell), benchmarks/durability.py's
+     design in this script's code: a clustered dense (8, 8, 8) corpus of
+     100,000 items, cp-e2lsh K = 4, L = 8, bucket_cap 64, max_deltas 20;
+     1,024-item inserts and 256-item deletes through a plain service and a
+     durable one (insert items/s both ways, the overhead beside the
+     reference's 10% gate, printed), a snapshot, more rounds, a crash and
+     a recovery bit-equal to the live service on 4 planted batches; a
+     scheduler pass whose failed WAL appends degrade the tenant until
+     ``recover_namespace()`` brings it back; the same at S = 2 (K1s).
 
 Every path's kernel counters are zeroed just before it runs and read just
 after: each kernel and each K1 / K1s branch it needs must have launched,
@@ -197,6 +218,7 @@ from __future__ import annotations
 import argparse
 import json
 import math
+import os
 import re
 import subprocess
 import sys
@@ -1004,7 +1026,24 @@ def phase_times(svc, cell, queries, k1_args):
           f"{h_bound:.4f} ms by {h_by} ({h_bytes / 1e6:.1f} MB, "
           f"{h_flops / 1e9:.2f} GFLOP, {pair} FLOP per (item, hash))")
 
-    # the query side: one raw launch per batch of stacked queries
+    q_t, q_err, q_lib = query_hash_times(svc, queries)
+    k1_t = k1_times(svc, queries, k1_args,
+                    "K1-TT" if corpus.layout == "tt" else "K1")
+    return (h_ms, h_plain, h_bound, h_by), k1_t, q_t, q_err, q_lib, h_lib
+
+
+def query_hash_times(svc, queries):
+    """The hash kernel's raw launch per batch of stacked queries on the
+    card (CUDA events) beside its bound, its plain version's time and one
+    fp32 ``torch.einsum`` over the same operands; held against its plain
+    version on the first ``QUERY_HASH_BATCHES`` batches -> ((ms, plain ms,
+    bound ms, bound by), the max error, the einsum's ms)."""
+    idx = svc.index
+    fam, corpus = idx.family, idx.effective_corpus()
+    f = hash_fns(corpus.layout)
+    p = fam.stacked_projection
+    t = fam.num_tables * fam.num_codes
+    proj = fam.projection.input_format(fam.projection.leaves, 1.0)
     qss = [q.stack()[1] for q in queries]
     q0 = queries[0]
     raw = dict(epilogue="raw", scale=q0.scale * fam.projection.scale)
@@ -1045,11 +1084,7 @@ def phase_times(svc, cell, queries, k1_args):
     print(f"[{f['name']}] raw on {min(len(qss), QUERY_HASH_BATCHES)} query "
           f"batches of {b_q}: within the rounding bound (max |kernel - "
           f"plain| {q_err:.3g}); {accuracy}")
-
-    k1_t = k1_times(svc, queries, k1_args,
-                    "K1-TT" if corpus.layout == "tt" else "K1")
-    return ((h_ms, h_plain, h_bound, h_by), k1_t,
-            (q_ms, q_plain, q_bound, q_by), q_err, q_lib, h_lib)
+    return (q_ms, q_plain, q_bound, q_by), q_err, q_lib
 
 
 def k1_times(svc, queries, k1_args, name, corpus=None, sample=None):
@@ -3865,6 +3900,402 @@ def phase_sched(cell, corpus, qids, queries) -> None:
     torch.cuda.empty_cache()
 
 
+DURABLE = dict(rounds=8, after=4, deletes=256, batches=16, seed=61,
+               no_snap=10 ** 9)
+# benchmarks/durability.py's bench-ingest workload, and its gate
+DURABLE_INGEST = dict(dims=(8, 8, 8), n=100_000, per_cluster=8, noise=0.15,
+                      kind="cp-e2lsh", codes=4, tables=8, rank=2, width=16.0,
+                      cap=64, max_deltas=20, insert=1024, delete=256,
+                      rounds=8, batches=4, retries=2, seed=29,
+                      shard_items=1 << 15, shards=2, gate=10.0)
+
+
+def fs_of(path: str) -> str:
+    """The filesystem type and mount point holding ``path`` (the longest
+    mount point of /proc/self/mounts that contains it)."""
+    real, best, kind = os.path.realpath(path), "", "unknown"
+    with open("/proc/self/mounts") as f:
+        for line in f:
+            parts = line.split()
+            mnt = parts[1].replace("\\040", " ")
+            inside = real == mnt or real.startswith(mnt.rstrip("/") + "/")
+            if inside and len(mnt) > len(best):
+                best, kind = mnt, parts[2]
+    return f"{kind} at {best}"
+
+
+def dir_bytes(path: str) -> int:
+    return sum(os.path.getsize(os.path.join(root, name))
+               for root, _, names in os.walk(path) for name in names)
+
+
+def recovery_line(svc) -> str:
+    r = svc.last_recovery
+    return (f"recovery {svc.stats.recovery_ms / 1e3:.3f} s (load "
+            f"{r['load_s']:.3f} s, restore {r['install_s']:.3f} s, replay "
+            f"{r['replay_s']:.3f} s of {r['records']} records, the WAL's "
+            f"reopen {r['reopen_s']:.3f} s)")
+
+
+def phase_durable_main(cell, corpus, qids, queries, main_mean) -> list:
+    """[durable main]: ``DurableLSHService`` at [main]'s full width (its
+    family, corpus and queries; ``snapshot_every`` out of reach), its
+    snapshots and WAL under a ``tempfile.mkdtemp()`` directory removed at
+    the end. 8 rounds of a 256-item delete (random live effective ids) and
+    a planted batch, ``compact()`` (the epoch marker), 4 more rounds; then
+    ``post_wal_append`` armed on the next delete, which commits and
+    "crashes". A fresh service with the same family recovers from the
+    directory. Fails unless 16 planted batches on the recovered store equal
+    the crashed instance's answers bit for bit, recall@1 over the
+    surviving targets is at least RECALL1_MIN, K3 and K1 launched on both
+    services and no plain version ran. Prints the filesystem, whether
+    ``O_DIRECT`` was taken, the build, snapshot 0's time and bytes, WAL ms
+    a record, the recovery split, and the recovered store's batch mean
+    beside [main]'s."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+    from repro_torch.core.lsh import make_family
+    from repro_torch.serving.durability import (DurableLSHService,
+                                                FaultInjector, InjectedCrash)
+    c = DURABLE
+    t_phase = time.perf_counter()
+    smi = smi_line()
+    n = corpus.leaves[0].shape[0]
+    nb = c["batches"]
+    tmp = tempfile.mkdtemp(prefix="durable_main_")
+    try:
+        fam = make_family(torch.Generator(device="cuda").manual_seed(1),
+                          cell["kind"], cell["dims"],
+                          num_codes=cell["codes"], num_tables=cell["tables"],
+                          rank=cell["rank"], bucket_width=cell["width"],
+                          device="cuda")
+        inj = FaultInjector()
+        torch.cuda.synchronize()
+        zero_counts()
+        t0 = time.perf_counter()
+        svc = DurableLSHService(fam, tmp, snapshot_every=c["no_snap"],
+                                injector=inj).build(corpus)
+        t_build = time.perf_counter() - t0
+        snap0 = dir_bytes(os.path.join(tmp, "snap_000000000000"))
+        print(f"[durable main] on {smi}: directory on {fs_of(tmp)}, "
+              f"O_DIRECT {'taken' if svc.direct_io else 'refused'}; build "
+              f"{t_build:.3f} s (the index {svc.stats.build_s:.3f} s, "
+              f"snapshot 0 {svc.stats.snapshot_ms / 1e3:.3f} s, "
+              f"{snap0 / 1e6:.1f} MB)")
+        rng = np.random.default_rng(c["seed"])
+        alive = np.ones(n, bool)
+
+        def delete_round():
+            live = np.flatnonzero(alive)
+            eff = np.sort(rng.choice(live.size, size=c["deletes"],
+                                     replace=False))
+            try:
+                svc.delete(eff)
+            finally:               # a post-append crash applied it too
+                alive[live[eff]] = False
+
+        def targets(b):
+            q = qids[b].cpu().numpy()
+            return np.where(alive[q], np.cumsum(alive)[q] - 1, -1)
+
+        for r in range(c["rounds"] + c["after"]):
+            if r == c["rounds"]:
+                svc.compact()
+            delete_round()
+            svc.query_arrays(queries[r], topk=TOPK)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        check_counts(counts, "durable main (live)", ("cp_gram",
+                                                     "fused_query"))
+        wal_rec = svc.stats.wal_ms / svc.stats.wal_appends
+        inj.crash_at("post_wal_append")
+        try:
+            delete_round()
+            fail("durable main: the armed post_wal_append never fired")
+        except InjectedCrash:
+            pass
+        crashed = [svc.query_arrays(q, topk=TOPK) for q in queries[:nb]]
+        tgts = [targets(b) for b in range(nb)]
+        appends = svc.stats.wal_appends + 1
+        svc.close()
+        del svc
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        zero_counts()
+        rec = DurableLSHService(fam, tmp,
+                                snapshot_every=c["no_snap"]).recover()
+        results, lat_ms = serve(rec, queries[:nb])
+        torch.cuda.synchronize()
+        counts = read_counts()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"[durable main] {c['rounds'] + c['after'] + 1} deletes of "
+          f"{c['deletes']} and a compact: {appends} WAL records, "
+          f"{wal_rec:.3f} ms a record; {recovery_line(rec)}"
+          f"; the directory removed: {not os.path.exists(tmp)}")
+    print(f"[durable main] launches on the recovered service: "
+          f"{({k: v for k, v in counts.items() if v})}")
+    check_counts(counts, "durable main (recovered)", ("cp_gram",
+                                                      "fused_query"))
+    for b, (got, want) in enumerate(zip(results, crashed)):
+        same_answers(got, want, f"durable main: recovered batch {b} "
+                     "against the crashed instance's")
+    hits1, n_q = check_results(results, tgts, rec.index.size)
+    summary = latency_line("durable main", rec, lat_ms)
+    print(f"[durable main] {nb} planted batches on the recovered store equal "
+          f"the crashed instance's bit for bit; recall@1 (planted, "
+          f"surviving) {hits1 / n_q:.4f} over {n_q}; batch mean "
+          f"{summary['mean']:.3f} ms against [main]'s {main_mean:.3f} ms")
+    if hits1 / n_q < RECALL1_MIN:
+        fail(f"durable main: recall@1 {hits1 / n_q} below {RECALL1_MIN}")
+    k1_err, k1_args = k1_compare(rec, queries[0], "durable main, recovered")
+    k1_t = k1_times(rec, queries[:nb], k1_args, "K1 durable main")
+    q_t, q_err, q_lib = query_hash_times(rec, queries[:nb])
+    key, source, replaces = HASH_RECORDS["cp"]
+    print(f"[durable main] {time.perf_counter() - t_phase:.1f} s")
+    out = [record("fused_query[durable main]", *K1_SOURCE, counts,
+                  "fused_query", k1_err, k1_t),
+           dict(record(key + "[durable main query]", source, replaces,
+                       counts, key, q_err, q_t), library_ms=q_lib)]
+    del rec, k1_args
+    torch.cuda.empty_cache()
+    return out
+
+
+def ingest_rounds(svc, inserts) -> list:
+    """benchmarks/durability.py's cadence: a warm-up and ``rounds`` timed
+    rounds of a 1,024-item insert (host items; the insert returns after
+    its stream's sync) and a 256-item delete -> the timed inserts' wall
+    times in us. The warm-up round's WAL appends are not counted."""
+    import numpy as np
+    c = DURABLE_INGEST
+    rng = np.random.default_rng(7)
+    times = []
+    for r in range(c["rounds"] + 1):
+        batch = inserts[r * c["insert"]:(r + 1) * c["insert"]]
+        t0 = time.perf_counter()
+        svc.insert(batch)
+        t = (time.perf_counter() - t0) * 1e6
+        svc.delete(rng.choice(svc.index.size, size=c["delete"],
+                              replace=False))
+        if r > 0:
+            times.append(t)
+        else:
+            svc.stats.wal_ms, svc.stats.wal_appends = 0.0, 0
+    return times
+
+
+def phase_durable_ingest() -> list:
+    """[durable ingest], benchmarks/durability.py's design in this script's
+    code: a clustered dense (8, 8, 8) corpus of 100,000 items (8 a
+    cluster, noise 0.15), cp-e2lsh K = 4, L = 8, rank 2, w = 16,
+    ``bucket_cap`` 64, ``max_deltas`` 20; a warm-up and 8 timed rounds of
+    1,024-item inserts and 256-item deletes through a plain ``LSHService``
+    (WAL off), then through ``DurableLSHService`` (WAL on); a snapshot, 8
+    more rounds, a crash and a recovery by a fresh service. Then one
+    scheduler pass: ``pre_wal_append`` transient failures beyond
+    ``ingest_retries`` degrade the tenant and its queries are shed;
+    ``recover_namespace()`` brings it back and the next single query
+    equals the direct batch's row. And at S = 2 over the first 2^15 items:
+    two rounds, a crash after a delete's commit, a recovery. Fails unless
+    the recovered answers on 4 planted batches equal the live durable
+    service's bit for bit (S = 2: 2 batches), K1 <kDense, kDense> and K1s
+    launched and no plain version ran. Prints insert items/s both ways,
+    the overhead beside the reference's 10% gate (not enforced), WAL ms a
+    record, the snapshot and the recovery."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+    from repro_torch.core.lsh import make_family
+    from repro_torch.core.tensor_formats import as_batch
+    from repro_torch.kernels import fused_query as fq
+    from repro_torch.serving.durability import (DurableLSHService,
+                                                FaultInjector, InjectedCrash,
+                                                ServiceUnavailable,
+                                                TransientIOError,
+                                                latest_snapshot)
+    from repro_torch.serving.lsh_service import LSHService
+    from repro_torch.serving.scheduler import ServingScheduler
+    c = DURABLE_INGEST
+    t_phase = time.perf_counter()
+    smi = smi_line()
+    dims, b = c["dims"], c["insert"]
+    gen = torch.Generator(device="cuda").manual_seed(c["seed"])
+    n_clusters = max(c["n"] // c["per_cluster"], 1)
+    centers = torch.randn((n_clusters,) + dims, generator=gen, device="cuda")
+    corpus = (centers.repeat_interleave(c["per_cluster"], 0)[:c["n"]]
+              + c["noise"] * torch.randn((c["n"],) + dims, generator=gen,
+                                         device="cuda"))
+    n_ins = (c["rounds"] + 1) * b
+    # the inserts arrive from the host, as the reference's numpy batches
+    inserts = (centers.repeat((n_ins // n_clusters + 1, 1, 1, 1))[:n_ins]
+               + c["noise"] * torch.randn((n_ins,) + dims, generator=gen,
+                                          device="cuda")).cpu()
+    fam = make_family(gen, c["kind"], dims, num_codes=c["codes"],
+                      num_tables=c["tables"], rank=c["rank"],
+                      bucket_width=c["width"], device="cuda")
+    kw = dict(metric="euclidean", bucket_cap=c["cap"],
+              max_deltas=c["max_deltas"])
+    plain = LSHService(fam, **kw).build(corpus)
+    off_us = float(np.median(ingest_rounds(plain, inserts)))
+    del plain
+    torch.cuda.empty_cache()
+    dense_k1 = "fused_query:" + k1_instance(fq.DENSE, fq.DENSE)
+    tmp = tempfile.mkdtemp(prefix="durable_ingest_")
+    sdir = tempfile.mkdtemp(prefix="durable_ingest_s2_")
+    try:
+        torch.cuda.synchronize()
+        zero_counts()
+        inj = FaultInjector()
+        svc = DurableLSHService(fam, tmp, snapshot_every=DURABLE["no_snap"],
+                                injector=inj, **kw).build(corpus)
+        direct = svc.direct_io
+        on_us = float(np.median(ingest_rounds(svc, inserts)))
+        wal_rec = svc.stats.wal_ms / max(svc.stats.wal_appends, 1)
+        t0, dump_ms = time.perf_counter(), svc.stats.snapshot_ms
+        svc.snapshot()
+        snap_ms = (time.perf_counter() - t0) * 1e3
+        dump_ms = svc.stats.snapshot_ms - dump_ms
+        snap_bytes = dir_bytes(os.path.join(
+            tmp, f"snap_{latest_snapshot(tmp):012d}"))
+        ingest_rounds(svc, inserts)           # the log suffix to replay
+        inj.crash_at("post_wal_append")
+        try:
+            svc.delete(np.arange(0, 512, 2))
+            fail("durable ingest: the armed post_wal_append never fired")
+        except InjectedCrash:
+            pass
+        svc.close()
+        eff = svc.index.effective_corpus().data
+        qid = torch.randperm(eff.shape[0], generator=gen,
+                             device="cuda")[:c["batches"] * 1024]
+        batches = [eff[qid[i * 1024:(i + 1) * 1024]] + 0.02 * torch.randn(
+            (1024,) + dims, generator=gen, device="cuda")
+            for i in range(c["batches"])]
+        live = [svc.query_arrays(q, topk=TOPK) for q in batches]
+        del svc, eff
+        torch.cuda.empty_cache()
+        rinj = FaultInjector()
+        rec = DurableLSHService(fam, tmp, snapshot_every=DURABLE["no_snap"],
+                                injector=rinj, **kw).recover()
+        rec_line = recovery_line(rec)
+        got = [rec.query_arrays(q, topk=TOPK) for q in batches]
+        for i, (g, w_) in enumerate(zip(got, live)):
+            same_answers(g, w_, f"durable ingest: recovered batch {i} "
+                         "against the live durable service's")
+        # the scheduler: degrade on exhausted WAL retries, shed, recover
+        with ServingScheduler({"ingest": rec}, max_batch=64, deadline_ms=2.0,
+                              ingest_retries=c["retries"],
+                              retry_backoff_ms=1.0) as sched:
+            rinj.fail_transient("pre_wal_append", times=c["retries"] + 1)
+            try:
+                sched.insert(inserts[:b], tenant="ingest").result(
+                    timeout=120)
+                fail("durable ingest: an insert past its retries committed")
+            except TransientIOError:
+                pass
+            if rec.health != "degraded":
+                fail(f"durable ingest: health {rec.health!r} after the "
+                     "retries ran out")
+            try:
+                sched.query(batches[0][0], tenant="ingest")
+                fail("durable ingest: a degraded tenant's query was admitted")
+            except ServiceUnavailable:
+                shed = sched.stats.shed
+            t0 = time.perf_counter()
+            sched.recover_namespace("ingest").result(timeout=300)
+            sched_ms = (time.perf_counter() - t0) * 1e3
+            if rec.health != "serving":
+                fail(f"durable ingest: health {rec.health!r} after "
+                     "recover_namespace()")
+            row = sched.query(batches[0][0], tenant="ingest",
+                              topk=TOPK).result(timeout=120)
+        want = rec.query_arrays(batches[0][:1], topk=TOPK)
+        if not row_equal(row, row_of(want, 0)):
+            fail("durable ingest: the scheduled query after the recovery "
+                 "differs from the direct batch's row")
+        # S = 2 over the first items: K1s on a recovered sharded store
+        sub = corpus[:c["shard_items"]]
+        sinj = FaultInjector()
+        ssvc = DurableLSHService(fam, sdir, snapshot_every=DURABLE[
+            "no_snap"], shards=c["shards"], injector=sinj, **kw).build(sub)
+        srng = np.random.default_rng(11)
+        for r in range(2):
+            ssvc.insert(inserts[r * b:(r + 1) * b])
+            ssvc.delete(srng.choice(ssvc.index.size, size=c["delete"],
+                                    replace=False))
+        sinj.crash_at("post_wal_append")
+        try:
+            ssvc.delete(np.arange(0, 64))
+            fail("durable ingest S=2: the armed crash never fired")
+        except InjectedCrash:
+            pass
+        ssvc.close()
+        sq = [sub[torch.randint(0, sub.shape[0], (1024,), generator=gen,
+                                device="cuda")] + 0.02 for _ in range(2)]
+        slive = [ssvc.query_arrays(q, topk=TOPK) for q in sq]
+        del ssvc
+        srec = DurableLSHService(fam, sdir, snapshot_every=DURABLE[
+            "no_snap"], shards=c["shards"], **kw).recover()
+        for i, q in enumerate(sq):
+            same_answers(srec.query_arrays(q, topk=TOPK), slive[i],
+                         f"durable ingest S=2: recovered batch {i}")
+        torch.cuda.synchronize()
+        counts = read_counts()
+        fs = fs_of(tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        shutil.rmtree(sdir, ignore_errors=True)
+    off_ips, on_ips = b / (off_us / 1e6), b / (on_us / 1e6)
+    overhead = (on_us - off_us) / off_us * 100.0
+    print(f"[durable ingest] on {smi}: directory on {fs}, O_DIRECT "
+          f"{'taken' if direct else 'refused'}; n={c['n']} dense "
+          f"{dims}, {c['kind']} K={c['codes']} L={c['tables']}, bucket_cap "
+          f"{c['cap']}, max_deltas {c['max_deltas']}")
+    print(f"[durable ingest] insert of {b} items (median of {c['rounds']} "
+          f"rounds): WAL off {off_us / 1e3:.3f} ms ({off_ips:.0f} items/s), "
+          f"WAL on {on_us / 1e3:.3f} ms ({on_ips:.0f} items/s): overhead "
+          f"{overhead:+.1f}% (the reference's gate {c['gate']:.0f}%, printed "
+          f"for comparison); {wal_rec:.3f} ms a WAL record")
+    print(f"[durable ingest] snapshot {snap_ms:.1f} ms (the store's dump "
+          f"{dump_ms:.1f} ms, {snap_bytes / 1e6:.1f} MB; the rest the WAL's "
+          f"rotation); crash after a committed delete; a fresh service's "
+          f"{rec_line}; {c['batches']} planted batches equal the live "
+          f"service's bit for bit")
+    print(f"[durable ingest] scheduler: {c['retries'] + 1} failed WAL "
+          f"appends degraded the tenant, {shed} request shed, "
+          f"recover_namespace() {sched_ms:.1f} ms ({rec.stats.recoveries} "
+          f"recoveries), then a single query equal to the direct row; S=2 "
+          f"over {c['shard_items']} items recovered bit for bit; the "
+          f"directories removed: "
+          f"{not (os.path.exists(tmp) or os.path.exists(sdir))}")
+    print(f"[durable ingest] launches: "
+          f"{({k: v for k, v in counts.items() if v})}")
+    check_counts(counts, "durable ingest", ("fused_query", dense_k1,
+                                            "fused_query_sharded"))
+    k1_err, k1_args = k1_compare(rec, as_batch(batches[0]),
+                                 "durable ingest, recovered")
+    k1_t = k1_times(rec, [as_batch(q) for q in batches], k1_args,
+                    "K1-dense durable ingest")
+    s_err, s_args = k1_compare(srec, as_batch(sq[0]),
+                               "durable ingest S=2, recovered")
+    s_t = k1_times(srec, [as_batch(q) for q in sq], s_args,
+                   "K1s-dense durable ingest S=2")
+    print(f"[durable ingest] {time.perf_counter() - t_phase:.1f} s")
+    out = [record("fused_query[durable ingest]", *K1_SOURCE, counts,
+                  "fused_query", k1_err, k1_t),
+           record("fused_query_sharded[durable ingest S=2]", *K1S_SOURCE,
+                  counts, "fused_query_sharded", s_err, s_t)]
+    del rec, srec, k1_args, s_args
+    torch.cuda.empty_cache()
+    return out
+
+
 def record(name, source, replaces, counts, key, err, times):
     """One entry of the kernels line (``key`` a counter of read_counts;
     the plain calls are its kernel's)."""
@@ -3959,6 +4390,8 @@ def run_cell(layout: str, log2_corpus: int, args) -> list:
     records += phase_host(cell, corpus)
     torch.cuda.empty_cache()
     phase_sched(cell, corpus, qids, queries)
+    torch.cuda.empty_cache()
+    records += phase_durable_main(cell, corpus, qids, queries, main["mean"])
     return records
 
 
@@ -3981,6 +4414,8 @@ def main(argv=None) -> int:
     name, count, smi = phase_device()
     phase_build()
     kernels = run_cell("cp", args.log2_corpus, args)
+    torch.cuda.empty_cache()
+    kernels += phase_durable_ingest()
     torch.cuda.empty_cache()
     kernels += run_dense(args)
     torch.cuda.empty_cache()

@@ -732,33 +732,41 @@ def _cross_floats(queries, corpus) -> int:
 def _score_matrix(metric: str, queries, corpus,
                   chunk: int | None = None) -> torch.Tensor:
     """(B, n) exact scores, qq in the queries' format, yy in the corpus's and
-    qy across the two (``contractions.pair_inners``), the corpus taken
-    ``chunk`` items at a time (by default 2^21 floats of item rows, so that
-    the (B, chunk) Grams or TT chain steps bound the memory, and for a
-    cross-format pair at most 2^24 floats of its contraction's
-    intermediate)."""
-    if chunk is None:
-        chunk = max(1, (1 << 21) // corpus.row_floats)
-        cross = _cross_floats(queries, corpus)
-        if cross:
-            b = max(1, queries.leaves[0].shape[0])
-            chunk = max(1, min(chunk, (1 << 24) // (b * cross)))
-    qq = queries.self_inners()
-    qb = queries.index((slice(None), None))
+    qy across the two (``contractions.pair_inners``). Each query row is
+    scored on its own, a fresh contiguous copy of it against the corpus
+    taken ``chunk`` items at a time (by default 2^26 floats of one item's
+    rows and cross-format intermediate), so its bits do not depend on the
+    batch it came in: the contractions' reductions (BLAS, cuBLAS) order
+    their sums by the operands' shapes, and a batch folds its row count into
+    them. yy is the corpus's alone, computed once a chunk."""
     n = corpus.leaves[0].shape[0]
-    out = []
-    for s in range(0, n, chunk):
-        part = corpus.index(slice(s, min(s + chunk, n)))
-        yy = part.self_inners()
-        qy = contractions.pair_inners(qb, part.index((None,)))
-        if metric == "euclidean":
-            d2 = qq[:, None] + yy[None] - 2.0 * qy
-            out.append(torch.sqrt(torch.clamp(d2, min=0.0)))
-        else:
-            nq = torch.sqrt(torch.clamp(qq, min=0.0))
-            ny = torch.sqrt(torch.clamp(yy, min=0.0))
-            out.append(qy / (nq[:, None] * ny[None]))
-    return torch.cat(out, dim=1)
+    if chunk is None:
+        per_item = corpus.row_floats + _cross_floats(queries, corpus)
+        chunk = max(1, (1 << 26) // per_item)
+    bounds = [(s, min(s + chunk, n)) for s in range(0, n, chunk)]
+    parts = [corpus.index(slice(s, e)) for s, e in bounds]
+    yys = [part.self_inners() for part in parts]
+    rows = []
+    for i in range(queries.leaves[0].shape[0]):
+        q = queries.index(slice(i, i + 1))
+        q = q.with_leaves(leaf.clone(memory_format=torch.contiguous_format)
+                          for leaf in q.leaves)
+        qq = q.self_inners()
+        qb = q.index((slice(None), None))
+        out = []
+        for part, yy in zip(parts, yys):
+            qy = contractions.pair_inners(qb, part.index((None,)))
+            if metric == "euclidean":
+                d2 = qq[:, None] + yy[None] - 2.0 * qy
+                out.append(torch.sqrt(torch.clamp(d2, min=0.0)))
+            else:
+                nq = torch.sqrt(torch.clamp(qq, min=0.0))
+                ny = torch.sqrt(torch.clamp(yy, min=0.0))
+                out.append(qy / (nq[:, None] * ny[None]))
+        rows.append(torch.cat(out, dim=1))
+    if not rows:
+        return torch.empty((0, n), device=corpus.device)
+    return torch.cat(rows, dim=0)
 
 
 def brute_force_batch(metric: str, queries, corpus, topk: int = 10):

@@ -89,6 +89,13 @@ class ServiceStats:
     retries: int = 0           # ingest retries after transient IO failures
     timeouts: int = 0          # requests expired past the scheduler deadline
     unavailable: int = 0       # requests shed while degraded / recovering
+    # durability counters (set by ``durability.DurableLSHService``)
+    recoveries: int = 0        # successful snapshot+replay recoveries
+    recovery_ms: float = 0.0   # restore + replay wall time
+    wal_appends: int = 0       # committed WAL records
+    wal_ms: float = 0.0        # fsync-inclusive WAL append wall time
+    snapshots: int = 0         # atomic snapshots written
+    snapshot_ms: float = 0.0
 
     @property
     def occupancy_skew(self) -> float:
@@ -134,6 +141,8 @@ class ServiceStats:
         self.shard_occupancy = ()
         self.errors = self.retries = self.timeouts = self.unavailable = 0
         self.last_error = ""
+        self.recoveries = self.wal_appends = self.snapshots = 0
+        self.recovery_ms = self.wal_ms = self.snapshot_ms = 0.0
 
 
 class LSHService:

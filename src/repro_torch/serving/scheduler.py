@@ -74,8 +74,11 @@ failed mutation. Exhausted retries or an injected crash mark the namespace
 ``"degraded"``; a degraded or recovering namespace sheds every request
 with a typed ``ServiceUnavailable`` at submission instead of hanging,
 until ``recover_namespace()`` replays the tenant's durable state back to
-``"serving"`` (it needs a durable service, which is not ported yet: on
-``LSHService`` it raises the reference's ``TypeError``).
+``"serving"``: a ``durability.DurableLSHService`` tenant's ``recover()``
+runs on the ingest lane, so the recovery's uploads and its view's flip
+are made on the ingest stream and the query lane orders itself after them
+through ``StoreView.acquire``; on a plain ``LSHService`` it raises the
+reference's ``TypeError``.
 ``request_timeout_ms`` expires requests that sat queued too long with a
 ``RequestTimeout``.
 

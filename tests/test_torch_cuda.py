@@ -58,6 +58,13 @@ a view published on one stream behind a delay kernel read on another
 right after the flip (its event waited on; the control without the wait
 reads the unfinished table); K1's global scratch per stream (two threads,
 two streams, one view); the chunked fold bit-equal to the one-pass fold.
+Durability: a durable insert of a batch on the card logs the bytes of the
+same batch from the host; recovery on the card (snapshot upload, WAL
+replay) answers bit for bit as the live service at S = None and S = 2
+through K1 and K1s, with no plain version run; a recovery on the
+scheduler's ingest lane runs on the ingest stream and the next query-lane
+read answers from the restored view, not the old one. ``brute_force`` of
+one query equals its ``brute_force_batch`` row bit for bit on the card.
 """
 
 import math
@@ -2094,3 +2101,136 @@ def test_chunked_fold_on_card_equals_one_pass(gen, shards):
     q = _planted(gen, corpus, 5000, 64)
     for g, w_ in zip(svc.query_arrays(q), other.query_arrays(q)):
         assert (g == w_).all()
+
+
+# ---------------------------------------------------------------------------
+# Durability on the card, and brute force a row at a time
+# ---------------------------------------------------------------------------
+
+
+def _durable_service(gen, directory, n=3000, shards=None, **kw):
+    """A durable cp-e2lsh service over a dense (n, 6, 6, 6) corpus (the
+    WAL logs dense inserts), and the corpus."""
+    from repro_torch.core.lsh import make_family
+    from repro_torch.serving.durability import DurableLSHService
+    dims = (6, 6, 6)
+    corpus = torch.randn((n,) + dims, generator=gen, device="cuda")
+    fam = make_family(gen, "cp-e2lsh", dims, num_codes=6, num_tables=4,
+                      rank=2, bucket_width=4.0, device="cuda")
+    svc = DurableLSHService(fam, str(directory), bucket_cap=32,
+                            shards=shards, snapshot_every=10 ** 9, **kw)
+    return svc.build(corpus), corpus
+
+
+def _wal_bytes(directory):
+    import os
+    return [open(os.path.join(directory, n), "rb").read()
+            for n in sorted(os.listdir(directory)) if n.startswith("wal_")]
+
+
+def test_durable_insert_of_a_card_batch_logs_the_host_bytes(gen, tmp_path):
+    svc, corpus = _durable_service(gen, tmp_path / "card")
+    twin = type(svc)(svc.index.family, str(tmp_path / "host"),
+                     bucket_cap=32, snapshot_every=10 ** 9).build(corpus)
+    batch = corpus[:200] + 0.1 * torch.randn(
+        corpus[:200].shape, generator=gen, device="cuda")
+    svc.insert(batch)
+    twin.insert(batch.cpu())
+    svc.delete(torch.arange(0, 40, 3, device="cuda"))
+    twin.delete(list(range(0, 40, 3)))
+    svc.close()
+    twin.close()
+    card, host = _wal_bytes(tmp_path / "card"), _wal_bytes(tmp_path / "host")
+    assert len(card) == 1 and card == host
+    q = batch[:64]
+    for g, w_ in zip(svc.query_arrays(q), twin.query_arrays(q)):
+        assert (g == w_).all()
+
+
+@pytest.mark.parametrize("shards", [None, 2])
+def test_durable_recovery_on_card_equals_the_live_service(gen, tmp_path,
+                                                           shards):
+    from repro_torch.kernels.fused_query import (fused_query_plain,
+                                                 fused_query_sharded_plain)
+    from repro_torch.serving.durability import DurableLSHService
+    svc, corpus = _durable_service(gen, tmp_path, shards=shards)
+    for k in range(3):
+        svc.insert(corpus[k * 100:(k + 1) * 100] + 0.05)
+        svc.delete(torch.arange(k, 300, 7, device="cuda"))
+    svc.compact()
+    svc.snapshot()
+    svc.insert(corpus[:50] - 0.05)
+    svc.delete([0, 5, 9])
+    svc.close()
+    k1 = fused_query_sharded if shards else fused_query
+    plain = fused_query_sharded_plain if shards else fused_query_plain
+    launches, calls = k1.launches, plain.calls
+    rec = DurableLSHService(svc.index.family, str(tmp_path), bucket_cap=32,
+                            shards=shards).recover()
+    assert rec.last_recovery["records"] == 2
+    q = corpus[torch.randint(0, 3000, (128,), generator=gen,
+                             device="cuda")] + 0.05
+    want = svc.query_arrays(q)
+    got = rec.query_arrays(q)
+    for g, w_ in zip(got, want):
+        assert (g.view("int32") == w_.view("int32")).all()
+    assert k1.launches > launches and plain.calls == calls
+    va, vb = rec.index.store.view, svc.index.store.view
+    for a, b in zip(va.tensors(), vb.tensors()):
+        if a is getattr(va.k1_table, "desc", None):   # pointers, not values
+            continue
+        if a.dtype == torch.float32:
+            a, b = a.view(torch.int32), b.view(torch.int32)
+        assert torch.equal(a, b)
+
+
+def test_scheduler_recovery_is_read_on_the_query_lane(gen, tmp_path):
+    """A degraded durable tenant whose memory went ahead of its log (an
+    unlogged delete stands in for the lost state) recovers through
+    ``recover_namespace()`` on the ingest stream; the next query-lane read
+    answers from the restored view (the committed state), not the old
+    one."""
+    from repro_torch.serving import scheduler as sched_mod
+    from repro_torch.serving.durability import FaultInjector, InjectedCrash
+    from repro_torch.serving.lsh_service import LSHService
+    inj = FaultInjector().crash_at("post_wal_append", after=1)
+    svc, corpus = _durable_service(gen, tmp_path, injector=inj)
+    q = corpus[:24] + 0.05
+    streams = []
+    recover = svc.recover
+    svc.recover = lambda: (streams.append(
+        torch.cuda.current_stream().cuda_stream), recover())[1]
+    with sched_mod.ServingScheduler(svc, max_batch=8) as sched:
+        qs, ing = sched.streams[svc.device]
+        sched.insert(corpus[:100] + 0.01).result(timeout=60)
+        with pytest.raises(InjectedCrash):
+            sched.delete(list(range(0, 30, 2))).result(timeout=60)
+        assert svc.health == "degraded"
+        # past the health gate: the committed store, then memory run ahead
+        committed = LSHService.query_arrays(svc, q)
+        LSHService.delete(svc, list(range(30)))   # not logged
+        stale = LSHService.query_arrays(svc, q)
+        sched.recover_namespace().result(timeout=120)
+        got = [sched.query(q[i]).result(timeout=60) for i in range(24)]
+    assert streams == [ing.cuda_stream]
+    assert not (stale[0] == committed[0]).all()
+    for i, (ids, sc, nc) in enumerate(got):
+        assert (ids == committed[0][i]).all() and nc == committed[2][i]
+        assert (sc.view("int32") == committed[1][i].view("int32")).all()
+
+
+@pytest.mark.parametrize("layout", ["cp", "dense"])
+def test_brute_force_row_equals_its_batch_row_on_card(gen, layout):
+    from repro_torch.core.index import brute_force, brute_force_batch
+    from repro_torch.core.projections import densify_batch
+    dims = (8, 8, 8)
+    corpus = cp_random_data(gen, dims, 4, batch=5000)
+    queries = _planted(gen, corpus, 5000, 33)
+    if layout == "dense":
+        corpus, queries = (as_batch(densify_batch(x).reshape(
+            (-1,) + dims)) for x in (corpus, queries))
+    ids, scores = brute_force_batch("euclidean", queries, corpus, 10)
+    for i in range(33):
+        got = brute_force("euclidean", queries.index(i), corpus, 10)
+        assert (got[0] == ids[i]).all()
+        assert (got[1].view("int32") == scores[i].view("int32")).all()

@@ -21,6 +21,12 @@ carried across by ``torch_bridge.bridge_family``, services on the CPU.
 * Robustness without a WAL: a service subclass fires a ``FaultInjector``
   in ``insert`` on both sides; retries, errors, ``last_error``, health,
   shed counts and ``RequestTimeout`` match the reference's.
+* Robustness with the WAL (``durability.DurableLSHService``, the
+  reference's ``TestDegradedServing``): transient WAL failures retry and
+  commit one record; exhausted retries and an injected ``post_wal_append``
+  crash degrade the tenant, which sheds until ``recover_namespace()``
+  replays it back to "serving" on the ingest lane, bit for bit the
+  committed prefix of a plain service.
 
 The reference's services compile a few programs (builds, one insert and
 the scheduled batch shapes of ``test_coalesced_rows_match_direct_and_
@@ -659,3 +665,92 @@ def test_injector_rejects_unknown_points():
     assert tdur.CRASH_POINTS == jdur.CRASH_POINTS
     assert issubclass(tdur.TransientIOError, OSError)
     assert issubclass(tdur.WalCorrupted, tdur.DurabilityError)
+
+
+# ---------------------------------------------------------------------------
+# Durable tenants (tests/test_durability.py's TestDegradedServing, with the
+# WAL): recover_namespace replays the committed prefix
+# ---------------------------------------------------------------------------
+
+
+def _durable(directory, injector):
+    return _service(None, cls=tdur.DurableLSHService,
+                    directory=str(directory), injector=injector,
+                    snapshot_every=10 ** 9)
+
+
+def _assert_committed_prefix(svc, ops):
+    """``svc`` answers (rows and candidate sets) as a plain service that
+    applied ``ops`` (callables on the service) and nothing else."""
+    ref = _service(None)
+    for op in ops:
+        op(ref)
+    _assert_same(_answers(svc), _answers(ref))
+    for q in _queries()[:3]:
+        np.testing.assert_array_equal(svc.index.candidates(q),
+                                      ref.index.candidates(q))
+    return ref
+
+
+def test_durable_transient_wal_failure_retries_and_commits_once(tmp_path):
+    inj = tdur.FaultInjector().fail_transient("pre_wal_append", times=2)
+    svc = _durable(tmp_path, inj)
+    with tsched.ServingScheduler(svc, retry_backoff_ms=1.0) as sched:
+        sched.insert(torch.from_numpy(_batch())).result(timeout=60)
+        assert sched.stats.retries == 2 and svc.stats.retries == 2
+        assert sched.stats.errors == 0 and svc.health == "serving"
+    records, _ = tdur.read_wal(str(tmp_path))
+    assert [k for _, k, _ in records] == ["insert"]
+    assert svc.stats.wal_appends == 1
+
+
+def test_durable_exhausted_retries_degrade_then_recover(tmp_path):
+    inj = tdur.FaultInjector()
+    svc = _durable(tmp_path, inj)
+    q = _queries()[0]
+    first = torch.from_numpy(_batch(seed=1))
+    with tsched.ServingScheduler(svc, ingest_retries=2,
+                                 retry_backoff_ms=1.0) as sched:
+        sched.insert(first).result(timeout=60)
+        inj.fail_transient("pre_wal_append", times=3)  # 1 try + 2 retries
+        with pytest.raises(tdur.TransientIOError):
+            sched.insert(torch.from_numpy(_batch(seed=2))).result(timeout=60)
+        assert svc.health == "degraded"
+        assert sched.stats.errors == 1
+        assert "TransientIOError" in sched.tenant_stats().last_error
+        with pytest.raises(tdur.ServiceUnavailable):
+            sched.query(q)
+        with pytest.raises(tdur.ServiceUnavailable):
+            sched.insert(torch.from_numpy(_batch(seed=3)))
+        assert sched.stats.shed == 2 and svc.stats.unavailable >= 2
+        assert sched.recover_namespace().result(timeout=120) is svc
+        assert svc.health == "serving" and svc.stats.recoveries == 1
+        got = sched.query(q, topk=TOPK).result(timeout=60)
+    # the shed and the failed inserts never committed: insert #1 only
+    ref = _assert_committed_prefix(svc, [lambda s: s.insert(first)])
+    want = ref.query_arrays(_queries()[:1], topk=TOPK)
+    _assert_same(got, (want[0][0], want[1][0], int(want[2][0])))
+
+
+def test_durable_injected_crash_recovers_the_committed_delete(tmp_path):
+    """A crash right after the delete's record synced: the tenant degrades
+    and sheds; recovery replays the delete (it committed), and the next
+    scheduled query equals the direct row of that store."""
+    inj = tdur.FaultInjector().crash_at("post_wal_append", after=1)
+    svc = _durable(tmp_path, inj)
+    q = _queries()[0]
+    first = torch.from_numpy(_batch(seed=4))
+    with tsched.ServingScheduler(svc) as sched:
+        sched.insert(first).result(timeout=60)
+        with pytest.raises(tdur.InjectedCrash):
+            sched.delete([1, 8]).result(timeout=60)
+        assert svc.health == "degraded" and sched.stats.errors == 1
+        with pytest.raises(tdur.ServiceUnavailable):
+            sched.query(q)
+        sched.recover_namespace().result(timeout=120)
+        got = sched.query(q, topk=TOPK).result(timeout=60)
+    assert svc.last_recovery["records"] == 2
+    ref = _assert_committed_prefix(
+        svc, [lambda s: s.insert(first), lambda s: s.delete([1, 8])])
+    want = ref.query_arrays(_queries()[:1], topk=TOPK)
+    _assert_same(got, (want[0][0], want[1][0], int(want[2][0])))
