@@ -61,6 +61,20 @@ Phases (any failure exits non-zero):
          ``compact()``, then ``rebalance()`` equal to a fresh sharded build
          bit for bit; an exact-cap mutated sharded index answers as a fresh
          single-device one (ids and candidate counts);
+       - [mesh] (after [shard-mut]): [shard]'s service laid over an
+         explicit 4-slot mesh on cuda:0 (``distributed.sharding
+         .axis_rules``; each shard's blocks in their own memory, one K1s
+         launch a slot and the S-way merge): every batch equal to
+         [shard]'s bit for bit, K1s launched 4 times a batch and K3 once,
+         recall@1; the batch mean / median / p99 beside [shard]'s, the
+         device bytes a slot, each slot's K1s against its plain version
+         and its time, the merge's time; [shard-mut]'s script on the mesh
+         equal to [shard-mut]'s before and after ``compact()`` and after
+         ``rebalance()``; a snapshot of the mutated mesh store recovered
+         onto a new 4-slot mesh, bit for bit; 512 single queries through a
+         ``ServingScheduler``, each equal to a direct row; then
+         ``resolve_mesh(torch.cuda.device_count())`` over the machine's
+         real cards (one slot on a one-card machine), equal to [shard];
        - [tt-shard]: a tt-srp / cosine index at 2^16 over 3 shards (the last
          padded): answers equal the single-device index's, K1s-TT against
          its plain version;
@@ -2068,7 +2082,7 @@ def phase_shard_mixed(svc, dense, dense_results):
 
 
 def phase_shard(cell, corpus, qids, queries, main_results, mixed=None,
-                samples=None):
+                samples=None, keep=None):
     """[shard]: [main]'s corpus, family and queries through
     ``build_service(..., shards=4)`` (exact cap, T = 1), counters zeroed
     just before and read just after; every batch's ids, scores and
@@ -2078,7 +2092,8 @@ def phase_shard(cell, corpus, qids, queries, main_results, mixed=None,
     answers) also ``phase_shard_mixed``; with ``samples`` ([sample]'s
     answers by mode) [shard sample]: K1s's sampling pass over the first
     ``passes`` batches, each equal to [main]'s draw at the same seed bit
-    for bit -> the records."""
+    for bit -> the records. ``keep`` takes the answers and the latency
+    summary for [mesh]."""
     import torch
     from repro_torch.serving.lsh_service import build_service
     torch.cuda.synchronize()
@@ -2117,6 +2132,8 @@ def phase_shard(cell, corpus, qids, queries, main_results, mixed=None,
                                  f"B={len(qids[0])}")
     k1_t = k1_times(svc, queries, k1_args, f"K1s S={SHARD['shards']}")
     phase_profile(svc, queries, "shard-profile")
+    if keep is not None:
+        keep.update(shard=results, shard_summary=summary)
     del summary
     out = [record("fused_query_sharded", *K1S_SOURCE, counts,
                   "fused_query_sharded", k1_err, k1_t)]
@@ -2135,7 +2152,7 @@ def phase_shard(cell, corpus, qids, queries, main_results, mixed=None,
     return out
 
 
-def phase_shard_mut(cell, corpus, qids, args):
+def phase_shard_mut(cell, corpus, qids, args, keep=None):
     """[shard-mut]: [mut]'s script (bucket_cap 64, T = 4, max_deltas 8) over
     S = 4 shards: routed slabs, K1s's live-window branch over 4 x 9
     (shard, segment) pairs, shard-local ``compact()`` and ``rebalance()``,
@@ -2143,7 +2160,9 @@ def phase_shard_mut(cell, corpus, qids, args):
     occupancy within one item of even after the routed inserts, no deleted
     id returned, recall@1, the rebalanced index equal to a fresh sharded
     build bit for bit, and an exact-cap mutated sharded index equal to a
-    fresh single-device one (ids and candidate counts)."""
+    fresh single-device one (ids and candidate counts). ``keep`` takes the
+    insert batches, the query batches and the answers before and after
+    the compaction and after the rebalance, for [mesh]."""
     import numpy as np
     import torch
     from repro_torch.serving.lsh_service import build_service
@@ -2225,6 +2244,7 @@ def phase_shard_mut(cell, corpus, qids, args):
     svc.compact()
     compact_s = time.perf_counter() - t0
     counts_after = svc.index.store.base.counts
+    mutated_results = results
     results, lat_ms = serve(svc, queries)
     latency_line("shard-mut", svc, lat_ms, " after compact()")
     hits1c, rows_c, _ = check_mut_results("shard-mut (compacted)", svc,
@@ -2241,11 +2261,16 @@ def phase_shard_mut(cell, corpus, qids, args):
     fresh = build_service(None, cell["kind"], cell["dims"],
                           svc.index.effective_corpus(), family=fam, shards=s,
                           **kw)
-    for q in queries[:8]:
-        same_answers(svc.query_arrays(q, topk=TOPK),
-                     fresh.query_arrays(q, topk=TOPK),
+    rebalanced = [svc.query_arrays(q, topk=TOPK) for q in queries[:8]]
+    for q, got in zip(queries[:8], rebalanced):
+        same_answers(got, fresh.query_arrays(q, topk=TOPK),
                      "shard-mut: rebalanced index vs a fresh sharded build")
     del fresh
+    if keep is not None:
+        keep["shard-mut"] = dict(batches=batches, queries=queries,
+                                 results=mutated_results, compacted=results,
+                                 rebalanced=rebalanced, family=fam)
+    del mutated_results
     print(f"[shard-mut] compact() {compact_s:.3f} s (shard-local: per-shard "
           f"counts {counts_after}), recall@1 {hits1c / rows_c:.4f}; "
           f"rebalance() {rebalance_s:.3f} s (prepare "
@@ -2281,6 +2306,276 @@ def phase_shard_mut(cell, corpus, qids, args):
     del summary
     return record("fused_query_sharded[live window, slabs]", *K1S_SOURCE,
                   counts, "fused_query_sharded:segments", k1_err, k1_t)
+
+
+# [mesh]: [shard] and [shard-mut] over an explicit mesh of SHARD["shards"]
+# slots on cuda:0 (``axis_rules``), each slot's blocks on its own slot and
+# one K1s launch a slot; then the same path over the machine's real cards
+# (``resolve_mesh(torch.cuda.device_count())``). ``time_batches`` query
+# batches time each slot's K1s; ``sched_queries`` single queries go through
+# a ``ServingScheduler``; ``real_batches`` batches check the real-card mesh
+# on a one-card machine.
+MESH = dict(time_batches=32, sched_queries=512, real_batches=32,
+            merge_reps=64)
+
+
+def mesh_slot(svc, slot):
+    """One mesh slot of ``svc`` as the service-like object ``k1_compare`` /
+    ``k1_times`` read: the slot's store view (its base block, slab blocks
+    and K1 table) with the service's family, metric and mults."""
+    from types import SimpleNamespace
+    idx = svc.index
+    return SimpleNamespace(index=SimpleNamespace(
+        family=idx.family, metric=idx.metric, _mults_t=idx._mults_t,
+        store=SimpleNamespace(view=slot),
+        effective_corpus=idx.effective_corpus))
+
+
+def mesh_merge_ms(svc, query) -> float:
+    """The S-way merge's time (CUDA events) on one batch's per-slot K1s
+    outputs."""
+    import torch
+    from repro_torch.distributed import index_sharding
+    from repro_torch.kernels.fused_query import fused_query_sharded
+    idx = svc.index
+    fam = idx.family
+    x, q = query.stack()
+    values = fam.raw_stacked(q, x.scale)
+    outs = [fused_query_sharded(
+        values, fam.offsets, idx._mults_t, (x, q), slot.seg_arrays(0),
+        slot.delta_arrays, kind=fam.kind, w=fam.bucket_width,
+        num_tables=fam.num_tables, num_codes=fam.num_codes,
+        metric=idx.metric, topk=TOPK, cap=slot.base.cap,
+        delta_caps=slot.delta_caps, table=slot.k1_table)
+        for slot in idx.store.view.slots]
+    ids, scores, nc = (torch.stack(p) for p in zip(*outs))
+    return cuda_ms([lambda: index_sharding.merge_topk(idx.metric, TOPK, ids,
+                                                      scores, nc)],
+                   MESH["merge_reps"])
+
+
+def phase_mesh(cell, corpus, qids, queries, keep):
+    """[mesh]: [shard]'s service (exact cap, T = 1) built through
+    ``build_service(..., shards=4)`` under ``axis_rules`` of an explicit
+    4-slot mesh on cuda:0, every counter zeroed just before its 256
+    batches and read just after. Fails unless every batch equals [shard]'s
+    bit for bit, recall@1 >= RECALL1_MIN, K1s launched 4 times a batch
+    and K3 once, with no plain version run. Prints the batch mean / median
+    / p99 beside [shard]'s, each slot's device bytes, each slot's K1s
+    against its plain version and its time, and the merge's time. Then
+    [shard-mut]'s script on the mesh (bucket_cap 64, T = 4, the same
+    inserts, deletes, compaction and rebalance): every answer equal to
+    [shard-mut]'s; a snapshot of the mutated mesh store recovered by a
+    ``DurableLSHService`` onto a new 4-slot mesh, its answers equal; 512
+    single queries through a ``ServingScheduler``, each equal to a direct
+    row; then ``resolve_mesh(torch.cuda.device_count())``: one slot a card
+    (one on a one-card machine), its answers equal to [shard]'s -> the K1s
+    record of the mesh path (the slots' times summed: a batch's K1s
+    work)."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+    from repro_torch.distributed import index_sharding
+    from repro_torch.distributed.sharding import Mesh, axis_rules
+    from repro_torch.serving.durability import (DurableLSHService,
+                                                write_snapshot)
+    from repro_torch.serving.lsh_service import build_service
+    from repro_torch.serving.scheduler import ServingScheduler
+    t_phase = time.perf_counter()
+    smi = smi_line()
+    s = SHARD["shards"]
+    n = corpus.leaves[0].shape[0]
+    slots = [torch.device("cuda", 0)] * s
+
+    def mesh_service(**extra):
+        with axis_rules(Mesh(slots, ("shard",))):
+            svc = build_service(
+                torch.Generator(device="cuda").manual_seed(1), cell["kind"],
+                cell["dims"], corpus, num_codes=cell["codes"],
+                num_tables=cell["tables"], rank=cell["rank"],
+                bucket_width=cell["width"], shards=s, device="cuda",
+                **extra)
+        if (svc.index.query_path != "shard_map"
+                or svc.index.store.base.devices != tuple(slots)):
+            fail(f"mesh: the index is not laid over the {s}-slot mesh")
+        return svc
+
+    # the query path: [shard] over the mesh
+    svc = mesh_service()
+    torch.cuda.synchronize()
+    zero_counts()
+    results, lat_ms = serve(svc, queries)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    n_b = len(queries) + 1             # serve's warm-up batch
+    print(f"[mesh] launches on the main path: "
+          f"{ {k: v for k, v in counts.items() if v} }")
+    check_counts(counts, "mesh", ("cp_gram", "fused_query_sharded"))
+    if (counts["fused_query_sharded"], counts["cp_gram"],
+            counts["fused_query"]) != (s * n_b, n_b, 0):
+        fail(f"mesh: K1s launched {counts['fused_query_sharded']} times and "
+             f"K3 {counts['cp_gram']} over {n_b} batches of {s} slots "
+             f"(want {s * n_b} and {n_b}), K1 {counts['fused_query']}")
+    for i, (got, want) in enumerate(zip(results, keep["shard"])):
+        same_answers(got, want, f"mesh: batch {i} against [shard]")
+    hits1, n_q = check_results(results, [q.cpu().numpy() for q in qids], n)
+    if hits1 / n_q < RECALL1_MIN:
+        fail(f"mesh: recall@1 {hits1 / n_q} below {RECALL1_MIN}")
+    summary = latency_line("mesh", svc, lat_ms, f" over {s} slots")
+    ref = keep["shard_summary"]
+    view = svc.index.store.view
+    # each storage once: the corpus leaves are views of the stacked copy
+    slot_bytes = [sum({t.untyped_storage().data_ptr():
+                       t.untyped_storage().nbytes()
+                       for t in slot.tensors()}.values())
+                  for slot in view.slots]
+    print(f"[mesh] on {smi}: all {len(results)} batches equal [shard]'s bit "
+          f"for bit (ids, scores, candidate counts), recall@1 "
+          f"{hits1 / n_q:.4f}; K1s {s} launches a batch, K3 one; batch mean "
+          f"{summary['mean']:.4f} ms, median {summary['median']:.4f} ms, "
+          f"p99 {summary['p99']:.4f} ms against [shard]'s {ref['mean']:.4f}"
+          f" / {ref['median']:.4f} / {ref['p99']:.4f} ms in this run; "
+          f"device bytes a slot {slot_bytes} (the home card holds no copy "
+          f"of the sharded arrays)")
+    corpus_eff = svc.index.effective_corpus()
+    errs, times = [], []
+    for i, slot in enumerate(view.slots):
+        one = mesh_slot(svc, slot)
+        err, k1_args = k1_compare(one, queries[0], f"mesh slot {i} of {s}, "
+                                  f"B={len(qids[0])}", corpus=corpus_eff)
+        times.append(k1_times(one, queries[:MESH["time_batches"]], k1_args,
+                              f"K1s mesh slot {i} of {s}", corpus_eff))
+        errs.append(err)
+    merge_ms = mesh_merge_ms(svc, queries[0])
+    print(f"[mesh] on {smi}: K1s a slot "
+          f"{[round(t[0], 4) for t in times]} ms (sum "
+          f"{sum(t[0] for t in times):.4f} ms a batch), the merge "
+          f"(packed_select over {s} x {TOPK} rows) {merge_ms:.4f} ms")
+    rec = record("fused_query_sharded[mesh]", *K1S_SOURCE, counts,
+                 "fused_query_sharded", max(errs),
+                 (sum(t[0] for t in times), sum(t[1] for t in times),
+                  sum(t[2] for t in times), times[0][3]))
+    del corpus_eff
+
+    # 512 single queries through the scheduler, each equal to a direct row
+    nq = MESH["sched_queries"]
+    sq = queries[1].index(slice(0, nq))
+    direct = svc.query_arrays(sq, topk=TOPK)
+    sched = ServingScheduler({"mesh": svc}, max_batch=64, deadline_ms=2.0)
+    try:
+        futs = [sched.query(sq.index(i), tenant="mesh", topk=TOPK)
+                for i in range(nq)]
+        rows = [f.result(timeout=120) for f in futs]
+    finally:
+        sched.close()
+    bad = [i for i, row in enumerate(rows)
+           if not row_equal(row, row_of(direct, i))]
+    if bad:
+        fail(f"mesh: {len(bad)} scheduled queries differ from their direct "
+             f"rows (first {bad[0]})")
+    print(f"[mesh] {nq} single queries through the scheduler each equal "
+          "their direct row bit for bit")
+    del svc, sched, results
+
+    # [shard-mut]'s script on the mesh
+    m = keep["shard-mut"]
+    msvc = mesh_service(bucket_cap=MUT["cap"], probes=MUT["probes"],
+                        max_deltas=MUT["max_deltas"])
+    _, _, note = mut_script("mesh-mut", msvc, m["batches"], n,
+                            np.random.default_rng(17))
+    if any(g.devices != tuple(slots) for g in msvc.index.store.deltas):
+        fail("mesh-mut: a routed slab is not laid over the mesh")
+    torch.cuda.synchronize()
+    zero_counts()
+    res, lat_ms = serve(msvc, m["queries"])
+    torch.cuda.synchronize()
+    counts_mut = read_counts()
+    n_b = len(m["queries"]) + 1
+    check_counts(counts_mut, "mesh-mut", (
+        "cp_gram", "fused_query_sharded", "fused_query_sharded:multiprobe",
+        "fused_query_sharded:live_window", "fused_query_sharded:segments"))
+    if counts_mut["fused_query_sharded"] != s * n_b:
+        fail(f"mesh-mut: K1s launched {counts_mut['fused_query_sharded']} "
+             f"times over {n_b} batches of {s} slots")
+    for i, (got, want) in enumerate(zip(res, m["results"])):
+        same_answers(got, want, f"mesh-mut: batch {i} against [shard-mut]")
+    latency_line("mesh-mut", msvc, lat_ms, f" over {s} slots")
+    tmp = tempfile.mkdtemp(prefix="mesh_")
+    try:
+        t0 = time.perf_counter()
+        write_snapshot(tmp, 0, msvc)
+        snap_s = time.perf_counter() - t0
+        msvc.compact()
+        for i, (q, want) in enumerate(zip(m["queries"], m["compacted"])):
+            same_answers(msvc.query_arrays(q, topk=TOPK), want,
+                         f"mesh-mut: compacted batch {i} against "
+                         "[shard-mut]'s")
+        msvc.rebalance()
+        for i, (q, want) in enumerate(zip(m["queries"], m["rebalanced"])):
+            same_answers(msvc.query_arrays(q, topk=TOPK), want,
+                         f"mesh-mut: rebalanced batch {i} against "
+                         "[shard-mut]'s")
+        if msvc.index.store.base.devices != tuple(slots):
+            fail("mesh-mut: the rebalanced store left the mesh")
+        del msvc
+        with axis_rules(Mesh(slots, ("shard",))):
+            dsvc = DurableLSHService(
+                m["family"], tmp, shards=s, bucket_cap=MUT["cap"],
+                probes=MUT["probes"], max_deltas=MUT["max_deltas"])
+            t0 = time.perf_counter()
+            dsvc.recover()
+            rec_s = time.perf_counter() - t0
+        if dsvc.index.store.base.devices != tuple(slots):
+            fail("mesh: the recovered store is not laid over the mesh")
+        for i, q in enumerate(m["queries"][:8]):
+            same_answers(dsvc.query_arrays(q, topk=TOPK), res[i],
+                         f"mesh: recovered batch {i} against the live "
+                         "mutated mesh store")
+        dsvc.close()
+        del dsvc
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"[mesh-mut] {note}; every batch equals [shard-mut]'s bit for bit "
+          f"before and after compact() and after rebalance(); the mutated "
+          f"store's snapshot {snap_s:.3f} s, recovered onto a new {s}-slot "
+          f"mesh in {rec_s:.3f} s, 8 batches equal bit for bit")
+
+    # the machine's real cards
+    count = torch.cuda.device_count()
+    mesh, axis = index_sharding.resolve_mesh(count, "cuda")
+    cards = index_sharding.slot_devices(mesh, axis)
+    rsvc = build_service(torch.Generator(device="cuda").manual_seed(1),
+                         cell["kind"], cell["dims"], corpus,
+                         num_codes=cell["codes"], num_tables=cell["tables"],
+                         rank=cell["rank"], bucket_width=cell["width"],
+                         shards=count, device="cuda")
+    if (rsvc.index.query_path != "shard_map"
+            or rsvc.index.store.base.devices != tuple(cards)):
+        fail(f"mesh: shards={count} is not laid over the {count} cards")
+    nr = len(queries) if count > 1 else MESH["real_batches"]
+    zero_counts()
+    real, lat_ms = serve(rsvc, queries[:nr])
+    torch.cuda.synchronize()
+    launched = read_counts()["fused_query_sharded"]
+    if launched != count * (nr + 1):
+        fail(f"mesh: K1s launched {launched} times over {nr + 1} batches "
+             f"of {count} cards")
+    for i, (got, want) in enumerate(zip(real, keep["shard"])):
+        same_answers(got, want, f"mesh: real-card batch {i} against [shard]")
+    if count > 1:
+        latency_line("mesh cards", rsvc, lat_ms, f" over {count} cards")
+        print(f"[mesh cards] {count} cards: every batch equals [shard]'s "
+              "bit for bit")
+    else:
+        print(f"[mesh] resolve_mesh({count}) on this machine: one slot on "
+              f"{cards[0]}, {nr} batches equal [shard]'s bit for bit; the "
+              "multi-card figures (peer copies, one card's memory a shard) "
+              "wait for a machine with more than one card")
+    del rsvc
+    print(f"[mesh] {time.perf_counter() - t_phase:.1f} s")
+    return rec
 
 
 def phase_tt_shard(cell) -> None:
@@ -4373,8 +4668,9 @@ def run_cell(layout: str, log2_corpus: int, args) -> list:
         phase_tt_mut(cell)
         phase_tt_shard(cell)
         return records
+    keep = {}
     records += phase_shard(cell, corpus, qids, queries, main_results, mixed,
-                           samples)
+                           samples, keep)
     del main_results, mixed, samples
     torch.cuda.empty_cache()
     records += phase_cp_as_tt(cell, corpus, qids, queries)
@@ -4383,7 +4679,10 @@ def run_cell(layout: str, log2_corpus: int, args) -> list:
     torch.cuda.empty_cache()
     records.append(phase_mut(cell, corpus, qids, args))
     torch.cuda.empty_cache()
-    records.append(phase_shard_mut(cell, corpus, qids, args))
+    records.append(phase_shard_mut(cell, corpus, qids, args, keep))
+    torch.cuda.empty_cache()
+    records.append(phase_mesh(cell, corpus, qids, queries, keep))
+    del keep
     torch.cuda.empty_cache()
     records.append(phase_ann_k8(cell, corpus, qids, queries))
     torch.cuda.empty_cache()

@@ -1,5 +1,6 @@
 """The device-resident (K, L) LSH indexes with streaming mutations
-(reference: ``repro.core.index``), on one device.
+(reference: ``repro.core.index``), on one device; the sharded index
+also over a mesh of devices.
 
 A corpus, an insert batch or a query batch is a batched CP or TT tensor or
 a plain (B, d_1, ..., d_N) dense tensor (wrapped once, ``as_batch``; the
@@ -24,10 +25,17 @@ delta slab, ``compact`` folds each shard's base slice, slabs and
 tombstones shard-locally (no re-hash, no cross-shard move), and
 ``rebalance`` (``prepare_rebalance`` + ``apply_swap``) is the one
 cross-shard move: it re-partitions the live corpus into the contiguous
-layout of a fresh build. ``query_batch`` runs one K1s launch over every
-(shard, segment) pair. All shards live on the index's one device, as in the
-reference's single-program (vmapped) path; placing them over several cards
-is queued (ROADMAP.md).
+layout of a fresh build. ``build`` resolves a mesh as the reference does
+(``distributed.index_sharding.resolve_mesh``: an ``axis_rules`` context
+whose ``lsh_shard`` axis has S slots, else the first S local devices of
+the index's type). Without one every shard lives on the index's device
+and ``query_batch`` runs one K1s launch over every (shard, segment) pair
+(``query_path`` "vmap", the reference's single-program path). With one,
+each shard's base block and slab blocks live on their slot's device, a
+query hashes once, launches K1s once a slot and merges the S results
+(``query_path`` "shard_map"): bit-equal to the one-device path. Routed
+slabs, compaction and the lookups work a slot at a time on the slots'
+devices; only ``rebalance`` moves items across them.
 
 ``_SegmentedIndex`` holds what the two share. Everything lives on the
 index's ``device`` ("cuda" unless the caller asks for the CPU, where the
@@ -194,6 +202,12 @@ class _SegmentedIndex(_LSHIndexBase):
         """The live corpus the returned ids index into."""
         return self.store.effective_corpus()
 
+    @property
+    def devices(self) -> tuple:
+        """Every device the index's arrays lie on, its own first."""
+        return (self.store.devices if self.store is not None
+                else (self.device,))
+
     # -- build --------------------------------------------------------------
 
     def _check_batch(self, batch) -> None:
@@ -214,7 +228,7 @@ class _SegmentedIndex(_LSHIndexBase):
         _sync(self.device)
         t1 = time.perf_counter()
         self.store = self._new_store(keys, corpus)
-        _sync(self.device)
+        segments.sync_devices(self.devices)
         self.hash_s, self.sort_s = t1 - t0, time.perf_counter() - t1
         self._reset_mutation_state()
         return self
@@ -236,10 +250,10 @@ class _SegmentedIndex(_LSHIndexBase):
         _sync(self.device)
         t1 = time.perf_counter()
         seg, positions = self._delta(keys, batch)
-        _sync(self.device)
+        segments.sync_devices(self.devices)
         t2 = time.perf_counter()
         self.store.append_delta(seg, positions)
-        _sync(self.device)
+        segments.sync_devices(self.devices)
         self.insert_s = (t1 - t0, t2 - t1, time.perf_counter() - t2)
         self._maybe_auto_compact()
         return self
@@ -259,7 +273,7 @@ class _SegmentedIndex(_LSHIndexBase):
             return
         t0 = time.perf_counter()
         self.compact()
-        _sync(self.device)
+        segments.sync_devices(self.devices)
         self.auto_compact_s += time.perf_counter() - t0
         self.auto_compactions += 1
 
@@ -275,15 +289,16 @@ class _SegmentedIndex(_LSHIndexBase):
         """Build the compacted replacement store off the query path: the
         stored keys of every live item (no re-hash), sorted anew, with its
         lookups, chunked and throttled unless ``swap_chunk_rows`` is None;
-        synchronizes its stream before it returns. None when the store is
-        pristine."""
+        synchronizes its stream on every device of the shadow store before
+        it returns, so the flip publishes a fully placed store. None when
+        the store is pristine."""
         store = self.store
         if not store.mutated:
             return None
         if store.n_live == 0:
             raise ValueError("cannot compact an index with no live items")
         shadow = self._build_compact_store(store)
-        _sync(self.device)
+        segments.sync_devices(shadow.devices)
         return PendingSwap(store=shadow, kind="compact", source=store,
                            generation=store.generation)
 
@@ -406,12 +421,14 @@ class DeviceLSHIndex(_SegmentedIndex):
 
 @dataclasses.dataclass
 class ShardedLSHIndex(_SegmentedIndex):
-    """Corpus-sharded (K, L) index on one device: a ``ShardedSegment`` base
-    of ``shards`` contiguous slices, routed delta slabs, shard-local
-    compaction and ``rebalance`` (see the module docstring). With the
-    default exact cap its answers equal ``DeviceLSHIndex``'s for any shard
-    count and any routing: K1 scores a candidate from its row and the
-    query alone, whatever segment holds it.
+    """Corpus-sharded (K, L) index: a ``ShardedSegment`` base of ``shards``
+    contiguous slices, routed delta slabs, shard-local compaction and
+    ``rebalance`` (see the module docstring), on the index's device or,
+    with a mesh resolved at ``build``, each shard on its mesh slot's device
+    (``mesh`` / ``mesh_axis``; ``query_path`` says which program runs).
+    With the default exact cap its answers equal ``DeviceLSHIndex``'s for
+    any shard count, any routing and any placement: K1 scores a candidate
+    from its row and the query alone, whatever segment or card holds it.
 
     An explicit ``bucket_cap`` truncates each *shard's* slice of a bucket,
     so the union of candidates can exceed the single-device truncation (up
@@ -437,11 +454,42 @@ class ShardedLSHIndex(_SegmentedIndex):
     hash_s: float = 0.0
     sort_s: float = 0.0
     insert_s: tuple = (0.0, 0.0, 0.0)
+    mesh: Any = None           # ``distributed.sharding.Mesh``, or None
+    mesh_axis: str | None = None
 
     def __post_init__(self):
         if int(self.shards) < 1:
             raise ValueError(f"shards must be >= 1, got {self.shards}")
         super().__post_init__()
+
+    @property
+    def query_path(self) -> str:
+        """The program ``query_batch`` runs: "shard_map" (hash once, K1s
+        once a mesh slot, the S-way merge) when a mesh carries the shard
+        axis, "vmap" (one K1s launch over every pair on the index's
+        device) without one: the reference's words."""
+        return "shard_map" if self.mesh is not None else "vmap"
+
+    def resolve_mesh(self) -> None:
+        """Resolve ``mesh`` / ``mesh_axis`` for the index's shard count and
+        device (``index_sharding.resolve_mesh``), as ``build`` and a
+        recovery do; a mesh whose slots this process cannot use raises."""
+        from repro_torch.distributed import index_sharding
+        self.mesh, self.mesh_axis = index_sharding.resolve_mesh(
+            int(self.shards), self.device)
+        if self.mesh is not None:
+            index_sharding.check_slots(self.mesh, self.mesh_axis, self.device)
+
+    def _place_segment(self, seg, shadow: bool = False):
+        """A one-device sharded segment laid over the mesh (the blocking
+        ``place_shadow`` for a swap's shadow store), or as it is without
+        one."""
+        if self.mesh is None:
+            return seg
+        from repro_torch.distributed import index_sharding
+        place = (index_sharding.place_shadow if shadow
+                 else index_sharding.place_sharded)
+        return place(seg, self.mesh, self.mesh_axis)
 
     @property
     def corpus(self):
@@ -461,8 +509,11 @@ class ShardedLSHIndex(_SegmentedIndex):
 
     @property
     def corpus_sharded(self):
-        """The base's (S, n_s, ...) zero-padded corpus."""
-        return self.store.base.corpus if self.store else None
+        """The base's (S, n_s, ...) zero-padded corpus (a mesh base's
+        blocks gathered home, on demand)."""
+        if not self.store:
+            return None
+        return segments.gather_blocks(self.store.base).corpus
 
     @property
     def shard_size(self) -> int:
@@ -474,6 +525,7 @@ class ShardedLSHIndex(_SegmentedIndex):
 
     def build(self, corpus, batch_size: int = 65536) -> "ShardedLSHIndex":
         corpus = as_batch(corpus, len(self.family.projection.dims))
+        self.resolve_mesh()
         super().build(corpus, batch_size)
         self._corpus = corpus if self.keep_corpus else None
         return self
@@ -482,20 +534,25 @@ class ShardedLSHIndex(_SegmentedIndex):
         super()._reset_mutation_state()
         self.rebalances = 0
 
-    def _new_store(self, keys, corpus) -> SegmentStore:
+    def _new_store(self, keys, corpus, shadow: bool = False) -> SegmentStore:
+        """The contiguous sharded build on the index's device, laid over
+        the mesh when there is one (``shadow``: and waited for)."""
         seg = build_sharded_segment(keys, corpus, int(self.shards),
                                     bucket_cap=self.bucket_cap,
                                     warn_layout=type(self).__name__)
-        return SegmentStore(seg, live_window=self.bucket_cap is not None)
+        return SegmentStore(self._place_segment(seg, shadow),
+                            live_window=self.bucket_cap is not None)
 
     def _delta(self, keys, batch):
         """One routed slab: least-loaded shards first, contiguous runs of
-        the batch, sorted per shard."""
+        the batch, sorted per shard (on each slot's device where the store
+        lies on a mesh)."""
         alloc, offsets = segments.route_balanced(
             keys.shape[0], self.store.shard_live_counts)
         return segments.build_sharded_delta(
             keys, batch, alloc, offsets, seq0=self.store.seq_len,
-            bucket_cap=self.bucket_cap)
+            bucket_cap=self.bucket_cap,
+            devices=self.store.base.devices or None)
 
     def _build_compact_store(self, store: SegmentStore) -> SegmentStore:
         """The shard-local fold: each shard keeps its own live items (base
@@ -504,7 +561,8 @@ class ShardedLSHIndex(_SegmentedIndex):
         ``swap_chunk_rows`` set the same values in bounded steps
         (``segments._slab_gather_sort_chunked``). Shards keep the item mix
         routing gave them; effective ids, and so results, do not change.
-        The live store is untouched."""
+        On a mesh each slot folds its own blocks on its own device. The
+        live store is untouched."""
         s = store.base.shards
         segs = store._segments()
         offs = np.cumsum([0] + [g.slots for g in segs[:-1]])
@@ -524,7 +582,36 @@ class ShardedLSHIndex(_SegmentedIndex):
             sel = np.flatnonzero(live2d[sh])    # slot order = seq order
             idx[sh, :sel.size] = sel
             new_pos[sh, :sel.size] = eff_seq[pos2d[sh, sel]]
-        dev = self.device
+        if store.base.blocks:
+            # each slot folds its own blocks: the one-device fold's slice
+            folds = [self._fold([g.blocks[sh] for g in segs],
+                                idx[sh:sh + 1], counts[sh:sh + 1], new_ns)
+                     for sh in range(s)]
+            max_run = max(f.cap for f in folds)
+        else:
+            fold = self._fold(segs, idx, counts, new_ns)
+            max_run = fold.cap
+        if self.bucket_cap is None:
+            cap = max(max_run, 1)
+            segments._warn_coarse(type(self).__name__, cap,
+                                  self.family.num_tables, int(counts.max()),
+                                  shards=s)
+        else:
+            cap = min(int(self.bucket_cap), new_ns)
+        if store.base.blocks:
+            seg = segments.mesh_segment(folds, cap, store.device)
+        else:
+            seg = dataclasses.replace(fold, cap=cap)
+        return SegmentStore(seg, base_pos=new_pos.reshape(-1),
+                            live_window=self.bucket_cap is not None)
+
+    def _fold(self, segs, idx: np.ndarray, counts: np.ndarray,
+              new_ns: int) -> segments.ShardedSegment:
+        """``_build_compact_store``'s gather and sort over one-device
+        sharded segments ``segs`` (the store's, or one slot's blocks) on
+        their device -> the folded segment, its ``cap`` the longest stored
+        run for the caller to settle."""
+        dev = segs[0].keys.device
         counts_t = torch.from_numpy(counts).to(dev)
         keys = [g.keys for g in segs]
         stacked = [g.stacked for g in segs]
@@ -538,19 +625,11 @@ class ShardedLSHIndex(_SegmentedIndex):
                 segments._slab_gather_sort_chunked(
                     keys, stacked, idx, counts_t, shard_size=new_ns,
                     chunk=int(self.swap_chunk_rows))
-        if self.bucket_cap is None:
-            cap = max(int(max_runs.max()), 1)
-            segments._warn_coarse(type(self).__name__, cap,
-                                  self.family.num_tables, int(counts.max()),
-                                  shards=s)
-        else:
-            cap = min(int(self.bucket_cap), new_ns)
-        seg = segments.ShardedSegment(
+        return segments.ShardedSegment(
             keys=keys_n, sorted_keys=sorted_keys, perm=perm,
-            corpus=unstack_like(store.base.corpus, stacked),
-            cap=cap, counts=tuple(int(c) for c in counts), stacked=stacked)
-        return SegmentStore(seg, base_pos=new_pos.reshape(-1),
-                            live_window=self.bucket_cap is not None)
+            corpus=unstack_like(segs[0].corpus, stacked),
+            cap=int(max_runs.max()), counts=tuple(int(c) for c in counts),
+            stacked=stacked)
 
     def _pre_publish(self, pending: PendingSwap) -> None:
         # a shard-local compaction leaves no contiguous build-time corpus
@@ -567,8 +646,8 @@ class ShardedLSHIndex(_SegmentedIndex):
         if store.n_live == 0:
             raise ValueError("cannot rebalance an index with no live items")
         keys, corpus = store.effective_arrays()
-        shadow = self._new_store(keys, corpus)
-        _sync(self.device)
+        shadow = self._new_store(keys, corpus, shadow=True)
+        segments.sync_devices(shadow.devices)
         return PendingSwap(store=shadow, kind="rebalance", source=store,
                            generation=store.generation,
                            corpus_cache=corpus if self.keep_corpus else None)
@@ -582,6 +661,12 @@ class ShardedLSHIndex(_SegmentedIndex):
         return self.apply_swap(self.prepare_rebalance())
 
     def _query(self, view, queries, topk, probes, mode, key):
+        if view.slots:
+            from repro_torch.distributed import index_sharding
+            return index_sharding.shard_map_query(
+                self.family, view, self._mults_t, queries,
+                metric=self.metric, topk=topk, probes=probes, mode=mode,
+                key=key)
         args = (self.family, view.seg_arrays(0), view.delta_arrays,
                 self._mults_t, queries)
         kw = dict(metric=self.metric, topk=topk, cap=view.base.cap,
@@ -592,6 +677,10 @@ class ShardedLSHIndex(_SegmentedIndex):
         return segments.sharded_query(*args, **kw)
 
     def _candidates(self, view, queries, probes):
+        if view.slots:
+            from repro_torch.distributed import index_sharding
+            return index_sharding.shard_map_candidates(
+                self.family, view, self._mults_t, queries, probes=probes)
         return segments.sharded_candidates(
             self.family, view.seg_arrays(0), view.delta_arrays,
             self._mults_t, queries, cap=view.base.cap,

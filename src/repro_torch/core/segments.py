@@ -1,5 +1,5 @@
 """Sorted segments, the mutable segment store and the query planners
-(reference: ``repro.core.segments``), on one device.
+(reference: ``repro.core.segments``), on one device or over a mesh.
 
 A segment is, per hash table, the bucket keys of its items sorted ascending,
 the matching permutation of local item ids, and the corpus the ids point
@@ -42,9 +42,15 @@ The chunked, throttled shadow build (``gather_rows_chunked``,
 synchronizing its own stream after each, so the query lane's kernels
 interleave with it; its arrays are bit-equal to the one-pass fold's.
 
-Everything runs on one device. The reference's vmapped sharded program is
-the layout this port serves; placing shards over several cards is queued
-(ROADMAP.md).
+A sharded segment is held on the index's one device, or, on a mesh
+(``distributed.index_sharding``), as S per-slot *blocks*: one-shard
+``ShardedSegment``s, each on its slot's device, and no copy of the whole
+on the home device (the device the index hashes on). The routed slabs
+(``build_sharded_delta(devices=...)``), the per-slot lookups, the store's
+gathers (``effective_arrays[_chunked]``, ``effective_corpus``) and the
+store's view (``StoreView.slots``: one view a slot, each with its own K1
+table) then work a slot at a time on the slot's device; the values equal
+the one-device layout's slices bit for bit.
 """
 
 from __future__ import annotations
@@ -223,6 +229,9 @@ class TableSegment:
     cap: int                    # probe width: the largest bucket at build
     stacked: torch.Tensor       # the kernel layout of the corpus
 
+    blocks = ()                 # never on a mesh (``ShardedSegment``'s are)
+    devices = ()
+
     @property
     def slots(self) -> int:
         return self.keys.shape[0]
@@ -272,15 +281,24 @@ class ShardedSegment:
     one, even through a ``_PAD_KEY`` collision, is masked as a miss by the
     liveness lookup. A fresh contiguous build fills every shard but the
     last; slabs and shard-locally compacted bases carry any counts.
+
+    On a mesh the arrays are None and ``blocks`` holds the S shards as
+    one-shard segments (arrays (1, ...)), block ``s`` on its slot's device
+    (``place_blocks``); ``home`` is the device the index hashes on, where
+    the store's gathers land.
     """
 
-    keys: torch.Tensor          # (S, n_s, L) corpus order, pads _PAD_KEY
-    sorted_keys: torch.Tensor   # (S, L, n_s) ascending per (shard, table)
-    perm: torch.Tensor          # (S, L, n_s) int32, pad slots -> n_s
-    corpus: CPTensor | TTTensor  # leaves (S, n_s, ...), views of stacked
+    keys: torch.Tensor | None   # (S, n_s, L) corpus order, pads _PAD_KEY
+    sorted_keys: torch.Tensor | None  # (S, L, n_s) ascending per (shard,
+                                      # table)
+    perm: torch.Tensor | None   # (S, L, n_s) int32, pad slots -> n_s
+    corpus: CPTensor | TTTensor | None  # leaves (S, n_s, ...), views of
+                                        # stacked
     cap: int                    # probe width: the largest per-shard bucket
     counts: tuple[int, ...]     # real items per shard
-    stacked: torch.Tensor       # (S, n_s, N, d, R) / (S, n_s, N, R, d, R)
+    stacked: torch.Tensor | None  # (S, n_s, N, d, R) / (S, n_s, N, R, d, R)
+    blocks: tuple = ()          # mesh: per-slot one-shard segments
+    home: torch.device | None = None  # mesh: the index's device
 
     @property
     def items(self) -> int:     # real (unpadded) item count
@@ -288,21 +306,74 @@ class ShardedSegment:
 
     @property
     def shards(self) -> int:
-        return self.keys.shape[0]
+        return len(self.blocks) if self.blocks else self.keys.shape[0]
 
     @property
     def shard_size(self) -> int:
-        return self.keys.shape[1]
+        return (self.blocks[0] if self.blocks else self).keys.shape[1]
 
     @property
     def slots(self) -> int:
-        return self.keys.shape[0] * self.keys.shape[1]
+        return self.shards * self.shard_size
+
+    @property
+    def devices(self) -> tuple:
+        """The slots' devices, in shard order (empty off a mesh)."""
+        return tuple(b.keys.device for b in self.blocks)
 
     @property
     def flat_corpus(self):
         """The corpus with its (S, n_s) slots flattened, in slot order."""
         c = self.corpus
         return c.with_leaves(a.flatten(0, 1) for a in c.leaves)
+
+
+def mesh_segment(blocks, cap: int, home) -> ShardedSegment:
+    """A sharded segment held as per-slot one-shard ``blocks`` (each with
+    its own device), every block probed with the segment's ``cap``."""
+    blocks = tuple(dataclasses.replace(b, cap=int(cap)) for b in blocks)
+    return ShardedSegment(keys=None, sorted_keys=None, perm=None,
+                          corpus=None, cap=int(cap),
+                          counts=tuple(b.counts[0] for b in blocks),
+                          stacked=None, blocks=blocks,
+                          home=torch.device(home))
+
+
+def place_blocks(seg: ShardedSegment, devices) -> ShardedSegment:
+    """A one-device sharded segment -> the same segment as per-slot blocks,
+    shard ``s`` copied to ``devices[s]`` (its own memory, even where the
+    device is the segment's: no block is a view of the whole), with the
+    segment's device as the mesh's home."""
+    if seg.blocks:
+        raise ValueError("the segment is already placed on a mesh")
+    if len(devices) != seg.shards:
+        raise ValueError(f"{seg.shards} shards over {len(devices)} slots")
+    blocks = []
+    for s, dev in enumerate(devices):
+        stacked = seg.stacked[s:s + 1].to(dev, copy=True)
+        blocks.append(ShardedSegment(
+            keys=seg.keys[s:s + 1].to(dev, copy=True),
+            sorted_keys=seg.sorted_keys[s:s + 1].to(dev, copy=True),
+            perm=seg.perm[s:s + 1].to(dev, copy=True),
+            corpus=unstack_like(seg.corpus, stacked), cap=seg.cap,
+            counts=(seg.counts[s],), stacked=stacked))
+    return mesh_segment(blocks, seg.cap, seg.keys.device)
+
+
+def gather_blocks(seg: ShardedSegment) -> ShardedSegment:
+    """A mesh segment's blocks concatenated in shard order on its home
+    device: the one-device segment it was placed from (a copy made on
+    demand, never kept by the store)."""
+    if not seg.blocks:
+        return seg
+    home = seg.home
+    cat = lambda name: torch.cat([getattr(b, name).to(home)
+                                  for b in seg.blocks])
+    stacked = cat("stacked")
+    return ShardedSegment(keys=cat("keys"), sorted_keys=cat("sorted_keys"),
+                          perm=cat("perm"),
+                          corpus=unstack_like(seg.blocks[0].corpus, stacked),
+                          cap=seg.cap, counts=seg.counts, stacked=stacked)
 
 
 def build_sharded_segment(keys: torch.Tensor, corpus, shards: int, *,
@@ -387,7 +458,7 @@ def _sort_slabs(keys_sh: torch.Tensor, counts: torch.Tensor,
 
 
 def build_sharded_delta(keys, corpus, alloc, offsets, *, seq0: int,
-                        bucket_cap: int | None = None
+                        bucket_cap: int | None = None, devices=None
                         ) -> tuple[ShardedSegment, np.ndarray]:
     """(B, L) batch keys + batch corpus + a ``route_balanced`` plan ->
     (slab ShardedSegment, positions): the batch scattered into per-shard
@@ -398,7 +469,10 @@ def build_sharded_delta(keys, corpus, alloc, offsets, *, seq0: int,
     ``SegmentStore.append_delta`` takes. The slab width is the largest
     per-shard allocation rounded up to 8, or to 64 from 256 slots on, as in
     the reference (whose program shapes are static: quantized widths keep
-    steady ingest on one compiled program)."""
+    steady ingest on one compiled program). With ``devices`` (a mesh's slot
+    devices) the slab is built as per-slot blocks: each shard's rows are
+    gathered on the batch's device, copied to its slot's device and sorted
+    there."""
     b, _ = keys.shape
     s = alloc.size
     raw = max(int(alloc.max()), 1)
@@ -413,10 +487,14 @@ def build_sharded_delta(keys, corpus, alloc, offsets, *, seq0: int,
     # scatter: slot (shard, j) takes batch row idx[shard, j], row b a pad
     idx = torch.from_numpy(idx.reshape(-1)).to(keys.device)
     keys_sh = torch.cat([keys, keys.new_full((1, keys.shape[1]), _PAD_KEY)])
-    keys_sh = keys_sh[idx].unflatten(0, (s, slab))
     _, stacked = corpus.stack()
     stacked = torch.cat([stacked,
                          stacked.new_zeros((1,) + stacked.shape[1:])])
+    if devices is not None:
+        return _mesh_delta(keys_sh, stacked, corpus, idx.unflatten(0, (s,
+                                                                       slab)),
+                           alloc, devices, bucket_cap), pos.reshape(-1)
+    keys_sh = keys_sh[idx].unflatten(0, (s, slab))
     stacked_sh = stacked[idx].unflatten(0, (s, slab))
     sorted_keys, perm, max_runs = _sort_slabs(
         keys_sh, torch.from_numpy(alloc).to(keys.device), slab)
@@ -427,6 +505,30 @@ def build_sharded_delta(keys, corpus, alloc, offsets, *, seq0: int,
                          counts=tuple(int(a) for a in alloc),
                          stacked=stacked_sh)
     return seg, pos.reshape(-1)
+
+
+def _mesh_delta(keys_sh, stacked, corpus, idx, alloc, devices,
+                bucket_cap) -> ShardedSegment:
+    """``build_sharded_delta``'s slab as per-slot blocks: slot ``s`` takes
+    rows ``idx[s]`` of the padded batch keys / stacked corpus, copied to
+    ``devices[s]`` and sorted there (``_sort_slabs`` over one shard: the
+    one-device slab's slice, bit for bit)."""
+    slab = idx.shape[1]
+    blocks, runs = [], []
+    for sh, dev in enumerate(devices):
+        rows = idx[sh]
+        k = keys_sh[rows].to(dev)[None]
+        st = stacked[rows].to(dev)[None]
+        sorted_keys, perm, max_runs = _sort_slabs(
+            k, torch.tensor([int(alloc[sh])], device=dev), slab)
+        runs.append(int(max_runs.max()))
+        blocks.append(ShardedSegment(
+            keys=k, sorted_keys=sorted_keys, perm=perm,
+            corpus=unstack_like(corpus, st), cap=0,
+            counts=(int(alloc[sh]),), stacked=st))
+    cap = (min(int(bucket_cap), slab) if bucket_cap is not None
+           else max(max(runs), 1))
+    return mesh_segment(blocks, cap, keys_sh.device)
 
 
 def _slab_gather_keys(keys_cat: torch.Tensor,
@@ -526,6 +628,14 @@ def _yield_slot() -> None:
     yield_s, busy = getattr(_COOPERATIVE, "state", (0.0, None))
     if yield_s > 0.0 and (busy is None or busy()):
         time.sleep(yield_s)
+
+
+def sync_devices(devices) -> None:
+    """Wait for the current stream (the calling lane's own work) of every
+    card among ``devices``: a mesh store's home and slots."""
+    for dev in dict.fromkeys(torch.device(d) for d in devices):
+        if dev.type == "cuda":
+            torch.cuda.current_stream(dev).synchronize()
 
 
 def _step_done(device: torch.device) -> None:
@@ -684,7 +794,14 @@ class StoreView:
 
     On the card ``ready`` is an event recorded on the publishing stream
     after the view's last upload (its lookups and K1 table); a reader
-    takes the view through ``acquire``."""
+    takes the view through ``acquire``.
+
+    A mesh store's view holds ``slots``: per slot a view over the blocks
+    of every segment (the slot's one-shard base block and slab blocks, its
+    lookups and its own K1 table), on the slot's device. The mesh view's
+    ``segments`` / ``luts`` / ``wins`` are the store's (each segment's
+    lookups per slot), and its ``ready`` maps every device of the slots to
+    an event recorded there after the slots' uploads."""
 
     segments: tuple          # base + deltas, slot-offset order
     luts: tuple              # per segment (live (m+1,), eff (m,))
@@ -695,9 +812,20 @@ class StoreView:
     # the streams (``cuda_stream`` handles) the arrays were marked on
     pinned: set = dataclasses.field(default_factory=set, compare=False,
                                     repr=False)
+    slots: tuple = ()        # a mesh store's per-slot views
+
+    @property
+    def device(self) -> torch.device:
+        """The view's device (a mesh view's: its home)."""
+        base = self.base
+        return base.home if base.blocks else base.keys.device
 
     def tensors(self):
         """Every device array the view's queries read."""
+        if self.slots:
+            for slot in self.slots:
+                yield from slot.tensors()
+            return
         for seg in self.segments:
             yield seg.keys
             yield seg.sorted_keys
@@ -724,16 +852,22 @@ class StoreView:
         superseded, the caching allocator then hands that memory out again
         only after the work this stream had queued by the time the arrays
         were freed has run: a query in flight never reads a store whose
-        memory was reused. A no-op on the CPU."""
+        memory was reused. A mesh view does this on each device of its
+        slots, with that device's current stream and event. A no-op on
+        the CPU."""
         if self.ready is None:
             return self
-        stream = torch.cuda.current_stream(self.base.keys.device)
-        stream.wait_event(self.ready)
-        handle = stream.cuda_stream
-        if handle not in self.pinned:
-            for t in self.tensors():
-                t.record_stream(stream)
-            self.pinned.add(handle)
+        events = (self.ready if self.slots
+                  else {self.base.keys.device: self.ready})
+        for dev, event in events.items():
+            stream = torch.cuda.current_stream(dev)
+            stream.wait_event(event)
+            handle = stream.cuda_stream
+            if handle not in self.pinned:
+                for t in self.tensors():
+                    if t.device == dev:
+                        t.record_stream(stream)
+                self.pinned.add(handle)
         return self
 
     @property
@@ -774,6 +908,8 @@ class StoreView:
     @functools.cached_property
     def k1_segments(self) -> tuple[tuple, tuple]:
         """(segment arrays, caps) in the order K1 walks them."""
+        if self.slots:
+            raise ValueError("a mesh view's K1 segments are its slots'")
         if not self.sharded:
             return self.all_arrays, self.all_caps
         from repro_torch.kernels.fused_query import shard_segments
@@ -787,8 +923,8 @@ class StoreView:
 
 
 def _flat(seg):
-    """A segment's (corpus-order keys, corpus) with any shard dim
-    flattened into its slot order."""
+    """A one-device segment's (corpus-order keys, corpus) with any shard
+    dim flattened into its slot order."""
     if isinstance(seg, ShardedSegment):
         return seg.keys.flatten(0, 1), seg.flat_corpus
     return seg.keys, seg.corpus
@@ -808,7 +944,8 @@ def _cat_corpus(corpora):
 
 class SegmentStore:
     """LSM-style mutable view over immutable segments (reference:
-    ``repro.core.segments.SegmentStore``, on one device).
+    ``repro.core.segments.SegmentStore``; its sharded segments on one
+    device or as per-slot blocks over a mesh).
 
     One base segment (``TableSegment``, or ``ShardedSegment`` for the
     sharded store), a list of delta segments (``TableSegment``s, or routed
@@ -844,7 +981,14 @@ class SegmentStore:
 
     @property
     def device(self) -> torch.device:
-        return self.base.keys.device
+        """The home device: where the store's gathers land."""
+        base = self.base
+        return base.home if base.blocks else base.keys.device
+
+    @property
+    def devices(self) -> tuple:
+        """Every device the store's arrays lie on, the home device first."""
+        return tuple(dict.fromkeys((self.device,) + self.base.devices))
 
     # -- derived state ------------------------------------------------------
 
@@ -852,22 +996,33 @@ class SegmentStore:
         return [self.base] + self.deltas
 
     def _seg_luts(self, seg, live: np.ndarray, eff: np.ndarray):
+        """A segment's (live, eff) lookups; a mesh segment's per slot, each
+        on the slot's device."""
         dev = self.device
         if isinstance(seg, ShardedSegment):
             s, n_s = seg.shards, seg.shard_size
-            return (torch.from_numpy(np.pad(live.reshape(s, n_s),
-                                            ((0, 0), (0, 1)))).to(dev),
-                    torch.from_numpy(eff.reshape(s, n_s)
-                                     .astype(np.int32)).to(dev))
+            live = np.pad(live.reshape(s, n_s), ((0, 0), (0, 1)))
+            eff = eff.reshape(s, n_s).astype(np.int32)
+            if seg.blocks:
+                return tuple((torch.from_numpy(live[i:i + 1]).to(d),
+                              torch.from_numpy(eff[i:i + 1]).to(d))
+                             for i, d in enumerate(seg.devices))
+            return (torch.from_numpy(live).to(dev),
+                    torch.from_numpy(eff).to(dev))
         return (torch.from_numpy(np.append(live, False)).to(dev),
                 torch.from_numpy(eff.astype(np.int32)).to(dev))
 
-    def _seg_win(self, seg, live_lut: torch.Tensor):
+    def _seg_win(self, seg, lut):
+        """A segment's live-window lookups from its ``_seg_luts``; a mesh
+        segment's per slot, on the slot's device."""
         if not self.live_window:
             return None
         if isinstance(seg, ShardedSegment):
-            return _live_window_tables_sharded(seg.perm, live_lut)
-        return _live_window_tables(seg.perm, live_lut)
+            if seg.blocks:
+                return tuple(_live_window_tables_sharded(b.perm, bl[0])
+                             for b, bl in zip(seg.blocks, lut))
+            return _live_window_tables_sharded(seg.perm, lut[0])
+        return _live_window_tables(seg.perm, lut[0])
 
     def _refresh(self, touched: set[int] | None = None) -> None:
         """Rebuild the sequence-order views and the segment lookups.
@@ -905,7 +1060,7 @@ class SegmentStore:
             lut = self._seg_luts(seg, live, eff)
             luts.append(lut)
             if touched is None or i in touched:
-                wins.append(self._seg_win(seg, lut[0]))
+                wins.append(self._seg_win(seg, lut))
             else:
                 wins.append(self._wins[i])
             off += seg.slots
@@ -919,7 +1074,11 @@ class SegmentStore:
         after that upload, before the view is installed."""
         self._generation += 1
         cuda = self.device.type == "cuda"
-        view = StoreView(segments=tuple(self._segments()),
+        segs = tuple(self._segments())
+        if self.base.blocks:
+            self.view = self._mesh_view(segs, cuda)
+            return
+        view = StoreView(segments=segs,
                          luts=tuple(self._luts), wins=tuple(self._wins),
                          generation=self._generation,
                          ready=torch.cuda.Event() if cuda else None)
@@ -927,6 +1086,29 @@ class SegmentStore:
             _ = view.k1_table       # uploaded now, not by the next query
             view.ready.record(torch.cuda.current_stream(self.device))
         self.view = view
+
+    def _mesh_view(self, segs, cuda: bool) -> StoreView:
+        """A mesh store's view: one view a slot over its blocks, each K1
+        table uploaded to the slot's device, then an event recorded on the
+        current stream of every device the slots use."""
+        slots = tuple(
+            StoreView(segments=tuple(g.blocks[s] for g in segs),
+                      luts=tuple(lut[s] for lut in self._luts),
+                      wins=tuple(None if w is None else w[s]
+                                 for w in self._wins),
+                      generation=self._generation)
+            for s in range(self.base.shards))
+        ready = ({d: torch.cuda.Event() for d in self.base.devices}
+                 if cuda else None)
+        view = StoreView(segments=segs, luts=tuple(self._luts),
+                         wins=tuple(self._wins), generation=self._generation,
+                         ready=ready, slots=slots)
+        if cuda:
+            for slot in slots:
+                _ = slot.k1_table
+            for dev, event in ready.items():
+                event.record(torch.cuda.current_stream(dev))
+        return view
 
     @property
     def generation(self) -> int:
@@ -1013,7 +1195,7 @@ class SegmentStore:
         self.n_live += n_new
         lut = self._seg_luts(seg, valid, eff)
         self._luts.append(lut)
-        self._wins.append(self._seg_win(seg, lut[0]))
+        self._wins.append(self._seg_win(seg, lut))
         self._publish()
 
     def delete_effective(self, ids) -> int:
@@ -1042,10 +1224,52 @@ class SegmentStore:
         pos = np.concatenate(self.slot_pos)[live_slots]
         return live_slots[np.argsort(pos, kind="stable")]
 
+    def _mesh_rows(self, idx: np.ndarray, name: str,
+                   chunk: int | None = None) -> torch.Tensor:
+        """A mesh store's rows ``idx`` (flat slot indices over every
+        segment) of the blocks' ``name`` arrays ("keys" or "stacked"),
+        gathered a slot at a time on the slot's device (in bounded chunks,
+        ``gather_rows_chunked``, with ``chunk``), then copied home into
+        ``idx``'s order."""
+        segs = self._segments()
+        offs = np.cumsum([0] + [g.slots for g in segs[:-1]])
+        out = None
+        for s, dev in enumerate(self.base.devices):
+            srcs, src_idxs, dst_idxs = [], [], []
+            for off, g in zip(offs, segs):
+                lo = off + s * g.shard_size
+                dst = np.flatnonzero((idx >= lo) & (idx < lo + g.shard_size))
+                srcs.append(getattr(g.blocks[s], name)[0])
+                src_idxs.append(idx[dst] - lo)
+                dst_idxs.append(dst)
+            dst = np.concatenate(dst_idxs)
+            if chunk is None:
+                rows = torch.cat([
+                    src[torch.from_numpy(si).to(dev)]
+                    for src, si in zip(srcs, src_idxs)])
+            else:
+                local = np.cumsum([0] + [d.size for d in dst_idxs])
+                rows = gather_rows_chunked(
+                    srcs[0], srcs, src_idxs,
+                    [np.arange(a, b) for a, b in zip(local, local[1:])],
+                    dst.size, chunk=chunk)
+            if out is None:
+                out = srcs[0].new_zeros((idx.size,) + srcs[0].shape[1:],
+                                        device=self.device)
+            out[torch.from_numpy(dst).to(self.device)] = rows.to(self.device)
+        return out
+
     def effective_arrays(self):
         """-> ((n_live, L) keys, corpus) of the live items in sequence (=
         effective id) order, one gather each: the input of a compaction or
-        a rebalance. Keys come from storage, never from re-hashing."""
+        a rebalance. Keys come from storage, never from re-hashing. A mesh
+        store gathers a slot at a time and lands both on its home
+        device."""
+        if self.base.blocks:
+            idx = self._live_slots_seq_order()
+            stacked = self._mesh_rows(idx, "stacked")
+            return (self._mesh_rows(idx, "keys"),
+                    unstack_like(self.base.blocks[0].corpus, stacked))
         flats = [_flat(seg) for seg in self._segments()]
         idx = torch.from_numpy(self._live_slots_seq_order()).to(self.device)
         keys = torch.cat([k for k, _ in flats])[idx]
@@ -1058,6 +1282,12 @@ class SegmentStore:
         whose values equal the one-pass gather's stacked corpus bit for
         bit. The keys stay one step: a few bytes an item."""
         idx = self._live_slots_seq_order()
+        if self.base.blocks:
+            keys = self._mesh_rows(idx, "keys")
+            _step_done(self.device)
+            stacked = self._mesh_rows(idx, "stacked", chunk=chunk)
+            return (keys, unstack_like(self.base.blocks[0].corpus, stacked),
+                    stacked)
         flat_keys, srcs, src_idxs, dst_idxs = [], [], [], []
         off = 0
         for seg in self._segments():
@@ -1081,8 +1311,11 @@ class SegmentStore:
         otherwise."""
         if not self.mutated and isinstance(self.base, TableSegment):
             return self.base.corpus
-        corpus = _cat_corpus([_flat(seg)[1] for seg in self._segments()])
         idx = self._live_slots_seq_order()
+        if self.base.blocks:
+            return unstack_like(self.base.blocks[0].corpus,
+                                self._mesh_rows(idx, "stacked"))
+        corpus = _cat_corpus([_flat(seg)[1] for seg in self._segments()])
         if np.array_equal(idx, np.arange(idx.size)):
             return corpus.index(slice(0, idx.size))
         return corpus.index(torch.from_numpy(idx).to(self.device))

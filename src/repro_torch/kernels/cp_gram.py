@@ -163,13 +163,14 @@ def cp_gram(x_factors: torch.Tensor, p_factors: torch.Tensor,
         shape, dtype=dtype, device=dev)
     if b == 0:
         return out
-    err = _build.lib().cp_gram_launch(
-        x.data_ptr(), p.data_ptr(),
-        offs.data_ptr() if offs is not None else None,
-        mu.data_ptr() if mu is not None else None,
-        out.data_ptr(), b, n, d, rx, l, k, rp, _EPILOGUE_CODE[epilogue],
-        float(w), float(scale), lp.block_items, lp.block_hashes, lp.threads,
-        lp.smem, torch.cuda.current_stream(dev).cuda_stream)
+    with torch.cuda.device(dev):   # the launch goes to the tensors' card
+        err = _build.lib().cp_gram_launch(
+            x.data_ptr(), p.data_ptr(),
+            offs.data_ptr() if offs is not None else None,
+            mu.data_ptr() if mu is not None else None,
+            out.data_ptr(), b, n, d, rx, l, k, rp, _EPILOGUE_CODE[epilogue],
+            float(w), float(scale), lp.block_items, lp.block_hashes,
+            lp.threads, lp.smem, torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "cp_gram_launch")
     count_launch(cp_gram)
     return out

@@ -3027,24 +3027,31 @@ inline void instance_of(int fmt, int qfmt, int RQ, int RC, int N, int D,
 
 // Up to smem bytes of dynamic shared memory, and all of the SM's 228 KB as
 // shared memory (not L1), so that Shape<TR, QR>::min_blocks can be resident.
+// A function's attributes are set in each card's context, so what was set
+// is kept per card (the current one, which the wrappers pin).
+constexpr int kMaxCards = 64;
+
 template <int TR, int QR, bool SAMPLE = false>
 cudaError_t prepare(size_t smem) {
-  static size_t allowed = 0;
-  static bool carved = false;
-  if (!carved) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        fused_query_kernel<TR, QR, SAMPLE>,
-        cudaFuncAttributePreferredSharedMemoryCarveout,
-        (int)cudaSharedmemCarveoutMaxShared);
+  static size_t allowed[kMaxCards] = {};
+  static bool carved[kMaxCards] = {};
+  int card = 0;
+  cudaError_t e = cudaGetDevice(&card);
+  if (e != cudaSuccess) return e;
+  if (card < 0 || card >= kMaxCards) return cudaErrorInvalidDevice;
+  if (!carved[card]) {
+    e = cudaFuncSetAttribute(fused_query_kernel<TR, QR, SAMPLE>,
+                             cudaFuncAttributePreferredSharedMemoryCarveout,
+                             (int)cudaSharedmemCarveoutMaxShared);
     if (e != cudaSuccess) return e;
-    carved = true;
+    carved[card] = true;
   }
-  if (smem > allowed) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        fused_query_kernel<TR, QR, SAMPLE>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (smem > allowed[card]) {
+    e = cudaFuncSetAttribute(fused_query_kernel<TR, QR, SAMPLE>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
     if (e != cudaSuccess) return e;
-    allowed = smem;
+    allowed[card] = smem;
   }
   return cudaSuccess;
 }

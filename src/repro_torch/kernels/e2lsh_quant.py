@@ -58,9 +58,10 @@ def e2lsh_quant(values: torch.Tensor, offsets: torch.Tensor,
     out = torch.empty((b, k), dtype=torch.int32, device=dev)
     if out.numel() == 0:
         return out
-    err = _build.lib().e2lsh_quant_launch(
-        v.data_ptr(), offs.data_ptr(), out.data_ptr(), b, k, float(w),
-        torch.cuda.current_stream(dev).cuda_stream)
+    with torch.cuda.device(dev):   # the launch goes to the tensors' card
+        err = _build.lib().e2lsh_quant_launch(
+            v.data_ptr(), offs.data_ptr(), out.data_ptr(), b, k, float(w),
+            torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "e2lsh_quant_launch")
     count_launch(e2lsh_quant)
     return out

@@ -989,21 +989,22 @@ def _launch(values, offsets, mults, queries, table, *, kind, w, num_tables,
     dims = _dims(pair.dims, d, dev) if dense_side else None
     tr_qr = instance(table.layout, pair.q_layout, rq, rc, n, d)
     threads, min_blocks, _, _ = SHAPES[tr_qr]
-    err = _build.lib().fused_query_launch(
-        vals.data_ptr(), offs.data_ptr() if e2 else None, mu.data_ptr(),
-        pairs.data_ptr() if pairs is not None else None, q.data_ptr(),
-        table.desc.data_ptr(), len(table.segs), ids.data_ptr(),
-        scores.data_ptr(), ncand.data_ptr(), b, num_tables, num_codes,
-        probes, expansion, n, d, rq, rc, topk, int(e2),
-        int(metric == "euclidean"), FORMATS[table.layout],
-        FORMATS[pair.q_layout], float(w) if e2 else 1.0,
-        float(queries[0].scale), window,
-        scratch.data_ptr() if need_scratch else None, scap,
-        counts.counter(dev).data_ptr(),
-        qscratch.data_ptr() if qscratch is not None else None,
-        dims.data_ptr() if dims is not None else None, pair.df,
-        MODES[mode], k0, k1, threads, min_blocks, smem - STATIC_SMEM,
-        torch.cuda.current_stream(dev).cuda_stream)
+    with torch.cuda.device(dev):   # the launch goes to the tensors' card
+        err = _build.lib().fused_query_launch(
+            vals.data_ptr(), offs.data_ptr() if e2 else None, mu.data_ptr(),
+            pairs.data_ptr() if pairs is not None else None, q.data_ptr(),
+            table.desc.data_ptr(), len(table.segs), ids.data_ptr(),
+            scores.data_ptr(), ncand.data_ptr(), b, num_tables, num_codes,
+            probes, expansion, n, d, rq, rc, topk, int(e2),
+            int(metric == "euclidean"), FORMATS[table.layout],
+            FORMATS[pair.q_layout], float(w) if e2 else 1.0,
+            float(queries[0].scale), window,
+            scratch.data_ptr() if need_scratch else None, scap,
+            counts.counter(dev).data_ptr(),
+            qscratch.data_ptr() if qscratch is not None else None,
+            dims.data_ptr() if dims is not None else None, pair.df,
+            MODES[mode], k0, k1, threads, min_blocks, smem - STATIC_SMEM,
+            torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "fused_query_launch")
     branches = [name for name, on in (
         ("multiprobe", probes > 1),

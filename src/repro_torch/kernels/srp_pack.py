@@ -129,10 +129,11 @@ def srp_pack(values: torch.Tensor) -> torch.Tensor:
     if p.chunks >= 1 << 31:
         raise ValueError(f"srp_pack takes fewer than 2^31 chunks; "
                          f"({b}, {k}) needs {p.chunks}")
-    err = _build.lib().srp_pack_launch(
-        v.data_ptr(), out.data_ptr(), b, k, p.threads, p.blocks, p.rows,
-        p.pieces, int(p.path == "vector"),
-        torch.cuda.current_stream(dev).cuda_stream)
+    with torch.cuda.device(dev):   # the launch goes to the tensors' card
+        err = _build.lib().srp_pack_launch(
+            v.data_ptr(), out.data_ptr(), b, k, p.threads, p.blocks, p.rows,
+            p.pieces, int(p.path == "vector"),
+            torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "srp_pack_launch")
     count_launch(srp_pack)
     return out

@@ -167,13 +167,14 @@ def tt_inner(x_cores: torch.Tensor, p_cores: torch.Tensor,
         shape, dtype=dtype, device=dev)
     if b == 0:
         return out
-    err = _build.lib().tt_inner_launch(
-        x.data_ptr(), p.data_ptr(),
-        offs.data_ptr() if offs is not None else None,
-        mu.data_ptr() if mu is not None else None,
-        out.data_ptr(), b, n, d, rx, l, k, rp, _EPILOGUE_CODE[epilogue],
-        float(w), float(scale), lp.block_items, lp.block_hashes, lp.threads,
-        lp.smem, torch.cuda.current_stream(dev).cuda_stream)
+    with torch.cuda.device(dev):   # the launch goes to the tensors' card
+        err = _build.lib().tt_inner_launch(
+            x.data_ptr(), p.data_ptr(),
+            offs.data_ptr() if offs is not None else None,
+            mu.data_ptr() if mu is not None else None,
+            out.data_ptr(), b, n, d, rx, l, k, rp, _EPILOGUE_CODE[epilogue],
+            float(w), float(scale), lp.block_items, lp.block_hashes,
+            lp.threads, lp.smem, torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "tt_inner_launch")
     count_launch(tt_inner)
     return out

@@ -25,19 +25,26 @@ mutation history. ``DurableLSHService`` wraps every mutation of
   ``host_state()``) into a temp directory with a per-array crc32 manifest,
   fsync'd and published by one ``os.rename``, so a crash mid-snapshot never
   corrupts the last complete one. Keys are written as uint32, perms as
-  int32 and the corpus in the reference's leaf order and shapes; the port
-  writes its corpus format as JSON (``corpus_format``) and reads either
-  that or the reference's pickled skeleton, through an unpickler that
-  admits the reference's ``CPTensor`` / ``TTTensor`` names only. On the
-  card the copies to the host run on the current stream and synchronize
-  only it. Each snapshot rotates the WAL; older segments and snapshots are
-  pruned.
+  int32 and the corpus in the reference's leaf order and shapes, with the
+  reference's pickled pytree skeleton of the corpus (``corpus_skeleton``:
+  the bare placeholder of a dense corpus, a ``repro.core.tensor_formats
+  .CPTensor`` / ``TTTensor`` of placeholders written by name, without
+  importing the reference), so the reference recovers the port's
+  directories; beside it the port writes its corpus format as JSON
+  (``corpus_format``), which its own ``load_snapshot`` prefers. It reads
+  the reference's skeleton through an unpickler that admits the
+  reference's ``CPTensor`` / ``TTTensor`` names only. A mesh store's
+  sharded segments are written as their blocks gathered in shard order:
+  the same arrays as the one-card store's. On the card the copies to the
+  host run on the current stream and synchronize only it. Each snapshot
+  rotates the WAL; older segments and snapshots are pruned.
 * **Recovery** (``recover()``): restore the latest complete snapshot (the
   kernels' stacked layout rebuilt by the builds' own ``stack``, the corpus
   leaves its views), replay the WAL suffix. The mutation plane is
   deterministic (the hash, the water-fill routing, sequence-order effective
   ids, stable sorts), so the recovered store answers queries bit for bit
-  as the uninterrupted process. ``max_deltas`` auto-compactions are not
+  as the uninterrupted process. A sharded service resolves its mesh anew
+  and lays what it loads over it. ``max_deltas`` auto-compactions are not
   logged: replayed inserts trigger them at the same points.
 * **Fault injection** (``FaultInjector``): named crash points at every
   durability boundary (``pre_wal_append`` / ``post_wal_append`` either side
@@ -80,7 +87,8 @@ import torch
 
 from repro_torch.convert import segment_from_numpy
 from repro_torch.core.index import ShardedLSHIndex
-from repro_torch.core.segments import SegmentStore, ShardedSegment
+from repro_torch.core.segments import (SegmentStore, ShardedSegment,
+                                       sync_devices)
 from repro_torch.core.tensor_formats import CPTensor, DenseTensor, TTTensor
 from repro_torch.serving.lsh_service import LSHService
 
@@ -226,6 +234,52 @@ class _SkeletonUnpickler(pickle.Unpickler):
                 f"snapshot corpus skeleton names {module}.{name}; only "
                 "repro.core.tensor_formats.CPTensor / TTTensor are read")
         return cls
+
+
+class _CPSkeleton:
+    """Stand-in for the reference's ``CPTensor`` in a written skeleton."""
+
+    reference_name = ("repro.core.tensor_formats", "CPTensor")
+
+
+class _TTSkeleton:
+    """Stand-in for the reference's ``TTTensor`` in a written skeleton."""
+
+    reference_name = ("repro.core.tensor_formats", "TTTensor")
+
+
+class _ReferenceNamePickler(pickle._Pickler):
+    """Writes a stand-in class by its ``reference_name``: pickle's own
+    ``save_global`` imports a class's module to check the name, and the
+    port never imports the reference's package. The stream is the one the
+    reference's ``pickle.dumps`` writes for the class it names."""
+
+    def save_global(self, obj, name=None):
+        ref = getattr(obj, "reference_name", None)
+        if ref is None:
+            return super().save_global(obj, name)
+        self.save(ref[0])
+        self.save(ref[1])
+        self.write(pickle.STACK_GLOBAL)
+        self.memoize(obj)
+
+
+def _corpus_skeleton(corpus) -> bytes:
+    """The reference's pickled pytree skeleton of a segment's corpus: the
+    bare ``_LEAF`` placeholder for a dense corpus; for CP / TT a
+    ``repro.core.tensor_formats.CPTensor`` / ``TTTensor`` whose factors /
+    cores are ``_LEAF`` placeholders and whose scale is the corpus's, the
+    tree structure the reference's ``write_snapshot`` makes for it."""
+    if corpus.layout == "dense":
+        return pickle.dumps(_LEAF, protocol=4)
+    cls, field = ((_CPSkeleton, "factors") if corpus.layout == "cp"
+                  else (_TTSkeleton, "cores"))
+    skeleton = cls()
+    skeleton.__dict__.update({field: (_LEAF,) * len(corpus.leaves),
+                              "scale": float(corpus.scale)})
+    buf = io.BytesIO()
+    _ReferenceNamePickler(buf, protocol=4).dump(skeleton)
+    return buf.getvalue()
 
 
 def _aligned(n: int) -> int:
@@ -617,6 +671,22 @@ def _host(t: torch.Tensor) -> np.ndarray:
     return t.detach().cpu().numpy()
 
 
+def _segment_host(seg) -> dict:
+    """A segment's snapshot arrays on the host: keys, sorted keys, perm
+    and the corpus leaves (a mesh segment's blocks copied one by one and
+    concatenated in shard order), and the corpus (its first block's for a
+    mesh segment: format and scale)."""
+    parts = seg.blocks or (seg,)
+    cat = lambda arrays: (arrays[0] if len(arrays) == 1
+                          else np.concatenate(arrays))
+    out = {name: cat([_host(getattr(b, name)) for b in parts])
+           for name in ("keys", "sorted_keys", "perm")}
+    out["leaves"] = [cat(leaves) for leaves in zip(
+        *([_host(leaf) for leaf in b.corpus.leaves] for b in parts))]
+    out["corpus"] = parts[0].corpus
+    return out
+
+
 def _corpus_format(corpus) -> dict:
     if corpus.layout == "dense":
         return {"format": "dense"}
@@ -652,13 +722,16 @@ def write_snapshot(directory: str, lsn: int, svc: LSHService,
                       "seq_len": state["seq_len"],
                       "live_window": state["live_window"], "segments": []}
     for seg, pos in zip([store.base] + store.deltas, state["slot_pos"]):
+        arr = _segment_host(seg)
         entry = {"type": type(seg).__name__, "cap": int(seg.cap),
-                 "keys": put(_host(seg.keys).astype(np.uint32)),
-                 "sorted_keys": put(_host(seg.sorted_keys).astype(np.uint32)),
-                 "perm": put(_host(seg.perm).astype(np.int32)),
+                 "keys": put(arr["keys"].astype(np.uint32)),
+                 "sorted_keys": put(arr["sorted_keys"].astype(np.uint32)),
+                 "perm": put(arr["perm"].astype(np.int32)),
                  "slot_pos": put(pos),
-                 "corpus_format": _corpus_format(seg.corpus),
-                 "corpus": [put(_host(leaf)) for leaf in seg.corpus.leaves]}
+                 "corpus_format": _corpus_format(arr["corpus"]),
+                 "corpus_skeleton": base64.b64encode(
+                     _corpus_skeleton(arr["corpus"])).decode(),
+                 "corpus": [put(leaf) for leaf in arr["leaves"]]}
         if isinstance(seg, ShardedSegment):
             entry["counts"] = [int(c) for c in seg.counts]
         manifest["segments"].append(entry)
@@ -990,8 +1063,7 @@ class DurableLSHService(LSHService):
                         f"record {expect} next but found {rec_lsn}")
                 self._replay(kind, arr)
                 expect += 1
-            if self.device.type == "cuda":
-                torch.cuda.current_stream(self.device).synchronize()
+            sync_devices(self.devices)
             t_replay = time.perf_counter()
             if tail is not None:
                 path, valid_end = tail         # reopen past the last whole
@@ -1018,6 +1090,11 @@ class DurableLSHService(LSHService):
     def _install(self, segs, state) -> None:
         index = self._mutable_index()
         index._reset_mutation_state()
+        if isinstance(index, ShardedLSHIndex):
+            index.resolve_mesh()
+            segs = [index._place_segment(seg)
+                    if isinstance(seg, ShardedSegment) else seg
+                    for seg in segs]
         index.store = SegmentStore.restore(segs, state)
         if isinstance(index, ShardedLSHIndex):
             index._corpus = None

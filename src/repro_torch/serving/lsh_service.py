@@ -12,13 +12,16 @@ results. ``insert`` / ``delete`` / ``prepare_compact`` /
 ``apply_swap`` / ``compact`` mutate the store, with the reference's
 counters in ``ServiceStats``.
 
-``LSHService(..., shards=S)`` serves through ``ShardedLSHIndex`` on the
-same one device: S per-shard sorted tables, ``insert`` routed to the
-least-loaded shards as one delta slab, ``compact()`` shard-local, and
-``prepare_rebalance`` / ``rebalance`` re-partitioning the live corpus when
-occupancy skews (``ServiceStats.shard_occupancy`` / ``occupancy_skew`` /
-``rebalances`` track it). A query runs one K1s launch over every (shard,
-segment) pair.
+``LSHService(..., shards=S)`` serves through ``ShardedLSHIndex``: S
+per-shard sorted tables, ``insert`` routed to the least-loaded shards as
+one delta slab, ``compact()`` shard-local, and ``prepare_rebalance`` /
+``rebalance`` re-partitioning the live corpus when occupancy skews
+(``ServiceStats.shard_occupancy`` / ``occupancy_skew`` / ``rebalances``
+track it, from the store's per-slot bookkeeping). The index's ``build``
+resolves a mesh where the reference does (an ``axis_rules`` context, else
+the first S local devices): on a mesh a query runs one K1s launch a slot
+and merges (``query_path`` "shard_map"), without one a single K1s launch
+over every (shard, segment) pair ("vmap").
 
 ``query_mode`` / a request's ``mode`` "uniform" or "weighted" samples
 ``topk`` distinct members of each query's probed bucket union instead of
@@ -184,6 +187,12 @@ class LSHService:
     @property
     def device(self) -> torch.device:
         return self.index.device
+
+    @property
+    def devices(self) -> tuple:
+        """Every device the service's index lies on, its own first (a mesh
+        index's slots after it)."""
+        return getattr(self.index, "devices", (self.device,))
 
     def build(self, corpus, batch_size: int = 65536) -> "LSHService":
         t0 = time.perf_counter()

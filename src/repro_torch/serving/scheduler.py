@@ -29,8 +29,10 @@ the query lane keeps dispatching throughout and each query answers from
 the store generation it read.
 
 On the card each lane has its own CUDA stream on each card its tenants
-use: the query lane a stream of the highest priority, the ingest lane a
-stream of the default priority (neither is the legacy default stream).
+use (a mesh service's home card and every card of its slots: a lane's
+context makes its stream current on each): the query lane a stream of the
+highest priority, the ingest lane a stream of the default priority
+(neither is the legacy default stream).
 The kernel wrappers launch on the current stream, so a lane's kernels run
 on its stream, and the card runs query kernels ahead of queued build work.
 Each lane synchronizes only its own stream (``core.index``'s syncs, the
@@ -40,8 +42,9 @@ streams:
 * registration: both streams wait on the registering thread's current
   stream, so everything queued to build a service precedes the lanes;
 * publication: a store's view carries an event recorded on the ingest
-  stream after its last upload, and the query lane's stream waits on it
-  before it reads the view (``StoreView.acquire``);
+  stream after its last upload (a mesh view one on each card of its
+  slots), and the query lane's stream on that card waits on it before it
+  reads the view (``StoreView.acquire``);
 * lifetime: ``acquire`` also marks the view's arrays as used on the query
   stream (``Tensor.record_stream``), so when ``apply_swap`` drops the old
   store, or a mutation supersedes a view, the caching allocator reuses
@@ -289,17 +292,27 @@ class ServingScheduler:
         stream (the service's build)."""
         if name in self._namespaces:
             raise ValueError(f"namespace {name!r} already registered")
-        dev = service.device
-        if dev.type == "cuda":
-            if dev not in self.streams:
-                self.streams[dev] = (
-                    torch.cuda.Stream(dev, priority=_QUERY_PRIORITY),
-                    torch.cuda.Stream(dev))
-            caller = torch.cuda.current_stream(dev)
-            for stream in self.streams[dev]:
-                stream.wait_stream(caller)
+        for dev in service.devices:
+            self._streams(dev)
         self._namespaces[name] = _Namespace(
             name=name, service=service, quota=quota or TenantQuota())
+
+    def _streams(self, dev: torch.device) -> tuple | None:
+        """The lanes' (query, ingest) streams on card ``dev``, made the
+        first time a tenant uses the card, both then waiting for the work
+        queued so far on the calling thread's current stream there (None
+        off the card)."""
+        if dev.type != "cuda":
+            return None
+        with self._lock:
+            if dev not in self.streams:
+                pair = (torch.cuda.Stream(dev, priority=_QUERY_PRIORITY),
+                        torch.cuda.Stream(dev))
+                caller = torch.cuda.current_stream(dev)
+                for stream in pair:
+                    stream.wait_stream(caller)
+                self.streams[dev] = pair
+            return self.streams[dev]
 
     def namespaces(self) -> tuple[str, ...]:
         return tuple(self._namespaces)
@@ -321,19 +334,22 @@ class ServingScheduler:
 
     def _lane(self, ns: _Namespace, lane: int, submitters=()):
         """The context a lane runs ``ns``'s work in: on the card, the
-        lane's stream (0 query, 1 ingest), made to wait for the work queued
-        so far on each distinct stream of ``submitters``; on the CPU,
-        nothing."""
+        lane's stream (0 query, 1 ingest) current on every card of the
+        service, the home card's made to wait for the work queued so far on
+        each distinct stream of ``submitters``; on the CPU, nothing."""
         dev = ns.service.device
         if dev.type != "cuda":
             return contextlib.nullcontext()
-        stream = self.streams[dev][lane]
+        stream = self._streams(dev)[lane]
         waited = set()
         for other in submitters:
             if other is not None and other.cuda_stream not in waited:
                 stream.wait_stream(other)
                 waited.add(other.cuda_stream)
-        return torch.cuda.stream(stream)
+        ctx = contextlib.ExitStack()
+        for card in ns.service.devices:
+            ctx.enter_context(torch.cuda.stream(self._streams(card)[lane]))
+        return ctx
 
     def _admit(self, ns: _Namespace, new_items: int = 0) -> None:
         with self._lock:

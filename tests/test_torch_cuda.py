@@ -2234,3 +2234,93 @@ def test_brute_force_row_equals_its_batch_row_on_card(gen, layout):
         got = brute_force("euclidean", queries.index(i), corpus, 10)
         assert (got[0] == ids[i]).all()
         assert (got[1].view("int32") == scores[i].view("int32")).all()
+
+
+def _mesh_and_one_card(gen, layout, shards, slots=None, **kw):
+    """A sharded service laid over an explicit mesh of ``slots`` devices
+    (default: ``shards`` slots on cuda:0) through ``axis_rules``, and the
+    same service on one card (a rule context that fits no axis) -> (mesh
+    service, one-card service, corpus)."""
+    from repro_torch.distributed.sharding import Mesh, axis_rules
+    from repro_torch.serving.lsh_service import build_service
+    n = 20001
+    data = cp_random_data if layout == "cp" else tt_random_data
+    dims = (6, 6, 6) if layout == "cp" else (8, 8, 8)
+    w = 2.0 if layout == "cp" else 8.0
+    corpus = data(gen, dims, 3, batch=n)
+    kw = dict(num_codes=8, num_tables=4, rank=2, bucket_width=w, **kw)
+    slots = slots or [torch.device("cuda", 0)] * shards
+    with axis_rules(Mesh(slots, ("shard",))):
+        mesh = build_service(gen, f"{layout}-e2lsh", dims, corpus,
+                             shards=shards, **kw)
+    with axis_rules(Mesh([torch.device("cuda", 0)], ("model",))):
+        one = build_service(None, f"{layout}-e2lsh", dims, corpus,
+                            shards=shards, family=mesh.index.family, **kw)
+    assert mesh.index.query_path == "shard_map"
+    assert one.index.query_path == "vmap"
+    return mesh, one, corpus
+
+
+@pytest.mark.parametrize("layout,cap", [("cp", None), ("cp", 16),
+                                        ("tt", None)])
+def test_mesh_on_one_card_equals_the_one_card_index(gen, layout, cap):
+    """Four mesh slots on cuda:0: routed slabs, deletes, a compaction and a
+    rebalance; every query (top-k at T = 1 and 3, both sampling modes, the
+    candidate sets) equals the one-card index's bit for bit, and K1s
+    launches once a slot with no plain version run."""
+    mesh, one, corpus = _mesh_and_one_card(gen, layout, 4, bucket_cap=cap)
+    data = cp_random_data if layout == "cp" else tt_random_data
+    batch = data(gen, corpus.dims, 3, batch=900)
+    q = _planted(gen, corpus, corpus.leaves[0].shape[0], 256)
+
+    def check(what):
+        for probes in (1, 3):
+            launches = fused_query_sharded.launches
+            calls = fused_query_sharded_plain.calls
+            got = mesh.query_arrays(q, probes=probes)
+            assert fused_query_sharded.launches == launches + 4, what
+            assert fused_query_sharded_plain.calls == calls, what
+            want = one.query_arrays(q, probes=probes)
+            for g, w_ in zip(got, want):
+                assert (g.view("int32") == w_.view("int32")).all(), what
+        for mode in ("uniform", "weighted"):
+            got = mesh.query_arrays(q, mode=mode, seed=11)
+            want = one.query_arrays(q, mode=mode, seed=11)
+            for g, w_ in zip(got, want):
+                assert (g.view("int32") == w_.view("int32")).all(), (
+                    what, mode)
+        for a, b in zip(mesh.index.candidates_batch(q, probes=2),
+                        one.index.candidates_batch(q, probes=2)):
+            assert torch.equal(a, b), what
+
+    check("fresh")
+    for svc in (mesh, one):
+        svc.insert(batch)
+        svc.delete(torch.arange(3, 20000, 7, device="cuda"))
+    assert all(len(g.devices) == 4 for g in mesh.index.store.deltas)
+    check("mutated")
+    for svc in (mesh, one):
+        svc.compact()
+    check("compacted")
+    for svc in (mesh, one):
+        svc.rebalance()
+    check("rebalanced")
+
+
+def test_mesh_over_the_real_cards(gen):
+    """``resolve_mesh(torch.cuda.device_count())``: one slot a card,
+    equal to the one-card index bit for bit (one slot on a one-card
+    machine)."""
+    from repro_torch.distributed import index_sharding
+    count = torch.cuda.device_count()
+    mesh, axis = index_sharding.resolve_mesh(count, "cuda")
+    slots = index_sharding.slot_devices(mesh, axis)
+    assert slots == [torch.device("cuda", i) for i in range(count)]
+    svc, one, corpus = _mesh_and_one_card(gen, "cp", count, slots=slots)
+    assert svc.index.store.base.devices == tuple(slots)
+    q = _planted(gen, corpus, corpus.leaves[0].shape[0], 128)
+    launches = fused_query_sharded.launches
+    got = svc.query_arrays(q)
+    assert fused_query_sharded.launches == launches + count
+    for g, w_ in zip(got, one.query_arrays(q)):
+        assert (g.view("int32") == w_.view("int32")).all()

@@ -22,6 +22,13 @@ port's own plain ``LSHService`` and against the reference
   ``parity.rerank_bound``); another ``num_tables`` is refused by name; a
   CP insert is refused by name before anything is written (ROADMAP.md
   R6); a snapshot skeleton naming another class is refused.
+* The reference reads the port's directories (ROADMAP.md F4): its
+  ``recover()`` of a dense directory the port wrote (S = None and 2; an
+  insert, deletes, a compact and an insert) and of CP and TT ones (deletes
+  and a compact) answers as the port's live service within the parity
+  contract; the port's CP / TT skeleton is the reference's pickle of that
+  skeleton byte for byte, with its tree structure; and the port recovers
+  from its own skeleton when ``corpus_format`` is gone.
 
 The reference hashes through XLA here: no Pallas compilation (R3).
 """
@@ -684,3 +691,112 @@ def test_snapshot_skeleton_naming_another_class_is_refused(tmp_path):
     with pytest.raises(RecoveryError, match="functools.partial"):
         svc.recover()
     assert svc.health == "degraded"
+
+
+# ---------------------------------------------------------------------------
+# The reference reads the port's directories (ROADMAP.md F4)
+# ---------------------------------------------------------------------------
+
+
+def _assert_reference_answers_as_port(ref, svc, tq, jq):
+    """The reference's recovered answers against the port's live ones,
+    within the parity contract (``_assert_answers_as_reference``'s checks
+    with the roles of the two services swapped)."""
+    ids, sc, nc = (np.array(a) for a in ref.query_arrays(jq, topk=TOPK))
+    pi, ps, pn = svc.query_arrays(tq, topk=TOPK)
+    clean = ~_near_rows(svc.index.family, tq)
+    assert clean.any()
+    np.testing.assert_array_equal(nc[clean], pn[clean])
+    tol = parity.rerank_bound("euclidean", tq, svc.index.effective_corpus(),
+                              torch.from_numpy(pi), torch.from_numpy(ps))
+    rows = torch.from_numpy(clean)
+    assert parity.topk_mismatches(
+        torch.from_numpy(ids)[rows], torch.from_numpy(sc)[rows],
+        torch.from_numpy(pi)[rows], torch.from_numpy(ps)[rows],
+        tol[rows]) == 0
+
+
+@pytest.mark.parametrize("shards", [None, 2])
+def test_reference_recovers_a_dense_port_directory(tmp_path, shards):
+    """67 dense items, an insert, deletes, a compact and an insert written
+    by the port; the reference's ``recover()`` reads the directory (its
+    ``corpus_skeleton`` the bare placeholder) and answers as the port's
+    live service."""
+    svc = _durable(tmp_path, shards=shards)
+    for op in _fixed_ops()[:5]:
+        _apply(svc, op)
+    svc.close()
+    manifest = json.load(open(tmp_path / "snap_000000000000" /
+                              "manifest.json"))
+    for entry in manifest["segments"]:
+        assert pickle.loads(base64.b64decode(
+            entry["corpus_skeleton"])) == "__leaf__"
+    ref = _jax_durable(tmp_path, shards).recover()
+    assert ref.stats.recoveries == 1
+    assert ref.index.size == svc.index.size == N_CORPUS + 5 - 2 + 4 + 3
+    _assert_reference_answers_as_port(ref, svc, as_batch(_queries()),
+                                      _data()[1])
+
+
+@pytest.mark.parametrize("layout", ["cp", "tt"])
+def test_reference_recovers_cp_and_tt_port_directories(tmp_path, layout):
+    """A CP / TT corpus (scale 0.5) with deletes and a compact, written by
+    the port: the skeleton is the reference's ``CPTensor`` / ``TTTensor``
+    of placeholders, byte for byte the pickle the reference writes for
+    that corpus, with the reference skeleton's tree structure; the
+    reference's ``recover()`` answers as the port's live service."""
+    from repro.core import tensor_formats as jtf
+    kind = f"{layout}-e2lsh"
+    fx, jwrap, twrap = ((tb.cp_fixture, tb.jax_cp, tb.torch_cp)
+                        if layout == "cp" else
+                        (tb.tt_fixture, tb.jax_tt, tb.torch_tt))
+    corpus, queries = fx(61, 5)
+    fam = _jax_family(kind)
+    svc = DurableLSHService(tb.bridge_family(fam), str(tmp_path),
+                            metric="euclidean", bucket_cap=16,
+                            max_deltas=64).build(twrap(corpus, 0.5))
+    svc.delete(np.array([2, 9, 30]))
+    svc.compact()
+    svc.delete(np.array([1, 40]))
+    svc.snapshot()
+    svc.close()
+    lsn = latest_snapshot(str(tmp_path))
+    manifest = json.load(open(tmp_path / f"snap_{lsn:012d}" /
+                              "manifest.json"))
+    raw = base64.b64decode(manifest["segments"][0]["corpus_skeleton"])
+    n_modes = len(corpus)
+    cls, field = ((jtf.CPTensor, "factors") if layout == "cp"
+                  else (jtf.TTTensor, "cores"))
+    want = cls(**{field: ("__leaf__",) * n_modes, "scale": 0.5})
+    assert raw == pickle.dumps(want)
+    assert (jax.tree_util.tree_structure(pickle.loads(raw))
+            == jax.tree_util.tree_structure(want))
+    ref = _jax_durable(tmp_path, family=fam).recover()
+    assert ref.index.size == svc.index.size == 56
+    np.testing.assert_array_equal(np.asarray(ref.index.store.base.keys)
+                                  .astype(np.int64),
+                                  svc.index.store.base.keys.numpy())
+    _assert_reference_answers_as_port(ref, svc, twrap(queries, 0.5),
+                                      jwrap(queries, 0.5))
+
+
+def test_port_reads_its_own_skeleton(tmp_path):
+    """Without ``corpus_format`` the port's ``load_snapshot`` falls back to
+    the skeleton it wrote (through ``_SkeletonUnpickler``) and recovers
+    bit for bit."""
+    corpus, _ = tb.tt_fixture(61, 5)
+    fam = tb.bridge_family(_jax_family("tt-e2lsh"))
+    svc = DurableLSHService(fam, str(tmp_path), metric="euclidean",
+                            bucket_cap=16).build(tb.torch_tt(corpus, 0.5))
+    svc.delete(np.array([3, 7]))
+    svc.close()
+    path = tmp_path / "snap_000000000000" / "manifest.json"
+    manifest = json.load(open(path))
+    for entry in manifest["segments"]:
+        del entry["corpus_format"]
+    json.dump(manifest, open(path, "w"))
+    rec = DurableLSHService(fam, str(tmp_path), metric="euclidean",
+                            bucket_cap=16).recover()
+    assert rec.index.effective_corpus().scale == 0.5
+    _assert_bit_identical(rec, svc, tb.torch_tt(corpus, 0.5).index(
+        slice(0, 4)))
