@@ -218,6 +218,28 @@ Phases (any failure exits non-zero):
      a recovery bit-equal to the live service on 4 planted batches; a
      scheduler pass whose failed WAL appends degrade the tenant until
      ``recover_namespace()`` brings it back; the same at S = 2 (K1s).
+  18. the LM substrate's serving path (after [collision]; no hand kernel
+     lies on it, and the kernel counters, zeroed before each LM phase,
+     stay at 0):
+       - [lm phi3-lsh]: phi3-mini-3.8b with the paper's CP-SRP LSH
+         attention (``get_config(arch, "long")``) at full width and depth
+         (32 x 3072, bf16, seeded random weights on the card), 2 prompts of
+         4,096 tokens from ``batch_at``: prefill and 31 greedy decode steps
+         timed (CUDA events) beside their bounds, tokens/s, peak memory,
+         the candidates a decode step attends; ``greedy_generate`` for 32
+         steps equal to the timed loop's tokens up to a near tie; every
+         logit finite, every id in the vocabulary, layer-0 key codes equal
+         to a float64 evaluation except within the rounding bound of 0;
+       - [lm phi3]: the same weights without ``lsh_proj``, exact
+         attention: prefill 4,093 tokens and decode 3, against
+         ``forward`` over the 4,096 at 0.05 of the largest |logit|; the
+         LSH logits' relative gap to the exact ones (printed);
+       - [lm archs]: the other eight archs at their published widths,
+         depth cut (2 layers; llama4 one dense / MoE pair; zamba2 one
+         group of 9; whisper and mamba2 whole), 2 prompts of 512 tokens
+         (pixtral 1,536): decode against forward at the reference's TOL
+         (MoE archs at the positions no pass dropped by capacity), prefill
+         and decode times, bounds and peak memory.
 
 Every path's kernel counters are zeroed just before it runs and read just
 after: each kernel and each K1 / K1s branch it needs must have launched,
@@ -234,6 +256,7 @@ import json
 import math
 import os
 import re
+import statistics
 import subprocess
 import sys
 import time
@@ -319,7 +342,10 @@ def phase_device():
     name = torch.cuda.get_device_name(0)
     count = torch.cuda.device_count()
     print(f"[device] {name} x{count}; torch {torch.__version__} cuda "
-          f"{torch.version.cuda}")
+          f"{torch.version.cuda}; allow_tf32 "
+          f"{torch.backends.cuda.matmul.allow_tf32}, "
+          f"allow_bf16_reduced_precision_reduction "
+          f"{torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction}")
     return name, count, smi_line()
 
 
@@ -1190,8 +1216,6 @@ def phase_profile(svc, queries, tag, mode=None):
     """Where a query batch's time goes: torch.profiler over the main path's
     batches (in sampling ``mode``, batch i at ``sample_seed(i)``), device
     time by kernel and the device's busy share."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
     queries = queries[:64]
 
     def request(i):
@@ -1199,12 +1223,23 @@ def phase_profile(svc, queries, tag, mode=None):
             return dict(topk=TOPK)
         return dict(topk=TOPK, mode=mode, seed=sample_seed(i))
     svc.query_arrays(queries[0], **request(0))
+    profile_calls(tag, f"{len(queries)} query batches",
+                  [lambda i=i, q=q: svc.query_arrays(q, **request(i))
+                   for i, q in enumerate(queries)])
+
+
+def profile_calls(tag: str, what: str, calls, top: int = 8):
+    """torch.profiler over ``calls`` run in turn (then one synchronize):
+    the wall time, the device's busy and idle shares and the kernels with
+    the most device time. Returns the last call's result."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for i, q in enumerate(queries):
-            svc.query_arrays(q, **request(i))
+        for call in calls:
+            out = call()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     rows = sorted(((e.self_device_time_total / 1e3, e.count, e.key)
@@ -1212,11 +1247,12 @@ def phase_profile(svc, queries, tag, mode=None):
                    if str(e.device_type).endswith("CUDA")
                    and e.self_device_time_total > 0), reverse=True)
     busy_ms = sum(r[0] for r in rows)
-    print(f"[{tag}] {len(queries)} query batches under the profiler: wall "
+    print(f"[{tag}] {what} under the profiler: wall "
           f"{wall_ms:.3f} ms, device busy {busy_ms:.3f} ms "
           f"({busy_ms / wall_ms:.1%}); idle {1 - busy_ms / wall_ms:.1%}")
-    for ms, count, key in rows[:8]:
+    for ms, count, key in rows[:top]:
         print(f"[{tag}]   {ms:9.3f} ms x{count:<4d} {key[:80]}")
+    return out
 
 
 # [mp]: the reference's multi-probe headline pair (L = 2, T = 8) on the CP
@@ -4591,6 +4627,456 @@ def phase_durable_ingest() -> list:
     return out
 
 
+LM_PHI3 = dict(arch="phi3-mini-3.8b", batch=2, prompt=4096, steps=32,
+               max_len=4128, decode_check=3, seed=41, data_seed=43)
+# [lm archs]: every other arch at its published widths; depth cut to fit
+# one card and the phase's time (None: full depth). llama4's 2 layers are
+# one dense / MoE pair, zamba2's 9 one group of 9 Mamba2 layers and its
+# shared attention block.
+LM_ARCHS = dict(batch=2, prompt=512, decode=4, seed=47, data_seed=53,
+                depth={"stablelm-3b": 2, "gemma-7b": 2,
+                       "mistral-large-123b": 2, "zamba2-7b": 9,
+                       "pixtral-12b": 2, "whisper-tiny": None,
+                       "mixtral-8x22b": 2, "llama4-maverick-400b-a17b": 2,
+                       "mamba2-130m": None},
+                # pixtral's 1,024 vision tokens fit in its prompt
+                prompt_of={"pixtral-12b": 1536})
+BF16_FLOPS = 989e12            # H100 SXM dense bf16, NVIDIA data sheet
+# decode against forward (the reference's tests/test_models_smoke.py TOL):
+# MoE capacity drops depend on the batch's token count
+LM_TOL = {"mixtral-8x22b": 0.12, "llama4-maverick-400b-a17b": 0.12}
+SRP_NEAR_UNITS = 32.0          # > the 30 roundings of one CP-SRP value
+
+
+def nbytes(tree) -> int:
+    """Bytes of the tensors in a params tree or a cache (dicts, tuples)."""
+    import torch
+    if isinstance(tree, dict):
+        return sum(nbytes(v) for v in tree.values())
+    if isinstance(tree, tuple):
+        return sum(nbytes(v) for v in tree)
+    return tree.numel() * tree.element_size() if isinstance(
+        tree, torch.Tensor) else 0
+
+
+def events_ms(fn):
+    """(result, CUDA-event ms) of one call."""
+    import torch
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def lm_bounds(cfg, tokens: int, read_bytes: float) -> tuple:
+    """(prefill bound ms, decode-step bound ms): 2 * active params *
+    tokens FLOPs at bf16's dense peak; a decode step's weight and cache
+    bytes at the HBM rate."""
+    from repro_torch.models import params as P
+    flops = 2.0 * P.count_active_params(cfg) * tokens
+    return flops / BF16_FLOPS * 1e3, read_bytes / HBM_BYTES_PER_S * 1e3
+
+
+def decode_weight_bytes(cfg, batch: int) -> float:
+    """Weight bytes a decode step reads: every leaf, an MoE layer's
+    experts only as many as the batch's tokens can pick."""
+    from repro_torch.models import params as P
+    total = P.count_params(cfg)
+    if cfg.n_experts:
+        specs = P.param_specs(cfg)["blocks"]
+        experts = sum(math.prod(s.shape) for k, s in specs.items()
+                      if k.startswith("we_"))
+        used = min(cfg.n_experts, batch * cfg.top_k) / cfg.n_experts
+        total -= experts * (1.0 - used)
+    return total * 2.0 if cfg.dtype == "bfloat16" else total * 4.0
+
+
+def top2_decided(cfg, logits, tol: float):
+    """Per row: whether the masked top-2 gap exceeds ``tol``."""
+    import torch
+    from repro_torch.serving import engine
+    top = torch.topk(engine.mask_pad(cfg, logits.float()), 2, dim=-1).values
+    return (top[..., 0] - top[..., 1]) > tol
+
+
+def srp_code_check(tag, cfg, proj, keys, codes) -> tuple:
+    """Codes computed on the card against a float64 evaluation of the same
+    expression on the same (bfloat16) keys: equal except where the value
+    lies within SRP_NEAR_UNITS units of its terms' absolute sum of 0."""
+    import torch
+    from repro_torch.models import lsh_attention as LSH
+    exact = LSH.srp_values(keys.double(), proj["f1"], proj["f2"])
+    mag = LSH.srp_values(keys.double().abs(), proj["f1"].abs(),
+                         proj["f2"].abs())
+    near = (exact.abs() <= SRP_NEAR_UNITS * U * mag) & (mag > 0)
+    weights = 1 << torch.arange(exact.shape[-1], device=keys.device)
+    want = ((exact > 0).long() * weights).sum(-1)
+    differ = codes.long() != want
+    bad = differ & ~near.any(-1)
+    if bool(bad.any()):
+        fail(f"[{tag}] {int(bad.sum())} layer-0 key codes differ from the "
+             f"float64 evaluation away from the boundary")
+    return int(differ.sum()), int(near.any(-1).sum()), codes.numel()
+
+
+def attended_candidates(cfg, params, cache, tok, cur: int) -> float:
+    """Mean over (row, head) of the candidates layer 0's decode at ``cur``
+    attends: min(C, |recent or same bucket|) of the cached positions and
+    its own (called before the step writes its slot)."""
+    import torch
+    from repro_torch.models import attention as A
+    from repro_torch.models import layers as L
+    from repro_torch.models import lsh_attention as LSH
+    lp = {k: v[0] for k, v in params["blocks"].items()}
+    with torch.inference_mode():
+        x = L.embed_tokens(cfg, params, tok)
+        pos = torch.full(tok.shape, cur, dtype=torch.int32, device=tok.device)
+        q, _, _ = A.qkv_proj(cfg, lp, L.norm(cfg, x, lp["ln"]), pos)
+        qc = LSH.srp_bucket_codes(q, params["lsh_proj"]["f1"],
+                                  params["lsh_proj"]["f2"])[:, 0]
+        cpos = cache.pos.clone()
+        cpos[cur % cpos.shape[0]] = cur     # the step's own slot (R9)
+        valid = (cpos >= 0) & (cpos <= cur)
+        match = (cache.layers.codes[0] == qc[:, None, :]) & valid[None, :,
+                                                                  None]
+        recent = ((cur - cpos) < cfg.lsh_recent) & valid
+        n = (match | recent[None, :, None]).sum(dim=1).float()
+        w = cache.layers.k.shape[2]
+        return float(torch.clamp(n, max=min(cfg.lsh_candidates, w)).mean())
+
+
+def phase_lm_phi3_lsh(smi: str) -> dict:
+    """[lm phi3-lsh]: phi3-mini-3.8b with the paper's CP-SRP LSH attention
+    (``get_config(arch, "long")``) at full width and depth, bf16, random
+    weights from a seeded generator on the card: ``batch_at``'s 2 prompts
+    of 4,096 tokens, a timed prefill and 31 timed decode steps through the
+    engine's step functions (greedy), then ``greedy_generate`` for 32
+    steps, which must give the same tokens up to a near tie, and once more
+    under torch.profiler (the device's busy share, the top kernels). Fails on a
+    non-finite logit, an id past the vocabulary or a layer-0 key code
+    that differs from its float64 evaluation off the boundary. Returns
+    what [lm phi3] reuses."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data import synthetic
+    from repro_torch.models import params as P
+    from repro_torch.serving import engine
+    c = LM_PHI3
+    cfg = get_config(c["arch"], "long")
+    b, s, steps, max_len = c["batch"], c["prompt"], c["steps"], c["max_len"]
+    gen = torch.Generator(device="cuda").manual_seed(c["seed"])
+    (params, init_ms) = events_ms(lambda: P.init_params(cfg, gen,
+                                                        device="cuda"))
+    pbytes = nbytes(params)
+    batch = synthetic.batch_at(
+        synthetic.DataConfig(batch_size=b, seq_len=s, seed=c["data_seed"]),
+        cfg, 0, device="cuda")
+    print(f"[lm phi3-lsh] on {smi}: {cfg.name}, {cfg.n_layers} layers x "
+          f"d_model {cfg.d_model}, {cfg.n_heads} heads of {cfg.hd} (CP modes "
+          f"{P._factor_head_dim(cfg.hd)}), d_ff {cfg.d_ff}, vocab "
+          f"{cfg.vocab_size} padded to {cfg.padded_vocab}, {cfg.dtype}; LSH "
+          f"{cfg.lsh_num_hashes} hashes rank {cfg.lsh_rank}, chunk "
+          f"{cfg.lsh_chunk}, {cfg.lsh_candidates} candidates, recency "
+          f"{cfg.lsh_recent}; {P.count_params(cfg)} parameters, {pbytes} "
+          f"bytes, drawn in {init_ms:.1f} ms; B={b} prompts of {s} tokens, "
+          f"{steps} greedy steps, max_len {max_len}")
+    prefill_step = engine.make_prefill_step(cfg, max_len)
+    serve = engine.make_serve_step(cfg)
+    torch.cuda.synchronize()
+    zero_counts()
+    prefill_step(params, batch)                 # warm-up: cuBLAS plans
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    (last, cache), prefill_ms = events_ms(lambda: prefill_step(params,
+                                                               batch))
+    proj = params["lsh_proj"]
+    differ, near, n_codes = srp_code_check(
+        "lm phi3-lsh", cfg, proj, cache.layers.k[0][:, :s],
+        cache.layers.codes[0][:, :s])
+    tok = torch.argmax(engine.mask_pad(cfg, last), dim=-1)[:, None].to(
+        torch.int32)
+    logits_all, toks, step_ms = [last], [tok], []
+    for i in range(steps - 1):
+        cur = s + i
+        if i == steps - 2:
+            attended = attended_candidates(cfg, params, cache, tok, cur)
+        (logits, cache), ms = events_ms(lambda: serve(params, cache, tok,
+                                                      cur))
+        step_ms.append(ms)
+        logits_all.append(logits)
+        tok = torch.argmax(engine.mask_pad(cfg, logits), dim=-1)[:, None].to(
+            torch.int32)
+        toks.append(tok)
+    peak = torch.cuda.max_memory_allocated()
+    kv_bytes = nbytes(cache.layers)
+    del cache
+    manual = torch.cat(toks, dim=1)
+    finite = all(bool(torch.isfinite(x.float()).all()) for x in logits_all)
+    if not finite:
+        fail("[lm phi3-lsh] a logit is not finite")
+    if bool((manual >= cfg.vocab_size).any()) or bool((manual < 0).any()):
+        fail("[lm phi3-lsh] a generated id lies outside the vocabulary")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    generated = engine.greedy_generate(cfg, params, batch, steps=steps,
+                                       max_len=max_len)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    counts = read_counts()
+    profile_calls("lm phi3-lsh profile", f"greedy_generate ({steps} steps)",
+                  [lambda: engine.greedy_generate(cfg, params, batch,
+                                                  steps=steps,
+                                                  max_len=max_len)])
+    if bool((generated >= cfg.vocab_size).any()):
+        fail("[lm phi3-lsh] greedy_generate gave an id past the vocabulary")
+    scale = max(float(logits_all[0].float().abs().max()), 1.0)
+    for row in range(b):
+        for j in range(steps):
+            if not bool(top2_decided(cfg, logits_all[j][row],
+                                     1e-2 * scale)):
+                break
+            if int(generated[row, j]) != int(manual[row, j]):
+                fail(f"[lm phi3-lsh] greedy_generate's token {j} of row "
+                     f"{row} differs from the timed loop's")
+    decode_ms = statistics.median(step_ms)
+    cand = min(cfg.lsh_candidates, max_len)
+    # a decode step reads the weights, every layer's codes and the C
+    # candidates' K and V of each (row, head)
+    step_bytes = (decode_weight_bytes(cfg, b)
+                  + cfg.n_layers * b * max_len * cfg.n_kv_heads * 4
+                  + 2 * cfg.n_layers * b * cfg.n_heads * cand * cfg.hd * 2)
+    pre_bound, dec_bound = lm_bounds(cfg, b * s, step_bytes)
+    print(f"[lm phi3-lsh] on {smi}: prefill {prefill_ms:.2f} ms for {b}x{s} "
+          f"tokens (bound {pre_bound:.2f} ms: 2 x active params x tokens at "
+          f"989 TFLOP/s bf16), decode {decode_ms:.3f} ms a token step "
+          f"(median of steps 2-{steps}; min {min(step_ms):.3f}, max "
+          f"{max(step_ms):.3f}; bound {dec_bound:.3f} ms: {step_bytes:.4g} "
+          f"bytes of weights, codes and candidates at 3.35 TB/s), "
+          f"{b * 1e3 / decode_ms:.1f} tokens/s; peak memory {peak} bytes "
+          f"(parameters {pbytes}, LSH cache {kv_bytes}); greedy_generate "
+          f"{steps} steps in {gen_s:.2f} s (host clock), tokens equal to the "
+          f"timed loop's; a decode step selects {cand} candidates of "
+          f"{max_len} slots per (row, head) and layer 0's last step "
+          f"attends {attended:.1f} of them (same bucket or among the "
+          f"{cfg.lsh_recent} most recent); layer-0 key codes against "
+          f"float64: {differ} of {n_codes} differ, {near} within the "
+          f"rounding bound of 0; port kernel launches on the LM path: "
+          f"{ {k: v for k, v in counts.items() if v} }")
+    print(f"[lm phi3-lsh] first tokens: {manual[:, :8].tolist()}")
+    return dict(params=params, batch=batch, last=last.float())
+
+
+def phase_lm_phi3(smi: str, lsh: dict) -> None:
+    """[lm phi3]: the same weights without ``lsh_proj`` under
+    ``get_config("phi3-mini-3.8b")`` (exact attention), the same prompts:
+    prefill 4,093 tokens and decode 3 (each step attending its own token,
+    R9), each held against ``forward`` over the 4,096 at the reference's
+    tolerance 0.05 of the largest |logit|;
+    and the relative gap between [lm phi3-lsh]'s next-token logits and the
+    exact ones at the last prompt position (printed, not a check)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+    from repro_torch.serving import engine
+    c = LM_PHI3
+    cfg = get_config(c["arch"])
+    params = {k: v for k, v in lsh["params"].items() if k != "lsh_proj"}
+    batch = lsh["batch"]
+    b, s, n = c["batch"], c["prompt"], c["decode_check"]
+    s0 = s - n
+    prefill_step = engine.make_prefill_step(cfg, s)
+    serve = engine.make_serve_step(cfg)
+    pre = dict(batch, tokens=batch["tokens"][:, :s0])
+    torch.cuda.synchronize()
+    zero_counts()
+    torch.cuda.reset_peak_memory_stats()
+    prefill_step(params, pre)                    # warm-up
+    (last, cache), prefill_ms = events_ms(lambda: prefill_step(params, pre))
+    outs, step_ms = [last.float()], []
+    for cur in range(s0, s):
+        (logits, cache), ms = events_ms(
+            lambda: serve(params, cache, batch["tokens"][:, cur:cur + 1],
+                          cur))
+        outs.append(logits.float())
+        step_ms.append(ms)
+    kv_bytes = nbytes(cache.layers)
+    del cache
+    with torch.inference_mode():
+        full, fwd_ms = events_ms(lambda: T.forward(cfg, params, batch)[0])
+    peak = torch.cuda.max_memory_allocated()
+    counts = read_counts()
+    scale = max(float(full.float().abs().max()), 1.0)
+    errs = [float((o - full[:, s0 - 1 + i].float()).abs().max())
+            for i, o in enumerate(outs)]
+    if not all(math.isfinite(e) for e in errs) or max(errs) >= 0.05 * scale:
+        fail(f"[lm phi3] decode against forward: errors {errs} against "
+             f"0.05 x {scale:.4f}")
+    exact_last = full[:, s - 1].float()
+    v = cfg.vocab_size
+    gap = (lsh["last"][:, :v] - exact_last[:, :v]).norm(dim=-1) / \
+        exact_last[:, :v].norm(dim=-1)
+    same = (lsh["last"][:, :v].argmax(-1) == exact_last[:, :v].argmax(-1))
+    decode_ms = statistics.median(step_ms)
+    step_bytes = decode_weight_bytes(cfg, b) + kv_bytes
+    pre_bound, dec_bound = lm_bounds(cfg, b * s0, step_bytes)
+    print(f"[lm phi3] on {smi}: exact attention, same weights and prompts: "
+          f"prefill {prefill_ms:.2f} ms for {b}x{s0} tokens (bound "
+          f"{pre_bound:.2f} ms), decode {decode_ms:.3f} ms a token step "
+          f"(median of {n}; bound {dec_bound:.3f} ms: weights and the "
+          f"{kv_bytes}-byte KV cache at 3.35 TB/s), "
+          f"{b * 1e3 / decode_ms:.1f} tokens/s, forward over {b}x{s} "
+          f"{fwd_ms:.2f} ms; peak memory {peak} bytes; decode against "
+          f"forward: max |error| {max(errs):.5f} over the prefill's last "
+          f"and {n} decode logits, limit 0.05 x max |logit| "
+          f"{scale:.4f} = {0.05 * scale:.4f}; port kernel launches: "
+          f"{ {k: x for k, x in counts.items() if x} }")
+    print(f"[lm phi3] LSH against exact attention at the last prompt "
+          f"position: relative L2 gap of the next-token logits "
+          f"{[round(float(g), 5) for g in gap]} per row, same argmax "
+          f"{same.tolist()} (the paper's approximation; printed, not "
+          f"checked)")
+
+
+class MoEDrops:
+    """Records, for every ``moe_block`` call of a pass, which tokens had
+    an assignment dropped by capacity (``moe.route``'s ``keep``), by
+    wrapping the transformer's ``moe_block``."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __enter__(self):
+        from repro_torch.models import layers as L
+        from repro_torch.models import moe
+        from repro_torch.models import transformer as T
+        self._orig = T.moe_block
+
+        def wrapped(cfg, lp, x):
+            b, s, d = x.shape
+            r = moe.route(cfg, lp, L.norm(cfg, x, lp["mlp_ln"]).reshape(
+                b * s, d))
+            self.calls.append(
+                (~r.keep).reshape(b * s, cfg.top_k).any(-1).reshape(b, s))
+            return self._orig(cfg, lp, x)
+        T.moe_block = wrapped
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import transformer as T
+        T.moe_block = self._orig
+
+    def dropped(self, b: int, s: int):
+        """(B, S) bool: any layer's call over (b, s) tokens dropped one."""
+        import torch
+        out = None
+        for d in self.calls:
+            if tuple(d.shape) == (b, s):
+                out = d if out is None else out | d
+        return out if out is not None else torch.zeros(
+            (b, s), dtype=torch.bool)
+
+
+def phase_lm_archs(smi: str) -> None:
+    """[lm archs]: each other arch at its published widths, depth cut
+    (LM_ARCHS), bf16 random weights: B = 2 prompts of 512 tokens (pixtral
+    1,536, whisper with its 1,500 encoder frames), forward over the
+    prompt, prefill of all but its last 4 tokens and 4 teacher-forced
+    decode steps, each held against the forward logits at the reference's
+    TOL (0.12 of the largest |logit| for mixtral and llama4, else 0.05);
+    for the MoE archs at the positions where neither the forward nor the
+    prefill dropped an assignment by capacity (counted and printed). Each
+    arch's prefill and decode times, bounds and peak memory."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data import synthetic
+    from repro_torch.models import params as P
+    from repro_torch.models import transformer as T
+    from repro_torch.serving import engine
+    c = LM_ARCHS
+    b, n = c["batch"], c["decode"]
+    zero_counts()
+    for i, (arch, depth) in enumerate(c["depth"].items()):
+        full = get_config(arch)
+        cfg = full if depth is None else dataclasses.replace(
+            full, n_layers=depth).validate()
+        s = c["prompt_of"].get(arch, c["prompt"])
+        s0 = s - n
+        gen = torch.Generator(device="cuda").manual_seed(c["seed"] + i)
+        torch.cuda.reset_peak_memory_stats()
+        params = P.init_params(cfg, gen, device="cuda")
+        pbytes = nbytes(params)
+        batch = synthetic.batch_at(
+            synthetic.DataConfig(batch_size=b, seq_len=s,
+                                 seed=c["data_seed"]), cfg, 0,
+            device="cuda")
+        pre = dict(batch, tokens=batch["tokens"][:, :s0])
+        prefill_step = engine.make_prefill_step(cfg, s)
+        serve = engine.make_serve_step(cfg)
+        drops = MoEDrops()
+        with drops:
+            with torch.inference_mode():
+                logits, fwd_ms = events_ms(
+                    lambda: T.forward(cfg, params, batch)[0])
+            (last, cache), prefill_ms = events_ms(
+                lambda: prefill_step(params, pre))
+            outs, step_ms = [last.float()], []
+            for cur in range(s0, s):
+                (step, cache), ms = events_ms(
+                    lambda: serve(params, cache,
+                                  batch["tokens"][:, cur:cur + 1], cur))
+                outs.append(step.float())
+                step_ms.append(ms)
+        peak = torch.cuda.max_memory_allocated()
+        kv_bytes = nbytes(cache)
+        del cache
+        if not all(bool(torch.isfinite(o).all()) for o in outs):
+            fail(f"[lm archs] {arch}: a decode logit is not finite")
+        if drops.dropped(b, 1).any():
+            fail(f"[lm archs] {arch}: a decode step dropped an assignment")
+        skip = drops.dropped(b, s).clone()
+        skip[:, s0 - 1] |= drops.dropped(b, s0)[:, s0 - 1]
+        scale = max(float(logits.float().abs().max()), 1.0)
+        tol = LM_TOL.get(arch, 0.05)
+        held, worst, worst_skipped = 0, 0.0, 0.0
+        for j, o in enumerate(outs):
+            p = s0 - 1 + j
+            err = (o - logits[:, p].float()).abs().amax(dim=-1)
+            keep = ~skip[:, p].to(err.device)
+            held += int(keep.sum())
+            if bool(keep.any()):
+                worst = max(worst, float(err[keep].max()))
+            if bool((~keep).any()):
+                worst_skipped = max(worst_skipped, float(err[~keep].max()))
+        if held == 0 or not math.isfinite(worst) or worst >= tol * scale:
+            fail(f"[lm archs] {arch}: decode against forward max |error| "
+                 f"{worst:.5f} over {held} (row, position) pairs against "
+                 f"{tol} x {scale:.4f}")
+        decode_ms = statistics.median(step_ms)
+        pre_bound, dec_bound = lm_bounds(
+            cfg, b * s0, decode_weight_bytes(cfg, b) + kv_bytes)
+        dropped = f"; {(n + 1) * b - held} of {(n + 1) * b} compared " \
+            f"(row, position) pairs dropped by capacity, their max |error| " \
+            f"{worst_skipped:.5f}" if cfg.n_experts else ""
+        print(f"[lm archs] {arch} on {smi}: {cfg.n_layers} of "
+              f"{full.n_layers} layers, d_model {cfg.d_model}, "
+              f"{P.count_params(cfg)} parameters ({pbytes} bytes), "
+              f"B={b} x {s} tokens: forward {fwd_ms:.2f} ms, prefill "
+              f"{prefill_ms:.2f} ms for {b}x{s0} (bound {pre_bound:.3f} ms), "
+              f"decode {decode_ms:.3f} ms a token step (median of {n}; "
+              f"bound {dec_bound:.4f} ms), peak memory {peak} bytes; decode "
+              f"against forward max |error| {worst:.5f} over {held} (row, "
+              f"position) pairs, limit {tol} x {scale:.4f}{dropped}")
+        del params, batch, pre, logits, outs, last
+        torch.cuda.empty_cache()
+    counts = read_counts()
+    print(f"[lm archs] port kernel launches on the LM path: "
+          f"{ {k: x for k, x in counts.items() if x} }")
+
+
 def record(name, source, replaces, counts, key, err, times):
     """One entry of the kernels line (``key`` a counter of read_counts;
     the plain calls are its kernel's)."""
@@ -4727,6 +5213,13 @@ def main(argv=None) -> int:
     kernels += phase_tables(smi)
     torch.cuda.empty_cache()
     kernels += phase_collision(smi)
+    torch.cuda.empty_cache()
+    lsh = phase_lm_phi3_lsh(smi)
+    torch.cuda.empty_cache()
+    phase_lm_phi3(smi, lsh)
+    del lsh
+    torch.cuda.empty_cache()
+    phase_lm_archs(smi)
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))

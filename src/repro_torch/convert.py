@@ -2,7 +2,8 @@
 
 Every function takes numpy arrays (the caller does the ``np.asarray`` on the
 reference's JAX arrays; this package never imports JAX) and returns port
-objects on ``device``. The reference samples with ``jax.random`` and the
+objects on ``device``. ``model_params_from_numpy`` carries an LM's
+parameter tree leaf for leaf. The reference samples with ``jax.random`` and the
 port with ``torch.Generator``; the two never give the same numbers, so
 parity is held on carried-over parameters, not on seeds. A dense corpus
 crosses as one (n, d_1, ..., d_N) array, a naive family as its
@@ -24,6 +25,7 @@ from repro_torch.core.segments import (SegmentStore, ShardedSegment,
 from repro_torch.core.tensor_formats import CPTensor, DenseTensor, TTTensor
 from repro_torch.device import resolve_device
 from repro_torch.kernels.ops import unstack_like
+from repro_torch.models.params import param_specs, torch_dtype, tree_leaves
 
 
 def _f32(a, dev) -> torch.Tensor:
@@ -145,3 +147,30 @@ def store_from_numpy(segments: Sequence[dict], state: dict,
     derived as every mutation derives them."""
     segs = [segment_from_numpy(device=device, **seg) for seg in segments]
     return SegmentStore.restore(segs, state)
+
+
+def model_params_from_numpy(cfg, tree: dict, device="cuda") -> dict:
+    """A reference LM parameter tree (nested dicts of numpy arrays, any
+    float dtype, bfloat16 included) -> the port's tree on ``device`` in
+    ``cfg``'s dtype, leaf for leaf. Raises unless the tree's paths and
+    shapes are ``param_specs(cfg)``'s."""
+    dev = resolve_device(device)
+    dtype = torch_dtype(cfg)
+    want = {p: s.shape for p, s in tree_leaves(param_specs(cfg))}
+    got = {p: tuple(np.shape(a)) for p, a in tree_leaves(tree)}
+    if got != want:
+        missing = sorted(set(want) - set(got))
+        extra = sorted(set(got) - set(want))
+        shapes = sorted(p for p in set(got) & set(want) if got[p] != want[p])
+        raise ValueError(f"params tree does not match {cfg.name}'s specs: "
+                         f"missing {missing}, extra {extra}, "
+                         f"shape differs at {shapes}")
+
+    def leaf(a):
+        return torch.from_numpy(np.array(a, dtype=np.float32)).to(
+            dev, dtype)
+
+    def walk(t):
+        return {k: walk(v) if isinstance(v, dict) else leaf(v)
+                for k, v in t.items()}
+    return walk(tree)

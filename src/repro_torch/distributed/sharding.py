@@ -9,8 +9,12 @@ rule set maps each logical dim name to mesh axes; ``axis_rules(mesh)``
 activates one for the calling thread, dropping the axes a rule names but
 the mesh lacks, so the same rules serve a 1-D ``shard`` mesh and a 2-D
 ``(data, model)`` one. The sharded index reads its ``lsh_shard`` rule
-(``distributed.index_sharding.resolve_mesh``). ``resolve_spec`` / ``shard``
-(the models' activation constraints) come with the LM substrate.
+(``distributed.index_sharding.resolve_mesh``). The models annotate their
+activations with ``shard(x, *names)``: ``resolve_spec`` resolves the names
+under the active rules with the reference's divisibility fallback
+(recorded in ``ctx.fallbacks``), and ``shard`` returns ``x`` itself, since
+a tensor of one process lives on one card and the models are not split
+over cards.
 """
 
 from __future__ import annotations
@@ -129,3 +133,41 @@ def axis_rules(mesh: Mesh, overrides: Mapping[str, object] | None = None):
         yield _STATE.ctx
     finally:
         _STATE.ctx = prev
+
+
+def resolve_spec(names: Sequence[str | None], shape: Sequence[int]
+                 ) -> tuple:
+    """Logical names -> one entry per dim (None, a mesh axis name, or a
+    tuple of them) under the active context, the counterpart of the
+    reference's PartitionSpec. A dim whose size the mapped axes do not
+    divide is replicated and recorded in ``ctx.fallbacks``; a mesh axis
+    appears once per spec. Returns () outside a context."""
+    ctx = current()
+    if ctx is None:
+        return ()
+    entries = []
+    used: set[str] = set()
+    for name, size in zip(names, shape):
+        axes = ctx.rules.get(name) if name else None
+        if not axes:
+            entries.append(None)
+            continue
+        if any(a in used for a in axes):
+            entries.append(None)
+            continue
+        if size % ctx.axis_size(axes) != 0:
+            ctx.fallbacks.append((str(name), int(size), axes))
+            entries.append(None)
+            continue
+        used.update(axes)
+        entries.append(axes if len(axes) > 1 else axes[0])
+    return tuple(entries)
+
+
+def shard(x: torch.Tensor, *names: str | None) -> torch.Tensor:
+    """The models' activation constraint by logical dim names: resolves
+    them under the active context (recording fallbacks) and returns ``x``
+    unchanged."""
+    if current() is not None:
+        resolve_spec(names, x.shape)
+    return x

@@ -1,1 +1,2 @@
-"""The batched LSH service (reference: ``repro.serving``)."""
+"""The batched LSH service and the LM serving engine (reference:
+``repro.serving``)."""
