@@ -240,6 +240,44 @@ Phases (any failure exits non-zero):
          (pixtral 1,536): decode against forward at the reference's TOL
          (MoE archs at the positions no pass dropped by capacity), prefill
          and decode times, bounds and peak memory.
+  19. training on the LM substrate (after [lm archs]; no hand kernel lies
+     on it either: the counters stay at 0), each line with the card's name
+     and power limit:
+       - [train mamba2]: ``python -m repro_torch.launch.train``'s ``main``
+         at ``get_config("mamba2-130m")`` (24 x 768, bf16, remat
+         "nothing"), the launcher's defaults (B = 8 x 256, lr 1e-3, warmup
+         20), 30 steps, ``--ckpt-every 10`` under ``tempfile.mkdtemp()``:
+         once with ``--fail-at 17`` (``InjectedFailure``), then resumed
+         from step 10, and once uninterrupted in a second directory; the
+         two final states bit-equal leaf for leaf (params and both
+         moments), the mean loss of the last 5 steps below the first 5's;
+         ms a step (CUDA events, forward+backward and the optimizer
+         apart), tokens/s, peak memory, a checkpoint's save s and MB, the
+         resume's s;
+       - [train compress]: the same arch with ``--compress`` (K = 64,
+         R = 2, ``min_size`` 4096), 10 steps: ``comm_ratio``, the
+         compression's ms a step and its parts on the largest leaf
+         (``blocks/w_xBC``: draw, sketch, Gram, solve, project), that
+         leaf's factor bytes; every compressed leaf's projection meets its
+         sketch within the ridge's residual, the loss finite throughout;
+       - [train phi3]: phi3-mini-3.8b at full width and depth (32 x 3072,
+         bf16, exact attention, remat "nothing", float32 moments), B = 2 x
+         2,048 tokens, a warm-up step and 3 timed steps: ms a step
+         (forward+backward and optimizer apart) beside its bound, tokens/s,
+         peak memory, loss and ``grad_norm``; the first step's ce in (1,
+         20), every gradient finite and nonzero in total;
+       - [train phi3-lsh]: ``get_config("phi3-mini-3.8b", "long")`` at
+         full width and depth, B = 1 x 4,096, 2 steps (backward through
+         the bucket sort, the bucket-chunk attention and the unsort):
+         ``lsh_proj``'s gradient exactly zero and the step multiplying it
+         by 1 - lr * wd in bfloat16 rounding; ms a step, peak memory;
+       - [train grads]: phi3 at full width cut to 2 layers, exact
+         attention, float32, B = 2 x 256: the gradients under remat
+         "nothing", "dots" and "none" bit-equal, and central differences
+         along a seeded unit direction over the norm scales at eps and
+         eps / 2, extrapolated (Richardson), against the gradient's
+         directional derivative within 1e-3 of it (over all leaves
+         printed).
 
 Every path's kernel counters are zeroed just before it runs and read just
 after: each kernel and each K1 / K1s branch it needs must have launched,
@@ -1228,10 +1266,12 @@ def phase_profile(svc, queries, tag, mode=None):
                    for i, q in enumerate(queries)])
 
 
-def profile_calls(tag: str, what: str, calls, top: int = 8):
+def profile_calls(tag: str, what: str, calls, top: int = 8,
+                  cpu_top: int = 0):
     """torch.profiler over ``calls`` run in turn (then one synchronize):
     the wall time, the device's busy and idle shares and the kernels with
-    the most device time. Returns the last call's result."""
+    the most device time (and with ``cpu_top`` the operations with the
+    most host time of their own). Returns the last call's result."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -1252,6 +1292,16 @@ def profile_calls(tag: str, what: str, calls, top: int = 8):
           f"({busy_ms / wall_ms:.1%}); idle {1 - busy_ms / wall_ms:.1%}")
     for ms, count, key in rows[:top]:
         print(f"[{tag}]   {ms:9.3f} ms x{count:<4d} {key[:80]}")
+    if cpu_top:
+        host = sorted(((e.self_cpu_time_total / 1e3, e.count, e.key)
+                       for e in prof.key_averages()
+                       if e.self_cpu_time_total > 0), reverse=True)
+        n_ops = sum(e.count for e in prof.key_averages()
+                    if e.key.startswith("aten::"))
+        print(f"[{tag}] host: {n_ops} aten operations, the most host time "
+              f"of their own:")
+        for ms, count, key in host[:cpu_top]:
+            print(f"[{tag}]   {ms:9.3f} ms x{count:<5d} {key[:80]}")
     return out
 
 
@@ -5077,6 +5127,554 @@ def phase_lm_archs(smi: str) -> None:
           f"{ {k: x for k, x in counts.items() if x} }")
 
 
+TRAIN = dict(
+    # [train mamba2]: the launcher's defaults, 30 steps, a checkpoint every
+    # 10, a failure injected at 17 (resume from 10)
+    mamba2=["--arch", "mamba2-130m", "--steps", "30", "--ckpt-every", "10",
+            "--seed", "3"],
+    fail_at=17, loss_window=5,
+    compress=["--arch", "mamba2-130m", "--steps", "10", "--compress",
+              "--seed", "5"],
+    phi3=dict(arch="phi3-mini-3.8b", batch=2, seq=2048, steps=4, seed=7),
+    phi3_lsh=dict(arch="phi3-mini-3.8b", batch=1, seq=4096, steps=2, seed=9),
+    grads=dict(layers=2, batch=2, seq=256, seed=11, eps=1.0),
+)
+# bf16 products of a train step with remat "nothing": the forward twice
+# and the backward's two products a forward product, 8 N T FLOPs
+FP32_ATTN_FLOPS = 67e12
+
+
+def train_ms(inner=None):
+    """Timers for a train step: (wrap_step, install, restore, records).
+    Each step's CUDA events bracket the step and the optimizer's
+    ``update`` (or ``inner``, which calls it), so forward+backward is the
+    step less the update; ``install`` puts the timed update in place of
+    ``optimizer.update``, ``restore`` takes it out."""
+    import torch
+    from repro_torch.training import optimizer as O
+    records = []
+    orig_update = O.update
+    call = inner or orig_update
+
+    def timed_update(c, grads, state, params):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        out = call(c, grads, state, params)
+        ev[1].record()
+        records[-1]["update"] = ev
+        return out
+
+    def wrap(step_fn):
+        def step(state, batch):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            records.append({})
+            ev[0].record()
+            out = step_fn(state, batch)
+            ev[1].record()
+            records[-1]["step"] = ev
+            return out
+        return step
+
+    def install():
+        O.update = timed_update
+
+    def restore():
+        O.update = orig_update
+
+    return wrap, install, restore, records
+
+
+def split_ms(records, skip: int = 0):
+    """(step ms, update ms) means over the records after ``skip``."""
+    import torch
+    torch.cuda.synchronize()
+    rs = records[skip:]
+    step = [r["step"][0].elapsed_time(r["step"][1]) for r in rs]
+    upd = [r["update"][0].elapsed_time(r["update"][1]) for r in rs]
+    return statistics.mean(step), statistics.mean(upd)
+
+
+def states_equal(a, b) -> tuple[int, int]:
+    """(leaves compared, leaves differing) of two train states."""
+    from repro_torch.training import checkpoint as ckpt_lib
+    fa, fb = ckpt_lib._flatten(a), ckpt_lib._flatten(b)
+    if list(fa) != list(fb):
+        fail(f"[train] final states differ in structure")
+    bad = [k for k in fa if not bool((fa[k] == fb[k]).all())
+           or fa[k].dtype != fb[k].dtype]
+    return len(fa), len(bad)
+
+
+class TimedCheckpoints:
+    """While active, times ``checkpoint.save`` (the synchronous calls:
+    ``run_training``'s final save) and ``restore_latest`` (the resume),
+    host clock, the card synchronized after a restore."""
+
+    def __enter__(self):
+        import torch
+        from repro_torch.training import checkpoint as ckpt_lib
+        self.save_s = self.restore_s = 0.0
+        self._orig = (ckpt_lib.save, ckpt_lib.restore_latest)
+        save, restore = self._orig
+
+        def timed_save(directory, step, tree, meta=None, async_=False):
+            t0 = time.perf_counter()
+            out = save(directory, step, tree, meta=meta, async_=async_)
+            if not async_:
+                self.save_s = time.perf_counter() - t0
+            return out
+
+        def timed_restore(directory, like, device=None):
+            t0 = time.perf_counter()
+            out = restore(directory, like, device=device)
+            torch.cuda.synchronize()
+            self.restore_s = time.perf_counter() - t0
+            return out
+        ckpt_lib.save, ckpt_lib.restore_latest = timed_save, timed_restore
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.training import checkpoint as ckpt_lib
+        ckpt_lib.save, ckpt_lib.restore_latest = self._orig
+
+
+def phase_train_mamba2(smi: str) -> None:
+    """[train mamba2]: the launcher's run with a failure and a resume
+    against an uninterrupted one (bit-equal), the loss falling, ms a
+    step, a checkpoint's save and resume."""
+    import shutil
+    import tempfile
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data import synthetic
+    from repro_torch.launch import train as launch
+    from repro_torch.models import params as P
+    from repro_torch.training import checkpoint as ckpt_lib
+    from repro_torch.training import optimizer as O
+    from repro_torch.training import train_loop as TL
+    from repro_torch.training.fault_tolerance import InjectedFailure
+    c = TRAIN
+    cfg = get_config("mamba2-130m")
+    args = launch.parser().parse_args(c["mamba2"])
+    dirs = [tempfile.mkdtemp(prefix="train_mamba2_") for _ in range(2)]
+    try:
+        zero_counts()
+        torch.cuda.reset_peak_memory_stats()
+        try:
+            launch.main(c["mamba2"] + ["--ckpt-dir", dirs[0], "--fail-at",
+                                       str(c["fail_at"])])
+            fail("[train mamba2] --fail-at did not raise InjectedFailure")
+        except InjectedFailure:
+            pass
+        if ckpt_lib.latest_step(dirs[0]) != 10:
+            fail(f"[train mamba2] latest checkpoint after the failure is "
+                 f"{ckpt_lib.latest_step(dirs[0])}, not 10")
+        timed = TimedCheckpoints()
+        with timed:
+            resumed, hist_a = launch.train(c["mamba2"] + ["--ckpt-dir",
+                                                          dirs[0]])
+        if len(hist_a) != args.steps - 10:
+            fail(f"[train mamba2] the resumed run took {len(hist_a)} steps, "
+                 f"not {args.steps - 10}")
+        wrap, install, restore, records = train_ms()
+        install()
+        try:
+            full, hist = launch.train(c["mamba2"] + ["--ckpt-dir", dirs[1]],
+                                      wrap_step=wrap)
+        finally:
+            restore()
+        peak = torch.cuda.max_memory_allocated()
+        step_ms, upd_ms = split_ms(records, skip=1)
+        n, bad = states_equal(resumed, full)
+        if bad:
+            fail(f"[train mamba2] the resumed final state differs from the "
+                 f"uninterrupted one in {bad} of {n} leaves")
+        losses = [h["loss"] for h in hist]
+        w = c["loss_window"]
+        first, last = statistics.mean(losses[:w]), statistics.mean(losses[-w:])
+        if not all(math.isfinite(x) for x in losses) or not last < first:
+            fail(f"[train mamba2] loss did not fall: first {w} mean "
+                 f"{first:.4f}, last {w} {last:.4f}")
+        final = os.path.join(dirs[0], f"step_{args.steps:08d}")
+        size = sum(os.path.getsize(os.path.join(final, f))
+                   for f in os.listdir(final))
+        save_s, resume_s = timed.save_s, timed.restore_s
+        check_counts(read_counts(), "train mamba2", ())
+        tc = TL.TrainConfig(adamw=O.AdamWConfig(
+            peak_lr=args.lr, warmup_steps=args.warmup,
+            decay_steps=max(args.steps, 10)))
+        batch = synthetic.batch_at(synthetic.DataConfig(
+            batch_size=args.batch, seq_len=args.seq, seed=args.seed), cfg,
+            args.steps, device="cuda")
+        step_fn = TL.make_train_step(cfg, tc)
+        profile_calls("train mamba2 profile", "one train step",
+                      [lambda: step_fn(full, batch)], cpu_top=8)
+        tokens = args.batch * args.seq
+        print(f"[train mamba2] on {smi}: {cfg.name} {cfg.n_layers} x "
+              f"{cfg.d_model}, {P.count_params(cfg)} parameters, "
+              f"{cfg.dtype}, remat {cfg.remat_policy!r}; B={args.batch} x "
+              f"{args.seq} tokens, lr {args.lr}, warmup {args.warmup}, "
+              f"{args.steps} steps; failure at {c['fail_at']}, resumed "
+              f"from step 10: final state bit-equal to the uninterrupted "
+              f"run's in all {n} leaves (params, mu, nu, step; "
+              f"deterministic algorithms "
+              f"{torch.are_deterministic_algorithms_enabled()}, nothing "
+              f"forced); loss {losses[0]:.4f} -> {losses[-1]:.4f} (first "
+              f"{w} mean {first:.4f}, last {w} {last:.4f}); "
+              f"{step_ms:.2f} ms a step (forward+backward "
+              f"{step_ms - upd_ms:.2f}, optimizer {upd_ms:.2f}; mean of "
+              f"{len(records) - 1} after the first), "
+              f"{tokens * 1e3 / step_ms:.0f} tokens/s, peak memory "
+              f"{peak / 1e9:.2f} GB; checkpoint: the final synchronous "
+              f"save {save_s:.3f} s for {size / 1e6:.1f} MB, the resume's "
+              f"restore onto the card {resume_s:.3f} s")
+    finally:
+        for d in dirs:
+            shutil.rmtree(d, ignore_errors=True)
+
+
+def phase_train_compress(smi: str) -> None:
+    """[train compress]: the launcher with --compress; comm_ratio, the
+    compression's ms a step and its parts on the largest leaf, the
+    projection meeting its sketch on every compressed leaf."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data import synthetic
+    from repro_torch.launch import train as launch
+    from repro_torch.models import params as P
+    from repro_torch.training import compression as C
+    from repro_torch.training import train_loop as TL
+    args = launch.parser().parse_args(TRAIN["compress"])
+    cfg = get_config(args.arch)
+    ccfg = C.CompressionConfig(min_size=4096)
+    orig = C.roundtrip
+    comp_ms = []
+
+    def timed(*a, **k):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        out = orig(*a, **k)
+        ev[1].record()
+        comp_ms.append(ev)
+        return out
+    zero_counts()
+    torch.cuda.reset_peak_memory_stats()
+    C.roundtrip = timed
+    try:
+        state, hist = launch.train(TRAIN["compress"])
+    finally:
+        C.roundtrip = orig
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    ms = [a.elapsed_time(b) for a, b in comp_ms]
+    losses = [h["loss"] for h in hist]
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"[train compress] a loss is not finite: {losses}")
+    ratio = hist[-1]["comm_ratio"]
+    # the projection against its sketch on every compressed leaf of one
+    # more step's gradients (with the final error state)
+    batch = synthetic.batch_at(synthetic.DataConfig(
+        batch_size=args.batch, seq_len=args.seq, seed=args.seed), cfg,
+        args.steps, device="cuda")
+    _, _, grads = TL.grads_of(cfg, state.params, batch)
+    errs = dict(P.tree_leaves(state.compressor.error))
+    worst, n_leaves, largest = 0.0, 0, None
+    for i, (path, g) in enumerate(P.tree_leaves(grads)):
+        ms_ = C._matricize_shape(tuple(g.shape))
+        if ms_ is None or g.numel() < ccfg.min_size:
+            continue
+        d1, d2 = ms_
+        fa, fb = C._factors(ccfg, ccfg.seed, args.steps, i, d1, d2, g.device)
+        g2 = (g.float() + errs[path]).reshape(d1, d2)
+        s = C._sketch(g2, fa, fb, ccfg.rank)
+        back = C._sketch(C._project(s, fa, fb, ccfg.rank, ccfg.ridge),
+                         fa, fb, ccfg.rank)
+        resid = float((back - s).norm() / s.norm())
+        worst = max(worst, resid)
+        n_leaves += 1
+        if largest is None or d1 + d2 > sum(largest[1].shape):
+            largest = (path, g2, i)         # the most factor bytes
+        del fa, fb
+    # <P_k, G^> = s_k - lam alpha_k, lam = ridge * trace(M) / K: the
+    # residual is about ridge; float32 sketches of ~1.4e6 terms add 1e-4
+    bound = 10 * ccfg.ridge + 1e-3
+    if not worst <= bound:
+        fail(f"[train compress] a projection misses its sketch: relative "
+             f"residual {worst:.3e} > {bound:.1e}")
+    path, g2, i = largest
+    d1, d2 = g2.shape
+    parts = {}
+    fa_fb, parts["draw"] = events_ms(lambda: C._factors(
+        ccfg, ccfg.seed, args.steps, i, d1, d2, g2.device))
+    fa, fb = fa_fb
+    s, parts["sketch"] = events_ms(lambda: C._sketch(g2, fa, fb, ccfg.rank))
+    m, parts["gram"] = events_ms(lambda: C._projection_gram(fa, fb,
+                                                            ccfg.rank))
+    alpha, parts["solve"] = events_ms(lambda: C._solve(m, s, ccfg.ridge))
+    _, parts["project"] = events_ms(lambda: C._expand(alpha, fa, fb,
+                                                      ccfg.rank))
+    fbytes = (fa.numel() + fb.numel()) * fa.element_size()
+    check_counts(read_counts(), "train compress", ())
+    print(f"[train compress] on {smi}: {cfg.name}, --compress (K "
+          f"{ccfg.num_projections}, R {ccfg.rank}, min_size "
+          f"{ccfg.min_size}), {args.steps} steps of B={args.batch} x "
+          f"{args.seq}: comm_ratio {ratio:.6f} (mean over {n_leaves} "
+          f"compressed leaves), loss {losses[0]:.4f} -> {losses[-1]:.4f}, "
+          f"all finite; compression {statistics.mean(ms[1:]):.2f} ms a step "
+          f"(mean of {len(ms) - 1} after the first); largest leaf {path} "
+          f"({d1} x {d2}): draw {parts['draw']:.3f}, sketch "
+          f"{parts['sketch']:.3f}, Gram {parts['gram']:.3f}, solve "
+          f"{parts['solve']:.3f}, project {parts['project']:.3f} ms, "
+          f"factors {fbytes} bytes; <P_k, G^> against s_k: max relative "
+          f"residual {worst:.3e} over {n_leaves} leaves (limit "
+          f"{bound:.1e}); peak memory {peak / 1e9:.2f} GB")
+
+
+def phi3_bounds(cfg, tokens: int, n_params: int, seq: int, batch: int):
+    """(bf16 products ms, f32 attention ms, AdamW bytes ms, sum) of a
+    train step with remat "nothing"."""
+    prod = 8.0 * n_params * tokens / BF16_FLOPS * 1e3
+    # the chunked attention's two f32 products, 4 S^2 hd H a layer over the
+    # causal half skipped by no one (every chunk is computed), run three
+    # times (forward, remat, the chunk checkpoint) plus a 2x backward
+    attn_fwd = 4.0 * batch * seq * seq * cfg.hd * cfg.n_heads * cfg.n_layers
+    attn = 5.0 * attn_fwd / FP32_ATTN_FLOPS * 1e3
+    adamw = 22.0 * n_params / HBM_BYTES_PER_S * 1e3
+    return prod, attn, adamw, prod + attn + adamw
+
+
+def grad_check(tag: str, grads) -> float:
+    """Fails unless every gradient is finite and their total |g| is
+    nonzero; returns the total."""
+    import torch
+    from repro_torch.models import params as P
+    total = 0.0
+    for path, g in P.tree_leaves(grads):
+        if not bool(torch.isfinite(g).all()):
+            fail(f"[{tag}] gradient {path} is not finite")
+        total += float(g.float().abs().sum())
+    if not total > 0.0:
+        fail(f"[{tag}] every gradient is zero")
+    return total
+
+
+def phase_train_phi3(smi: str, lsh: bool) -> None:
+    """[train phi3] / [train phi3-lsh]: train steps of phi3-mini-3.8b at
+    full width and depth through the port's train step."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data import synthetic
+    from repro_torch.models import params as P
+    from repro_torch.training import optimizer as O
+    from repro_torch.training import train_loop as TL
+    tag = "train phi3-lsh" if lsh else "train phi3"
+    c = TRAIN["phi3_lsh" if lsh else "phi3"]
+    cfg = get_config(c["arch"], "long" if lsh else "full")
+    tc = TL.TrainConfig(adamw=O.AdamWConfig(peak_lr=3e-4, warmup_steps=1,
+                                            decay_steps=100))
+    zero_counts()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device="cuda").manual_seed(c["seed"])
+    t0 = time.perf_counter()
+    state, _ = TL.init_state(cfg, tc, gen, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    static = nbytes(state.params) + nbytes(state.opt.mu) + nbytes(
+        state.opt.nu)
+    dc = synthetic.DataConfig(batch_size=c["batch"], seq_len=c["seq"],
+                              seed=c["seed"])
+    checks = {}
+    orig = O.update
+
+    def inspect(cc, grads, st, params):
+        if "grads" not in checks:
+            checks["grads"] = grad_check(tag, grads)
+            if lsh:
+                for k in ("f1", "f2"):
+                    if bool((grads["lsh_proj"][k] != 0).any()):
+                        fail(f"[{tag}] lsh_proj/{k}'s gradient is not zero")
+                checks["proj"] = {k: params["lsh_proj"][k].clone()
+                                  for k in ("f1", "f2")}
+        return orig(cc, grads, st, params)
+    wrap, install, restore, records = train_ms(inner=inspect)
+    step_fn = wrap(TL.make_train_step(cfg, tc))
+    install()
+    metrics, host_s = [], []
+    try:
+        for i in range(c["steps"]):
+            t0 = time.perf_counter()
+            batch = synthetic.batch_at(dc, cfg, i, device="cuda")
+            state, m = step_fn(state, batch)
+            metrics.append({k: float(v) for k, v in m.items()})
+            host_s.append(time.perf_counter() - t0)
+            if lsh and i == 0:
+                wd = tc.adamw.weight_decay
+                for k, before in checks["proj"].items():
+                    want = (before.float() - m["lr"] * (
+                        wd * before.float())).to(before.dtype)
+                    if not torch.equal(state.params["lsh_proj"][k], want):
+                        fail(f"[{tag}] lsh_proj/{k} after the step is not "
+                             f"(1 - lr * wd) times it in bf16 rounding")
+                del checks["proj"]
+    finally:
+        restore()
+    peak = torch.cuda.max_memory_allocated()
+    step_ms, upd_ms = split_ms(records, skip=1)
+    if not lsh:
+        step_fn = TL.make_train_step(cfg, tc)
+        profile_calls(f"{tag} profile", "one train step",
+                      [lambda: step_fn(state, batch)])
+    ce0 = metrics[0]["ce"]
+    if not 1.0 < ce0 < 20.0 or not all(math.isfinite(m["loss"])
+                                       for m in metrics):
+        fail(f"[{tag}] first ce {ce0} outside (1, 20) or a loss not finite")
+    check_counts(read_counts(), tag, ())
+    n = P.count_params(cfg)
+    tokens = c["batch"] * c["seq"]
+    prod, attn, adamw, total = phi3_bounds(cfg, tokens, n, c["seq"],
+                                           c["batch"])
+    what = (f"LSH attention ({cfg.lsh_num_hashes} hashes, chunk "
+            f"{cfg.lsh_chunk}); lsh_proj's gradient exactly 0 and the step "
+            f"scaled it by 1 - lr * wd in bf16 rounding" if lsh
+            else "exact attention")
+    bound = "" if lsh else (
+        f" (bound {total:.1f} ms: bf16 products 8 N T = "
+        f"{8.0 * n * tokens / 1e12:.1f} TFLOP {prod:.1f} ms at 989 "
+        f"TFLOP/s, the f32 chunked attention {attn:.1f} ms at 67 TFLOP/s, "
+        f"AdamW's 22 bytes a parameter {adamw:.1f} ms at 3.35 TB/s)")
+    print(f"[{tag}] on {smi}: {cfg.name} {cfg.n_layers} x {cfg.d_model}, "
+          f"{n} parameters, {cfg.dtype}, remat {cfg.remat_policy!r}, f32 "
+          f"moments, {what}; B={c['batch']} x {c['seq']} tokens: "
+          f"{step_ms:.1f} ms a step{bound}, forward+backward "
+          f"{step_ms - upd_ms:.1f} ms, optimizer {upd_ms:.1f} ms (mean of "
+          f"{len(records) - 1} after the warm-up), "
+          f"{tokens * 1e3 / step_ms:.0f} tokens/s; peak memory "
+          f"{peak / 1e9:.2f} GB (params + moments {static / 1e9:.2f} GB); "
+          f"loss {[round(m['loss'], 4) for m in metrics]}, first ce "
+          f"{ce0:.4f}, grad_norm {[round(m['grad_norm'], 4) for m in metrics]}"
+          f", total |g| of the first step {checks['grads']:.4e}; host clock: "
+          f"state drawn in {init_s:.2f} s, steps (with the batch) "
+          f"{[round(x, 3) for x in host_s]} s")
+    del state
+    torch.cuda.empty_cache()
+
+
+def phase_train_grads(smi: str) -> None:
+    """[train grads]: remat policies bit-equal and a central difference on
+    phi3 at full width, 2 layers, float32."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data import synthetic
+    from repro_torch.models import params as P
+    from repro_torch.models import transformer as T
+    from repro_torch.training import train_loop as TL
+    c = TRAIN["grads"]
+    base = dataclasses.replace(get_config("phi3-mini-3.8b"),
+                               n_layers=c["layers"],
+                               dtype="float32").validate()
+    zero_counts()
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device="cuda").manual_seed(c["seed"])
+    params = P.init_params(base, gen, device="cuda")
+    batch = synthetic.batch_at(synthetic.DataConfig(
+        batch_size=c["batch"], seq_len=c["seq"], seed=c["seed"]), base, 0,
+        device="cuda")
+    grads, times = {}, {}
+    for policy in ("nothing", "dots", "none"):
+        cfg = dataclasses.replace(base, remat_policy=policy)
+        TL.grads_of(cfg, params, batch)              # warm-up
+        (loss, _, g), times[policy] = events_ms(
+            lambda: TL.grads_of(cfg, params, batch))
+        grads[policy] = (float(loss), dict(P.tree_leaves(g)))
+        peak_p = torch.cuda.max_memory_allocated()
+        times[policy] = (times[policy], peak_p)
+        torch.cuda.reset_peak_memory_stats()
+    ref_loss, ref = grads["nothing"]
+    differ = {}
+    for policy in ("dots", "none"):
+        loss, g = grads[policy]
+        bad = [p for p in ref if not torch.equal(g[p], ref[p])]
+        worst = max((float((g[p] - ref[p]).abs().max()
+                           / ref[p].abs().max().clamp(min=1e-30))
+                     for p in bad), default=0.0)
+        differ[policy] = (len(bad), worst, loss == ref_loss)
+        if bad and worst > 1e-5:
+            fail(f"[train grads] remat {policy!r} gradients differ from "
+                 f"'nothing' in {len(bad)} leaves, relative {worst:.2e}")
+    labels = batch["labels"].long()
+    mask = labels >= 0
+
+    def loss_at(d, step):
+        """``loss_fn``'s value at p + step * d, its cross-entropy summed in
+        float64 over the forward's float32 logits (a float32 sum of the 512
+        per-token terms alone would round by ~1e-5)."""
+        tree = TL.unflatten(params, [t + step * d[p] if p in d else t
+                                     for p, t in P.tree_leaves(params)])
+        with torch.no_grad():
+            logits = T.forward(base, tree, batch)[0].double()
+        ll = torch.gather(logits, -1, labels.clamp(min=0)[..., None])[..., 0]
+        ce = (torch.logsumexp(logits, dim=-1) - ll) * mask
+        return float(ce.sum() / mask.sum())
+
+    def directional(leaves, seed, eps):
+        """(<grad, d>, fd(eps), fd(eps / 2), extrapolated) along a seeded
+        Gaussian unit direction d over ``leaves``. fd(eps) = D + c eps^2
+        + O(eps^4), so (4 fd(eps / 2) - fd(eps)) / 3 removes the
+        third-order term."""
+        dgen = torch.Generator(device="cuda").manual_seed(seed)
+        d = {p: torch.randn(t.shape, generator=dgen, device="cuda")
+             for p, t in P.tree_leaves(params) if p in leaves}
+        norm = math.sqrt(sum(float((v * v).sum()) for v in d.values()))
+        d = {p: v / norm for p, v in d.items()}
+        deriv = sum(float((ref[p].double() * d[p].double()).sum())
+                    for p in d)
+        fds = [(loss_at(d, e) - loss_at(d, -e)) / (2 * e)
+               for e in (eps, eps / 2)]
+        return deriv, fds[0], fds[1], (4 * fds[1] - fds[0]) / 3
+    # the checked direction spans the norm scales (every layer's two and
+    # the final one: 15,360 entries), whose gradients carry the whole
+    # backward from the head to layer 0; its derivative is large beside
+    # the loss's float32 rounding (~2e-7 an evaluation on the card: the
+    # forward's logits round independently across 512 tokens). Over all
+    # 423M entries a unit direction's derivative is ~4e-5, so that noise is
+    # 0.5% of it: printed, not checked.
+    norms = [p for p, _ in P.tree_leaves(params)
+             if p.split("/")[-1] in ("ln", "mlp_ln", "final_norm")]
+    deriv, fd, fd_half, rich = directional(set(norms), c["seed"] + 1,
+                                           c["eps"])
+    bound = 1e-3 * abs(deriv) + 1e-8
+    if not abs(rich - deriv) <= bound:
+        fail(f"[train grads] along the norms: central differences {fd:.6e} "
+             f"(eps {c['eps']}), {fd_half:.6e} (eps {c['eps'] / 2}), "
+             f"extrapolated {rich:.6e} against <grad, d> {deriv:.6e}: "
+             f"|difference| {abs(rich - deriv):.3e} > {bound:.3e}")
+    all_d, all_fd, _, all_rich = directional(
+        {p for p, _ in P.tree_leaves(params)}, c["seed"] + 2, c["eps"])
+    check_counts(read_counts(), "train grads", ())
+    print(f"[train grads] on {smi}: phi3-mini-3.8b at full width cut to "
+          f"{c['layers']} of 32 layers, float32, exact attention, "
+          f"B={c['batch']} x {c['seq']}: loss {ref_loss:.6f}; gradients "
+          f"under remat 'dots' / 'none' against 'nothing': "
+          f"{differ['dots'][0]} / {differ['none'][0]} of {len(ref)} leaves "
+          f"differ (bit-equal where 0; worst relative "
+          f"{differ['dots'][1]:.2e} / {differ['none'][1]:.2e}), losses "
+          f"equal {differ['dots'][2]} / {differ['none'][2]}; "
+          f"forward+backward ms and peak GB: "
+          + ", ".join(f"{k} {v[0]:.1f} ms {v[1] / 1e9:.2f} GB"
+                      for k, v in times.items())
+          + f"; central differences along a seeded unit direction over "
+          f"the {len(norms)} norm-scale leaves {fd:.6e} (eps {c['eps']}) "
+          f"and {fd_half:.6e} (eps {c['eps'] / 2}), extrapolated "
+          f"{rich:.6e} against <grad, d> {deriv:.6e}: |difference| "
+          f"{abs(rich - deriv):.3e} ({abs(rich - deriv) / abs(deriv):.2e} "
+          f"relative), limit {bound:.3e}; over all leaves (printed) "
+          f"{all_fd:.6e}, extrapolated {all_rich:.6e} against {all_d:.6e}")
+    del params, grads, ref
+    torch.cuda.empty_cache()
+
+
 def record(name, source, replaces, counts, key, err, times):
     """One entry of the kernels line (``key`` a counter of read_counts;
     the plain calls are its kernel's)."""
@@ -5220,6 +5818,15 @@ def main(argv=None) -> int:
     del lsh
     torch.cuda.empty_cache()
     phase_lm_archs(smi)
+    torch.cuda.empty_cache()
+    t_train = time.perf_counter()
+    phase_train_mamba2(smi)
+    phase_train_compress(smi)
+    torch.cuda.empty_cache()
+    phase_train_phi3(smi, lsh=False)
+    phase_train_phi3(smi, lsh=True)
+    phase_train_grads(smi)
+    print(f"[train] phases {time.perf_counter() - t_train:.1f} s")
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))

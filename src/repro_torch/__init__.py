@@ -10,7 +10,9 @@ streaming mutations, and with ``shards=S`` the sharded index on the same
 card (K1s: K1's kernel over every (shard, segment) pair). The LM
 substrate's serving path: ``configs``, ``models`` (dense, MoE, SSD, hybrid,
 encoder-decoder and the CP-SRP LSH attention), ``data`` and
-``serving/engine.py``. Entry points default to ``device="cuda"``;
+``serving/engine.py``, and its training (``training``: AdamW, remat,
+accumulation, the CP-sketch gradient compression, checkpoints, the
+fault-tolerant loop; ``launch/train.py``). Entry points default to ``device="cuda"``;
 ``device="cpu"`` runs every kernel's plain PyTorch version. This package
 imports torch and numpy, never JAX or ``repro``.
 

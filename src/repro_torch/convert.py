@@ -7,7 +7,9 @@ parameter tree leaf for leaf. The reference samples with ``jax.random`` and the
 port with ``torch.Generator``; the two never give the same numbers, so
 parity is held on carried-over parameters, not on seeds. A dense corpus
 crosses as one (n, d_1, ..., d_N) array, a naive family as its
-(L*K, prod d) matrix (the reference's ``projection.matrix``).
+(L*K, prod d) matrix (the reference's ``projection.matrix``). A training
+state crosses leaf for leaf (``train_state_from_numpy`` /
+``train_state_to_numpy``).
 """
 
 from __future__ import annotations
@@ -154,23 +156,78 @@ def model_params_from_numpy(cfg, tree: dict, device="cuda") -> dict:
     float dtype, bfloat16 included) -> the port's tree on ``device`` in
     ``cfg``'s dtype, leaf for leaf. Raises unless the tree's paths and
     shapes are ``param_specs(cfg)``'s."""
-    dev = resolve_device(device)
-    dtype = torch_dtype(cfg)
+    return _leaves_from_numpy(cfg, tree, torch_dtype(cfg),
+                              resolve_device(device), "params")
+
+
+def _field(obj, name: str):
+    """A field of a reference NamedTuple or of a dict of the same names."""
+    return obj[name] if isinstance(obj, dict) else getattr(obj, name)
+
+
+def _leaves_from_numpy(cfg, tree: dict, dtype, dev, what: str) -> dict:
+    """A tree with ``param_specs(cfg)``'s paths and shapes (checked) ->
+    tensors of ``dtype`` on ``dev``."""
     want = {p: s.shape for p, s in tree_leaves(param_specs(cfg))}
     got = {p: tuple(np.shape(a)) for p, a in tree_leaves(tree)}
     if got != want:
         missing = sorted(set(want) - set(got))
         extra = sorted(set(got) - set(want))
         shapes = sorted(p for p in set(got) & set(want) if got[p] != want[p])
-        raise ValueError(f"params tree does not match {cfg.name}'s specs: "
+        raise ValueError(f"{what} tree does not match {cfg.name}'s specs: "
                          f"missing {missing}, extra {extra}, "
                          f"shape differs at {shapes}")
 
-    def leaf(a):
-        return torch.from_numpy(np.array(a, dtype=np.float32)).to(
-            dev, dtype)
-
     def walk(t):
-        return {k: walk(v) if isinstance(v, dict) else leaf(v)
-                for k, v in t.items()}
+        return {k: walk(v) if isinstance(v, dict) else torch.from_numpy(
+            np.array(v, dtype=np.float32)).to(dev, dtype)
+            for k, v in t.items()}
     return walk(tree)
+
+
+def train_state_from_numpy(cfg, tc, tree, device="cuda"):
+    """A reference ``TrainState`` with numpy leaves (its NamedTuples, or
+    dicts of the same field names: params, opt {step, mu, nu}, compressor
+    {error} | None) -> the port's ``TrainState`` on ``device``: params in
+    ``cfg``'s dtype, moments in ``tc.adamw.moment_dtype``, step int32, the
+    compressor's error float32, leaf for leaf. Raises unless every tree's
+    paths and shapes are ``param_specs(cfg)``'s."""
+    from repro_torch.training import compression as C
+    from repro_torch.training import optimizer as O
+    from repro_torch.training import train_loop as TL
+    dev = resolve_device(device)
+    opt = _field(tree, "opt")
+    mdt = getattr(torch, tc.adamw.moment_dtype)
+    params = _leaves_from_numpy(cfg, _field(tree, "params"), torch_dtype(cfg),
+                                dev, "params")
+    step = torch.tensor(int(np.asarray(_field(opt, "step"))),
+                        dtype=torch.int32, device=dev)
+    state = O.OptState(
+        step=step,
+        mu=_leaves_from_numpy(cfg, _field(opt, "mu"), mdt, dev, "mu"),
+        nu=_leaves_from_numpy(cfg, _field(opt, "nu"), mdt, dev, "nu"))
+    comp = _field(tree, "compressor")
+    cstate = None if comp is None else C.CompressorState(
+        error=_leaves_from_numpy(cfg, _field(comp, "error"), torch.float32,
+                                 dev, "error"))
+    return TL.TrainState(params=params, opt=state, compressor=cstate)
+
+
+def train_state_to_numpy(state) -> dict:
+    """The port's ``TrainState`` -> {"params", "opt": {"step", "mu", "nu"},
+    "compressor": {"error"} | None} of numpy arrays (bfloat16 leaves as
+    float32, exactly; copies, never views of the state's tensors), the
+    inverse of ``train_state_from_numpy``."""
+    def walk(t):
+        if isinstance(t, dict):
+            return {k: walk(v) for k, v in t.items()}
+        t = t.detach().cpu()
+        # a copy: the train step updates a CPU state's tensors in place
+        return np.array((t.float() if t.dtype == torch.bfloat16
+                         else t).numpy())
+    opt = state.opt
+    return {"params": walk(state.params),
+            "opt": {"step": walk(opt.step), "mu": walk(opt.mu),
+                    "nu": walk(opt.nu)},
+            "compressor": None if state.compressor is None
+            else {"error": walk(state.compressor.error)}}

@@ -22,6 +22,7 @@ import math
 from typing import NamedTuple
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.distributed.sharding import shard
@@ -71,34 +72,49 @@ def chunked_attention(q, k, v, q_pos, k_pos, *, causal: bool,
         k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad))
         v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))
         k_pos = torch.nn.functional.pad(k_pos, (0, pad), value=-1)
-    n_chunks = k.shape[1] // kv_chunk
 
     m = torch.full((b, s, h), NEG_INF, dtype=torch.float32, device=q.device)
     l = torch.zeros((b, s, h), dtype=torch.float32, device=q.device)
     acc = torch.zeros((b, s, h, hd), dtype=torch.float32, device=q.device)
-    for j in range(n_chunks):
-        sl = slice(j * kv_chunk, (j + 1) * kv_chunk)
-        kr = k[:, sl].float()
-        vr = v[:, sl].float()
-        if g > 1:
-            kr = kr.repeat_interleave(g, dim=2)
-            vr = vr.repeat_interleave(g, dim=2)
-        kpj = k_pos[:, sl]
-        sc = torch.einsum("bshd,bchd->bshc", qf, kr)
-        valid = kpj[:, None, :] >= 0                        # (B, 1, C)
-        if causal:
-            valid = valid & (kpj[:, None, :] <= q_pos[:, :, None])
-        if window:
-            valid = valid & ((q_pos[:, :, None] - kpj[:, None, :]) < window)
-        sc = torch.where(valid[:, :, None, :], sc, NEG_INF)
-        m_new = torch.maximum(m, sc.amax(dim=-1))
-        p = torch.exp(sc - m_new[..., None])
-        alpha = torch.exp(m - m_new)
-        l = l * alpha + p.sum(dim=-1)
-        acc = acc * alpha[..., None] + torch.einsum("bshc,bchd->bshd", p, vr)
-        m = m_new
+    # one split a tensor: its backward concatenates the chunks' gradients
+    # once, where slicing would write a zero-filled K-sized one a chunk
+    for kc, vc, kpj in zip(k.split(kv_chunk, dim=1), v.split(kv_chunk, dim=1),
+                           k_pos.split(kv_chunk, dim=1)):
+        args = (qf, kc, vc, kpj, q_pos, m, l, acc, g, causal, window)
+        if torch.is_grad_enabled():
+            # the backward recomputes the chunk's scores and
+            # probabilities, as the reference's jax.checkpoint on its
+            # chunk body: saved, the (B, S, H, C) float32 probabilities
+            # of every chunk would dominate a layer's training memory
+            m, l, acc = torch.utils.checkpoint.checkpoint(
+                _chunk_step, *args, use_reentrant=False)
+        else:
+            m, l, acc = _chunk_step(*args)
     out = acc / torch.clamp(l, min=1e-30)[..., None]
     return out.to(q.dtype)
+
+
+def _chunk_step(qf, kc, vc, kpj, q_pos, m, l, acc, g: int, causal: bool,
+                window: int):
+    """One KV chunk of the online softmax: (m, l, acc) updated."""
+    kr = kc.float()
+    vr = vc.float()
+    if g > 1:
+        kr = kr.repeat_interleave(g, dim=2)
+        vr = vr.repeat_interleave(g, dim=2)
+    sc = torch.einsum("bshd,bchd->bshc", qf, kr)
+    valid = kpj[:, None, :] >= 0                            # (B, 1, C)
+    if causal:
+        valid = valid & (kpj[:, None, :] <= q_pos[:, :, None])
+    if window:
+        valid = valid & ((q_pos[:, :, None] - kpj[:, None, :]) < window)
+    sc = torch.where(valid[:, :, None, :], sc, NEG_INF)
+    m_new = torch.maximum(m, sc.amax(dim=-1))
+    p = torch.exp(sc - m_new[..., None])
+    alpha = torch.exp(m - m_new)
+    l = l * alpha + p.sum(dim=-1)
+    acc = acc * alpha[..., None] + torch.einsum("bshc,bchd->bshd", p, vr)
+    return m_new, l, acc
 
 
 def decode_attention(q, cache_k, cache_v, cache_pos, cur_pos: int, *,

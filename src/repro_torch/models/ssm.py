@@ -89,7 +89,12 @@ def ssd_chunked(x, dt, a, bmat, cmat, chunk: int, init_state=None):
     ldiff = li[..., :, None] - li[..., None, :]  # cs_i - cs_j
     mask = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
                                  device=x.device))
-    decay = torch.where(mask, torch.exp(ldiff), 0.0)
+    # exp of the masked entries' -inf, not where(mask, exp(ldiff), 0): above
+    # the diagonal ldiff is a sum of |dt * a| that passes float32's exp
+    # range over a 256-token chunk, and the backward of the reference's
+    # form multiplies that inf by the zero cotangent (NaN gradients,
+    # caveat R11). The forward values are the same.
+    decay = torch.exp(torch.where(mask, ldiff, float("-inf")))
     m = scores * decay * dtc.permute(0, 1, 3, 2)[..., None, :]
     y_intra = torch.einsum("bchij,bcjhp->bcihp", m, xc)
 

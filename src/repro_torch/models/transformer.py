@@ -13,7 +13,12 @@ the reference's nesting and stacked (L, ...) leaves):
 The reference's scans over stacked layers are loops over the layer index.
 Homogeneous archs walk the stacked params; llama4 walks (dense, MoE)
 pairs; the hybrid arch walks groups of `shared_attn_period` Mamba2 layers
-followed by one weight-shared attention+MLP block (zamba2). A decode step
+followed by one weight-shared attention+MLP block (zamba2). The
+full-sequence pass takes its layers by one ``unbind(0)`` a stacked leaf,
+so its backward stacks each leaf's gradient once (indexing layer by layer
+would write a zero-filled full-size gradient a layer), and wraps each
+layer body (a group body for zamba2) in ``_remat``, the counterpart of the
+reference's ``jax.checkpoint`` policies. A decode step
 writes each layer's new cache entry into the stacked cache in place and
 returns the cache; the step marks its position in ``cache.pos`` before
 the layers run, so each attention layer sees the token's own slot (R9:
@@ -29,6 +34,7 @@ from typing import Any, NamedTuple
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint as ckpt
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
@@ -58,6 +64,16 @@ def _index(tree, i):
         return type(tree)(*(_index(v, i) for v in tree)) \
             if hasattr(tree, "_fields") else tuple(_index(v, i) for v in tree)
     return tree[i]
+
+
+def _unbind(tree) -> list:
+    """The layers of a stacked tree: one ``unbind(0)`` a leaf, so autograd
+    stacks each leaf's gradient once in the backward."""
+    if isinstance(tree, dict):
+        cols = {k: _unbind(v) for k, v in tree.items()}
+        n = len(next(iter(cols.values())))
+        return [{k: c[i] for k, c in cols.items()} for i in range(n)]
+    return list(tree.unbind(0))
 
 
 def _stack(items):
@@ -124,22 +140,59 @@ def decoder_layer(cfg: ModelConfig, lp: dict, x, positions, *,
     return shard(x, "batch", "act_seq", "embed"), new_cache, aux
 
 
+# aten products with no batch dims: ``jax.checkpoint_policies.
+# dots_with_no_batch_dims_saveable`` saves these and recomputes the rest
+# (batched products: bmm, the attention einsums)
+_NO_BATCH_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return (ckpt.CheckpointPolicy.MUST_SAVE if op in _NO_BATCH_DOTS
+            else ckpt.CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat(cfg: ModelConfig, fn):
+    """``fn`` under the config's remat policy when autograd records it:
+    "nothing" saves only its inputs and recomputes the body in the
+    backward, "dots" also saves the outputs of products with no batch dims
+    (``aten.mm`` / ``addmm``), "none" is plain autograd."""
+    if cfg.remat_policy == "none":
+        return fn
+    if cfg.remat_policy == "dots":
+        context = functools.partial(
+            ckpt.create_selective_checkpoint_contexts, _save_dots)
+    elif cfg.remat_policy == "nothing":
+        context = ckpt.noop_context_fn
+    else:
+        raise ValueError(f"unknown remat_policy {cfg.remat_policy!r}")
+
+    @functools.wraps(fn)
+    def wrapped(*args, **kwargs):
+        if not torch.is_grad_enabled():
+            return fn(*args, **kwargs)
+        return ckpt.checkpoint(fn, *args, use_reentrant=False,
+                               context_fn=context, **kwargs)
+    return wrapped
+
+
 # ---------------------------------------------------------------------------
 # Stacks (prefill: caches None; collect_kv gathers each layer's K/V)
 # ---------------------------------------------------------------------------
 
 
-def _scan_blocks(cfg: ModelConfig, blocks, x, positions, *, enc_kv=None,
-                 enc_pos=None, lsh_proj=None, collect_kv=False):
-    """Homogeneous layer loop. Returns (x, collected kv stacked over layers
-    | None, aux_sum)."""
-    n = next(iter(blocks.values())).shape[0]
+def _scan_blocks(cfg: ModelConfig, layers: list, x, positions, *,
+                 enc_kv=None, enc_pos=None, lsh_proj=None, collect_kv=False):
+    """Homogeneous layer loop over ``layers`` (``_unbind``'s list; the
+    cross K/V ``enc_kv`` a list of (k, v) a layer). Returns (x, collected
+    kv stacked over layers | None, aux_sum)."""
     aux_sum = torch.zeros((), dtype=torch.float32, device=x.device)
     kv = []
-    for i in range(n):
-        x, new_cache, aux = decoder_layer(
-            cfg, _index(blocks, i), x, positions,
-            enc_kv=_index(enc_kv, i), enc_pos=enc_pos, lsh_proj=lsh_proj)
+    body = _remat(cfg, decoder_layer)
+    for i, lp in enumerate(layers):
+        x, new_cache, aux = body(
+            cfg, lp, x, positions,
+            enc_kv=None if enc_kv is None else enc_kv[i], enc_pos=enc_pos,
+            lsh_proj=lsh_proj)
         aux_sum = aux_sum + aux
         if collect_kv:
             kv.append(new_cache)
@@ -156,13 +209,18 @@ def _alt_blocks(cfg: ModelConfig, params, x, positions, *, collect_kv=False):
     """llama4-style alternation: (dense layer, MoE layer) pairs. Collected
     caches come out as one (L, ...) stack, dense layer 2i, MoE 2i + 1."""
     dense_cfg = _dense_view(cfg)
+
+    def pair(lpd, lpm, h):
+        h, ncd, a1 = decoder_layer(dense_cfg, lpd, h, positions)
+        h, ncm, a2 = decoder_layer(cfg, lpm, h, positions)
+        return h, ncd, ncm, a1, a2
+
+    body = _remat(cfg, pair)
     aux_sum = torch.zeros((), dtype=torch.float32, device=x.device)
     kv = []
-    for i in range(cfg.n_layers // 2):
-        x, ncd, a1 = decoder_layer(dense_cfg, _index(params["dense_blocks"], i),
-                                   x, positions)
-        x, ncm, a2 = decoder_layer(cfg, _index(params["blocks"], i), x,
-                                   positions)
+    for lpd, lpm in zip(_unbind(params["dense_blocks"]),
+                        _unbind(params["blocks"])):
+        x, ncd, ncm, a1, a2 = body(lpd, lpm, x)
         aux_sum = aux_sum + a1 + a2
         kv += [ncd, ncm]
     return x, (_stack(kv) if collect_kv else None), aux_sum
@@ -173,27 +231,35 @@ def _hybrid_blocks(cfg: ModelConfig, params, x, positions, *,
     """zamba2: groups of `period` Mamba2 layers + one shared attn/MLP block.
 
     Mamba caches come out stacked (G, P, ...); the shared block's K/V
-    stacked (G, ...) since each application attends over its own K/V."""
+    stacked (G, ...) since each application attends over its own K/V.
+    Each Mamba2 layer and each group body is under ``_remat``, as the
+    reference's scans are."""
     period = cfg.shared_attn_period
-    groups = cfg.n_layers // period
-    blocks = _reshape_lead(params["blocks"], (groups, period))
+    layers = _unbind(params["blocks"])
     shared = params["shared"]
-    aux_sum = torch.zeros((), dtype=torch.float32, device=x.device)
-    m_caches, s_caches = [], []
-    for gi in range(groups):
-        gblocks = _index(blocks, gi)
-        inner = []
-        for li in range(period):
-            x, nc, aux = decoder_layer(cfg, _index(gblocks, li), x,
-                                       positions)
-            aux_sum = aux_sum + aux
-            inner.append(nc)
-        m_caches.append(_stack(inner))
-        delta, new_s = attention_block(cfg, shared, x, positions,
+    inner = _remat(cfg, decoder_layer)
+
+    def group(glayers, h):
+        caches, aux_g = [], torch.zeros((), dtype=torch.float32,
+                                        device=h.device)
+        for lp in glayers:
+            h, nc, aux = inner(cfg, lp, h, positions)
+            aux_g = aux_g + aux
+            caches.append(nc)
+        delta, new_s = attention_block(cfg, shared, h, positions,
                                        causal=True,
                                        window=cfg.sliding_window)
-        x = x + delta
-        x = x + mlp(cfg, shared, x)
+        h = h + delta
+        h = h + mlp(cfg, shared, h)
+        return h, _stack(caches), new_s, aux_g
+
+    body = _remat(cfg, group)
+    aux_sum = torch.zeros((), dtype=torch.float32, device=x.device)
+    m_caches, s_caches = [], []
+    for gi in range(cfg.n_layers // period):
+        x, m_c, new_s, aux = body(layers[gi * period:(gi + 1) * period], x)
+        aux_sum = aux_sum + aux
+        m_caches.append(m_c)
         s_caches.append(new_s)
     s_stack = _stack(s_caches) if collect_kv else None
     return x, (_stack(m_caches), s_stack), aux_sum
@@ -211,19 +277,22 @@ def run_encoder(cfg: ModelConfig, params, frames):
     x = frames + enc["pos"][None, :t]
     pos = torch.arange(t, dtype=torch.int32,
                        device=frames.device)[None].expand(b, t)
-    for i in range(cfg.n_encoder_layers):
-        lp = _index(enc["blocks"], i)
-        delta, _ = attention_block(cfg, lp, x, pos, causal=False)
-        x = x + delta
-        x = x + mlp(cfg, lp, x)
+
+    def body(lp, h):
+        delta, _ = attention_block(cfg, lp, h, pos, causal=False)
+        h = h + delta
+        return h + mlp(cfg, lp, h)
+
+    body = _remat(cfg, body)
+    for lp in _unbind(enc["blocks"]):
+        x = body(lp, x)
     return norm(cfg, x, enc["final_norm"]), pos
 
 
 def _dec_enc_kv(cfg: ModelConfig, params, enc_out):
     """Per-decoder-layer cross K/V, stacked (L, B, T, KV, hd) each."""
-    kv = [encode_kv(cfg, _index(params["blocks"], i), enc_out)
-          for i in range(cfg.n_layers)]
-    return _stack(kv)
+    return _stack([encode_kv(cfg, lp, enc_out)
+                   for lp in _unbind(params["blocks"])])
 
 
 # ---------------------------------------------------------------------------
@@ -253,10 +322,6 @@ def _prepare_inputs(cfg: ModelConfig, params, batch):
 def forward(cfg: ModelConfig, params, batch, *, collect_kv=False):
     """Full-sequence pass. Returns (logits, kv_stacks | None, aux)."""
     x, positions = _prepare_inputs(cfg, params, batch)
-    enc_kv = enc_pos = None
-    if cfg.encoder_decoder:
-        enc_out, enc_pos = run_encoder(cfg, params, batch["frames"])
-        enc_kv = _dec_enc_kv(cfg, params, enc_out)
     if cfg.block == "hybrid":
         x, kv, aux = _hybrid_blocks(cfg, params, x, positions,
                                     collect_kv=collect_kv)
@@ -264,7 +329,12 @@ def forward(cfg: ModelConfig, params, batch, *, collect_kv=False):
         x, kv, aux = _alt_blocks(cfg, params, x, positions,
                                  collect_kv=collect_kv)
     else:
-        x, kv, aux = _scan_blocks(cfg, params["blocks"], x, positions,
+        layers = _unbind(params["blocks"])
+        enc_kv = enc_pos = None
+        if cfg.encoder_decoder:
+            enc_out, enc_pos = run_encoder(cfg, params, batch["frames"])
+            enc_kv = [encode_kv(cfg, lp, enc_out) for lp in layers]
+        x, kv, aux = _scan_blocks(cfg, layers, x, positions,
                                   enc_kv=enc_kv, enc_pos=enc_pos,
                                   lsh_proj=params.get("lsh_proj"),
                                   collect_kv=collect_kv)
@@ -489,16 +559,16 @@ def decode_step(cfg: ModelConfig, params, token, cache: DecodeCache,
 
 class _Tree(torch.nn.Module):
     """One level of a params tree: sub-dicts as child modules, leaves as
-    parameters that take no gradient."""
+    parameters (taking gradients if ``trainable``)."""
 
-    def __init__(self, tree: dict):
+    def __init__(self, tree: dict, trainable: bool = False):
         super().__init__()
         for k, v in tree.items():
             if isinstance(v, dict):
-                self.add_module(k, _Tree(v))
+                self.add_module(k, _Tree(v, trainable))
             else:
                 self.register_parameter(
-                    k, torch.nn.Parameter(v, requires_grad=False))
+                    k, torch.nn.Parameter(v, requires_grad=trainable))
 
     def tree(self) -> dict:
         out = {k: m.tree() for k, m in self.named_children()}
@@ -509,15 +579,23 @@ class _Tree(torch.nn.Module):
 class LM(torch.nn.Module):
     """A model config and its params tree as one module (the engine's
     model): ``tree()`` gives the tree back with the reference's nesting,
-    ``.to()`` moves it, and ``forward(batch)`` gives the logits."""
+    ``.to()`` moves it, and ``forward(batch)`` gives the logits. With
+    ``trainable=True`` its leaves take gradients (``loss(batch)`` then
+    ``backward()``); the engine serves it under ``inference_mode``
+    either way."""
 
-    def __init__(self, cfg: ModelConfig, params: dict):
+    def __init__(self, cfg: ModelConfig, params: dict,
+                 trainable: bool = False):
         super().__init__()
         self.cfg = cfg
-        self.params = _Tree(params)
+        self.params = _Tree(params, trainable)
 
     def tree(self) -> dict:
         return self.params.tree()
 
     def forward(self, batch) -> torch.Tensor:
         return forward(self.cfg, self.tree(), batch)[0]
+
+    def loss(self, batch):
+        """``loss_fn`` on the module's tree: (loss, metrics)."""
+        return loss_fn(self.cfg, self.tree(), batch)

@@ -2,8 +2,9 @@
 loop (reference: ``repro.serving.engine``).
 
 The steps run under ``torch.inference_mode()`` (no autograd) on the
-device the params live on. ``params`` is a params tree or a
-``models.transformer.LM``.
+device the params live on; training takes its gradients in
+``training.train_loop``, never here. ``params`` is a params tree (a
+trained ``TrainState.params`` too) or a ``models.transformer.LM``.
 """
 
 from __future__ import annotations
